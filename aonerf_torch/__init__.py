@@ -1,0 +1,29 @@
+"""aonerf in PyTorch, with hand-written CUDA kernels for Hopper (sm_90a).
+
+The JAX package ``aonerf`` is the reference; module names here mirror it so
+each counterpart is easy to find. This package imports neither JAX nor
+anything of ``aonerf``.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
+no card and no CPU request they raise.
+"""
+
+from typing import Optional, Union
+
+import torch
+
+DeviceLike = Union[str, torch.device, None]
+
+
+def default_device(device: DeviceLike = None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless ``device`` says
+    otherwise. Raises when CUDA is asked for (explicitly or by default) and
+    no card is present; there is no silent CPU path."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the CPU"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev

@@ -1,0 +1,138 @@
+"""Analytic articulated "laptop" scene, ray-traced in numpy (the in-memory
+half of ``aonerf.data.synthetic``; no image files are written).
+
+A base slab and a lid slab hinged at its back edge, the lid pitched by the
+articulation angle. It gives real multi-view-consistent test views without
+files or PIL.
+"""
+
+from dataclasses import dataclass
+from typing import List, Tuple
+
+import numpy as np
+
+from aonerf_torch.data.camera import get_ray_directions_np, look_at_c2w
+
+# 35 deg vertical field of view; images are 320x240 native.
+FOVY_DEG = 35.0
+
+
+@dataclass
+class Box:
+    """Oriented box: axis-aligned with ``half`` extents in its own frame,
+    placed by the 4x4 ``pose`` (box-to-world); ``color`` is base albedo."""
+
+    half: np.ndarray
+    pose: np.ndarray
+    color: np.ndarray
+
+
+def _rot_x(deg: float) -> np.ndarray:
+    r = np.deg2rad(deg)
+    c, s = np.cos(r), np.sin(r)
+    m = np.eye(4)
+    m[1, 1], m[1, 2], m[2, 1], m[2, 2] = c, -s, s, c
+    return m
+
+
+def laptop_scene(articulation_deg: float, instance_seed: int = 0) -> List[Box]:
+    """Two-part laptop: base slab on the 'table', lid hinged at the back edge,
+    opened by ``articulation_deg`` (0 = closed flat). The instance seed varies
+    the part sizes and colors."""
+    rng = np.random.default_rng(instance_seed + 12345)
+    bw = 1.0 + 0.3 * rng.uniform(-1, 1)  # base half-width (x)
+    bd = 0.7 + 0.2 * rng.uniform(-1, 1)  # base half-depth (y)
+    th = 0.06  # slab half-thickness
+    base_color = rng.uniform(0.25, 0.9, size=3)
+    lid_color = rng.uniform(0.25, 0.9, size=3)
+
+    base_pose = np.eye(4)
+    base_pose[2, 3] = -0.4  # sit slightly below origin
+
+    # Lid hinges about the back edge of the base (y = -bd, z = base top).
+    hinge = np.eye(4)
+    hinge[1, 3] = -bd
+    hinge[2, 3] = base_pose[2, 3] + th
+    lid_local = np.eye(4)
+    lid_local[1, 3] = bd  # lid extends forward from the hinge before rotation
+    lid_local[2, 3] = th
+    lid_pose = hinge @ _rot_x(-articulation_deg) @ lid_local
+
+    return [
+        Box(half=np.array([bw, bd, th]), pose=base_pose, color=base_color),
+        Box(half=np.array([bw, bd, th]), pose=lid_pose, color=lid_color),
+    ]
+
+
+def _ray_box_hits(
+    o: np.ndarray, d: np.ndarray, box: Box
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Vectorized ray/oriented-box intersection.
+
+    Returns (hit (N,), t (N,), normal_world (N, 3)) for first entry points.
+    """
+    w2b = np.linalg.inv(box.pose)
+    ob = o @ w2b[:3, :3].T + w2b[:3, 3]
+    db = d @ w2b[:3, :3].T
+    db = np.where(np.abs(db) < 1e-12, 1e-12, db)
+    inv = 1.0 / db
+    lo = (-box.half - ob) * inv
+    hi = (box.half - ob) * inv
+    t0 = np.minimum(lo, hi)
+    t1 = np.maximum(lo, hi)
+    tmin = t0.max(axis=-1)
+    tmax = t1.min(axis=-1)
+    hit = (tmax >= tmin) & (tmax > 0)
+    t = np.where(tmin > 0, tmin, tmax)  # inside-the-box rays exit-hit
+
+    # Normal = axis of the slab that produced tmin (box frame), world-rotated.
+    axis = np.argmax(t0, axis=-1)
+    n_box = np.zeros_like(ob)
+    n_box[np.arange(len(axis)), axis] = -np.sign(db[np.arange(len(axis)), axis])
+    n_world = n_box @ box.pose[:3, :3].T
+    return hit, t, n_world
+
+
+def render_scene(
+    boxes: List[Box],
+    c2w: np.ndarray,
+    h: int,
+    w: int,
+    focal: float,
+    light_dir: np.ndarray = np.array([0.3, 0.5, 0.8]),
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Ray-trace the scene. Returns (rgb (H,W,3) float in [0,1],
+    alpha (H,W) bool, seg (H,W) uint8 part ids starting at 1)."""
+    dirs = get_ray_directions_np(h, w, focal).reshape(-1, 3)
+    d = dirs @ c2w[:3, :3].T
+    d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    o = np.broadcast_to(c2w[:3, 3], d.shape)
+
+    best_t = np.full(len(d), np.inf)
+    rgb = np.zeros((len(d), 3))
+    seg = np.zeros(len(d), dtype=np.uint8)
+    light = light_dir / np.linalg.norm(light_dir)
+    for idx, box in enumerate(boxes):
+        hit, t, n = _ray_box_hits(o, d, box)
+        closer = hit & (t < best_t)
+        shade = 0.45 + 0.55 * np.abs(n @ light)
+        rgb[closer] = np.clip(box.color * shade[closer, None], 0.0, 1.0)
+        seg[closer] = idx + 1
+        best_t = np.where(closer, t, best_t)
+
+    alpha = np.isfinite(best_t)
+    return rgb.reshape(h, w, 3), alpha.reshape(h, w), seg.reshape(h, w)
+
+
+def random_pose_on_sphere(
+    rng: np.random.Generator, radius: float = 4.0, jitter: float = 0.5
+) -> np.ndarray:
+    """Random camera on a sphere shell (radius +/- jitter) looking at the
+    origin, from the upper hemisphere (20-70 deg elevation)."""
+    r = radius + rng.uniform(-jitter, jitter)
+    theta = rng.uniform(0, 2 * np.pi)
+    phi = rng.uniform(np.deg2rad(20), np.deg2rad(70))  # elevation
+    eye = np.array(
+        [r * np.cos(phi) * np.cos(theta), r * np.cos(phi) * np.sin(theta), r * np.sin(phi)]
+    )
+    return look_at_c2w(eye, np.zeros(3), np.array([0.0, 0.0, 1.0]))

@@ -1,0 +1,82 @@
+"""Vanilla NeRF MLP at its default shape (counterpart of
+``aonerf.models.mlp.NeRFMLP``).
+
+  trunk: pts_0 (63 -> 256) + pts_1..7 (256 -> 256), ReLU; the encoded input
+         is concatenated to the activation after pts_4, so pts_5 takes 319
+  heads: density (256 -> 1, bias 0.3), bottleneck (256 -> 256)
+  view:  views_0 (256 + 27 -> 128), ReLU; rgb (128 -> 3)
+
+Layer names match the flax parameter tree, so ``utils.bridge`` can carry the
+weights across. The fused level kernel computes the same function from
+``ops.kernels.fused_render.kernel_params(mlp)``; ``forward`` is the layer-by-
+layer form.
+"""
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from aonerf_torch import DeviceLike, default_device
+from aonerf_torch.ops.encoding import pos_enc_dim
+
+
+class NeRFMLP(nn.Module):
+    min_deg_point, max_deg_point, deg_view = 0, 10, 4
+    netdepth = 8
+    netwidth = 256
+    netwidth_condition = 128
+    skip_layer = 4
+
+    def __init__(
+        self,
+        density_bias_init: float = 0.3,
+        generator: Optional[torch.Generator] = None,
+        device: DeviceLike = None,
+    ):
+        """Xavier-uniform kernels and zero biases (density bias
+        ``density_bias_init``), drawn on the CPU from ``generator`` and then
+        moved to ``device``."""
+        super().__init__()
+        pos = pos_enc_dim(3, self.min_deg_point, self.max_deg_point)
+        view = pos_enc_dim(3, 0, self.deg_view)
+        w = self.netwidth
+
+        def linear(fan_in, fan_out):  # no draw from the global generator
+            return nn.Linear(fan_in, fan_out, device="meta")
+
+        for i in range(self.netdepth):
+            fan_in = pos if i == 0 else w + (pos if i == self.skip_layer + 1 else 0)
+            setattr(self, f"pts_{i}", linear(fan_in, w))
+        self.density = linear(w, 1)
+        self.bottleneck = linear(w, w)
+        self.views_0 = linear(w + view, self.netwidth_condition)
+        self.rgb = linear(self.netwidth_condition, 3)
+        self.to_empty(device="cpu")
+        with torch.no_grad():
+            for layer in self.children():
+                nn.init.xavier_uniform_(layer.weight, generator=generator)
+                nn.init.zeros_(layer.bias)
+            self.density.bias.fill_(density_bias_init)
+        self.to(default_device(device))
+
+    def forward(
+        self, x: torch.Tensor, condition: torch.Tensor
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """x (B, S, 63) encoded samples; condition (B, 27) encoded view dirs.
+
+        Returns (raw_rgb (B, S, 3), raw_density (B, S, 1)).
+        """
+        num_samples, feat_dim = x.shape[1:]
+        x = x.reshape(-1, feat_dim)
+        inputs = x
+        for idx in range(self.netdepth):
+            x = torch.relu(getattr(self, f"pts_{idx}")(x))
+            if idx % self.skip_layer == 0 and idx > 0:
+                x = torch.cat([x, inputs], dim=-1)
+        raw_density = self.density(x).reshape(-1, num_samples, 1)
+        bottleneck = self.bottleneck(x)
+        cond = condition[:, None, :].expand(-1, num_samples, -1).reshape(-1, condition.shape[-1])
+        x = torch.relu(self.views_0(torch.cat([bottleneck, cond], dim=-1)))
+        raw_rgb = self.rgb(x).reshape(-1, num_samples, 3)
+        return raw_rgb, raw_density

@@ -1,0 +1,214 @@
+"""Fused NeRF level: MLP trunk + heads + alpha compositing for a set of rays
+(counterpart of ``aonerf.ops.kernels.fused_render``).
+
+``fused_render_level`` launches the CUDA kernel ``csrc/fused_render.cu`` on
+CUDA tensors and runs ``fused_render_level_ref``, the plain PyTorch version of
+the same function, on CPU tensors. Anything else raises; a CUDA call never
+falls back to the plain version.
+
+The function is the TPU kernel's: the skip layer as a split matmul, the view
+condition contracted once per ray, transmittance as exp of an exclusive sum of
+log(max(1 - alpha + 1e-10, 1e-10)), and depth without the NaN/clip step of
+``ops/render.py``.
+"""
+
+import ctypes
+from typing import Dict, Tuple
+
+import torch
+
+from aonerf_torch.ops.kernels import build
+
+WEIGHT_NAMES = (
+    "w0", "b0", "w1", "b1", "w2", "b2", "w3", "b3", "w4", "b4",
+    "w5x", "w5i", "b5", "w6", "b6", "w7", "b7",
+    "wd", "bd", "wb", "bb", "wva", "wvb", "bv", "wr", "br",
+)
+WIDTH, COND_WIDTH, POS_DIM, VIEW_DIM = 256, 128, 63, 27
+# Rays per CUDA block. 16 rays of 193 samples fill 48.25 chunks of 64 rows
+# (1.5% padding; 4.6% at S=65), fit the block's per-sample scratch into
+# shared memory, and make 256 blocks of a 4096-ray tile (two waves on 132 SMs).
+RAY_TILE = 16
+
+# Launches of the CUDA kernel since the count was last set to 0.
+launches = 0
+
+
+def kernel_params(mlp) -> Dict[str, torch.Tensor]:
+    """The kernel's weight dict from a ``NeRFMLP``, in ``WEIGHT_NAMES`` order.
+
+    Kernels are in the flax (in, out) layout, biases (1, out); ``pts_5`` and
+    ``views_0`` are split into their trunk/skip and bottleneck/view halves,
+    as ``aonerf.ops.kernels.mlp_params_from_flax`` does. Every tensor is a
+    fresh contiguous copy.
+    """
+
+    def k(layer):
+        return layer.weight.detach().t().contiguous()
+
+    def b(layer):
+        return layer.bias.detach().reshape(1, -1).contiguous()
+
+    out = {}
+    for i in range(8):
+        layer = getattr(mlp, f"pts_{i}")
+        if i == 5:
+            kern = k(layer)
+            out["w5x"] = kern[:WIDTH].contiguous()
+            out["w5i"] = kern[WIDTH:].contiguous()
+        else:
+            out[f"w{i}"] = k(layer)
+        out[f"b{i}"] = b(layer)
+    out["wd"], out["bd"] = k(mlp.density), b(mlp.density)
+    out["wb"], out["bb"] = k(mlp.bottleneck), b(mlp.bottleneck)
+    kv = k(mlp.views_0)
+    out["wva"] = kv[:WIDTH].contiguous()
+    out["wvb"] = kv[WIDTH:].contiguous()
+    out["bv"] = b(mlp.views_0)
+    out["wr"], out["br"] = k(mlp.rgb), b(mlp.rgb)
+    return {n: out[n] for n in WEIGHT_NAMES}
+
+
+def fused_render_level_ref(
+    kernel_params: Dict[str, torch.Tensor],
+    t_vals: torch.Tensor,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    viewdirs_enc: torch.Tensor,
+    samples_enc: torch.Tensor,
+    white_bkgd: bool,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the fused level. Same arguments and outputs as
+    :func:`fused_render_level`, on any device."""
+    w = kernel_params
+    R, S = t_vals.shape
+    xe = samples_enc.reshape(R * S, -1)
+    relu = torch.relu
+
+    x = relu(xe @ w["w0"] + w["b0"])
+    for i in (1, 2, 3, 4):
+        x = relu(x @ w[f"w{i}"] + w[f"b{i}"])
+    x = relu(x @ w["w5x"] + xe @ w["w5i"] + w["b5"])
+    for i in (6, 7):
+        x = relu(x @ w[f"w{i}"] + w[f"b{i}"])
+
+    raw_sigma = x @ w["wd"] + w["bd"]  # (rows, 1)
+    bottleneck = x @ w["wb"] + w["bb"]
+    c_part = viewdirs_enc @ w["wvb"]  # (R, 128), once per ray
+    c_rows = c_part[:, None, :].expand(R, S, c_part.shape[-1]).reshape(R * S, -1)
+    v = relu(bottleneck @ w["wva"] + c_rows + w["bv"])
+    raw_rgb = v @ w["wr"] + w["br"]  # (rows, 3)
+
+    dnorm = torch.sqrt(torch.sum(rays_d * rays_d, dim=-1, keepdim=True))
+    dists = torch.cat([t_vals[:, 1:] - t_vals[:, :-1], torch.full_like(t_vals[:, :1], 1e10)], -1)
+    dists = dists * dnorm
+    sigma = relu(raw_sigma.reshape(R, S))
+    alpha = 1.0 - torch.exp(-sigma * dists)
+    logv = torch.log(torch.clamp(1.0 - alpha + 1e-10, min=1e-10))
+    excl = torch.cat([torch.zeros_like(logv[:, :1]), torch.cumsum(logv[:, :-1], dim=-1)], -1)
+    weights = alpha * torch.exp(excl)
+
+    rgb = torch.sigmoid(raw_rgb).reshape(R, S, 3)
+    comp = torch.sum(weights[..., None] * rgb, dim=-2)
+    acc = torch.sum(weights, dim=-1)
+    depth = torch.sum(weights * t_vals, dim=-1)
+    if white_bkgd:
+        comp = comp + (1.0 - acc[..., None])
+    return comp, acc, depth, weights
+
+
+def _check_inputs(kernel_params, t_vals, rays_d, viewdirs_enc, xenc, R, S):
+    expect = {
+        "t_vals": (t_vals, (R, S)),
+        "rays_d": (rays_d, (R, 3)),
+        "viewdirs_enc": (viewdirs_enc, (R, VIEW_DIM)),
+        "samples_enc": (xenc, (R * S, POS_DIM)),
+    }
+    shapes = {
+        "w0": (POS_DIM, WIDTH), "w5x": (WIDTH, WIDTH), "w5i": (POS_DIM, WIDTH),
+        "wd": (WIDTH, 1), "bd": (1, 1), "wb": (WIDTH, WIDTH), "bb": (1, WIDTH),
+        "wva": (WIDTH, COND_WIDTH), "wvb": (VIEW_DIM, COND_WIDTH), "bv": (1, COND_WIDTH),
+        "wr": (COND_WIDTH, 3), "br": (1, 3),
+    }
+    for i in (1, 2, 3, 4, 6, 7):
+        shapes[f"w{i}"] = (WIDTH, WIDTH)
+    for i in range(8):
+        shapes[f"b{i}"] = (1, WIDTH)
+    for n in WEIGHT_NAMES:
+        expect[n] = (kernel_params[n], shapes[n])
+    device = t_vals.device
+    for name, (x, shape) in expect.items():
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(x.shape)}, expected {shape}")
+        if x.dtype != torch.float32 or x.device != device:
+            raise ValueError(f"{name}: {x.dtype} on {x.device}, expected float32 on {device}")
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"{name}: must be contiguous and 16-byte aligned")
+
+
+_lib = None
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        lib = build.load("fused_render")
+        fn = lib.aonerf_fused_render_level
+        fn.argtypes = [ctypes.c_void_p] * (4 + len(WEIGHT_NAMES) + 4) + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p
+        ]
+        fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def fused_render_level(
+    kernel_params: Dict[str, torch.Tensor],
+    t_vals: torch.Tensor,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    viewdirs_enc: torch.Tensor,
+    samples_enc: torch.Tensor,
+    white_bkgd: bool,
+    ray_tile: int = RAY_TILE,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Render one hierarchy level for R rays (R % ray_tile == 0).
+
+    t_vals (R, S); rays_o/rays_d (R, 3); viewdirs_enc (R, 27);
+    samples_enc (R, S, 63) or (R*S, 63); weights from :func:`kernel_params`.
+    Returns (comp_rgb (R,3), acc (R,), depth (R,), weights (R,S)).
+
+    On CUDA tensors this launches the kernel, one block per ``ray_tile`` rays;
+    ``rays_o`` is not read there, as in the TPU kernel. On CPU tensors it runs
+    the plain version.
+    """
+    global launches
+    R, S = t_vals.shape
+    if R % ray_tile != 0:
+        raise ValueError(f"rays {R} not a multiple of ray_tile {ray_tile}")
+    if t_vals.device.type == "cpu":
+        return fused_render_level_ref(
+            kernel_params, t_vals, rays_o, rays_d, viewdirs_enc, samples_enc, white_bkgd
+        )
+    if t_vals.device.type != "cuda":
+        raise ValueError(f"fused_render_level runs on cuda or cpu, not {t_vals.device}")
+
+    xenc = samples_enc.reshape(R * S, samples_enc.shape[-1])
+    _check_inputs(kernel_params, t_vals, rays_d, viewdirs_enc, xenc, R, S)
+    lib = _library()
+    comp = torch.empty((R, 3), dtype=torch.float32, device=t_vals.device)
+    acc = torch.empty((R,), dtype=torch.float32, device=t_vals.device)
+    depth = torch.empty((R,), dtype=torch.float32, device=t_vals.device)
+    weights = torch.empty((R, S), dtype=torch.float32, device=t_vals.device)
+    with torch.cuda.device(t_vals.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.aonerf_fused_render_level(
+            t_vals.data_ptr(), rays_d.data_ptr(), viewdirs_enc.data_ptr(), xenc.data_ptr(),
+            *[kernel_params[n].data_ptr() for n in WEIGHT_NAMES],
+            comp.data_ptr(), acc.data_ptr(), depth.data_ptr(), weights.data_ptr(),
+            R, S, ray_tile, int(white_bkgd), stream,
+        )
+    if err != 0:  # e.g. ray_tile x S needs more shared memory than a block has
+        raise RuntimeError(f"fused_render_level: CUDA launch failed with error {err}")
+    launches += 1
+    return comp, acc, depth, weights
