@@ -1,18 +1,19 @@
-"""Single-scene SAPIEN layout, eval side (counterpart of
-``aonerf.data.sapien``).
+"""Single-scene SAPIEN layout (counterpart of ``aonerf.data.sapien``).
 
   {root}/{split}/rgb/r_#.png + {root}/{split}/transforms.json
   (4x4 c2w per frame; 'focal' or 'camera_angle_x'), near/far = 2/6,
   RGBA composited on white.
 
-Only per-image test/val views are loaded; the flat train buffers come with
-the training path.
+train: every ray of every image in flat (N, 3) host buffers, which the
+trainer uploads once and gathers batches from on the device. val/test:
+per-image rays and targets. Images are decoded with PIL.
 """
 
 import json
 import os
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 
@@ -55,7 +56,8 @@ class ImageSample:
 
 
 class SapienDataset:
-    """Per-image eval views of one scene, as host numpy arrays."""
+    """One scene's views as host numpy arrays: flat train buffers, or
+    per-image val/test views."""
 
     def __init__(
         self,
@@ -64,8 +66,8 @@ class SapienDataset:
         img_wh: Tuple[int, int] = (320, 240),
         white_back: bool = True,
     ):
-        if split not in ("val", "test"):
-            raise NotImplementedError(f"split {split!r}: only 'val' and 'test' are ported")
+        if split not in ("train", "val", "test"):
+            raise ValueError(f"split {split!r}: expected 'train', 'val' or 'test'")
         self.root_dir = root_dir
         self.split = split
         self.img_wh = img_wh
@@ -80,13 +82,55 @@ class SapienDataset:
         self.directions = get_ray_directions_np(h, w, self.focal)
         self.img_files = _sorted_image_files(os.path.join(base, "rgb"))
         self._base = base
+        if split == "train":
+            self._build_train_buffers()
 
     def _frame_c2w(self, img_file: str) -> np.ndarray:
         return np.asarray(self.meta["frames"][img_file.split(".")[0]], dtype=np.float32)[:3, :4]
 
+    def _build_train_buffers(self) -> None:
+        # Preallocated flat (N_total, 3) buffers written in place by a thread
+        # pool (PIL releases the GIL while decoding). viewdirs aliases rays_d,
+        # as in the reference.
+        w, h = self.img_wh
+        n_img, n_pix = len(self.img_files), h * w
+        self.all_rays_o = np.empty((n_img * n_pix, 3), np.float32)
+        self.all_rays_d = np.empty((n_img * n_pix, 3), np.float32)
+        self.all_viewdirs = self.all_rays_d
+        self.all_rgbs = np.empty((n_img * n_pix, 3), np.float32)
+
+        def load(i: int) -> None:
+            img_file = self.img_files[i]
+            rgba = _load_rgba(os.path.join(self._base, "rgb", img_file), self.img_wh)
+            sl = slice(i * n_pix, (i + 1) * n_pix)
+            rgb = self.all_rgbs[sl].reshape(h, w, 3)
+            np.multiply(rgba[..., :3], rgba[..., 3:], out=rgb)
+            rgb += 1.0
+            rgb -= rgba[..., 3:]
+            rays_o, viewdirs, _, _ = get_rays_np(self.directions, self._frame_c2w(img_file))
+            self.all_rays_o[sl] = rays_o
+            self.all_rays_d[sl] = viewdirs
+
+        with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 2)) as ex:
+            list(ex.map(load, range(n_img)))
+
+    @property
+    def num_rays(self) -> int:
+        return len(self.all_rays_o)
+
     @property
     def num_images(self) -> int:
         return len(self.img_files)
+
+    def train_buffers(self) -> Dict[str, np.ndarray]:
+        """The whole scene's rays (rays_o, rays_d, viewdirs aliasing rays_d)
+        and white-composited targets, for batch sampling on the device."""
+        return {
+            "rays_o": self.all_rays_o,
+            "rays_d": self.all_rays_d,
+            "viewdirs": self.all_viewdirs,
+            "target": self.all_rgbs,
+        }
 
     def get_image(self, idx: int) -> ImageSample:
         """Per-image rays and targets for validation or test rendering."""

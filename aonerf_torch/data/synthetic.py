@@ -1,13 +1,15 @@
-"""Analytic articulated "laptop" scene, ray-traced in numpy (the in-memory
-half of ``aonerf.data.synthetic``; no image files are written).
+"""Analytic articulated "laptop" scene, ray-traced in numpy (the single-scene
+half of ``aonerf.data.synthetic``).
 
 A base slab and a lid slab hinged at its back edge, the lid pitched by the
-articulation angle. It gives real multi-view-consistent test views without
-files or PIL.
+articulation angle. It gives real multi-view-consistent views in memory, and
+``write_single_scene`` writes them in the SAPIEN layout with PIL.
 """
 
+import json
+import os
 from dataclasses import dataclass
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 
@@ -136,3 +138,40 @@ def random_pose_on_sphere(
         [r * np.cos(phi) * np.cos(theta), r * np.cos(phi) * np.sin(theta), r * np.sin(phi)]
     )
     return look_at_c2w(eye, np.zeros(3), np.array([0.0, 0.0, 1.0]))
+
+
+def write_single_scene(
+    root: str,
+    img_wh: Tuple[int, int] = (320, 240),
+    n_train: int = 20,
+    n_val: int = 4,
+    n_test: int = 4,
+    articulation_deg: float = 80.0,
+    instance_seed: int = 0,
+    seed: int = 0,
+) -> str:
+    """Write a single-scene dataset in the SAPIEN layout
+    ({root}/{split}/rgb/r_#.png RGBA + transforms.json with a 'focal' key),
+    the same files ``aonerf.data.synthetic.generate_single_scene`` writes."""
+    from PIL import Image  # only the writer needs PIL
+
+    w, h = img_wh
+    focal = 0.5 * h / np.tan(0.5 * np.deg2rad(FOVY_DEG))
+    boxes = laptop_scene(articulation_deg, instance_seed)
+    rng = np.random.default_rng(seed)
+    for split, count in (("train", n_train), ("val", n_val), ("test", n_test)):
+        rgb_dir = os.path.join(root, split, "rgb")
+        os.makedirs(rgb_dir, exist_ok=True)
+        frames: Dict[str, list] = {}
+        for i in range(count):
+            c2w = random_pose_on_sphere(rng)
+            rgb, alpha, _ = render_scene(boxes, c2w, h, w, focal)
+            rgba = np.concatenate(
+                [np.clip(rgb * 255, 0, 255).astype(np.uint8), (alpha[..., None] * 255).astype(np.uint8)],
+                axis=-1,
+            )
+            Image.fromarray(rgba, mode="RGBA").save(os.path.join(rgb_dir, f"r_{i}.png"))
+            frames[f"r_{i}"] = c2w.tolist()
+        with open(os.path.join(root, split, "transforms.json"), "w") as f:
+            json.dump({"focal": focal, "frames": frames}, f)
+    return root

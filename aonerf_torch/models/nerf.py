@@ -4,8 +4,11 @@
   fine:   num_fine_samples inverse-CDF samples from the coarse weights[1:-1]
           over the coarse bin midpoints, merged with the coarse t-values
 
-Each level is one call of ``fused_render_level``: the CUDA kernel on the card,
-its plain version on the CPU. Only deterministic rendering is ported so far.
+Each level is one call of the fused level (``ops.kernels.fused_train``): the
+CUDA kernels on the card, their plain versions on the CPU. Randomized
+rendering (jittered coarse t-values, sorted-uniform fine samples) takes its
+numbers from an explicit ``draws`` object (``ops.random``); ``noise_std`` is
+not ported.
 """
 
 from typing import Dict, List, Optional, Tuple
@@ -15,8 +18,8 @@ from torch import nn
 
 from aonerf_torch import DeviceLike, default_device
 from aonerf_torch.models.mlp import NeRFMLP
-from aonerf_torch.ops import encoding, sampling
-from aonerf_torch.ops.kernels.fused_render import fused_render_level, kernel_params
+from aonerf_torch.ops.kernels.fused_render import fused_render_level
+from aonerf_torch.ops.kernels.fused_train import fused_level, fused_nerf_forward
 
 
 class NeRF(nn.Module):
@@ -45,38 +48,20 @@ class NeRF(nn.Module):
         white_bkgd: bool,
         near: float,
         far: float,
+        draws=None,
     ) -> List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
         """rays: 'rays_o', 'rays_d' (unit), 'viewdirs' (B, 3), B a multiple of
-        ``fused_render.RAY_TILE`` (16).
+        ``fused_render.RAY_TILE`` (16). ``draws`` (``ops.random.Draws``) is
+        needed when ``randomized``.
 
-        Returns [(comp_rgb, acc, depth)] per level, coarse first.
+        Returns [(comp_rgb, acc, depth)] per level, coarse first. With grad
+        enabled each level is the differentiable ``fused_level`` (K1 forward,
+        K2 backward); without, ``fused_render_level`` alone.
         """
-        if randomized:
-            raise NotImplementedError("randomized rendering is not ported yet")
-        ret = []
-        t_vals = weights = None
-        viewdirs_enc = encoding.pos_enc(rays["viewdirs"], 0, NeRFMLP.deg_view)
-        for i_level in range(self.num_levels):
-            if i_level == 0:
-                t_vals, samples = sampling.sample_along_rays(
-                    rays["rays_o"], rays["rays_d"], self.num_coarse_samples,
-                    near, far, randomized, self.lindisp,
-                )
-                mlp = self.coarse_mlp
-            else:
-                t_mids = 0.5 * (t_vals[..., 1:] + t_vals[..., :-1])
-                t_vals, samples = sampling.sample_pdf(
-                    t_mids, weights[..., 1:-1], rays["rays_o"], rays["rays_d"],
-                    t_vals, self.num_fine_samples, randomized,
-                )
-                mlp = self.fine_mlp
-            t_vals = t_vals.contiguous()
-            samples_enc = encoding.pos_enc(
-                samples, NeRFMLP.min_deg_point, NeRFMLP.max_deg_point
-            )
-            comp_rgb, acc, depth, weights = fused_render_level(
-                kernel_params(mlp), t_vals, rays["rays_o"], rays["rays_d"],
-                viewdirs_enc, samples_enc, white_bkgd,
-            )
-            ret.append((comp_rgb, acc, depth))
-        return ret
+        if randomized and draws is None:
+            raise ValueError("randomized rendering needs draws")
+        level = fused_level if torch.is_grad_enabled() else fused_render_level
+        return fused_nerf_forward(
+            self.coarse_mlp, self.fine_mlp, rays, randomized, white_bkgd, near, far,
+            self.num_coarse_samples, self.num_fine_samples, self.lindisp, draws, level=level,
+        )

@@ -1,8 +1,9 @@
 """Build the CUDA sources in ``csrc/`` with nvcc and load them with ctypes.
 
 Each ``csrc/<name>.cu`` compiles on its own into a shared library with a plain
-C interface, ``build/lib<name>-<hash>.so`` beside this file (the hash is of
-the source, so an edited source rebuilds). Nothing is compiled when the module
+C interface, ``build/lib<name>-<hash>.so`` beside this file. The hash covers
+the source and every header in ``csrc/`` (``*.cuh``, ``*.h``), so an edited
+source or shared header rebuilds. Nothing is compiled when the module
 is imported: the first caller builds. Without ``nvcc``, or when a build fails,
 this raises.
 """
@@ -45,8 +46,11 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted([*CSRC.glob("*.cuh"), *CSRC.glob("*.h")]):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _start(name: str, out: Path) -> subprocess.Popen:

@@ -40,14 +40,19 @@ def kernel_params(mlp) -> Dict[str, torch.Tensor]:
     Kernels are in the flax (in, out) layout, biases (1, out); ``pts_5`` and
     ``views_0`` are split into their trunk/skip and bottleneck/view halves,
     as ``aonerf.ops.kernels.mlp_params_from_flax`` does. Every tensor is a
-    fresh contiguous copy.
+    contiguous copy or view. With grad enabled, autograd carries their
+    gradients back to the ``nn.Linear`` weights and biases; without, they
+    are detached.
     """
+    grad = torch.is_grad_enabled()
 
     def k(layer):
-        return layer.weight.detach().t().contiguous()
+        w = layer.weight if grad else layer.weight.detach()
+        return w.t().contiguous()
 
     def b(layer):
-        return layer.bias.detach().reshape(1, -1).contiguous()
+        bias = layer.bias if grad else layer.bias.detach()
+        return bias.reshape(1, -1).contiguous()
 
     out = {}
     for i in range(8):

@@ -1,0 +1,184 @@
+"""The vanilla train step: batch gather on the device, hierarchical render
+through the fused levels, MSE(coarse) + MSE(fine), gradients, Adam with the
+log-lerp schedule (counterpart of ``aonerf.train.step``).
+
+A step's random numbers come from ``Draws.for_step(seed, step)``, as JAX's
+from ``fold_in(base_key, step)``, so a resumed run draws what an unbroken run
+would. The model's parameters are updated in place; ``TrainState`` holds
+them by name beside the step count and the optimizer state.
+"""
+
+from dataclasses import dataclass
+from functools import partial
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from aonerf_torch.ops.math import img2mse, mse2psnr
+from aonerf_torch.ops.random import Draws
+from aonerf_torch.train.lr import log_lerp_lr
+
+
+@dataclass
+class AdamState:
+    count: int
+    mu: List[torch.Tensor]
+    nu: List[torch.Tensor]
+
+
+class Adam:
+    """Adam(b1, b2, eps) with a learning-rate schedule and optional
+    global-norm clipping, computed as optax's ``clip_by_global_norm`` then
+    ``adam`` compute them: the schedule is read at the update count before
+    the update, and clipping divides by the global norm itself (no 1e-6, as
+    ``torch.nn.utils.clip_grad_norm_`` adds)."""
+
+    def __init__(
+        self,
+        schedule: Callable[[int], float],
+        b1: float = 0.9,
+        b2: float = 0.999,
+        eps: float = 1e-8,
+        grad_clip: Optional[float] = None,
+    ):
+        self.schedule, self.b1, self.b2, self.eps, self.grad_clip = schedule, b1, b2, eps, grad_clip
+
+    def init(self, params: List[torch.Tensor]) -> AdamState:
+        return AdamState(
+            count=0,
+            mu=[torch.zeros_like(p) for p in params],
+            nu=[torch.zeros_like(p) for p in params],
+        )
+
+    @torch.no_grad()
+    def update(self, params: List[torch.Tensor], grads: List[torch.Tensor], state: AdamState) -> AdamState:
+        """Apply one update to ``params`` in place; returns the new state."""
+        if self.grad_clip:
+            g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+            keep = g_norm < self.grad_clip
+            grads = [torch.where(keep, g, (g / g_norm) * self.grad_clip) for g in grads]
+        b1, b2 = self.b1, self.b2
+        count = state.count + 1
+        f32 = np.float32
+        bc1 = float(f32(1.0) - f32(b1) ** f32(count))
+        bc2 = float(f32(1.0) - f32(b2) ** f32(count))
+        step_size = -float(f32(self.schedule(state.count)))
+        mu = [(1 - b1) * g + b1 * m for g, m in zip(grads, state.mu)]
+        nu = [(1 - b2) * (g * g) + b2 * v for g, v in zip(grads, state.nu)]
+        for p, m, v in zip(params, mu, nu):
+            p.add_((m / bc1) / (torch.sqrt(v / bc2) + self.eps) * step_size)
+        return AdamState(count=count, mu=mu, nu=nu)
+
+
+def make_adam(
+    lr_init: float = 5.0e-4,
+    lr_final: float = 5.0e-6,
+    max_steps: int = 100_000,
+    lr_delay_steps: int = 2500,
+    lr_delay_mult: float = 0.01,
+    grad_clip: Optional[float] = None,
+) -> Adam:
+    """Adam(0.9, 0.999, eps 1e-8) with the log-lerp + sin-delay schedule;
+    ``grad_clip`` (global norm) is off by default, as in the reference."""
+    schedule = partial(
+        log_lerp_lr, lr_init=lr_init, lr_final=lr_final, max_steps=max_steps,
+        lr_delay_steps=lr_delay_steps, lr_delay_mult=lr_delay_mult,
+    )
+    return Adam(schedule, grad_clip=grad_clip)
+
+
+@dataclass
+class TrainState:
+    step: int
+    params: Dict[str, torch.Tensor]
+    opt_state: AdamState
+
+
+def create_train_state(model: torch.nn.Module, tx: Adam) -> TrainState:
+    params = dict(model.named_parameters())
+    return TrainState(step=0, params=params, opt_state=tx.init(list(params.values())))
+
+
+def sample_ray_batch(buffers: Dict[str, torch.Tensor], draws, batch_size: int) -> Dict[str, torch.Tensor]:
+    """Uniform with-replacement gather of ``batch_size`` rays from the
+    device-resident scene buffers."""
+    n = buffers["rays_o"].shape[0]
+    idx = draws.randint(n, (batch_size,))
+    return {k: v[idx] for k, v in buffers.items()}
+
+
+def vanilla_loss_and_grads(
+    model, params: Dict[str, torch.Tensor], batch, draws, randomized: bool, white_bkgd: bool,
+    near: float, far: float,
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor], List[torch.Tensor]]:
+    """loss = MSE(coarse) + MSE(fine) of ``batch`` and its gradients with
+    respect to ``params`` (in their order)."""
+    out = model(batch, randomized, white_bkgd, near, far, draws=draws)
+    loss0 = img2mse(out[0][0], batch["target"])
+    loss1 = img2mse(out[1][0], batch["target"])
+    loss = loss1 + loss0
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return loss.detach(), (loss0.detach(), loss1.detach()), list(grads)
+
+
+def make_vanilla_train_step(
+    model,
+    tx: Adam,
+    white_bkgd: bool,
+    near: float,
+    far: float,
+    batch_size: int = 2048,
+    randomized: bool = True,
+) -> Callable:
+    """Returns step(state, buffers, seed, draws=None) -> (state, metrics).
+
+    Per step: gather a batch, render both levels, MSE(coarse) + MSE(fine),
+    backward, Adam. ``draws`` defaults to ``Draws.for_step(seed,
+    state.step)`` on the buffers' device. Metrics stay on the device.
+    """
+
+    def train_step(state: TrainState, buffers, seed: int, draws=None):
+        if draws is None:
+            draws = Draws.for_step(seed, state.step, buffers["rays_o"].device)
+        batch = sample_ray_batch(buffers, draws, batch_size)
+        loss, (loss0, loss1), grads = vanilla_loss_and_grads(
+            model, state.params, batch, draws, randomized, white_bkgd, near, far
+        )
+        opt_state = tx.update(list(state.params.values()), grads, state.opt_state)
+        metrics = {
+            "loss": loss,
+            "psnr0": mse2psnr(loss0),
+            "psnr1": mse2psnr(loss1),
+            "lr": tx.schedule(state.step),
+        }
+        return TrainState(step=state.step + 1, params=state.params, opt_state=opt_state), metrics
+
+    return train_step
+
+
+def make_vanilla_train_multi_step(
+    model,
+    tx: Adam,
+    white_bkgd: bool,
+    near: float,
+    far: float,
+    batch_size: int = 2048,
+    inner_steps: int = 10,
+    randomized: bool = True,
+) -> Callable:
+    """``inner_steps`` train steps in a plain loop; returns
+    step(state, buffers, seed) -> (state, metrics of the last step). Each
+    step's draws derive from (seed, step), so the result equals
+    ``inner_steps`` single steps."""
+    one_step = make_vanilla_train_step(
+        model, tx, white_bkgd, near, far, batch_size=batch_size, randomized=randomized
+    )
+
+    def multi_step(state: TrainState, buffers, seed: int):
+        metrics = {}
+        for _ in range(inner_steps):
+            state, metrics = one_step(state, buffers, seed)
+        return state, metrics
+
+    return multi_step

@@ -35,3 +35,24 @@ def nerf_state_dict_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
         for k, v in mlp_state_dict_from_flax(p[mlp]).items():
             out[f"{mlp}.{k}"] = v
     return out
+
+
+def _mlp_to_flax(mlp, grads: bool) -> Dict[str, Dict[str, np.ndarray]]:
+    out = {}
+    for layer in MLP_LAYERS:
+        lin = getattr(mlp, layer)
+        w, b = (lin.weight.grad, lin.bias.grad) if grads else (lin.weight, lin.bias)
+        if w is None or b is None:
+            raise ValueError(f"{layer}: no gradient")
+        out[layer] = {
+            "kernel": w.detach().cpu().numpy().T.copy(),
+            "bias": b.detach().cpu().numpy().copy(),
+        }
+    return out
+
+
+def nerf_flax_tree(nerf, grads: bool = False) -> Dict[str, Dict]:
+    """The flax ``NeRF`` tree (params/{coarse_mlp,fine_mlp}/<layer>/{kernel,
+    bias}) of a port ``NeRF``'s parameters, or with ``grads`` of their
+    ``.grad``, as numpy arrays."""
+    return {"params": {m: _mlp_to_flax(getattr(nerf, m), grads) for m in ("coarse_mlp", "fine_mlp")}}

@@ -1,0 +1,115 @@
+"""Experiment configuration: typed dataclass + JSON override merge
+(counterpart of ``aonerf.utils.config``).
+
+The fields are the ones the vanilla path reads, with the JAX package's names
+and defaults; ``_ALIASES`` maps the reference's flag names, so the repo's
+config/*.json files load unchanged. Unknown keys are kept in ``extras``.
+"""
+
+import dataclasses
+import json
+from dataclasses import dataclass, field
+from typing import Any, Dict, Optional, Tuple
+
+
+@dataclass
+class Config:
+    # experiment
+    exp_type: str = "vanilla"
+    exp_name: str = "exp"
+    dataset_name: str = "sapien"
+    root_dir: str = ""
+    output_path: str = "./results"
+    run_eval: bool = False
+    seed: int = 0
+
+    # data
+    img_wh: Tuple[int, int] = (640, 480)
+    white_back: bool = True
+    batch_size: int = 2048  # rays per step
+    chunk: int = 256  # eval rays per tile (a multiple of the kernels' 16-ray tile)
+
+    # field
+    num_coarse_samples: int = 64
+    num_fine_samples: int = 128
+    min_deg_point: int = 0
+    max_deg_point: int = 10
+    deg_view: int = 4
+    netdepth: int = 8
+    netwidth: int = 256
+    noise_std: float = 0.0
+    lindisp: bool = False
+    compute_dtype: str = "f32"
+
+    # optimization
+    lr_init: float = 5.0e-4
+    lr_final: float = 5.0e-6
+    lr_delay_steps: int = 2500
+    lr_delay_mult: float = 0.01
+    run_max_steps: int = 100_000
+    optimizer: str = "adam"
+    lr_scheduler: Optional[str] = None
+    grad_clip: float = 0.0  # global-norm clip; 0 = off
+    num_epochs: int = 100
+    steps_per_epoch: int = 1000
+    randomized: bool = True
+    inner_steps: int = 10  # train steps per call of the multi-step
+
+    # checkpointing / eval cadence
+    ckpt_keep: int = 5
+    ckpt_every_steps: int = 2000
+    val_every_steps: int = 1000
+    limit_val_batches: int = 5
+    ckpt_path: Optional[str] = None
+    weight_path: Optional[str] = None
+
+    # device: None = cuda; "cpu" runs the plain versions on the host
+    platform: Optional[str] = None
+
+    extras: Dict[str, Any] = field(default_factory=dict)
+
+
+# reference flag name -> Config field
+_ALIASES = {
+    "N_samples": "num_coarse_samples",
+    "N_importance": "num_fine_samples",
+    "N_emb_xyz": "max_deg_point",
+    "N_emb_dir": "deg_view",
+    "N_max_objs": "n_max_objs",
+    "N_obj_code_length": "obj_code_dim",
+    "use_disp": "lindisp",
+    "D": "netdepth",
+    "W": "netwidth",
+    "lr": "lr_init",
+    "perturb": "randomized",  # the reference treats it as a 0/1 factor
+}
+
+
+def _coerce(name: str, value: Any) -> Any:
+    if name == "img_wh" and isinstance(value, (list, tuple)):
+        return tuple(int(v) for v in value)
+    if name == "randomized" and not isinstance(value, bool):
+        return bool(value)
+    return value
+
+
+def load_config(path: Optional[str] = None, overrides: Optional[Dict[str, Any]] = None) -> Config:
+    """A Config from an optional JSON file plus explicit overrides (the
+    overrides win)."""
+    cfg = Config()
+    fields = {f.name for f in dataclasses.fields(Config)}
+
+    def apply(d: Dict[str, Any]):
+        for key, value in d.items():
+            name = _ALIASES.get(key, key)
+            if name in fields and name != "extras":
+                setattr(cfg, name, _coerce(name, value))
+            else:
+                cfg.extras[key] = value
+
+    if path:
+        with open(path) as f:
+            apply(json.load(f))
+    if overrides:
+        apply({k: v for k, v in overrides.items() if v is not None})
+    return cfg

@@ -14,13 +14,24 @@ Phases, each of which fails the run with a non-zero exit:
                the analytic laptop scene through the image renderer; PSNR and
                SSIM against the ray-traced targets, rays/s, the kernel's launch
                count, and one view again through the plain version.
+  5. backward - the level weight-gradient kernel (K2) against its plain
+               version at the train step's shapes (2048 rays, S = 65 and 193,
+               both backgrounds, random cotangents), K1 timed at 2048 rays,
+               and one two-level loss backward through the kernels against the
+               same computation through the plain versions.
+  6. training - the train CLI on a SAPIEN-layout laptop scene (8 train views,
+               1 val view, 320x240) at the published width: 50 steps with a
+               validation and a checkpoint, then a resume for 10 more; loss,
+               launch counts of K1 and K2, and train rays/s.
 The line before the last is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}.
 """
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
@@ -42,6 +53,29 @@ TOL = {"comp": 1e-4, "acc": 1e-4, "weights": 1e-4, "depth": 1e-3}
 # A whole view rendered through the kernel vs through the plain version: the
 # kernel's 1e-4 on coarse weights moves fine t-values through the inverse CDF.
 TOL_RENDER_RGB = 1e-3
+# Multiply-adds per sample of the level backward: the forward recompute, the
+# weight products h^T.delta (as many as the forward) and the input products
+# delta.W^T (none for w0 and w5i); plus 2 x 27x128 per ray (view term, dWvb).
+BWD_MACS_PER_SAMPLE = 3 * MACS_PER_SAMPLE - 2 * 63 * 256
+N_WEIGHTS = 595844  # floats in the 26 weights of one level
+R_TRAIN = 2048  # rays per train step (config/vanilla.json)
+# K2 against its plain version. A gradient is a sum over R*S rows through
+# eight ReLU masks and the integrator's 1/max(1 - alpha + 1e-10, 1e-10),
+# where alpha = 1 - exp(-sigma dist) rounds in fp32: a hidden unit whose
+# pre-activation lies within rounding of 0 is on in one summation order and
+# off in another, and near an opaque sample one ulp of exp moves v by a large
+# fraction of itself. Both move trunk gradients by up to ~1e-3 of their
+# largest entry with random cotangents (measured on the H100: the plain
+# version in fp32 against itself in fp64, 7.9e-4 on w0 at 256 rays x 193
+# samples), and by ~1e-2 under the small MSE cotangents of the two-level loss
+# (1.9e-2 on coarse pts_3 at 32 rays on the CPU). So the kernel and the fp32
+# plain version are both held against the plain version in fp64: the kernel
+# passes when each gradient's error there (max abs err / max |fp64|) is at
+# most max(1e-4, 4 x the fp32 plain version's error on that same gradient).
+# So a gradient that fp32 computes well (the heads, ~1e-6) is held to 1e-4.
+TOL_GRAD, TOL_GRAD_FACTOR = 1e-4, 4.0
+TOL_LOSS = 1e-5  # relative, two-level loss through the kernels vs the plain versions
+TRAIN_STEPS, RESUME_STEPS = 50, 10
 
 
 def fail(msg: str) -> None:
@@ -109,7 +143,7 @@ def _view(rng, boxes, focal):
     return rays, target.astype(np.float32), alpha
 
 
-def _bound_ms(S: int) -> tuple:
+def _bound_ms(S: int, R: int = R) -> tuple:
     flops = 2.0 * (R * S * MACS_PER_SAMPLE + R * 27 * 128)
     n_weights = MACS_PER_SAMPLE + 27 * 128 + 8 * 256 + 1 + 256 + 128 + 3
     bytes_moved = 4.0 * (R * S + R * 3 + R * 27 + R * S * 63 + n_weights  # inputs
@@ -233,6 +267,313 @@ def phase_serving(nerf, boxes, focal) -> dict:
     return {"launches": launches, "seconds_per_view": seconds / len(views)}
 
 
+def _bwd_bound_ms(R: int, S: int) -> tuple:
+    flops = 2.0 * (R * S * BWD_MACS_PER_SAMPLE + 2 * R * 27 * 128)
+    bytes_moved = 4.0 * (R * S + R * 3 + R * 27 + R * S * 63 + N_WEIGHTS  # level inputs
+                         + R * 3 + R + R + R * S  # cotangents
+                         + N_WEIGHTS)  # gradients
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, bytes_moved / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+class _FixedDraws:
+    """Draws that hand out given arrays, in the order the step asks."""
+
+    def __init__(self, uniform, exponential):
+        self._u, self._e = uniform, exponential
+
+    def uniform(self, shape):
+        assert tuple(shape) == tuple(self._u.shape)
+        return self._u
+
+    def exponential(self, shape):
+        assert tuple(shape) == tuple(self._e.shape)
+        return self._e
+
+
+def _grad_errors(got, want64, names):
+    """Per gradient: max |got - want64| / max |want64|."""
+    return {n: ((got[n].double() - want64[n]).abs().max() / want64[n].abs().max().clamp_min(1e-300)).item()
+            for n in names}
+
+
+def _check_grads(what, k64, p32):
+    """The stated K2 criterion, one limit per gradient; returns the largest
+    ratio of a gradient's error to its limit."""
+    tol = {n: max(TOL_GRAD, TOL_GRAD_FACTOR * p32[n]) for n in k64}
+    ratio = {n: k64[n] / tol[n] for n in k64}
+    worst = max(ratio, key=ratio.get)
+    print(f"  {what}: kernel vs fp64 plain, closest to its limit: {worst} {k64[worst]:.3e} of {tol[worst]:.3e} "
+          f"(fp32 plain {p32[worst]:.3e}); limits from {min(tol.values()):.1e} to {max(tol.values()):.1e}")
+    bad = {n: (k64[n], tol[n]) for n in k64 if not ratio[n] <= 1.0}
+    if bad:
+        fail(f"{what}: K2 gradients off their fp64 plain version beyond their limits (err, limit): {bad}")
+    return ratio[worst]
+
+
+def phase_backward(nerf, boxes, focal) -> dict:
+    from aonerf_torch.ops import encoding, sampling
+    from aonerf_torch.ops.kernels import fused_render as fr
+    from aonerf_torch.ops.kernels import fused_train as ft
+
+    dev = torch.device("cuda")
+    R = R_TRAIN
+    rays, _, _ = _view(np.random.default_rng(SEED + 200), boxes, focal)
+    pick = np.random.default_rng(SEED + 201).choice(H * W, R, replace=False)
+    o, d = (torch.from_numpy(rays[k][pick]).to(dev) for k in ("rays_o", "rays_d"))
+    venc = encoding.pos_enc(d, 0, 4)
+    with torch.no_grad():
+        kp_c, kp_f = fr.kernel_params(nerf.coarse_mlp), fr.kernel_params(nerf.fine_mlp)
+    t_c, pts = sampling.sample_along_rays(o, d, 64, 2.0, 6.0, False, False)
+    t_c = t_c.contiguous()
+    xenc_c = encoding.pos_enc(pts, 0, 10)
+    _, _, _, w_c = fr.fused_render_level(kp_c, t_c, o, d, venc, xenc_c, True)
+    t_f, pts_f = sampling.sample_pdf(0.5 * (t_c[:, 1:] + t_c[:, :-1]), w_c[:, 1:-1], o, d, t_c, 128, False)
+    t_f = t_f.contiguous()
+    xenc_f = encoding.pos_enc(pts_f, 0, 10)
+
+    names = fr.WEIGHT_NAMES
+    levels = []
+    for kp, t, xenc in ((kp_c, t_c, xenc_c), (kp_f, t_f, xenc_f)):
+        S = t.shape[1]
+        rng = np.random.default_rng(SEED + 300 + S)
+        cot = tuple(torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
+            rng.standard_normal((R, 3)), rng.standard_normal(R), 0.1 * rng.standard_normal(R),
+            rng.standard_normal((R, S))))
+        args = (kp, t, o, d, venc, xenc)
+        kp64 = {n: v.double() for n, v in kp.items()}
+        args64 = (kp64, *(a.double() for a in (t, o, d, venc, xenc)))
+        worst_abs, worst_ratio = 0.0, 0.0
+        for white in (True, False):
+            got = ft.fused_level_bwd(*args, *cot, white)
+            torch.cuda.synchronize()
+            for n in names:
+                if not torch.isfinite(got[n]).all():
+                    fail(f"K2 S={S} white={white}: non-finite gradient {n}")
+            p32 = ft.fused_level_bwd_ref(*args, *cot, white)
+            p64 = ft.fused_level_bwd_ref(*args64, *(c.double() for c in cot), white)
+            e_k, e_p = _grad_errors(got, p64, names), _grad_errors(p32, p64, names)
+            e_kp = _grad_errors(got, {n: v.double() for n, v in p32.items()}, names)
+            worst_abs = max(worst_abs, max((got[n] - p32[n]).abs().max().item() for n in names))
+            print(f"kernel fused_level_bwd S={S} white={white}: kernel vs fp32 plain, max abs err / max |plain| "
+                  + ", ".join(f"{n} {e_kp[n]:.1e}" for n in names))
+            worst_ratio = max(worst_ratio, _check_grads(f"S={S} white={white}", e_k, e_p))
+            del p32, p64
+        ms = cuda_ms(lambda: ft.fused_level_bwd(*args, *cot, True), warmup=2, iters=5 if S > 100 else 10)
+        plain_ms = cuda_ms(lambda: ft.fused_level_bwd_ref(*args, *cot, True), warmup=1, iters=3)
+        k1_ms = cuda_ms(lambda: fr.fused_render_level(*args, True), warmup=2, iters=10)
+        bound, bound_by = _bwd_bound_ms(R, S)
+        tflop = 2.0 * (R * S * BWD_MACS_PER_SAMPLE + 2 * R * 27 * 128) / 1e12
+        print(f"  S={S}: K2 {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound:.3f} ms ({bound_by}; "
+              f"{tflop:.4f} TFLOP at 67 TFLOP/s fp32), {tflop / ms * 1e3:.2f} TFLOP/s achieved; "
+              f"K1 at {R} rays {k1_ms:.3f} ms, bound {_bound_ms(S, R)[0]:.3f} ms")
+        levels.append({"S": S, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+                       "max_abs_err": worst_abs, "err_over_limit": worst_ratio, "k1_ms": k1_ms})
+    two_level_check(nerf, o, d)
+    return {"levels": levels}
+
+
+class _PlainLevel(torch.autograd.Function):
+    """One level through the plain versions: K1's forward, K2's backward."""
+
+    @staticmethod
+    def forward(ctx, t, o, d, venc, xenc, white, *weights):
+        from aonerf_torch.ops.kernels import fused_render as fr
+
+        ctx.save_for_backward(t, o, d, venc, xenc, *weights)
+        ctx.white = white
+        return fr.fused_render_level_ref(dict(zip(fr.WEIGHT_NAMES, weights)), t, o, d, venc, xenc, white)
+
+    @staticmethod
+    def backward(ctx, gc, ga, gd, gw):
+        from aonerf_torch.ops.kernels import fused_render as fr
+        from aonerf_torch.ops.kernels import fused_train as ft
+
+        t, o, d, venc, xenc, *weights = ctx.saved_tensors
+        g = ft.fused_level_bwd_ref(dict(zip(fr.WEIGHT_NAMES, weights)), t, o, d, venc, xenc,
+                                   gc, ga, gd, gw, ctx.white)
+        return (None,) * 6 + tuple(g[n] for n in fr.WEIGHT_NAMES)
+
+
+def _plain_level(kp, t, o, d, venc, xenc, white):
+    from aonerf_torch.ops.kernels import fused_render as fr
+
+    return _PlainLevel.apply(t, o, d, venc, xenc, white, *[kp[n] for n in fr.WEIGHT_NAMES])
+
+
+def two_level_check(nerf, o, d) -> None:
+    """MSE(coarse) + MSE(fine) backward, randomized, through the kernels
+    against the same through the plain versions (fp32 and fp64)."""
+    import copy
+
+    from aonerf_torch.ops.kernels import fused_train as ft
+    from aonerf_torch.utils.bridge import nerf_flax_tree
+
+    R = o.shape[0]
+    rng = np.random.default_rng(SEED + 400)
+    u = torch.from_numpy(rng.uniform(size=(R, 65)).astype(np.float32)).cuda()
+    e = torch.from_numpy(rng.exponential(size=(R, 129)).astype(np.float32)).cuda()
+    target = torch.from_numpy(rng.uniform(size=(R, 3)).astype(np.float32)).cuda()
+    rays = {"rays_o": o, "rays_d": d, "viewdirs": d}
+
+    def run(model, level, dtype):
+        model.zero_grad(set_to_none=True)
+        r = {k: v.to(dtype) for k, v in rays.items()}
+        out = ft.fused_nerf_forward(model.coarse_mlp, model.fine_mlp, r, True, True, 2.0, 6.0, 64, 128,
+                                    draws=_FixedDraws(u.to(dtype), e.to(dtype)), level=level)
+        loss = sum(torch.mean((lvl[0] - target.to(dtype)) ** 2) for lvl in out)
+        loss.backward()
+        tree = nerf_flax_tree(model, grads=True)["params"]
+        flat = {f"{m}/{layer}/{a}": torch.from_numpy(tree[m][layer][a]) for m in tree for layer in tree[m]
+                for a in tree[m][layer]}
+        return loss.item(), flat
+
+    nerf.train()
+    loss_k, g_k = run(nerf, ft.fused_level, torch.float32)
+    loss_p, g_p = run(nerf, _plain_level, torch.float32)
+    nerf64 = copy.deepcopy(nerf).double()
+    loss_64, g_64 = run(nerf64, _plain_level, torch.float64)
+    nerf.zero_grad(set_to_none=True)
+    del nerf64
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    print(f"two-level loss backward at {R} rays, randomized: loss kernels {loss_k:.8f}, plain {loss_p:.8f} "
+          f"(rel diff {rel:.2e}, tol {TOL_LOSS:g}), plain fp64 {loss_64:.8f}")
+    if not rel <= TOL_LOSS:
+        fail("two-level loss through the kernels disagrees with the plain versions'")
+    names = list(g_64)
+    _check_grads("two-level grads", _grad_errors(g_k, g_64, names), _grad_errors(g_p, g_64, names))
+
+
+def _train_config(root: str, out: str) -> str:
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "config", "vanilla.json")) as f:
+        cfg = json.load(f)
+    cfg.update({
+        "root_dir": root, "output_path": out, "exp_name": "smoke", "img_wh": [W, H],
+        "lr_init": 1e-3, "lr_delay_steps": 0, "val_every_steps": TRAIN_STEPS,
+        "ckpt_every_steps": TRAIN_STEPS, "limit_val_batches": 1, "seed": SEED,
+    })
+    os.makedirs(out, exist_ok=True)
+    path = os.path.join(out, "train.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def profile_train_steps(trainer, buffers, seed) -> None:
+    """Device time by kernel over one multi-step, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.state, _ = trainer.step_fn(trainer.state, buffers, seed)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    n = trainer._inner_steps
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    # kernels only: an op that launches through ctypes (FusedLevel) is also
+    # credited with its kernel's time, which would count it twice
+    kernels = (e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA)
+    events = sorted((e for e in kernels if dev_us(e) > 0), key=dev_us, reverse=True)
+    busy_ms = sum(dev_us(e) for e in events) / 1e3
+    print(f"  profile of {n} steps (torch.profiler): kernels busy {busy_ms / n:.3f} ms of {wall_ms / n:.3f} ms "
+          f"a step ({100 * busy_ms / wall_ms:.1f}%; the wall time includes the profiler's overhead); "
+          f"{len(events)} kernels, by device time:")
+    for e in events[:12]:
+        print(f"    {dev_us(e) / 1e3 / n:9.3f} ms/step {100 * dev_us(e) / 1e3 / busy_ms:5.1f}%  "
+              f"x{e.count / n:g}/step  {e.key[:90]}")
+
+
+def phase_training() -> dict:
+    from aonerf_torch.cli import train as cli
+    from aonerf_torch.data.synthetic import write_single_scene
+    from aonerf_torch.ops.kernels import fused_render as fr
+    from aonerf_torch.ops.kernels import fused_train as ft
+    from aonerf_torch.train import step as step_mod
+    from aonerf_torch.train.loop import Trainer
+    from aonerf_torch.utils.config import load_config
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = write_single_scene(os.path.join(tmp, "scene"), img_wh=(W, H), n_train=8, n_val=1, n_test=0,
+                                  seed=SEED)
+        cfg_path = _train_config(root, os.path.join(tmp, "out"))
+        cfg = load_config(cfg_path)
+        n_val_tiles = -(-W * H // cfg.chunk)
+        losses = []
+        real = step_mod.vanilla_loss_and_grads
+
+        def recorded(*args, **kwargs):  # observes each step's loss, changes nothing
+            out = real(*args, **kwargs)
+            losses.append(out[0])
+            return out
+
+        runs = []
+        for max_steps in (TRAIN_STEPS, TRAIN_STEPS + RESUME_STEPS):
+            start = len(losses)
+            torch.cuda.synchronize()
+            fr.launches = ft.launches = 0
+            t0 = time.perf_counter()
+            with mock.patch.object(step_mod, "vanilla_loss_and_grads", recorded):
+                metrics = cli.main(["--config", cfg_path, "--max_steps", str(max_steps)])
+            torch.cuda.synchronize()
+            runs.append({"seconds": time.perf_counter() - t0, "k1": fr.launches, "k2": ft.launches,
+                         "steps": len(losses) - start, "metrics": metrics})
+        run_dir = os.path.join(cfg.output_path, cfg.exp_name)
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        ckpts = sorted(n for n in os.listdir(os.path.join(run_dir, "ckpts")) if n.endswith(".pt"))
+        grids = sorted(os.listdir(os.path.join(run_dir, "val_vis")))
+
+        trainer = Trainer(cfg)  # restores the latest checkpoint
+        resumed_at = trainer.state.step
+        buffers = trainer.train_buffers()
+        trainer.state, _ = trainer.step_fn(trainer.state, buffers, cfg.seed)  # first multi-step untimed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n_timed = 2
+        for _ in range(n_timed):
+            trainer.state, m = trainer.step_fn(trainer.state, buffers, cfg.seed)
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / (n_timed * trainer._inner_steps)
+        profile_train_steps(trainer, buffers, cfg.seed)
+        trainer.close()
+
+    loss = torch.stack(losses).cpu().numpy()
+    first, run2 = runs
+    print(f"training: {first['steps']} steps + resume {run2['steps']} steps at batch {cfg.batch_size}, "
+          f"{cfg.num_coarse_samples}+{cfg.num_fine_samples} samples; loss first 5 {loss[:5].mean():.5f}, "
+          f"last 5 {loss[TRAIN_STEPS - 5:TRAIN_STEPS].mean():.5f}; val psnr {first['metrics'].get('val_psnr')}")
+    print(f"  launches, run 1: K1 {first['k1']} (expected 2 x {TRAIN_STEPS} steps + 2 x {n_val_tiles} val tiles "
+          f"= {2 * TRAIN_STEPS + 2 * n_val_tiles}), K2 {first['k2']} (expected {2 * TRAIN_STEPS}); "
+          f"resume: K1 {run2['k1']}, K2 {run2['k2']} (expected {2 * RESUME_STEPS} each)")
+    print(f"  checkpoints {ckpts}, val grids {grids}, metrics rows {len(rows)}; resumed at step {resumed_at}")
+    print(f"  train step: {step_s * 1e3:.3f} ms = {cfg.batch_size / step_s:.1f} rays/s "
+          f"(host clock over {n_timed * trainer._inner_steps} steps after the first {trainer._inner_steps}, "
+          f"torch.cuda.synchronize at both ends); run 1 took {first['seconds']:.1f} s")
+    if not np.isfinite(loss).all():
+        fail("non-finite train loss")
+    if not loss[TRAIN_STEPS - 5:TRAIN_STEPS].mean() < loss[:5].mean():
+        fail("train loss did not fall over the first run")
+    if first["steps"] != TRAIN_STEPS or run2["steps"] != RESUME_STEPS:
+        fail(f"steps taken {first['steps']} and {run2['steps']}, expected {TRAIN_STEPS} and {RESUME_STEPS}")
+    if first["k1"] != 2 * TRAIN_STEPS + 2 * n_val_tiles or first["k2"] != 2 * TRAIN_STEPS:
+        fail("the training run did not launch K1 and K2 as expected")
+    if run2["k1"] != 2 * RESUME_STEPS or run2["k2"] != 2 * RESUME_STEPS:
+        fail("the resumed run did not launch K1 and K2 as expected")
+    if ckpts[-2:] != [f"ckpt_{TRAIN_STEPS:08d}.pt", f"ckpt_{TRAIN_STEPS + RESUME_STEPS:08d}.pt"]:
+        fail(f"checkpoints {ckpts}")
+    resume_rows = [r for r in rows if r["step"] > TRAIN_STEPS]
+    if not resume_rows or resume_rows[0]["step"] != TRAIN_STEPS + RESUME_STEPS or resumed_at != TRAIN_STEPS + RESUME_STEPS:
+        fail("the resumed run did not continue from the saved step")
+    if not grids:
+        fail("no val grid written")
+    return {"k1": first["k1"], "k2": first["k2"], "step_ms": step_s * 1e3,
+            "rays_per_s": cfg.batch_size / step_s}
+
+
 def main() -> None:
     phase_device()
     phase_build()
@@ -244,6 +585,8 @@ def main() -> None:
     focal = 0.5 * H / np.tan(0.5 * np.deg2rad(FOVY_DEG))
     k = phase_kernels(nerf, boxes, focal)
     s = phase_serving(nerf, boxes, focal)
+    b = phase_backward(nerf, boxes, focal)
+    t = phase_training()
 
     lv = k["levels"]
     tile_ms = sum(x["ms"] for x in lv)
@@ -264,8 +607,28 @@ def main() -> None:
         "bound_by": "operations" if all(x["bound_by"] == "operations" for x in lv) else "bytes",
         "library_ms": None,
         "levels": lv,
+        "train_launches": t["k1"],
     }
-    print(json.dumps({"kernels": [entry]}))
+    blv = b["levels"]
+    k2 = {
+        "name": "fused_level_bwd",
+        "route": "cuda",
+        "source": "aonerf_torch/ops/kernels/csrc/fused_train.cu",
+        "replaces": "aonerf/ops/kernels/fused_train.py:239",
+        "launches": t["k2"],
+        # one train step: a coarse (S=65) and a fine (S=193) launch at 2048 rays
+        "max_abs_err": max(x["max_abs_err"] for x in blv),
+        "ms": sum(x["ms"] for x in blv),
+        "plain_ms": sum(x["plain_ms"] for x in blv),
+        "bound_ms": sum(x["bound_ms"] for x in blv),
+        "bound_by": "operations" if all(x["bound_by"] == "operations" for x in blv) else "bytes",
+        "library_ms": None,
+        "levels": blv,
+    }
+    k1_step, k2_step = sum(x["k1_ms"] for x in blv), k2["ms"]
+    print(f"train step share: K1 {k1_step:.3f} ms + K2 {k2_step:.3f} ms + rest "
+          f"{t['step_ms'] - k1_step - k2_step:.3f} ms = {t['step_ms']:.3f} ms")
+    print(json.dumps({"kernels": [entry, k2]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()
     }}))

@@ -126,5 +126,5 @@ def test_sapien_get_image_matches_jax(tmp_path):
             a, b = ds.get_image(i), jds.get_image(i)
             for field in ("rays_o", "rays_d", "viewdirs", "radii", "target", "instance_mask"):
                 np.testing.assert_array_equal(getattr(a, field), getattr(b, field), err_msg=field)
-    with pytest.raises(NotImplementedError):
-        sapien.SapienDataset(root, split="train", img_wh=(16, 12))
+    with pytest.raises(ValueError, match="split"):
+        sapien.SapienDataset(root, split="holdout", img_wh=(16, 12))

@@ -14,6 +14,7 @@ from aonerf_torch.models.mlp import NeRFMLP
 from aonerf_torch.models.nerf import NeRF
 from aonerf_torch.ops.encoding import pos_enc
 from aonerf_torch.ops.kernels import fused_render as fr
+from aonerf_torch.ops.kernels import fused_train as ft
 
 pytestmark = pytest.mark.gpu
 
@@ -90,3 +91,95 @@ def test_renderer_goes_through_the_kernel(cuda):
     assert fr.launches == before + 2 * 2  # 2 tiles x 2 levels
     assert rgb.shape == (100, 3) and acc.shape == (100,) and depth.shape == (100,)
     assert torch.isfinite(rgb).all() and torch.isfinite(depth).all()
+
+
+def _cotangents(R, S, seed, device):
+    rng = np.random.default_rng(seed)
+    arrays = (
+        rng.standard_normal((R, 3)), rng.standard_normal(R), 0.1 * rng.standard_normal(R),
+        rng.standard_normal((R, S)),
+    )
+    return tuple(torch.from_numpy(a.astype(np.float32)).to(device) for a in arrays)
+
+
+# K2 and its fp32 plain version are both held against the plain version in
+# fp64: each gradient's max abs error / max |fp64| must be at most
+# max(1e-4, 4 x the fp32 plain version's error on that gradient). ReLU masks of
+# pre-activations within rounding of 0 flip between summation orders and move
+# trunk gradients by up to ~1e-3 (chip_smoke.py states the measurement).
+_GRAD_TOL, _GRAD_FACTOR = 1e-4, 4.0
+
+
+def _rel_err(got, want64):
+    return ((got.double() - want64).abs().max() / want64.abs().max().clamp_min(1e-300)).item()
+
+
+@pytest.mark.parametrize("S", [65, 193])
+@pytest.mark.parametrize("white_bkgd", [True, False])
+def test_bwd_kernel_matches_plain_version(cuda, S, white_bkgd):
+    mlp = NeRFMLP(generator=torch.Generator().manual_seed(S), device=cuda)
+    with torch.no_grad():
+        kp = fr.kernel_params(mlp)
+    args = _level_inputs(256, S, S, cuda)
+    cot = _cotangents(256, S, S + 1, cuda)
+    before = ft.launches
+    got = ft.fused_level_bwd(kp, *args, *cot, white_bkgd)
+    torch.cuda.synchronize()
+    assert ft.launches == before + 1
+    p32 = ft.fused_level_bwd_ref(kp, *args, *cot, white_bkgd)
+    p64 = ft.fused_level_bwd_ref(
+        {n: v.double() for n, v in kp.items()}, *(a.double() for a in args), *(c.double() for c in cot), white_bkgd
+    )
+    for name in fr.WEIGHT_NAMES:
+        g = got[name]
+        assert g.shape == p64[name].shape and torch.isfinite(g).all(), name
+        tol = max(_GRAD_TOL, _GRAD_FACTOR * _rel_err(p32[name], p64[name]))
+        rel = _rel_err(g, p64[name])
+        assert rel <= tol, f"{name}: max abs err / max |fp64 plain| = {rel} > {tol}"
+    again = ft.fused_level_bwd(kp, *args, *cot, white_bkgd)  # deterministic: no atomics
+    for name in fr.WEIGHT_NAMES:
+        assert torch.equal(again[name], got[name]), name
+
+
+def test_bwd_kernel_rejects_what_it_does_not_take(cuda):
+    mlp = NeRFMLP(generator=torch.Generator().manual_seed(0), device=cuda)
+    with torch.no_grad():
+        kp = fr.kernel_params(mlp)
+    t, o, d, venc, xenc = _level_inputs(64, 65, 0, cuda)
+    gc, ga, gd, gw = _cotangents(64, 65, 1, cuda)
+    with pytest.raises(ValueError, match="float32"):
+        ft.fused_level_bwd(kp, t, o, d, venc, xenc, gc.double(), ga, gd, gw, True)
+    with pytest.raises(ValueError, match="shape"):
+        ft.fused_level_bwd(kp, t, o, d, venc, xenc, gc, ga, gd, gw[:, :10], True)
+    with pytest.raises(ValueError, match="contiguous"):
+        ft.fused_level_bwd(kp, t, o, d, venc, xenc, gc, ga, gd, gw.t().contiguous().t(), True)
+    before = ft.launches
+    with pytest.raises(RuntimeError, match="launch failed"):  # 64 x 65 needs 241 KB
+        ft.fused_level_bwd(kp, t, o, d, venc, xenc, gc, ga, gd, gw, True, ray_tile=64)
+    assert ft.launches == before
+    ft.fused_level_bwd(kp, t, o, d, venc, xenc, gc, ga, gd, gw, True)  # no stale error left behind
+    torch.cuda.synchronize()
+
+
+def test_train_cli_goes_through_both_kernels(cuda, tmp_path):
+    import json
+
+    from aonerf_torch.cli import train as cli
+    from aonerf_torch.data.synthetic import write_single_scene
+
+    root = write_single_scene(str(tmp_path / "scene"), img_wh=(16, 12), n_train=2, n_val=1, n_test=0)
+    cfg = {
+        "root_dir": root, "output_path": str(tmp_path / "out"), "exp_name": "gpu", "img_wh": [16, 12],
+        "num_coarse_samples": 64, "num_fine_samples": 128, "batch_size": 64, "chunk": 64,
+        "lr_init": 1e-3, "lr_delay_steps": 0, "val_every_steps": 10, "ckpt_every_steps": 10,
+        "limit_val_batches": 1, "inner_steps": 10,
+    }
+    path = tmp_path / "train.json"
+    path.write_text(json.dumps(cfg))
+    k1, k2 = fr.launches, ft.launches
+    metrics = cli.main(["--config", str(path), "--max_steps", "10"])
+    torch.cuda.synchronize()
+    assert np.isfinite(metrics["loss"]) and np.isfinite(metrics["val_psnr"])
+    val_tiles = -(-16 * 12 // 64)
+    assert fr.launches - k1 == 2 * 10 + 2 * val_tiles  # both levels of every step and val tile
+    assert ft.launches - k2 == 2 * 10  # both levels of every step

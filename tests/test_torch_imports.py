@@ -38,6 +38,10 @@ def test_port_modules_import_no_jax_and_no_aonerf():
         "aonerf_torch.ops.kernels.fused_render", "aonerf_torch.ops.kernels.build",
         "aonerf_torch.models.nerf", "aonerf_torch.eval.render", "aonerf_torch.eval.metrics",
         "aonerf_torch.data.sapien", "aonerf_torch.utils.bridge",
+        "aonerf_torch.ops.kernels.fused_train", "aonerf_torch.ops.random", "aonerf_torch.train.lr",
+        "aonerf_torch.train.step", "aonerf_torch.train.loop", "aonerf_torch.cli.train",
+        "aonerf_torch.utils.config", "aonerf_torch.utils.logging", "aonerf_torch.utils.ckpt",
+        "aonerf_torch.eval.viz",
     }
     assert expected <= set(out["modules"])
     assert not set(FORBIDDEN) & set(out["loaded"]), set(FORBIDDEN) & set(out["loaded"])

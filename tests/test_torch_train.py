@@ -1,0 +1,236 @@
+"""Port parity: the learning-rate schedule, Adam and whole vanilla train
+steps of aonerf_torch against aonerf, fed the same random draws.
+
+The JAX steps draw from fold_in(base_key, step); the port's step takes a
+draws object that replays those numbers (the batch indices, the coarse
+jitter, the fine exponentials)."""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from aonerf.models import NeRF as JaxNeRF
+from aonerf.ops.math import img2mse as jimg2mse
+from aonerf.ops.kernels import fused_train as jft
+from aonerf.train import step as jstep
+from aonerf.train.lr import log_lerp_lr as jax_lr
+from aonerf_torch.models.nerf import NeRF
+from aonerf_torch.ops.kernels import fused_train as ft
+from aonerf_torch.train import step as tstep
+from aonerf_torch.train.lr import log_lerp_lr
+from aonerf_torch.utils.bridge import nerf_flax_tree, nerf_state_dict_from_flax
+
+torch.set_num_threads(1)
+
+B, N_RAYS, SC, NF = 16, 64, 4, 8
+LR = 1e-3
+SCHEDULE = dict(lr_init=LR, lr_final=1e-5, max_steps=1000, lr_delay_steps=0)
+
+
+@pytest.mark.parametrize("step", [0, 1, 1250, 2500, 50_000, 100_000, 200_000])
+@pytest.mark.parametrize("delay", [2500, 0])
+def test_log_lerp_lr_matches_jax(step, delay):
+    # both float32; rtol 1e-6 covers the ulps of sin/exp between libraries
+    want = float(jax_lr(jnp.asarray(step), lr_delay_steps=delay))
+    np.testing.assert_allclose(log_lerp_lr(step, lr_delay_steps=delay), want, rtol=1e-6)
+
+
+@pytest.mark.parametrize("clip", [None, 1.0, 1e3])
+def test_adam_update_matches_optax(clip):
+    rng = np.random.default_rng(0)
+    shapes = [(63, 256), (1, 256), (256, 3)]
+    # parameters of init size (~0.05), so one ulp of a parameter (~4e-9)
+    # stays well under the 1e-7 tolerance of the update (~LR = 1e-3)
+    params = [(0.05 * rng.standard_normal(s)).astype(np.float32) for s in shapes]
+    grads = [[rng.standard_normal(s).astype(np.float32) * 0.1 for s in shapes] for _ in range(2)]
+    tx = jstep.make_adam(**SCHEDULE, grad_clip=clip)
+    jp = [jnp.asarray(p) for p in params]
+    opt = tx.init(jp)
+    port = tstep.make_adam(**SCHEDULE, grad_clip=clip)
+    tp = [torch.from_numpy(p.copy()) for p in params]
+    state = port.init(tp)
+    for g in grads:  # two updates: the count and the moments carry over
+        upd, opt = tx.update([jnp.asarray(x) for x in g], opt, jp)
+        jp = optax.apply_updates(jp, upd)
+        state = port.update(tp, [torch.from_numpy(x) for x in g], state)
+        for a, b in zip(tp, jp):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-7, rtol=0)
+    assert state.count == 2
+
+
+class Replay:
+    def __init__(self, idx, u, e):
+        self.idx, self.u, self.e = idx, u, e
+
+    def randint(self, high, shape):
+        assert tuple(shape) == self.idx.shape and self.idx.max() < high
+        return torch.from_numpy(self.idx.astype(np.int64))
+
+    def uniform(self, shape):
+        assert tuple(shape) == self.u.shape
+        return torch.from_numpy(self.u)
+
+    def exponential(self, shape):
+        assert tuple(shape) == self.e.shape
+        return torch.from_numpy(self.e)
+
+
+def jax_draws(base_key, step):
+    """The numbers the JAX vanilla step draws at ``step``."""
+    key = jax.random.fold_in(base_key, step)
+    sample_key, render_key = jax.random.split(key)
+    idx = np.array(jax.random.randint(sample_key, (B,), 0, N_RAYS))
+    k0, k1 = jax.random.split(render_key, 2)
+    u = np.array(jax.random.uniform(k0, (B, SC + 1), dtype=jnp.float32))
+    e = np.array(jax.random.exponential(k1, (B, NF + 1), dtype=jnp.float32))
+    return Replay(idx, u, e), render_key
+
+
+def _setup():
+    rng = np.random.default_rng(0)
+    d = rng.standard_normal((N_RAYS, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    buffers = {
+        "rays_o": (-4.0 * d).astype(np.float32), "rays_d": d, "viewdirs": d,
+        "target": rng.uniform(size=(N_RAYS, 3)).astype(np.float32),
+    }
+    model = JaxNeRF(num_coarse_samples=SC, num_fine_samples=NF)
+    params = model.init(jax.random.PRNGKey(0), {k: jnp.asarray(v[:8]) for k, v in buffers.items()},
+                        False, True, 2.0, 6.0)
+    params = jax.tree_util.tree_map(np.array, params)
+    for m in ("coarse_mlp", "fine_mlp"):  # live gradients at init
+        params["params"][m]["density"]["bias"] = params["params"][m]["density"]["bias"] + 0.3
+    nerf = NeRF(num_coarse_samples=SC, num_fine_samples=NF, device="cpu")
+    nerf.load_state_dict(nerf_state_dict_from_flax(params))
+    return model, params, nerf, buffers
+
+
+def _fused_forward_interpret():
+    return functools.partial(jft.fused_nerf_forward, interpret=True)
+
+
+def _jax_loss(model, kind):
+    def loss(p, batch, render_key):
+        if kind == "fused":
+            out = jft.fused_nerf_forward(
+                p, batch, True, 2.0, 6.0, key=render_key, num_coarse_samples=SC, num_fine_samples=NF,
+                randomized=True, ray_tile_coarse=4, ray_tile_fine=4, interpret=True,
+            )
+        else:
+            out = model.apply(p, batch, True, True, 2.0, 6.0, key=render_key)
+        return jimg2mse(out[0][0], batch["target"]) + jimg2mse(out[1][0], batch["target"])
+
+    return loss
+
+
+def _jax_step(model, kind, tx):
+    lr_fn = functools.partial(jax_lr, **SCHEDULE)
+    if kind == "fused":
+        return jft.make_fused_vanilla_train_multi_step(
+            tx, True, 2.0, 6.0, batch_size=B, inner_steps=1, num_coarse_samples=SC,
+            num_fine_samples=NF, ray_tile_coarse=4, ray_tile_fine=4, dot_bf16=False, donate=False,
+            lr_fn=lr_fn,
+        )
+    return jstep.make_vanilla_train_step(model, tx, True, 2.0, 6.0, batch_size=B, donate=False, lr_fn=lr_fn)
+
+
+def _leaves(tree):
+    return {f"{m}/{layer}/{a}": np.asarray(tree[m][layer][a], np.float64)
+            for m in tree for layer in tree[m] for a in tree[m][layer]}
+
+
+def _assert_params_close(got, want, atol, what):
+    for name, w in _leaves(want).items():
+        np.testing.assert_allclose(_leaves(got)[name], w, atol=atol, rtol=0, err_msg=f"{what}: {name}")
+
+
+# The first step's gradients in fp32 against the same in fp64, at this test's
+# setup and draws: max abs error / max |fp64| of JAX's grads and of the
+# port's, the larger, over the bias and the kernel of a layer and over both
+# JAX steps, rounded up. Listed are the layers above 1e-4; every other leaf
+# is within 6.2e-5. These trunk layers are ill-conditioned in fp32 at 16
+# randomized rays: the last sample's distance of 1e10 multiplies a density
+# within rounding of 0, and ReLU masks of pre-activations within rounding of
+# 0 flip with the summation order.
+FP32_SPREAD = {
+    "coarse_mlp/pts_0": 3.1e-3, "coarse_mlp/pts_1": 4.4e-3, "coarse_mlp/pts_2": 4.8e-3,
+    "coarse_mlp/pts_3": 2.0e-3, "coarse_mlp/pts_4": 1.1e-2,
+    "fine_mlp/pts_0": 7.2e-3, "fine_mlp/pts_1": 5.5e-2, "fine_mlp/pts_2": 1.5e-3, "fine_mlp/pts_5": 1.5e-4,
+}
+
+
+def _assert_grads_close(got, want, what):
+    """Port grads against JAX grads, both fp32: each leaf's max abs error /
+    max |JAX| must be at most 1e-4, or, on a layer of FP32_SPREAD, twice its
+    spread (each of the two lies within the spread of the exact value)."""
+    got, want = _leaves(got), _leaves(want)
+    for n, w in want.items():
+        tol = max(1e-4, 2 * FP32_SPREAD.get(n.rsplit("/", 1)[0], 0.0))
+        err = np.max(np.abs(got[n] - w)) / (np.max(np.abs(w)) + 1e-30)
+        assert err <= tol, f"{what}: {n} {err} > {tol}"
+
+
+@pytest.mark.parametrize("kind", ["fused", "xla"])
+@pytest.mark.parametrize("n_steps", [1, 3])
+def test_train_steps_match_jax(kind, n_steps, monkeypatch):
+    model, params, nerf, buffers = _setup()
+    monkeypatch.setattr(jft, "fused_nerf_forward", _fused_forward_interpret())
+    base_key = jax.random.PRNGKey(5)
+    tx = jstep.make_adam(**SCHEDULE)
+    jstate = jstep.create_train_state(jax.tree_util.tree_map(jnp.asarray, params), tx)
+    jbuf = {k: jnp.asarray(v) for k, v in buffers.items()}
+    jfn = _jax_step(model, kind, tx)
+
+    port = tstep.make_adam(**SCHEDULE)
+    state = tstep.create_train_state(nerf, port)
+    tbuf = {k: torch.from_numpy(v) for k, v in buffers.items()}
+    step_fn = tstep.make_vanilla_train_step(nerf, port, True, 2.0, 6.0, batch_size=B)
+    for s in range(n_steps):
+        draws, render_key = jax_draws(base_key, s)
+        if s == 0:  # the first step's loss and grads, before either update
+            batch = {k: v[draws.idx] for k, v in jbuf.items()}
+            want_loss, want_g = jax.value_and_grad(_jax_loss(model, kind))(jstate.params, batch, render_key)
+            tb = {k: v[torch.from_numpy(draws.idx.astype(np.int64))] for k, v in tbuf.items()}
+            loss, _, grads = tstep.vanilla_loss_and_grads(nerf, state.params, tb, draws, True, True, 2.0, 6.0)
+            # fp32; loss rtol 1e-5, as tests/test_kernels.py holds the JAX pair
+            np.testing.assert_allclose(loss.item(), float(want_loss), rtol=1e-5)
+            for p, g in zip(state.params.values(), grads):
+                p.grad = g
+            _assert_grads_close(nerf_flax_tree(nerf, grads=True)["params"], want_g["params"], f"{kind} grads")
+            nerf.zero_grad(set_to_none=True)
+            draws, _ = jax_draws(base_key, s)
+        jstate, jm = jfn(jstate, jbuf, base_key)
+        state, metrics = step_fn(state, tbuf, 0, draws=draws)
+        # from the second step on, the parameters already differ by up to
+        # 2 lr per step (below), which moves the loss by ~1e-5 of itself
+        np.testing.assert_allclose(metrics["loss"].item(), float(jm["loss"]), rtol=1e-5 if s == 0 else 1e-4)
+        assert metrics["lr"] == pytest.approx(float(jm["lr"]), rel=1e-6)
+    assert state.step == n_steps == int(jstate.step)
+    # Adam's first steps are sign-like: a gradient entry near 0 whose sign
+    # differs moves its parameter by up to 2 lr a step
+    _assert_params_close(nerf_flax_tree(nerf)["params"], jax.device_get(jstate.params)["params"],
+                         2 * LR * n_steps, f"{kind} params after {n_steps} steps")
+
+
+def test_multi_step_equals_single_steps():
+    _, _, nerf, buffers = _setup()
+    tbuf = {k: torch.from_numpy(v) for k, v in buffers.items()}
+    results = []
+    for inner in (1, 2):
+        model = NeRF(num_coarse_samples=SC, num_fine_samples=NF, device="cpu")
+        model.load_state_dict(nerf.state_dict())
+        tx = tstep.make_adam(**SCHEDULE)
+        state = tstep.create_train_state(model, tx)
+        fn = tstep.make_vanilla_train_multi_step(model, tx, True, 2.0, 6.0, batch_size=B, inner_steps=inner)
+        for _ in range(2 // inner):
+            state, m = fn(state, tbuf, 3)
+        results.append((state.step, m["loss"].item(), [p.detach().clone() for p in model.parameters()]))
+    assert results[0][0] == results[1][0] == 2
+    assert results[0][1] == results[1][1]
+    for a, b in zip(results[0][2], results[1][2]):
+        assert torch.equal(a, b)

@@ -1,0 +1,180 @@
+"""The port's vanilla training surface on the CPU: the train CLI on a scene
+written by aonerf's datagen CLI (checkpoint, resume, val grid, metrics),
+loading another run's checkpoint, and
+parity of its loader, scene writer, config, checkpoints and val grid with
+aonerf."""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+from aonerf.data import sapien as jsapien
+from aonerf.data import synthetic as jsyn
+from aonerf.eval import viz as jviz
+from aonerf.utils import config as jconfig
+from aonerf_torch.cli import train as cli
+from aonerf_torch.data import sapien, synthetic
+from aonerf_torch.eval import viz
+from aonerf_torch.train.loop import Trainer
+from aonerf_torch.utils import config
+from aonerf_torch.utils.ckpt import CheckpointManager
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+torch.set_num_threads(2)
+
+
+def _datagen(out_dir, img_wh=(16, 12), n_train=4):
+    cfg = {"mode": "single", "out_dir": str(out_dir), "img_wh": list(img_wh), "n_train": n_train,
+           "n_val": 1, "n_test": 1}
+    path = os.path.join(os.path.dirname(str(out_dir)), "gen.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    proc = subprocess.run([sys.executable, "-m", "aonerf.data.datagen.generate", "--config", path],
+                          cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    return str(out_dir)
+
+
+def _rows(run_dir):
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def test_cli_trains_checkpoints_and_resumes(tmp_path):
+    root = _datagen(tmp_path / "scene")
+    cfg = {
+        "exp_type": "vanilla", "exp_name": "tiny", "dataset_name": "sapien", "root_dir": root,
+        "output_path": str(tmp_path / "out"), "img_wh": [16, 12], "white_back": True,
+        "num_coarse_samples": 4, "num_fine_samples": 8, "batch_size": 32, "chunk": 64,
+        "lr_init": 1e-3, "lr_delay_steps": 0, "val_every_steps": 10, "ckpt_every_steps": 10,
+        "limit_val_batches": 1,
+    }
+    cfg_path = str(tmp_path / "train.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    run_dir = os.path.join(cfg["output_path"], "tiny")
+
+    metrics = cli.main(["--config", cfg_path, "--max_steps", "20", "--platform", "cpu"])
+    assert np.isfinite(metrics["loss"]) and np.isfinite(metrics["val_psnr"])
+    rows = _rows(run_dir)
+    assert [r["step"] for r in rows if "train/loss" in r] == [10]
+    assert [r["step"] for r in rows if "val/psnr" in r] == [10, 20]
+    assert all(np.isfinite(v) for r in rows for k, v in r.items() if k != "step")
+    assert CheckpointManager(os.path.join(run_dir, "ckpts")).steps() == [10, 20]
+    grids = sorted(os.listdir(os.path.join(run_dir, "val_vis")))
+    assert grids == ["step0000010.png", "step0000020.png"]
+    assert np.asarray(Image.open(os.path.join(run_dir, "val_vis", grids[0]))).shape == (12, 16 * 4, 3)
+
+    cli.main(["--config", cfg_path, "--max_steps", "30", "--platform", "cpu"])  # resumes at 20
+    rows = _rows(run_dir)
+    assert [r["step"] for r in rows if "train/loss" in r] == [10, 30]
+    assert CheckpointManager(os.path.join(run_dir, "ckpts")).steps() == [10, 20, 30]
+    trainer = Trainer(config.load_config(cfg_path, {"platform": "cpu"}))
+    try:
+        assert trainer.state.step == 30 and trainer.state.opt_state.count == 30
+    finally:
+        trainer.close()
+
+
+@pytest.mark.parametrize("source", ["ckpt_path", "weight_path"])
+def test_trainer_loads_a_checkpoint_from_another_run(tmp_path, source):
+    # ckpt_path restores the whole state; weight_path the params only, with
+    # the step and the optimizer starting fresh (aonerf/train/loop.py:259-269)
+    root = synthetic.write_single_scene(str(tmp_path / "scene"), img_wh=(16, 12), n_train=2, n_val=1, n_test=0)
+    base = {"root_dir": root, "output_path": str(tmp_path / "out"), "img_wh": [16, 12], "platform": "cpu",
+            "num_coarse_samples": 4, "num_fine_samples": 8, "batch_size": 16, "inner_steps": 2}
+    first = Trainer(config.load_config(None, {**base, "exp_name": "first"}))
+    try:
+        first.state, _ = first.step_fn(first.state, first.train_buffers(), 0)
+        first.ckpt.save(first.state.step, first._state_dict())
+        saved = {n: p.detach().clone() for n, p in first.state.params.items()}
+        saved_mu = [m.clone() for m in first.state.opt_state.mu]
+    finally:
+        first.close()
+    second = Trainer(config.load_config(None, {**base, "exp_name": "second",
+                                               source: os.path.join(base["output_path"], "first", "ckpts")}))
+    try:
+        for n, p in second.state.params.items():
+            assert torch.equal(p, saved[n]), n
+        opt = second.state.opt_state
+        if source == "ckpt_path":
+            assert second.state.step == opt.count == 2
+            assert all(torch.equal(a, b) for a, b in zip(opt.mu, saved_mu))
+        else:
+            assert second.state.step == opt.count == 0
+            assert all(not m.any() for m in opt.mu)
+    finally:
+        second.close()
+
+
+def test_trainer_refuses_what_is_not_ported(tmp_path):
+    for overrides in ({"exp_type": "vanilla_autodecoder"}, {"run_eval": True}, {"noise_std": 1.0},
+                      {"compute_dtype": "bf16"}, {"optimizer": "ranger"}, {"netwidth": 128}):
+        with pytest.raises(NotImplementedError):
+            Trainer(config.load_config(None, {"platform": "cpu", **overrides}))
+    if not torch.cuda.is_available():  # entry points default to the card
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Trainer(config.load_config(None, {"root_dir": str(tmp_path)}))
+
+
+def test_write_single_scene_matches_jax_generator(tmp_path):
+    a = synthetic.write_single_scene(str(tmp_path / "port"), img_wh=(16, 12), n_train=2, n_val=1, n_test=1)
+    b = jsyn.generate_single_scene(str(tmp_path / "jax"), img_wh=(16, 12), n_train=2, n_val=1, n_test=1)
+    for split in ("train", "val", "test"):
+        with open(os.path.join(a, split, "transforms.json")) as f, open(os.path.join(b, split, "transforms.json")) as g:
+            assert json.load(f) == json.load(g)
+        names = sorted(os.listdir(os.path.join(a, split, "rgb")))
+        assert names == sorted(os.listdir(os.path.join(b, split, "rgb")))
+        for n in names:
+            np.testing.assert_array_equal(np.asarray(Image.open(os.path.join(a, split, "rgb", n))),
+                                          np.asarray(Image.open(os.path.join(b, split, "rgb", n))))
+
+
+def test_train_buffers_match_jax(tmp_path):
+    root = jsyn.generate_single_scene(str(tmp_path), img_wh=(16, 12), n_train=3, n_val=1, n_test=1)
+    ds = sapien.SapienDataset(root, split="train", img_wh=(16, 12))
+    jds = jsapien.SapienDataset(root, split="train", img_wh=(16, 12))
+    got, want = ds.train_buffers(), jds.train_buffers()
+    assert set(got) == set(want) and ds.num_rays == jds.num_rays == 3 * 16 * 12
+    assert got["viewdirs"] is got["rays_d"]
+    for k in want:  # fp32 ray math in the same order; PNG decoding to 1/255
+        np.testing.assert_allclose(got[k], want[k], atol=1e-6, rtol=0, err_msg=k)
+
+
+def test_config_matches_jax_for_the_vanilla_fields(tmp_path):
+    path = os.path.join(ROOT, "config", "vanilla.json")
+    got, want = config.load_config(path), jconfig.load_config(path)
+    for f in config.Config.__dataclass_fields__:
+        if f != "extras":
+            assert getattr(got, f) == getattr(want, f), f
+    aliased = {"N_samples": 32, "N_importance": 16, "perturb": 0, "lr": 2e-3, "use_disp": True}
+    got, want = config.load_config(None, aliased), jconfig.load_config(None, aliased)
+    for f in ("num_coarse_samples", "num_fine_samples", "randomized", "lr_init", "lindisp"):
+        assert getattr(got, f) == getattr(want, f), f
+    assert got.randomized is False and got.num_coarse_samples == 32
+
+
+def test_checkpoints_keep_latest_best_and_unscored(tmp_path):
+    mgr = CheckpointManager(str(tmp_path), keep=2)
+    for step, psnr in ((1, 10.0), (2, 30.0), (3, None), (4, 20.0), (5, 5.0)):
+        mgr.save(step, {"step": step, "params": {"w": torch.full((2,), float(step))}}, psnr)
+    assert mgr.steps() == [2, 3, 4, 5]  # best two by val PSNR, the unscored one, the latest
+    assert mgr.latest_step() == 5
+    assert torch.equal(mgr.restore()["params"]["w"], torch.full((2,), 5.0))
+    assert mgr.restore(2)["step"] == 2
+
+
+def test_val_grid_matches_jax():
+    rng = np.random.default_rng(0)
+    target, rgb = rng.uniform(size=(12 * 16, 3)), rng.uniform(size=(12 * 16, 3))
+    depth, acc = rng.uniform(2, 6, 12 * 16), rng.uniform(size=12 * 16)
+    np.testing.assert_array_equal(
+        viz.visualize_val_rgb_opa_depth((16, 12), target, rgb, depth, acc),
+        jviz.visualize_val_rgb_opa_depth((16, 12), target, rgb, depth, acc),
+    )
