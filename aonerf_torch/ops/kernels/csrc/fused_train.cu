@@ -6,48 +6,75 @@
 // gradients of the 26 weights of fused_render.cu's level; the inputs get none
 // (coarse t-values are parameter-free, fine t-values are detached).
 //
-// What bounds it: arithmetic. Per sample, the forward (589,952 multiply-adds),
-// the weight products h^T . delta (589,952) and the input products
-// delta . W^T (557,696; none for w0 and w5i) make 1.74 M multiply-adds, i.e.
-// 3.48 MFLOP: >= 20.5 ms for 2048 rays x 193 samples at the H100's
-// 67 TFLOP/s fp32 peak outside the tensor cores.
+// Four kernels, in order on one stream. Per sample: the forward, 589,952
+// multiply-adds; the input products delta . W^T, 557,696; the weight products
+// h^T . delta, 589,952. At 2048 rays x 193 samples (395,264 rows):
 //
-// Three kernels, in order on one stream:
-//  1. level_bwd_forward_kernel: K1's forward walk (nerf_level.cuh) over the
-//     block's rays, saving every chunk's activations (h0..h7, bottleneck,
-//     view hidden: kSpill = 2432 floats a sample) to a per-row scratch in
-//     device memory. A 64-row chunk's eight trunk activations are 512 KB, more
-//     than a block's 227 KB of shared memory, where the TPU kept a whole tile
-//     in VMEM; and the integrator backward needs every sample of a ray before
-//     the first chunk's MLP backward can start. Spilling once costs 9.7 KB a
-//     sample of writes and the same of reads (~7.7 GB at 2048 x 193, ~2.3 ms
-//     at 3.35 TB/s), less than recomputing the forward a second time
-//     (~1/3 more arithmetic). Then one warp per ray runs the integrator
-//     forward and backward: g_w from the cotangents, and
-//     g_alpha = g_w T - suffix(g_w w) / max(1 - alpha + 1e-10, 1e-10) with
-//     the suffix sum taken right to left by a warp scan (a direct sum, never
-//     a difference of prefix sums, which would cancel where v is tiny). It
-//     writes g_raw_sigma and g_raw_rgb per sample.
-//  2. level_bwd_weights_kernel: per 64-row chunk, reads the saved activations
-//     back into shared memory and runs the head, view and trunk backward
-//     (ReLU masks from the saved activations, the skip layer split into w5x
-//     and w5i). delta . W^T uses gemm_acc with the transposed weights
-//     streamed like the forward's. h^T . delta is computed by each thread
-//     for an 8x8 (or 8x4) tile of dW over the chunk's 64 rows and added to
-//     the block's own partial set.
-//  3. reduce_partials_kernel: sums the blocks' partial sets in block order.
+//  A. level_bwd_forward_kernel (fp32 FMA; bound by operations, 6.96 ms at
+//     67 TFLOP/s): K1's forward walk (nerf_level.cuh) over the block's
+//     ray_tile rays, saving every sample's activations (h0..h7, bottleneck,
+//     view hidden: kSpill = 2432 floats) to the scratch `saved`; then one warp
+//     per ray runs the integrator forward and backward: g_w from the
+//     cotangents, g_alpha = g_w T - suffix(g_w w) / max(1 - alpha + 1e-10,
+//     1e-10) with the suffix sum taken right to left by a warp scan (a direct
+//     sum, never a difference of prefix sums, which would cancel where v is
+//     tiny), and g_raw_sigma, g_raw_rgb per sample to `grow`. Spilling beats
+//     recomputing: a 64-row chunk's eight trunk activations (512 KB) do not
+//     fit in shared memory, and the integrator backward needs a whole ray
+//     before any chunk's MLP backward.
+//  B1. level_bwd_delta_kernel (3xTF32 tensor cores; bound by operations,
+//     2.67 ms at 495/3 TFLOP/s, over its 7.7 GB of bytes, 2.30 ms): the
+//     block's rays again, in 64-row chunks, from the rgb head down in the
+//     order of fused_level_bwd_ref: delta_v, g_btl, delta_7 (with the rank-1
+//     g_raw_sigma wd^T term), delta_6 .. delta_0, the ReLU masks from the
+//     saved activations. Each delta goes to the scratch `delta` (kSpill
+//     floats a sample, laid out like `saved`). delta . W^T is a 64 x 256
+//     product on mma.sync m16n8k8 TF32: B(k, n) = W[n][k] is the "col"
+//     operand read straight from W's flax (in, out) layout, staged in 32-wide
+//     K-slices (256 x 36 floats) through a cp.async double buffer, so no
+//     transposed copy of any weight is made. The narrow head products (wr, br,
+//     wd, bd; wvb through the per-ray sum of delta_v, rows in order) stay on
+//     fp32 FMA (N = 3 and 1 fit no tensor-core tile; 0.1% of the work), each
+//     chunk's sum added to the thread's running sum, written once per block to
+//     its narrow set (kNarrowFloats). Shared memory 216 KB at ray_tile 16.
+//  B2. level_bwd_dw_kernel (3xTF32 tensor cores; bound by operations,
+//     2.82 ms at 495/3 TFLOP/s, over its 7.6 GB, 2.27 ms): every dW_l = H^T
+//     Delta_l (H from `saved`, or xenc for w0 and w5i) as a split-K product
+//     over the sample rows. A block owns one kDwM x kDwN = 64 x 128 tile of
+//     one dW and one of kRanges = 16 fixed row ranges (72 tiles x 16 ranges =
+//     1152 blocks, two per SM), keeps the tile's sums in registers across the
+//     range, and writes it once to that range's partial set; no partial is
+//     ever read back while it accumulates. The range count does not depend on
+//     the card, so neither does the result. Each 64-row step stages H (64 x 64)
+//     and Delta (64 x 128) through a cp.async double buffer (106 KB). Hopper's
+//     wgmma takes TF32 only K-major, and here K is the sample row, which is
+//     the major dimension of both H^T and Delta; so B2 uses mma.sync with
+//     fragments read from padded shared tiles (strides 72 and 136, 8 mod 32:
+//     conflict-free), not wgmma after a transpose. H is read from device
+//     memory once per column tile of dW (twice for N = 256) and Delta once
+//     per row tile (four times for K = 256); the blocks that share those rows
+//     run side by side, so the repeats come mostly from L2.
+//  R. level_bwd_reduce_kernel: sums the 16 partial sets (38 MB, which L2
+//     holds) and the B1 blocks' narrow sets, each in a fixed order.
 //
-// The accumulation across blocks. The TPU kernel adds each grid step's dW in
-// place, which relies on the grid running in order. Here blocks run
-// concurrently, so each block owns an fp32 partial set of every gradient
-// (kPartialFloats floats, 2.38 MB; 305 MB for 128 blocks) that only it
-// writes, and a second kernel reduces them in a fixed order. The result is
-// deterministic: the same inputs give the same bits on every run. The cost is
-// the partial set's read-modify-write once per chunk (~4.8 MB a chunk), the
-// largest byte stream of the backward; atomics into fewer copies that fit in
-// L2 are the later alternative.
+// 3xTF32: each fp32 operand x is split into big = tf32(x) and small =
+// tf32(x - big), and small.big + big.small + big.big accumulate in fp32 (the
+// small terms first, as CUTLASS orders them); the dropped small.small is
+// ~2^-22 of the product, so the products keep fp32's accuracy. The tensor
+// cores' accumulation truncates, so each run of 12 (B1) or 24 (B2) mma has a
+// fresh accumulator that fp32 adds fold into the running sum.
 //
-// fp32 FMA on the CUDA cores throughout, no tensor cores.
+// Deterministic: no atomics, every sum in a fixed order, so the same inputs
+// give the same bits on every call.
+//
+// Scratch at 2048 x 193: saved and delta 3.85 GB each, grow 6.3 MB, partials
+// 16 x 2.38 MB, narrow 128 x 16.4 KB.
+//
+// ptxas (-Xptxas -v, sm_90a, CUDA 12.8, printed by chip_smoke.py's build
+// phase on the H100): pass A 205 registers, no spill; B1 255 registers, 240
+// bytes of spill stores and 336 of spill loads (256-byte stack frame); B2
+// 128 registers (capped by __launch_bounds__(256, 2)), no spill; the
+// reduction 31 registers.
 
 #include "nerf_level.cuh"
 
@@ -66,22 +93,72 @@ constexpr int kGradSize[kNumGrads] = {
     kWidth * kWidth, kPos * kWidth, kWidth, kWidth * kWidth, kWidth, kWidth * kWidth, kWidth,
     kWidth, 1, kWidth * kWidth, kWidth, kWidth * kCondWidth, kView * kCondWidth, kCondWidth,
     kCondWidth * 3, 3};
-constexpr int pad4(int n) { return (n + 3) / 4 * 4; }
-// Offset of gradient G in a partial set; each gradient starts 16-byte aligned.
-template <int G>
-struct Off {
-  static constexpr int value = Off<G - 1>::value + pad4(kGradSize[G - 1]);
-};
-template <>
-struct Off<0> {
-  static constexpr int value = 0;
-};
-constexpr int kPartialFloats = Off<kNumGrads>::value;
 
-// Transposed (out, in) copies of the weights whose input gradient is needed.
-struct WeightsT {
-  const float *w1, *w2, *w3, *w4, *w5x, *w6, *w7, *wb, *wva;
+// The output (and each row range's partial set): the 26 gradients in order,
+// each starting 16-byte aligned.
+struct Layout {
+  int off[kNumGrads + 1];
+  int size[kNumGrads];
 };
+constexpr Layout make_layout() {
+  Layout l{};
+  for (int g = 0; g < kNumGrads; ++g) {
+    l.size[g] = kGradSize[g];
+    l.off[g + 1] = l.off[g] + (kGradSize[g] + 3) / 4 * 4;
+  }
+  return l;
+}
+constexpr Layout kLayout = make_layout();
+constexpr int kPartialFloats = kLayout.off[kNumGrads];
+__constant__ Layout c_layout = make_layout();
+
+// Pass B1. The delta scratch holds kSpill floats a sample, shaped like the
+// saved rows: delta_0..delta_7 at l * kWidth, the bottleneck's gradient at
+// kSpillBtl, delta_v at kSpillView.
+constexpr int kAct = kWidth + 4;  // row stride of D and H in shared memory (4 mod 32)
+constexpr int kWs = kSlice + 4;   // row stride of a staged weight slice (4 mod 32)
+// A B1 block's narrow partial set: the head gradients summed over its rays.
+constexpr int kNarrowWd = 0, kNarrowBd = kNarrowWd + kWidth, kNarrowWr = kNarrowBd + 4,
+              kNarrowBr = kNarrowWr + kCondWidth * 3, kNarrowWvb = kNarrowBr + 4,
+              kNarrowFloats = kNarrowWvb + kView * kCondWidth;
+
+// Pass B2. dW = H^T . Delta for one layer, split over kRanges fixed ranges of
+// sample rows; a block owns a kDwM x kDwN tile of one dW and one range, and
+// walks the range kDwStep rows at a time.
+constexpr int kRanges = 16;
+constexpr int kDwM = 64, kDwN = 128, kDwStep = 64;
+constexpr int kDwHs = kDwM + 8, kDwDs = kDwN + 8;  // staged row strides (8 mod 32)
+constexpr int kDwStage = kDwStep * (kDwHs + kDwDs);
+constexpr size_t kDwSmemBytes = sizeof(float) * 2 * kDwStage;
+constexpr int kX = -1;  // h_off of the products whose H is the encoded input
+
+// One weight product: dW[grad] (K x N) = H^T . Delta over all sample rows,
+// H the saved columns [h_off, h_off + K) (or xenc), Delta the scratch columns
+// [d_off, d_off + N); with bias >= 0, also the bias gradient sum(Delta).
+struct DwProduct {
+  int grad, bias, h_off, K, d_off, N;
+};
+#define AONERF_DW_PRODUCTS                                                                            \
+  {G_W0, G_B0, kX, kPos, 0, kWidth}, {G_W1, G_B1, 0, kWidth, kWidth, kWidth},                        \
+      {G_W2, G_B2, kWidth, kWidth, 2 * kWidth, kWidth},                                              \
+      {G_W3, G_B3, 2 * kWidth, kWidth, 3 * kWidth, kWidth},                                          \
+      {G_W4, G_B4, 3 * kWidth, kWidth, 4 * kWidth, kWidth},                                          \
+      {G_W5X, G_B5, 4 * kWidth, kWidth, 5 * kWidth, kWidth}, {G_W5I, -1, kX, kPos, 5 * kWidth, kWidth}, \
+      {G_W6, G_B6, 5 * kWidth, kWidth, 6 * kWidth, kWidth},                                          \
+      {G_W7, G_B7, 6 * kWidth, kWidth, 7 * kWidth, kWidth},                                          \
+      {G_WB, G_BB, 7 * kWidth, kWidth, kSpillBtl, kWidth},                                           \
+      {G_WVA, G_BV, kSpillBtl, kWidth, kSpillView, kCondWidth}
+constexpr DwProduct kProducts[] = {AONERF_DW_PRODUCTS};
+__constant__ DwProduct c_products[] = {AONERF_DW_PRODUCTS};
+constexpr int kNumProducts = sizeof(kProducts) / sizeof(kProducts[0]);
+__host__ __device__ constexpr int m_tiles(const DwProduct& p) { return (p.K + kDwM - 1) / kDwM; }
+__host__ __device__ constexpr int product_tiles(const DwProduct& p) { return m_tiles(p) * (p.N / kDwN); }
+constexpr int count_tiles() {
+  int n = 0;
+  for (int p = 0; p < kNumProducts; ++p) n += product_tiles(kProducts[p]);
+  return n;
+}
+constexpr int kDwTiles = count_tiles();  // 72
 
 __global__ void __launch_bounds__(kThreads, 1)
 level_bwd_forward_kernel(const float* __restrict__ t, const float* __restrict__ rays_d,
@@ -168,160 +245,221 @@ level_bwd_forward_kernel(const float* __restrict__ t, const float* __restrict__ 
   }
 }
 
-// H[r][c] = rows[r * kSpill + c] for c < N and r < valid_rows, else 0.
+// ------------------------------------------------------------ 3xTF32 mma.sync
+
+// x rounded to TF32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away from
+// zero: half a TF32 ulp added to the magnitude, the 13 low bits cleared), on
+// the integer pipe. Finite inputs only.
+__device__ __forceinline__ uint32_t tf32_rna(float x) { return (__float_as_uint(x) + 0x1000u) & 0xffffe000u; }
+
+// x = big + small with both TF32; x - big is exact in fp32, and what small
+// drops is at most 2^-22 |x|.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+// d += a . b for one m16n8k8 TF32 tile. Fragments (g = lane / 4, t = lane % 4):
+// A (row, k) at a[0] (g, t), a[1] (g+8, t), a[2] (g, t+4), a[3] (g+8, t+4);
+// B (k, col) at b0 (t, g), b1 (t+4, g); d (row, col) at d[0] (g, 2t),
+// d[1] (g, 2t+1), d[2] (g+8, 2t), d[3] (g+8, 2t+1).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+      "{%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 3xTF32: d += a_small b_big + a_big b_small + a_big b_big, the small terms
+// first (as CUTLASS orders them); a_small b_small (~2^-22 of the product) is
+// dropped.
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ab)[4], const uint32_t (&as)[4],
+                                           const uint32_t (&bb)[2], const uint32_t (&bs)[2]) {
+  mma_tf32(d, as, bb[0], bb[1]);
+  mma_tf32(d, ab, bs[0], bs[1]);
+  mma_tf32(d, ab, bb[0], bb[1]);
+}
+
+// The tensor cores add into their fp32 accumulator with truncation, so one
+// accumulator's error grows with the number of mma into it, in one direction.
+// Both passes give each short run of mma (12 in B1, 24 in B2) a fresh
+// accumulator and add it into the running sum with fp32 adds.
+template <int M, int N>
+__device__ __forceinline__ void add_into(float (&acc)[M][N][4], const float (&part)[M][N][4]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][j][c] += part[i][j][c];
+}
+
+template <int M, int N>
+__device__ __forceinline__ void zero_acc(float (&acc)[M][N][4]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  int n = valid ? 4 : 0;  // n == 0 zero-fills
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(n));
+}
+
+// ------------------------------------------------------- pass B1: the deltas
+
+// The chunk's 64 x 256 product: warp w owns rows 32 (w / 4) + [0, 32) and
+// columns 64 (w % 4) + [0, 64), as 2 x 8 m16n8 tiles.
+using ChunkAcc = float[2][8][4];
+
+// Stage columns [k0, k0 + kSlice) of W (kWidth x K, row-major) into buf
+// (kWidth rows of stride kWs), as one committed cp.async group.
+__device__ __forceinline__ void stage_wt(float* buf, const float* __restrict__ W, int K, int k0) {
+  constexpr int kVec = kSlice / 4;
+  for (int i = threadIdx.x; i < kWidth * kVec; i += kThreads) {
+    const int n = i / kVec, c = (i % kVec) * 4;
+    cp_async16(buf + n * kWs + c, W + (size_t)n * K + k0 + c, true);
+  }
+  cp_async_commit();
+}
+
+// acc += A[:, :K] . W^T, A (kRows x kAct) in shared memory, W (kWidth x K)
+// row-major in device memory: a layer's weight in the flax (in, out) layout,
+// in = kWidth, out = K (K % kSlice == 0). B(k, n) = W[n][k] is read as the
+// "col" operand straight from W's layout, through a cp.async double buffer of
+// K-slices. Every cp.async group committed before the call has landed by the
+// first barrier. Ends with a barrier.
+__device__ __forceinline__ void gemm_wt(ChunkAcc& acc, const float* A, int K, const float* __restrict__ W,
+                                        float* wbuf) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = (warp >> 2) * 32, c0 = (warp & 3) * 64;
+  const int n_slices = K / kSlice;
+  stage_wt(wbuf, W, K, 0);
+  for (int s = 0; s < n_slices; ++s) {
+    const float* ws = wbuf + (s & 1) * kWidth * kWs;
+    if (s + 1 < n_slices) {
+      stage_wt(wbuf + ((s + 1) & 1) * kWidth * kWs, W, K, (s + 1) * kSlice);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    ChunkAcc part;
+    zero_acc(part);
+#pragma unroll
+    for (int kk = 0; kk < kSlice; kk += 8) {
+      uint32_t ab[2][4], as[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        const float* p = A + (r0 + 16 * mi + g) * kAct + s * kSlice + kk + t;
+        split_tf32(p[0], ab[mi][0], as[mi][0]);
+        split_tf32(p[8 * kAct], ab[mi][1], as[mi][1]);
+        split_tf32(p[4], ab[mi][2], as[mi][2]);
+        split_tf32(p[8 * kAct + 4], ab[mi][3], as[mi][3]);
+      }
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni) {
+        const float* q = ws + (c0 + 8 * ni + g) * kWs + kk + t;
+        uint32_t bb[2], bs[2];
+        split_tf32(q[0], bb[0], bs[0]);
+        split_tf32(q[4], bb[1], bs[1]);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) mma_3xtf32(part[mi][ni], ab[mi], as[mi], bb, bs);
+      }
+    }
+    add_into(acc, part);
+    __syncthreads();
+  }
+}
+
+// D[r][c] = (acc + gs[r] wd[c]) * (M[r][c] > 0), the rank-1 term when wd is
+// given and the mask when M is; rows below valid_rows also to the scratch
+// rows dst + r * kSpill + c. Ends with a barrier.
+__device__ __forceinline__ void store_delta(const ChunkAcc& acc, float* D, const float* M, const float* gs,
+                                            const float* __restrict__ wd, float* __restrict__ dst,
+                                            int valid_rows) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = (warp >> 2) * 32 + (lane >> 2), c0 = (warp & 3) * 64 + 2 * (lane & 3);
+#pragma unroll
+  for (int ni = 0; ni < 8; ++ni) {
+    const int c = c0 + 8 * ni;
+    float v0 = 0.f, v1 = 0.f;
+    if (wd != nullptr) {
+      v0 = __ldg(wd + c);
+      v1 = __ldg(wd + c + 1);
+    }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + 16 * mi + 8 * h;
+        float x0 = acc[mi][ni][2 * h], x1 = acc[mi][ni][2 * h + 1];
+        if (wd != nullptr) {
+          x0 = fmaf(gs[r], v0, x0);
+          x1 = fmaf(gs[r], v1, x1);
+        }
+        if (M != nullptr) {
+          if (!(M[r * kAct + c] > 0.f)) x0 = 0.f;
+          if (!(M[r * kAct + c + 1] > 0.f)) x1 = 0.f;
+        }
+        *reinterpret_cast<float2*>(D + r * kAct + c) = make_float2(x0, x1);
+        if (r < valid_rows) *reinterpret_cast<float2*>(dst + (size_t)r * kSpill + c) = make_float2(x0, x1);
+      }
+  }
+  __syncthreads();
+}
+
+// H[r][c] = rows[r * kSpill + c] for c < N and r < valid_rows, else 0, as
+// one committed cp.async group.
 template <int N>
 __device__ __forceinline__ void load_rows(float* H, const float* __restrict__ rows, int valid_rows) {
   constexpr int kVec = N / 4;
   for (int i = threadIdx.x; i < kRows * kVec; i += kThreads) {
     const int r = i / kVec, c = (i % kVec) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < valid_rows) v = *reinterpret_cast<const float4*>(rows + (size_t)r * kSpill + c);
-    *reinterpret_cast<float4*>(H + r * kWidth + c) = v;
+    const bool valid = r < valid_rows;
+    cp_async16(H + r * kAct + c, valid ? rows + (size_t)r * kSpill + c : rows, valid);
   }
+  cp_async_commit();
 }
 
-// The chunk's encoded inputs as (kRows x kPosPad), pad rows and column zero.
-__device__ __forceinline__ void load_xenc(float* H, const float* __restrict__ xg, int valid_rows) {
-  for (int i = threadIdx.x; i < kRows * kPosPad; i += kThreads) {
-    const int r = i / kPosPad, c = i % kPosPad;
-    H[i] = (r < valid_rows && c < kPos) ? __ldg(xg + r * kPos + c) : 0.f;
-  }
-}
-
-__device__ __forceinline__ void add_to(float* p, float v, bool first) { *p = first ? v : *p + v; }
-
-// P[k][n] (+)= sum over the chunk's rows r of H[r][k] * D[r][n], k < K,
-// n < N (P row-major (K, N)). Each warp owns 8 rows of P per 64-row pass,
-// each lane 4 (N = 128) or 8 (N = 256) columns. Reads shared memory only.
-template <int N>
-__device__ __forceinline__ void dw_product(const float* H, int ldh, int K, const float* D,
-                                           float* __restrict__ P, bool first) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int k0 = 0; k0 < K; k0 += kWarps * 8) {
-    const int kb = k0 + warp * 8;
-    if (kb >= K) continue;  // warp-uniform
-    float acc[8][N / 32];
-    zero<N>(acc);
-#pragma unroll 4
-    for (int r = 0; r < kRows; ++r) {
-      const float4 a0 = *reinterpret_cast<const float4*>(H + r * ldh + kb);
-      const float4 a1 = *reinterpret_cast<const float4*>(H + r * ldh + kb + 4);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float4 b0 = *reinterpret_cast<const float4*>(D + r * kWidth + lane * 4);
-      float4 b1 = b0;
-      if constexpr (N == 256) b1 = *reinterpret_cast<const float4*>(D + r * kWidth + 128 + lane * 4);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        acc[i][0] = fmaf(a[i], b0.x, acc[i][0]);
-        acc[i][1] = fmaf(a[i], b0.y, acc[i][1]);
-        acc[i][2] = fmaf(a[i], b0.z, acc[i][2]);
-        acc[i][3] = fmaf(a[i], b0.w, acc[i][3]);
-        if constexpr (N == 256) {
-          acc[i][4] = fmaf(a[i], b1.x, acc[i][4]);
-          acc[i][5] = fmaf(a[i], b1.y, acc[i][5]);
-          acc[i][6] = fmaf(a[i], b1.z, acc[i][6]);
-          acc[i][7] = fmaf(a[i], b1.w, acc[i][7]);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int k = kb + i;
-      if (k >= K) continue;
-#pragma unroll
-      for (int h = 0; h < N / 128; ++h) {
-        float4* p = reinterpret_cast<float4*>(P + (size_t)k * N + h * 128 + lane * 4);
-        float4 v = make_float4(acc[i][h * 4], acc[i][h * 4 + 1], acc[i][h * 4 + 2], acc[i][h * 4 + 3]);
-        if (!first) {
-          const float4 o = *p;
-          v = make_float4(o.x + v.x, o.y + v.y, o.z + v.z, o.w + v.w);
-        }
-        *p = v;
-      }
-    }
-  }
-}
-
-// Bias gradient: P[c] (+)= sum over the chunk's rows of D[r][c], c < N.
-template <int N>
-__device__ __forceinline__ void col_sums(const float* D, float* __restrict__ P, bool first) {
-  for (int c = threadIdx.x; c < N; c += kThreads) {
-    float s = 0.f;
-    for (int r = 0; r < kRows; ++r) s += D[r * kWidth + c];
-    add_to(P + c, s, first);
-  }
-}
-
-// D[r][c] = (acc + gs[r] vec[c]) * (M[r][c] > 0) for this thread's gemm_acc
-// tile; the rank-1 term and the mask are optional. Ends with a barrier.
-__device__ __forceinline__ void store_delta(const float (&acc)[8][8], float* D, const float* M,
-                                            const float* gs, const float* __restrict__ vec) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float vv[8] = {};
-  if (vec != nullptr) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) vv[j] = __ldg(vec + lane * 4 + (j % 4) + 128 * (j / 4));
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = warp * 8 + i;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float v[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int j = h * 4 + q, c = h * 128 + lane * 4 + q;
-        float x = acc[i][j];
-        if (vec != nullptr) x = fmaf(gs[r], vv[j], x);
-        if (M != nullptr && !(M[r * kWidth + c] > 0.f)) x = 0.f;
-        v[q] = x;
-      }
-      *reinterpret_cast<float4*>(D + r * kWidth + h * 128 + lane * 4) = make_float4(v[0], v[1], v[2], v[3]);
-    }
-  }
-  __syncthreads();
-}
-
-// One trunk layer i backward, delta_i in D: db_i, then H <- h_{i-1} (saved
-// rows `prev`), dW_i = h_{i-1}^T delta_i, and
-// delta_{i-1} = (delta_i . W_i^T) * (h_{i-1} > 0) into D.
-__device__ __forceinline__ void trunk_step(float* D, float* H, float* wbuf, const float* prev,
-                                           int valid_rows, const float* WT, float* Pw, float* Pb,
-                                           bool first) {
-  col_sums<kWidth>(D, Pb, first);
-  load_rows<kWidth>(H, prev, valid_rows);
-  __syncthreads();
-  dw_product<kWidth>(H, kWidth, kWidth, D, Pw, first);
-  float acc[8][8];
-  zero<256>(acc);
-  gemm_acc<256>(acc, D, kWidth, kWidth, WT, wbuf);
-  store_delta(acc, D, H, nullptr, nullptr);
-}
+// The trunk weights whose transpose the delta chain multiplies by: w[l] for
+// l = 1..7, w[5] = w5x.
+struct Trunk {
+  const float* w[8];
+};
 
 __global__ void __launch_bounds__(kThreads, 1)
-level_bwd_weights_kernel(const float* __restrict__ venc, const float* __restrict__ xenc, Weights w,
-                         WeightsT wt, const float* __restrict__ saved, const float* __restrict__ grow,
-                         float* __restrict__ partials, int S, int ray_tile) {
+level_bwd_delta_kernel(const float* __restrict__ venc, const float* __restrict__ wd, const float* __restrict__ wr,
+                       const float* __restrict__ wva, const float* __restrict__ wb, Trunk trunk,
+                       const float* __restrict__ saved, const float* __restrict__ grow, float* __restrict__ delta,
+                       float* __restrict__ narrow, int S, int ray_tile) {
   extern __shared__ __align__(16) float smem[];
-  float* D = smem;                        // kRows x kWidth: the current delta
-  float* H = D + kRows * kWidth;          // kRows x kWidth: a saved activation
-  float* wbuf = H + kRows * kWidth;       // 2 x kSlice x kWidth
-  float* gc = wbuf + 2 * kSlice * kWidth; // ray_tile x kCondWidth: per-ray sum of delta_v
-  float* gs = gc + ray_tile * kCondWidth; // kRows: g_raw_sigma
-  float* grgb = gs + kRows;               // kRows x 3: g_raw_rgb
+  float* D = smem;                         // kRows x kAct: the current delta
+  float* H = D + kRows * kAct;             // kRows x kAct: a saved activation
+  float* wbuf = H + kRows * kAct;          // 2 x kWidth x kWs: weight slices
+  float* gc = wbuf + 2 * kWidth * kWs;     // ray_tile x kCondWidth: per-ray sum of delta_v
+  float* gs = gc + ray_tile * kCondWidth;  // kRows: g_raw_sigma
+  float* grgb = gs + kRows;                // kRows x 3: g_raw_rgb
 
+  const int tid = threadIdx.x;
   const int ray0 = blockIdx.x * ray_tile;
   const int n_rows = ray_tile * S;
   const size_t row_base = (size_t)ray0 * S;
-  float* P = partials + (size_t)blockIdx.x * kPartialFloats;
-  const int tid = threadIdx.x;
 
   for (int i = tid; i < ray_tile * kCondWidth; i += kThreads) gc[i] = 0.f;
+  // This thread's head gradients over the block's rows, each chunk's sum
+  // added in chunk order: wd[tid]; wr[tid][0..2] (tid < 128); bd (tid 128)
+  // or br[tid - 129] (tid 129..131).
+  float n_wd = 0.f, n_wr0 = 0.f, n_wr1 = 0.f, n_wr2 = 0.f, n_b = 0.f;
 
   for (int row0 = 0; row0 < n_rows; row0 += kRows) {
-    const bool first = row0 == 0;
     const int valid_rows = min(kRows, n_rows - row0);
     const float* sv = saved + (row_base + row0) * kSpill;
+    float* dv = delta + (row_base + row0) * kSpill;
     const float* gr = grow + (row_base + row0) * 4;
     for (int i = tid; i < kRows * 4; i += kThreads) {
       const int r = i / 4, c = i % 4;
@@ -329,127 +467,242 @@ level_bwd_weights_kernel(const float* __restrict__ venc, const float* __restrict
       if (c == 0) gs[r] = v; else grgb[r * 3 + c - 1] = v;
     }
     load_rows<kCondWidth>(H, sv + kSpillView, valid_rows);  // hv
+    cp_async_wait<0>();
     __syncthreads();
 
-    // rgb head: dWr = hv^T g_raw_rgb, dbr.
+    // Heads: wr += hv^T g_raw_rgb, br, bd.
     if (tid < kCondWidth) {
       float s0 = 0.f, s1 = 0.f, s2 = 0.f;
       for (int r = 0; r < kRows; ++r) {
-        const float h = H[r * kWidth + tid];
+        const float h = H[r * kAct + tid];
         s0 = fmaf(h, grgb[r * 3], s0);
         s1 = fmaf(h, grgb[r * 3 + 1], s1);
         s2 = fmaf(h, grgb[r * 3 + 2], s2);
       }
-      float* p = P + Off<G_WR>::value + tid * 3;
-      add_to(p, s0, first);
-      add_to(p + 1, s1, first);
-      add_to(p + 2, s2, first);
-    } else if (tid < kCondWidth + 3) {
-      const int j = tid - kCondWidth;
+      n_wr0 += s0;
+      n_wr1 += s1;
+      n_wr2 += s2;
+    } else if (tid == kCondWidth) {
       float s = 0.f;
-      for (int r = 0; r < kRows; ++r) s += grgb[r * 3 + j];
-      add_to(P + Off<G_BR>::value + j, s, first);
+      for (int r = 0; r < kRows; ++r) s += gs[r];
+      n_b += s;
+    } else if (tid < kCondWidth + 4) {
+      float s = 0.f;
+      for (int r = 0; r < kRows; ++r) s += grgb[r * 3 + tid - kCondWidth - 1];
+      n_b += s;
     }
     // delta_v = (g_raw_rgb . wr^T) * (hv > 0) -> D[:, :128]
     for (int i = tid; i < kRows * kCondWidth; i += kThreads) {
       const int r = i / kCondWidth, c = i % kCondWidth;
-      const float g = grgb[r * 3] * __ldg(w.wr + c * 3) + grgb[r * 3 + 1] * __ldg(w.wr + c * 3 + 1) +
-                      grgb[r * 3 + 2] * __ldg(w.wr + c * 3 + 2);
-      D[r * kWidth + c] = H[r * kWidth + c] > 0.f ? g : 0.f;
+      const float g = grgb[r * 3] * __ldg(wr + c * 3) + grgb[r * 3 + 1] * __ldg(wr + c * 3 + 1) +
+                      grgb[r * 3 + 2] * __ldg(wr + c * 3 + 2);
+      D[r * kAct + c] = H[r * kAct + c] > 0.f ? g : 0.f;
     }
     __syncthreads();
-    // dbv, and the per-ray sum of delta_v for wvb (one thread per column,
-    // rows in order: deterministic).
+    // The per-ray sum of delta_v for wvb (one thread per column, rows in
+    // order), and delta_v to the scratch.
     if (tid < kCondWidth) {
+      for (int r = 0; r < valid_rows; ++r) gc[((row0 + r) / S) * kCondWidth + tid] += D[r * kAct + tid];
+    }
+    for (int i = tid; i < valid_rows * (kCondWidth / 4); i += kThreads) {
+      const int r = i / (kCondWidth / 4), c = (i % (kCondWidth / 4)) * 4;
+      *reinterpret_cast<float4*>(dv + (size_t)r * kSpill + kSpillView + c) =
+          *reinterpret_cast<const float4*>(D + r * kAct + c);
+    }
+    load_rows<kWidth>(H, sv + 7 * kWidth, valid_rows);  // h7, lands in gemm_wt
+    ChunkAcc acc;
+    zero_acc(acc);  // g_btl = delta_v . wva^T
+    gemm_wt(acc, D, kCondWidth, wva, wbuf);
+    store_delta(acc, D, nullptr, nullptr, nullptr, dv + kSpillBtl, valid_rows);
+    {  // density head: wd += h7^T g_raw_sigma
       float s = 0.f;
-      for (int r = 0; r < valid_rows; ++r) {
-        const float d = D[r * kWidth + tid];
-        s += d;
-        gc[((row0 + r) / S) * kCondWidth + tid] += d;
-      }
-      add_to(P + Off<G_BV>::value + tid, s, first);
+      for (int r = 0; r < kRows; ++r) s = fmaf(H[r * kAct + tid], gs[r], s);
+      n_wd += s;
     }
-    load_rows<kWidth>(H, sv + kSpillBtl, valid_rows);  // bottleneck
-    __syncthreads();
-    dw_product<kCondWidth>(H, kWidth, kWidth, D, P + Off<G_WVA>::value, first);
-    {  // g_btl = delta_v . wva^T -> D
-      float acc[8][8];
-      zero<256>(acc);
-      gemm_acc<256>(acc, D, kWidth, kCondWidth, wt.wva, wbuf);
-      store_delta(acc, D, nullptr, nullptr, nullptr);
+    zero_acc(acc);  // delta_7 = (g_btl . wb^T + g_raw_sigma wd^T) * (h7 > 0)
+    gemm_wt(acc, D, kWidth, wb, wbuf);
+    store_delta(acc, D, H, gs, wd, dv + 7 * kWidth, valid_rows);
+    for (int l = 6; l >= 0; --l) {  // delta_l = (delta_{l+1} . W_{l+1}^T) * (h_l > 0)
+      load_rows<kWidth>(H, sv + l * kWidth, valid_rows);
+      zero_acc(acc);
+      gemm_wt(acc, D, kWidth, trunk.w[l + 1], wbuf);
+      store_delta(acc, D, H, nullptr, nullptr, dv + l * kWidth, valid_rows);
     }
-    // bottleneck and density heads: dWb = h7^T g_btl, dWd = h7^T g_raw_sigma.
-    col_sums<kWidth>(D, P + Off<G_BB>::value, first);
-    load_rows<kWidth>(H, sv + 7 * kWidth, valid_rows);  // h7
-    __syncthreads();
-    dw_product<kWidth>(H, kWidth, kWidth, D, P + Off<G_WB>::value, first);
-    {
-      float s = 0.f;
-      for (int r = 0; r < kRows; ++r) s = fmaf(H[r * kWidth + tid], gs[r], s);
-      add_to(P + Off<G_WD>::value + tid, s, first);
-      if (tid == 0) {
-        float b = 0.f;
-        for (int r = 0; r < kRows; ++r) b += gs[r];
-        add_to(P + Off<G_BD>::value, b, first);
-      }
-    }
-    {  // delta_7 = (g_btl . wb^T + g_raw_sigma wd^T) * (h7 > 0) -> D
-      float acc[8][8];
-      zero<256>(acc);
-      gemm_acc<256>(acc, D, kWidth, kWidth, wt.wb, wbuf);
-      store_delta(acc, D, H, gs, w.wd);
-    }
-    trunk_step(D, H, wbuf, sv + 6 * kWidth, valid_rows, wt.w7, P + Off<G_W7>::value, P + Off<G_B7>::value, first);
-    trunk_step(D, H, wbuf, sv + 5 * kWidth, valid_rows, wt.w6, P + Off<G_W6>::value, P + Off<G_B6>::value, first);
-    // skip layer 5: dW5i = x_enc^T delta_5, dW5x = h4^T delta_5.
-    col_sums<kWidth>(D, P + Off<G_B5>::value, first);
-    load_xenc(H, xenc + (row_base + row0) * kPos, valid_rows);
-    __syncthreads();
-    dw_product<kWidth>(H, kPosPad, kPos, D, P + Off<G_W5I>::value, first);
-    __syncthreads();
-    load_rows<kWidth>(H, sv + 4 * kWidth, valid_rows);  // h4
-    __syncthreads();
-    dw_product<kWidth>(H, kWidth, kWidth, D, P + Off<G_W5X>::value, first);
-    {
-      float acc[8][8];
-      zero<256>(acc);
-      gemm_acc<256>(acc, D, kWidth, kWidth, wt.w5x, wbuf);
-      store_delta(acc, D, H, nullptr, nullptr);
-    }
-    trunk_step(D, H, wbuf, sv + 3 * kWidth, valid_rows, wt.w4, P + Off<G_W4>::value, P + Off<G_B4>::value, first);
-    trunk_step(D, H, wbuf, sv + 2 * kWidth, valid_rows, wt.w3, P + Off<G_W3>::value, P + Off<G_B3>::value, first);
-    trunk_step(D, H, wbuf, sv + 1 * kWidth, valid_rows, wt.w2, P + Off<G_W2>::value, P + Off<G_B2>::value, first);
-    trunk_step(D, H, wbuf, sv, valid_rows, wt.w1, P + Off<G_W1>::value, P + Off<G_B1>::value, first);
-    // layer 0: dW0 = x_enc^T delta_0.
-    col_sums<kWidth>(D, P + Off<G_B0>::value, first);
-    load_xenc(H, xenc + (row_base + row0) * kPos, valid_rows);
-    __syncthreads();
-    dw_product<kWidth>(H, kPosPad, kPos, D, P + Off<G_W0>::value, first);
-    __syncthreads();  // the next chunk overwrites gs, grgb, H and D
   }
 
-  // dWvb = venc^T (per-ray sum of delta_v), once per block.
+  float* nw = narrow + (size_t)blockIdx.x * kNarrowFloats;
+  nw[kNarrowWd + tid] = n_wd;
+  if (tid < kCondWidth) {
+    nw[kNarrowWr + tid * 3] = n_wr0;
+    nw[kNarrowWr + tid * 3 + 1] = n_wr1;
+    nw[kNarrowWr + tid * 3 + 2] = n_wr2;
+  } else if (tid == kCondWidth) {
+    nw[kNarrowBd] = n_b;
+  } else if (tid < kCondWidth + 4) {
+    nw[kNarrowBr + tid - kCondWidth - 1] = n_b;
+  }
+  // wvb = venc^T (per-ray sum of delta_v); the last chunk's barriers ordered gc.
   for (int i = tid; i < kView * kCondWidth; i += kThreads) {
     const int k = i / kCondWidth, n = i % kCondWidth;
     float s = 0.f;
     for (int g = 0; g < ray_tile; ++g)
       s = fmaf(__ldg(venc + (size_t)(ray0 + g) * kView + k), gc[g * kCondWidth + n], s);
-    P[Off<G_WVB>::value + i] = s;
+    nw[kNarrowWvb + i] = s;
   }
 }
 
-// out[i] = sum over blocks b, in order, of partials[b][i].
-__global__ void reduce_partials_kernel(const float* __restrict__ partials, int n_blocks,
-                                       float* __restrict__ out) {
+// ------------------------------------------------ pass B2: the weight products
+
+// Block b: row range q = b / kDwTiles, tile b % kDwTiles in product order
+// (within a product, the M tiles of one column tile are neighbours, so the
+// blocks that read the same delta rows run together). The block sums rows
+// [lo, hi) of the range into its tile in registers and writes the tile, and
+// the bias tile when it holds the first M rows, once to range q's partial set.
+__global__ void __launch_bounds__(kThreads, 2)
+level_bwd_dw_kernel(const float* __restrict__ saved, const float* __restrict__ xenc,
+                    const float* __restrict__ delta, float* __restrict__ partials, int n_total,
+                    int rows_per_range) {
+  extern __shared__ __align__(16) float smem[];
+  int tile = blockIdx.x % kDwTiles;
+  const int q = blockIdx.x / kDwTiles;
+  int p = 0;
+  while (tile >= product_tiles(c_products[p])) tile -= product_tiles(c_products[p++]);
+  const DwProduct P = c_products[p];
+  const int mt = m_tiles(P);
+  const int m0 = (tile % mt) * kDwM, n0 = (tile / mt) * kDwN;
+  const int lo = min(n_total, q * rows_per_range), hi = min(n_total, lo + rows_per_range);
+  const bool with_bias = P.bias >= 0 && m0 == 0;
+
+  // Rows [s0, s0 + kDwStep) of H's columns [m0, m0 + kDwM) and of Delta's
+  // columns [n0, n0 + kDwN) into stage buf; rows at or past hi (and xenc's
+  // pad column) zero-filled.
+  auto stage = [&](int buf, int s0) {
+    float* hs = smem + buf * kDwStage;
+    float* ds = hs + kDwStep * kDwHs;
+    if (P.h_off != kX) {
+      for (int i = threadIdx.x; i < kDwStep * (kDwM / 4); i += kThreads) {
+        const int r = i / (kDwM / 4), c = (i % (kDwM / 4)) * 4;
+        const bool valid = s0 + r < hi;
+        cp_async16(hs + r * kDwHs + c, valid ? saved + (size_t)(s0 + r) * kSpill + P.h_off + m0 + c : saved, valid);
+      }
+    } else {  // xenc rows are 63 floats: not 16-byte aligned
+      for (int i = threadIdx.x; i < kDwStep * kDwM; i += kThreads) {
+        const int r = i / kDwM, c = i % kDwM;
+        const bool valid = s0 + r < hi && c < kPos;
+        cp_async4(hs + r * kDwHs + c, valid ? xenc + (size_t)(s0 + r) * kPos + c : xenc, valid);
+      }
+    }
+    for (int i = threadIdx.x; i < kDwStep * (kDwN / 4); i += kThreads) {
+      const int r = i / (kDwN / 4), c = (i % (kDwN / 4)) * 4;
+      const bool valid = s0 + r < hi;
+      cp_async16(ds + r * kDwDs + c, valid ? delta + (size_t)(s0 + r) * kSpill + P.d_off + n0 + c : delta, valid);
+    }
+    cp_async_commit();
+  };
+
+  // Warp w owns rows 32 (w / 4) + [0, 32) and columns 32 (w % 4) + [0, 32) of
+  // the tile, as 2 x 4 m16n8 tiles. A(m, k) = H[k][m], B(k, n) = Delta[k][n],
+  // k the sample row.
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int wr0 = (warp >> 2) * 32, wc0 = (warp & 3) * 32;
+  float tot[2][4][4];
+  zero_acc(tot);
+  float bsum = 0.f;
+  const int n_steps = hi > lo ? (hi - lo + kDwStep - 1) / kDwStep : 0;
+  if (n_steps > 0) stage(0, lo);
+  for (int s = 0; s < n_steps; ++s) {
+    if (s + 1 < n_steps) {
+      stage((s + 1) & 1, lo + (s + 1) * kDwStep);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* hs = smem + (s & 1) * kDwStage;
+    const float* ds = hs + kDwStep * kDwHs;
+    float part[2][4][4];
+    zero_acc(part);
+#pragma unroll 2
+    for (int kk = 0; kk < kDwStep; kk += 8) {
+      uint32_t ab[2][4], as[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        const float* pa = hs + (kk + t) * kDwHs + wr0 + 16 * mi + g;
+        split_tf32(pa[0], ab[mi][0], as[mi][0]);
+        split_tf32(pa[8], ab[mi][1], as[mi][1]);
+        split_tf32(pa[4 * kDwHs], ab[mi][2], as[mi][2]);
+        split_tf32(pa[4 * kDwHs + 8], ab[mi][3], as[mi][3]);
+      }
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const float* pb = ds + (kk + t) * kDwDs + wc0 + 8 * ni + g;
+        uint32_t bb[2], bs[2];
+        split_tf32(pb[0], bb[0], bs[0]);
+        split_tf32(pb[4 * kDwDs], bb[1], bs[1]);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) mma_3xtf32(part[mi][ni], ab[mi], as[mi], bb, bs);
+      }
+    }
+    add_into(tot, part);
+    if (with_bias && threadIdx.x < kDwN) {
+      float b = 0.f;
+      for (int r = 0; r < kDwStep; ++r) b += ds[r * kDwDs + threadIdx.x];
+      bsum += b;
+    }
+    __syncthreads();  // the next stage overwrites this buffer
+  }
+
+  float* part_set = partials + (size_t)q * kPartialFloats;
+  float* gw = part_set + c_layout.off[P.grad];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wr0 + 16 * mi + 8 * h + g;
+      if (m >= P.K) continue;
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const int n = n0 + wc0 + 8 * ni + 2 * t;
+        *reinterpret_cast<float2*>(gw + (size_t)m * P.N + n) = make_float2(tot[mi][ni][2 * h], tot[mi][ni][2 * h + 1]);
+      }
+    }
+  if (with_bias && threadIdx.x < kDwN) part_set[c_layout.off[P.bias] + n0 + threadIdx.x] = bsum;
+}
+
+// ------------------------------------------------------------- the reduction
+
+// Where gradient g sits in a B1 block's narrow set, or -1 for the gradients
+// of pass B2.
+__device__ __forceinline__ int narrow_offset(int g) {
+  return g == G_WD ? kNarrowWd : g == G_BD ? kNarrowBd : g == G_WR ? kNarrowWr : g == G_BR ? kNarrowBr
+       : g == G_WVB ? kNarrowWvb : -1;
+}
+
+// out[i]: the row ranges' partials (pass B2's gradients) or the B1 blocks'
+// narrow partials (the heads), each summed in a fixed order; 0 in the
+// padding between gradients.
+__global__ void level_bwd_reduce_kernel(const float* __restrict__ partials, const float* __restrict__ narrow,
+                                        int n_blocks, float* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= kPartialFloats) return;
+  int g = 0;
+  while (c_layout.off[g + 1] <= i) ++g;
+  const int local = i - c_layout.off[g];
   float s = 0.f;
-  for (int b = 0; b < n_blocks; ++b) s += partials[(size_t)b * kPartialFloats + i];
+  if (local < c_layout.size[g]) {
+    const int nidx = narrow_offset(g);
+    if (nidx >= 0) {
+      for (int b = 0; b < n_blocks; ++b) s += narrow[(size_t)b * kNarrowFloats + nidx + local];
+    } else {
+      for (int q = 0; q < kRanges; ++q) s += partials[(size_t)q * kPartialFloats + i];
+    }
+  }
   out[i] = s;
 }
 
-size_t weights_smem_bytes(int ray_tile) {
-  return sizeof(float) * (3 * (size_t)kRows * kWidth + (size_t)ray_tile * kCondWidth + 4 * (size_t)kRows);
+size_t delta_smem_bytes(int ray_tile) {
+  return sizeof(float) * (2 * (size_t)kRows * kAct + 2 * (size_t)kWidth * kWs + (size_t)ray_tile * kCondWidth +
+                          4 * (size_t)kRows);
 }
 
 cudaError_t set_smem(const void* kernel, size_t bytes) {
@@ -462,21 +715,25 @@ cudaError_t set_smem(const void* kernel, size_t bytes) {
 
 extern "C" {
 
-// Floats in one block's partial set (and in the reduced output): the 26
+// Floats of the output (and of one row range's partial set): the 26
 // gradients in the order of the arguments below, each padded to 4 floats.
 int aonerf_fused_level_bwd_partial_floats() { return kPartialFloats; }
 
-// Saved-activation floats per sample of the scratch `saved`.
+// Floats per sample of the scratches `saved` and `delta`.
 int aonerf_fused_level_bwd_saved_floats() { return kSpill; }
+
+// Row ranges of pass B2 (partial sets of the scratch `partials`), and floats
+// of one B1 block's narrow set (scratch `narrow`).
+int aonerf_fused_level_bwd_ranges() { return kRanges; }
+int aonerf_fused_level_bwd_narrow_floats() { return kNarrowFloats; }
 
 // Launches the level's weight gradient on `stream`. Pointers are device
 // pointers to contiguous fp32 arrays: the level's inputs, its 26 weights in
-// the flax (in, out) layout, the transposes (out, in) of w1..w4, w5x, w6,
-// w7, wb and wva, the cotangents g_comp (R,3), g_acc (R), g_depth (R),
-// g_weights (R,S); scratch `saved` (R*S*kSpill), `grow` (R*S*4) and
-// `partials` ((R/ray_tile) * kPartialFloats); the output `out`
-// (kPartialFloats). n_rays % ray_tile == 0. Returns the first launch error
-// (0 on success).
+// the flax (in, out) layout, the cotangents g_comp (R,3), g_acc (R),
+// g_depth (R), g_weights (R,S); scratch `saved` and `delta` (R*S*kSpill
+// each), `grow` (R*S*4), `partials` (kRanges * kPartialFloats) and `narrow`
+// ((R/ray_tile) * kNarrowFloats); the output `out` (kPartialFloats).
+// n_rays % ray_tile == 0. Returns the first launch error (0 on success).
 int aonerf_fused_level_bwd(const float* t, const float* rays_d, const float* venc, const float* xenc,
                            const float* w0, const float* b0, const float* w1, const float* b1,
                            const float* w2, const float* b2, const float* w3, const float* b3,
@@ -484,30 +741,35 @@ int aonerf_fused_level_bwd(const float* t, const float* rays_d, const float* ven
                            const float* b5, const float* w6, const float* b6, const float* w7,
                            const float* b7, const float* wd, const float* bd, const float* wb,
                            const float* bb, const float* wva, const float* wvb, const float* bv,
-                           const float* wr, const float* br, const float* w1t, const float* w2t,
-                           const float* w3t, const float* w4t, const float* w5xt, const float* w6t,
-                           const float* w7t, const float* wbt, const float* wvat,
-                           const float* g_comp, const float* g_acc, const float* g_depth,
-                           const float* g_weights, float* saved, float* grow, float* partials,
-                           float* out, int n_rays, int S, int ray_tile, int white_bkgd, void* stream) {
+                           const float* wr, const float* br, const float* g_comp, const float* g_acc,
+                           const float* g_depth, const float* g_weights, float* saved, float* grow,
+                           float* delta, float* partials, float* narrow, float* out, int n_rays, int S,
+                           int ray_tile, int white_bkgd, void* stream) {
   if (n_rays <= 0 || S <= 0 || ray_tile <= 0 || n_rays % ray_tile != 0) return cudaErrorInvalidValue;
-  const size_t smem_a = forward_smem_bytes(S, ray_tile), smem_b = weights_smem_bytes(ray_tile);
+  const size_t smem_a = forward_smem_bytes(S, ray_tile), smem_b1 = delta_smem_bytes(ray_tile);
   cudaError_t err = set_smem((const void*)level_bwd_forward_kernel, smem_a);
   if (err != cudaSuccess) return err;
-  err = set_smem((const void*)level_bwd_weights_kernel, smem_b);
-  if (err != cudaSuccess) return err;
+  if ((err = set_smem((const void*)level_bwd_delta_kernel, smem_b1)) != cudaSuccess) return err;
+  if ((err = set_smem((const void*)level_bwd_dw_kernel, kDwSmemBytes)) != cudaSuccess) return err;
   Weights w{w0, b0, w1, b1, w2, b2, w3, b3, w4, b4, w5x, w5i, b5, w6, b6, w7, b7,
             wd, bd, wb, bb, wva, wvb, bv, wr, br};
-  WeightsT wt{w1t, w2t, w3t, w4t, w5xt, w6t, w7t, wbt, wvat};
+  const Trunk trunk{{nullptr, w1, w2, w3, w4, w5x, w6, w7}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_blocks = n_rays / ray_tile;
+  const int n_total = n_rays * S;
+  // Whole kDwStep steps per range; the last ranges may be short or empty.
+  const int rows_per_range = ((n_total + kRanges - 1) / kRanges + kDwStep - 1) / kDwStep * kDwStep;
   level_bwd_forward_kernel<<<n_blocks, kThreads, smem_a, s>>>(
       t, rays_d, venc, xenc, w, g_comp, g_acc, g_depth, g_weights, saved, grow, S, ray_tile, white_bkgd);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  level_bwd_weights_kernel<<<n_blocks, kThreads, smem_b, s>>>(venc, xenc, w, wt, saved, grow, partials, S,
-                                                              ray_tile);
+  level_bwd_delta_kernel<<<n_blocks, kThreads, smem_b1, s>>>(venc, wd, wr, wva, wb, trunk, saved, grow, delta,
+                                                             narrow, S, ray_tile);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  reduce_partials_kernel<<<(kPartialFloats + kThreads - 1) / kThreads, kThreads, 0, s>>>(partials, n_blocks, out);
+  level_bwd_dw_kernel<<<kRanges * kDwTiles, kThreads, kDwSmemBytes, s>>>(saved, xenc, delta, partials, n_total,
+                                                                         rows_per_range);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  level_bwd_reduce_kernel<<<(kPartialFloats + kThreads - 1) / kThreads, kThreads, 0, s>>>(partials, narrow,
+                                                                                          n_blocks, out);
   return cudaGetLastError();
 }
 

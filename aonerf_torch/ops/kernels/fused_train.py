@@ -30,9 +30,6 @@ from aonerf_torch.ops.kernels.fused_render import (
     kernel_params,
 )
 
-# Weights whose input gradient the kernel needs, passed transposed (out, in).
-TRANSPOSED = ("w1", "w2", "w3", "w4", "w5x", "w6", "w7", "wb", "wva")
-
 # Launches of the CUDA backward since the count was last set to 0.
 launches = 0
 
@@ -53,10 +50,16 @@ def fused_level_bwd_ref(
     g_depth: torch.Tensor,
     g_weights: torch.Tensor,
     white_bkgd: bool,
+    mm: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] = torch.matmul,
 ) -> Dict[str, torch.Tensor]:
     """Plain PyTorch version of the level's weight gradient, written out as
     the TPU kernel's body is (``_bwd_kernel``). Same arguments and outputs as
-    :func:`fused_level_bwd`, on any device."""
+    :func:`fused_level_bwd`, on any device.
+
+    ``mm`` computes the MLP backward's products that the CUDA kernel runs on
+    the tensor cores (every dW and every delta . W^T but the narrow heads');
+    tests pass an emulation of the kernel's 3xTF32 arithmetic. The default is
+    plain ``@``."""
     w = kernel_params
     R, S = t_vals.shape
     xe = samples_enc.reshape(R * S, -1)
@@ -108,25 +111,25 @@ def fused_level_bwd_ref(
     g = {}
     g["wr"], g["br"] = hv.t() @ g_raw_rgb, g_raw_rgb.sum(0, keepdim=True)
     delta_v = (g_raw_rgb @ w["wr"].t()) * _relu_mask(zv)
-    g["wva"], g["bv"] = btl.t() @ delta_v, delta_v.sum(0, keepdim=True)
-    g_btl = delta_v @ w["wva"].t()
+    g["wva"], g["bv"] = mm(btl.t(), delta_v), delta_v.sum(0, keepdim=True)
+    g_btl = mm(delta_v, w["wva"].t())
     g["wvb"] = viewdirs_enc.t() @ delta_v.reshape(R, S, -1).sum(1)
-    g["wb"], g["bb"] = h7.t() @ g_btl, g_btl.sum(0, keepdim=True)
+    g["wb"], g["bb"] = mm(h7.t(), g_btl), g_btl.sum(0, keepdim=True)
     g["wd"], g["bd"] = h7.t() @ g_raw_sigma, g_raw_sigma.sum(0, keepdim=True)
-    g_h = g_btl @ w["wb"].t() + g_raw_sigma @ w["wd"].t()
+    g_h = mm(g_btl, w["wb"].t()) + g_raw_sigma @ w["wd"].t()
     for i in (7, 6):
         delta = g_h * _relu_mask(hs[i])
-        g[f"w{i}"], g[f"b{i}"] = hs[i - 1].t() @ delta, delta.sum(0, keepdim=True)
-        g_h = delta @ w[f"w{i}"].t()
+        g[f"w{i}"], g[f"b{i}"] = mm(hs[i - 1].t(), delta), delta.sum(0, keepdim=True)
+        g_h = mm(delta, w[f"w{i}"].t())
     delta = g_h * _relu_mask(hs[5])
-    g["w5x"], g["w5i"], g["b5"] = hs[4].t() @ delta, xe.t() @ delta, delta.sum(0, keepdim=True)
-    g_h = delta @ w["w5x"].t()
+    g["w5x"], g["w5i"], g["b5"] = mm(hs[4].t(), delta), mm(xe.t(), delta), delta.sum(0, keepdim=True)
+    g_h = mm(delta, w["w5x"].t())
     for i in (4, 3, 2, 1):
         delta = g_h * _relu_mask(hs[i])
-        g[f"w{i}"], g[f"b{i}"] = hs[i - 1].t() @ delta, delta.sum(0, keepdim=True)
-        g_h = delta @ w[f"w{i}"].t()
+        g[f"w{i}"], g[f"b{i}"] = mm(hs[i - 1].t(), delta), delta.sum(0, keepdim=True)
+        g_h = mm(delta, w[f"w{i}"].t())
     delta = g_h * _relu_mask(hs[0])
-    g["w0"], g["b0"] = xe.t() @ delta, delta.sum(0, keepdim=True)
+    g["w0"], g["b0"] = mm(xe.t(), delta), delta.sum(0, keepdim=True)
     return {n: g[n] for n in WEIGHT_NAMES}
 
 
@@ -151,10 +154,13 @@ def _library():
     if _lib is None:
         lib = build.load("fused_train")
         fn = lib.aonerf_fused_level_bwd
-        n_ptr = 4 + len(WEIGHT_NAMES) + len(TRANSPOSED) + 4 + 4
+        n_ptr = 4 + len(WEIGHT_NAMES) + 4 + 6
         fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        for name in ("aonerf_fused_level_bwd_partial_floats", "aonerf_fused_level_bwd_saved_floats"):
+        for name in (
+            "aonerf_fused_level_bwd_partial_floats", "aonerf_fused_level_bwd_saved_floats",
+            "aonerf_fused_level_bwd_ranges", "aonerf_fused_level_bwd_narrow_floats",
+        ):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = ctypes.c_int
         _lib = lib
@@ -192,9 +198,10 @@ def fused_level_bwd(
     the cotangents of :func:`fused_render_level`'s outputs: g_comp (R,3),
     g_acc (R,), g_depth (R,), g_weights (R,S). R % ray_tile == 0.
 
-    On CUDA tensors this launches the backward (``csrc/fused_train.cu``),
-    one block per ``ray_tile`` rays; on CPU tensors it runs the plain
-    version.
+    On CUDA tensors this launches the backward (``csrc/fused_train.cu``):
+    pass A and B1 with one block per ``ray_tile`` rays, B2 over a fixed
+    number of row ranges, then the reduction; on CPU tensors it runs the
+    plain version.
     """
     global launches
     R, S = t_vals.shape
@@ -218,20 +225,22 @@ def fused_level_bwd(
     n_out = lib.aonerf_fused_level_bwd_partial_floats()
     if n_out != offsets[-1]:
         raise RuntimeError(f"fused_level_bwd: kernel layout has {n_out} floats, expected {offsets[-1]}")
-    transposed = [kernel_params[n].t().contiguous() for n in TRANSPOSED]
     n_blocks = R // ray_tile
-    saved = torch.empty(R * S * lib.aonerf_fused_level_bwd_saved_floats(), dtype=torch.float32, device=dev)
+    per_row = lib.aonerf_fused_level_bwd_saved_floats()
+    saved = torch.empty(R * S * per_row, dtype=torch.float32, device=dev)
+    delta = torch.empty(R * S * per_row, dtype=torch.float32, device=dev)
     grow = torch.empty(R * S * 4, dtype=torch.float32, device=dev)
-    partials = torch.empty(n_blocks * n_out, dtype=torch.float32, device=dev)
+    partials = torch.empty(lib.aonerf_fused_level_bwd_ranges() * n_out, dtype=torch.float32, device=dev)
+    narrow = torch.empty(n_blocks * lib.aonerf_fused_level_bwd_narrow_floats(), dtype=torch.float32, device=dev)
     out = torch.empty(n_out, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.aonerf_fused_level_bwd(
             t_vals.data_ptr(), rays_d.data_ptr(), viewdirs_enc.data_ptr(), xenc.data_ptr(),
             *[kernel_params[n].data_ptr() for n in WEIGHT_NAMES],
-            *[x.data_ptr() for x in transposed],
             g_comp.data_ptr(), g_acc.data_ptr(), g_depth.data_ptr(), g_weights.data_ptr(),
-            saved.data_ptr(), grow.data_ptr(), partials.data_ptr(), out.data_ptr(),
+            saved.data_ptr(), grow.data_ptr(), delta.data_ptr(), partials.data_ptr(), narrow.data_ptr(),
+            out.data_ptr(),
             R, S, ray_tile, int(white_bkgd), stream,
         )
     if err != 0:  # e.g. ray_tile x S needs more shared memory than a block has

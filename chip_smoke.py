@@ -16,9 +16,11 @@ Phases, each of which fails the run with a non-zero exit:
                count, and one view again through the plain version.
   5. backward - the level weight-gradient kernel (K2) against its plain
                version at the train step's shapes (2048 rays, S = 65 and 193,
-               both backgrounds, random cotangents), K1 timed at 2048 rays,
-               and one two-level loss backward through the kernels against the
-               same computation through the plain versions.
+               both backgrounds, random cotangents); K2 and its plain version
+               timed in turns, K2's passes (A, B1, B2, reduce) by the profiler
+               with the bound of each, K1 timed at 2048 rays; and one
+               two-level loss backward through the kernels against the same
+               computation through the plain versions.
   6. training - the train CLI on a SAPIEN-layout laptop scene (8 train views,
                1 val view, 320x240) at the published width: 50 steps with a
                validation and a checkpoint, then a resume for 10 more; loss,
@@ -58,6 +60,19 @@ TOL_RENDER_RGB = 1e-3
 # delta.W^T (none for w0 and w5i); plus 2 x 27x128 per ray (view term, dWvb).
 BWD_MACS_PER_SAMPLE = 3 * MACS_PER_SAMPLE - 2 * 63 * 256
 N_WEIGHTS = 595844  # floats in the 26 weights of one level
+PEAK_TF32_FLOPS = 495e12  # TF32 tensor cores, dense; 3xTF32 does 3 TF32 products per product
+# K2's passes (csrc/fused_train.cu): multiply-adds per sample on the tensor
+# cores (3xTF32) and on the fp32 cores. B1: every delta . W^T but the narrow
+# heads' (wr 384, rank-1 wd 256); its fp32 part is those and the head
+# gradients wr (384) and wd (256). B2: every dW but wd and wr.
+B1_TC_MACS, B1_FP32_MACS = 557696 - 640, 640 + 640
+B2_TC_MACS = MACS_PER_SAMPLE - 640
+SAVED_FLOATS = 2432  # saved activations (and deltas) per sample
+K2_PASSES = {  # kernel name in csrc/fused_train.cu -> pass
+    "level_bwd_forward_kernel": "A", "level_bwd_delta_kernel": "B1",
+    "level_bwd_dw_kernel": "B2", "level_bwd_reduce_kernel": "reduce",
+}
+K2_RANGES = 16  # pass B2's row ranges
 R_TRAIN = 2048  # rays per train step (config/vanilla.json)
 # K2 against its plain version. A gradient is a sum over R*S rows through
 # eight ReLU masks and the integrator's 1/max(1 - alpha + 1e-10, 1e-10),
@@ -268,12 +283,82 @@ def phase_serving(nerf, boxes, focal) -> dict:
 
 
 def _bwd_bound_ms(R: int, S: int) -> tuple:
+    """K2's bound with every product at the fp32 peak of the CUDA cores."""
     flops = 2.0 * (R * S * BWD_MACS_PER_SAMPLE + 2 * R * 27 * 128)
-    bytes_moved = 4.0 * (R * S + R * 3 + R * 27 + R * S * 63 + N_WEIGHTS  # level inputs
-                         + R * 3 + R + R + R * S  # cotangents
-                         + N_WEIGHTS)  # gradients
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, bytes_moved / PEAK_BYTES * 1e3
+    return _bound(flops / PEAK_FP32_FLOPS * 1e3, _bwd_bytes(R, S) / PEAK_BYTES * 1e3)
+
+
+def _bwd_bytes(R: int, S: int) -> float:
+    return 4.0 * (R * S + R * 3 + R * 27 + R * S * 63 + N_WEIGHTS  # level inputs
+                  + R * 3 + R + R + R * S  # cotangents
+                  + N_WEIGHTS)  # gradients
+
+
+def _bound(t_ops: float, t_bytes: float) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _bwd_pass_bounds(R: int, S: int) -> dict:
+    """Each pass of K2 as its own function (its scratch counted as its
+    inputs and outputs): (bound ms, what bounds it), the products at the
+    peak of the unit that runs them: pass A's forward on the fp32 cores,
+    B1's and B2's products in 3xTF32 (3 TF32 products each) on the tensor
+    cores, the narrow head products on the fp32 cores."""
+    rows = R * S
+    ms = 1e3
+    fp32 = lambda macs: 2.0 * macs / PEAK_FP32_FLOPS * ms  # noqa: E731
+    tc = lambda macs: 3 * 2.0 * macs / PEAK_TF32_FLOPS * ms  # noqa: E731
+    hbm = lambda floats: 4.0 * floats / PEAK_BYTES * ms  # noqa: E731
+    inputs = rows + R * 3 + R * 27 + rows * 63 + N_WEIGHTS + R * 5 + rows
+    return {
+        "A": _bound(fp32(rows * MACS_PER_SAMPLE + R * 27 * 128), hbm(inputs + rows * (SAVED_FLOATS + 4))),
+        "B1": _bound(tc(rows * B1_TC_MACS) + fp32(rows * B1_FP32_MACS + R * 27 * 128),
+                     hbm(rows * (2 * SAVED_FLOATS + 4) + R * 27 + N_WEIGHTS + (R // 16) * 4104)),
+        "B2": _bound(tc(rows * B2_TC_MACS),
+                     hbm(rows * (SAVED_FLOATS - 128 + 63 + SAVED_FLOATS) + K2_RANGES * N_WEIGHTS)),
+        "reduce": _bound(0.0, hbm(K2_RANGES * N_WEIGHTS + (R // 16) * 4104 + N_WEIGHTS)),
+    }
+
+
+def _bwd_bound_3xtf32_ms(R: int, S: int) -> tuple:
+    """K2's bound with the arithmetic it does: pass A's forward on the fp32
+    cores, passes B1 and B2 in 3xTF32 on the tensor cores, against the bytes
+    of the function's own inputs and outputs."""
+    t_ops = (2.0 * (R * S * (MACS_PER_SAMPLE + B1_FP32_MACS) + 2 * R * 27 * 128) / PEAK_FP32_FLOPS
+             + 3 * 2.0 * R * S * (B1_TC_MACS + B2_TC_MACS) / PEAK_TF32_FLOPS) * 1e3
+    return _bound(t_ops, _bwd_bytes(R, S) / PEAK_BYTES * 1e3)
+
+
+def _kernel_ms(fn, iters: int) -> dict:
+    """Device ms per call of fn() by kernel name (torch.profiler), after one
+    untimed call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: _dev_us(e) / 1e3 / iters for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and _dev_us(e) > 0}
+
+
+def _dev_us(event) -> float:
+    """A profiler event's own device time, in microseconds."""
+    return getattr(event, "self_device_time_total", None) or getattr(event, "self_cuda_time_total", 0)
+
+
+def _bwd_pass_ms(fn, iters: int) -> dict:
+    """Device ms per call of each of K2's passes."""
+    by_name = _kernel_ms(fn, iters)
+    out = {}
+    for kernel, name in K2_PASSES.items():
+        hits = [v for k, v in by_name.items() if kernel in k]
+        if not hits:
+            fail(f"K2 pass {name} ({kernel}) not in the profile: {sorted(by_name)}")
+        out[name] = sum(hits)
+    return out
 
 
 class _FixedDraws:
@@ -359,15 +444,31 @@ def phase_backward(nerf, boxes, focal) -> dict:
                   + ", ".join(f"{n} {e_kp[n]:.1e}" for n in names))
             worst_ratio = max(worst_ratio, _check_grads(f"S={S} white={white}", e_k, e_p))
             del p32, p64
-        ms = cuda_ms(lambda: ft.fused_level_bwd(*args, *cot, True), warmup=2, iters=5 if S > 100 else 10)
-        plain_ms = cuda_ms(lambda: ft.fused_level_bwd_ref(*args, *cot, True), warmup=1, iters=3)
+        k2 = lambda: ft.fused_level_bwd(*args, *cot, True)  # noqa: E731
+        plain = lambda: ft.fused_level_bwd_ref(*args, *cot, True)  # noqa: E731
+        plain_ms = cuda_ms(plain, warmup=1, iters=3)
+        ms = cuda_ms(k2, warmup=2, iters=5 if S > 100 else 10)
+        ms_again = cuda_ms(k2, warmup=0, iters=5 if S > 100 else 10)
+        plain_again = cuda_ms(plain, warmup=0, iters=3)
+        parts = _bwd_pass_ms(k2, iters=3)
         k1_ms = cuda_ms(lambda: fr.fused_render_level(*args, True), warmup=2, iters=10)
-        bound, bound_by = _bwd_bound_ms(R, S)
+        bound32, _ = _bwd_bound_ms(R, S)
+        bound, bound_by = _bwd_bound_3xtf32_ms(R, S)
+        pass_bounds = _bwd_pass_bounds(R, S)
         tflop = 2.0 * (R * S * BWD_MACS_PER_SAMPLE + 2 * R * 27 * 128) / 1e12
-        print(f"  S={S}: K2 {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound:.3f} ms ({bound_by}; "
-              f"{tflop:.4f} TFLOP at 67 TFLOP/s fp32), {tflop / ms * 1e3:.2f} TFLOP/s achieved; "
+        print(f"  S={S}: K2 {ms:.3f} / {ms_again:.3f} ms, plain {plain_ms:.3f} / {plain_again:.3f} ms (in turns: "
+              f"plain, K2, K2, plain); bound {bound:.3f} ms ({bound_by}; pass A fp32, passes B 3xTF32), "
+              f"{bound32:.3f} ms with every product at 67 TFLOP/s fp32 ({tflop:.4f} TFLOP); "
               f"K1 at {R} rays {k1_ms:.3f} ms, bound {_bound_ms(S, R)[0]:.3f} ms")
-        levels.append({"S": S, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+        print(f"  S={S}: K2 by pass (torch.profiler, device ms per call; bound, what bounds it): "
+              + ", ".join(f"{n} {parts[n]:.3f} ({pass_bounds[n][0]:.3f}, {pass_bounds[n][1]})" for n in parts)
+              + f"; pass B (B1 + B2 + reduce) {parts['B1'] + parts['B2'] + parts['reduce']:.3f} ms, bound "
+              f"{sum(pass_bounds[n][0] for n in ('B1', 'B2', 'reduce')):.3f} ms in 3xTF32, "
+              f"{2.0 * R * S * (B1_TC_MACS + B1_FP32_MACS + B2_TC_MACS) / PEAK_FP32_FLOPS * 1e3:.3f} ms in fp32")
+        levels.append({"S": S, "ms": ms, "ms_again": ms_again, "plain_ms": plain_ms, "plain_ms_again": plain_again,
+                       "bound_ms": bound, "bound_by": bound_by, "bound_ms_fp32": bound32,
+                       "passes": {n: {"ms": parts[n], "bound_ms": pass_bounds[n][0], "bound_by": pass_bounds[n][1]}
+                                  for n in parts},
                        "max_abs_err": worst_abs, "err_over_limit": worst_ratio, "k1_ms": k1_ms})
     two_level_check(nerf, o, d)
     return {"levels": levels}
@@ -470,10 +571,7 @@ def profile_train_steps(trainer, buffers, seed) -> None:
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     n = trainer._inner_steps
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
+    dev_us = _dev_us
     # kernels only: an op that launches through ctypes (FusedLevel) is also
     # credited with its kernel's time, which would count it twice
     kernels = (e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA)
@@ -620,7 +718,11 @@ def main() -> None:
         "max_abs_err": max(x["max_abs_err"] for x in blv),
         "ms": sum(x["ms"] for x in blv),
         "plain_ms": sum(x["plain_ms"] for x in blv),
+        # pass A's forward at the fp32 peak, passes B1 and B2 in 3xTF32 at the
+        # TF32 tensor-core peak; bound_ms_fp32: every product at the fp32 peak
         "bound_ms": sum(x["bound_ms"] for x in blv),
+        "bound_ms_3xtf32": sum(x["bound_ms"] for x in blv),
+        "bound_ms_fp32": sum(x["bound_ms_fp32"] for x in blv),
         "bound_by": "operations" if all(x["bound_by"] == "operations" for x in blv) else "bytes",
         "library_ms": None,
         "levels": blv,

@@ -114,14 +114,12 @@ def _rel_err(got, want64):
     return ((got.double() - want64).abs().max() / want64.abs().max().clamp_min(1e-300)).item()
 
 
-@pytest.mark.parametrize("S", [65, 193])
-@pytest.mark.parametrize("white_bkgd", [True, False])
-def test_bwd_kernel_matches_plain_version(cuda, S, white_bkgd):
-    mlp = NeRFMLP(generator=torch.Generator().manual_seed(S), device=cuda)
+def _check_bwd_kernel(device, R, S, white_bkgd):
+    mlp = NeRFMLP(generator=torch.Generator().manual_seed(S), device=device)
     with torch.no_grad():
         kp = fr.kernel_params(mlp)
-    args = _level_inputs(256, S, S, cuda)
-    cot = _cotangents(256, S, S + 1, cuda)
+    args = _level_inputs(R, S, S, device)
+    cot = _cotangents(R, S, S + 1, device)
     before = ft.launches
     got = ft.fused_level_bwd(kp, *args, *cot, white_bkgd)
     torch.cuda.synchronize()
@@ -139,6 +137,20 @@ def test_bwd_kernel_matches_plain_version(cuda, S, white_bkgd):
     again = ft.fused_level_bwd(kp, *args, *cot, white_bkgd)  # deterministic: no atomics
     for name in fr.WEIGHT_NAMES:
         assert torch.equal(again[name], got[name]), name
+
+
+@pytest.mark.parametrize("S", [65, 193])
+@pytest.mark.parametrize("white_bkgd", [True, False])
+def test_bwd_kernel_matches_plain_version(cuda, S, white_bkgd):
+    _check_bwd_kernel(cuda, 256, S, white_bkgd)
+
+
+@pytest.mark.parametrize("white_bkgd", [True, False])
+def test_bwd_kernel_at_a_ragged_size(cuda, white_bkgd):
+    # 48 x 65 = 3120 rows: not a multiple of B1's 64-row chunk, of B2's
+    # 64-row step or of its row range (16 ranges of 256 rows: 12 full, one of
+    # 48 rows, three empty)
+    _check_bwd_kernel(cuda, 48, 65, white_bkgd)
 
 
 def test_bwd_kernel_rejects_what_it_does_not_take(cuda):
