@@ -41,7 +41,9 @@
 // Shared memory: 64x256 activation + 64x64 encoded input + 2x32x256 weight
 // slices + ray_tile x (128 + 4 S) per-ray values, 205 KB at ray_tile=16,
 // S=193. One block per SM. The chunk walk, the weight streaming and the
-// integrator's scan live in nerf_level.cuh, shared with the backward.
+// integrator live in nerf_level.cuh, shared with the training forward K1s
+// (fused_train.cu), which computes the same bits and also saves the
+// activations. K1 serves and validates; training runs K1s.
 
 #include "nerf_level.cuh"
 
@@ -63,7 +65,6 @@ fused_render_level_kernel(const float* __restrict__ t, const float* __restrict__
   float* sig = cterm + ray_tile * kCondWidth; // ray_tile*S raw sigma
   float* rgb = sig + ray_tile * S;            // ray_tile*S x 3 raw rgb
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int ray0 = blockIdx.x * ray_tile;
   const int n_rows = ray_tile * S;
   const size_t row_base = (size_t)ray0 * S;
@@ -72,43 +73,7 @@ fused_render_level_kernel(const float* __restrict__ t, const float* __restrict__
   for (int row0 = 0; row0 < n_rows; row0 += kRows)
     forward_chunk<false>(xenc, w, act, xs, wbuf, cterm, sig, rgb, row_base, row0, n_rows, S, nullptr);
 
-  // Integrator, one warp per ray.
-  for (int g = warp; g < ray_tile; g += kWarps) {
-    const int ray = ray0 + g;
-    const float* tr = t + (size_t)ray * S;
-    const float dx = __ldg(rays_d + ray * 3), dy = __ldg(rays_d + ray * 3 + 1),
-                dz = __ldg(rays_d + ray * 3 + 2);
-    const float dnorm = sqrtf(dx * dx + dy * dy + dz * dz);
-    float carry = 0.f, c0 = 0.f, c1 = 0.f, c2 = 0.f, acc_w = 0.f, dep = 0.f;
-    for (int s0 = 0; s0 < S; s0 += 32) {
-      const int s = s0 + lane;
-      SampleAlpha a;
-      if (s < S) a = sample_alpha(tr, s, S, dnorm, sig[g * S + s]);
-      const float wgt = a.alpha * warp_transmittance(a.logv, carry);
-      if (s < S) {
-        weights_out[(size_t)ray * S + s] = wgt;
-        const float* raw = rgb + (size_t)(g * S + s) * 3;
-        c0 = fmaf(wgt, sigmoid(raw[0]), c0);
-        c1 = fmaf(wgt, sigmoid(raw[1]), c1);
-        c2 = fmaf(wgt, sigmoid(raw[2]), c2);
-        acc_w += wgt;
-        dep = fmaf(wgt, a.ts, dep);
-      }
-    }
-    c0 = warp_sum(c0);
-    c1 = warp_sum(c1);
-    c2 = warp_sum(c2);
-    acc_w = warp_sum(acc_w);
-    dep = warp_sum(dep);
-    if (lane == 0) {
-      const float bg = white_bkgd ? 1.f - acc_w : 0.f;
-      comp[ray * 3 + 0] = c0 + bg;
-      comp[ray * 3 + 1] = c1 + bg;
-      comp[ray * 3 + 2] = c2 + bg;
-      acc_out[ray] = acc_w;
-      depth[ray] = dep;
-    }
-  }
+  integrate_rays(t, rays_d, sig, rgb, ray0, ray_tile, S, white_bkgd, comp, acc_out, depth, weights_out);
 }
 
 }  // namespace

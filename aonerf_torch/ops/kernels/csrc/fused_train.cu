@@ -1,27 +1,46 @@
-// Weight gradient of the fused NeRF level for Hopper (sm_90a).
+// The training side of the fused NeRF level for Hopper (sm_90a): the forward
+// that saves what the backward needs (K1s), and the weight gradient (K2).
 //
 // Replaces the Pallas TPU kernel aonerf/ops/kernels/fused_train.py::_bwd_kernel
-// (launched by _fused_level_bwd_impl). Given the level's inputs and the
-// cotangents of its four outputs (comp, acc, depth, weights), it returns the
-// gradients of the 26 weights of fused_render.cu's level; the inputs get none
-// (coarse t-values are parameter-free, fine t-values are detached).
+// (launched by _fused_level_bwd_impl), and, on the training path, the forward
+// aonerf/ops/kernels/fused_render.py::_kernel that make_fused_level runs
+// before it. The TPU backward recomputes the forward in VMEM; on the H100 the
+// training forward saves the activations instead, so each step runs each
+// level's MLP forward once. Given the level's inputs and the cotangents of
+// its four outputs (comp, acc, depth, weights), K2 returns the gradients of
+// the 26 weights; the inputs get none (coarse t-values are parameter-free,
+// fine t-values are detached).
 //
-// Four kernels, in order on one stream. Per sample: the forward, 589,952
+// Five kernels, in order on one stream. Per sample: the forward, 589,952
 // multiply-adds; the input products delta . W^T, 557,696; the weight products
 // h^T . delta, 589,952. At 2048 rays x 193 samples (395,264 rows):
 //
-//  A. level_bwd_forward_kernel (fp32 FMA; bound by operations, 6.96 ms at
-//     67 TFLOP/s): K1's forward walk (nerf_level.cuh) over the block's
-//     ray_tile rays, saving every sample's activations (h0..h7, bottleneck,
-//     view hidden: kSpill = 2432 floats) to the scratch `saved`; then one warp
-//     per ray runs the integrator forward and backward: g_w from the
+//  K1s. level_fwd_spill_kernel (fp32 FMA; bound by operations, 6.96 ms at
+//     67 TFLOP/s, over its 3.85 GB of spill, 1.15 ms at 3.35 TB/s): K1's
+//     forward walk (nerf_level.cuh) over the block's ray_tile rays, and K1's
+//     integrator forward, so comp/acc/depth/weights are K1's bits. Every
+//     valid row's activations (h0..h7, bottleneck, view hidden: kSpill =
+//     2432 floats) go to the scratch `saved`: after each layer's epilogue has
+//     written the activation into the shared tile, thread 0 copies its rows
+//     out with one cp.async.bulk (1 KB, 512 B for the view layer) per row,
+//     and waits for them to finish reading shared memory only before the
+//     next epilogue overwrites the tile; the copy engine moves the 3.85 GB
+//     while the warps run the next layer's product. The copies carry an
+//     L2::evict_first policy. Every block re-reads all 2.4 MB of weights per
+//     64-row chunk from L2, and the spill writes ~84 MB through L2 between
+//     two reads of one layer's slice; without the policy the weights are
+//     evicted and come back from HBM, which cost 2.0 / 5.8 ms over K1 at
+//     S = 65 / 193 on the H100, with bulk copies and per-thread stores
+//     alike; with it, 0.06 / 0.3 ms. Each sample's raw sigma and rgb go to
+//     `raw` (4 floats). Spilling beats recomputing: a 64-row chunk's eight
+//     trunk activations (512 KB) do not fit in shared memory, and the
+//     integrator backward needs a whole ray before any chunk's MLP backward.
+//  I. level_bwd_integrator_kernel (bound by bytes, 16 MB): one warp per ray
+//     runs the integrator forward and backward from `raw`: g_w from the
 //     cotangents, g_alpha = g_w T - suffix(g_w w) / max(1 - alpha + 1e-10,
 //     1e-10) with the suffix sum taken right to left by a warp scan (a direct
 //     sum, never a difference of prefix sums, which would cancel where v is
-//     tiny), and g_raw_sigma, g_raw_rgb per sample to `grow`. Spilling beats
-//     recomputing: a 64-row chunk's eight trunk activations (512 KB) do not
-//     fit in shared memory, and the integrator backward needs a whole ray
-//     before any chunk's MLP backward.
+//     tiny), and g_raw_sigma, g_raw_rgb per sample to `grow`.
 //  B1. level_bwd_delta_kernel (3xTF32 tensor cores; bound by operations,
 //     2.67 ms at 495/3 TFLOP/s, over its 7.7 GB of bytes, 2.30 ms): the
 //     block's rays again, in 64-row chunks, from the rgb head down in the
@@ -67,14 +86,15 @@
 // Deterministic: no atomics, every sum in a fixed order, so the same inputs
 // give the same bits on every call.
 //
-// Scratch at 2048 x 193: saved and delta 3.85 GB each, grow 6.3 MB, partials
-// 16 x 2.38 MB, narrow 128 x 16.4 KB.
+// Scratch at 2048 x 193: saved and delta 3.85 GB each (saved lives from K1s
+// to K2), raw and grow 6.3 MB each, partials 16 x 2.38 MB, narrow 128 x 16.4
+// KB.
 //
 // ptxas (-Xptxas -v, sm_90a, CUDA 12.8, printed by chip_smoke.py's build
-// phase on the H100): pass A 205 registers, no spill; B1 255 registers, 240
-// bytes of spill stores and 336 of spill loads (256-byte stack frame); B2
-// 128 registers (capped by __launch_bounds__(256, 2)), no spill; the
-// reduction 31 registers.
+// phase on the H100): K1s 168 registers (K1's count; 203 with per-thread
+// spill stores), no spill; the integrator backward 39; B1 255 registers, 240 bytes of spill stores and 336 of
+// spill loads (256-byte stack frame); B2 128 registers (capped by
+// __launch_bounds__(256, 2)), no spill; the reduction 31 registers.
 
 #include "nerf_level.cuh"
 
@@ -160,22 +180,25 @@ constexpr int count_tiles() {
 }
 constexpr int kDwTiles = count_tiles();  // 72
 
+// K1s: K1's forward walk over the block's ray_tile rays, saving every valid
+// row's activations to `saved` (kSpill floats a sample), then K1's integrator
+// forward (comp, acc, depth, weights, the same bits as K1's) and each
+// sample's raw sigma and rgb to `raw` (4 floats a sample) for the
+// integrator backward.
 __global__ void __launch_bounds__(kThreads, 1)
-level_bwd_forward_kernel(const float* __restrict__ t, const float* __restrict__ rays_d,
-                         const float* __restrict__ venc, const float* __restrict__ xenc, Weights w,
-                         const float* __restrict__ g_comp, const float* __restrict__ g_acc,
-                         const float* __restrict__ g_depth, const float* __restrict__ g_weights,
-                         float* __restrict__ saved, float* __restrict__ grow, int S, int ray_tile,
-                         int white_bkgd) {
+level_fwd_spill_kernel(const float* __restrict__ t, const float* __restrict__ rays_d,
+                       const float* __restrict__ venc, const float* __restrict__ xenc, Weights w,
+                       float* __restrict__ comp, float* __restrict__ acc_out, float* __restrict__ depth,
+                       float* __restrict__ weights_out, float* __restrict__ saved, float* __restrict__ raw,
+                       int S, int ray_tile, int white_bkgd) {
   extern __shared__ __align__(16) float smem[];
   float* act = smem;                          // kRows x kWidth
   float* xs = act + kRows * kWidth;           // kRows x kPosPad
   float* wbuf = xs + kRows * kPosPad;         // 2 x kSlice x kWidth
   float* cterm = wbuf + 2 * kSlice * kWidth;  // ray_tile x kCondWidth
   float* sig = cterm + ray_tile * kCondWidth; // ray_tile*S raw sigma
-  float* rgb = sig + ray_tile * S;            // ray_tile*S x 3 raw rgb, then (T, g_w, g_w w)
+  float* rgb = sig + ray_tile * S;            // ray_tile*S x 3 raw rgb
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int ray0 = blockIdx.x * ray_tile;
   const int n_rows = ray_tile * S;
   const size_t row_base = (size_t)ray0 * S;
@@ -184,63 +207,86 @@ level_bwd_forward_kernel(const float* __restrict__ t, const float* __restrict__ 
   for (int row0 = 0; row0 < n_rows; row0 += kRows)
     forward_chunk<true>(xenc, w, act, xs, wbuf, cterm, sig, rgb, row_base, row0, n_rows, S,
                         saved + (row_base + row0) * kSpill);
+  // forward_chunk ended with a barrier: sig and rgb are complete
+  for (int i = threadIdx.x; i < n_rows; i += kThreads)
+    *reinterpret_cast<float4*>(raw + (row_base + i) * 4) = make_float4(sig[i], rgb[3 * i], rgb[3 * i + 1], rgb[3 * i + 2]);
+  integrate_rays(t, rays_d, sig, rgb, ray0, ray_tile, S, white_bkgd, comp, acc_out, depth, weights_out);
+  if (threadIdx.x == 0) bulk_wait_all();  // the last chunk's spill has landed
+}
 
-  // Integrator forward and backward, one warp per ray.
-  for (int g = warp; g < ray_tile; g += kWarps) {
-    const int ray = ray0 + g;
-    const float* tr = t + (size_t)ray * S;
-    const float dx = __ldg(rays_d + ray * 3), dy = __ldg(rays_d + ray * 3 + 1),
-                dz = __ldg(rays_d + ray * 3 + 2);
-    const float dnorm = sqrtf(dx * dx + dy * dy + dz * dz);
-    const float gc0 = __ldg(g_comp + ray * 3), gc1 = __ldg(g_comp + ray * 3 + 1),
-                gc2 = __ldg(g_comp + ray * 3 + 2);
-    const float ga = __ldg(g_acc + ray), gd = __ldg(g_depth + ray);
-    float* gr = grow + ((size_t)ray * S) * 4;
+// The integrator forward and backward, one warp per ray (kWarps rays a
+// block), from the raw sigma and rgb that K1s saved: g_w from the
+// cotangents, g_alpha = g_w T - suffix(g_w w) / max(1 - alpha + 1e-10, 1e-10)
+// with the suffix sum taken right to left by a warp scan (a direct sum, never
+// a difference of prefix sums, which would cancel where v is tiny), and
+// g_raw_sigma, g_raw_rgb per sample to `grow`. Each warp keeps its ray's
+// (T, g_w, g_w w) in 3 S floats of shared memory between the two sweeps.
+__global__ void __launch_bounds__(kThreads)
+level_bwd_integrator_kernel(const float* __restrict__ t, const float* __restrict__ rays_d,
+                            const float* __restrict__ raw, const float* __restrict__ g_comp,
+                            const float* __restrict__ g_acc, const float* __restrict__ g_depth,
+                            const float* __restrict__ g_weights, float* __restrict__ grow, int n_rays, int S,
+                            int white_bkgd) {
+  extern __shared__ __align__(16) float smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ray = blockIdx.x * kWarps + warp;
+  if (ray >= n_rays) return;  // whole warps; no block barrier below
+  float* st_ray = smem + (size_t)warp * S * 3;
+  const float* rw = raw + (size_t)ray * S * 4;
+  const float* tr = t + (size_t)ray * S;
+  const float dx = __ldg(rays_d + ray * 3), dy = __ldg(rays_d + ray * 3 + 1),
+              dz = __ldg(rays_d + ray * 3 + 2);
+  const float dnorm = sqrtf(dx * dx + dy * dy + dz * dz);
+  const float gc0 = __ldg(g_comp + ray * 3), gc1 = __ldg(g_comp + ray * 3 + 1),
+              gc2 = __ldg(g_comp + ray * 3 + 2);
+  const float ga = __ldg(g_acc + ray), gd = __ldg(g_depth + ray);
+  float* gr = grow + ((size_t)ray * S) * 4;
 
-    // Left to right: weights, then g_w = dL/dw and g_raw_rgb per sample.
-    float carry = 0.f;
-    for (int s0 = 0; s0 < S; s0 += 32) {
-      const int s = s0 + lane;
-      SampleAlpha a;
-      if (s < S) a = sample_alpha(tr, s, S, dnorm, sig[g * S + s]);
-      const float trans = warp_transmittance(a.logv, carry);
-      if (s < S) {
-        const float wgt = a.alpha * trans;
-        float* raw = rgb + (size_t)(g * S + s) * 3;
-        const float r0 = sigmoid(raw[0]), r1 = sigmoid(raw[1]), r2 = sigmoid(raw[2]);
-        float gw = gc0 * r0 + gc1 * r1 + gc2 * r2;
-        if (white_bkgd) gw -= gc0 + gc1 + gc2;
-        gw += ga + gd * a.ts + __ldg(g_weights + (size_t)ray * S + s);
-        gr[s * 4 + 1] = gc0 * wgt * (r0 * (1.f - r0));
-        gr[s * 4 + 2] = gc1 * wgt * (r1 * (1.f - r1));
-        gr[s * 4 + 3] = gc2 * wgt * (r2 * (1.f - r2));
-        raw[0] = trans;
-        raw[1] = gw;
-        raw[2] = gw * wgt;
-      }
+  // Left to right: weights, then g_w = dL/dw and g_raw_rgb per sample.
+  float carry = 0.f;
+  for (int s0 = 0; s0 < S; s0 += 32) {
+    const int s = s0 + lane;
+    SampleAlpha a;
+    if (s < S) a = sample_alpha(tr, s, S, dnorm, __ldg(rw + s * 4));
+    const float trans = warp_transmittance(a.logv, carry);
+    if (s < S) {
+      const float wgt = a.alpha * trans;
+      const float r0 = sigmoid(__ldg(rw + s * 4 + 1)), r1 = sigmoid(__ldg(rw + s * 4 + 2)),
+                  r2 = sigmoid(__ldg(rw + s * 4 + 3));
+      float gw = gc0 * r0 + gc1 * r1 + gc2 * r2;
+      if (white_bkgd) gw -= gc0 + gc1 + gc2;
+      gw += ga + gd * a.ts + __ldg(g_weights + (size_t)ray * S + s);
+      gr[s * 4 + 1] = gc0 * wgt * (r0 * (1.f - r0));
+      gr[s * 4 + 2] = gc1 * wgt * (r1 * (1.f - r1));
+      gr[s * 4 + 3] = gc2 * wgt * (r2 * (1.f - r2));
+      float* st = st_ray + s * 3;
+      st[0] = trans;
+      st[1] = gw;
+      st[2] = gw * wgt;
     }
-    // Right to left: suffix_i = sum_{j > i} g_w_j w_j, then g_raw_sigma.
-    float later = 0.f;  // sum over the 32-sample steps already passed
-    for (int s0 = ((S - 1) / 32) * 32; s0 >= 0; s0 -= 32) {
-      const int s = s0 + lane;
-      const float* st = rgb + (size_t)(g * S + s) * 3;
-      const float gww = s < S ? st[2] : 0.f;
-      float x = __shfl_down_sync(kFull, gww, 1);  // the next lane's term
-      if (lane == 31) x = 0.f;
+  }
+  __syncwarp();
+  // Right to left: suffix_i = sum_{j > i} g_w_j w_j, then g_raw_sigma.
+  float later = 0.f;  // sum over the 32-sample steps already passed
+  for (int s0 = ((S - 1) / 32) * 32; s0 >= 0; s0 -= 32) {
+    const int s = s0 + lane;
+    const float* st = st_ray + s * 3;
+    const float gww = s < S ? st[2] : 0.f;
+    float x = __shfl_down_sync(kFull, gww, 1);  // the next lane's term
+    if (lane == 31) x = 0.f;
 #pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const float y = __shfl_down_sync(kFull, x, o);
-        if (lane + o < 32) x += y;
-      }
-      const float suffix = later + x;
-      later += warp_sum(gww);
-      if (s < S) {
-        const float raw_sigma = sig[g * S + s];
-        const SampleAlpha a = sample_alpha(tr, s, S, dnorm, raw_sigma);
-        const float v = fmaxf(1.f - a.alpha + 1e-10f, 1e-10f);
-        const float g_alpha = st[1] * st[0] - suffix / v;
-        gr[s * 4] = raw_sigma > 0.f ? g_alpha * a.expterm * a.dist : 0.f;
-      }
+    for (int o = 1; o < 32; o <<= 1) {
+      const float y = __shfl_down_sync(kFull, x, o);
+      if (lane + o < 32) x += y;
+    }
+    const float suffix = later + x;
+    later += warp_sum(gww);
+    if (s < S) {
+      const float raw_sigma = __ldg(rw + s * 4);
+      const SampleAlpha a = sample_alpha(tr, s, S, dnorm, raw_sigma);
+      const float v = fmaxf(1.f - a.alpha + 1e-10f, 1e-10f);
+      const float g_alpha = st[1] * st[0] - suffix / v;
+      gr[s * 4] = raw_sigma > 0.f ? g_alpha * a.expterm * a.dist : 0.f;
     }
   }
 }
@@ -711,7 +757,61 @@ cudaError_t set_smem(const void* kernel, size_t bytes) {
   return err;
 }
 
+bool bad_shape(int n_rays, int S, int ray_tile) {
+  return n_rays <= 0 || S <= 0 || ray_tile <= 0 || n_rays % ray_tile != 0;
+}
+
+cudaError_t launch_fwd_spill(const float* t, const float* rays_d, const float* venc, const float* xenc,
+                             const Weights& w, float* comp, float* acc, float* depth, float* weights,
+                             float* saved, float* raw, int n_rays, int S, int ray_tile, int white_bkgd,
+                             cudaStream_t s) {
+  const size_t smem = forward_smem_bytes(S, ray_tile);
+  cudaError_t err = set_smem((const void*)level_fwd_spill_kernel, smem);
+  if (err != cudaSuccess) return err;
+  level_fwd_spill_kernel<<<n_rays / ray_tile, kThreads, smem, s>>>(t, rays_d, venc, xenc, w, comp, acc, depth,
+                                                                  weights, saved, raw, S, ray_tile, white_bkgd);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_bwd_saved(const float* t, const float* rays_d, const float* venc, const float* xenc,
+                             const Weights& w, const float* g_comp, const float* g_acc, const float* g_depth,
+                             const float* g_weights, const float* saved, const float* raw, float* grow,
+                             float* delta, float* partials, float* narrow, float* out, int n_rays, int S,
+                             int ray_tile, int white_bkgd, cudaStream_t s) {
+  const size_t smem_i = sizeof(float) * kWarps * 3 * (size_t)S, smem_b1 = delta_smem_bytes(ray_tile);
+  cudaError_t err = set_smem((const void*)level_bwd_integrator_kernel, smem_i);
+  if (err != cudaSuccess) return err;
+  if ((err = set_smem((const void*)level_bwd_delta_kernel, smem_b1)) != cudaSuccess) return err;
+  if ((err = set_smem((const void*)level_bwd_dw_kernel, kDwSmemBytes)) != cudaSuccess) return err;
+  const Trunk trunk{{nullptr, w.w1, w.w2, w.w3, w.w4, w.w5x, w.w6, w.w7}};
+  const int n_blocks = n_rays / ray_tile;
+  const int n_total = n_rays * S;
+  // Whole kDwStep steps per range; the last ranges may be short or empty.
+  const int rows_per_range = ((n_total + kRanges - 1) / kRanges + kDwStep - 1) / kDwStep * kDwStep;
+  level_bwd_integrator_kernel<<<(n_rays + kWarps - 1) / kWarps, kThreads, smem_i, s>>>(
+      t, rays_d, raw, g_comp, g_acc, g_depth, g_weights, grow, n_rays, S, white_bkgd);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  level_bwd_delta_kernel<<<n_blocks, kThreads, smem_b1, s>>>(venc, w.wd, w.wr, w.wva, w.wb, trunk, saved, grow,
+                                                             delta, narrow, S, ray_tile);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  level_bwd_dw_kernel<<<kRanges * kDwTiles, kThreads, kDwSmemBytes, s>>>(saved, xenc, delta, partials, n_total,
+                                                                         rows_per_range);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  level_bwd_reduce_kernel<<<(kPartialFloats + kThreads - 1) / kThreads, kThreads, 0, s>>>(partials, narrow,
+                                                                                          n_blocks, out);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+#define AONERF_WEIGHT_PARAMS                                                                              \
+  const float *w0, const float *b0, const float *w1, const float *b1, const float *w2, const float *b2,     \
+      const float *w3, const float *b3, const float *w4, const float *b4, const float *w5x,                 \
+      const float *w5i, const float *b5, const float *w6, const float *b6, const float *w7,                 \
+      const float *b7, const float *wd, const float *bd, const float *wb, const float *bb,                  \
+      const float *wva, const float *wvb, const float *bv, const float *wr, const float *br
+#define AONERF_WEIGHTS \
+  Weights { w0, b0, w1, b1, w2, b2, w3, b3, w4, b4, w5x, w5i, b5, w6, b6, w7, b7, wd, bd, wb, bb, wva, wvb, bv, wr, br }
 
 extern "C" {
 
@@ -727,50 +827,62 @@ int aonerf_fused_level_bwd_saved_floats() { return kSpill; }
 int aonerf_fused_level_bwd_ranges() { return kRanges; }
 int aonerf_fused_level_bwd_narrow_floats() { return kNarrowFloats; }
 
-// Launches the level's weight gradient on `stream`. Pointers are device
-// pointers to contiguous fp32 arrays: the level's inputs, its 26 weights in
-// the flax (in, out) layout, the cotangents g_comp (R,3), g_acc (R),
-// g_depth (R), g_weights (R,S); scratch `saved` and `delta` (R*S*kSpill
-// each), `grow` (R*S*4), `partials` (kRanges * kPartialFloats) and `narrow`
-// ((R/ray_tile) * kNarrowFloats); the output `out` (kPartialFloats).
-// n_rays % ray_tile == 0. Returns the first launch error (0 on success).
+// K1s, the training forward, on `stream`. Pointers are device pointers to
+// contiguous fp32 arrays: the level's inputs and its 26 weights in the flax
+// (in, out) layout, as for aonerf_fused_render_level; its outputs comp (R,3),
+// acc (R), depth (R), weights (R,S); and what the backward reads, `saved`
+// (R*S*kSpill, the activations) and `raw` (R*S*4: raw sigma, raw rgb).
+// n_rays % ray_tile == 0. Returns the launch's error (0 on success).
+int aonerf_fused_level_fwd_spill(const float* t, const float* rays_d, const float* venc, const float* xenc,
+                                 AONERF_WEIGHT_PARAMS, float* comp, float* acc, float* depth, float* weights,
+                                 float* saved, float* raw, int n_rays, int S, int ray_tile, int white_bkgd,
+                                 void* stream) {
+  if (bad_shape(n_rays, S, ray_tile)) return cudaErrorInvalidValue;
+  return launch_fwd_spill(t, rays_d, venc, xenc, AONERF_WEIGHTS, comp, acc, depth, weights, saved, raw, n_rays,
+                          S, ray_tile, white_bkgd, static_cast<cudaStream_t>(stream));
+}
+
+// The level's weight gradient from what K1s saved, on `stream`: the
+// integrator backward, B1, B2 and the reduction. Inputs as for K1s, plus the
+// cotangents g_comp (R,3), g_acc (R), g_depth (R), g_weights (R,S) and K1s'
+// `saved` and `raw`; scratch `grow` (R*S*4), `delta` (R*S*kSpill),
+// `partials` (kRanges * kPartialFloats) and `narrow` ((R/ray_tile) *
+// kNarrowFloats); the output `out` (kPartialFloats). Returns the first launch
+// error (0 on success).
+int aonerf_fused_level_bwd_saved(const float* t, const float* rays_d, const float* venc, const float* xenc,
+                                 AONERF_WEIGHT_PARAMS, const float* g_comp, const float* g_acc,
+                                 const float* g_depth, const float* g_weights, const float* saved,
+                                 const float* raw, float* grow, float* delta, float* partials, float* narrow,
+                                 float* out, int n_rays, int S, int ray_tile, int white_bkgd, void* stream) {
+  if (bad_shape(n_rays, S, ray_tile)) return cudaErrorInvalidValue;
+  return launch_bwd_saved(t, rays_d, venc, xenc, AONERF_WEIGHTS, g_comp, g_acc, g_depth, g_weights, saved, raw,
+                          grow, delta, partials, narrow, out, n_rays, S, ray_tile, white_bkgd,
+                          static_cast<cudaStream_t>(stream));
+}
+
+// The level's weight gradient from its inputs alone: K1s, then the backward
+// from what it saved. Arguments as for aonerf_fused_level_bwd_saved without
+// `raw`; K1s' outputs and `raw` (R*(5 S + 5) floats) live at the front of
+// `delta` until B1 overwrites it.
 int aonerf_fused_level_bwd(const float* t, const float* rays_d, const float* venc, const float* xenc,
-                           const float* w0, const float* b0, const float* w1, const float* b1,
-                           const float* w2, const float* b2, const float* w3, const float* b3,
-                           const float* w4, const float* b4, const float* w5x, const float* w5i,
-                           const float* b5, const float* w6, const float* b6, const float* w7,
-                           const float* b7, const float* wd, const float* bd, const float* wb,
-                           const float* bb, const float* wva, const float* wvb, const float* bv,
-                           const float* wr, const float* br, const float* g_comp, const float* g_acc,
-                           const float* g_depth, const float* g_weights, float* saved, float* grow,
-                           float* delta, float* partials, float* narrow, float* out, int n_rays, int S,
-                           int ray_tile, int white_bkgd, void* stream) {
-  if (n_rays <= 0 || S <= 0 || ray_tile <= 0 || n_rays % ray_tile != 0) return cudaErrorInvalidValue;
-  const size_t smem_a = forward_smem_bytes(S, ray_tile), smem_b1 = delta_smem_bytes(ray_tile);
-  cudaError_t err = set_smem((const void*)level_bwd_forward_kernel, smem_a);
-  if (err != cudaSuccess) return err;
-  if ((err = set_smem((const void*)level_bwd_delta_kernel, smem_b1)) != cudaSuccess) return err;
-  if ((err = set_smem((const void*)level_bwd_dw_kernel, kDwSmemBytes)) != cudaSuccess) return err;
-  Weights w{w0, b0, w1, b1, w2, b2, w3, b3, w4, b4, w5x, w5i, b5, w6, b6, w7, b7,
-            wd, bd, wb, bb, wva, wvb, bv, wr, br};
-  const Trunk trunk{{nullptr, w1, w2, w3, w4, w5x, w6, w7}};
+                           AONERF_WEIGHT_PARAMS, const float* g_comp, const float* g_acc, const float* g_depth,
+                           const float* g_weights, float* saved, float* grow, float* delta, float* partials,
+                           float* narrow, float* out, int n_rays, int S, int ray_tile, int white_bkgd,
+                           void* stream) {
+  if (bad_shape(n_rays, S, ray_tile)) return cudaErrorInvalidValue;
+  const size_t rows = (size_t)n_rays * S;
+  float* raw = delta;
+  float* weights = raw + 4 * rows;
+  float* comp = weights + rows;
+  float* acc = comp + 3 * (size_t)n_rays;
+  float* depth = acc + n_rays;
+  const Weights w = AONERF_WEIGHTS;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n_blocks = n_rays / ray_tile;
-  const int n_total = n_rays * S;
-  // Whole kDwStep steps per range; the last ranges may be short or empty.
-  const int rows_per_range = ((n_total + kRanges - 1) / kRanges + kDwStep - 1) / kDwStep * kDwStep;
-  level_bwd_forward_kernel<<<n_blocks, kThreads, smem_a, s>>>(
-      t, rays_d, venc, xenc, w, g_comp, g_acc, g_depth, g_weights, saved, grow, S, ray_tile, white_bkgd);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  level_bwd_delta_kernel<<<n_blocks, kThreads, smem_b1, s>>>(venc, wd, wr, wva, wb, trunk, saved, grow, delta,
-                                                             narrow, S, ray_tile);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  level_bwd_dw_kernel<<<kRanges * kDwTiles, kThreads, kDwSmemBytes, s>>>(saved, xenc, delta, partials, n_total,
-                                                                         rows_per_range);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  level_bwd_reduce_kernel<<<(kPartialFloats + kThreads - 1) / kThreads, kThreads, 0, s>>>(partials, narrow,
-                                                                                          n_blocks, out);
-  return cudaGetLastError();
+  cudaError_t err = launch_fwd_spill(t, rays_d, venc, xenc, w, comp, acc, depth, weights, saved, raw, n_rays, S,
+                                     ray_tile, white_bkgd, s);
+  if (err != cudaSuccess) return err;
+  return launch_bwd_saved(t, rays_d, venc, xenc, w, g_comp, g_acc, g_depth, g_weights, saved, raw, grow, delta,
+                          partials, narrow, out, n_rays, S, ray_tile, white_bkgd, s);
 }
 
 }  // extern "C"

@@ -1,13 +1,15 @@
-// Device code shared by the fused NeRF level (fused_render.cu, the forward)
-// and its weight gradient (fused_train.cu, the backward), for Hopper (sm_90a).
+// Device code shared by the fused NeRF level (fused_render.cu, K1, the
+// forward) and its training side (fused_train.cu: K1s, the forward that saves
+// the activations, and K2, the weight gradient), for Hopper (sm_90a).
 //
 // Both walk a block's rays in chunks of kRows samples packed across ray
 // boundaries, run the 8x256 MLP on a chunk with its activation in shared
 // memory and the weights streamed in 32-row K-slices through a cp.async
 // double buffer, and integrate each ray with one warp (a prefix sum of
 // log(max(1 - alpha + 1e-10, 1e-10)) with a carry across 32-sample steps).
-// The backward's forward pass also saves each chunk's activations to a
-// per-row scratch (`Spill`): kSpill floats per sample.
+// The training forward also saves each chunk's activations to a per-row
+// scratch (`Spill`, kSpill floats per sample) by bulk copies out of the
+// shared activation tile.
 
 #pragma once
 
@@ -48,6 +50,32 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// Bulk copies out of shared memory (Hopper's copy engine). The generic-proxy
+// writes a thread made to shared memory become visible to the async proxy
+// after fence_proxy_async and a barrier. bulk_store_row copies `bytes` (a
+// multiple of 16, both addresses 16-byte aligned) from shared memory to
+// device memory in the calling thread's current bulk group, which
+// bulk_commit closes, under the L2 policy `policy` (evict_first_policy: the
+// copied lines are the first to leave L2, so a stream of them does not evict
+// the weights every chunk re-reads). bulk_wait_read returns once every
+// committed group of the thread has finished reading shared memory,
+// bulk_wait_all once their writes are done.
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+__device__ __forceinline__ uint64_t evict_first_policy() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+  return policy;
+}
+__device__ __forceinline__ void bulk_store_row(float* dst, const float* src, int bytes, uint64_t policy) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(src));
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group.L2::cache_hint [%0], [%1], %2, %3;\n" ::"l"(dst),
+               "r"(s), "r"(bytes), "l"(policy)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+__device__ __forceinline__ void bulk_wait_read() { asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory"); }
+__device__ __forceinline__ void bulk_wait_all() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
@@ -73,8 +101,10 @@ __device__ __forceinline__ void stage_slice(float* buf, const float* __restrict_
 // rows 8*warp + i and columns 4*lane + (j%4) + 128*(j/4). A is (kRows x lda)
 // in shared memory; columns of A at or past K must be finite (they meet the
 // zero-filled weight rows). Ends with a barrier: every thread has finished
-// reading A and wbuf when it returns.
-template <int N>
+// reading A and wbuf when it returns. With Spill, thread 0's bulk copies of
+// the previous layer's activation have also finished reading it by then, so
+// the caller may overwrite it.
+template <int N, bool Spill = false>
 __device__ __forceinline__ void gemm_acc(float (&acc)[8][N / 32], const float* A, int lda, int K,
                                          const float* __restrict__ W, float* wbuf) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -118,6 +148,9 @@ __device__ __forceinline__ void gemm_acc(float (&acc)[8][N / 32], const float* A
         }
       }
     }
+    if constexpr (Spill) {
+      if (s + 1 == n_slices && threadIdx.x == 0) bulk_wait_read();
+    }
     __syncthreads();
   }
 }
@@ -131,8 +164,10 @@ __device__ __forceinline__ void zero(float (&acc)[8][N / 32]) {
 }
 
 // act[row][col] = (relu)(acc + bias[col] (+ cterm[ray(row)][col])), then a
-// barrier so the next layer reads the whole new activation. With Spill, the
-// rows below valid_rows are also written to spill + row * kSpill + col.
+// barrier so the next layer reads the whole new activation. With Spill,
+// thread 0 then copies the rows below valid_rows (N floats each) to
+// spill + row * kSpill by bulk copies, one committed group; the next
+// gemm_acc<N, true> waits for them to finish reading act.
 template <int N, bool Spill>
 __device__ __forceinline__ void store_act(const float (&acc)[8][N / 32], const float* __restrict__ bias,
                                           bool relu, float* act, const float* cterm, int row0,
@@ -159,15 +194,19 @@ __device__ __forceinline__ void store_act(const float (&acc)[8][N / 32], const f
         if (ct != nullptr) x += ct[lane * 4 + q + 128 * h];
         v[q] = relu ? fmaxf(x, 0.f) : x;
       }
-      const float4 out = make_float4(v[0], v[1], v[2], v[3]);
-      *reinterpret_cast<float4*>(act + r * kWidth + h * 128 + lane * 4) = out;
-      if constexpr (Spill) {
-        if (r < valid_rows)
-          *reinterpret_cast<float4*>(spill + (size_t)r * kSpill + h * 128 + lane * 4) = out;
-      }
+      *reinterpret_cast<float4*>(act + r * kWidth + h * 128 + lane * 4) = make_float4(v[0], v[1], v[2], v[3]);
     }
   }
+  if constexpr (Spill) fence_proxy_async();
   __syncthreads();
+  if constexpr (Spill) {
+    if (threadIdx.x == 0) {
+      const uint64_t policy = evict_first_policy();
+      for (int r = 0; r < valid_rows; ++r)
+        bulk_store_row(spill + (size_t)r * kSpill, act + r * kWidth, N * 4, policy);
+      bulk_commit();
+    }
+  }
 }
 
 // One 256x256 (or K x 256) layer with ReLU, in place over act.
@@ -177,7 +216,7 @@ __device__ __forceinline__ void dense_relu(const float* A, int lda, int K, const
                                            int valid_rows) {
   float acc[8][8];
   zero<256>(acc);
-  gemm_acc<256>(acc, A, lda, K, W, wbuf);
+  gemm_acc<256, Spill>(acc, A, lda, K, W, wbuf);
   store_act<256, Spill>(acc, bias, true, act, nullptr, 0, 1, 1, spill, valid_rows);
 }
 
@@ -223,7 +262,7 @@ __device__ __forceinline__ void forward_chunk(const float* __restrict__ xenc, co
     float a5[8][8];
     zero<256>(a5);
     gemm_acc<256>(a5, act, kWidth, kWidth, w.w5x, wbuf);
-    gemm_acc<256>(a5, xs, kPosPad, kPos, w.w5i, wbuf);
+    gemm_acc<256, Spill>(a5, xs, kPosPad, kPos, w.w5i, wbuf);
     store_act<256, Spill>(a5, w.b5, true, act, nullptr, 0, 1, 1, spill + 5 * kWidth, valid_rows);
   }
   dense_relu<Spill>(act, kWidth, kWidth, w.w6, w.b6, act, wbuf, spill + 6 * kWidth, valid_rows);
@@ -242,13 +281,13 @@ __device__ __forceinline__ void forward_chunk(const float* __restrict__ xenc, co
      // orders it after the density reads
     float ab[8][8];
     zero<256>(ab);
-    gemm_acc<256>(ab, act, kWidth, kWidth, w.wb, wbuf);
+    gemm_acc<256, Spill>(ab, act, kWidth, kWidth, w.wb, wbuf);
     store_act<256, Spill>(ab, w.bb, false, act, nullptr, 0, 1, 1, spill + kSpillBtl, valid_rows);
   }
   {  // view layer: relu(btl . wva + cterm[ray] + bv) -> act[:, :128]
     float av[8][4];
     zero<128>(av);
-    gemm_acc<128>(av, act, kWidth, kWidth, w.wva, wbuf);
+    gemm_acc<128, Spill>(av, act, kWidth, kWidth, w.wva, wbuf);
     store_act<128, Spill>(av, w.bv, true, act, cterm, row0, S, n_rows, spill + kSpillView, valid_rows);
   }
   // rgb head (128 -> 3), one warp per row.
@@ -313,6 +352,53 @@ __device__ __forceinline__ float warp_transmittance(float logv, float& carry) {
 }
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
+
+// The integrator forward of the block's rays [ray0, ray0 + ray_tile), one
+// warp per ray, from the raw sigma sig[g S + s] and raw rgb rgb[3 (g S + s)]
+// of the ray's samples: weights (R,S), then comp (R,3), acc and depth (R).
+__device__ __forceinline__ void integrate_rays(const float* __restrict__ t, const float* __restrict__ rays_d,
+                                               const float* sig, const float* rgb, int ray0, int ray_tile,
+                                               int S, int white_bkgd, float* __restrict__ comp,
+                                               float* __restrict__ acc_out, float* __restrict__ depth,
+                                               float* __restrict__ weights_out) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int g = warp; g < ray_tile; g += kWarps) {
+    const int ray = ray0 + g;
+    const float* tr = t + (size_t)ray * S;
+    const float dx = __ldg(rays_d + ray * 3), dy = __ldg(rays_d + ray * 3 + 1),
+                dz = __ldg(rays_d + ray * 3 + 2);
+    const float dnorm = sqrtf(dx * dx + dy * dy + dz * dz);
+    float carry = 0.f, c0 = 0.f, c1 = 0.f, c2 = 0.f, acc_w = 0.f, dep = 0.f;
+    for (int s0 = 0; s0 < S; s0 += 32) {
+      const int s = s0 + lane;
+      SampleAlpha a;
+      if (s < S) a = sample_alpha(tr, s, S, dnorm, sig[g * S + s]);
+      const float wgt = a.alpha * warp_transmittance(a.logv, carry);
+      if (s < S) {
+        weights_out[(size_t)ray * S + s] = wgt;
+        const float* raw = rgb + (size_t)(g * S + s) * 3;
+        c0 = fmaf(wgt, sigmoid(raw[0]), c0);
+        c1 = fmaf(wgt, sigmoid(raw[1]), c1);
+        c2 = fmaf(wgt, sigmoid(raw[2]), c2);
+        acc_w += wgt;
+        dep = fmaf(wgt, a.ts, dep);
+      }
+    }
+    c0 = warp_sum(c0);
+    c1 = warp_sum(c1);
+    c2 = warp_sum(c2);
+    acc_w = warp_sum(acc_w);
+    dep = warp_sum(dep);
+    if (lane == 0) {
+      const float bg = white_bkgd ? 1.f - acc_w : 0.f;
+      comp[ray * 3 + 0] = c0 + bg;
+      comp[ray * 3 + 1] = c1 + bg;
+      comp[ray * 3 + 2] = c2 + bg;
+      acc_out[ray] = acc_w;
+      depth[ray] = dep;
+    }
+  }
+}
 
 // Shared memory (bytes) of the forward walk for ray_tile rays of S samples:
 // activation, encoded input, weight slices, per-ray view terms, per-sample

@@ -13,7 +13,7 @@ log(max(1 - alpha + 1e-10, 1e-10)), and depth without the NaN/clip step of
 """
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -74,40 +74,43 @@ def kernel_params(mlp) -> Dict[str, torch.Tensor]:
     return {n: out[n] for n in WEIGHT_NAMES}
 
 
-def fused_render_level_ref(
-    kernel_params: Dict[str, torch.Tensor],
-    t_vals: torch.Tensor,
-    rays_o: torch.Tensor,
-    rays_d: torch.Tensor,
-    viewdirs_enc: torch.Tensor,
-    samples_enc: torch.Tensor,
-    white_bkgd: bool,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the fused level. Same arguments and outputs as
-    :func:`fused_render_level`, on any device."""
+def level_activations_ref(
+    kernel_params: Dict[str, torch.Tensor], viewdirs_enc: torch.Tensor, xe: torch.Tensor, S: int
+) -> Tuple[List[torch.Tensor], torch.Tensor, torch.Tensor]:
+    """The level's MLP on the R*S encoded samples ``xe`` (rows, 63): the ten
+    activations in the order the training forward saves them (h0..h7, the
+    bottleneck, the view hidden layer), raw sigma (rows, 1) and raw rgb
+    (rows, 3)."""
     w = kernel_params
-    R, S = t_vals.shape
-    xe = samples_enc.reshape(R * S, -1)
+    R = viewdirs_enc.shape[0]
     relu = torch.relu
 
-    x = relu(xe @ w["w0"] + w["b0"])
+    hs = [relu(xe @ w["w0"] + w["b0"])]
     for i in (1, 2, 3, 4):
-        x = relu(x @ w[f"w{i}"] + w[f"b{i}"])
-    x = relu(x @ w["w5x"] + xe @ w["w5i"] + w["b5"])
+        hs.append(relu(hs[-1] @ w[f"w{i}"] + w[f"b{i}"]))
+    hs.append(relu(hs[-1] @ w["w5x"] + xe @ w["w5i"] + w["b5"]))
     for i in (6, 7):
-        x = relu(x @ w[f"w{i}"] + w[f"b{i}"])
+        hs.append(relu(hs[-1] @ w[f"w{i}"] + w[f"b{i}"]))
 
-    raw_sigma = x @ w["wd"] + w["bd"]  # (rows, 1)
-    bottleneck = x @ w["wb"] + w["bb"]
+    raw_sigma = hs[7] @ w["wd"] + w["bd"]  # (rows, 1)
+    bottleneck = hs[7] @ w["wb"] + w["bb"]
     c_part = viewdirs_enc @ w["wvb"]  # (R, 128), once per ray
     c_rows = c_part[:, None, :].expand(R, S, c_part.shape[-1]).reshape(R * S, -1)
     v = relu(bottleneck @ w["wva"] + c_rows + w["bv"])
     raw_rgb = v @ w["wr"] + w["br"]  # (rows, 3)
+    return hs + [bottleneck, v], raw_sigma, raw_rgb
 
+
+def integrate_ref(
+    raw_sigma: torch.Tensor, raw_rgb: torch.Tensor, t_vals: torch.Tensor, rays_d: torch.Tensor, white_bkgd: bool
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The level's integrator: (comp (R,3), acc (R,), depth (R,), weights
+    (R,S)) from raw sigma (R*S, 1) and raw rgb (R*S, 3)."""
+    R, S = t_vals.shape
     dnorm = torch.sqrt(torch.sum(rays_d * rays_d, dim=-1, keepdim=True))
     dists = torch.cat([t_vals[:, 1:] - t_vals[:, :-1], torch.full_like(t_vals[:, :1], 1e10)], -1)
     dists = dists * dnorm
-    sigma = relu(raw_sigma.reshape(R, S))
+    sigma = torch.relu(raw_sigma.reshape(R, S))
     alpha = 1.0 - torch.exp(-sigma * dists)
     logv = torch.log(torch.clamp(1.0 - alpha + 1e-10, min=1e-10))
     excl = torch.cat([torch.zeros_like(logv[:, :1]), torch.cumsum(logv[:, :-1], dim=-1)], -1)
@@ -120,6 +123,22 @@ def fused_render_level_ref(
     if white_bkgd:
         comp = comp + (1.0 - acc[..., None])
     return comp, acc, depth, weights
+
+
+def fused_render_level_ref(
+    kernel_params: Dict[str, torch.Tensor],
+    t_vals: torch.Tensor,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    viewdirs_enc: torch.Tensor,
+    samples_enc: torch.Tensor,
+    white_bkgd: bool,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the fused level. Same arguments and outputs as
+    :func:`fused_render_level`, on any device."""
+    R, S = t_vals.shape
+    _, raw_sigma, raw_rgb = level_activations_ref(kernel_params, viewdirs_enc, samples_enc.reshape(R * S, -1), S)
+    return integrate_ref(raw_sigma, raw_rgb, t_vals, rays_d, white_bkgd)
 
 
 def _check_inputs(kernel_params, t_vals, rays_d, viewdirs_enc, xenc, R, S):

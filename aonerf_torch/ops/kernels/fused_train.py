@@ -1,10 +1,17 @@
-"""The differentiable fused level: K1 forward, K2 weight-gradient backward
-(counterpart of ``aonerf.ops.kernels.fused_train``).
+"""The differentiable fused level: the spilling training forward K1s, and the
+weight-gradient backward K2 from what it saved (counterpart of
+``aonerf.ops.kernels.fused_train``).
 
-``fused_level_bwd`` launches the CUDA kernels of ``csrc/fused_train.cu`` on
-CUDA tensors and runs ``fused_level_bwd_ref``, the plain PyTorch version of
-the same function, on CPU tensors. Anything else raises; a CUDA call never
-falls back to the plain version.
+``fused_level_fwd_spill`` and ``fused_level_bwd_saved`` launch the CUDA
+kernels of ``csrc/fused_train.cu`` on CUDA tensors and run their plain
+PyTorch versions (``*_ref``) on CPU tensors. Anything else raises; a CUDA
+call never falls back to the plain version. ``fused_level_bwd`` is the two
+composed: the gradient from the level's inputs alone.
+
+Each training step runs each level's MLP forward once: K1s computes K1's
+outputs (the same bits) and saves every sample's activations (``saved``,
+SAVED_FLOATS a sample) and raw sigma and rgb (``raw``, 4 a sample); the
+backward reads them. K1 (``fused_render``) serves and validates.
 
 Gradients flow to the 26 MLP weights only. Sample positions carry none in
 this architecture (coarse t-values are parameter-free, fine t-values are
@@ -23,14 +30,22 @@ import torch
 from aonerf_torch.ops import encoding, sampling
 from aonerf_torch.ops.kernels import build
 from aonerf_torch.ops.kernels.fused_render import (
+    COND_WIDTH,
     RAY_TILE,
     WEIGHT_NAMES,
+    WIDTH,
     _check_inputs,
-    fused_render_level,
+    integrate_ref,
     kernel_params,
+    level_activations_ref,
 )
 
-# Launches of the CUDA backward since the count was last set to 0.
+# Saved activations per sample: h0..h7, the bottleneck, the view hidden layer.
+SAVED_FLOATS = 9 * WIDTH + COND_WIDTH
+
+# Launches of K1s (fwd_launches) and of the CUDA backward (launches) since
+# each count was last set to 0.
+fwd_launches = 0
 launches = 0
 
 
@@ -38,13 +53,36 @@ def _relu_mask(x: torch.Tensor) -> torch.Tensor:
     return (x > 0.0).to(x.dtype)
 
 
-def fused_level_bwd_ref(
+def fused_level_fwd_spill_ref(
     kernel_params: Dict[str, torch.Tensor],
     t_vals: torch.Tensor,
     rays_o: torch.Tensor,
     rays_d: torch.Tensor,
     viewdirs_enc: torch.Tensor,
     samples_enc: torch.Tensor,
+    white_bkgd: bool,
+) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of K1s. Same arguments and outputs as
+    :func:`fused_level_fwd_spill`, on any device: those of
+    ``fused_render_level_ref``, then ``saved`` (R*S, SAVED_FLOATS) and ``raw``
+    (R*S, 4) in the kernel's layout."""
+    R, S = t_vals.shape
+    acts, raw_sigma, raw_rgb = level_activations_ref(kernel_params, viewdirs_enc, samples_enc.reshape(R * S, -1), S)
+    saved = torch.cat(acts, -1)
+    del acts
+    raw = torch.cat([raw_sigma, raw_rgb], -1)
+    return (*integrate_ref(raw_sigma, raw_rgb, t_vals, rays_d, white_bkgd), saved, raw)
+
+
+def fused_level_bwd_saved_ref(
+    kernel_params: Dict[str, torch.Tensor],
+    t_vals: torch.Tensor,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    viewdirs_enc: torch.Tensor,
+    samples_enc: torch.Tensor,
+    saved: torch.Tensor,
+    raw: torch.Tensor,
     g_comp: torch.Tensor,
     g_acc: torch.Tensor,
     g_depth: torch.Tensor,
@@ -52,9 +90,9 @@ def fused_level_bwd_ref(
     white_bkgd: bool,
     mm: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] = torch.matmul,
 ) -> Dict[str, torch.Tensor]:
-    """Plain PyTorch version of the level's weight gradient, written out as
-    the TPU kernel's body is (``_bwd_kernel``). Same arguments and outputs as
-    :func:`fused_level_bwd`, on any device.
+    """Plain PyTorch version of the backward from what K1s saved, written out
+    as the TPU kernel's body is (``_bwd_kernel``). Same arguments and outputs
+    as :func:`fused_level_bwd_saved`, on any device.
 
     ``mm`` computes the MLP backward's products that the CUDA kernel runs on
     the tensor cores (every dW and every delta . W^T but the narrow heads');
@@ -63,27 +101,16 @@ def fused_level_bwd_ref(
     w = kernel_params
     R, S = t_vals.shape
     xe = samples_enc.reshape(R * S, -1)
-    relu = torch.relu
-
-    hs = [relu(xe @ w["w0"] + w["b0"])]
-    for i in (1, 2, 3, 4):
-        hs.append(relu(hs[-1] @ w[f"w{i}"] + w[f"b{i}"]))
-    hs.append(relu(hs[-1] @ w["w5x"] + xe @ w["w5i"] + w["b5"]))
-    for i in (6, 7):
-        hs.append(relu(hs[-1] @ w[f"w{i}"] + w[f"b{i}"]))
+    hs = [saved[:, i * WIDTH : (i + 1) * WIDTH] for i in range(8)]
     h7 = hs[7]
-    raw_sigma = h7 @ w["wd"] + w["bd"]  # (rows, 1)
-    btl = h7 @ w["wb"] + w["bb"]
-    c_part = viewdirs_enc @ w["wvb"]
-    c_rows = c_part[:, None, :].expand(R, S, c_part.shape[-1]).reshape(R * S, -1)
-    zv = btl @ w["wva"] + c_rows + w["bv"]
-    hv = relu(zv)
-    raw_rgb = hv @ w["wr"] + w["br"]
+    btl = saved[:, 8 * WIDTH : 9 * WIDTH]
+    hv = saved[:, 9 * WIDTH :]
+    raw_sigma, raw_rgb = raw[:, :1], raw[:, 1:]
 
     dnorm = torch.sqrt(torch.sum(rays_d * rays_d, dim=-1, keepdim=True))
     dists = torch.cat([t_vals[:, 1:] - t_vals[:, :-1], torch.full_like(t_vals[:, :1], 1e10)], -1)
     dists = dists * dnorm
-    sigma = relu(raw_sigma.reshape(R, S))
+    sigma = torch.relu(raw_sigma.reshape(R, S))
     expterm = torch.exp(-sigma * dists)
     alpha = 1.0 - expterm
     v = torch.clamp(1.0 - alpha + 1e-10, min=1e-10)
@@ -107,10 +134,10 @@ def fused_level_bwd_ref(
     sig = rgb.reshape(R * S, 3)
     g_raw_rgb = (g_comp[:, None, :] * weights[..., None]).reshape(R * S, 3) * sig * (1.0 - sig)
 
-    # MLP backward
+    # MLP backward; hv = relu(zv), so hv > 0 is zv's mask
     g = {}
     g["wr"], g["br"] = hv.t() @ g_raw_rgb, g_raw_rgb.sum(0, keepdim=True)
-    delta_v = (g_raw_rgb @ w["wr"].t()) * _relu_mask(zv)
+    delta_v = (g_raw_rgb @ w["wr"].t()) * _relu_mask(hv)
     g["wva"], g["bv"] = mm(btl.t(), delta_v), delta_v.sum(0, keepdim=True)
     g_btl = mm(delta_v, w["wva"].t())
     g["wvb"] = viewdirs_enc.t() @ delta_v.reshape(R, S, -1).sum(1)
@@ -133,6 +160,28 @@ def fused_level_bwd_ref(
     return {n: g[n] for n in WEIGHT_NAMES}
 
 
+def fused_level_bwd_ref(
+    kernel_params: Dict[str, torch.Tensor],
+    t_vals: torch.Tensor,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    viewdirs_enc: torch.Tensor,
+    samples_enc: torch.Tensor,
+    g_comp: torch.Tensor,
+    g_acc: torch.Tensor,
+    g_depth: torch.Tensor,
+    g_weights: torch.Tensor,
+    white_bkgd: bool,
+    mm: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] = torch.matmul,
+) -> Dict[str, torch.Tensor]:
+    """Plain PyTorch version of :func:`fused_level_bwd`, on any device:
+    :func:`fused_level_bwd_saved_ref` from what :func:`fused_level_fwd_spill_ref`
+    saves. ``mm`` as there."""
+    inputs = (kernel_params, t_vals, rays_o, rays_d, viewdirs_enc, samples_enc)
+    *_, saved, raw = fused_level_fwd_spill_ref(*inputs, white_bkgd)
+    return fused_level_bwd_saved_ref(*inputs, saved, raw, g_comp, g_acc, g_depth, g_weights, white_bkgd, mm=mm)
+
+
 def _padded_offsets(shapes: List[Tuple[int, ...]]) -> List[int]:
     """Start of each gradient in the kernel's flat output: in WEIGHT_NAMES
     order, each padded to a multiple of 4 floats (16-byte aligned)."""
@@ -153,18 +202,36 @@ def _library():
     global _lib
     if _lib is None:
         lib = build.load("fused_train")
-        fn = lib.aonerf_fused_level_bwd
-        n_ptr = 4 + len(WEIGHT_NAMES) + 4 + 6
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        n_w = len(WEIGHT_NAMES)
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        for name, n_ptr in (
+            ("aonerf_fused_level_fwd_spill", 4 + n_w + 6),
+            ("aonerf_fused_level_bwd_saved", 4 + n_w + 4 + 2 + 5),
+            ("aonerf_fused_level_bwd", 4 + n_w + 4 + 6),
+        ):
+            fn = getattr(lib, name)
+            fn.argtypes = [ptr] * n_ptr + [i32] * 4 + [ptr]
+            fn.restype = i32
         for name in (
             "aonerf_fused_level_bwd_partial_floats", "aonerf_fused_level_bwd_saved_floats",
             "aonerf_fused_level_bwd_ranges", "aonerf_fused_level_bwd_narrow_floats",
         ):
             getattr(lib, name).argtypes = []
-            getattr(lib, name).restype = ctypes.c_int
+            getattr(lib, name).restype = i32
+        if lib.aonerf_fused_level_bwd_saved_floats() != SAVED_FLOATS:
+            raise RuntimeError(f"fused_train: kernel saves {lib.aonerf_fused_level_bwd_saved_floats()} floats "
+                               f"a sample, expected {SAVED_FLOATS}")
         _lib = lib
     return _lib
+
+
+def _check(name, x, shape, device):
+    if tuple(x.shape) != shape:
+        raise ValueError(f"{name}: shape {tuple(x.shape)}, expected {shape}")
+    if x.dtype != torch.float32 or x.device != device:
+        raise ValueError(f"{name}: {x.dtype} on {x.device}, expected float32 on {device}")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError(f"{name}: must be contiguous and 16-byte aligned")
 
 
 def _check_cotangents(g_comp, g_acc, g_depth, g_weights, R, S, device):
@@ -172,12 +239,139 @@ def _check_cotangents(g_comp, g_acc, g_depth, g_weights, R, S, device):
         ("g_comp", g_comp, (R, 3)), ("g_acc", g_acc, (R,)), ("g_depth", g_depth, (R,)),
         ("g_weights", g_weights, (R, S)),
     ):
-        if tuple(x.shape) != shape:
-            raise ValueError(f"{name}: shape {tuple(x.shape)}, expected {shape}")
-        if x.dtype != torch.float32 or x.device != device:
-            raise ValueError(f"{name}: {x.dtype} on {x.device}, expected float32 on {device}")
-        if not x.is_contiguous() or x.data_ptr() % 16:
-            raise ValueError(f"{name}: must be contiguous and 16-byte aligned")
+        _check(name, x, shape, device)
+
+
+def _device_of(fn_name, t_vals, R, ray_tile):
+    """'cpu' or 'cuda' for a call of fn_name; raises on anything else."""
+    if R % ray_tile != 0:
+        raise ValueError(f"rays {R} not a multiple of ray_tile {ray_tile}")
+    if t_vals.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{fn_name} runs on cuda or cpu, not {t_vals.device}")
+    return t_vals.device.type
+
+
+def _launch(fn_name, dev, fn, *args):
+    with torch.cuda.device(dev):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:  # e.g. ray_tile x S needs more shared memory than a block has
+        raise RuntimeError(f"{fn_name}: CUDA launch failed with error {err}")
+
+
+def _backward_scratch(lib, kernel_params, R, S, ray_tile, dev):
+    """grow, delta, partials, narrow, out and the 26 gradients as views of out."""
+    shapes = [tuple(kernel_params[n].shape) for n in WEIGHT_NAMES]
+    offsets = _padded_offsets(shapes)
+    n_out = lib.aonerf_fused_level_bwd_partial_floats()
+    if n_out != offsets[-1]:
+        raise RuntimeError(f"fused_train: kernel layout has {n_out} floats, expected {offsets[-1]}")
+    f32 = dict(dtype=torch.float32, device=dev)
+    grow = torch.empty(R * S * 4, **f32)
+    delta = torch.empty(R * S * SAVED_FLOATS, **f32)
+    partials = torch.empty(lib.aonerf_fused_level_bwd_ranges() * n_out, **f32)
+    narrow = torch.empty((R // ray_tile) * lib.aonerf_fused_level_bwd_narrow_floats(), **f32)
+    out = torch.empty(n_out, **f32)
+    grads = {n: out[offsets[i] : offsets[i] + kernel_params[n].numel()].view(shapes[i])
+             for i, n in enumerate(WEIGHT_NAMES)}
+    return (grow, delta, partials, narrow, out), grads
+
+
+def fused_level_fwd_spill(
+    kernel_params: Dict[str, torch.Tensor],
+    t_vals: torch.Tensor,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    viewdirs_enc: torch.Tensor,
+    samples_enc: torch.Tensor,
+    white_bkgd: bool,
+    ray_tile: int = RAY_TILE,
+) -> Tuple[torch.Tensor, ...]:
+    """The level's training forward (K1s): :func:`fused_render_level`'s
+    outputs (comp (R,3), acc (R,), depth (R,), weights (R,S), the same bits as
+    K1's on the card), then what the backward reads: ``saved`` (R*S,
+    SAVED_FLOATS), every sample's activations h0..h7, bottleneck and view
+    hidden layer, and ``raw`` (R*S, 4), its raw sigma and rgb.
+
+    On CUDA tensors this launches K1s, one block per ``ray_tile`` rays; on
+    CPU tensors it runs the plain version.
+    """
+    global fwd_launches
+    R, S = t_vals.shape
+    if _device_of("fused_level_fwd_spill", t_vals, R, ray_tile) == "cpu":
+        return fused_level_fwd_spill_ref(
+            kernel_params, t_vals, rays_o, rays_d, viewdirs_enc, samples_enc, white_bkgd
+        )
+    dev = t_vals.device
+    xenc = samples_enc.reshape(R * S, samples_enc.shape[-1])
+    _check_inputs(kernel_params, t_vals, rays_d, viewdirs_enc, xenc, R, S)
+    lib = _library()
+    f32 = dict(dtype=torch.float32, device=dev)
+    comp, acc, depth = torch.empty((R, 3), **f32), torch.empty((R,), **f32), torch.empty((R,), **f32)
+    weights = torch.empty((R, S), **f32)
+    saved = torch.empty((R * S, SAVED_FLOATS), **f32)
+    raw = torch.empty((R * S, 4), **f32)
+    _launch(
+        "fused_level_fwd_spill", dev, lib.aonerf_fused_level_fwd_spill,
+        t_vals.data_ptr(), rays_d.data_ptr(), viewdirs_enc.data_ptr(), xenc.data_ptr(),
+        *[kernel_params[n].data_ptr() for n in WEIGHT_NAMES],
+        comp.data_ptr(), acc.data_ptr(), depth.data_ptr(), weights.data_ptr(), saved.data_ptr(), raw.data_ptr(),
+        R, S, ray_tile, int(white_bkgd),
+    )
+    fwd_launches += 1
+    return comp, acc, depth, weights, saved, raw
+
+
+def fused_level_bwd_saved(
+    kernel_params: Dict[str, torch.Tensor],
+    t_vals: torch.Tensor,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    viewdirs_enc: torch.Tensor,
+    samples_enc: torch.Tensor,
+    saved: torch.Tensor,
+    raw: torch.Tensor,
+    g_comp: torch.Tensor,
+    g_acc: torch.Tensor,
+    g_depth: torch.Tensor,
+    g_weights: torch.Tensor,
+    white_bkgd: bool,
+    ray_tile: int = RAY_TILE,
+) -> Dict[str, torch.Tensor]:
+    """Gradients of the 26 level weights (each shaped like its weight) from
+    what :func:`fused_level_fwd_spill` saved (``saved``, ``raw``) and the
+    cotangents of its outputs: g_comp (R,3), g_acc (R,), g_depth (R,),
+    g_weights (R,S). R % ray_tile == 0.
+
+    On CUDA tensors this launches the backward (``csrc/fused_train.cu``): the
+    integrator backward (one warp per ray), B1 with one block per
+    ``ray_tile`` rays, B2 over a fixed number of row ranges, then the
+    reduction; on CPU tensors it runs the plain version.
+    """
+    global launches
+    R, S = t_vals.shape
+    if _device_of("fused_level_bwd_saved", t_vals, R, ray_tile) == "cpu":
+        return fused_level_bwd_saved_ref(
+            kernel_params, t_vals, rays_o, rays_d, viewdirs_enc, samples_enc, saved, raw,
+            g_comp, g_acc, g_depth, g_weights, white_bkgd,
+        )
+    dev = t_vals.device
+    xenc = samples_enc.reshape(R * S, samples_enc.shape[-1])
+    _check_inputs(kernel_params, t_vals, rays_d, viewdirs_enc, xenc, R, S)
+    _check_cotangents(g_comp, g_acc, g_depth, g_weights, R, S, dev)
+    _check("saved", saved, (R * S, SAVED_FLOATS), dev)
+    _check("raw", raw, (R * S, 4), dev)
+    lib = _library()
+    scratch, grads = _backward_scratch(lib, kernel_params, R, S, ray_tile, dev)
+    _launch(
+        "fused_level_bwd_saved", dev, lib.aonerf_fused_level_bwd_saved,
+        t_vals.data_ptr(), rays_d.data_ptr(), viewdirs_enc.data_ptr(), xenc.data_ptr(),
+        *[kernel_params[n].data_ptr() for n in WEIGHT_NAMES],
+        g_comp.data_ptr(), g_acc.data_ptr(), g_depth.data_ptr(), g_weights.data_ptr(),
+        saved.data_ptr(), raw.data_ptr(), *[x.data_ptr() for x in scratch],
+        R, S, ray_tile, int(white_bkgd),
+    )
+    launches += 1
+    return grads
 
 
 def fused_level_bwd(
@@ -194,84 +388,64 @@ def fused_level_bwd(
     white_bkgd: bool,
     ray_tile: int = RAY_TILE,
 ) -> Dict[str, torch.Tensor]:
-    """Gradients of the 26 level weights (each shaped like its weight) from
-    the cotangents of :func:`fused_render_level`'s outputs: g_comp (R,3),
-    g_acc (R,), g_depth (R,), g_weights (R,S). R % ray_tile == 0.
-
-    On CUDA tensors this launches the backward (``csrc/fused_train.cu``):
-    pass A and B1 with one block per ``ray_tile`` rays, B2 over a fixed
-    number of row ranges, then the reduction; on CPU tensors it runs the
-    plain version.
-    """
-    global launches
+    """Gradients of the 26 level weights from the level's inputs and the
+    cotangents of :func:`fused_render_level`'s outputs alone: K1s, then the
+    backward from what it saved (:func:`fused_level_bwd_saved`), in one call
+    of the library; ``saved`` is its scratch. On CPU tensors it runs the
+    plain version."""
+    global fwd_launches, launches
     R, S = t_vals.shape
-    if R % ray_tile != 0:
-        raise ValueError(f"rays {R} not a multiple of ray_tile {ray_tile}")
-    if t_vals.device.type == "cpu":
+    if _device_of("fused_level_bwd", t_vals, R, ray_tile) == "cpu":
         return fused_level_bwd_ref(
             kernel_params, t_vals, rays_o, rays_d, viewdirs_enc, samples_enc,
             g_comp, g_acc, g_depth, g_weights, white_bkgd,
         )
-    if t_vals.device.type != "cuda":
-        raise ValueError(f"fused_level_bwd runs on cuda or cpu, not {t_vals.device}")
-
     dev = t_vals.device
     xenc = samples_enc.reshape(R * S, samples_enc.shape[-1])
     _check_inputs(kernel_params, t_vals, rays_d, viewdirs_enc, xenc, R, S)
     _check_cotangents(g_comp, g_acc, g_depth, g_weights, R, S, dev)
     lib = _library()
-    shapes = [tuple(kernel_params[n].shape) for n in WEIGHT_NAMES]
-    offsets = _padded_offsets(shapes)
-    n_out = lib.aonerf_fused_level_bwd_partial_floats()
-    if n_out != offsets[-1]:
-        raise RuntimeError(f"fused_level_bwd: kernel layout has {n_out} floats, expected {offsets[-1]}")
-    n_blocks = R // ray_tile
-    per_row = lib.aonerf_fused_level_bwd_saved_floats()
-    saved = torch.empty(R * S * per_row, dtype=torch.float32, device=dev)
-    delta = torch.empty(R * S * per_row, dtype=torch.float32, device=dev)
-    grow = torch.empty(R * S * 4, dtype=torch.float32, device=dev)
-    partials = torch.empty(lib.aonerf_fused_level_bwd_ranges() * n_out, dtype=torch.float32, device=dev)
-    narrow = torch.empty(n_blocks * lib.aonerf_fused_level_bwd_narrow_floats(), dtype=torch.float32, device=dev)
-    out = torch.empty(n_out, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.aonerf_fused_level_bwd(
-            t_vals.data_ptr(), rays_d.data_ptr(), viewdirs_enc.data_ptr(), xenc.data_ptr(),
-            *[kernel_params[n].data_ptr() for n in WEIGHT_NAMES],
-            g_comp.data_ptr(), g_acc.data_ptr(), g_depth.data_ptr(), g_weights.data_ptr(),
-            saved.data_ptr(), grow.data_ptr(), delta.data_ptr(), partials.data_ptr(), narrow.data_ptr(),
-            out.data_ptr(),
-            R, S, ray_tile, int(white_bkgd), stream,
-        )
-    if err != 0:  # e.g. ray_tile x S needs more shared memory than a block has
-        raise RuntimeError(f"fused_level_bwd: CUDA launch failed with error {err}")
+    scratch, grads = _backward_scratch(lib, kernel_params, R, S, ray_tile, dev)
+    saved = torch.empty(R * S * SAVED_FLOATS, dtype=torch.float32, device=dev)
+    _launch(
+        "fused_level_bwd", dev, lib.aonerf_fused_level_bwd,
+        t_vals.data_ptr(), rays_d.data_ptr(), viewdirs_enc.data_ptr(), xenc.data_ptr(),
+        *[kernel_params[n].data_ptr() for n in WEIGHT_NAMES],
+        g_comp.data_ptr(), g_acc.data_ptr(), g_depth.data_ptr(), g_weights.data_ptr(),
+        saved.data_ptr(), *[x.data_ptr() for x in scratch],
+        R, S, ray_tile, int(white_bkgd),
+    )
+    fwd_launches += 1
     launches += 1
-    return {
-        n: out[offsets[i] : offsets[i] + kernel_params[n].numel()].view(shapes[i])
-        for i, n in enumerate(WEIGHT_NAMES)
-    }
+    return grads
 
 
 class FusedLevel(torch.autograd.Function):
-    """One level as a differentiable function of its 26 weights: K1 forward,
-    K2 backward (counterpart of ``make_fused_level``)."""
+    """One level as a differentiable function of its 26 weights: K1s forward,
+    K2 backward from what it saved (counterpart of ``make_fused_level``)."""
 
     @staticmethod
     def forward(ctx, t_vals, rays_o, rays_d, viewdirs_enc, samples_enc, white_bkgd, ray_tile, *weights):
         kp = dict(zip(WEIGHT_NAMES, weights))
-        out = fused_render_level(kp, t_vals, rays_o, rays_d, viewdirs_enc, samples_enc, white_bkgd, ray_tile)
+        *out, saved, raw = fused_level_fwd_spill(
+            kp, t_vals, rays_o, rays_d, viewdirs_enc, samples_enc, white_bkgd, ray_tile
+        )
         ctx.save_for_backward(t_vals, rays_o, rays_d, viewdirs_enc, samples_enc, *weights)
+        # neither inputs nor outputs: kept as attributes, dropped by backward
+        ctx.saved_acts, ctx.raw = saved, raw
         ctx.white_bkgd, ctx.ray_tile = white_bkgd, ray_tile
-        return out
+        return tuple(out)
 
     @staticmethod
     def backward(ctx, g_comp, g_acc, g_depth, g_weights):
         t_vals, rays_o, rays_d, viewdirs_enc, samples_enc, *weights = ctx.saved_tensors
-        grads = fused_level_bwd(
+        grads = fused_level_bwd_saved(
             dict(zip(WEIGHT_NAMES, weights)), t_vals, rays_o, rays_d, viewdirs_enc, samples_enc,
+            ctx.saved_acts, ctx.raw,
             g_comp.contiguous(), g_acc.contiguous(), g_depth.contiguous(), g_weights.contiguous(),
             ctx.white_bkgd, ctx.ray_tile,
         )
+        ctx.saved_acts = ctx.raw = None  # the fine level's saved is 3.85 GB at batch 2048
         return (None,) * 7 + tuple(grads[n] for n in WEIGHT_NAMES)
 
 

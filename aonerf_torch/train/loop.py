@@ -23,7 +23,7 @@ from aonerf_torch.models.mlp import NeRFMLP
 from aonerf_torch.models.nerf import NeRF
 from aonerf_torch.train.step import AdamState, TrainState, create_train_state, make_adam, make_vanilla_train_multi_step
 from aonerf_torch.utils.ckpt import CheckpointManager
-from aonerf_torch.utils.config import Config
+from aonerf_torch.utils.config import Config, jax_only_settings
 from aonerf_torch.utils.logging import MetricLogger
 
 
@@ -45,6 +45,7 @@ def _check_supported(cfg: Config) -> None:
     shape = (cfg.min_deg_point, cfg.max_deg_point, cfg.deg_view, cfg.netdepth, cfg.netwidth)
     if shape != (NeRFMLP.min_deg_point, NeRFMLP.max_deg_point, NeRFMLP.deg_view, NeRFMLP.netdepth, NeRFMLP.netwidth):
         todo.append("MLP shapes other than 8x256 with 10/4 encoding degrees")
+    todo.extend(f"{name}={value!r}" for name, value in jax_only_settings(cfg).items())
     if todo:
         raise NotImplementedError("not ported yet: " + ", ".join(todo))
 

@@ -3,7 +3,10 @@
 
 The fields are the ones the vanilla path reads, with the JAX package's names
 and defaults; ``_ALIASES`` maps the reference's flag names, so the repo's
-config/*.json files load unchanged. Unknown keys are kept in ``extras``.
+config/*.json files load unchanged. Unknown keys are kept in ``extras``;
+``JAX_ONLY_DEFAULTS`` names those that are fields of the JAX package's Config
+the port does not run yet, and ``train.loop`` refuses a run that sets one of
+them to anything but JAX's default.
 """
 
 import dataclasses
@@ -69,6 +72,46 @@ class Config:
     extras: Dict[str, Any] = field(default_factory=dict)
 
 
+# The JAX package's Config fields that this Config lacks, with JAX's defaults
+# (aonerf/utils/config.py). tests/test_torch_trainer.py holds the table to
+# that dataclass.
+JAX_ONLY_DEFAULTS: Dict[str, Any] = {
+    "render_name": "render",
+    "samples_per_epoch": 4000,
+    "n_max_objs": 4,
+    "obj_code_dim": 128,
+    "n_max_articulations": 10,
+    "art_code_dim": 32,
+    "code_reg_weight": 1e-4,
+    "momentum": 0.9,
+    "weight_decay": 0.0,
+    "decay_step": (20,),
+    "decay_gamma": 0.1,
+    "poly_exp": 0.99,
+    "warmup_multiplier": 1.0,
+    "warmup_epochs": 0,
+    "latent_lr": None,
+    "is_optimize": False,
+    "finetune_lpips": False,
+    "optimize_instance": 0,
+    "optimize_steps": 500,
+    "optimize_lr": 1.0e-2,
+    "render_instance": 0,
+    "test_sweep_poses": 19,
+    "ae_opacity_loss": "bce_prob",
+    "ae_photometric": "masked",
+    "opacity_lambda": 0.5,
+    "ae_sigma_activation": "softplus",
+    "ae_views_per_step": 1,
+    "ae_encode_reuse": 1,
+    "ae_embed_deg": True,
+    "latent_dense": True,
+    "n_model_shards": 1,
+    "shard_scene_buffers": True,
+    "profile_steps": 0,
+    "debug_nans": False,
+}
+
 # reference flag name -> Config field
 _ALIASES = {
     "N_samples": "num_coarse_samples",
@@ -81,6 +124,7 @@ _ALIASES = {
     "D": "netdepth",
     "W": "netwidth",
     "lr": "lr_init",
+    "save_path": "render_name",
     "perturb": "randomized",  # the reference treats it as a 0/1 factor
 }
 
@@ -113,3 +157,16 @@ def load_config(path: Optional[str] = None, overrides: Optional[Dict[str, Any]] 
     if overrides:
         apply({k: v for k, v in overrides.items() if v is not None})
     return cfg
+
+
+def jax_only_settings(cfg: Config) -> Dict[str, Any]:
+    """The keys of ``cfg.extras`` that set a field of ``JAX_ONLY_DEFAULTS``
+    (by name or alias) to another value than JAX's default, by field name."""
+    out = {}
+    for key, value in cfg.extras.items():
+        name = _ALIASES.get(key, key)
+        if name in JAX_ONLY_DEFAULTS:
+            given = tuple(value) if isinstance(value, list) else value
+            if given != JAX_ONLY_DEFAULTS[name]:
+                out[name] = value
+    return out

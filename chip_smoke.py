@@ -14,17 +14,24 @@ Phases, each of which fails the run with a non-zero exit:
                the analytic laptop scene through the image renderer; PSNR and
                SSIM against the ray-traced targets, rays/s, the kernel's launch
                count, and one view again through the plain version.
-  5. backward - the level weight-gradient kernel (K2) against its plain
-               version at the train step's shapes (2048 rays, S = 65 and 193,
-               both backgrounds, random cotangents); K2 and its plain version
-               timed in turns, K2's passes (A, B1, B2, reduce) by the profiler
-               with the bound of each, K1 timed at 2048 rays; and one
-               two-level loss backward through the kernels against the same
-               computation through the plain versions.
-  6. training - the train CLI on a SAPIEN-layout laptop scene (8 train views,
+  5. spill   - the training forward K1s at the train step's shapes (2048
+               rays, S = 65 and 193, both backgrounds): its four outputs equal
+               to K1's bit for bit, its saved activations and raw sigma/rgb
+               against the plain version's, a repeat call's bits, and K1s and
+               K1 timed in turns with the bound of each.
+  6. backward - the level weight-gradient kernel (K2) against its plain
+               version at the same shapes (random cotangents), through the
+               composition K1s + the backward from what it saved; the
+               backward from saved and its plain version timed in turns, its
+               passes (integrator backward, B1, B2, reduce) by the profiler
+               with the bound of each; and one two-level loss backward through
+               the kernels against the same computation through the plain
+               versions.
+  7. training - the train CLI on a SAPIEN-layout laptop scene (8 train views,
                1 val view, 320x240) at the published width: 50 steps with a
                validation and a checkpoint, then a resume for 10 more; loss,
-               launch counts of K1 and K2, and train rays/s.
+               launch counts of K1 (validation only), K1s and K2, train rays/s
+               and the peak device memory of a step.
 The line before the last is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}.
 """
@@ -51,14 +58,17 @@ H, W = 240, 320
 SEED = 0
 # Tolerances of the kernel against its plain version: both fp32, different
 # summation order and FMA placement.
-TOL = {"comp": 1e-4, "acc": 1e-4, "weights": 1e-4, "depth": 1e-3}
+TOL = {"comp": 1e-4, "acc": 1e-4, "weights": 1e-4, "depth": 1e-3, "saved": 1e-4, "raw": 1e-4}
 # A whole view rendered through the kernel vs through the plain version: the
 # kernel's 1e-4 on coarse weights moves fine t-values through the inverse CDF.
 TOL_RENDER_RGB = 1e-3
-# Multiply-adds per sample of the level backward: the forward recompute, the
-# weight products h^T.delta (as many as the forward) and the input products
-# delta.W^T (none for w0 and w5i); plus 2 x 27x128 per ray (view term, dWvb).
-BWD_MACS_PER_SAMPLE = 3 * MACS_PER_SAMPLE - 2 * 63 * 256
+# Multiply-adds per sample of the level backward from the saved activations:
+# the weight products h^T.delta (as many as the forward) and the input
+# products delta.W^T (none for w0 and w5i); plus 27x128 per ray (dWvb).
+BWD_MACS_PER_SAMPLE = 2 * MACS_PER_SAMPLE - 2 * 63 * 256
+# Operations per sample of the integrator backward, counted from the source
+# (each exp, log, division and shuffle-add as one): ~90.
+INTEGRATOR_FLOPS_PER_SAMPLE = 90
 N_WEIGHTS = 595844  # floats in the 26 weights of one level
 PEAK_TF32_FLOPS = 495e12  # TF32 tensor cores, dense; 3xTF32 does 3 TF32 products per product
 # K2's passes (csrc/fused_train.cu): multiply-adds per sample on the tensor
@@ -69,7 +79,7 @@ B1_TC_MACS, B1_FP32_MACS = 557696 - 640, 640 + 640
 B2_TC_MACS = MACS_PER_SAMPLE - 640
 SAVED_FLOATS = 2432  # saved activations (and deltas) per sample
 K2_PASSES = {  # kernel name in csrc/fused_train.cu -> pass
-    "level_bwd_forward_kernel": "A", "level_bwd_delta_kernel": "B1",
+    "level_bwd_integrator_kernel": "integrator", "level_bwd_delta_kernel": "B1",
     "level_bwd_dw_kernel": "B2", "level_bwd_reduce_kernel": "reduce",
 }
 K2_RANGES = 16  # pass B2's row ranges
@@ -282,16 +292,31 @@ def phase_serving(nerf, boxes, focal) -> dict:
     return {"launches": launches, "seconds_per_view": seconds / len(views)}
 
 
-def _bwd_bound_ms(R: int, S: int) -> tuple:
-    """K2's bound with every product at the fp32 peak of the CUDA cores."""
-    flops = 2.0 * (R * S * BWD_MACS_PER_SAMPLE + 2 * R * 27 * 128)
-    return _bound(flops / PEAK_FP32_FLOPS * 1e3, _bwd_bytes(R, S) / PEAK_BYTES * 1e3)
+def _spill_bound_ms(S: int, R: int) -> tuple:
+    """K1s' bound: K1's fp32 operations against K1's bytes plus the spill's
+    (saved and raw written once)."""
+    flops = 2.0 * (R * S * MACS_PER_SAMPLE + R * 27 * 128)
+    n_weights = MACS_PER_SAMPLE + 27 * 128 + 8 * 256 + 1 + 256 + 128 + 3
+    bytes_moved = 4.0 * (R * S + R * 3 + R * 27 + R * S * 63 + n_weights  # inputs
+                         + R * 3 + R + R + R * S  # outputs
+                         + R * S * (SAVED_FLOATS + 4))  # saved, raw
+    return _bound(flops / PEAK_FP32_FLOPS * 1e3, bytes_moved / PEAK_BYTES * 1e3)
 
 
 def _bwd_bytes(R: int, S: int) -> float:
+    """Bytes of the backward from saved: its inputs (the level's, the
+    cotangents, saved and raw) read once, the gradients written once."""
     return 4.0 * (R * S + R * 3 + R * 27 + R * S * 63 + N_WEIGHTS  # level inputs
                   + R * 3 + R + R + R * S  # cotangents
+                  + R * S * (SAVED_FLOATS + 4)  # saved, raw
                   + N_WEIGHTS)  # gradients
+
+
+def _bwd_bound_ms(R: int, S: int) -> tuple:
+    """The backward's bound with every product at the fp32 peak of the CUDA
+    cores."""
+    flops = 2.0 * (R * S * BWD_MACS_PER_SAMPLE + R * 27 * 128) + R * S * INTEGRATOR_FLOPS_PER_SAMPLE
+    return _bound(flops / PEAK_FP32_FLOPS * 1e3, _bwd_bytes(R, S) / PEAK_BYTES * 1e3)
 
 
 def _bound(t_ops: float, t_bytes: float) -> tuple:
@@ -301,17 +326,17 @@ def _bound(t_ops: float, t_bytes: float) -> tuple:
 def _bwd_pass_bounds(R: int, S: int) -> dict:
     """Each pass of K2 as its own function (its scratch counted as its
     inputs and outputs): (bound ms, what bounds it), the products at the
-    peak of the unit that runs them: pass A's forward on the fp32 cores,
-    B1's and B2's products in 3xTF32 (3 TF32 products each) on the tensor
-    cores, the narrow head products on the fp32 cores."""
+    peak of the unit that runs them: B1's and B2's products in 3xTF32 (3
+    TF32 products each) on the tensor cores, the integrator and the narrow
+    head products on the fp32 cores."""
     rows = R * S
     ms = 1e3
     fp32 = lambda macs: 2.0 * macs / PEAK_FP32_FLOPS * ms  # noqa: E731
     tc = lambda macs: 3 * 2.0 * macs / PEAK_TF32_FLOPS * ms  # noqa: E731
     hbm = lambda floats: 4.0 * floats / PEAK_BYTES * ms  # noqa: E731
-    inputs = rows + R * 3 + R * 27 + rows * 63 + N_WEIGHTS + R * 5 + rows
     return {
-        "A": _bound(fp32(rows * MACS_PER_SAMPLE + R * 27 * 128), hbm(inputs + rows * (SAVED_FLOATS + 4))),
+        "integrator": _bound(rows * INTEGRATOR_FLOPS_PER_SAMPLE / PEAK_FP32_FLOPS * ms,
+                             hbm(rows * 4 + rows + R * 3 + R * 5 + rows + rows * 4)),
         "B1": _bound(tc(rows * B1_TC_MACS) + fp32(rows * B1_FP32_MACS + R * 27 * 128),
                      hbm(rows * (2 * SAVED_FLOATS + 4) + R * 27 + N_WEIGHTS + (R // 16) * 4104)),
         "B2": _bound(tc(rows * B2_TC_MACS),
@@ -321,10 +346,10 @@ def _bwd_pass_bounds(R: int, S: int) -> dict:
 
 
 def _bwd_bound_3xtf32_ms(R: int, S: int) -> tuple:
-    """K2's bound with the arithmetic it does: pass A's forward on the fp32
-    cores, passes B1 and B2 in 3xTF32 on the tensor cores, against the bytes
-    of the function's own inputs and outputs."""
-    t_ops = (2.0 * (R * S * (MACS_PER_SAMPLE + B1_FP32_MACS) + 2 * R * 27 * 128) / PEAK_FP32_FLOPS
+    """The backward's bound with the arithmetic it does: B1 and B2 in 3xTF32
+    on the tensor cores, the integrator and the narrow products on the fp32
+    cores, against the bytes of the function's own inputs and outputs."""
+    t_ops = ((2.0 * (R * S * B1_FP32_MACS + R * 27 * 128) + R * S * INTEGRATOR_FLOPS_PER_SAMPLE) / PEAK_FP32_FLOPS
              + 3 * 2.0 * R * S * (B1_TC_MACS + B2_TC_MACS) / PEAK_TF32_FLOPS) * 1e3
     return _bound(t_ops, _bwd_bytes(R, S) / PEAK_BYTES * 1e3)
 
@@ -396,15 +421,16 @@ def _check_grads(what, k64, p32):
     return ratio[worst]
 
 
-def phase_backward(nerf, boxes, focal) -> dict:
+def _train_levels(nerf, boxes, focal):
+    """The train step's level inputs at R_TRAIN rays of one view: (o, d,
+    [(kernel params, t, venc, xenc)] for the coarse (S=65) and the fine
+    (S=193) level), the fine t-values from the coarse weights."""
     from aonerf_torch.ops import encoding, sampling
     from aonerf_torch.ops.kernels import fused_render as fr
-    from aonerf_torch.ops.kernels import fused_train as ft
 
     dev = torch.device("cuda")
-    R = R_TRAIN
     rays, _, _ = _view(np.random.default_rng(SEED + 200), boxes, focal)
-    pick = np.random.default_rng(SEED + 201).choice(H * W, R, replace=False)
+    pick = np.random.default_rng(SEED + 201).choice(H * W, R_TRAIN, replace=False)
     o, d = (torch.from_numpy(rays[k][pick]).to(dev) for k in ("rays_o", "rays_d"))
     venc = encoding.pos_enc(d, 0, 4)
     with torch.no_grad():
@@ -416,10 +442,74 @@ def phase_backward(nerf, boxes, focal) -> dict:
     t_f, pts_f = sampling.sample_pdf(0.5 * (t_c[:, 1:] + t_c[:, :-1]), w_c[:, 1:-1], o, d, t_c, 128, False)
     t_f = t_f.contiguous()
     xenc_f = encoding.pos_enc(pts_f, 0, 10)
+    return o, d, [(kp_c, t_c, venc, xenc_c), (kp_f, t_f, venc, xenc_f)]
 
+
+def phase_spill(nerf, boxes, focal) -> dict:
+    from aonerf_torch.ops.kernels import fused_render as fr
+    from aonerf_torch.ops.kernels import fused_train as ft
+
+    R = R_TRAIN
+    o, d, lvls = _train_levels(nerf, boxes, focal)
+    levels = []
+    for kp, t, venc, xenc in lvls:
+        S = t.shape[1]
+        args = (kp, t, o, d, venc, xenc)
+        errs = {}
+        for white in (True, False):
+            k1 = fr.fused_render_level(*args, white)
+            got = ft.fused_level_fwd_spill(*args, white)
+            again = ft.fused_level_fwd_spill(*args, white)
+            torch.cuda.synchronize()
+            for name, g, w in zip(("comp", "acc", "depth", "weights"), got, k1):
+                if not torch.equal(g, w):
+                    fail(f"K1s S={S} white={white}: {name} differs from K1's, max abs "
+                         f"{(g - w).abs().max().item():.3e}")
+            for name, g, a in zip(("comp", "acc", "depth", "weights", "saved", "raw"), got, again):
+                if not torch.equal(g, a):
+                    fail(f"K1s S={S} white={white}: a repeat call gave other bits on {name}")
+            del k1, again
+            want = ft.fused_level_fwd_spill_ref(*args, white)
+            for name, g, w in zip(("saved", "raw"), got[4:], want[4:]):
+                if not torch.isfinite(g).all():
+                    fail(f"K1s S={S} white={white}: non-finite {name}")
+                errs[name] = max(errs.get(name, 0.0), (g - w).abs().max().item())
+            del got, want
+        print(f"kernel fused_level_fwd_spill S={S}: comp/acc/depth/weights equal to K1's bit for bit, both "
+              "backgrounds; a repeat call gives the same bits; max abs err against the plain version "
+              + ", ".join(f"{k} {v:.3e} (tol {TOL[k]:g})" for k, v in errs.items()))
+        bad = [k for k, v in errs.items() if not v <= TOL[k]]
+        if bad:
+            fail(f"K1s S={S} disagrees with its plain version on {bad}")
+        k1s = lambda: ft.fused_level_fwd_spill(*args, True)  # noqa: E731
+        k1 = lambda: fr.fused_render_level(*args, True)  # noqa: E731
+        iters = 10 if S > 100 else 20
+        k1_ms = cuda_ms(k1, warmup=2, iters=iters)
+        ms = cuda_ms(k1s, warmup=2, iters=iters)
+        ms_again = cuda_ms(k1s, warmup=0, iters=iters)
+        k1_again = cuda_ms(k1, warmup=0, iters=iters)
+        plain_ms = cuda_ms(lambda: ft.fused_level_fwd_spill_ref(*args, True), warmup=1, iters=3)
+        bound, bound_by = _spill_bound_ms(S, R)
+        print(f"  S={S}: K1s {ms:.3f} / {ms_again:.3f} ms, K1 {k1_ms:.3f} / {k1_again:.3f} ms (in turns: K1, "
+              f"K1s, K1s, K1); plain {plain_ms:.3f} ms; K1s bound {bound:.3f} ms ({bound_by}; K1's fp32 "
+              f"operations, {4.0 * R * S * (SAVED_FLOATS + 4) / 1e9:.3f} GB of spill at 3.35 TB/s "
+              f"{4e3 * R * S * (SAVED_FLOATS + 4) / PEAK_BYTES:.3f} ms), K1 bound {_bound_ms(S, R)[0]:.3f} ms")
+        levels.append({"S": S, "ms": ms, "ms_again": ms_again, "k1_ms": k1_ms, "k1_ms_again": k1_again,
+                       "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+                       "max_abs_err": max(errs.values()), "errs": errs})
+    return {"levels": levels}
+
+
+def phase_backward(nerf, boxes, focal) -> dict:
+    from aonerf_torch.ops.kernels import fused_render as fr
+    from aonerf_torch.ops.kernels import fused_train as ft
+
+    dev = torch.device("cuda")
+    R = R_TRAIN
+    o, d, lvls = _train_levels(nerf, boxes, focal)
     names = fr.WEIGHT_NAMES
     levels = []
-    for kp, t, xenc in ((kp_c, t_c, xenc_c), (kp_f, t_f, xenc_f)):
+    for kp, t, venc, xenc in lvls:
         S = t.shape[1]
         rng = np.random.default_rng(SEED + 300 + S)
         cot = tuple(torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
@@ -431,10 +521,16 @@ def phase_backward(nerf, boxes, focal) -> dict:
         worst_abs, worst_ratio = 0.0, 0.0
         for white in (True, False):
             got = ft.fused_level_bwd(*args, *cot, white)
+            *_, saved, raw = ft.fused_level_fwd_spill(*args, white)
+            split = ft.fused_level_bwd_saved(*args, saved, raw, *cot, white)
             torch.cuda.synchronize()
+            del saved, raw
             for n in names:
                 if not torch.isfinite(got[n]).all():
                     fail(f"K2 S={S} white={white}: non-finite gradient {n}")
+                if not torch.equal(split[n], got[n]):
+                    fail(f"K2 S={S} white={white}: the backward from K1s' saved differs from the composition on {n}")
+            del split
             p32 = ft.fused_level_bwd_ref(*args, *cot, white)
             p64 = ft.fused_level_bwd_ref(*args64, *(c.double() for c in cot), white)
             e_k, e_p = _grad_errors(got, p64, names), _grad_errors(p32, p64, names)
@@ -444,32 +540,36 @@ def phase_backward(nerf, boxes, focal) -> dict:
                   + ", ".join(f"{n} {e_kp[n]:.1e}" for n in names))
             worst_ratio = max(worst_ratio, _check_grads(f"S={S} white={white}", e_k, e_p))
             del p32, p64
-        k2 = lambda: ft.fused_level_bwd(*args, *cot, True)  # noqa: E731
-        plain = lambda: ft.fused_level_bwd_ref(*args, *cot, True)  # noqa: E731
+        again = ft.fused_level_bwd(*args, *cot, True)
+        if not all(torch.equal(again[n], ft.fused_level_bwd(*args, *cot, True)[n]) for n in names):
+            fail(f"K2 S={S}: a repeat call gave other bits")
+        del again
+        *_, saved, raw = ft.fused_level_fwd_spill(*args, True)
+        k2 = lambda: ft.fused_level_bwd_saved(*args, saved, raw, *cot, True)  # noqa: E731
+        plain = lambda: ft.fused_level_bwd_saved_ref(*args, saved, raw, *cot, True)  # noqa: E731
         plain_ms = cuda_ms(plain, warmup=1, iters=3)
         ms = cuda_ms(k2, warmup=2, iters=5 if S > 100 else 10)
         ms_again = cuda_ms(k2, warmup=0, iters=5 if S > 100 else 10)
         plain_again = cuda_ms(plain, warmup=0, iters=3)
         parts = _bwd_pass_ms(k2, iters=3)
-        k1_ms = cuda_ms(lambda: fr.fused_render_level(*args, True), warmup=2, iters=10)
+        del saved, raw
         bound32, _ = _bwd_bound_ms(R, S)
         bound, bound_by = _bwd_bound_3xtf32_ms(R, S)
         pass_bounds = _bwd_pass_bounds(R, S)
-        tflop = 2.0 * (R * S * BWD_MACS_PER_SAMPLE + 2 * R * 27 * 128) / 1e12
-        print(f"  S={S}: K2 {ms:.3f} / {ms_again:.3f} ms, plain {plain_ms:.3f} / {plain_again:.3f} ms (in turns: "
-              f"plain, K2, K2, plain); bound {bound:.3f} ms ({bound_by}; pass A fp32, passes B 3xTF32), "
-              f"{bound32:.3f} ms with every product at 67 TFLOP/s fp32 ({tflop:.4f} TFLOP); "
-              f"K1 at {R} rays {k1_ms:.3f} ms, bound {_bound_ms(S, R)[0]:.3f} ms")
+        tflop = 2.0 * (R * S * BWD_MACS_PER_SAMPLE + R * 27 * 128) / 1e12
+        print(f"  S={S}: K2 (the backward from saved) {ms:.3f} / {ms_again:.3f} ms, plain {plain_ms:.3f} / "
+              f"{plain_again:.3f} ms (in turns: plain, K2, K2, plain); bound {bound:.3f} ms ({bound_by}; B1/B2 "
+              f"3xTF32, the rest fp32), {bound32:.3f} ms with every product at 67 TFLOP/s fp32 ({tflop:.4f} TFLOP)")
         print(f"  S={S}: K2 by pass (torch.profiler, device ms per call; bound, what bounds it): "
               + ", ".join(f"{n} {parts[n]:.3f} ({pass_bounds[n][0]:.3f}, {pass_bounds[n][1]})" for n in parts)
-              + f"; pass B (B1 + B2 + reduce) {parts['B1'] + parts['B2'] + parts['reduce']:.3f} ms, bound "
+              + f"; B1 + B2 + reduce {parts['B1'] + parts['B2'] + parts['reduce']:.3f} ms, bound "
               f"{sum(pass_bounds[n][0] for n in ('B1', 'B2', 'reduce')):.3f} ms in 3xTF32, "
               f"{2.0 * R * S * (B1_TC_MACS + B1_FP32_MACS + B2_TC_MACS) / PEAK_FP32_FLOPS * 1e3:.3f} ms in fp32")
         levels.append({"S": S, "ms": ms, "ms_again": ms_again, "plain_ms": plain_ms, "plain_ms_again": plain_again,
                        "bound_ms": bound, "bound_by": bound_by, "bound_ms_fp32": bound32,
                        "passes": {n: {"ms": parts[n], "bound_ms": pass_bounds[n][0], "bound_by": pass_bounds[n][1]}
                                   for n in parts},
-                       "max_abs_err": worst_abs, "err_over_limit": worst_ratio, "k1_ms": k1_ms})
+                       "max_abs_err": worst_abs, "err_over_limit": worst_ratio})
     two_level_check(nerf, o, d)
     return {"levels": levels}
 
@@ -612,12 +712,13 @@ def phase_training() -> dict:
         for max_steps in (TRAIN_STEPS, TRAIN_STEPS + RESUME_STEPS):
             start = len(losses)
             torch.cuda.synchronize()
-            fr.launches = ft.launches = 0
+            fr.launches = ft.fwd_launches = ft.launches = 0
             t0 = time.perf_counter()
             with mock.patch.object(step_mod, "vanilla_loss_and_grads", recorded):
                 metrics = cli.main(["--config", cfg_path, "--max_steps", str(max_steps)])
             torch.cuda.synchronize()
-            runs.append({"seconds": time.perf_counter() - t0, "k1": fr.launches, "k2": ft.launches,
+            runs.append({"seconds": time.perf_counter() - t0, "k1": fr.launches, "k1s": ft.fwd_launches,
+                         "k2": ft.launches,
                          "steps": len(losses) - start, "metrics": metrics})
         run_dir = os.path.join(cfg.output_path, cfg.exp_name)
         with open(os.path.join(run_dir, "metrics.jsonl")) as f:
@@ -636,6 +737,11 @@ def phase_training() -> dict:
             trainer.state, m = trainer.step_fn(trainer.state, buffers, cfg.seed)
         torch.cuda.synchronize()
         step_s = (time.perf_counter() - t0) / (n_timed * trainer._inner_steps)
+        torch.cuda.reset_peak_memory_stats()
+        base_bytes = torch.cuda.memory_allocated()
+        trainer.state, _ = trainer.step_fn(trainer.state, buffers, cfg.seed)
+        torch.cuda.synchronize()
+        peak_bytes = torch.cuda.max_memory_allocated()
         profile_train_steps(trainer, buffers, cfg.seed)
         trainer.close()
 
@@ -644,23 +750,26 @@ def phase_training() -> dict:
     print(f"training: {first['steps']} steps + resume {run2['steps']} steps at batch {cfg.batch_size}, "
           f"{cfg.num_coarse_samples}+{cfg.num_fine_samples} samples; loss first 5 {loss[:5].mean():.5f}, "
           f"last 5 {loss[TRAIN_STEPS - 5:TRAIN_STEPS].mean():.5f}; val psnr {first['metrics'].get('val_psnr')}")
-    print(f"  launches, run 1: K1 {first['k1']} (expected 2 x {TRAIN_STEPS} steps + 2 x {n_val_tiles} val tiles "
-          f"= {2 * TRAIN_STEPS + 2 * n_val_tiles}), K2 {first['k2']} (expected {2 * TRAIN_STEPS}); "
-          f"resume: K1 {run2['k1']}, K2 {run2['k2']} (expected {2 * RESUME_STEPS} each)")
+    print(f"  launches, run 1: K1 {first['k1']} (expected 2 levels x {n_val_tiles} val tiles = {2 * n_val_tiles}), "
+          f"K1s {first['k1s']} and K2 {first['k2']} (expected 2 levels x {TRAIN_STEPS} steps = {2 * TRAIN_STEPS} "
+          f"each); resume: K1 {run2['k1']} (expected 0), K1s {run2['k1s']} and K2 {run2['k2']} (expected "
+          f"{2 * RESUME_STEPS} each)")
     print(f"  checkpoints {ckpts}, val grids {grids}, metrics rows {len(rows)}; resumed at step {resumed_at}")
     print(f"  train step: {step_s * 1e3:.3f} ms = {cfg.batch_size / step_s:.1f} rays/s "
           f"(host clock over {n_timed * trainer._inner_steps} steps after the first {trainer._inner_steps}, "
           f"torch.cuda.synchronize at both ends); run 1 took {first['seconds']:.1f} s")
+    print(f"  peak device memory over {trainer._inner_steps} steps (torch.cuda.max_memory_allocated): "
+          f"{peak_bytes / 1e9:.3f} GB, of which {base_bytes / 1e9:.3f} GB held before the steps")
     if not np.isfinite(loss).all():
         fail("non-finite train loss")
     if not loss[TRAIN_STEPS - 5:TRAIN_STEPS].mean() < loss[:5].mean():
         fail("train loss did not fall over the first run")
     if first["steps"] != TRAIN_STEPS or run2["steps"] != RESUME_STEPS:
         fail(f"steps taken {first['steps']} and {run2['steps']}, expected {TRAIN_STEPS} and {RESUME_STEPS}")
-    if first["k1"] != 2 * TRAIN_STEPS + 2 * n_val_tiles or first["k2"] != 2 * TRAIN_STEPS:
-        fail("the training run did not launch K1 and K2 as expected")
-    if run2["k1"] != 2 * RESUME_STEPS or run2["k2"] != 2 * RESUME_STEPS:
-        fail("the resumed run did not launch K1 and K2 as expected")
+    if (first["k1"], first["k1s"], first["k2"]) != (2 * n_val_tiles, 2 * TRAIN_STEPS, 2 * TRAIN_STEPS):
+        fail("the training run did not launch K1, K1s and K2 as expected")
+    if (run2["k1"], run2["k1s"], run2["k2"]) != (0, 2 * RESUME_STEPS, 2 * RESUME_STEPS):
+        fail("the resumed run did not launch K1, K1s and K2 as expected")
     if ckpts[-2:] != [f"ckpt_{TRAIN_STEPS:08d}.pt", f"ckpt_{TRAIN_STEPS + RESUME_STEPS:08d}.pt"]:
         fail(f"checkpoints {ckpts}")
     resume_rows = [r for r in rows if r["step"] > TRAIN_STEPS]
@@ -668,8 +777,8 @@ def phase_training() -> dict:
         fail("the resumed run did not continue from the saved step")
     if not grids:
         fail("no val grid written")
-    return {"k1": first["k1"], "k2": first["k2"], "step_ms": step_s * 1e3,
-            "rays_per_s": cfg.batch_size / step_s}
+    return {"k1": first["k1"], "k1s": first["k1s"], "k2": first["k2"], "step_ms": step_s * 1e3,
+            "rays_per_s": cfg.batch_size / step_s, "peak_gb": peak_bytes / 1e9}
 
 
 def main() -> None:
@@ -683,6 +792,7 @@ def main() -> None:
     focal = 0.5 * H / np.tan(0.5 * np.deg2rad(FOVY_DEG))
     k = phase_kernels(nerf, boxes, focal)
     s = phase_serving(nerf, boxes, focal)
+    f = phase_spill(nerf, boxes, focal)
     b = phase_backward(nerf, boxes, focal)
     t = phase_training()
 
@@ -691,6 +801,13 @@ def main() -> None:
     n_tiles = -(-H * W // R)
     print(f"kernel share of a view: {n_tiles} tiles x {tile_ms:.3f} ms = {n_tiles * tile_ms:.1f} ms "
           f"of {s['seconds_per_view'] * 1e3:.1f} ms")
+
+    def both(levels, key):  # one train step or serving tile: a coarse and a fine launch
+        return sum(x[key] for x in levels)
+
+    def bound_by(levels):
+        return "operations" if all(x["bound_by"] == "operations" for x in levels) else "bytes"
+
     entry = {
         "name": "fused_render_level",
         "route": "cuda",
@@ -700,12 +817,29 @@ def main() -> None:
         # one serving tile: a coarse (S=65) and a fine (S=193) launch
         "max_abs_err": max(x["max_abs_err"] for x in lv),
         "ms": tile_ms,
-        "plain_ms": sum(x["plain_ms"] for x in lv),
-        "bound_ms": sum(x["bound_ms"] for x in lv),
-        "bound_by": "operations" if all(x["bound_by"] == "operations" for x in lv) else "bytes",
+        "plain_ms": both(lv, "plain_ms"),
+        "bound_ms": both(lv, "bound_ms"),
+        "bound_by": bound_by(lv),
         "library_ms": None,
         "levels": lv,
         "train_launches": t["k1"],
+    }
+    flv = f["levels"]
+    k1s = {
+        "name": "fused_level_fwd_spill",
+        "route": "cuda",
+        "source": "aonerf_torch/ops/kernels/csrc/fused_train.cu",
+        "replaces": "aonerf/ops/kernels/fused_render.py:194",
+        "launches": t["k1s"],
+        # one train step: a coarse (S=65) and a fine (S=193) launch at 2048 rays
+        "max_abs_err": max(x["max_abs_err"] for x in flv),
+        "ms": both(flv, "ms"),
+        "plain_ms": both(flv, "plain_ms"),
+        "bound_ms": both(flv, "bound_ms"),
+        "bound_by": bound_by(flv),
+        "library_ms": None,
+        "k1_ms": both(flv, "k1_ms"),
+        "levels": flv,
     }
     blv = b["levels"]
     k2 = {
@@ -714,23 +848,23 @@ def main() -> None:
         "source": "aonerf_torch/ops/kernels/csrc/fused_train.cu",
         "replaces": "aonerf/ops/kernels/fused_train.py:239",
         "launches": t["k2"],
-        # one train step: a coarse (S=65) and a fine (S=193) launch at 2048 rays
+        # one train step's backward from saved: a coarse (S=65) and a fine
+        # (S=193) launch at 2048 rays; the errors are the composition's
         "max_abs_err": max(x["max_abs_err"] for x in blv),
-        "ms": sum(x["ms"] for x in blv),
-        "plain_ms": sum(x["plain_ms"] for x in blv),
-        # pass A's forward at the fp32 peak, passes B1 and B2 in 3xTF32 at the
-        # TF32 tensor-core peak; bound_ms_fp32: every product at the fp32 peak
-        "bound_ms": sum(x["bound_ms"] for x in blv),
-        "bound_ms_3xtf32": sum(x["bound_ms"] for x in blv),
-        "bound_ms_fp32": sum(x["bound_ms_fp32"] for x in blv),
-        "bound_by": "operations" if all(x["bound_by"] == "operations" for x in blv) else "bytes",
+        "ms": both(blv, "ms"),
+        "plain_ms": both(blv, "plain_ms"),
+        # B1 and B2 in 3xTF32 at the TF32 tensor-core peak, the rest at the
+        # fp32 peak; bound_ms_fp32: every product at the fp32 peak
+        "bound_ms": both(blv, "bound_ms"),
+        "bound_ms_fp32": both(blv, "bound_ms_fp32"),
+        "bound_by": bound_by(blv),
         "library_ms": None,
         "levels": blv,
     }
-    k1_step, k2_step = sum(x["k1_ms"] for x in blv), k2["ms"]
-    print(f"train step share: K1 {k1_step:.3f} ms + K2 {k2_step:.3f} ms + rest "
-          f"{t['step_ms'] - k1_step - k2_step:.3f} ms = {t['step_ms']:.3f} ms")
-    print(json.dumps({"kernels": [entry, k2]}))
+    k1s_step, k2_step = k1s["ms"], k2["ms"]
+    print(f"train step share: K1s {k1s_step:.3f} ms + K2 {k2_step:.3f} ms + rest "
+          f"{t['step_ms'] - k1s_step - k2_step:.3f} ms = {t['step_ms']:.3f} ms")
+    print(json.dumps({"kernels": [entry, k1s, k2]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()
     }}))

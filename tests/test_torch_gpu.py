@@ -93,6 +93,33 @@ def test_renderer_goes_through_the_kernel(cuda):
     assert torch.isfinite(rgb).all() and torch.isfinite(depth).all()
 
 
+# K1s' saved activations and raw sigma/rgb against the plain version's: both
+# fp32, other summation orders (chip_smoke.py's TOL).
+_SPILL_TOL = 1e-4
+
+
+@pytest.mark.parametrize("S", [65, 193])
+@pytest.mark.parametrize("white_bkgd", [True, False])
+def test_fwd_spill_kernel_is_k1_and_matches_plain_version(cuda, S, white_bkgd):
+    mlp = NeRFMLP(generator=torch.Generator().manual_seed(S), device=cuda)
+    with torch.no_grad():
+        kp = fr.kernel_params(mlp)
+    args = _level_inputs(256, S, S, cuda)
+    before = ft.fwd_launches
+    got = ft.fused_level_fwd_spill(kp, *args, white_bkgd)
+    torch.cuda.synchronize()
+    assert ft.fwd_launches == before + 1
+    for name, g, w in zip(("comp", "acc", "depth", "weights"), got, fr.fused_render_level(kp, *args, white_bkgd)):
+        assert torch.equal(g, w), name  # K1's bits
+    want = ft.fused_level_fwd_spill_ref(kp, *args, white_bkgd)
+    for name, g, w in zip(("saved", "raw"), got[4:], want[4:]):
+        assert g.shape == w.shape and torch.isfinite(g).all(), name
+        err = (g - w).abs().max().item()
+        assert err <= _SPILL_TOL, f"{name}: max abs err {err}"
+    again = ft.fused_level_fwd_spill(kp, *args, white_bkgd)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
 def _cotangents(R, S, seed, device):
     rng = np.random.default_rng(seed)
     arrays = (
@@ -135,8 +162,14 @@ def _check_bwd_kernel(device, R, S, white_bkgd):
         rel = _rel_err(g, p64[name])
         assert rel <= tol, f"{name}: max abs err / max |fp64 plain| = {rel} > {tol}"
     again = ft.fused_level_bwd(kp, *args, *cot, white_bkgd)  # deterministic: no atomics
+    *_, saved, raw = ft.fused_level_fwd_spill(kp, *args, white_bkgd)
+    before = ft.launches
+    split = ft.fused_level_bwd_saved(kp, *args, saved, raw, *cot, white_bkgd)
+    torch.cuda.synchronize()
+    assert ft.launches == before + 1
     for name in fr.WEIGHT_NAMES:
         assert torch.equal(again[name], got[name]), name
+        assert torch.equal(split[name], got[name]), name  # the backward from K1s' saved
 
 
 @pytest.mark.parametrize("S", [65, 193])
@@ -165,15 +198,20 @@ def test_bwd_kernel_rejects_what_it_does_not_take(cuda):
         ft.fused_level_bwd(kp, t, o, d, venc, xenc, gc, ga, gd, gw[:, :10], True)
     with pytest.raises(ValueError, match="contiguous"):
         ft.fused_level_bwd(kp, t, o, d, venc, xenc, gc, ga, gd, gw.t().contiguous().t(), True)
-    before = ft.launches
+    before = ft.fwd_launches, ft.launches
     with pytest.raises(RuntimeError, match="launch failed"):  # 64 x 65 needs 241 KB
         ft.fused_level_bwd(kp, t, o, d, venc, xenc, gc, ga, gd, gw, True, ray_tile=64)
-    assert ft.launches == before
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ft.fused_level_fwd_spill(kp, t, o, d, venc, xenc, True, ray_tile=64)
+    *_, saved, raw = ft.fused_level_fwd_spill(kp, t, o, d, venc, xenc, True)
+    with pytest.raises(ValueError, match="shape"):
+        ft.fused_level_bwd_saved(kp, t, o, d, venc, xenc, saved[:-1], raw, gc, ga, gd, gw, True)
+    assert (ft.fwd_launches, ft.launches) == (before[0] + 1, before[1])
     ft.fused_level_bwd(kp, t, o, d, venc, xenc, gc, ga, gd, gw, True)  # no stale error left behind
     torch.cuda.synchronize()
 
 
-def test_train_cli_goes_through_both_kernels(cuda, tmp_path):
+def test_train_cli_goes_through_the_kernels(cuda, tmp_path):
     import json
 
     from aonerf_torch.cli import train as cli
@@ -188,10 +226,11 @@ def test_train_cli_goes_through_both_kernels(cuda, tmp_path):
     }
     path = tmp_path / "train.json"
     path.write_text(json.dumps(cfg))
-    k1, k2 = fr.launches, ft.launches
+    k1, k1s, k2 = fr.launches, ft.fwd_launches, ft.launches
     metrics = cli.main(["--config", str(path), "--max_steps", "10"])
     torch.cuda.synchronize()
     assert np.isfinite(metrics["loss"]) and np.isfinite(metrics["val_psnr"])
     val_tiles = -(-16 * 12 // 64)
-    assert fr.launches - k1 == 2 * 10 + 2 * val_tiles  # both levels of every step and val tile
-    assert ft.launches - k2 == 2 * 10  # both levels of every step
+    assert fr.launches - k1 == 2 * val_tiles  # K1 serves validation only: both levels of every val tile
+    assert ft.fwd_launches - k1s == 2 * 10  # K1s: both levels' forward of every step
+    assert ft.launches - k2 == 2 * 10  # K2: both levels' backward of every step

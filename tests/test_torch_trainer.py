@@ -4,6 +4,7 @@ loading another run's checkpoint, and
 parity of its loader, scene writer, config, checkpoints and val grid with
 aonerf."""
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -21,7 +22,7 @@ from aonerf.utils import config as jconfig
 from aonerf_torch.cli import train as cli
 from aonerf_torch.data import sapien, synthetic
 from aonerf_torch.eval import viz
-from aonerf_torch.train.loop import Trainer
+from aonerf_torch.train.loop import Trainer, _check_supported
 from aonerf_torch.utils import config
 from aonerf_torch.utils.ckpt import CheckpointManager
 
@@ -115,12 +116,39 @@ def test_trainer_loads_a_checkpoint_from_another_run(tmp_path, source):
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
     for overrides in ({"exp_type": "vanilla_autodecoder"}, {"run_eval": True}, {"noise_std": 1.0},
-                      {"compute_dtype": "bf16"}, {"optimizer": "ranger"}, {"netwidth": 128}):
+                      {"compute_dtype": "bf16"}, {"optimizer": "ranger"}, {"netwidth": 128},
+                      {"profile_steps": 5}, {"debug_nans": True}, {"is_optimize": True}, {"n_model_shards": 2}):
         with pytest.raises(NotImplementedError):
             Trainer(config.load_config(None, {"platform": "cpu", **overrides}))
     if not torch.cuda.is_available():  # entry points default to the card
         with pytest.raises(RuntimeError, match="CUDA"):
             Trainer(config.load_config(None, {"root_dir": str(tmp_path)}))
+
+
+def test_jax_only_fields_match_jax_config():
+    # the port's table of the JAX Config fields it lacks: names and defaults
+    jax_fields = {f.name: f.default for f in dataclasses.fields(jconfig.Config) if f.name != "extras"}
+    port_fields = {f.name for f in dataclasses.fields(config.Config) if f.name != "extras"}
+    assert port_fields <= set(jax_fields)
+    assert config.JAX_ONLY_DEFAULTS == {n: d for n, d in jax_fields.items() if n not in port_fields}
+
+
+@pytest.mark.parametrize("settings", [
+    {},
+    {"profile_steps": 0, "debug_nans": False, "n_model_shards": 1, "decay_step": [20], "N_max_objs": 4},
+    {"is_optimize": False, "latent_lr": None, "save_path": "render", "code_reg_weight": 1e-4},
+])
+def test_jax_only_fields_at_their_defaults_are_accepted(settings):
+    cfg = config.load_config(os.path.join(ROOT, "config", "vanilla.json"), settings)
+    assert config.jax_only_settings(cfg) == {}
+    _check_supported(cfg)
+
+
+def test_jax_only_fields_by_alias_are_refused():
+    cfg = config.load_config(None, {"N_max_objs": 8, "save_path": "out", "decay_step": [10, 20]})
+    assert config.jax_only_settings(cfg) == {"n_max_objs": 8, "render_name": "out", "decay_step": [10, 20]}
+    with pytest.raises(NotImplementedError, match="n_max_objs=8"):
+        _check_supported(cfg)
 
 
 def test_write_single_scene_matches_jax_generator(tmp_path):

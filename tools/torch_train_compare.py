@@ -1,0 +1,135 @@
+#!/usr/bin/env python3
+"""Times the training forward and the train step of whichever ``aonerf_torch``
+comes first on the path, on one CUDA card, and prints one JSON line.
+
+    PYTHONPATH=. python3 tools/torch_train_compare.py --label change
+    PYTHONPATH=build/parent python3 tools/torch_train_compare.py --label parent
+
+To compare two trees, unpack the other one into a git-ignored directory and
+run the two in turns in one call on one card (parent, change, change,
+parent). At the train step's shapes (2048 rays, S = 65 and 193, random
+inputs and weights from a seed) it times K1 (``fused_render_level``) and,
+where the tree has it, K1s (``fused_level_fwd_spill``) by CUDA events, in
+turns; then the train step of ``config/vanilla.json`` (batch 2048, 64+128
+samples, fp32) on an 8-view 320x240 synthetic scene: ms per step by the host
+clock around ``torch.cuda.synchronize()``, and the peak device memory of a
+multi-step (``torch.cuda.max_memory_allocated()``).
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+R_TRAIN = 2048
+
+
+def cuda_ms(fn, warmup: int, iters: int) -> float:
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def level_inputs(R: int, S: int, seed: int, device):
+    from aonerf_torch.ops.encoding import pos_enc
+
+    rng = np.random.default_rng(seed)
+    d = rng.standard_normal((R, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o = (-4.0 * d).astype(np.float32)
+    t = np.sort(rng.uniform(2.0, 6.0, (R, S)), axis=-1).astype(np.float32)
+    pts = o[:, None] + t[..., None] * d[:, None]
+    t, o, d, pts = (torch.from_numpy(a).to(device) for a in (t, o, d, pts))
+    return t, o, d, pos_enc(d, 0, 4), pos_enc(pts, 0, 10)
+
+
+def time_levels(device) -> dict:
+    from aonerf_torch.models.mlp import NeRFMLP
+    from aonerf_torch.ops.kernels import fused_render as fr
+    from aonerf_torch.ops.kernels import fused_train as ft
+
+    spill = getattr(ft, "fused_level_fwd_spill", None)
+    out = {}
+    for S in (65, 193):
+        mlp = NeRFMLP(generator=torch.Generator().manual_seed(S), device=device)
+        with torch.no_grad():
+            kp = fr.kernel_params(mlp)
+        args = (kp, *level_inputs(R_TRAIN, S, S, device), True)
+        iters = 10 if S > 100 else 20
+        k1 = lambda: fr.fused_render_level(*args)  # noqa: E731
+        row = {"k1_ms": [cuda_ms(k1, warmup=2, iters=iters)]}
+        if spill is not None:
+            k1s = lambda: spill(*args)  # noqa: E731
+            row["k1s_ms"] = [cuda_ms(k1s, warmup=2, iters=iters), cuda_ms(k1s, warmup=0, iters=iters)]
+        row["k1_ms"].append(cuda_ms(k1, warmup=0, iters=iters))
+        out[f"S={S}"] = row
+    return out
+
+
+def time_train_step(device) -> dict:
+    from aonerf_torch.data.synthetic import write_single_scene
+    from aonerf_torch.train.loop import Trainer
+    from aonerf_torch.utils.config import load_config
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = write_single_scene(os.path.join(tmp, "scene"), img_wh=(320, 240), n_train=8, n_val=1, n_test=0,
+                                  seed=0)
+        cfg = load_config(os.path.join(ROOT, "config", "vanilla.json"), {
+            "root_dir": root, "output_path": os.path.join(tmp, "out"), "exp_name": "compare",
+            "img_wh": [320, 240], "lr_init": 1e-3, "lr_delay_steps": 0, "seed": 0,
+        })
+        trainer = Trainer(cfg)
+        try:
+            buffers = trainer.train_buffers()
+            trainer.state, _ = trainer.step_fn(trainer.state, buffers, cfg.seed)  # warm-up multi-step
+            torch.cuda.synchronize()
+            n_steps = 3 * trainer._inner_steps
+            t0 = time.perf_counter()
+            for _ in range(3):
+                trainer.state, _ = trainer.step_fn(trainer.state, buffers, cfg.seed)
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            trainer.state, _ = trainer.step_fn(trainer.state, buffers, cfg.seed)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+        finally:
+            trainer.close()
+    return {"step_ms": step_ms, "rays_per_s": cfg.batch_size / step_ms * 1e3, "steps_timed": n_steps,
+            "peak_gb": peak / 1e9, "held_gb": held / 1e9}
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--label", required=True, help="name of the tree in the output line")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_train_compare: needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import aonerf_torch
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
+    device = torch.device("cuda")
+    row = {"label": args.label, "package": os.path.relpath(os.path.dirname(aonerf_torch.__file__), ROOT),
+           "card": smi[0] if smi else None, "levels": time_levels(device), "train": time_train_step(device)}
+    print(json.dumps(row), flush=True)
+
+
+if __name__ == "__main__":
+    main()
