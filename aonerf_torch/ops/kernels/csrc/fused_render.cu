@@ -9,41 +9,61 @@
 // What bounds it: arithmetic. One sample costs ~0.59 M multiply-adds
 // (63x256 + 4x256x256 + (256+63)x256 + 2x256x256 + 256x(1+256) + 256x128 +
 // 128x3), i.e. ~1.18 MFLOP, against ~260 bytes of input (63 encoded floats
-// + t). At the fine level (4096 rays x 193 samples) that is ~0.93 TFLOP, so
-// >= 13.9 ms at the H100's 67 TFLOP/s fp32 (non-tensor-core) peak; the bytes
-// (~0.2 GB) would take ~0.06 ms at 3.35 TB/s.
+// + t). At the fine level (4096 rays x 193 samples) that is ~0.93 TFLOP. All
+// but the 1- and 3-wide heads (640 of 589,952 multiply-adds a sample) run on
+// the tensor cores in 3xTF32, three TF32 products each: >= 5.66 ms at the
+// H100's 495 TFLOP/s TF32 peak (1.91 ms at S = 65). In plain fp32 on the CUDA
+// cores the same work needs >= 13.9 ms at 67 TFLOP/s. The bytes (~0.2 GB)
+// would take ~0.06 ms at 3.35 TB/s.
 //
 // What the design does about it:
-//  * fp32 FMA on the CUDA cores, no tensor cores, no TF32 (the TPU kernel's
-//    default dot_bf16=False path; bf16/wgmma come later).
+//  * 3xTF32 on the tensor cores (mma.sync m16n8k8): each fp32 operand is split
+//    into a TF32 big and small part and small.big + big.small + big.big
+//    accumulate in fp32, so the products keep fp32's accuracy; every 16
+//    deep (6 mma, kFwdRun) a fresh accumulator starts and fp32 adds fold it
+//    into the running sum, since the tensor cores truncate as they
+//    accumulate (a fresh one every 32 deep, as K2's B1 has, left the
+//    activations twice fp32's error against fp64). The
+//    product is gemm_wt (nerf_level.cuh), the one K2's B1 runs: the weights
+//    are read transposed (out x in; the wrapper rebuilds the 2.4 MB copy
+//    every launch), so the weight is the mma's "col" operand.
 //  * One block (256 threads) owns `ray_tile` whole rays and walks their
 //    ray_tile*S samples in chunks of 64 rows, packed across ray boundaries so
 //    only the last chunk is padded (S = 65 or 193 is not a multiple of 64).
-//  * The chunk's activation (64 x 256 fp32 = 64 KB) stays in shared memory.
-//    Each thread keeps an 8-row x 8-column output tile in registers, so a
-//    layer is written back over its own input once every thread has finished
-//    reading it: one activation buffer, no ping-pong.
-//  * The weights (~2.4 MB for one MLP) do not fit in shared memory. Each layer
-//    streams 32-row K-slices (32 KB) through a double buffer with cp.async
-//    while the previous slice is multiplied; the whole set stays hot in L2.
-//    Per slice a thread does 64 FMAs per 2 float4 weight loads and 8 float4
-//    activation loads that the warp broadcasts.
-//  * The skip layer is a split matmul, w5x . h + w5i . x_enc, into the same
-//    accumulators; the encoded input chunk is kept beside the activation.
+//  * The chunk's activation (64 x 256 fp32, rows padded to 260 floats so the
+//    A fragments' loads are conflict-free) stays in shared memory. Each warp
+//    keeps a 32-row x 64-column output tile (32 x 32 in the 128-wide view
+//    layer) in registers, so a layer is written back over its own input once
+//    every thread has finished reading it: one activation buffer.
+//  * The weights (~2.4 MB for one MLP) do not fit in shared memory. Each
+//    product streams 32-column K-slices of its transposed weight (256 x 36
+//    floats) through a cp.async double buffer while the previous slice is
+//    multiplied; the whole set stays hot in L2.
+//  * The skip layer is a split product, w5x . h + w5i . x_enc (K padded to
+//    64, the pad column of x_enc and of w5i^T zero), into one accumulator;
+//    the encoded input chunk is kept beside the activation.
 //  * The view-condition term venc . wvb is computed once per ray and added to
 //    that ray's rows in the view layer's epilogue.
-//  * The 1-wide density head and the 3-wide rgb head are warp dot products.
-//    Per-sample raw sigma and rgb wait in shared memory until the block's
-//    rays are done; then one warp per ray integrates: alpha, a warp prefix sum
-//    of log(max(1 - alpha + 1e-10, 1e-10)) with a carry across 32-sample
-//    steps (the TPU kernel's triangular matmul), weights, rgb, acc, depth.
+//  * The 1-wide density head and the 3-wide rgb head are warp dot products
+//    in fp32. Per-sample raw sigma and rgb wait in shared memory until the
+//    block's rays are done; then one warp per ray integrates: alpha, a warp
+//    prefix sum of log(max(1 - alpha + 1e-10, 1e-10)) with a carry across
+//    32-sample steps (the TPU kernel's triangular matmul), weights, rgb, acc,
+//    depth.
 //
-// Shared memory: 64x256 activation + 64x64 encoded input + 2x32x256 weight
-// slices + ray_tile x (128 + 4 S) per-ray values, 205 KB at ray_tile=16,
-// S=193. One block per SM. The chunk walk, the weight streaming and the
+// Shared memory: 64x260 activation + 64x68 encoded input + 2x256x36 weight
+// slices + ray_tile x (128 + 4 S) per-ray values, 215,296 bytes at
+// ray_tile=16, S=193. One block per SM. The chunk walk, the product and the
 // integrator live in nerf_level.cuh, shared with the training forward K1s
 // (fused_train.cu), which computes the same bits and also saves the
 // activations. K1 serves and validates; training runs K1s.
+//
+// ptxas (-Xptxas -v, sm_90a, CUDA 12.8, printed by chip_smoke.py's build
+// phase on the H100): 255 registers, 64 bytes of spill stores and 80 of
+// spill loads (64-byte stack frame); the fp32-FMA walk it replaced used 168
+// and no spill. Measured there (NVIDIA H100 80GB HBM3, 700 W): 21.7 / 7.5
+// ms at 4096 rays x S = 193 / 65, ~26% / ~25% of the 3xTF32 bound, against
+// 29.5 / 10.2 ms for the fp32-FMA walk.
 
 #include "nerf_level.cuh"
 
@@ -53,36 +73,36 @@ using namespace aonerf;
 
 __global__ void __launch_bounds__(kThreads, 1)
 fused_render_level_kernel(const float* __restrict__ t, const float* __restrict__ rays_d,
-                          const float* __restrict__ venc, const float* __restrict__ xenc,
-                          Weights w, float* __restrict__ comp, float* __restrict__ acc_out,
+                          const float* __restrict__ venc, const float* __restrict__ xenc, Weights w,
+                          WeightsT wt, float* __restrict__ comp, float* __restrict__ acc_out,
                           float* __restrict__ depth, float* __restrict__ weights_out, int S,
                           int ray_tile, int white_bkgd) {
   extern __shared__ __align__(16) float smem[];
-  float* act = smem;                          // kRows x kWidth
-  float* xs = act + kRows * kWidth;           // kRows x kPosPad
-  float* wbuf = xs + kRows * kPosPad;         // 2 x kSlice x kWidth
-  float* cterm = wbuf + 2 * kSlice * kWidth;  // ray_tile x kCondWidth
-  float* sig = cterm + ray_tile * kCondWidth; // ray_tile*S raw sigma
-  float* rgb = sig + ray_tile * S;            // ray_tile*S x 3 raw rgb
-
+  const ForwardSmem m = carve_forward_smem(smem, S, ray_tile);
   const int ray0 = blockIdx.x * ray_tile;
   const int n_rows = ray_tile * S;
   const size_t row_base = (size_t)ray0 * S;
 
-  view_terms(venc, w.wvb, cterm, ray0, ray_tile);
+  view_terms(venc, w.wvb, m.cterm, ray0, ray_tile);
   for (int row0 = 0; row0 < n_rows; row0 += kRows)
-    forward_chunk<false>(xenc, w, act, xs, wbuf, cterm, sig, rgb, row_base, row0, n_rows, S, nullptr);
+    forward_chunk<false>(xenc, w, wt, m, row_base, row0, n_rows, S, nullptr);
 
-  integrate_rays(t, rays_d, sig, rgb, ray0, ray_tile, S, white_bkgd, comp, acc_out, depth, weights_out);
+  integrate_rays(t, rays_d, m.sig, m.rgb, ray0, ray_tile, S, white_bkgd, comp, acc_out, depth, weights_out);
 }
 
 }  // namespace
 
 extern "C" {
 
+// Floats of the packed transposed product weights `wt` (WeightsT).
+int aonerf_fused_render_wt_floats() { return kWtFloats; }
+
 // Launches one level on `stream`. Pointers are device pointers to contiguous
-// fp32 arrays, weights in the flax (in, out) layout. n_rays % ray_tile == 0.
-// Returns cudaGetLastError() after the launch (0 on success).
+// fp32 arrays: the level's inputs, its 26 weights in the flax (in, out)
+// layout (the kernel reads their biases and narrow heads), and `wt`, the
+// packed transposed copies of its 11 product weights (WeightsT, kWtFloats).
+// n_rays % ray_tile == 0. Returns cudaGetLastError() after the launch (0 on
+// success).
 int aonerf_fused_render_level(const float* t, const float* rays_d, const float* venc,
                               const float* xenc, const float* w0, const float* b0,
                               const float* w1, const float* b1, const float* w2, const float* b2,
@@ -91,7 +111,7 @@ int aonerf_fused_render_level(const float* t, const float* rays_d, const float* 
                               const float* w6, const float* b6, const float* w7, const float* b7,
                               const float* wd, const float* bd, const float* wb, const float* bb,
                               const float* wva, const float* wvb, const float* bv,
-                              const float* wr, const float* br, float* comp, float* acc,
+                              const float* wr, const float* br, const float* wt, float* comp, float* acc,
                               float* depth, float* weights, int n_rays, int S, int ray_tile,
                               int white_bkgd, void* stream) {
   if (n_rays <= 0 || S <= 0 || ray_tile <= 0 || n_rays % ray_tile != 0) return cudaErrorInvalidValue;
@@ -106,7 +126,7 @@ int aonerf_fused_render_level(const float* t, const float* rays_d, const float* 
   Weights w{w0, b0, w1, b1, w2, b2, w3, b3, w4, b4, w5x, w5i, b5, w6, b6, w7, b7,
             wd, bd, wb, bb, wva, wvb, bv, wr, br};
   fused_render_level_kernel<<<n_rays / ray_tile, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      t, rays_d, venc, xenc, w, comp, acc, depth, weights, S, ray_tile, white_bkgd);
+      t, rays_d, venc, xenc, w, unpack_weights_t(wt), comp, acc, depth, weights, S, ray_tile, white_bkgd);
   return cudaGetLastError();
 }
 

@@ -15,10 +15,12 @@
 // multiply-adds; the input products delta . W^T, 557,696; the weight products
 // h^T . delta, 589,952. At 2048 rays x 193 samples (395,264 rows):
 //
-//  K1s. level_fwd_spill_kernel (fp32 FMA; bound by operations, 6.96 ms at
-//     67 TFLOP/s, over its 3.85 GB of spill, 1.15 ms at 3.35 TB/s): K1's
-//     forward walk (nerf_level.cuh) over the block's ray_tile rays, and K1's
-//     integrator forward, so comp/acc/depth/weights are K1's bits. Every
+//  K1s. level_fwd_spill_kernel (3xTF32 tensor cores; bound by operations,
+//     2.83 ms at 495/3 TFLOP/s, 6.96 ms were it fp32 FMA at 67 TFLOP/s, over
+//     its 3.85 GB of spill, 1.15 ms at 3.35 TB/s): K1's forward walk
+//     (nerf_level.cuh: every 256- and 128-wide product through gemm_wt on the
+//     weights' transposed copies `wt`) over the block's ray_tile rays, and
+//     K1's integrator forward, so comp/acc/depth/weights are K1's bits. Every
 //     valid row's activations (h0..h7, bottleneck, view hidden: kSpill =
 //     2432 floats) go to the scratch `saved`: after each layer's epilogue has
 //     written the activation into the shared tile, thread 0 copies its rows
@@ -28,13 +30,14 @@
 //     while the warps run the next layer's product. The copies carry an
 //     L2::evict_first policy. Every block re-reads all 2.4 MB of weights per
 //     64-row chunk from L2, and the spill writes ~84 MB through L2 between
-//     two reads of one layer's slice; without the policy the weights are
-//     evicted and come back from HBM, which cost 2.0 / 5.8 ms over K1 at
-//     S = 65 / 193 on the H100, with bulk copies and per-thread stores
-//     alike; with it, 0.06 / 0.3 ms. Each sample's raw sigma and rgb go to
-//     `raw` (4 floats). Spilling beats recomputing: a 64-row chunk's eight
-//     trunk activations (512 KB) do not fit in shared memory, and the
-//     integrator backward needs a whole ray before any chunk's MLP backward.
+//     two reads of one layer's slice; without the policy the weights were
+//     evicted and came back from HBM, which cost the fp32-FMA walk 2.0 / 5.8
+//     ms over K1 at S = 65 / 193 on the H100, with bulk copies and
+//     per-thread stores alike; with it, 0.06 / 0.3 ms. Each sample's raw
+//     sigma and rgb go to `raw` (4 floats). Spilling beats recomputing: a
+//     64-row chunk's eight trunk activations (512 KB) do not fit in shared
+//     memory, and the integrator backward needs a whole ray before any
+//     chunk's MLP backward.
 //  I. level_bwd_integrator_kernel (bound by bytes, 16 MB): one warp per ray
 //     runs the integrator forward and backward from `raw`: g_w from the
 //     cotangents, g_alpha = g_w T - suffix(g_w w) / max(1 - alpha + 1e-10,
@@ -48,10 +51,11 @@
 //     g_raw_sigma wd^T term), delta_6 .. delta_0, the ReLU masks from the
 //     saved activations. Each delta goes to the scratch `delta` (kSpill
 //     floats a sample, laid out like `saved`). delta . W^T is a 64 x 256
-//     product on mma.sync m16n8k8 TF32: B(k, n) = W[n][k] is the "col"
-//     operand read straight from W's flax (in, out) layout, staged in 32-wide
-//     K-slices (256 x 36 floats) through a cp.async double buffer, so no
-//     transposed copy of any weight is made. The narrow head products (wr, br,
+//     product on mma.sync m16n8k8 TF32 (gemm_wt, in nerf_level.cuh, which the
+//     forward walk also runs): B(k, n) = W[n][k] is the "col" operand read
+//     straight from W's flax (in, out) layout, staged in 32-wide K-slices
+//     (256 x 36 floats) through a cp.async double buffer, so B1 needs no
+//     transposed copy of any weight. The narrow head products (wr, br,
 //     wd, bd; wvb through the per-ray sum of delta_v, rows in order) stay on
 //     fp32 FMA (N = 3 and 1 fit no tensor-core tile; 0.1% of the work), each
 //     chunk's sum added to the thread's running sum, written once per block to
@@ -76,12 +80,13 @@
 //  R. level_bwd_reduce_kernel: sums the 16 partial sets (38 MB, which L2
 //     holds) and the B1 blocks' narrow sets, each in a fixed order.
 //
-// 3xTF32: each fp32 operand x is split into big = tf32(x) and small =
-// tf32(x - big), and small.big + big.small + big.big accumulate in fp32 (the
-// small terms first, as CUTLASS orders them); the dropped small.small is
-// ~2^-22 of the product, so the products keep fp32's accuracy. The tensor
-// cores' accumulation truncates, so each run of 12 (B1) or 24 (B2) mma has a
-// fresh accumulator that fp32 adds fold into the running sum.
+// 3xTF32 (K1s, B1, B2; the helpers live in nerf_level.cuh): each fp32
+// operand x is split into big = tf32(x) and small = tf32(x - big), and
+// small.big + big.small + big.big accumulate in fp32 (the small terms first,
+// as CUTLASS orders them); the dropped small.small is ~2^-22 of the product,
+// so the products keep fp32's accuracy. The tensor cores' accumulation
+// truncates, so each run of 6 (K1s), 12 (B1) or 24 (B2) mma has a fresh
+// accumulator that fp32 adds fold into the running sum.
 //
 // Deterministic: no atomics, every sum in a fixed order, so the same inputs
 // give the same bits on every call.
@@ -91,9 +96,10 @@
 // KB.
 //
 // ptxas (-Xptxas -v, sm_90a, CUDA 12.8, printed by chip_smoke.py's build
-// phase on the H100): K1s 168 registers (K1's count; 203 with per-thread
-// spill stores), no spill; the integrator backward 39; B1 255 registers, 240 bytes of spill stores and 336 of
-// spill loads (256-byte stack frame); B2 128 registers (capped by
+// phase on the H100): K1s 255 registers, 64 bytes of spill stores and 72 of
+// spill loads (64-byte stack frame; the fp32-FMA walk used 168, no spill);
+// the integrator backward 39; B1 255 registers, 240 bytes of spill stores
+// and 336 of spill loads (256-byte stack frame); B2 128 registers (capped by
 // __launch_bounds__(256, 2)), no spill; the reduction 31 registers.
 
 #include "nerf_level.cuh"
@@ -134,9 +140,8 @@ __constant__ Layout c_layout = make_layout();
 
 // Pass B1. The delta scratch holds kSpill floats a sample, shaped like the
 // saved rows: delta_0..delta_7 at l * kWidth, the bottleneck's gradient at
-// kSpillBtl, delta_v at kSpillView.
-constexpr int kAct = kWidth + 4;  // row stride of D and H in shared memory (4 mod 32)
-constexpr int kWs = kSlice + 4;   // row stride of a staged weight slice (4 mod 32)
+// kSpillBtl, delta_v at kSpillView. D and H (kRows x kAct) and the weight
+// slices (kWidth x kWs) use the forward's strides (nerf_level.cuh).
 // A B1 block's narrow partial set: the head gradients summed over its rays.
 constexpr int kNarrowWd = 0, kNarrowBd = kNarrowWd + kWidth, kNarrowWr = kNarrowBd + 4,
               kNarrowBr = kNarrowWr + kCondWidth * 3, kNarrowWvb = kNarrowBr + 4,
@@ -187,27 +192,21 @@ constexpr int kDwTiles = count_tiles();  // 72
 // integrator backward.
 __global__ void __launch_bounds__(kThreads, 1)
 level_fwd_spill_kernel(const float* __restrict__ t, const float* __restrict__ rays_d,
-                       const float* __restrict__ venc, const float* __restrict__ xenc, Weights w,
+                       const float* __restrict__ venc, const float* __restrict__ xenc, Weights w, WeightsT wt,
                        float* __restrict__ comp, float* __restrict__ acc_out, float* __restrict__ depth,
                        float* __restrict__ weights_out, float* __restrict__ saved, float* __restrict__ raw,
                        int S, int ray_tile, int white_bkgd) {
   extern __shared__ __align__(16) float smem[];
-  float* act = smem;                          // kRows x kWidth
-  float* xs = act + kRows * kWidth;           // kRows x kPosPad
-  float* wbuf = xs + kRows * kPosPad;         // 2 x kSlice x kWidth
-  float* cterm = wbuf + 2 * kSlice * kWidth;  // ray_tile x kCondWidth
-  float* sig = cterm + ray_tile * kCondWidth; // ray_tile*S raw sigma
-  float* rgb = sig + ray_tile * S;            // ray_tile*S x 3 raw rgb
-
+  const ForwardSmem m = carve_forward_smem(smem, S, ray_tile);
   const int ray0 = blockIdx.x * ray_tile;
   const int n_rows = ray_tile * S;
   const size_t row_base = (size_t)ray0 * S;
 
-  view_terms(venc, w.wvb, cterm, ray0, ray_tile);
+  view_terms(venc, w.wvb, m.cterm, ray0, ray_tile);
   for (int row0 = 0; row0 < n_rows; row0 += kRows)
-    forward_chunk<true>(xenc, w, act, xs, wbuf, cterm, sig, rgb, row_base, row0, n_rows, S,
-                        saved + (row_base + row0) * kSpill);
+    forward_chunk<true>(xenc, w, wt, m, row_base, row0, n_rows, S, saved + (row_base + row0) * kSpill);
   // forward_chunk ended with a barrier: sig and rgb are complete
+  const float *sig = m.sig, *rgb = m.rgb;
   for (int i = threadIdx.x; i < n_rows; i += kThreads)
     *reinterpret_cast<float4*>(raw + (row_base + i) * 4) = make_float4(sig[i], rgb[3 * i], rgb[3 * i + 1], rgb[3 * i + 2]);
   integrate_rays(t, rays_d, sig, rgb, ray0, ray_tile, S, white_bkgd, comp, acc_out, depth, weights_out);
@@ -291,65 +290,6 @@ level_bwd_integrator_kernel(const float* __restrict__ t, const float* __restrict
   }
 }
 
-// ------------------------------------------------------------ 3xTF32 mma.sync
-
-// x rounded to TF32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away from
-// zero: half a TF32 ulp added to the magnitude, the 13 low bits cleared), on
-// the integer pipe. Finite inputs only.
-__device__ __forceinline__ uint32_t tf32_rna(float x) { return (__float_as_uint(x) + 0x1000u) & 0xffffe000u; }
-
-// x = big + small with both TF32; x - big is exact in fp32, and what small
-// drops is at most 2^-22 |x|.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
-  big = tf32_rna(x);
-  small = tf32_rna(x - __uint_as_float(big));
-}
-
-// d += a . b for one m16n8k8 TF32 tile. Fragments (g = lane / 4, t = lane % 4):
-// A (row, k) at a[0] (g, t), a[1] (g+8, t), a[2] (g, t+4), a[3] (g+8, t+4);
-// B (k, col) at b0 (t, g), b1 (t+4, g); d (row, col) at d[0] (g, 2t),
-// d[1] (g, 2t+1), d[2] (g+8, 2t), d[3] (g+8, 2t+1).
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-      "{%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 3xTF32: d += a_small b_big + a_big b_small + a_big b_big, the small terms
-// first (as CUTLASS orders them); a_small b_small (~2^-22 of the product) is
-// dropped.
-__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ab)[4], const uint32_t (&as)[4],
-                                           const uint32_t (&bb)[2], const uint32_t (&bs)[2]) {
-  mma_tf32(d, as, bb[0], bb[1]);
-  mma_tf32(d, ab, bs[0], bs[1]);
-  mma_tf32(d, ab, bb[0], bb[1]);
-}
-
-// The tensor cores add into their fp32 accumulator with truncation, so one
-// accumulator's error grows with the number of mma into it, in one direction.
-// Both passes give each short run of mma (12 in B1, 24 in B2) a fresh
-// accumulator and add it into the running sum with fp32 adds.
-template <int M, int N>
-__device__ __forceinline__ void add_into(float (&acc)[M][N][4], const float (&part)[M][N][4]) {
-#pragma unroll
-  for (int i = 0; i < M; ++i)
-#pragma unroll
-    for (int j = 0; j < N; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][j][c] += part[i][j][c];
-}
-
-template <int M, int N>
-__device__ __forceinline__ void zero_acc(float (&acc)[M][N][4]) {
-#pragma unroll
-  for (int i = 0; i < M; ++i)
-#pragma unroll
-    for (int j = 0; j < N; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
-}
-
 __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
   unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   int n = valid ? 4 : 0;  // n == 0 zero-fills
@@ -358,74 +298,10 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool val
 
 // ------------------------------------------------------- pass B1: the deltas
 
-// The chunk's 64 x 256 product: warp w owns rows 32 (w / 4) + [0, 32) and
-// columns 64 (w % 4) + [0, 64), as 2 x 8 m16n8 tiles.
-using ChunkAcc = float[2][8][4];
-
-// Stage columns [k0, k0 + kSlice) of W (kWidth x K, row-major) into buf
-// (kWidth rows of stride kWs), as one committed cp.async group.
-__device__ __forceinline__ void stage_wt(float* buf, const float* __restrict__ W, int K, int k0) {
-  constexpr int kVec = kSlice / 4;
-  for (int i = threadIdx.x; i < kWidth * kVec; i += kThreads) {
-    const int n = i / kVec, c = (i % kVec) * 4;
-    cp_async16(buf + n * kWs + c, W + (size_t)n * K + k0 + c, true);
-  }
-  cp_async_commit();
-}
-
-// acc += A[:, :K] . W^T, A (kRows x kAct) in shared memory, W (kWidth x K)
-// row-major in device memory: a layer's weight in the flax (in, out) layout,
-// in = kWidth, out = K (K % kSlice == 0). B(k, n) = W[n][k] is read as the
-// "col" operand straight from W's layout, through a cp.async double buffer of
-// K-slices. Every cp.async group committed before the call has landed by the
-// first barrier. Ends with a barrier.
-__device__ __forceinline__ void gemm_wt(ChunkAcc& acc, const float* A, int K, const float* __restrict__ W,
-                                        float* wbuf) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int r0 = (warp >> 2) * 32, c0 = (warp & 3) * 64;
-  const int n_slices = K / kSlice;
-  stage_wt(wbuf, W, K, 0);
-  for (int s = 0; s < n_slices; ++s) {
-    const float* ws = wbuf + (s & 1) * kWidth * kWs;
-    if (s + 1 < n_slices) {
-      stage_wt(wbuf + ((s + 1) & 1) * kWidth * kWs, W, K, (s + 1) * kSlice);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    ChunkAcc part;
-    zero_acc(part);
-#pragma unroll
-    for (int kk = 0; kk < kSlice; kk += 8) {
-      uint32_t ab[2][4], as[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const float* p = A + (r0 + 16 * mi + g) * kAct + s * kSlice + kk + t;
-        split_tf32(p[0], ab[mi][0], as[mi][0]);
-        split_tf32(p[8 * kAct], ab[mi][1], as[mi][1]);
-        split_tf32(p[4], ab[mi][2], as[mi][2]);
-        split_tf32(p[8 * kAct + 4], ab[mi][3], as[mi][3]);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 8; ++ni) {
-        const float* q = ws + (c0 + 8 * ni + g) * kWs + kk + t;
-        uint32_t bb[2], bs[2];
-        split_tf32(q[0], bb[0], bs[0]);
-        split_tf32(q[4], bb[1], bs[1]);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) mma_3xtf32(part[mi][ni], ab[mi], as[mi], bb, bs);
-      }
-    }
-    add_into(acc, part);
-    __syncthreads();
-  }
-}
-
 // D[r][c] = (acc + gs[r] wd[c]) * (M[r][c] > 0), the rank-1 term when wd is
 // given and the mask when M is; rows below valid_rows also to the scratch
 // rows dst + r * kSpill + c. Ends with a barrier.
-__device__ __forceinline__ void store_delta(const ChunkAcc& acc, float* D, const float* M, const float* gs,
+__device__ __forceinline__ void store_delta(const ChunkAcc<kWidth>& acc, float* D, const float* M, const float* gs,
                                             const float* __restrict__ wd, float* __restrict__ dst,
                                             int valid_rows) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -556,9 +432,9 @@ level_bwd_delta_kernel(const float* __restrict__ venc, const float* __restrict__
           *reinterpret_cast<const float4*>(D + r * kAct + c);
     }
     load_rows<kWidth>(H, sv + 7 * kWidth, valid_rows);  // h7, lands in gemm_wt
-    ChunkAcc acc;
+    ChunkAcc<kWidth> acc;
     zero_acc(acc);  // g_btl = delta_v . wva^T
-    gemm_wt(acc, D, kCondWidth, wva, wbuf);
+    gemm_wt<kWidth, kAct>(acc, D, kCondWidth, wva, wbuf);
     store_delta(acc, D, nullptr, nullptr, nullptr, dv + kSpillBtl, valid_rows);
     {  // density head: wd += h7^T g_raw_sigma
       float s = 0.f;
@@ -566,12 +442,12 @@ level_bwd_delta_kernel(const float* __restrict__ venc, const float* __restrict__
       n_wd += s;
     }
     zero_acc(acc);  // delta_7 = (g_btl . wb^T + g_raw_sigma wd^T) * (h7 > 0)
-    gemm_wt(acc, D, kWidth, wb, wbuf);
+    gemm_wt<kWidth, kAct>(acc, D, kWidth, wb, wbuf);
     store_delta(acc, D, H, gs, wd, dv + 7 * kWidth, valid_rows);
     for (int l = 6; l >= 0; --l) {  // delta_l = (delta_{l+1} . W_{l+1}^T) * (h_l > 0)
       load_rows<kWidth>(H, sv + l * kWidth, valid_rows);
       zero_acc(acc);
-      gemm_wt(acc, D, kWidth, trunk.w[l + 1], wbuf);
+      gemm_wt<kWidth, kAct>(acc, D, kWidth, trunk.w[l + 1], wbuf);
       store_delta(acc, D, H, nullptr, nullptr, dv + l * kWidth, valid_rows);
     }
   }
@@ -762,13 +638,13 @@ bool bad_shape(int n_rays, int S, int ray_tile) {
 }
 
 cudaError_t launch_fwd_spill(const float* t, const float* rays_d, const float* venc, const float* xenc,
-                             const Weights& w, float* comp, float* acc, float* depth, float* weights,
+                             const Weights& w, const WeightsT& wt, float* comp, float* acc, float* depth, float* weights,
                              float* saved, float* raw, int n_rays, int S, int ray_tile, int white_bkgd,
                              cudaStream_t s) {
   const size_t smem = forward_smem_bytes(S, ray_tile);
   cudaError_t err = set_smem((const void*)level_fwd_spill_kernel, smem);
   if (err != cudaSuccess) return err;
-  level_fwd_spill_kernel<<<n_rays / ray_tile, kThreads, smem, s>>>(t, rays_d, venc, xenc, w, comp, acc, depth,
+  level_fwd_spill_kernel<<<n_rays / ray_tile, kThreads, smem, s>>>(t, rays_d, venc, xenc, w, wt, comp, acc, depth,
                                                                   weights, saved, raw, S, ray_tile, white_bkgd);
   return cudaGetLastError();
 }
@@ -827,18 +703,22 @@ int aonerf_fused_level_bwd_saved_floats() { return kSpill; }
 int aonerf_fused_level_bwd_ranges() { return kRanges; }
 int aonerf_fused_level_bwd_narrow_floats() { return kNarrowFloats; }
 
+// Floats of the forward's packed transposed product weights `wt` (WeightsT).
+int aonerf_fused_level_wt_floats() { return kWtFloats; }
+
 // K1s, the training forward, on `stream`. Pointers are device pointers to
-// contiguous fp32 arrays: the level's inputs and its 26 weights in the flax
-// (in, out) layout, as for aonerf_fused_render_level; its outputs comp (R,3),
+// contiguous fp32 arrays: the level's inputs, its 26 weights in the flax
+// (in, out) layout and `wt`, the packed transposed product weights
+// (WeightsT, kWtFloats), as for aonerf_fused_render_level; its outputs comp (R,3),
 // acc (R), depth (R), weights (R,S); and what the backward reads, `saved`
 // (R*S*kSpill, the activations) and `raw` (R*S*4: raw sigma, raw rgb).
 // n_rays % ray_tile == 0. Returns the launch's error (0 on success).
 int aonerf_fused_level_fwd_spill(const float* t, const float* rays_d, const float* venc, const float* xenc,
-                                 AONERF_WEIGHT_PARAMS, float* comp, float* acc, float* depth, float* weights,
-                                 float* saved, float* raw, int n_rays, int S, int ray_tile, int white_bkgd,
-                                 void* stream) {
+                                 AONERF_WEIGHT_PARAMS, const float* wt, float* comp, float* acc, float* depth,
+                                 float* weights, float* saved, float* raw, int n_rays, int S, int ray_tile,
+                                 int white_bkgd, void* stream) {
   if (bad_shape(n_rays, S, ray_tile)) return cudaErrorInvalidValue;
-  return launch_fwd_spill(t, rays_d, venc, xenc, AONERF_WEIGHTS, comp, acc, depth, weights, saved, raw, n_rays,
+  return launch_fwd_spill(t, rays_d, venc, xenc, AONERF_WEIGHTS, unpack_weights_t(wt), comp, acc, depth, weights, saved, raw, n_rays,
                           S, ray_tile, white_bkgd, static_cast<cudaStream_t>(stream));
 }
 
@@ -862,10 +742,10 @@ int aonerf_fused_level_bwd_saved(const float* t, const float* rays_d, const floa
 
 // The level's weight gradient from its inputs alone: K1s, then the backward
 // from what it saved. Arguments as for aonerf_fused_level_bwd_saved without
-// `raw`; K1s' outputs and `raw` (R*(5 S + 5) floats) live at the front of
+// `raw`, with K1s' `wt` after the weights; K1s' outputs and `raw` (R*(5 S + 5) floats) live at the front of
 // `delta` until B1 overwrites it.
 int aonerf_fused_level_bwd(const float* t, const float* rays_d, const float* venc, const float* xenc,
-                           AONERF_WEIGHT_PARAMS, const float* g_comp, const float* g_acc, const float* g_depth,
+                           AONERF_WEIGHT_PARAMS, const float* wt, const float* g_comp, const float* g_acc, const float* g_depth,
                            const float* g_weights, float* saved, float* grow, float* delta, float* partials,
                            float* narrow, float* out, int n_rays, int S, int ray_tile, int white_bkgd,
                            void* stream) {
@@ -878,8 +758,8 @@ int aonerf_fused_level_bwd(const float* t, const float* rays_d, const float* ven
   float* depth = acc + n_rays;
   const Weights w = AONERF_WEIGHTS;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = launch_fwd_spill(t, rays_d, venc, xenc, w, comp, acc, depth, weights, saved, raw, n_rays, S,
-                                     ray_tile, white_bkgd, s);
+  cudaError_t err = launch_fwd_spill(t, rays_d, venc, xenc, w, unpack_weights_t(wt), comp, acc, depth, weights,
+                                     saved, raw, n_rays, S, ray_tile, white_bkgd, s);
   if (err != cudaSuccess) return err;
   return launch_bwd_saved(t, rays_d, venc, xenc, w, g_comp, g_acc, g_depth, g_weights, saved, raw, grow, delta,
                           partials, narrow, out, n_rays, S, ray_tile, white_bkgd, s);

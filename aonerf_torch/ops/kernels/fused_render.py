@@ -13,7 +13,7 @@ log(max(1 - alpha + 1e-10, 1e-10)), and depth without the NaN/clip step of
 """
 
 import ctypes
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, List, Tuple
 
 import torch
 
@@ -25,6 +25,15 @@ WEIGHT_NAMES = (
     "wd", "bd", "wb", "bb", "wva", "wvb", "bv", "wr", "br",
 )
 WIDTH, COND_WIDTH, POS_DIM, VIEW_DIM = 256, 128, 63, 27
+POS_PAD = 64  # POS_DIM padded to a multiple of the kernel's 32-deep K-slice
+# The forward kernels' tensor-core product weights, in the order of the
+# packed buffer of :func:`kernel_weights_t`: (name, out, in padded).
+WEIGHTS_T = (
+    ("w0", WIDTH, POS_PAD), ("w1", WIDTH, WIDTH), ("w2", WIDTH, WIDTH), ("w3", WIDTH, WIDTH),
+    ("w4", WIDTH, WIDTH), ("w5x", WIDTH, WIDTH), ("w5i", WIDTH, POS_PAD), ("w6", WIDTH, WIDTH),
+    ("w7", WIDTH, WIDTH), ("wb", WIDTH, WIDTH), ("wva", COND_WIDTH, WIDTH),
+)
+WT_FLOATS = sum(rows * cols for _, rows, cols in WEIGHTS_T)
 # Rays per CUDA block. 16 rays of 193 samples fill 48.25 chunks of 64 rows
 # (1.5% padding; 4.6% at S=65), fit the block's per-sample scratch into
 # shared memory, and make 256 blocks of a 4096-ray tile (two waves on 132 SMs).
@@ -74,29 +83,61 @@ def kernel_params(mlp) -> Dict[str, torch.Tensor]:
     return {n: out[n] for n in WEIGHT_NAMES}
 
 
+def kernel_weights_t(kernel_params: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The forward kernels' copy of the product weights in ``WEIGHTS_T``:
+    each transposed (out x in), w0 and w5i with a zero column that pads in
+    from 63 to 64, packed in order into one flat contiguous fp32 buffer on
+    the weights' device, detached. The kernels take it beside the flax-layout
+    ``kernel_params``; it is rebuilt at every launch, since the weights move
+    every training step."""
+    first = kernel_params["w0"]
+    flat = torch.zeros(WT_FLOATS, dtype=first.dtype, device=first.device)
+    for name, view in unpack_weights_t(flat).items():
+        w = kernel_params[name].detach()
+        view[:, : w.shape[0]].copy_(w.t())
+    return flat
+
+
+def unpack_weights_t(flat: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Views of :func:`kernel_weights_t`'s buffer: name -> (out, in padded)."""
+    views, n = {}, 0
+    for name, rows, cols in WEIGHTS_T:
+        views[name] = flat[n : n + rows * cols].view(rows, cols)
+        n += rows * cols
+    return views
+
+
 def level_activations_ref(
-    kernel_params: Dict[str, torch.Tensor], viewdirs_enc: torch.Tensor, xe: torch.Tensor, S: int
+    kernel_params: Dict[str, torch.Tensor],
+    viewdirs_enc: torch.Tensor,
+    xe: torch.Tensor,
+    S: int,
+    mm: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] = torch.matmul,
 ) -> Tuple[List[torch.Tensor], torch.Tensor, torch.Tensor]:
     """The level's MLP on the R*S encoded samples ``xe`` (rows, 63): the ten
     activations in the order the training forward saves them (h0..h7, the
     bottleneck, the view hidden layer), raw sigma (rows, 1) and raw rgb
-    (rows, 3)."""
+    (rows, 3).
+
+    ``mm`` computes the products that the CUDA kernels run on the tensor
+    cores (every one in ``WEIGHTS_T``); tests pass an emulation of their
+    3xTF32 arithmetic. The default is plain ``@``."""
     w = kernel_params
     R = viewdirs_enc.shape[0]
     relu = torch.relu
 
-    hs = [relu(xe @ w["w0"] + w["b0"])]
+    hs = [relu(mm(xe, w["w0"]) + w["b0"])]
     for i in (1, 2, 3, 4):
-        hs.append(relu(hs[-1] @ w[f"w{i}"] + w[f"b{i}"]))
-    hs.append(relu(hs[-1] @ w["w5x"] + xe @ w["w5i"] + w["b5"]))
+        hs.append(relu(mm(hs[-1], w[f"w{i}"]) + w[f"b{i}"]))
+    hs.append(relu(mm(hs[-1], w["w5x"]) + mm(xe, w["w5i"]) + w["b5"]))
     for i in (6, 7):
-        hs.append(relu(hs[-1] @ w[f"w{i}"] + w[f"b{i}"]))
+        hs.append(relu(mm(hs[-1], w[f"w{i}"]) + w[f"b{i}"]))
 
     raw_sigma = hs[7] @ w["wd"] + w["bd"]  # (rows, 1)
-    bottleneck = hs[7] @ w["wb"] + w["bb"]
+    bottleneck = mm(hs[7], w["wb"]) + w["bb"]
     c_part = viewdirs_enc @ w["wvb"]  # (R, 128), once per ray
     c_rows = c_part[:, None, :].expand(R, S, c_part.shape[-1]).reshape(R * S, -1)
-    v = relu(bottleneck @ w["wva"] + c_rows + w["bv"])
+    v = relu(mm(bottleneck, w["wva"]) + c_rows + w["bv"])
     raw_rgb = v @ w["wr"] + w["br"]  # (rows, 3)
     return hs + [bottleneck, v], raw_sigma, raw_rgb
 
@@ -133,11 +174,15 @@ def fused_render_level_ref(
     viewdirs_enc: torch.Tensor,
     samples_enc: torch.Tensor,
     white_bkgd: bool,
+    mm: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] = torch.matmul,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the fused level. Same arguments and outputs as
-    :func:`fused_render_level`, on any device."""
+    :func:`fused_render_level`, on any device; ``mm`` as in
+    :func:`level_activations_ref`."""
     R, S = t_vals.shape
-    _, raw_sigma, raw_rgb = level_activations_ref(kernel_params, viewdirs_enc, samples_enc.reshape(R * S, -1), S)
+    _, raw_sigma, raw_rgb = level_activations_ref(
+        kernel_params, viewdirs_enc, samples_enc.reshape(R * S, -1), S, mm=mm
+    )
     return integrate_ref(raw_sigma, raw_rgb, t_vals, rays_d, white_bkgd)
 
 
@@ -170,6 +215,14 @@ def _check_inputs(kernel_params, t_vals, rays_d, viewdirs_enc, xenc, R, S):
             raise ValueError(f"{name}: must be contiguous and 16-byte aligned")
 
 
+def check_wt_floats(fn, lib_name: str) -> None:
+    """Raises unless the library's packed transposed weights (``fn()``
+    floats) are ``kernel_weights_t``'s."""
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    if fn() != WT_FLOATS:
+        raise RuntimeError(f"{lib_name}: kernel packs {fn()} transposed weight floats, expected {WT_FLOATS}")
+
+
 _lib = None
 
 
@@ -178,10 +231,11 @@ def _library():
     if _lib is None:
         lib = build.load("fused_render")
         fn = lib.aonerf_fused_render_level
-        fn.argtypes = [ctypes.c_void_p] * (4 + len(WEIGHT_NAMES) + 4) + [ctypes.c_int] * 4 + [
+        fn.argtypes = [ctypes.c_void_p] * (4 + len(WEIGHT_NAMES) + 1 + 4) + [ctypes.c_int] * 4 + [
             ctypes.c_void_p
         ]
         fn.restype = ctypes.c_int
+        check_wt_floats(lib.aonerf_fused_render_wt_floats, "fused_render")
         _lib = lib
     return _lib
 
@@ -202,9 +256,9 @@ def fused_render_level(
     samples_enc (R, S, 63) or (R*S, 63); weights from :func:`kernel_params`.
     Returns (comp_rgb (R,3), acc (R,), depth (R,), weights (R,S)).
 
-    On CUDA tensors this launches the kernel, one block per ``ray_tile`` rays;
-    ``rays_o`` is not read there, as in the TPU kernel. On CPU tensors it runs
-    the plain version.
+    On CUDA tensors this builds :func:`kernel_weights_t` and launches the
+    kernel, one block per ``ray_tile`` rays; ``rays_o`` is not read there, as
+    in the TPU kernel. On CPU tensors it runs the plain version.
     """
     global launches
     R, S = t_vals.shape
@@ -220,6 +274,7 @@ def fused_render_level(
     xenc = samples_enc.reshape(R * S, samples_enc.shape[-1])
     _check_inputs(kernel_params, t_vals, rays_d, viewdirs_enc, xenc, R, S)
     lib = _library()
+    wt = kernel_weights_t(kernel_params)
     comp = torch.empty((R, 3), dtype=torch.float32, device=t_vals.device)
     acc = torch.empty((R,), dtype=torch.float32, device=t_vals.device)
     depth = torch.empty((R,), dtype=torch.float32, device=t_vals.device)
@@ -228,7 +283,7 @@ def fused_render_level(
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.aonerf_fused_render_level(
             t_vals.data_ptr(), rays_d.data_ptr(), viewdirs_enc.data_ptr(), xenc.data_ptr(),
-            *[kernel_params[n].data_ptr() for n in WEIGHT_NAMES],
+            *[kernel_params[n].data_ptr() for n in WEIGHT_NAMES], wt.data_ptr(),
             comp.data_ptr(), acc.data_ptr(), depth.data_ptr(), weights.data_ptr(),
             R, S, ray_tile, int(white_bkgd), stream,
         )

@@ -35,8 +35,10 @@ from aonerf_torch.ops.kernels.fused_render import (
     WEIGHT_NAMES,
     WIDTH,
     _check_inputs,
+    check_wt_floats,
     integrate_ref,
     kernel_params,
+    kernel_weights_t,
     level_activations_ref,
 )
 
@@ -205,9 +207,9 @@ def _library():
         n_w = len(WEIGHT_NAMES)
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         for name, n_ptr in (
-            ("aonerf_fused_level_fwd_spill", 4 + n_w + 6),
+            ("aonerf_fused_level_fwd_spill", 4 + n_w + 1 + 6),
             ("aonerf_fused_level_bwd_saved", 4 + n_w + 4 + 2 + 5),
-            ("aonerf_fused_level_bwd", 4 + n_w + 4 + 6),
+            ("aonerf_fused_level_bwd", 4 + n_w + 1 + 4 + 6),
         ):
             fn = getattr(lib, name)
             fn.argtypes = [ptr] * n_ptr + [i32] * 4 + [ptr]
@@ -221,6 +223,7 @@ def _library():
         if lib.aonerf_fused_level_bwd_saved_floats() != SAVED_FLOATS:
             raise RuntimeError(f"fused_train: kernel saves {lib.aonerf_fused_level_bwd_saved_floats()} floats "
                                f"a sample, expected {SAVED_FLOATS}")
+        check_wt_floats(lib.aonerf_fused_level_wt_floats, "fused_train")
         _lib = lib
     return _lib
 
@@ -292,8 +295,9 @@ def fused_level_fwd_spill(
     SAVED_FLOATS), every sample's activations h0..h7, bottleneck and view
     hidden layer, and ``raw`` (R*S, 4), its raw sigma and rgb.
 
-    On CUDA tensors this launches K1s, one block per ``ray_tile`` rays; on
-    CPU tensors it runs the plain version.
+    On CUDA tensors this builds :func:`kernel_weights_t` and launches K1s,
+    one block per ``ray_tile`` rays; on CPU tensors it runs the plain
+    version.
     """
     global fwd_launches
     R, S = t_vals.shape
@@ -305,6 +309,7 @@ def fused_level_fwd_spill(
     xenc = samples_enc.reshape(R * S, samples_enc.shape[-1])
     _check_inputs(kernel_params, t_vals, rays_d, viewdirs_enc, xenc, R, S)
     lib = _library()
+    wt = kernel_weights_t(kernel_params)
     f32 = dict(dtype=torch.float32, device=dev)
     comp, acc, depth = torch.empty((R, 3), **f32), torch.empty((R,), **f32), torch.empty((R,), **f32)
     weights = torch.empty((R, S), **f32)
@@ -313,7 +318,7 @@ def fused_level_fwd_spill(
     _launch(
         "fused_level_fwd_spill", dev, lib.aonerf_fused_level_fwd_spill,
         t_vals.data_ptr(), rays_d.data_ptr(), viewdirs_enc.data_ptr(), xenc.data_ptr(),
-        *[kernel_params[n].data_ptr() for n in WEIGHT_NAMES],
+        *[kernel_params[n].data_ptr() for n in WEIGHT_NAMES], wt.data_ptr(),
         comp.data_ptr(), acc.data_ptr(), depth.data_ptr(), weights.data_ptr(), saved.data_ptr(), raw.data_ptr(),
         R, S, ray_tile, int(white_bkgd),
     )
@@ -405,12 +410,13 @@ def fused_level_bwd(
     _check_inputs(kernel_params, t_vals, rays_d, viewdirs_enc, xenc, R, S)
     _check_cotangents(g_comp, g_acc, g_depth, g_weights, R, S, dev)
     lib = _library()
+    wt = kernel_weights_t(kernel_params)
     scratch, grads = _backward_scratch(lib, kernel_params, R, S, ray_tile, dev)
     saved = torch.empty(R * S * SAVED_FLOATS, dtype=torch.float32, device=dev)
     _launch(
         "fused_level_bwd", dev, lib.aonerf_fused_level_bwd,
         t_vals.data_ptr(), rays_d.data_ptr(), viewdirs_enc.data_ptr(), xenc.data_ptr(),
-        *[kernel_params[n].data_ptr() for n in WEIGHT_NAMES],
+        *[kernel_params[n].data_ptr() for n in WEIGHT_NAMES], wt.data_ptr(),
         g_comp.data_ptr(), g_acc.data_ptr(), g_depth.data_ptr(), g_weights.data_ptr(),
         saved.data_ptr(), *[x.data_ptr() for x in scratch],
         R, S, ray_tile, int(white_bkgd),

@@ -9,7 +9,10 @@ Phases, each of which fails the run with a non-zero exit:
   2. build   - compiles every CUDA source of the port with nvcc.
   3. kernels - the fused level kernel against its plain PyTorch version at
                the serving path's shapes (4096 rays, S = 65 and 193, both
-               backgrounds), with times and the arithmetic bound.
+               backgrounds); on 512 of the rays, its error and the fp32
+               plain version's against the plain version in fp64, which
+               catches products that lost fp32 accuracy (plain TF32); times
+               and the bounds (3xTF32 on the tensor cores, and fp32).
   4. serving - a full-width NeRF from a seed renders two 320x240 test views of
                the analytic laptop scene through the image renderer; PSNR and
                SSIM against the ray-traced targets, rays/s, the kernel's launch
@@ -51,8 +54,12 @@ import torch
 PEAK_FP32_FLOPS = 67e12  # fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # HBM3
 # Multiply-adds per sample of the fused level: 63x256 + 4x256x256 + 256x256
-# + 63x256 + 2x256x256 + 256x1 + 256x256 + 256x128 + 128x3.
+# + 63x256 + 2x256x256 + 256x1 + 256x256 + 256x128 + 128x3. All but the
+# density and rgb heads run on the tensor cores (3xTF32) in K1 and K1s; the
+# heads and the per-ray view term (27x128 a ray) on the fp32 cores.
 MACS_PER_SAMPLE = 589952
+FWD_FP32_MACS = 256 + 128 * 3
+FWD_TC_MACS = MACS_PER_SAMPLE - FWD_FP32_MACS
 R = 4096  # rays per tile of the serving path
 H, W = 240, 320
 SEED = 0
@@ -62,6 +69,19 @@ TOL = {"comp": 1e-4, "acc": 1e-4, "weights": 1e-4, "depth": 1e-3, "saved": 1e-4,
 # A whole view rendered through the kernel vs through the plain version: the
 # kernel's 1e-4 on coarse weights moves fine t-values through the inverse CDF.
 TOL_RENDER_RGB = 1e-3
+# K1 against the plain version in fp64 on FP64_RAYS rays: each output's max
+# abs error / max |fp64| at most max(1e-6, 4 x the fp32 plain version's own
+# error on that output). 3xTF32 keeps fp32's accuracy and passes; one TF32
+# product (operands rounded to 2^-11) misses it ~300x on the CPU emulation
+# (tests/test_torch_tf32_fwd.py).
+TOL_FWD, TOL_FWD_FACTOR, FP64_RAYS = 1e-6, 4.0, 512
+# K1s' saved activations against the plain version in fp64, layer by layer
+# (h0..h7, bottleneck, view): each layer's rms error at most
+# SAVED_RMS_FACTOR x the fp32 plain version's rms error on that layer. The
+# outputs above hide a longer run of tensor-core accumulation (it truncates
+# as it adds); the saved layers show it (tools/torch_fwd_accuracy.py).
+SAVED_LAYERS = tuple(f"h{i}" for i in range(8)) + ("bottleneck", "view")
+SAVED_RMS_FACTOR = 1.5
 # Multiply-adds per sample of the level backward from the saved activations:
 # the weight products h^T.delta (as many as the forward) and the input
 # products delta.W^T (none for w0 and w5i); plus 27x128 per ray (dWvb).
@@ -168,13 +188,75 @@ def _view(rng, boxes, focal):
     return rays, target.astype(np.float32), alpha
 
 
-def _bound_ms(S: int, R: int = R) -> tuple:
-    flops = 2.0 * (R * S * MACS_PER_SAMPLE + R * 27 * 128)
+def _fwd_bounds(S: int, R: int = R, spill: bool = False) -> dict:
+    """The forward level's bounds, each (ms, what bounds it): "3xtf32" with
+    the arithmetic K1 and K1s do (the products in 3xTF32 on the tensor cores,
+    the heads and the view term on the fp32 cores), "fp32" with every product
+    on the fp32 cores; against the bytes of the inputs read once and the
+    outputs written once (with spill, K1s' saved and raw too)."""
+    rows = R * S
     n_weights = MACS_PER_SAMPLE + 27 * 128 + 8 * 256 + 1 + 256 + 128 + 3
-    bytes_moved = 4.0 * (R * S + R * 3 + R * 27 + R * S * 63 + n_weights  # inputs
-                         + R * 3 + R + R + R * S)  # outputs
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, bytes_moved / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    floats = (rows + R * 3 + R * 27 + rows * 63 + n_weights  # inputs
+              + R * 3 + R + R + rows)  # outputs
+    if spill:
+        floats += rows * (SAVED_FLOATS + 4)
+    t_bytes = 4.0 * floats / PEAK_BYTES * 1e3
+    fp32_narrow = 2.0 * (rows * FWD_FP32_MACS + R * 27 * 128) / PEAK_FP32_FLOPS * 1e3
+    tc = 3 * 2.0 * rows * FWD_TC_MACS / PEAK_TF32_FLOPS * 1e3
+    all_fp32 = 2.0 * (rows * MACS_PER_SAMPLE + R * 27 * 128) / PEAK_FP32_FLOPS * 1e3
+    return {"3xtf32": _bound(tc + fp32_narrow, t_bytes), "fp32": _bound(all_fp32, t_bytes)}
+
+
+def _fwd_errors(got, want64) -> dict:
+    """Per output of the level: max |got - want64| / max |want64|."""
+    return {n: ((g.double() - w).abs().max() / w.abs().max().clamp_min(1e-300)).item()
+            for n, g, w in zip(("comp", "acc", "depth", "weights"), got, want64)}
+
+
+def fp64_check(kp, t, o, d, venc, xenc, white: bool, got) -> float:
+    """K1's outputs `got` on the first FP64_RAYS rays against the plain
+    version in fp64, each held to max(TOL_FWD, TOL_FWD_FACTOR x the fp32
+    plain version's error); returns the largest ratio of error to limit."""
+    from aonerf_torch.ops.kernels import fused_render as fr
+
+    n = FP64_RAYS
+    sub = (t[:n], o[:n], d[:n], venc[:n], xenc[:n])
+    p64 = fr.fused_render_level_ref({k: v.double() for k, v in kp.items()}, *(a.double() for a in sub), white)
+    e_k = _fwd_errors([g[:n] for g in got], p64)
+    e_p = _fwd_errors(fr.fused_render_level_ref(kp, *sub, white), p64)
+    tol = {k: max(TOL_FWD, TOL_FWD_FACTOR * e_p[k]) for k in e_k}
+    ratio = {k: e_k[k] / tol[k] for k in e_k}
+    S = t.shape[1]
+    print(f"  S={S} white={white}: vs fp64 plain on {n} rays, kernel (fp32 plain; limit) "
+          + ", ".join(f"{k} {e_k[k]:.3e} ({e_p[k]:.3e}; {tol[k]:.3e})" for k in e_k))
+    bad = [k for k in e_k if not ratio[k] <= 1.0]
+    if bad:
+        fail(f"kernel S={S} white={white}: off the fp64 plain version beyond the fp32 limit on {bad}")
+    return max(ratio.values())
+
+
+def saved_fp64_check(args, saved, saved_plain) -> float:
+    """K1s' saved activations against the plain version in fp64, each layer
+    held to SAVED_RMS_FACTOR x the fp32 plain version's rms error; returns
+    the largest ratio of the kernel's rms error to fp32 plain's."""
+    from aonerf_torch.ops.kernels import fused_train as ft
+
+    kp, *rest = args
+    s64 = ft.fused_level_fwd_spill_ref({k: v.double() for k, v in kp.items()}, *(a.double() for a in rest), True)[4]
+    ratio = {}
+    for i, name in enumerate(SAVED_LAYERS):
+        cols = slice(256 * i, 256 * i + (128 if name == "view" else 256))
+        ref = s64[:, cols]
+        e_k, e_p = ((x[:, cols].double() - ref).pow(2).mean().sqrt().item() for x in (saved, saved_plain))
+        ratio[name] = e_k / max(e_p, 1e-300)
+    del s64
+    S = rest[0].shape[1]
+    print(f"  S={S}: saved vs fp64 plain, rms error over fp32 plain's (limit {SAVED_RMS_FACTOR:g}): "
+          + ", ".join(f"{n} {r:.3f}" for n, r in ratio.items()))
+    bad = [n for n, r in ratio.items() if not r <= SAVED_RMS_FACTOR]
+    if bad:
+        fail(f"K1s S={S}: saved layers off the fp64 plain version beyond {SAVED_RMS_FACTOR:g} x fp32's error on {bad}")
+    return max(ratio.values())
 
 
 def phase_kernels(nerf, boxes, focal) -> dict:
@@ -201,7 +283,7 @@ def phase_kernels(nerf, boxes, focal) -> dict:
     for kp, t, xenc in ((kp_c, t_c, xenc_c), (kp_f, t_f, xenc_f)):
         S = t.shape[1]
         args = (kp, t, o, d, venc, xenc)
-        errs = {}
+        errs, fp64_ratio = {}, 0.0
         for white in (True, False):
             got = fr.fused_render_level(*args, white)
             torch.cuda.synchronize()
@@ -211,25 +293,29 @@ def phase_kernels(nerf, boxes, focal) -> dict:
                     fail(f"kernel S={S} white={white}: non-finite {name}")
                 err = (g - w).abs().max().item()
                 errs[name] = max(errs.get(name, 0.0), err)
+            fp64_ratio = max(fp64_ratio, fp64_check(*args, white, got))
         print(
             f"kernel fused_render_level S={S}: max abs err "
             + ", ".join(f"{k} {v:.3e} (tol {TOL[k]:g})" for k, v in errs.items())
+            + f"; vs fp64, at most {fp64_ratio:.3f} of the limit"
         )
         bad = [k for k, v in errs.items() if not v <= TOL[k]]
         if bad:
             fail(f"kernel S={S} disagrees with its plain version on {bad}")
         ms = cuda_ms(lambda: fr.fused_render_level(*args, True), warmup=3, iters=20 if S > 100 else 40)
         plain_ms = cuda_ms(lambda: fr.fused_render_level_ref(*args, True), warmup=1, iters=5)
-        bound, bound_by = _bound_ms(S)
+        bounds = _fwd_bounds(S)
+        (bound, bound_by), bound32 = bounds["3xtf32"], bounds["fp32"][0]
         print(
-            f"  S={S}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound:.3f} ms "
-            f"({bound_by}; {2 * MACS_PER_SAMPLE * R * S / 1e12:.4f} TFLOP at 67 TFLOP/s fp32), "
-            f"{2 * MACS_PER_SAMPLE * R * S / ms / 1e9:.2f} TFLOP/s achieved"
+            f"  S={S}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound:.3f} ms ({bound_by}; "
+            f"{2 * MACS_PER_SAMPLE * R * S / 1e12:.4f} TFLOP, the products 3xTF32 at 495 TFLOP/s), "
+            f"{bound32:.3f} ms in fp32 at 67 TFLOP/s; {2 * MACS_PER_SAMPLE * R * S / ms / 1e9:.2f} TFLOP/s achieved"
         )
         levels.append({
             "S": S, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+            "bound_ms_fp32": bound32,
             "max_abs_err": max(errs["comp"], errs["acc"], errs["weights"]),
-            "depth_max_abs_err": errs["depth"],
+            "depth_max_abs_err": errs["depth"], "fp64_err_over_limit": fp64_ratio,
         })
     return {"levels": levels}
 
@@ -290,17 +376,6 @@ def phase_serving(nerf, boxes, focal) -> dict:
     if not diff <= TOL_RENDER_RGB:
         fail("the kernel's render disagrees with the plain version's")
     return {"launches": launches, "seconds_per_view": seconds / len(views)}
-
-
-def _spill_bound_ms(S: int, R: int) -> tuple:
-    """K1s' bound: K1's fp32 operations against K1's bytes plus the spill's
-    (saved and raw written once)."""
-    flops = 2.0 * (R * S * MACS_PER_SAMPLE + R * 27 * 128)
-    n_weights = MACS_PER_SAMPLE + 27 * 128 + 8 * 256 + 1 + 256 + 128 + 3
-    bytes_moved = 4.0 * (R * S + R * 3 + R * 27 + R * S * 63 + n_weights  # inputs
-                         + R * 3 + R + R + R * S  # outputs
-                         + R * S * (SAVED_FLOATS + 4))  # saved, raw
-    return _bound(flops / PEAK_FP32_FLOPS * 1e3, bytes_moved / PEAK_BYTES * 1e3)
 
 
 def _bwd_bytes(R: int, S: int) -> float:
@@ -455,7 +530,7 @@ def phase_spill(nerf, boxes, focal) -> dict:
     for kp, t, venc, xenc in lvls:
         S = t.shape[1]
         args = (kp, t, o, d, venc, xenc)
-        errs = {}
+        errs, saved_ratio = {}, None
         for white in (True, False):
             k1 = fr.fused_render_level(*args, white)
             got = ft.fused_level_fwd_spill(*args, white)
@@ -474,6 +549,8 @@ def phase_spill(nerf, boxes, focal) -> dict:
                 if not torch.isfinite(g).all():
                     fail(f"K1s S={S} white={white}: non-finite {name}")
                 errs[name] = max(errs.get(name, 0.0), (g - w).abs().max().item())
+            if saved_ratio is None:  # the MLP's activations do not depend on the background
+                saved_ratio = saved_fp64_check(args, got[4], want[4])
             del got, want
         print(f"kernel fused_level_fwd_spill S={S}: comp/acc/depth/weights equal to K1's bit for bit, both "
               "backgrounds; a repeat call gives the same bits; max abs err against the plain version "
@@ -489,14 +566,16 @@ def phase_spill(nerf, boxes, focal) -> dict:
         ms_again = cuda_ms(k1s, warmup=0, iters=iters)
         k1_again = cuda_ms(k1, warmup=0, iters=iters)
         plain_ms = cuda_ms(lambda: ft.fused_level_fwd_spill_ref(*args, True), warmup=1, iters=3)
-        bound, bound_by = _spill_bound_ms(S, R)
+        bounds = _fwd_bounds(S, R, spill=True)
+        (bound, bound_by), bound32 = bounds["3xtf32"], bounds["fp32"][0]
         print(f"  S={S}: K1s {ms:.3f} / {ms_again:.3f} ms, K1 {k1_ms:.3f} / {k1_again:.3f} ms (in turns: K1, "
-              f"K1s, K1s, K1); plain {plain_ms:.3f} ms; K1s bound {bound:.3f} ms ({bound_by}; K1's fp32 "
-              f"operations, {4.0 * R * S * (SAVED_FLOATS + 4) / 1e9:.3f} GB of spill at 3.35 TB/s "
-              f"{4e3 * R * S * (SAVED_FLOATS + 4) / PEAK_BYTES:.3f} ms), K1 bound {_bound_ms(S, R)[0]:.3f} ms")
+              f"K1s, K1s, K1); plain {plain_ms:.3f} ms; K1s bound {bound:.3f} ms ({bound_by}; K1's "
+              f"operations, the products 3xTF32; {4.0 * R * S * (SAVED_FLOATS + 4) / 1e9:.3f} GB of spill at "
+              f"3.35 TB/s {4e3 * R * S * (SAVED_FLOATS + 4) / PEAK_BYTES:.3f} ms), {bound32:.3f} ms in fp32; "
+              f"K1 bound {_fwd_bounds(S, R)['3xtf32'][0]:.3f} ms, {_fwd_bounds(S, R)['fp32'][0]:.3f} in fp32")
         levels.append({"S": S, "ms": ms, "ms_again": ms_again, "k1_ms": k1_ms, "k1_ms_again": k1_again,
-                       "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
-                       "max_abs_err": max(errs.values()), "errs": errs})
+                       "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by, "bound_ms_fp32": bound32,
+                       "max_abs_err": max(errs.values()), "errs": errs, "saved_rms_err_over_fp32": saved_ratio})
     return {"levels": levels}
 
 
@@ -818,7 +897,10 @@ def main() -> None:
         "max_abs_err": max(x["max_abs_err"] for x in lv),
         "ms": tile_ms,
         "plain_ms": both(lv, "plain_ms"),
+        # the products in 3xTF32 at the TF32 tensor-core peak, the heads at
+        # the fp32 peak; bound_ms_fp32: every product at the fp32 peak
         "bound_ms": both(lv, "bound_ms"),
+        "bound_ms_fp32": both(lv, "bound_ms_fp32"),
         "bound_by": bound_by(lv),
         "library_ms": None,
         "levels": lv,
@@ -836,6 +918,7 @@ def main() -> None:
         "ms": both(flv, "ms"),
         "plain_ms": both(flv, "plain_ms"),
         "bound_ms": both(flv, "bound_ms"),
+        "bound_ms_fp32": both(flv, "bound_ms_fp32"),
         "bound_by": bound_by(flv),
         "library_ms": None,
         "k1_ms": both(flv, "k1_ms"),

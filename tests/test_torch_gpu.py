@@ -62,6 +62,31 @@ def test_kernel_matches_plain_version(cuda, S, white_bkgd):
         assert err <= _TOLS[name], f"{name}: max abs err {err}"
 
 
+# K1 against the plain version in fp64: each output's max abs error / max
+# |fp64| at most max(1e-6, 4 x the fp32 plain version's own error on it).
+# 3xTF32 keeps fp32's accuracy; one TF32 product misses this ~300x
+# (tests/test_torch_tf32_fwd.py emulates both; chip_smoke.py phase 3 checks
+# the same at the serving path's shapes).
+_FWD_TOL, _FWD_FACTOR = 1e-6, 4.0
+
+
+@pytest.mark.parametrize("S", [65, 193])
+@pytest.mark.parametrize("white_bkgd", [True, False])
+def test_kernel_is_fp32_accurate(cuda, S, white_bkgd):
+    mlp = NeRFMLP(generator=torch.Generator().manual_seed(S), device=cuda)
+    with torch.no_grad():
+        kp = fr.kernel_params(mlp)
+        kp["bd"] += 0.5  # live densities, so the integrator's outputs depend on the MLP
+    args = _level_inputs(256, S, S, cuda)
+    got = fr.fused_render_level(kp, *args, white_bkgd)
+    p32 = fr.fused_render_level_ref(kp, *args, white_bkgd)
+    p64 = fr.fused_render_level_ref({n: v.double() for n, v in kp.items()}, *(a.double() for a in args), white_bkgd)
+    for name, g, w32, w64 in zip(("comp", "acc", "depth", "weights"), got, p32, p64):
+        tol = max(_FWD_TOL, _FWD_FACTOR * _rel_err(w32, w64))
+        rel = _rel_err(g, w64)
+        assert rel <= tol, f"{name}: max abs err / max |fp64 plain| = {rel} > {tol}"
+
+
 def test_kernel_rejects_what_it_does_not_take(cuda):
     mlp = NeRFMLP(generator=torch.Generator().manual_seed(0), device=cuda)
     kp = fr.kernel_params(mlp)
@@ -71,7 +96,7 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="shape"):
         fr.fused_render_level(kp, t, o, d, venc[:, :20], xenc, True)
     before = fr.launches
-    with pytest.raises(RuntimeError, match="launch failed"):  # 64 x 65 needs 241 KB
+    with pytest.raises(RuntimeError, match="launch failed"):  # 64 x 65 needs 251 KB
         fr.fused_render_level(kp, t, o, d, venc, xenc, True, ray_tile=64)
     assert fr.launches == before
     fr.fused_render_level(kp, t, o, d, venc, xenc, True)  # no stale error left behind
@@ -118,6 +143,27 @@ def test_fwd_spill_kernel_is_k1_and_matches_plain_version(cuda, S, white_bkgd):
         assert err <= _SPILL_TOL, f"{name}: max abs err {err}"
     again = ft.fused_level_fwd_spill(kp, *args, white_bkgd)
     assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+# K1s' saved activations against the plain version in fp64, layer by layer:
+# each layer's rms error at most 1.5 x the fp32 plain version's on it
+# (chip_smoke.py's SAVED_RMS_FACTOR states why).
+_SAVED_RMS_FACTOR = 1.5
+
+
+@pytest.mark.parametrize("S", [65, 193])
+def test_fwd_spill_kernel_saves_fp32_accurate_layers(cuda, S):
+    mlp = NeRFMLP(generator=torch.Generator().manual_seed(S), device=cuda)
+    with torch.no_grad():
+        kp = fr.kernel_params(mlp)
+    args = _level_inputs(256, S, S, cuda)
+    saved = ft.fused_level_fwd_spill(kp, *args, True)[4]
+    s32 = ft.fused_level_fwd_spill_ref(kp, *args, True)[4]
+    s64 = ft.fused_level_fwd_spill_ref({n: v.double() for n, v in kp.items()}, *(a.double() for a in args), True)[4]
+    for i in range(10):
+        cols = slice(256 * i, 256 * i + (128 if i == 9 else 256))
+        e_k, e_p = ((x[:, cols].double() - s64[:, cols]).pow(2).mean().sqrt().item() for x in (saved, s32))
+        assert e_k <= _SAVED_RMS_FACTOR * e_p, f"saved layer {i}: rms err {e_k} > {_SAVED_RMS_FACTOR} x {e_p}"
 
 
 def _cotangents(R, S, seed, device):
@@ -199,7 +245,7 @@ def test_bwd_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         ft.fused_level_bwd(kp, t, o, d, venc, xenc, gc, ga, gd, gw.t().contiguous().t(), True)
     before = ft.fwd_launches, ft.launches
-    with pytest.raises(RuntimeError, match="launch failed"):  # 64 x 65 needs 241 KB
+    with pytest.raises(RuntimeError, match="launch failed"):  # 64 x 65 needs 251 KB
         ft.fused_level_bwd(kp, t, o, d, venc, xenc, gc, ga, gd, gw, True, ray_tile=64)
     with pytest.raises(RuntimeError, match="launch failed"):
         ft.fused_level_fwd_spill(kp, t, o, d, venc, xenc, True, ray_tile=64)

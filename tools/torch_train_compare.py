@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Times the training forward and the train step of whichever ``aonerf_torch``
-comes first on the path, on one CUDA card, and prints one JSON line.
+"""Times the level kernels, the train step and a served view of whichever
+``aonerf_torch`` comes first on the path, on one CUDA card, and prints one
+JSON line.
 
     PYTHONPATH=. python3 tools/torch_train_compare.py --label change
     PYTHONPATH=build/parent python3 tools/torch_train_compare.py --label parent
@@ -10,7 +11,10 @@ run the two in turns in one call on one card (parent, change, change,
 parent). At the train step's shapes (2048 rays, S = 65 and 193, random
 inputs and weights from a seed) it times K1 (``fused_render_level``) and,
 where the tree has it, K1s (``fused_level_fwd_spill``) by CUDA events, in
-turns; then the train step of ``config/vanilla.json`` (batch 2048, 64+128
+turns, and K1 at the serving tile's 4096 rays; then a 320x240 view rendered
+through ``make_image_renderer`` (chunk 4096, random NeRF from a seed),
+seconds per view by the host clock over two views after one; then the train
+step of ``config/vanilla.json`` (batch 2048, 64+128
 samples, fp32) on an 8-view 320x240 synthetic scene: ms per step by the host
 clock around ``torch.cuda.synchronize()``, and the peak device memory of a
 multi-step (``torch.cuda.max_memory_allocated()``).
@@ -75,8 +79,33 @@ def time_levels(device) -> dict:
             k1s = lambda: spill(*args)  # noqa: E731
             row["k1s_ms"] = [cuda_ms(k1s, warmup=2, iters=iters), cuda_ms(k1s, warmup=0, iters=iters)]
         row["k1_ms"].append(cuda_ms(k1, warmup=0, iters=iters))
+        args4096 = (kp, *level_inputs(4096, S, S, device), True)
+        row["k1_4096_ms"] = cuda_ms(lambda: fr.fused_render_level(*args4096), warmup=2, iters=iters // 2)
         out[f"S={S}"] = row
     return out
+
+
+def time_view(device) -> dict:
+    from aonerf_torch.data.camera import get_ray_directions_np, get_rays_np
+    from aonerf_torch.data.synthetic import FOVY_DEG, random_pose_on_sphere
+    from aonerf_torch.eval.render import make_image_renderer
+    from aonerf_torch.models.nerf import NeRF
+
+    H, W = 240, 320
+    nerf = NeRF(generator=torch.Generator().manual_seed(0), device=device).eval()
+    focal = 0.5 * H / np.tan(0.5 * np.deg2rad(FOVY_DEG))
+    c2w = random_pose_on_sphere(np.random.default_rng(1))
+    rays_o, viewdirs, rays_d, _ = get_rays_np(get_ray_directions_np(H, W, focal), c2w[:3, :4])
+    rays = {k: torch.from_numpy(v).to(device) for k, v in
+            (("rays_o", rays_o), ("rays_d", rays_d), ("viewdirs", viewdirs))}
+    render = make_image_renderer(nerf, True, 2.0, 6.0, chunk=4096)
+    render(rays)  # warm-up view
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        render(rays)
+    torch.cuda.synchronize()
+    return {"seconds_per_view": (time.perf_counter() - t0) / 2}
 
 
 def time_train_step(device) -> dict:
@@ -127,7 +156,8 @@ def main() -> None:
                          capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
     device = torch.device("cuda")
     row = {"label": args.label, "package": os.path.relpath(os.path.dirname(aonerf_torch.__file__), ROOT),
-           "card": smi[0] if smi else None, "levels": time_levels(device), "train": time_train_step(device)}
+           "card": smi[0] if smi else None, "levels": time_levels(device), "view": time_view(device),
+           "train": time_train_step(device)}
     print(json.dumps(row), flush=True)
 
 
