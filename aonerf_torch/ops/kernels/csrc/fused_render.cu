@@ -25,8 +25,8 @@
 //    accumulate (a fresh one every 32 deep, as K2's B1 has, left the
 //    activations twice fp32's error against fp64). The
 //    product is gemm_wt (nerf_level.cuh), the one K2's B1 runs: the weights
-//    are read transposed (out x in; the wrapper rebuilds the 2.4 MB copy
-//    every launch), so the weight is the mma's "col" operand.
+//    are read transposed (out x in, K-major; the wrapper rebuilds the 2.4 MB
+//    copy every launch), so the weight is the mma's "col" operand.
 //  * One block (256 threads) owns `ray_tile` whole rays and walks their
 //    ray_tile*S samples in chunks of 64 rows, packed across ray boundaries so
 //    only the last chunk is padded (S = 65 or 193 is not a multiple of 64).
@@ -35,10 +35,13 @@
 //    keeps a 32-row x 64-column output tile (32 x 32 in the 128-wide view
 //    layer) in registers, so a layer is written back over its own input once
 //    every thread has finished reading it: one activation buffer.
-//  * The weights (~2.4 MB for one MLP) do not fit in shared memory. Each
-//    product streams 32-column K-slices of its transposed weight (256 x 36
-//    floats) through a cp.async double buffer while the previous slice is
-//    multiplied; the whole set stays hot in L2.
+//  * The weights (~2.4 MB for one MLP) do not fit in shared memory, and
+//    every 64-row chunk reads all of them from L2 in the same order. One
+//    TMA stream per block (WeightRing, nerf_level.cuh) walks that order as
+//    16-deep K-slices of the transposed copies (one 2D tensor map per
+//    weight, encoded by the launcher for every launch) through a 5-stage
+//    ring, wrapping from chunk to chunk, with one mbarrier wait per slice
+//    and refills issued 4 slices ahead across layer boundaries.
 //  * The skip layer is a split product, w5x . h + w5i . x_enc (K padded to
 //    64, the pad column of x_enc and of w5i^T zero), into one accumulator;
 //    the encoded input chunk is kept beside the activation.
@@ -51,19 +54,20 @@
 //    32-sample steps (the TPU kernel's triangular matmul), weights, rgb, acc,
 //    depth.
 //
-// Shared memory: 64x260 activation + 64x68 encoded input + 2x256x36 weight
-// slices + ray_tile x (128 + 4 S) per-ray values, 215,296 bytes at
+// Shared memory: the 83 KB weight ring, 64x260 activation + 64x68 encoded
+// input + ray_tile x (128 + 4 S) per-ray values, 224,640 bytes at
 // ray_tile=16, S=193. One block per SM. The chunk walk, the product and the
 // integrator live in nerf_level.cuh, shared with the training forward K1s
 // (fused_train.cu), which computes the same bits and also saves the
 // activations. K1 serves and validates; training runs K1s.
 //
 // ptxas (-Xptxas -v, sm_90a, CUDA 12.8, printed by chip_smoke.py's build
-// phase on the H100): 255 registers, 64 bytes of spill stores and 80 of
-// spill loads (64-byte stack frame); the fp32-FMA walk it replaced used 168
-// and no spill. Measured there (NVIDIA H100 80GB HBM3, 700 W): 21.7 / 7.5
-// ms at 4096 rays x S = 193 / 65, ~26% / ~25% of the 3xTF32 bound, against
-// 29.5 / 10.2 ms for the fp32-FMA walk.
+// phase on the H100): 216 registers, no spill. Measured there (NVIDIA H100
+// 80GB HBM3, 700 W; tools/torch_train_compare.py): 17.6 / 6.2 ms at 4096
+// rays x S = 193 / 65, ~32% / ~31% of the 3xTF32 bound. What bounds it is
+// the product's own instruction stream (mma.sync with the TF32 split of
+// every fragment), not the staging: a ring of 3, 4 or 5 stages takes the
+// same time, one of 2 stages ~20% more.
 
 #include "nerf_level.cuh"
 
@@ -74,18 +78,19 @@ using namespace aonerf;
 __global__ void __launch_bounds__(kThreads, 1)
 fused_render_level_kernel(const float* __restrict__ t, const float* __restrict__ rays_d,
                           const float* __restrict__ venc, const float* __restrict__ xenc, Weights w,
-                          WeightsT wt, float* __restrict__ comp, float* __restrict__ acc_out,
-                          float* __restrict__ depth, float* __restrict__ weights_out, int S,
-                          int ray_tile, int white_bkgd) {
+                          const __grid_constant__ WeightMaps maps, float* __restrict__ comp,
+                          float* __restrict__ acc_out, float* __restrict__ depth,
+                          float* __restrict__ weights_out, int S, int ray_tile, int white_bkgd) {
   extern __shared__ __align__(16) float smem[];
   const ForwardSmem m = carve_forward_smem(smem, S, ray_tile);
   const int ray0 = blockIdx.x * ray_tile;
   const int n_rows = ray_tile * S;
   const size_t row_base = (size_t)ray0 * S;
 
+  FwdRing ring(m.ring, maps.m, n_rows);
   view_terms(venc, w.wvb, m.cterm, ray0, ray_tile);
   for (int row0 = 0; row0 < n_rows; row0 += kRows)
-    forward_chunk<false>(xenc, w, wt, m, row_base, row0, n_rows, S, nullptr);
+    forward_chunk<false>(xenc, w, ring, m, row_base, row0, n_rows, S, nullptr);
 
   integrate_rays(t, rays_d, m.sig, m.rgb, ray0, ray_tile, S, white_bkgd, comp, acc_out, depth, weights_out);
 }
@@ -94,15 +99,17 @@ fused_render_level_kernel(const float* __restrict__ t, const float* __restrict__
 
 extern "C" {
 
-// Floats of the packed transposed product weights `wt` (WeightsT).
+// Floats of the packed transposed product weights `wt` (FwdSchedule).
 int aonerf_fused_render_wt_floats() { return kWtFloats; }
 
 // Launches one level on `stream`. Pointers are device pointers to contiguous
 // fp32 arrays: the level's inputs, its 26 weights in the flax (in, out)
 // layout (the kernel reads their biases and narrow heads), and `wt`, the
-// packed transposed copies of its 11 product weights (WeightsT, kWtFloats).
-// n_rays % ray_tile == 0. Returns cudaGetLastError() after the launch (0 on
-// success).
+// packed transposed copies of its 11 product weights (FwdSchedule,
+// kWtFloats, 16-byte aligned), over which it encodes the TMA maps of this
+// launch. n_rays % ray_tile == 0. Returns cudaGetLastError() after the
+// launch (0 on success), or kMapError + the driver's CUresult if a tensor map
+// was refused.
 int aonerf_fused_render_level(const float* t, const float* rays_d, const float* venc,
                               const float* xenc, const float* w0, const float* b0,
                               const float* w1, const float* b1, const float* w2, const float* b2,
@@ -123,10 +130,12 @@ int aonerf_fused_render_level(const float* t, const float* rays_d, const float* 
     cudaGetLastError();  // clear it, so the next launch does not report it
     return err;
   }
+  WeightMaps maps;
+  if (int map_err = encode_forward_maps(maps, wt)) return map_err;
   Weights w{w0, b0, w1, b1, w2, b2, w3, b3, w4, b4, w5x, w5i, b5, w6, b6, w7, b7,
             wd, bd, wb, bb, wva, wvb, bv, wr, br};
   fused_render_level_kernel<<<n_rays / ray_tile, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      t, rays_d, venc, xenc, w, unpack_weights_t(wt), comp, acc, depth, weights, S, ray_tile, white_bkgd);
+      t, rays_d, venc, xenc, w, maps, comp, acc, depth, weights, S, ray_tile, white_bkgd);
   return cudaGetLastError();
 }
 

@@ -19,7 +19,8 @@
 //     2.83 ms at 495/3 TFLOP/s, 6.96 ms were it fp32 FMA at 67 TFLOP/s, over
 //     its 3.85 GB of spill, 1.15 ms at 3.35 TB/s): K1's forward walk
 //     (nerf_level.cuh: every 256- and 128-wide product through gemm_wt on the
-//     weights' transposed copies `wt`) over the block's ray_tile rays, and
+//     weights' transposed copies `wt`, streamed by TMA through the block's
+//     5-stage weight ring) over the block's ray_tile rays, and
 //     K1's integrator forward, so comp/acc/depth/weights are K1's bits. Every
 //     valid row's activations (h0..h7, bottleneck, view hidden: kSpill =
 //     2432 floats) go to the scratch `saved`: after each layer's epilogue has
@@ -29,15 +30,15 @@
 //     next epilogue overwrites the tile; the copy engine moves the 3.85 GB
 //     while the warps run the next layer's product. The copies carry an
 //     L2::evict_first policy. Every block re-reads all 2.4 MB of weights per
-//     64-row chunk from L2, and the spill writes ~84 MB through L2 between
-//     two reads of one layer's slice; without the policy the weights were
-//     evicted and came back from HBM, which cost the fp32-FMA walk 2.0 / 5.8
-//     ms over K1 at S = 65 / 193 on the H100, with bulk copies and
-//     per-thread stores alike; with it, 0.06 / 0.3 ms. Each sample's raw
-//     sigma and rgb go to `raw` (4 floats). Spilling beats recomputing: a
-//     64-row chunk's eight trunk activations (512 KB) do not fit in shared
-//     memory, and the integrator backward needs a whole ray before any
-//     chunk's MLP backward.
+//     64-row chunk from L2 (the ring's TMA loads), and the spill writes ~84
+//     MB through L2 between two reads of one layer's slice; without the
+//     policy the weights were evicted and came back from HBM, which cost the
+//     fp32-FMA walk 2.0 / 5.8 ms over K1 at S = 65 / 193 on the H100, with
+//     bulk copies and per-thread stores alike; with it, 0.06 / 0.3 ms. Each
+//     sample's raw sigma and rgb go to `raw` (4 floats). Spilling beats
+//     recomputing: a 64-row chunk's eight trunk activations (512 KB) do not
+//     fit in shared memory, and the integrator backward needs a whole ray
+//     before any chunk's MLP backward.
 //  I. level_bwd_integrator_kernel (bound by bytes, 16 MB): one warp per ray
 //     runs the integrator forward and backward from `raw`: g_w from the
 //     cotangents, g_alpha = g_w T - suffix(g_w w) / max(1 - alpha + 1e-10,
@@ -53,13 +54,18 @@
 //     floats a sample, laid out like `saved`). delta . W^T is a 64 x 256
 //     product on mma.sync m16n8k8 TF32 (gemm_wt, in nerf_level.cuh, which the
 //     forward walk also runs): B(k, n) = W[n][k] is the "col" operand read
-//     straight from W's flax (in, out) layout, staged in 32-wide K-slices
-//     (256 x 36 floats) through a cp.async double buffer, so B1 needs no
-//     transposed copy of any weight. The narrow head products (wr, br,
+//     from W's flax (in, out) layout, which is K-major for this product, so
+//     B1 needs no transposed copy of any weight. The block's weight stream
+//     (B1Schedule: wva, wb, w7 .. w1, 136 16-deep K-slices a chunk) runs
+//     through a 5-stage TMA ring of 16-deep slices, as the forward's does;
+//     each saved activation H a chunk's product masks with is loaded by
+//     cp.async under the product before it and waited for before the
+//     product's closing barrier. The narrow head products (wr, br,
 //     wd, bd; wvb through the per-ray sum of delta_v, rows in order) stay on
 //     fp32 FMA (N = 3 and 1 fit no tensor-core tile; 0.1% of the work), each
 //     chunk's sum added to the thread's running sum, written once per block to
-//     its narrow set (kNarrowFloats). Shared memory 216 KB at ray_tile 16.
+//     its narrow set (kNarrowFloats). Shared memory 225,408 bytes at
+//     ray_tile 16 (the 83 KB ring, D and H, the per-ray and per-row terms).
 //  B2. level_bwd_dw_kernel (3xTF32 tensor cores; bound by operations,
 //     2.82 ms at 495/3 TFLOP/s, over its 7.6 GB, 2.27 ms): every dW_l = H^T
 //     Delta_l (H from `saved`, or xenc for w0 and w5i) as a split-K product
@@ -96,11 +102,18 @@
 // KB.
 //
 // ptxas (-Xptxas -v, sm_90a, CUDA 12.8, printed by chip_smoke.py's build
-// phase on the H100): K1s 255 registers, 64 bytes of spill stores and 72 of
-// spill loads (64-byte stack frame; the fp32-FMA walk used 168, no spill);
-// the integrator backward 39; B1 255 registers, 240 bytes of spill stores
-// and 336 of spill loads (256-byte stack frame); B2 128 registers (capped by
-// __launch_bounds__(256, 2)), no spill; the reduction 31 registers.
+// phase on the H100): K1s 220 registers, no spill; the integrator backward
+// 39; B1 255 registers, 20 bytes of spill stores and 20 of spill loads
+// (24-byte stack frame); B2 128 registers (capped by __launch_bounds__(256,
+// 2)), no spill; the reduction 31 registers.
+//
+// Measured there (NVIDIA H100 80GB HBM3, 700 W; tools/torch_train_compare.py,
+// 2048 rays, S = 65 / 193): K1s 3.33-3.40 / 9.51-9.77 ms, B1 3.26-3.31 /
+// 9.15-9.22 ms, ~29% of their 3xTF32 bounds. What bounds K1s and B1 is the
+// product's own instruction stream (mma.sync with the TF32 split of every
+// fragment), not the staging: a ring of 3, 4 or 5 stages gives K1s the same
+// time (B1 takes 3% more with 3), one of 2 stages 24% (K1s) and 36% (B1)
+// more.
 
 #include "nerf_level.cuh"
 
@@ -140,8 +153,8 @@ __constant__ Layout c_layout = make_layout();
 
 // Pass B1. The delta scratch holds kSpill floats a sample, shaped like the
 // saved rows: delta_0..delta_7 at l * kWidth, the bottleneck's gradient at
-// kSpillBtl, delta_v at kSpillView. D and H (kRows x kAct) and the weight
-// slices (kWidth x kWs) use the forward's strides (nerf_level.cuh).
+// kSpillBtl, delta_v at kSpillView. D and H (kRows x kAct) use the forward's
+// activation stride, the weight ring its stages (nerf_level.cuh).
 // A B1 block's narrow partial set: the head gradients summed over its rays.
 constexpr int kNarrowWd = 0, kNarrowBd = kNarrowWd + kWidth, kNarrowWr = kNarrowBd + 4,
               kNarrowBr = kNarrowWr + kCondWidth * 3, kNarrowWvb = kNarrowBr + 4,
@@ -192,9 +205,10 @@ constexpr int kDwTiles = count_tiles();  // 72
 // integrator backward.
 __global__ void __launch_bounds__(kThreads, 1)
 level_fwd_spill_kernel(const float* __restrict__ t, const float* __restrict__ rays_d,
-                       const float* __restrict__ venc, const float* __restrict__ xenc, Weights w, WeightsT wt,
-                       float* __restrict__ comp, float* __restrict__ acc_out, float* __restrict__ depth,
-                       float* __restrict__ weights_out, float* __restrict__ saved, float* __restrict__ raw,
+                       const float* __restrict__ venc, const float* __restrict__ xenc, Weights w,
+                       const __grid_constant__ WeightMaps maps, float* __restrict__ comp,
+                       float* __restrict__ acc_out, float* __restrict__ depth, float* __restrict__ weights_out,
+                       float* __restrict__ saved, float* __restrict__ raw,
                        int S, int ray_tile, int white_bkgd) {
   extern __shared__ __align__(16) float smem[];
   const ForwardSmem m = carve_forward_smem(smem, S, ray_tile);
@@ -202,9 +216,10 @@ level_fwd_spill_kernel(const float* __restrict__ t, const float* __restrict__ ra
   const int n_rows = ray_tile * S;
   const size_t row_base = (size_t)ray0 * S;
 
+  FwdRing ring(m.ring, maps.m, n_rows);
   view_terms(venc, w.wvb, m.cterm, ray0, ray_tile);
   for (int row0 = 0; row0 < n_rows; row0 += kRows)
-    forward_chunk<true>(xenc, w, wt, m, row_base, row0, n_rows, S, saved + (row_base + row0) * kSpill);
+    forward_chunk<true>(xenc, w, ring, m, row_base, row0, n_rows, S, saved + (row_base + row0) * kSpill);
   // forward_chunk ended with a barrier: sig and rgb are complete
   const float *sig = m.sig, *rgb = m.rgb;
   for (int i = threadIdx.x; i < n_rows; i += kThreads)
@@ -348,29 +363,35 @@ __device__ __forceinline__ void load_rows(float* H, const float* __restrict__ ro
   cp_async_commit();
 }
 
-// The trunk weights whose transpose the delta chain multiplies by: w[l] for
-// l = 1..7, w[5] = w5x.
-struct Trunk {
-  const float* w[8];
-};
+// After one of B1's products: this thread's cp.async group (the next saved
+// activation H, loaded under the product) has landed, and after the barrier
+// every thread's has, and every warp has finished reading D, which the
+// epilogue overwrites.
+__device__ __forceinline__ void delta_product_done() {
+  cp_async_wait<0>();
+  __syncthreads();
+}
 
+// `maps` holds B1Schedule's weights (wva, wb, w7, w6, w5x, w4, w3, w2, w1)
+// in their flax layout.
 __global__ void __launch_bounds__(kThreads, 1)
 level_bwd_delta_kernel(const float* __restrict__ venc, const float* __restrict__ wd, const float* __restrict__ wr,
-                       const float* __restrict__ wva, const float* __restrict__ wb, Trunk trunk,
-                       const float* __restrict__ saved, const float* __restrict__ grow, float* __restrict__ delta,
-                       float* __restrict__ narrow, int S, int ray_tile) {
+                       const __grid_constant__ WeightMaps maps, const float* __restrict__ saved,
+                       const float* __restrict__ grow, float* __restrict__ delta, float* __restrict__ narrow, int S,
+                       int ray_tile) {
   extern __shared__ __align__(16) float smem[];
-  float* D = smem;                         // kRows x kAct: the current delta
-  float* H = D + kRows * kAct;             // kRows x kAct: a saved activation
-  float* wbuf = H + kRows * kAct;          // 2 x kWidth x kWs: weight slices
-  float* gc = wbuf + 2 * kWidth * kWs;     // ray_tile x kCondWidth: per-ray sum of delta_v
-  float* gs = gc + ray_tile * kCondWidth;  // kRows: g_raw_sigma
-  float* grgb = gs + kRows;                // kRows x 3: g_raw_rgb
+  float* ring_buf = ring_base(smem);                     // the weight ring and its barriers
+  float* D = ring_buf + kRingBytes / sizeof(float);      // kRows x kAct: the current delta
+  float* H = D + kRows * kAct;                           // kRows x kAct: a saved activation
+  float* gc = H + kRows * kAct;                          // ray_tile x kCondWidth: per-ray sum of delta_v
+  float* gs = gc + ray_tile * kCondWidth;                // kRows: g_raw_sigma
+  float* grgb = gs + kRows;                              // kRows x 3: g_raw_rgb
 
   const int tid = threadIdx.x;
   const int ray0 = blockIdx.x * ray_tile;
   const int n_rows = ray_tile * S;
   const size_t row_base = (size_t)ray0 * S;
+  WeightRing<B1Schedule> ring(ring_buf, maps.m, n_rows);
 
   for (int i = tid; i < ray_tile * kCondWidth; i += kThreads) gc[i] = 0.f;
   // This thread's head gradients over the block's rows, each chunk's sum
@@ -431,10 +452,11 @@ level_bwd_delta_kernel(const float* __restrict__ venc, const float* __restrict__
       *reinterpret_cast<float4*>(dv + (size_t)r * kSpill + kSpillView + c) =
           *reinterpret_cast<const float4*>(D + r * kAct + c);
     }
-    load_rows<kWidth>(H, sv + 7 * kWidth, valid_rows);  // h7, lands in gemm_wt
+    load_rows<kWidth>(H, sv + 7 * kWidth, valid_rows);  // h7, lands under the product
     ChunkAcc<kWidth> acc;
     zero_acc(acc);  // g_btl = delta_v . wva^T
-    gemm_wt<kWidth, kAct>(acc, D, kCondWidth, wva, wbuf);
+    gemm_wt<kWidth, kAct, 4>(acc, D, kCondWidth, ring);
+    delta_product_done();
     store_delta(acc, D, nullptr, nullptr, nullptr, dv + kSpillBtl, valid_rows);
     {  // density head: wd += h7^T g_raw_sigma
       float s = 0.f;
@@ -442,12 +464,14 @@ level_bwd_delta_kernel(const float* __restrict__ venc, const float* __restrict__
       n_wd += s;
     }
     zero_acc(acc);  // delta_7 = (g_btl . wb^T + g_raw_sigma wd^T) * (h7 > 0)
-    gemm_wt<kWidth, kAct>(acc, D, kWidth, wb, wbuf);
+    gemm_wt<kWidth, kAct, 4>(acc, D, kWidth, ring);
+    delta_product_done();
     store_delta(acc, D, H, gs, wd, dv + 7 * kWidth, valid_rows);
-    for (int l = 6; l >= 0; --l) {  // delta_l = (delta_{l+1} . W_{l+1}^T) * (h_l > 0)
+    for (int l = 6; l >= 0; --l) {  // delta_l = (delta_{l+1} . W_{l+1}^T) * (h_l > 0), W_5 = w5x
       load_rows<kWidth>(H, sv + l * kWidth, valid_rows);
       zero_acc(acc);
-      gemm_wt<kWidth, kAct>(acc, D, kWidth, trunk.w[l + 1], wbuf);
+      gemm_wt<kWidth, kAct, 4>(acc, D, kWidth, ring);
+      delta_product_done();
       store_delta(acc, D, H, nullptr, nullptr, dv + l * kWidth, valid_rows);
     }
   }
@@ -623,8 +647,8 @@ __global__ void level_bwd_reduce_kernel(const float* __restrict__ partials, cons
 }
 
 size_t delta_smem_bytes(int ray_tile) {
-  return sizeof(float) * (2 * (size_t)kRows * kAct + 2 * (size_t)kWidth * kWs + (size_t)ray_tile * kCondWidth +
-                          4 * (size_t)kRows);
+  return kRingAlign + kRingBytes +
+         sizeof(float) * (2 * (size_t)kRows * kAct + (size_t)ray_tile * kCondWidth + 4 * (size_t)kRows);
 }
 
 cudaError_t set_smem(const void* kernel, size_t bytes) {
@@ -637,19 +661,20 @@ bool bad_shape(int n_rays, int S, int ray_tile) {
   return n_rays <= 0 || S <= 0 || ray_tile <= 0 || n_rays % ray_tile != 0;
 }
 
-cudaError_t launch_fwd_spill(const float* t, const float* rays_d, const float* venc, const float* xenc,
-                             const Weights& w, const WeightsT& wt, float* comp, float* acc, float* depth, float* weights,
-                             float* saved, float* raw, int n_rays, int S, int ray_tile, int white_bkgd,
-                             cudaStream_t s) {
+int launch_fwd_spill(const float* t, const float* rays_d, const float* venc, const float* xenc, const Weights& w,
+                     const float* wt, float* comp, float* acc, float* depth, float* weights, float* saved, float* raw,
+                     int n_rays, int S, int ray_tile, int white_bkgd, cudaStream_t s) {
   const size_t smem = forward_smem_bytes(S, ray_tile);
   cudaError_t err = set_smem((const void*)level_fwd_spill_kernel, smem);
   if (err != cudaSuccess) return err;
-  level_fwd_spill_kernel<<<n_rays / ray_tile, kThreads, smem, s>>>(t, rays_d, venc, xenc, w, wt, comp, acc, depth,
-                                                                  weights, saved, raw, S, ray_tile, white_bkgd);
+  WeightMaps maps;
+  if (int map_err = encode_forward_maps(maps, wt)) return map_err;
+  level_fwd_spill_kernel<<<n_rays / ray_tile, kThreads, smem, s>>>(t, rays_d, venc, xenc, w, maps, comp, acc,
+                                                                  depth, weights, saved, raw, S, ray_tile, white_bkgd);
   return cudaGetLastError();
 }
 
-cudaError_t launch_bwd_saved(const float* t, const float* rays_d, const float* venc, const float* xenc,
+int launch_bwd_saved(const float* t, const float* rays_d, const float* venc, const float* xenc,
                              const Weights& w, const float* g_comp, const float* g_acc, const float* g_depth,
                              const float* g_weights, const float* saved, const float* raw, float* grow,
                              float* delta, float* partials, float* narrow, float* out, int n_rays, int S,
@@ -659,7 +684,9 @@ cudaError_t launch_bwd_saved(const float* t, const float* rays_d, const float* v
   if (err != cudaSuccess) return err;
   if ((err = set_smem((const void*)level_bwd_delta_kernel, smem_b1)) != cudaSuccess) return err;
   if ((err = set_smem((const void*)level_bwd_dw_kernel, kDwSmemBytes)) != cudaSuccess) return err;
-  const Trunk trunk{{nullptr, w.w1, w.w2, w.w3, w.w4, w.w5x, w.w6, w.w7}};
+  WeightMaps maps;
+  const float* b1_weights[B1Schedule::kProducts] = {w.wva, w.wb, w.w7, w.w6, w.w5x, w.w4, w.w3, w.w2, w.w1};
+  if (int map_err = encode_weight_maps<B1Schedule>(maps, b1_weights)) return map_err;
   const int n_blocks = n_rays / ray_tile;
   const int n_total = n_rays * S;
   // Whole kDwStep steps per range; the last ranges may be short or empty.
@@ -667,8 +694,8 @@ cudaError_t launch_bwd_saved(const float* t, const float* rays_d, const float* v
   level_bwd_integrator_kernel<<<(n_rays + kWarps - 1) / kWarps, kThreads, smem_i, s>>>(
       t, rays_d, raw, g_comp, g_acc, g_depth, g_weights, grow, n_rays, S, white_bkgd);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  level_bwd_delta_kernel<<<n_blocks, kThreads, smem_b1, s>>>(venc, w.wd, w.wr, w.wva, w.wb, trunk, saved, grow,
-                                                             delta, narrow, S, ray_tile);
+  level_bwd_delta_kernel<<<n_blocks, kThreads, smem_b1, s>>>(venc, w.wd, w.wr, maps, saved, grow, delta, narrow, S,
+                                                             ray_tile);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   level_bwd_dw_kernel<<<kRanges * kDwTiles, kThreads, kDwSmemBytes, s>>>(saved, xenc, delta, partials, n_total,
                                                                          rows_per_range);
@@ -703,23 +730,24 @@ int aonerf_fused_level_bwd_saved_floats() { return kSpill; }
 int aonerf_fused_level_bwd_ranges() { return kRanges; }
 int aonerf_fused_level_bwd_narrow_floats() { return kNarrowFloats; }
 
-// Floats of the forward's packed transposed product weights `wt` (WeightsT).
+// Floats of the forward's packed transposed product weights `wt` (FwdSchedule).
 int aonerf_fused_level_wt_floats() { return kWtFloats; }
 
 // K1s, the training forward, on `stream`. Pointers are device pointers to
 // contiguous fp32 arrays: the level's inputs, its 26 weights in the flax
 // (in, out) layout and `wt`, the packed transposed product weights
-// (WeightsT, kWtFloats), as for aonerf_fused_render_level; its outputs comp (R,3),
+// (FwdSchedule, kWtFloats), as for aonerf_fused_render_level; its outputs comp (R,3),
 // acc (R), depth (R), weights (R,S); and what the backward reads, `saved`
 // (R*S*kSpill, the activations) and `raw` (R*S*4: raw sigma, raw rgb).
-// n_rays % ray_tile == 0. Returns the launch's error (0 on success).
+// n_rays % ray_tile == 0. Returns the launch's error (0 on success), or
+// kMapError + the driver's CUresult if a tensor map was refused.
 int aonerf_fused_level_fwd_spill(const float* t, const float* rays_d, const float* venc, const float* xenc,
                                  AONERF_WEIGHT_PARAMS, const float* wt, float* comp, float* acc, float* depth,
                                  float* weights, float* saved, float* raw, int n_rays, int S, int ray_tile,
                                  int white_bkgd, void* stream) {
   if (bad_shape(n_rays, S, ray_tile)) return cudaErrorInvalidValue;
-  return launch_fwd_spill(t, rays_d, venc, xenc, AONERF_WEIGHTS, unpack_weights_t(wt), comp, acc, depth, weights, saved, raw, n_rays,
-                          S, ray_tile, white_bkgd, static_cast<cudaStream_t>(stream));
+  return launch_fwd_spill(t, rays_d, venc, xenc, AONERF_WEIGHTS, wt, comp, acc, depth, weights, saved, raw, n_rays, S,
+                          ray_tile, white_bkgd, static_cast<cudaStream_t>(stream));
 }
 
 // The level's weight gradient from what K1s saved, on `stream`: the
@@ -728,7 +756,8 @@ int aonerf_fused_level_fwd_spill(const float* t, const float* rays_d, const floa
 // `saved` and `raw`; scratch `grow` (R*S*4), `delta` (R*S*kSpill),
 // `partials` (kRanges * kPartialFloats) and `narrow` ((R/ray_tile) *
 // kNarrowFloats); the output `out` (kPartialFloats). Returns the first launch
-// error (0 on success).
+// error (0 on success), or kMapError + the driver's CUresult if a tensor map
+// was refused.
 int aonerf_fused_level_bwd_saved(const float* t, const float* rays_d, const float* venc, const float* xenc,
                                  AONERF_WEIGHT_PARAMS, const float* g_comp, const float* g_acc,
                                  const float* g_depth, const float* g_weights, const float* saved,
@@ -758,9 +787,9 @@ int aonerf_fused_level_bwd(const float* t, const float* rays_d, const float* ven
   float* depth = acc + n_rays;
   const Weights w = AONERF_WEIGHTS;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = launch_fwd_spill(t, rays_d, venc, xenc, w, unpack_weights_t(wt), comp, acc, depth, weights,
-                                     saved, raw, n_rays, S, ray_tile, white_bkgd, s);
-  if (err != cudaSuccess) return err;
+  if (int err = launch_fwd_spill(t, rays_d, venc, xenc, w, wt, comp, acc, depth, weights, saved, raw, n_rays, S,
+                                 ray_tile, white_bkgd, s))
+    return err;
   return launch_bwd_saved(t, rays_d, venc, xenc, w, g_comp, g_acc, g_depth, g_weights, saved, raw, grow, delta,
                           partials, narrow, out, n_rays, S, ray_tile, white_bkgd, s);
 }

@@ -6,17 +6,47 @@
 // samples packed across ray boundaries and runs the 8x256 MLP on a chunk with
 // its activation in shared memory. Every 256- and 128-wide product runs on
 // the tensor cores in 3xTF32 (mma.sync m16n8k8, fp32 accuracy) through
-// gemm_wt, the product K2's B1 also runs: A from the shared tile, the weight
-// transposed (out x in) in device memory and streamed in 32-column K-slices
-// through a cp.async double buffer. The 1- and 3-wide heads and the per-ray
-// view term stay on fp32 FMA. Each ray is then integrated by one warp (a
-// prefix sum of log(max(1 - alpha + 1e-10, 1e-10)) with a carry across
-// 32-sample steps). The training forward also saves each chunk's activations
-// to a per-row scratch (`Spill`, kSpill floats per sample) by bulk copies out
-// of the shared activation tile.
+// gemm_wt, the product K2's B1 also runs: A from the shared tile, B from a
+// weight stored (out x in) row-major, i.e. K-major, in device memory. The 1-
+// and 3-wide heads and the per-ray view term stay on fp32 FMA. Each ray is
+// then integrated by one warp (a prefix sum of log(max(1 - alpha + 1e-10,
+// 1e-10)) with a carry across 32-sample steps). The training forward also
+// saves each chunk's activations to a per-row scratch (`Spill`, kSpill
+// floats a sample) by bulk copies out of the shared activation tile.
+//
+// The weight stream (WeightRing). Within a 64-row chunk a kernel multiplies
+// by a fixed sequence of weights (a schedule: 11 products, 152 16-deep
+// K-slices in the forward; 9 and 136 in B1), and every chunk repeats it. One
+// stream per block walks that sequence slice by slice (all N rows x kDepth =
+// 16 columns, 16 KB), wrapping from chunk to chunk, into a ring of kStages
+// stages. Thread 0 issues each slice as one TMA copy (cp.async.bulk.tensor,
+// a 2D tensor map per weight, encoded on the host for every launch) that
+// completes on the stage's full barrier; each warp, once it has read a
+// stage, arrives on the stage's empty barrier, and thread 0 waits for that
+// before it refills the stage. Thread 0 computes too: after reading slice j
+// it issues slice j + kStages - 1 into the stage slice j - 1 left, so it
+// waits only for the slowest warp to leave the slice before, and a layer's
+// first slices are in flight while the previous layer's last slices and its
+// epilogue run. A consumer pays one wait per slice (mbarrier.try_wait.parity)
+// and no block barrier; the only barriers left are the epilogues' (the
+// activation tile is overwritten in place). TMA stages each slice in the
+// SWIZZLE_64B layout: row n's 16-byte chunk c lies at chunk c ^ ((n / 2) % 4)
+// of its 64-byte row, so the B fragments' 8 rows x 4 columns hit 32
+// different banks. Only TMA writes the ring, so its buffers need no proxy
+// fence.
+//
+// Budget: 5 stages x 16 KB, 128 bytes of barriers and up to 1 KB of
+// alignment, 83,072 bytes: K1/K1s take 224,640 bytes and B1 225,408 at
+// ray_tile 16, S = 193, of the 232,448 a block may have, so a sixth stage
+// does not fit. Measured on the H100 (tools/torch_train_compare.py, in
+// turns), 3, 4 and 5 stages give K1 and K1s the same time and B1 3% more at
+// 3, and 2 stages 20-36% more. So the staging does not bound K1, K1s or B1:
+// the product's own instruction stream does (mma.sync with the TF32 split of
+// every A and B fragment, 8 warps a SM).
 
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime's entry point
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -28,7 +58,6 @@ constexpr int kPos = 63;         // encoded sample features
 constexpr int kPosPad = 64;
 constexpr int kView = 27;        // encoded view-direction features
 constexpr int kRows = 64;        // rows (samples) per chunk
-constexpr int kSlice = 32;       // K (reduction) columns per staged weight slice
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
@@ -36,12 +65,19 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kSpillBtl = 8 * kWidth;
 constexpr int kSpillView = kSpillBtl + kWidth;
 constexpr int kSpill = kSpillView + kCondWidth;
-// Row strides in shared memory, all 4 mod 32 so that the mma fragments' loads
+// Row strides in shared memory, both 4 mod 32 so that the A fragments' loads
 // (8 rows x 4 columns a warp) hit 32 different banks: a 256-wide activation
-// tile, the encoded-input tile (K padded to 64), a staged weight slice.
+// tile, the encoded-input tile (K padded to 64).
 constexpr int kAct = kWidth + 4;
 constexpr int kXs = kPosPad + 4;
-constexpr int kWs = kSlice + 4;
+// The weight ring: kStages stages of kDepth K-columns x up to kWidth rows
+// (64-byte rows, SWIZZLE_64B), aligned as the swizzle needs, then its
+// 2 x kStages barriers.
+constexpr int kDepth = 16;
+constexpr int kStages = 5;
+constexpr int kStageFloats = kWidth * kDepth;
+constexpr int kRingAlign = 1024;
+constexpr size_t kRingBytes = sizeof(float) * kStages * kStageFloats + 128;
 // k8 steps (3 mma each) that one fresh accumulator sums in the forward's
 // products (B1 keeps 4, 12 mma). The tensor cores truncate as they add into
 // the accumulator, so a longer run loses more, and the forward's error
@@ -60,50 +96,141 @@ struct Weights {
   const float *wd, *bd, *wb, *bb, *wva, *wvb, *bv, *wr, *br;
 };
 
-// The forward's copy of its 11 tensor-core product weights: each transposed
-// (out x in, row-major), K = in padded to a multiple of kSlice (w0 and w5i:
-// 256 x 64, column 63 zero), packed in this order into one buffer of
-// kWtFloats that the wrapper rebuilds every launch from the flax weights.
-struct WeightsT {
-  const float *w0, *w1, *w2, *w3, *w4, *w5x, *w5i, *w6, *w7, *wb, *wva;
+// The weights a chunk's products read, in the order it reads them: product i
+// is a row-major n(i) x k(i) matrix W (B(k, n) = W[n][k]).
+// The forward reads the transposed copies (out x in) of w0, w1, w2, w3, w4,
+// w5x, w5i, w6, w7, wb, wva, with w0 and w5i's K = 63 padded to 64 by a zero
+// column; they are packed in this order into one buffer of kWtFloats that
+// the wrapper rebuilds every launch from the flax weights.
+struct FwdSchedule {
+  static constexpr int kProducts = 11;
+  __host__ __device__ static constexpr int k(int i) { return i == 0 || i == 6 ? kPosPad : kWidth; }
+  __host__ __device__ static constexpr int n(int i) { return i == 10 ? kCondWidth : kWidth; }
 };
-constexpr int kWtTrunk = kWidth * kWidth, kWtIn = kWidth * kPosPad;
-constexpr int kWtFloats = 2 * kWtIn + 8 * kWtTrunk + kCondWidth * kWidth;
+// B1 reads the flax (in, out) layout of wva, wb, w7, w6, w5x, w4, w3, w2, w1,
+// so it multiplies by their transposes.
+struct B1Schedule {
+  static constexpr int kProducts = 9;
+  __host__ __device__ static constexpr int k(int i) { return i == 0 ? kCondWidth : kWidth; }
+  __host__ __device__ static constexpr int n(int) { return kWidth; }
+};
+template <class Sched>
+__host__ __device__ constexpr int schedule_slices() {
+  int n = 0;
+  for (int i = 0; i < Sched::kProducts; ++i) n += Sched::k(i) / kDepth;
+  return n;
+}
+template <class Sched>
+__host__ __device__ constexpr int schedule_floats() {
+  int n = 0;
+  for (int i = 0; i < Sched::kProducts; ++i) n += Sched::n(i) * Sched::k(i);
+  return n;
+}
+constexpr int kWtFloats = schedule_floats<FwdSchedule>();
 
-inline WeightsT unpack_weights_t(const float* wt) {
-  WeightsT w;
-  const float** dst[] = {&w.w0, &w.w1, &w.w2, &w.w3, &w.w4, &w.w5x, &w.w5i, &w.w6, &w.w7, &w.wb, &w.wva};
-  const int size[] = {kWtIn, kWtTrunk, kWtTrunk, kWtTrunk, kWtTrunk, kWtTrunk, kWtIn, kWtTrunk, kWtTrunk,
-                      kWtTrunk, kCondWidth * kWidth};
-  for (int i = 0; i < 11; ++i) {
-    *dst[i] = wt;
-    wt += size[i];
+// One 2D TMA map per product of a schedule; a kernel parameter
+// (__grid_constant__), so the TMA unit reads it from parameter space.
+constexpr int kMaxProducts = 11;
+struct WeightMaps {
+  CUtensorMap m[kMaxProducts];
+};
+
+// Returned by the launchers when the driver refuses a tensor map: kMapError
+// plus the CUresult.
+constexpr int kMapError = 1000;
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda).
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) {
+      cudaGetLastError();
+      return nullptr;
+    }
+    fn = reinterpret_cast<EncodeTiledFn>(p);
   }
-  return w;
+  return fn;
+}
+
+// Encodes the maps of a schedule's products, the i-th over the n(i) x k(i)
+// row-major fp32 matrix at w[i], boxes of kDepth columns x n(i) rows, no
+// out-of-bounds access (every K is a multiple of kDepth). Returns 0, or
+// kMapError + the driver's CUresult.
+template <class Sched>
+int encode_weight_maps(WeightMaps& maps, const float* const* w) {
+  static_assert(Sched::kProducts <= kMaxProducts, "one map per product");
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return kMapError + CUDA_ERROR_NOT_FOUND;
+  for (int i = 0; i < Sched::kProducts; ++i) {
+    const cuuint64_t dims[2] = {(cuuint64_t)Sched::k(i), (cuuint64_t)Sched::n(i)};
+    const cuuint64_t strides[1] = {(cuuint64_t)Sched::k(i) * sizeof(float)};
+    const cuuint32_t box[2] = {(cuuint32_t)kDepth, (cuuint32_t)Sched::n(i)};
+    const cuuint32_t unit[2] = {1, 1};
+    const CUresult r = encode(&maps.m[i], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(w[i]), dims, strides,
+                              box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (r != CUDA_SUCCESS) return kMapError + (int)r;
+  }
+  return 0;
+}
+
+// The forward's maps over the packed transposed copies `wt` (kWtFloats).
+inline int encode_forward_maps(WeightMaps& maps, const float* wt) {
+  const float* w[FwdSchedule::kProducts];
+  for (int i = 0; i < FwdSchedule::kProducts; ++i) {
+    w[i] = wt;
+    wt += FwdSchedule::n(i) * FwdSchedule::k(i);
+  }
+  return encode_weight_maps<FwdSchedule>(maps, w);
+}
+
+// Slices a block's stream holds in all: its chunks times the schedule.
+template <class Sched>
+__host__ __device__ constexpr int stream_slices(int n_rows) {
+  return (n_rows + kRows - 1) / kRows * schedule_slices<Sched>();
 }
 
 // The forward walk's shared memory for ray_tile rays of S samples: the
-// chunk's activation (kRows x kAct) and encoded input (kRows x kXs), the
-// weight-slice double buffer (2 x kWidth x kWs), per-ray view terms, and
-// per-sample raw sigma and rgb. 215,296 bytes at ray_tile 16, S = 193.
+// weight ring, the chunk's activation (kRows x kAct) and encoded input (kRows
+// x kXs), per-ray view terms, and per-sample raw sigma and rgb. 224,640
+// bytes at ray_tile 16, S = 193.
 struct ForwardSmem {
-  float *act, *xs, *wbuf, *cterm, *sig, *rgb;
+  float *ring, *act, *xs, *cterm, *sig, *rgb;
 };
+
+// The ring's base: the dynamic shared memory rounded up to kRingAlign (each
+// size that counts it adds kRingAlign bytes).
+__device__ __forceinline__ float* ring_base(float* smem) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  return smem + ((kRingAlign - (s & (kRingAlign - 1))) & (kRingAlign - 1)) / sizeof(float);
+}
 
 __device__ __forceinline__ ForwardSmem carve_forward_smem(float* smem, int S, int ray_tile) {
   ForwardSmem m;
-  m.act = smem;
+  m.ring = ring_base(smem);
+  m.act = m.ring + kRingBytes / sizeof(float);
   m.xs = m.act + kRows * kAct;
-  m.wbuf = m.xs + kRows * kXs;
-  m.cterm = m.wbuf + 2 * kWidth * kWs;
+  m.cterm = m.xs + kRows * kXs;
   m.sig = m.cterm + ray_tile * kCondWidth;
   m.rgb = m.sig + ray_tile * S;
   return m;
 }
 
 inline size_t forward_smem_bytes(int S, int ray_tile) {
-  return sizeof(float) * ((size_t)kRows * kAct + (size_t)kRows * kXs + 2 * (size_t)kWidth * kWs +
-                          (size_t)ray_tile * kCondWidth + 4 * (size_t)ray_tile * S);
+  return kRingAlign + kRingBytes +
+         sizeof(float) * ((size_t)kRows * kAct + (size_t)kRows * kXs + (size_t)ray_tile * kCondWidth +
+                          4 * (size_t)ray_tile * S);
 }
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
@@ -142,6 +269,50 @@ __device__ __forceinline__ void bulk_store_row(float* dst, const float* src, int
 __device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
 __device__ __forceinline__ void bulk_wait_read() { asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory"); }
 __device__ __forceinline__ void bulk_wait_all() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
+
+// mbarriers in shared memory, and TMA loads that complete on them.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// Returns once the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n"
+      ".reg .b64 state;\n"
+      "mbarrier.arrive.shared::cta.b64 state, [%0];\n"
+      "}\n" ::"r"(smem_addr(bar))
+      : "memory");
+}
+// One arrival, and `bytes` more to come from the async proxy.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(bytes)
+               : "memory");
+}
+// The box of `map` at (x, y) = (column, row) into dst; completes on bar.
+__device__ __forceinline__ void tma_load_2d(float* dst, const CUtensorMap* map, uint64_t* bar, int x, int y) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(x), "r"(y)
+      : "memory");
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -214,56 +385,107 @@ __device__ __forceinline__ void zero_acc(float (&acc)[M][N][4]) {
 template <int N>
 using ChunkAcc = float[2][N / 32][4];
 
-// Stage columns [k0, k0 + kSlice) of W (N x K, row-major) into buf (N rows
-// of stride kWs), as one committed cp.async group.
-template <int N>
-__device__ __forceinline__ void stage_wt(float* buf, const float* __restrict__ W, int K, int k0) {
-  constexpr int kVec = kSlice / 4;
-  for (int i = threadIdx.x; i < N * kVec; i += kThreads) {
-    const int n = i / kVec, c = (i % kVec) * 4;
-    cp_async16(buf + n * kWs + c, W + (size_t)n * K + k0 + c, true);
-  }
-  cp_async_commit();
-}
+// A block's weight stream over the schedule Sched (see the note at the top):
+// the ring at `buf` (kStages x kStageFloats floats, kRingAlign-aligned, then
+// the full and the empty barriers), the products' tensor maps, and the
+// stream's length. Every thread keeps its own copy, and all of them read the
+// same slices in the same order.
+template <class Sched>
+struct WeightRing {
+  float* buf;
+  const CUtensorMap* maps;
+  int total;  // slices the block reads in all
+  int j = 0;  // the next slice this thread reads
 
-// acc += A[:, :K] . W^T in 3xTF32, A (kRows x Lda) in shared memory, W (N x
-// K, K % kSlice == 0) row-major in device memory: B(k, n) = W[n][k] is read
-// as the "col" operand, through a cp.async double buffer of K-slices in wbuf
-// (2 x kWidth x kWs). K2's B1 passes a weight in its flax (in, out) layout
-// (so it multiplies by the transpose); the forward passes the transposed copy
-// (out x in, WeightsT), so it multiplies by the weight. A fresh accumulator
-// sums each Run k8 steps (3 Run mma) and is added into acc in fp32. Every
-// cp.async group committed before the call has landed by the first barrier.
-// Ends with a barrier: every thread has finished reading A and wbuf when it
-// returns. With Spill, thread 0's bulk copies of the previous layer's
-// activation have also finished reading it by then, so the caller may
-// overwrite it.
-template <int N, int Lda, bool Spill = false, int Run = kSlice / 8>
-__device__ __forceinline__ void gemm_wt(ChunkAcc<N>& acc, const float* A, int K, const float* __restrict__ W,
-                                        float* wbuf) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int r0 = (warp >> 2) * 32, c0 = (warp & 3) * (N / 4);
-  const int n_slices = K / kSlice;
-  stage_wt<N>(wbuf, W, K, 0);
-  for (int s = 0; s < n_slices; ++s) {
-    const float* ws = wbuf + (s & 1) * kWidth * kWs;
-    if (s + 1 < n_slices) {
-      stage_wt<N>(wbuf + ((s + 1) & 1) * kWidth * kWs, W, K, (s + 1) * kSlice);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  __device__ uint64_t* full(int stage) const {
+    return reinterpret_cast<uint64_t*>(buf + kStages * kStageFloats) + stage;
+  }
+  __device__ uint64_t* empty(int stage) const { return full(kStages) + stage; }
+
+  // Every thread of the block calls it once, before any other use; it ends
+  // with thread 0's first kStages - 1 slices in flight.
+  __device__ WeightRing(float* ring, const CUtensorMap* weight_maps, int n_rows)
+      : buf(ring), maps(weight_maps), total(stream_slices<Sched>(n_rows)) {
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < kStages; ++s) {
+        mbar_init(full(s), 1);
+        mbar_init(empty(s), kWarps);
+      }
+      mbar_init_fence();
     }
     __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int n = 0; n < kStages - 1 && n < total; ++n) issue(n);
+    }
+  }
+
+  // Thread 0: slice n of the stream into stage n % kStages, once every warp
+  // has left the slice that held it before (n - kStages).
+  __device__ void issue(int n) const {
+    const int stage = n % kStages;
+    if (n >= kStages) mbar_wait(empty(stage), (n / kStages - 1) & 1);
+    const int p = n % schedule_slices<Sched>();
+    int prod = 0, k0 = 0, rows = 0;
 #pragma unroll
-    for (int k0 = 0; k0 < kSlice; k0 += 8 * Run) {
-      ChunkAcc<N> part;
-      zero_acc(part);
+    for (int i = 0, first = 0; i < Sched::kProducts; first += Sched::k(i) / kDepth, ++i) {
+      if (p >= first && p < first + Sched::k(i) / kDepth) {
+        prod = i;
+        k0 = (p - first) * kDepth;
+        rows = Sched::n(i);
+      }
+    }
+    mbar_arrive_expect_tx(full(stage), rows * kDepth * (int)sizeof(float));
+    tma_load_2d(buf + stage * kStageFloats, maps + prod, full(stage), k0, 0);
+  }
+
+  // The next slice, once it has landed.
+  __device__ const float* acquire() const {
+    const int stage = j % kStages;
+    mbar_wait(full(stage), (j / kStages) & 1);
+    return buf + stage * kStageFloats;
+  }
+
+  // The warp has read the slice acquire() gave; thread 0 then refills the
+  // stage of the slice before it.
+  __device__ void release() {
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) mbar_arrive(empty(j % kStages));
+    if (threadIdx.x == 0 && j + kStages - 1 < total) issue(j + kStages - 1);
+    ++j;
+  }
+};
+
+// acc += A[:, :K] . W^T in 3xTF32, A (kRows x Lda) in shared memory and W
+// (N x K, K % (8 Run) == 0) the product of the schedule whose slices come
+// next in `ring`: B(k, n) = W[n][k] is read as the "col" operand from the
+// slice's SWIZZLE_64B layout. K2's B1 streams the weights in their flax (in,
+// out) layout, so it multiplies by the transpose; the forward streams the
+// transposed copies, so it multiplies by the weight. A fresh accumulator
+// sums each Run k8 steps (3 Run mma; one or more whole slices) and is added
+// into acc in fp32, in k order. No block barrier: the caller orders any
+// write to A after every warp's reads.
+template <int N, int Lda, int Run, class Sched>
+__device__ __forceinline__ void gemm_wt(ChunkAcc<N>& acc, const float* A, int K, WeightRing<Sched>& ring) {
+  static_assert((8 * Run) % kDepth == 0, "a run is whole slices");
+  constexpr int kRunSlices = 8 * Run / kDepth;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = (warp >> 2) * 32, c0 = (warp & 3) * (N / 4);
+  const float* a_frag = A + (r0 + g) * Lda + t;
+  // Row c0 + 8 ni + g of a slice, column t of each 16-byte chunk; the chunk
+  // index is XORed with (row / 2) % 4 = (g / 2) % 4, the same for every ni.
+  const int b_row = (c0 + g) * kDepth + t, swz = ((g >> 1) & 3) * 4;
+  for (int k0 = 0; k0 < K; k0 += 8 * Run) {
+    ChunkAcc<N> part;
+    zero_acc(part);
 #pragma unroll
-      for (int kk = k0; kk < k0 + 8 * Run; kk += 8) {
+    for (int r = 0; r < kRunSlices; ++r) {
+      const float* ws = ring.acquire() + b_row;
+#pragma unroll
+      for (int kk = 0; kk < kDepth; kk += 8) {
         uint32_t ab[2][4], as[2][4];
 #pragma unroll
         for (int mi = 0; mi < 2; ++mi) {
-          const float* p = A + (r0 + 16 * mi + g) * Lda + s * kSlice + kk + t;
+          const float* p = a_frag + 16 * mi * Lda + k0 + r * kDepth + kk;
           split_tf32(p[0], ab[mi][0], as[mi][0]);
           split_tf32(p[8 * Lda], ab[mi][1], as[mi][1]);
           split_tf32(p[4], ab[mi][2], as[mi][2]);
@@ -271,20 +493,17 @@ __device__ __forceinline__ void gemm_wt(ChunkAcc<N>& acc, const float* A, int K,
         }
 #pragma unroll
         for (int ni = 0; ni < N / 32; ++ni) {
-          const float* q = ws + (c0 + 8 * ni + g) * kWs + kk + t;
+          const float* q = ws + 8 * kDepth * ni;
           uint32_t bb[2], bs[2];
-          split_tf32(q[0], bb[0], bs[0]);
-          split_tf32(q[4], bb[1], bs[1]);
+          split_tf32(q[kk ^ swz], bb[0], bs[0]);
+          split_tf32(q[(kk + 4) ^ swz], bb[1], bs[1]);
 #pragma unroll
           for (int mi = 0; mi < 2; ++mi) mma_3xtf32(part[mi][ni], ab[mi], as[mi], bb, bs);
         }
       }
-      add_into(acc, part);
+      ring.release();
     }
-    if constexpr (Spill) {
-      if (s + 1 == n_slices && threadIdx.x == 0) bulk_wait_read();
-    }
-    __syncthreads();
+    add_into(acc, part);
   }
 }
 
@@ -293,7 +512,7 @@ __device__ __forceinline__ void gemm_wt(ChunkAcc<N>& acc, const float* A, int K,
 // barrier so the next layer reads the whole new activation. With Spill,
 // thread 0 then copies the rows below valid_rows (N floats each) to
 // spill + row * kSpill by bulk copies, one committed group; the next
-// gemm_wt<..., true> waits for them to finish reading act.
+// product_done<true> waits for them to finish reading act.
 template <int N, bool Spill>
 __device__ __forceinline__ void store_act(const ChunkAcc<N>& acc, const float* __restrict__ bias, bool relu,
                                           float* act, const float* cterm, int row0, int S, int n_rows,
@@ -342,14 +561,29 @@ __device__ __forceinline__ void store_act(const ChunkAcc<N>& acc, const float* _
   }
 }
 
-// One 256-wide layer with ReLU, act = relu(A[:, :K] . W + bias), in place
-// (Wt = W transposed, 256 x K).
+// After a forward product: every warp has finished reading its A (the
+// activation tile or xs), and, with Spill, thread 0's bulk copies of the
+// previous layer's activation have finished reading the tile, so the
+// epilogue may overwrite it.
+template <bool Spill>
+__device__ __forceinline__ void product_done() {
+  if constexpr (Spill) {
+    if (threadIdx.x == 0) bulk_wait_read();
+  }
+  __syncthreads();
+}
+
+using FwdRing = WeightRing<FwdSchedule>;
+
+// One 256-wide layer with ReLU, act = relu(A[:, :K] . W + bias), in place,
+// W the next product of the stream.
 template <int Lda, bool Spill>
-__device__ __forceinline__ void dense_relu(const float* A, int K, const float* Wt, const float* bias, float* act,
-                                           float* wbuf, float* spill, int valid_rows) {
+__device__ __forceinline__ void dense_relu(const float* A, int K, FwdRing& ring, const float* bias, float* act,
+                                           float* spill, int valid_rows) {
   ChunkAcc<kWidth> acc;
   zero_acc(acc);
-  gemm_wt<kWidth, Lda, Spill, kFwdRun>(acc, A, K, Wt, wbuf);
+  gemm_wt<kWidth, Lda, kFwdRun>(acc, A, K, ring);
+  product_done<Spill>();
   store_act<kWidth, Spill>(acc, bias, true, act, nullptr, 0, 1, 1, spill, valid_rows);
 }
 
@@ -368,12 +602,13 @@ __device__ __forceinline__ void view_terms(const float* __restrict__ venc, const
 
 // The MLP on the chunk of rows [row0, row0 + kRows) of the block's n_rows
 // packed samples: raw sigma to sig[row], raw rgb to rgb[3 row]. Biases and
-// the narrow heads come from w, the product weights from wt. With Spill,
+// the narrow heads come from w, the product weights from the stream, in
+// FwdSchedule's order. With Spill,
 // each layer's activation of the valid rows also goes to the saved-activation
 // rows at `spill` (already offset to the chunk's first row). Ends with a
 // barrier.
 template <bool Spill>
-__device__ __forceinline__ void forward_chunk(const float* __restrict__ xenc, const Weights& w, const WeightsT& wt,
+__device__ __forceinline__ void forward_chunk(const float* __restrict__ xenc, const Weights& w, FwdRing& ring,
                                               const ForwardSmem& m, size_t row_base, int row0, int n_rows, int S,
                                               float* spill) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -387,20 +622,21 @@ __device__ __forceinline__ void forward_chunk(const float* __restrict__ xenc, co
   }
   __syncthreads();
 
-  dense_relu<kXs, Spill>(m.xs, kPosPad, wt.w0, w.b0, act, m.wbuf, spill, valid_rows);
-  dense_relu<kAct, Spill>(act, kWidth, wt.w1, w.b1, act, m.wbuf, spill + kWidth, valid_rows);
-  dense_relu<kAct, Spill>(act, kWidth, wt.w2, w.b2, act, m.wbuf, spill + 2 * kWidth, valid_rows);
-  dense_relu<kAct, Spill>(act, kWidth, wt.w3, w.b3, act, m.wbuf, spill + 3 * kWidth, valid_rows);
-  dense_relu<kAct, Spill>(act, kWidth, wt.w4, w.b4, act, m.wbuf, spill + 4 * kWidth, valid_rows);
+  dense_relu<kXs, Spill>(m.xs, kPosPad, ring, w.b0, act, spill, valid_rows);  // w0
+  dense_relu<kAct, Spill>(act, kWidth, ring, w.b1, act, spill + kWidth, valid_rows);
+  dense_relu<kAct, Spill>(act, kWidth, ring, w.b2, act, spill + 2 * kWidth, valid_rows);
+  dense_relu<kAct, Spill>(act, kWidth, ring, w.b3, act, spill + 3 * kWidth, valid_rows);
+  dense_relu<kAct, Spill>(act, kWidth, ring, w.b4, act, spill + 4 * kWidth, valid_rows);
   {  // skip layer: relu(h . w5x + x_enc . w5i + b5), one accumulator
     ChunkAcc<kWidth> a5;
     zero_acc(a5);
-    gemm_wt<kWidth, kAct, false, kFwdRun>(a5, act, kWidth, wt.w5x, m.wbuf);
-    gemm_wt<kWidth, kXs, Spill, kFwdRun>(a5, m.xs, kPosPad, wt.w5i, m.wbuf);
+    gemm_wt<kWidth, kAct, kFwdRun>(a5, act, kWidth, ring);    // w5x
+    gemm_wt<kWidth, kXs, kFwdRun>(a5, m.xs, kPosPad, ring);   // w5i
+    product_done<Spill>();
     store_act<kWidth, Spill>(a5, w.b5, true, act, nullptr, 0, 1, 1, spill + 5 * kWidth, valid_rows);
   }
-  dense_relu<kAct, Spill>(act, kWidth, wt.w6, w.b6, act, m.wbuf, spill + 6 * kWidth, valid_rows);
-  dense_relu<kAct, Spill>(act, kWidth, wt.w7, w.b7, act, m.wbuf, spill + 7 * kWidth, valid_rows);
+  dense_relu<kAct, Spill>(act, kWidth, ring, w.b6, act, spill + 6 * kWidth, valid_rows);
+  dense_relu<kAct, Spill>(act, kWidth, ring, w.b7, act, spill + 7 * kWidth, valid_rows);
 
   // Density head (256 -> 1), one warp per row.
   const float bd = __ldg(w.bd);
@@ -411,17 +647,19 @@ __device__ __forceinline__ void forward_chunk(const float* __restrict__ xenc, co
     s = warp_sum(s);
     if (lane == 0) m.sig[row0 + r] = s + bd;
   }
-  {  // bottleneck (no activation), in place; gemm_wt's first barrier orders
+  {  // bottleneck (no activation), in place; product_done's barrier orders
      // it after the density reads
     ChunkAcc<kWidth> ab;
     zero_acc(ab);
-    gemm_wt<kWidth, kAct, Spill, kFwdRun>(ab, act, kWidth, wt.wb, m.wbuf);
+    gemm_wt<kWidth, kAct, kFwdRun>(ab, act, kWidth, ring);  // wb
+    product_done<Spill>();
     store_act<kWidth, Spill>(ab, w.bb, false, act, nullptr, 0, 1, 1, spill + kSpillBtl, valid_rows);
   }
   {  // view layer: relu(btl . wva + cterm[ray] + bv) -> act[:, :128]
     ChunkAcc<kCondWidth> av;
     zero_acc(av);
-    gemm_wt<kCondWidth, kAct, Spill, kFwdRun>(av, act, kWidth, wt.wva, m.wbuf);
+    gemm_wt<kCondWidth, kAct, kFwdRun>(av, act, kWidth, ring);  // wva
+    product_done<Spill>();
     store_act<kCondWidth, Spill>(av, w.bv, true, act, m.cterm, row0, S, n_rows, spill + kSpillView, valid_rows);
   }
   // rgb head (128 -> 3), one warp per row.

@@ -41,6 +41,9 @@ RAY_TILE = 16
 
 # Launches of the CUDA kernel since the count was last set to 0.
 launches = 0
+# A launcher's return code at or above this is this plus the CUresult with
+# which the driver refused one of the weight stream's TMA maps (kMapError).
+MAP_ERROR = 1000
 
 
 def kernel_params(mlp) -> Dict[str, torch.Tensor]:
@@ -215,6 +218,16 @@ def _check_inputs(kernel_params, t_vals, rays_d, viewdirs_enc, xenc, R, S):
             raise ValueError(f"{name}: must be contiguous and 16-byte aligned")
 
 
+def check_launch(fn_name: str, err: int) -> None:
+    """Raises unless a launcher returned 0."""
+    if err >= MAP_ERROR:
+        raise RuntimeError(
+            f"{fn_name}: CUDA launch failed: a weight tensor map was refused (CUresult {err - MAP_ERROR})"
+        )
+    if err != 0:  # e.g. ray_tile x S needs more shared memory than a block has
+        raise RuntimeError(f"{fn_name}: CUDA launch failed with error {err}")
+
+
 def check_wt_floats(fn, lib_name: str) -> None:
     """Raises unless the library's packed transposed weights (``fn()``
     floats) are ``kernel_weights_t``'s."""
@@ -257,8 +270,10 @@ def fused_render_level(
     Returns (comp_rgb (R,3), acc (R,), depth (R,), weights (R,S)).
 
     On CUDA tensors this builds :func:`kernel_weights_t` and launches the
-    kernel, one block per ``ray_tile`` rays; ``rays_o`` is not read there, as
-    in the TPU kernel. On CPU tensors it runs the plain version.
+    kernel, one block per ``ray_tile`` rays, which streams the product
+    weights from that copy through TMA maps encoded for this launch;
+    ``rays_o`` is not read there, as in the TPU kernel. On CPU tensors it runs
+    the plain version.
     """
     global launches
     R, S = t_vals.shape
@@ -287,7 +302,6 @@ def fused_render_level(
             comp.data_ptr(), acc.data_ptr(), depth.data_ptr(), weights.data_ptr(),
             R, S, ray_tile, int(white_bkgd), stream,
         )
-    if err != 0:  # e.g. ray_tile x S needs more shared memory than a block has
-        raise RuntimeError(f"fused_render_level: CUDA launch failed with error {err}")
+    check_launch("fused_render_level", err)
     launches += 1
     return comp, acc, depth, weights

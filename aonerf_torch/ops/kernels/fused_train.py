@@ -35,6 +35,7 @@ from aonerf_torch.ops.kernels.fused_render import (
     WEIGHT_NAMES,
     WIDTH,
     _check_inputs,
+    check_launch,
     check_wt_floats,
     integrate_ref,
     kernel_params,
@@ -257,8 +258,7 @@ def _device_of(fn_name, t_vals, R, ray_tile):
 def _launch(fn_name, dev, fn, *args):
     with torch.cuda.device(dev):
         err = fn(*args, torch.cuda.current_stream().cuda_stream)
-    if err != 0:  # e.g. ray_tile x S needs more shared memory than a block has
-        raise RuntimeError(f"{fn_name}: CUDA launch failed with error {err}")
+    check_launch(fn_name, err)
 
 
 def _backward_scratch(lib, kernel_params, R, S, ray_tile, dev):

@@ -21,7 +21,9 @@ Phases, each of which fails the run with a non-zero exit:
                rays, S = 65 and 193, both backgrounds): its four outputs equal
                to K1's bit for bit, its saved activations and raw sigma/rgb
                against the plain version's, a repeat call's bits, and K1s and
-               K1 timed in turns with the bound of each.
+               K1 timed in turns with the bound of each; then the same checks
+               at S = 7, where each block's weight stream ends mid-ring in a
+               partial chunk.
   6. backward - the level weight-gradient kernel (K2) against its plain
                version at the same shapes (random cotangents), through the
                composition K1s + the backward from what it saved; the
@@ -576,7 +578,44 @@ def phase_spill(nerf, boxes, focal) -> dict:
         levels.append({"S": S, "ms": ms, "ms_again": ms_again, "k1_ms": k1_ms, "k1_ms_again": k1_again,
                        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by, "bound_ms_fp32": bound32,
                        "max_abs_err": max(errs.values()), "errs": errs, "saved_rms_err_over_fp32": saved_ratio})
+    kp, _, venc, _ = lvls[0]
+    wrap_check(kp, o, d, venc)
     return {"levels": levels}
+
+
+def wrap_check(kp, o, d, venc) -> None:
+    """K1s and K1 at S = 7 on the coarse level's rays: a block's 112 rows are
+    two chunks, the last of 48 rows, and its weight stream of 2 x 152 slices
+    ends mid-ring (5 stages). K1s' outputs equal to K1's bit for bit, both
+    within TOL of the plain version, a repeat call's bits."""
+    from aonerf_torch.ops import encoding, sampling
+    from aonerf_torch.ops.kernels import fused_render as fr
+    from aonerf_torch.ops.kernels import fused_train as ft
+
+    t, pts = sampling.sample_along_rays(o, d, 6, 2.0, 6.0, False, False)
+    args = (kp, t.contiguous(), o, d, venc, encoding.pos_enc(pts, 0, 10))
+    S = args[1].shape[1]
+    errs = {}
+    for white in (True, False):
+        k1 = fr.fused_render_level(*args, white)
+        got = ft.fused_level_fwd_spill(*args, white)
+        again = ft.fused_level_fwd_spill(*args, white)
+        torch.cuda.synchronize()
+        want = ft.fused_level_fwd_spill_ref(*args, white)
+        for i, name in enumerate(("comp", "acc", "depth", "weights", "saved", "raw")):
+            if not torch.isfinite(got[i]).all():
+                fail(f"K1s S={S} white={white}: non-finite {name}")
+            if i < 4 and not torch.equal(got[i], k1[i]):
+                fail(f"K1s S={S} white={white}: {name} differs from K1's")
+            if not torch.equal(got[i], again[i]):
+                fail(f"K1s S={S} white={white}: a repeat call gave other bits on {name}")
+            errs[name] = max(errs.get(name, 0.0), (got[i] - want[i]).abs().max().item())
+    print(f"kernel fused_level_fwd_spill S={S} (the weight stream ends mid-ring): equal to K1's bit for bit, both "
+          "backgrounds; a repeat call gives the same bits; max abs err against the plain version "
+          + ", ".join(f"{k} {v:.3e} (tol {TOL[k]:g})" for k, v in errs.items()))
+    bad = [k for k, v in errs.items() if not v <= TOL[k]]
+    if bad:
+        fail(f"K1s S={S} disagrees with its plain version on {bad}")
 
 
 def phase_backward(nerf, boxes, focal) -> dict:

@@ -96,7 +96,7 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="shape"):
         fr.fused_render_level(kp, t, o, d, venc[:, :20], xenc, True)
     before = fr.launches
-    with pytest.raises(RuntimeError, match="launch failed"):  # 64 x 65 needs 251 KB
+    with pytest.raises(RuntimeError, match="launch failed"):  # 64 x 65 needs 266 KB
         fr.fused_render_level(kp, t, o, d, venc, xenc, True, ray_tile=64)
     assert fr.launches == before
     fr.fused_render_level(kp, t, o, d, venc, xenc, True)  # no stale error left behind
@@ -143,6 +143,33 @@ def test_fwd_spill_kernel_is_k1_and_matches_plain_version(cuda, S, white_bkgd):
         assert err <= _SPILL_TOL, f"{name}: max abs err {err}"
     again = ft.fused_level_fwd_spill(kp, *args, white_bkgd)
     assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+# The weight stream's edges. A block of 16 rays walks ceil(16 S / 64) chunks
+# of the forward's 152 16-deep weight slices through a 5-stage ring, so every
+# chunk after the first starts mid-ring; S = 7, 65, 129, 193 leave a last
+# chunk of 48, 16, 16, 16 rows, and R = 16 is a single block.
+@pytest.mark.parametrize("R,S", [(16, 7), (16, 65), (16, 129), (16, 193), (256, 7), (256, 129)])
+def test_forward_kernels_at_the_ring_edges(cuda, R, S):
+    mlp = NeRFMLP(generator=torch.Generator().manual_seed(S), device=cuda)
+    with torch.no_grad():
+        kp = fr.kernel_params(mlp)
+    args = _level_inputs(R, S, S, cuda)
+    k1 = fr.fused_render_level(kp, *args, True)
+    k1s = ft.fused_level_fwd_spill(kp, *args, True)
+    torch.cuda.synchronize()
+    want = ft.fused_level_fwd_spill_ref(kp, *args, True)
+    for name, a, b, w in zip(("comp", "acc", "depth", "weights"), k1, k1s, want):
+        assert torch.equal(a, b), name  # K1s gives K1's bits
+        err = (a - w).abs().max().item()
+        assert err <= _TOLS[name], f"{name}: max abs err {err}"
+    for name, g, w in zip(("saved", "raw"), k1s[4:], want[4:]):
+        assert g.shape == w.shape and torch.isfinite(g).all(), name
+        err = (g - w).abs().max().item()
+        assert err <= _SPILL_TOL, f"{name}: max abs err {err}"
+    again_k1, again_k1s = fr.fused_render_level(kp, *args, True), ft.fused_level_fwd_spill(kp, *args, True)
+    assert all(torch.equal(a, b) for a, b in zip(again_k1, k1))
+    assert all(torch.equal(a, b) for a, b in zip(again_k1s, k1s))
 
 
 # K1s' saved activations against the plain version in fp64, layer by layer:
@@ -232,6 +259,13 @@ def test_bwd_kernel_at_a_ragged_size(cuda, white_bkgd):
     _check_bwd_kernel(cuda, 48, 65, white_bkgd)
 
 
+@pytest.mark.parametrize("R", [16, 256])
+def test_bwd_kernel_at_a_partial_chunk(cuda, R):
+    # S = 7: a block's 112 rows end in a chunk of 48, and B1's stream of 136
+    # weight slices a chunk wraps mid-ring (5 stages)
+    _check_bwd_kernel(cuda, R, 7, True)
+
+
 def test_bwd_kernel_rejects_what_it_does_not_take(cuda):
     mlp = NeRFMLP(generator=torch.Generator().manual_seed(0), device=cuda)
     with torch.no_grad():
@@ -245,7 +279,7 @@ def test_bwd_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         ft.fused_level_bwd(kp, t, o, d, venc, xenc, gc, ga, gd, gw.t().contiguous().t(), True)
     before = ft.fwd_launches, ft.launches
-    with pytest.raises(RuntimeError, match="launch failed"):  # 64 x 65 needs 251 KB
+    with pytest.raises(RuntimeError, match="launch failed"):  # 64 x 65 needs 266 KB
         ft.fused_level_bwd(kp, t, o, d, venc, xenc, gc, ga, gd, gw, True, ray_tile=64)
     with pytest.raises(RuntimeError, match="launch failed"):
         ft.fused_level_fwd_spill(kp, t, o, d, venc, xenc, True, ray_tile=64)

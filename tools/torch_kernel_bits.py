@@ -1,0 +1,158 @@
+#!/usr/bin/env python3
+"""Shows whether K1, K1s and K2 give the same bits in two trees.
+
+    PYTHONPATH=build/parent python3 tools/torch_kernel_bits.py --out build/bits_parent.pt
+    PYTHONPATH=. python3 tools/torch_kernel_bits.py --out build/bits_change.pt
+    python3 tools/torch_kernel_bits.py --compare build/bits_parent.pt build/bits_change.pt
+
+For whichever ``aonerf_torch`` comes first on the path, on one CUDA card, it
+saves, from random weights, inputs and cotangents made from fixed seeds:
+  - K1 (``fused_render_level``) at 4096 rays: comp, acc, depth, weights;
+  - K1s (``fused_level_fwd_spill``) at 2048 rays: comp, acc, depth, weights,
+    raw, and the sha1 of ``saved`` (3.85 GB at S = 193);
+  - K2's 26 gradients (``fused_level_bwd_saved``) at 2048 rays, once from
+    K1s' own ``saved`` and ``raw`` and once from the plain forward's, so
+    that the second depends on no forward kernel;
+each at S = 65 and 193, both backgrounds. It also prints the sha1 and line
+count of B1's SASS (``level_bwd_delta_kernel``, from ``cuobjdump -sass``).
+``--compare`` prints, for two such files, which outputs hold the same bits
+and exits 1 if any differs; it reports whether B1's SASS is the same for
+information only.
+"""
+
+import argparse
+import hashlib
+import os
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+from torch_train_compare import R_TRAIN, level_inputs
+
+B1 = "level_bwd_delta_kernel"
+R_SERVE = 4096
+OUTPUTS = ("comp", "acc", "depth", "weights")
+
+
+def b1_sass(lib_path: str) -> list:
+    """B1's SASS lines, from the ``Function :`` header to the next one, each
+    with its runs of blanks made one (cuobjdump pads its columns to the
+    longest line of the whole library)."""
+    from aonerf_torch.ops.kernels import build
+
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True, text=True, check=True).stdout
+    lines, inside = [], False
+    for line in text.splitlines():
+        if "Function :" in line:
+            inside = B1 in line
+        elif inside:
+            lines.append(" ".join(line.split()))
+    if not lines:
+        raise SystemExit(f"torch_kernel_bits: no SASS of {B1} in {lib_path}")
+    return lines
+
+
+def sass_sha1(lines: list) -> str:
+    return hashlib.sha1("\n".join(lines).encode()).hexdigest()
+
+
+def tensor_sha1(x: torch.Tensor) -> str:
+    return hashlib.sha1(x.contiguous().cpu().numpy()).hexdigest()
+
+
+def cotangents(R: int, S: int, device):
+    rng = np.random.default_rng(S + 1)
+    return tuple(torch.from_numpy(a.astype(np.float32)).to(device) for a in (
+        rng.standard_normal((R, 3)), rng.standard_normal(R), 0.1 * rng.standard_normal(R),
+        rng.standard_normal((R, S))))
+
+
+def record(out: str) -> None:
+    from aonerf_torch.models.mlp import NeRFMLP
+    from aonerf_torch.ops.kernels import build
+    from aonerf_torch.ops.kernels import fused_render as fr
+    from aonerf_torch.ops.kernels import fused_train as ft
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda")
+    sass = b1_sass(str(build.build(["fused_train"])["fused_train"]))
+    print(f"B1 SASS: {len(sass)} lines, sha1 {sass_sha1(sass)}", flush=True)
+    cases = {}  # case -> {output name: tensor on the CPU, or the sha1 of a large one}
+    for S in (65, 193):
+        mlp = NeRFMLP(generator=torch.Generator().manual_seed(S), device=device)
+        with torch.no_grad():
+            kp = fr.kernel_params(mlp)
+        serve = (kp, *level_inputs(R_SERVE, S, S, device))
+        train = (kp, *level_inputs(R_TRAIN, S, S, device))
+        cot = cotangents(R_TRAIN, S, device)
+        for white in (True, False):
+            tag = f"S={S} white={white}"
+            cases[f"K1 R={R_SERVE} {tag}"] = {
+                n: v.cpu() for n, v in zip(OUTPUTS, fr.fused_render_level(*serve, white))}
+            *outs, saved, raw = ft.fused_level_fwd_spill(*train, white)
+            k1s = {n: v.cpu() for n, v in zip(OUTPUTS, outs)}
+            k1s["raw"], k1s["saved sha1"] = raw.cpu(), tensor_sha1(saved)
+            cases[f"K1s R={R_TRAIN} {tag}"] = k1s
+            g = ft.fused_level_bwd_saved(*train, saved, raw, *cot, white)
+            cases[f"K2 from K1s' saved R={R_TRAIN} {tag}"] = {n: v.cpu() for n, v in g.items()}
+            del outs, saved, raw
+            *_, saved, raw = ft.fused_level_fwd_spill_ref(*train, white)
+            g = ft.fused_level_bwd_saved(*train, saved, raw, *cot, white)
+            cases[f"K2 from plain saved R={R_TRAIN} {tag}"] = {n: v.cpu() for n, v in g.items()}
+            del saved, raw
+            print(f"recorded {tag}", flush=True)
+    torch.save({"sass": sass, "cases": cases}, out)
+    print(f"saved {sum(len(v) for v in cases.values())} outputs of {len(cases)} cases to {out}")
+
+
+def same(a, b) -> bool:
+    if isinstance(a, str) or isinstance(b, str):
+        return a == b
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+
+
+def compare(a: str, b: str) -> None:
+    x, y = torch.load(a), torch.load(b)
+    hx, hy = sass_sha1(x["sass"]), sass_sha1(y["sass"])
+    print(f"B1 SASS {'identical' if hx == hy else 'differs'} ({len(x['sass'])} / {len(y['sass'])} lines, sha1 "
+          f"{hx} / {hy}); for information only")
+    if x["cases"].keys() != y["cases"].keys():
+        raise SystemExit(f"torch_kernel_bits: the files hold other cases: {sorted(x['cases'])} / {sorted(y['cases'])}")
+    n_diff = n_all = 0
+    for case in x["cases"]:
+        p, q = x["cases"][case], y["cases"][case]
+        diff = [n for n in p if not same(p[n], q[n])]
+        n_diff, n_all = n_diff + len(diff), n_all + len(p)
+        detail = ""
+        for n in diff:
+            if not isinstance(p[n], str):
+                detail += f" {n} (max abs diff {(p[n].double() - q[n].double()).abs().max().item():.3e})"
+            else:
+                detail += f" {n}"
+        print(f"  {case}: {len(p) - len(diff)} of {len(p)} outputs equal bit for bit"
+              + (f"; differ:{detail}" if diff else ""))
+    print(f"outputs equal bit for bit: {n_all - n_diff} of {n_all}")
+    if n_diff:
+        sys.exit(1)
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--out", help="file to save this tree's outputs to")
+    parser.add_argument("--compare", nargs=2, metavar=("A", "B"), help="two files written by --out")
+    args = parser.parse_args()
+    if args.compare:
+        compare(*args.compare)
+    elif args.out:
+        if not torch.cuda.is_available():
+            raise SystemExit("torch_kernel_bits: needs a CUDA card")
+        record(args.out)
+    else:
+        parser.error("give --out or --compare")
+
+
+if __name__ == "__main__":
+    main()

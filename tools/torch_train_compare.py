@@ -11,7 +11,10 @@ run the two in turns in one call on one card (parent, change, change,
 parent). At the train step's shapes (2048 rays, S = 65 and 193, random
 inputs and weights from a seed) it times K1 (``fused_render_level``) and,
 where the tree has it, K1s (``fused_level_fwd_spill``) by CUDA events, in
-turns, and K1 at the serving tile's 4096 rays; then a 320x240 view rendered
+turns, and K1 at the serving tile's 4096 rays; K2's backward from saved
+(``fused_level_bwd_saved``) by CUDA events and each of its passes
+(integrator backward, B1, B2, reduce) by torch.profiler; then a 320x240
+view rendered
 through ``make_image_renderer`` (chunk 4096, random NeRF from a seed),
 seconds per view by the host clock over two views after one; then the train
 step of ``config/vanilla.json`` (batch 2048, 64+128
@@ -82,6 +85,58 @@ def time_levels(device) -> dict:
         args4096 = (kp, *level_inputs(4096, S, S, device), True)
         row["k1_4096_ms"] = cuda_ms(lambda: fr.fused_render_level(*args4096), warmup=2, iters=iters // 2)
         out[f"S={S}"] = row
+    return out
+
+
+# K2's passes: kernel name in csrc/fused_train.cu -> pass
+K2_PASSES = {"level_bwd_integrator_kernel": "integrator", "level_bwd_delta_kernel": "B1",
+             "level_bwd_dw_kernel": "B2", "level_bwd_reduce_kernel": "reduce"}
+
+
+def kernel_ms(fn, iters: int) -> dict:
+    """Device ms per call of fn() by kernel name (torch.profiler), after one
+    untimed call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+        if e.device_type == torch.autograd.DeviceType.CUDA and us > 0:
+            out[e.key] = us / 1e3 / iters
+    return out
+
+
+def time_backward(device) -> dict:
+    """K2 from K1s' saved at the train step's shapes: ms per call by CUDA
+    events, and each pass's device ms per call."""
+    from aonerf_torch.models.mlp import NeRFMLP
+    from aonerf_torch.ops.kernels import fused_render as fr
+    from aonerf_torch.ops.kernels import fused_train as ft
+
+    out = {}
+    for S in (65, 193):
+        mlp = NeRFMLP(generator=torch.Generator().manual_seed(S), device=device)
+        with torch.no_grad():
+            kp = fr.kernel_params(mlp)
+        args = (kp, *level_inputs(R_TRAIN, S, S, device))
+        rng = np.random.default_rng(S + 1)
+        cot = tuple(torch.from_numpy(a.astype(np.float32)).to(device) for a in (
+            rng.standard_normal((R_TRAIN, 3)), rng.standard_normal(R_TRAIN), 0.1 * rng.standard_normal(R_TRAIN),
+            rng.standard_normal((R_TRAIN, S))))
+        *_, saved, raw = ft.fused_level_fwd_spill(*args, True)
+        k2 = lambda: ft.fused_level_bwd_saved(*args, saved, raw, *cot, True)  # noqa: E731
+        row = {"k2_ms": cuda_ms(k2, warmup=2, iters=5 if S > 100 else 10)}
+        by_name = kernel_ms(k2, iters=3)
+        for kernel, name in K2_PASSES.items():
+            row[f"{name}_ms"] = sum(v for k, v in by_name.items() if kernel in k)
+        out[f"S={S}"] = row
+        del saved, raw
     return out
 
 
@@ -156,8 +211,8 @@ def main() -> None:
                          capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
     device = torch.device("cuda")
     row = {"label": args.label, "package": os.path.relpath(os.path.dirname(aonerf_torch.__file__), ROOT),
-           "card": smi[0] if smi else None, "levels": time_levels(device), "view": time_view(device),
-           "train": time_train_step(device)}
+           "card": smi[0] if smi else None, "levels": time_levels(device), "backward": time_backward(device),
+           "view": time_view(device), "train": time_train_step(device)}
     print(json.dumps(row), flush=True)
 
 
