@@ -1,9 +1,14 @@
 """CLI launcher: ``python -m aonerf_torch.cli.train --config cfg.json
-[--max_steps N] [--<field> <value> ...]`` (counterpart of
-``aonerf.cli.train``; fit only: ``--run_eval`` is not ported yet).
+[--run_eval] [--max_steps N] [--<field> <value> ...]`` (counterpart of
+``aonerf.cli.train``).
 
-Any Config field can be overridden as --<name> <value>; values are read as
-JSON where they parse. Runs on the CUDA card unless ``--platform cpu``.
+Without ``--run_eval`` it trains (``Trainer.fit``) and prints the last
+metrics; with it, it restores the latest checkpoint (or ``--ckpt_path`` /
+``--weight_path``), renders and scores the test split (``Trainer.test``)
+and prints the stats. Any Config field can be overridden as --<name>
+<value>, or by the reference's flag name (e.g. --save_path for
+--render_name); values are read as JSON where they parse. Runs on the CUDA
+card unless ``--platform cpu``.
 """
 
 import argparse
@@ -12,38 +17,40 @@ import json
 from typing import Dict
 
 from aonerf_torch.train.loop import Trainer
-from aonerf_torch.utils.config import Config, load_config
+from aonerf_torch.utils.config import ALIASES, Config, load_config
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--config", type=str, default=None, help="JSON config file")
+    p.add_argument("--run_eval", action="store_true", default=None)
     p.add_argument("--max_steps", type=int, default=None)
     for f in dataclasses.fields(Config):
-        if f.name == "extras":
+        if f.name in ("run_eval", "extras"):
             continue
-        p.add_argument(f"--{f.name}", type=str, default=None)
+        aliases = [f"--{a}" for a, name in ALIASES.items() if name == f.name]
+        p.add_argument(f"--{f.name}", *aliases, dest=f.name, type=str, default=None)
     return p.parse_args(argv)
 
 
-def main(argv=None) -> Dict[str, float]:
+def main(argv=None) -> Dict:
     args = parse_args(argv)
     overrides = {}
     for k, v in vars(args).items():
         if k in ("config", "max_steps") or v is None:
             continue
         try:
-            overrides[k] = json.loads(v)
+            overrides[k] = json.loads(v) if isinstance(v, str) else v
         except json.JSONDecodeError:
             overrides[k] = v
     cfg = load_config(args.config, overrides)
     trainer = Trainer(cfg)
     try:
-        metrics = trainer.fit(max_steps=args.max_steps)
+        out = trainer.test() if cfg.run_eval else trainer.fit(max_steps=args.max_steps)
     finally:
         trainer.close()
-    print(json.dumps(metrics))
-    return metrics
+    print(json.dumps(out))
+    return out
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
-"""Image quality metrics: PSNR, object-masked PSNR, SSIM and split summaries
-(counterpart of ``aonerf.eval.metrics``).
+"""Image quality metrics: PSNR, object-masked PSNR, SSIM, the reference's
+legacy variants and split summaries (counterpart of
+``aonerf.eval.metrics``; LPIPS is not ported yet).
 
 SSIM: Wang et al. with an 11x11 Gaussian window (sigma 1.5), k1=0.01,
 k2=0.03 on [0,1] images.
@@ -7,7 +8,7 @@ k2=0.03 on [0,1] images.
 
 import contextlib
 import math
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -87,6 +88,54 @@ def ssim_image(
         (mu_x2 + mu_y2 + c1) * (sigma_x + sigma_y + c2)
     )
     return torch.mean(ssim_map)
+
+
+def mse_legacy(
+    pred: torch.Tensor,
+    target: torch.Tensor,
+    valid_mask: Optional[torch.Tensor] = None,
+    reduction: str = "mean",
+) -> torch.Tensor:
+    """Squared error, optionally restricted to the ``valid_mask`` pixels,
+    mean-reduced or (any other ``reduction``) elementwise."""
+    value = (pred - target) ** 2
+    if valid_mask is not None:
+        value = value[valid_mask]
+    if reduction == "mean":
+        return torch.mean(value)
+    return value
+
+
+def psnr_legacy(
+    pred: torch.Tensor,
+    target: torch.Tensor,
+    valid_mask: Optional[torch.Tensor] = None,
+    reduction: str = "mean",
+) -> torch.Tensor:
+    """-10 log10(mse_legacy), without psnr_each's clip to [0, 1]."""
+    return -10.0 * torch.log10(mse_legacy(pred, target, valid_mask, reduction))
+
+
+def psnr_each(preds: Sequence[torch.Tensor], gts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Per-image PSNR of a render set, prediction and target both clipped to
+    [0, 1]; stacked."""
+    return torch.stack([psnr_image(p.clamp(0.0, 1.0), g.clamp(0.0, 1.0)) for p, g in zip(preds, gts)])
+
+
+def ssim_legacy(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """SSIM of one (H, W, C) pair, both clipped to [0, 1] first."""
+    return ssim_image(pred.clamp(0.0, 1.0), target.clamp(0.0, 1.0))
+
+
+def ssim_each(preds: Sequence[torch.Tensor], gts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Per-image clipped SSIM of a render set; stacked."""
+    return torch.stack([ssim_legacy(p, g) for p, g in zip(preds, gts)])
+
+
+def depth_mae_rmse(pred: torch.Tensor, target: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(rmse, mae) of a depth render."""
+    abs_diff = torch.abs(pred - target)
+    return torch.sqrt(torch.mean(abs_diff**2)), torch.mean(abs_diff)
 
 
 def summarize_metric(

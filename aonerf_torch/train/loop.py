@@ -1,12 +1,13 @@
-"""Training orchestration for the vanilla NeRF (counterpart of the vanilla
-branches of ``aonerf.train.loop.Trainer``).
+"""Training and test orchestration for the vanilla NeRF (counterpart of the
+vanilla branches of ``aonerf.train.loop.Trainer``).
 
 One device: the scene's ray buffers are uploaded once, each train step
 gathers its batch on the device, and ``fit`` is a host loop around the
 multi-step with the JAX Trainer's logging, validation and checkpoint
-cadences. ``validate`` renders val views through the tiled image renderer.
-Test rendering (``Trainer.test``) and the articulated experiment types are
-not ported yet.
+cadences. ``validate`` renders val views through the tiled image renderer;
+with ``run_eval`` the Trainer loads the test split instead, and ``test``
+renders and scores every test view and writes the outputs. The articulated
+experiment types are not ported yet.
 """
 
 import os
@@ -17,7 +18,8 @@ import torch
 
 from aonerf_torch import default_device
 from aonerf_torch.data.sapien import SapienDataset
-from aonerf_torch.eval.metrics import psnr_image
+from aonerf_torch.eval import io
+from aonerf_torch.eval.metrics import masked_psnr, psnr_image, ssim_image, summarize_metric
 from aonerf_torch.eval.render import make_image_renderer
 from aonerf_torch.models.mlp import NeRFMLP
 from aonerf_torch.models.nerf import NeRF
@@ -34,8 +36,6 @@ def _check_supported(cfg: Config) -> None:
         todo.append(f"exp_type={cfg.exp_type!r}")
     if cfg.dataset_name != "sapien":
         todo.append(f"dataset_name={cfg.dataset_name!r}")
-    if cfg.run_eval:
-        todo.append("run_eval (Trainer.test)")
     if cfg.noise_std:
         todo.append("noise_std")
     if cfg.compute_dtype != "f32":
@@ -60,8 +60,10 @@ class Trainer:
         self.logger = MetricLogger(self.run_dir)
         self.ckpt = CheckpointManager(os.path.join(self.run_dir, "ckpts"), keep=cfg.ckpt_keep)
 
-        self.dataset = SapienDataset(cfg.root_dir, split="train", img_wh=cfg.img_wh, white_back=cfg.white_back)
-        self.val_dataset = SapienDataset(cfg.root_dir, split="val", img_wh=cfg.img_wh, white_back=cfg.white_back)
+        split = "test" if cfg.run_eval else "train"
+        self.dataset = SapienDataset(cfg.root_dir, split=split, img_wh=cfg.img_wh, white_back=cfg.white_back)
+        if not cfg.run_eval:
+            self.val_dataset = SapienDataset(cfg.root_dir, split="val", img_wh=cfg.img_wh, white_back=cfg.white_back)
         self.near, self.far = self.dataset.near, self.dataset.far
 
         self.model = NeRF(
@@ -178,12 +180,65 @@ class Trainer:
         psnrs = []
         for i in range(n):
             s = self.val_dataset.get_image(i)
-            rays = {k: torch.from_numpy(getattr(s, k)).to(self.device) for k in ("rays_o", "rays_d", "viewdirs")}
-            rgb, acc, depth = self._renderer(rays)
+            rgb, acc, depth = self._renderer(self._view_rays(s))
             psnrs.append(float(psnr_image(rgb, torch.from_numpy(s.target).to(self.device))))
             if i == 0:
                 self._save_val_grid(s.target, *(x.cpu().numpy() for x in (rgb, depth, acc)))
         return {"psnr": float(np.mean(psnrs))}
+
+    def _view_rays(self, sample) -> Dict[str, torch.Tensor]:
+        return {k: torch.from_numpy(getattr(sample, k)).to(self.device) for k in ("rays_o", "rays_d", "viewdirs")}
+
+    def test(self) -> Dict[str, Dict[str, float]]:
+        """Render every test view, score it (PSNR, SSIM, object PSNR through
+        ``summarize_metric``) and write the jpg sequence, colour and raw
+        depth, opacity maps and the video (GIF without an mp4 backend) under
+        ``run_dir/render_name``, and ``run_dir/results.json``.
+
+        One process renders every view; sharding the views across processes
+        (the JAX Trainer's ``local_shard_bounds`` / ``gather_images``) is not
+        ported yet. LPIPS is not ported: it is NaN, and a run that names
+        existing LPIPS weights in ``AONERF_LPIPS_WEIGHTS`` is refused rather
+        than scored without them.
+        """
+        lpips_weights = os.environ.get("AONERF_LPIPS_WEIGHTS", "")
+        if lpips_weights and os.path.exists(lpips_weights):
+            raise NotImplementedError(
+                f"LPIPS (AONERF_LPIPS_WEIGHTS={lpips_weights}) is not ported yet: ROADMAP Queue 1 item 7"
+            )
+        cfg = self.cfg
+        w, h = cfg.img_wh
+        rgbs, depths, accs, psnrs, ssims, obj_psnrs = [], [], [], [], [], []
+        for i in range(self.dataset.num_images):
+            s = self.dataset.get_image(i)
+            rgb, acc, depth = self._renderer(self._view_rays(s))
+            img = rgb.reshape(h, w, 3)
+            target = torch.from_numpy(s.target).to(self.device).reshape(h, w, 3)
+            psnrs.append(float(psnr_image(img, target)))
+            ssims.append(float(ssim_image(img, target)))
+            mask = torch.from_numpy(s.instance_mask).to(self.device).reshape(h, w)
+            obj_psnrs.append(float(masked_psnr(img, target, mask)))
+            rgbs.append(img.cpu().numpy())
+            depths.append(depth.reshape(h, w).cpu().numpy())
+            accs.append(acc.reshape(h, w).cpu().numpy())
+        stats = {
+            "psnr": summarize_metric(psnrs),
+            "ssim": summarize_metric(ssims),
+            "lpips": {"test": float("nan")},
+            "psnr_obj": summarize_metric(obj_psnrs),
+        }
+
+        image_dir = os.path.join(self.run_dir, cfg.render_name)
+        io.store_image(image_dir, rgbs, "image")
+        io.store_depth_color(image_dir, depths)
+        io.store_depth_raw(image_dir, depths)
+        io.store_opacity(image_dir, accs)
+        try:
+            io.store_video(image_dir, rgbs)
+        except RuntimeError:  # no mp4 backend: the GIF, as the JAX Trainer writes
+            io.store_gif(image_dir, rgbs)
+        io.write_stats(os.path.join(self.run_dir, "results.json"), **stats)
+        return stats
 
     def close(self) -> None:
         self.logger.close()

@@ -2,7 +2,7 @@
 (counterpart of ``aonerf.utils.config``).
 
 The fields are the ones the vanilla path reads, with the JAX package's names
-and defaults; ``_ALIASES`` maps the reference's flag names, so the repo's
+and defaults; ``ALIASES`` maps the reference's flag names, so the repo's
 config/*.json files load unchanged. Unknown keys are kept in ``extras``;
 ``JAX_ONLY_DEFAULTS`` names those that are fields of the JAX package's Config
 the port does not run yet, and ``train.loop`` refuses a run that sets one of
@@ -23,6 +23,7 @@ class Config:
     dataset_name: str = "sapien"
     root_dir: str = ""
     output_path: str = "./results"
+    render_name: str = "render"  # test() writes its images under run_dir/render_name
     run_eval: bool = False
     seed: int = 0
 
@@ -76,7 +77,6 @@ class Config:
 # (aonerf/utils/config.py). tests/test_torch_trainer.py holds the table to
 # that dataclass.
 JAX_ONLY_DEFAULTS: Dict[str, Any] = {
-    "render_name": "render",
     "samples_per_epoch": 4000,
     "n_max_objs": 4,
     "obj_code_dim": 128,
@@ -113,7 +113,7 @@ JAX_ONLY_DEFAULTS: Dict[str, Any] = {
 }
 
 # reference flag name -> Config field
-_ALIASES = {
+ALIASES = {
     "N_samples": "num_coarse_samples",
     "N_importance": "num_fine_samples",
     "N_emb_xyz": "max_deg_point",
@@ -145,7 +145,7 @@ def load_config(path: Optional[str] = None, overrides: Optional[Dict[str, Any]] 
 
     def apply(d: Dict[str, Any]):
         for key, value in d.items():
-            name = _ALIASES.get(key, key)
+            name = ALIASES.get(key, key)
             if name in fields and name != "extras":
                 setattr(cfg, name, _coerce(name, value))
             else:
@@ -164,7 +164,7 @@ def jax_only_settings(cfg: Config) -> Dict[str, Any]:
     (by name or alias) to another value than JAX's default, by field name."""
     out = {}
     for key, value in cfg.extras.items():
-        name = _ALIASES.get(key, key)
+        name = ALIASES.get(key, key)
         if name in JAX_ONLY_DEFAULTS:
             given = tuple(value) if isinstance(value, list) else value
             if given != JAX_ONLY_DEFAULTS[name]:

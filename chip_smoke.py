@@ -37,6 +37,15 @@ Phases, each of which fails the run with a non-zero exit:
                validation and a checkpoint, then a resume for 10 more; loss,
                launch counts of K1 (validation only), K1s and K2, train rays/s
                and the peak device memory of a step.
+  8. test    - the train CLI's --run_eval on the same scene's 4 test views:
+               it restores the step-60 checkpoint, renders every view through
+               K1 and writes results.json and the render directory; K1's
+               launch count (K1s and K2 none), PSNR/SSIM/object PSNR finite
+               and LPIPS NaN, every output file; view 0 rendered again
+               through K1 gives test()'s depth bit for bit and through the
+               plain version its rgb within TOL_RENDER_RGB; seconds per view
+               for test() and for the render alone, with K1's share by the
+               profiler.
 The line before the last is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}.
 """
@@ -123,6 +132,7 @@ R_TRAIN = 2048  # rays per train step (config/vanilla.json)
 TOL_GRAD, TOL_GRAD_FACTOR = 1e-4, 4.0
 TOL_LOSS = 1e-5  # relative, two-level loss through the kernels vs the plain versions
 TRAIN_STEPS, RESUME_STEPS = 50, 10
+N_TEST = 4  # test views of the training scene, scored by phase 8
 
 
 def fail(msg: str) -> None:
@@ -322,6 +332,15 @@ def phase_kernels(nerf, boxes, focal) -> dict:
     return {"levels": levels}
 
 
+def _plain_render_level(kernel_params, t_vals, rays_o, rays_d, viewdirs_enc, samples_enc, white_bkgd,
+                        ray_tile=None):
+    """K1's plain version in K1's signature, to render through it in place of
+    the kernel."""
+    from aonerf_torch.ops.kernels import fused_render as fr
+
+    return fr.fused_render_level_ref(kernel_params, t_vals, rays_o, rays_d, viewdirs_enc, samples_enc, white_bkgd)
+
+
 def phase_serving(nerf, boxes, focal) -> dict:
     from aonerf_torch.eval.metrics import masked_psnr, psnr_image, ssim_image
     from aonerf_torch.eval.render import make_image_renderer
@@ -365,13 +384,7 @@ def phase_serving(nerf, boxes, focal) -> dict:
         if not all(np.isfinite(v) for v in (psnr, ssim, obj)):
             fail(f"view {i}: non-finite metric")
 
-    def plain(kernel_params, t_vals, rays_o, rays_d, viewdirs_enc, samples_enc, white_bkgd,
-              ray_tile=None):
-        return fr.fused_render_level_ref(
-            kernel_params, t_vals, rays_o, rays_d, viewdirs_enc, samples_enc, white_bkgd
-        )
-
-    with mock.patch.object(nerf_mod, "fused_render_level", plain):
+    with mock.patch.object(nerf_mod, "fused_render_level", _plain_render_level):
         rgb_plain, _, _ = render(views[0][0])
     diff = (outs[0][0] - rgb_plain).abs().max().item()
     print(f"  view 0 through the plain version: max rgb diff {diff:.3e} (tol {TOL_RENDER_RGB:g})")
@@ -803,7 +816,7 @@ def profile_train_steps(trainer, buffers, seed) -> None:
               f"x{e.count / n:g}/step  {e.key[:90]}")
 
 
-def phase_training() -> dict:
+def phase_training(tmp: str) -> dict:
     from aonerf_torch.cli import train as cli
     from aonerf_torch.data.synthetic import write_single_scene
     from aonerf_torch.ops.kernels import fused_render as fr
@@ -812,56 +825,55 @@ def phase_training() -> dict:
     from aonerf_torch.train.loop import Trainer
     from aonerf_torch.utils.config import load_config
 
-    with tempfile.TemporaryDirectory() as tmp:
-        root = write_single_scene(os.path.join(tmp, "scene"), img_wh=(W, H), n_train=8, n_val=1, n_test=0,
-                                  seed=SEED)
-        cfg_path = _train_config(root, os.path.join(tmp, "out"))
-        cfg = load_config(cfg_path)
-        n_val_tiles = -(-W * H // cfg.chunk)
-        losses = []
-        real = step_mod.vanilla_loss_and_grads
+    root = write_single_scene(os.path.join(tmp, "scene"), img_wh=(W, H), n_train=8, n_val=1, n_test=N_TEST,
+                              seed=SEED)
+    cfg_path = _train_config(root, os.path.join(tmp, "out"))
+    cfg = load_config(cfg_path)
+    n_val_tiles = -(-W * H // cfg.chunk)
+    losses = []
+    real = step_mod.vanilla_loss_and_grads
 
-        def recorded(*args, **kwargs):  # observes each step's loss, changes nothing
-            out = real(*args, **kwargs)
-            losses.append(out[0])
-            return out
+    def recorded(*args, **kwargs):  # observes each step's loss, changes nothing
+        out = real(*args, **kwargs)
+        losses.append(out[0])
+        return out
 
-        runs = []
-        for max_steps in (TRAIN_STEPS, TRAIN_STEPS + RESUME_STEPS):
-            start = len(losses)
-            torch.cuda.synchronize()
-            fr.launches = ft.fwd_launches = ft.launches = 0
-            t0 = time.perf_counter()
-            with mock.patch.object(step_mod, "vanilla_loss_and_grads", recorded):
-                metrics = cli.main(["--config", cfg_path, "--max_steps", str(max_steps)])
-            torch.cuda.synchronize()
-            runs.append({"seconds": time.perf_counter() - t0, "k1": fr.launches, "k1s": ft.fwd_launches,
-                         "k2": ft.launches,
-                         "steps": len(losses) - start, "metrics": metrics})
-        run_dir = os.path.join(cfg.output_path, cfg.exp_name)
-        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
-            rows = [json.loads(line) for line in f]
-        ckpts = sorted(n for n in os.listdir(os.path.join(run_dir, "ckpts")) if n.endswith(".pt"))
-        grids = sorted(os.listdir(os.path.join(run_dir, "val_vis")))
-
-        trainer = Trainer(cfg)  # restores the latest checkpoint
-        resumed_at = trainer.state.step
-        buffers = trainer.train_buffers()
-        trainer.state, _ = trainer.step_fn(trainer.state, buffers, cfg.seed)  # first multi-step untimed
+    runs = []
+    for max_steps in (TRAIN_STEPS, TRAIN_STEPS + RESUME_STEPS):
+        start = len(losses)
         torch.cuda.synchronize()
+        fr.launches = ft.fwd_launches = ft.launches = 0
         t0 = time.perf_counter()
-        n_timed = 2
-        for _ in range(n_timed):
-            trainer.state, m = trainer.step_fn(trainer.state, buffers, cfg.seed)
+        with mock.patch.object(step_mod, "vanilla_loss_and_grads", recorded):
+            metrics = cli.main(["--config", cfg_path, "--max_steps", str(max_steps)])
         torch.cuda.synchronize()
-        step_s = (time.perf_counter() - t0) / (n_timed * trainer._inner_steps)
-        torch.cuda.reset_peak_memory_stats()
-        base_bytes = torch.cuda.memory_allocated()
-        trainer.state, _ = trainer.step_fn(trainer.state, buffers, cfg.seed)
-        torch.cuda.synchronize()
-        peak_bytes = torch.cuda.max_memory_allocated()
-        profile_train_steps(trainer, buffers, cfg.seed)
-        trainer.close()
+        runs.append({"seconds": time.perf_counter() - t0, "k1": fr.launches, "k1s": ft.fwd_launches,
+                     "k2": ft.launches,
+                     "steps": len(losses) - start, "metrics": metrics})
+    run_dir = os.path.join(cfg.output_path, cfg.exp_name)
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    ckpts = sorted(n for n in os.listdir(os.path.join(run_dir, "ckpts")) if n.endswith(".pt"))
+    grids = sorted(os.listdir(os.path.join(run_dir, "val_vis")))
+
+    trainer = Trainer(cfg)  # restores the latest checkpoint
+    resumed_at = trainer.state.step
+    buffers = trainer.train_buffers()
+    trainer.state, _ = trainer.step_fn(trainer.state, buffers, cfg.seed)  # first multi-step untimed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n_timed = 2
+    for _ in range(n_timed):
+        trainer.state, m = trainer.step_fn(trainer.state, buffers, cfg.seed)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / (n_timed * trainer._inner_steps)
+    torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()
+    trainer.state, _ = trainer.step_fn(trainer.state, buffers, cfg.seed)
+    torch.cuda.synchronize()
+    peak_bytes = torch.cuda.max_memory_allocated()
+    profile_train_steps(trainer, buffers, cfg.seed)
+    trainer.close()
 
     loss = torch.stack(losses).cpu().numpy()
     first, run2 = runs
@@ -896,7 +908,120 @@ def phase_training() -> dict:
     if not grids:
         fail("no val grid written")
     return {"k1": first["k1"], "k1s": first["k1s"], "k2": first["k2"], "step_ms": step_s * 1e3,
-            "rays_per_s": cfg.batch_size / step_s, "peak_gb": peak_bytes / 1e9}
+            "rays_per_s": cfg.batch_size / step_s, "peak_gb": peak_bytes / 1e9, "cfg_path": cfg_path,
+            "val_psnr": first["metrics"].get("val_psnr")}
+
+
+def phase_test(cfg_path: str, val_psnr: float) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    from aonerf_torch.cli import train as cli
+    from aonerf_torch.models import nerf as nerf_mod
+    from aonerf_torch.ops.kernels import fused_render as fr
+    from aonerf_torch.ops.kernels import fused_train as ft
+    from aonerf_torch.train import loop as loop_mod
+    from aonerf_torch.utils.config import load_config
+
+    os.environ.pop("AONERF_LPIPS_WEIGHTS", None)  # test() refuses LPIPS weights: LPIPS is not ported
+    cfg = load_config(cfg_path, {"run_eval": True})
+    n_tiles = -(-W * H // cfg.chunk)
+    test_s, render_s = [], []
+    real_test, real_factory = loop_mod.Trainer.test, loop_mod.make_image_renderer
+
+    def timed_test(self):  # observes test() and each view's render, changes nothing
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_test(self)
+        torch.cuda.synchronize()
+        test_s.append(time.perf_counter() - t0)
+        return out
+
+    def timed_factory(*args, **kwargs):
+        render = real_factory(*args, **kwargs)
+
+        def timed(rays):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = render(rays)
+            torch.cuda.synchronize()
+            render_s.append(time.perf_counter() - t0)
+            return out
+
+        return timed
+
+    with mock.patch.object(loop_mod.Trainer, "test", timed_test), \
+            mock.patch.object(loop_mod, "make_image_renderer", timed_factory):
+        torch.cuda.synchronize()
+        fr.launches = ft.fwd_launches = ft.launches = 0
+        stats = cli.main(["--config", cfg_path, "--run_eval"])
+        torch.cuda.synchronize()
+        k1, k1s, k2 = fr.launches, ft.fwd_launches, ft.launches
+
+    run_dir = os.path.join(cfg.output_path, cfg.exp_name)
+    render_dir = os.path.join(run_dir, cfg.render_name)
+    with open(os.path.join(run_dir, "results.json")) as f:
+        results = json.load(f)
+    files = set(os.listdir(render_dir))
+    expected = {f"{stem}{i:03d}.{ext}" for i in range(N_TEST)
+                for stem, ext in (("image", "jpg"), ("depth", "png"), ("depth", "npy"), ("depth_raw", "png"),
+                                  ("opacity", "png"))} | {"depth_raw.npz"}
+    videos = files & {"video.gif", "video.mp4"}
+
+    trainer = loop_mod.Trainer(cfg)  # restores the same checkpoint
+    restored_at = trainer.state.step
+    rays = trainer._view_rays(trainer.dataset.get_image(0))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        rgb, acc, depth = trainer._renderer(rays)
+        torch.cuda.synchronize()
+    k1_us = sum(_dev_us(e) for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and "fused_render_level_kernel" in e.key)
+    same_depth = np.array_equal(depth.reshape(H, W).cpu().numpy(), np.load(os.path.join(render_dir, "depth000.npy")))
+    with mock.patch.object(nerf_mod, "fused_render_level", _plain_render_level):
+        rgb_plain, acc_plain, depth_plain = trainer._renderer(rays)
+    diff = (rgb - rgb_plain).abs().max().item()
+    # for information: an rgb that saturates at the white background agrees
+    # bit for bit whatever the weights, acc and depth do not
+    acc_diff, depth_diff = ((a - b).abs().max().item() for a, b in ((acc, acc_plain), (depth, depth_plain)))
+    trainer.close()
+
+    n_views = len(render_s)
+    per_test, per_render = sum(test_s) / N_TEST, sum(render_s) / max(n_views, 1)
+    k1_ms = k1_us / 1e3
+    print(f"test: --run_eval restored step {restored_at}, {n_views} test views of {W}x{H} at chunk {cfg.chunk}; "
+          f"K1 launches {k1} (expected 2 levels x {n_tiles} tiles x {N_TEST} views = {2 * n_tiles * N_TEST}), "
+          f"K1s {k1s}, K2 {k2} (expected 0)")
+    print(f"  test psnr {results['psnr']['test']:.4f} dB, ssim {results['ssim']['test']:.5f}, object psnr "
+          f"{results['psnr_obj']['test']:.4f} dB, lpips {results['lpips']['test']} (phase 7's val psnr at step "
+          f"{TRAIN_STEPS}: {val_psnr})")
+    print(f"  seconds per test view: test() {per_test:.4f} s ({sum(test_s):.3f} s for {N_TEST} views: render, "
+          f"metrics, writers), render alone {per_render:.4f} s (views {', '.join(f'{x:.4f}' for x in render_s)}); "
+          f"K1 {k1_ms:.3f} ms of device time a view (torch.profiler, view 0) = {100 * k1_ms / 1e3 / per_render:.1f}% "
+          f"of the render, {100 * k1_ms / 1e3 / per_test:.1f}% of test()")
+    print(f"  files under {cfg.render_name}/: {len(files)} ({sorted(videos)}); view 0 again through K1: depth "
+          f"{'equal' if same_depth else 'NOT equal'} to depth000.npy bit for bit; through the plain version: max "
+          f"rgb diff {diff:.3e} (tol {TOL_RENDER_RGB:g}), acc {acc_diff:.3e}, depth {depth_diff:.3e}, "
+          f"mean acc {acc.mean().item():.4f}")
+    if (k1, k1s, k2) != (2 * n_tiles * N_TEST, 0, 0):
+        fail("the test run did not launch K1, K1s and K2 as expected")
+    if restored_at != TRAIN_STEPS + RESUME_STEPS or n_views != N_TEST or len(test_s) != 1:
+        fail(f"the test run restored step {restored_at} and rendered {n_views} views")
+    for name in ("psnr", "ssim", "psnr_obj"):
+        if list(results[name]) != ["test"] or not np.isfinite(results[name]["test"]):
+            fail(f"results.json {name}: {results[name]}")
+    if list(results["lpips"]) != ["test"] or not np.isnan(results["lpips"]["test"]):
+        fail(f"results.json lpips: {results['lpips']}")
+    if results != json.loads(json.dumps(stats)):
+        fail("results.json differs from what test() returned")
+    if not expected <= files or len(videos) != 1:
+        fail(f"render directory: missing {sorted(expected - files)}, videos {sorted(videos)}")
+    if not same_depth:
+        fail("test() did not write the depth the kernel renders")
+    if not diff <= TOL_RENDER_RGB:
+        fail("the kernel's test render disagrees with the plain version's")
+    if not k1_us > 0:
+        fail("the profiler saw no K1 device time")
+    return {"k1": k1, "seconds_per_view": per_test, "render_seconds_per_view": per_render, "k1_ms": k1_ms}
 
 
 def main() -> None:
@@ -912,7 +1037,9 @@ def main() -> None:
     s = phase_serving(nerf, boxes, focal)
     f = phase_spill(nerf, boxes, focal)
     b = phase_backward(nerf, boxes, focal)
-    t = phase_training()
+    with tempfile.TemporaryDirectory() as tmp:
+        t = phase_training(tmp)
+        p = phase_test(t["cfg_path"], t["val_psnr"])
 
     lv = k["levels"]
     tile_ms = sum(x["ms"] for x in lv)
@@ -944,6 +1071,7 @@ def main() -> None:
         "library_ms": None,
         "levels": lv,
         "train_launches": t["k1"],
+        "test_launches": p["k1"],
     }
     flv = f["levels"]
     k1s = {

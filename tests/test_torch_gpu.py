@@ -314,3 +314,57 @@ def test_train_cli_goes_through_the_kernels(cuda, tmp_path):
     assert fr.launches - k1 == 2 * val_tiles  # K1 serves validation only: both levels of every val tile
     assert ft.fwd_launches - k1s == 2 * 10  # K1s: both levels' forward of every step
     assert ft.launches - k2 == 2 * 10  # K2: both levels' backward of every step
+
+
+def test_test_path_goes_through_the_kernel(cuda, tmp_path, monkeypatch):
+    import json
+    import os
+    from unittest import mock
+
+    from aonerf_torch.cli import train as cli
+    from aonerf_torch.data.synthetic import write_single_scene
+    from aonerf_torch.models import nerf as nerf_mod
+    from aonerf_torch.train.loop import Trainer
+    from aonerf_torch.utils.config import load_config
+
+    monkeypatch.delenv("AONERF_LPIPS_WEIGHTS", raising=False)
+    root = write_single_scene(str(tmp_path / "scene"), img_wh=(16, 12), n_train=2, n_val=1, n_test=2)
+    cfg = {
+        "root_dir": root, "output_path": str(tmp_path / "out"), "exp_name": "gpu", "img_wh": [16, 12],
+        "num_coarse_samples": 64, "num_fine_samples": 128, "batch_size": 64, "chunk": 64,
+    }
+    path = tmp_path / "train.json"
+    path.write_text(json.dumps(cfg))
+    # a checkpoint of the seed's random weights: the field is not empty, so the
+    # kernel and its plain version are compared on more than white background
+    first = Trainer(load_config(str(path)))
+    first.ckpt.save(first.state.step, first._state_dict())
+    first.close()
+    k1, k1s, k2 = fr.launches, ft.fwd_launches, ft.launches
+    stats = cli.main(["--config", str(path), "--run_eval"])
+    torch.cuda.synchronize()
+    tiles = -(-16 * 12 // 64)
+    assert fr.launches - k1 == 2 * tiles * 2  # both levels of every tile of the 2 test views
+    assert (ft.fwd_launches, ft.launches) == (k1s, k2)
+    assert all(np.isfinite(stats[k]["test"]) for k in ("psnr", "ssim", "psnr_obj")) and np.isnan(stats["lpips"]["test"])
+    render_dir = tmp_path / "out" / "gpu" / "render"
+    files = set(os.listdir(render_dir))
+    assert {"image001.jpg", "depth001.png", "depth001.npy", "depth_raw001.png", "depth_raw.npz", "opacity001.png"} <= files
+    assert len(files & {"video.gif", "video.mp4"}) == 1
+
+    trainer = Trainer(load_config(str(path), {"run_eval": True}))  # the same checkpoint again
+    try:
+        rays = trainer._view_rays(trainer.dataset.get_image(0))
+        rgb, acc, depth = trainer._renderer(rays)
+        assert acc.mean().item() > 0.1
+        np.testing.assert_array_equal(depth.reshape(12, 16).cpu().numpy(), np.load(render_dir / "depth000.npy"))
+
+        def plain(kernel_params, t_vals, rays_o, rays_d, viewdirs_enc, samples_enc, white_bkgd, ray_tile=None):
+            return fr.fused_render_level_ref(kernel_params, t_vals, rays_o, rays_d, viewdirs_enc, samples_enc,
+                                             white_bkgd)
+
+        with mock.patch.object(nerf_mod, "fused_render_level", plain):
+            rgb_plain, _, _ = trainer._renderer(rays)
+        assert (rgb - rgb_plain).abs().max().item() <= 1e-3  # chip_smoke.py's TOL_RENDER_RGB
+    finally:
+        trainer.close()

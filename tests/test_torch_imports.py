@@ -41,7 +41,8 @@ def test_port_modules_import_no_jax_and_no_aonerf():
         "aonerf_torch.ops.kernels.fused_train", "aonerf_torch.ops.random", "aonerf_torch.train.lr",
         "aonerf_torch.train.step", "aonerf_torch.train.loop", "aonerf_torch.cli.train",
         "aonerf_torch.utils.config", "aonerf_torch.utils.logging", "aonerf_torch.utils.ckpt",
-        "aonerf_torch.eval.viz",
+        "aonerf_torch.eval.viz", "aonerf_torch.eval.io", "aonerf_torch.ops.rays", "aonerf_torch.ops.raybox",
+        "aonerf_torch.ops.render",
     }
     assert expected <= set(out["modules"])
     assert not set(FORBIDDEN) & set(out["loaded"]), set(FORBIDDEN) & set(out["loaded"])

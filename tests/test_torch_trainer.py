@@ -115,7 +115,7 @@ def test_trainer_loads_a_checkpoint_from_another_run(tmp_path, source):
 
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
-    for overrides in ({"exp_type": "vanilla_autodecoder"}, {"run_eval": True}, {"noise_std": 1.0},
+    for overrides in ({"exp_type": "vanilla_autodecoder"}, {"noise_std": 1.0},
                       {"compute_dtype": "bf16"}, {"optimizer": "ranger"}, {"netwidth": 128},
                       {"profile_steps": 5}, {"debug_nans": True}, {"is_optimize": True}, {"n_model_shards": 2}):
         with pytest.raises(NotImplementedError):
@@ -145,8 +145,8 @@ def test_jax_only_fields_at_their_defaults_are_accepted(settings):
 
 
 def test_jax_only_fields_by_alias_are_refused():
-    cfg = config.load_config(None, {"N_max_objs": 8, "save_path": "out", "decay_step": [10, 20]})
-    assert config.jax_only_settings(cfg) == {"n_max_objs": 8, "render_name": "out", "decay_step": [10, 20]}
+    cfg = config.load_config(None, {"N_max_objs": 8, "N_obj_code_length": 64, "decay_step": [10, 20]})
+    assert config.jax_only_settings(cfg) == {"n_max_objs": 8, "obj_code_dim": 64, "decay_step": [10, 20]}
     with pytest.raises(NotImplementedError, match="n_max_objs=8"):
         _check_supported(cfg)
 
@@ -181,11 +181,11 @@ def test_config_matches_jax_for_the_vanilla_fields(tmp_path):
     for f in config.Config.__dataclass_fields__:
         if f != "extras":
             assert getattr(got, f) == getattr(want, f), f
-    aliased = {"N_samples": 32, "N_importance": 16, "perturb": 0, "lr": 2e-3, "use_disp": True}
+    aliased = {"N_samples": 32, "N_importance": 16, "perturb": 0, "lr": 2e-3, "use_disp": True, "save_path": "out"}
     got, want = config.load_config(None, aliased), jconfig.load_config(None, aliased)
-    for f in ("num_coarse_samples", "num_fine_samples", "randomized", "lr_init", "lindisp"):
+    for f in ("num_coarse_samples", "num_fine_samples", "randomized", "lr_init", "lindisp", "render_name"):
         assert getattr(got, f) == getattr(want, f), f
-    assert got.randomized is False and got.num_coarse_samples == 32
+    assert got.randomized is False and got.num_coarse_samples == 32 and got.render_name == "out"
 
 
 def test_checkpoints_keep_latest_best_and_unscored(tmp_path):
