@@ -1,11 +1,13 @@
 """CLI launcher: ``python -m aonerf_torch.cli.train --config cfg.json
-[--run_eval] [--max_steps N] [--<field> <value> ...]`` (counterpart of
-``aonerf.cli.train``).
+[--run_eval | --run_optimize] [--max_steps N] [--<field> <value> ...]``
+(counterpart of ``aonerf.cli.train``).
 
-Without ``--run_eval`` it trains (``Trainer.fit``) and prints the last
-metrics; with it, it restores the latest checkpoint (or ``--ckpt_path`` /
-``--weight_path``), renders and scores the test split (``Trainer.test``)
-and prints the stats. Any Config field can be overridden as --<name>
+By default it trains (``Trainer.fit``) and prints the last metrics. With
+``--run_eval`` it restores the latest checkpoint (or ``--ckpt_path`` /
+``--weight_path``), renders and scores the test views (``Trainer.test``)
+and prints the stats. With ``--run_optimize`` (auto-decoder) it restores the
+same way, fits fresh codes for ``optimize_instance`` with the field frozen
+(``Trainer.optimize_instance_codes``) and prints {"psnr1": [...]}. Any Config field can be overridden as --<name>
 <value>, or by the reference's flag name (e.g. --save_path for
 --render_name); values are read as JSON where they parse. Runs on the CUDA
 card unless ``--platform cpu``.
@@ -24,6 +26,8 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--config", type=str, default=None, help="JSON config file")
     p.add_argument("--run_eval", action="store_true", default=None)
+    p.add_argument("--run_optimize", action="store_true", default=None,
+                   help="test-time code optimization for one instance (auto-decoder)")
     p.add_argument("--max_steps", type=int, default=None)
     for f in dataclasses.fields(Config):
         if f.name in ("run_eval", "extras"):
@@ -37,7 +41,7 @@ def main(argv=None) -> Dict:
     args = parse_args(argv)
     overrides = {}
     for k, v in vars(args).items():
-        if k in ("config", "max_steps") or v is None:
+        if k in ("config", "max_steps", "run_optimize") or v is None:
             continue
         try:
             overrides[k] = json.loads(v) if isinstance(v, str) else v
@@ -46,7 +50,12 @@ def main(argv=None) -> Dict:
     cfg = load_config(args.config, overrides)
     trainer = Trainer(cfg)
     try:
-        out = trainer.test() if cfg.run_eval else trainer.fit(max_steps=args.max_steps)
+        if args.run_optimize:
+            out = {"psnr1": trainer.optimize_instance_codes()[1]["psnr1"]}
+        elif cfg.run_eval:
+            out = trainer.test()
+        else:
+            out = trainer.fit(max_steps=args.max_steps)
     finally:
         trainer.close()
     print(json.dumps(out))

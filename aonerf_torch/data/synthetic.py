@@ -1,15 +1,16 @@
-"""Analytic articulated "laptop" scene, ray-traced in numpy (the single-scene
-half of ``aonerf.data.synthetic``).
+"""Analytic articulated "laptop" scene, ray-traced in numpy (counterpart of
+``aonerf.data.synthetic``'s scene and its single- and multi-scene writers).
 
 A base slab and a lid slab hinged at its back edge, the lid pitched by the
-articulation angle. It gives real multi-view-consistent views in memory, and
-``write_single_scene`` writes them in the SAPIEN layout with PIL.
+articulation angle. It gives real multi-view-consistent views in memory;
+``write_single_scene`` writes them in the SAPIEN layout and
+``generate_multi_scene`` in the articulated sapien_multi layout, with PIL.
 """
 
 import json
 import os
 from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -140,6 +141,21 @@ def random_pose_on_sphere(
     return look_at_c2w(eye, np.zeros(3), np.array([0.0, 0.0, 1.0]))
 
 
+def _write_frame(
+    rgb: np.ndarray, alpha: np.ndarray, seg: np.ndarray, rgb_path: str, seg_path: Optional[str]
+) -> None:
+    """The RGBA frame (alpha from the hit mask) and, with ``seg_path``, the
+    L-mode segmentation (255 on the object)."""
+    from PIL import Image  # only the writers need PIL
+
+    rgba = np.concatenate(
+        [np.clip(rgb * 255, 0, 255).astype(np.uint8), (alpha[..., None] * 255).astype(np.uint8)], axis=-1
+    )
+    Image.fromarray(rgba, mode="RGBA").save(rgb_path)
+    if seg_path is not None:
+        Image.fromarray((seg > 0).astype(np.uint8) * 255, mode="L").save(seg_path)
+
+
 def write_single_scene(
     root: str,
     img_wh: Tuple[int, int] = (320, 240),
@@ -153,8 +169,6 @@ def write_single_scene(
     """Write a single-scene dataset in the SAPIEN layout
     ({root}/{split}/rgb/r_#.png RGBA + transforms.json with a 'focal' key),
     the same files ``aonerf.data.synthetic.generate_single_scene`` writes."""
-    from PIL import Image  # only the writer needs PIL
-
     w, h = img_wh
     focal = 0.5 * h / np.tan(0.5 * np.deg2rad(FOVY_DEG))
     boxes = laptop_scene(articulation_deg, instance_seed)
@@ -165,13 +179,55 @@ def write_single_scene(
         frames: Dict[str, list] = {}
         for i in range(count):
             c2w = random_pose_on_sphere(rng)
-            rgb, alpha, _ = render_scene(boxes, c2w, h, w, focal)
-            rgba = np.concatenate(
-                [np.clip(rgb * 255, 0, 255).astype(np.uint8), (alpha[..., None] * 255).astype(np.uint8)],
-                axis=-1,
-            )
-            Image.fromarray(rgba, mode="RGBA").save(os.path.join(rgb_dir, f"r_{i}.png"))
+            rgb, alpha, seg = render_scene(boxes, c2w, h, w, focal)
+            _write_frame(rgb, alpha, seg, os.path.join(rgb_dir, f"r_{i}.png"), None)
             frames[f"r_{i}"] = c2w.tolist()
         with open(os.path.join(root, split, "transforms.json"), "w") as f:
             json.dump({"focal": focal, "frames": frames}, f)
+    return root
+
+
+def generate_multi_scene(
+    root: str,
+    img_wh: Tuple[int, int] = (320, 240),
+    n_instances: int = 2,
+    degrees: Tuple[int, ...] = (0, 10, 20, 30, 40, 50, 60, 70, 80, 90),
+    n_images: int = 4,
+    seed: int = 0,
+    val_degrees: Tuple[int, ...] = (),
+    n_val_images: int = 0,
+) -> str:
+    """Write an articulated multi-config dataset in the sapien_multi layout
+    ({root}/{instance}/{split}/{deg}_degree/{rgb,seg}/r_#.png +
+    transforms.json with a 'camera_angle_x'), the same files as
+    ``aonerf.data.synthetic.generate_multi_scene``. ``val_degrees`` (e.g.
+    ``sapien_multi.DEFAULT_VAL_DEGREES``) adds {instance}/val/{deg}_degree
+    dirs of held-out articulations, ``n_val_images`` views each (default:
+    ``n_images``)."""
+    w, h = img_wh
+    focal = 0.5 * h / np.tan(0.5 * np.deg2rad(FOVY_DEG))
+    # camera_angle_x consistent with focal at native width 320
+    camera_angle_x = 2.0 * np.arctan(0.5 * 320 / (focal * 320 / w))
+    rng = np.random.default_rng(seed)
+    splits = [("train", degrees, n_images)]
+    if val_degrees:
+        splits.append(("val", tuple(val_degrees), n_val_images or n_images))
+    for inst in range(n_instances):
+        inst_name = f"{10000 + inst}"
+        for split, split_degrees, split_images in splits:
+            for deg in split_degrees:
+                base = os.path.join(root, inst_name, split, f"{deg}_degree")
+                os.makedirs(os.path.join(base, "rgb"), exist_ok=True)
+                os.makedirs(os.path.join(base, "seg"), exist_ok=True)
+                boxes = laptop_scene(float(deg), instance_seed=inst)
+                frames: Dict[str, list] = {}
+                for i in range(split_images):
+                    c2w = random_pose_on_sphere(rng)
+                    rgb, alpha, seg = render_scene(boxes, c2w, h, w, focal)
+                    name = f"r_{i}"
+                    _write_frame(rgb, alpha, seg, os.path.join(base, "rgb", name + ".png"),
+                                 os.path.join(base, "seg", name + ".png"))
+                    frames[name] = c2w.tolist()
+                with open(os.path.join(base, "transforms.json"), "w") as f:
+                    json.dump({"camera_angle_x": float(camera_angle_x), "frames": frames}, f)
     return root

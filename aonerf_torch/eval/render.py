@@ -2,8 +2,9 @@
 
 Rays are padded to a whole number of ``chunk``-ray tiles by repeating the
 last ray, each tile goes through the model, and the fine level is cropped
-back to the image's rays. Single device; the sharded branch of the JAX
-renderer and the latents of the articulated models are not ported yet.
+back to the image's rays. Latents given to a renderer (the articulated
+field's (1, C) codes) go to the model with every tile. Single device; the
+sharded branch of the JAX renderer is not ported yet.
 """
 
 from typing import Callable, Dict, Tuple
@@ -34,14 +35,14 @@ def _render_tiles(render_tile: Callable[[Dict[str, torch.Tensor]], Rendered], ra
     return rgb, acc, depth
 
 
-def make_chunk_renderer(model, white_bkgd: bool, near: float, far: float) -> Callable[[Dict[str, torch.Tensor]], Rendered]:
-    """Deterministic fine-level renderer of one ray chunk: fn(rays) ->
-    (rgb, acc, depth), rays as in :func:`make_image_renderer` with a
-    multiple of the kernels' 16-ray tile."""
+def make_chunk_renderer(model, white_bkgd: bool, near: float, far: float) -> Callable[..., Rendered]:
+    """Deterministic fine-level renderer of one ray chunk: fn(rays[,
+    latents]) -> (rgb, acc, depth), rays as in :func:`make_image_renderer`
+    (for the vanilla field, a multiple of the kernels' 16-ray tile)."""
 
     @torch.no_grad()
-    def render_chunk(rays: Dict[str, torch.Tensor]) -> Rendered:
-        return model(rays, False, white_bkgd, near, far)[-1]
+    def render_chunk(rays: Dict[str, torch.Tensor], *latents) -> Rendered:
+        return model(rays, False, white_bkgd, near, far, *latents)[-1]
 
     return render_chunk
 
@@ -60,13 +61,13 @@ def render_rays_chunked(
 
 def make_image_renderer(
     model, white_bkgd: bool, near: float, far: float, chunk: int = 4096
-) -> Callable[[Dict[str, torch.Tensor]], Rendered]:
-    """Returns fn(rays) -> (rgb (N,3), acc (N,), depth (N,)) of the fine
-    level, where rays holds (N, 3) 'rays_o'/'rays_d'/'viewdirs' on the
-    model's device."""
+) -> Callable[..., Rendered]:
+    """Returns fn(rays[, latents]) -> (rgb (N,3), acc (N,), depth (N,)) of
+    the fine level, where rays holds (N, 3) 'rays_o'/'rays_d'/'viewdirs' on
+    the model's device and latents the articulated field's codes."""
     render_chunk = make_chunk_renderer(model, white_bkgd, near, far)
 
-    def render(rays: Dict[str, torch.Tensor]) -> Rendered:
-        return _render_tiles(render_chunk, rays, chunk)
+    def render(rays: Dict[str, torch.Tensor], *latents) -> Rendered:
+        return _render_tiles(lambda tile: render_chunk(tile, *latents), rays, chunk)
 
     return render

@@ -5,8 +5,9 @@ port derives it from (seed, step) by seeding a ``torch.Generator`` on the
 run's device, so a resumed run draws what an unbroken run would. Every
 randomized function of the port takes its numbers from a ``Draws`` object, in
 the order the step asks for them: the batch indices, the coarse jitter, the
-fine exponential draws. A test can pass any object with the same three
-methods, for example one that returns numbers drawn with JAX.
+fine exponential draws (and, for fresh latent codes, normal draws). A test
+can pass any object with the same methods, for example one that returns
+numbers drawn with JAX.
 """
 
 import torch
@@ -18,7 +19,8 @@ def step_seed(seed: int, step: int) -> int:
 
 
 class Draws:
-    """Uniform, exponential and integer draws from one ``torch.Generator``."""
+    """Uniform, exponential, normal and integer draws from one
+    ``torch.Generator``."""
 
     def __init__(self, generator: torch.Generator):
         self.generator = generator
@@ -42,3 +44,7 @@ class Draws:
         """float32 Exp(1)."""
         out = torch.empty(tuple(shape), dtype=torch.float32, device=self.device)
         return out.exponential_(generator=self.generator)
+
+    def normal(self, shape) -> torch.Tensor:
+        """float32 N(0, 1)."""
+        return torch.randn(tuple(shape), generator=self.generator, device=self.device)

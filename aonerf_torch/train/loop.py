@@ -1,13 +1,23 @@
-"""Training and test orchestration for the vanilla NeRF (counterpart of the
-vanilla branches of ``aonerf.train.loop.Trainer``).
+"""Training and test orchestration (counterpart of ``aonerf.train.loop``,
+its 'vanilla' and 'vanilla_autodecoder' experiment types).
 
-One device: the scene's ray buffers are uploaded once, each train step
-gathers its batch on the device, and ``fit`` is a host loop around the
-multi-step with the JAX Trainer's logging, validation and checkpoint
-cadences. ``validate`` renders val views through the tiled image renderer;
-with ``run_eval`` the Trainer loads the test split instead, and ``test``
-renders and scores every test view and writes the outputs. The articulated
-experiment types are not ported yet.
+One device: the scene's buffers are uploaded once, each train step samples
+its batch on the device, and ``fit`` is a host loop around the multi-step
+with the JAX Trainer's logging, validation and checkpoint cadences.
+
+  vanilla:      the NeRF through the fused level kernels, on a SAPIEN scene's
+                ray buffers; ``validate`` renders val views, ``test`` every
+                view of the test split
+  auto-decoder: the articulated field and the code library, trained jointly
+                on a sapien_multi scene's (instance, articulation, view)
+                buffers; ``validate`` renders a rotating set of views (the
+                held-out degrees when the scene has a val split, each with
+                the nearest code of the interpolated sweep), ``test`` the
+                spheric sweep of ``render_instance`` over the interpolated
+                articulations, and ``optimize_instance_codes`` fits fresh
+                codes for one instance with the field frozen
+
+With ``run_eval`` the Trainer loads the test split instead of train and val.
 """
 
 import os
@@ -15,35 +25,53 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 from aonerf_torch import default_device
 from aonerf_torch.data.sapien import SapienDataset
+from aonerf_torch.data.sapien_multi import SapienMultiDataset
 from aonerf_torch.eval import io
 from aonerf_torch.eval.metrics import masked_psnr, psnr_image, ssim_image, summarize_metric
 from aonerf_torch.eval.render import make_image_renderer
+from aonerf_torch.models.articulated import ArticulatedNeRF
+from aonerf_torch.models.codes import CodeLibraryArticulated
 from aonerf_torch.models.mlp import NeRFMLP
 from aonerf_torch.models.nerf import NeRF
-from aonerf_torch.train.step import AdamState, TrainState, create_train_state, make_adam, make_vanilla_train_multi_step
+from aonerf_torch.ops.random import Draws
+from aonerf_torch.train.step import (
+    AdamState,
+    TrainState,
+    create_train_state,
+    make_adam,
+    make_autodecoder_device_train_step,
+    make_vanilla_train_multi_step,
+)
 from aonerf_torch.utils.ckpt import CheckpointManager
 from aonerf_torch.utils.config import Config, jax_only_settings
 from aonerf_torch.utils.logging import MetricLogger
+
+# the dataset each experiment type trains on
+DATASETS = {"vanilla": "sapien", "vanilla_autodecoder": "sapien_multi"}
 
 
 def _check_supported(cfg: Config) -> None:
     """Raise on a configuration the port does not run yet."""
     todo = []
-    if cfg.exp_type != "vanilla":
+    if cfg.exp_type not in DATASETS:
         todo.append(f"exp_type={cfg.exp_type!r}")
-    if cfg.dataset_name != "sapien":
-        todo.append(f"dataset_name={cfg.dataset_name!r}")
+    elif cfg.dataset_name != DATASETS[cfg.exp_type]:
+        todo.append(f"dataset_name={cfg.dataset_name!r} for {cfg.exp_type}")
     if cfg.noise_std:
         todo.append("noise_std")
     if cfg.compute_dtype != "f32":
         todo.append(f"compute_dtype={cfg.compute_dtype!r}")
     if cfg.optimizer != "adam" or cfg.lr_scheduler is not None:
         todo.append("optimizers other than the log-lerp Adam")
+    # the articulated field takes any encoding degrees and has fixed widths
     shape = (cfg.min_deg_point, cfg.max_deg_point, cfg.deg_view, cfg.netdepth, cfg.netwidth)
-    if shape != (NeRFMLP.min_deg_point, NeRFMLP.max_deg_point, NeRFMLP.deg_view, NeRFMLP.netdepth, NeRFMLP.netwidth):
+    if cfg.exp_type == "vanilla" and shape != (
+        NeRFMLP.min_deg_point, NeRFMLP.max_deg_point, NeRFMLP.deg_view, NeRFMLP.netdepth, NeRFMLP.netwidth
+    ):
         todo.append("MLP shapes other than 8x256 with 10/4 encoding degrees")
     todo.extend(f"{name}={value!r}" for name, value in jax_only_settings(cfg).items())
     if todo:
@@ -59,31 +87,64 @@ class Trainer:
         os.makedirs(self.run_dir, exist_ok=True)
         self.logger = MetricLogger(self.run_dir)
         self.ckpt = CheckpointManager(os.path.join(self.run_dir, "ckpts"), keep=cfg.ckpt_keep)
-
-        split = "test" if cfg.run_eval else "train"
-        self.dataset = SapienDataset(cfg.root_dir, split=split, img_wh=cfg.img_wh, white_back=cfg.white_back)
-        if not cfg.run_eval:
-            self.val_dataset = SapienDataset(cfg.root_dir, split="val", img_wh=cfg.img_wh, white_back=cfg.white_back)
-        self.near, self.far = self.dataset.near, self.dataset.far
-
-        self.model = NeRF(
-            num_coarse_samples=cfg.num_coarse_samples,
-            num_fine_samples=cfg.num_fine_samples,
-            lindisp=cfg.lindisp,
-            generator=torch.Generator().manual_seed(cfg.seed),
-            device=self.device,
-        )
+        self.articulated = cfg.exp_type == "vanilla_autodecoder"
+        generator = torch.Generator().manual_seed(cfg.seed)
         self.tx = make_adam(
             lr_init=cfg.lr_init, lr_final=cfg.lr_final, max_steps=cfg.run_max_steps,
             lr_delay_steps=cfg.lr_delay_steps, lr_delay_mult=cfg.lr_delay_mult,
             grad_clip=cfg.grad_clip or None,
         )
         self._inner_steps = max(1, cfg.inner_steps)
-        self.step_fn = make_vanilla_train_multi_step(
-            self.model, self.tx, cfg.white_back, self.near, self.far, batch_size=cfg.batch_size,
-            inner_steps=self._inner_steps, randomized=cfg.randomized,
-        )
-        self.state = create_train_state(self.model, self.tx)
+        split = "test" if cfg.run_eval else "train"
+
+        if self.articulated:
+            self.dataset = SapienMultiDataset(
+                cfg.root_dir, split=split, img_wh=cfg.img_wh, white_back=cfg.white_back,
+                eval_inference=cfg.render_name if cfg.run_eval else None,
+            )
+            # held-out degrees when every instance has a val/ split, else the
+            # train views (the reference's own practice)
+            if not cfg.run_eval and SapienMultiDataset.has_val_split(cfg.root_dir):
+                self.val_dataset = SapienMultiDataset(
+                    cfg.root_dir, split="val", img_wh=cfg.img_wh, white_back=cfg.white_back
+                )
+            else:
+                self.val_dataset = self.dataset
+            self.near, self.far = self.dataset.near, self.dataset.far
+            self.model = ArticulatedNeRF(
+                num_coarse_samples=cfg.num_coarse_samples, num_fine_samples=cfg.num_fine_samples,
+                min_deg_point=cfg.min_deg_point, max_deg_point=cfg.max_deg_point, deg_view=cfg.deg_view,
+                lindisp=cfg.lindisp, latent_dense=cfg.latent_dense, generator=generator, device=self.device,
+            )
+            self.code_library = CodeLibraryArticulated(
+                n_max_objs=cfg.n_max_objs, obj_code_dim=cfg.obj_code_dim,
+                n_max_articulations=cfg.n_max_articulations, art_code_dim=cfg.art_code_dim,
+                generator=generator, device=self.device,
+            )
+            # one Adam over the field and the codes, as in JAX's {'model', 'codes'}
+            trained = nn.ModuleDict({"model": self.model, "codes": self.code_library})
+            self.step_fn = make_autodecoder_device_train_step(
+                self.model, self.code_library, self.tx, cfg.white_back, self.near, self.far,
+                batch_size=cfg.batch_size, randomized=cfg.randomized, reg_weight=cfg.code_reg_weight,
+                inner_steps=self._inner_steps,
+            )
+        else:
+            self.dataset = SapienDataset(cfg.root_dir, split=split, img_wh=cfg.img_wh, white_back=cfg.white_back)
+            if not cfg.run_eval:
+                self.val_dataset = SapienDataset(
+                    cfg.root_dir, split="val", img_wh=cfg.img_wh, white_back=cfg.white_back
+                )
+            self.near, self.far = self.dataset.near, self.dataset.far
+            self.model = NeRF(
+                num_coarse_samples=cfg.num_coarse_samples, num_fine_samples=cfg.num_fine_samples,
+                lindisp=cfg.lindisp, generator=generator, device=self.device,
+            )
+            trained = self.model
+            self.step_fn = make_vanilla_train_multi_step(
+                self.model, self.tx, cfg.white_back, self.near, self.far, batch_size=cfg.batch_size,
+                inner_steps=self._inner_steps, randomized=cfg.randomized,
+            )
+        self.state = create_train_state(trained, self.tx)
         self._renderer = make_image_renderer(self.model, cfg.white_back, self.near, self.far, chunk=cfg.chunk)
 
         if cfg.ckpt_path:
@@ -129,7 +190,10 @@ class Trainer:
     # ----------------------------------------------------------------- train
 
     def train_buffers(self) -> Dict[str, torch.Tensor]:
-        """The scene's ray buffers on the device (viewdirs aliases rays_d)."""
+        """The scene's train buffers on the device: the ray buffers (viewdirs
+        aliases rays_d), or for the auto-decoder ``device_buffers``."""
+        if self.articulated:
+            return {k: torch.from_numpy(v).to(self.device) for k, v in self.dataset.device_buffers().items()}
         host = self.dataset.train_buffers()
         buffers = {k: torch.from_numpy(host[k]).to(self.device) for k in ("rays_o", "rays_d", "target")}
         buffers["viewdirs"] = buffers["rays_d"]
@@ -175,25 +239,98 @@ class Trainer:
         os.makedirs(vis_dir, exist_ok=True)
         Image.fromarray(grid).save(os.path.join(vis_dir, f"step{self.state.step:07d}.png"))
 
+    def _img_rays(self, img: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        return {k: torch.from_numpy(img[k]).to(self.device) for k in ("rays_o", "rays_d", "viewdirs")}
+
+    @torch.no_grad()
+    def _latents_for(self, instance_id, articulation_id, is_test: bool = False) -> Dict[str, torch.Tensor]:
+        """The (1, C) codes of an instance and an articulation (with
+        ``is_test``, an index of the interpolated sweep)."""
+        latents = self.code_library(int(instance_id), int(articulation_id), is_test=is_test)
+        return {k: torch.atleast_2d(v) for k, v in latents.items()}
+
+    def _interp_articulation_id(self, deg_rad: float) -> int:
+        """The index of the nearest angle of the 2N-1 interpolated sweep: the
+        train degrees at even indices, their midpoints at odd ones."""
+        train_degs = self.dataset.degrees_rad()
+        grid = np.empty(2 * len(train_degs) - 1, np.float64)
+        grid[0::2] = train_degs
+        grid[1::2] = 0.5 * (train_degs[:-1] + train_degs[1:])
+        return int(np.argmin(np.abs(grid - deg_rad)))
+
+    def _render_setup(self, img: Dict, is_test: bool = False) -> Dict[str, torch.Tensor]:
+        """The latents an articulated view renders with."""
+        return self._latents_for(img["instance_id"], img["articulation_id"], is_test=is_test)
+
+    def val_schedule(self, n: int):
+        """The (instance, articulation, view) ids ``validate`` renders at the
+        current step: ``n`` consecutive entries of the flattened grid, from
+        (step // val_every_steps) * n, instances varying fastest, so a step
+        always scores the same views and successive calls rotate."""
+        ds = self.val_dataset
+        base = (self.state.step // max(1, self.cfg.val_every_steps)) * n
+        out = []
+        for k in range(n):
+            g = base + k
+            ii = g % ds.n_instances
+            g //= ds.n_instances
+            di = g % ds.n_articulations(ii)
+            g //= ds.n_articulations(ii)
+            out.append((ii, di, g % ds.n_images(ii, di)))
+        return out
+
     def validate(self, n_images: Optional[int] = None) -> Dict[str, float]:
-        n = min(n_images or self.cfg.limit_val_batches, self.val_dataset.num_images)
-        psnrs = []
-        for i in range(n):
-            s = self.val_dataset.get_image(i)
-            rgb, acc, depth = self._renderer(self._view_rays(s))
-            psnrs.append(float(psnr_image(rgb, torch.from_numpy(s.target).to(self.device))))
-            if i == 0:
-                self._save_val_grid(s.target, *(x.cpu().numpy() for x in (rgb, depth, acc)))
-        return {"psnr": float(np.mean(psnrs))}
+        if not self.articulated:
+            n = min(n_images or self.cfg.limit_val_batches, self.val_dataset.num_images)
+            psnrs = []
+            for i in range(n):
+                s = self.val_dataset.get_image(i)
+                rgb, acc, depth = self._renderer(self._view_rays(s))
+                psnrs.append(float(psnr_image(rgb, torch.from_numpy(s.target).to(self.device))))
+                if i == 0:
+                    self._save_val_grid(s.target, *(x.cpu().numpy() for x in (rgb, depth, acc)))
+            return {"psnr": float(np.mean(psnrs))}
+
+        ds = self.val_dataset
+        psnrs, obj_psnrs = [], []
+        for k, (ii, di, vi) in enumerate(self.val_schedule(n_images or self.cfg.limit_val_batches)):
+            img = ds.get_image(ii, di, vi)
+            if ds.uses_val_split:
+                # no learned code exists for a held-out degree: condition on
+                # the nearest code of the interpolated sweep
+                img = dict(img, articulation_id=np.int32(self._interp_articulation_id(float(img["deg"]))))
+                latents = self._render_setup(img, is_test=True)
+            else:
+                latents = self._render_setup(img)
+            rgb, acc, depth = self._renderer(self._img_rays(img), latents)
+            if k == 0:
+                self._save_val_grid(img["target"], *(x.cpu().numpy() for x in (rgb, depth, acc)))
+            target = torch.from_numpy(img["target"]).to(self.device)
+            psnrs.append(float(psnr_image(rgb, target)))
+            obj_psnrs.append(float(masked_psnr(rgb, target, torch.from_numpy(img["instance_mask"]).to(self.device))))
+        return {"psnr": float(np.mean(psnrs)), "psnr_obj": float(np.mean(obj_psnrs))}
 
     def _view_rays(self, sample) -> Dict[str, torch.Tensor]:
         return {k: torch.from_numpy(getattr(sample, k)).to(self.device) for k in ("rays_o", "rays_d", "viewdirs")}
 
+    def _test_view(self, i: int):
+        """(rgb, acc, depth) rendered for test view ``i``, its target (N, 3)
+        and its instance mask (N,) as host arrays."""
+        if self.articulated:  # the spheric sweep of cfg.render_instance
+            img = self.dataset.get_test_image(self.cfg.render_instance, i)
+            out = self._renderer(self._img_rays(img), self._render_setup(img, is_test=True))
+            return out, img["target"], img["instance_mask"]
+        s = self.dataset.get_image(i)
+        return self._renderer(self._view_rays(s)), s.target, s.instance_mask
+
     def test(self) -> Dict[str, Dict[str, float]]:
-        """Render every test view, score it (PSNR, SSIM, object PSNR through
-        ``summarize_metric``) and write the jpg sequence, colour and raw
-        depth, opacity maps and the video (GIF without an mp4 backend) under
-        ``run_dir/render_name``, and ``run_dir/results.json``.
+        """Render every test view (vanilla: the test split; auto-decoder:
+        ``test_sweep_poses`` spheric poses of ``render_instance``, pose i
+        conditioned on the interpolated articulation i), score it (PSNR,
+        SSIM, object PSNR through ``summarize_metric``) and write the jpg
+        sequence, colour and raw depth, opacity maps and the video (GIF
+        without an mp4 backend) under ``run_dir/render_name``, and
+        ``run_dir/results.json``.
 
         One process renders every view; sharding the views across processes
         (the JAX Trainer's ``local_shard_bounds`` / ``gather_images``) is not
@@ -208,15 +345,15 @@ class Trainer:
             )
         cfg = self.cfg
         w, h = cfg.img_wh
+        n_images = cfg.test_sweep_poses if self.articulated else self.dataset.num_images
         rgbs, depths, accs, psnrs, ssims, obj_psnrs = [], [], [], [], [], []
-        for i in range(self.dataset.num_images):
-            s = self.dataset.get_image(i)
-            rgb, acc, depth = self._renderer(self._view_rays(s))
+        for i in range(n_images):
+            (rgb, acc, depth), target, mask = self._test_view(i)
             img = rgb.reshape(h, w, 3)
-            target = torch.from_numpy(s.target).to(self.device).reshape(h, w, 3)
+            target = torch.from_numpy(target).to(self.device).reshape(h, w, 3)
             psnrs.append(float(psnr_image(img, target)))
             ssims.append(float(ssim_image(img, target)))
-            mask = torch.from_numpy(s.instance_mask).to(self.device).reshape(h, w)
+            mask = torch.from_numpy(mask).to(self.device).reshape(h, w)
             obj_psnrs.append(float(masked_psnr(img, target, mask)))
             rgbs.append(img.cpu().numpy())
             depths.append(depth.reshape(h, w).cpu().numpy())
@@ -239,6 +376,49 @@ class Trainer:
             io.store_gif(image_dir, rgbs)
         io.write_stats(os.path.join(self.run_dir, "results.json"), **stats)
         return stats
+
+    # ------------------------------------------- test-time code optimization
+
+    def optimize_instance_codes(
+        self,
+        instance_idx: Optional[int] = None,
+        n_steps: Optional[int] = None,
+        lr: Optional[float] = None,
+        batch_size: Optional[int] = None,
+    ):
+        """Fit fresh (shape, appearance) codes for one instance of the train
+        split as if it were unseen, with the trained field and articulation
+        table frozen (``train.optimize.optimize_codes``). Returns (codes,
+        history) and writes them to ``run_dir/optimized_codes.npz``."""
+        if not self.articulated:
+            raise ValueError("code optimization requires the auto-decoder mode")
+        from aonerf_torch.train.optimize import CODE_STEP, optimize_codes
+
+        cfg = self.cfg
+        instance_idx = cfg.optimize_instance if instance_idx is None else instance_idx
+        buffers = self.train_buffers()
+        for k in ("rgb", "mask", "c2w"):  # the target instance only
+            buffers[k] = buffers[k][instance_idx : instance_idx + 1]
+        codes, history = optimize_codes(
+            self.model,
+            self.code_library.embedding_instance_articulation.weight,
+            buffers,
+            Draws.for_step(cfg.seed, CODE_STEP, self.device),
+            n_steps=n_steps or cfg.optimize_steps,
+            lr=lr or cfg.optimize_lr,
+            batch_size=batch_size or cfg.batch_size,
+            obj_code_dim=cfg.obj_code_dim,
+            white_bkgd=cfg.white_back,
+            near=self.near,
+            far=self.far,
+        )
+        np.savez(
+            os.path.join(self.run_dir, "optimized_codes.npz"),
+            density=codes["density"].cpu().numpy(),
+            color=codes["color"].cpu().numpy(),
+            history_psnr1=np.asarray(history["psnr1"]),
+        )
+        return codes, history
 
     def close(self) -> None:
         self.logger.close()

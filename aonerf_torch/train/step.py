@@ -1,6 +1,14 @@
-"""The vanilla train step: batch gather on the device, hierarchical render
-through the fused levels, MSE(coarse) + MSE(fine), gradients, Adam with the
-log-lerp schedule (counterpart of ``aonerf.train.step``).
+"""The train steps (counterpart of ``aonerf.train.step``): batch sampling on
+the device, the hierarchical render, MSE(coarse) + MSE(fine), gradients,
+Adam with the log-lerp schedule.
+
+  vanilla:      a gather of ``batch_size`` rays from the scene's ray buffers;
+                both levels through the fused level kernels
+  auto-decoder: one random (instance, articulation, view) and
+                ``batch_size`` of its pixels, rays built from the stored c2w;
+                the articulated field (plain PyTorch) conditioned on the
+                codes of that instance and articulation; plus the code
+                regularization, with one Adam over the field and the codes
 
 A step's random numbers come from ``Draws.for_step(seed, step)``, as JAX's
 from ``fold_in(base_key, step)``, so a resumed run draws what an unbroken run
@@ -17,6 +25,7 @@ import torch
 
 from aonerf_torch.ops.math import img2mse, mse2psnr
 from aonerf_torch.ops.random import Draws
+from aonerf_torch.train.losses import code_regularization
 from aonerf_torch.train.lr import log_lerp_lr
 
 
@@ -157,6 +166,20 @@ def make_vanilla_train_step(
     return train_step
 
 
+def repeat_steps(one_step: Callable, inner_steps: int) -> Callable:
+    """step(state, buffers, seed) -> (state, metrics of the last step):
+    ``inner_steps`` calls of ``one_step`` in a plain loop. Each step's draws
+    derive from (seed, step), so the result equals that many single steps."""
+
+    def multi_step(state: TrainState, buffers, seed: int):
+        metrics = {}
+        for _ in range(inner_steps):
+            state, metrics = one_step(state, buffers, seed)
+        return state, metrics
+
+    return multi_step
+
+
 def make_vanilla_train_multi_step(
     model,
     tx: Adam,
@@ -167,18 +190,92 @@ def make_vanilla_train_multi_step(
     inner_steps: int = 10,
     randomized: bool = True,
 ) -> Callable:
-    """``inner_steps`` train steps in a plain loop; returns
-    step(state, buffers, seed) -> (state, metrics of the last step). Each
-    step's draws derive from (seed, step), so the result equals
-    ``inner_steps`` single steps."""
-    one_step = make_vanilla_train_step(
-        model, tx, white_bkgd, near, far, batch_size=batch_size, randomized=randomized
+    """``inner_steps`` vanilla train steps in a plain loop (``repeat_steps``)."""
+    return repeat_steps(
+        make_vanilla_train_step(model, tx, white_bkgd, near, far, batch_size=batch_size, randomized=randomized),
+        inner_steps,
     )
 
-    def multi_step(state: TrainState, buffers, seed: int):
-        metrics = {}
-        for _ in range(inner_steps):
-            state, metrics = one_step(state, buffers, seed)
-        return state, metrics
 
-    return multi_step
+def sample_multi_batch(buffers: Dict[str, torch.Tensor], draws, batch_size: int) -> Dict[str, torch.Tensor]:
+    """One random (instance, articulation, view) of the scene buffers
+    (``SapienMultiDataset.device_buffers`` on the device) and ``batch_size``
+    random pixels of it, drawn in that order: the view's rays from its c2w
+    (rays_d = viewdirs, unit), targets uint8 / 255, the mask, the
+    articulation's angle and the ids (0-d tensors)."""
+    n_i, n_d, n_v, hw, _ = buffers["rgb"].shape
+    ii = draws.randint(n_i, ())
+    di = draws.randint(n_d, ())
+    vi = draws.randint(n_v, ())
+    pix = draws.randint(hw, (batch_size,))
+    c2w = buffers["c2w"][ii, di, vi]
+    world_d = buffers["directions"][pix] @ c2w[:, :3].T
+    viewdirs = world_d / torch.linalg.norm(world_d, dim=-1, keepdim=True)
+    return {
+        "rays_o": c2w[:, 3].expand_as(viewdirs),
+        "rays_d": viewdirs,
+        "viewdirs": viewdirs,
+        "target": buffers["rgb"][ii, di, vi][pix].to(torch.float32) / 255.0,
+        "instance_mask": buffers["mask"][ii, di, vi][pix],
+        "deg": buffers["deg"][di],
+        "instance_id": ii,
+        "articulation_id": di,
+    }
+
+
+def autodecoder_loss_and_grads(
+    model, code_library, params: Dict[str, torch.Tensor], batch, draws, randomized: bool, white_bkgd: bool,
+    near: float, far: float, reg_weight: float,
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor, torch.Tensor], List[torch.Tensor]]:
+    """loss = MSE(coarse) + MSE(fine) + the code regularization of the
+    batch's codes, and its gradients with respect to ``params`` (in their
+    order)."""
+    latents = code_library(batch["instance_id"], batch["articulation_id"])
+    latents = {k: torch.atleast_2d(v) for k, v in latents.items()}
+    out = model(batch, randomized, white_bkgd, near, far, latents, draws=draws)
+    loss0 = img2mse(out[0][0], batch["target"])
+    loss1 = img2mse(out[1][0], batch["target"])
+    reg = code_regularization(latents, weight=reg_weight)
+    loss = loss1 + loss0 + reg
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return loss.detach(), (loss0.detach(), loss1.detach(), reg.detach()), list(grads)
+
+
+def make_autodecoder_device_train_step(
+    model,
+    code_library,
+    tx: Adam,
+    white_bkgd: bool,
+    near: float,
+    far: float,
+    batch_size: int = 4096,
+    randomized: bool = True,
+    reg_weight: float = 1e-4,
+    inner_steps: int = 1,
+) -> Callable:
+    """Returns step(state, buffers, seed, draws=None) -> (state, metrics of
+    the last step), ``inner_steps`` auto-decoder steps in a plain loop.
+    ``state.params`` holds the field's and the codes' parameters, updated by
+    one Adam (its clip, if any, over both). Each step samples a batch with
+    ``sample_multi_batch`` from ``buffers`` and its draws from
+    ``Draws.for_step(seed, step)`` on the buffers' device; ``draws``
+    replaces them for a single step. Metrics stay on the device."""
+
+    def one_step(state: TrainState, buffers, seed: int, draws=None):
+        if draws is None:
+            draws = Draws.for_step(seed, state.step, buffers["rgb"].device)
+        batch = sample_multi_batch(buffers, draws, batch_size)
+        loss, (loss0, loss1, reg), grads = autodecoder_loss_and_grads(
+            model, code_library, state.params, batch, draws, randomized, white_bkgd, near, far, reg_weight
+        )
+        opt_state = tx.update(list(state.params.values()), grads, state.opt_state)
+        metrics = {
+            "loss": loss,
+            "loss_reg": reg,
+            "psnr0": mse2psnr(loss0),
+            "psnr1": mse2psnr(loss1),
+            "lr": tx.schedule(state.step),
+        }
+        return TrainState(step=state.step + 1, params=state.params, opt_state=opt_state), metrics
+
+    return one_step if inner_steps <= 1 else repeat_steps(one_step, inner_steps)

@@ -1,8 +1,8 @@
 """Experiment configuration: typed dataclass + JSON override merge
 (counterpart of ``aonerf.utils.config``).
 
-The fields are the ones the vanilla path reads, with the JAX package's names
-and defaults; ``ALIASES`` maps the reference's flag names, so the repo's
+The fields are the ones the vanilla and auto-decoder paths read, with the
+JAX package's names and defaults; ``ALIASES`` maps the reference's flag names, so the repo's
 config/*.json files load unchanged. Unknown keys are kept in ``extras``;
 ``JAX_ONLY_DEFAULTS`` names those that are fields of the JAX package's Config
 the port does not run yet, and ``train.loop`` refuses a run that sets one of
@@ -44,6 +44,13 @@ class Config:
     noise_std: float = 0.0
     lindisp: bool = False
     compute_dtype: str = "f32"
+    # auto-decoder codes and the articulated field's compute schedule
+    n_max_objs: int = 4
+    obj_code_dim: int = 128
+    n_max_articulations: int = 10
+    art_code_dim: int = 32
+    code_reg_weight: float = 1e-4
+    latent_dense: bool = True  # contract latent columns per view (models/articulated.py)
 
     # optimization
     lr_init: float = 5.0e-4
@@ -58,6 +65,7 @@ class Config:
     steps_per_epoch: int = 1000
     randomized: bool = True
     inner_steps: int = 10  # train steps per call of the multi-step
+    samples_per_epoch: int = 4000
 
     # checkpointing / eval cadence
     ckpt_keep: int = 5
@@ -66,6 +74,15 @@ class Config:
     limit_val_batches: int = 5
     ckpt_path: Optional[str] = None
     weight_path: Optional[str] = None
+
+    # articulated test(): the instance the spheric sweep renders and its
+    # number of poses (= interpolated articulation ids)
+    render_instance: int = 0
+    test_sweep_poses: int = 19
+    # test-time code optimization (train/optimize.py, cli --run_optimize)
+    optimize_instance: int = 0
+    optimize_steps: int = 500
+    optimize_lr: float = 1.0e-2
 
     # device: None = cuda; "cpu" runs the plain versions on the host
     platform: Optional[str] = None
@@ -77,12 +94,6 @@ class Config:
 # (aonerf/utils/config.py). tests/test_torch_trainer.py holds the table to
 # that dataclass.
 JAX_ONLY_DEFAULTS: Dict[str, Any] = {
-    "samples_per_epoch": 4000,
-    "n_max_objs": 4,
-    "obj_code_dim": 128,
-    "n_max_articulations": 10,
-    "art_code_dim": 32,
-    "code_reg_weight": 1e-4,
     "momentum": 0.9,
     "weight_decay": 0.0,
     "decay_step": (20,),
@@ -93,11 +104,6 @@ JAX_ONLY_DEFAULTS: Dict[str, Any] = {
     "latent_lr": None,
     "is_optimize": False,
     "finetune_lpips": False,
-    "optimize_instance": 0,
-    "optimize_steps": 500,
-    "optimize_lr": 1.0e-2,
-    "render_instance": 0,
-    "test_sweep_poses": 19,
     "ae_opacity_loss": "bce_prob",
     "ae_photometric": "masked",
     "opacity_lambda": 0.5,
@@ -105,7 +111,6 @@ JAX_ONLY_DEFAULTS: Dict[str, Any] = {
     "ae_views_per_step": 1,
     "ae_encode_reuse": 1,
     "ae_embed_deg": True,
-    "latent_dense": True,
     "n_model_shards": 1,
     "shard_scene_buffers": True,
     "profile_steps": 0,

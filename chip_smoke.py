@@ -46,6 +46,25 @@ Phases, each of which fails the run with a non-zero exit:
                plain version its rgb within TOL_RENDER_RGB; seconds per view
                for test() and for the render alone, with K1's share by the
                profiler.
+  9. autodecoder - the train CLI on the articulated auto-decoder
+               (config/autodecoder.json as published: batch 4096, 64+128
+               samples, 8x256 trunk, 4x128 deformation and view branches,
+               128/128/32 codes, latent_dense, chunk 3840; lr 1e-3 with no
+               delay) on a sapien_multi laptop scene (2 instances x 10
+               articulations x 4 views at 320x240, plus a held-out val split
+               of the 9 midpoint degrees x 1 view): 50 steps with a
+               validation and a checkpoint, then a resume for 10 more; the
+               loss falling, K1, K1s and K2 launched 0 times (no fused
+               kernel computes this field); ms per step and train rays/s,
+               peak device memory of a step, the profiler's top device ops
+               and idle share; on 256 rays, the card's two-level render of
+               the seed's random field against the same weights on the CPU
+               in fp64.
+ 10. articulated test - --run_eval on that checkpoint: the 19-pose
+               interpolated-articulation sweep at 320x240, every output file,
+               PSNR/SSIM/object PSNR finite, seconds per view for test() and
+               for the render alone; then --run_optimize for 50 steps at
+               batch 1024, its psnr1 history finite.
 The line before the last is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}.
 """
@@ -133,6 +152,14 @@ TOL_GRAD, TOL_GRAD_FACTOR = 1e-4, 4.0
 TOL_LOSS = 1e-5  # relative, two-level loss through the kernels vs the plain versions
 TRAIN_STEPS, RESUME_STEPS = 50, 10
 N_TEST = 4  # test views of the training scene, scored by phase 8
+AD_RAYS = 256  # rays of phase 9's fp64 check
+# The articulated render on the card against the same weights on the CPU in
+# fp64: each output's max abs error at most max(1e-5, 4 x the CPU fp32
+# render's own error). On the CPU at 256 rays of a random field the fp32
+# render is 3.4e-7 (rgb) and 1.6e-6 (depth) off fp64, and one TF32 product
+# per layer (operands rounded to 10 mantissa bits) 1.5e-4 and 8.0e-4.
+TOL_AD, TOL_AD_FACTOR = 1e-5, 4.0
+OPTIMIZE_STEPS, OPTIMIZE_BATCH = 50, 1024
 
 
 def fail(msg: str) -> None:
@@ -791,8 +818,9 @@ def _train_config(root: str, out: str) -> str:
     return path
 
 
-def profile_train_steps(trainer, buffers, seed) -> None:
-    """Device time by kernel over one multi-step, from torch.profiler."""
+def profile_train_steps(trainer, buffers, seed):
+    """Device time by kernel over one multi-step, from torch.profiler;
+    returns (device busy ms a step, the profile)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -814,6 +842,19 @@ def profile_train_steps(trainer, buffers, seed) -> None:
     for e in events[:12]:
         print(f"    {dev_us(e) / 1e3 / n:9.3f} ms/step {100 * dev_us(e) / 1e3 / busy_ms:5.1f}%  "
               f"x{e.count / n:g}/step  {e.key[:90]}")
+    return busy_ms / n, prof
+
+
+def print_top_ops(prof, n_steps: int, step_ms: float, busy_ms: float) -> None:
+    """The profile's device time by the torch op that launched it (each
+    op's own kernels), and the device's idle share of an unprofiled step."""
+    ops = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CPU and _dev_us(e) > 0]
+    ops.sort(key=_dev_us, reverse=True)
+    print(f"  device busy {busy_ms:.3f} ms of the unprofiled {step_ms:.3f} ms step: idle "
+          f"{100 * max(0.0, 1 - busy_ms / step_ms):.1f}%; device time by op (torch.profiler, own kernels):")
+    for e in ops[:12]:
+        print(f"    {_dev_us(e) / 1e3 / n_steps:9.3f} ms/step {100 * _dev_us(e) / 1e3 / n_steps / busy_ms:5.1f}%  "
+              f"x{e.count / n_steps:g}/step  {e.key[:60]}")
 
 
 def phase_training(tmp: str) -> dict:
@@ -1024,6 +1065,254 @@ def phase_test(cfg_path: str, val_psnr: float) -> dict:
     return {"k1": k1, "seconds_per_view": per_test, "render_seconds_per_view": per_render, "k1_ms": k1_ms}
 
 
+def _autodecoder_config(root: str, out: str) -> str:
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "config", "autodecoder.json")) as f:
+        cfg = json.load(f)
+    cfg.update({
+        "root_dir": root, "output_path": out, "exp_name": "smoke_ad", "img_wh": [W, H],
+        "lr_init": 1e-3, "lr_delay_steps": 0, "val_every_steps": TRAIN_STEPS,
+        "ckpt_every_steps": TRAIN_STEPS, "limit_val_batches": 1, "seed": SEED,
+    })
+    os.makedirs(out, exist_ok=True)
+    path = os.path.join(out, "autodecoder.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def _fused_launches() -> tuple:
+    from aonerf_torch.ops.kernels import fused_render as fr
+    from aonerf_torch.ops.kernels import fused_train as ft
+
+    return fr.launches, ft.fwd_launches, ft.launches
+
+
+def _reset_fused_launches() -> None:
+    from aonerf_torch.ops.kernels import fused_render as fr
+    from aonerf_torch.ops.kernels import fused_train as ft
+
+    fr.launches = ft.fwd_launches = ft.launches = 0
+
+
+def articulated_fp64_check(trainer) -> float:
+    """The articulated field's deterministic two-level render of AD_RAYS
+    rays of a train view, on the card against the same weights and codes on
+    the CPU in fp64, each output held to max(TOL_AD, TOL_AD_FACTOR x the CPU
+    fp32 render's error); returns the largest ratio of error to limit. The
+    field has the seed's random weights and codes (the trained one is still
+    nearly empty after 60 steps, and a white render hides the products)."""
+    import copy
+
+    from aonerf_torch.models.articulated import ArticulatedNeRF
+
+    cfg = trainer.cfg
+    g = torch.Generator().manual_seed(SEED)
+    model = ArticulatedNeRF(num_coarse_samples=cfg.num_coarse_samples, num_fine_samples=cfg.num_fine_samples,
+                            latent_dense=cfg.latent_dense, generator=g, device=trainer.device)
+    dims = (("density", cfg.obj_code_dim), ("color", cfg.obj_code_dim), ("articulation", cfg.art_code_dim))
+    latents = {k: 0.1 * torch.randn((1, c), generator=g) for k, c in dims}
+    img = trainer.dataset.get_image(0, 0, 0)
+    pix = np.random.default_rng(SEED).choice(W * H, AD_RAYS, replace=False)
+    rays = {k: torch.from_numpy(img[k][pix]) for k in ("rays_o", "rays_d", "viewdirs")}
+    near, far, white = trainer.near, trainer.far, cfg.white_back
+    cpu32 = copy.deepcopy(model).cpu()
+    with torch.no_grad():
+        dev = trainer.device
+        card = model({k: v.to(dev) for k, v in rays.items()}, False, white, near, far,
+                     {k: v.to(dev) for k, v in latents.items()})[-1]
+        got32 = cpu32(rays, False, white, near, far, latents)[-1]
+        cpu64 = cpu32.double()
+        want = cpu64({k: v.double() for k, v in rays.items()}, False, white, near, far,
+                     {k: v.double() for k, v in latents.items()})[-1]
+    ratios, parts = {}, []
+    for name, c, p, w in zip(("rgb", "acc", "depth"), card, got32, want):
+        e_card, e_cpu = ((x.cpu().double() - w).abs().max().item() for x in (c, p))
+        limit = max(TOL_AD, TOL_AD_FACTOR * e_cpu)
+        ratios[name] = e_card / limit
+        parts.append(f"{name} {e_card:.3e} (CPU fp32 {e_cpu:.3e}; limit {limit:.3e})")
+    print(f"  fp64 check on {AD_RAYS} rays of the seed's random field, card vs CPU fp64: " + ", ".join(parts)
+          + f"; mean acc {want[1].mean().item():.4f}")
+    bad = [n for n, r in ratios.items() if not r <= 1.0]
+    if bad or not all(torch.isfinite(x).all() for x in card):
+        fail(f"the articulated render on the card is off the CPU fp64 render beyond the fp32 limit on {bad}")
+    return max(ratios.values())
+
+
+def phase_autodecoder(tmp: str) -> dict:
+    from aonerf_torch.cli import train as cli
+    from aonerf_torch.data.sapien_multi import DEFAULT_VAL_DEGREES
+    from aonerf_torch.data.synthetic import generate_multi_scene
+    from aonerf_torch.train import step as step_mod
+    from aonerf_torch.train.loop import Trainer
+    from aonerf_torch.utils.config import load_config
+
+    t0 = time.perf_counter()
+    root = generate_multi_scene(os.path.join(tmp, "multi"), img_wh=(W, H), n_instances=2, n_images=4, seed=SEED,
+                                val_degrees=DEFAULT_VAL_DEGREES, n_val_images=1)
+    gen_s = time.perf_counter() - t0
+    cfg_path = _autodecoder_config(root, os.path.join(tmp, "out"))
+    cfg = load_config(cfg_path)
+    losses = []
+    real = step_mod.autodecoder_loss_and_grads
+
+    def recorded(*args, **kwargs):  # observes each step's loss, changes nothing
+        out = real(*args, **kwargs)
+        losses.append(out[0])
+        return out
+
+    runs = []
+    for max_steps in (TRAIN_STEPS, TRAIN_STEPS + RESUME_STEPS):
+        start = len(losses)
+        torch.cuda.synchronize()
+        _reset_fused_launches()
+        t0 = time.perf_counter()
+        with mock.patch.object(step_mod, "autodecoder_loss_and_grads", recorded):
+            metrics = cli.main(["--config", cfg_path, "--max_steps", str(max_steps)])
+        torch.cuda.synchronize()
+        runs.append({"seconds": time.perf_counter() - t0, "fused": _fused_launches(), "steps": len(losses) - start,
+                     "metrics": metrics})
+    run_dir = os.path.join(cfg.output_path, cfg.exp_name)
+    ckpts = sorted(n for n in os.listdir(os.path.join(run_dir, "ckpts")) if n.endswith(".pt"))
+    grids = sorted(os.listdir(os.path.join(run_dir, "val_vis")))
+
+    trainer = Trainer(cfg)  # restores the latest checkpoint
+    resumed_at = trainer.state.step
+    held_out = trainer.val_dataset.uses_val_split
+    buffers = trainer.train_buffers()
+    buffer_gb = sum(v.numel() * v.element_size() for v in buffers.values()) / 1e9
+    trainer.state, _ = trainer.step_fn(trainer.state, buffers, cfg.seed)  # first multi-step untimed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n_timed = 2
+    for _ in range(n_timed):
+        trainer.state, _ = trainer.step_fn(trainer.state, buffers, cfg.seed)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / (n_timed * trainer._inner_steps)
+    torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()
+    trainer.state, _ = trainer.step_fn(trainer.state, buffers, cfg.seed)
+    torch.cuda.synchronize()
+    peak_bytes = torch.cuda.max_memory_allocated()
+    busy_ms, prof = profile_train_steps(trainer, buffers, cfg.seed)
+    print_top_ops(prof, trainer._inner_steps, step_s * 1e3, busy_ms)
+    ratio = articulated_fp64_check(trainer)
+    trainer.close()
+
+    loss = torch.stack(losses).cpu().numpy()
+    first, run2 = runs
+    print(f"autodecoder: {first['steps']} steps + resume {run2['steps']} steps at batch {cfg.batch_size}, "
+          f"{cfg.num_coarse_samples}+{cfg.num_fine_samples} samples, latent_dense {cfg.latent_dense}; scene of "
+          f"{buffers['rgb'].shape[:3]} (instance, articulation, view) written in {gen_s:.1f} s, "
+          f"{buffer_gb:.3f} GB on the card")
+    print(f"  loss first 5 {loss[:5].mean():.5f}, last 5 {loss[TRAIN_STEPS - 5:TRAIN_STEPS].mean():.5f}; "
+          f"val ({'held-out degrees' if held_out else 'train views'}) psnr {first['metrics'].get('val_psnr')}, "
+          f"object psnr {first['metrics'].get('val_psnr_obj')}; K1, K1s, K2 launches {first['fused']} and "
+          f"{run2['fused']} (expected 0)")
+    print(f"  checkpoints {ckpts}, val grids {grids}; resumed at step {resumed_at}")
+    print(f"  train step: {step_s * 1e3:.3f} ms = {cfg.batch_size / step_s:.1f} rays/s (host clock over "
+          f"{n_timed * trainer._inner_steps} steps after the first {trainer._inner_steps}, torch.cuda.synchronize "
+          f"at both ends); run 1 took {first['seconds']:.1f} s, the resume {run2['seconds']:.1f} s")
+    print(f"  peak device memory over {trainer._inner_steps} steps (torch.cuda.max_memory_allocated): "
+          f"{peak_bytes / 1e9:.3f} GB, of which {base_bytes / 1e9:.3f} GB held before the steps")
+    if not np.isfinite(loss).all():
+        fail("non-finite auto-decoder loss")
+    if not loss[TRAIN_STEPS - 5:TRAIN_STEPS].mean() < loss[:5].mean():
+        fail("the auto-decoder loss did not fall over the first run")
+    if first["steps"] != TRAIN_STEPS or run2["steps"] != RESUME_STEPS:
+        fail(f"steps taken {first['steps']} and {run2['steps']}, expected {TRAIN_STEPS} and {RESUME_STEPS}")
+    if first["fused"] != (0, 0, 0) or run2["fused"] != (0, 0, 0):
+        fail("the articulated path launched a fused level kernel")
+    if ckpts[-2:] != [f"ckpt_{TRAIN_STEPS:08d}.pt", f"ckpt_{TRAIN_STEPS + RESUME_STEPS:08d}.pt"]:
+        fail(f"checkpoints {ckpts}")
+    if resumed_at != TRAIN_STEPS + RESUME_STEPS or not held_out or not grids:
+        fail(f"resumed at {resumed_at}, held-out val {held_out}, val grids {grids}")
+    if not all(np.isfinite(first["metrics"].get(k, np.nan)) for k in ("val_psnr", "val_psnr_obj")):
+        fail(f"validation metrics {first['metrics']}")
+    return {"cfg_path": cfg_path, "step_ms": step_s * 1e3, "rays_per_s": cfg.batch_size / step_s,
+            "peak_gb": peak_bytes / 1e9, "fp64_ratio": ratio}
+
+
+def phase_articulated_test(cfg_path: str) -> dict:
+    from aonerf_torch.cli import train as cli
+    from aonerf_torch.train import loop as loop_mod
+    from aonerf_torch.utils.config import load_config
+
+    os.environ.pop("AONERF_LPIPS_WEIGHTS", None)  # test() refuses LPIPS weights: LPIPS is not ported
+    cfg = load_config(cfg_path, {"run_eval": True})
+    n_views = cfg.test_sweep_poses
+    test_s, render_s = [], []
+    real_test, real_factory = loop_mod.Trainer.test, loop_mod.make_image_renderer
+
+    def timed_test(self):  # observes test() and each view's render, changes nothing
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_test(self)
+        torch.cuda.synchronize()
+        test_s.append(time.perf_counter() - t0)
+        return out
+
+    def timed_factory(*args, **kwargs):
+        render = real_factory(*args, **kwargs)
+
+        def timed(rays, *latents):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = render(rays, *latents)
+            torch.cuda.synchronize()
+            render_s.append(time.perf_counter() - t0)
+            return out
+
+        return timed
+
+    with mock.patch.object(loop_mod.Trainer, "test", timed_test), \
+            mock.patch.object(loop_mod, "make_image_renderer", timed_factory):
+        _reset_fused_launches()
+        stats = cli.main(["--config", cfg_path, "--run_eval"])
+        fused = _fused_launches()
+    run_dir = os.path.join(cfg.output_path, cfg.exp_name)
+    render_dir = os.path.join(run_dir, cfg.render_name)
+    with open(os.path.join(run_dir, "results.json")) as f:
+        results = json.load(f)
+    files = set(os.listdir(render_dir))
+    expected = {f"{stem}{i:03d}.{ext}" for i in range(n_views)
+                for stem, ext in (("image", "jpg"), ("depth", "png"), ("depth", "npy"), ("depth_raw", "png"),
+                                  ("opacity", "png"))} | {"depth_raw.npz"}
+    videos = files & {"video.gif", "video.mp4"}
+    per_test, per_render = sum(test_s) / n_views, sum(render_s) / max(len(render_s), 1)
+    print(f"articulated test: --run_eval, {len(render_s)} poses of the interpolated sweep of instance "
+          f"{cfg.render_instance} at {W}x{H}, chunk {cfg.chunk}; K1, K1s, K2 launches {fused} (expected 0)")
+    print(f"  test psnr {results['psnr']['test']:.4f} dB, ssim {results['ssim']['test']:.5f}, object psnr "
+          f"{results['psnr_obj']['test']:.4f} dB, lpips {results['lpips']['test']}")
+    print(f"  seconds per view: test() {per_test:.4f} s ({sum(test_s):.3f} s for {n_views} views: render, metrics, "
+          f"writers), render alone {per_render:.4f} s (views {min(render_s):.4f}-{max(render_s):.4f} s); files "
+          f"under {cfg.render_name}/: {len(files)} ({sorted(videos)})")
+    if fused != (0, 0, 0):
+        fail("the articulated test launched a fused level kernel")
+    if len(render_s) != n_views or len(test_s) != 1:
+        fail(f"the articulated test rendered {len(render_s)} views, expected {n_views}")
+    for name in ("psnr", "ssim", "psnr_obj"):
+        if list(results[name]) != ["test"] or not np.isfinite(results[name]["test"]):
+            fail(f"results.json {name}: {results[name]}")
+    if results != json.loads(json.dumps(stats)):
+        fail("results.json differs from what test() returned")
+    if not expected <= files or len(videos) != 1:
+        fail(f"render directory: missing {sorted(expected - files)}, videos {sorted(videos)}")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = cli.main(["--config", cfg_path, "--run_optimize", "--optimize_steps", str(OPTIMIZE_STEPS),
+                    "--batch_size", str(OPTIMIZE_BATCH)])
+    torch.cuda.synchronize()
+    opt_s = time.perf_counter() - t0
+    history = out.get("psnr1", [])
+    saved = os.path.join(run_dir, "optimized_codes.npz")
+    print(f"  --run_optimize: {OPTIMIZE_STEPS} steps at batch {OPTIMIZE_BATCH} for instance {cfg.optimize_instance} "
+          f"in {opt_s:.2f} s (the call, restore included); psnr1 history {history}")
+    if len(history) != -(-OPTIMIZE_STEPS // 50) or not np.isfinite(history).all() or not os.path.exists(saved):
+        fail(f"code optimization: psnr1 {history}, codes written {os.path.exists(saved)}")
+    return {"seconds_per_view": per_test, "render_seconds_per_view": per_render, "optimize_s": opt_s}
+
+
 def main() -> None:
     phase_device()
     phase_build()
@@ -1040,6 +1329,8 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         t = phase_training(tmp)
         p = phase_test(t["cfg_path"], t["val_psnr"])
+        a = phase_autodecoder(tmp)
+        phase_articulated_test(a["cfg_path"])
 
     lv = k["levels"]
     tile_ms = sum(x["ms"] for x in lv)

@@ -368,3 +368,64 @@ def test_test_path_goes_through_the_kernel(cuda, tmp_path, monkeypatch):
         assert (rgb - rgb_plain).abs().max().item() <= 1e-3  # chip_smoke.py's TOL_RENDER_RGB
     finally:
         trainer.close()
+
+
+# The articulated field (plain PyTorch, no fused kernel) on the card against
+# the same weights on the CPU in fp64: each output's max abs error at most
+# max(1e-5, 4 x the CPU fp32 render's own error). One TF32 product per layer
+# misses it ~15x on rgb (chip_smoke.py's TOL_AD).
+@pytest.mark.parametrize("latent_dense", [True, False])
+def test_articulated_field_is_fp32_accurate_on_the_card(cuda, latent_dense):
+    import copy
+
+    from aonerf_torch.models.articulated import ArticulatedNeRF
+
+    g = torch.Generator().manual_seed(0)
+    model = ArticulatedNeRF(latent_dense=latent_dense, generator=g, device=cuda)
+    latents = {k: 0.1 * torch.randn((1, c), generator=g) for k, c in (("density", 128), ("color", 128),
+                                                                       ("articulation", 32))}
+    rng = np.random.default_rng(0)
+    d = rng.standard_normal((256, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    rays = {"rays_o": torch.from_numpy(-4.0 * d), "rays_d": torch.from_numpy(d), "viewdirs": torch.from_numpy(d)}
+    cpu = copy.deepcopy(model).cpu()
+    with torch.no_grad():
+        card = model({k: v.to(cuda) for k, v in rays.items()}, False, True, 2.0, 6.0,
+                     {k: v.to(cuda) for k, v in latents.items()})[-1]
+        cpu32 = cpu(rays, False, True, 2.0, 6.0, latents)[-1]
+        want = cpu.double()({k: v.double() for k, v in rays.items()}, False, True, 2.0, 6.0,
+                            {k: v.double() for k, v in latents.items()})[-1]
+    for name, c, p, w in zip(("rgb", "acc", "depth"), card, cpu32, want):
+        assert torch.isfinite(c).all(), name
+        e_card, e_cpu = ((x.cpu().double() - w).abs().max().item() for x in (c, p))
+        assert e_card <= max(1e-5, 4.0 * e_cpu), (name, e_card, e_cpu)
+
+
+def test_autodecoder_fits_tests_and_optimizes_on_the_card(cuda, tmp_path, monkeypatch):
+    import json
+    import os
+
+    from aonerf_torch.cli import train as cli
+    from aonerf_torch.data.synthetic import generate_multi_scene
+
+    monkeypatch.delenv("AONERF_LPIPS_WEIGHTS", raising=False)
+    root = generate_multi_scene(str(tmp_path / "scene"), img_wh=(16, 12), n_instances=2, degrees=(0, 10, 20),
+                                n_images=2, val_degrees=(5, 15), n_val_images=1)
+    with open(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "config",
+                           "autodecoder.json")) as f:
+        cfg = json.load(f)
+    cfg.update({"root_dir": root, "output_path": str(tmp_path / "out"), "exp_name": "gpu", "img_wh": [16, 12],
+                "batch_size": 256, "chunk": 64, "lr_init": 1e-3, "lr_delay_steps": 0, "val_every_steps": 10,
+                "ckpt_every_steps": 10, "limit_val_batches": 2, "inner_steps": 5})
+    path = tmp_path / "ad.json"
+    path.write_text(json.dumps(cfg))
+    fused = fr.launches, ft.fwd_launches, ft.launches
+    metrics = cli.main(["--config", str(path), "--max_steps", "10"])
+    assert all(np.isfinite(metrics[k]) for k in ("loss", "loss_reg", "psnr1", "val_psnr", "val_psnr_obj"))
+    stats = cli.main(["--config", str(path), "--run_eval"])
+    assert all(np.isfinite(stats[k]["test"]) for k in ("psnr", "ssim", "psnr_obj"))
+    assert len(os.listdir(tmp_path / "out" / "gpu" / "render")) == 19 * 5 + 2  # the sweep, depth_raw.npz, video
+    out = cli.main(["--config", str(path), "--run_optimize", "--optimize_steps", "1"])
+    assert len(out["psnr1"]) == 1 and np.isfinite(out["psnr1"]).all()
+    torch.cuda.synchronize()
+    assert (fr.launches, ft.fwd_launches, ft.launches) == fused  # no fused kernel on the articulated path

@@ -115,7 +115,7 @@ def test_trainer_loads_a_checkpoint_from_another_run(tmp_path, source):
 
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
-    for overrides in ({"exp_type": "vanilla_autodecoder"}, {"noise_std": 1.0},
+    for overrides in ({"exp_type": "vanilla_ae_art"}, {"noise_std": 1.0},
                       {"compute_dtype": "bf16"}, {"optimizer": "ranger"}, {"netwidth": 128},
                       {"profile_steps": 5}, {"debug_nans": True}, {"is_optimize": True}, {"n_model_shards": 2}):
         with pytest.raises(NotImplementedError):
@@ -145,10 +145,18 @@ def test_jax_only_fields_at_their_defaults_are_accepted(settings):
 
 
 def test_jax_only_fields_by_alias_are_refused():
-    cfg = config.load_config(None, {"N_max_objs": 8, "N_obj_code_length": 64, "decay_step": [10, 20]})
-    assert config.jax_only_settings(cfg) == {"n_max_objs": 8, "obj_code_dim": 64, "decay_step": [10, 20]}
-    with pytest.raises(NotImplementedError, match="n_max_objs=8"):
+    cfg = config.load_config(None, {"momentum": 0.5, "decay_step": [10, 20]})
+    assert config.jax_only_settings(cfg) == {"momentum": 0.5, "decay_step": [10, 20]}
+    with pytest.raises(NotImplementedError, match="momentum=0.5"):
         _check_supported(cfg)
+
+
+def test_code_aliases_land_in_the_config():
+    # the auto-decoder's code sizes are port fields now, by the reference's names too
+    aliased = {"N_max_objs": 8, "N_obj_code_length": 64}
+    got, want = config.load_config(None, aliased), jconfig.load_config(None, aliased)
+    assert (got.n_max_objs, got.obj_code_dim) == (want.n_max_objs, want.obj_code_dim) == (8, 64)
+    assert got.extras == {} and config.jax_only_settings(got) == {}
 
 
 def test_write_single_scene_matches_jax_generator(tmp_path):
