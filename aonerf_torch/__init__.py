@@ -8,6 +8,7 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no card and no CPU request they raise.
 """
 
+import contextlib
 from typing import Optional, Union
 
 import torch
@@ -27,3 +28,23 @@ def default_device(device: DeviceLike = None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+@contextlib.contextmanager
+def full_fp32():
+    """Keep float32 convolutions and matmuls out of TF32 for the duration,
+    whatever the process-wide flags say, and restore the flags after.
+
+    cuDNN runs float32 convolutions in TF32 by default on the card, which
+    keeps ~3 decimal digits. A convolution's backward reads the flag when it
+    runs, so a caller that differentiates holds this around the backward
+    too.
+    """
+    cudnn, matmul = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn
+        torch.backends.cuda.matmul.allow_tf32 = matmul

@@ -9,6 +9,8 @@ mask, the c2w. ``device_buffers`` stacks them for the train step, which
 samples its batches on the device. Validation reads full views
 (``get_image``); the test sweep renders ``create_spheric_poses(radius=4)``
 with the pose index as the interpolated articulation id (``get_test_image``).
+Both carry the view as the auto-encoder's source image, ``src_imgs``: (3, h,
+w) in [-1, 1] (``normalized_image``).
 A held-out ``val/`` split of the midpoint degrees is used when every
 instance has one.
 """
@@ -138,6 +140,12 @@ class SapienMultiDataset:
         """Articulation angles (radians, float32) in directory order."""
         return np.asarray([np.deg2rad(int(n.split("_")[0])) for n in self._deg_names[instance_idx]], np.float32)
 
+    @staticmethod
+    def normalized_image(view: _View) -> np.ndarray:
+        """(3, h, w) float32 image in [-1, 1] for the image encoder."""
+        img = view.rgb.astype(np.float32) / 255.0
+        return np.moveaxis((img - 0.5) / 0.5, -1, 0)
+
     def get_image(self, instance_idx: int, deg_idx: int, image_idx: int) -> Dict[str, np.ndarray]:
         """A full view's rays and targets, for validation."""
         view = self._views[(instance_idx, deg_idx)][image_idx]
@@ -150,6 +158,7 @@ class SapienMultiDataset:
             "radii": radii,
             "target": view.rgb.reshape(-1, 3).astype(np.float32) / 255.0,
             "instance_mask": view.mask.reshape(-1),
+            "src_imgs": self.normalized_image(view),
             "deg": np.float32(deg),
             "instance_id": np.int32(instance_idx),
             "articulation_id": np.int32(deg_idx),
@@ -197,6 +206,7 @@ class SapienMultiDataset:
             "radii": radii,
             "target": view.rgb.reshape(-1, 3).astype(np.float32) / 255.0,
             "instance_mask": view.mask.reshape(-1),
+            "src_imgs": self.normalized_image(view),
             "instance_id": np.int32(instance_idx),
             "articulation_id": np.int32(pose_idx),
         }

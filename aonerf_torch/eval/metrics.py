@@ -6,13 +6,14 @@ SSIM: Wang et al. with an 11x11 Gaussian window (sigma 1.5), k1=0.01,
 k2=0.03 on [0,1] images.
 """
 
-import contextlib
 import math
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from aonerf_torch import full_fp32
 
 
 def psnr_image(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -38,25 +39,6 @@ def _gaussian_kernel(size: int = 11, sigma: float = 1.5) -> torch.Tensor:
     return torch.outer(g, g)
 
 
-@contextlib.contextmanager
-def _full_fp32():
-    """Keep float32 convolutions and matmuls out of TF32 for the duration.
-
-    cuDNN runs float32 convolutions in TF32 by default on the card, which
-    keeps ~3 decimal digits; SSIM's variance terms (filt(x*x) - mu^2) cancel
-    catastrophically at that precision. The JAX reference forces HIGHEST
-    precision for the same reason.
-    """
-    cudnn, matmul = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = cudnn
-        torch.backends.cuda.matmul.allow_tf32 = matmul
-
-
 def ssim_image(
     pred: torch.Tensor,
     target: torch.Tensor,
@@ -76,7 +58,9 @@ def ssim_image(
 
     x = pred.to(torch.float32)
     y = target.to(torch.float32)
-    with _full_fp32():
+    # SSIM's variance terms (filt(x*x) - mu^2) cancel catastrophically in
+    # TF32; the JAX reference forces HIGHEST precision for the same reason
+    with full_fp32():
         mu_x, mu_y = filt(x), filt(y)
         mu_x2, mu_y2, mu_xy = mu_x * mu_x, mu_y * mu_y, mu_x * mu_y
         sigma_x = filt(x * x) - mu_x2

@@ -64,7 +64,10 @@ def make_image_renderer(
 ) -> Callable[..., Rendered]:
     """Returns fn(rays[, latents]) -> (rgb (N,3), acc (N,), depth (N,)) of
     the fine level, where rays holds (N, 3) 'rays_o'/'rays_d'/'viewdirs' on
-    the model's device and latents the articulated field's codes."""
+    the model's device and latents the articulated field's codes. ``model``
+    is a field or any callable with a field's signature: the auto-encoder
+    passes its ``render`` (the field with the encoded latents), as JAX's
+    renderer takes ``method=model.render``."""
     render_chunk = make_chunk_renderer(model, white_bkgd, near, far)
 
     def render(rays: Dict[str, torch.Tensor], *latents) -> Rendered:

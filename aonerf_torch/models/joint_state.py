@@ -1,0 +1,33 @@
+"""Joint-state regressor: articulation code (32) -> joint angle in radians
+(counterpart of ``aonerf.models.joint_state``): 32 -> 64 -> 32 -> 1 with
+ReLU. Its layers keep flax's auto names, ``Dense_0`` .. ``Dense_2``.
+"""
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from aonerf_torch import DeviceLike, default_device
+from aonerf_torch.models.resnet import lecun_normal_
+
+
+class JointStateDecoder(nn.Module):
+    def __init__(self, generator: Optional[torch.Generator] = None, device: DeviceLike = None):
+        """lecun-normal kernels and zero biases, as flax's ``Dense``, drawn
+        on the CPU from ``generator`` and then moved to ``device``."""
+        super().__init__()
+        self.Dense_0 = nn.Linear(32, 64, device="meta")
+        self.Dense_1 = nn.Linear(64, 32, device="meta")
+        self.Dense_2 = nn.Linear(32, 1, device="meta")
+        self.to_empty(device="cpu")
+        with torch.no_grad():
+            for layer in self.children():
+                lecun_normal_(layer.weight, layer.in_features, generator)
+                nn.init.zeros_(layer.bias)
+        self.to(default_device(device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = torch.relu(self.Dense_0(x))
+        x = torch.relu(self.Dense_1(x))
+        return self.Dense_2(x)

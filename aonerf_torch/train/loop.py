@@ -1,5 +1,5 @@
 """Training and test orchestration (counterpart of ``aonerf.train.loop``,
-its 'vanilla' and 'vanilla_autodecoder' experiment types).
+its 'vanilla', 'vanilla_autodecoder' and 'vanilla_ae_art' experiment types).
 
 One device: the scene's buffers are uploaded once, each train step samples
 its batch on the device, and ``fit`` is a host loop around the multi-step
@@ -16,6 +16,16 @@ with the JAX Trainer's logging, validation and checkpoint cadences.
                 spheric sweep of ``render_instance`` over the interpolated
                 articulations, and ``optimize_instance_codes`` fits fresh
                 codes for one instance with the field frozen
+  auto-encoder: the articulated field conditioned on latents that a
+                ResNet34 encodes from the sampled view, trained jointly with
+                the encoder, the joint-state decoder and the degree
+                embedding on the same buffers (one view and one encode a
+                step); ``validate`` adds the joint-state error and
+                conditions on the ground-truth angle, ``test`` renders the
+                sweep conditioned on the predicted angle
+
+The two articulated types share the multi-scene dataset, its held-out val/
+split, the sweep and the checkpoint layout.
 
 With ``run_eval`` the Trainer loads the test split instead of train and val.
 """
@@ -33,6 +43,7 @@ from aonerf_torch.data.sapien_multi import SapienMultiDataset
 from aonerf_torch.eval import io
 from aonerf_torch.eval.metrics import masked_psnr, psnr_image, ssim_image, summarize_metric
 from aonerf_torch.eval.render import make_image_renderer
+from aonerf_torch.models.ae import AutoEncoderArticulatedNeRF
 from aonerf_torch.models.articulated import ArticulatedNeRF
 from aonerf_torch.models.codes import CodeLibraryArticulated
 from aonerf_torch.models.mlp import NeRFMLP
@@ -46,12 +57,13 @@ from aonerf_torch.train.step import (
     make_autodecoder_device_train_step,
     make_vanilla_train_multi_step,
 )
+from aonerf_torch.train.step_ae import make_ae_device_train_step
 from aonerf_torch.utils.ckpt import CheckpointManager
 from aonerf_torch.utils.config import Config, jax_only_settings
 from aonerf_torch.utils.logging import MetricLogger
 
 # the dataset each experiment type trains on
-DATASETS = {"vanilla": "sapien", "vanilla_autodecoder": "sapien_multi"}
+DATASETS = {"vanilla": "sapien", "vanilla_autodecoder": "sapien_multi", "vanilla_ae_art": "sapien_multi"}
 
 
 def _check_supported(cfg: Config) -> None:
@@ -73,6 +85,9 @@ def _check_supported(cfg: Config) -> None:
         NeRFMLP.min_deg_point, NeRFMLP.max_deg_point, NeRFMLP.deg_view, NeRFMLP.netdepth, NeRFMLP.netwidth
     ):
         todo.append("MLP shapes other than 8x256 with 10/4 encoding degrees")
+    for name in ("ae_views_per_step", "ae_encode_reuse"):  # ROADMAP Queue 1 item 1
+        if getattr(cfg, name) > 1:
+            todo.append(f"{name}={getattr(cfg, name)}")
     todo.extend(f"{name}={value!r}" for name, value in jax_only_settings(cfg).items())
     if todo:
         raise NotImplementedError("not ported yet: " + ", ".join(todo))
@@ -87,7 +102,9 @@ class Trainer:
         os.makedirs(self.run_dir, exist_ok=True)
         self.logger = MetricLogger(self.run_dir)
         self.ckpt = CheckpointManager(os.path.join(self.run_dir, "ckpts"), keep=cfg.ckpt_keep)
-        self.articulated = cfg.exp_type == "vanilla_autodecoder"
+        # the auto-decoder and the auto-encoder: the multi-scene dataset and the sweep
+        self.articulated = cfg.exp_type in ("vanilla_autodecoder", "vanilla_ae_art")
+        self.autoencoder = cfg.exp_type == "vanilla_ae_art"
         generator = torch.Generator().manual_seed(cfg.seed)
         self.tx = make_adam(
             lr_init=cfg.lr_init, lr_final=cfg.lr_final, max_steps=cfg.run_max_steps,
@@ -111,23 +128,36 @@ class Trainer:
             else:
                 self.val_dataset = self.dataset
             self.near, self.far = self.dataset.near, self.dataset.far
-            self.model = ArticulatedNeRF(
+            field_kwargs = dict(
                 num_coarse_samples=cfg.num_coarse_samples, num_fine_samples=cfg.num_fine_samples,
                 min_deg_point=cfg.min_deg_point, max_deg_point=cfg.max_deg_point, deg_view=cfg.deg_view,
                 lindisp=cfg.lindisp, latent_dense=cfg.latent_dense, generator=generator, device=self.device,
             )
-            self.code_library = CodeLibraryArticulated(
-                n_max_objs=cfg.n_max_objs, obj_code_dim=cfg.obj_code_dim,
-                n_max_articulations=cfg.n_max_articulations, art_code_dim=cfg.art_code_dim,
-                generator=generator, device=self.device,
-            )
-            # one Adam over the field and the codes, as in JAX's {'model', 'codes'}
-            trained = nn.ModuleDict({"model": self.model, "codes": self.code_library})
-            self.step_fn = make_autodecoder_device_train_step(
-                self.model, self.code_library, self.tx, cfg.white_back, self.near, self.far,
-                batch_size=cfg.batch_size, randomized=cfg.randomized, reg_weight=cfg.code_reg_weight,
-                inner_steps=self._inner_steps,
-            )
+            if self.autoencoder:
+                self.model = AutoEncoderArticulatedNeRF(
+                    sigma_activation=cfg.ae_sigma_activation, embed_deg=cfg.ae_embed_deg, **field_kwargs
+                )
+                self.code_library = None
+                trained = self.model
+                self.step_fn = make_ae_device_train_step(
+                    self.model, self.tx, cfg.white_back, self.near, self.far, img_wh=cfg.img_wh,
+                    batch_size=cfg.batch_size, randomized=cfg.randomized, opacity_lambda=cfg.opacity_lambda,
+                    inner_steps=self._inner_steps, opacity_loss=cfg.ae_opacity_loss, photometric=cfg.ae_photometric,
+                )
+            else:
+                self.model = ArticulatedNeRF(**field_kwargs)
+                self.code_library = CodeLibraryArticulated(
+                    n_max_objs=cfg.n_max_objs, obj_code_dim=cfg.obj_code_dim,
+                    n_max_articulations=cfg.n_max_articulations, art_code_dim=cfg.art_code_dim,
+                    generator=generator, device=self.device,
+                )
+                # one Adam over the field and the codes, as in JAX's {'model', 'codes'}
+                trained = nn.ModuleDict({"model": self.model, "codes": self.code_library})
+                self.step_fn = make_autodecoder_device_train_step(
+                    self.model, self.code_library, self.tx, cfg.white_back, self.near, self.far,
+                    batch_size=cfg.batch_size, randomized=cfg.randomized, reg_weight=cfg.code_reg_weight,
+                    inner_steps=self._inner_steps,
+                )
         else:
             self.dataset = SapienDataset(cfg.root_dir, split=split, img_wh=cfg.img_wh, white_back=cfg.white_back)
             if not cfg.run_eval:
@@ -145,7 +175,9 @@ class Trainer:
                 inner_steps=self._inner_steps, randomized=cfg.randomized,
             )
         self.state = create_train_state(trained, self.tx)
-        self._renderer = make_image_renderer(self.model, cfg.white_back, self.near, self.far, chunk=cfg.chunk)
+        # the auto-encoder renders through its field with the encoded latents
+        render = self.model.render if self.autoencoder else self.model
+        self._renderer = make_image_renderer(render, cfg.white_back, self.near, self.far, chunk=cfg.chunk)
 
         if cfg.ckpt_path:
             self._load(CheckpointManager(cfg.ckpt_path).restore(map_location=self.device))
@@ -191,9 +223,18 @@ class Trainer:
 
     def train_buffers(self) -> Dict[str, torch.Tensor]:
         """The scene's train buffers on the device: the ray buffers (viewdirs
-        aliases rays_d), or for the auto-decoder ``device_buffers``."""
+        aliases rays_d), or for the articulated types ``device_buffers``."""
         if self.articulated:
-            return {k: torch.from_numpy(v).to(self.device) for k, v in self.dataset.device_buffers().items()}
+            try:
+                host = self.dataset.device_buffers()
+            except ValueError as e:
+                if not self.autoencoder:
+                    raise
+                raise NotImplementedError(
+                    "the host-batched auto-encoder step for a dataset whose instances differ in articulation or "
+                    "view count is not ported yet: ROADMAP Queue 1 item 1"
+                ) from e
+            return {k: torch.from_numpy(v).to(self.device) for k, v in host.items()}
         host = self.dataset.train_buffers()
         buffers = {k: torch.from_numpy(host[k]).to(self.device) for k in ("rays_o", "rays_d", "target")}
         buffers["viewdirs"] = buffers["rays_d"]
@@ -258,9 +299,21 @@ class Trainer:
         grid[1::2] = 0.5 * (train_degs[:-1] + train_degs[1:])
         return int(np.argmin(np.abs(grid - deg_rad)))
 
-    def _render_setup(self, img: Dict, is_test: bool = False) -> Dict[str, torch.Tensor]:
-        """The latents an articulated view renders with."""
-        return self._latents_for(img["instance_id"], img["articulation_id"], is_test=is_test)
+    @torch.no_grad()
+    def _render_setup(self, img: Dict, is_test: bool = False):
+        """(latents, pred_state) an articulated view renders with. The
+        auto-encoder encodes the view's ``src_imgs`` and predicts the joint
+        state (radians, a float; None for the auto-decoder); it conditions
+        on the ground-truth angle, or at test (and without one) on the
+        predicted angle."""
+        if not self.autoencoder:
+            return self._latents_for(img["instance_id"], img["articulation_id"], is_test=is_test), None
+        latents = self.model.encode(torch.from_numpy(img["src_imgs"]).to(self.device)[None])
+        pred_state = self.model.predict_state(latents["articulation"]).reshape(())
+        if self.model.embed_deg:
+            deg = pred_state if (is_test or "deg" not in img) else torch.tensor(img["deg"], device=self.device)
+            latents["articulation_deg"] = self.model.deg_code(deg)
+        return {k: torch.atleast_2d(v) for k, v in latents.items()}, float(pred_state)
 
     def val_schedule(self, n: int):
         """The (instance, articulation, view) ids ``validate`` renders at the
@@ -292,23 +345,33 @@ class Trainer:
             return {"psnr": float(np.mean(psnrs))}
 
         ds = self.val_dataset
-        psnrs, obj_psnrs = [], []
+        psnrs, obj_psnrs, state_sq_errs, state_deg_errs = [], [], [], []
         for k, (ii, di, vi) in enumerate(self.val_schedule(n_images or self.cfg.limit_val_batches)):
             img = ds.get_image(ii, di, vi)
-            if ds.uses_val_split:
+            if ds.uses_val_split and not self.autoencoder:
                 # no learned code exists for a held-out degree: condition on
                 # the nearest code of the interpolated sweep
                 img = dict(img, articulation_id=np.int32(self._interp_articulation_id(float(img["deg"]))))
-                latents = self._render_setup(img, is_test=True)
+                latents, pred_state = self._render_setup(img, is_test=True)
             else:
-                latents = self._render_setup(img)
+                latents, pred_state = self._render_setup(img)
+            if pred_state is not None:
+                # the joint-state error: squared in radians, and in whole
+                # degrees (Python's round on np.rad2deg, as JAX's Trainer)
+                gt = float(img["deg"])
+                state_sq_errs.append((pred_state - gt) ** 2)
+                state_deg_errs.append(abs(round(np.rad2deg(pred_state)) - round(np.rad2deg(gt))))
             rgb, acc, depth = self._renderer(self._img_rays(img), latents)
             if k == 0:
                 self._save_val_grid(img["target"], *(x.cpu().numpy() for x in (rgb, depth, acc)))
             target = torch.from_numpy(img["target"]).to(self.device)
             psnrs.append(float(psnr_image(rgb, target)))
             obj_psnrs.append(float(masked_psnr(rgb, target, torch.from_numpy(img["instance_mask"]).to(self.device))))
-        return {"psnr": float(np.mean(psnrs)), "psnr_obj": float(np.mean(obj_psnrs))}
+        out = {"psnr": float(np.mean(psnrs)), "psnr_obj": float(np.mean(obj_psnrs))}
+        if state_sq_errs:
+            out["state_error_rad"] = float(np.mean(state_sq_errs))
+            out["abs_state_error_deg"] = float(np.mean(state_deg_errs))
+        return out
 
     def _view_rays(self, sample) -> Dict[str, torch.Tensor]:
         return {k: torch.from_numpy(getattr(sample, k)).to(self.device) for k in ("rays_o", "rays_d", "viewdirs")}
@@ -318,7 +381,7 @@ class Trainer:
         and its instance mask (N,) as host arrays."""
         if self.articulated:  # the spheric sweep of cfg.render_instance
             img = self.dataset.get_test_image(self.cfg.render_instance, i)
-            out = self._renderer(self._img_rays(img), self._render_setup(img, is_test=True))
+            out = self._renderer(self._img_rays(img), self._render_setup(img, is_test=True)[0])
             return out, img["target"], img["instance_mask"]
         s = self.dataset.get_image(i)
         return self._renderer(self._view_rays(s)), s.target, s.instance_mask
@@ -326,7 +389,9 @@ class Trainer:
     def test(self) -> Dict[str, Dict[str, float]]:
         """Render every test view (vanilla: the test split; auto-decoder:
         ``test_sweep_poses`` spheric poses of ``render_instance``, pose i
-        conditioned on the interpolated articulation i), score it (PSNR,
+        conditioned on the interpolated articulation i; auto-encoder: the
+        same poses, each conditioned on the latents and the predicted angle
+        encoded from the 0-degree train view of its index), score it (PSNR,
         SSIM, object PSNR through ``summarize_metric``) and write the jpg
         sequence, colour and raw depth, opacity maps and the video (GIF
         without an mp4 backend) under ``run_dir/render_name``, and
@@ -390,7 +455,7 @@ class Trainer:
         split as if it were unseen, with the trained field and articulation
         table frozen (``train.optimize.optimize_codes``). Returns (codes,
         history) and writes them to ``run_dir/optimized_codes.npz``."""
-        if not self.articulated:
+        if self.cfg.exp_type != "vanilla_autodecoder":
             raise ValueError("code optimization requires the auto-decoder mode")
         from aonerf_torch.train.optimize import CODE_STEP, optimize_codes
 

@@ -197,12 +197,16 @@ def make_vanilla_train_multi_step(
     )
 
 
-def sample_multi_batch(buffers: Dict[str, torch.Tensor], draws, batch_size: int) -> Dict[str, torch.Tensor]:
+def sample_multi_batch(
+    buffers: Dict[str, torch.Tensor], draws, batch_size: int, src_hw: Optional[Tuple[int, int]] = None
+) -> Dict[str, torch.Tensor]:
     """One random (instance, articulation, view) of the scene buffers
     (``SapienMultiDataset.device_buffers`` on the device) and ``batch_size``
     random pixels of it, drawn in that order: the view's rays from its c2w
     (rays_d = viewdirs, unit), targets uint8 / 255, the mask, the
-    articulation's angle and the ids (0-d tensors)."""
+    articulation's angle and the ids (0-d tensors). With ``src_hw`` = (h, w)
+    also the whole view as ``src_imgs``, (3, h, w) in [-1, 1], the
+    auto-encoder's source image."""
     n_i, n_d, n_v, hw, _ = buffers["rgb"].shape
     ii = draws.randint(n_i, ())
     di = draws.randint(n_d, ())
@@ -211,16 +215,22 @@ def sample_multi_batch(buffers: Dict[str, torch.Tensor], draws, batch_size: int)
     c2w = buffers["c2w"][ii, di, vi]
     world_d = buffers["directions"][pix] @ c2w[:, :3].T
     viewdirs = world_d / torch.linalg.norm(world_d, dim=-1, keepdim=True)
-    return {
+    view_rgb = buffers["rgb"][ii, di, vi]
+    batch = {
         "rays_o": c2w[:, 3].expand_as(viewdirs),
         "rays_d": viewdirs,
         "viewdirs": viewdirs,
-        "target": buffers["rgb"][ii, di, vi][pix].to(torch.float32) / 255.0,
+        "target": view_rgb[pix].to(torch.float32) / 255.0,
         "instance_mask": buffers["mask"][ii, di, vi][pix],
         "deg": buffers["deg"][di],
         "instance_id": ii,
         "articulation_id": di,
     }
+    if src_hw is not None:
+        h, w = src_hw
+        src = view_rgb.to(torch.float32) / 255.0 * 2.0 - 1.0
+        batch["src_imgs"] = src.reshape(h, w, 3).permute(2, 0, 1)
+    return batch
 
 
 def autodecoder_loss_and_grads(

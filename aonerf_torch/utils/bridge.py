@@ -1,59 +1,67 @@
 """Carry weights between the JAX package's flax parameter trees and the port.
 
 The trees come as nested dicts of numpy arrays (``jax.device_get`` of the
-flax params); nothing here imports JAX. A flax ``Dense`` kernel is (in, out)
-and a torch ``Linear`` weight is (out, in), so kernels are transposed; a flax
-``Embed`` table and a torch ``Embedding`` weight are both (num, features).
-An MLP tree is {layer: {kernel, bias}} with the port module's layer names,
-the vanilla ``NeRFMLP``'s or the ``ArticulatedNeRFMLP``'s at any widths; a
-two-level field's tree holds one under 'coarse_mlp' and one under
-'fine_mlp'. The auto-decoder's trees are {'model': ArticulatedNeRF tree,
-'codes': CodeLibraryArticulated tree}, one bridge function for each.
+flax params); nothing here imports JAX. Every port module keeps its flax
+counterpart's parameter names, so one pair of functions carries any of them
+(``module_state_dict_from_flax``, ``module_flax_tree``), leaf by leaf:
+
+  flax                                 torch
+  conv kernel (H, W, I, O)             ``Conv2d`` weight (O, I, H, W)
+  ``Dense`` kernel (in, out)           ``Linear`` weight (out, in)
+  ``Embed`` embedding (num, features)  ``Embedding`` weight, unchanged
+  ``_Norm_k/GroupNorm_0/scale|bias``   ``norm{k}.weight|bias``
+  bias                                 bias
+
+An MLP tree is {layer: {kernel, bias}} (the vanilla ``NeRFMLP``'s or the
+``ArticulatedNeRFMLP``'s layers at any widths); a two-level field's tree holds
+one under 'coarse_mlp' and one under 'fine_mlp'; the auto-decoder's trees are
+{'model': field tree, 'codes': CodeLibraryArticulated tree}; the
+auto-encoder's is {'encoder', 'field', 'joint_state_decoder',
+'deg_embedding'}. The names below the generic pair are the ones earlier
+callers use.
 """
 
 from typing import Dict, Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
 # the vanilla NeRFMLP's layers
 MLP_LAYERS = tuple(f"pts_{i}" for i in range(8)) + ("density", "bottleneck", "views_0", "rgb")
-LEVELS = ("coarse_mlp", "fine_mlp")
+
+_LEAF_TO_TORCH = {"kernel": "weight", "scale": "weight", "embedding": "weight", "bias": "bias"}
 
 
 def _params(tree: Mapping) -> Mapping:
     return tree["params"] if "params" in tree else tree
 
 
-def mlp_state_dict_from_flax(tree: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
-    """An MLP's state_dict from its flax tree (optionally under 'params'),
-    each key led by ``prefix``."""
+def flax_leaves(tree: Mapping, path=()):
+    """(path tuple, leaf) of every leaf of a nested dict."""
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from flax_leaves(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
+def module_state_dict_from_flax(tree: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """The state_dict of a port module from its flax tree (optionally under
+    'params'), each key led by ``prefix``."""
     out = {}
-    for layer, leaves in _params(tree).items():
-        kernel = np.asarray(leaves["kernel"], dtype=np.float32)
-        out[f"{prefix}{layer}.weight"] = torch.from_numpy(np.array(kernel.T, order="C"))
-        out[f"{prefix}{layer}.bias"] = torch.from_numpy(np.array(leaves["bias"], dtype=np.float32))
+    for path, leaf in flax_leaves(_params(tree)):
+        parts = []
+        for k in path[:-1]:
+            if k.startswith("_Norm_"):
+                parts.append("norm" + k[len("_Norm_"):])
+            elif k != "GroupNorm_0":
+                parts.append(k)
+        a = np.asarray(leaf, dtype=np.float32)
+        if path[-1] == "kernel":
+            a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+        out[prefix + ".".join(parts + [_LEAF_TO_TORCH[path[-1]]])] = torch.from_numpy(np.array(a, order="C"))
     return out
-
-
-def nerf_state_dict_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """A two-level field's state_dict (``NeRF`` or ``ArticulatedNeRF``) from
-    its flax tree (params/{coarse_mlp,fine_mlp}/<layer>/{kernel,bias})."""
-    p = _params(tree)
-    out = {}
-    for mlp in LEVELS:
-        out.update(mlp_state_dict_from_flax(p[mlp], prefix=f"{mlp}."))
-    return out
-
-
-articulated_state_dict_from_flax = nerf_state_dict_from_flax  # the same layout
-
-
-def codes_state_dict_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """``CodeLibraryArticulated`` state_dict from the flax tree
-    (params/<table>/embedding)."""
-    return {f"{name}.weight": torch.from_numpy(np.array(t["embedding"], dtype=np.float32))
-            for name, t in _params(tree).items()}
 
 
 def _leaf(t: torch.Tensor, grads: bool, name: str) -> np.ndarray:
@@ -63,23 +71,40 @@ def _leaf(t: torch.Tensor, grads: bool, name: str) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
+def module_flax_tree(module: nn.Module, grads: bool = False) -> Dict[str, Dict]:
+    """The flax tree ({'params': ...}) of a port module's parameters, or
+    with ``grads`` of their ``.grad``, as numpy arrays."""
+    owners = dict(module.named_modules())
+    root: Dict = {}
+    for name, p in module.named_parameters():
+        *path, attr = name.split(".")
+        owner = owners[".".join(path)]
+        a = _leaf(p, grads, name)
+        node = root
+        for k in path:
+            if k.startswith("norm") and k[len("norm"):].isdigit():
+                node = node.setdefault("_Norm_" + k[len("norm"):], {}).setdefault("GroupNorm_0", {})
+            else:
+                node = node.setdefault(k, {})
+        if attr == "bias":
+            node["bias"] = a.copy()
+        elif isinstance(owner, nn.Conv2d):
+            node["kernel"] = a.transpose(2, 3, 1, 0).copy()
+        elif isinstance(owner, nn.Linear):
+            node["kernel"] = a.T.copy()
+        elif isinstance(owner, nn.Embedding):
+            node["embedding"] = a.copy()
+        else:  # a norm's scale
+            node["scale"] = a.copy()
+    return {"params": root}
+
+
 def mlp_flax_tree(mlp, grads: bool = False) -> Dict[str, Dict[str, np.ndarray]]:
-    """{layer: {kernel, bias}} of a port MLP's parameters, or with ``grads``
-    of their ``.grad``, as numpy arrays."""
-    return {name: {"kernel": _leaf(lin.weight, grads, name).T.copy(), "bias": _leaf(lin.bias, grads, name).copy()}
-            for name, lin in mlp.named_children()}
+    """{layer: {kernel, bias}} of a port MLP (no 'params' level)."""
+    return module_flax_tree(mlp, grads)["params"]
 
 
-def nerf_flax_tree(nerf, grads: bool = False) -> Dict[str, Dict]:
-    """The flax tree (params/{coarse_mlp,fine_mlp}/<layer>/{kernel,bias}) of
-    a port two-level field's parameters, or with ``grads`` of their
-    ``.grad``."""
-    return {"params": {m: mlp_flax_tree(getattr(nerf, m), grads) for m in LEVELS}}
-
-
-articulated_flax_tree = nerf_flax_tree  # the same layout
-
-
-def codes_flax_tree(codes, grads: bool = False) -> Dict[str, Dict]:
-    """The flax ``CodeLibraryArticulated`` tree of a port code library."""
-    return {"params": {name: {"embedding": _leaf(t.weight, grads, name).copy()} for name, t in codes.named_children()}}
+# the MLPs, the two-level fields and the code library
+mlp_state_dict_from_flax = nerf_state_dict_from_flax = articulated_state_dict_from_flax = module_state_dict_from_flax
+codes_state_dict_from_flax = module_state_dict_from_flax
+nerf_flax_tree = articulated_flax_tree = codes_flax_tree = module_flax_tree

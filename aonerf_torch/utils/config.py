@@ -1,8 +1,8 @@
 """Experiment configuration: typed dataclass + JSON override merge
 (counterpart of ``aonerf.utils.config``).
 
-The fields are the ones the vanilla and auto-decoder paths read, with the
-JAX package's names and defaults; ``ALIASES`` maps the reference's flag names, so the repo's
+The fields are the ones the vanilla, auto-decoder and auto-encoder paths
+read, with the JAX package's names and defaults; ``ALIASES`` maps the reference's flag names, so the repo's
 config/*.json files load unchanged. Unknown keys are kept in ``extras``;
 ``JAX_ONLY_DEFAULTS`` names those that are fields of the JAX package's Config
 the port does not run yet, and ``train.loop`` refuses a run that sets one of
@@ -51,6 +51,17 @@ class Config:
     art_code_dim: int = 32
     code_reg_weight: float = 1e-4
     latent_dense: bool = True  # contract latent columns per view (models/articulated.py)
+    # auto-encoder (vanilla_ae_art): the opacity loss (train/step_ae.py's
+    # OPACITY_LOSSES), the photometric loss over fg pixels ('masked') or all
+    # ('full'), the field's density activation and degree embedding; more
+    # than one view a step or one encode for several steps are not ported
+    ae_opacity_loss: str = "bce_prob"
+    ae_photometric: str = "masked"
+    opacity_lambda: float = 0.5
+    ae_sigma_activation: str = "softplus"
+    ae_embed_deg: bool = True
+    ae_views_per_step: int = 1
+    ae_encode_reuse: int = 1
 
     # optimization
     lr_init: float = 5.0e-4
@@ -104,13 +115,6 @@ JAX_ONLY_DEFAULTS: Dict[str, Any] = {
     "latent_lr": None,
     "is_optimize": False,
     "finetune_lpips": False,
-    "ae_opacity_loss": "bce_prob",
-    "ae_photometric": "masked",
-    "opacity_lambda": 0.5,
-    "ae_sigma_activation": "softplus",
-    "ae_views_per_step": 1,
-    "ae_encode_reuse": 1,
-    "ae_embed_deg": True,
     "n_model_shards": 1,
     "shard_scene_buffers": True,
     "profile_steps": 0,

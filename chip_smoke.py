@@ -65,6 +65,25 @@ Phases, each of which fails the run with a non-zero exit:
                PSNR/SSIM/object PSNR finite, seconds per view for test() and
                for the render alone; then --run_optimize for 50 steps at
                batch 1024, its psnr1 history finite.
+ 11. autoencoder - the train CLI on the articulated auto-encoder
+               (config/ae_art.json as published: batch 4096, 64+128 samples,
+               a 320x240 source view encoded by the multi-head ResNet34 each
+               step, 8x256 trunk, 4x128 deformation and view branches,
+               128/128/32 codes, latent_dense, chunk 3840, lr 2.5e-4 but no
+               delay) on phase 9's scene, with cuDNN TF32 on as PyTorch
+               defaults it: 50 steps with a validation on a held-out degree
+               and a checkpoint, then a resume for 10 more; the loss falling,
+               loss_state and opacity_loss, K1, K1s and K2 launched 0 times,
+               ms per step and rays/s, peak memory, the profiler's top ops,
+               idle share and the encoder's convolution share, the encoder's
+               forward + backward alone; val psnr, object psnr and both
+               joint-state errors finite; on 256 rays, the seed's random AE
+               forward on the card with the TF32 flags on against the CPU in
+               fp64.
+ 12. ae test  - --run_eval on that checkpoint: the 19-pose sweep, each pose
+               conditioned on the latents and the angle predicted from its
+               source view; every output file, PSNR/SSIM/object PSNR finite,
+               seconds per view for test() and for the render alone.
 The line before the last is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}.
 """
@@ -160,6 +179,15 @@ AD_RAYS = 256  # rays of phase 9's fp64 check
 # per layer (operands rounded to 10 mantissa bits) 1.5e-4 and 8.0e-4.
 TOL_AD, TOL_AD_FACTOR = 1e-5, 4.0
 OPTIMIZE_STEPS, OPTIMIZE_BATCH = 50, 1024
+AE_RAYS = 256  # rays of phase 11's fp64 check
+# The auto-encoder's forward on the card against the same weights on the CPU
+# in fp64, each output (every head's code, the predicted state, each level's
+# rgb, acc and depth) within max(1e-5, 4 x the CPU fp32 forward's error), run
+# with cuDNN's process-wide TF32 flag ON, PyTorch's default: the encoder must
+# keep its convolutions in fp32 whatever the flag says. (The matmul flag
+# stays at PyTorch's default, off: under it the field's F.linear, as the
+# auto-decoder's, would run TF32.)
+TOL_AE, TOL_AE_FACTOR = 1e-5, 4.0
 
 
 def fail(msg: str) -> None:
@@ -1313,6 +1341,284 @@ def phase_articulated_test(cfg_path: str) -> dict:
     return {"seconds_per_view": per_test, "render_seconds_per_view": per_render, "optimize_s": opt_s}
 
 
+def _ae_config(root: str, out: str) -> str:
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "config", "ae_art.json")) as f:
+        cfg = json.load(f)
+    cfg.update({
+        "root_dir": root, "output_path": out, "exp_name": "smoke_ae", "img_wh": [W, H],
+        "lr_delay_steps": 0, "val_every_steps": TRAIN_STEPS, "ckpt_every_steps": TRAIN_STEPS,
+        "limit_val_batches": 1, "seed": SEED,
+    })
+    os.makedirs(out, exist_ok=True)
+    path = os.path.join(out, "ae.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def ae_fp64_check(trainer) -> float:
+    """The auto-encoder's deterministic forward (encode a val view, predict
+    the state, embed the view's angle, both levels on AE_RAYS of its rays)
+    from the seed's random weights, on the card with cuDNN's process-wide
+    TF32 flag ON against the same weights on the CPU in fp64; each output held
+    to max(TOL_AE, TOL_AE_FACTOR x the CPU fp32 forward's error). Returns the
+    largest ratio of error to limit."""
+    import copy
+
+    from aonerf_torch.models.ae import AutoEncoderArticulatedNeRF
+
+    cfg = trainer.cfg
+    model = AutoEncoderArticulatedNeRF(
+        num_coarse_samples=cfg.num_coarse_samples, num_fine_samples=cfg.num_fine_samples,
+        latent_dense=cfg.latent_dense, generator=torch.Generator().manual_seed(SEED), device=trainer.device)
+    img = trainer.val_dataset.get_image(0, 0, 0)
+    pix = np.random.default_rng(SEED).choice(W * H, AE_RAYS, replace=False)
+    rays = {k: torch.from_numpy(img[k][pix]) for k in ("rays_o", "rays_d", "viewdirs")}
+    src, deg = torch.from_numpy(img["src_imgs"])[None], torch.tensor(img["deg"])
+    near, far, white = trainer.near, trainer.far, cfg.white_back
+
+    def outputs(m, rays, src, dtype, dev):
+        levels, latents, state = m({k: v.to(dev, dtype) for k, v in rays.items()}, src.to(dev, dtype), deg.to(dev),
+                                   False, white, near, far)
+        out = {f"code {k}": v for k, v in latents.items()}
+        out["pred_state"] = state
+        for i, (rgb, acc, depth) in enumerate(levels):
+            out.update({f"L{i} rgb": rgb, f"L{i} acc": acc, f"L{i} depth": depth})
+        return {k: v.detach().cpu().double() for k, v in out.items()}
+
+    cpu32 = copy.deepcopy(model).cpu()
+    flag = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with torch.no_grad():
+            card = outputs(model, rays, src, torch.float32, trainer.device)
+            flags_after = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = flag
+    with torch.no_grad():
+        got32 = outputs(cpu32, rays, src, torch.float32, "cpu")
+        want = outputs(cpu32.double(), rays, src, torch.float64, "cpu")
+    ratios, parts = {}, []
+    for name, w in want.items():
+        e_card, e_cpu = ((x[name] - w).abs().max().item() for x in (card, got32))
+        limit = max(TOL_AE, TOL_AE_FACTOR * e_cpu)
+        ratios[name] = e_card / limit
+        parts.append(f"{name} {e_card:.3e} (CPU fp32 {e_cpu:.3e})")
+    print(f"  fp64 check on {AE_RAYS} rays of a val view, the seed's random AE on the card with cudnn.allow_tf32 "
+          f"ON ((cudnn, matmul) flags {flags_after} after the forward) vs CPU fp64, max abs error: "
+          + ", ".join(parts) + f"; largest error/limit {max(ratios.values()):.3f}; mean acc "
+          f"{want['L1 acc'].mean().item():.4f}")
+    bad = [n for n, r in ratios.items() if not r <= 1.0]
+    if bad or not all(torch.isfinite(x).all() for x in card.values()) or flags_after != (True, False):
+        fail(f"the AE forward on the card is off the CPU fp64 forward beyond the fp32 limit on {bad}")
+    return max(ratios.values())
+
+
+def encoder_step_ms(trainer, buffers) -> float:
+    """Device ms of the encoder's forward and backward on one source image,
+    by CUDA events (10 calls after 3)."""
+    from aonerf_torch import full_fp32
+
+    model = trainer.model
+    src = buffers["rgb"][0, 0, 0].to(torch.float32).reshape(H, W, 3).permute(2, 0, 1)[None] / 127.5 - 1.0
+
+    def fwd_bwd():
+        out = model.encode(src)
+        with full_fp32():
+            torch.autograd.grad(sum(v.sum() for v in out.values()), list(model.encoder.parameters()))
+
+    return cuda_ms(fwd_bwd, 3, 10)
+
+
+def phase_autoencoder(tmp: str) -> dict:
+    from aonerf_torch.cli import train as cli
+    from aonerf_torch.data.sapien_multi import DEFAULT_VAL_DEGREES
+    from aonerf_torch.data.synthetic import generate_multi_scene
+    from aonerf_torch.train import step_ae
+    from aonerf_torch.train.loop import Trainer
+    from aonerf_torch.utils.config import load_config
+
+    root = os.path.join(tmp, "multi")
+    if not os.path.isdir(root):  # phase 9's scene
+        generate_multi_scene(root, img_wh=(W, H), n_instances=2, n_images=4, seed=SEED,
+                             val_degrees=DEFAULT_VAL_DEGREES, n_val_images=1)
+    cfg_path = _ae_config(root, os.path.join(tmp, "out"))
+    cfg = load_config(cfg_path)
+    parts = []
+    real = step_ae.ae_loss_and_grads
+
+    def recorded(*args, **kwargs):  # observes each step's loss parts, changes nothing
+        out = real(*args, **kwargs)
+        parts.append(torch.stack([out[0], *out[1]]))
+        return out
+
+    # the CLI as a user runs it: PyTorch's default flags (cuDNN TF32 on)
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    try:
+        runs = []
+        for max_steps in (TRAIN_STEPS, TRAIN_STEPS + RESUME_STEPS):
+            start = len(parts)
+            torch.cuda.synchronize()
+            _reset_fused_launches()
+            t0 = time.perf_counter()
+            with mock.patch.object(step_ae, "ae_loss_and_grads", recorded):
+                metrics = cli.main(["--config", cfg_path, "--max_steps", str(max_steps)])
+            torch.cuda.synchronize()
+            runs.append({"seconds": time.perf_counter() - t0, "fused": _fused_launches(),
+                         "steps": len(parts) - start, "metrics": metrics})
+        run_dir = os.path.join(cfg.output_path, cfg.exp_name)
+        ckpts = sorted(n for n in os.listdir(os.path.join(run_dir, "ckpts")) if n.endswith(".pt"))
+
+        trainer = Trainer(cfg)  # restores the latest checkpoint
+        resumed_at = trainer.state.step
+        buffers = trainer.train_buffers()
+        trainer.state, _ = trainer.step_fn(trainer.state, buffers, cfg.seed)  # first multi-step untimed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n_timed = 2
+        for _ in range(n_timed):
+            trainer.state, _ = trainer.step_fn(trainer.state, buffers, cfg.seed)
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / (n_timed * trainer._inner_steps)
+        torch.cuda.reset_peak_memory_stats()
+        base_bytes = torch.cuda.memory_allocated()
+        trainer.state, _ = trainer.step_fn(trainer.state, buffers, cfg.seed)
+        torch.cuda.synchronize()
+        peak_bytes = torch.cuda.max_memory_allocated()
+        busy_ms, prof = profile_train_steps(trainer, buffers, cfg.seed)
+        print_top_ops(prof, trainer._inner_steps, step_s * 1e3, busy_ms)
+        if not busy_ms > 0:
+            fail("the profiler saw no device time in the auto-encoder step")
+        conv_ms = sum(_dev_us(e) for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CPU
+                      and "conv" in e.key) / 1e3  # every convolution op's own kernels, forward and backward
+        conv_ms /= trainer._inner_steps
+        enc_ms = encoder_step_ms(trainer, buffers)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+
+    p = torch.stack(parts).cpu().numpy()  # loss, loss0, loss1, loss_state, loss_op a step
+    loss = p[:, 0]
+    first, run2 = runs
+    val = {k: first["metrics"].get(f"val_{k}") for k in ("psnr", "psnr_obj", "state_error_rad",
+                                                          "abs_state_error_deg")}
+    print(f"autoencoder: {first['steps']} steps + resume {run2['steps']} steps at batch {cfg.batch_size}, "
+          f"{cfg.num_coarse_samples}+{cfg.num_fine_samples} samples, a {W}x{H} source view a step, latent_dense "
+          f"{cfg.latent_dense}, lr {cfg.lr_init} with no delay; cudnn.allow_tf32 True (PyTorch's default)")
+    print(f"  loss first 5 {loss[:5].mean():.5f}, last 5 {loss[TRAIN_STEPS - 5:TRAIN_STEPS].mean():.5f}; "
+          f"loss_state {p[:5, 3].mean():.5f} -> {p[TRAIN_STEPS - 5:TRAIN_STEPS, 3].mean():.5f}, opacity_loss "
+          f"{p[:5, 4].mean():.5f} -> {p[TRAIN_STEPS - 5:TRAIN_STEPS, 4].mean():.5f} (first vs last 5); K1, K1s, "
+          f"K2 launches {first['fused']} and {run2['fused']} (expected 0)")
+    print(f"  val (held-out degrees, ground-truth angle): {val}")
+    print(f"  checkpoints {ckpts}; resumed at step {resumed_at}")
+    print(f"  train step: {step_s * 1e3:.3f} ms = {cfg.batch_size / step_s:.1f} rays/s (host clock over "
+          f"{n_timed * trainer._inner_steps} steps after the first {trainer._inner_steps}, torch.cuda.synchronize "
+          f"at both ends); run 1 took {first['seconds']:.1f} s, the resume {run2['seconds']:.1f} s")
+    print(f"  peak device memory over {trainer._inner_steps} steps (torch.cuda.max_memory_allocated): "
+          f"{peak_bytes / 1e9:.3f} GB, of which {base_bytes / 1e9:.3f} GB held before the steps")
+    print(f"  the encoder's convolutions (every op named *conv*, own kernels): {conv_ms:.3f} ms a "
+          f"step = {100 * conv_ms / busy_ms:.1f}% of device time; the encoder's forward + backward alone on one "
+          f"{W}x{H} view: {enc_ms:.3f} ms (CUDA events) = {100 * enc_ms / (step_s * 1e3):.1f}% of the step")
+    ratio = ae_fp64_check(trainer)
+    trainer.close()
+    if not np.isfinite(p).all():
+        fail("non-finite auto-encoder loss")
+    if not loss[TRAIN_STEPS - 5:TRAIN_STEPS].mean() < loss[:5].mean():
+        fail("the auto-encoder loss did not fall over the first run")
+    if first["steps"] != TRAIN_STEPS or run2["steps"] != RESUME_STEPS:
+        fail(f"steps taken {first['steps']} and {run2['steps']}, expected {TRAIN_STEPS} and {RESUME_STEPS}")
+    if first["fused"] != (0, 0, 0) or run2["fused"] != (0, 0, 0):
+        fail("the auto-encoder path launched a fused level kernel")
+    if ckpts[-2:] != [f"ckpt_{TRAIN_STEPS:08d}.pt", f"ckpt_{TRAIN_STEPS + RESUME_STEPS:08d}.pt"]:
+        fail(f"checkpoints {ckpts}")
+    if resumed_at != TRAIN_STEPS + RESUME_STEPS:
+        fail(f"resumed at {resumed_at}")
+    if not all(v is not None and np.isfinite(v) for v in val.values()):
+        fail(f"validation metrics {first['metrics']}")
+    return {"cfg_path": cfg_path, "step_ms": step_s * 1e3, "peak_gb": peak_bytes / 1e9, "fp64_ratio": ratio,
+            "fused": tuple(a + b for a, b in zip(first["fused"], run2["fused"]))}
+
+
+def phase_ae_test(cfg_path: str) -> dict:
+    from aonerf_torch.cli import train as cli
+    from aonerf_torch.train import loop as loop_mod
+    from aonerf_torch.utils.config import load_config
+
+    os.environ.pop("AONERF_LPIPS_WEIGHTS", None)  # test() refuses LPIPS weights: LPIPS is not ported
+    cfg = load_config(cfg_path, {"run_eval": True})
+    n_views = cfg.test_sweep_poses
+    test_s, render_s, states = [], [], []
+    real_test, real_factory, real_setup = loop_mod.Trainer.test, loop_mod.make_image_renderer, \
+        loop_mod.Trainer._render_setup
+
+    def timed_test(self):  # observes test() and each view's render, changes nothing
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_test(self)
+        torch.cuda.synchronize()
+        test_s.append(time.perf_counter() - t0)
+        return out
+
+    def timed_factory(*args, **kwargs):
+        render = real_factory(*args, **kwargs)
+
+        def timed(rays, *latents):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = render(rays, *latents)
+            torch.cuda.synchronize()
+            render_s.append(time.perf_counter() - t0)
+            return out
+
+        return timed
+
+    def recorded_setup(self, img, is_test=False):  # observes the predicted states, changes nothing
+        out = real_setup(self, img, is_test)
+        states.append((is_test, out[1]))
+        return out
+
+    with mock.patch.object(loop_mod.Trainer, "test", timed_test), \
+            mock.patch.object(loop_mod, "make_image_renderer", timed_factory), \
+            mock.patch.object(loop_mod.Trainer, "_render_setup", recorded_setup):
+        _reset_fused_launches()
+        stats = cli.main(["--config", cfg_path, "--run_eval"])
+        fused = _fused_launches()
+    run_dir = os.path.join(cfg.output_path, cfg.exp_name)
+    render_dir = os.path.join(run_dir, cfg.render_name)
+    with open(os.path.join(run_dir, "results.json")) as f:
+        results = json.load(f)
+    files = set(os.listdir(render_dir))
+    expected = {f"{stem}{i:03d}.{ext}" for i in range(n_views)
+                for stem, ext in (("image", "jpg"), ("depth", "png"), ("depth", "npy"), ("depth_raw", "png"),
+                                  ("opacity", "png"))} | {"depth_raw.npz"}
+    videos = files & {"video.gif", "video.mp4"}
+    per_test, per_render = sum(test_s) / n_views, sum(render_s) / max(len(render_s), 1)
+    pred_deg = [round(float(np.rad2deg(s)), 2) for _, s in states]
+    print(f"ae test: --run_eval, {len(render_s)} poses of the sweep of instance {cfg.render_instance} at {W}x{H}, "
+          f"chunk {cfg.chunk}, each conditioned on the angle predicted from its source view; K1, K1s, K2 launches "
+          f"{fused} (expected 0)")
+    print(f"  predicted angles (degrees): {pred_deg}")
+    print(f"  test psnr {results['psnr']['test']:.4f} dB, ssim {results['ssim']['test']:.5f}, object psnr "
+          f"{results['psnr_obj']['test']:.4f} dB, lpips {results['lpips']['test']}")
+    print(f"  seconds per view: test() {per_test:.4f} s ({sum(test_s):.3f} s for {n_views} views: encode, render, "
+          f"metrics, writers), render alone {per_render:.4f} s (views {min(render_s):.4f}-{max(render_s):.4f} s); "
+          f"files under {cfg.render_name}/: {len(files)} ({sorted(videos)})")
+    if fused != (0, 0, 0):
+        fail("the auto-encoder test launched a fused level kernel")
+    if len(render_s) != n_views or len(test_s) != 1:
+        fail(f"the auto-encoder test rendered {len(render_s)} views, expected {n_views}")
+    if len(states) != n_views or not all(t and s is not None and np.isfinite(s) for t, s in states):
+        fail(f"the sweep was not conditioned on a finite predicted state: {states}")
+    for name in ("psnr", "ssim", "psnr_obj"):
+        if list(results[name]) != ["test"] or not np.isfinite(results[name]["test"]):
+            fail(f"results.json {name}: {results[name]}")
+    if results != json.loads(json.dumps(stats)):
+        fail("results.json differs from what test() returned")
+    if not expected <= files or len(videos) != 1:
+        fail(f"render directory: missing {sorted(expected - files)}, videos {sorted(videos)}")
+    return {"seconds_per_view": per_test, "render_seconds_per_view": per_render, "fused": fused}
+
+
 def main() -> None:
     phase_device()
     phase_build()
@@ -1331,6 +1637,9 @@ def main() -> None:
         p = phase_test(t["cfg_path"], t["val_psnr"])
         a = phase_autodecoder(tmp)
         phase_articulated_test(a["cfg_path"])
+        ae = phase_autoencoder(tmp)
+        ae_test = phase_ae_test(ae["cfg_path"])
+    ae_launches = [x + y for x, y in zip(ae["fused"], ae_test["fused"])]  # K1, K1s, K2 on phases 11-12
 
     lv = k["levels"]
     tile_ms = sum(x["ms"] for x in lv)
@@ -1363,6 +1672,7 @@ def main() -> None:
         "levels": lv,
         "train_launches": t["k1"],
         "test_launches": p["k1"],
+        "ae_launches": ae_launches[0],
     }
     flv = f["levels"]
     k1s = {
@@ -1381,6 +1691,7 @@ def main() -> None:
         "library_ms": None,
         "k1_ms": both(flv, "k1_ms"),
         "levels": flv,
+        "ae_launches": ae_launches[1],
     }
     blv = b["levels"]
     k2 = {
@@ -1401,6 +1712,7 @@ def main() -> None:
         "bound_by": bound_by(blv),
         "library_ms": None,
         "levels": blv,
+        "ae_launches": ae_launches[2],
     }
     k1s_step, k2_step = k1s["ms"], k2["ms"]
     print(f"train step share: K1s {k1s_step:.3f} ms + K2 {k2_step:.3f} ms + rest "

@@ -429,3 +429,130 @@ def test_autodecoder_fits_tests_and_optimizes_on_the_card(cuda, tmp_path, monkey
     assert len(out["psnr1"]) == 1 and np.isfinite(out["psnr1"]).all()
     torch.cuda.synchronize()
     assert (fr.launches, ft.fwd_launches, ft.launches) == fused  # no fused kernel on the articulated path
+
+
+# The auto-encoder's encoder on the card with the process-wide TF32 flags
+# ON (cuDNN's is on by PyTorch's default): its convolutions and heads must
+# stay fp32. At 320x240
+# against the CPU in fp64, each head's max abs error / max |fp64| at most
+# max(1e-5, 4 x the CPU fp32 encoder's own error); TF32 convolutions keep
+# ~3 decimal digits and miss it.
+def test_encoder_is_fp32_with_the_global_tf32_flags_on(cuda):
+    import copy
+
+    from aonerf_torch.models.resnet import MultiHeadImgEncoder
+
+    enc = MultiHeadImgEncoder(generator=torch.Generator().manual_seed(0), device="cpu")
+    x = torch.from_numpy(np.random.default_rng(0).uniform(-1, 1, (1, 3, 240, 320)).astype(np.float32))
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    card = copy.deepcopy(enc).to(cuda)
+    with torch.no_grad():
+        got = card(x.to(cuda))
+        cpu32 = enc(x)
+        want = copy.deepcopy(enc).double()(x.double())
+    assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32  # restored
+    for k, w in want.items():
+        scale = w.abs().max().item()
+        e_card = (got[k].cpu().double() - w).abs().max().item() / scale
+        e_cpu = (cpu32[k].double() - w).abs().max().item() / scale
+        assert e_card <= max(1e-5, 4.0 * e_cpu), (k, e_card, e_cpu)
+
+
+class _Replay:
+    """Draws (``ops.random.Draws``'s methods) that hand out given host
+    arrays in order, on ``device``."""
+
+    def __init__(self, arrays, device):
+        self.arrays, self.device = list(arrays), device
+
+    def _next(self, shape):
+        a = self.arrays.pop(0)
+        assert a.shape == tuple(shape), (a.shape, shape)
+        return torch.from_numpy(a).to(self.device)
+
+    def randint(self, high, shape):
+        return self._next(shape)
+
+    def uniform(self, shape):
+        return self._next(shape)
+
+    def exponential(self, shape):
+        return self._next(shape)
+
+
+# One auto-encoder train step on the card against the CPU step, from the
+# same weights, batch and draws, with cuDNN's process-wide TF32 flag ON
+# (PyTorch's default; the matmul flag at its default, off): each loss part
+# within max(1e-4 relative, 4 x the CPU fp32 part's error) of the CPU in
+# fp64, each gradient's ||card - CPU|| / ||CPU|| at most 0.2
+# (tests/test_torch_ae_grads.py's FRO_TOL), every parameter after the Adam
+# update within 2 lr of the CPU's.
+def test_ae_step_on_the_card_matches_the_cpu_step(cuda, tmp_path):
+    from aonerf_torch.data.sapien_multi import SapienMultiDataset
+    from aonerf_torch.data.synthetic import generate_multi_scene
+    from aonerf_torch.models.ae import AutoEncoderArticulatedNeRF
+    from aonerf_torch.train import step as tstep
+    from aonerf_torch.train import step_ae
+
+    wh, b, lr = (64, 48), 64, 1e-3
+    root = generate_multi_scene(str(tmp_path / "scene"), img_wh=wh, n_instances=2, degrees=(0, 10, 20), n_images=2)
+    bufs = SapienMultiDataset(root, split="train", img_wh=wh).device_buffers()
+    rng = np.random.default_rng(0)
+    draws = [np.array(rng.integers(0, n)) for n in bufs["c2w"].shape[:3]] + [
+        rng.integers(0, wh[0] * wh[1], b), rng.uniform(size=(b, 65)), rng.exponential(size=(b, 129))]
+    torch.backends.cudnn.allow_tf32 = True
+    results = {}
+    for name, dev, dtype in (("cpu", "cpu", torch.float32), ("cpu64", "cpu", torch.float64),
+                             ("card", cuda, torch.float32)):
+        model = AutoEncoderArticulatedNeRF(latent_dense=True, generator=torch.Generator().manual_seed(0),
+                                           device=dev).to(dtype)
+        tx = tstep.make_adam(lr_init=lr, lr_delay_steps=0)
+        state = tstep.create_train_state(model, tx)
+        host = {k: torch.from_numpy(v).to(dev) for k, v in bufs.items()}
+        host.update({k: host[k].to(dtype) for k in ("c2w", "directions", "deg")})
+        batch = tstep.sample_multi_batch(host, _Replay(draws[:4], dev), b, src_hw=wh[::-1])
+        replay = _Replay([a.astype(np.float64 if dtype == torch.float64 else np.float32) for a in draws[4:]], dev)
+        loss, parts, grads = step_ae.ae_loss_and_grads(model, state.params, batch, replay, True, True, 2.0, 6.0, 0.5)
+        assert not replay.arrays
+        tx.update(list(state.params.values()), grads, state.opt_state)
+        results[name] = ([x.item() for x in (loss, *parts)], [g.cpu().double() for g in grads],
+                         [p.detach().cpu() for p in state.params.values()])
+    assert torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32  # restored
+    (cpu_parts, cpu_grads, cpu_params), (exact, _, _), (card_parts, card_grads, card_params) = (
+        results["cpu"], results["cpu64"], results["card"])
+    for got, cpu32, want in zip(card_parts, cpu_parts, exact):
+        assert np.isfinite(got) and abs(got - want) <= max(1e-4 * abs(want), 4 * abs(cpu32 - want)), (got, cpu32, want)
+    for g, w in zip(card_grads, cpu_grads):
+        assert torch.isfinite(g).all() and torch.linalg.norm(g - w) <= 0.2 * torch.linalg.norm(w) + 1e-30
+    for p, w in zip(card_params, cpu_params):
+        assert (p - w).abs().max().item() <= 2 * lr
+
+
+def test_ae_fits_and_tests_on_the_card(cuda, tmp_path, monkeypatch):
+    import json
+    import os
+
+    from aonerf_torch.cli import train as cli
+    from aonerf_torch.data.synthetic import generate_multi_scene
+
+    monkeypatch.delenv("AONERF_LPIPS_WEIGHTS", raising=False)
+    root = generate_multi_scene(str(tmp_path / "scene"), img_wh=(64, 48), n_instances=2, degrees=(0, 10, 20),
+                                n_images=2, val_degrees=(5, 15), n_val_images=1)
+    with open(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "config",
+                           "ae_art.json")) as f:
+        cfg = json.load(f)
+    cfg.update({"root_dir": root, "output_path": str(tmp_path / "out"), "exp_name": "gpu", "img_wh": [64, 48],
+                "batch_size": 256, "chunk": 1024, "lr_delay_steps": 0, "val_every_steps": 10,
+                "ckpt_every_steps": 10, "limit_val_batches": 2, "inner_steps": 5, "test_sweep_poses": 3})
+    path = tmp_path / "ae.json"
+    path.write_text(json.dumps(cfg))
+    fused = fr.launches, ft.fwd_launches, ft.launches
+    metrics = cli.main(["--config", str(path), "--max_steps", "10"])
+    keys = ("loss", "loss_state", "opacity_loss", "psnr1", "val_psnr", "val_psnr_obj", "val_state_error_rad",
+            "val_abs_state_error_deg")
+    assert all(np.isfinite(metrics[k]) for k in keys), metrics
+    stats = cli.main(["--config", str(path), "--run_eval"])
+    assert all(np.isfinite(stats[k]["test"]) for k in ("psnr", "ssim", "psnr_obj"))
+    assert len(os.listdir(tmp_path / "out" / "gpu" / "render")) == 3 * 5 + 2  # the sweep, depth_raw.npz, video
+    torch.cuda.synchronize()
+    assert (fr.launches, ft.fwd_launches, ft.launches) == fused  # no fused kernel on the AE path

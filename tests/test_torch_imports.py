@@ -44,6 +44,8 @@ def test_port_modules_import_no_jax_and_no_aonerf():
         "aonerf_torch.eval.viz", "aonerf_torch.eval.io", "aonerf_torch.ops.rays", "aonerf_torch.ops.raybox",
         "aonerf_torch.ops.render", "aonerf_torch.models.articulated", "aonerf_torch.models.codes",
         "aonerf_torch.data.sapien_multi", "aonerf_torch.train.losses", "aonerf_torch.train.optimize",
+        "aonerf_torch.models.resnet", "aonerf_torch.models.joint_state", "aonerf_torch.models.ae",
+        "aonerf_torch.train.step_ae",
     }
     assert expected <= set(out["modules"])
     assert not set(FORBIDDEN) & set(out["loaded"]), set(FORBIDDEN) & set(out["loaded"])

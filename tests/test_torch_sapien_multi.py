@@ -57,8 +57,8 @@ def test_constants_match_jax():
     assert (sm.NEAR, sm.FAR) == (jsm.NEAR, jsm.FAR)
 
 
-def _assert_dict_equal(got, want, skip=("src_imgs",)):
-    assert set(got) == set(want) - set(skip)
+def _assert_dict_equal(got, want):
+    assert set(got) == set(want)
     for k in got:
         assert np.asarray(got[k]).dtype == np.asarray(want[k]).dtype, k
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
