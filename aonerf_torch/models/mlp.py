@@ -10,6 +10,13 @@ Layer names match the flax parameter tree, so ``utils.bridge`` can carry the
 weights across. The fused level kernel computes the same function from
 ``ops.kernels.fused_render.kernel_params(mlp)``; ``forward`` is the layer-by-
 layer form.
+
+``compute_dtype`` (``torch.float32`` or ``torch.bfloat16``) is the mode the
+fused kernels run this MLP in: with bf16 every product takes bf16-rounded
+operands and sums in fp32 (the TPU kernels' ``dot_bf16``; its plain form is
+``level_activations_ref(..., dot_bf16=True)``). ``forward`` stays fp32.
+Parameters, their gradients and the optimizer's moments stay fp32, as
+flax's ``param_dtype`` keeps them.
 """
 
 from typing import Optional, Tuple
@@ -19,6 +26,9 @@ from torch import nn
 
 from aonerf_torch import DeviceLike, default_device
 from aonerf_torch.ops.encoding import pos_enc_dim
+
+# the kernels' modes by the name Config.compute_dtype gives them
+COMPUTE_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 
 class NeRFMLP(nn.Module):
@@ -33,11 +43,15 @@ class NeRFMLP(nn.Module):
         density_bias_init: float = 0.3,
         generator: Optional[torch.Generator] = None,
         device: DeviceLike = None,
+        compute_dtype: torch.dtype = torch.float32,
     ):
         """Xavier-uniform kernels and zero biases (density bias
         ``density_bias_init``), drawn on the CPU from ``generator`` and then
         moved to ``device``."""
         super().__init__()
+        if compute_dtype not in COMPUTE_DTYPES.values():
+            raise ValueError(f"compute_dtype {compute_dtype}: the kernels run {tuple(COMPUTE_DTYPES.values())}")
+        self.compute_dtype = compute_dtype
         pos = pos_enc_dim(3, self.min_deg_point, self.max_deg_point)
         view = pos_enc_dim(3, 0, self.deg_view)
         w = self.netwidth

@@ -5,7 +5,9 @@
           over the coarse bin midpoints, merged with the coarse t-values
 
 Each level is one call of the fused level (``ops.kernels.fused_train``): the
-CUDA kernels on the card, their plain versions on the CPU. Randomized
+CUDA kernels on the card, their plain versions on the CPU, in fp32 or, with
+``compute_dtype=torch.bfloat16``, in the kernels' bf16 mode (``dot_bf16``);
+the parameters stay fp32 either way. Randomized
 rendering (jittered coarse t-values, sorted-uniform fine samples) takes its
 numbers from an explicit ``draws`` object (``ops.random``); ``noise_std`` is
 not ported.
@@ -32,14 +34,16 @@ class NeRF(nn.Module):
         lindisp: bool = False,
         generator: Optional[torch.Generator] = None,
         device: DeviceLike = None,
+        compute_dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         device = default_device(device)
         self.num_coarse_samples = num_coarse_samples
         self.num_fine_samples = num_fine_samples
         self.lindisp = lindisp
-        self.coarse_mlp = NeRFMLP(generator=generator, device=device)
-        self.fine_mlp = NeRFMLP(generator=generator, device=device)
+        self.compute_dtype = compute_dtype
+        self.coarse_mlp = NeRFMLP(generator=generator, device=device, compute_dtype=compute_dtype)
+        self.fine_mlp = NeRFMLP(generator=generator, device=device, compute_dtype=compute_dtype)
 
     def forward(
         self,
@@ -64,4 +68,5 @@ class NeRF(nn.Module):
         return fused_nerf_forward(
             self.coarse_mlp, self.fine_mlp, rays, randomized, white_bkgd, near, far,
             self.num_coarse_samples, self.num_fine_samples, self.lindisp, draws, level=level,
+            dot_bf16=self.compute_dtype == torch.bfloat16,
         )

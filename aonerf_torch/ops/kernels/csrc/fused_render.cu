@@ -61,6 +61,12 @@
 // (fused_train.cu), which computes the same bits and also saves the
 // activations. K1 serves and validates; training runs K1s.
 //
+// bf16 mode (dot_bf16, the TPU kernel's argument of that name): the same
+// walk on bf16-rounded weights, inputs and activations with one TF32 mma per
+// product step instead of three, and each log term of the transmittance
+// rounded to bf16 before the prefix sum (nerf_level.cuh); a second
+// instantiation of the kernel, picked by the launcher.
+//
 // ptxas (-Xptxas -v, sm_90a, CUDA 12.8, printed by chip_smoke.py's build
 // phase on the H100): 216 registers, no spill. Measured there (NVIDIA H100
 // 80GB HBM3, 700 W; tools/torch_train_compare.py): 17.6 / 6.2 ms at 4096
@@ -75,6 +81,7 @@ namespace {
 
 using namespace aonerf;
 
+template <bool Bf16>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_render_level_kernel(const float* __restrict__ t, const float* __restrict__ rays_d,
                           const float* __restrict__ venc, const float* __restrict__ xenc, Weights w,
@@ -88,11 +95,11 @@ fused_render_level_kernel(const float* __restrict__ t, const float* __restrict__
   const size_t row_base = (size_t)ray0 * S;
 
   FwdRing ring(m.ring, maps.m, n_rows);
-  view_terms(venc, w.wvb, m.cterm, ray0, ray_tile);
+  view_terms<Bf16>(venc, w.wvb, m.cterm, ray0, ray_tile);
   for (int row0 = 0; row0 < n_rows; row0 += kRows)
-    forward_chunk<false>(xenc, w, ring, m, row_base, row0, n_rows, S, nullptr);
+    forward_chunk<false, Bf16>(xenc, w, ring, m, row_base, row0, n_rows, S, nullptr);
 
-  integrate_rays(t, rays_d, m.sig, m.rgb, ray0, ray_tile, S, white_bkgd, comp, acc_out, depth, weights_out);
+  integrate_rays<Bf16>(t, rays_d, m.sig, m.rgb, ray0, ray_tile, S, white_bkgd, comp, acc_out, depth, weights_out);
 }
 
 }  // namespace
@@ -107,9 +114,10 @@ int aonerf_fused_render_wt_floats() { return kWtFloats; }
 // layout (the kernel reads their biases and narrow heads), and `wt`, the
 // packed transposed copies of its 11 product weights (FwdSchedule,
 // kWtFloats, 16-byte aligned), over which it encodes the TMA maps of this
-// launch. n_rays % ray_tile == 0. Returns cudaGetLastError() after the
-// launch (0 on success), or kMapError + the driver's CUresult if a tensor map
-// was refused.
+// launch. With dot_bf16 != 0 it launches the bf16 mode, which takes every
+// weight (wt and the narrow heads) already rounded to bf16. n_rays % ray_tile
+// == 0. Returns cudaGetLastError() after the launch (0 on success), or
+// kMapError + the driver's CUresult if a tensor map was refused.
 int aonerf_fused_render_level(const float* t, const float* rays_d, const float* venc,
                               const float* xenc, const float* w0, const float* b0,
                               const float* w1, const float* b1, const float* w2, const float* b2,
@@ -120,12 +128,12 @@ int aonerf_fused_render_level(const float* t, const float* rays_d, const float* 
                               const float* wva, const float* wvb, const float* bv,
                               const float* wr, const float* br, const float* wt, float* comp, float* acc,
                               float* depth, float* weights, int n_rays, int S, int ray_tile,
-                              int white_bkgd, void* stream) {
+                              int white_bkgd, int dot_bf16, void* stream) {
   if (n_rays <= 0 || S <= 0 || ray_tile <= 0 || n_rays % ray_tile != 0) return cudaErrorInvalidValue;
   const size_t smem = forward_smem_bytes(S, ray_tile);
+  auto* kernel = dot_bf16 ? fused_render_level_kernel<true> : fused_render_level_kernel<false>;
   // Refused when smem exceeds what a block may have (227 KB on Hopper).
-  cudaError_t err = cudaFuncSetAttribute(fused_render_level_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear it, so the next launch does not report it
     return err;
@@ -134,7 +142,7 @@ int aonerf_fused_render_level(const float* t, const float* rays_d, const float* 
   if (int map_err = encode_forward_maps(maps, wt)) return map_err;
   Weights w{w0, b0, w1, b1, w2, b2, w3, b3, w4, b4, w5x, w5i, b5, w6, b6, w7, b7,
             wd, bd, wb, bb, wva, wvb, bv, wr, br};
-  fused_render_level_kernel<<<n_rays / ray_tile, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<n_rays / ray_tile, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       t, rays_d, venc, xenc, w, maps, comp, acc, depth, weights, S, ray_tile, white_bkgd);
   return cudaGetLastError();
 }

@@ -94,6 +94,21 @@
 // truncates, so each run of 6 (K1s), 12 (B1) or 24 (B2) mma has a fresh
 // accumulator that fp32 adds fold into the running sum.
 //
+// bf16 mode (dot_bf16, the TPU kernels' argument of that name; each kernel
+// but the integrator backward and the reduction has a second instantiation):
+// every product takes bf16-rounded operands (to nearest, ties to even) and
+// sums in fp32, one TF32 mma a k8 step where 3xTF32 issues three (a bf16
+// value is exact in TF32). The wrapper passes the weights rounded. K1s runs
+// K1's bf16 walk and spills the rounded activations, which the TPU backward
+// keeps in bf16, in the fp32 layout. The integrator backward stays fp32 and
+// recomputes the transmittance in fp32 from `raw`, as the TPU backward does.
+// B1 keeps every delta in fp32 in the scratch, which B2's bias sums read, and
+// in its own per-ray sum for wvb; only a product's operand is rounded: the
+// shared tile D that feeds the next product gets the rounded delta, and the
+// narrow head products round g_raw_sigma, g_raw_rgb and the per-ray sum as
+// they read them. B2 rounds H and Delta as it loads its fragments, and sums
+// the bias tile from the fp32 stage.
+//
 // Deterministic: no atomics, every sum in a fixed order, so the same inputs
 // give the same bits on every call.
 //
@@ -203,6 +218,7 @@ constexpr int kDwTiles = count_tiles();  // 72
 // forward (comp, acc, depth, weights, the same bits as K1's) and each
 // sample's raw sigma and rgb to `raw` (4 floats a sample) for the
 // integrator backward.
+template <bool Bf16>
 __global__ void __launch_bounds__(kThreads, 1)
 level_fwd_spill_kernel(const float* __restrict__ t, const float* __restrict__ rays_d,
                        const float* __restrict__ venc, const float* __restrict__ xenc, Weights w,
@@ -217,14 +233,14 @@ level_fwd_spill_kernel(const float* __restrict__ t, const float* __restrict__ ra
   const size_t row_base = (size_t)ray0 * S;
 
   FwdRing ring(m.ring, maps.m, n_rows);
-  view_terms(venc, w.wvb, m.cterm, ray0, ray_tile);
+  view_terms<Bf16>(venc, w.wvb, m.cterm, ray0, ray_tile);
   for (int row0 = 0; row0 < n_rows; row0 += kRows)
-    forward_chunk<true>(xenc, w, ring, m, row_base, row0, n_rows, S, saved + (row_base + row0) * kSpill);
+    forward_chunk<true, Bf16>(xenc, w, ring, m, row_base, row0, n_rows, S, saved + (row_base + row0) * kSpill);
   // forward_chunk ended with a barrier: sig and rgb are complete
   const float *sig = m.sig, *rgb = m.rgb;
   for (int i = threadIdx.x; i < n_rows; i += kThreads)
     *reinterpret_cast<float4*>(raw + (row_base + i) * 4) = make_float4(sig[i], rgb[3 * i], rgb[3 * i + 1], rgb[3 * i + 2]);
-  integrate_rays(t, rays_d, sig, rgb, ray0, ray_tile, S, white_bkgd, comp, acc_out, depth, weights_out);
+  integrate_rays<Bf16>(t, rays_d, sig, rgb, ray0, ray_tile, S, white_bkgd, comp, acc_out, depth, weights_out);
   if (threadIdx.x == 0) bulk_wait_all();  // the last chunk's spill has landed
 }
 
@@ -315,7 +331,10 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool val
 
 // D[r][c] = (acc + gs[r] wd[c]) * (M[r][c] > 0), the rank-1 term when wd is
 // given and the mask when M is; rows below valid_rows also to the scratch
-// rows dst + r * kSpill + c. Ends with a barrier.
+// rows dst + r * kSpill + c. With Bf16 the scratch gets the fp32 delta and D,
+// the next product's operand, the delta rounded to bf16, and the rank-1
+// product rounds g_raw_sigma. Ends with a barrier.
+template <bool Bf16>
 __device__ __forceinline__ void store_delta(const ChunkAcc<kWidth>& acc, float* D, const float* M, const float* gs,
                                             const float* __restrict__ wd, float* __restrict__ dst,
                                             int valid_rows) {
@@ -336,14 +355,14 @@ __device__ __forceinline__ void store_delta(const ChunkAcc<kWidth>& acc, float* 
         const int r = r0 + 16 * mi + 8 * h;
         float x0 = acc[mi][ni][2 * h], x1 = acc[mi][ni][2 * h + 1];
         if (wd != nullptr) {
-          x0 = fmaf(gs[r], v0, x0);
-          x1 = fmaf(gs[r], v1, x1);
+          x0 = fmaf(operand<Bf16>(gs[r]), v0, x0);
+          x1 = fmaf(operand<Bf16>(gs[r]), v1, x1);
         }
         if (M != nullptr) {
           if (!(M[r * kAct + c] > 0.f)) x0 = 0.f;
           if (!(M[r * kAct + c + 1] > 0.f)) x1 = 0.f;
         }
-        *reinterpret_cast<float2*>(D + r * kAct + c) = make_float2(x0, x1);
+        *reinterpret_cast<float2*>(D + r * kAct + c) = make_float2(operand<Bf16>(x0), operand<Bf16>(x1));
         if (r < valid_rows) *reinterpret_cast<float2*>(dst + (size_t)r * kSpill + c) = make_float2(x0, x1);
       }
   }
@@ -373,7 +392,8 @@ __device__ __forceinline__ void delta_product_done() {
 }
 
 // `maps` holds B1Schedule's weights (wva, wb, w7, w6, w5x, w4, w3, w2, w1)
-// in their flax layout.
+// in their flax layout (rounded to bf16 in bf16 mode, as wd and wr are).
+template <bool Bf16>
 __global__ void __launch_bounds__(kThreads, 1)
 level_bwd_delta_kernel(const float* __restrict__ venc, const float* __restrict__ wd, const float* __restrict__ wr,
                        const __grid_constant__ WeightMaps maps, const float* __restrict__ saved,
@@ -417,10 +437,10 @@ level_bwd_delta_kernel(const float* __restrict__ venc, const float* __restrict__
     if (tid < kCondWidth) {
       float s0 = 0.f, s1 = 0.f, s2 = 0.f;
       for (int r = 0; r < kRows; ++r) {
-        const float h = H[r * kAct + tid];
-        s0 = fmaf(h, grgb[r * 3], s0);
-        s1 = fmaf(h, grgb[r * 3 + 1], s1);
-        s2 = fmaf(h, grgb[r * 3 + 2], s2);
+        const float h = operand<Bf16>(H[r * kAct + tid]);
+        s0 = fmaf(h, operand<Bf16>(grgb[r * 3]), s0);
+        s1 = fmaf(h, operand<Bf16>(grgb[r * 3 + 1]), s1);
+        s2 = fmaf(h, operand<Bf16>(grgb[r * 3 + 2]), s2);
       }
       n_wr0 += s0;
       n_wr1 += s1;
@@ -437,8 +457,9 @@ level_bwd_delta_kernel(const float* __restrict__ venc, const float* __restrict__
     // delta_v = (g_raw_rgb . wr^T) * (hv > 0) -> D[:, :128]
     for (int i = tid; i < kRows * kCondWidth; i += kThreads) {
       const int r = i / kCondWidth, c = i % kCondWidth;
-      const float g = grgb[r * 3] * __ldg(wr + c * 3) + grgb[r * 3 + 1] * __ldg(wr + c * 3 + 1) +
-                      grgb[r * 3 + 2] * __ldg(wr + c * 3 + 2);
+      const float g = operand<Bf16>(grgb[r * 3]) * __ldg(wr + c * 3) +
+                      operand<Bf16>(grgb[r * 3 + 1]) * __ldg(wr + c * 3 + 1) +
+                      operand<Bf16>(grgb[r * 3 + 2]) * __ldg(wr + c * 3 + 2);
       D[r * kAct + c] = H[r * kAct + c] > 0.f ? g : 0.f;
     }
     __syncthreads();
@@ -452,27 +473,35 @@ level_bwd_delta_kernel(const float* __restrict__ venc, const float* __restrict__
       *reinterpret_cast<float4*>(dv + (size_t)r * kSpill + kSpillView + c) =
           *reinterpret_cast<const float4*>(D + r * kAct + c);
     }
+    if constexpr (Bf16) {  // the product's operand: delta_v rounded, once the fp32 reads above are done
+      __syncthreads();
+      for (int i = tid; i < kRows * kCondWidth; i += kThreads) {
+        float* x = D + (i / kCondWidth) * kAct + i % kCondWidth;
+        *x = round_bf16(*x);
+      }
+      __syncthreads();
+    }
     load_rows<kWidth>(H, sv + 7 * kWidth, valid_rows);  // h7, lands under the product
     ChunkAcc<kWidth> acc;
     zero_acc(acc);  // g_btl = delta_v . wva^T
-    gemm_wt<kWidth, kAct, 4>(acc, D, kCondWidth, ring);
+    gemm_wt<kWidth, kAct, 4, Bf16>(acc, D, kCondWidth, ring);
     delta_product_done();
-    store_delta(acc, D, nullptr, nullptr, nullptr, dv + kSpillBtl, valid_rows);
+    store_delta<Bf16>(acc, D, nullptr, nullptr, nullptr, dv + kSpillBtl, valid_rows);
     {  // density head: wd += h7^T g_raw_sigma
       float s = 0.f;
-      for (int r = 0; r < kRows; ++r) s = fmaf(H[r * kAct + tid], gs[r], s);
+      for (int r = 0; r < kRows; ++r) s = fmaf(operand<Bf16>(H[r * kAct + tid]), operand<Bf16>(gs[r]), s);
       n_wd += s;
     }
     zero_acc(acc);  // delta_7 = (g_btl . wb^T + g_raw_sigma wd^T) * (h7 > 0)
-    gemm_wt<kWidth, kAct, 4>(acc, D, kWidth, ring);
+    gemm_wt<kWidth, kAct, 4, Bf16>(acc, D, kWidth, ring);
     delta_product_done();
-    store_delta(acc, D, H, gs, wd, dv + 7 * kWidth, valid_rows);
+    store_delta<Bf16>(acc, D, H, gs, wd, dv + 7 * kWidth, valid_rows);
     for (int l = 6; l >= 0; --l) {  // delta_l = (delta_{l+1} . W_{l+1}^T) * (h_l > 0), W_5 = w5x
       load_rows<kWidth>(H, sv + l * kWidth, valid_rows);
       zero_acc(acc);
-      gemm_wt<kWidth, kAct, 4>(acc, D, kWidth, ring);
+      gemm_wt<kWidth, kAct, 4, Bf16>(acc, D, kWidth, ring);
       delta_product_done();
-      store_delta(acc, D, H, nullptr, nullptr, dv + l * kWidth, valid_rows);
+      store_delta<Bf16>(acc, D, H, nullptr, nullptr, dv + l * kWidth, valid_rows);
     }
   }
 
@@ -492,7 +521,7 @@ level_bwd_delta_kernel(const float* __restrict__ venc, const float* __restrict__
     const int k = i / kCondWidth, n = i % kCondWidth;
     float s = 0.f;
     for (int g = 0; g < ray_tile; ++g)
-      s = fmaf(__ldg(venc + (size_t)(ray0 + g) * kView + k), gc[g * kCondWidth + n], s);
+      s = fmaf(operand<Bf16>(__ldg(venc + (size_t)(ray0 + g) * kView + k)), operand<Bf16>(gc[g * kCondWidth + n]), s);
     nw[kNarrowWvb + i] = s;
   }
 }
@@ -504,6 +533,9 @@ level_bwd_delta_kernel(const float* __restrict__ venc, const float* __restrict__
 // blocks that read the same delta rows run together). The block sums rows
 // [lo, hi) of the range into its tile in registers and writes the tile, and
 // the bias tile when it holds the first M rows, once to range q's partial set.
+// With Bf16 each fragment is rounded to bf16 as it is loaded and each k8 step
+// is one TF32 mma; the bias tile sums the staged fp32 deltas.
+template <bool Bf16>
 __global__ void __launch_bounds__(kThreads, 2)
 level_bwd_dw_kernel(const float* __restrict__ saved, const float* __restrict__ xenc,
                     const float* __restrict__ delta, float* __restrict__ partials, int n_total,
@@ -574,19 +606,19 @@ level_bwd_dw_kernel(const float* __restrict__ saved, const float* __restrict__ x
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi) {
         const float* pa = hs + (kk + t) * kDwHs + wr0 + 16 * mi + g;
-        split_tf32(pa[0], ab[mi][0], as[mi][0]);
-        split_tf32(pa[8], ab[mi][1], as[mi][1]);
-        split_tf32(pa[4 * kDwHs], ab[mi][2], as[mi][2]);
-        split_tf32(pa[4 * kDwHs + 8], ab[mi][3], as[mi][3]);
+        frag<Bf16>(operand<Bf16>(pa[0]), ab[mi][0], as[mi][0]);
+        frag<Bf16>(operand<Bf16>(pa[8]), ab[mi][1], as[mi][1]);
+        frag<Bf16>(operand<Bf16>(pa[4 * kDwHs]), ab[mi][2], as[mi][2]);
+        frag<Bf16>(operand<Bf16>(pa[4 * kDwHs + 8]), ab[mi][3], as[mi][3]);
       }
 #pragma unroll
       for (int ni = 0; ni < 4; ++ni) {
         const float* pb = ds + (kk + t) * kDwDs + wc0 + 8 * ni + g;
         uint32_t bb[2], bs[2];
-        split_tf32(pb[0], bb[0], bs[0]);
-        split_tf32(pb[4 * kDwDs], bb[1], bs[1]);
+        frag<Bf16>(operand<Bf16>(pb[0]), bb[0], bs[0]);
+        frag<Bf16>(operand<Bf16>(pb[4 * kDwDs]), bb[1], bs[1]);
 #pragma unroll
-        for (int mi = 0; mi < 2; ++mi) mma_3xtf32(part[mi][ni], ab[mi], as[mi], bb, bs);
+        for (int mi = 0; mi < 2; ++mi) mma<Bf16>(part[mi][ni], ab[mi], as[mi], bb, bs);
       }
     }
     add_into(tot, part);
@@ -663,14 +695,15 @@ bool bad_shape(int n_rays, int S, int ray_tile) {
 
 int launch_fwd_spill(const float* t, const float* rays_d, const float* venc, const float* xenc, const Weights& w,
                      const float* wt, float* comp, float* acc, float* depth, float* weights, float* saved, float* raw,
-                     int n_rays, int S, int ray_tile, int white_bkgd, cudaStream_t s) {
+                     int n_rays, int S, int ray_tile, int white_bkgd, int dot_bf16, cudaStream_t s) {
   const size_t smem = forward_smem_bytes(S, ray_tile);
-  cudaError_t err = set_smem((const void*)level_fwd_spill_kernel, smem);
+  auto* kernel = dot_bf16 ? level_fwd_spill_kernel<true> : level_fwd_spill_kernel<false>;
+  cudaError_t err = set_smem((const void*)kernel, smem);
   if (err != cudaSuccess) return err;
   WeightMaps maps;
   if (int map_err = encode_forward_maps(maps, wt)) return map_err;
-  level_fwd_spill_kernel<<<n_rays / ray_tile, kThreads, smem, s>>>(t, rays_d, venc, xenc, w, maps, comp, acc,
-                                                                  depth, weights, saved, raw, S, ray_tile, white_bkgd);
+  kernel<<<n_rays / ray_tile, kThreads, smem, s>>>(t, rays_d, venc, xenc, w, maps, comp, acc, depth, weights, saved,
+                                                   raw, S, ray_tile, white_bkgd);
   return cudaGetLastError();
 }
 
@@ -678,12 +711,14 @@ int launch_bwd_saved(const float* t, const float* rays_d, const float* venc, con
                              const Weights& w, const float* g_comp, const float* g_acc, const float* g_depth,
                              const float* g_weights, const float* saved, const float* raw, float* grow,
                              float* delta, float* partials, float* narrow, float* out, int n_rays, int S,
-                             int ray_tile, int white_bkgd, cudaStream_t s) {
+                             int ray_tile, int white_bkgd, int dot_bf16, cudaStream_t s) {
   const size_t smem_i = sizeof(float) * kWarps * 3 * (size_t)S, smem_b1 = delta_smem_bytes(ray_tile);
+  auto* b1 = dot_bf16 ? level_bwd_delta_kernel<true> : level_bwd_delta_kernel<false>;
+  auto* b2 = dot_bf16 ? level_bwd_dw_kernel<true> : level_bwd_dw_kernel<false>;
   cudaError_t err = set_smem((const void*)level_bwd_integrator_kernel, smem_i);
   if (err != cudaSuccess) return err;
-  if ((err = set_smem((const void*)level_bwd_delta_kernel, smem_b1)) != cudaSuccess) return err;
-  if ((err = set_smem((const void*)level_bwd_dw_kernel, kDwSmemBytes)) != cudaSuccess) return err;
+  if ((err = set_smem((const void*)b1, smem_b1)) != cudaSuccess) return err;
+  if ((err = set_smem((const void*)b2, kDwSmemBytes)) != cudaSuccess) return err;
   WeightMaps maps;
   const float* b1_weights[B1Schedule::kProducts] = {w.wva, w.wb, w.w7, w.w6, w.w5x, w.w4, w.w3, w.w2, w.w1};
   if (int map_err = encode_weight_maps<B1Schedule>(maps, b1_weights)) return map_err;
@@ -694,11 +729,9 @@ int launch_bwd_saved(const float* t, const float* rays_d, const float* venc, con
   level_bwd_integrator_kernel<<<(n_rays + kWarps - 1) / kWarps, kThreads, smem_i, s>>>(
       t, rays_d, raw, g_comp, g_acc, g_depth, g_weights, grow, n_rays, S, white_bkgd);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  level_bwd_delta_kernel<<<n_blocks, kThreads, smem_b1, s>>>(venc, w.wd, w.wr, maps, saved, grow, delta, narrow, S,
-                                                             ray_tile);
+  b1<<<n_blocks, kThreads, smem_b1, s>>>(venc, w.wd, w.wr, maps, saved, grow, delta, narrow, S, ray_tile);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  level_bwd_dw_kernel<<<kRanges * kDwTiles, kThreads, kDwSmemBytes, s>>>(saved, xenc, delta, partials, n_total,
-                                                                         rows_per_range);
+  b2<<<kRanges * kDwTiles, kThreads, kDwSmemBytes, s>>>(saved, xenc, delta, partials, n_total, rows_per_range);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   level_bwd_reduce_kernel<<<(kPartialFloats + kThreads - 1) / kThreads, kThreads, 0, s>>>(partials, narrow,
                                                                                           n_blocks, out);
@@ -739,15 +772,16 @@ int aonerf_fused_level_wt_floats() { return kWtFloats; }
 // (FwdSchedule, kWtFloats), as for aonerf_fused_render_level; its outputs comp (R,3),
 // acc (R), depth (R), weights (R,S); and what the backward reads, `saved`
 // (R*S*kSpill, the activations) and `raw` (R*S*4: raw sigma, raw rgb).
+// With dot_bf16 != 0, the bf16 mode, on weights already rounded to bf16.
 // n_rays % ray_tile == 0. Returns the launch's error (0 on success), or
 // kMapError + the driver's CUresult if a tensor map was refused.
 int aonerf_fused_level_fwd_spill(const float* t, const float* rays_d, const float* venc, const float* xenc,
                                  AONERF_WEIGHT_PARAMS, const float* wt, float* comp, float* acc, float* depth,
                                  float* weights, float* saved, float* raw, int n_rays, int S, int ray_tile,
-                                 int white_bkgd, void* stream) {
+                                 int white_bkgd, int dot_bf16, void* stream) {
   if (bad_shape(n_rays, S, ray_tile)) return cudaErrorInvalidValue;
   return launch_fwd_spill(t, rays_d, venc, xenc, AONERF_WEIGHTS, wt, comp, acc, depth, weights, saved, raw, n_rays, S,
-                          ray_tile, white_bkgd, static_cast<cudaStream_t>(stream));
+                          ray_tile, white_bkgd, dot_bf16, static_cast<cudaStream_t>(stream));
 }
 
 // The level's weight gradient from what K1s saved, on `stream`: the
@@ -755,17 +789,19 @@ int aonerf_fused_level_fwd_spill(const float* t, const float* rays_d, const floa
 // cotangents g_comp (R,3), g_acc (R), g_depth (R), g_weights (R,S) and K1s'
 // `saved` and `raw`; scratch `grow` (R*S*4), `delta` (R*S*kSpill),
 // `partials` (kRanges * kPartialFloats) and `narrow` ((R/ray_tile) *
-// kNarrowFloats); the output `out` (kPartialFloats). Returns the first launch
+// kNarrowFloats); the output `out` (kPartialFloats). With dot_bf16 != 0, the
+// bf16 mode, on weights already rounded to bf16. Returns the first launch
 // error (0 on success), or kMapError + the driver's CUresult if a tensor map
 // was refused.
 int aonerf_fused_level_bwd_saved(const float* t, const float* rays_d, const float* venc, const float* xenc,
                                  AONERF_WEIGHT_PARAMS, const float* g_comp, const float* g_acc,
                                  const float* g_depth, const float* g_weights, const float* saved,
                                  const float* raw, float* grow, float* delta, float* partials, float* narrow,
-                                 float* out, int n_rays, int S, int ray_tile, int white_bkgd, void* stream) {
+                                 float* out, int n_rays, int S, int ray_tile, int white_bkgd, int dot_bf16,
+                                 void* stream) {
   if (bad_shape(n_rays, S, ray_tile)) return cudaErrorInvalidValue;
   return launch_bwd_saved(t, rays_d, venc, xenc, AONERF_WEIGHTS, g_comp, g_acc, g_depth, g_weights, saved, raw,
-                          grow, delta, partials, narrow, out, n_rays, S, ray_tile, white_bkgd,
+                          grow, delta, partials, narrow, out, n_rays, S, ray_tile, white_bkgd, dot_bf16,
                           static_cast<cudaStream_t>(stream));
 }
 
@@ -777,7 +813,7 @@ int aonerf_fused_level_bwd(const float* t, const float* rays_d, const float* ven
                            AONERF_WEIGHT_PARAMS, const float* wt, const float* g_comp, const float* g_acc, const float* g_depth,
                            const float* g_weights, float* saved, float* grow, float* delta, float* partials,
                            float* narrow, float* out, int n_rays, int S, int ray_tile, int white_bkgd,
-                           void* stream) {
+                           int dot_bf16, void* stream) {
   if (bad_shape(n_rays, S, ray_tile)) return cudaErrorInvalidValue;
   const size_t rows = (size_t)n_rays * S;
   float* raw = delta;
@@ -788,10 +824,10 @@ int aonerf_fused_level_bwd(const float* t, const float* rays_d, const float* ven
   const Weights w = AONERF_WEIGHTS;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (int err = launch_fwd_spill(t, rays_d, venc, xenc, w, wt, comp, acc, depth, weights, saved, raw, n_rays, S,
-                                 ray_tile, white_bkgd, s))
+                                 ray_tile, white_bkgd, dot_bf16, s))
     return err;
   return launch_bwd_saved(t, rays_d, venc, xenc, w, g_comp, g_acc, g_depth, g_weights, saved, raw, grow, delta,
-                          partials, narrow, out, n_rays, S, ray_tile, white_bkgd, s);
+                          partials, narrow, out, n_rays, S, ray_tile, white_bkgd, dot_bf16, s);
 }
 
 }  // extern "C"

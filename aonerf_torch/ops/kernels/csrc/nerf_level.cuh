@@ -43,10 +43,25 @@
 // 3, and 2 stages 20-36% more. So the staging does not bound K1, K1s or B1:
 // the product's own instruction stream does (mma.sync with the TF32 split of
 // every A and B fragment, 8 warps a SM).
+//
+// bf16 mode (template flag Bf16; the TPU kernels' dot_bf16): every product
+// takes bf16-rounded operands (to nearest, ties to even) and sums in fp32;
+// biases, ReLUs and the integrator stay fp32, but for the forward's
+// transmittance sum, whose log terms are rounded as the TPU kernel's
+// triangular product rounds them. A bf16 value is exact in TF32 (8
+// significant bits of 11), so one TF32 mma.sync on rounded operands forms the
+// exact products and accumulates them as the fp32 mode's accumulators do:
+// gemm_wt issues one mma where 3xTF32 issues three. The operands arrive
+// rounded: the wrapper rounds the weights (the packed `wt` and the narrow
+// heads), the forward's epilogue (store_act) rounds each activation before it
+// reaches the shared tile and the spill, and the encoded inputs are rounded
+// where they are staged. Shared memory, the ring and the spill keep the fp32
+// layout.
 
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime's entry point
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -320,6 +335,18 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// x rounded to bf16 (to nearest, ties to even: cvt.rn.bf16.f32) and back to
+// fp32: the operand rounding of bf16 mode. The result's 16 low bits are 0, so
+// it is also its own TF32 value.
+__device__ __forceinline__ float round_bf16(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
+
+// x, or x rounded to bf16 in bf16 mode.
+template <bool Bf16>
+__device__ __forceinline__ float operand(float x) {
+  if constexpr (Bf16) return round_bf16(x);
+  return x;
+}
+
 // ------------------------------------------------------------ 3xTF32 mma.sync
 
 // x rounded to TF32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away from
@@ -353,6 +380,26 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ab)[4
   mma_tf32(d, as, bb[0], bb[1]);
   mma_tf32(d, ab, bs[0], bs[1]);
   mma_tf32(d, ab, bb[0], bb[1]);
+}
+
+// One fragment element of the mode's product: in fp32 its TF32 split; with
+// Bf16 (x a bf16 value, which is TF32 as it stands) its bits, small unused.
+template <bool Bf16>
+__device__ __forceinline__ void frag(float x, uint32_t& big, uint32_t& small) {
+  if constexpr (Bf16) {
+    big = __float_as_uint(x);
+    small = 0u;
+  } else {
+    split_tf32(x, big, small);
+  }
+}
+
+// d += a . b in the mode's product: 3xTF32 in fp32, one TF32 mma with Bf16.
+template <bool Bf16>
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&ab)[4], const uint32_t (&as)[4],
+                                    const uint32_t (&bb)[2], const uint32_t (&bs)[2]) {
+  if constexpr (Bf16) mma_tf32(d, ab, bb[0], bb[1]);
+  else mma_3xtf32(d, ab, as, bb, bs);
 }
 
 // The tensor cores add into their fp32 accumulator with truncation, so one
@@ -463,8 +510,10 @@ struct WeightRing {
 // transposed copies, so it multiplies by the weight. A fresh accumulator
 // sums each Run k8 steps (3 Run mma; one or more whole slices) and is added
 // into acc in fp32, in k order. No block barrier: the caller orders any
-// write to A after every warp's reads.
-template <int N, int Lda, int Run, class Sched>
+// write to A after every warp's reads. With Bf16, A and W must hold
+// bf16-rounded values, and each k8 step is one TF32 mma on them (Run mma a
+// fresh accumulator).
+template <int N, int Lda, int Run, bool Bf16, class Sched>
 __device__ __forceinline__ void gemm_wt(ChunkAcc<N>& acc, const float* A, int K, WeightRing<Sched>& ring) {
   static_assert((8 * Run) % kDepth == 0, "a run is whole slices");
   constexpr int kRunSlices = 8 * Run / kDepth;
@@ -486,19 +535,19 @@ __device__ __forceinline__ void gemm_wt(ChunkAcc<N>& acc, const float* A, int K,
 #pragma unroll
         for (int mi = 0; mi < 2; ++mi) {
           const float* p = a_frag + 16 * mi * Lda + k0 + r * kDepth + kk;
-          split_tf32(p[0], ab[mi][0], as[mi][0]);
-          split_tf32(p[8 * Lda], ab[mi][1], as[mi][1]);
-          split_tf32(p[4], ab[mi][2], as[mi][2]);
-          split_tf32(p[8 * Lda + 4], ab[mi][3], as[mi][3]);
+          frag<Bf16>(p[0], ab[mi][0], as[mi][0]);
+          frag<Bf16>(p[8 * Lda], ab[mi][1], as[mi][1]);
+          frag<Bf16>(p[4], ab[mi][2], as[mi][2]);
+          frag<Bf16>(p[8 * Lda + 4], ab[mi][3], as[mi][3]);
         }
 #pragma unroll
         for (int ni = 0; ni < N / 32; ++ni) {
           const float* q = ws + 8 * kDepth * ni;
           uint32_t bb[2], bs[2];
-          split_tf32(q[kk ^ swz], bb[0], bs[0]);
-          split_tf32(q[(kk + 4) ^ swz], bb[1], bs[1]);
+          frag<Bf16>(q[kk ^ swz], bb[0], bs[0]);
+          frag<Bf16>(q[(kk + 4) ^ swz], bb[1], bs[1]);
 #pragma unroll
-          for (int mi = 0; mi < 2; ++mi) mma_3xtf32(part[mi][ni], ab[mi], as[mi], bb, bs);
+          for (int mi = 0; mi < 2; ++mi) mma<Bf16>(part[mi][ni], ab[mi], as[mi], bb, bs);
         }
       }
       ring.release();
@@ -509,11 +558,13 @@ __device__ __forceinline__ void gemm_wt(ChunkAcc<N>& acc, const float* A, int K,
 
 // act[r][c] = (relu)(acc + bias[c] (+ cterm[ray(r)][c])) for this thread's
 // fragment elements (stride kAct), in place over the product's input, then a
-// barrier so the next layer reads the whole new activation. With Spill,
+// barrier so the next layer reads the whole new activation; with Bf16 each
+// value rounded to bf16 (the operand of the next products and the heads, and
+// what the spill saves). With Spill,
 // thread 0 then copies the rows below valid_rows (N floats each) to
 // spill + row * kSpill by bulk copies, one committed group; the next
 // product_done<true> waits for them to finish reading act.
-template <int N, bool Spill>
+template <int N, bool Spill, bool Bf16>
 __device__ __forceinline__ void store_act(const ChunkAcc<N>& acc, const float* __restrict__ bias, bool relu,
                                           float* act, const float* cterm, int row0, int S, int n_rows,
                                           float* spill, int valid_rows) {
@@ -546,7 +597,8 @@ __device__ __forceinline__ void store_act(const ChunkAcc<N>& acc, const float* _
           x0 = fmaxf(x0, 0.f);
           x1 = fmaxf(x1, 0.f);
         }
-        *reinterpret_cast<float2*>(act + (r0 + 16 * mi + 8 * h) * kAct + c) = make_float2(x0, x1);
+        *reinterpret_cast<float2*>(act + (r0 + 16 * mi + 8 * h) * kAct + c) =
+            make_float2(operand<Bf16>(x0), operand<Bf16>(x1));
       }
   }
   if constexpr (Spill) fence_proxy_async();
@@ -577,17 +629,19 @@ using FwdRing = WeightRing<FwdSchedule>;
 
 // One 256-wide layer with ReLU, act = relu(A[:, :K] . W + bias), in place,
 // W the next product of the stream.
-template <int Lda, bool Spill>
+template <int Lda, bool Spill, bool Bf16>
 __device__ __forceinline__ void dense_relu(const float* A, int K, FwdRing& ring, const float* bias, float* act,
                                            float* spill, int valid_rows) {
   ChunkAcc<kWidth> acc;
   zero_acc(acc);
-  gemm_wt<kWidth, Lda, kFwdRun>(acc, A, K, ring);
+  gemm_wt<kWidth, Lda, kFwdRun, Bf16>(acc, A, K, ring);
   product_done<Spill>();
-  store_act<kWidth, Spill>(acc, bias, true, act, nullptr, 0, 1, 1, spill, valid_rows);
+  store_act<kWidth, Spill, Bf16>(acc, bias, true, act, nullptr, 0, 1, 1, spill, valid_rows);
 }
 
-// Per-ray view-condition term: cterm[g][n] = venc[ray0+g] . wvb[:, n].
+// Per-ray view-condition term: cterm[g][n] = venc[ray0+g] . wvb[:, n] (venc
+// rounded in bf16 mode; wvb comes rounded).
+template <bool Bf16>
 __device__ __forceinline__ void view_terms(const float* __restrict__ venc, const float* __restrict__ wvb,
                                            float* cterm, int ray0, int ray_tile) {
   for (int i = threadIdx.x; i < ray_tile * kCondWidth; i += kThreads) {
@@ -595,7 +649,7 @@ __device__ __forceinline__ void view_terms(const float* __restrict__ venc, const
     const float* v = venc + (size_t)(ray0 + g) * kView;
     float s = 0.f;
 #pragma unroll
-    for (int k = 0; k < kView; ++k) s = fmaf(__ldg(v + k), __ldg(wvb + k * kCondWidth + n), s);
+    for (int k = 0; k < kView; ++k) s = fmaf(operand<Bf16>(__ldg(v + k)), __ldg(wvb + k * kCondWidth + n), s);
     cterm[i] = s;
   }
 }
@@ -603,11 +657,12 @@ __device__ __forceinline__ void view_terms(const float* __restrict__ venc, const
 // The MLP on the chunk of rows [row0, row0 + kRows) of the block's n_rows
 // packed samples: raw sigma to sig[row], raw rgb to rgb[3 row]. Biases and
 // the narrow heads come from w, the product weights from the stream, in
-// FwdSchedule's order. With Spill,
+// FwdSchedule's order (in bf16 mode all of them rounded, and the encoded
+// inputs rounded as they are staged). With Spill,
 // each layer's activation of the valid rows also goes to the saved-activation
 // rows at `spill` (already offset to the chunk's first row). Ends with a
 // barrier.
-template <bool Spill>
+template <bool Spill, bool Bf16>
 __device__ __forceinline__ void forward_chunk(const float* __restrict__ xenc, const Weights& w, FwdRing& ring,
                                               const ForwardSmem& m, size_t row_base, int row0, int n_rows, int S,
                                               float* spill) {
@@ -618,25 +673,25 @@ __device__ __forceinline__ void forward_chunk(const float* __restrict__ xenc, co
   const float* xg = xenc + (row_base + row0) * kPos;
   for (int i = threadIdx.x; i < kRows * kPosPad; i += kThreads) {
     const int r = i / kPosPad, c = i % kPosPad;
-    m.xs[r * kXs + c] = (r < valid_rows && c < kPos) ? __ldg(xg + r * kPos + c) : 0.f;
+    m.xs[r * kXs + c] = (r < valid_rows && c < kPos) ? operand<Bf16>(__ldg(xg + r * kPos + c)) : 0.f;
   }
   __syncthreads();
 
-  dense_relu<kXs, Spill>(m.xs, kPosPad, ring, w.b0, act, spill, valid_rows);  // w0
-  dense_relu<kAct, Spill>(act, kWidth, ring, w.b1, act, spill + kWidth, valid_rows);
-  dense_relu<kAct, Spill>(act, kWidth, ring, w.b2, act, spill + 2 * kWidth, valid_rows);
-  dense_relu<kAct, Spill>(act, kWidth, ring, w.b3, act, spill + 3 * kWidth, valid_rows);
-  dense_relu<kAct, Spill>(act, kWidth, ring, w.b4, act, spill + 4 * kWidth, valid_rows);
+  dense_relu<kXs, Spill, Bf16>(m.xs, kPosPad, ring, w.b0, act, spill, valid_rows);  // w0
+  dense_relu<kAct, Spill, Bf16>(act, kWidth, ring, w.b1, act, spill + kWidth, valid_rows);
+  dense_relu<kAct, Spill, Bf16>(act, kWidth, ring, w.b2, act, spill + 2 * kWidth, valid_rows);
+  dense_relu<kAct, Spill, Bf16>(act, kWidth, ring, w.b3, act, spill + 3 * kWidth, valid_rows);
+  dense_relu<kAct, Spill, Bf16>(act, kWidth, ring, w.b4, act, spill + 4 * kWidth, valid_rows);
   {  // skip layer: relu(h . w5x + x_enc . w5i + b5), one accumulator
     ChunkAcc<kWidth> a5;
     zero_acc(a5);
-    gemm_wt<kWidth, kAct, kFwdRun>(a5, act, kWidth, ring);    // w5x
-    gemm_wt<kWidth, kXs, kFwdRun>(a5, m.xs, kPosPad, ring);   // w5i
+    gemm_wt<kWidth, kAct, kFwdRun, Bf16>(a5, act, kWidth, ring);    // w5x
+    gemm_wt<kWidth, kXs, kFwdRun, Bf16>(a5, m.xs, kPosPad, ring);   // w5i
     product_done<Spill>();
-    store_act<kWidth, Spill>(a5, w.b5, true, act, nullptr, 0, 1, 1, spill + 5 * kWidth, valid_rows);
+    store_act<kWidth, Spill, Bf16>(a5, w.b5, true, act, nullptr, 0, 1, 1, spill + 5 * kWidth, valid_rows);
   }
-  dense_relu<kAct, Spill>(act, kWidth, ring, w.b6, act, spill + 6 * kWidth, valid_rows);
-  dense_relu<kAct, Spill>(act, kWidth, ring, w.b7, act, spill + 7 * kWidth, valid_rows);
+  dense_relu<kAct, Spill, Bf16>(act, kWidth, ring, w.b6, act, spill + 6 * kWidth, valid_rows);
+  dense_relu<kAct, Spill, Bf16>(act, kWidth, ring, w.b7, act, spill + 7 * kWidth, valid_rows);
 
   // Density head (256 -> 1), one warp per row.
   const float bd = __ldg(w.bd);
@@ -651,16 +706,17 @@ __device__ __forceinline__ void forward_chunk(const float* __restrict__ xenc, co
      // it after the density reads
     ChunkAcc<kWidth> ab;
     zero_acc(ab);
-    gemm_wt<kWidth, kAct, kFwdRun>(ab, act, kWidth, ring);  // wb
+    gemm_wt<kWidth, kAct, kFwdRun, Bf16>(ab, act, kWidth, ring);  // wb
     product_done<Spill>();
-    store_act<kWidth, Spill>(ab, w.bb, false, act, nullptr, 0, 1, 1, spill + kSpillBtl, valid_rows);
+    store_act<kWidth, Spill, Bf16>(ab, w.bb, false, act, nullptr, 0, 1, 1, spill + kSpillBtl, valid_rows);
   }
   {  // view layer: relu(btl . wva + cterm[ray] + bv) -> act[:, :128]
     ChunkAcc<kCondWidth> av;
     zero_acc(av);
-    gemm_wt<kCondWidth, kAct, kFwdRun>(av, act, kWidth, ring);  // wva
+    gemm_wt<kCondWidth, kAct, kFwdRun, Bf16>(av, act, kWidth, ring);  // wva
     product_done<Spill>();
-    store_act<kCondWidth, Spill>(av, w.bv, true, act, m.cterm, row0, S, n_rows, spill + kSpillView, valid_rows);
+    store_act<kCondWidth, Spill, Bf16>(av, w.bv, true, act, m.cterm, row0, S, n_rows, spill + kSpillView,
+                                       valid_rows);
   }
   // rgb head (128 -> 3), one warp per row.
   for (int r = warp; r < valid_rows; r += kWarps) {
@@ -728,6 +784,8 @@ __device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)
 // The integrator forward of the block's rays [ray0, ray0 + ray_tile), one
 // warp per ray, from the raw sigma sig[g S + s] and raw rgb rgb[3 (g S + s)]
 // of the ray's samples: weights (R,S), then comp (R,3), acc and depth (R).
+// With Bf16 each log term is rounded to bf16 before the prefix sum.
+template <bool Bf16>
 __device__ __forceinline__ void integrate_rays(const float* __restrict__ t, const float* __restrict__ rays_d,
                                                const float* sig, const float* rgb, int ray0, int ray_tile,
                                                int S, int white_bkgd, float* __restrict__ comp,
@@ -745,7 +803,7 @@ __device__ __forceinline__ void integrate_rays(const float* __restrict__ t, cons
       const int s = s0 + lane;
       SampleAlpha a;
       if (s < S) a = sample_alpha(tr, s, S, dnorm, sig[g * S + s]);
-      const float wgt = a.alpha * warp_transmittance(a.logv, carry);
+      const float wgt = a.alpha * warp_transmittance(operand<Bf16>(a.logv), carry);
       if (s < S) {
         weights_out[(size_t)ray * S + s] = wgt;
         const float* raw = rgb + (size_t)(g * S + s) * 3;

@@ -10,6 +10,13 @@ The function is the TPU kernel's: the skip layer as a split matmul, the view
 condition contracted once per ray, transmittance as exp of an exclusive sum of
 log(max(1 - alpha + 1e-10, 1e-10)), and depth without the NaN/clip step of
 ``ops/render.py``.
+
+``dot_bf16`` is the TPU kernel's argument of that name: every product of the
+level (the trunk, the heads, the view term) takes its two operands rounded to
+bf16 (to nearest, ties to even) and sums in fp32; biases, ReLUs and the
+integrator stay fp32, but for the transmittance's exclusive sum, which the TPU
+kernel takes as a product too, so each log term is rounded to bf16 before it
+is summed.
 """
 
 import ctypes
@@ -39,8 +46,10 @@ WT_FLOATS = sum(rows * cols for _, rows, cols in WEIGHTS_T)
 # shared memory, and make 256 blocks of a 4096-ray tile (two waves on 132 SMs).
 RAY_TILE = 16
 
-# Launches of the CUDA kernel since the count was last set to 0.
+# Launches of the CUDA kernel since each count was last set to 0: in fp32
+# (launches) and in bf16 mode (bf16_launches).
 launches = 0
+bf16_launches = 0
 # A launcher's return code at or above this is this plus the CUresult with
 # which the driver refused one of the weight stream's TMA maps (kMapError).
 MAP_ERROR = 1000
@@ -101,6 +110,24 @@ def kernel_weights_t(kernel_params: Dict[str, torch.Tensor]) -> torch.Tensor:
     return flat
 
 
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 (to nearest, ties to even) and back to its dtype;
+    an fp64 x rounds through fp32."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def bf16_params(kernel_params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The kernels' weights in bf16 mode: every weight rounded to bf16 (still
+    fp32 tensors, detached), every bias as it is."""
+    return {n: round_bf16(v.detach()) if n.startswith("w") else v for n, v in kernel_params.items()}
+
+
+def bf16_products(mm: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]):
+    """``mm`` on both operands rounded to bf16: a product of the TPU kernel's
+    ``dot_bf16`` mode."""
+    return lambda a, b: mm(round_bf16(a), round_bf16(b))
+
+
 def unpack_weights_t(flat: torch.Tensor) -> Dict[str, torch.Tensor]:
     """Views of :func:`kernel_weights_t`'s buffer: name -> (out, in padded)."""
     views, n = {}, 0
@@ -116,6 +143,7 @@ def level_activations_ref(
     xe: torch.Tensor,
     S: int,
     mm: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] = torch.matmul,
+    dot_bf16: bool = False,
 ) -> Tuple[List[torch.Tensor], torch.Tensor, torch.Tensor]:
     """The level's MLP on the R*S encoded samples ``xe`` (rows, 63): the ten
     activations in the order the training forward saves them (h0..h7, the
@@ -124,32 +152,41 @@ def level_activations_ref(
 
     ``mm`` computes the products that the CUDA kernels run on the tensor
     cores (every one in ``WEIGHTS_T``); tests pass an emulation of their
-    3xTF32 arithmetic. The default is plain ``@``."""
+    3xTF32 arithmetic. The default is plain ``@``. With ``dot_bf16`` every
+    product, these and the heads', rounds its operands to bf16 first, and
+    the activations come back rounded, as the TPU kernel's backward keeps
+    them and the CUDA training forward saves them."""
     w = kernel_params
     R = viewdirs_enc.shape[0]
     relu = torch.relu
+    dot, keep = torch.matmul, (lambda a: a)
+    if dot_bf16:
+        mm, dot, keep = bf16_products(mm), bf16_products(torch.matmul), round_bf16
 
-    hs = [relu(mm(xe, w["w0"]) + w["b0"])]
+    hs = [keep(relu(mm(xe, w["w0"]) + w["b0"]))]
     for i in (1, 2, 3, 4):
-        hs.append(relu(mm(hs[-1], w[f"w{i}"]) + w[f"b{i}"]))
-    hs.append(relu(mm(hs[-1], w["w5x"]) + mm(xe, w["w5i"]) + w["b5"]))
+        hs.append(keep(relu(mm(hs[-1], w[f"w{i}"]) + w[f"b{i}"])))
+    hs.append(keep(relu(mm(hs[-1], w["w5x"]) + mm(xe, w["w5i"]) + w["b5"])))
     for i in (6, 7):
-        hs.append(relu(mm(hs[-1], w[f"w{i}"]) + w[f"b{i}"]))
+        hs.append(keep(relu(mm(hs[-1], w[f"w{i}"]) + w[f"b{i}"])))
 
-    raw_sigma = hs[7] @ w["wd"] + w["bd"]  # (rows, 1)
-    bottleneck = mm(hs[7], w["wb"]) + w["bb"]
-    c_part = viewdirs_enc @ w["wvb"]  # (R, 128), once per ray
+    raw_sigma = dot(hs[7], w["wd"]) + w["bd"]  # (rows, 1)
+    bottleneck = keep(mm(hs[7], w["wb"]) + w["bb"])
+    c_part = dot(viewdirs_enc, w["wvb"])  # (R, 128), once per ray
     c_rows = c_part[:, None, :].expand(R, S, c_part.shape[-1]).reshape(R * S, -1)
-    v = relu(mm(bottleneck, w["wva"]) + c_rows + w["bv"])
-    raw_rgb = v @ w["wr"] + w["br"]  # (rows, 3)
+    v = keep(relu(mm(bottleneck, w["wva"]) + c_rows + w["bv"]))
+    raw_rgb = dot(v, w["wr"]) + w["br"]  # (rows, 3)
     return hs + [bottleneck, v], raw_sigma, raw_rgb
 
 
 def integrate_ref(
-    raw_sigma: torch.Tensor, raw_rgb: torch.Tensor, t_vals: torch.Tensor, rays_d: torch.Tensor, white_bkgd: bool
+    raw_sigma: torch.Tensor, raw_rgb: torch.Tensor, t_vals: torch.Tensor, rays_d: torch.Tensor, white_bkgd: bool,
+    dot_bf16: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The level's integrator: (comp (R,3), acc (R,), depth (R,), weights
-    (R,S)) from raw sigma (R*S, 1) and raw rgb (R*S, 3)."""
+    (R,S)) from raw sigma (R*S, 1) and raw rgb (R*S, 3). With ``dot_bf16``
+    the log terms are rounded to bf16 before their exclusive sum, as the TPU
+    kernel's triangular product rounds them."""
     R, S = t_vals.shape
     dnorm = torch.sqrt(torch.sum(rays_d * rays_d, dim=-1, keepdim=True))
     dists = torch.cat([t_vals[:, 1:] - t_vals[:, :-1], torch.full_like(t_vals[:, :1], 1e10)], -1)
@@ -157,6 +194,8 @@ def integrate_ref(
     sigma = torch.relu(raw_sigma.reshape(R, S))
     alpha = 1.0 - torch.exp(-sigma * dists)
     logv = torch.log(torch.clamp(1.0 - alpha + 1e-10, min=1e-10))
+    if dot_bf16:
+        logv = round_bf16(logv)
     excl = torch.cat([torch.zeros_like(logv[:, :1]), torch.cumsum(logv[:, :-1], dim=-1)], -1)
     weights = alpha * torch.exp(excl)
 
@@ -178,15 +217,16 @@ def fused_render_level_ref(
     samples_enc: torch.Tensor,
     white_bkgd: bool,
     mm: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] = torch.matmul,
+    dot_bf16: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the fused level. Same arguments and outputs as
     :func:`fused_render_level`, on any device; ``mm`` as in
     :func:`level_activations_ref`."""
     R, S = t_vals.shape
     _, raw_sigma, raw_rgb = level_activations_ref(
-        kernel_params, viewdirs_enc, samples_enc.reshape(R * S, -1), S, mm=mm
+        kernel_params, viewdirs_enc, samples_enc.reshape(R * S, -1), S, mm=mm, dot_bf16=dot_bf16
     )
-    return integrate_ref(raw_sigma, raw_rgb, t_vals, rays_d, white_bkgd)
+    return integrate_ref(raw_sigma, raw_rgb, t_vals, rays_d, white_bkgd, dot_bf16=dot_bf16)
 
 
 def _check_inputs(kernel_params, t_vals, rays_d, viewdirs_enc, xenc, R, S):
@@ -244,7 +284,7 @@ def _library():
     if _lib is None:
         lib = build.load("fused_render")
         fn = lib.aonerf_fused_render_level
-        fn.argtypes = [ctypes.c_void_p] * (4 + len(WEIGHT_NAMES) + 1 + 4) + [ctypes.c_int] * 4 + [
+        fn.argtypes = [ctypes.c_void_p] * (4 + len(WEIGHT_NAMES) + 1 + 4) + [ctypes.c_int] * 5 + [
             ctypes.c_void_p
         ]
         fn.restype = ctypes.c_int
@@ -262,6 +302,7 @@ def fused_render_level(
     samples_enc: torch.Tensor,
     white_bkgd: bool,
     ray_tile: int = RAY_TILE,
+    dot_bf16: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Render one hierarchy level for R rays (R % ray_tile == 0).
 
@@ -272,22 +313,25 @@ def fused_render_level(
     On CUDA tensors this builds :func:`kernel_weights_t` and launches the
     kernel, one block per ``ray_tile`` rays, which streams the product
     weights from that copy through TMA maps encoded for this launch;
-    ``rays_o`` is not read there, as in the TPU kernel. On CPU tensors it runs
-    the plain version.
+    ``rays_o`` is not read there, as in the TPU kernel. With ``dot_bf16`` it
+    launches the kernel's bf16 mode on the weights rounded to bf16
+    (:func:`bf16_params`). On CPU tensors it runs the plain version.
     """
-    global launches
+    global launches, bf16_launches
     R, S = t_vals.shape
     if R % ray_tile != 0:
         raise ValueError(f"rays {R} not a multiple of ray_tile {ray_tile}")
     if t_vals.device.type == "cpu":
         return fused_render_level_ref(
-            kernel_params, t_vals, rays_o, rays_d, viewdirs_enc, samples_enc, white_bkgd
+            kernel_params, t_vals, rays_o, rays_d, viewdirs_enc, samples_enc, white_bkgd, dot_bf16=dot_bf16
         )
     if t_vals.device.type != "cuda":
         raise ValueError(f"fused_render_level runs on cuda or cpu, not {t_vals.device}")
 
     xenc = samples_enc.reshape(R * S, samples_enc.shape[-1])
     _check_inputs(kernel_params, t_vals, rays_d, viewdirs_enc, xenc, R, S)
+    if dot_bf16:
+        kernel_params = bf16_params(kernel_params)
     lib = _library()
     wt = kernel_weights_t(kernel_params)
     comp = torch.empty((R, 3), dtype=torch.float32, device=t_vals.device)
@@ -300,8 +344,11 @@ def fused_render_level(
             t_vals.data_ptr(), rays_d.data_ptr(), viewdirs_enc.data_ptr(), xenc.data_ptr(),
             *[kernel_params[n].data_ptr() for n in WEIGHT_NAMES], wt.data_ptr(),
             comp.data_ptr(), acc.data_ptr(), depth.data_ptr(), weights.data_ptr(),
-            R, S, ray_tile, int(white_bkgd), stream,
+            R, S, ray_tile, int(white_bkgd), int(dot_bf16), stream,
         )
     check_launch("fused_render_level", err)
-    launches += 1
+    if dot_bf16:
+        bf16_launches += 1
+    else:
+        launches += 1
     return comp, acc, depth, weights

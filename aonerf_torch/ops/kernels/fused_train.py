@@ -13,6 +13,13 @@ outputs (the same bits) and saves every sample's activations (``saved``,
 SAVED_FLOATS a sample) and raw sigma and rgb (``raw``, 4 a sample); the
 backward reads them. K1 (``fused_render``) serves and validates.
 
+``dot_bf16`` is the TPU kernels' mode of that name (see ``fused_render``):
+the forward's products and its transmittance sum take bf16-rounded operands,
+and the saved activations are the rounded ones, which the TPU backward keeps
+in bf16; the backward's products round their operands too, but its
+integrator recomputes the transmittance in fp32, and every bias gradient and
+the per-ray sum for ``wvb`` add the unrounded fp32 deltas.
+
 Gradients flow to the 26 MLP weights only. Sample positions carry none in
 this architecture (coarse t-values are parameter-free, fine t-values are
 detached), so t, rays and encodings get no gradient. The integrator backward
@@ -35,6 +42,8 @@ from aonerf_torch.ops.kernels.fused_render import (
     WEIGHT_NAMES,
     WIDTH,
     _check_inputs,
+    bf16_params,
+    bf16_products,
     check_launch,
     check_wt_floats,
     integrate_ref,
@@ -47,13 +56,22 @@ from aonerf_torch.ops.kernels.fused_render import (
 SAVED_FLOATS = 9 * WIDTH + COND_WIDTH
 
 # Launches of K1s (fwd_launches) and of the CUDA backward (launches) since
-# each count was last set to 0.
+# each count was last set to 0, in fp32; bf16_fwd_launches and bf16_launches
+# count the same in bf16 mode.
 fwd_launches = 0
 launches = 0
+bf16_fwd_launches = 0
+bf16_launches = 0
 
 
 def _relu_mask(x: torch.Tensor) -> torch.Tensor:
     return (x > 0.0).to(x.dtype)
+
+
+def bias_grad(delta: torch.Tensor) -> torch.Tensor:
+    """A bias's gradient: its layer's deltas summed over the rows, in the
+    deltas' own precision (the TPU kernel's ``bias_grad``)."""
+    return delta.sum(0, keepdim=True)
 
 
 def fused_level_fwd_spill_ref(
@@ -64,17 +82,21 @@ def fused_level_fwd_spill_ref(
     viewdirs_enc: torch.Tensor,
     samples_enc: torch.Tensor,
     white_bkgd: bool,
+    mm: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] = torch.matmul,
+    dot_bf16: bool = False,
 ) -> Tuple[torch.Tensor, ...]:
     """Plain PyTorch version of K1s. Same arguments and outputs as
     :func:`fused_level_fwd_spill`, on any device: those of
     ``fused_render_level_ref``, then ``saved`` (R*S, SAVED_FLOATS) and ``raw``
-    (R*S, 4) in the kernel's layout."""
+    (R*S, 4) in the kernel's layout; ``mm`` as in ``level_activations_ref``."""
     R, S = t_vals.shape
-    acts, raw_sigma, raw_rgb = level_activations_ref(kernel_params, viewdirs_enc, samples_enc.reshape(R * S, -1), S)
+    acts, raw_sigma, raw_rgb = level_activations_ref(
+        kernel_params, viewdirs_enc, samples_enc.reshape(R * S, -1), S, mm=mm, dot_bf16=dot_bf16
+    )
     saved = torch.cat(acts, -1)
     del acts
     raw = torch.cat([raw_sigma, raw_rgb], -1)
-    return (*integrate_ref(raw_sigma, raw_rgb, t_vals, rays_d, white_bkgd), saved, raw)
+    return (*integrate_ref(raw_sigma, raw_rgb, t_vals, rays_d, white_bkgd, dot_bf16=dot_bf16), saved, raw)
 
 
 def fused_level_bwd_saved_ref(
@@ -92,6 +114,7 @@ def fused_level_bwd_saved_ref(
     g_weights: torch.Tensor,
     white_bkgd: bool,
     mm: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] = torch.matmul,
+    dot_bf16: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """Plain PyTorch version of the backward from what K1s saved, written out
     as the TPU kernel's body is (``_bwd_kernel``). Same arguments and outputs
@@ -100,8 +123,13 @@ def fused_level_bwd_saved_ref(
     ``mm`` computes the MLP backward's products that the CUDA kernel runs on
     the tensor cores (every dW and every delta . W^T but the narrow heads');
     tests pass an emulation of the kernel's 3xTF32 arithmetic. The default is
-    plain ``@``."""
+    plain ``@``. With ``dot_bf16`` every product, these and the heads',
+    rounds its operands to bf16; the integrator backward, the deltas, the
+    bias gradients and the per-ray sum for ``wvb`` stay fp32."""
     w = kernel_params
+    dot = torch.matmul
+    if dot_bf16:
+        mm, dot = bf16_products(mm), bf16_products(torch.matmul)
     R, S = t_vals.shape
     xe = samples_enc.reshape(R * S, -1)
     hs = [saved[:, i * WIDTH : (i + 1) * WIDTH] for i in range(8)]
@@ -139,27 +167,27 @@ def fused_level_bwd_saved_ref(
 
     # MLP backward; hv = relu(zv), so hv > 0 is zv's mask
     g = {}
-    g["wr"], g["br"] = hv.t() @ g_raw_rgb, g_raw_rgb.sum(0, keepdim=True)
-    delta_v = (g_raw_rgb @ w["wr"].t()) * _relu_mask(hv)
-    g["wva"], g["bv"] = mm(btl.t(), delta_v), delta_v.sum(0, keepdim=True)
+    g["wr"], g["br"] = dot(hv.t(), g_raw_rgb), bias_grad(g_raw_rgb)
+    delta_v = dot(g_raw_rgb, w["wr"].t()) * _relu_mask(hv)
+    g["wva"], g["bv"] = mm(btl.t(), delta_v), bias_grad(delta_v)
     g_btl = mm(delta_v, w["wva"].t())
-    g["wvb"] = viewdirs_enc.t() @ delta_v.reshape(R, S, -1).sum(1)
-    g["wb"], g["bb"] = mm(h7.t(), g_btl), g_btl.sum(0, keepdim=True)
-    g["wd"], g["bd"] = h7.t() @ g_raw_sigma, g_raw_sigma.sum(0, keepdim=True)
-    g_h = mm(g_btl, w["wb"].t()) + g_raw_sigma @ w["wd"].t()
+    g["wvb"] = dot(viewdirs_enc.t(), delta_v.reshape(R, S, -1).sum(1))
+    g["wb"], g["bb"] = mm(h7.t(), g_btl), bias_grad(g_btl)
+    g["wd"], g["bd"] = dot(h7.t(), g_raw_sigma), bias_grad(g_raw_sigma)
+    g_h = mm(g_btl, w["wb"].t()) + dot(g_raw_sigma, w["wd"].t())
     for i in (7, 6):
         delta = g_h * _relu_mask(hs[i])
-        g[f"w{i}"], g[f"b{i}"] = mm(hs[i - 1].t(), delta), delta.sum(0, keepdim=True)
+        g[f"w{i}"], g[f"b{i}"] = mm(hs[i - 1].t(), delta), bias_grad(delta)
         g_h = mm(delta, w[f"w{i}"].t())
     delta = g_h * _relu_mask(hs[5])
-    g["w5x"], g["w5i"], g["b5"] = mm(hs[4].t(), delta), mm(xe.t(), delta), delta.sum(0, keepdim=True)
+    g["w5x"], g["w5i"], g["b5"] = mm(hs[4].t(), delta), mm(xe.t(), delta), bias_grad(delta)
     g_h = mm(delta, w["w5x"].t())
     for i in (4, 3, 2, 1):
         delta = g_h * _relu_mask(hs[i])
-        g[f"w{i}"], g[f"b{i}"] = mm(hs[i - 1].t(), delta), delta.sum(0, keepdim=True)
+        g[f"w{i}"], g[f"b{i}"] = mm(hs[i - 1].t(), delta), bias_grad(delta)
         g_h = mm(delta, w[f"w{i}"].t())
     delta = g_h * _relu_mask(hs[0])
-    g["w0"], g["b0"] = mm(xe.t(), delta), delta.sum(0, keepdim=True)
+    g["w0"], g["b0"] = mm(xe.t(), delta), bias_grad(delta)
     return {n: g[n] for n in WEIGHT_NAMES}
 
 
@@ -176,13 +204,16 @@ def fused_level_bwd_ref(
     g_weights: torch.Tensor,
     white_bkgd: bool,
     mm: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] = torch.matmul,
+    dot_bf16: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """Plain PyTorch version of :func:`fused_level_bwd`, on any device:
     :func:`fused_level_bwd_saved_ref` from what :func:`fused_level_fwd_spill_ref`
     saves. ``mm`` as there."""
     inputs = (kernel_params, t_vals, rays_o, rays_d, viewdirs_enc, samples_enc)
-    *_, saved, raw = fused_level_fwd_spill_ref(*inputs, white_bkgd)
-    return fused_level_bwd_saved_ref(*inputs, saved, raw, g_comp, g_acc, g_depth, g_weights, white_bkgd, mm=mm)
+    *_, saved, raw = fused_level_fwd_spill_ref(*inputs, white_bkgd, dot_bf16=dot_bf16)
+    return fused_level_bwd_saved_ref(
+        *inputs, saved, raw, g_comp, g_acc, g_depth, g_weights, white_bkgd, mm=mm, dot_bf16=dot_bf16
+    )
 
 
 def _padded_offsets(shapes: List[Tuple[int, ...]]) -> List[int]:
@@ -213,7 +244,7 @@ def _library():
             ("aonerf_fused_level_bwd", 4 + n_w + 1 + 4 + 6),
         ):
             fn = getattr(lib, name)
-            fn.argtypes = [ptr] * n_ptr + [i32] * 4 + [ptr]
+            fn.argtypes = [ptr] * n_ptr + [i32] * 5 + [ptr]
             fn.restype = i32
         for name in (
             "aonerf_fused_level_bwd_partial_floats", "aonerf_fused_level_bwd_saved_floats",
@@ -288,26 +319,30 @@ def fused_level_fwd_spill(
     samples_enc: torch.Tensor,
     white_bkgd: bool,
     ray_tile: int = RAY_TILE,
+    dot_bf16: bool = False,
 ) -> Tuple[torch.Tensor, ...]:
     """The level's training forward (K1s): :func:`fused_render_level`'s
     outputs (comp (R,3), acc (R,), depth (R,), weights (R,S), the same bits as
     K1's on the card), then what the backward reads: ``saved`` (R*S,
     SAVED_FLOATS), every sample's activations h0..h7, bottleneck and view
-    hidden layer, and ``raw`` (R*S, 4), its raw sigma and rgb.
+    hidden layer (rounded to bf16 with ``dot_bf16``, still fp32 tensors), and
+    ``raw`` (R*S, 4), its raw sigma and rgb.
 
     On CUDA tensors this builds :func:`kernel_weights_t` and launches K1s,
-    one block per ``ray_tile`` rays; on CPU tensors it runs the plain
-    version.
+    one block per ``ray_tile`` rays (with ``dot_bf16``, its bf16 mode on the
+    rounded weights); on CPU tensors it runs the plain version.
     """
-    global fwd_launches
+    global fwd_launches, bf16_fwd_launches
     R, S = t_vals.shape
     if _device_of("fused_level_fwd_spill", t_vals, R, ray_tile) == "cpu":
         return fused_level_fwd_spill_ref(
-            kernel_params, t_vals, rays_o, rays_d, viewdirs_enc, samples_enc, white_bkgd
+            kernel_params, t_vals, rays_o, rays_d, viewdirs_enc, samples_enc, white_bkgd, dot_bf16=dot_bf16
         )
     dev = t_vals.device
     xenc = samples_enc.reshape(R * S, samples_enc.shape[-1])
     _check_inputs(kernel_params, t_vals, rays_d, viewdirs_enc, xenc, R, S)
+    if dot_bf16:
+        kernel_params = bf16_params(kernel_params)
     lib = _library()
     wt = kernel_weights_t(kernel_params)
     f32 = dict(dtype=torch.float32, device=dev)
@@ -320,9 +355,12 @@ def fused_level_fwd_spill(
         t_vals.data_ptr(), rays_d.data_ptr(), viewdirs_enc.data_ptr(), xenc.data_ptr(),
         *[kernel_params[n].data_ptr() for n in WEIGHT_NAMES], wt.data_ptr(),
         comp.data_ptr(), acc.data_ptr(), depth.data_ptr(), weights.data_ptr(), saved.data_ptr(), raw.data_ptr(),
-        R, S, ray_tile, int(white_bkgd),
+        R, S, ray_tile, int(white_bkgd), int(dot_bf16),
     )
-    fwd_launches += 1
+    if dot_bf16:
+        bf16_fwd_launches += 1
+    else:
+        fwd_launches += 1
     return comp, acc, depth, weights, saved, raw
 
 
@@ -341,6 +379,7 @@ def fused_level_bwd_saved(
     g_weights: torch.Tensor,
     white_bkgd: bool,
     ray_tile: int = RAY_TILE,
+    dot_bf16: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """Gradients of the 26 level weights (each shaped like its weight) from
     what :func:`fused_level_fwd_spill` saved (``saved``, ``raw``) and the
@@ -350,14 +389,15 @@ def fused_level_bwd_saved(
     On CUDA tensors this launches the backward (``csrc/fused_train.cu``): the
     integrator backward (one warp per ray), B1 with one block per
     ``ray_tile`` rays, B2 over a fixed number of row ranges, then the
-    reduction; on CPU tensors it runs the plain version.
+    reduction (with ``dot_bf16``, B1 and B2 in bf16 mode on the rounded
+    weights); on CPU tensors it runs the plain version.
     """
-    global launches
+    global launches, bf16_launches
     R, S = t_vals.shape
     if _device_of("fused_level_bwd_saved", t_vals, R, ray_tile) == "cpu":
         return fused_level_bwd_saved_ref(
             kernel_params, t_vals, rays_o, rays_d, viewdirs_enc, samples_enc, saved, raw,
-            g_comp, g_acc, g_depth, g_weights, white_bkgd,
+            g_comp, g_acc, g_depth, g_weights, white_bkgd, dot_bf16=dot_bf16,
         )
     dev = t_vals.device
     xenc = samples_enc.reshape(R * S, samples_enc.shape[-1])
@@ -365,6 +405,8 @@ def fused_level_bwd_saved(
     _check_cotangents(g_comp, g_acc, g_depth, g_weights, R, S, dev)
     _check("saved", saved, (R * S, SAVED_FLOATS), dev)
     _check("raw", raw, (R * S, 4), dev)
+    if dot_bf16:
+        kernel_params = bf16_params(kernel_params)
     lib = _library()
     scratch, grads = _backward_scratch(lib, kernel_params, R, S, ray_tile, dev)
     _launch(
@@ -373,9 +415,12 @@ def fused_level_bwd_saved(
         *[kernel_params[n].data_ptr() for n in WEIGHT_NAMES],
         g_comp.data_ptr(), g_acc.data_ptr(), g_depth.data_ptr(), g_weights.data_ptr(),
         saved.data_ptr(), raw.data_ptr(), *[x.data_ptr() for x in scratch],
-        R, S, ray_tile, int(white_bkgd),
+        R, S, ray_tile, int(white_bkgd), int(dot_bf16),
     )
-    launches += 1
+    if dot_bf16:
+        bf16_launches += 1
+    else:
+        launches += 1
     return grads
 
 
@@ -392,23 +437,26 @@ def fused_level_bwd(
     g_weights: torch.Tensor,
     white_bkgd: bool,
     ray_tile: int = RAY_TILE,
+    dot_bf16: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """Gradients of the 26 level weights from the level's inputs and the
     cotangents of :func:`fused_render_level`'s outputs alone: K1s, then the
     backward from what it saved (:func:`fused_level_bwd_saved`), in one call
     of the library; ``saved`` is its scratch. On CPU tensors it runs the
     plain version."""
-    global fwd_launches, launches
+    global fwd_launches, launches, bf16_fwd_launches, bf16_launches
     R, S = t_vals.shape
     if _device_of("fused_level_bwd", t_vals, R, ray_tile) == "cpu":
         return fused_level_bwd_ref(
             kernel_params, t_vals, rays_o, rays_d, viewdirs_enc, samples_enc,
-            g_comp, g_acc, g_depth, g_weights, white_bkgd,
+            g_comp, g_acc, g_depth, g_weights, white_bkgd, dot_bf16=dot_bf16,
         )
     dev = t_vals.device
     xenc = samples_enc.reshape(R * S, samples_enc.shape[-1])
     _check_inputs(kernel_params, t_vals, rays_d, viewdirs_enc, xenc, R, S)
     _check_cotangents(g_comp, g_acc, g_depth, g_weights, R, S, dev)
+    if dot_bf16:
+        kernel_params = bf16_params(kernel_params)
     lib = _library()
     wt = kernel_weights_t(kernel_params)
     scratch, grads = _backward_scratch(lib, kernel_params, R, S, ray_tile, dev)
@@ -419,27 +467,32 @@ def fused_level_bwd(
         *[kernel_params[n].data_ptr() for n in WEIGHT_NAMES], wt.data_ptr(),
         g_comp.data_ptr(), g_acc.data_ptr(), g_depth.data_ptr(), g_weights.data_ptr(),
         saved.data_ptr(), *[x.data_ptr() for x in scratch],
-        R, S, ray_tile, int(white_bkgd),
+        R, S, ray_tile, int(white_bkgd), int(dot_bf16),
     )
-    fwd_launches += 1
-    launches += 1
+    if dot_bf16:
+        bf16_fwd_launches += 1
+        bf16_launches += 1
+    else:
+        fwd_launches += 1
+        launches += 1
     return grads
 
 
 class FusedLevel(torch.autograd.Function):
     """One level as a differentiable function of its 26 weights: K1s forward,
-    K2 backward from what it saved (counterpart of ``make_fused_level``)."""
+    K2 backward from what it saved, both in the mode ``dot_bf16`` says
+    (counterpart of ``make_fused_level``)."""
 
     @staticmethod
-    def forward(ctx, t_vals, rays_o, rays_d, viewdirs_enc, samples_enc, white_bkgd, ray_tile, *weights):
+    def forward(ctx, t_vals, rays_o, rays_d, viewdirs_enc, samples_enc, white_bkgd, ray_tile, dot_bf16, *weights):
         kp = dict(zip(WEIGHT_NAMES, weights))
         *out, saved, raw = fused_level_fwd_spill(
-            kp, t_vals, rays_o, rays_d, viewdirs_enc, samples_enc, white_bkgd, ray_tile
+            kp, t_vals, rays_o, rays_d, viewdirs_enc, samples_enc, white_bkgd, ray_tile, dot_bf16
         )
         ctx.save_for_backward(t_vals, rays_o, rays_d, viewdirs_enc, samples_enc, *weights)
         # neither inputs nor outputs: kept as attributes, dropped by backward
         ctx.saved_acts, ctx.raw = saved, raw
-        ctx.white_bkgd, ctx.ray_tile = white_bkgd, ray_tile
+        ctx.white_bkgd, ctx.ray_tile, ctx.dot_bf16 = white_bkgd, ray_tile, dot_bf16
         return tuple(out)
 
     @staticmethod
@@ -449,10 +502,10 @@ class FusedLevel(torch.autograd.Function):
             dict(zip(WEIGHT_NAMES, weights)), t_vals, rays_o, rays_d, viewdirs_enc, samples_enc,
             ctx.saved_acts, ctx.raw,
             g_comp.contiguous(), g_acc.contiguous(), g_depth.contiguous(), g_weights.contiguous(),
-            ctx.white_bkgd, ctx.ray_tile,
+            ctx.white_bkgd, ctx.ray_tile, ctx.dot_bf16,
         )
         ctx.saved_acts = ctx.raw = None  # the fine level's saved is 3.85 GB at batch 2048
-        return (None,) * 7 + tuple(grads[n] for n in WEIGHT_NAMES)
+        return (None,) * 8 + tuple(grads[n] for n in WEIGHT_NAMES)
 
 
 def fused_level(
@@ -464,10 +517,11 @@ def fused_level(
     samples_enc: torch.Tensor,
     white_bkgd: bool,
     ray_tile: int = RAY_TILE,
+    dot_bf16: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """:func:`fused_render_level` with gradients to ``kernel_params``."""
     return FusedLevel.apply(
-        t_vals, rays_o, rays_d, viewdirs_enc, samples_enc, white_bkgd, ray_tile,
+        t_vals, rays_o, rays_d, viewdirs_enc, samples_enc, white_bkgd, ray_tile, dot_bf16,
         *[kernel_params[n] for n in WEIGHT_NAMES],
     )
 
@@ -485,8 +539,10 @@ def fused_nerf_forward(
     lindisp: bool = False,
     draws=None,
     level: Callable = fused_level,
+    dot_bf16: bool = False,
 ) -> List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
-    """The two-level hierarchical forward with each level in ``level``.
+    """The two-level hierarchical forward with each level in ``level``, in
+    the kernels' bf16 mode with ``dot_bf16``.
 
     rays: 'rays_o', 'rays_d' (unit), 'viewdirs' (B, 3), B a multiple of
     ``RAY_TILE``. ``draws`` (see ``ops.random``) gives the coarse jitter and
@@ -510,7 +566,7 @@ def fused_nerf_forward(
         t_vals = t_vals.contiguous()
         samples_enc = encoding.pos_enc(samples, mlp.min_deg_point, mlp.max_deg_point)
         comp_rgb, acc, depth, weights = level(
-            kernel_params(mlp), t_vals, o, d, viewdirs_enc, samples_enc, white_bkgd
+            kernel_params(mlp), t_vals, o, d, viewdirs_enc, samples_enc, white_bkgd, dot_bf16=dot_bf16
         )
         ret.append((comp_rgb, acc, depth))
     return ret

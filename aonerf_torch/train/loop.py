@@ -6,8 +6,9 @@ its batch on the device, and ``fit`` is a host loop around the multi-step
 with the JAX Trainer's logging, validation and checkpoint cadences.
 
   vanilla:      the NeRF through the fused level kernels, on a SAPIEN scene's
-                ray buffers; ``validate`` renders val views, ``test`` every
-                view of the test split
+                ray buffers, in fp32 or (``compute_dtype='bf16'``) the
+                kernels' bf16 mode; ``validate`` renders val views, ``test``
+                every view of the test split
   auto-decoder: the articulated field and the code library, trained jointly
                 on a sapien_multi scene's (instance, articulation, view)
                 buffers; ``validate`` renders a rotating set of views (the
@@ -46,7 +47,7 @@ from aonerf_torch.eval.render import make_image_renderer
 from aonerf_torch.models.ae import AutoEncoderArticulatedNeRF
 from aonerf_torch.models.articulated import ArticulatedNeRF
 from aonerf_torch.models.codes import CodeLibraryArticulated
-from aonerf_torch.models.mlp import NeRFMLP
+from aonerf_torch.models.mlp import COMPUTE_DTYPES, NeRFMLP
 from aonerf_torch.models.nerf import NeRF
 from aonerf_torch.ops.random import Draws
 from aonerf_torch.train.step import (
@@ -75,8 +76,10 @@ def _check_supported(cfg: Config) -> None:
         todo.append(f"dataset_name={cfg.dataset_name!r} for {cfg.exp_type}")
     if cfg.noise_std:
         todo.append("noise_std")
-    if cfg.compute_dtype != "f32":
+    if cfg.compute_dtype not in COMPUTE_DTYPES:
         todo.append(f"compute_dtype={cfg.compute_dtype!r}")
+    elif cfg.compute_dtype != "f32" and cfg.exp_type != "vanilla":
+        todo.append(f"compute_dtype={cfg.compute_dtype!r} for {cfg.exp_type} (ROADMAP Queue 1 item 8)")
     if cfg.optimizer != "adam" or cfg.lr_scheduler is not None:
         todo.append("optimizers other than the log-lerp Adam")
     # the articulated field takes any encoding degrees and has fixed widths
@@ -168,6 +171,7 @@ class Trainer:
             self.model = NeRF(
                 num_coarse_samples=cfg.num_coarse_samples, num_fine_samples=cfg.num_fine_samples,
                 lindisp=cfg.lindisp, generator=generator, device=self.device,
+                compute_dtype=COMPUTE_DTYPES[cfg.compute_dtype],
             )
             trained = self.model
             self.step_fn = make_vanilla_train_multi_step(

@@ -43,7 +43,7 @@ class Config:
     netwidth: int = 256
     noise_std: float = 0.0
     lindisp: bool = False
-    compute_dtype: str = "f32"
+    compute_dtype: str = "f32"  # "f32" or "bf16": the fused kernels' mode (vanilla only)
     # auto-decoder codes and the articulated field's compute schedule
     n_max_objs: int = 4
     obj_code_dim: int = 128

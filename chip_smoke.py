@@ -84,12 +84,36 @@ Phases, each of which fails the run with a non-zero exit:
                conditioned on the latents and the angle predicted from its
                source view; every output file, PSNR/SSIM/object PSNR finite,
                seconds per view for test() and for the render alone.
-The line before the last is a JSON object with one entry per kernel; the last
-line is {"ok": true, "device": {...}}.
+ 13. bf16 kernels - K1, K1s and K2 in bf16 mode (the TPU kernels' dot_bf16)
+               against the bf16 rule (TOL_BF16_*: the plain bf16 version
+               summed in fp64 as reference, the limit from the spread of
+               three fp32 summation orders of the plain bf16 version), which
+               the fp32 kernel must miss: K1 at phase 3's 4096 rays, K1s' saved layers and K2's 26
+               gradients at phase 5's 2048, S = 65 and 193, both
+               backgrounds; K1s' outputs equal to K1's bits, repeat calls'
+               bits, the backward from saved equal to the composition; K1s on
+               encoded inputs at exact bf16 ties (ties to even); each kernel
+               timed in turns with its fp32 mode, with its plain bf16 version
+               and its bounds at the bf16 and the TF32 peak.
+ 14. bf16 training - the train CLI at config/vanilla_tpu_fast.json's settings
+               (bf16, batch 224, inner_steps 183, grad_clip 1.0, chunk 256) on
+               phase 7's scene, cut as phase 7 cuts config/vanilla.json: 2
+               multi-steps with a validation and a checkpoint; the loss
+               falling, launch counts of K1 (validation), K1s and K2 in bf16
+               mode and none in fp32, the checkpoint's tensors fp32, ms per
+               step; --run_eval in bf16 (K1 bf16 only) and test view 0 in bf16
+               against the same checkpoint rendered in fp32, and view 0 of the
+               run's initial, random field in bf16 against fp32, each within
+               a band stated in advance (TOL_BF16_VIEW_*); the train step at
+               config/vanilla.json's batch 2048 in fp32 and in bf16, in turns.
+The line before the last is a JSON object with one entry per kernel and mode
+(K1, K1s, K2 in fp32, then in bf16); the last line is {"ok": true, "device":
+{...}}.
 """
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -188,6 +212,42 @@ AE_RAYS = 256  # rays of phase 11's fp64 check
 # stays at PyTorch's default, off: under it the field's F.linear, as the
 # auto-decoder's, would run TF32.)
 TOL_AE, TOL_AE_FACTOR = 1e-5, 4.0
+# bf16 mode (phases 13-14; the TPU kernels' dot_bf16): every product of the
+# level takes bf16-rounded operands and sums in fp32. The bf16 rule:
+# reference, the plain version in bf16 mode with every operand rounded as
+# the kernels round it and every product and sum in fp64; each output of K1
+# (comp, acc, depth, weights), each saved layer of K1s (h0..h7, bottleneck,
+# view) and each of K2's 26 gradients is held, by max abs err / max
+# |reference|, to max(TOL_BF16_FWD forward or TOL_BF16_GRAD gradients,
+# TOL_BF16_SPREAD x the spread of the plain bf16 version over the fp32
+# summation orders of BF16_ORDERS around the reference on that output: the
+# largest distance of the three from it, by the same measure). A bf16 operand
+# rounds to one neighbour or the other where an fp32 sum lies within its
+# rounding error of a tie, so every fp32 order lands its own distance from
+# the reference. (A
+# first rule, 4x the cuBLAS order's own error, failed the reversed-K order on
+# 4 of 48 seed x level cases of tools/torch_bf16_accuracy.py, up to 4.5x its
+# limit on bd; PERF.md section 6.) The fp32 kernel must miss the rule on at
+# least one output a level, which shows that it tells the modes apart.
+TOL_BF16_FWD, TOL_BF16_GRAD, TOL_BF16_SPREAD = 1e-6, 1e-4, 2.0
+PEAK_BF16_FLOPS = 989e12  # bf16 tensor cores, dense; the kernels run one TF32 mma on bf16 operands (495)
+OUTPUTS = ("comp", "acc", "depth", "weights")
+# K1s in bf16 on encoded inputs placed exactly halfway between two bf16
+# values: the share of its saved h0 that differs from the plain version's
+# (torch rounds to nearest, ties to even) stays below TIE_SHARE. Rounding
+# ties away from zero moves half of the inputs by a bf16 ulp and h0 with them
+# (~5% of h0 on the CPU emulation, tests/test_torch_bf16_kernels.py); other
+# summation orders alone move ~0.01%.
+TIE_SHARE = 5e-3
+# The fast preset (config/vanilla_tpu_fast.json: batch 224, inner_steps 183,
+# grad_clip 1.0, bf16, chunk 256) trains FAST_MULTI_STEPS multi-steps on
+# phase 7's scene. Stated before its first run on the card: its test view 0
+# rendered in bf16 against the same checkpoint rendered in fp32, max abs rgb
+# difference at most TOL_BF16_VIEW_MAX and mean at most TOL_BF16_VIEW_MEAN;
+# the trained field renders the white background alone, so the same band
+# holds view 0 of the run's initial, random field too.
+FAST_MULTI_STEPS = 2
+TOL_BF16_VIEW_MAX, TOL_BF16_VIEW_MEAN = 0.05, 2e-3
 
 
 def fail(msg: str) -> None:
@@ -209,16 +269,21 @@ def cuda_ms(fn, warmup: int, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def phase_device() -> None:
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is False: this smoke run needs a CUDA card")
+def smi_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
     )
     if smi.returncode != 0:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(smi.stdout.strip().splitlines()[0])
+    return smi.stdout.strip().splitlines()[0]
+
+
+def phase_device() -> None:
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this smoke run needs a CUDA card")
+    print(smi_line())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(
@@ -237,9 +302,13 @@ def phase_build() -> None:
     paths = build.build(names)
     print(f"build: {names} in {time.perf_counter() - t0:.1f} s -> {[p.name for p in paths.values()]}")
     for name, log in build.ptxas_log.items():
+        kernel = ""
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+            entry = re.search(r"entry function '.*?\d([a-z_]+_kernel)(ILb([01])E)?", line)
+            if entry:  # the kernel's name in the mangled one, then <false> or <true>: the bf16 mode
+                kernel = entry.group(1) + {None: "", "0": " fp32", "1": " bf16"}[entry.group(3)]
+            elif "registers" in line or "spill" in line:
+                print(f"  ptxas {name} {kernel}: {line.strip()}")
 
 
 def _view(rng, boxes, focal):
@@ -255,23 +324,28 @@ def _view(rng, boxes, focal):
     return rays, target.astype(np.float32), alpha
 
 
-def _fwd_bounds(S: int, R: int = R, spill: bool = False) -> dict:
+def _fwd_bounds(S: int, R: int = R, spill: bool = False, saved_bytes: int = 4) -> dict:
     """The forward level's bounds, each (ms, what bounds it): "3xtf32" with
     the arithmetic K1 and K1s do (the products in 3xTF32 on the tensor cores,
     the heads and the view term on the fp32 cores), "fp32" with every product
-    on the fp32 cores; against the bytes of the inputs read once and the
-    outputs written once (with spill, K1s' saved and raw too)."""
+    on the fp32 cores, "bf16" and "tf32" with the products at the bf16 peak
+    and at the TF32 peak the bf16 mode's one mma can reach; against the bytes
+    of the inputs read once and the outputs written once (with spill, K1s'
+    raw and its saved activations too, at saved_bytes a value: 2 for the
+    bf16 mode's, which are bf16 values)."""
     rows = R * S
     n_weights = MACS_PER_SAMPLE + 27 * 128 + 8 * 256 + 1 + 256 + 128 + 3
-    floats = (rows + R * 3 + R * 27 + rows * 63 + n_weights  # inputs
-              + R * 3 + R + R + rows)  # outputs
+    n_bytes = 4.0 * (rows + R * 3 + R * 27 + rows * 63 + n_weights  # inputs
+                     + R * 3 + R + R + rows)  # outputs
     if spill:
-        floats += rows * (SAVED_FLOATS + 4)
-    t_bytes = 4.0 * floats / PEAK_BYTES * 1e3
+        n_bytes += rows * (saved_bytes * SAVED_FLOATS + 4.0 * 4)
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
     fp32_narrow = 2.0 * (rows * FWD_FP32_MACS + R * 27 * 128) / PEAK_FP32_FLOPS * 1e3
-    tc = 3 * 2.0 * rows * FWD_TC_MACS / PEAK_TF32_FLOPS * 1e3
+    tc = 2.0 * rows * FWD_TC_MACS * 1e3  # the tensor-core products' operations, over a peak
     all_fp32 = 2.0 * (rows * MACS_PER_SAMPLE + R * 27 * 128) / PEAK_FP32_FLOPS * 1e3
-    return {"3xtf32": _bound(tc + fp32_narrow, t_bytes), "fp32": _bound(all_fp32, t_bytes)}
+    return {"3xtf32": _bound(3 * tc / PEAK_TF32_FLOPS + fp32_narrow, t_bytes), "fp32": _bound(all_fp32, t_bytes),
+            "bf16": _bound(tc / PEAK_BF16_FLOPS + fp32_narrow, t_bytes),
+            "tf32": _bound(tc / PEAK_TF32_FLOPS + fp32_narrow, t_bytes)}
 
 
 def _fwd_errors(got, want64) -> dict:
@@ -388,12 +462,13 @@ def phase_kernels(nerf, boxes, focal) -> dict:
 
 
 def _plain_render_level(kernel_params, t_vals, rays_o, rays_d, viewdirs_enc, samples_enc, white_bkgd,
-                        ray_tile=None):
+                        ray_tile=None, dot_bf16=False):
     """K1's plain version in K1's signature, to render through it in place of
     the kernel."""
     from aonerf_torch.ops.kernels import fused_render as fr
 
-    return fr.fused_render_level_ref(kernel_params, t_vals, rays_o, rays_d, viewdirs_enc, samples_enc, white_bkgd)
+    return fr.fused_render_level_ref(kernel_params, t_vals, rays_o, rays_d, viewdirs_enc, samples_enc, white_bkgd,
+                                     dot_bf16=dot_bf16)
 
 
 def phase_serving(nerf, boxes, focal) -> dict:
@@ -448,13 +523,15 @@ def phase_serving(nerf, boxes, focal) -> dict:
     return {"launches": launches, "seconds_per_view": seconds / len(views)}
 
 
-def _bwd_bytes(R: int, S: int) -> float:
+def _bwd_bytes(R: int, S: int, saved_bytes: int = 4) -> float:
     """Bytes of the backward from saved: its inputs (the level's, the
-    cotangents, saved and raw) read once, the gradients written once."""
-    return 4.0 * (R * S + R * 3 + R * 27 + R * S * 63 + N_WEIGHTS  # level inputs
-                  + R * 3 + R + R + R * S  # cotangents
-                  + R * S * (SAVED_FLOATS + 4)  # saved, raw
-                  + N_WEIGHTS)  # gradients
+    cotangents, saved at saved_bytes a value and raw) read once, the
+    gradients written once."""
+    return (4.0 * (R * S + R * 3 + R * 27 + R * S * 63 + N_WEIGHTS  # level inputs
+                   + R * 3 + R + R + R * S  # cotangents
+                   + R * S * 4  # raw
+                   + N_WEIGHTS)  # gradients
+            + saved_bytes * R * S * SAVED_FLOATS)
 
 
 def _bwd_bound_ms(R: int, S: int) -> tuple:
@@ -566,16 +643,17 @@ def _check_grads(what, k64, p32):
     return ratio[worst]
 
 
-def _train_levels(nerf, boxes, focal):
-    """The train step's level inputs at R_TRAIN rays of one view: (o, d,
+def _train_levels(nerf, boxes, focal, R=R_TRAIN, seed=SEED + 200, dot_bf16=False):
+    """The train step's level inputs at R rays of one view: (o, d,
     [(kernel params, t, venc, xenc)] for the coarse (S=65) and the fine
-    (S=193) level), the fine t-values from the coarse weights."""
+    (S=193) level), the fine t-values from the coarse weights (K1 in the mode
+    dot_bf16 says)."""
     from aonerf_torch.ops import encoding, sampling
     from aonerf_torch.ops.kernels import fused_render as fr
 
     dev = torch.device("cuda")
-    rays, _, _ = _view(np.random.default_rng(SEED + 200), boxes, focal)
-    pick = np.random.default_rng(SEED + 201).choice(H * W, R_TRAIN, replace=False)
+    rays, _, _ = _view(np.random.default_rng(seed), boxes, focal)
+    pick = np.random.default_rng(seed + 1).choice(H * W, R, replace=False)
     o, d = (torch.from_numpy(rays[k][pick]).to(dev) for k in ("rays_o", "rays_d"))
     venc = encoding.pos_enc(d, 0, 4)
     with torch.no_grad():
@@ -583,7 +661,7 @@ def _train_levels(nerf, boxes, focal):
     t_c, pts = sampling.sample_along_rays(o, d, 64, 2.0, 6.0, False, False)
     t_c = t_c.contiguous()
     xenc_c = encoding.pos_enc(pts, 0, 10)
-    _, _, _, w_c = fr.fused_render_level(kp_c, t_c, o, d, venc, xenc_c, True)
+    _, _, _, w_c = fr.fused_render_level(kp_c, t_c, o, d, venc, xenc_c, True, dot_bf16=dot_bf16)
     t_f, pts_f = sampling.sample_pdf(0.5 * (t_c[:, 1:] + t_c[:, :-1]), w_c[:, 1:-1], o, d, t_c, 128, False)
     t_f = t_f.contiguous()
     xenc_f = encoding.pos_enc(pts_f, 0, 10)
@@ -764,12 +842,13 @@ class _PlainLevel(torch.autograd.Function):
     """One level through the plain versions: K1's forward, K2's backward."""
 
     @staticmethod
-    def forward(ctx, t, o, d, venc, xenc, white, *weights):
+    def forward(ctx, t, o, d, venc, xenc, white, dot_bf16, *weights):
         from aonerf_torch.ops.kernels import fused_render as fr
 
         ctx.save_for_backward(t, o, d, venc, xenc, *weights)
-        ctx.white = white
-        return fr.fused_render_level_ref(dict(zip(fr.WEIGHT_NAMES, weights)), t, o, d, venc, xenc, white)
+        ctx.white, ctx.dot_bf16 = white, dot_bf16
+        return fr.fused_render_level_ref(dict(zip(fr.WEIGHT_NAMES, weights)), t, o, d, venc, xenc, white,
+                                         dot_bf16=dot_bf16)
 
     @staticmethod
     def backward(ctx, gc, ga, gd, gw):
@@ -778,14 +857,14 @@ class _PlainLevel(torch.autograd.Function):
 
         t, o, d, venc, xenc, *weights = ctx.saved_tensors
         g = ft.fused_level_bwd_ref(dict(zip(fr.WEIGHT_NAMES, weights)), t, o, d, venc, xenc,
-                                   gc, ga, gd, gw, ctx.white)
-        return (None,) * 6 + tuple(g[n] for n in fr.WEIGHT_NAMES)
+                                   gc, ga, gd, gw, ctx.white, dot_bf16=ctx.dot_bf16)
+        return (None,) * 7 + tuple(g[n] for n in fr.WEIGHT_NAMES)
 
 
-def _plain_level(kp, t, o, d, venc, xenc, white):
+def _plain_level(kp, t, o, d, venc, xenc, white, dot_bf16=False):
     from aonerf_torch.ops.kernels import fused_render as fr
 
-    return _PlainLevel.apply(t, o, d, venc, xenc, white, *[kp[n] for n in fr.WEIGHT_NAMES])
+    return _PlainLevel.apply(t, o, d, venc, xenc, white, dot_bf16, *[kp[n] for n in fr.WEIGHT_NAMES])
 
 
 def two_level_check(nerf, o, d) -> None:
@@ -978,7 +1057,7 @@ def phase_training(tmp: str) -> dict:
         fail("no val grid written")
     return {"k1": first["k1"], "k1s": first["k1s"], "k2": first["k2"], "step_ms": step_s * 1e3,
             "rays_per_s": cfg.batch_size / step_s, "peak_gb": peak_bytes / 1e9, "cfg_path": cfg_path,
-            "val_psnr": first["metrics"].get("val_psnr")}
+            "val_psnr": first["metrics"].get("val_psnr"), "root": root}
 
 
 def phase_test(cfg_path: str, val_psnr: float) -> dict:
@@ -1109,10 +1188,12 @@ def _autodecoder_config(root: str, out: str) -> str:
 
 
 def _fused_launches() -> tuple:
+    """Launches of K1, K1s and K2, fp32 and bf16 mode together."""
     from aonerf_torch.ops.kernels import fused_render as fr
     from aonerf_torch.ops.kernels import fused_train as ft
 
-    return fr.launches, ft.fwd_launches, ft.launches
+    return (fr.launches + fr.bf16_launches, ft.fwd_launches + ft.bf16_fwd_launches,
+            ft.launches + ft.bf16_launches)
 
 
 def _reset_fused_launches() -> None:
@@ -1120,6 +1201,7 @@ def _reset_fused_launches() -> None:
     from aonerf_torch.ops.kernels import fused_train as ft
 
     fr.launches = ft.fwd_launches = ft.launches = 0
+    fr.bf16_launches = ft.bf16_fwd_launches = ft.bf16_launches = 0
 
 
 def articulated_fp64_check(trainer) -> float:
@@ -1619,6 +1701,434 @@ def phase_ae_test(cfg_path: str) -> dict:
     return {"seconds_per_view": per_test, "render_seconds_per_view": per_render, "fused": fused}
 
 
+# ------------------------------------------------------------------ bf16 mode
+
+
+def _rel(x, ref64) -> float:
+    """max |x - ref64| / max |ref64|."""
+    return ((x.double() - ref64).abs().max() / ref64.abs().max().clamp_min(1e-300)).item()
+
+
+def _k_in_halves(a, w):
+    k = a.shape[1] // 2
+    return a[:, :k] @ w[:k] + a[:, k:] @ w[k:]
+
+
+# The fp32 summation orders of the plain bf16 version whose spread sets the
+# bf16 rule's limits: the product of every mm of the plain version as cuBLAS
+# sums it, with its K order reversed, and as two halves of K.
+BF16_ORDERS = {
+    "cuBLAS": torch.matmul,
+    "reversed K": lambda a, w: a.flip(-1) @ w.flip(0),
+    "K in halves": _k_in_halves,
+}
+
+
+def bf16_limits(orders: dict, ref64: dict, floor: float) -> dict:
+    """The bf16 rule's limit of each output: max(floor, TOL_BF16_SPREAD x the
+    largest distance of the plain bf16 version's fp32 orders from the fp64
+    reference), ``orders`` mapping each order's name to its outputs."""
+    return {n: max(floor, TOL_BF16_SPREAD * max(_rel(run[n], ref) for run in orders.values()))
+            for n, ref in ref64.items()}
+
+
+def bf16_k1_plain(lv, white: bool, mm=torch.matmul) -> dict:
+    """K1's plain version in bf16 mode with the products summed by mm."""
+    from aonerf_torch.ops.kernels import fused_render as fr
+
+    return dict(zip(OUTPUTS, fr.fused_render_level_ref(*lv, white, mm=mm, dot_bf16=True)))
+
+
+def bf16_k2_plain(lv, cot, white: bool, mm=torch.matmul) -> dict:
+    """K1s then K2, plain, in bf16 mode with every product summed by mm."""
+    from aonerf_torch.ops.kernels import fused_train as ft
+
+    saved, raw = ft.fused_level_fwd_spill_ref(*lv, white, mm=mm, dot_bf16=True)[4:]
+    return ft.fused_level_bwd_saved_ref(*lv, saved, raw, *cot, white, mm=mm, dot_bf16=True)
+
+
+def bf16_ratios(got: dict, ref64: dict, limits: dict) -> dict:
+    """Each output's error against the fp64 reference over its limit."""
+    return {n: _rel(got[n], ref64[n]) / limits[n] for n in limits}
+
+
+def saved_layers(saved) -> dict:
+    """K1s' saved activations by layer (h0..h7, bottleneck, view)."""
+    return {name: saved[:, 256 * i: 256 * i + (128 if name == "view" else 256)]
+            for i, name in enumerate(SAVED_LAYERS)}
+
+
+def _bwd_bounds_bf16(R: int, S: int) -> dict:
+    """The backward from saved in bf16 mode: B1's and B2's products at the
+    bf16 (and the TF32) tensor-core peak, the rest at the fp32 peak; the
+    saved activations, bf16 values, at 2 bytes each."""
+    fp32 = ((2.0 * (R * S * B1_FP32_MACS + R * 27 * 128) + R * S * INTEGRATOR_FLOPS_PER_SAMPLE)
+            / PEAK_FP32_FLOPS * 1e3)
+    tc = 2.0 * R * S * (B1_TC_MACS + B2_TC_MACS) * 1e3
+    t_bytes = _bwd_bytes(R, S, saved_bytes=2) / PEAK_BYTES * 1e3
+    return {"bf16": _bound(fp32 + tc / PEAK_BF16_FLOPS, t_bytes), "tf32": _bound(fp32 + tc / PEAK_TF32_FLOPS, t_bytes)}
+
+
+def _check_rule(what, ratios: dict, fp32_ratios: dict) -> float:
+    """Fails unless the bf16 kernel meets the bf16 rule on every output and
+    the fp32 kernel misses it on one; returns the largest ratio."""
+    worst = max(ratios, key=ratios.get)
+    missed = sorted(n for n, r in fp32_ratios.items() if r > 1.0)
+    print(f"  {what}: bf16 kernel at most {ratios[worst]:.3f} of its limit ({worst}); the fp32 kernel over its "
+          f"limit on {len(missed)} of {len(fp32_ratios)} ({', '.join(missed[:6])}{'...' if len(missed) > 6 else ''})")
+    bad = sorted(n for n, r in ratios.items() if not r <= 1.0)
+    if bad:
+        fail(f"{what}: the bf16 kernel is off its fp64 reference beyond the bf16 rule on {bad}")
+    if not any(r > 1.0 for r in fp32_ratios.values()):
+        fail(f"{what}: the fp32 kernel meets the bf16 rule too, so the rule does not tell the modes apart")
+    return max(ratios.values())
+
+
+def tie_check(kp, t, o, d, venc, xenc) -> float:
+    """K1s in bf16 on encoded inputs exactly halfway between two bf16 values:
+    the share of saved h0 elements that differ from the plain version's (which
+    rounds to nearest, ties to even) at most TIE_SHARE."""
+    from aonerf_torch.ops.kernels import fused_render as fr
+    from aonerf_torch.ops.kernels import fused_train as ft
+
+    ties = (fr.round_bf16(xenc).view(torch.int32) + 0x8000).view(torch.float32)
+    args = (kp, t, o, d, venc, ties)
+    h0 = ft.fused_level_fwd_spill(*args, True, dot_bf16=True)[4][:, :256]
+    h0_plain = ft.fused_level_fwd_spill_ref(*args, True, dot_bf16=True)[4][:, :256]
+    share = (h0 != h0_plain).double().mean().item()
+    print(f"  ties: encoded inputs halfway between bf16 values, K1s' h0 differs from the plain version's (ties to "
+          f"even) on {share:.2e} of its elements (limit {TIE_SHARE:g})")
+    if not share <= TIE_SHARE:
+        fail("K1s in bf16 does not round ties to even")
+    return share
+
+
+def phase_bf16_kernels(nerf, boxes, focal) -> dict:
+    """K1, K1s and K2 in bf16 mode against the bf16 rule, at the serving
+    tile's 4096 rays (K1) and the train step's 2048 (K1s, K2), S = 65 and
+    193, both backgrounds; K1s' outputs equal to K1's bits; ties; times in
+    turns with the fp32 mode."""
+    from aonerf_torch.ops.kernels import fused_render as fr
+    from aonerf_torch.ops.kernels import fused_train as ft
+
+    dev = torch.device("cuda")
+    names = fr.WEIGHT_NAMES
+    k1_levels, k1s_levels, k2_levels = [], [], []
+    o, d, lvls = _train_levels(nerf, boxes, focal, R=R, seed=SEED + 100, dot_bf16=True)
+    for kp, t, venc, xenc in lvls:
+        S = t.shape[1]
+        args = (kp, t, o, d, venc, xenc)
+        args64 = ({n: v.double() for n, v in kp.items()}, *(a.double() for a in (t, o, d, venc, xenc)))
+        worst, err = 0.0, 0.0
+        for white in (True, False):
+            got = dict(zip(OUTPUTS, fr.fused_render_level(*args, white, dot_bf16=True)))
+            f32k = dict(zip(OUTPUTS, fr.fused_render_level(*args, white)))
+            torch.cuda.synchronize()
+            for n, g in got.items():
+                if not torch.isfinite(g).all():
+                    fail(f"K1 bf16 S={S} white={white}: non-finite {n}")
+            orders = {o: bf16_k1_plain(args, white, mm) for o, mm in BF16_ORDERS.items()}
+            p32 = orders["cuBLAS"]
+            ref = bf16_k1_plain(args64, white)
+            lim = bf16_limits(orders, ref, TOL_BF16_FWD)
+            print(f"kernel fused_render_level bf16 S={S} white={white} at {R} rays: vs fp64 bf16 reference, kernel "
+                  f"(fp32-summed plain bf16; limit) " + ", ".join(
+                      f"{n} {_rel(got[n], ref[n]):.3e} ({_rel(p32[n], ref[n]):.3e}; {lim[n]:.3e})" for n in OUTPUTS))
+            worst = max(worst, _check_rule(f"K1 bf16 S={S} white={white}", bf16_ratios(got, ref, lim),
+                                           bf16_ratios(f32k, ref, lim)))
+            err = max(err, max((got[n] - p32[n]).abs().max().item() for n in OUTPUTS))
+            del got, f32k, orders, p32, ref
+        k1 = lambda: fr.fused_render_level(*args, True, dot_bf16=True)  # noqa: E731
+        k1_32 = lambda: fr.fused_render_level(*args, True)  # noqa: E731
+        iters = 20 if S > 100 else 40
+        ms32 = cuda_ms(k1_32, warmup=2, iters=iters)
+        ms = cuda_ms(k1, warmup=2, iters=iters)
+        ms_again = cuda_ms(k1, warmup=0, iters=iters)
+        ms32_again = cuda_ms(k1_32, warmup=0, iters=iters)
+        plain_ms = cuda_ms(lambda: fr.fused_render_level_ref(*args, True, dot_bf16=True), warmup=1, iters=3)
+        b = _fwd_bounds(S, R)
+        print(f"  S={S}: K1 bf16 {ms:.3f} / {ms_again:.3f} ms, fp32 {ms32:.3f} / {ms32_again:.3f} ms (in turns: fp32, "
+              f"bf16, bf16, fp32), plain bf16 {plain_ms:.3f} ms; bound {b['bf16'][0]:.3f} ms ({b['bf16'][1]}; the "
+              f"products at 989 TFLOP/s bf16), {b['tf32'][0]:.3f} ms at the 495 TFLOP/s TF32 peak of its one mma; "
+              f"max abs err against the fp32-summed plain bf16 {err:.3e}")
+        k1_levels.append({"S": S, "ms": ms, "ms_again": ms_again, "fp32_ms": ms32, "fp32_ms_again": ms32_again,
+                          "plain_ms": plain_ms, "bound_ms": b["bf16"][0], "bound_by": b["bf16"][1],
+                          "bound_ms_tf32": b["tf32"][0], "max_abs_err": err, "rule_ratio": worst})
+        del args64
+
+    o, d, lvls = _train_levels(nerf, boxes, focal, R=R_TRAIN, dot_bf16=True)
+    for kp, t, venc, xenc in lvls:
+        S = t.shape[1]
+        args = (kp, t, o, d, venc, xenc)
+        args64 = ({n: v.double() for n, v in kp.items()}, *(a.double() for a in (t, o, d, venc, xenc)))
+        for white in (True, False):
+            k1 = fr.fused_render_level(*args, white, dot_bf16=True)
+            got = ft.fused_level_fwd_spill(*args, white, dot_bf16=True)
+            again = ft.fused_level_fwd_spill(*args, white, dot_bf16=True)
+            torch.cuda.synchronize()
+            for n, g, w in zip(OUTPUTS, got, k1):
+                if not torch.equal(g, w):
+                    fail(f"K1s bf16 S={S} white={white}: {n} differs from K1 bf16's")
+            for n, g, a in zip(OUTPUTS + ("saved", "raw"), got, again):
+                if not torch.isfinite(g).all():
+                    fail(f"K1s bf16 S={S} white={white}: non-finite {n}")
+                if not torch.equal(g, a):
+                    fail(f"K1s bf16 S={S} white={white}: a repeat call gave other bits on {n}")
+            if white:
+                saved, raw = got[4], got[5]
+            del k1, got, again
+        # the saved layers do not depend on the background
+        orders, raw_err = {}, None
+        for name, mm in BF16_ORDERS.items():
+            s32, r32 = ft.fused_level_fwd_spill_ref(*args, True, mm=mm, dot_bf16=True)[4:]
+            if raw_err is None:  # cuBLAS, the plain version as it runs
+                raw_err, saved_err = (raw - r32).abs().max().item(), (saved - s32).abs().max().item()
+            orders[name] = saved_layers(s32)
+            del r32
+        p32 = orders["cuBLAS"]
+        ref = saved_layers(ft.fused_level_fwd_spill_ref(*args64, True, dot_bf16=True)[4])
+        lim = bf16_limits(orders, ref, TOL_BF16_FWD)
+        ratios = bf16_ratios(saved_layers(saved), ref, lim)
+        rms = {n: ((saved_layers(saved)[n].double() - ref[n]).pow(2).mean().sqrt()
+                   / (p32[n].double() - ref[n]).pow(2).mean().sqrt().clamp_min(1e-300)).item() for n in ref}
+        print(f"kernel fused_level_fwd_spill bf16 S={S} at {R_TRAIN} rays: comp/acc/depth/weights equal to K1 bf16's bit "
+              f"for bit, both backgrounds, a repeat call the same bits; saved vs fp64 bf16 reference, error / limit "
+              + ", ".join(f"{n} {r:.3f}" for n, r in ratios.items())
+              + "; rms error over the fp32-summed plain bf16's " + ", ".join(f"{n} {r:.2f}" for n, r in rms.items())
+              + f"; max abs err against it: saved {saved_err:.3e}, raw {raw_err:.3e}")
+        bad = sorted(n for n, r in ratios.items() if not r <= 1.0)
+        if bad:
+            fail(f"K1s bf16 S={S}: saved layers off the fp64 bf16 reference beyond the bf16 rule on {bad}")
+        del saved, raw, orders, s32, p32, ref
+        tie_share = tie_check(*args) if S < 100 else None
+        k1s = lambda: ft.fused_level_fwd_spill(*args, True, dot_bf16=True)  # noqa: E731
+        k1s32 = lambda: ft.fused_level_fwd_spill(*args, True)  # noqa: E731
+        iters = 10 if S > 100 else 20
+        ms32 = cuda_ms(k1s32, warmup=2, iters=iters)
+        ms = cuda_ms(k1s, warmup=2, iters=iters)
+        ms_again = cuda_ms(k1s, warmup=0, iters=iters)
+        ms32_again = cuda_ms(k1s32, warmup=0, iters=iters)
+        plain_ms = cuda_ms(lambda: ft.fused_level_fwd_spill_ref(*args, True, dot_bf16=True), warmup=1, iters=3)
+        b = _fwd_bounds(S, R_TRAIN, spill=True, saved_bytes=2)
+        print(f"  S={S}: K1s bf16 {ms:.3f} / {ms_again:.3f} ms, fp32 {ms32:.3f} / {ms32_again:.3f} ms (in turns), "
+              f"plain bf16 {plain_ms:.3f} ms; bound {b['bf16'][0]:.3f} ms ({b['bf16'][1]}; saved at 2 bytes a "
+              f"value, {_fwd_bounds(S, R_TRAIN, spill=True)['bf16'][0]:.3f} ms in the fp32 layout it writes), "
+              f"{b['tf32'][0]:.3f} ms at the TF32 peak")
+        k1s_levels.append({"S": S, "ms": ms, "ms_again": ms_again, "fp32_ms": ms32, "fp32_ms_again": ms32_again,
+                           "plain_ms": plain_ms, "bound_ms": b["bf16"][0], "bound_by": b["bf16"][1],
+                           "bound_ms_tf32": b["tf32"][0], "max_abs_err": max(saved_err, raw_err),
+                           "rule_ratio": max(ratios.values()), "tie_share": tie_share})
+
+        rng = np.random.default_rng(SEED + 300 + S)
+        cot = tuple(torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
+            rng.standard_normal((R_TRAIN, 3)), rng.standard_normal(R_TRAIN), 0.1 * rng.standard_normal(R_TRAIN),
+            rng.standard_normal((R_TRAIN, S))))
+        worst, err = 0.0, 0.0
+        for white in (True, False):
+            got = ft.fused_level_bwd(*args, *cot, white, dot_bf16=True)
+            *_, saved, raw = ft.fused_level_fwd_spill(*args, white, dot_bf16=True)
+            split = ft.fused_level_bwd_saved(*args, saved, raw, *cot, white, dot_bf16=True)
+            f32k = ft.fused_level_bwd(*args, *cot, white)
+            torch.cuda.synchronize()
+            del saved, raw
+            for n in names:
+                if not torch.isfinite(got[n]).all():
+                    fail(f"K2 bf16 S={S} white={white}: non-finite gradient {n}")
+                if not torch.equal(split[n], got[n]):
+                    fail(f"K2 bf16 S={S} white={white}: the backward from K1s' saved differs from the composition on {n}")
+            del split
+            orders = {o: bf16_k2_plain(args, cot, white, mm) for o, mm in BF16_ORDERS.items()}
+            p32 = orders["cuBLAS"]
+            ref = bf16_k2_plain(args64, tuple(c.double() for c in cot), white)
+            lim = bf16_limits(orders, ref, TOL_BF16_GRAD)
+            worst = max(worst, _check_rule(f"K2 bf16 S={S} white={white}", bf16_ratios(got, ref, lim),
+                                           bf16_ratios(f32k, ref, lim)))
+            err = max(err, max((got[n] - p32[n]).abs().max().item() for n in names))
+            del got, f32k, orders, p32, ref
+        again = ft.fused_level_bwd(*args, *cot, True, dot_bf16=True)
+        if not all(torch.equal(again[n], ft.fused_level_bwd(*args, *cot, True, dot_bf16=True)[n]) for n in names):
+            fail(f"K2 bf16 S={S}: a repeat call gave other bits")
+        del again
+        *_, saved, raw = ft.fused_level_fwd_spill(*args, True, dot_bf16=True)
+        k2 = lambda: ft.fused_level_bwd_saved(*args, saved, raw, *cot, True, dot_bf16=True)  # noqa: E731
+        k2_32 = lambda: ft.fused_level_bwd_saved(*args, saved, raw, *cot, True)  # noqa: E731
+        iters = 5 if S > 100 else 10
+        ms32 = cuda_ms(k2_32, warmup=2, iters=iters)
+        ms = cuda_ms(k2, warmup=2, iters=iters)
+        ms_again = cuda_ms(k2, warmup=0, iters=iters)
+        ms32_again = cuda_ms(k2_32, warmup=0, iters=iters)
+        plain_ms = cuda_ms(lambda: ft.fused_level_bwd_saved_ref(*args, saved, raw, *cot, True, dot_bf16=True),
+                           warmup=1, iters=3)
+        parts = _bwd_pass_ms(k2, iters=3)
+        del saved, raw
+        b = _bwd_bounds_bf16(R_TRAIN, S)
+        print(f"  S={S}: K2 bf16 (the backward from saved) {ms:.3f} / {ms_again:.3f} ms, fp32 {ms32:.3f} / "
+              f"{ms32_again:.3f} ms (in turns), plain bf16 {plain_ms:.3f} ms; bound {b['bf16'][0]:.3f} ms "
+              f"({b['bf16'][1]}), {b['tf32'][0]:.3f} ms at the TF32 peak; by pass (torch.profiler) "
+              + ", ".join(f"{n} {v:.3f}" for n, v in parts.items()) + f"; max abs err against plain bf16 {err:.3e}")
+        k2_levels.append({"S": S, "ms": ms, "ms_again": ms_again, "fp32_ms": ms32, "fp32_ms_again": ms32_again,
+                          "plain_ms": plain_ms, "bound_ms": b["bf16"][0], "bound_by": b["bf16"][1],
+                          "bound_ms_tf32": b["tf32"][0], "passes_ms": parts, "max_abs_err": err,
+                          "rule_ratio": worst})
+        del args64
+        torch.cuda.empty_cache()
+    return {"k1": k1_levels, "k1s": k1s_levels, "k2": k2_levels}
+
+
+def _fast_config(root: str, out: str) -> str:
+    """config/vanilla_tpu_fast.json on the smoke scene, cut as phase 7 cuts
+    config/vanilla.json (320x240, lr 1e-3 with no delay, one val view),
+    validating and checkpointing after its last multi-step."""
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "config", "vanilla_tpu_fast.json")) as f:
+        cfg = json.load(f)
+    every = FAST_MULTI_STEPS * cfg["inner_steps"]
+    cfg.update({
+        "root_dir": root, "output_path": out, "exp_name": "smoke_bf16", "img_wh": [W, H],
+        "lr_init": 1e-3, "lr_delay_steps": 0, "val_every_steps": every, "ckpt_every_steps": every,
+        "limit_val_batches": 1, "seed": SEED,
+    })
+    path = os.path.join(out, "fast.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def _bf16_counts() -> tuple:
+    from aonerf_torch.ops.kernels import fused_render as fr
+    from aonerf_torch.ops.kernels import fused_train as ft
+
+    return fr.bf16_launches, ft.bf16_fwd_launches, ft.bf16_launches
+
+
+def step_ms_in_turns(cfg_path: str) -> dict:
+    """ms per train step at config/vanilla.json's batch (phase 7's scene and
+    cuts), fp32 and bf16 in turns (fp32, bf16, bf16, fp32), each over one
+    timed multi-step after an untimed one, from the seed's initial weights;
+    "batch" is the batch."""
+    from aonerf_torch.train.loop import Trainer
+    from aonerf_torch.utils.config import load_config
+
+    out = {"fp32": [], "bf16": [], "batch": load_config(cfg_path).batch_size}
+    for dtype in ("f32", "bf16", "bf16", "f32"):
+        cfg = load_config(cfg_path, {"compute_dtype": dtype, "exp_name": f"step_{dtype}"})
+        trainer = Trainer(cfg)
+        buffers = trainer.train_buffers()
+        trainer.state, _ = trainer.step_fn(trainer.state, buffers, cfg.seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.state, _ = trainer.step_fn(trainer.state, buffers, cfg.seed)
+        torch.cuda.synchronize()
+        out["fp32" if dtype == "f32" else "bf16"].append((time.perf_counter() - t0) * 1e3 / trainer._inner_steps)
+        trainer.close()
+        del trainer, buffers
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_bf16_training(tmp: str, root: str, fp32_cfg_path: str) -> dict:
+    """The bf16 main path: the train CLI at config/vanilla_tpu_fast.json's
+    settings, validation and a checkpoint; --run_eval of the test views; view
+    0 in bf16 against the same checkpoint in fp32; the bf16 step beside the
+    fp32 step at config/vanilla.json's batch."""
+    from aonerf_torch.cli import train as cli
+    from aonerf_torch.train import step as step_mod
+    from aonerf_torch.train.loop import Trainer
+    from aonerf_torch.utils.config import load_config
+
+    cfg_path = _fast_config(root, os.path.join(tmp, "out"))
+    cfg = load_config(cfg_path)
+    n_steps = FAST_MULTI_STEPS * cfg.inner_steps
+    n_val_tiles = -(-W * H // cfg.chunk)
+    losses = []
+    real = step_mod.vanilla_loss_and_grads
+
+    def recorded(*args, **kwargs):  # observes each step's loss, changes nothing
+        out = real(*args, **kwargs)
+        losses.append(out[0])
+        return out
+
+    torch.cuda.synchronize()
+    _reset_fused_launches()
+    t0 = time.perf_counter()
+    with mock.patch.object(step_mod, "vanilla_loss_and_grads", recorded):
+        metrics = cli.main(["--config", cfg_path, "--max_steps", str(n_steps)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    train_counts, fp32_counts = _bf16_counts(), _fused_launches()
+    run_dir = os.path.join(cfg.output_path, cfg.exp_name)
+    ckpt = torch.load(os.path.join(run_dir, "ckpts", f"ckpt_{n_steps:08d}.pt"), map_location="cpu")
+    dtypes = {v.dtype for part in (ckpt["params"], ckpt["opt_state"]["mu"], ckpt["opt_state"]["nu"])
+              for v in part.values()}
+
+    trainer = Trainer(cfg)  # restores the step-n_steps checkpoint
+    buffers = trainer.train_buffers()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.state, _ = trainer.step_fn(trainer.state, buffers, cfg.seed)
+    torch.cuda.synchronize()
+    fast_step_ms = (time.perf_counter() - t0) * 1e3 / trainer._inner_steps
+    trainer.close()
+    del trainer, buffers
+
+    _reset_fused_launches()
+    test_t0 = time.perf_counter()
+    stats = cli.main(["--config", cfg_path, "--run_eval"])
+    torch.cuda.synchronize()
+    test_s = time.perf_counter() - test_t0
+    test_counts, test_all = _bf16_counts(), _fused_launches()
+
+    bands = {}
+    for field, exp_name in (("trained", cfg.exp_name), ("initial", "smoke_bf16_init")):  # no checkpoint: the seed's
+        views = {}
+        for dtype in ("bf16", "f32"):
+            tr = Trainer(load_config(cfg_path, {"run_eval": True, "compute_dtype": dtype, "exp_name": exp_name}))
+            views[dtype] = tr._renderer(tr._view_rays(tr.dataset.get_image(0)))
+            tr.close()
+        diff = (views["bf16"][0] - views["f32"][0]).abs()
+        bands[field] = (diff.max().item(), diff.mean().item(), views["f32"][1].mean().item())
+    steps = step_ms_in_turns(fp32_cfg_path)
+
+    loss = torch.stack(losses).cpu().numpy()
+    first, last = loss[: cfg.inner_steps].mean(), loss[-cfg.inner_steps:].mean()
+    print(f"bf16 training: config/vanilla_tpu_fast.json (batch {cfg.batch_size}, inner_steps {cfg.inner_steps}, "
+          f"grad_clip {cfg.grad_clip}, compute_dtype {cfg.compute_dtype}, chunk {cfg.chunk}), {len(losses)} steps in "
+          f"{seconds:.1f} s; loss, mean of the first multi-step {first:.5f}, of the last {last:.5f}; val psnr "
+          f"{metrics.get('val_psnr')}")
+    print(f"  launches (bf16 mode): K1 {train_counts[0]} (expected 2 levels x {n_val_tiles} val tiles = "
+          f"{2 * n_val_tiles}), K1s {train_counts[1]} and K2 {train_counts[2]} (expected 2 x {n_steps} = "
+          f"{2 * n_steps}); every mode together {fp32_counts}")
+    print(f"  checkpoint tensor dtypes {sorted(str(d) for d in dtypes)}; step at batch {cfg.batch_size}: "
+          f"{fast_step_ms:.3f} ms = {cfg.batch_size / fast_step_ms * 1e3:.1f} rays/s (one multi-step, host clock)")
+    print(f"  --run_eval in bf16: {test_s:.1f} s for the test views, K1 bf16 launches {test_counts[0]} (every mode "
+          f"{test_all}); psnr {stats['psnr']['test']:.4f} dB, ssim {stats['ssim']['test']:.5f}, object psnr "
+          f"{stats['psnr_obj']['test']:.4f} dB; view 0 in bf16 against fp32 (limits {TOL_BF16_VIEW_MAX:g} max, "
+          f"{TOL_BF16_VIEW_MEAN:g} mean): " + "; ".join(
+              f"{f} field max abs rgb diff {mx:.3e}, mean {mn:.3e} (mean acc {acc:.4f})"
+              for f, (mx, mn, acc) in bands.items()))
+    print(f"  train step at batch {steps['batch']} (config/vanilla.json, phase 7's scene; in turns fp32, bf16, bf16, fp32): "
+          f"fp32 {', '.join(f'{x:.3f}' for x in steps['fp32'])} ms, bf16 {', '.join(f'{x:.3f}' for x in steps['bf16'])} ms")
+    if not np.isfinite(loss).all() or len(losses) != n_steps:
+        fail(f"bf16 training: {len(losses)} steps, finite {np.isfinite(loss).all()}")
+    if not last < first:
+        fail("bf16 training: the loss did not fall")
+    if train_counts != (2 * n_val_tiles, 2 * n_steps, 2 * n_steps) or fp32_counts != train_counts:
+        fail("the bf16 training run did not launch K1, K1s and K2 in bf16 mode as expected")
+    expected_test = 2 * n_val_tiles * N_TEST
+    if test_counts != (expected_test, 0, 0) or test_all != test_counts:
+        fail(f"the bf16 test run launched {test_all}, expected K1 bf16 {expected_test}")
+    if dtypes != {torch.float32}:
+        fail(f"the bf16 checkpoint holds {dtypes}")
+    for name in ("psnr", "ssim", "psnr_obj"):
+        if not np.isfinite(stats[name]["test"]):
+            fail(f"bf16 test {name}: {stats[name]}")
+    for field, (mx, mn, _) in bands.items():
+        if not (mx <= TOL_BF16_VIEW_MAX and mn <= TOL_BF16_VIEW_MEAN):
+            fail(f"the bf16 view of the {field} field is off its fp32 render beyond the stated band")
+    return {"k1": train_counts[0], "k1s": train_counts[1], "k2": train_counts[2], "test_k1": test_counts[0],
+            "fast_step_ms": fast_step_ms, "steps_ms": steps, "view_bands": bands,
+            "loss_first": float(first), "loss_last": float(last)}
+
+
 def main() -> None:
     phase_device()
     phase_build()
@@ -1632,9 +2142,11 @@ def main() -> None:
     s = phase_serving(nerf, boxes, focal)
     f = phase_spill(nerf, boxes, focal)
     b = phase_backward(nerf, boxes, focal)
+    bk = phase_bf16_kernels(nerf, boxes, focal)
     with tempfile.TemporaryDirectory() as tmp:
         t = phase_training(tmp)
         p = phase_test(t["cfg_path"], t["val_psnr"])
+        bt = phase_bf16_training(tmp, t["root"], t["cfg_path"])
         a = phase_autodecoder(tmp)
         phase_articulated_test(a["cfg_path"])
         ae = phase_autoencoder(tmp)
@@ -1717,7 +2229,32 @@ def main() -> None:
     k1s_step, k2_step = k1s["ms"], k2["ms"]
     print(f"train step share: K1s {k1s_step:.3f} ms + K2 {k2_step:.3f} ms + rest "
           f"{t['step_ms'] - k1s_step - k2_step:.3f} ms = {t['step_ms']:.3f} ms")
-    print(json.dumps({"kernels": [entry, k1s, k2]}))
+
+    def bf16_entry(name, source, replaces, launches, levels, **extra):
+        # one coarse (S=65) and one fine (S=193) launch; the products' bound
+        # at the bf16 tensor-core peak, bound_ms_tf32 at the TF32 peak
+        return {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
+            "max_abs_err": max(x["max_abs_err"] for x in levels), "ms": both(levels, "ms"),
+            "plain_ms": both(levels, "plain_ms"), "bound_ms": both(levels, "bound_ms"),
+            "bound_ms_tf32": both(levels, "bound_ms_tf32"), "bound_by": bound_by(levels), "library_ms": None,
+            "fp32_ms": both(levels, "fp32_ms"), "rule_ratio": max(x["rule_ratio"] for x in levels),
+            "levels": levels, **extra,
+        }
+
+    entries = [
+        entry, k1s, k2,
+        bf16_entry("fused_render_level_bf16", "aonerf_torch/ops/kernels/csrc/fused_render.cu",
+                   "aonerf/ops/kernels/fused_render.py:194", bt["k1"], bk["k1"], test_launches=bt["test_k1"]),
+        bf16_entry("fused_level_fwd_spill_bf16", "aonerf_torch/ops/kernels/csrc/fused_train.cu",
+                   "aonerf/ops/kernels/fused_render.py:194", bt["k1s"], bk["k1s"]),
+        bf16_entry("fused_level_bwd_bf16", "aonerf_torch/ops/kernels/csrc/fused_train.cu",
+                   "aonerf/ops/kernels/fused_train.py:239", bt["k2"], bk["k2"]),
+    ]
+    print(f"bf16 step at batch {bt['steps_ms']['batch']}: {min(bt['steps_ms']['bf16']):.3f} ms against fp32 "
+          f"{min(bt['steps_ms']['fp32']):.3f} ms; K1s bf16 {entries[4]['ms']:.3f} ms + K2 bf16 {entries[5]['ms']:.3f} "
+          f"ms a step (fp32 {entries[4]['fp32_ms']:.3f} + {entries[5]['fp32_ms']:.3f} ms)")
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()
     }}))

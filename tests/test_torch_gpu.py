@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke as rule
 from aonerf_torch.eval.render import make_image_renderer
 from aonerf_torch.models.mlp import NeRFMLP
 from aonerf_torch.models.nerf import NeRF
@@ -359,9 +360,10 @@ def test_test_path_goes_through_the_kernel(cuda, tmp_path, monkeypatch):
         assert acc.mean().item() > 0.1
         np.testing.assert_array_equal(depth.reshape(12, 16).cpu().numpy(), np.load(render_dir / "depth000.npy"))
 
-        def plain(kernel_params, t_vals, rays_o, rays_d, viewdirs_enc, samples_enc, white_bkgd, ray_tile=None):
+        def plain(kernel_params, t_vals, rays_o, rays_d, viewdirs_enc, samples_enc, white_bkgd, ray_tile=None,
+                  dot_bf16=False):
             return fr.fused_render_level_ref(kernel_params, t_vals, rays_o, rays_d, viewdirs_enc, samples_enc,
-                                             white_bkgd)
+                                             white_bkgd, dot_bf16=dot_bf16)
 
         with mock.patch.object(nerf_mod, "fused_render_level", plain):
             rgb_plain, _, _ = trainer._renderer(rays)
@@ -556,3 +558,154 @@ def test_ae_fits_and_tests_on_the_card(cuda, tmp_path, monkeypatch):
     assert len(os.listdir(tmp_path / "out" / "gpu" / "render")) == 3 * 5 + 2  # the sweep, depth_raw.npz, video
     torch.cuda.synchronize()
     assert (fr.launches, ft.fwd_launches, ft.launches) == fused  # no fused kernel on the AE path
+
+
+# bf16 mode (the TPU kernels' dot_bf16), held to chip_smoke.py's bf16 rule
+# (TOL_BF16_*, BF16_ORDERS): each output of K1, each saved layer of K1s and
+# each of K2's gradients against the plain version in bf16 mode summed in
+# fp64; the fp32 kernel must miss it on at least one output, which shows that
+# it tells the modes apart.
+def _bf16_ratios(got, orders, p64, floor):
+    return rule.bf16_ratios(got, p64, rule.bf16_limits(orders, p64, floor))
+
+
+@pytest.mark.parametrize("S", [65, 193])
+@pytest.mark.parametrize("white_bkgd", [True, False])
+def test_bf16_forward_kernels_meet_the_bf16_rule(cuda, S, white_bkgd):
+    mlp = NeRFMLP(generator=torch.Generator().manual_seed(S), device=cuda)
+    with torch.no_grad():
+        kp = fr.kernel_params(mlp)
+        kp["bd"] += 0.5  # live densities
+    args = _level_inputs(256, S, S, cuda)
+    args64 = ({n: v.double() for n, v in kp.items()}, *(a.double() for a in args))
+    before = fr.launches, fr.bf16_launches, ft.bf16_fwd_launches
+    k1 = fr.fused_render_level(kp, *args, white_bkgd, dot_bf16=True)
+    k1s = ft.fused_level_fwd_spill(kp, *args, white_bkgd, dot_bf16=True)
+    torch.cuda.synchronize()
+    assert (fr.launches, fr.bf16_launches, ft.bf16_fwd_launches) == (before[0], before[1] + 1, before[2] + 1)
+    names = rule.OUTPUTS
+    for name, a, b in zip(names, k1, k1s):
+        assert torch.equal(a, b), name  # K1s gives K1's bits in bf16 mode too
+    orders = {k: dict(zip(names, fr.fused_render_level_ref(kp, *args, white_bkgd, mm=mm, dot_bf16=True)))
+              for k, mm in rule.BF16_ORDERS.items()}
+    *p64, p64_saved, _ = ft.fused_level_fwd_spill_ref(*args64, white_bkgd, dot_bf16=True)
+    p64 = dict(zip(names, p64))
+    ratios = _bf16_ratios(dict(zip(names, k1)), orders, p64, rule.TOL_BF16_FWD)
+    assert all(r <= 1.0 for r in ratios.values()), ratios
+    fp32 = dict(zip(names, fr.fused_render_level(kp, *args, white_bkgd)))
+    fp32 = _bf16_ratios(fp32, orders, p64, rule.TOL_BF16_FWD)
+    assert any(r > 1.0 for r in fp32.values()), fp32
+    saved = rule.saved_layers(k1s[4])
+    assert all(torch.equal(fr.round_bf16(v), v) for v in saved.values())  # the rounded activations
+    orders = {k: rule.saved_layers(ft.fused_level_fwd_spill_ref(kp, *args, white_bkgd, mm=mm, dot_bf16=True)[4])
+              for k, mm in rule.BF16_ORDERS.items()}
+    ratios = _bf16_ratios(saved, orders, rule.saved_layers(p64_saved), rule.TOL_BF16_FWD)
+    assert all(r <= 1.0 for r in ratios.values()), ratios
+    again = ft.fused_level_fwd_spill(kp, *args, white_bkgd, dot_bf16=True)
+    assert all(torch.equal(a, b) for a, b in zip(again, k1s))
+
+
+def test_bf16_forward_rounds_ties_to_even(cuda):
+    # encoded inputs exactly halfway between two bf16 values: rounding them
+    # away from zero would move h0 on ~5% of its elements (chip_smoke.py's
+    # TIE_SHARE; tests/test_torch_bf16_kernels.py emulates both modes)
+    mlp = NeRFMLP(generator=torch.Generator().manual_seed(2), device=cuda)
+    with torch.no_grad():
+        kp = fr.kernel_params(mlp)
+    t, o, d, venc, xenc = _level_inputs(256, 65, 2, cuda)
+    ties = (fr.round_bf16(xenc).view(torch.int32) + 0x8000).view(torch.float32)
+    h0 = ft.fused_level_fwd_spill(kp, t, o, d, venc, ties, True, dot_bf16=True)[4][:, :256]
+    h0_plain = ft.fused_level_fwd_spill_ref(kp, t, o, d, venc, ties, True, dot_bf16=True)[4][:, :256]
+    assert (h0 != h0_plain).double().mean().item() <= rule.TIE_SHARE
+
+
+@pytest.mark.parametrize("S", [65, 193])
+@pytest.mark.parametrize("white_bkgd", [True, False])
+def test_bf16_bwd_kernel_meets_the_bf16_rule(cuda, S, white_bkgd):
+    mlp = NeRFMLP(generator=torch.Generator().manual_seed(S), device=cuda)
+    with torch.no_grad():
+        kp = fr.kernel_params(mlp)
+    args = _level_inputs(256, S, S, cuda)
+    cot = _cotangents(256, S, S + 1, cuda)
+    before = ft.launches, ft.bf16_launches
+    got = ft.fused_level_bwd(kp, *args, *cot, white_bkgd, dot_bf16=True)
+    torch.cuda.synchronize()
+    assert (ft.launches, ft.bf16_launches) == (before[0], before[1] + 1)
+    orders = {}
+    for k, mm in rule.BF16_ORDERS.items():
+        saved, raw = ft.fused_level_fwd_spill_ref(kp, *args, white_bkgd, mm=mm, dot_bf16=True)[4:]
+        orders[k] = ft.fused_level_bwd_saved_ref(kp, *args, saved, raw, *cot, white_bkgd, mm=mm, dot_bf16=True)
+    del saved, raw
+    p64 = ft.fused_level_bwd_ref({n: v.double() for n, v in kp.items()}, *(a.double() for a in args),
+                                 *(c.double() for c in cot), white_bkgd, dot_bf16=True)
+    assert all(torch.isfinite(g).all() for g in got.values())
+    ratios = _bf16_ratios(got, orders, p64, rule.TOL_BF16_GRAD)
+    assert all(r <= 1.0 for r in ratios.values()), ratios
+    fp32 = _bf16_ratios(ft.fused_level_bwd(kp, *args, *cot, white_bkgd), orders, p64, rule.TOL_BF16_GRAD)
+    assert any(r > 1.0 for r in fp32.values()), fp32
+    *_, saved, raw = ft.fused_level_fwd_spill(kp, *args, white_bkgd, dot_bf16=True)
+    split = ft.fused_level_bwd_saved(kp, *args, saved, raw, *cot, white_bkgd, dot_bf16=True)
+    again = ft.fused_level_bwd(kp, *args, *cot, white_bkgd, dot_bf16=True)
+    for name in fr.WEIGHT_NAMES:
+        assert torch.equal(split[name], got[name]) and torch.equal(again[name], got[name]), name
+
+
+# The bf16 kernels at sizes whose rows end mid-chunk, mid-step and mid-range
+# (48 x 65: B1's 64-row chunk, B2's 64-row step and its 16 row ranges; 16 x
+# 7: a block's 112 rows, a weight stream that ends mid-ring), held to the
+# same rays inside a 256-ray launch, where the other rays' cotangents are 0
+# and so add exactly 0: K1 and K1s give the same bits (a block's rays are
+# computed alike), K2 the same gradients but for B2's other row ranges, an
+# fp32 summation order (at most 1e-5 of a gradient's largest entry). At so
+# few rows the bf16 rule's spread is a handful of rounding flips, so these
+# sizes are held to the launch the rule holds.
+_PARTIAL_TOL = 1e-5
+
+
+@pytest.mark.parametrize("R,S", [(48, 65), (16, 7)])
+def test_bf16_kernels_at_partial_sizes(cuda, R, S):
+    mlp = NeRFMLP(generator=torch.Generator().manual_seed(S), device=cuda)
+    with torch.no_grad():
+        kp = fr.kernel_params(mlp)
+    args = _level_inputs(256, S, S, cuda)
+    cot = _cotangents(256, S, S + 1, cuda)
+    part = tuple(a[:R].contiguous() for a in args)
+    k1, k1_all = fr.fused_render_level(kp, *part, True, dot_bf16=True), fr.fused_render_level(kp, *args, True,
+                                                                                              dot_bf16=True)
+    k1s = ft.fused_level_fwd_spill(kp, *part, True, dot_bf16=True)
+    for a, b, c in zip(k1, k1s, k1_all):
+        assert torch.equal(a, b) and torch.equal(a, c[:R])
+    zero = tuple(torch.cat([c[:R], torch.zeros_like(c[R:])]).contiguous() for c in cot)
+    got = ft.fused_level_bwd(kp, *part, *(c[:R].contiguous() for c in cot), True, dot_bf16=True)
+    want = ft.fused_level_bwd(kp, *args, *zero, True, dot_bf16=True)
+    torch.cuda.synchronize()
+    for name in fr.WEIGHT_NAMES:
+        rel = _rel_err(got[name], want[name].double())
+        assert rel <= _PARTIAL_TOL, f"{name}: {rel}"
+
+
+def test_bf16_train_cli_goes_through_the_kernels(cuda, tmp_path):
+    import json
+    import os
+
+    from aonerf_torch.cli import train as cli
+    from aonerf_torch.data.synthetic import write_single_scene
+
+    root = write_single_scene(str(tmp_path / "scene"), img_wh=(16, 12), n_train=2, n_val=1, n_test=1)
+    fast = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "config", "vanilla_tpu_fast.json")
+    overrides = {"root_dir": root, "output_path": str(tmp_path / "out"), "img_wh": [16, 12], "inner_steps": 5,
+                 "lr_delay_steps": 0, "val_every_steps": 10, "ckpt_every_steps": 10, "limit_val_batches": 1}
+    args = [x for k, v in overrides.items() for x in (f"--{k}", json.dumps(v) if not isinstance(v, str) else v)]
+    counts = fr.launches, ft.fwd_launches, ft.launches, fr.bf16_launches, ft.bf16_fwd_launches, ft.bf16_launches
+    metrics = cli.main(["--config", fast, *args, "--max_steps", "10"])
+    torch.cuda.synchronize()
+    assert np.isfinite(metrics["loss"]) and np.isfinite(metrics["val_psnr"])
+    now = fr.launches, ft.fwd_launches, ft.launches, fr.bf16_launches, ft.bf16_fwd_launches, ft.bf16_launches
+    val_tiles = -(-16 * 12 // 256)  # chunk 256
+    assert [b - a for a, b in zip(counts, now)] == [0, 0, 0, 2 * val_tiles, 2 * 10, 2 * 10]
+    counts = now
+    stats = cli.main(["--config", fast, *args, "--run_eval"])
+    torch.cuda.synchronize()
+    assert all(np.isfinite(stats[k]["test"]) for k in ("psnr", "ssim", "psnr_obj"))
+    now = fr.launches, ft.fwd_launches, ft.launches, fr.bf16_launches, ft.bf16_fwd_launches, ft.bf16_launches
+    assert [b - a for a, b in zip(counts, now)] == [0, 0, 0, 2 * val_tiles, 0, 0]

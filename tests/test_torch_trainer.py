@@ -116,7 +116,7 @@ def test_trainer_loads_a_checkpoint_from_another_run(tmp_path, source):
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
     for overrides in ({"exp_type": "vanilla_ae_art"}, {"noise_std": 1.0},
-                      {"compute_dtype": "bf16"}, {"optimizer": "ranger"}, {"netwidth": 128},
+                      {"compute_dtype": "fp16"}, {"optimizer": "ranger"}, {"netwidth": 128},
                       {"profile_steps": 5}, {"debug_nans": True}, {"is_optimize": True}, {"n_model_shards": 2}):
         with pytest.raises(NotImplementedError):
             Trainer(config.load_config(None, {"platform": "cpu", **overrides}))

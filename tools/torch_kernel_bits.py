@@ -13,15 +13,18 @@ saves, from random weights, inputs and cotangents made from fixed seeds:
   - K2's 26 gradients (``fused_level_bwd_saved``) at 2048 rays, once from
     K1s' own ``saved`` and ``raw`` and once from the plain forward's, so
     that the second depends on no forward kernel;
-each at S = 65 and 193, both backgrounds. It also prints the sha1 and line
-count of B1's SASS (``level_bwd_delta_kernel``, from ``cuobjdump -sass``).
-``--compare`` prints, for two such files, which outputs hold the same bits
-and exits 1 if any differs; it reports whether B1's SASS is the same for
-information only.
+each at S = 65 and 193, both backgrounds, in fp32 and, where the tree has
+it, in bf16 mode (``dot_bf16``; cases named "bf16 ..."). It also prints the
+sha1 and line count of B1's fp32 SASS (``level_bwd_delta_kernel``, from
+``cuobjdump -sass``). ``--compare`` prints, for two such files, which
+outputs of the cases both hold have the same bits and exits 1 if any
+differs; it names the cases only one holds, and reports whether B1's SASS
+is the same for information only.
 """
 
 import argparse
 import hashlib
+import inspect
 import os
 import subprocess
 import sys
@@ -37,9 +40,10 @@ OUTPUTS = ("comp", "acc", "depth", "weights")
 
 
 def b1_sass(lib_path: str) -> list:
-    """B1's SASS lines, from the ``Function :`` header to the next one, each
-    with its runs of blanks made one (cuobjdump pads its columns to the
-    longest line of the whole library)."""
+    """B1's SASS lines in fp32 (its only instantiation, or the one whose
+    mangled name holds ``ILb0E``), from the ``Function :`` header to the
+    next one, each with its runs of blanks made one (cuobjdump pads its
+    columns to the longest line of the whole library)."""
     from aonerf_torch.ops.kernels import build
 
     cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
@@ -47,7 +51,7 @@ def b1_sass(lib_path: str) -> list:
     lines, inside = [], False
     for line in text.splitlines():
         if "Function :" in line:
-            inside = B1 in line
+            inside = B1 in line and "ILb1E" not in line
         elif inside:
             lines.append(" ".join(line.split()))
     if not lines:
@@ -80,6 +84,7 @@ def record(out: str) -> None:
     device = torch.device("cuda")
     sass = b1_sass(str(build.build(["fused_train"])["fused_train"]))
     print(f"B1 SASS: {len(sass)} lines, sha1 {sass_sha1(sass)}", flush=True)
+    modes = (False, True) if "dot_bf16" in inspect.signature(fr.fused_render_level).parameters else (False,)
     cases = {}  # case -> {output name: tensor on the CPU, or the sha1 of a large one}
     for S in (65, 193):
         mlp = NeRFMLP(generator=torch.Generator().manual_seed(S), device=device)
@@ -88,22 +93,25 @@ def record(out: str) -> None:
         serve = (kp, *level_inputs(R_SERVE, S, S, device))
         train = (kp, *level_inputs(R_TRAIN, S, S, device))
         cot = cotangents(R_TRAIN, S, device)
-        for white in (True, False):
-            tag = f"S={S} white={white}"
-            cases[f"K1 R={R_SERVE} {tag}"] = {
-                n: v.cpu() for n, v in zip(OUTPUTS, fr.fused_render_level(*serve, white))}
-            *outs, saved, raw = ft.fused_level_fwd_spill(*train, white)
-            k1s = {n: v.cpu() for n, v in zip(OUTPUTS, outs)}
-            k1s["raw"], k1s["saved sha1"] = raw.cpu(), tensor_sha1(saved)
-            cases[f"K1s R={R_TRAIN} {tag}"] = k1s
-            g = ft.fused_level_bwd_saved(*train, saved, raw, *cot, white)
-            cases[f"K2 from K1s' saved R={R_TRAIN} {tag}"] = {n: v.cpu() for n, v in g.items()}
-            del outs, saved, raw
-            *_, saved, raw = ft.fused_level_fwd_spill_ref(*train, white)
-            g = ft.fused_level_bwd_saved(*train, saved, raw, *cot, white)
-            cases[f"K2 from plain saved R={R_TRAIN} {tag}"] = {n: v.cpu() for n, v in g.items()}
-            del saved, raw
-            print(f"recorded {tag}", flush=True)
+        for bf16 in modes:
+            mode = {"dot_bf16": True} if bf16 else {}  # fp32 calls as a tree without the mode makes them
+            for white in (True, False):
+                tag = f"S={S} white={white}"
+                pre = "bf16 " if bf16 else ""
+                cases[f"{pre}K1 R={R_SERVE} {tag}"] = {
+                    n: v.cpu() for n, v in zip(OUTPUTS, fr.fused_render_level(*serve, white, **mode))}
+                *outs, saved, raw = ft.fused_level_fwd_spill(*train, white, **mode)
+                k1s = {n: v.cpu() for n, v in zip(OUTPUTS, outs)}
+                k1s["raw"], k1s["saved sha1"] = raw.cpu(), tensor_sha1(saved)
+                cases[f"{pre}K1s R={R_TRAIN} {tag}"] = k1s
+                g = ft.fused_level_bwd_saved(*train, saved, raw, *cot, white, **mode)
+                cases[f"{pre}K2 from K1s' saved R={R_TRAIN} {tag}"] = {n: v.cpu() for n, v in g.items()}
+                del outs, saved, raw
+                *_, saved, raw = ft.fused_level_fwd_spill_ref(*train, white, **mode)
+                g = ft.fused_level_bwd_saved(*train, saved, raw, *cot, white, **mode)
+                cases[f"{pre}K2 from plain saved R={R_TRAIN} {tag}"] = {n: v.cpu() for n, v in g.items()}
+                del saved, raw
+                print(f"recorded {pre}{tag}", flush=True)
     torch.save({"sass": sass, "cases": cases}, out)
     print(f"saved {sum(len(v) for v in cases.values())} outputs of {len(cases)} cases to {out}")
 
@@ -119,10 +127,15 @@ def compare(a: str, b: str) -> None:
     hx, hy = sass_sha1(x["sass"]), sass_sha1(y["sass"])
     print(f"B1 SASS {'identical' if hx == hy else 'differs'} ({len(x['sass'])} / {len(y['sass'])} lines, sha1 "
           f"{hx} / {hy}); for information only")
-    if x["cases"].keys() != y["cases"].keys():
-        raise SystemExit(f"torch_kernel_bits: the files hold other cases: {sorted(x['cases'])} / {sorted(y['cases'])}")
+    common = [case for case in x["cases"] if case in y["cases"]]
+    for name, f, g in ((a, x, y), (b, y, x)):
+        only = sorted(case for case in f["cases"] if case not in g["cases"])
+        if only:
+            print(f"  only in {name}, not compared: {', '.join(only)}")
+    if not common:
+        raise SystemExit("torch_kernel_bits: the files hold no case in common")
     n_diff = n_all = 0
-    for case in x["cases"]:
+    for case in common:
         p, q = x["cases"][case], y["cases"][case]
         diff = [n for n in p if not same(p[n], q[n])]
         n_diff, n_all = n_diff + len(diff), n_all + len(p)
