@@ -11,17 +11,20 @@ background, it compares with the plain version in bf16 mode summed in fp64
 layers at 2048 rays, and K2's 26 gradients at 2048 rays (the composition
 K1s + the backward from what it saved). Each output's limit is chip_smoke.py's
 bf16 rule: max(1e-6 forward or 1e-4 gradients, 2x the spread of the plain
-bf16 version over three fp32 summation orders, cuBLAS, reversed K and K in
-two halves, around the fp64 reference). Beside the bf16 kernel it holds to
-the same limits the reversed-K order, which must pass, three more fp32
-orders that set no limit (WITNESS_ORDERS: K in four quarters, K in eight
-eighths, each half of K reversed), witnesses of how often the rule turns
-away an order as right as any, and the fp32 kernel, which must miss on at
-least one output a level; it also prints the ratio of the first rule (4x
-the cuBLAS order's own error) for the kernel and the reversed-K order. The
-last line counts the cases over each rule. The kernels and cuBLAS give the
-same bits on every call, so a second run of a seed reads the same unless
-the card or the libraries differ.
+bf16 version over the six fp32 summation orders of BF16_ORDERS, cuBLAS,
+reversed K, K in two, four and eight parts, each half of K reversed, around
+the fp64 reference). Beside the bf16 kernel it holds to the same limits
+three more fp32 orders that set no limit (WITNESS_ORDERS: K in three parts,
+K in sixteen parts, as B2's split-K sums it, and the even and the odd
+indices of K apart), witnesses of how often the rule turns away an order as
+right as any, and the fp32 kernel, which must miss on at least one output a
+level. For the record it also prints the ratios of the two earlier rules:
+4x the cuBLAS order's own error (the first), and 2x the farthest of three
+orders, cuBLAS, reversed K and K in halves (the second, PR 12's), for the
+kernel and for the reversed-K and the K-in-quarters orders. The last line
+counts the cases over each rule. The kernels and cuBLAS give the same bits
+on every call, so a second run of a seed reads the same unless the card or
+the libraries differ.
 """
 
 import argparse
@@ -32,25 +35,16 @@ import torch
 import chip_smoke as c
 
 FIRST_RULE_FACTOR = 4.0  # the first rule: 4x the cuBLAS order's own error
+SECOND_RULE_ORDERS = ("cuBLAS", "reversed K", "K in halves")  # the second rule's three orders
 
 
-def _k_in_parts(n):
-    """The product summed over n consecutive parts of K, in K order."""
-    def mm(a, w):
-        k = a.shape[1] // n
-        return sum(a[:, i * k: (i + 1) * k if i < n - 1 else None] @ w[i * k: (i + 1) * k if i < n - 1 else None]
-                   for i in range(n))
-    return mm
-
-
-def _halves_reversed(a, w):
-    k = a.shape[1] // 2
-    return a[:, :k].flip(-1) @ w[:k].flip(0) + a[:, k:].flip(-1) @ w[k:].flip(0)
+def _even_odd(a, w):
+    return a[:, 0::2] @ w[0::2] + a[:, 1::2] @ w[1::2]
 
 
 # fp32 orders of the plain bf16 version that set no limit: witnesses of how
 # often the rule turns away an order as right as any
-WITNESS_ORDERS = {"K in quarters": _k_in_parts(4), "K in eighths": _k_in_parts(8), "halves reversed": _halves_reversed}
+WITNESS_ORDERS = {"K in thirds": c._k_in_parts(3), "K in sixteenths": c._k_in_parts(16), "even and odd K": _even_odd}
 
 
 def _seeds(text):
@@ -66,10 +60,13 @@ def _worst(ratios):
 def _case(what, kernel, fp32_kernel, orders, witnesses, ref64, floor, over):
     limits = c.bf16_limits(orders, ref64, floor)
     first = {n: max(floor, FIRST_RULE_FACTOR * c._rel(orders["cuBLAS"][n], ref64[n])) for n in ref64}
-    rows = {"kernel": c.bf16_ratios(kernel, ref64, limits), "reversed": c.bf16_ratios(orders["reversed K"], ref64, limits),
+    second = c.bf16_limits({k: orders[k] for k in SECOND_RULE_ORDERS}, ref64, floor)
+    rows = {"kernel": c.bf16_ratios(kernel, ref64, limits),
             **{k: c.bf16_ratios(v, ref64, limits) for k, v in witnesses.items()},
             "kernel, first rule": c.bf16_ratios(kernel, ref64, first),
-            "reversed, first rule": c.bf16_ratios(orders["reversed K"], ref64, first)}
+            "reversed, first rule": c.bf16_ratios(orders["reversed K"], ref64, first),
+            "kernel, second rule": c.bf16_ratios(kernel, ref64, second),
+            "quarters, second rule": c.bf16_ratios(orders["K in quarters"], ref64, second)}
     text = []
     for name, ratios in rows.items():
         shown, bad = _worst(ratios)
@@ -92,8 +89,8 @@ def run(seeds) -> None:
     focal = 0.5 * c.H / np.tan(0.5 * np.deg2rad(FOVY_DEG))
     boxes = laptop_scene(80.0)
     white = True
-    over = {"kernel": 0, "reversed": 0, **{k: 0 for k in WITNESS_ORDERS}, "kernel, first rule": 0,
-            "reversed, first rule": 0, "fp32 kernel within": 0}
+    over = {"kernel": 0, **{k: 0 for k in WITNESS_ORDERS}, "kernel, first rule": 0, "reversed, first rule": 0,
+            "kernel, second rule": 0, "quarters, second rule": 0, "fp32 kernel within": 0}
     cases = 0
     for seed in seeds:
         nerf = NeRF(generator=torch.Generator().manual_seed(seed), device="cuda").eval()
