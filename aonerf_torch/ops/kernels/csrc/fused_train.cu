@@ -83,6 +83,33 @@
 //     memory once per column tile of dW (twice for N = 256) and Delta once
 //     per row tile (four times for K = 256); the blocks that share those rows
 //     run side by side, so the repeats come mostly from L2.
+//  B2 in bf16 mode. level_bwd_dw_bf16_kernel, for the weight products of
+//     the Pallas _bwd_kernel with dot_bf16 (its _dot_t, bf16 operands, fp32
+//     sums): the same tiles, ranges and partial sets as the fp32 B2 on
+//     native bf16 products, mma.sync m16n8k16 (half the mma of a TF32 k8
+//     walk; at 989 TFLOP/s its products take 0.47 ms at S = 193). What
+//     bounds it is bytes: `saved` and B1's `delta` in their fp32 layout, 7.6
+//     GB at S = 193 (2.28 ms at 3.35 TB/s), which every block stages
+//     through shared memory and rounds there (cp.async and TMA cannot
+//     convert). Its blocks run in clusters of four, the four M tiles of one
+//     column tile: each loads its own H rows by TMA and a quarter of the
+//     Delta rows multicast to all four, into a 4-stage ring of 32-row fp32
+//     stages (a full barrier a stage, one wait a step; an empty barrier that
+//     takes the four blocks' releases), so each Delta byte leaves L2 once
+//     for four blocks. One pass a step rounds the stage to a bf16 tile in the
+//     layout ldmatrix.trans reads and sums the bias tile from the fp32
+//     deltas; no fragment is converted. Both operands are K-major here (K is
+//     the sample row), which ldmatrix.trans turns into mma.sync's fragments.
+//     112,704 bytes of shared memory, 116 registers, two blocks a SM. On the
+//     H100 (tools/torch_train_compare.py): 1.38 / 3.95-3.96 ms at 2048
+//     rays x S = 65 / 193 against 2.29-2.33 / 6.69-6.72 for the TF32 walk
+//     on bf16 values it replaced, and 1.60-1.61 / 4.66 for a first design
+//     with a cp.async ring; tools/torch_b2_variants.py: staging alone (no
+//     rounding pass, no product) 0.93 / 2.80-2.81 ms, near the bytes'
+//     bound, the TMA ring without clusters 1.38-1.41 / 4.28-4.39. What the
+//     pass and the products add goes through shared memory (~92 KB a block
+//     a step). Below the bytes' bound only a bf16 layout of `saved` and
+//     `delta` (K1s, B1) would go.
 //  R. level_bwd_reduce_kernel: sums the 16 partial sets (38 MB, which L2
 //     holds) and the B1 blocks' narrow sets, each in a fixed order.
 //
@@ -94,11 +121,12 @@
 // truncates, so each run of 6 (K1s), 12 (B1) or 24 (B2) mma has a fresh
 // accumulator that fp32 adds fold into the running sum.
 //
-// bf16 mode (dot_bf16, the TPU kernels' argument of that name; each kernel
-// but the integrator backward and the reduction has a second instantiation):
-// every product takes bf16-rounded operands (to nearest, ties to even) and
-// sums in fp32, one TF32 mma a k8 step where 3xTF32 issues three (a bf16
-// value is exact in TF32). The wrapper passes the weights rounded. K1s runs
+// bf16 mode (dot_bf16, the TPU kernels' argument of that name; K1s and B1
+// have a second instantiation, B2 a kernel of its own, the integrator
+// backward and the reduction serve both modes): every product takes
+// bf16-rounded operands (to nearest, ties to even) and sums in fp32; K1s and
+// B1 issue one TF32 mma a k8 step where 3xTF32 issues three (a bf16 value is
+// exact in TF32). The wrapper passes the weights rounded. K1s runs
 // K1's bf16 walk and spills the rounded activations, which the TPU backward
 // keeps in bf16, in the fp32 layout. The integrator backward stays fp32 and
 // recomputes the transmittance in fp32 from `raw`, as the TPU backward does.
@@ -106,8 +134,11 @@
 // in its own per-ray sum for wvb; only a product's operand is rounded: the
 // shared tile D that feeds the next product gets the rounded delta, and the
 // narrow head products round g_raw_sigma, g_raw_rgb and the per-ray sum as
-// they read them. B2 rounds H and Delta as it loads its fragments, and sums
-// the bias tile from the fp32 stage.
+// they read them. B2 in bf16 is a kernel of its own (above): it rounds H and
+// Delta once a step into bf16 tiles, and sums the bias tile from the fp32
+// stage. Its products are mma.sync m16n8k16 bf16: the sums group otherwise
+// than the TF32 walk's it replaced, so its bits differ from that walk's;
+// every other output of both modes keeps its bits.
 //
 // Deterministic: no atomics, every sum in a fixed order, so the same inputs
 // give the same bits on every call.
@@ -120,7 +151,7 @@
 // phase on the H100): K1s 220 registers, no spill; the integrator backward
 // 39; B1 255 registers, 20 bytes of spill stores and 20 of spill loads
 // (24-byte stack frame); B2 128 registers (capped by __launch_bounds__(256,
-// 2)), no spill; the reduction 31 registers.
+// 2)), no spill, and in bf16 116; the reduction 31 registers.
 //
 // Measured there (NVIDIA H100 80GB HBM3, 700 W; tools/torch_train_compare.py,
 // 2048 rays, S = 65 / 193): K1s 3.33-3.40 / 9.51-9.77 ms, B1 3.26-3.31 /
@@ -184,6 +215,19 @@ constexpr int kDwHs = kDwM + 8, kDwDs = kDwN + 8;  // staged row strides (8 mod 
 constexpr int kDwStage = kDwStep * (kDwHs + kDwDs);
 constexpr size_t kDwSmemBytes = sizeof(float) * 2 * kDwStage;
 constexpr int kX = -1;  // h_off of the products whose H is the encoded input
+// B2 in bf16 mode: kDw16Step rows a step, a ring of kDw16Stages fp32 stages
+// (H's kDwM then Delta's kDwN columns a row, unpadded), one bf16 tile of the
+// step (row strides 72 and 136 bf16, 144 and 272 bytes: the 8 rows of an
+// ldmatrix fall in 8 different 16-byte bank groups) and the stages' full and
+// empty barriers, after up to kRingAlign bytes of alignment: 112,704 bytes,
+// two blocks a SM. Three stages, or a second bf16 tile (one barrier a step
+// fewer) in place of the fourth stage, took the same time on the H100.
+constexpr int kDw16Step = 32, kDw16Stages = 4;
+constexpr int kDw16Stage = kDw16Step * (kDwM + kDwN);
+constexpr int kDw16Hs = kDwM + 8, kDw16Ds = kDwN + 8;
+constexpr size_t kDw16SmemBytes = kRingAlign + sizeof(float) * kDw16Stages * kDw16Stage +
+                                 sizeof(uint16_t) * kDw16Step * (kDw16Hs + kDw16Ds) + 2 * kDw16Stages * sizeof(uint64_t);
+static_assert(kDw16Stages * kDw16Stage >= (kThreads / 32) * kDwN, "the bias tile's row groups fit in the ring");
 
 // One weight product: dW[grad] (K x N) = H^T . Delta over all sample rows,
 // H the saved columns [h_off, h_off + K) (or xenc), Delta the scratch columns
@@ -528,28 +572,64 @@ level_bwd_delta_kernel(const float* __restrict__ venc, const float* __restrict__
 
 // ------------------------------------------------ pass B2: the weight products
 
-// Block b: row range q = b / kDwTiles, tile b % kDwTiles in product order
-// (within a product, the M tiles of one column tile are neighbours, so the
-// blocks that read the same delta rows run together). The block sums rows
-// [lo, hi) of the range into its tile in registers and writes the tile, and
-// the bias tile when it holds the first M rows, once to range q's partial set.
-// With Bf16 each fragment is rounded to bf16 as it is loaded and each k8 step
-// is one TF32 mma; the bias tile sums the staged fp32 deltas.
-template <bool Bf16>
+// Block b of either B2 kernel: row range q = b / kDwTiles, tile b % kDwTiles
+// in product order (within a product, the M tiles of one column tile are
+// neighbours, so the blocks that read the same delta rows run together). The
+// block sums rows [lo, hi) of the range into its tile and writes the tile,
+// and the bias tile when it holds the first M rows, once to range q's partial
+// set.
+struct DwBlock {
+  DwProduct P;
+  int q, m0, n0, lo, hi;
+  bool with_bias;
+};
+__device__ __forceinline__ DwBlock dw_block(int n_total, int rows_per_range) {
+  DwBlock b;
+  int tile = blockIdx.x % kDwTiles;
+  b.q = blockIdx.x / kDwTiles;
+  int p = 0;
+  while (tile >= product_tiles(c_products[p])) tile -= product_tiles(c_products[p++]);
+  b.P = c_products[p];
+  const int mt = m_tiles(b.P);
+  b.m0 = (tile % mt) * kDwM;
+  b.n0 = (tile / mt) * kDwN;
+  b.lo = min(n_total, b.q * rows_per_range);
+  b.hi = min(n_total, b.lo + rows_per_range);
+  b.with_bias = b.P.bias >= 0 && b.m0 == 0;
+  return b;
+}
+
+// The tile's sums (warp w: rows 32 (w / 4) + [0, 32), columns 32 (w % 4) +
+// [0, 32), as 2 x 4 m16n8 accumulators) to range q's partial set.
+__device__ __forceinline__ void store_dw_tile(const DwBlock& B, const float (&tot)[2][4][4], float* partials) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int wr0 = (warp >> 2) * 32, wc0 = (warp & 3) * 32;
+  float* gw = partials + (size_t)B.q * kPartialFloats + c_layout.off[B.P.grad];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = B.m0 + wr0 + 16 * mi + 8 * h + g;
+      if (m >= B.P.K) continue;
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const int n = B.n0 + wc0 + 8 * ni + 2 * t;
+        *reinterpret_cast<float2*>(gw + (size_t)m * B.P.N + n) = make_float2(tot[mi][ni][2 * h], tot[mi][ni][2 * h + 1]);
+      }
+    }
+}
+
+// B2 in fp32: 3xTF32 mma.sync on fragments split from the staged fp32 rows,
+// the tile's sums in registers across the range.
 __global__ void __launch_bounds__(kThreads, 2)
 level_bwd_dw_kernel(const float* __restrict__ saved, const float* __restrict__ xenc,
                     const float* __restrict__ delta, float* __restrict__ partials, int n_total,
                     int rows_per_range) {
   extern __shared__ __align__(16) float smem[];
-  int tile = blockIdx.x % kDwTiles;
-  const int q = blockIdx.x / kDwTiles;
-  int p = 0;
-  while (tile >= product_tiles(c_products[p])) tile -= product_tiles(c_products[p++]);
-  const DwProduct P = c_products[p];
-  const int mt = m_tiles(P);
-  const int m0 = (tile % mt) * kDwM, n0 = (tile / mt) * kDwN;
-  const int lo = min(n_total, q * rows_per_range), hi = min(n_total, lo + rows_per_range);
-  const bool with_bias = P.bias >= 0 && m0 == 0;
+  const DwBlock B = dw_block(n_total, rows_per_range);
+  const DwProduct& P = B.P;
+  const int q = B.q, m0 = B.m0, n0 = B.n0, lo = B.lo, hi = B.hi;
+  const bool with_bias = B.with_bias;
 
   // Rows [s0, s0 + kDwStep) of H's columns [m0, m0 + kDwM) and of Delta's
   // columns [n0, n0 + kDwN) into stage buf; rows at or past hi (and xenc's
@@ -606,19 +686,19 @@ level_bwd_dw_kernel(const float* __restrict__ saved, const float* __restrict__ x
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi) {
         const float* pa = hs + (kk + t) * kDwHs + wr0 + 16 * mi + g;
-        frag<Bf16>(operand<Bf16>(pa[0]), ab[mi][0], as[mi][0]);
-        frag<Bf16>(operand<Bf16>(pa[8]), ab[mi][1], as[mi][1]);
-        frag<Bf16>(operand<Bf16>(pa[4 * kDwHs]), ab[mi][2], as[mi][2]);
-        frag<Bf16>(operand<Bf16>(pa[4 * kDwHs + 8]), ab[mi][3], as[mi][3]);
+        split_tf32(pa[0], ab[mi][0], as[mi][0]);
+        split_tf32(pa[8], ab[mi][1], as[mi][1]);
+        split_tf32(pa[4 * kDwHs], ab[mi][2], as[mi][2]);
+        split_tf32(pa[4 * kDwHs + 8], ab[mi][3], as[mi][3]);
       }
 #pragma unroll
       for (int ni = 0; ni < 4; ++ni) {
         const float* pb = ds + (kk + t) * kDwDs + wc0 + 8 * ni + g;
         uint32_t bb[2], bs[2];
-        frag<Bf16>(operand<Bf16>(pb[0]), bb[0], bs[0]);
-        frag<Bf16>(operand<Bf16>(pb[4 * kDwDs]), bb[1], bs[1]);
+        split_tf32(pb[0], bb[0], bs[0]);
+        split_tf32(pb[4 * kDwDs], bb[1], bs[1]);
 #pragma unroll
-        for (int mi = 0; mi < 2; ++mi) mma<Bf16>(part[mi][ni], ab[mi], as[mi], bb, bs);
+        for (int mi = 0; mi < 2; ++mi) mma_3xtf32(part[mi][ni], ab[mi], as[mi], bb, bs);
       }
     }
     add_into(tot, part);
@@ -630,21 +710,310 @@ level_bwd_dw_kernel(const float* __restrict__ saved, const float* __restrict__ x
     __syncthreads();  // the next stage overwrites this buffer
   }
 
-  float* part_set = partials + (size_t)q * kPartialFloats;
-  float* gw = part_set + c_layout.off[P.grad];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = m0 + wr0 + 16 * mi + 8 * h + g;
-      if (m >= P.K) continue;
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int n = n0 + wc0 + 8 * ni + 2 * t;
-        *reinterpret_cast<float2*>(gw + (size_t)m * P.N + n) = make_float2(tot[mi][ni][2 * h], tot[mi][ni][2 * h + 1]);
+  store_dw_tile(B, tot, partials);
+  if (with_bias && threadIdx.x < kDwN) partials[(size_t)q * kPartialFloats + c_layout.off[P.bias] + n0 + threadIdx.x] = bsum;
+}
+
+// B2 in bf16 mode: the same tiles, ranges and partial sets as the fp32 B2,
+// on native bf16 products. Blocks run in clusters of kDw16Cluster = 4: the
+// four M tiles of one column tile of a product whose H is a saved layer (17
+// clusters a range), which read the same Delta rows, and one cluster of the
+// four tiles whose H is xenc (w0, w5i). A step is 32 rows. In a shared
+// cluster each block's thread 0 loads, by TMA, its own H rows (32 x 64) and
+// a quarter of the Delta rows (8 x 128) multicast to all four blocks, into a
+// ring of kDw16Stages fp32 stages: each Delta byte leaves L2 once for the
+// four blocks instead of four times. A stage's full barrier takes the
+// 24,576 bytes every block receives; its empty barrier the four blocks'
+// releases, so no block refills a stage a peer still reads. The xenc
+// cluster stages by cp.async (xenc's 63-float rows are no TMA box), its own
+// rows only, the pad column zeroed. Once a step has landed, one pass rounds
+// each value to bf16 (cvt.rn: to nearest, ties to even) into the step's bf16
+// tile, in the layout ldmatrix reads, and adds the fp32 deltas of the bias
+// tile into each thread's running column sums; the warps then run the
+// step's two k16 slices on mma.sync m16n8k16 bf16, A = H^T and B = Delta
+// each loaded by ldmatrix.trans from their [row][col] tiles. Each step's
+// products go to a fresh accumulator that an fp32 add folds into the tile's
+// sum (the tensor cores truncate as they accumulate). The bias tile: thread
+// i sums columns 4 (i % 32) + [0, 4) over the rows (i / 32) + 8 j of every
+// step in order; the eight row groups' sums are then added in group order.
+// Steps end on multiples of 32 rows (rows_per_range is a multiple of 64),
+// so only the last range's last step runs past its rows, into rows TMA reads
+// as zeros (past n_total) or cp.async zero-fills.
+struct Dw16Maps {
+  CUtensorMap h;  // saved: boxes of kDwM columns x kDw16Step rows
+  CUtensorMap d;  // delta: boxes of kDwN columns x kDw16Step / kDw16Cluster rows
+};
+constexpr int kDw16Cluster = 4;
+constexpr int kDw16Clusters = kDwTiles / kDw16Cluster;  // 18 a range
+constexpr int kDw16Quarter = kDw16Step / kDw16Cluster;  // Delta rows each block of a cluster loads
+constexpr int kDw16StageBytes = kDw16Stage * (int)sizeof(float);
+struct Dw16Table {
+  int product[kDw16Clusters], n0[kDw16Clusters];   // each shared cluster's product and column tile
+  int x_product[kDw16Cluster], x_n0[kDw16Cluster];  // the xenc cluster's tiles, by rank
+};
+constexpr Dw16Table make_dw16_table() {
+  Dw16Table t{};
+  int c = 0, x = 0;
+  for (int p = 0; p < kNumProducts; ++p)
+    for (int j = 0; j < kProducts[p].N / kDwN; ++j) {
+      if (kProducts[p].h_off != kX) {
+        t.product[c] = p;
+        t.n0[c++] = j * kDwN;
+      } else {
+        t.x_product[x] = p;
+        t.x_n0[x++] = j * kDwN;
       }
     }
-  if (with_bias && threadIdx.x < kDwN) part_set[c_layout.off[P.bias] + n0 + threadIdx.x] = bsum;
+  t.product[c] = -1;  // the last cluster: the xenc tiles
+  return t;
+}
+constexpr bool dw16_table_fits() {
+  int shared = 0, x = 0;
+  for (int p = 0; p < kNumProducts; ++p) {
+    const int tiles = kProducts[p].N / kDwN;
+    if (kProducts[p].h_off != kX) {
+      if (m_tiles(kProducts[p]) != kDw16Cluster) return false;
+      shared += tiles;
+    } else {
+      if (m_tiles(kProducts[p]) != 1) return false;
+      x += tiles;
+    }
+  }
+  return shared == kDw16Clusters - 1 && x == kDw16Cluster;
+}
+static_assert(dw16_table_fits(), "B2 bf16: 4 M tiles for every saved layer's product, 4 xenc tiles in all");
+static_assert(kDw16Quarter * kDw16Cluster == kDw16Step, "a step splits into the cluster's quarters");
+__constant__ Dw16Table c_dw16 = make_dw16_table();
+
+// A bf16 B2 block: its tile, range and place in its cluster.
+__device__ __forceinline__ DwBlock dw16_block(int n_total, int rows_per_range, bool& shared) {
+  DwBlock b;
+  const int c = (blockIdx.x % kDwTiles) / kDw16Cluster, rank = blockIdx.x % kDw16Cluster;
+  b.q = blockIdx.x / kDwTiles;
+  shared = c_dw16.product[c] >= 0;
+  b.P = c_products[shared ? c_dw16.product[c] : c_dw16.x_product[rank]];
+  b.m0 = shared ? rank * kDwM : 0;
+  b.n0 = shared ? c_dw16.n0[c] : c_dw16.x_n0[rank];
+  b.lo = min(n_total, b.q * rows_per_range);
+  b.hi = min(n_total, b.lo + rows_per_range);
+  b.with_bias = b.P.bias >= 0 && b.m0 == 0;
+  return b;
+}
+
+__device__ __forceinline__ uint32_t bf16x2_rn(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Four 8x8 16-bit matrices, transposed: lanes 8j .. 8j + 7 give matrix j's
+// row addresses (16 bytes each), and r[j] gets element (2 (lane % 4) + e,
+// lane / 4) of matrix j in its half e.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const uint16_t* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a)
+               : "memory");
+}
+
+// d += a . b for one m16n8k16 bf16 tile, fp32 accumulator. A (row, k) at
+// a[0] (g, 2t..2t+1), a[1] (g+8, 2t..), a[2] (g, 2t+8..), a[3] (g+8, 2t+8..);
+// B (k, col) at b0 (2t..2t+1, g), b1 (2t+8.., g); d as for mma_tf32.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+      "{%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Clusters: every thread of every block of the cluster arrives and waits;
+// and one arrival on the barrier at `bar`'s offset in block `cta`.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t cta) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(cta)
+      : "memory");
+}
+// The box of `map` at (x, y) into dst in every block of `mask`, completing on
+// the barrier at bar's offset in each.
+__device__ __forceinline__ void tma_load_2d_multicast(float* dst, const CUtensorMap* map, uint64_t* bar, int x, int y,
+                                                      uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster [%0], [%1, {%3, "
+      "%4}], [%2], %5;\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(x), "r"(y), "h"(mask)
+      : "memory");
+}
+
+__global__ void __cluster_dims__(kDw16Cluster, 1, 1) __launch_bounds__(kThreads, 2)
+level_bwd_dw_bf16_kernel(const __grid_constant__ Dw16Maps maps, const float* __restrict__ xenc,
+                         const float* __restrict__ delta, float* __restrict__ partials, int n_total,
+                         int rows_per_range) {
+  extern __shared__ __align__(16) float smem[];
+  float* ring = ring_base(smem);                                                // kDw16Stages fp32 stages
+  uint16_t* hb = reinterpret_cast<uint16_t*>(ring + kDw16Stages * kDw16Stage);  // kDw16Step x kDw16Hs bf16
+  uint16_t* db = hb + kDw16Step * kDw16Hs;                                      // kDw16Step x kDw16Ds bf16
+  uint64_t* full = reinterpret_cast<uint64_t*>(db + kDw16Step * kDw16Ds);       // kDw16Stages
+  uint64_t* empty = full + kDw16Stages;                                         // kDw16Stages
+  bool shared;
+  const DwBlock B = dw16_block(n_total, rows_per_range, shared);
+  const DwProduct& P = B.P;
+  const int lo = B.lo, hi = B.hi;
+  const int n_steps = hi > lo ? (hi - lo + kDw16Step - 1) / kDw16Step : 0;
+  const uint32_t rank = blockIdx.x % kDw16Cluster;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kDw16Stages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], kDw16Cluster);
+    }
+    mbar_init_fence();
+  }
+  cluster_sync();  // every block's barriers exist before a peer's copy or release reaches them
+
+  // Step t's fp32 rows into ring slot t % kDw16Stages. Shared clusters: by
+  // thread 0, once all four blocks have released the slot's last use (the
+  // full barrier expects the whole stage; the four quarters of Delta come
+  // from the four blocks). The xenc cluster: cp.async by every thread, one
+  // committed group a step (empty past the range).
+  auto stage = [&](int t) {
+    const int slot = t % kDw16Stages;
+    float* hs = ring + slot * kDw16Stage;
+    float* ds = hs + kDw16Step * kDwM;
+    const int s0 = lo + t * kDw16Step;
+    if (shared) {
+      if (threadIdx.x == 0 && t < n_steps) {
+        if (t >= kDw16Stages) mbar_wait(&empty[slot], (t / kDw16Stages - 1) & 1);
+        mbar_arrive_expect_tx(&full[slot], kDw16StageBytes);
+        tma_load_2d(hs, &maps.h, &full[slot], P.h_off + B.m0, s0);
+        tma_load_2d_multicast(ds + rank * kDw16Quarter * kDwN, &maps.d, &full[slot], P.d_off + B.n0,
+                              s0 + rank * kDw16Quarter, (1u << kDw16Cluster) - 1);
+      }
+      return;
+    }
+    if (t < n_steps) {
+      for (int i = threadIdx.x; i < kDw16Step * kDwM; i += kThreads) {
+        const int r = i / kDwM, c = i % kDwM;
+        const bool valid = s0 + r < hi && c < kPos;
+        cp_async4(hs + r * kDwM + c, valid ? xenc + (size_t)(s0 + r) * kPos + c : xenc, valid);
+      }
+      for (int i = threadIdx.x; i < kDw16Step * (kDwN / 4); i += kThreads) {
+        const int r = i / (kDwN / 4), c = (i % (kDwN / 4)) * 4;
+        const bool valid = s0 + r < hi;
+        cp_async16(ds + r * kDwN + c, valid ? delta + (size_t)(s0 + r) * kSpill + P.d_off + B.n0 + c : delta, valid);
+      }
+    }
+    cp_async_commit();
+  };
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wr0 = (warp >> 2) * 32, wc0 = (warp & 3) * 32;
+  // ldmatrix row addresses: A's matrices (k 0-7 | 8-15) x (m 0-7 | 8-15) in
+  // the order a[0..3] takes them, B's (k 0-7 | 8-15) x (n 0-7 | 8-15) as b0,
+  // b1 of two neighbouring n8 tiles.
+  const uint16_t* pa = hb + ((lane & 7) + ((lane >> 4) << 3)) * kDw16Hs + wr0 + (((lane >> 3) & 1) << 3);
+  const uint16_t* pb = db + ((lane & 7) + (((lane >> 3) & 1) << 3)) * kDw16Ds + wc0 + ((lane >> 4) << 3);
+  float tot[2][4][4];
+  zero_acc(tot);
+  float bias[4] = {0.f, 0.f, 0.f, 0.f};
+
+#pragma unroll
+  for (int t = 0; t < kDw16Stages - 1; ++t) stage(t);
+  for (int s = 0; s < n_steps; ++s) {
+    const int slot = s % kDw16Stages;
+    if (shared) {
+      mbar_wait(&full[slot], (s / kDw16Stages) & 1);  // step s has landed, all four quarters of Delta
+    } else {
+      cp_async_wait<kDw16Stages - 2>();  // this thread's copies of step s have landed
+    }
+    __syncthreads();  // (everyone's copies have landed,) and no warp still reads the bf16 tile of step s - 1
+    {
+      const float* hs = ring + slot * kDw16Stage;
+      const float* ds = hs + kDw16Step * kDwM;
+#pragma unroll
+      for (int i = 0; i < kDw16Step * kDwM / (4 * kThreads); ++i) {
+        const int r = (threadIdx.x >> 4) + (kThreads / 16) * i, c = (threadIdx.x & 15) * 4;
+        const float4 v = *reinterpret_cast<const float4*>(hs + r * kDwM + c);
+        *reinterpret_cast<uint2*>(hb + r * kDw16Hs + c) = make_uint2(bf16x2_rn(v.x, v.y), bf16x2_rn(v.z, v.w));
+      }
+#pragma unroll
+      for (int i = 0; i < kDw16Step * kDwN / (4 * kThreads); ++i) {
+        const int r = (threadIdx.x >> 5) + (kThreads / 32) * i, c = (threadIdx.x & 31) * 4;
+        const float4 v = *reinterpret_cast<const float4*>(ds + r * kDwN + c);
+        if (B.with_bias) {
+          bias[0] += v.x;
+          bias[1] += v.y;
+          bias[2] += v.z;
+          bias[3] += v.w;
+        }
+        *reinterpret_cast<uint2*>(db + r * kDw16Ds + c) = make_uint2(bf16x2_rn(v.x, v.y), bf16x2_rn(v.z, v.w));
+      }
+    }
+    __syncthreads();  // the bf16 tile of step s is complete, and every thread is done with slot s
+    if (shared && threadIdx.x == 0) {
+      for (uint32_t cta = 0; cta < kDw16Cluster; ++cta) mbar_arrive_cluster(&empty[slot], cta);
+    }
+    stage(s + kDw16Stages - 1);  // into the slot step s - 1 left
+    float part[2][4][4];
+    zero_acc(part);
+#pragma unroll
+    for (int kk = 0; kk < kDw16Step; kk += 16) {
+      uint32_t a[2][4], b[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) ldmatrix_x4_trans(a[mi], pa + kk * kDw16Hs + 16 * mi);
+#pragma unroll
+      for (int nj = 0; nj < 2; ++nj) ldmatrix_x4_trans(b[nj], pb + kk * kDw16Ds + 16 * nj);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+          mma_bf16(part[mi][ni], a[mi], b[ni >> 1][2 * (ni & 1)], b[ni >> 1][2 * (ni & 1) + 1]);
+    }
+    add_into(tot, part);
+  }
+  if (!shared) cp_async_wait<0>();  // the groups left are empty
+
+  store_dw_tile(B, tot, partials);
+  if (B.with_bias) {  // the same for the whole block
+    __syncthreads();  // the ring is free: every copy has landed and been read
+    float* red = ring;  // (kThreads / 32) row groups x kDwN
+    *reinterpret_cast<float4*>(red + warp * kDwN + lane * 4) = make_float4(bias[0], bias[1], bias[2], bias[3]);
+    __syncthreads();
+    if (threadIdx.x < kDwN) {
+      float b = 0.f;
+      for (int grp = 0; grp < kThreads / 32; ++grp) b += red[grp * kDwN + threadIdx.x];
+      partials[(size_t)B.q * kPartialFloats + c_layout.off[P.bias] + B.n0 + threadIdx.x] = b;
+    }
+  }
+  cluster_sync();  // no block leaves while a peer may still release a stage to it
+}
+
+// The bf16 B2's maps over `saved` and `delta` (n_total rows of kSpill fp32,
+// rows past n_total read as zeros). Returns 0, or kMapError + the driver's
+// CUresult.
+int encode_dw16_maps(Dw16Maps& maps, const float* saved, const float* delta, int n_total) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return kMapError + CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[2] = {(cuuint64_t)kSpill, (cuuint64_t)n_total};
+  const cuuint64_t strides[1] = {(cuuint64_t)kSpill * sizeof(float)};
+  const cuuint32_t unit[2] = {1, 1};
+  const cuuint32_t box_h[2] = {(cuuint32_t)kDwM, (cuuint32_t)kDw16Step};
+  const cuuint32_t box_d[2] = {(cuuint32_t)kDwN, (cuuint32_t)kDw16Quarter};
+  CUresult r = encode(&maps.h, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(saved), dims, strides, box_h,
+                      unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return kMapError + (int)r;
+  r = encode(&maps.d, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(delta), dims, strides, box_d, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kMapError + (int)r;
 }
 
 // ------------------------------------------------------------- the reduction
@@ -714,11 +1083,12 @@ int launch_bwd_saved(const float* t, const float* rays_d, const float* venc, con
                              int ray_tile, int white_bkgd, int dot_bf16, cudaStream_t s) {
   const size_t smem_i = sizeof(float) * kWarps * 3 * (size_t)S, smem_b1 = delta_smem_bytes(ray_tile);
   auto* b1 = dot_bf16 ? level_bwd_delta_kernel<true> : level_bwd_delta_kernel<false>;
-  auto* b2 = dot_bf16 ? level_bwd_dw_kernel<true> : level_bwd_dw_kernel<false>;
+  const void* b2 = dot_bf16 ? (const void*)level_bwd_dw_bf16_kernel : (const void*)level_bwd_dw_kernel;
+  const size_t smem_b2 = dot_bf16 ? kDw16SmemBytes : kDwSmemBytes;
   cudaError_t err = set_smem((const void*)level_bwd_integrator_kernel, smem_i);
   if (err != cudaSuccess) return err;
   if ((err = set_smem((const void*)b1, smem_b1)) != cudaSuccess) return err;
-  if ((err = set_smem((const void*)b2, kDwSmemBytes)) != cudaSuccess) return err;
+  if ((err = set_smem(b2, smem_b2)) != cudaSuccess) return err;
   WeightMaps maps;
   const float* b1_weights[B1Schedule::kProducts] = {w.wva, w.wb, w.w7, w.w6, w.w5x, w.w4, w.w3, w.w2, w.w1};
   if (int map_err = encode_weight_maps<B1Schedule>(maps, b1_weights)) return map_err;
@@ -731,7 +1101,15 @@ int launch_bwd_saved(const float* t, const float* rays_d, const float* venc, con
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   b1<<<n_blocks, kThreads, smem_b1, s>>>(venc, w.wd, w.wr, maps, saved, grow, delta, narrow, S, ray_tile);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  b2<<<kRanges * kDwTiles, kThreads, kDwSmemBytes, s>>>(saved, xenc, delta, partials, n_total, rows_per_range);
+  if (dot_bf16) {
+    Dw16Maps dw16_maps;
+    if (int map_err = encode_dw16_maps(dw16_maps, saved, delta, n_total)) return map_err;
+    level_bwd_dw_bf16_kernel<<<kRanges * kDwTiles, kThreads, smem_b2, s>>>(dw16_maps, xenc, delta, partials, n_total,
+                                                                            rows_per_range);
+  } else {
+    level_bwd_dw_kernel<<<kRanges * kDwTiles, kThreads, smem_b2, s>>>(saved, xenc, delta, partials, n_total,
+                                                                       rows_per_range);
+  }
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   level_bwd_reduce_kernel<<<(kPartialFloats + kThreads - 1) / kThreads, kThreads, 0, s>>>(partials, narrow,
                                                                                           n_blocks, out);

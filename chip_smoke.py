@@ -175,6 +175,21 @@ K2_PASSES = {  # kernel name in csrc/fused_train.cu -> pass
     "level_bwd_integrator_kernel": "integrator", "level_bwd_delta_kernel": "B1",
     "level_bwd_dw_kernel": "B2", "level_bwd_reduce_kernel": "reduce",
 }
+# In bf16 mode B2 is a kernel of its own; B1 is level_bwd_delta_kernel<true>.
+K2_PASSES_BF16 = {**{k: v for k, v in K2_PASSES.items() if v != "B2"}, "level_bwd_dw_bf16_kernel": "B2"}
+# Pass B2's products (csrc/fused_train.cu, AONERF_DW_PRODUCTS): weight
+# gradient -> (H's columns in saved, None for xenc; Delta's columns in B1's
+# delta scratch), and its biases -> Delta's columns. wva's and bv's Delta is
+# 128 wide, every other 256.
+B2_PRODUCTS = {"w0": (None, 0), **{f"w{i}": ((i - 1) * 256, i * 256) for i in (1, 2, 3, 4, 6, 7)},
+               "w5x": (4 * 256, 5 * 256), "w5i": (None, 5 * 256), "wb": (7 * 256, 8 * 256),
+               "wva": (8 * 256, 9 * 256)}
+B2_BIASES = {**{f"b{i}": i * 256 for i in range(8)}, "bb": 8 * 256, "bv": 9 * 256}
+# B2 in bf16 against the products of the operands it read (K1s' saved, B1's
+# fp32 deltas) rounded to bf16 and summed in fp64: its own fp32 sums (32-row
+# tensor-core runs, then the range, then 16 ranges) within B2_TOL of each
+# gradient's largest entry.
+B2_TOL = 1e-5
 K2_RANGES = 16  # pass B2's row ranges
 R_TRAIN = 2048  # rays per train step (config/vanilla.json)
 # K2 against its plain version. A gradient is a sum over R*S rows through
@@ -250,6 +265,7 @@ TIE_SHARE = 5e-3
 # the trained field renders the white background alone, so the same band
 # holds view 0 of the run's initial, random field too.
 FAST_MULTI_STEPS = 2
+CHUNK_FAST = 256  # config/vanilla_tpu_fast.json's chunk: K1's rays a launch on that path
 TOL_BF16_VIEW_MAX, TOL_BF16_VIEW_MEAN = 0.05, 2e-3
 
 
@@ -307,11 +323,28 @@ def phase_build() -> None:
     for name, log in build.ptxas_log.items():
         kernel = ""
         for line in log.splitlines():
-            entry = re.search(r"entry function '.*?\d([a-z_]+_kernel)(ILb([01])E)?", line)
-            if entry:  # the kernel's name in the mangled one, then <false> or <true>: the bf16 mode
-                kernel = entry.group(1) + {None: "", "0": " fp32", "1": " bf16"}[entry.group(3)]
+            entry = re.search(r"entry function '(\w+)'", line)
+            if entry:
+                kernel = _kernel_name(entry.group(1))
             elif "registers" in line or "spill" in line:
                 print(f"  ptxas {name} {kernel}: {line.strip()}")
+
+
+def _kernel_name(mangled: str) -> str:
+    """A kernel's name in its mangled one (_ZN, then each nested name after
+    its length in digits), then fp32 or bf16 for a <false> or <true>
+    instantiation."""
+    pos = mangled.find("_ZN") + 3
+    while pos > 2:
+        digits = re.match(r"\d+", mangled[pos:])
+        if not digits:
+            break
+        pos += digits.end()
+        name, pos = mangled[pos: pos + int(digits.group())], pos + int(digits.group())
+        if name.endswith("_kernel"):
+            rest = mangled[pos:]
+            return name + (" fp32" if rest.startswith("ILb0E") else " bf16" if rest.startswith("ILb1E") else "")
+    return mangled
 
 
 def _view(rng, boxes, focal):
@@ -599,11 +632,11 @@ def _dev_us(event) -> float:
     return getattr(event, "self_device_time_total", None) or getattr(event, "self_cuda_time_total", 0)
 
 
-def _bwd_pass_ms(fn, iters: int) -> dict:
+def _bwd_pass_ms(fn, iters: int, passes: dict = K2_PASSES) -> dict:
     """Device ms per call of each of K2's passes."""
     by_name = _kernel_ms(fn, iters)
     out = {}
-    for kernel, name in K2_PASSES.items():
+    for kernel, name in passes.items():
         hits = [v for k, v in by_name.items() if kernel in k]
         if not hits:
             fail(f"K2 pass {name} ({kernel}) not in the profile: {sorted(by_name)}")
@@ -819,7 +852,11 @@ def phase_backward(nerf, boxes, focal) -> dict:
         ms_again = cuda_ms(k2, warmup=0, iters=5 if S > 100 else 10)
         plain_again = cuda_ms(plain, warmup=0, iters=3)
         parts = _bwd_pass_ms(k2, iters=3)
-        del saved, raw
+        _, delta = backward_with_deltas(args, saved, raw, cot, True, False)
+        b2_ops = b2_operands(saved, xenc.reshape(-1, xenc.shape[-1]), delta)
+        b2_library, b2_library_kind = b2_library_ms(b2_ops, False)
+        b2_plain_ms = cuda_ms(lambda: b2_plain(b2_ops, delta, False), warmup=1, iters=3)
+        del saved, raw, delta, b2_ops
         bound32, _ = _bwd_bound_ms(R, S)
         bound, bound_by = _bwd_bound_3xtf32_ms(R, S)
         pass_bounds = _bwd_pass_bounds(R, S)
@@ -832,7 +869,10 @@ def phase_backward(nerf, boxes, focal) -> dict:
               + f"; B1 + B2 + reduce {parts['B1'] + parts['B2'] + parts['reduce']:.3f} ms, bound "
               f"{sum(pass_bounds[n][0] for n in ('B1', 'B2', 'reduce')):.3f} ms in 3xTF32, "
               f"{2.0 * R * S * (B1_TC_MACS + B1_FP32_MACS + B2_TC_MACS) / PEAK_FP32_FLOPS * 1e3:.3f} ms in fp32")
+        print(f"  S={S}: B2's products as one {b2_library_kind} each (TF32 off), summed, {b2_library:.3f} ms; B2's "
+              f"share of the plain version {b2_plain_ms:.3f} ms")
         levels.append({"S": S, "ms": ms, "ms_again": ms_again, "plain_ms": plain_ms, "plain_ms_again": plain_again,
+                       "b2_library_ms": b2_library, "b2_plain_ms": b2_plain_ms,
                        "bound_ms": bound, "bound_by": bound_by, "bound_ms_fp32": bound32,
                        "passes": {n: {"ms": parts[n], "bound_ms": pass_bounds[n][0], "bound_by": pass_bounds[n][1]}
                                   for n in parts},
@@ -1820,6 +1860,117 @@ def tie_check(kp, t, o, d, venc, xenc) -> float:
     return share
 
 
+def backward_with_deltas(args, saved, raw, cot, white: bool, dot_bf16: bool):
+    """The backward from saved, once, and B1's fp32 deltas from its scratch
+    (R*S x SAVED_FLOATS), which B2 read."""
+    from aonerf_torch.ops.kernels import fused_train as ft
+
+    held, make = [], ft._backward_scratch
+    ft._backward_scratch = lambda *a: held.append(make(*a)) or held[-1]
+    try:
+        grads = ft.fused_level_bwd_saved(*args, saved, raw, *cot, white, dot_bf16=dot_bf16)
+    finally:
+        ft._backward_scratch = make
+    return grads, held[0][0][1].view(-1, SAVED_FLOATS)
+
+
+def b2_operands(saved, xenc, delta) -> dict:
+    """Each of B2's products: (H, rows x K; Delta, rows x N), views."""
+    return {n: (xenc if h is None else saved[:, h: h + 256], delta[:, c: c + (128 if n == "wva" else 256)])
+            for n, (h, c) in B2_PRODUCTS.items()}
+
+
+def b2_plain(ops: dict, delta, dot_bf16: bool) -> dict:
+    """B2's share of the plain version: each product as it forms it (fp32
+    cuBLAS, on operands rounded to bf16 in bf16 mode), each bias as the sum
+    of its fp32 deltas."""
+    from aonerf_torch.ops.kernels import fused_render as fr
+
+    rnd = fr.round_bf16 if dot_bf16 else (lambda x: x)
+    out = {n: rnd(h).t() @ rnd(d) for n, (h, d) in ops.items()}
+    out.update({n: delta[:, c: c + (128 if n == "bv" else 256)].sum(0) for n, c in B2_BIASES.items()})
+    return out
+
+
+def b2_library_ms(ops: dict, dot_bf16: bool) -> tuple:
+    """One torch.mm a product of B2, summed: fp32 operands (TF32 off), or in
+    bf16 mode operands converted to bf16 beforehand (not timed) with an fp32
+    result where torch.mm takes out_dtype; and what was timed."""
+    if not dot_bf16:
+        pairs, kw, kind = [(h.t(), d) for h, d in ops.values()], {}, "fp32 torch.mm"
+    else:
+        pairs = [(h.t().to(torch.bfloat16), d.to(torch.bfloat16)) for h, d in ops.values()]
+        try:
+            torch.mm(*pairs[0], out_dtype=torch.float32)
+            kw, kind = {"out_dtype": torch.float32}, "bf16 torch.mm, fp32 out (out_dtype)"
+        except (TypeError, RuntimeError):
+            kw, kind = {}, "bf16 torch.mm, bf16 out (no out_dtype)"
+    ms = cuda_ms(lambda: [torch.mm(a, b, **kw) for a, b in pairs], warmup=1, iters=3)
+    del pairs
+    return ms, kind
+
+
+def b2_bound(R: int, S: int, peak_flops: float, macs_factor: int = 1) -> dict:
+    """B2 as its own function: its products at peak_flops (macs_factor
+    products a product: 3 for 3xTF32), against its inputs as laid out (every
+    saved column but the view layer's, xenc, the fp32 deltas; read once) and
+    the partial sets it writes."""
+    rows = R * S
+    ops = macs_factor * 2.0 * rows * B2_TC_MACS / peak_flops * 1e3
+    t_bytes = 4.0 * (rows * (SAVED_FLOATS - 128 + 63 + SAVED_FLOATS) + K2_RANGES * N_WEIGHTS) / PEAK_BYTES * 1e3
+    ms, by = _bound(ops, t_bytes)
+    return {"bound_ms": ms, "bound_by": by, "bound_ms_ops": ops, "bound_ms_bytes": t_bytes}
+
+
+def b2_check(args, cot, S: int) -> dict:
+    """B2 in bf16 at the train step's shapes: its 21 gradients against the
+    fp64 products of what it read (B2_TOL) and against B2's share of the
+    plain bf16 version; its time by torch.profiler in turns with that plain
+    share and with the fp32 B2 (fp32, bf16, plain, bf16, plain, fp32), its
+    bound and the library's torch.mm."""
+    from aonerf_torch.ops.kernels import fused_render as fr
+    from aonerf_torch.ops.kernels import fused_train as ft
+
+    xenc = args[5].reshape(-1, args[5].shape[-1])
+    *_, saved, raw = ft.fused_level_fwd_spill(*args, True, dot_bf16=True)
+    got, delta = backward_with_deltas(args, saved, raw, cot, True, True)
+    ops = b2_operands(saved, xenc, delta)
+    worst = 0.0
+    for n, (h, d) in ops.items():
+        want = fr.round_bf16(h).double().t() @ fr.round_bf16(d).double()
+        worst = max(worst, _rel(got[n], want))
+        del want
+    for n, c in B2_BIASES.items():
+        worst = max(worst, _rel(got[n].reshape(-1), delta[:, c: c + (128 if n == "bv" else 256)].double().sum(0)))
+    plain = b2_plain(ops, delta, True)
+    err = max((got[n].reshape(-1) - plain[n].reshape(-1)).abs().max().item() for n in plain)
+    del plain
+    if not worst <= B2_TOL:
+        fail(f"B2 bf16 S={S}: off the fp64 product of its own operands by {worst:.3e} (limit {B2_TOL:g})")
+    k2 = lambda: ft.fused_level_bwd_saved(*args, saved, raw, *cot, True, dot_bf16=True)  # noqa: E731
+    k2_32 = lambda: ft.fused_level_bwd_saved(*args, saved, raw, *cot, True)  # noqa: E731
+    plain_fn = lambda: b2_plain(ops, delta, True)  # noqa: E731
+    fp32_ms = _bwd_pass_ms(k2_32, iters=3)["B2"]
+    ms = _bwd_pass_ms(k2, iters=3, passes=K2_PASSES_BF16)["B2"]
+    plain_ms = cuda_ms(plain_fn, warmup=1, iters=3)
+    ms_again = _bwd_pass_ms(k2, iters=3, passes=K2_PASSES_BF16)["B2"]
+    plain_again = cuda_ms(plain_fn, warmup=0, iters=3)
+    fp32_again = _bwd_pass_ms(k2_32, iters=3)["B2"]
+    library_ms, library = b2_library_ms(ops, True)
+    b = b2_bound(args[1].shape[0], S, PEAK_BF16_FLOPS)
+    print(f"  S={S}: B2 bf16 (level_bwd_dw_bf16_kernel, torch.profiler) {ms:.3f} / {ms_again:.3f} ms, fp32 B2 "
+          f"{fp32_ms:.3f} / {fp32_again:.3f} ms, B2's share of the plain bf16 version {plain_ms:.3f} / "
+          f"{plain_again:.3f} ms (in turns: fp32, bf16, plain, bf16, plain, fp32); bound {b['bound_ms']:.3f} ms "
+          f"({b['bound_by']}: {b['bound_ms_bytes']:.3f} ms for its inputs as laid out at 3.35 TB/s, "
+          f"{b['bound_ms_ops']:.3f} ms for its products at 989 TFLOP/s); {library} {library_ms:.3f} ms; against "
+          f"the fp64 products of its operands {worst:.3e} of the largest entry (limit {B2_TOL:g}), max abs err "
+          f"against the plain bf16 share {err:.3e}")
+    del saved, raw, delta, ops
+    return {"S": S, "ms": ms, "ms_again": ms_again, "fp32_ms": fp32_ms, "fp32_ms_again": fp32_again,
+            "plain_ms": plain_ms, "plain_ms_again": plain_again, **b, "library_ms": library_ms,
+            "library": library, "max_abs_err": err, "fp64_rel_err": worst}
+
+
 def phase_bf16_kernels(nerf, boxes, focal) -> dict:
     """K1, K1s and K2 in bf16 mode against the bf16 rule, at the serving
     tile's 4096 rays (K1) and the train step's 2048 (K1s, K2), S = 65 and
@@ -1830,7 +1981,7 @@ def phase_bf16_kernels(nerf, boxes, focal) -> dict:
 
     dev = torch.device("cuda")
     names = fr.WEIGHT_NAMES
-    k1_levels, k1s_levels, k2_levels = [], [], []
+    k1_levels, k1s_levels, k2_levels, b2_levels = [], [], [], []
     o, d, lvls = _train_levels(nerf, boxes, focal, R=R, seed=SEED + 100, dot_bf16=True)
     for kp, t, venc, xenc in lvls:
         S = t.shape[1]
@@ -1864,13 +2015,21 @@ def phase_bf16_kernels(nerf, boxes, focal) -> dict:
         ms32_again = cuda_ms(k1_32, warmup=0, iters=iters)
         plain_ms = cuda_ms(lambda: fr.fused_render_level_ref(*args, True, dot_bf16=True), warmup=1, iters=3)
         b = _fwd_bounds(S, R)
+        # the fast preset's launches (phase 14) are at its chunk, 256 rays
+        args256 = (kp, *(a[:CHUNK_FAST].contiguous() for a in (t, o, d, venc)),
+                   xenc.reshape(R, S, -1)[:CHUNK_FAST].contiguous())
+        ms256 = cuda_ms(lambda: fr.fused_render_level(*args256, True, dot_bf16=True), warmup=2, iters=4 * iters)
+        plain256 = cuda_ms(lambda: fr.fused_render_level_ref(*args256, True, dot_bf16=True), warmup=1, iters=5)
+        b256 = _fwd_bounds(S, CHUNK_FAST)
         print(f"  S={S}: K1 bf16 {ms:.3f} / {ms_again:.3f} ms, fp32 {ms32:.3f} / {ms32_again:.3f} ms (in turns: fp32, "
               f"bf16, bf16, fp32), plain bf16 {plain_ms:.3f} ms; bound {b['bf16'][0]:.3f} ms ({b['bf16'][1]}; the "
               f"products at 989 TFLOP/s bf16), {b['tf32'][0]:.3f} ms at the 495 TFLOP/s TF32 peak of its one mma; "
-              f"max abs err against the fp32-summed plain bf16 {err:.3e}")
+              f"max abs err against the fp32-summed plain bf16 {err:.3e}; at the fast preset's chunk of "
+              f"{CHUNK_FAST} rays {ms256:.3f} ms, plain bf16 {plain256:.3f} ms, bound {b256['bf16'][0]:.3f} ms")
         k1_levels.append({"S": S, "ms": ms, "ms_again": ms_again, "fp32_ms": ms32, "fp32_ms_again": ms32_again,
                           "plain_ms": plain_ms, "bound_ms": b["bf16"][0], "bound_by": b["bf16"][1],
-                          "bound_ms_tf32": b["tf32"][0], "max_abs_err": err, "rule_ratio": worst})
+                          "bound_ms_tf32": b["tf32"][0], "max_abs_err": err, "rule_ratio": worst,
+                          "ms_chunk": ms256, "plain_ms_chunk": plain256, "bound_ms_chunk": b256["bf16"][0]})
         del args64
 
     o, d, lvls = _train_levels(nerf, boxes, focal, R=R_TRAIN, dot_bf16=True)
@@ -1969,27 +2128,30 @@ def phase_bf16_kernels(nerf, boxes, focal) -> dict:
         *_, saved, raw = ft.fused_level_fwd_spill(*args, True, dot_bf16=True)
         k2 = lambda: ft.fused_level_bwd_saved(*args, saved, raw, *cot, True, dot_bf16=True)  # noqa: E731
         k2_32 = lambda: ft.fused_level_bwd_saved(*args, saved, raw, *cot, True)  # noqa: E731
+        plain = lambda: ft.fused_level_bwd_saved_ref(*args, saved, raw, *cot, True, dot_bf16=True)  # noqa: E731
         iters = 5 if S > 100 else 10
         ms32 = cuda_ms(k2_32, warmup=2, iters=iters)
         ms = cuda_ms(k2, warmup=2, iters=iters)
+        plain_ms = cuda_ms(plain, warmup=1, iters=3)
         ms_again = cuda_ms(k2, warmup=0, iters=iters)
+        plain_again = cuda_ms(plain, warmup=0, iters=3)
         ms32_again = cuda_ms(k2_32, warmup=0, iters=iters)
-        plain_ms = cuda_ms(lambda: ft.fused_level_bwd_saved_ref(*args, saved, raw, *cot, True, dot_bf16=True),
-                           warmup=1, iters=3)
-        parts = _bwd_pass_ms(k2, iters=3)
+        parts = _bwd_pass_ms(k2, iters=3, passes=K2_PASSES_BF16)
         del saved, raw
         b = _bwd_bounds_bf16(R_TRAIN, S)
         print(f"  S={S}: K2 bf16 (the backward from saved) {ms:.3f} / {ms_again:.3f} ms, fp32 {ms32:.3f} / "
-              f"{ms32_again:.3f} ms (in turns), plain bf16 {plain_ms:.3f} ms; bound {b['bf16'][0]:.3f} ms "
-              f"({b['bf16'][1]}), {b['tf32'][0]:.3f} ms at the TF32 peak; by pass (torch.profiler) "
-              + ", ".join(f"{n} {v:.3f}" for n, v in parts.items()) + f"; max abs err against plain bf16 {err:.3e}")
+              f"{ms32_again:.3f} ms, plain bf16 {plain_ms:.3f} / {plain_again:.3f} ms (in turns: fp32, bf16, plain, "
+              f"bf16, plain, fp32); bound {b['bf16'][0]:.3f} ms ({b['bf16'][1]}), {b['tf32'][0]:.3f} ms at the "
+              f"TF32 peak; by pass (torch.profiler) " + ", ".join(f"{n} {v:.3f}" for n, v in parts.items())
+              + f"; max abs err against plain bf16 {err:.3e}")
         k2_levels.append({"S": S, "ms": ms, "ms_again": ms_again, "fp32_ms": ms32, "fp32_ms_again": ms32_again,
-                          "plain_ms": plain_ms, "bound_ms": b["bf16"][0], "bound_by": b["bf16"][1],
-                          "bound_ms_tf32": b["tf32"][0], "passes_ms": parts, "max_abs_err": err,
-                          "rule_ratio": worst})
+                          "plain_ms": plain_ms, "plain_ms_again": plain_again, "bound_ms": b["bf16"][0],
+                          "bound_by": b["bf16"][1], "bound_ms_tf32": b["tf32"][0], "passes_ms": parts,
+                          "max_abs_err": err, "rule_ratio": worst})
+        b2_levels.append(b2_check(args, cot, S))
         del args64
         torch.cuda.empty_cache()
-    return {"k1": k1_levels, "k1s": k1s_levels, "k2": k2_levels}
+    return {"k1": k1_levels, "k1s": k1s_levels, "k2": k2_levels, "b2": b2_levels}
 
 
 def _fast_config(root: str, out: str) -> str:
@@ -2268,6 +2430,17 @@ def main() -> None:
         bf16_entry("fused_level_bwd_bf16", "aonerf_torch/ops/kernels/csrc/fused_train.cu",
                    "aonerf/ops/kernels/fused_train.py:239", bt["k2"], bk["k2"]),
     ]
+    b2lv = bk["b2"]
+    entries.append({
+        # B2 in bf16 mode, one launch in each launch of fused_level_bwd_bf16 (its
+        # launches are those); ms by torch.profiler, one coarse and one fine
+        # level at 2048 rays; plain_ms: B2's share of the plain bf16 version
+        "name": "level_bwd_dw_bf16_kernel", "route": "cuda", "source": "aonerf_torch/ops/kernels/csrc/fused_train.cu",
+        "replaces": "aonerf/ops/kernels/fused_train.py:239", "launches": bt["k2"],
+        "max_abs_err": max(x["max_abs_err"] for x in b2lv), "ms": both(b2lv, "ms"), "plain_ms": both(b2lv, "plain_ms"),
+        "bound_ms": both(b2lv, "bound_ms"), "bound_by": bound_by(b2lv), "library_ms": both(b2lv, "library_ms"),
+        "library": b2lv[0]["library"], "fp32_ms": both(b2lv, "fp32_ms"), "levels": b2lv,
+    })
     print(f"bf16 step at batch {bt['steps_ms']['batch']}: {min(bt['steps_ms']['bf16']):.3f} ms against fp32 "
           f"{min(bt['steps_ms']['fp32']):.3f} ms; K1s bf16 {entries[4]['ms']:.3f} ms + K2 bf16 {entries[5]['ms']:.3f} "
           f"ms a step (fp32 {entries[4]['fp32_ms']:.3f} + {entries[5]['fp32_ms']:.3f} ms)")

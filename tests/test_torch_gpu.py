@@ -684,6 +684,41 @@ def test_bf16_kernels_at_partial_sizes(cuda, R, S):
         assert rel <= _PARTIAL_TOL, f"{name}: {rel}"
 
 
+# B2 in bf16 mode alone (level_bwd_dw_bf16_kernel): its 21 gradients against
+# the products of the very operands it read, K1s' saved activations (xenc
+# for w0, w5i) and B1's fp32 deltas from the call's own scratch, rounded to
+# bf16 and summed in fp64, and each bias against its fp32 deltas summed in
+# fp64, within chip_smoke.py's B2_TOL (B2's own fp32 sums: 32-row
+# tensor-core runs, the range, the 16 ranges). 256 x 65 rows end in a
+# partial last range (15 ranges of 1088 rows, one of 320), 48 x 65 in a
+# range of 48 rows and three empty ones, 16 x 7 in two short ranges, the
+# second of 48 rows.
+@pytest.mark.parametrize("R,S", [(256, 65), (48, 65), (16, 7)])
+def test_bf16_b2_is_the_bf16_product_of_what_it_read(cuda, R, S):
+    mlp = NeRFMLP(generator=torch.Generator().manual_seed(S), device=cuda)
+    with torch.no_grad():
+        kp = fr.kernel_params(mlp)
+    args = (kp, *_level_inputs(R, S, S, cuda))
+    cot = _cotangents(R, S, S + 1, cuda)
+    *_, saved, raw = ft.fused_level_fwd_spill(*args, True, dot_bf16=True)
+    before = ft.launches, ft.bf16_launches
+    got, delta = rule.backward_with_deltas(args, saved, raw, cot, True, True)
+    torch.cuda.synchronize()
+    assert (ft.launches, ft.bf16_launches) == (before[0], before[1] + 1)
+    for name, (h, d) in rule.b2_operands(saved, args[5].reshape(R * S, -1), delta).items():
+        want = fr.round_bf16(h).double().t() @ fr.round_bf16(d).double()
+        assert got[name].shape == want.shape and torch.isfinite(got[name]).all(), name
+        rel = _rel_err(got[name], want)
+        assert rel <= rule.B2_TOL, f"{name}: {rel}"
+    for name, col in rule.B2_BIASES.items():
+        want = delta[:, col: col + (128 if name == "bv" else 256)].double().sum(0)
+        rel = _rel_err(got[name].reshape(-1), want)
+        assert rel <= rule.B2_TOL, f"{name}: {rel}"
+    again = ft.fused_level_bwd_saved(*args, saved, raw, *cot, True, dot_bf16=True)
+    for name in fr.WEIGHT_NAMES:
+        assert torch.equal(again[name], got[name]), name  # no atomics: the same bits
+
+
 def test_bf16_train_cli_goes_through_the_kernels(cuda, tmp_path):
     import json
     import os

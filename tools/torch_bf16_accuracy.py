@@ -20,7 +20,7 @@ indices of K apart), witnesses of how often the rule turns away an order as
 right as any, and the fp32 kernel, which must miss on at least one output a
 level. For the record it also prints the ratios of the two earlier rules:
 4x the cuBLAS order's own error (the first), and 2x the farthest of three
-orders, cuBLAS, reversed K and K in halves (the second, PR 12's), for the
+orders, cuBLAS, reversed K and K in halves (the second), for the
 kernel and for the reversed-K and the K-in-quarters orders. The last line
 counts the cases over each rule. The kernels and cuBLAS give the same bits
 on every call, so a second run of a seed reads the same unless the card or

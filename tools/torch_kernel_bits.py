@@ -19,7 +19,13 @@ sha1 and line count of B1's fp32 SASS (``level_bwd_delta_kernel``, from
 ``cuobjdump -sass``). ``--compare`` prints, for two such files, which
 outputs of the cases both hold have the same bits and exits 1 if any
 differs; it names the cases only one holds, and reports whether B1's SASS
-is the same for information only.
+is the same for information only. With ``--b2-bf16-differs`` (two trees
+whose B2 in bf16 mode sums in other orders) the 21 gradients B2 computes
+in the bf16 K2 cases (B2_GRADS) are expected to differ: ``--compare``
+names them and their largest differences, fails on any other differing
+output, and fails too if none of them differs.
+
+    python3 tools/torch_kernel_bits.py --compare A B --b2-bf16-differs
 """
 
 import argparse
@@ -35,6 +41,10 @@ import torch
 from torch_train_compare import R_TRAIN, level_inputs
 
 B1 = "level_bwd_delta_kernel"
+# The gradients pass B2 computes (the weight products and their biases); B1
+# computes the heads' (wd, bd, wr, br, wvb).
+B2_GRADS = ("w0", "b0", "w1", "b1", "w2", "b2", "w3", "b3", "w4", "b4", "w5x", "w5i", "b5", "w6", "b6",
+            "w7", "b7", "wb", "bb", "wva", "bv")
 R_SERVE = 4096
 OUTPUTS = ("comp", "acc", "depth", "weights")
 
@@ -122,7 +132,11 @@ def same(a, b) -> bool:
     return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
 
 
-def compare(a: str, b: str) -> None:
+def expected_difference(case: str, output: str, b2_bf16_differs: bool) -> bool:
+    return b2_bf16_differs and case.startswith("bf16 K2 ") and output in B2_GRADS
+
+
+def compare(a: str, b: str, b2_bf16_differs: bool = False) -> None:
     x, y = torch.load(a), torch.load(b)
     hx, hy = sass_sha1(x["sass"]), sass_sha1(y["sass"])
     print(f"B1 SASS {'identical' if hx == hy else 'differs'} ({len(x['sass'])} / {len(y['sass'])} lines, sha1 "
@@ -134,31 +148,45 @@ def compare(a: str, b: str) -> None:
             print(f"  only in {name}, not compared: {', '.join(only)}")
     if not common:
         raise SystemExit("torch_kernel_bits: the files hold no case in common")
-    n_diff = n_all = 0
+    n_diff = n_all = n_expected = n_expected_diff = 0
     for case in common:
         p, q = x["cases"][case], y["cases"][case]
         diff = [n for n in p if not same(p[n], q[n])]
-        n_diff, n_all = n_diff + len(diff), n_all + len(p)
-        detail = ""
-        for n in diff:
-            if not isinstance(p[n], str):
-                detail += f" {n} (max abs diff {(p[n].double() - q[n].double()).abs().max().item():.3e})"
-            else:
-                detail += f" {n}"
-        print(f"  {case}: {len(p) - len(diff)} of {len(p)} outputs equal bit for bit"
-              + (f"; differ:{detail}" if diff else ""))
-    print(f"outputs equal bit for bit: {n_all - n_diff} of {n_all}")
+        expected = [n for n in p if expected_difference(case, n, b2_bf16_differs)]
+        unexpected = [n for n in diff if n not in expected]
+        n_diff, n_all = n_diff + len(unexpected), n_all + len(p) - len(expected)
+        n_expected, n_expected_diff = n_expected + len(expected), n_expected_diff + len(diff) - len(unexpected)
+
+        def detail(names):
+            return "".join(f" {n}" + ("" if isinstance(p[n], str) else
+                                      f" (max abs diff {(p[n].double() - q[n].double()).abs().max().item():.3e})")
+                           for n in names)
+        line = f"  {case}: {len(p) - len(expected) - len(unexpected)} of {len(p) - len(expected)} outputs equal bit for bit"
+        if unexpected:
+            line += f"; differ:{detail(unexpected)}"
+        if expected:
+            moved = [n for n in expected if n in diff]
+            line += f"; B2's bf16 gradients, expected to differ: {len(moved)} of {len(expected)} differ" + (
+                f":{detail(moved)}" if moved else "")
+        print(line)
+    print(f"outputs equal bit for bit: {n_all - n_diff} of {n_all}"
+          + (f"; B2's bf16 gradients that differ, as expected: {n_expected_diff} of {n_expected}"
+             if b2_bf16_differs else ""))
     if n_diff:
         sys.exit(1)
+    if b2_bf16_differs and not n_expected_diff:
+        raise SystemExit("torch_kernel_bits: --b2-bf16-differs, but no B2 bf16 gradient differs")
 
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="file to save this tree's outputs to")
     parser.add_argument("--compare", nargs=2, metavar=("A", "B"), help="two files written by --out")
+    parser.add_argument("--b2-bf16-differs", action="store_true",
+                        help="expect B2's gradients in the bf16 K2 cases to differ, and nothing else")
     args = parser.parse_args()
     if args.compare:
-        compare(*args.compare)
+        compare(*args.compare, b2_bf16_differs=args.b2_bf16_differs)
     elif args.out:
         if not torch.cuda.is_available():
             raise SystemExit("torch_kernel_bits: needs a CUDA card")

@@ -13,17 +13,20 @@ inputs and weights from a seed) it times K1 (``fused_render_level``) and,
 where the tree has it, K1s (``fused_level_fwd_spill``) by CUDA events, in
 turns, and K1 at the serving tile's 4096 rays; K2's backward from saved
 (``fused_level_bwd_saved``) by CUDA events and each of its passes
-(integrator backward, B1, B2, reduce) by torch.profiler; then a 320x240
-view rendered
-through ``make_image_renderer`` (chunk 4096, random NeRF from a seed),
-seconds per view by the host clock over two views after one; then the train
-step of ``config/vanilla.json`` (batch 2048, 64+128
-samples, fp32) on an 8-view 320x240 synthetic scene: ms per step by the host
-clock around ``torch.cuda.synchronize()``, and the peak device memory of a
-multi-step (``torch.cuda.max_memory_allocated()``).
+(integrator backward, B1, B2, reduce) by torch.profiler, in fp32 and, where
+the tree has the bf16 mode (``dot_bf16``), in bf16 too; then a 320x240 view
+rendered through ``make_image_renderer`` (chunk 4096, random NeRF from a
+seed), seconds per view by the host clock over two views after one; then the
+train step of ``config/vanilla.json`` (batch 2048, 64+128 samples) on an
+8-view 320x240 synthetic scene, in fp32 and (where the tree has it) in bf16:
+ms per step by the host clock around ``torch.cuda.synchronize()``, and the
+peak device memory of a multi-step (``torch.cuda.max_memory_allocated()``);
+and, in bf16, the step of ``config/vanilla_tpu_fast.json`` (batch 224) on
+the same scene.
 """
 
 import argparse
+import inspect
 import json
 import os
 import subprocess
@@ -88,9 +91,16 @@ def time_levels(device) -> dict:
     return out
 
 
-# K2's passes: kernel name in csrc/fused_train.cu -> pass
+# K2's passes: what the kernel names of csrc/fused_train.cu start with -> pass
+# (B2 is level_bwd_dw_kernel, and in bf16 mode level_bwd_dw_bf16_kernel)
 K2_PASSES = {"level_bwd_integrator_kernel": "integrator", "level_bwd_delta_kernel": "B1",
-             "level_bwd_dw_kernel": "B2", "level_bwd_reduce_kernel": "reduce"}
+             "level_bwd_dw_": "B2", "level_bwd_reduce_kernel": "reduce"}
+
+
+def has_bf16() -> bool:
+    from aonerf_torch.ops.kernels import fused_train as ft
+
+    return "dot_bf16" in inspect.signature(ft.fused_level_bwd_saved).parameters
 
 
 def kernel_ms(fn, iters: int) -> dict:
@@ -129,14 +139,17 @@ def time_backward(device) -> dict:
         cot = tuple(torch.from_numpy(a.astype(np.float32)).to(device) for a in (
             rng.standard_normal((R_TRAIN, 3)), rng.standard_normal(R_TRAIN), 0.1 * rng.standard_normal(R_TRAIN),
             rng.standard_normal((R_TRAIN, S))))
-        *_, saved, raw = ft.fused_level_fwd_spill(*args, True)
-        k2 = lambda: ft.fused_level_bwd_saved(*args, saved, raw, *cot, True)  # noqa: E731
-        row = {"k2_ms": cuda_ms(k2, warmup=2, iters=5 if S > 100 else 10)}
-        by_name = kernel_ms(k2, iters=3)
-        for kernel, name in K2_PASSES.items():
-            row[f"{name}_ms"] = sum(v for k, v in by_name.items() if kernel in k)
+        row = {}
+        for mode in ({}, {"dot_bf16": True}) if has_bf16() else ({},):
+            tag = "_bf16" if mode else ""
+            *_, saved, raw = ft.fused_level_fwd_spill(*args, True, **mode)
+            k2 = lambda: ft.fused_level_bwd_saved(*args, saved, raw, *cot, True, **mode)  # noqa: E731
+            row[f"k2{tag}_ms"] = cuda_ms(k2, warmup=2, iters=5 if S > 100 else 10)
+            by_name = kernel_ms(k2, iters=3)
+            for kernel, name in K2_PASSES.items():
+                row[f"{name}{tag}_ms"] = sum(v for k, v in by_name.items() if kernel in k)
+            del saved, raw
         out[f"S={S}"] = row
-        del saved, raw
     return out
 
 
@@ -163,7 +176,9 @@ def time_view(device) -> dict:
     return {"seconds_per_view": (time.perf_counter() - t0) / 2}
 
 
-def time_train_step(device) -> dict:
+def time_train_step(device, config: str = "vanilla.json", overrides: dict = None, multi_steps: int = 3) -> dict:
+    """ms per step of ``config`` (with ``overrides``) over ``multi_steps``
+    multi-steps after an untimed one."""
     from aonerf_torch.data.synthetic import write_single_scene
     from aonerf_torch.train.loop import Trainer
     from aonerf_torch.utils.config import load_config
@@ -171,18 +186,18 @@ def time_train_step(device) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         root = write_single_scene(os.path.join(tmp, "scene"), img_wh=(320, 240), n_train=8, n_val=1, n_test=0,
                                   seed=0)
-        cfg = load_config(os.path.join(ROOT, "config", "vanilla.json"), {
+        cfg = load_config(os.path.join(ROOT, "config", config), {
             "root_dir": root, "output_path": os.path.join(tmp, "out"), "exp_name": "compare",
-            "img_wh": [320, 240], "lr_init": 1e-3, "lr_delay_steps": 0, "seed": 0,
+            "img_wh": [320, 240], "lr_init": 1e-3, "lr_delay_steps": 0, "seed": 0, **(overrides or {}),
         })
         trainer = Trainer(cfg)
         try:
             buffers = trainer.train_buffers()
             trainer.state, _ = trainer.step_fn(trainer.state, buffers, cfg.seed)  # warm-up multi-step
             torch.cuda.synchronize()
-            n_steps = 3 * trainer._inner_steps
+            n_steps = multi_steps * trainer._inner_steps
             t0 = time.perf_counter()
-            for _ in range(3):
+            for _ in range(multi_steps):
                 trainer.state, _ = trainer.step_fn(trainer.state, buffers, cfg.seed)
             torch.cuda.synchronize()
             step_ms = (time.perf_counter() - t0) * 1e3 / n_steps
@@ -213,6 +228,9 @@ def main() -> None:
     row = {"label": args.label, "package": os.path.relpath(os.path.dirname(aonerf_torch.__file__), ROOT),
            "card": smi[0] if smi else None, "levels": time_levels(device), "backward": time_backward(device),
            "view": time_view(device), "train": time_train_step(device)}
+    if has_bf16():
+        row["train_bf16"] = time_train_step(device, overrides={"compute_dtype": "bf16"})
+        row["train_fast"] = time_train_step(device, "vanilla_tpu_fast.json", multi_steps=1)
     print(json.dumps(row), flush=True)
 
 
