@@ -88,28 +88,26 @@
 //     sums): the same tiles, ranges and partial sets as the fp32 B2 on
 //     native bf16 products, mma.sync m16n8k16 (half the mma of a TF32 k8
 //     walk; at 989 TFLOP/s its products take 0.47 ms at S = 193). What
-//     bounds it is bytes: `saved` and B1's `delta` in their fp32 layout, 7.6
-//     GB at S = 193 (2.28 ms at 3.35 TB/s), which every block stages
-//     through shared memory and rounds there (cp.async and TMA cannot
-//     convert). Its blocks run in clusters of four, the four M tiles of one
-//     column tile: each loads its own H rows by TMA and a quarter of the
-//     Delta rows multicast to all four, into a 4-stage ring of 32-row fp32
-//     stages (a full barrier a stage, one wait a step; an empty barrier that
-//     takes the four blocks' releases), so each Delta byte leaves L2 once
-//     for four blocks. One pass a step rounds the stage to a bf16 tile in the
-//     layout ldmatrix.trans reads and sums the bias tile from the fp32
-//     deltas; no fragment is converted. Both operands are K-major here (K is
-//     the sample row), which ldmatrix.trans turns into mma.sync's fragments.
-//     112,704 bytes of shared memory, 116 registers, two blocks a SM. On the
-//     H100 (tools/torch_train_compare.py): 1.38 / 3.95-3.96 ms at 2048
-//     rays x S = 65 / 193 against 2.29-2.33 / 6.69-6.72 for the TF32 walk
-//     on bf16 values it replaced, and 1.60-1.61 / 4.66 for a first design
-//     with a cp.async ring; tools/torch_b2_variants.py: staging alone (no
-//     rounding pass, no product) 0.93 / 2.80-2.81 ms, near the bytes'
-//     bound, the TMA ring without clusters 1.38-1.41 / 4.28-4.39. What the
-//     pass and the products add goes through shared memory (~92 KB a block
-//     a step). Below the bytes' bound only a bf16 layout of `saved` and
-//     `delta` (K1s, B1) would go.
+//     bounds it is bytes: the saved activations are bf16 values (2 bytes
+//     each) and the deltas fp32 (the bias sums need them), 1.73 ms at 3.35
+//     TB/s at S = 193; but both scratches are laid out in fp32, 7.6 GB (2.28
+//     ms), and every block stages those fp32 rows through shared memory and
+//     rounds them there (cp.async and TMA cannot convert). Each block loads
+//     its rows by TMA into a 4-stage ring of 32-row fp32 stages (one wait a
+//     step); one pass a step rounds the stage to a bf16 tile in the layout
+//     ldmatrix.trans reads and sums the bias tile from the fp32 deltas; no
+//     fragment is converted. Both operands are K-major here (K is the sample
+//     row), which ldmatrix.trans turns into mma.sync's fragments. 112,672
+//     bytes of shared memory, two blocks a SM. On the H100
+//     (tools/torch_train_compare.py, in turns): 1.37-1.39 / 4.35-4.38 ms at
+//     2048 rays x S = 65 / 193, 40% of the 2-byte bound at S = 193, against
+//     2.31-2.32 / 6.67-6.71 for the TF32 walk on bf16 values it replaced.
+//     Clusters of the four M tiles of a column tile, each Delta row
+//     multicast to the four, took B2 to 3.91-3.92 ms at S = 193, but the
+//     bf16 train step did not resolve that gain (10 pairs in turns), so the
+//     blocks stay independent. What the rounding pass and the products add
+//     goes through shared memory (~92 KB a block a step). Below the layout's
+//     2.28 ms only a bf16 layout of `saved` and `delta` (K1s, B1) would go.
 //  R. level_bwd_reduce_kernel: sums the 16 partial sets (38 MB, which L2
 //     holds) and the B1 blocks' narrow sets, each in a fixed order.
 //
@@ -151,7 +149,7 @@
 // phase on the H100): K1s 220 registers, no spill; the integrator backward
 // 39; B1 255 registers, 20 bytes of spill stores and 20 of spill loads
 // (24-byte stack frame); B2 128 registers (capped by __launch_bounds__(256,
-// 2)), no spill, and in bf16 116; the reduction 31 registers.
+// 2)), no spill, and in bf16 124; the reduction 31 registers.
 //
 // Measured there (NVIDIA H100 80GB HBM3, 700 W; tools/torch_train_compare.py,
 // 2048 rays, S = 65 / 193): K1s 3.33-3.40 / 9.51-9.77 ms, B1 3.26-3.31 /
@@ -218,15 +216,14 @@ constexpr int kX = -1;  // h_off of the products whose H is the encoded input
 // B2 in bf16 mode: kDw16Step rows a step, a ring of kDw16Stages fp32 stages
 // (H's kDwM then Delta's kDwN columns a row, unpadded), one bf16 tile of the
 // step (row strides 72 and 136 bf16, 144 and 272 bytes: the 8 rows of an
-// ldmatrix fall in 8 different 16-byte bank groups) and the stages' full and
-// empty barriers, after up to kRingAlign bytes of alignment: 112,704 bytes,
-// two blocks a SM. Three stages, or a second bf16 tile (one barrier a step
-// fewer) in place of the fourth stage, took the same time on the H100.
+// ldmatrix fall in 8 different 16-byte bank groups) and the stages' full
+// barriers, after up to kRingAlign bytes of alignment: 112,672 bytes, two
+// blocks a SM.
 constexpr int kDw16Step = 32, kDw16Stages = 4;
 constexpr int kDw16Stage = kDw16Step * (kDwM + kDwN);
 constexpr int kDw16Hs = kDwM + 8, kDw16Ds = kDwN + 8;
 constexpr size_t kDw16SmemBytes = kRingAlign + sizeof(float) * kDw16Stages * kDw16Stage +
-                                 sizeof(uint16_t) * kDw16Step * (kDw16Hs + kDw16Ds) + 2 * kDw16Stages * sizeof(uint64_t);
+                                 sizeof(uint16_t) * kDw16Step * (kDw16Hs + kDw16Ds) + kDw16Stages * sizeof(uint64_t);
 static_assert(kDw16Stages * kDw16Stage >= (kThreads / 32) * kDwN, "the bias tile's row groups fit in the ring");
 
 // One weight product: dW[grad] (K x N) = H^T . Delta over all sample rows,
@@ -715,90 +712,31 @@ level_bwd_dw_kernel(const float* __restrict__ saved, const float* __restrict__ x
 }
 
 // B2 in bf16 mode: the same tiles, ranges and partial sets as the fp32 B2,
-// on native bf16 products. Blocks run in clusters of kDw16Cluster = 4: the
-// four M tiles of one column tile of a product whose H is a saved layer (17
-// clusters a range), which read the same Delta rows, and one cluster of the
-// four tiles whose H is xenc (w0, w5i). A step is 32 rows. In a shared
-// cluster each block's thread 0 loads, by TMA, its own H rows (32 x 64) and
-// a quarter of the Delta rows (8 x 128) multicast to all four blocks, into a
-// ring of kDw16Stages fp32 stages: each Delta byte leaves L2 once for the
-// four blocks instead of four times. A stage's full barrier takes the
-// 24,576 bytes every block receives; its empty barrier the four blocks'
-// releases, so no block refills a stage a peer still reads. The xenc
-// cluster stages by cp.async (xenc's 63-float rows are no TMA box), its own
-// rows only, the pad column zeroed. Once a step has landed, one pass rounds
-// each value to bf16 (cvt.rn: to nearest, ties to even) into the step's bf16
-// tile, in the layout ldmatrix reads, and adds the fp32 deltas of the bias
-// tile into each thread's running column sums; the warps then run the
-// step's two k16 slices on mma.sync m16n8k16 bf16, A = H^T and B = Delta
-// each loaded by ldmatrix.trans from their [row][col] tiles. Each step's
-// products go to a fresh accumulator that an fp32 add folds into the tile's
-// sum (the tensor cores truncate as they accumulate). The bias tile: thread
-// i sums columns 4 (i % 32) + [0, 4) over the rows (i / 32) + 8 j of every
-// step in order; the eight row groups' sums are then added in group order.
-// Steps end on multiples of 32 rows (rows_per_range is a multiple of 64),
-// so only the last range's last step runs past its rows, into rows TMA reads
-// as zeros (past n_total) or cp.async zero-fills.
+// on native bf16 products. A step is 32 rows. A block whose H is a saved
+// layer has thread 0 load, by TMA, the step's H rows (32 x 64) and Delta
+// rows (32 x 128) into a ring of kDw16Stages fp32 stages, each with a full
+// barrier that takes the stage's 24,576 bytes. A stage is refilled only
+// after the barrier that ends the pass that read it, so it needs no empty
+// barrier. The tiles whose H is xenc (w0, w5i) stage by cp.async (xenc's
+// 63-float rows are no TMA box), one committed group a step, the pad
+// column zeroed. Once a step has landed, one pass rounds each value to bf16
+// (cvt.rn: to nearest, ties to even) into the step's bf16 tile, in the
+// layout ldmatrix reads, and adds the fp32 deltas of the bias tile into
+// each thread's running column sums; the warps then run the step's two k16
+// slices on mma.sync m16n8k16 bf16, A = H^T and B = Delta each loaded by
+// ldmatrix.trans from their [row][col] tiles. Each step's products go to a
+// fresh accumulator that an fp32 add folds into the tile's sum (the tensor
+// cores truncate as they accumulate). The bias tile: thread i sums columns
+// 4 (i % 32) + [0, 4) over the rows (i / 32) + 8 j of every step in order;
+// the eight row groups' sums are then added in group order. Steps end on
+// multiples of 32 rows (rows_per_range is a multiple of 64), so only the
+// last range's last step runs past its rows, into rows TMA reads as zeros
+// (past n_total) or cp.async zero-fills.
 struct Dw16Maps {
   CUtensorMap h;  // saved: boxes of kDwM columns x kDw16Step rows
-  CUtensorMap d;  // delta: boxes of kDwN columns x kDw16Step / kDw16Cluster rows
+  CUtensorMap d;  // delta: boxes of kDwN columns x kDw16Step rows
 };
-constexpr int kDw16Cluster = 4;
-constexpr int kDw16Clusters = kDwTiles / kDw16Cluster;  // 18 a range
-constexpr int kDw16Quarter = kDw16Step / kDw16Cluster;  // Delta rows each block of a cluster loads
 constexpr int kDw16StageBytes = kDw16Stage * (int)sizeof(float);
-struct Dw16Table {
-  int product[kDw16Clusters], n0[kDw16Clusters];   // each shared cluster's product and column tile
-  int x_product[kDw16Cluster], x_n0[kDw16Cluster];  // the xenc cluster's tiles, by rank
-};
-constexpr Dw16Table make_dw16_table() {
-  Dw16Table t{};
-  int c = 0, x = 0;
-  for (int p = 0; p < kNumProducts; ++p)
-    for (int j = 0; j < kProducts[p].N / kDwN; ++j) {
-      if (kProducts[p].h_off != kX) {
-        t.product[c] = p;
-        t.n0[c++] = j * kDwN;
-      } else {
-        t.x_product[x] = p;
-        t.x_n0[x++] = j * kDwN;
-      }
-    }
-  t.product[c] = -1;  // the last cluster: the xenc tiles
-  return t;
-}
-constexpr bool dw16_table_fits() {
-  int shared = 0, x = 0;
-  for (int p = 0; p < kNumProducts; ++p) {
-    const int tiles = kProducts[p].N / kDwN;
-    if (kProducts[p].h_off != kX) {
-      if (m_tiles(kProducts[p]) != kDw16Cluster) return false;
-      shared += tiles;
-    } else {
-      if (m_tiles(kProducts[p]) != 1) return false;
-      x += tiles;
-    }
-  }
-  return shared == kDw16Clusters - 1 && x == kDw16Cluster;
-}
-static_assert(dw16_table_fits(), "B2 bf16: 4 M tiles for every saved layer's product, 4 xenc tiles in all");
-static_assert(kDw16Quarter * kDw16Cluster == kDw16Step, "a step splits into the cluster's quarters");
-__constant__ Dw16Table c_dw16 = make_dw16_table();
-
-// A bf16 B2 block: its tile, range and place in its cluster.
-__device__ __forceinline__ DwBlock dw16_block(int n_total, int rows_per_range, bool& shared) {
-  DwBlock b;
-  const int c = (blockIdx.x % kDwTiles) / kDw16Cluster, rank = blockIdx.x % kDw16Cluster;
-  b.q = blockIdx.x / kDwTiles;
-  shared = c_dw16.product[c] >= 0;
-  b.P = c_products[shared ? c_dw16.product[c] : c_dw16.x_product[rank]];
-  b.m0 = shared ? rank * kDwM : 0;
-  b.n0 = shared ? c_dw16.n0[c] : c_dw16.x_n0[rank];
-  b.lo = min(n_total, b.q * rows_per_range);
-  b.hi = min(n_total, b.lo + rows_per_range);
-  b.with_bias = b.P.bias >= 0 && b.m0 == 0;
-  return b;
-}
 
 __device__ __forceinline__ uint32_t bf16x2_rn(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -826,33 +764,7 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Clusters: every thread of every block of the cluster arrives and waits;
-// and one arrival on the barrier at `bar`'s offset in block `cta`.
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t cta) {
-  asm volatile(
-      "{\n"
-      ".reg .b32 remote;\n"
-      "mapa.shared::cluster.u32 remote, %0, %1;\n"
-      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n"
-      "}\n" ::"r"(smem_addr(bar)),
-      "r"(cta)
-      : "memory");
-}
-// The box of `map` at (x, y) into dst in every block of `mask`, completing on
-// the barrier at bar's offset in each.
-__device__ __forceinline__ void tma_load_2d_multicast(float* dst, const CUtensorMap* map, uint64_t* bar, int x, int y,
-                                                      uint16_t mask) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster [%0], [%1, {%3, "
-      "%4}], [%2], %5;\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(x), "r"(y), "h"(mask)
-      : "memory");
-}
-
-__global__ void __cluster_dims__(kDw16Cluster, 1, 1) __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, 2)
 level_bwd_dw_bf16_kernel(const __grid_constant__ Dw16Maps maps, const float* __restrict__ xenc,
                          const float* __restrict__ delta, float* __restrict__ partials, int n_total,
                          int rows_per_range) {
@@ -861,40 +773,31 @@ level_bwd_dw_bf16_kernel(const __grid_constant__ Dw16Maps maps, const float* __r
   uint16_t* hb = reinterpret_cast<uint16_t*>(ring + kDw16Stages * kDw16Stage);  // kDw16Step x kDw16Hs bf16
   uint16_t* db = hb + kDw16Step * kDw16Hs;                                      // kDw16Step x kDw16Ds bf16
   uint64_t* full = reinterpret_cast<uint64_t*>(db + kDw16Step * kDw16Ds);       // kDw16Stages
-  uint64_t* empty = full + kDw16Stages;                                         // kDw16Stages
-  bool shared;
-  const DwBlock B = dw16_block(n_total, rows_per_range, shared);
+  const DwBlock B = dw_block(n_total, rows_per_range);
   const DwProduct& P = B.P;
+  const bool tma = P.h_off != kX;
   const int lo = B.lo, hi = B.hi;
   const int n_steps = hi > lo ? (hi - lo + kDw16Step - 1) / kDw16Step : 0;
-  const uint32_t rank = blockIdx.x % kDw16Cluster;
 
   if (threadIdx.x == 0) {
-    for (int i = 0; i < kDw16Stages; ++i) {
-      mbar_init(&full[i], 1);
-      mbar_init(&empty[i], kDw16Cluster);
-    }
+    for (int i = 0; i < kDw16Stages; ++i) mbar_init(&full[i], 1);
     mbar_init_fence();
   }
-  cluster_sync();  // every block's barriers exist before a peer's copy or release reaches them
+  __syncthreads();
 
-  // Step t's fp32 rows into ring slot t % kDw16Stages. Shared clusters: by
-  // thread 0, once all four blocks have released the slot's last use (the
-  // full barrier expects the whole stage; the four quarters of Delta come
-  // from the four blocks). The xenc cluster: cp.async by every thread, one
-  // committed group a step (empty past the range).
+  // Step t's fp32 rows into ring slot t % kDw16Stages: by TMA from thread 0,
+  // or, for xenc's tiles, by cp.async from every thread, one committed group
+  // a step (empty past the range).
   auto stage = [&](int t) {
     const int slot = t % kDw16Stages;
     float* hs = ring + slot * kDw16Stage;
     float* ds = hs + kDw16Step * kDwM;
     const int s0 = lo + t * kDw16Step;
-    if (shared) {
+    if (tma) {
       if (threadIdx.x == 0 && t < n_steps) {
-        if (t >= kDw16Stages) mbar_wait(&empty[slot], (t / kDw16Stages - 1) & 1);
         mbar_arrive_expect_tx(&full[slot], kDw16StageBytes);
         tma_load_2d(hs, &maps.h, &full[slot], P.h_off + B.m0, s0);
-        tma_load_2d_multicast(ds + rank * kDw16Quarter * kDwN, &maps.d, &full[slot], P.d_off + B.n0,
-                              s0 + rank * kDw16Quarter, (1u << kDw16Cluster) - 1);
+        tma_load_2d(ds, &maps.d, &full[slot], P.d_off + B.n0, s0);
       }
       return;
     }
@@ -928,8 +831,8 @@ level_bwd_dw_bf16_kernel(const __grid_constant__ Dw16Maps maps, const float* __r
   for (int t = 0; t < kDw16Stages - 1; ++t) stage(t);
   for (int s = 0; s < n_steps; ++s) {
     const int slot = s % kDw16Stages;
-    if (shared) {
-      mbar_wait(&full[slot], (s / kDw16Stages) & 1);  // step s has landed, all four quarters of Delta
+    if (tma) {
+      mbar_wait(&full[slot], (s / kDw16Stages) & 1);  // step s has landed
     } else {
       cp_async_wait<kDw16Stages - 2>();  // this thread's copies of step s have landed
     }
@@ -957,9 +860,6 @@ level_bwd_dw_bf16_kernel(const __grid_constant__ Dw16Maps maps, const float* __r
       }
     }
     __syncthreads();  // the bf16 tile of step s is complete, and every thread is done with slot s
-    if (shared && threadIdx.x == 0) {
-      for (uint32_t cta = 0; cta < kDw16Cluster; ++cta) mbar_arrive_cluster(&empty[slot], cta);
-    }
     stage(s + kDw16Stages - 1);  // into the slot step s - 1 left
     float part[2][4][4];
     zero_acc(part);
@@ -978,7 +878,7 @@ level_bwd_dw_bf16_kernel(const __grid_constant__ Dw16Maps maps, const float* __r
     }
     add_into(tot, part);
   }
-  if (!shared) cp_async_wait<0>();  // the groups left are empty
+  if (!tma) cp_async_wait<0>();  // the groups left are empty
 
   store_dw_tile(B, tot, partials);
   if (B.with_bias) {  // the same for the whole block
@@ -992,7 +892,6 @@ level_bwd_dw_bf16_kernel(const __grid_constant__ Dw16Maps maps, const float* __r
       partials[(size_t)B.q * kPartialFloats + c_layout.off[P.bias] + B.n0 + threadIdx.x] = b;
     }
   }
-  cluster_sync();  // no block leaves while a peer may still release a stage to it
 }
 
 // The bf16 B2's maps over `saved` and `delta` (n_total rows of kSpill fp32,
@@ -1005,7 +904,7 @@ int encode_dw16_maps(Dw16Maps& maps, const float* saved, const float* delta, int
   const cuuint64_t strides[1] = {(cuuint64_t)kSpill * sizeof(float)};
   const cuuint32_t unit[2] = {1, 1};
   const cuuint32_t box_h[2] = {(cuuint32_t)kDwM, (cuuint32_t)kDw16Step};
-  const cuuint32_t box_d[2] = {(cuuint32_t)kDwN, (cuuint32_t)kDw16Quarter};
+  const cuuint32_t box_d[2] = {(cuuint32_t)kDwN, (cuuint32_t)kDw16Step};
   CUresult r = encode(&maps.h, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(saved), dims, strides, box_h,
                       unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

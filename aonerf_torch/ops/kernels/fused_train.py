@@ -30,7 +30,7 @@ is analytic:
 """
 
 import ctypes
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, NamedTuple, Tuple
 
 import torch
 
@@ -292,8 +292,21 @@ def _launch(fn_name, dev, fn, *args):
     check_launch(fn_name, err)
 
 
+class BackwardScratch(NamedTuple):
+    """The backward's device scratch, in the order the C entry points take it:
+    grow (R*S*4), delta (R*S*SAVED_FLOATS, B1's fp32 deltas, which B2 reads),
+    the row ranges' partial sets, the B1 blocks' narrow sets, and out (the
+    26 gradients, padded)."""
+
+    grow: torch.Tensor
+    delta: torch.Tensor
+    partials: torch.Tensor
+    narrow: torch.Tensor
+    out: torch.Tensor
+
+
 def _backward_scratch(lib, kernel_params, R, S, ray_tile, dev):
-    """grow, delta, partials, narrow, out and the 26 gradients as views of out."""
+    """A :class:`BackwardScratch` and the 26 gradients as views of its out."""
     shapes = [tuple(kernel_params[n].shape) for n in WEIGHT_NAMES]
     offsets = _padded_offsets(shapes)
     n_out = lib.aonerf_fused_level_bwd_partial_floats()
@@ -307,7 +320,7 @@ def _backward_scratch(lib, kernel_params, R, S, ray_tile, dev):
     out = torch.empty(n_out, **f32)
     grads = {n: out[offsets[i] : offsets[i] + kernel_params[n].numel()].view(shapes[i])
              for i, n in enumerate(WEIGHT_NAMES)}
-    return (grow, delta, partials, narrow, out), grads
+    return BackwardScratch(grow, delta, partials, narrow, out), grads
 
 
 def fused_level_fwd_spill(
@@ -380,7 +393,8 @@ def fused_level_bwd_saved(
     white_bkgd: bool,
     ray_tile: int = RAY_TILE,
     dot_bf16: bool = False,
-) -> Dict[str, torch.Tensor]:
+    deltas: bool = False,
+):
     """Gradients of the 26 level weights (each shaped like its weight) from
     what :func:`fused_level_fwd_spill` saved (``saved``, ``raw``) and the
     cotangents of its outputs: g_comp (R,3), g_acc (R,), g_depth (R,),
@@ -390,11 +404,15 @@ def fused_level_bwd_saved(
     integrator backward (one warp per ray), B1 with one block per
     ``ray_tile`` rays, B2 over a fixed number of row ranges, then the
     reduction (with ``dot_bf16``, B1 and B2 in bf16 mode on the rounded
-    weights); on CPU tensors it runs the plain version.
+    weights); on CPU tensors it runs the plain version. With ``deltas`` (CUDA
+    tensors only) it returns (gradients, B1's fp32 deltas as (R*S,
+    SAVED_FLOATS)), the operands B2 read beside the saved activations.
     """
     global launches, bf16_launches
     R, S = t_vals.shape
     if _device_of("fused_level_bwd_saved", t_vals, R, ray_tile) == "cpu":
+        if deltas:
+            raise ValueError("fused_level_bwd_saved: deltas come from the kernel's scratch, on cuda tensors only")
         return fused_level_bwd_saved_ref(
             kernel_params, t_vals, rays_o, rays_d, viewdirs_enc, samples_enc, saved, raw,
             g_comp, g_acc, g_depth, g_weights, white_bkgd, dot_bf16=dot_bf16,
@@ -421,7 +439,7 @@ def fused_level_bwd_saved(
         bf16_launches += 1
     else:
         launches += 1
-    return grads
+    return (grads, scratch.delta.view(R * S, SAVED_FLOATS)) if deltas else grads
 
 
 def fused_level_bwd(

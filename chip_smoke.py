@@ -1865,13 +1865,7 @@ def backward_with_deltas(args, saved, raw, cot, white: bool, dot_bf16: bool):
     (R*S x SAVED_FLOATS), which B2 read."""
     from aonerf_torch.ops.kernels import fused_train as ft
 
-    held, make = [], ft._backward_scratch
-    ft._backward_scratch = lambda *a: held.append(make(*a)) or held[-1]
-    try:
-        grads = ft.fused_level_bwd_saved(*args, saved, raw, *cot, white, dot_bf16=dot_bf16)
-    finally:
-        ft._backward_scratch = make
-    return grads, held[0][0][1].view(-1, SAVED_FLOATS)
+    return ft.fused_level_bwd_saved(*args, saved, raw, *cot, white, dot_bf16=dot_bf16, deltas=True)
 
 
 def b2_operands(saved, xenc, delta) -> dict:
@@ -1910,16 +1904,26 @@ def b2_library_ms(ops: dict, dot_bf16: bool) -> tuple:
     return ms, kind
 
 
-def b2_bound(R: int, S: int, peak_flops: float, macs_factor: int = 1) -> dict:
+def b2_bound(R: int, S: int, peak_flops: float, macs_factor: int = 1, saved_bytes: int = 4) -> dict:
     """B2 as its own function: its products at peak_flops (macs_factor
-    products a product: 3 for 3xTF32), against its inputs as laid out (every
-    saved column but the view layer's, xenc, the fp32 deltas; read once) and
-    the partial sets it writes."""
+    products a product: 3 for 3xTF32), against the bytes it must move, each
+    read or written once: every saved column but the view layer's at
+    saved_bytes a value (2 in bf16 mode, where they hold bf16 values), xenc
+    and the deltas in fp32 (the bias sums need them so), and the partial
+    sets it writes. bound_ms_layout: the same with the saved columns as laid
+    out, 4 bytes a value."""
     rows = R * S
     ops = macs_factor * 2.0 * rows * B2_TC_MACS / peak_flops * 1e3
-    t_bytes = 4.0 * (rows * (SAVED_FLOATS - 128 + 63 + SAVED_FLOATS) + K2_RANGES * N_WEIGHTS) / PEAK_BYTES * 1e3
+
+    def bytes_ms(saved_b: int) -> float:
+        n = rows * (saved_b * (SAVED_FLOATS - 128) + 4.0 * (63 + SAVED_FLOATS)) + 4.0 * K2_RANGES * N_WEIGHTS
+        return n / PEAK_BYTES * 1e3
+
+    t_bytes = bytes_ms(saved_bytes)
     ms, by = _bound(ops, t_bytes)
-    return {"bound_ms": ms, "bound_by": by, "bound_ms_ops": ops, "bound_ms_bytes": t_bytes}
+    layout_ms, _ = _bound(ops, bytes_ms(4))
+    return {"bound_ms": ms, "bound_by": by, "bound_ms_ops": ops, "bound_ms_bytes": t_bytes,
+            "bound_ms_layout": layout_ms}
 
 
 def b2_check(args, cot, S: int) -> dict:
@@ -1957,11 +1961,12 @@ def b2_check(args, cot, S: int) -> dict:
     plain_again = cuda_ms(plain_fn, warmup=0, iters=3)
     fp32_again = _bwd_pass_ms(k2_32, iters=3)["B2"]
     library_ms, library = b2_library_ms(ops, True)
-    b = b2_bound(args[1].shape[0], S, PEAK_BF16_FLOPS)
+    b = b2_bound(args[1].shape[0], S, PEAK_BF16_FLOPS, saved_bytes=2)
     print(f"  S={S}: B2 bf16 (level_bwd_dw_bf16_kernel, torch.profiler) {ms:.3f} / {ms_again:.3f} ms, fp32 B2 "
           f"{fp32_ms:.3f} / {fp32_again:.3f} ms, B2's share of the plain bf16 version {plain_ms:.3f} / "
           f"{plain_again:.3f} ms (in turns: fp32, bf16, plain, bf16, plain, fp32); bound {b['bound_ms']:.3f} ms "
-          f"({b['bound_by']}: {b['bound_ms_bytes']:.3f} ms for its inputs as laid out at 3.35 TB/s, "
+          f"({b['bound_by']}: {b['bound_ms_bytes']:.3f} ms for its bytes at 3.35 TB/s, the saved bf16 values at 2 "
+          f"bytes, the deltas fp32; {b['bound_ms_layout']:.3f} ms with the saved values as laid out, 4 bytes; "
           f"{b['bound_ms_ops']:.3f} ms for its products at 989 TFLOP/s); {library} {library_ms:.3f} ms; against "
           f"the fp64 products of its operands {worst:.3e} of the largest entry (limit {B2_TOL:g}), max abs err "
           f"against the plain bf16 share {err:.3e}")
@@ -2438,7 +2443,10 @@ def main() -> None:
         "name": "level_bwd_dw_bf16_kernel", "route": "cuda", "source": "aonerf_torch/ops/kernels/csrc/fused_train.cu",
         "replaces": "aonerf/ops/kernels/fused_train.py:239", "launches": bt["k2"],
         "max_abs_err": max(x["max_abs_err"] for x in b2lv), "ms": both(b2lv, "ms"), "plain_ms": both(b2lv, "plain_ms"),
-        "bound_ms": both(b2lv, "bound_ms"), "bound_by": bound_by(b2lv), "library_ms": both(b2lv, "library_ms"),
+        # bound_ms: the saved bf16 values at 2 bytes; bound_ms_layout: at 4, as
+        # K1s lays them out
+        "bound_ms": both(b2lv, "bound_ms"), "bound_ms_layout": both(b2lv, "bound_ms_layout"),
+        "bound_by": bound_by(b2lv), "library_ms": both(b2lv, "library_ms"),
         "library": b2lv[0]["library"], "fp32_ms": both(b2lv, "fp32_ms"), "levels": b2lv,
     })
     print(f"bf16 step at batch {bt['steps_ms']['batch']}: {min(bt['steps_ms']['bf16']):.3f} ms against fp32 "

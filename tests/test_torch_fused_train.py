@@ -153,6 +153,15 @@ def test_cpu_bwd_does_not_count_a_launch():
     assert ft.launches == before
 
 
+def test_cpu_bwd_saved_refuses_to_return_deltas():
+    # B1's deltas come from the kernel's scratch; the plain version keeps none
+    params, inputs, cot = _level(8, 9, seed=0)
+    kp, args = _torch_kp(params), [torch.from_numpy(x) for x in inputs]
+    *_, saved, raw = ft.fused_level_fwd_spill(kp, *args, True, ray_tile=4)
+    with pytest.raises(ValueError, match="deltas"):
+        ft.fused_level_bwd_saved(kp, *args, saved, raw, *map(torch.from_numpy, cot), True, ray_tile=4, deltas=True)
+
+
 def test_padded_offsets_align_every_gradient():
     shapes = [tuple(v.shape) for v in _torch_kp(_level(4, 3, 0)[0]).values()]
     offsets = ft._padded_offsets(shapes)

@@ -22,7 +22,8 @@ train step of ``config/vanilla.json`` (batch 2048, 64+128 samples) on an
 ms per step by the host clock around ``torch.cuda.synchronize()``, and the
 peak device memory of a multi-step (``torch.cuda.max_memory_allocated()``);
 and, in bf16, the step of ``config/vanilla_tpu_fast.json`` (batch 224) on
-the same scene.
+the same scene. With ``--bf16-step-only`` it times the bf16 step at batch
+2048 alone, for many short runs of two trees in turns.
 """
 
 import argparse
@@ -215,6 +216,8 @@ def time_train_step(device, config: str = "vanilla.json", overrides: dict = None
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--label", required=True, help="name of the tree in the output line")
+    parser.add_argument("--bf16-step-only", action="store_true",
+                        help="time only the bf16 train step at batch 2048 (for many short runs in turns)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_train_compare: needs a CUDA card")
@@ -226,8 +229,13 @@ def main() -> None:
                          capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
     device = torch.device("cuda")
     row = {"label": args.label, "package": os.path.relpath(os.path.dirname(aonerf_torch.__file__), ROOT),
-           "card": smi[0] if smi else None, "levels": time_levels(device), "backward": time_backward(device),
-           "view": time_view(device), "train": time_train_step(device)}
+           "card": smi[0] if smi else None}
+    if args.bf16_step_only:
+        row["train_bf16"] = time_train_step(device, overrides={"compute_dtype": "bf16"})
+        print(json.dumps(row), flush=True)
+        return
+    row.update(levels=time_levels(device), backward=time_backward(device), view=time_view(device),
+               train=time_train_step(device))
     if has_bf16():
         row["train_bf16"] = time_train_step(device, overrides={"compute_dtype": "bf16"})
         row["train_fast"] = time_train_step(device, "vanilla_tpu_fast.json", multi_steps=1)
