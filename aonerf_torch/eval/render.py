@@ -38,7 +38,7 @@ def _render_tiles(render_tile: Callable[[Dict[str, torch.Tensor]], Rendered], ra
 def make_chunk_renderer(model, white_bkgd: bool, near: float, far: float) -> Callable[..., Rendered]:
     """Deterministic fine-level renderer of one ray chunk: fn(rays[,
     latents]) -> (rgb, acc, depth), rays as in :func:`make_image_renderer`
-    (for the vanilla field, a multiple of the kernels' 16-ray tile)."""
+    (for the vanilla field, any number: its kernels choose their ray tile)."""
 
     @torch.no_grad()
     def render_chunk(rays: Dict[str, torch.Tensor], *latents) -> Rendered:

@@ -30,6 +30,15 @@
 //  * One block (256 threads) owns `ray_tile` whole rays and walks their
 //    ray_tile*S samples in chunks of 64 rows, packed across ray boundaries so
 //    only the last chunk is padded (S = 65 or 193 is not a multiple of 64).
+//    A block's shared memory and registers allow one block a SM, and the
+//    chunks of a block run one after another, so the wrapper picks the tile
+//    per launch (fused_render.py::choose_ray_tile): of the tiles of at most
+//    16 rays that divide the launch and fit, the fewest waves (ceil(blocks /
+//    132)) x chunks a block, ties to the larger. 16 at 2048 and 4096 rays;
+//    2 at the fast preset's 256 (128 blocks of 3 / 7 chunks at S = 65 / 193,
+//    where 16 rays a block gave 16 blocks of 17 / 49); 15 at the test path's
+//    3840 (256 blocks). A row's outputs depend on no other row, so the tile
+//    moves no bit.
 //  * The chunk's activation (64 x 256 fp32, rows padded to 260 floats so the
 //    A fragments' loads are conflict-free) stays in shared memory. Each warp
 //    keeps a 32-row x 64-column output tile (32 x 32 in the 128-wide view
@@ -62,18 +71,28 @@
 // activations. K1 serves and validates; training runs K1s.
 //
 // bf16 mode (dot_bf16, the TPU kernel's argument of that name): the same
-// walk on bf16-rounded weights, inputs and activations with one TF32 mma per
-// product step instead of three, and each log term of the transmittance
-// rounded to bf16 before the prefix sum (nerf_level.cuh); a second
-// instantiation of the kernel, picked by the launcher.
+// walk on bf16-rounded inputs and activations, a second instantiation of the
+// kernel picked by the launcher. Its products run on native bf16 tensor
+// cores (gemm_bf16, nerf_level.cuh: mma.sync m16n8k16 bf16, fp32
+// accumulators, a fresh one every 32 deep) with B from a ring of 32-deep
+// slices of the wrapper's bf16 pack of the transposed weights (`wt` as
+// bf16, half the bytes and half the slices of the fp32 stream) and A packed
+// to bf16 pairs from the fp32 activation tile; each log term of the
+// transmittance is rounded to bf16 before the prefix sum. Bound: operations,
+// the products at 989 TFLOP/s, 0.32 / 0.96 ms at 4096 rays x S = 65 / 193
+// (0.020 / 0.060 ms at 256).
 //
 // ptxas (-Xptxas -v, sm_90a, CUDA 12.8, printed by chip_smoke.py's build
-// phase on the H100): 216 registers, no spill. Measured there (NVIDIA H100
-// 80GB HBM3, 700 W; tools/torch_train_compare.py): 17.6 / 6.2 ms at 4096
-// rays x S = 193 / 65, ~32% / ~31% of the 3xTF32 bound. What bounds it is
-// the product's own instruction stream (mma.sync with the TF32 split of
-// every fragment), not the staging: a ring of 3, 4 or 5 stages takes the
-// same time, one of 2 stages ~20% more.
+// phase on the H100): 216 registers in fp32, 208 in bf16 mode, no spill.
+// Measured there (NVIDIA H100 80GB HBM3, 700 W; tools/torch_train_compare.py,
+// in turns with the parent tree): fp32 17.8 / 6.3 ms at 4096 rays x S = 193 /
+// 65, ~32% / ~31% of the 3xTF32 bound; what bounds it is the product's own
+// instruction stream (mma.sync with the TF32 split of every fragment), not
+// the staging: a ring of 3, 4 or 5 stages takes the same time, one of 2
+// stages ~20% more. bf16 mode 5.91-5.96 / 2.10 ms at 4096 rays (the TF32
+// walk on bf16 values it replaced 9.89-9.95 / 3.50-3.54), 16% of its bound
+// at S = 193; at 256 rays and the chosen tile of 2, 0.408-0.413 / 0.176-0.180
+// ms of device time (the parent, 16 rays a block: 4.77-4.93 / 1.65-1.67).
 
 #include "nerf_level.cuh"
 
@@ -94,7 +113,7 @@ fused_render_level_kernel(const float* __restrict__ t, const float* __restrict__
   const int n_rows = ray_tile * S;
   const size_t row_base = (size_t)ray0 * S;
 
-  FwdRing ring(m.ring, maps.m, n_rows);
+  FwdRing<Bf16> ring(m.ring, maps.m, n_rows);
   view_terms<Bf16>(venc, w.wvb, m.cterm, ray0, ray_tile);
   for (int row0 = 0; row0 < n_rows; row0 += kRows)
     forward_chunk<false, Bf16>(xenc, w, ring, m, row_base, row0, n_rows, S, nullptr);
@@ -106,17 +125,25 @@ fused_render_level_kernel(const float* __restrict__ t, const float* __restrict__
 
 extern "C" {
 
-// Floats of the packed transposed product weights `wt` (FwdSchedule).
+// Floats of the packed transposed product weights `wt` (FwdSchedule), and
+// bytes of their bf16 pack (FwdBf16Schedule), which bf16 mode takes.
 int aonerf_fused_render_wt_floats() { return kWtFloats; }
+int aonerf_fused_render_wt_bf16_bytes() {
+  return schedule_floats<FwdBf16Schedule>() * (int)sizeof(FwdBf16Schedule::Elem);
+}
+
+// Shared memory of a block of ray_tile rays of S samples.
+int aonerf_fused_render_smem_bytes(int S, int ray_tile) { return (int)forward_smem_bytes(S, ray_tile); }
 
 // Launches one level on `stream`. Pointers are device pointers to contiguous
 // fp32 arrays: the level's inputs, its 26 weights in the flax (in, out)
 // layout (the kernel reads their biases and narrow heads), and `wt`, the
 // packed transposed copies of its 11 product weights (FwdSchedule,
 // kWtFloats, 16-byte aligned), over which it encodes the TMA maps of this
-// launch. With dot_bf16 != 0 it launches the bf16 mode, which takes every
-// weight (wt and the narrow heads) already rounded to bf16. n_rays % ray_tile
-// == 0. Returns cudaGetLastError() after the launch (0 on success), or
+// launch. With dot_bf16 != 0 it launches the bf16 mode, which takes `wt` as
+// the bf16 pack of the same copies (FwdBf16Schedule, kWtFloats bf16) and the
+// narrow heads (wd, wr, wvb) already rounded to bf16. n_rays % ray_tile ==
+// 0. Returns cudaGetLastError() after the launch (0 on success), or
 // kMapError + the driver's CUresult if a tensor map was refused.
 int aonerf_fused_render_level(const float* t, const float* rays_d, const float* venc,
                               const float* xenc, const float* w0, const float* b0,
@@ -126,7 +153,7 @@ int aonerf_fused_render_level(const float* t, const float* rays_d, const float* 
                               const float* w6, const float* b6, const float* w7, const float* b7,
                               const float* wd, const float* bd, const float* wb, const float* bb,
                               const float* wva, const float* wvb, const float* bv,
-                              const float* wr, const float* br, const float* wt, float* comp, float* acc,
+                              const float* wr, const float* br, const void* wt, float* comp, float* acc,
                               float* depth, float* weights, int n_rays, int S, int ray_tile,
                               int white_bkgd, int dot_bf16, void* stream) {
   if (n_rays <= 0 || S <= 0 || ray_tile <= 0 || n_rays % ray_tile != 0) return cudaErrorInvalidValue;
@@ -139,7 +166,7 @@ int aonerf_fused_render_level(const float* t, const float* rays_d, const float* 
     return err;
   }
   WeightMaps maps;
-  if (int map_err = encode_forward_maps(maps, wt)) return map_err;
+  if (int map_err = encode_forward_maps(maps, wt, dot_bf16 != 0)) return map_err;
   Weights w{w0, b0, w1, b1, w2, b2, w3, b3, w4, b4, w5x, w5i, b5, w6, b6, w7, b7,
             wd, bd, wb, bb, wva, wvb, bv, wr, br};
   kernel<<<n_rays / ray_tile, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(

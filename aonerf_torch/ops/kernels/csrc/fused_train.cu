@@ -122,11 +122,13 @@
 // bf16 mode (dot_bf16, the TPU kernels' argument of that name; K1s and B1
 // have a second instantiation, B2 a kernel of its own, the integrator
 // backward and the reduction serve both modes): every product takes
-// bf16-rounded operands (to nearest, ties to even) and sums in fp32; K1s and
-// B1 issue one TF32 mma a k8 step where 3xTF32 issues three (a bf16 value is
-// exact in TF32). The wrapper passes the weights rounded. K1s runs
-// K1's bf16 walk and spills the rounded activations, which the TPU backward
-// keeps in bf16, in the fp32 layout. The integrator backward stays fp32 and
+// bf16-rounded operands (to nearest, ties to even) and sums in fp32. K1s
+// runs K1's bf16 walk (native bf16 mma.sync m16n8k16 from the bf16 weight
+// ring, nerf_level.cuh's gemm_bf16; the wrapper passes the bf16 pack of the
+// transposed weights and the narrow heads rounded) and spills the rounded
+// activations, which the TPU backward keeps in bf16, in the fp32 layout. B1
+// issues one TF32 mma a k8 step where 3xTF32 issues three (a bf16 value is
+// exact in TF32), on the flax-layout weights the wrapper passes rounded. The integrator backward stays fp32 and
 // recomputes the transmittance in fp32 from `raw`, as the TPU backward does.
 // B1 keeps every delta in fp32 in the scratch, which B2's bias sums read, and
 // in its own per-ray sum for wvb; only a product's operand is rounded: the
@@ -136,7 +138,14 @@
 // Delta once a step into bf16 tiles, and sums the bias tile from the fp32
 // stage. Its products are mma.sync m16n8k16 bf16: the sums group otherwise
 // than the TF32 walk's it replaced, so its bits differ from that walk's;
-// every other output of both modes keeps its bits.
+// K1s' bf16 walk groups its sums by k16 too, so its outputs (and K2's
+// gradients from what it saved) differ from the TF32 walk's; K2 given the
+// same saved gives the same bits, and every fp32 output keeps its bits.
+//
+// K1s runs at the ray tile its wrapper chooses (fused_render.py::
+// choose_ray_tile: 2 at the fast preset's batch of 224, 16 at 2048); its
+// outputs do not depend on the tile. K2 keeps the caller's (16): B1's
+// per-block head sums set its summation order and so its bits.
 //
 // Deterministic: no atomics, every sum in a fixed order, so the same inputs
 // give the same bits on every call.
@@ -146,7 +155,7 @@
 // KB.
 //
 // ptxas (-Xptxas -v, sm_90a, CUDA 12.8, printed by chip_smoke.py's build
-// phase on the H100): K1s 220 registers, no spill; the integrator backward
+// phase on the H100): K1s 220 registers, no spill (209 in bf16 mode); the integrator backward
 // 39; B1 255 registers, 20 bytes of spill stores and 20 of spill loads
 // (24-byte stack frame); B2 128 registers (capped by __launch_bounds__(256,
 // 2)), no spill, and in bf16 124; the reduction 31 registers.
@@ -157,7 +166,12 @@
 // product's own instruction stream (mma.sync with the TF32 split of every
 // fragment), not the staging: a ring of 3, 4 or 5 stages gives K1s the same
 // time (B1 takes 3% more with 3), one of 2 stages 24% (K1s) and 36% (B1)
-// more.
+// more. K1s in bf16 mode (in turns with the parent tree, PR 14): 1.30-1.34 /
+// 3.65-3.68 ms at 2048 rays (the TF32 walk on bf16 values it replaced
+// 2.07-2.08 / 5.62-5.67), 0.205-0.207 / 0.491-0.497 ms of device time at the
+// fast preset's 224 rays and tile 2 (the parent, 16 rays a block:
+// 1.87-1.88 / 5.32-5.39); B1 in bf16 2.16 / 6.14-6.21 ms at 2048 and
+// 2.03 / 5.84 at 224 (one wave of 14 blocks).
 
 #include "nerf_level.cuh"
 
@@ -273,7 +287,7 @@ level_fwd_spill_kernel(const float* __restrict__ t, const float* __restrict__ ra
   const int n_rows = ray_tile * S;
   const size_t row_base = (size_t)ray0 * S;
 
-  FwdRing ring(m.ring, maps.m, n_rows);
+  FwdRing<Bf16> ring(m.ring, maps.m, n_rows);
   view_terms<Bf16>(venc, w.wvb, m.cterm, ray0, ray_tile);
   for (int row0 = 0; row0 < n_rows; row0 += kRows)
     forward_chunk<true, Bf16>(xenc, w, ring, m, row_base, row0, n_rows, S, saved + (row_base + row0) * kSpill);
@@ -738,11 +752,6 @@ struct Dw16Maps {
 };
 constexpr int kDw16StageBytes = kDw16Stage * (int)sizeof(float);
 
-__device__ __forceinline__ uint32_t bf16x2_rn(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // Four 8x8 16-bit matrices, transposed: lanes 8j .. 8j + 7 give matrix j's
 // row addresses (16 bytes each), and r[j] gets element (2 (lane % 4) + e,
 // lane / 4) of matrix j in its half e.
@@ -752,16 +761,6 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const uint16
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(a)
                : "memory");
-}
-
-// d += a . b for one m16n8k16 bf16 tile, fp32 accumulator. A (row, k) at
-// a[0] (g, 2t..2t+1), a[1] (g+8, 2t..), a[2] (g, 2t+8..), a[3] (g+8, 2t+8..);
-// B (k, col) at b0 (2t..2t+1, g), b1 (2t+8.., g); d as for mma_tf32.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-      "{%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __global__ void __launch_bounds__(kThreads, 2)
@@ -962,14 +961,14 @@ bool bad_shape(int n_rays, int S, int ray_tile) {
 }
 
 int launch_fwd_spill(const float* t, const float* rays_d, const float* venc, const float* xenc, const Weights& w,
-                     const float* wt, float* comp, float* acc, float* depth, float* weights, float* saved, float* raw,
+                     const void* wt, float* comp, float* acc, float* depth, float* weights, float* saved, float* raw,
                      int n_rays, int S, int ray_tile, int white_bkgd, int dot_bf16, cudaStream_t s) {
   const size_t smem = forward_smem_bytes(S, ray_tile);
   auto* kernel = dot_bf16 ? level_fwd_spill_kernel<true> : level_fwd_spill_kernel<false>;
   cudaError_t err = set_smem((const void*)kernel, smem);
   if (err != cudaSuccess) return err;
   WeightMaps maps;
-  if (int map_err = encode_forward_maps(maps, wt)) return map_err;
+  if (int map_err = encode_forward_maps(maps, wt, dot_bf16 != 0)) return map_err;
   kernel<<<n_rays / ray_tile, kThreads, smem, s>>>(t, rays_d, venc, xenc, w, maps, comp, acc, depth, weights, saved,
                                                    raw, S, ray_tile, white_bkgd);
   return cudaGetLastError();
@@ -989,7 +988,7 @@ int launch_bwd_saved(const float* t, const float* rays_d, const float* venc, con
   if ((err = set_smem((const void*)b1, smem_b1)) != cudaSuccess) return err;
   if ((err = set_smem(b2, smem_b2)) != cudaSuccess) return err;
   WeightMaps maps;
-  const float* b1_weights[B1Schedule::kProducts] = {w.wva, w.wb, w.w7, w.w6, w.w5x, w.w4, w.w3, w.w2, w.w1};
+  const void* b1_weights[B1Schedule::kProducts] = {w.wva, w.wb, w.w7, w.w6, w.w5x, w.w4, w.w3, w.w2, w.w1};
   if (int map_err = encode_weight_maps<B1Schedule>(maps, b1_weights)) return map_err;
   const int n_blocks = n_rays / ray_tile;
   const int n_total = n_rays * S;
@@ -1040,20 +1039,28 @@ int aonerf_fused_level_bwd_saved_floats() { return kSpill; }
 int aonerf_fused_level_bwd_ranges() { return kRanges; }
 int aonerf_fused_level_bwd_narrow_floats() { return kNarrowFloats; }
 
-// Floats of the forward's packed transposed product weights `wt` (FwdSchedule).
+// Floats of the forward's packed transposed product weights `wt` (FwdSchedule),
+// and bytes of their bf16 pack (FwdBf16Schedule), which bf16 mode takes.
 int aonerf_fused_level_wt_floats() { return kWtFloats; }
+int aonerf_fused_level_wt_bf16_bytes() {
+  return schedule_floats<FwdBf16Schedule>() * (int)sizeof(FwdBf16Schedule::Elem);
+}
+
+// Shared memory of K1s' block of ray_tile rays of S samples.
+int aonerf_fused_level_fwd_smem_bytes(int S, int ray_tile) { return (int)forward_smem_bytes(S, ray_tile); }
 
 // K1s, the training forward, on `stream`. Pointers are device pointers to
 // contiguous fp32 arrays: the level's inputs, its 26 weights in the flax
 // (in, out) layout and `wt`, the packed transposed product weights
-// (FwdSchedule, kWtFloats), as for aonerf_fused_render_level; its outputs comp (R,3),
-// acc (R), depth (R), weights (R,S); and what the backward reads, `saved`
-// (R*S*kSpill, the activations) and `raw` (R*S*4: raw sigma, raw rgb).
-// With dot_bf16 != 0, the bf16 mode, on weights already rounded to bf16.
+// (FwdSchedule, kWtFloats fp32; in bf16 mode their bf16 pack), as for
+// aonerf_fused_render_level; its outputs comp (R,3), acc (R), depth (R),
+// weights (R,S); and what the backward reads, `saved` (R*S*kSpill, the
+// activations) and `raw` (R*S*4: raw sigma, raw rgb). With dot_bf16 != 0,
+// the bf16 mode, on narrow heads (wd, wr, wvb) already rounded to bf16.
 // n_rays % ray_tile == 0. Returns the launch's error (0 on success), or
 // kMapError + the driver's CUresult if a tensor map was refused.
 int aonerf_fused_level_fwd_spill(const float* t, const float* rays_d, const float* venc, const float* xenc,
-                                 AONERF_WEIGHT_PARAMS, const float* wt, float* comp, float* acc, float* depth,
+                                 AONERF_WEIGHT_PARAMS, const void* wt, float* comp, float* acc, float* depth,
                                  float* weights, float* saved, float* raw, int n_rays, int S, int ray_tile,
                                  int white_bkgd, int dot_bf16, void* stream) {
   if (bad_shape(n_rays, S, ray_tile)) return cudaErrorInvalidValue;
@@ -1087,7 +1094,8 @@ int aonerf_fused_level_bwd_saved(const float* t, const float* rays_d, const floa
 // `raw`, with K1s' `wt` after the weights; K1s' outputs and `raw` (R*(5 S + 5) floats) live at the front of
 // `delta` until B1 overwrites it.
 int aonerf_fused_level_bwd(const float* t, const float* rays_d, const float* venc, const float* xenc,
-                           AONERF_WEIGHT_PARAMS, const float* wt, const float* g_comp, const float* g_acc, const float* g_depth,
+                           AONERF_WEIGHT_PARAMS, const void* wt, const float* g_comp, const float* g_acc,
+                           const float* g_depth,
                            const float* g_weights, float* saved, float* grow, float* delta, float* partials,
                            float* narrow, float* out, int n_rays, int S, int ray_tile, int white_bkgd,
                            int dot_bf16, void* stream) {

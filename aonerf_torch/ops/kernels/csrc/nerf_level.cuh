@@ -4,59 +4,70 @@
 //
 // The forward walk (K1 and K1s) takes a block's rays in chunks of kRows
 // samples packed across ray boundaries and runs the 8x256 MLP on a chunk with
-// its activation in shared memory. Every 256- and 128-wide product runs on
-// the tensor cores in 3xTF32 (mma.sync m16n8k8, fp32 accuracy) through
-// gemm_wt, the product K2's B1 also runs: A from the shared tile, B from a
-// weight stored (out x in) row-major, i.e. K-major, in device memory. The 1-
-// and 3-wide heads and the per-ray view term stay on fp32 FMA. Each ray is
-// then integrated by one warp (a prefix sum of log(max(1 - alpha + 1e-10,
-// 1e-10)) with a carry across 32-sample steps). The training forward also
-// saves each chunk's activations to a per-row scratch (`Spill`, kSpill
-// floats a sample) by bulk copies out of the shared activation tile.
+// its activation in shared memory. In fp32 every 256- and 128-wide product
+// runs on the tensor cores in 3xTF32 (mma.sync m16n8k8, fp32 accuracy)
+// through gemm_wt, the product K2's B1 also runs: A from the shared tile, B
+// from a weight stored (out x in) row-major, i.e. K-major, in device memory.
+// In bf16 mode they run on native bf16 products through gemm_bf16 (below).
+// The 1- and 3-wide heads and the per-ray view term stay on fp32 FMA. Each
+// ray is then integrated by one warp (a prefix sum of log(max(1 - alpha +
+// 1e-10, 1e-10)) with a carry across 32-sample steps). The training forward
+// also saves each chunk's activations to a per-row scratch (`Spill`, kSpill
+// floats a sample) by bulk copies out of the shared activation tile. A row's
+// outputs depend on no other row, so they do not depend on the ray tile (the
+// rays a block owns), which the wrappers choose per launch.
 //
 // The weight stream (WeightRing). Within a 64-row chunk a kernel multiplies
-// by a fixed sequence of weights (a schedule: 11 products, 152 16-deep
-// K-slices in the forward; 9 and 136 in B1), and every chunk repeats it. One
-// stream per block walks that sequence slice by slice (all N rows x kDepth =
-// 16 columns, 16 KB), wrapping from chunk to chunk, into a ring of kStages
-// stages. Thread 0 issues each slice as one TMA copy (cp.async.bulk.tensor,
-// a 2D tensor map per weight, encoded on the host for every launch) that
-// completes on the stage's full barrier; each warp, once it has read a
-// stage, arrives on the stage's empty barrier, and thread 0 waits for that
-// before it refills the stage. Thread 0 computes too: after reading slice j
-// it issues slice j + kStages - 1 into the stage slice j - 1 left, so it
-// waits only for the slowest warp to leave the slice before, and a layer's
-// first slices are in flight while the previous layer's last slices and its
-// epilogue run. A consumer pays one wait per slice (mbarrier.try_wait.parity)
-// and no block barrier; the only barriers left are the epilogues' (the
-// activation tile is overwritten in place). TMA stages each slice in the
-// SWIZZLE_64B layout: row n's 16-byte chunk c lies at chunk c ^ ((n / 2) % 4)
-// of its 64-byte row, so the B fragments' 8 rows x 4 columns hit 32
-// different banks. Only TMA writes the ring, so its buffers need no proxy
-// fence.
+// by a fixed sequence of weights (a schedule: 11 products in the forward, 9
+// in B1), and every chunk repeats it. One stream per block walks that
+// sequence slice by slice (all N rows x Sched::kDepth K-columns, at most 16
+// KB), wrapping from chunk to chunk, into a ring of kStages stages. Thread 0
+// issues each slice as one TMA copy (cp.async.bulk.tensor, a 2D tensor map
+// per weight, encoded on the host for every launch) that completes on the
+// stage's full barrier; each warp, once it has read a stage, arrives on the
+// stage's empty barrier, and thread 0 waits for that before it refills the
+// stage. Thread 0 computes too: after reading slice j it issues slice j +
+// kStages - 1 into the stage slice j - 1 left, so it waits only for the
+// slowest warp to leave the slice before, and a layer's first slices are in
+// flight while the previous layer's last slices and its epilogue run. A
+// consumer pays one wait per slice (mbarrier.try_wait.parity) and no block
+// barrier; the only barriers left are the epilogues' (the activation tile is
+// overwritten in place). The fp32 stream (FwdSchedule, B1Schedule: 16 fp32
+// columns a slice, 152 slices a forward chunk, 136 a B1 chunk) is staged in
+// the SWIZZLE_64B layout: row n's 16-byte chunk c lies at chunk c ^ ((n / 2)
+// % 4) of its 64-byte row, so the TF32 B fragments' 8 rows x 4 columns hit
+// 32 different banks. The bf16 stream (FwdBf16Schedule: 32 bf16 columns a
+// slice, also 64 bytes a row, 76 slices a forward chunk) is unswizzled: each
+// thread reads one 16-byte chunk of a row, and a quarter warp's eight reads
+// cover the 128 bytes of two neighbouring rows. Only TMA writes the ring, so
+// its buffers need no proxy fence.
 //
 // Budget: 5 stages x 16 KB, 128 bytes of barriers and up to 1 KB of
-// alignment, 83,072 bytes: K1/K1s take 224,640 bytes and B1 225,408 at
-// ray_tile 16, S = 193, of the 232,448 a block may have, so a sixth stage
-// does not fit. Measured on the H100 (tools/torch_train_compare.py, in
-// turns), 3, 4 and 5 stages give K1 and K1s the same time and B1 3% more at
-// 3, and 2 stages 20-36% more. So the staging does not bound K1, K1s or B1:
-// the product's own instruction stream does (mma.sync with the TF32 split of
-// every A and B fragment, 8 warps a SM).
+// alignment, 83,072 bytes in either mode: K1/K1s take 224,640 bytes and B1
+// 225,408 at ray_tile 16, S = 193, of the 232,448 a block may have, so a
+// sixth stage does not fit. Measured on the H100 (tools/torch_train_compare.py,
+// in turns), 3, 4 and 5 stages give the fp32 K1 and K1s the same time and B1
+// 3% more at 3, and 2 stages 20-36% more. So the staging does not bound the
+// fp32 K1, K1s or B1: the product's own instruction stream does (mma.sync
+// with the TF32 split of every A and B fragment, 8 warps a SM).
 //
 // bf16 mode (template flag Bf16; the TPU kernels' dot_bf16): every product
 // takes bf16-rounded operands (to nearest, ties to even) and sums in fp32;
 // biases, ReLUs and the integrator stay fp32, but for the forward's
 // transmittance sum, whose log terms are rounded as the TPU kernel's
-// triangular product rounds them. A bf16 value is exact in TF32 (8
-// significant bits of 11), so one TF32 mma.sync on rounded operands forms the
-// exact products and accumulates them as the fp32 mode's accumulators do:
-// gemm_wt issues one mma where 3xTF32 issues three. The operands arrive
-// rounded: the wrapper rounds the weights (the packed `wt` and the narrow
-// heads), the forward's epilogue (store_act) rounds each activation before it
-// reaches the shared tile and the spill, and the encoded inputs are rounded
-// where they are staged. Shared memory, the ring and the spill keep the fp32
-// layout.
+// triangular product rounds them. The operands arrive rounded: the wrapper
+// packs the forward's product weights as bf16 (its bf16 copy of `wt`) and
+// rounds the narrow heads, the forward's epilogue (store_act) rounds each
+// activation before it reaches the shared tile and the spill, and the
+// encoded inputs are rounded where they are staged. The activation tile and
+// the spill keep the fp32 layout. The forward's products are gemm_bf16:
+// mma.sync m16n8k16 bf16 with fp32 accumulators, B from the bf16 ring, A
+// packed from the fp32 tile (cvt.rn.bf16x2.f32 on values already bf16, so
+// exact): per 32 K-columns a thread reads 8 float4 of A and one 16-byte
+// chunk of B per n8 tile, and issues 32 mma, where the TF32 walk on bf16
+// values it replaces read 48 fp32 words and issued 64 mma. B1 in bf16 mode
+// keeps that TF32 walk (gemm_wt with Bf16: one TF32 mma a k8 step on bf16
+// values, which TF32 holds exactly) on the fp32 B1Schedule stream.
 
 #pragma once
 
@@ -64,6 +75,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace aonerf {
 
@@ -85,9 +98,9 @@ constexpr int kSpill = kSpillView + kCondWidth;
 // tile, the encoded-input tile (K padded to 64).
 constexpr int kAct = kWidth + 4;
 constexpr int kXs = kPosPad + 4;
-// The weight ring: kStages stages of kDepth K-columns x up to kWidth rows
-// (64-byte rows, SWIZZLE_64B), aligned as the swizzle needs, then its
-// 2 x kStages barriers.
+// The weight ring: kStages stages of one K-slice each (up to kWidth rows of
+// 64 bytes: kDepth fp32 or 2 kDepth bf16 columns), aligned as the swizzle
+// needs, then its 2 x kStages barriers.
 constexpr int kDepth = 16;
 constexpr int kStages = 5;
 constexpr int kStageFloats = kWidth * kDepth;
@@ -103,6 +116,21 @@ constexpr size_t kRingBytes = sizeof(float) * kStages * kStageFloats + 128;
 // (tools/torch_train_compare.py, in turns). 2 is the longest run, and so
 // the fastest, that is as accurate as fp32.
 constexpr int kFwdRun = 2;
+// k16 steps that one fresh accumulator sums in the bf16 forward's products
+// (gemm_bf16; the whole K of a 256-deep product is 16), and the K of each of
+// its mma (16: m16n8k16; 8: each k16 step as two m16n8k8). Held to the bf16
+// rule on the H100 (tools/torch_fwd_bf16_runs.py, tools/torch_bf16_accuracy.py;
+// PERF.md section 6, PR 14): over 48 seed x level cases, runs of 1, 2, 4, 8
+// and 16 k16 steps were over on 1, 0, 4, 2 and 5 (K 8: runs 1, 2 on 1, 0);
+// K1 bf16 took 2.26 / 6.38, 2.13 / 5.85, 2.09 / 5.84, 2.14 / 5.86 and 2.23 /
+// 6.12 ms at 4096 rays x S = 65 / 193 (K 8: 2.45 / 6.91, 2.26 / 6.34). K 16
+// and run 2 is the longest run that holds, and within 2% of the fastest. At
+// the gpu test's 256 random rays (--k2-rays 256, 16 cases) it is over on 4,
+// runs of 1 on none, the TF32 walk it replaced on 2: tests/test_torch_gpu.py's
+// test_bf16_bwd_kernel_meets_the_bf16_rule at S = 193 misses by 2% (ROADMAP
+// Queue 3).
+constexpr int kFwdBf16Run = 2;
+constexpr int kFwdBf16MmaK = 16;
 
 // The 26 weights in the flax (in, out) layout, biases (1, out).
 struct Weights {
@@ -113,11 +141,17 @@ struct Weights {
 
 // The weights a chunk's products read, in the order it reads them: product i
 // is a row-major n(i) x k(i) matrix W (B(k, n) = W[n][k]).
+// A schedule also names its slices: kDepth K-columns of Elem (fp32, or
+// bf16 held as its 16 bits), and whether TMA stages them SWIZZLE_64B.
 // The forward reads the transposed copies (out x in) of w0, w1, w2, w3, w4,
 // w5x, w5i, w6, w7, wb, wva, with w0 and w5i's K = 63 padded to 64 by a zero
 // column; they are packed in this order into one buffer of kWtFloats that
-// the wrapper rebuilds every launch from the flax weights.
+// the wrapper rebuilds every launch from the flax weights, in fp32 (`wt`)
+// or, in bf16 mode, rounded to bf16 (FwdBf16Schedule: the same products).
 struct FwdSchedule {
+  using Elem = float;
+  static constexpr int kDepth = aonerf::kDepth;
+  static constexpr bool kSwizzle64 = true;
   static constexpr int kProducts = 11;
   __host__ __device__ static constexpr int k(int i) { return i == 0 || i == 6 ? kPosPad : kWidth; }
   __host__ __device__ static constexpr int n(int i) { return i == 10 ? kCondWidth : kWidth; }
@@ -125,14 +159,22 @@ struct FwdSchedule {
 // B1 reads the flax (in, out) layout of wva, wb, w7, w6, w5x, w4, w3, w2, w1,
 // so it multiplies by their transposes.
 struct B1Schedule {
+  using Elem = float;
+  static constexpr int kDepth = aonerf::kDepth;
+  static constexpr bool kSwizzle64 = true;
   static constexpr int kProducts = 9;
   __host__ __device__ static constexpr int k(int i) { return i == 0 ? kCondWidth : kWidth; }
   __host__ __device__ static constexpr int n(int) { return kWidth; }
 };
+struct FwdBf16Schedule : FwdSchedule {
+  using Elem = uint16_t;
+  static constexpr int kDepth = 2 * aonerf::kDepth;
+  static constexpr bool kSwizzle64 = false;
+};
 template <class Sched>
 __host__ __device__ constexpr int schedule_slices() {
   int n = 0;
-  for (int i = 0; i < Sched::kProducts; ++i) n += Sched::k(i) / kDepth;
+  for (int i = 0; i < Sched::kProducts; ++i) n += Sched::k(i) / Sched::kDepth;
   return n;
 }
 template <class Sched>
@@ -142,6 +184,8 @@ __host__ __device__ constexpr int schedule_floats() {
   return n;
 }
 constexpr int kWtFloats = schedule_floats<FwdSchedule>();
+static_assert(kWidth * FwdBf16Schedule::kDepth * sizeof(FwdBf16Schedule::Elem) == kStageFloats * sizeof(float),
+              "a bf16 slice fills a stage as an fp32 slice does");
 
 // One 2D TMA map per product of a schedule; a kernel parameter
 // (__grid_constant__), so the TMA unit reads it from parameter space.
@@ -179,35 +223,44 @@ inline EncodeTiledFn encode_tiled() {
 }
 
 // Encodes the maps of a schedule's products, the i-th over the n(i) x k(i)
-// row-major fp32 matrix at w[i], boxes of kDepth columns x n(i) rows, no
-// out-of-bounds access (every K is a multiple of kDepth). Returns 0, or
-// kMapError + the driver's CUresult.
+// row-major matrix of Sched::Elem at w[i], boxes of Sched::kDepth columns x
+// n(i) rows, no out-of-bounds access (every K is a multiple of kDepth).
+// Returns 0, or kMapError + the driver's CUresult.
 template <class Sched>
-int encode_weight_maps(WeightMaps& maps, const float* const* w) {
+int encode_weight_maps(WeightMaps& maps, const void* const* w) {
   static_assert(Sched::kProducts <= kMaxProducts, "one map per product");
+  constexpr bool kFp32 = sizeof(typename Sched::Elem) == sizeof(float);
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return kMapError + CUDA_ERROR_NOT_FOUND;
   for (int i = 0; i < Sched::kProducts; ++i) {
     const cuuint64_t dims[2] = {(cuuint64_t)Sched::k(i), (cuuint64_t)Sched::n(i)};
-    const cuuint64_t strides[1] = {(cuuint64_t)Sched::k(i) * sizeof(float)};
-    const cuuint32_t box[2] = {(cuuint32_t)kDepth, (cuuint32_t)Sched::n(i)};
+    const cuuint64_t strides[1] = {(cuuint64_t)Sched::k(i) * sizeof(typename Sched::Elem)};
+    const cuuint32_t box[2] = {(cuuint32_t)Sched::kDepth, (cuuint32_t)Sched::n(i)};
     const cuuint32_t unit[2] = {1, 1};
-    const CUresult r = encode(&maps.m[i], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(w[i]), dims, strides,
-                              box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+    const CUresult r = encode(&maps.m[i], kFp32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                              const_cast<void*>(w[i]), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              Sched::kSwizzle64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_NONE,
                               CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     if (r != CUDA_SUCCESS) return kMapError + (int)r;
   }
   return 0;
 }
 
-// The forward's maps over the packed transposed copies `wt` (kWtFloats).
-inline int encode_forward_maps(WeightMaps& maps, const float* wt) {
-  const float* w[FwdSchedule::kProducts];
-  for (int i = 0; i < FwdSchedule::kProducts; ++i) {
-    w[i] = wt;
-    wt += FwdSchedule::n(i) * FwdSchedule::k(i);
+// The forward's maps over the packed transposed copies `wt` (kWtFloats
+// elements of Sched::Elem: fp32, or bf16 in bf16 mode).
+template <class Sched>
+int encode_forward_maps(WeightMaps& maps, const void* wt) {
+  const auto* p = static_cast<const typename Sched::Elem*>(wt);
+  const void* w[Sched::kProducts];
+  for (int i = 0; i < Sched::kProducts; ++i) {
+    w[i] = p;
+    p += Sched::n(i) * Sched::k(i);
   }
-  return encode_weight_maps<FwdSchedule>(maps, w);
+  return encode_weight_maps<Sched>(maps, w);
+}
+// The same, of the fp32 copy or, with bf16, of the bf16 pack.
+inline int encode_forward_maps(WeightMaps& maps, const void* wt, bool bf16) {
+  return bf16 ? encode_forward_maps<FwdBf16Schedule>(maps, wt) : encode_forward_maps<FwdSchedule>(maps, wt);
 }
 
 // Slices a block's stream holds in all: its chunks times the schedule.
@@ -474,22 +527,22 @@ struct WeightRing {
     const int p = n % schedule_slices<Sched>();
     int prod = 0, k0 = 0, rows = 0;
 #pragma unroll
-    for (int i = 0, first = 0; i < Sched::kProducts; first += Sched::k(i) / kDepth, ++i) {
-      if (p >= first && p < first + Sched::k(i) / kDepth) {
+    for (int i = 0, first = 0; i < Sched::kProducts; first += Sched::k(i) / Sched::kDepth, ++i) {
+      if (p >= first && p < first + Sched::k(i) / Sched::kDepth) {
         prod = i;
-        k0 = (p - first) * kDepth;
+        k0 = (p - first) * Sched::kDepth;
         rows = Sched::n(i);
       }
     }
-    mbar_arrive_expect_tx(full(stage), rows * kDepth * (int)sizeof(float));
+    mbar_arrive_expect_tx(full(stage), rows * Sched::kDepth * (int)sizeof(typename Sched::Elem));
     tma_load_2d(buf + stage * kStageFloats, maps + prod, full(stage), k0, 0);
   }
 
   // The next slice, once it has landed.
-  __device__ const float* acquire() const {
+  __device__ const typename Sched::Elem* acquire() const {
     const int stage = j % kStages;
     mbar_wait(full(stage), (j / kStages) & 1);
-    return buf + stage * kStageFloats;
+    return reinterpret_cast<const typename Sched::Elem*>(buf + stage * kStageFloats);
   }
 
   // The warp has read the slice acquire() gave; thread 0 then refills the
@@ -515,6 +568,7 @@ struct WeightRing {
 // fresh accumulator).
 template <int N, int Lda, int Run, bool Bf16, class Sched>
 __device__ __forceinline__ void gemm_wt(ChunkAcc<N>& acc, const float* A, int K, WeightRing<Sched>& ring) {
+  static_assert(Sched::kDepth == kDepth && sizeof(typename Sched::Elem) == sizeof(float), "an fp32 stream");
   static_assert((8 * Run) % kDepth == 0, "a run is whole slices");
   constexpr int kRunSlices = 8 * Run / kDepth;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -553,6 +607,115 @@ __device__ __forceinline__ void gemm_wt(ChunkAcc<N>& acc, const float* A, int K,
       ring.release();
     }
     add_into(acc, part);
+  }
+}
+
+// ------------------------------------------------------- native bf16 mma.sync
+
+// lo and hi rounded to bf16 (cvt.rn: to nearest, ties to even) and packed,
+// lo in the low 16 bits, as a bf16 mma fragment register holds a pair.
+__device__ __forceinline__ uint32_t bf16x2_rn(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// d += a . b for one m16n8k16 bf16 tile, fp32 accumulator. A (row, k) at
+// a[0] (g, 2t..2t+1), a[1] (g+8, 2t..), a[2] (g, 2t+8..), a[3] (g+8, 2t+8..);
+// B (k, col) at b0 (2t..2t+1, g), b1 (2t+8.., g); d as for mma_tf32.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+      "{%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a . b for one m16n8k8 bf16 tile, fp32 accumulator: A (row, k) at a0
+// (g, 2t..2t+1), a1 (g+8, 2t..); B (k, col) at b (2t..2t+1, g).
+__device__ __forceinline__ void mma_bf16_k8(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(b));
+}
+
+// d += a . b for one k16 step of bf16 fragments (mma_bf16's), in one
+// m16n8k16 mma or as its k halves in two m16n8k8 mma (MmaK = 8).
+template <int MmaK>
+__device__ __forceinline__ void mma_bf16_step(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  if constexpr (MmaK == 16) {
+    mma_bf16(d, a, b0, b1);
+  } else {
+    mma_bf16_k8(d, a[0], a[1], b0);
+    mma_bf16_k8(d, a[2], a[3], b1);
+  }
+}
+
+// acc += A[:, :K] . W^T on native bf16 products (mma.sync m16n8k16, fp32
+// accumulators): A (kRows x Lda fp32 in shared memory, bf16 values, Lda = 4
+// mod 32) and W (N x K, K % 32 == 0) the product of a bf16 stream whose
+// 32-deep slices come next in `ring` (row n of a slice: 64 bytes,
+// unswizzled). Warps own the tiles gemm_wt's do. Each slice is two k16
+// steps over a permutation of its 32 columns that A and B share, so the sum
+// runs over the same K: in step s, thread t's pairs 2t..2t+1 and 2t+8..2t+9
+// are columns 8t + 4s + [0, 2) and 8t + 4s + [2, 4). A thread then reads A as
+// one float4 per row and step (conflict-free: a quarter warp's rows g, g + 1
+// start 4 banks apart, its threads 8 columns apart) and packs it into bf16
+// pairs (exact: the values are bf16), and reads B as one 16-byte chunk per
+// n8 tile that serves both steps. A fresh accumulator sums each Run k16
+// steps and is added into acc in fp32, in k order (Run == 1: every mma into
+// zeros, then the add). No block barrier: the caller orders any write to A
+// after every warp's reads.
+template <int N, int Lda, int Run, class Sched>
+__device__ __forceinline__ void gemm_bf16(ChunkAcc<N>& acc, const float* A, int K, WeightRing<Sched>& ring) {
+  static_assert(Sched::kDepth == 32 && sizeof(typename Sched::Elem) == 2, "a bf16 stream of 32-deep slices");
+  static_assert(Run == 1 || Run % 2 == 0, "a run is one k16 step or whole slices");
+  static_assert(Lda % 32 == 4, "conflict-free A reads");
+  constexpr int kRunSlices = Run == 1 ? 1 : Run / 2;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = (warp >> 2) * 32, c0 = (warp & 3) * (N / 4);
+  const float* a_frag = A + (r0 + g) * Lda + 8 * t;
+  const int b_off = (c0 + g) * 32 + 8 * t;  // row c0 + g of a slice, its chunk t
+  for (int k0 = 0; k0 < K; k0 += 32 * kRunSlices) {
+    [[maybe_unused]] ChunkAcc<N> part;
+    if constexpr (Run > 1) zero_acc(part);
+#pragma unroll
+    for (int r = 0; r < kRunSlices; ++r) {
+      const int ks = k0 + 32 * r;
+      if (r > 0 && ks >= K) break;  // a run longer than the product
+      const uint16_t* ws = ring.acquire() + b_off;
+      uint32_t a[2][2][4];  // [mi][step]
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float* p = a_frag + (16 * mi + 8 * h) * Lda + ks;
+#pragma unroll
+          for (int s = 0; s < 2; ++s) {
+            const float4 v = *reinterpret_cast<const float4*>(p + 4 * s);
+            a[mi][s][h] = bf16x2_rn(v.x, v.y);
+            a[mi][s][2 + h] = bf16x2_rn(v.z, v.w);
+          }
+        }
+#pragma unroll
+      for (int ni = 0; ni < N / 32; ++ni) {
+        const uint4 b = *reinterpret_cast<const uint4*>(ws + 8 * 32 * ni);
+#pragma unroll
+        for (int s = 0; s < 2; ++s)
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) {
+            const uint32_t b0 = s ? b.z : b.x, b1 = s ? b.w : b.y;
+            if constexpr (Run == 1) {
+              float d[4] = {0.f, 0.f, 0.f, 0.f};
+              mma_bf16_step<kFwdBf16MmaK>(d, a[mi][s], b0, b1);
+#pragma unroll
+              for (int c = 0; c < 4; ++c) acc[mi][ni][c] += d[c];
+            } else {
+              mma_bf16_step<kFwdBf16MmaK>(part[mi][ni], a[mi][s], b0, b1);
+            }
+          }
+      }
+      ring.release();
+    }
+    if constexpr (Run > 1) add_into(acc, part);
   }
 }
 
@@ -625,16 +788,26 @@ __device__ __forceinline__ void product_done() {
   __syncthreads();
 }
 
-using FwdRing = WeightRing<FwdSchedule>;
+// The forward's weight stream: fp32 slices of `wt`, or bf16 ones in bf16 mode.
+template <bool Bf16>
+using FwdRing = WeightRing<std::conditional_t<Bf16, FwdBf16Schedule, FwdSchedule>>;
+
+// acc += A[:, :K] . W, W the next product of the forward's stream: 3xTF32
+// through gemm_wt in fp32, native bf16 through gemm_bf16 in bf16 mode.
+template <int N, int Lda, bool Bf16>
+__device__ __forceinline__ void fwd_product(ChunkAcc<N>& acc, const float* A, int K, FwdRing<Bf16>& ring) {
+  if constexpr (Bf16) gemm_bf16<N, Lda, kFwdBf16Run>(acc, A, K, ring);
+  else gemm_wt<N, Lda, kFwdRun, false>(acc, A, K, ring);
+}
 
 // One 256-wide layer with ReLU, act = relu(A[:, :K] . W + bias), in place,
 // W the next product of the stream.
 template <int Lda, bool Spill, bool Bf16>
-__device__ __forceinline__ void dense_relu(const float* A, int K, FwdRing& ring, const float* bias, float* act,
+__device__ __forceinline__ void dense_relu(const float* A, int K, FwdRing<Bf16>& ring, const float* bias, float* act,
                                            float* spill, int valid_rows) {
   ChunkAcc<kWidth> acc;
   zero_acc(acc);
-  gemm_wt<kWidth, Lda, kFwdRun, Bf16>(acc, A, K, ring);
+  fwd_product<kWidth, Lda, Bf16>(acc, A, K, ring);
   product_done<Spill>();
   store_act<kWidth, Spill, Bf16>(acc, bias, true, act, nullptr, 0, 1, 1, spill, valid_rows);
 }
@@ -663,7 +836,7 @@ __device__ __forceinline__ void view_terms(const float* __restrict__ venc, const
 // rows at `spill` (already offset to the chunk's first row). Ends with a
 // barrier.
 template <bool Spill, bool Bf16>
-__device__ __forceinline__ void forward_chunk(const float* __restrict__ xenc, const Weights& w, FwdRing& ring,
+__device__ __forceinline__ void forward_chunk(const float* __restrict__ xenc, const Weights& w, FwdRing<Bf16>& ring,
                                               const ForwardSmem& m, size_t row_base, int row0, int n_rows, int S,
                                               float* spill) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -685,8 +858,8 @@ __device__ __forceinline__ void forward_chunk(const float* __restrict__ xenc, co
   {  // skip layer: relu(h . w5x + x_enc . w5i + b5), one accumulator
     ChunkAcc<kWidth> a5;
     zero_acc(a5);
-    gemm_wt<kWidth, kAct, kFwdRun, Bf16>(a5, act, kWidth, ring);    // w5x
-    gemm_wt<kWidth, kXs, kFwdRun, Bf16>(a5, m.xs, kPosPad, ring);   // w5i
+    fwd_product<kWidth, kAct, Bf16>(a5, act, kWidth, ring);  // w5x
+    fwd_product<kWidth, kXs, Bf16>(a5, m.xs, kPosPad, ring);  // w5i
     product_done<Spill>();
     store_act<kWidth, Spill, Bf16>(a5, w.b5, true, act, nullptr, 0, 1, 1, spill + 5 * kWidth, valid_rows);
   }
@@ -706,14 +879,14 @@ __device__ __forceinline__ void forward_chunk(const float* __restrict__ xenc, co
      // it after the density reads
     ChunkAcc<kWidth> ab;
     zero_acc(ab);
-    gemm_wt<kWidth, kAct, kFwdRun, Bf16>(ab, act, kWidth, ring);  // wb
+    fwd_product<kWidth, kAct, Bf16>(ab, act, kWidth, ring);  // wb
     product_done<Spill>();
     store_act<kWidth, Spill, Bf16>(ab, w.bb, false, act, nullptr, 0, 1, 1, spill + kSpillBtl, valid_rows);
   }
   {  // view layer: relu(btl . wva + cterm[ray] + bv) -> act[:, :128]
     ChunkAcc<kCondWidth> av;
     zero_acc(av);
-    gemm_wt<kCondWidth, kAct, kFwdRun, Bf16>(av, act, kWidth, ring);  // wva
+    fwd_product<kCondWidth, kAct, Bf16>(av, act, kWidth, ring);  // wva
     product_done<Spill>();
     store_act<kCondWidth, Spill, Bf16>(av, w.bv, true, act, m.cterm, row0, S, n_rows, spill + kSpillView,
                                        valid_rows);

@@ -20,7 +20,8 @@ is summed.
 """
 
 import ctypes
-from typing import Callable, Dict, List, Tuple
+import functools
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -41,15 +42,30 @@ WEIGHTS_T = (
     ("w7", WIDTH, WIDTH), ("wb", WIDTH, WIDTH), ("wva", COND_WIDTH, WIDTH),
 )
 WT_FLOATS = sum(rows * cols for _, rows, cols in WEIGHTS_T)
-# Rays per CUDA block. 16 rays of 193 samples fill 48.25 chunks of 64 rows
-# (1.5% padding; 4.6% at S=65), fit the block's per-sample scratch into
-# shared memory, and make 256 blocks of a 4096-ray tile (two waves on 132 SMs).
+# The narrow heads the forward kernels read as fp32 (rounded in bf16 mode);
+# every other weight of the forward reaches them in the packed copy.
+FWD_HEADS = ("wd", "wr", "wvb")
+# The largest ray tile (rays per CUDA block), and K2's: 16 rays of 193
+# samples fill 48.25 chunks of 64 rows (1.5% padding; 4.6% at S=65) and fit
+# the block's per-sample scratch into shared memory.
 RAY_TILE = 16
+# The forward kernels' block (csrc/nerf_level.cuh): rows a chunk, shared
+# memory of the weight ring with its barriers and alignment, row strides of
+# the activation and the encoded-input tiles; the shared memory a block may
+# have on Hopper, and its SMs.
+CHUNK_ROWS = 64
+_RING_BYTES = 1024 + 5 * 16384 + 128
+_ACT_STRIDE, _XS_STRIDE = WIDTH + 4, POS_PAD + 4
+MAX_SMEM_BYTES = 232448
+N_SMS = 132
 
 # Launches of the CUDA kernel since each count was last set to 0: in fp32
-# (launches) and in bf16 mode (bf16_launches).
+# (launches) and in bf16 mode (bf16_launches); and the ray tile of each
+# launch's shape, (rays, samples, dot_bf16) -> tile, since it was last
+# cleared.
 launches = 0
 bf16_launches = 0
+launch_tiles: Dict[Tuple[int, int, bool], int] = {}
 # A launcher's return code at or above this is this plus the CUresult with
 # which the driver refused one of the weight stream's TMA maps (kMapError).
 MAP_ERROR = 1000
@@ -108,6 +124,73 @@ def kernel_weights_t(kernel_params: Dict[str, torch.Tensor]) -> torch.Tensor:
         w = kernel_params[name].detach()
         view[:, : w.shape[0]].copy_(w.t())
     return flat
+
+
+def kernel_weights_t_bf16(kernel_params: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The bf16 mode's copy of :func:`kernel_weights_t`: the same layout,
+    each weight rounded to bf16 (to nearest, ties to even) as it is
+    transposed into a ``torch.bfloat16`` buffer, one pass a weight; detached.
+    Its values are ``kernel_weights_t(bf16_params(kernel_params))``'s."""
+    first = kernel_params["w0"]
+    flat = torch.zeros(WT_FLOATS, dtype=torch.bfloat16, device=first.device)
+    for name, view in unpack_weights_t(flat).items():
+        w = kernel_params[name].detach()
+        view[:, : w.shape[0]].copy_(w.t())
+    return flat
+
+
+def forward_smem_bytes(S: int, ray_tile: int) -> int:
+    """Shared memory of a forward block (K1, K1s) of ray_tile rays of S
+    samples, as ``forward_smem_bytes`` in ``csrc/nerf_level.cuh`` counts it:
+    224,640 bytes at 16 rays, S = 193."""
+    return _RING_BYTES + 4 * (CHUNK_ROWS * _ACT_STRIDE + CHUNK_ROWS * _XS_STRIDE + ray_tile * COND_WIDTH
+                              + 4 * ray_tile * S)
+
+
+def choose_ray_tile(R: int, S: int, n_sms: int = N_SMS) -> int:
+    """The forward kernels' ray tile for R rays of S samples: of the tiles T
+    <= RAY_TILE that divide R and whose block fits in shared memory, the one
+    with the fewest waves x chunks a block, ceil(R / T / n_sms) x ceil(T S /
+    CHUNK_ROWS) (one block a SM: its shared memory and registers allow no
+    second), ties to the larger T. 16 at 2048 and 4096 rays (S = 65, 193), 2
+    at 224 and 256, 15 at 3840. A row's outputs do not depend on the tile."""
+    best = None
+    for T in range(1, min(RAY_TILE, R) + 1):
+        if R % T or forward_smem_bytes(S, T) > MAX_SMEM_BYTES:
+            continue
+        cost = -(-R // T // n_sms) * -(-(T * S) // CHUNK_ROWS)
+        if best is None or cost <= best[0]:
+            best = (cost, T)
+    if best is None:
+        raise ValueError(f"no ray tile fits {R} rays of {S} samples in a block's shared memory")
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def launch_ray_tile(R: int, S: int, ray_tile: Optional[int], device: torch.device) -> int:
+    """``ray_tile``, or where it is None the tile :func:`choose_ray_tile`
+    picks for the card's SMs (RAY_TILE's SM count on the CPU); raises unless
+    it divides R."""
+    if ray_tile is None:
+        ray_tile = choose_ray_tile(R, S, _sm_count(device.index or 0) if device.type == "cuda" else N_SMS)
+    if ray_tile <= 0 or R % ray_tile != 0:
+        raise ValueError(f"rays {R} not a multiple of ray_tile {ray_tile}")
+    return ray_tile
+
+
+def fwd_operands(kernel_params: Dict[str, torch.Tensor], dot_bf16: bool):
+    """What the forward kernels take beside the inputs: the 26 weights (in
+    bf16 mode with the narrow heads of FWD_HEADS rounded to bf16) and the
+    packed product weights, :func:`kernel_weights_t` or in bf16 mode
+    :func:`kernel_weights_t_bf16`."""
+    if not dot_bf16:
+        return kernel_params, kernel_weights_t(kernel_params)
+    heads = {n: round_bf16(kernel_params[n].detach()) for n in FWD_HEADS}
+    return {**kernel_params, **heads}, kernel_weights_t_bf16(kernel_params)
 
 
 def round_bf16(x: torch.Tensor) -> torch.Tensor:
@@ -268,12 +351,23 @@ def check_launch(fn_name: str, err: int) -> None:
         raise RuntimeError(f"{fn_name}: CUDA launch failed with error {err}")
 
 
-def check_wt_floats(fn, lib_name: str) -> None:
+def check_forward_layout(fn, bf16_bytes_fn, smem_fn, lib_name: str) -> None:
     """Raises unless the library's packed transposed weights (``fn()``
-    floats) are ``kernel_weights_t``'s."""
-    fn.argtypes, fn.restype = [], ctypes.c_int
+    floats) are ``kernel_weights_t``'s, their bf16 pack (``bf16_bytes_fn()``
+    bytes) is ``kernel_weights_t_bf16``'s, and its forward block's shared
+    memory (``smem_fn(S, ray_tile)``) is what :func:`forward_smem_bytes`
+    counts for the tile rule."""
+    for f in (fn, bf16_bytes_fn):
+        f.argtypes, f.restype = [], ctypes.c_int
+    smem_fn.argtypes, smem_fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
     if fn() != WT_FLOATS:
         raise RuntimeError(f"{lib_name}: kernel packs {fn()} transposed weight floats, expected {WT_FLOATS}")
+    if bf16_bytes_fn() != 2 * WT_FLOATS:
+        raise RuntimeError(f"{lib_name}: kernel's bf16 pack is {bf16_bytes_fn()} bytes, expected {2 * WT_FLOATS}")
+    for S, T in ((65, 16), (193, 16), (193, 2), (7, 1)):
+        if smem_fn(S, T) != forward_smem_bytes(S, T):
+            raise RuntimeError(f"{lib_name}: a block of {T} rays of {S} samples takes {smem_fn(S, T)} bytes of "
+                               f"shared memory, the tile rule counts {forward_smem_bytes(S, T)}")
 
 
 _lib = None
@@ -288,7 +382,8 @@ def _library():
             ctypes.c_void_p
         ]
         fn.restype = ctypes.c_int
-        check_wt_floats(lib.aonerf_fused_render_wt_floats, "fused_render")
+        check_forward_layout(lib.aonerf_fused_render_wt_floats, lib.aonerf_fused_render_wt_bf16_bytes,
+                        lib.aonerf_fused_render_smem_bytes, "fused_render")
         _lib = lib
     return _lib
 
@@ -301,7 +396,7 @@ def fused_render_level(
     viewdirs_enc: torch.Tensor,
     samples_enc: torch.Tensor,
     white_bkgd: bool,
-    ray_tile: int = RAY_TILE,
+    ray_tile: Optional[int] = None,
     dot_bf16: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Render one hierarchy level for R rays (R % ray_tile == 0).
@@ -311,16 +406,17 @@ def fused_render_level(
     Returns (comp_rgb (R,3), acc (R,), depth (R,), weights (R,S)).
 
     On CUDA tensors this builds :func:`kernel_weights_t` and launches the
-    kernel, one block per ``ray_tile`` rays, which streams the product
-    weights from that copy through TMA maps encoded for this launch;
-    ``rays_o`` is not read there, as in the TPU kernel. With ``dot_bf16`` it
-    launches the kernel's bf16 mode on the weights rounded to bf16
-    (:func:`bf16_params`). On CPU tensors it runs the plain version.
+    kernel, one block per ``ray_tile`` rays (None: the tile of
+    :func:`choose_ray_tile`, recorded in ``launch_tiles``; the outputs do not
+    depend on it), which streams the product weights from that copy through
+    TMA maps encoded for this launch; ``rays_o`` is not read there, as in the
+    TPU kernel. With ``dot_bf16`` it launches the kernel's bf16 mode on
+    :func:`kernel_weights_t_bf16` and the narrow heads rounded to bf16
+    (:func:`fwd_operands`). On CPU tensors it runs the plain version.
     """
     global launches, bf16_launches
     R, S = t_vals.shape
-    if R % ray_tile != 0:
-        raise ValueError(f"rays {R} not a multiple of ray_tile {ray_tile}")
+    ray_tile = launch_ray_tile(R, S, ray_tile, t_vals.device)
     if t_vals.device.type == "cpu":
         return fused_render_level_ref(
             kernel_params, t_vals, rays_o, rays_d, viewdirs_enc, samples_enc, white_bkgd, dot_bf16=dot_bf16
@@ -330,10 +426,8 @@ def fused_render_level(
 
     xenc = samples_enc.reshape(R * S, samples_enc.shape[-1])
     _check_inputs(kernel_params, t_vals, rays_d, viewdirs_enc, xenc, R, S)
-    if dot_bf16:
-        kernel_params = bf16_params(kernel_params)
     lib = _library()
-    wt = kernel_weights_t(kernel_params)
+    kernel_params, wt = fwd_operands(kernel_params, dot_bf16)
     comp = torch.empty((R, 3), dtype=torch.float32, device=t_vals.device)
     acc = torch.empty((R,), dtype=torch.float32, device=t_vals.device)
     depth = torch.empty((R,), dtype=torch.float32, device=t_vals.device)
@@ -347,6 +441,7 @@ def fused_render_level(
             R, S, ray_tile, int(white_bkgd), int(dot_bf16), stream,
         )
     check_launch("fused_render_level", err)
+    launch_tiles[(R, S, dot_bf16)] = ray_tile
     if dot_bf16:
         bf16_launches += 1
     else:

@@ -30,7 +30,7 @@ is analytic:
 """
 
 import ctypes
-from typing import Callable, Dict, List, NamedTuple, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -44,11 +44,14 @@ from aonerf_torch.ops.kernels.fused_render import (
     _check_inputs,
     bf16_params,
     bf16_products,
+    check_forward_layout,
     check_launch,
-    check_wt_floats,
+    fwd_operands,
     integrate_ref,
     kernel_params,
     kernel_weights_t,
+    kernel_weights_t_bf16,
+    launch_ray_tile,
     level_activations_ref,
 )
 
@@ -57,11 +60,13 @@ SAVED_FLOATS = 9 * WIDTH + COND_WIDTH
 
 # Launches of K1s (fwd_launches) and of the CUDA backward (launches) since
 # each count was last set to 0, in fp32; bf16_fwd_launches and bf16_launches
-# count the same in bf16 mode.
+# count the same in bf16 mode. fwd_tiles: the ray tile of each K1s launch's
+# shape, (rays, samples, dot_bf16) -> tile, since it was last cleared.
 fwd_launches = 0
 launches = 0
 bf16_fwd_launches = 0
 bf16_launches = 0
+fwd_tiles: Dict[Tuple[int, int, bool], int] = {}
 
 
 def _relu_mask(x: torch.Tensor) -> torch.Tensor:
@@ -255,7 +260,8 @@ def _library():
         if lib.aonerf_fused_level_bwd_saved_floats() != SAVED_FLOATS:
             raise RuntimeError(f"fused_train: kernel saves {lib.aonerf_fused_level_bwd_saved_floats()} floats "
                                f"a sample, expected {SAVED_FLOATS}")
-        check_wt_floats(lib.aonerf_fused_level_wt_floats, "fused_train")
+        check_forward_layout(lib.aonerf_fused_level_wt_floats, lib.aonerf_fused_level_wt_bf16_bytes,
+                        lib.aonerf_fused_level_fwd_smem_bytes, "fused_train")
         _lib = lib
     return _lib
 
@@ -331,7 +337,7 @@ def fused_level_fwd_spill(
     viewdirs_enc: torch.Tensor,
     samples_enc: torch.Tensor,
     white_bkgd: bool,
-    ray_tile: int = RAY_TILE,
+    ray_tile: Optional[int] = None,
     dot_bf16: bool = False,
 ) -> Tuple[torch.Tensor, ...]:
     """The level's training forward (K1s): :func:`fused_render_level`'s
@@ -342,11 +348,14 @@ def fused_level_fwd_spill(
     ``raw`` (R*S, 4), its raw sigma and rgb.
 
     On CUDA tensors this builds :func:`kernel_weights_t` and launches K1s,
-    one block per ``ray_tile`` rays (with ``dot_bf16``, its bf16 mode on the
-    rounded weights); on CPU tensors it runs the plain version.
+    one block per ``ray_tile`` rays (None: the tile ``choose_ray_tile``
+    picks, recorded in ``fwd_tiles``; the outputs do not depend on it), with
+    ``dot_bf16`` its bf16 mode on :func:`kernel_weights_t_bf16` and the
+    rounded narrow heads; on CPU tensors it runs the plain version.
     """
     global fwd_launches, bf16_fwd_launches
     R, S = t_vals.shape
+    ray_tile = launch_ray_tile(R, S, ray_tile, t_vals.device)
     if _device_of("fused_level_fwd_spill", t_vals, R, ray_tile) == "cpu":
         return fused_level_fwd_spill_ref(
             kernel_params, t_vals, rays_o, rays_d, viewdirs_enc, samples_enc, white_bkgd, dot_bf16=dot_bf16
@@ -354,10 +363,8 @@ def fused_level_fwd_spill(
     dev = t_vals.device
     xenc = samples_enc.reshape(R * S, samples_enc.shape[-1])
     _check_inputs(kernel_params, t_vals, rays_d, viewdirs_enc, xenc, R, S)
-    if dot_bf16:
-        kernel_params = bf16_params(kernel_params)
     lib = _library()
-    wt = kernel_weights_t(kernel_params)
+    kernel_params, wt = fwd_operands(kernel_params, dot_bf16)
     f32 = dict(dtype=torch.float32, device=dev)
     comp, acc, depth = torch.empty((R, 3), **f32), torch.empty((R,), **f32), torch.empty((R,), **f32)
     weights = torch.empty((R, S), **f32)
@@ -370,6 +377,7 @@ def fused_level_fwd_spill(
         comp.data_ptr(), acc.data_ptr(), depth.data_ptr(), weights.data_ptr(), saved.data_ptr(), raw.data_ptr(),
         R, S, ray_tile, int(white_bkgd), int(dot_bf16),
     )
+    fwd_tiles[(R, S, dot_bf16)] = ray_tile
     if dot_bf16:
         bf16_fwd_launches += 1
     else:
@@ -460,8 +468,8 @@ def fused_level_bwd(
     """Gradients of the 26 level weights from the level's inputs and the
     cotangents of :func:`fused_render_level`'s outputs alone: K1s, then the
     backward from what it saved (:func:`fused_level_bwd_saved`), in one call
-    of the library; ``saved`` is its scratch. On CPU tensors it runs the
-    plain version."""
+    of the library, both at ``ray_tile``; ``saved`` is its scratch. On CPU
+    tensors it runs the plain version."""
     global fwd_launches, launches, bf16_fwd_launches, bf16_launches
     R, S = t_vals.shape
     if _device_of("fused_level_bwd", t_vals, R, ray_tile) == "cpu":
@@ -473,10 +481,10 @@ def fused_level_bwd(
     xenc = samples_enc.reshape(R * S, samples_enc.shape[-1])
     _check_inputs(kernel_params, t_vals, rays_d, viewdirs_enc, xenc, R, S)
     _check_cotangents(g_comp, g_acc, g_depth, g_weights, R, S, dev)
+    wt = kernel_weights_t_bf16(kernel_params) if dot_bf16 else kernel_weights_t(kernel_params)
     if dot_bf16:
         kernel_params = bf16_params(kernel_params)
     lib = _library()
-    wt = kernel_weights_t(kernel_params)
     scratch, grads = _backward_scratch(lib, kernel_params, R, S, ray_tile, dev)
     saved = torch.empty(R * S * SAVED_FLOATS, dtype=torch.float32, device=dev)
     _launch(
@@ -499,13 +507,15 @@ def fused_level_bwd(
 class FusedLevel(torch.autograd.Function):
     """One level as a differentiable function of its 26 weights: K1s forward,
     K2 backward from what it saved, both in the mode ``dot_bf16`` says
-    (counterpart of ``make_fused_level``)."""
+    (counterpart of ``make_fused_level``). K1s runs at the tile it chooses
+    (its outputs do not depend on it); K2 at ``ray_tile``, which sets the
+    order of B1's per-block head sums and so its bits."""
 
     @staticmethod
     def forward(ctx, t_vals, rays_o, rays_d, viewdirs_enc, samples_enc, white_bkgd, ray_tile, dot_bf16, *weights):
         kp = dict(zip(WEIGHT_NAMES, weights))
         *out, saved, raw = fused_level_fwd_spill(
-            kp, t_vals, rays_o, rays_d, viewdirs_enc, samples_enc, white_bkgd, ray_tile, dot_bf16
+            kp, t_vals, rays_o, rays_d, viewdirs_enc, samples_enc, white_bkgd, dot_bf16=dot_bf16
         )
         ctx.save_for_backward(t_vals, rays_o, rays_d, viewdirs_enc, samples_enc, *weights)
         # neither inputs nor outputs: kept as attributes, dropped by backward
@@ -537,7 +547,8 @@ def fused_level(
     ray_tile: int = RAY_TILE,
     dot_bf16: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """:func:`fused_render_level` with gradients to ``kernel_params``."""
+    """:func:`fused_render_level` with gradients to ``kernel_params``;
+    ``ray_tile`` is the backward's (K2's) tile."""
     return FusedLevel.apply(
         t_vals, rays_o, rays_d, viewdirs_enc, samples_enc, white_bkgd, ray_tile, dot_bf16,
         *[kernel_params[n] for n in WEIGHT_NAMES],
@@ -563,9 +574,10 @@ def fused_nerf_forward(
     the kernels' bf16 mode with ``dot_bf16``.
 
     rays: 'rays_o', 'rays_d' (unit), 'viewdirs' (B, 3), B a multiple of
-    ``RAY_TILE``. ``draws`` (see ``ops.random``) gives the coarse jitter and
-    then the fine exponential draws when ``randomized``. Returns
-    [(comp_rgb, acc, depth)] per level, coarse first.
+    ``RAY_TILE`` where ``level`` runs K2 (the default). ``draws`` (see
+    ``ops.random``) gives the coarse jitter and then the fine exponential
+    draws when ``randomized``. Returns [(comp_rgb, acc, depth)] per level,
+    coarse first.
     """
     o, d = rays["rays_o"], rays["rays_d"]
     viewdirs_enc = encoding.pos_enc(rays["viewdirs"], 0, coarse_mlp.deg_view)

@@ -9,7 +9,8 @@ Phases, each of which fails the run with a non-zero exit:
   2. build   - compiles every CUDA source of the port with nvcc.
   3. kernels - the fused level kernel against its plain PyTorch version at
                the serving path's shapes (4096 rays, S = 65 and 193, both
-               backgrounds); on 512 of the rays, its error and the fp32
+               backgrounds) and the ray tile its wrapper chooses (printed);
+               on 512 of the rays, its error and the fp32
                plain version's against the plain version in fp64, which
                catches products that lost fp32 accuracy (plain TF32); times
                and the bounds (3xTF32 on the tensor cores, and fp32).
@@ -18,7 +19,8 @@ Phases, each of which fails the run with a non-zero exit:
                SSIM against the ray-traced targets, rays/s, the kernel's launch
                count, and one view again through the plain version.
   5. spill   - the training forward K1s at the train step's shapes (2048
-               rays, S = 65 and 193, both backgrounds): its four outputs equal
+               rays, S = 65 and 193, both backgrounds; the ray tile printed):
+               its four outputs equal
                to K1's bit for bit, its saved activations and raw sigma/rgb
                against the plain version's, a repeat call's bits, and K1s and
                K1 timed in turns with the bound of each; then the same checks
@@ -40,7 +42,7 @@ Phases, each of which fails the run with a non-zero exit:
   8. test    - the train CLI's --run_eval on the same scene's 4 test views:
                it restores the step-60 checkpoint, renders every view through
                K1 and writes results.json and the render directory; K1's
-               launch count (K1s and K2 none), PSNR/SSIM/object PSNR finite
+               launch count (K1s and K2 none) and ray tiles, PSNR/SSIM/object PSNR finite
                and LPIPS NaN, every output file; view 0 rendered again
                through K1 gives test()'s depth bit for bit and through the
                plain version its rgb within TOL_RENDER_RGB; seconds per view
@@ -87,28 +89,36 @@ Phases, each of which fails the run with a non-zero exit:
  13. bf16 kernels - K1, K1s and K2 in bf16 mode (the TPU kernels' dot_bf16)
                against the bf16 rule (TOL_BF16_*: the plain bf16 version
                summed in fp64 as reference, the limit from the spread of
-               three fp32 summation orders of the plain bf16 version), which
+               six fp32 summation orders of the plain bf16 version), which
                the fp32 kernel must miss: K1 at phase 3's 4096 rays, K1s' saved layers and K2's 26
                gradients at phase 5's 2048, S = 65 and 193, both
                backgrounds; K1s' outputs equal to K1's bits, repeat calls'
                bits, the backward from saved equal to the composition; K1s on
                encoded inputs at exact bf16 ties (ties to even); each kernel
                timed in turns with its fp32 mode, with its plain bf16 version
-               and its bounds at the bf16 and the TF32 peak.
+               and its bounds at the bf16 and the TF32 peak; then at the fast
+               preset's shapes, at the ray tile the wrappers choose (2): K1
+               at its chunk of 256 rays and K1s at its batch of 224 against
+               the bf16 rule, K1 bf16's outputs equal to K1s bf16's, and
+               both kernels' outputs in both modes equal to their bits at 16
+               rays a block; each timed in turns with the 16-ray launch,
+               with its bounds and plain version; the host time of a K1
+               launch; B1 bf16 at 224 rays by the profiler with its bound.
  14. bf16 training - the train CLI at config/vanilla_tpu_fast.json's settings
                (bf16, batch 224, inner_steps 183, grad_clip 1.0, chunk 256) on
                phase 7's scene, cut as phase 7 cuts config/vanilla.json: 2
                multi-steps with a validation and a checkpoint; the loss
                falling, launch counts of K1 (validation), K1s and K2 in bf16
-               mode and none in fp32, the checkpoint's tensors fp32, ms per
+               mode and none in fp32, the ray tiles the wrappers chose, the
+               checkpoint's tensors fp32, ms per
                step; --run_eval in bf16 (K1 bf16 only) and test view 0 in bf16
                against the same checkpoint rendered in fp32, and view 0 of the
                run's initial, random field in bf16 against fp32, each within
                a band stated in advance (TOL_BF16_VIEW_*); the train step at
                config/vanilla.json's batch 2048 in fp32 and in bf16, in turns.
 The line before the last is a JSON object with one entry per kernel and mode
-(K1, K1s, K2 in fp32, then in bf16); the last line is {"ok": true, "device":
-{...}}.
+(K1, K1s, K2 in fp32, then in bf16; K1 and K1s in bf16 at the fast preset's
+shapes; B2 in bf16); the last line is {"ok": true, "device": {...}}.
 """
 
 import json
@@ -266,6 +276,7 @@ TIE_SHARE = 5e-3
 # holds view 0 of the run's initial, random field too.
 FAST_MULTI_STEPS = 2
 CHUNK_FAST = 256  # config/vanilla_tpu_fast.json's chunk: K1's rays a launch on that path
+BATCH_FAST = 224  # its batch: K1s' and K2's rays a launch on that path
 TOL_BF16_VIEW_MAX, TOL_BF16_VIEW_MEAN = 0.05, 2e-3
 
 
@@ -471,8 +482,9 @@ def phase_kernels(nerf, boxes, focal) -> dict:
                 err = (g - w).abs().max().item()
                 errs[name] = max(errs.get(name, 0.0), err)
             fp64_ratio = max(fp64_ratio, fp64_check(*args, white, got))
+        tile = fr.launch_tiles[(R, S, False)]
         print(
-            f"kernel fused_render_level S={S}: max abs err "
+            f"kernel fused_render_level S={S} at {R} rays, ray tile {tile}: max abs err "
             + ", ".join(f"{k} {v:.3e} (tol {TOL[k]:g})" for k, v in errs.items())
             + f"; vs fp64, at most {fp64_ratio:.3f} of the limit"
         )
@@ -489,7 +501,7 @@ def phase_kernels(nerf, boxes, focal) -> dict:
             f"{bound32:.3f} ms in fp32 at 67 TFLOP/s; {2 * MACS_PER_SAMPLE * R * S / ms / 1e9:.2f} TFLOP/s achieved"
         )
         levels.append({
-            "S": S, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+            "S": S, "ray_tile": tile, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
             "bound_ms_fp32": bound32,
             "max_abs_err": max(errs["comp"], errs["acc"], errs["weights"]),
             "depth_max_abs_err": errs["depth"], "fp64_err_over_limit": fp64_ratio,
@@ -736,7 +748,10 @@ def phase_spill(nerf, boxes, focal) -> dict:
             if saved_ratio is None:  # the MLP's activations do not depend on the background
                 saved_ratio = saved_fp64_check(args, got[4], want[4])
             del got, want
-        print(f"kernel fused_level_fwd_spill S={S}: comp/acc/depth/weights equal to K1's bit for bit, both "
+        tile = ft.fwd_tiles[(R, S, False)]
+        print(f"kernel fused_level_fwd_spill S={S} at {R} rays, ray tile {tile} "
+              f"(K1's {fr.launch_tiles[(R, S, False)]}): "
+              "comp/acc/depth/weights equal to K1's bit for bit, both "
               "backgrounds; a repeat call gives the same bits; max abs err against the plain version "
               + ", ".join(f"{k} {v:.3e} (tol {TOL[k]:g})" for k, v in errs.items()))
         bad = [k for k, v in errs.items() if not v <= TOL[k]]
@@ -757,7 +772,8 @@ def phase_spill(nerf, boxes, focal) -> dict:
               f"operations, the products 3xTF32; {4.0 * R * S * (SAVED_FLOATS + 4) / 1e9:.3f} GB of spill at "
               f"3.35 TB/s {4e3 * R * S * (SAVED_FLOATS + 4) / PEAK_BYTES:.3f} ms), {bound32:.3f} ms in fp32; "
               f"K1 bound {_fwd_bounds(S, R)['3xtf32'][0]:.3f} ms, {_fwd_bounds(S, R)['fp32'][0]:.3f} in fp32")
-        levels.append({"S": S, "ms": ms, "ms_again": ms_again, "k1_ms": k1_ms, "k1_ms_again": k1_again,
+        levels.append({"S": S, "ray_tile": tile, "ms": ms, "ms_again": ms_again, "k1_ms": k1_ms,
+                       "k1_ms_again": k1_again,
                        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by, "bound_ms_fp32": bound32,
                        "max_abs_err": max(errs.values()), "errs": errs, "saved_rms_err_over_fp32": saved_ratio})
     kp, _, venc, _ = lvls[0]
@@ -1144,9 +1160,11 @@ def phase_test(cfg_path: str, val_psnr: float) -> dict:
             mock.patch.object(loop_mod, "make_image_renderer", timed_factory):
         torch.cuda.synchronize()
         fr.launches = ft.fwd_launches = ft.launches = 0
+        fr.launch_tiles.clear()
         stats = cli.main(["--config", cfg_path, "--run_eval"])
         torch.cuda.synchronize()
         k1, k1s, k2 = fr.launches, ft.fwd_launches, ft.launches
+        tiles = dict(fr.launch_tiles)
 
     run_dir = os.path.join(cfg.output_path, cfg.exp_name)
     render_dir = os.path.join(run_dir, cfg.render_name)
@@ -1181,7 +1199,8 @@ def phase_test(cfg_path: str, val_psnr: float) -> dict:
     k1_ms = k1_us / 1e3
     print(f"test: --run_eval restored step {restored_at}, {n_views} test views of {W}x{H} at chunk {cfg.chunk}; "
           f"K1 launches {k1} (expected 2 levels x {n_tiles} tiles x {N_TEST} views = {2 * n_tiles * N_TEST}), "
-          f"K1s {k1s}, K2 {k2} (expected 0)")
+          f"K1s {k1s}, K2 {k2} (expected 0); K1's ray tiles (rays, samples) -> tile: "
+          + ", ".join(f"({r}, {s_}) -> {t_}" for (r, s_, _), t_ in sorted(tiles.items())))
     print(f"  test psnr {results['psnr']['test']:.4f} dB, ssim {results['ssim']['test']:.5f}, object psnr "
           f"{results['psnr_obj']['test']:.4f} dB, lpips {results['lpips']['test']} (phase 7's val psnr at step "
           f"{TRAIN_STEPS}: {val_psnr})")
@@ -1212,7 +1231,8 @@ def phase_test(cfg_path: str, val_psnr: float) -> dict:
         fail("the kernel's test render disagrees with the plain version's")
     if not k1_us > 0:
         fail("the profiler saw no K1 device time")
-    return {"k1": k1, "seconds_per_view": per_test, "render_seconds_per_view": per_render, "k1_ms": k1_ms}
+    return {"k1": k1, "seconds_per_view": per_test, "render_seconds_per_view": per_render, "k1_ms": k1_ms,
+            "ray_tiles": {f"{r}x{s_}": t_ for (r, s_, _), t_ in tiles.items()}}
 
 
 def _autodecoder_config(root: str, out: str) -> str:
@@ -1976,17 +1996,188 @@ def b2_check(args, cot, S: int) -> dict:
             "library": library, "max_abs_err": err, "fp64_rel_err": worst}
 
 
+def _in_turns(chosen, at16, kernel: str, iters: int) -> tuple:
+    """Device ms per call of the kernel whose name holds `kernel` (by
+    torch.profiler) in chosen() and in at16(), in turns (chosen, 16, 16,
+    chosen): ([chosen, chosen again], [16, 16 again]). At the fast preset's
+    shapes a launch's host work outlasts the kernel, so CUDA events around a
+    run of calls would time the host."""
+    def dev(fn):
+        return sum(v for k, v in _kernel_ms(fn, iters).items() if kernel in k)
+    a, b, b2, a2 = dev(chosen), dev(at16), dev(at16), dev(chosen)
+    return [a, a2], [b, b2]
+
+
+def host_ms(fn, n: int = 20) -> float:
+    """Host ms per call of fn() over n calls without a synchronize: the
+    wrapper's own work (packing, tensor maps, the launch) while the card
+    runs behind it."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    torch.cuda.synchronize()
+    return ms
+
+
+def _same_at_16(what, fn, args, white: bool) -> None:
+    """Fails unless fn's outputs at the tile its wrapper chooses equal, bit
+    for bit, those at 16 rays a block, in fp32 and in bf16 mode; ends with
+    the chosen tile's launch, so the wrapper's record of the shape holds it."""
+    for dot in (False, True):
+        chosen = fn(*args, white, dot_bf16=dot)
+        at16 = fn(*args, white, ray_tile=16, dot_bf16=dot)
+        torch.cuda.synchronize()
+        for i, (a, b) in enumerate(zip(chosen, at16)):
+            if not torch.equal(a, b):
+                fail(f"{what} {'bf16' if dot else 'fp32'} white={white}: output {i} at the chosen tile differs from "
+                     "its bits at 16 rays a block")
+        del chosen, at16
+        fn(*args, white, dot_bf16=dot)
+
+
+def k1_preset_check(args, S: int) -> dict:
+    """K1 bf16 at the fast preset's chunk (CHUNK_FAST rays), at the tile its
+    wrapper chooses: the bf16 rule (the fp32 kernel not asked to miss at this
+    size), its outputs equal to K1s bf16's and, in both modes, to those at 16
+    rays a block; times in turns with the 16-ray launch, its bounds, the plain
+    bf16 version, the host time of a launch."""
+    from aonerf_torch.ops.kernels import fused_render as fr
+    from aonerf_torch.ops.kernels import fused_train as ft
+
+    R = args[1].shape[0]
+    args64 = ({n: v.double() for n, v in args[0].items()}, *(a.double() for a in args[1:]))
+    worst, err = 0.0, 0.0
+    for white in (True, False):
+        got = fr.fused_render_level(*args, white, dot_bf16=True)
+        k1s = ft.fused_level_fwd_spill(*args, white, dot_bf16=True)
+        torch.cuda.synchronize()
+        for n, g, w in zip(OUTPUTS, got, k1s):
+            if not torch.isfinite(g).all():
+                fail(f"K1 bf16 S={S} at {R} rays white={white}: non-finite {n}")
+            if not torch.equal(g, w):
+                fail(f"K1 bf16 S={S} at {R} rays white={white}: {n} differs from K1s bf16's")
+        got = dict(zip(OUTPUTS, got))
+        del k1s
+        _same_at_16(f"K1 S={S} at {R} rays", fr.fused_render_level, args, white)
+        orders = {k: bf16_k1_plain(args, white, mm) for k, mm in BF16_ORDERS.items()}
+        ref = bf16_k1_plain(args64, white)
+        ratios = bf16_ratios(got, ref, bf16_limits(orders, ref, TOL_BF16_FWD))
+        bad = sorted(n for n, r in ratios.items() if not r <= 1.0)
+        if bad:
+            fail(f"K1 bf16 S={S} at {R} rays white={white}: off the fp64 bf16 reference beyond the bf16 rule on {bad}")
+        worst = max(worst, max(ratios.values()))
+        err = max(err, max((got[n] - orders["cuBLAS"][n]).abs().max().item() for n in OUTPUTS))
+        del got, orders, ref
+    tile = fr.launch_tiles[(R, S, True)]
+    k1 = lambda: fr.fused_render_level(*args, True, dot_bf16=True)  # noqa: E731
+    k1_16 = lambda: fr.fused_render_level(*args, True, ray_tile=16, dot_bf16=True)  # noqa: E731
+    ms, ms16 = _in_turns(k1, k1_16, "fused_render_level_kernel", iters=20)
+    call_ms = cuda_ms(k1, warmup=2, iters=40)
+    plain = cuda_ms(lambda: fr.fused_render_level_ref(*args, True, dot_bf16=True), warmup=1, iters=5)
+    host = host_ms(k1)
+    b = _fwd_bounds(S, R)
+    print(f"  S={S}: K1 bf16 at the fast preset's chunk of {R} rays, ray tile {tile}: {ms[0]:.3f} / {ms[1]:.3f} ms "
+          f"of device time (torch.profiler), at 16 rays a block {ms16[0]:.3f} / {ms16[1]:.3f} ms (in turns); a call "
+          f"{call_ms:.3f} ms by CUDA events over 40, its host work {host:.3f} ms (20 calls unsynchronized); plain "
+          f"bf16 {plain:.3f} ms, bound {b['bf16'][0]:.3f} ms ({b['bf16'][1]}); bf16 rule at most {worst:.3f} of its "
+          f"limit, max abs err against the fp32-summed plain bf16 {err:.3e}; outputs equal to K1s bf16's and, "
+          "in both modes, to those at 16 rays a block")
+    return {"S": S, "R": R, "ray_tile": tile, "ms": ms[0], "ms_again": ms[1], "ms_t16": ms16[0],
+            "ms_t16_again": ms16[1], "plain_ms": plain, "bound_ms": b["bf16"][0], "bound_by": b["bf16"][1],
+            "bound_ms_tf32": b["tf32"][0], "host_ms": host, "call_ms": call_ms, "max_abs_err": err,
+            "rule_ratio": worst}
+
+
+def _b1_bound_bf16(R: int, S: int) -> tuple:
+    """B1 in bf16 mode as its own function: its products at the bf16 peak,
+    its narrow products and the wvb sum at the fp32 peak; against its bytes,
+    each read or written once: the saved activations it masks with (bf16
+    values, 2 bytes), g_raw (4 floats), the fp32 deltas it writes, venc, the
+    weights and its narrow sets."""
+    rows = R * S
+    ops = (2.0 * rows * B1_TC_MACS / PEAK_BF16_FLOPS
+           + 2.0 * (rows * B1_FP32_MACS + R * 27 * 128) / PEAK_FP32_FLOPS) * 1e3
+    n_bytes = rows * (2.0 * SAVED_FLOATS + 4.0 * (SAVED_FLOATS + 4)) + 4.0 * (R * 27 + N_WEIGHTS + (R // 16) * 4104)
+    return _bound(ops, n_bytes / PEAK_BYTES * 1e3)
+
+
+def k1s_preset_check(args, S: int) -> dict:
+    """K1s bf16 at the fast preset's batch (BATCH_FAST rays), at the tile its
+    wrapper chooses: its saved layers against the bf16 rule, its outputs
+    equal to K1 bf16's and, in both modes, to those at 16 rays a block; times
+    in turns with the 16-ray launch, its bounds and the plain bf16 version;
+    then K2 bf16 from what it saved, B1's time by torch.profiler with B1's
+    bound."""
+    from aonerf_torch.ops.kernels import fused_render as fr
+    from aonerf_torch.ops.kernels import fused_train as ft
+
+    R = args[1].shape[0]
+    args64 = ({n: v.double() for n, v in args[0].items()}, *(a.double() for a in args[1:]))
+    for white in (True, False):
+        got = ft.fused_level_fwd_spill(*args, white, dot_bf16=True)
+        k1 = fr.fused_render_level(*args, white, dot_bf16=True)
+        torch.cuda.synchronize()
+        for n, g, w in zip(OUTPUTS, got, k1):
+            if not torch.equal(g, w):
+                fail(f"K1s bf16 S={S} at {R} rays white={white}: {n} differs from K1 bf16's")
+        if white:
+            saved, raw = got[4], got[5]
+        del got, k1
+        _same_at_16(f"K1s S={S} at {R} rays", ft.fused_level_fwd_spill, args, white)
+    tile = ft.fwd_tiles[(R, S, True)]
+    orders = {k: saved_layers(ft.fused_level_fwd_spill_ref(*args, True, mm=mm, dot_bf16=True)[4])
+              for k, mm in BF16_ORDERS.items()}
+    ref = saved_layers(ft.fused_level_fwd_spill_ref(*args64, True, dot_bf16=True)[4])
+    ratios = bf16_ratios(saved_layers(saved), ref, bf16_limits(orders, ref, TOL_BF16_FWD))
+    err = max((saved_layers(saved)[n] - orders["cuBLAS"][n]).abs().max().item() for n in ref)
+    del orders, ref, args64
+    bad = sorted(n for n, r in ratios.items() if not r <= 1.0)
+    if bad:
+        fail(f"K1s bf16 S={S} at {R} rays: saved layers off the fp64 bf16 reference beyond the bf16 rule on {bad}")
+    k1s = lambda: ft.fused_level_fwd_spill(*args, True, dot_bf16=True)  # noqa: E731
+    k1s_16 = lambda: ft.fused_level_fwd_spill(*args, True, ray_tile=16, dot_bf16=True)  # noqa: E731
+    ms, ms16 = _in_turns(k1s, k1s_16, "level_fwd_spill_kernel", iters=20)
+    plain = cuda_ms(lambda: ft.fused_level_fwd_spill_ref(*args, True, dot_bf16=True), warmup=1, iters=3)
+    b = _fwd_bounds(S, R, spill=True, saved_bytes=2)
+    rng = np.random.default_rng(SEED + 400 + S)
+    cot = tuple(torch.from_numpy(a.astype(np.float32)).to(saved.device) for a in (
+        rng.standard_normal((R, 3)), rng.standard_normal(R), 0.1 * rng.standard_normal(R),
+        rng.standard_normal((R, S))))
+    k2 = lambda: ft.fused_level_bwd_saved(*args, saved, raw, *cot, True, dot_bf16=True)  # noqa: E731
+    grads = k2()
+    if not all(torch.isfinite(g).all() for g in grads.values()):
+        fail(f"K2 bf16 S={S} at {R} rays: non-finite gradients")
+    parts = _bwd_pass_ms(k2, iters=5, passes=K2_PASSES_BF16)
+    b1_bound, b1_by = _b1_bound_bf16(R, S)
+    del saved, raw, grads
+    print(f"  S={S}: K1s bf16 at the fast preset's batch of {R} rays, ray tile {tile}: {ms[0]:.3f} / {ms[1]:.3f} ms "
+          f"of device time (torch.profiler), at 16 rays a block {ms16[0]:.3f} / {ms16[1]:.3f} ms (in turns), "
+          f"plain bf16 {plain:.3f} ms, bound {b['bf16'][0]:.3f} ms ({b['bf16'][1]}; saved at 2 bytes a value); "
+          f"saved vs fp64 bf16 reference, error / "
+          f"limit at most {max(ratios.values()):.3f}; max abs err against the fp32-summed plain bf16 {err:.3e}; "
+          f"K2 bf16 from its saved by pass (torch.profiler) " + ", ".join(f"{n} {v:.3f}" for n, v in parts.items())
+          + f" ms, B1's bound {b1_bound:.3f} ms ({b1_by})")
+    return {"S": S, "R": R, "ray_tile": tile, "ms": ms[0], "ms_again": ms[1], "ms_t16": ms16[0],
+            "ms_t16_again": ms16[1], "plain_ms": plain, "bound_ms": b["bf16"][0], "bound_by": b["bf16"][1],
+            "bound_ms_tf32": b["tf32"][0], "max_abs_err": err, "rule_ratio": max(ratios.values()),
+            "k2_passes_ms": parts, "b1_bound_ms": b1_bound, "b1_bound_by": b1_by}
+
+
 def phase_bf16_kernels(nerf, boxes, focal) -> dict:
     """K1, K1s and K2 in bf16 mode against the bf16 rule, at the serving
     tile's 4096 rays (K1) and the train step's 2048 (K1s, K2), S = 65 and
     193, both backgrounds; K1s' outputs equal to K1's bits; ties; times in
-    turns with the fp32 mode."""
+    turns with the fp32 mode; then K1 at the fast preset's chunk of 256 rays
+    and K1s (with B1 after it) at its batch of 224, at the tile the
+    wrappers choose, in turns with 16 rays a block."""
     from aonerf_torch.ops.kernels import fused_render as fr
     from aonerf_torch.ops.kernels import fused_train as ft
 
     dev = torch.device("cuda")
     names = fr.WEIGHT_NAMES
-    k1_levels, k1s_levels, k2_levels, b2_levels = [], [], [], []
+    k1_levels, k1s_levels, k2_levels, b2_levels, k1_preset, k1s_preset = [], [], [], [], [], []
     o, d, lvls = _train_levels(nerf, boxes, focal, R=R, seed=SEED + 100, dot_bf16=True)
     for kp, t, venc, xenc in lvls:
         S = t.shape[1]
@@ -2020,22 +2211,19 @@ def phase_bf16_kernels(nerf, boxes, focal) -> dict:
         ms32_again = cuda_ms(k1_32, warmup=0, iters=iters)
         plain_ms = cuda_ms(lambda: fr.fused_render_level_ref(*args, True, dot_bf16=True), warmup=1, iters=3)
         b = _fwd_bounds(S, R)
-        # the fast preset's launches (phase 14) are at its chunk, 256 rays
-        args256 = (kp, *(a[:CHUNK_FAST].contiguous() for a in (t, o, d, venc)),
-                   xenc.reshape(R, S, -1)[:CHUNK_FAST].contiguous())
-        ms256 = cuda_ms(lambda: fr.fused_render_level(*args256, True, dot_bf16=True), warmup=2, iters=4 * iters)
-        plain256 = cuda_ms(lambda: fr.fused_render_level_ref(*args256, True, dot_bf16=True), warmup=1, iters=5)
-        b256 = _fwd_bounds(S, CHUNK_FAST)
-        print(f"  S={S}: K1 bf16 {ms:.3f} / {ms_again:.3f} ms, fp32 {ms32:.3f} / {ms32_again:.3f} ms (in turns: fp32, "
-              f"bf16, bf16, fp32), plain bf16 {plain_ms:.3f} ms; bound {b['bf16'][0]:.3f} ms ({b['bf16'][1]}; the "
-              f"products at 989 TFLOP/s bf16), {b['tf32'][0]:.3f} ms at the 495 TFLOP/s TF32 peak of its one mma; "
-              f"max abs err against the fp32-summed plain bf16 {err:.3e}; at the fast preset's chunk of "
-              f"{CHUNK_FAST} rays {ms256:.3f} ms, plain bf16 {plain256:.3f} ms, bound {b256['bf16'][0]:.3f} ms")
-        k1_levels.append({"S": S, "ms": ms, "ms_again": ms_again, "fp32_ms": ms32, "fp32_ms_again": ms32_again,
-                          "plain_ms": plain_ms, "bound_ms": b["bf16"][0], "bound_by": b["bf16"][1],
-                          "bound_ms_tf32": b["tf32"][0], "max_abs_err": err, "rule_ratio": worst,
-                          "ms_chunk": ms256, "plain_ms_chunk": plain256, "bound_ms_chunk": b256["bf16"][0]})
+        print(f"  S={S}: K1 bf16 at {R} rays, ray tile {fr.launch_tiles[(R, S, True)]}: {ms:.3f} / {ms_again:.3f} ms, "
+              f"fp32 {ms32:.3f} / {ms32_again:.3f} ms (in turns: fp32, bf16, bf16, fp32), plain bf16 {plain_ms:.3f} "
+              f"ms; bound {b['bf16'][0]:.3f} ms ({b['bf16'][1]}; the products at 989 TFLOP/s bf16), "
+              f"{b['tf32'][0]:.3f} ms at the 495 TFLOP/s TF32 peak; max abs err against the fp32-summed plain bf16 "
+              f"{err:.3e}")
+        k1_levels.append({"S": S, "ray_tile": fr.launch_tiles[(R, S, True)], "ms": ms, "ms_again": ms_again,
+                          "fp32_ms": ms32, "fp32_ms_again": ms32_again, "plain_ms": plain_ms,
+                          "bound_ms": b["bf16"][0], "bound_by": b["bf16"][1], "bound_ms_tf32": b["tf32"][0],
+                          "max_abs_err": err, "rule_ratio": worst})
         del args64
+        # the fast preset's validation and test launches (phase 14) are at its chunk, 256 rays
+        k1_preset.append(k1_preset_check((kp, *(a[:CHUNK_FAST].contiguous() for a in (t, o, d, venc)),
+                                          xenc.reshape(R, S, -1)[:CHUNK_FAST].contiguous()), S))
 
     o, d, lvls = _train_levels(nerf, boxes, focal, R=R_TRAIN, dot_bf16=True)
     for kp, t, venc, xenc in lvls:
@@ -2091,14 +2279,19 @@ def phase_bf16_kernels(nerf, boxes, focal) -> dict:
         ms32_again = cuda_ms(k1s32, warmup=0, iters=iters)
         plain_ms = cuda_ms(lambda: ft.fused_level_fwd_spill_ref(*args, True, dot_bf16=True), warmup=1, iters=3)
         b = _fwd_bounds(S, R_TRAIN, spill=True, saved_bytes=2)
-        print(f"  S={S}: K1s bf16 {ms:.3f} / {ms_again:.3f} ms, fp32 {ms32:.3f} / {ms32_again:.3f} ms (in turns), "
+        print(f"  S={S}: K1s bf16 at {R_TRAIN} rays, ray tile {ft.fwd_tiles[(R_TRAIN, S, True)]}: {ms:.3f} / "
+              f"{ms_again:.3f} ms, fp32 {ms32:.3f} / {ms32_again:.3f} ms (in turns), "
               f"plain bf16 {plain_ms:.3f} ms; bound {b['bf16'][0]:.3f} ms ({b['bf16'][1]}; saved at 2 bytes a "
               f"value, {_fwd_bounds(S, R_TRAIN, spill=True)['bf16'][0]:.3f} ms in the fp32 layout it writes), "
               f"{b['tf32'][0]:.3f} ms at the TF32 peak")
         k1s_levels.append({"S": S, "ms": ms, "ms_again": ms_again, "fp32_ms": ms32, "fp32_ms_again": ms32_again,
                            "plain_ms": plain_ms, "bound_ms": b["bf16"][0], "bound_by": b["bf16"][1],
                            "bound_ms_tf32": b["tf32"][0], "max_abs_err": max(saved_err, raw_err),
-                           "rule_ratio": max(ratios.values()), "tie_share": tie_share})
+                           "rule_ratio": max(ratios.values()), "tie_share": tie_share,
+                           "ray_tile": ft.fwd_tiles[(R_TRAIN, S, True)]})
+        # the fast preset's training launches (phase 14) are at its batch, 224 rays
+        k1s_preset.append(k1s_preset_check((kp, *(a[:BATCH_FAST].contiguous() for a in (t, o, d, venc)),
+                                            xenc.reshape(R_TRAIN, S, -1)[:BATCH_FAST].contiguous()), S))
 
         rng = np.random.default_rng(SEED + 300 + S)
         cot = tuple(torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
@@ -2144,19 +2337,21 @@ def phase_bf16_kernels(nerf, boxes, focal) -> dict:
         parts = _bwd_pass_ms(k2, iters=3, passes=K2_PASSES_BF16)
         del saved, raw
         b = _bwd_bounds_bf16(R_TRAIN, S)
+        b1_bound, b1_by = _b1_bound_bf16(R_TRAIN, S)
         print(f"  S={S}: K2 bf16 (the backward from saved) {ms:.3f} / {ms_again:.3f} ms, fp32 {ms32:.3f} / "
               f"{ms32_again:.3f} ms, plain bf16 {plain_ms:.3f} / {plain_again:.3f} ms (in turns: fp32, bf16, plain, "
               f"bf16, plain, fp32); bound {b['bf16'][0]:.3f} ms ({b['bf16'][1]}), {b['tf32'][0]:.3f} ms at the "
               f"TF32 peak; by pass (torch.profiler) " + ", ".join(f"{n} {v:.3f}" for n, v in parts.items())
-              + f"; max abs err against plain bf16 {err:.3e}")
+              + f"; B1's bound {b1_bound:.3f} ms ({b1_by}); max abs err against plain bf16 {err:.3e}")
         k2_levels.append({"S": S, "ms": ms, "ms_again": ms_again, "fp32_ms": ms32, "fp32_ms_again": ms32_again,
                           "plain_ms": plain_ms, "plain_ms_again": plain_again, "bound_ms": b["bf16"][0],
                           "bound_by": b["bf16"][1], "bound_ms_tf32": b["tf32"][0], "passes_ms": parts,
-                          "max_abs_err": err, "rule_ratio": worst})
+                          "b1_bound_ms": b1_bound, "b1_bound_by": b1_by, "max_abs_err": err, "rule_ratio": worst})
         b2_levels.append(b2_check(args, cot, S))
         del args64
         torch.cuda.empty_cache()
-    return {"k1": k1_levels, "k1s": k1s_levels, "k2": k2_levels, "b2": b2_levels}
+    return {"k1": k1_levels, "k1s": k1s_levels, "k2": k2_levels, "b2": b2_levels, "k1_preset": k1_preset,
+            "k1s_preset": k1s_preset}
 
 
 def _fast_config(root: str, out: str) -> str:
@@ -2215,6 +2410,8 @@ def phase_bf16_training(tmp: str, root: str, fp32_cfg_path: str) -> dict:
     0 in bf16 against the same checkpoint in fp32; the bf16 step beside the
     fp32 step at config/vanilla.json's batch."""
     from aonerf_torch.cli import train as cli
+    from aonerf_torch.ops.kernels import fused_render as fr
+    from aonerf_torch.ops.kernels import fused_train as ft
     from aonerf_torch.train import step as step_mod
     from aonerf_torch.train.loop import Trainer
     from aonerf_torch.utils.config import load_config
@@ -2233,12 +2430,15 @@ def phase_bf16_training(tmp: str, root: str, fp32_cfg_path: str) -> dict:
 
     torch.cuda.synchronize()
     _reset_fused_launches()
+    fr.launch_tiles.clear()
+    ft.fwd_tiles.clear()
     t0 = time.perf_counter()
     with mock.patch.object(step_mod, "vanilla_loss_and_grads", recorded):
         metrics = cli.main(["--config", cfg_path, "--max_steps", str(n_steps)])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     train_counts, fp32_counts = _bf16_counts(), _fused_launches()
+    train_tiles = {"K1": dict(fr.launch_tiles), "K1s": dict(ft.fwd_tiles)}
     run_dir = os.path.join(cfg.output_path, cfg.exp_name)
     ckpt = torch.load(os.path.join(run_dir, "ckpts", f"ckpt_{n_steps:08d}.pt"), map_location="cpu")
     dtypes = {v.dtype for part in (ckpt["params"], ckpt["opt_state"]["mu"], ckpt["opt_state"]["nu"])
@@ -2251,15 +2451,18 @@ def phase_bf16_training(tmp: str, root: str, fp32_cfg_path: str) -> dict:
     trainer.state, _ = trainer.step_fn(trainer.state, buffers, cfg.seed)
     torch.cuda.synchronize()
     fast_step_ms = (time.perf_counter() - t0) * 1e3 / trainer._inner_steps
+    fast_busy_ms, _ = profile_train_steps(trainer, buffers, cfg.seed)
     trainer.close()
     del trainer, buffers
 
     _reset_fused_launches()
+    fr.launch_tiles.clear()
     test_t0 = time.perf_counter()
     stats = cli.main(["--config", cfg_path, "--run_eval"])
     torch.cuda.synchronize()
     test_s = time.perf_counter() - test_t0
     test_counts, test_all = _bf16_counts(), _fused_launches()
+    test_tiles = dict(fr.launch_tiles)
 
     bands = {}
     for field, exp_name in (("trained", cfg.exp_name), ("initial", "smoke_bf16_init")):  # no checkpoint: the seed's
@@ -2278,13 +2481,19 @@ def phase_bf16_training(tmp: str, root: str, fp32_cfg_path: str) -> dict:
           f"grad_clip {cfg.grad_clip}, compute_dtype {cfg.compute_dtype}, chunk {cfg.chunk}), {len(losses)} steps in "
           f"{seconds:.1f} s; loss, mean of the first multi-step {first:.5f}, of the last {last:.5f}; val psnr "
           f"{metrics.get('val_psnr')}")
+    def shown(tiles):  # (rays, samples, dot_bf16) -> tile
+        return ", ".join(f"({r}, {s_}{', bf16' if b else ''}) -> {t_}" for (r, s_, b), t_ in sorted(tiles.items()))
+
     print(f"  launches (bf16 mode): K1 {train_counts[0]} (expected 2 levels x {n_val_tiles} val tiles = "
           f"{2 * n_val_tiles}), K1s {train_counts[1]} and K2 {train_counts[2]} (expected 2 x {n_steps} = "
-          f"{2 * n_steps}); every mode together {fp32_counts}")
+          f"{2 * n_steps}); every mode together {fp32_counts}; ray tiles chosen, (rays, samples) -> tile: K1 "
+          f"{shown(train_tiles['K1'])}; K1s {shown(train_tiles['K1s'])}; K2 at {fr.RAY_TILE} rays a block")
     print(f"  checkpoint tensor dtypes {sorted(str(d) for d in dtypes)}; step at batch {cfg.batch_size}: "
-          f"{fast_step_ms:.3f} ms = {cfg.batch_size / fast_step_ms * 1e3:.1f} rays/s (one multi-step, host clock)")
-    print(f"  --run_eval in bf16: {test_s:.1f} s for the test views, K1 bf16 launches {test_counts[0]} (every mode "
-          f"{test_all}); psnr {stats['psnr']['test']:.4f} dB, ssim {stats['ssim']['test']:.5f}, object psnr "
+          f"{fast_step_ms:.3f} ms = {cfg.batch_size / fast_step_ms * 1e3:.1f} rays/s (one multi-step, host clock); "
+          f"the card busy {fast_busy_ms:.3f} ms of it ({100 * fast_busy_ms / fast_step_ms:.1f}%; the profile above)")
+    print(f"  --run_eval in bf16: {test_s:.1f} s for the test views ({test_s / N_TEST:.3f} s a view), K1 bf16 launches "
+          f"{test_counts[0]} (every mode {test_all}), ray tiles {shown(test_tiles)}; psnr "
+          f"{stats['psnr']['test']:.4f} dB, ssim {stats['ssim']['test']:.5f}, object psnr "
           f"{stats['psnr_obj']['test']:.4f} dB; view 0 in bf16 against fp32 (limits {TOL_BF16_VIEW_MAX:g} max, "
           f"{TOL_BF16_VIEW_MEAN:g} mean): " + "; ".join(
               f"{f} field max abs rgb diff {mx:.3e}, mean {mn:.3e} (mean acc {acc:.4f})"
@@ -2309,7 +2518,10 @@ def phase_bf16_training(tmp: str, root: str, fp32_cfg_path: str) -> dict:
         if not (mx <= TOL_BF16_VIEW_MAX and mn <= TOL_BF16_VIEW_MEAN):
             fail(f"the bf16 view of the {field} field is off its fp32 render beyond the stated band")
     return {"k1": train_counts[0], "k1s": train_counts[1], "k2": train_counts[2], "test_k1": test_counts[0],
-            "fast_step_ms": fast_step_ms, "steps_ms": steps, "view_bands": bands,
+            "fast_step_ms": fast_step_ms, "fast_busy_ms": fast_busy_ms, "steps_ms": steps, "view_bands": bands,
+            "test_seconds_per_view": test_s / N_TEST,
+            "ray_tiles": {k: {f"{r}x{s_}": t_ for (r, s_, _), t_ in v.items()} for k, v in
+                          (*train_tiles.items(), ("K1 test", test_tiles))},
             "loss_first": float(first), "loss_last": float(last)}
 
 
@@ -2434,6 +2646,24 @@ def main() -> None:
                    "aonerf/ops/kernels/fused_render.py:194", bt["k1s"], bk["k1s"]),
         bf16_entry("fused_level_bwd_bf16", "aonerf_torch/ops/kernels/csrc/fused_train.cu",
                    "aonerf/ops/kernels/fused_train.py:239", bt["k2"], bk["k2"]),
+    ]
+    def preset_entry(name, source, launches, levels):
+        # one coarse (S=65) and one fine (S=193) launch at the fast preset's
+        # shape and the tile its wrapper chooses; ms_t16: at 16 rays a block
+        return {
+            "name": name, "route": "cuda", "source": source, "replaces": "aonerf/ops/kernels/fused_render.py:194",
+            "launches": launches, "max_abs_err": max(x["max_abs_err"] for x in levels), "ms": both(levels, "ms"),
+            "plain_ms": both(levels, "plain_ms"), "bound_ms": both(levels, "bound_ms"), "bound_by": bound_by(levels),
+            "library_ms": None, "rays": levels[0]["R"], "ray_tile": levels[0]["ray_tile"],
+            "ms_t16": both(levels, "ms_t16"), "rule_ratio": max(x["rule_ratio"] for x in levels), "levels": levels,
+        }
+
+    entries += [
+        {**preset_entry(f"fused_render_level_bf16 at {CHUNK_FAST} rays",
+                        "aonerf_torch/ops/kernels/csrc/fused_render.cu", bt["k1"], bk["k1_preset"]),
+         "test_launches": bt["test_k1"], "host_ms": max(x["host_ms"] for x in bk["k1_preset"])},
+        preset_entry(f"fused_level_fwd_spill_bf16 at {BATCH_FAST} rays", "aonerf_torch/ops/kernels/csrc/fused_train.cu",
+                     bt["k1s"], bk["k1s_preset"]),
     ]
     b2lv = bk["b2"]
     entries.append({

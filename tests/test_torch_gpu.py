@@ -619,6 +619,72 @@ def test_bf16_forward_rounds_ties_to_even(cuda):
     assert (h0 != h0_plain).double().mean().item() <= rule.TIE_SHARE
 
 
+# The forward walk's ray tile: the wrappers choose it per launch
+# (fr.choose_ray_tile: 2 at the fast preset's 224 and 256 rays, 16 at 2048,
+# 15 at 3840), and a row's outputs do not depend on it.
+@pytest.mark.parametrize("R,S", [(224, 65), (224, 193), (256, 65), (256, 193), (2048, 65), (2048, 193),
+                                 (224, 7), (256, 7)])
+def test_bf16_k1_and_k1s_give_the_same_bits(cuda, R, S):
+    mlp = NeRFMLP(generator=torch.Generator().manual_seed(R + S), device=cuda)
+    with torch.no_grad():
+        kp = fr.kernel_params(mlp)
+        kp["bd"] += 0.5  # live densities
+    args = _level_inputs(R, S, S, cuda)
+    k1 = fr.fused_render_level(kp, *args, True, dot_bf16=True)
+    k1s = ft.fused_level_fwd_spill(kp, *args, True, dot_bf16=True)
+    torch.cuda.synchronize()
+    assert fr.launch_tiles[(R, S, True)] == ft.fwd_tiles[(R, S, True)] == fr.choose_ray_tile(R, S)
+    for name, a, b in zip(rule.OUTPUTS, k1, k1s):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("dot_bf16", [False, True])
+@pytest.mark.parametrize("R,S", [(224, 65), (224, 193), (256, 65), (256, 193), (3840, 65)])
+def test_outputs_at_the_chosen_tile_equal_those_at_16(cuda, dot_bf16, R, S):
+    mlp = NeRFMLP(generator=torch.Generator().manual_seed(S), device=cuda)
+    with torch.no_grad():
+        kp = fr.kernel_params(mlp)
+        kp["bd"] += 0.5
+    args = _level_inputs(R, S, S + 1, cuda)
+    tile = fr.choose_ray_tile(R, S)
+    assert tile != 16
+    for fn in (fr.fused_render_level, ft.fused_level_fwd_spill):
+        chosen = fn(kp, *args, True, dot_bf16=dot_bf16)
+        at16 = fn(kp, *args, True, ray_tile=16, dot_bf16=dot_bf16)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(chosen, at16)), fn.__name__
+        del chosen, at16
+    assert fr.launch_tiles[(R, S, dot_bf16)] == 16 and ft.fwd_tiles[(R, S, dot_bf16)] == 16
+
+
+@pytest.mark.parametrize("S", [65, 193])
+def test_bf16_walk_meets_the_rule_at_the_presets_shapes(cuda, S):
+    # K1 at the fast preset's chunk of 256 rays (its validation and test
+    # launches), K1s' saved layers at its batch of 224 (its training
+    # launches), each at the tile the wrapper chooses (2)
+    mlp = NeRFMLP(generator=torch.Generator().manual_seed(S + 7), device=cuda)
+    with torch.no_grad():
+        kp = fr.kernel_params(mlp)
+        kp["bd"] += 0.5
+    for R in (256, 224):
+        args = _level_inputs(R, S, S + 7, cuda)
+        args64 = ({n: v.double() for n, v in kp.items()}, *(a.double() for a in args))
+        *p64, p64_saved, _ = ft.fused_level_fwd_spill_ref(*args64, True, dot_bf16=True)
+        if R == 256:
+            names = rule.OUTPUTS
+            got = dict(zip(names, fr.fused_render_level(kp, *args, True, dot_bf16=True)))
+            orders = {k: dict(zip(names, fr.fused_render_level_ref(kp, *args, True, mm=mm, dot_bf16=True)))
+                      for k, mm in rule.BF16_ORDERS.items()}
+            ratios = _bf16_ratios(got, orders, dict(zip(names, p64)), rule.TOL_BF16_FWD)
+        else:
+            got = rule.saved_layers(ft.fused_level_fwd_spill(kp, *args, True, dot_bf16=True)[4])
+            orders = {k: rule.saved_layers(ft.fused_level_fwd_spill_ref(kp, *args, True, mm=mm, dot_bf16=True)[4])
+                      for k, mm in rule.BF16_ORDERS.items()}
+            ratios = _bf16_ratios(got, orders, rule.saved_layers(p64_saved), rule.TOL_BF16_FWD)
+        assert fr.choose_ray_tile(R, S) == 2
+        assert all(r <= 1.0 for r in ratios.values()), (R, ratios)
+
+
 @pytest.mark.parametrize("S", [65, 193])
 @pytest.mark.parametrize("white_bkgd", [True, False])
 def test_bf16_bwd_kernel_meets_the_bf16_rule(cuda, S, white_bkgd):

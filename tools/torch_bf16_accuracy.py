@@ -25,6 +25,15 @@ kernel and for the reversed-K and the K-in-quarters orders. The last line
 counts the cases over each rule. The kernels and cuBLAS give the same bits
 on every call, so a second run of a seed reads the same unless the card or
 the libraries differ.
+
+    PYTHONPATH=. python3 tools/torch_bf16_accuracy.py --seeds 0-3 --k2-rays 256
+
+holds K2 in bf16 (the composition K1s + the backward from what it saved) to
+the rule as ``tests/test_torch_gpu.py::test_bf16_bwd_kernel_meets_the_bf16_rule``
+does, at that many random rays (``torch_train_compare.level_inputs``), S =
+65 and 193, both backgrounds: seed b draws the weights and the rays from S
++ 1000 b and the cotangents from one more, so seed 0 is the test's case. It
+prints each case's gradients over their limits and counts the cases over.
 """
 
 import argparse
@@ -138,14 +147,58 @@ def run(seeds) -> None:
           + f"; K1 and K2 cases where the fp32 kernel meets the rule: {over['fp32 kernel within']}")
 
 
+def run_k2(seeds, R: int) -> None:
+    from aonerf_torch.models.mlp import NeRFMLP
+    from aonerf_torch.ops.kernels import fused_render as fr
+    from aonerf_torch.ops.kernels import fused_train as ft
+    from torch_train_compare import level_inputs
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    over, cases = 0, 0
+    for seed in seeds:
+        for S in (65, 193):
+            base = S + 1000 * seed
+            mlp = NeRFMLP(generator=torch.Generator().manual_seed(base), device=dev)
+            with torch.no_grad():
+                kp = fr.kernel_params(mlp)
+            args = level_inputs(R, S, base, dev)
+            rng = np.random.default_rng(base + 1)
+            cot = tuple(torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
+                rng.standard_normal((R, 3)), rng.standard_normal(R), 0.1 * rng.standard_normal(R),
+                rng.standard_normal((R, S))))
+            for white in (True, False):
+                got = ft.fused_level_bwd(kp, *args, *cot, white, dot_bf16=True)
+                orders = {}
+                for k, mm in c.BF16_ORDERS.items():
+                    saved, raw = ft.fused_level_fwd_spill_ref(kp, *args, white, mm=mm, dot_bf16=True)[4:]
+                    orders[k] = ft.fused_level_bwd_saved_ref(kp, *args, saved, raw, *cot, white, mm=mm, dot_bf16=True)
+                    del saved, raw
+                ref = ft.fused_level_bwd_ref({n: v.double() for n, v in kp.items()}, *(a.double() for a in args),
+                                             *(x.double() for x in cot), white, dot_bf16=True)
+                ratios = c.bf16_ratios(got, ref, c.bf16_limits(orders, ref, c.TOL_BF16_GRAD))
+                bad = {n: round(r, 3) for n, r in ratios.items() if r > 1.0}
+                worst = max(ratios, key=ratios.get)
+                over += bool(bad)
+                cases += 1
+                print(f"seed {seed} S={S} white={white} K2 R={R}: kernel at most {ratios[worst]:.3f} of its limit "
+                      f"({worst}); over: {bad or 'none'}", flush=True)
+                del got, orders, ref
+    print(f"K2 cases over, of {cases}: {over}")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seeds", default="0-7", help="seeds of the weights and cotangents, e.g. 0-7")
+    parser.add_argument("--k2-rays", type=int, help="hold only K2, at this many random rays (the gpu test's case)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_bf16_accuracy: needs a CUDA card")
     print(c.smi_line(), flush=True)
-    run(_seeds(args.seeds))
+    if args.k2_rays:
+        run_k2(_seeds(args.seeds), args.k2_rays)
+    else:
+        run(_seeds(args.seeds))
 
 
 if __name__ == "__main__":

@@ -26,6 +26,25 @@ names them and their largest differences, fails on any other differing
 output, and fails too if none of them differs.
 
     python3 tools/torch_kernel_bits.py --compare A B --b2-bf16-differs
+
+With ``--bf16-fwd-differs`` (two trees whose bf16 forward walk sums in
+other orders) the outputs of the bf16 K1 and K1s cases and, through K1s'
+saved activations, the gradients of the "bf16 K2 from K1s' saved" cases are
+the ones expected to differ; every fp32 output and the bf16 K2 from the
+plain forward's saved must keep their bits.
+
+The record also holds, at the fast preset's batch (R_PRESET = 224 rays, S
+= 65 and 193, white background), K1s' bf16 ``saved`` and ``raw`` and K2's
+bf16 gradients from them. ``--replay A`` (with ``--out``) runs this tree's
+bf16 K2 on the saved and raw that file A holds, as the cases "bf16 K2 from
+the replayed saved ..."; ``--compare`` holds each such case to the bits of
+the same case "from K1s' saved" in the other file, so a tree whose forward
+moved shows that its K2, given the other tree's saved, gives that tree's
+bits.
+
+    PYTHONPATH=build/parent python3 tools/torch_kernel_bits.py --out build/bits_parent.pt
+    PYTHONPATH=. python3 tools/torch_kernel_bits.py --out build/bits_change.pt --replay build/bits_parent.pt
+    python3 tools/torch_kernel_bits.py --compare build/bits_parent.pt build/bits_change.pt --bf16-fwd-differs
 """
 
 import argparse
@@ -46,7 +65,10 @@ B1 = "level_bwd_delta_kernel"
 B2_GRADS = ("w0", "b0", "w1", "b1", "w2", "b2", "w3", "b3", "w4", "b4", "w5x", "w5i", "b5", "w6", "b6",
             "w7", "b7", "wb", "bb", "wva", "bv")
 R_SERVE = 4096
+R_PRESET = 224  # config/vanilla_tpu_fast.json's batch
 OUTPUTS = ("comp", "acc", "depth", "weights")
+SAVED_CASE = "bf16 K2 from K1s' saved"
+REPLAY_CASE = "bf16 K2 from the replayed saved"
 
 
 def b1_sass(lib_path: str) -> list:
@@ -84,7 +106,7 @@ def cotangents(R: int, S: int, device):
         rng.standard_normal((R, S))))
 
 
-def record(out: str) -> None:
+def record(out: str, replay: str = None) -> None:
     from aonerf_torch.models.mlp import NeRFMLP
     from aonerf_torch.ops.kernels import build
     from aonerf_torch.ops.kernels import fused_render as fr
@@ -96,6 +118,7 @@ def record(out: str) -> None:
     print(f"B1 SASS: {len(sass)} lines, sha1 {sass_sha1(sass)}", flush=True)
     modes = (False, True) if "dot_bf16" in inspect.signature(fr.fused_render_level).parameters else (False,)
     cases = {}  # case -> {output name: tensor on the CPU, or the sha1 of a large one}
+    payloads = {}  # case -> (saved as bf16, raw) that its gradients came from
     for S in (65, 193):
         mlp = NeRFMLP(generator=torch.Generator().manual_seed(S), device=device)
         with torch.no_grad():
@@ -122,7 +145,23 @@ def record(out: str) -> None:
                 cases[f"{pre}K2 from plain saved R={R_TRAIN} {tag}"] = {n: v.cpu() for n, v in g.items()}
                 del saved, raw
                 print(f"recorded {pre}{tag}", flush=True)
-    torch.save({"sass": sass, "cases": cases}, out)
+        if len(modes) == 2:  # at the fast preset's batch: K2 bf16 from K1s' saved, which the record keeps
+            preset = (kp, *level_inputs(R_PRESET, S, S, device))
+            cot = cotangents(R_PRESET, S, device)
+            *_, saved, raw = ft.fused_level_fwd_spill(*preset, True, dot_bf16=True)
+            g = ft.fused_level_bwd_saved(*preset, saved, raw, *cot, True, dot_bf16=True)
+            case = f"{SAVED_CASE} R={R_PRESET} S={S} white=True"
+            cases[case] = {n: v.cpu() for n, v in g.items()}
+            payloads[case] = (saved.to(torch.bfloat16).cpu(), raw.cpu())  # bf16 values: exact
+            del saved, raw
+            if replay is not None:
+                saved, raw = (x.to(device) for x in torch.load(replay)["payloads"][case])
+                g = ft.fused_level_bwd_saved(*preset, saved.float(), raw, *cot, True, dot_bf16=True)
+                cases[f"{REPLAY_CASE} R={R_PRESET} S={S} white=True"] = {n: v.cpu() for n, v in g.items()}
+                del saved, raw
+            print(f"recorded bf16 K2 at R={R_PRESET} S={S}" + (f", and from {replay}'s saved" if replay else ""),
+                  flush=True)
+    torch.save({"sass": sass, "cases": cases, "payloads": payloads}, out)
     print(f"saved {sum(len(v) for v in cases.values())} outputs of {len(cases)} cases to {out}")
 
 
@@ -132,18 +171,38 @@ def same(a, b) -> bool:
     return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
 
 
-def expected_difference(case: str, output: str, b2_bf16_differs: bool) -> bool:
+def expected_difference(case: str, output: str, b2_bf16_differs: bool, bf16_fwd_differs: bool = False) -> bool:
+    if bf16_fwd_differs and case.startswith(("bf16 K1 ", "bf16 K1s ", SAVED_CASE)):
+        return True
     return b2_bf16_differs and case.startswith("bf16 K2 ") and output in B2_GRADS
 
 
-def compare(a: str, b: str, b2_bf16_differs: bool = False) -> None:
+def compare_replays(x: dict, y: dict, a: str, b: str) -> int:
+    """Holds each replayed case of one file to the bits of its case from K1s'
+    saved in the other; returns the number of outputs that differ."""
+    n_diff = 0
+    for name, f, g, other in ((b, y, x, a), (a, x, y, b)):
+        for case in (c for c in f["cases"] if c.startswith(REPLAY_CASE)):
+            want = g["cases"].get(SAVED_CASE + case[len(REPLAY_CASE):])
+            if want is None:
+                print(f"  {case} in {name}: {other} holds no case to hold it to")
+                continue
+            got = f["cases"][case]
+            diff = [n for n in want if not same(got[n], want[n])]
+            n_diff += len(diff)
+            print(f"  {case} in {name} against {other}'s from K1s' saved: {len(want) - len(diff)} of {len(want)} "
+                  "gradients equal bit for bit" + (f"; differ: {' '.join(diff)}" if diff else ""))
+    return n_diff
+
+
+def compare(a: str, b: str, b2_bf16_differs: bool = False, bf16_fwd_differs: bool = False) -> None:
     x, y = torch.load(a), torch.load(b)
     hx, hy = sass_sha1(x["sass"]), sass_sha1(y["sass"])
     print(f"B1 SASS {'identical' if hx == hy else 'differs'} ({len(x['sass'])} / {len(y['sass'])} lines, sha1 "
           f"{hx} / {hy}); for information only")
-    common = [case for case in x["cases"] if case in y["cases"]]
+    common = [case for case in x["cases"] if case in y["cases"] and not case.startswith(REPLAY_CASE)]
     for name, f, g in ((a, x, y), (b, y, x)):
-        only = sorted(case for case in f["cases"] if case not in g["cases"])
+        only = sorted(case for case in f["cases"] if case not in g["cases"] and not case.startswith(REPLAY_CASE))
         if only:
             print(f"  only in {name}, not compared: {', '.join(only)}")
     if not common:
@@ -152,7 +211,7 @@ def compare(a: str, b: str, b2_bf16_differs: bool = False) -> None:
     for case in common:
         p, q = x["cases"][case], y["cases"][case]
         diff = [n for n in p if not same(p[n], q[n])]
-        expected = [n for n in p if expected_difference(case, n, b2_bf16_differs)]
+        expected = [n for n in p if expected_difference(case, n, b2_bf16_differs, bf16_fwd_differs)]
         unexpected = [n for n in diff if n not in expected]
         n_diff, n_all = n_diff + len(unexpected), n_all + len(p) - len(expected)
         n_expected, n_expected_diff = n_expected + len(expected), n_expected_diff + len(diff) - len(unexpected)
@@ -161,21 +220,23 @@ def compare(a: str, b: str, b2_bf16_differs: bool = False) -> None:
             return "".join(f" {n}" + ("" if isinstance(p[n], str) else
                                       f" (max abs diff {(p[n].double() - q[n].double()).abs().max().item():.3e})")
                            for n in names)
-        line = f"  {case}: {len(p) - len(expected) - len(unexpected)} of {len(p) - len(expected)} outputs equal bit for bit"
+        line = (f"  {case}: {len(p) - len(expected) - len(unexpected)} of {len(p) - len(expected)} outputs equal "
+                "bit for bit")
         if unexpected:
             line += f"; differ:{detail(unexpected)}"
         if expected:
             moved = [n for n in expected if n in diff]
-            line += f"; B2's bf16 gradients, expected to differ: {len(moved)} of {len(expected)} differ" + (
+            line += f"; expected to differ: {len(moved)} of {len(expected)} differ" + (
                 f":{detail(moved)}" if moved else "")
         print(line)
+    n_replay_diff = compare_replays(x, y, a, b)
     print(f"outputs equal bit for bit: {n_all - n_diff} of {n_all}"
-          + (f"; B2's bf16 gradients that differ, as expected: {n_expected_diff} of {n_expected}"
-             if b2_bf16_differs else ""))
-    if n_diff:
+          + (f"; outputs expected to differ that differ: {n_expected_diff} of {n_expected}"
+             if b2_bf16_differs or bf16_fwd_differs else ""))
+    if n_diff or n_replay_diff:
         sys.exit(1)
-    if b2_bf16_differs and not n_expected_diff:
-        raise SystemExit("torch_kernel_bits: --b2-bf16-differs, but no B2 bf16 gradient differs")
+    if (b2_bf16_differs or bf16_fwd_differs) and not n_expected_diff:
+        raise SystemExit("torch_kernel_bits: outputs were expected to differ, but none does")
 
 
 def main() -> None:
@@ -184,13 +245,16 @@ def main() -> None:
     parser.add_argument("--compare", nargs=2, metavar=("A", "B"), help="two files written by --out")
     parser.add_argument("--b2-bf16-differs", action="store_true",
                         help="expect B2's gradients in the bf16 K2 cases to differ, and nothing else")
+    parser.add_argument("--bf16-fwd-differs", action="store_true",
+                        help="expect the bf16 K1 and K1s outputs (and K2 from K1s' saved) to differ, and nothing else")
+    parser.add_argument("--replay", help="with --out: also run this tree's bf16 K2 on the saved that this file holds")
     args = parser.parse_args()
     if args.compare:
-        compare(*args.compare, b2_bf16_differs=args.b2_bf16_differs)
+        compare(*args.compare, b2_bf16_differs=args.b2_bf16_differs, bf16_fwd_differs=args.bf16_fwd_differs)
     elif args.out:
         if not torch.cuda.is_available():
             raise SystemExit("torch_kernel_bits: needs a CUDA card")
-        record(args.out)
+        record(args.out, args.replay)
     else:
         parser.error("give --out or --compare")
 

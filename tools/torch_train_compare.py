@@ -23,7 +23,20 @@ ms per step by the host clock around ``torch.cuda.synchronize()``, and the
 peak device memory of a multi-step (``torch.cuda.max_memory_allocated()``);
 and, in bf16, the step of ``config/vanilla_tpu_fast.json`` (batch 224) on
 the same scene. With ``--bf16-step-only`` it times the bf16 step at batch
-2048 alone, for many short runs of two trees in turns.
+2048 alone, and with ``--fast-step-only`` the fast preset's step alone, for
+many short runs of two trees in turns.
+
+With ``--forward-only`` it times K1 and K1s alone, in fp32 and (where the
+tree has it) in bf16, at S = 65 and 193: K1 at the serving tile's 4096 rays
+and K1s at the train step's 2048 by CUDA events; K1 at the fast preset's
+chunk of 256 rays and K1s at its batch of 224 by their device time
+(torch.profiler: there a launch's host work outlasts the kernel), at the
+tile the wrapper takes by default and at 16 rays a block, in turns
+(default, 16, 16, default; a tree whose wrappers take 16 by default times
+16 four times), then at every tile of at most 16 rays that divides the
+batch; and the host time of one K1 launch at 256 rays (the wrapper's work:
+the packed weights, the tensor maps, the launch), from the host clock over
+20 calls without a synchronize.
 """
 
 import argparse
@@ -65,6 +78,53 @@ def level_inputs(R: int, S: int, seed: int, device):
     pts = o[:, None] + t[..., None] * d[:, None]
     t, o, d, pts = (torch.from_numpy(a).to(device) for a in (t, o, d, pts))
     return t, o, d, pos_enc(d, 0, 4), pos_enc(pts, 0, 10)
+
+
+def time_forward(device) -> dict:
+    """K1 and K1s alone at the serving, training and fast preset's shapes
+    (see --forward-only), ms per launch by CUDA events."""
+    from aonerf_torch.models.mlp import NeRFMLP
+    from aonerf_torch.ops.kernels import fused_render as fr
+    from aonerf_torch.ops.kernels import fused_train as ft
+
+    modes = ({}, {"dot_bf16": True}) if has_bf16() else ({},)
+    out = {}
+    for S in (65, 193):
+        mlp = NeRFMLP(generator=torch.Generator().manual_seed(S), device=device)
+        with torch.no_grad():
+            kp = fr.kernel_params(mlp)
+        row = {}
+        for mode in modes:
+            tag = "_bf16" if mode else ""
+            iters = 10 if S > 100 else 20
+            for name, fn, R in (("k1", fr.fused_render_level, 4096), ("k1s", ft.fused_level_fwd_spill, 2048)):
+                args = (kp, *level_inputs(R, S, S, device), True)
+                row[f"{name}{tag}_{R}_ms"] = cuda_ms(lambda: fn(*args, **mode), warmup=2, iters=iters)  # noqa: B023
+                del args
+            for name, fn, R, kernel in (("k1", fr.fused_render_level, 256, "fused_render_level_kernel"),
+                                        ("k1s", ft.fused_level_fwd_spill, 224, "level_fwd_spill_kernel")):
+                args = (kp, *level_inputs(R, S, S, device), True)
+                default = lambda: fn(*args, **mode)  # noqa: E731,B023
+
+                def dev(tile=None):
+                    kw = {} if tile is None else {"ray_tile": tile}
+                    by_name = kernel_ms(lambda: fn(*args, **kw, **mode), iters=20)  # noqa: B023
+                    return sum(v for k, v in by_name.items() if kernel in k)  # noqa: B023
+
+                times = [dev(), dev(16), dev(16), dev()]
+                row[f"{name}{tag}_{R}_ms"] = [times[0], times[3]]
+                row[f"{name}{tag}_{R}_t16_ms"] = [times[1], times[2]]
+                row[f"{name}{tag}_{R}_by_tile_ms"] = {T: dev(T) for T in range(1, 17) if R % T == 0}
+                if name == "k1":
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(20):
+                        default()
+                    row[f"k1{tag}_256_host_ms"] = (time.perf_counter() - t0) * 1e3 / 20
+                    torch.cuda.synchronize()
+                del args
+        out[f"S={S}"] = row
+    return out
 
 
 def time_levels(device) -> dict:
@@ -218,6 +278,10 @@ def main() -> None:
     parser.add_argument("--label", required=True, help="name of the tree in the output line")
     parser.add_argument("--bf16-step-only", action="store_true",
                         help="time only the bf16 train step at batch 2048 (for many short runs in turns)")
+    parser.add_argument("--fast-step-only", action="store_true",
+                        help="time only the fast preset's step at batch 224 (for many short runs in turns)")
+    parser.add_argument("--forward-only", action="store_true",
+                        help="time only K1 and K1s, at the serving, training and fast preset's shapes")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_train_compare: needs a CUDA card")
@@ -230,6 +294,14 @@ def main() -> None:
     device = torch.device("cuda")
     row = {"label": args.label, "package": os.path.relpath(os.path.dirname(aonerf_torch.__file__), ROOT),
            "card": smi[0] if smi else None}
+    if args.forward_only:
+        row["forward"] = time_forward(device)
+        print(json.dumps(row), flush=True)
+        return
+    if args.fast_step_only:
+        row["train_fast"] = time_train_step(device, "vanilla_tpu_fast.json", multi_steps=1)
+        print(json.dumps(row), flush=True)
+        return
     if args.bf16_step_only:
         row["train_bf16"] = time_train_step(device, overrides={"compute_dtype": "bf16"})
         print(json.dumps(row), flush=True)
