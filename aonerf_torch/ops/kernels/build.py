@@ -2,10 +2,10 @@
 
 Each ``csrc/<name>.cu`` compiles on its own into a shared library with a plain
 C interface, ``build/lib<name>-<hash>.so`` beside this file. The hash covers
-the source and every header in ``csrc/`` (``*.cuh``, ``*.h``), so an edited
-source or shared header rebuilds. Nothing is compiled when the module
-is imported: the first caller builds. Without ``nvcc``, or when a build fails,
-this raises.
+the source, every header in ``csrc/`` (``*.cuh``, ``*.h``) and ``DEFINES``,
+so an edited source or shared header rebuilds. Nothing is compiled when the
+module is imported: the first caller builds. Without ``nvcc``, or when a
+build fails, this raises.
 """
 
 import ctypes
@@ -15,7 +15,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -23,6 +23,12 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+# Preprocessor definitions (NAME=VALUE) that every source is built with,
+# part of each library's hash: none, but where a tool sets them before the
+# first build to measure a variant (tools/torch_bf16_accuracy.py
+# --fwd-bf16-run).
+DEFINES: Tuple[str, ...] = ()
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -50,12 +56,13 @@ def _lib_path(name: str) -> Path:
     for header in sorted([*CSRC.glob("*.cuh"), *CSRC.glob("*.h")]):
         h.update(header.name.encode())
         h.update(header.read_bytes())
+    h.update(repr(DEFINES).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _start(name: str, out: Path) -> subprocess.Popen:
     tmp = out.with_suffix(f".tmp{os.getpid()}")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc_path(), *NVCC_FLAGS, *(f"-D{d}" for d in DEFINES), "-o", str(tmp), str(CSRC / f"{name}.cu")]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 

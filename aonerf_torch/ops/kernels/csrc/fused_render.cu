@@ -74,25 +74,27 @@
 // walk on bf16-rounded inputs and activations, a second instantiation of the
 // kernel picked by the launcher. Its products run on native bf16 tensor
 // cores (gemm_bf16, nerf_level.cuh: mma.sync m16n8k16 bf16, fp32
-// accumulators, a fresh one every 32 deep) with B from a ring of 32-deep
-// slices of the wrapper's bf16 pack of the transposed weights (`wt` as
-// bf16, half the bytes and half the slices of the fp32 stream) and A packed
-// to bf16 pairs from the fp32 activation tile; each log term of the
+// accumulators, a fresh one for each mma's 16 consecutive K-columns, the
+// groups of the TF32 walk it replaced) with B from a ring of 32-deep slices
+// of the wrapper's bf16 pack of the transposed weights (`wt` as bf16, each
+// 32-column block permuted for the fragments; half the bytes and half the
+// slices of the fp32 stream) and A packed to bf16 pairs from the fp32
+// activation tile; each log term of the
 // transmittance is rounded to bf16 before the prefix sum. Bound: operations,
 // the products at 989 TFLOP/s, 0.32 / 0.96 ms at 4096 rays x S = 65 / 193
 // (0.020 / 0.060 ms at 256).
 //
 // ptxas (-Xptxas -v, sm_90a, CUDA 12.8, printed by chip_smoke.py's build
-// phase on the H100): 216 registers in fp32, 208 in bf16 mode, no spill.
+// phase on the H100): 216 registers in fp32, 173 in bf16 mode, no spill.
 // Measured there (NVIDIA H100 80GB HBM3, 700 W; tools/torch_train_compare.py,
 // in turns with the parent tree): fp32 17.8 / 6.3 ms at 4096 rays x S = 193 /
 // 65, ~32% / ~31% of the 3xTF32 bound; what bounds it is the product's own
 // instruction stream (mma.sync with the TF32 split of every fragment), not
 // the staging: a ring of 3, 4 or 5 stages takes the same time, one of 2
-// stages ~20% more. bf16 mode 5.91-5.96 / 2.10 ms at 4096 rays (the TF32
-// walk on bf16 values it replaced 9.89-9.95 / 3.50-3.54), 16% of its bound
-// at S = 193; at 256 rays and the chosen tile of 2, 0.408-0.413 / 0.176-0.180
-// ms of device time (the parent, 16 rays a block: 4.77-4.93 / 1.65-1.67).
+// stages ~20% more. bf16 mode 6.41-6.43 / 2.30-2.33 ms at 4096 rays (the
+// TF32 walk on bf16 values it replaced 9.92-9.97 / 3.51), 15% of its bound
+// at S = 193; at 256 rays and the chosen tile of 2, 0.443-0.446 / 0.191-0.196
+// ms of device time (the TF32 walk, 16 rays a block: 4.67-4.86 / 1.64-1.73).
 
 #include "nerf_level.cuh"
 

@@ -155,7 +155,7 @@
 // KB.
 //
 // ptxas (-Xptxas -v, sm_90a, CUDA 12.8, printed by chip_smoke.py's build
-// phase on the H100): K1s 220 registers, no spill (209 in bf16 mode); the integrator backward
+// phase on the H100): K1s 220 registers, no spill (174 in bf16 mode); the integrator backward
 // 39; B1 255 registers, 20 bytes of spill stores and 20 of spill loads
 // (24-byte stack frame); B2 128 registers (capped by __launch_bounds__(256,
 // 2)), no spill, and in bf16 124; the reduction 31 registers.

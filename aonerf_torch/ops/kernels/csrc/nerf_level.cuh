@@ -38,9 +38,10 @@
 // % 4) of its 64-byte row, so the TF32 B fragments' 8 rows x 4 columns hit
 // 32 different banks. The bf16 stream (FwdBf16Schedule: 32 bf16 columns a
 // slice, also 64 bytes a row, 76 slices a forward chunk) is unswizzled: each
-// thread reads one 16-byte chunk of a row, and a quarter warp's eight reads
-// cover the 128 bytes of two neighbouring rows. Only TMA writes the ring, so
-// its buffers need no proxy fence.
+// thread reads one 16-byte chunk of a row (the wrapper permutes each
+// 32-column block of the pack so that chunk holds that thread's pairs), and
+// a quarter warp's eight reads cover the 128 bytes of two neighbouring rows.
+// Only TMA writes the ring, so its buffers need no proxy fence.
 //
 // Budget: 5 stages x 16 KB, 128 bytes of barriers and up to 1 KB of
 // alignment, 83,072 bytes in either mode: K1/K1s take 224,640 bytes and B1
@@ -63,9 +64,11 @@
 // the spill keep the fp32 layout. The forward's products are gemm_bf16:
 // mma.sync m16n8k16 bf16 with fp32 accumulators, B from the bf16 ring, A
 // packed from the fp32 tile (cvt.rn.bf16x2.f32 on values already bf16, so
-// exact): per 32 K-columns a thread reads 8 float4 of A and one 16-byte
+// exact): per 32 K-columns a thread reads 16 float2 of A and one 16-byte
 // chunk of B per n8 tile, and issues 32 mma, where the TF32 walk on bf16
-// values it replaces read 48 fp32 words and issued 64 mma. B1 in bf16 mode
+// values it replaces read 48 fp32 words and issued 64 mma. Each mma sums 16
+// consecutive K-columns into a fresh accumulator, the groups that walk
+// summed into each of its fresh accumulators (kFwdBf16Run). B1 in bf16 mode
 // keeps that TF32 walk (gemm_wt with Bf16: one TF32 mma a k8 step on bf16
 // values, which TF32 holds exactly) on the fp32 B1Schedule stream.
 
@@ -117,20 +120,22 @@ constexpr size_t kRingBytes = sizeof(float) * kStages * kStageFloats + 128;
 // the fastest, that is as accurate as fp32.
 constexpr int kFwdRun = 2;
 // k16 steps that one fresh accumulator sums in the bf16 forward's products
-// (gemm_bf16; the whole K of a 256-deep product is 16), and the K of each of
-// its mma (16: m16n8k16; 8: each k16 step as two m16n8k8). Held to the bf16
-// rule on the H100 (tools/torch_fwd_bf16_runs.py, tools/torch_bf16_accuracy.py;
-// PERF.md section 6, PR 14): over 48 seed x level cases, runs of 1, 2, 4, 8
-// and 16 k16 steps were over on 1, 0, 4, 2 and 5 (K 8: runs 1, 2 on 1, 0);
-// K1 bf16 took 2.26 / 6.38, 2.13 / 5.85, 2.09 / 5.84, 2.14 / 5.86 and 2.23 /
-// 6.12 ms at 4096 rays x S = 65 / 193 (K 8: 2.45 / 6.91, 2.26 / 6.34). K 16
-// and run 2 is the longest run that holds, and within 2% of the fastest. At
-// the gpu test's 256 random rays (--k2-rays 256, 16 cases) it is over on 4,
-// runs of 1 on none, the TF32 walk it replaced on 2: tests/test_torch_gpu.py's
-// test_bf16_bwd_kernel_meets_the_bf16_rule at S = 193 misses by 2% (ROADMAP
-// Queue 3).
-constexpr int kFwdBf16Run = 2;
-constexpr int kFwdBf16MmaK = 16;
+// (gemm_bf16; the whole K of a 256-deep product is 16). A build may set it
+// (-DAONERF_FWD_BF16_RUN=N, 1 or even; tools/torch_bf16_accuracy.py and
+// tools/torch_train_compare.py --fwd-bf16-run N) to measure another run.
+// Each k16 step sums 16 consecutive K-columns, the groups the TF32 walk it
+// replaced summed into each fresh accumulator. Held to the bf16 rule on the
+// H100 (tools/torch_bf16_accuracy.py; PERF.md section 6): run 1 is
+// over on 0 of 48 seed x level cases and on 2 of 16 at the gpu test's 256
+// rays, the TF32 walk's 2, at its ratios within 2%; run 2 on 0 of 48 and 4
+// of 16, the gpu test's case among them. An earlier order, whose k16 steps
+// interleaved the groups, missed too: runs 1, 2, 4, 8, 16 on 1, 0, 4, 2, 5
+// of 48, run 2 on 4 of 16. K1 bf16 at 4096 rays x S = 65 / 193 takes
+// 2.30-2.33 / 6.41-6.43 ms with run 1, 2.22 / 6.11 with run 2 (in turns).
+#ifndef AONERF_FWD_BF16_RUN
+#define AONERF_FWD_BF16_RUN 1
+#endif
+constexpr int kFwdBf16Run = AONERF_FWD_BF16_RUN;
 
 // The 26 weights in the flax (in, out) layout, biases (1, out).
 struct Weights {
@@ -629,38 +634,22 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// d += a . b for one m16n8k8 bf16 tile, fp32 accumulator: A (row, k) at a0
-// (g, 2t..2t+1), a1 (g+8, 2t..); B (k, col) at b (2t..2t+1, g).
-__device__ __forceinline__ void mma_bf16_k8(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t b) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(b));
-}
-
-// d += a . b for one k16 step of bf16 fragments (mma_bf16's), in one
-// m16n8k16 mma or as its k halves in two m16n8k8 mma (MmaK = 8).
-template <int MmaK>
-__device__ __forceinline__ void mma_bf16_step(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  if constexpr (MmaK == 16) {
-    mma_bf16(d, a, b0, b1);
-  } else {
-    mma_bf16_k8(d, a[0], a[1], b0);
-    mma_bf16_k8(d, a[2], a[3], b1);
-  }
-}
-
 // acc += A[:, :K] . W^T on native bf16 products (mma.sync m16n8k16, fp32
 // accumulators): A (kRows x Lda fp32 in shared memory, bf16 values, Lda = 4
 // mod 32) and W (N x K, K % 32 == 0) the product of a bf16 stream whose
 // 32-deep slices come next in `ring` (row n of a slice: 64 bytes,
-// unswizzled). Warps own the tiles gemm_wt's do. Each slice is two k16
-// steps over a permutation of its 32 columns that A and B share, so the sum
-// runs over the same K: in step s, thread t's pairs 2t..2t+1 and 2t+8..2t+9
-// are columns 8t + 4s + [0, 2) and 8t + 4s + [2, 4). A thread then reads A as
-// one float4 per row and step (conflict-free: a quarter warp's rows g, g + 1
-// start 4 banks apart, its threads 8 columns apart) and packs it into bf16
-// pairs (exact: the values are bf16), and reads B as one 16-byte chunk per
-// n8 tile that serves both steps. A fresh accumulator sums each Run k16
+// unswizzled). Warps own the tiles gemm_wt's do. Step s of a slice sums its
+// columns 16 s .. 16 s + 15. Thread t holds two pairs of each step's columns,
+// at 4 ((t & 1) ^ s) + 2 (t >> 1) and 8 past it (its k 2t..2t+1 and
+// 2t+8..2t+9). It reads A as one float2 a pair, and packs each into a bf16
+// pair (exact: the values are bf16). Load L (0-3) of a row reads the pair at
+// 4 L + 2 (t >> 1) of step (t ^ L) & 1, so in every load a half warp (rows
+// g..g+3, 4 banks apart) reads 16 pairs that cover the 32 banks once, where
+// loading one step's pairs at once would put two threads on the same banks
+// (its 16 columns are 16 banks, and rows 4 banks apart overlap). B comes as one 16-byte chunk a thread per n8 tile: the
+// wrapper stores each 32-column block of a row permuted
+// (fused_render.py's BF16_SLICE_ORDER), so that chunk t holds thread t's
+// four pairs, step 0's then step 1's. A fresh accumulator sums each Run k16
 // steps and is added into acc in fp32, in k order (Run == 1: every mma into
 // zeros, then the add). No block barrier: the caller orders any write to A
 // after every warp's reads.
@@ -672,7 +661,10 @@ __device__ __forceinline__ void gemm_bf16(ChunkAcc<N>& acc, const float* A, int 
   constexpr int kRunSlices = Run == 1 ? 1 : Run / 2;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int r0 = (warp >> 2) * 32, c0 = (warp & 3) * (N / 4);
-  const float* a_frag = A + (r0 + g) * Lda + 8 * t;
+  const int odd = t & 1;
+  // Loads 0 and 2 read step odd's columns, loads 1 and 3 the other step's.
+  const float* a_even = A + (r0 + g) * Lda + 2 * (t >> 1) + 16 * odd;
+  const float* a_odd = A + (r0 + g) * Lda + 2 * (t >> 1) + 16 * (1 - odd);
   const int b_off = (c0 + g) * 32 + 8 * t;  // row c0 + g of a slice, its chunk t
   for (int k0 = 0; k0 < K; k0 += 32 * kRunSlices) {
     [[maybe_unused]] ChunkAcc<N> part;
@@ -687,13 +679,18 @@ __device__ __forceinline__ void gemm_bf16(ChunkAcc<N>& acc, const float* A, int 
       for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const float* p = a_frag + (16 * mi + 8 * h) * Lda + ks;
+          const int row = (16 * mi + 8 * h) * Lda + ks;
+          uint32_t v[4];
 #pragma unroll
-          for (int s = 0; s < 2; ++s) {
-            const float4 v = *reinterpret_cast<const float4*>(p + 4 * s);
-            a[mi][s][h] = bf16x2_rn(v.x, v.y);
-            a[mi][s][2 + h] = bf16x2_rn(v.z, v.w);
+          for (int L = 0; L < 4; ++L) {
+            const float2 x = *reinterpret_cast<const float2*>((L & 1 ? a_odd : a_even) + row + 4 * L);
+            v[L] = bf16x2_rn(x.x, x.y);
           }
+          // step s's pairs: loads odd ^ s (k 2t..) and odd ^ s + 2 (k 2t+8..)
+          a[mi][0][h] = odd ? v[1] : v[0];
+          a[mi][0][2 + h] = odd ? v[3] : v[2];
+          a[mi][1][h] = odd ? v[0] : v[1];
+          a[mi][1][2 + h] = odd ? v[2] : v[3];
         }
 #pragma unroll
       for (int ni = 0; ni < N / 32; ++ni) {
@@ -705,11 +702,11 @@ __device__ __forceinline__ void gemm_bf16(ChunkAcc<N>& acc, const float* A, int 
             const uint32_t b0 = s ? b.z : b.x, b1 = s ? b.w : b.y;
             if constexpr (Run == 1) {
               float d[4] = {0.f, 0.f, 0.f, 0.f};
-              mma_bf16_step<kFwdBf16MmaK>(d, a[mi][s], b0, b1);
+              mma_bf16(d, a[mi][s], b0, b1);
 #pragma unroll
               for (int c = 0; c < 4; ++c) acc[mi][ni][c] += d[c];
             } else {
-              mma_bf16_step<kFwdBf16MmaK>(part[mi][ni], a[mi][s], b0, b1);
+              mma_bf16(part[mi][ni], a[mi][s], b0, b1);
             }
           }
       }

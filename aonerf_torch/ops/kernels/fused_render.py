@@ -49,15 +49,14 @@ FWD_HEADS = ("wd", "wr", "wvb")
 # samples fill 48.25 chunks of 64 rows (1.5% padding; 4.6% at S=65) and fit
 # the block's per-sample scratch into shared memory.
 RAY_TILE = 16
-# The forward kernels' block (csrc/nerf_level.cuh): rows a chunk, shared
-# memory of the weight ring with its barriers and alignment, row strides of
-# the activation and the encoded-input tiles; the shared memory a block may
-# have on Hopper, and its SMs.
-CHUNK_ROWS = 64
-_RING_BYTES = 1024 + 5 * 16384 + 128
-_ACT_STRIDE, _XS_STRIDE = WIDTH + 4, POS_PAD + 4
-MAX_SMEM_BYTES = 232448
-N_SMS = 132
+CHUNK_ROWS = 64  # the forward kernels' rows a chunk
+# The bf16 pack's order within each 32-column block of a row (gemm_bf16 in
+# csrc/nerf_level.cuh): position 8 t + 4 s + 2 q + e holds column 16 s +
+# 4 ((t & 1) ^ s) + 2 (t >> 1) + 8 q + e, so the 16-byte chunk t holds the
+# four bf16 pairs that thread t of a warp multiplies in the block's two k16
+# steps (columns 0-15, then 16-31).
+BF16_SLICE_ORDER = tuple(16 * s + 4 * ((t & 1) ^ s) + 2 * (t >> 1) + 8 * q + e
+                         for t in range(4) for s in range(2) for q in range(2) for e in range(2))
 
 # Launches of the CUDA kernel since each count was last set to 0: in fp32
 # (launches) and in bf16 mode (bf16_launches); and the ray tile of each
@@ -127,36 +126,36 @@ def kernel_weights_t(kernel_params: Dict[str, torch.Tensor]) -> torch.Tensor:
 
 
 def kernel_weights_t_bf16(kernel_params: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """The bf16 mode's copy of :func:`kernel_weights_t`: the same layout,
-    each weight rounded to bf16 (to nearest, ties to even) as it is
-    transposed into a ``torch.bfloat16`` buffer, one pass a weight; detached.
-    Its values are ``kernel_weights_t(bf16_params(kernel_params))``'s."""
+    """The bf16 mode's copy of :func:`kernel_weights_t`: each weight rounded
+    to bf16 (to nearest, ties to even) as it is transposed into a
+    ``torch.bfloat16`` buffer, one pass a weight, then every 32-column block
+    of a row put in ``BF16_SLICE_ORDER`` (one gather); detached. Undone, its
+    values are ``kernel_weights_t(bf16_params(kernel_params))``'s."""
     first = kernel_params["w0"]
     flat = torch.zeros(WT_FLOATS, dtype=torch.bfloat16, device=first.device)
     for name, view in unpack_weights_t(flat).items():
         w = kernel_params[name].detach()
         view[:, : w.shape[0]].copy_(w.t())
-    return flat
+    return flat.view(-1, 32).index_select(1, _slice_order(first.device)).view(-1)
 
 
-def forward_smem_bytes(S: int, ray_tile: int) -> int:
-    """Shared memory of a forward block (K1, K1s) of ray_tile rays of S
-    samples, as ``forward_smem_bytes`` in ``csrc/nerf_level.cuh`` counts it:
-    224,640 bytes at 16 rays, S = 193."""
-    return _RING_BYTES + 4 * (CHUNK_ROWS * _ACT_STRIDE + CHUNK_ROWS * _XS_STRIDE + ray_tile * COND_WIDTH
-                              + 4 * ray_tile * S)
+@functools.lru_cache(maxsize=None)
+def _slice_order(device: torch.device) -> torch.Tensor:
+    return torch.tensor(BF16_SLICE_ORDER, dtype=torch.long, device=device)
 
 
-def choose_ray_tile(R: int, S: int, n_sms: int = N_SMS) -> int:
-    """The forward kernels' ray tile for R rays of S samples: of the tiles T
-    <= RAY_TILE that divide R and whose block fits in shared memory, the one
-    with the fewest waves x chunks a block, ceil(R / T / n_sms) x ceil(T S /
-    CHUNK_ROWS) (one block a SM: its shared memory and registers allow no
-    second), ties to the larger T. 16 at 2048 and 4096 rays (S = 65, 193), 2
-    at 224 and 256, 15 at 3840. A row's outputs do not depend on the tile."""
+def choose_ray_tile(R: int, S: int, n_sms: int, smem_bytes: Callable[[int, int], int], max_smem: int) -> int:
+    """The forward kernels' ray tile for R rays of S samples on a card of
+    n_sms SMs whose blocks may have max_smem bytes of shared memory, where
+    smem_bytes(S, T) is a block's of T rays: of the tiles T <= RAY_TILE that
+    divide R and fit, the one with the fewest waves x chunks a block,
+    ceil(R / T / n_sms) x ceil(T S / CHUNK_ROWS) (one block a SM: its shared
+    memory and registers allow no second), ties to the larger T. On the
+    H100, 16 at 2048 and 4096 rays (S = 65, 193), 2 at 224 and 256, 15 at
+    3840. A row's outputs do not depend on the tile."""
     best = None
     for T in range(1, min(RAY_TILE, R) + 1):
-        if R % T or forward_smem_bytes(S, T) > MAX_SMEM_BYTES:
+        if R % T or smem_bytes(S, T) > max_smem:
             continue
         cost = -(-R // T // n_sms) * -(-(T * S) // CHUNK_ROWS)
         if best is None or cost <= best[0]:
@@ -167,17 +166,23 @@ def choose_ray_tile(R: int, S: int, n_sms: int = N_SMS) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+def _card(index: int) -> Tuple[int, int]:
+    """Card ``index``'s SMs and the shared memory a block may have (opt-in),
+    as the card reports them."""
+    props = torch.cuda.get_device_properties(index)
+    return props.multi_processor_count, props.shared_memory_per_block_optin
 
 
-def launch_ray_tile(R: int, S: int, ray_tile: Optional[int], device: torch.device) -> int:
-    """``ray_tile``, or where it is None the tile :func:`choose_ray_tile`
-    picks for the card's SMs (RAY_TILE's SM count on the CPU); raises unless
-    it divides R."""
-    if ray_tile is None:
-        ray_tile = choose_ray_tile(R, S, _sm_count(device.index or 0) if device.type == "cuda" else N_SMS)
-    if ray_tile <= 0 or R % ray_tile != 0:
+def launch_ray_tile(R: int, S: int, ray_tile: Optional[int], device: torch.device,
+                    smem_bytes: Optional[Callable[[int, int], int]] = None) -> Optional[int]:
+    """``ray_tile`` once checked to divide R. Where it is None: on a CUDA
+    device the tile :func:`choose_ray_tile` picks for that card, smem_bytes
+    being the library's count of a forward block's shared memory; on the CPU
+    None, since the plain versions take no tile."""
+    if ray_tile is None and device.type == "cuda":
+        n_sms, max_smem = _card(torch.cuda.current_device() if device.index is None else device.index)
+        ray_tile = choose_ray_tile(R, S, n_sms, smem_bytes, max_smem)
+    if ray_tile is not None and (ray_tile <= 0 or R % ray_tile != 0):
         raise ValueError(f"rays {R} not a multiple of ray_tile {ray_tile}")
     return ray_tile
 
@@ -353,10 +358,9 @@ def check_launch(fn_name: str, err: int) -> None:
 
 def check_forward_layout(fn, bf16_bytes_fn, smem_fn, lib_name: str) -> None:
     """Raises unless the library's packed transposed weights (``fn()``
-    floats) are ``kernel_weights_t``'s, their bf16 pack (``bf16_bytes_fn()``
-    bytes) is ``kernel_weights_t_bf16``'s, and its forward block's shared
-    memory (``smem_fn(S, ray_tile)``) is what :func:`forward_smem_bytes`
-    counts for the tile rule."""
+    floats) are ``kernel_weights_t``'s and their bf16 pack (``bf16_bytes_fn()``
+    bytes) is ``kernel_weights_t_bf16``'s; declares ``smem_fn(S, ray_tile)``,
+    the shared memory of its forward block, for the tile rule."""
     for f in (fn, bf16_bytes_fn):
         f.argtypes, f.restype = [], ctypes.c_int
     smem_fn.argtypes, smem_fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
@@ -364,10 +368,6 @@ def check_forward_layout(fn, bf16_bytes_fn, smem_fn, lib_name: str) -> None:
         raise RuntimeError(f"{lib_name}: kernel packs {fn()} transposed weight floats, expected {WT_FLOATS}")
     if bf16_bytes_fn() != 2 * WT_FLOATS:
         raise RuntimeError(f"{lib_name}: kernel's bf16 pack is {bf16_bytes_fn()} bytes, expected {2 * WT_FLOATS}")
-    for S, T in ((65, 16), (193, 16), (193, 2), (7, 1)):
-        if smem_fn(S, T) != forward_smem_bytes(S, T):
-            raise RuntimeError(f"{lib_name}: a block of {T} rays of {S} samples takes {smem_fn(S, T)} bytes of "
-                               f"shared memory, the tile rule counts {forward_smem_bytes(S, T)}")
 
 
 _lib = None
@@ -416,8 +416,8 @@ def fused_render_level(
     """
     global launches, bf16_launches
     R, S = t_vals.shape
-    ray_tile = launch_ray_tile(R, S, ray_tile, t_vals.device)
     if t_vals.device.type == "cpu":
+        launch_ray_tile(R, S, ray_tile, t_vals.device)
         return fused_render_level_ref(
             kernel_params, t_vals, rays_o, rays_d, viewdirs_enc, samples_enc, white_bkgd, dot_bf16=dot_bf16
         )
@@ -427,6 +427,7 @@ def fused_render_level(
     xenc = samples_enc.reshape(R * S, samples_enc.shape[-1])
     _check_inputs(kernel_params, t_vals, rays_d, viewdirs_enc, xenc, R, S)
     lib = _library()
+    ray_tile = launch_ray_tile(R, S, ray_tile, t_vals.device, lib.aonerf_fused_render_smem_bytes)
     kernel_params, wt = fwd_operands(kernel_params, dot_bf16)
     comp = torch.empty((R, 3), dtype=torch.float32, device=t_vals.device)
     acc = torch.empty((R,), dtype=torch.float32, device=t_vals.device)

@@ -284,8 +284,9 @@ def _check_cotangents(g_comp, g_acc, g_depth, g_weights, R, S, device):
 
 
 def _device_of(fn_name, t_vals, R, ray_tile):
-    """'cpu' or 'cuda' for a call of fn_name; raises on anything else."""
-    if R % ray_tile != 0:
+    """'cpu' or 'cuda' for a call of fn_name; raises on anything else, or
+    unless ray_tile (where given) divides R."""
+    if ray_tile is not None and (ray_tile <= 0 or R % ray_tile != 0):
         raise ValueError(f"rays {R} not a multiple of ray_tile {ray_tile}")
     if t_vals.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{fn_name} runs on cuda or cpu, not {t_vals.device}")
@@ -355,7 +356,6 @@ def fused_level_fwd_spill(
     """
     global fwd_launches, bf16_fwd_launches
     R, S = t_vals.shape
-    ray_tile = launch_ray_tile(R, S, ray_tile, t_vals.device)
     if _device_of("fused_level_fwd_spill", t_vals, R, ray_tile) == "cpu":
         return fused_level_fwd_spill_ref(
             kernel_params, t_vals, rays_o, rays_d, viewdirs_enc, samples_enc, white_bkgd, dot_bf16=dot_bf16
@@ -364,6 +364,7 @@ def fused_level_fwd_spill(
     xenc = samples_enc.reshape(R * S, samples_enc.shape[-1])
     _check_inputs(kernel_params, t_vals, rays_d, viewdirs_enc, xenc, R, S)
     lib = _library()
+    ray_tile = launch_ray_tile(R, S, ray_tile, dev, lib.aonerf_fused_level_fwd_smem_bytes)
     kernel_params, wt = fwd_operands(kernel_params, dot_bf16)
     f32 = dict(dtype=torch.float32, device=dev)
     comp, acc, depth = torch.empty((R, 3), **f32), torch.empty((R,), **f32), torch.empty((R,), **f32)

@@ -2108,8 +2108,9 @@ def k1s_preset_check(args, S: int) -> dict:
     wrapper chooses: its saved layers against the bf16 rule, its outputs
     equal to K1 bf16's and, in both modes, to those at 16 rays a block; times
     in turns with the 16-ray launch, its bounds and the plain bf16 version;
-    then K2 bf16 from what it saved, B1's time by torch.profiler with B1's
-    bound."""
+    then K2 bf16 from what it saved: its gradients against the bf16 rule
+    (the gradients the preset trains on), B1's time by torch.profiler with
+    B1's bound."""
     from aonerf_torch.ops.kernels import fused_render as fr
     from aonerf_torch.ops.kernels import fused_train as ft
 
@@ -2132,7 +2133,7 @@ def k1s_preset_check(args, S: int) -> dict:
     ref = saved_layers(ft.fused_level_fwd_spill_ref(*args64, True, dot_bf16=True)[4])
     ratios = bf16_ratios(saved_layers(saved), ref, bf16_limits(orders, ref, TOL_BF16_FWD))
     err = max((saved_layers(saved)[n] - orders["cuBLAS"][n]).abs().max().item() for n in ref)
-    del orders, ref, args64
+    del orders, ref
     bad = sorted(n for n, r in ratios.items() if not r <= 1.0)
     if bad:
         fail(f"K1s bf16 S={S} at {R} rays: saved layers off the fp64 bf16 reference beyond the bf16 rule on {bad}")
@@ -2149,6 +2150,12 @@ def k1s_preset_check(args, S: int) -> dict:
     grads = k2()
     if not all(torch.isfinite(g).all() for g in grads.values()):
         fail(f"K2 bf16 S={S} at {R} rays: non-finite gradients")
+    orders = {o: bf16_k2_plain(args, cot, True, mm) for o, mm in BF16_ORDERS.items()}
+    ref = bf16_k2_plain(args64, tuple(x.double() for x in cot), True)
+    lim = bf16_limits(orders, ref, TOL_BF16_GRAD)
+    k2_ratio = _check_rule(f"K2 bf16 S={S} at {R} rays from K1s' saved", bf16_ratios(grads, ref, lim),
+                           bf16_ratios(ft.fused_level_bwd(*args, *cot, True), ref, lim))
+    del orders, ref, lim, args64
     parts = _bwd_pass_ms(k2, iters=5, passes=K2_PASSES_BF16)
     b1_bound, b1_by = _b1_bound_bf16(R, S)
     del saved, raw, grads
@@ -2162,7 +2169,7 @@ def k1s_preset_check(args, S: int) -> dict:
     return {"S": S, "R": R, "ray_tile": tile, "ms": ms[0], "ms_again": ms[1], "ms_t16": ms16[0],
             "ms_t16_again": ms16[1], "plain_ms": plain, "bound_ms": b["bf16"][0], "bound_by": b["bf16"][1],
             "bound_ms_tf32": b["tf32"][0], "max_abs_err": err, "rule_ratio": max(ratios.values()),
-            "k2_passes_ms": parts, "b1_bound_ms": b1_bound, "b1_bound_by": b1_by}
+            "k2_rule_ratio": k2_ratio, "k2_passes_ms": parts, "b1_bound_ms": b1_bound, "b1_bound_by": b1_by}
 
 
 def phase_bf16_kernels(nerf, boxes, focal) -> dict:
@@ -2662,8 +2669,10 @@ def main() -> None:
         {**preset_entry(f"fused_render_level_bf16 at {CHUNK_FAST} rays",
                         "aonerf_torch/ops/kernels/csrc/fused_render.cu", bt["k1"], bk["k1_preset"]),
          "test_launches": bt["test_k1"], "host_ms": max(x["host_ms"] for x in bk["k1_preset"])},
-        preset_entry(f"fused_level_fwd_spill_bf16 at {BATCH_FAST} rays", "aonerf_torch/ops/kernels/csrc/fused_train.cu",
-                     bt["k1s"], bk["k1s_preset"]),
+        # k2_rule_ratio: K2 bf16 from its saved against the bf16 rule
+        {**preset_entry(f"fused_level_fwd_spill_bf16 at {BATCH_FAST} rays",
+                        "aonerf_torch/ops/kernels/csrc/fused_train.cu", bt["k1s"], bk["k1s_preset"]),
+         "k2_rule_ratio": max(x["k2_rule_ratio"] for x in bk["k1s_preset"])},
     ]
     b2lv = bk["b2"]
     entries.append({

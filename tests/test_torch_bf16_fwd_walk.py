@@ -42,9 +42,12 @@ def test_bf16_pack_is_the_rounded_transposed_copy(seed, ties):
     kp = _weights(seed, ties)
     pack = fr.kernel_weights_t_bf16(kp)
     assert pack.dtype == torch.bfloat16 and pack.shape == (fr.WT_FLOATS,) and pack.is_contiguous()
+    assert sorted(fr.BF16_SLICE_ORDER) == list(range(32))
+    inverse = torch.argsort(torch.tensor(fr.BF16_SLICE_ORDER))
+    unpacked = pack.view(-1, 32)[:, inverse].reshape(-1)  # each 32-column block of a row in column order
     want = fr.kernel_weights_t(fr.bf16_params(kp))
-    assert torch.equal(pack.float().view(torch.int32), want.view(torch.int32))  # bit for bit, ties to even
-    views = fr.unpack_weights_t(pack)
+    assert torch.equal(unpacked.float().view(torch.int32), want.view(torch.int32))  # bit for bit, ties to even
+    views = fr.unpack_weights_t(unpacked)
     assert not views["w0"][:, 63].any() and not views["w5i"][:, 63].any()
     assert torch.equal(views["wva"].float(), fr.round_bf16(kp["wva"].t()))
 
@@ -62,9 +65,26 @@ def test_fwd_operands_round_only_the_narrow_heads(dot_bf16):
     assert wt.dtype == want.dtype and torch.equal(wt, want)
 
 
+# The H100's SMs and the shared memory a block may have there, and a forward
+# block's shared memory as the library counts it (csrc/nerf_level.cuh's
+# forward_smem_bytes: 224,640 bytes at 16 rays, S = 193); on the card the
+# wrappers read all three from the card and the library, and the gpu tests
+# hold the tiles they choose (tests/test_torch_gpu.py).
+H100_SMS, H100_SMEM = 132, 232448
+
+
+def _h100_smem(S, T):
+    return 167040 + 512 * T + 16 * T * S
+
+
+def _rule(R, S, n_sms=H100_SMS):
+    return fr.choose_ray_tile(R, S, n_sms, _h100_smem, H100_SMEM)
+
+
 def test_forward_block_shared_memory():
-    assert fr.forward_smem_bytes(193, 16) == 224640  # nerf_level.cuh's count at the largest tile
-    assert fr.forward_smem_bytes(193, 16) <= fr.MAX_SMEM_BYTES < fr.forward_smem_bytes(257, 16)
+    assert _h100_smem(193, 16) == 224640 <= H100_SMEM < _h100_smem(257, 16)
+    assert _rule(4096, 193) == 16  # the largest tile fits at S = 193 ...
+    assert _rule(4096, 257) == 8  # ... and not at S = 257, where the rule takes the next
 
 
 @pytest.mark.parametrize("R,S,want", [
@@ -73,11 +93,11 @@ def test_forward_block_shared_memory():
     (3840, 65, 15), (3840, 193, 15),  # the test path's chunk: 256 blocks
 ])
 def test_tile_rule_at_the_paths_shapes(R, S, want):
-    assert fr.choose_ray_tile(R, S) == want
+    assert _rule(R, S) == want
 
 
 def _brute_force(R, S, n_sms):
-    fits = [T for T in range(1, 17) if R % T == 0 and fr.forward_smem_bytes(S, T) <= fr.MAX_SMEM_BYTES]
+    fits = [T for T in range(1, 17) if R % T == 0 and _h100_smem(S, T) <= H100_SMEM]
     cost = {T: -(-(R // T) // n_sms) * -(-(T * S) // fr.CHUNK_ROWS) for T in fits}
     least = min(cost.values())
     return max(T for T in fits if cost[T] == least)
@@ -87,18 +107,19 @@ def _brute_force(R, S, n_sms):
 def test_tile_rule_divides_fits_and_minimises(S):
     for R in [*range(1, 300), 448, 1024, 2000, 2112, 3840, 4096, 4100]:
         for n_sms in (132, 114):
-            T = fr.choose_ray_tile(R, S, n_sms)
+            T = _rule(R, S, n_sms)
             assert 1 <= T <= fr.RAY_TILE and R % T == 0, (R, S, T)
-            assert fr.forward_smem_bytes(S, T) <= fr.MAX_SMEM_BYTES, (R, S, T)
+            assert _h100_smem(S, T) <= H100_SMEM, (R, S, T)
             assert T == _brute_force(R, S, n_sms), (R, S, n_sms, T)
 
 
 def test_tile_rule_refuses_what_fits_no_block():
     with pytest.raises(ValueError, match="no ray tile"):
-        fr.choose_ray_tile(16, 20000)
+        _rule(16, 20000)
     with pytest.raises(ValueError, match="ray_tile"):
         fr.launch_ray_tile(18, 65, 4, torch.device("cpu"))
-    assert fr.launch_ray_tile(18, 65, None, torch.device("cpu")) == fr.choose_ray_tile(18, 65)
+    assert fr.launch_ray_tile(18, 65, 6, torch.device("cpu")) == 6
+    assert fr.launch_ray_tile(18, 65, None, torch.device("cpu")) is None  # the plain versions take no tile
 
 
 def _cpu_level(R, S, seed):

@@ -620,8 +620,12 @@ def test_bf16_forward_rounds_ties_to_even(cuda):
 
 
 # The forward walk's ray tile: the wrappers choose it per launch
-# (fr.choose_ray_tile: 2 at the fast preset's 224 and 256 rays, 16 at 2048,
-# 15 at 3840), and a row's outputs do not depend on it.
+# (fr.choose_ray_tile from the card's SMs and shared memory and the
+# library's count of a block's; on the H100 2 at the fast preset's 224 and
+# 256 rays, 16 at 2048, 15 at 3840, 8 at 224 and 256 rays of 7 samples), and
+# a row's outputs do not depend on it.
+_H100_TILES = {**{(R, S): 2 for R in (224, 256) for S in (65, 193)}, (2048, 65): 16, (2048, 193): 16,
+               (3840, 65): 15, (224, 7): 8, (256, 7): 8}
 @pytest.mark.parametrize("R,S", [(224, 65), (224, 193), (256, 65), (256, 193), (2048, 65), (2048, 193),
                                  (224, 7), (256, 7)])
 def test_bf16_k1_and_k1s_give_the_same_bits(cuda, R, S):
@@ -633,7 +637,7 @@ def test_bf16_k1_and_k1s_give_the_same_bits(cuda, R, S):
     k1 = fr.fused_render_level(kp, *args, True, dot_bf16=True)
     k1s = ft.fused_level_fwd_spill(kp, *args, True, dot_bf16=True)
     torch.cuda.synchronize()
-    assert fr.launch_tiles[(R, S, True)] == ft.fwd_tiles[(R, S, True)] == fr.choose_ray_tile(R, S)
+    assert fr.launch_tiles[(R, S, True)] == ft.fwd_tiles[(R, S, True)] == _H100_TILES[(R, S)]
     for name, a, b in zip(rule.OUTPUTS, k1, k1s):
         assert torch.equal(a, b), name
 
@@ -646,10 +650,10 @@ def test_outputs_at_the_chosen_tile_equal_those_at_16(cuda, dot_bf16, R, S):
         kp = fr.kernel_params(mlp)
         kp["bd"] += 0.5
     args = _level_inputs(R, S, S + 1, cuda)
-    tile = fr.choose_ray_tile(R, S)
-    assert tile != 16
     for fn in (fr.fused_render_level, ft.fused_level_fwd_spill):
         chosen = fn(kp, *args, True, dot_bf16=dot_bf16)
+        tiles = fr.launch_tiles if fn is fr.fused_render_level else ft.fwd_tiles
+        assert tiles[(R, S, dot_bf16)] == _H100_TILES[(R, S)] != 16
         at16 = fn(kp, *args, True, ray_tile=16, dot_bf16=dot_bf16)
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(chosen, at16)), fn.__name__
@@ -681,7 +685,7 @@ def test_bf16_walk_meets_the_rule_at_the_presets_shapes(cuda, S):
             orders = {k: rule.saved_layers(ft.fused_level_fwd_spill_ref(kp, *args, True, mm=mm, dot_bf16=True)[4])
                       for k, mm in rule.BF16_ORDERS.items()}
             ratios = _bf16_ratios(got, orders, rule.saved_layers(p64_saved), rule.TOL_BF16_FWD)
-        assert fr.choose_ray_tile(R, S) == 2
+        assert (fr.launch_tiles if R == 256 else ft.fwd_tiles)[(R, S, True)] == 2
         assert all(r <= 1.0 for r in ratios.values()), (R, ratios)
 
 

@@ -34,6 +34,13 @@ does, at that many random rays (``torch_train_compare.level_inputs``), S =
 65 and 193, both backgrounds: seed b draws the weights and the rays from S
 + 1000 b and the cotangents from one more, so seed 0 is the test's case. It
 prints each case's gradients over their limits and counts the cases over.
+
+    PYTHONPATH=. python3 tools/torch_bf16_accuracy.py --seeds 0-7 --fwd-bf16-run 2
+
+builds the kernels with another run length of the bf16 forward's products
+(``AONERF_FWD_BF16_RUN`` in ``csrc/nerf_level.cuh``: k16 steps that one
+fresh accumulator sums) into their own libraries and holds that forward to
+the rule, as ``torch_train_compare.py --fwd-bf16-run`` times it.
 """
 
 import argparse
@@ -191,7 +198,14 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seeds", default="0-7", help="seeds of the weights and cotangents, e.g. 0-7")
     parser.add_argument("--k2-rays", type=int, help="hold only K2, at this many random rays (the gpu test's case)")
+    parser.add_argument("--fwd-bf16-run", type=int,
+                        help="build the kernels with this run length of the bf16 forward's products "
+                             "(AONERF_FWD_BF16_RUN, k16 steps a fresh accumulator: 1 or even)")
     args = parser.parse_args()
+    if args.fwd_bf16_run:
+        from aonerf_torch.ops.kernels import build
+
+        build.DEFINES = (f"AONERF_FWD_BF16_RUN={args.fwd_bf16_run}",)
     if not torch.cuda.is_available():
         raise SystemExit("torch_bf16_accuracy: needs a CUDA card")
     print(c.smi_line(), flush=True)

@@ -36,7 +36,9 @@ tile the wrapper takes by default and at 16 rays a block, in turns
 16 four times), then at every tile of at most 16 rays that divides the
 batch; and the host time of one K1 launch at 256 rays (the wrapper's work:
 the packed weights, the tensor maps, the launch), from the host clock over
-20 calls without a synchronize.
+20 calls without a synchronize. ``--fwd-bf16-run N`` builds the kernels
+with another run length of the bf16 forward's products (see
+``torch_bf16_accuracy.py``).
 """
 
 import argparse
@@ -282,9 +284,16 @@ def main() -> None:
                         help="time only the fast preset's step at batch 224 (for many short runs in turns)")
     parser.add_argument("--forward-only", action="store_true",
                         help="time only K1 and K1s, at the serving, training and fast preset's shapes")
+    parser.add_argument("--fwd-bf16-run", type=int,
+                        help="build the kernels with this run length of the bf16 forward's products "
+                             "(AONERF_FWD_BF16_RUN, k16 steps a fresh accumulator: 1 or even)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_train_compare: needs a CUDA card")
+    if args.fwd_bf16_run:
+        from aonerf_torch.ops.kernels import build
+
+        build.DEFINES = (f"AONERF_FWD_BF16_RUN={args.fwd_bf16_run}",)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     import aonerf_torch
