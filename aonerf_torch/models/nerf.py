@@ -55,10 +55,10 @@ class NeRF(nn.Module):
         draws=None,
     ) -> List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
         """rays: 'rays_o', 'rays_d' (unit), 'viewdirs' (B, 3), B a multiple of
-        ``fused_render.RAY_TILE`` (16, the backward's ray tile) with grad
-        enabled; without, any B (the forward kernels choose their own
-        tile). ``draws`` (``ops.random.Draws``) is needed when
-        ``randomized``.
+        ``fused_render.RAY_TILE`` (16, the fp32 backward's ray tile) with grad
+        enabled in fp32; in bf16 mode, or without grad, any B (the kernels
+        choose their own tile). ``draws`` (``ops.random.Draws``) is needed
+        when ``randomized``.
 
         Returns [(comp_rgb, acc, depth)] per level, coarse first. With grad
         enabled each level is the differentiable ``fused_level`` (K1 forward,

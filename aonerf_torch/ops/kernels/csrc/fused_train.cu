@@ -66,6 +66,13 @@
 //     chunk's sum added to the thread's running sum, written once per block to
 //     its narrow set (kNarrowFloats). Shared memory 225,408 bytes at
 //     ray_tile 16 (the 83 KB ring, D and H, the per-ray and per-row terms).
+//  B1 in bf16 mode. level_bwd_delta_kernel<true>: the same chain on native
+//     bf16 products (gemm_bf16: mma.sync m16n8k16, half the mma of the TF32
+//     k8 walk it replaced) from a ring of 32-deep slices of the wrapper's
+//     bf16 pack of its weights. What bounds it is bytes: the saved bf16
+//     values at 2 bytes and the fp32 deltas it writes, 1.73 ms at 3.35 TB/s
+//     at S = 193 (its products 0.45 ms at 989 TFLOP/s); as laid out, both
+//     in fp32, 7.7 GB, 2.30 ms. Its ray tile is chosen per launch (below).
 //  B2. level_bwd_dw_kernel (3xTF32 tensor cores; bound by operations,
 //     2.82 ms at 495/3 TFLOP/s, over its 7.6 GB, 2.27 ms): every dW_l = H^T
 //     Delta_l (H from `saved`, or xenc for w0 and w5i) as a split-K product
@@ -127,25 +134,32 @@
 // ring, nerf_level.cuh's gemm_bf16; the wrapper passes the bf16 pack of the
 // transposed weights and the narrow heads rounded) and spills the rounded
 // activations, which the TPU backward keeps in bf16, in the fp32 layout. B1
-// issues one TF32 mma a k8 step where 3xTF32 issues three (a bf16 value is
-// exact in TF32), on the flax-layout weights the wrapper passes rounded. The integrator backward stays fp32 and
-// recomputes the transmittance in fp32 from `raw`, as the TPU backward does.
+// runs the same gemm_bf16 on its delta tile D (fp32 layout, bf16 values),
+// from a ring of 32-deep slices of the wrapper's bf16 pack of its nine
+// flax-layout weights (B1Bf16Schedule, 68 slices a chunk where the fp32
+// stream has 136), each fresh accumulator summing kB1Bf16Run k16 steps; it
+// reads no other weight but wd and wr, which come rounded. The integrator
+// backward stays fp32 and recomputes the transmittance in fp32 from `raw`,
+// as the TPU backward does.
 // B1 keeps every delta in fp32 in the scratch, which B2's bias sums read, and
 // in its own per-ray sum for wvb; only a product's operand is rounded: the
 // shared tile D that feeds the next product gets the rounded delta, and the
 // narrow head products round g_raw_sigma, g_raw_rgb and the per-ray sum as
 // they read them. B2 in bf16 is a kernel of its own (above): it rounds H and
 // Delta once a step into bf16 tiles, and sums the bias tile from the fp32
-// stage. Its products are mma.sync m16n8k16 bf16: the sums group otherwise
-// than the TF32 walk's it replaced, so its bits differ from that walk's;
-// K1s' bf16 walk groups its sums by k16 too, so its outputs (and K2's
-// gradients from what it saved) differ from the TF32 walk's; K2 given the
-// same saved gives the same bits, and every fp32 output keeps its bits.
+// stage. Every bf16 product is mma.sync m16n8k16 bf16, whose sums group
+// otherwise than the TF32 walk on bf16 values that each replaced, so the
+// bf16 outputs differ in their bits from that walk's and are held to the
+// bf16 rule; every fp32 output keeps its bits.
 //
 // K1s runs at the ray tile its wrapper chooses (fused_render.py::
 // choose_ray_tile: 2 at the fast preset's batch of 224, 16 at 2048); its
-// outputs do not depend on the tile. K2 keeps the caller's (16): B1's
-// per-block head sums set its summation order and so its bits.
+// outputs do not depend on the tile. B1's per-block head sums set K2's
+// summation order and so its bits: fp32 K2 keeps 16 rays a block unless
+// the caller names a tile; bf16 K2, held to the rule, takes the tile the
+// same rule chooses over B1's shared memory (2 at 224 rays: 112 blocks of 3
+// / 7 chunks where 16 gave 14 blocks of 17 / 49; 16 at 2048). B1's deltas,
+// and so B2's gradients, do not depend on the tile.
 //
 // Deterministic: no atomics, every sum in a fixed order, so the same inputs
 // give the same bits on every call.
@@ -157,8 +171,9 @@
 // ptxas (-Xptxas -v, sm_90a, CUDA 12.8, printed by chip_smoke.py's build
 // phase on the H100): K1s 220 registers, no spill (174 in bf16 mode); the integrator backward
 // 39; B1 255 registers, 20 bytes of spill stores and 20 of spill loads
-// (24-byte stack frame); B2 128 registers (capped by __launch_bounds__(256,
-// 2)), no spill, and in bf16 124; the reduction 31 registers.
+// (24-byte stack frame), in bf16 see PERF.md; B2 128 registers (capped by
+// __launch_bounds__(256, 2)), no spill, and in bf16 124; the reduction 31
+// registers.
 //
 // Measured there (NVIDIA H100 80GB HBM3, 700 W; tools/torch_train_compare.py,
 // 2048 rays, S = 65 / 193): K1s 3.33-3.40 / 9.51-9.77 ms, B1 3.26-3.31 /
@@ -170,8 +185,9 @@
 // 3.65-3.68 ms at 2048 rays (the TF32 walk on bf16 values it replaced
 // 2.07-2.08 / 5.62-5.67), 0.205-0.207 / 0.491-0.497 ms of device time at the
 // fast preset's 224 rays and tile 2 (the parent, 16 rays a block:
-// 1.87-1.88 / 5.32-5.39); B1 in bf16 2.16 / 6.14-6.21 ms at 2048 and
-// 2.03 / 5.84 at 224 (one wave of 14 blocks).
+// 1.87-1.88 / 5.32-5.39). B1 in bf16 on the TF32 walk it replaced: 2.16 /
+// 6.14-6.21 ms at 2048 and 2.03 / 5.84 at 224 (one wave of 14 blocks); on
+// gemm_bf16, PERF.md section 6.
 
 #include "nerf_level.cuh"
 
@@ -446,8 +462,23 @@ __device__ __forceinline__ void delta_product_done() {
   __syncthreads();
 }
 
+// B1's weight stream: B1Schedule's fp32 flax-layout weights, or in bf16 mode
+// their bf16 pack (B1Bf16Schedule).
+template <bool Bf16>
+using B1Ring = WeightRing<std::conditional_t<Bf16, B1Bf16Schedule, B1Schedule>>;
+
+// acc += D[:, :K] . W^T, W the next product of B1's stream: 3xTF32 through
+// gemm_wt in fp32, native bf16 through gemm_bf16 in bf16 mode (D holds the
+// rounded delta there).
+template <bool Bf16>
+__device__ __forceinline__ void delta_product(ChunkAcc<kWidth>& acc, const float* D, int K, B1Ring<Bf16>& ring) {
+  if constexpr (Bf16) gemm_bf16<kWidth, kAct, kB1Bf16Run>(acc, D, K, ring);
+  else gemm_wt<kWidth, kAct, 4>(acc, D, K, ring);
+}
+
 // `maps` holds B1Schedule's weights (wva, wb, w7, w6, w5x, w4, w3, w2, w1)
-// in their flax layout (rounded to bf16 in bf16 mode, as wd and wr are).
+// in their flax layout, or in bf16 mode B1Bf16Schedule's pack of them (wd
+// and wr come rounded to bf16 then).
 template <bool Bf16>
 __global__ void __launch_bounds__(kThreads, 1)
 level_bwd_delta_kernel(const float* __restrict__ venc, const float* __restrict__ wd, const float* __restrict__ wr,
@@ -466,7 +497,7 @@ level_bwd_delta_kernel(const float* __restrict__ venc, const float* __restrict__
   const int ray0 = blockIdx.x * ray_tile;
   const int n_rows = ray_tile * S;
   const size_t row_base = (size_t)ray0 * S;
-  WeightRing<B1Schedule> ring(ring_buf, maps.m, n_rows);
+  B1Ring<Bf16> ring(ring_buf, maps.m, n_rows);
 
   for (int i = tid; i < ray_tile * kCondWidth; i += kThreads) gc[i] = 0.f;
   // This thread's head gradients over the block's rows, each chunk's sum
@@ -539,7 +570,7 @@ level_bwd_delta_kernel(const float* __restrict__ venc, const float* __restrict__
     load_rows<kWidth>(H, sv + 7 * kWidth, valid_rows);  // h7, lands under the product
     ChunkAcc<kWidth> acc;
     zero_acc(acc);  // g_btl = delta_v . wva^T
-    gemm_wt<kWidth, kAct, 4, Bf16>(acc, D, kCondWidth, ring);
+    delta_product<Bf16>(acc, D, kCondWidth, ring);
     delta_product_done();
     store_delta<Bf16>(acc, D, nullptr, nullptr, nullptr, dv + kSpillBtl, valid_rows);
     {  // density head: wd += h7^T g_raw_sigma
@@ -548,13 +579,13 @@ level_bwd_delta_kernel(const float* __restrict__ venc, const float* __restrict__
       n_wd += s;
     }
     zero_acc(acc);  // delta_7 = (g_btl . wb^T + g_raw_sigma wd^T) * (h7 > 0)
-    gemm_wt<kWidth, kAct, 4, Bf16>(acc, D, kWidth, ring);
+    delta_product<Bf16>(acc, D, kWidth, ring);
     delta_product_done();
     store_delta<Bf16>(acc, D, H, gs, wd, dv + 7 * kWidth, valid_rows);
     for (int l = 6; l >= 0; --l) {  // delta_l = (delta_{l+1} . W_{l+1}^T) * (h_l > 0), W_5 = w5x
       load_rows<kWidth>(H, sv + l * kWidth, valid_rows);
       zero_acc(acc);
-      gemm_wt<kWidth, kAct, 4, Bf16>(acc, D, kWidth, ring);
+      delta_product<Bf16>(acc, D, kWidth, ring);
       delta_product_done();
       store_delta<Bf16>(acc, D, H, nullptr, nullptr, dv + l * kWidth, valid_rows);
     }
@@ -975,10 +1006,11 @@ int launch_fwd_spill(const float* t, const float* rays_d, const float* venc, con
 }
 
 int launch_bwd_saved(const float* t, const float* rays_d, const float* venc, const float* xenc,
-                             const Weights& w, const float* g_comp, const float* g_acc, const float* g_depth,
-                             const float* g_weights, const float* saved, const float* raw, float* grow,
-                             float* delta, float* partials, float* narrow, float* out, int n_rays, int S,
-                             int ray_tile, int white_bkgd, int dot_bf16, cudaStream_t s) {
+                     const Weights& w, const void* b1_pack, const float* g_comp, const float* g_acc,
+                     const float* g_depth, const float* g_weights, const float* saved, const float* raw, float* grow,
+                     float* delta, float* partials, float* narrow, float* out, int n_rays, int S, int ray_tile,
+                     int white_bkgd, int dot_bf16, cudaStream_t s) {
+  if (dot_bf16 && b1_pack == nullptr) return cudaErrorInvalidValue;
   const size_t smem_i = sizeof(float) * kWarps * 3 * (size_t)S, smem_b1 = delta_smem_bytes(ray_tile);
   auto* b1 = dot_bf16 ? level_bwd_delta_kernel<true> : level_bwd_delta_kernel<false>;
   const void* b2 = dot_bf16 ? (const void*)level_bwd_dw_bf16_kernel : (const void*)level_bwd_dw_kernel;
@@ -989,7 +1021,9 @@ int launch_bwd_saved(const float* t, const float* rays_d, const float* venc, con
   if ((err = set_smem(b2, smem_b2)) != cudaSuccess) return err;
   WeightMaps maps;
   const void* b1_weights[B1Schedule::kProducts] = {w.wva, w.wb, w.w7, w.w6, w.w5x, w.w4, w.w3, w.w2, w.w1};
-  if (int map_err = encode_weight_maps<B1Schedule>(maps, b1_weights)) return map_err;
+  if (int map_err = dot_bf16 ? encode_packed_maps<B1Bf16Schedule>(maps, b1_pack)
+                             : encode_weight_maps<B1Schedule>(maps, b1_weights))
+    return map_err;
   const int n_blocks = n_rays / ray_tile;
   const int n_total = n_rays * S;
   // Whole kDwStep steps per range; the last ranges may be short or empty.
@@ -1049,6 +1083,16 @@ int aonerf_fused_level_wt_bf16_bytes() {
 // Shared memory of K1s' block of ray_tile rays of S samples.
 int aonerf_fused_level_fwd_smem_bytes(int S, int ray_tile) { return (int)forward_smem_bytes(S, ray_tile); }
 
+// Shared memory of B1's block of ray_tile rays, the one block of the
+// backward whose size the tile sets (the same at every S: B1 keeps chunks of
+// kRows rows and per-ray sums).
+int aonerf_fused_level_bwd_smem_bytes(int /*S*/, int ray_tile) { return (int)delta_smem_bytes(ray_tile); }
+
+// Bytes of B1's bf16 pack (B1Bf16Schedule), which bf16 mode takes.
+int aonerf_fused_level_b1_bf16_bytes() {
+  return schedule_floats<B1Bf16Schedule>() * (int)sizeof(B1Bf16Schedule::Elem);
+}
+
 // K1s, the training forward, on `stream`. Pointers are device pointers to
 // contiguous fp32 arrays: the level's inputs, its 26 weights in the flax
 // (in, out) layout and `wt`, the packed transposed product weights
@@ -1069,36 +1113,38 @@ int aonerf_fused_level_fwd_spill(const float* t, const float* rays_d, const floa
 }
 
 // The level's weight gradient from what K1s saved, on `stream`: the
-// integrator backward, B1, B2 and the reduction. Inputs as for K1s, plus the
-// cotangents g_comp (R,3), g_acc (R), g_depth (R), g_weights (R,S) and K1s'
-// `saved` and `raw`; scratch `grow` (R*S*4), `delta` (R*S*kSpill),
-// `partials` (kRanges * kPartialFloats) and `narrow` ((R/ray_tile) *
-// kNarrowFloats); the output `out` (kPartialFloats). With dot_bf16 != 0, the
-// bf16 mode, on weights already rounded to bf16. Returns the first launch
-// error (0 on success), or kMapError + the driver's CUresult if a tensor map
-// was refused.
+// integrator backward, B1, B2 and the reduction. Inputs as for K1s, plus
+// `b1_pack` (B1's bf16 pack in bf16 mode, else unused), the cotangents g_comp
+// (R,3), g_acc (R), g_depth (R), g_weights (R,S) and K1s' `saved` and `raw`;
+// scratch `grow` (R*S*4), `delta` (R*S*kSpill), `partials` (kRanges *
+// kPartialFloats) and `narrow` ((R/ray_tile) * kNarrowFloats); the output
+// `out` (kPartialFloats). With dot_bf16 != 0, the bf16 mode: B1 reads its
+// products' weights from `b1_pack` and wd, wr (already rounded to bf16), and
+// no other weight. Returns the first launch error (0 on success), or
+// kMapError + the CUresult of cuTensorMapEncodeTiled if a tensor map was
+// refused.
 int aonerf_fused_level_bwd_saved(const float* t, const float* rays_d, const float* venc, const float* xenc,
-                                 AONERF_WEIGHT_PARAMS, const float* g_comp, const float* g_acc,
-                                 const float* g_depth, const float* g_weights, const float* saved,
-                                 const float* raw, float* grow, float* delta, float* partials, float* narrow,
-                                 float* out, int n_rays, int S, int ray_tile, int white_bkgd, int dot_bf16,
-                                 void* stream) {
+                                 AONERF_WEIGHT_PARAMS, const void* b1_pack, const float* g_comp,
+                                 const float* g_acc, const float* g_depth, const float* g_weights,
+                                 const float* saved, const float* raw, float* grow, float* delta, float* partials,
+                                 float* narrow, float* out, int n_rays, int S, int ray_tile, int white_bkgd,
+                                 int dot_bf16, void* stream) {
   if (bad_shape(n_rays, S, ray_tile)) return cudaErrorInvalidValue;
-  return launch_bwd_saved(t, rays_d, venc, xenc, AONERF_WEIGHTS, g_comp, g_acc, g_depth, g_weights, saved, raw,
-                          grow, delta, partials, narrow, out, n_rays, S, ray_tile, white_bkgd, dot_bf16,
+  return launch_bwd_saved(t, rays_d, venc, xenc, AONERF_WEIGHTS, b1_pack, g_comp, g_acc, g_depth, g_weights, saved,
+                          raw, grow, delta, partials, narrow, out, n_rays, S, ray_tile, white_bkgd, dot_bf16,
                           static_cast<cudaStream_t>(stream));
 }
 
 // The level's weight gradient from its inputs alone: K1s, then the backward
 // from what it saved. Arguments as for aonerf_fused_level_bwd_saved without
-// `raw`, with K1s' `wt` after the weights; K1s' outputs and `raw` (R*(5 S + 5) floats) live at the front of
+// `raw`, with K1s' `wt` before `b1_pack` (in bf16 mode wvb comes rounded
+// too); K1s' outputs and `raw` (R*(5 S + 5) floats) live at the front of
 // `delta` until B1 overwrites it.
 int aonerf_fused_level_bwd(const float* t, const float* rays_d, const float* venc, const float* xenc,
-                           AONERF_WEIGHT_PARAMS, const void* wt, const float* g_comp, const float* g_acc,
-                           const float* g_depth,
-                           const float* g_weights, float* saved, float* grow, float* delta, float* partials,
-                           float* narrow, float* out, int n_rays, int S, int ray_tile, int white_bkgd,
-                           int dot_bf16, void* stream) {
+                           AONERF_WEIGHT_PARAMS, const void* wt, const void* b1_pack, const float* g_comp,
+                           const float* g_acc, const float* g_depth, const float* g_weights, float* saved,
+                           float* grow, float* delta, float* partials, float* narrow, float* out, int n_rays, int S,
+                           int ray_tile, int white_bkgd, int dot_bf16, void* stream) {
   if (bad_shape(n_rays, S, ray_tile)) return cudaErrorInvalidValue;
   const size_t rows = (size_t)n_rays * S;
   float* raw = delta;
@@ -1111,8 +1157,8 @@ int aonerf_fused_level_bwd(const float* t, const float* rays_d, const float* ven
   if (int err = launch_fwd_spill(t, rays_d, venc, xenc, w, wt, comp, acc, depth, weights, saved, raw, n_rays, S,
                                  ray_tile, white_bkgd, dot_bf16, s))
     return err;
-  return launch_bwd_saved(t, rays_d, venc, xenc, w, g_comp, g_acc, g_depth, g_weights, saved, raw, grow, delta,
-                          partials, narrow, out, n_rays, S, ray_tile, white_bkgd, dot_bf16, s);
+  return launch_bwd_saved(t, rays_d, venc, xenc, w, b1_pack, g_comp, g_acc, g_depth, g_weights, saved, raw, grow,
+                          delta, partials, narrow, out, n_rays, S, ray_tile, white_bkgd, dot_bf16, s);
 }
 
 }  // extern "C"

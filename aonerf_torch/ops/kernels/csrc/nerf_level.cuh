@@ -40,7 +40,8 @@
 // slice, also 64 bytes a row, 76 slices a forward chunk) is unswizzled: each
 // thread reads one 16-byte chunk of a row (the wrapper permutes each
 // 32-column block of the pack so that chunk holds that thread's pairs), and
-// a quarter warp's eight reads cover the 128 bytes of two neighbouring rows.
+// a quarter warp's eight reads cover the 128 bytes of two neighbouring rows;
+// B1Bf16Schedule, B1's bf16 stream, is laid out alike, 68 slices a chunk.
 // Only TMA writes the ring, so its buffers need no proxy fence.
 //
 // Budget: 5 stages x 16 KB, 128 bytes of barriers and up to 1 KB of
@@ -66,11 +67,12 @@
 // packed from the fp32 tile (cvt.rn.bf16x2.f32 on values already bf16, so
 // exact): per 32 K-columns a thread reads 16 float2 of A and one 16-byte
 // chunk of B per n8 tile, and issues 32 mma, where the TF32 walk on bf16
-// values it replaces read 48 fp32 words and issued 64 mma. Each mma sums 16
-// consecutive K-columns into a fresh accumulator, the groups that walk
-// summed into each of its fresh accumulators (kFwdBf16Run). B1 in bf16 mode
-// keeps that TF32 walk (gemm_wt with Bf16: one TF32 mma a k8 step on bf16
-// values, which TF32 holds exactly) on the fp32 B1Schedule stream.
+// values it replaced (one TF32 mma a k8 step) read 48 fp32 words and issued
+// 64 mma. Each mma sums 16 consecutive K-columns into a fresh accumulator,
+// the groups that walk summed into each of its fresh accumulators
+// (kFwdBf16Run). K2's B1 in bf16 mode runs gemm_bf16 too, on the delta tile,
+// from a bf16 pack of its nine flax-layout weights (B1Bf16Schedule), each
+// fresh accumulator summing kB1Bf16Run k16 steps.
 
 #pragma once
 
@@ -136,6 +138,15 @@ constexpr int kFwdRun = 2;
 #define AONERF_FWD_BF16_RUN 1
 #endif
 constexpr int kFwdBf16Run = AONERF_FWD_BF16_RUN;
+// k16 steps that one fresh accumulator sums in B1's products in bf16 mode
+// (-DAONERF_B1_BF16_RUN=N, 1 or even; tools/torch_bf16_accuracy.py and
+// tools/torch_train_compare.py --b1-bf16-run N). Run 2 sums the 32
+// consecutive K-columns of a slice, the groups the TF32 walk it replaced
+// (gemm_wt, run 4) summed into each fresh accumulator; run 1 sums 16.
+#ifndef AONERF_B1_BF16_RUN
+#define AONERF_B1_BF16_RUN 2
+#endif
+constexpr int kB1Bf16Run = AONERF_B1_BF16_RUN;
 
 // The 26 weights in the flax (in, out) layout, biases (1, out).
 struct Weights {
@@ -176,6 +187,14 @@ struct FwdBf16Schedule : FwdSchedule {
   static constexpr int kDepth = 2 * aonerf::kDepth;
   static constexpr bool kSwizzle64 = false;
 };
+// B1 in bf16 mode: the same nine products, from the wrapper's bf16 pack of
+// them (each in its flax layout, rounded, its rows' 32-column blocks
+// permuted as the forward's pack), in 32-deep slices.
+struct B1Bf16Schedule : B1Schedule {
+  using Elem = uint16_t;
+  static constexpr int kDepth = 2 * aonerf::kDepth;
+  static constexpr bool kSwizzle64 = false;
+};
 template <class Sched>
 __host__ __device__ constexpr int schedule_slices() {
   int n = 0;
@@ -189,7 +208,8 @@ __host__ __device__ constexpr int schedule_floats() {
   return n;
 }
 constexpr int kWtFloats = schedule_floats<FwdSchedule>();
-static_assert(kWidth * FwdBf16Schedule::kDepth * sizeof(FwdBf16Schedule::Elem) == kStageFloats * sizeof(float),
+static_assert(kWidth * FwdBf16Schedule::kDepth * sizeof(FwdBf16Schedule::Elem) == kStageFloats * sizeof(float) &&
+                  kWidth * B1Bf16Schedule::kDepth * sizeof(B1Bf16Schedule::Elem) == kStageFloats * sizeof(float),
               "a bf16 slice fills a stage as an fp32 slice does");
 
 // One 2D TMA map per product of a schedule; a kernel parameter
@@ -251,11 +271,12 @@ int encode_weight_maps(WeightMaps& maps, const void* const* w) {
   return 0;
 }
 
-// The forward's maps over the packed transposed copies `wt` (kWtFloats
-// elements of Sched::Elem: fp32, or bf16 in bf16 mode).
+// The maps of a schedule whose products are packed in order into one buffer
+// of Sched::Elem: the forward's transposed copies `wt` (kWtFloats elements:
+// fp32, or bf16 in bf16 mode), or B1's bf16 pack.
 template <class Sched>
-int encode_forward_maps(WeightMaps& maps, const void* wt) {
-  const auto* p = static_cast<const typename Sched::Elem*>(wt);
+int encode_packed_maps(WeightMaps& maps, const void* pack) {
+  const auto* p = static_cast<const typename Sched::Elem*>(pack);
   const void* w[Sched::kProducts];
   for (int i = 0; i < Sched::kProducts; ++i) {
     w[i] = p;
@@ -265,7 +286,7 @@ int encode_forward_maps(WeightMaps& maps, const void* wt) {
 }
 // The same, of the fp32 copy or, with bf16, of the bf16 pack.
 inline int encode_forward_maps(WeightMaps& maps, const void* wt, bool bf16) {
-  return bf16 ? encode_forward_maps<FwdBf16Schedule>(maps, wt) : encode_forward_maps<FwdSchedule>(maps, wt);
+  return bf16 ? encode_packed_maps<FwdBf16Schedule>(maps, wt) : encode_packed_maps<FwdSchedule>(maps, wt);
 }
 
 // Slices a block's stream holds in all: its chunks times the schedule.
@@ -394,8 +415,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // x rounded to bf16 (to nearest, ties to even: cvt.rn.bf16.f32) and back to
-// fp32: the operand rounding of bf16 mode. The result's 16 low bits are 0, so
-// it is also its own TF32 value.
+// fp32: the operand rounding of bf16 mode.
 __device__ __forceinline__ float round_bf16(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
 
 // x, or x rounded to bf16 in bf16 mode.
@@ -438,26 +458,6 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ab)[4
   mma_tf32(d, as, bb[0], bb[1]);
   mma_tf32(d, ab, bs[0], bs[1]);
   mma_tf32(d, ab, bb[0], bb[1]);
-}
-
-// One fragment element of the mode's product: in fp32 its TF32 split; with
-// Bf16 (x a bf16 value, which is TF32 as it stands) its bits, small unused.
-template <bool Bf16>
-__device__ __forceinline__ void frag(float x, uint32_t& big, uint32_t& small) {
-  if constexpr (Bf16) {
-    big = __float_as_uint(x);
-    small = 0u;
-  } else {
-    split_tf32(x, big, small);
-  }
-}
-
-// d += a . b in the mode's product: 3xTF32 in fp32, one TF32 mma with Bf16.
-template <bool Bf16>
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&ab)[4], const uint32_t (&as)[4],
-                                    const uint32_t (&bb)[2], const uint32_t (&bs)[2]) {
-  if constexpr (Bf16) mma_tf32(d, ab, bb[0], bb[1]);
-  else mma_3xtf32(d, ab, as, bb, bs);
 }
 
 // The tensor cores add into their fp32 accumulator with truncation, so one
@@ -568,10 +568,8 @@ struct WeightRing {
 // transposed copies, so it multiplies by the weight. A fresh accumulator
 // sums each Run k8 steps (3 Run mma; one or more whole slices) and is added
 // into acc in fp32, in k order. No block barrier: the caller orders any
-// write to A after every warp's reads. With Bf16, A and W must hold
-// bf16-rounded values, and each k8 step is one TF32 mma on them (Run mma a
-// fresh accumulator).
-template <int N, int Lda, int Run, bool Bf16, class Sched>
+// write to A after every warp's reads.
+template <int N, int Lda, int Run, class Sched>
 __device__ __forceinline__ void gemm_wt(ChunkAcc<N>& acc, const float* A, int K, WeightRing<Sched>& ring) {
   static_assert(Sched::kDepth == kDepth && sizeof(typename Sched::Elem) == sizeof(float), "an fp32 stream");
   static_assert((8 * Run) % kDepth == 0, "a run is whole slices");
@@ -594,19 +592,19 @@ __device__ __forceinline__ void gemm_wt(ChunkAcc<N>& acc, const float* A, int K,
 #pragma unroll
         for (int mi = 0; mi < 2; ++mi) {
           const float* p = a_frag + 16 * mi * Lda + k0 + r * kDepth + kk;
-          frag<Bf16>(p[0], ab[mi][0], as[mi][0]);
-          frag<Bf16>(p[8 * Lda], ab[mi][1], as[mi][1]);
-          frag<Bf16>(p[4], ab[mi][2], as[mi][2]);
-          frag<Bf16>(p[8 * Lda + 4], ab[mi][3], as[mi][3]);
+          split_tf32(p[0], ab[mi][0], as[mi][0]);
+          split_tf32(p[8 * Lda], ab[mi][1], as[mi][1]);
+          split_tf32(p[4], ab[mi][2], as[mi][2]);
+          split_tf32(p[8 * Lda + 4], ab[mi][3], as[mi][3]);
         }
 #pragma unroll
         for (int ni = 0; ni < N / 32; ++ni) {
           const float* q = ws + 8 * kDepth * ni;
           uint32_t bb[2], bs[2];
-          frag<Bf16>(q[kk ^ swz], bb[0], bs[0]);
-          frag<Bf16>(q[(kk + 4) ^ swz], bb[1], bs[1]);
+          split_tf32(q[kk ^ swz], bb[0], bs[0]);
+          split_tf32(q[(kk + 4) ^ swz], bb[1], bs[1]);
 #pragma unroll
-          for (int mi = 0; mi < 2; ++mi) mma<Bf16>(part[mi][ni], ab[mi], as[mi], bb, bs);
+          for (int mi = 0; mi < 2; ++mi) mma_3xtf32(part[mi][ni], ab[mi], as[mi], bb, bs);
         }
       }
       ring.release();
@@ -794,7 +792,7 @@ using FwdRing = WeightRing<std::conditional_t<Bf16, FwdBf16Schedule, FwdSchedule
 template <int N, int Lda, bool Bf16>
 __device__ __forceinline__ void fwd_product(ChunkAcc<N>& acc, const float* A, int K, FwdRing<Bf16>& ring) {
   if constexpr (Bf16) gemm_bf16<N, Lda, kFwdBf16Run>(acc, A, K, ring);
-  else gemm_wt<N, Lda, kFwdRun, false>(acc, A, K, ring);
+  else gemm_wt<N, Lda, kFwdRun>(acc, A, K, ring);
 }
 
 // One 256-wide layer with ReLU, act = relu(A[:, :K] . W + bias), in place,

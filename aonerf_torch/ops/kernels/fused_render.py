@@ -65,6 +65,11 @@ BF16_SLICE_ORDER = tuple(16 * s + 4 * ((t & 1) ^ s) + 2 * (t >> 1) + 8 * q + e
 launches = 0
 bf16_launches = 0
 launch_tiles: Dict[Tuple[int, int, bool], int] = {}
+# The tiles launch_ray_tile chose: (rays, samples, card, id of smem_bytes) ->
+# (smem_bytes, tile). The rule is pure, so a launch of a shape already seen
+# asks the library nothing; smem_bytes (a ctypes function, which cannot be
+# hashed) is kept beside its tile so that its id keeps naming it.
+_chosen_tiles: Dict[Tuple[int, int, int, int], Tuple[Callable[[int, int], int], int]] = {}
 # A launcher's return code at or above this is this plus the CUresult with
 # which the driver refused one of the weight stream's TMA maps (kMapError).
 MAP_ERROR = 1000
@@ -136,23 +141,27 @@ def kernel_weights_t_bf16(kernel_params: Dict[str, torch.Tensor]) -> torch.Tenso
     for name, view in unpack_weights_t(flat).items():
         w = kernel_params[name].detach()
         view[:, : w.shape[0]].copy_(w.t())
-    return flat.view(-1, 32).index_select(1, _slice_order(first.device)).view(-1)
+    return flat.view(-1, 32).index_select(1, slice_order(first.device)).view(-1)
 
 
 @functools.lru_cache(maxsize=None)
-def _slice_order(device: torch.device) -> torch.Tensor:
+def slice_order(device: torch.device) -> torch.Tensor:
+    """``BF16_SLICE_ORDER`` as an index tensor on ``device``, for the bf16
+    packs' gathers."""
     return torch.tensor(BF16_SLICE_ORDER, dtype=torch.long, device=device)
 
 
 def choose_ray_tile(R: int, S: int, n_sms: int, smem_bytes: Callable[[int, int], int], max_smem: int) -> int:
-    """The forward kernels' ray tile for R rays of S samples on a card of
-    n_sms SMs whose blocks may have max_smem bytes of shared memory, where
+    """The ray tile of a kernel that walks its block's rays in chunks (K1,
+    K1s, and K2's B1 in bf16 mode) for R rays of S samples on a card of n_sms
+    SMs whose blocks may have max_smem bytes of shared memory, where
     smem_bytes(S, T) is a block's of T rays: of the tiles T <= RAY_TILE that
     divide R and fit, the one with the fewest waves x chunks a block,
     ceil(R / T / n_sms) x ceil(T S / CHUNK_ROWS) (one block a SM: its shared
     memory and registers allow no second), ties to the larger T. On the
     H100, 16 at 2048 and 4096 rays (S = 65, 193), 2 at 224 and 256, 15 at
-    3840. A row's outputs do not depend on the tile."""
+    3840. A row's outputs do not depend on the tile (B1's per-block head
+    sums do)."""
     best = None
     for T in range(1, min(RAY_TILE, R) + 1):
         if R % T or smem_bytes(S, T) > max_smem:
@@ -177,11 +186,16 @@ def launch_ray_tile(R: int, S: int, ray_tile: Optional[int], device: torch.devic
                     smem_bytes: Optional[Callable[[int, int], int]] = None) -> Optional[int]:
     """``ray_tile`` once checked to divide R. Where it is None: on a CUDA
     device the tile :func:`choose_ray_tile` picks for that card, smem_bytes
-    being the library's count of a forward block's shared memory; on the CPU
-    None, since the plain versions take no tile."""
+    being the library's count of the launch's block's shared memory (asked
+    once a shape); on the CPU None, since the plain versions take no tile."""
     if ray_tile is None and device.type == "cuda":
-        n_sms, max_smem = _card(torch.cuda.current_device() if device.index is None else device.index)
-        ray_tile = choose_ray_tile(R, S, n_sms, smem_bytes, max_smem)
+        index = torch.cuda.current_device() if device.index is None else device.index
+        key = (R, S, index, id(smem_bytes))
+        chosen = _chosen_tiles.get(key)
+        if chosen is None or chosen[0] is not smem_bytes:
+            n_sms, max_smem = _card(index)
+            chosen = _chosen_tiles[key] = (smem_bytes, choose_ray_tile(R, S, n_sms, smem_bytes, max_smem))
+        ray_tile = chosen[1]
     if ray_tile is not None and (ray_tile <= 0 or R % ray_tile != 0):
         raise ValueError(f"rays {R} not a multiple of ray_tile {ray_tile}")
     return ray_tile
@@ -206,7 +220,9 @@ def round_bf16(x: torch.Tensor) -> torch.Tensor:
 
 def bf16_params(kernel_params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """The kernels' weights in bf16 mode: every weight rounded to bf16 (still
-    fp32 tensors, detached), every bias as it is."""
+    fp32 tensors, detached), every bias as it is; the values the bf16 packs
+    (:func:`kernel_weights_t_bf16`, ``fused_train.b1_weights_bf16``) hold,
+    which the tests hold them to."""
     return {n: round_bf16(v.detach()) if n.startswith("w") else v for n, v in kernel_params.items()}
 
 

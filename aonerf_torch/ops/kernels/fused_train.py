@@ -20,6 +20,13 @@ in bf16; the backward's products round their operands too, but its
 integrator recomputes the transmittance in fp32, and every bias gradient and
 the per-ray sum for ``wvb`` add the unrounded fp32 deltas.
 
+The ray tile (rays a CUDA block) of K1s, and of K2 in bf16 mode, is chosen
+per launch (``choose_ray_tile``); K1s' outputs do not depend on it. K2's
+per-block head sums (wd, bd, wr, br, wvb) do, so its bits do: in fp32 K2
+keeps ``RAY_TILE`` (16) rays a block, and so its bits, unless the caller
+names a tile; in bf16 mode, held to the bf16 rule and not to bits, it takes
+the tile that fills the card (2 at the fast preset's batch of 224).
+
 Gradients flow to the 26 MLP weights only. Sample positions carry none in
 this architecture (coarse t-values are parameter-free, fine t-values are
 detached), so t, rays and encodings get no gradient. The integrator backward
@@ -42,31 +49,39 @@ from aonerf_torch.ops.kernels.fused_render import (
     WEIGHT_NAMES,
     WIDTH,
     _check_inputs,
-    bf16_params,
     bf16_products,
     check_forward_layout,
     check_launch,
     fwd_operands,
     integrate_ref,
     kernel_params,
-    kernel_weights_t,
-    kernel_weights_t_bf16,
     launch_ray_tile,
     level_activations_ref,
+    round_bf16,
+    slice_order,
 )
 
 # Saved activations per sample: h0..h7, the bottleneck, the view hidden layer.
 SAVED_FLOATS = 9 * WIDTH + COND_WIDTH
+# B1's tensor-core products, in the order its weight stream reads them
+# (csrc/nerf_level.cuh's B1Schedule), each in its flax (in, out) layout; in
+# bf16 mode it reads them from :func:`b1_weights_bf16` and, beside them, only
+# the narrow heads of B1_HEADS, rounded.
+B1_WEIGHTS = ("wva", "wb", "w7", "w6", "w5x", "w4", "w3", "w2", "w1")
+B1_PACK_ELEMS = WIDTH * COND_WIDTH + 8 * WIDTH * WIDTH
+B1_HEADS = ("wd", "wr")
 
 # Launches of K1s (fwd_launches) and of the CUDA backward (launches) since
 # each count was last set to 0, in fp32; bf16_fwd_launches and bf16_launches
-# count the same in bf16 mode. fwd_tiles: the ray tile of each K1s launch's
-# shape, (rays, samples, dot_bf16) -> tile, since it was last cleared.
+# count the same in bf16 mode. fwd_tiles and bwd_tiles: the ray tile of each
+# K1s and K2 launch's shape, (rays, samples, dot_bf16) -> tile, since each
+# was last cleared.
 fwd_launches = 0
 launches = 0
 bf16_fwd_launches = 0
 bf16_launches = 0
 fwd_tiles: Dict[Tuple[int, int, bool], int] = {}
+bwd_tiles: Dict[Tuple[int, int, bool], int] = {}
 
 
 def _relu_mask(x: torch.Tensor) -> torch.Tensor:
@@ -221,6 +236,30 @@ def fused_level_bwd_ref(
     )
 
 
+def b1_weights_bf16(kernel_params: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """B1's bf16 pack: its product weights in ``B1_WEIGHTS`` order, each in
+    its flax (in, out) layout, untransposed, packed into one flat contiguous
+    ``torch.bfloat16`` buffer of ``B1_PACK_ELEMS`` on the weights' device,
+    each rounded to bf16 (to nearest, ties to even) and every 32-column
+    block of a row put in ``BF16_SLICE_ORDER``, as the forward's pack
+    (``kernel_weights_t_bf16``); detached. One concatenation, one rounding
+    and one gather a launch. Undone, its values are those of
+    ``bf16_params(kernel_params)``'s weights, in order."""
+    rows = torch.cat([kernel_params[n].detach().reshape(-1, 32) for n in B1_WEIGHTS])
+    return rows.to(torch.bfloat16).index_select(1, slice_order(rows.device)).view(-1)
+
+
+def bwd_operands(kernel_params: Dict[str, torch.Tensor], dot_bf16: bool):
+    """What the backward kernels take beside the inputs: the 26 weights (in
+    bf16 mode with the narrow heads of B1_HEADS rounded to bf16; B1 reads no
+    other) and B1's pack, :func:`b1_weights_bf16` in bf16 mode, else None
+    (fp32 B1 streams the flax-layout weights themselves)."""
+    if not dot_bf16:
+        return kernel_params, None
+    heads = {n: round_bf16(kernel_params[n].detach()) for n in B1_HEADS}
+    return {**kernel_params, **heads}, b1_weights_bf16(kernel_params)
+
+
 def _padded_offsets(shapes: List[Tuple[int, ...]]) -> List[int]:
     """Start of each gradient in the kernel's flat output: in WEIGHT_NAMES
     order, each padded to a multiple of 4 floats (16-byte aligned)."""
@@ -245,8 +284,8 @@ def _library():
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         for name, n_ptr in (
             ("aonerf_fused_level_fwd_spill", 4 + n_w + 1 + 6),
-            ("aonerf_fused_level_bwd_saved", 4 + n_w + 4 + 2 + 5),
-            ("aonerf_fused_level_bwd", 4 + n_w + 1 + 4 + 6),
+            ("aonerf_fused_level_bwd_saved", 4 + n_w + 1 + 4 + 2 + 5),
+            ("aonerf_fused_level_bwd", 4 + n_w + 2 + 4 + 6),
         ):
             fn = getattr(lib, name)
             fn.argtypes = [ptr] * n_ptr + [i32] * 5 + [ptr]
@@ -254,12 +293,18 @@ def _library():
         for name in (
             "aonerf_fused_level_bwd_partial_floats", "aonerf_fused_level_bwd_saved_floats",
             "aonerf_fused_level_bwd_ranges", "aonerf_fused_level_bwd_narrow_floats",
+            "aonerf_fused_level_b1_bf16_bytes",
         ):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = i32
+        lib.aonerf_fused_level_bwd_smem_bytes.argtypes = [i32, i32]
+        lib.aonerf_fused_level_bwd_smem_bytes.restype = i32
         if lib.aonerf_fused_level_bwd_saved_floats() != SAVED_FLOATS:
             raise RuntimeError(f"fused_train: kernel saves {lib.aonerf_fused_level_bwd_saved_floats()} floats "
                                f"a sample, expected {SAVED_FLOATS}")
+        if lib.aonerf_fused_level_b1_bf16_bytes() != 2 * B1_PACK_ELEMS:
+            raise RuntimeError(f"fused_train: kernel's B1 pack is {lib.aonerf_fused_level_b1_bf16_bytes()} bytes, "
+                               f"expected {2 * B1_PACK_ELEMS}")
         check_forward_layout(lib.aonerf_fused_level_wt_floats, lib.aonerf_fused_level_wt_bf16_bytes,
                         lib.aonerf_fused_level_fwd_smem_bytes, "fused_train")
         _lib = lib
@@ -291,6 +336,20 @@ def _device_of(fn_name, t_vals, R, ray_tile):
     if t_vals.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{fn_name} runs on cuda or cpu, not {t_vals.device}")
     return t_vals.device.type
+
+
+def _fwd_and_bwd_smem(S: int, ray_tile: int) -> int:
+    """The larger of K1s' and B1's shared memory for a block of ray_tile
+    rays of S samples: :func:`fused_level_bwd` runs both at one tile."""
+    lib = _library()
+    return max(lib.aonerf_fused_level_fwd_smem_bytes(S, ray_tile),
+               lib.aonerf_fused_level_bwd_smem_bytes(S, ray_tile))
+
+
+def _bwd_tile(ray_tile: Optional[int], dot_bf16: bool) -> Optional[int]:
+    """K2's tile before the card is asked: the caller's, else RAY_TILE in
+    fp32 (its bits) and None in bf16 mode (chosen per launch on the card)."""
+    return RAY_TILE if ray_tile is None and not dot_bf16 else ray_tile
 
 
 def _launch(fn_name, dev, fn, *args):
@@ -400,7 +459,7 @@ def fused_level_bwd_saved(
     g_depth: torch.Tensor,
     g_weights: torch.Tensor,
     white_bkgd: bool,
-    ray_tile: int = RAY_TILE,
+    ray_tile: Optional[int] = None,
     dot_bf16: bool = False,
     deltas: bool = False,
 ):
@@ -412,13 +471,19 @@ def fused_level_bwd_saved(
     On CUDA tensors this launches the backward (``csrc/fused_train.cu``): the
     integrator backward (one warp per ray), B1 with one block per
     ``ray_tile`` rays, B2 over a fixed number of row ranges, then the
-    reduction (with ``dot_bf16``, B1 and B2 in bf16 mode on the rounded
-    weights); on CPU tensors it runs the plain version. With ``deltas`` (CUDA
-    tensors only) it returns (gradients, B1's fp32 deltas as (R*S,
-    SAVED_FLOATS)), the operands B2 read beside the saved activations.
+    reduction. ``ray_tile`` None is RAY_TILE (16) in fp32; with ``dot_bf16``
+    (B1 and B2 in bf16 mode: B1 on :func:`bwd_operands`) it is the tile
+    ``choose_ray_tile`` picks from B1's shared memory on the card. The tile
+    sets the order of B1's per-block head sums, and so the bits; it is
+    recorded in ``bwd_tiles``. On CPU tensors it runs the plain version,
+    which takes no tile. With ``deltas`` (CUDA tensors only) it returns
+    (gradients, B1's fp32 deltas as (R*S, SAVED_FLOATS), the integrator
+    backward's g_raw as (R*S, 4)), the operands B1 and B2 read beside the
+    saved activations.
     """
     global launches, bf16_launches
     R, S = t_vals.shape
+    ray_tile = _bwd_tile(ray_tile, dot_bf16)
     if _device_of("fused_level_bwd_saved", t_vals, R, ray_tile) == "cpu":
         if deltas:
             raise ValueError("fused_level_bwd_saved: deltas come from the kernel's scratch, on cuda tensors only")
@@ -432,23 +497,26 @@ def fused_level_bwd_saved(
     _check_cotangents(g_comp, g_acc, g_depth, g_weights, R, S, dev)
     _check("saved", saved, (R * S, SAVED_FLOATS), dev)
     _check("raw", raw, (R * S, 4), dev)
-    if dot_bf16:
-        kernel_params = bf16_params(kernel_params)
     lib = _library()
+    ray_tile = launch_ray_tile(R, S, ray_tile, dev, lib.aonerf_fused_level_bwd_smem_bytes)
+    kernel_params, b1_pack = bwd_operands(kernel_params, dot_bf16)
     scratch, grads = _backward_scratch(lib, kernel_params, R, S, ray_tile, dev)
     _launch(
         "fused_level_bwd_saved", dev, lib.aonerf_fused_level_bwd_saved,
         t_vals.data_ptr(), rays_d.data_ptr(), viewdirs_enc.data_ptr(), xenc.data_ptr(),
-        *[kernel_params[n].data_ptr() for n in WEIGHT_NAMES],
+        *[kernel_params[n].data_ptr() for n in WEIGHT_NAMES], b1_pack.data_ptr() if dot_bf16 else None,
         g_comp.data_ptr(), g_acc.data_ptr(), g_depth.data_ptr(), g_weights.data_ptr(),
         saved.data_ptr(), raw.data_ptr(), *[x.data_ptr() for x in scratch],
         R, S, ray_tile, int(white_bkgd), int(dot_bf16),
     )
+    bwd_tiles[(R, S, dot_bf16)] = ray_tile
     if dot_bf16:
         bf16_launches += 1
     else:
         launches += 1
-    return (grads, scratch.delta.view(R * S, SAVED_FLOATS)) if deltas else grads
+    if deltas:
+        return grads, scratch.delta.view(R * S, SAVED_FLOATS), scratch.grow.view(R * S, 4)
+    return grads
 
 
 def fused_level_bwd(
@@ -463,16 +531,18 @@ def fused_level_bwd(
     g_depth: torch.Tensor,
     g_weights: torch.Tensor,
     white_bkgd: bool,
-    ray_tile: int = RAY_TILE,
+    ray_tile: Optional[int] = None,
     dot_bf16: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """Gradients of the 26 level weights from the level's inputs and the
     cotangents of :func:`fused_render_level`'s outputs alone: K1s, then the
     backward from what it saved (:func:`fused_level_bwd_saved`), in one call
-    of the library, both at ``ray_tile``; ``saved`` is its scratch. On CPU
-    tensors it runs the plain version."""
+    of the library, both at ``ray_tile`` (None: K2's default, chosen in bf16
+    mode from the larger of K1s' and B1's shared memory); ``saved`` is its
+    scratch. On CPU tensors it runs the plain version."""
     global fwd_launches, launches, bf16_fwd_launches, bf16_launches
     R, S = t_vals.shape
+    ray_tile = _bwd_tile(ray_tile, dot_bf16)
     if _device_of("fused_level_bwd", t_vals, R, ray_tile) == "cpu":
         return fused_level_bwd_ref(
             kernel_params, t_vals, rays_o, rays_d, viewdirs_enc, samples_enc,
@@ -482,20 +552,22 @@ def fused_level_bwd(
     xenc = samples_enc.reshape(R * S, samples_enc.shape[-1])
     _check_inputs(kernel_params, t_vals, rays_d, viewdirs_enc, xenc, R, S)
     _check_cotangents(g_comp, g_acc, g_depth, g_weights, R, S, dev)
-    wt = kernel_weights_t_bf16(kernel_params) if dot_bf16 else kernel_weights_t(kernel_params)
-    if dot_bf16:
-        kernel_params = bf16_params(kernel_params)
     lib = _library()
+    ray_tile = launch_ray_tile(R, S, ray_tile, dev, _fwd_and_bwd_smem)
+    b1_pack = b1_weights_bf16(kernel_params) if dot_bf16 else None
+    kernel_params, wt = fwd_operands(kernel_params, dot_bf16)  # rounds wd and wr too, as B1 takes them
     scratch, grads = _backward_scratch(lib, kernel_params, R, S, ray_tile, dev)
     saved = torch.empty(R * S * SAVED_FLOATS, dtype=torch.float32, device=dev)
     _launch(
         "fused_level_bwd", dev, lib.aonerf_fused_level_bwd,
         t_vals.data_ptr(), rays_d.data_ptr(), viewdirs_enc.data_ptr(), xenc.data_ptr(),
         *[kernel_params[n].data_ptr() for n in WEIGHT_NAMES], wt.data_ptr(),
+        b1_pack.data_ptr() if dot_bf16 else None,
         g_comp.data_ptr(), g_acc.data_ptr(), g_depth.data_ptr(), g_weights.data_ptr(),
         saved.data_ptr(), *[x.data_ptr() for x in scratch],
         R, S, ray_tile, int(white_bkgd), int(dot_bf16),
     )
+    fwd_tiles[(R, S, dot_bf16)] = bwd_tiles[(R, S, dot_bf16)] = ray_tile
     if dot_bf16:
         bf16_fwd_launches += 1
         bf16_launches += 1
@@ -510,7 +582,9 @@ class FusedLevel(torch.autograd.Function):
     K2 backward from what it saved, both in the mode ``dot_bf16`` says
     (counterpart of ``make_fused_level``). K1s runs at the tile it chooses
     (its outputs do not depend on it); K2 at ``ray_tile``, which sets the
-    order of B1's per-block head sums and so its bits."""
+    order of B1's per-block head sums and so its bits: None is 16 rays a
+    block in fp32 and, in bf16 mode, the tile chosen per launch
+    (:func:`fused_level_bwd_saved`)."""
 
     @staticmethod
     def forward(ctx, t_vals, rays_o, rays_d, viewdirs_enc, samples_enc, white_bkgd, ray_tile, dot_bf16, *weights):
@@ -545,11 +619,13 @@ def fused_level(
     viewdirs_enc: torch.Tensor,
     samples_enc: torch.Tensor,
     white_bkgd: bool,
-    ray_tile: int = RAY_TILE,
+    ray_tile: Optional[int] = None,
     dot_bf16: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """:func:`fused_render_level` with gradients to ``kernel_params``;
-    ``ray_tile`` is the backward's (K2's) tile."""
+    ``ray_tile`` is the backward's (K2's) tile: None is RAY_TILE (16) in fp32,
+    so the batch must be a multiple of it, and in bf16 mode the tile chosen
+    per launch, so any batch."""
     return FusedLevel.apply(
         t_vals, rays_o, rays_d, viewdirs_enc, samples_enc, white_bkgd, ray_tile, dot_bf16,
         *[kernel_params[n] for n in WEIGHT_NAMES],
@@ -575,7 +651,7 @@ def fused_nerf_forward(
     the kernels' bf16 mode with ``dot_bf16``.
 
     rays: 'rays_o', 'rays_d' (unit), 'viewdirs' (B, 3), B a multiple of
-    ``RAY_TILE`` where ``level`` runs K2 (the default). ``draws`` (see
+    ``RAY_TILE`` where ``level`` runs K2 (the default) in fp32. ``draws`` (see
     ``ops.random``) gives the coarse jitter and then the fine exponential
     draws when ``randomized``. Returns [(comp_rgb, acc, depth)] per level,
     coarse first.

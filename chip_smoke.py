@@ -103,7 +103,13 @@ Phases, each of which fails the run with a non-zero exit:
                both kernels' outputs in both modes equal to their bits at 16
                rays a block; each timed in turns with the 16-ray launch,
                with its bounds and plain version; the host time of a K1
-               launch; B1 bf16 at 224 rays by the profiler with its bound.
+               launch; K2 bf16 from K1s' saved at 224 rays at the tile its
+               wrapper chooses (2) and at 16 rays a block, both against the
+               bf16 rule, B2's gradients equal at both, B1 timed in turns by
+               the profiler with its bound, the host time of a K2 call; and
+               at 2048 rays B1 bf16 alone: its deltas and head gradients
+               against the fp64 products of the operands it read (B1_TOL)
+               and its plain version on them, timed in turns with it.
  14. bf16 training - the train CLI at config/vanilla_tpu_fast.json's settings
                (bf16, batch 224, inner_steps 183, grad_clip 1.0, chunk 256) on
                phase 7's scene, cut as phase 7 cuts config/vanilla.json: 2
@@ -118,7 +124,7 @@ Phases, each of which fails the run with a non-zero exit:
                config/vanilla.json's batch 2048 in fp32 and in bf16, in turns.
 The line before the last is a JSON object with one entry per kernel and mode
 (K1, K1s, K2 in fp32, then in bf16; K1 and K1s in bf16 at the fast preset's
-shapes; B2 in bf16); the last line is {"ok": true, "device": {...}}.
+shapes; B2 and B1 in bf16); the last line is {"ok": true, "device": {...}}.
 """
 
 import json
@@ -200,7 +206,16 @@ B2_BIASES = {**{f"b{i}": i * 256 for i in range(8)}, "bb": 8 * 256, "bv": 9 * 25
 # tensor-core runs, then the range, then 16 ranges) within B2_TOL of each
 # gradient's largest entry.
 B2_TOL = 1e-5
+# B1 in bf16 the same way: each delta it wrote (fp32) against the product,
+# summed in fp64, of the bf16-rounded operands it multiplied (the delta of
+# the layer above from its own scratch, the rounded weight; g_raw from the
+# integrator backward's scratch), masked by the saved activation, and each
+# head gradient it summed (wd, bd, wr, br) against its operands' fp64 sum:
+# its own fp32 sums (tensor-core runs of 32 columns, its per-block and
+# per-chunk head sums) within B1_TOL of each one's largest entry.
+B1_TOL = 1e-5
 K2_RANGES = 16  # pass B2's row ranges
+NARROW_FLOATS = 4104  # a B1 block's narrow set: wd, bd, wr, br, wvb, each padded to 4 floats
 R_TRAIN = 2048  # rays per train step (config/vanilla.json)
 # K2 against its plain version. A gradient is a sum over R*S rows through
 # eight ReLU masks and the integrator's 1/max(1 - alpha + 1e-10, 1e-10),
@@ -258,7 +273,7 @@ TOL_AE, TOL_AE_FACTOR = 1e-5, 4.0
 # miss the rule on at least one output a level, which shows that it tells
 # the modes apart.
 TOL_BF16_FWD, TOL_BF16_GRAD, TOL_BF16_SPREAD = 1e-6, 1e-4, 2.0
-PEAK_BF16_FLOPS = 989e12  # bf16 tensor cores, dense; the kernels run one TF32 mma on bf16 operands (495)
+PEAK_BF16_FLOPS = 989e12  # bf16 tensor cores, dense
 OUTPUTS = ("comp", "acc", "depth", "weights")
 # K1s in bf16 on encoded inputs placed exactly halfway between two bf16
 # values: the share of its saved h0 that differs from the plain version's
@@ -608,10 +623,10 @@ def _bwd_pass_bounds(R: int, S: int) -> dict:
         "integrator": _bound(rows * INTEGRATOR_FLOPS_PER_SAMPLE / PEAK_FP32_FLOPS * ms,
                              hbm(rows * 4 + rows + R * 3 + R * 5 + rows + rows * 4)),
         "B1": _bound(tc(rows * B1_TC_MACS) + fp32(rows * B1_FP32_MACS + R * 27 * 128),
-                     hbm(rows * (2 * SAVED_FLOATS + 4) + R * 27 + N_WEIGHTS + (R // 16) * 4104)),
+                     hbm(rows * (2 * SAVED_FLOATS + 4) + R * 27 + N_WEIGHTS + (R // 16) * NARROW_FLOATS)),
         "B2": _bound(tc(rows * B2_TC_MACS),
                      hbm(rows * (SAVED_FLOATS - 128 + 63 + SAVED_FLOATS) + K2_RANGES * N_WEIGHTS)),
-        "reduce": _bound(0.0, hbm(K2_RANGES * N_WEIGHTS + (R // 16) * 4104 + N_WEIGHTS)),
+        "reduce": _bound(0.0, hbm(K2_RANGES * N_WEIGHTS + (R // 16) * NARROW_FLOATS + N_WEIGHTS)),
     }
 
 
@@ -1883,9 +1898,103 @@ def tie_check(kp, t, o, d, venc, xenc) -> float:
 def backward_with_deltas(args, saved, raw, cot, white: bool, dot_bf16: bool):
     """The backward from saved, once, and B1's fp32 deltas from its scratch
     (R*S x SAVED_FLOATS), which B2 read."""
+    return backward_operands(args, saved, raw, cot, white, dot_bf16)[:2]
+
+
+def backward_operands(args, saved, raw, cot, white: bool, dot_bf16: bool):
+    """The backward from saved, once: its gradients, B1's fp32 deltas and the
+    integrator backward's g_raw (R*S x 4: sigma, rgb) from their scratches."""
     from aonerf_torch.ops.kernels import fused_train as ft
 
     return ft.fused_level_bwd_saved(*args, saved, raw, *cot, white, dot_bf16=dot_bf16, deltas=True)
+
+
+def b1_products(kp, saved, grow, delta, dtype):
+    """B1 in bf16 mode as products of what it read, layer by layer, from the
+    rgb head down: (name, the delta B1 wrote, its columns of the delta
+    scratch; the same delta formed in ``dtype`` from the operands B1
+    multiplied, each rounded to bf16: the delta of the layer above as B1
+    wrote it, or g_raw, and the weight; masked by the saved activation)."""
+    from aonerf_torch.ops.kernels import fused_render as fr
+
+    def rnd(x):
+        return fr.round_bf16(x).to(dtype)
+
+    def on(c0, width=256):  # the ReLU mask of the saved activation at columns c0..
+        return saved[:, c0: c0 + width] > 0
+
+    view, btl = SAVED_FLOATS - 128, 8 * 256
+    yield "view", delta[:, view:], (rnd(grow[:, 1:]) @ rnd(kp["wr"]).t()) * on(view, 128)
+    yield "bottleneck", delta[:, btl: view], rnd(delta[:, view:]) @ rnd(kp["wva"]).t()
+    yield "h7", delta[:, 7 * 256: btl], (rnd(delta[:, btl: view]) @ rnd(kp["wb"]).t()
+                                        + rnd(grow[:, :1]) @ rnd(kp["wd"]).t()) * on(7 * 256)
+    for i in range(6, -1, -1):
+        w = kp["w5x" if i == 4 else f"w{i + 1}"]
+        yield f"h{i}", delta[:, 256 * i: 256 * (i + 1)], (rnd(delta[:, 256 * (i + 1): 256 * (i + 2)])
+                                                          @ rnd(w).t()) * on(256 * i)
+
+
+def b1_heads(saved, grow) -> dict:
+    """The head gradients B1 sums, in fp64 from the operands it read: wd and
+    wr the products of rounded saved activations and g_raw, bd and br the
+    sums of the fp32 g_raw (wvb, whose per-ray sums B1 rounds, is left out)."""
+    from aonerf_torch.ops.kernels import fused_render as fr
+
+    h7, hv = fr.round_bf16(saved[:, 7 * 256: 8 * 256]).double(), fr.round_bf16(saved[:, SAVED_FLOATS - 128:]).double()
+    g = grow.double()
+    return {"wd": h7.t() @ fr.round_bf16(grow[:, :1]).double(), "bd": g[:, :1].sum(0),
+            "wr": hv.t() @ fr.round_bf16(grow[:, 1:]).double(), "br": g[:, 1:].sum(0)}
+
+
+def b1_errors(kp, saved, grow, delta, grads) -> tuple:
+    """B1 in bf16 against what it read: the largest error, over its deltas
+    and its head gradients, against the fp64 products and sums of its
+    operands (max abs err / max |fp64|, held to B1_TOL); and the largest
+    abs error of its deltas against the same products in fp32 (cuBLAS),
+    B1's plain version on its own operands."""
+    worst = 0.0
+    for _, got, want in b1_products(kp, saved, grow, delta, torch.float64):
+        worst = max(worst, _rel(got, want))
+        del want
+    for name, want in b1_heads(saved, grow).items():
+        worst = max(worst, _rel(grads[name].reshape(-1), want.reshape(-1)))
+    err = 0.0
+    for _, got, want in b1_products(kp, saved, grow, delta, torch.float32):
+        err = max(err, (got - want).abs().max().item())
+        del want
+    return worst, err
+
+
+def b1_check(args, cot, S: int) -> dict:
+    """B1 in bf16 at the train step's shapes, at the tile K2 chooses: its
+    deltas and head gradients against the fp64 products of what it read
+    (B1_TOL) and against B1's plain version on the same operands; its time
+    by torch.profiler in turns with that plain version (bf16, plain, bf16,
+    plain), its bound."""
+    from aonerf_torch.ops.kernels import fused_train as ft
+
+    R = args[1].shape[0]
+    *_, saved, raw = ft.fused_level_fwd_spill(*args, True, dot_bf16=True)
+    got, delta, grow = backward_operands(args, saved, raw, cot, True, True)
+    tile = ft.bwd_tiles[(R, S, True)]
+    worst, err = b1_errors(args[0], saved, grow, delta, got)
+    if not worst <= B1_TOL:
+        fail(f"B1 bf16 S={S}: off the fp64 products of its own operands by {worst:.3e} (limit {B1_TOL:g})")
+    k2 = lambda: ft.fused_level_bwd_saved(*args, saved, raw, *cot, True, dot_bf16=True)  # noqa: E731
+    plain_fn = lambda: [p for _, _, p in b1_products(args[0], saved, grow, delta, torch.float32)]  # noqa: E731
+    ms = _bwd_pass_ms(k2, iters=3, passes=K2_PASSES_BF16)["B1"]
+    plain_ms = cuda_ms(plain_fn, warmup=1, iters=3)
+    ms_again = _bwd_pass_ms(k2, iters=3, passes=K2_PASSES_BF16)["B1"]
+    plain_again = cuda_ms(plain_fn, warmup=0, iters=3)
+    bound, by = _b1_bound_bf16(R, S, tile)
+    print(f"  S={S}: B1 bf16 (level_bwd_delta_kernel<true>, torch.profiler) at {R} rays, ray tile {tile}: {ms:.3f} / "
+          f"{ms_again:.3f} ms, its plain version on the same operands {plain_ms:.3f} / {plain_again:.3f} ms (in "
+          f"turns); bound {bound:.3f} ms ({by}); against the fp64 products of its operands {worst:.3e} of the "
+          f"largest entry (limit {B1_TOL:g}), max abs err against the plain version {err:.3e}")
+    del saved, raw, delta, grow
+    return {"S": S, "R": R, "ray_tile": tile, "ms": ms, "ms_again": ms_again, "plain_ms": plain_ms,
+            "plain_ms_again": plain_again, "bound_ms": bound, "bound_by": by, "max_abs_err": err,
+            "fp64_rel_err": worst}
 
 
 def b2_operands(saved, xenc, delta) -> dict:
@@ -2008,17 +2117,20 @@ def _in_turns(chosen, at16, kernel: str, iters: int) -> tuple:
     return [a, a2], [b, b2]
 
 
-def host_ms(fn, n: int = 20) -> float:
-    """Host ms per call of fn() over n calls without a synchronize: the
+def host_ms(fn, n: int = 20, batches: int = 5) -> float:
+    """Host ms per call of fn(), the median over ``batches`` runs of n calls
+    without a synchronize (the host's clock spreads from run to run): the
     wrapper's own work (packing, tensor maps, the launch) while the card
     runs behind it."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n):
-        fn()
-    ms = (time.perf_counter() - t0) * 1e3 / n
-    torch.cuda.synchronize()
-    return ms
+    runs = []
+    for _ in range(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        runs.append((time.perf_counter() - t0) * 1e3 / n)
+        torch.cuda.synchronize()
+    return float(np.median(runs))
 
 
 def _same_at_16(what, fn, args, white: bool) -> None:
@@ -2080,7 +2192,8 @@ def k1_preset_check(args, S: int) -> dict:
     b = _fwd_bounds(S, R)
     print(f"  S={S}: K1 bf16 at the fast preset's chunk of {R} rays, ray tile {tile}: {ms[0]:.3f} / {ms[1]:.3f} ms "
           f"of device time (torch.profiler), at 16 rays a block {ms16[0]:.3f} / {ms16[1]:.3f} ms (in turns); a call "
-          f"{call_ms:.3f} ms by CUDA events over 40, its host work {host:.3f} ms (20 calls unsynchronized); plain "
+          f"{call_ms:.3f} ms by CUDA events over 40, its host work {host:.3f} ms (median of 5 x 20 calls "
+          f"unsynchronized); plain "
           f"bf16 {plain:.3f} ms, bound {b['bf16'][0]:.3f} ms ({b['bf16'][1]}); bf16 rule at most {worst:.3f} of its "
           f"limit, max abs err against the fp32-summed plain bf16 {err:.3e}; outputs equal to K1s bf16's and, "
           "in both modes, to those at 16 rays a block")
@@ -2090,16 +2203,17 @@ def k1_preset_check(args, S: int) -> dict:
             "rule_ratio": worst}
 
 
-def _b1_bound_bf16(R: int, S: int) -> tuple:
-    """B1 in bf16 mode as its own function: its products at the bf16 peak,
-    its narrow products and the wvb sum at the fp32 peak; against its bytes,
-    each read or written once: the saved activations it masks with (bf16
-    values, 2 bytes), g_raw (4 floats), the fp32 deltas it writes, venc, the
-    weights and its narrow sets."""
+def _b1_bound_bf16(R: int, S: int, ray_tile: int) -> tuple:
+    """B1 in bf16 mode as its own function at ray_tile rays a block: its
+    products at the bf16 peak, its narrow products and the wvb sum at the
+    fp32 peak; against its bytes, each read or written once: the saved
+    activations it masks with (bf16 values, 2 bytes), g_raw (4 floats), the
+    fp32 deltas it writes, venc, the weights and its blocks' narrow sets."""
     rows = R * S
     ops = (2.0 * rows * B1_TC_MACS / PEAK_BF16_FLOPS
            + 2.0 * (rows * B1_FP32_MACS + R * 27 * 128) / PEAK_FP32_FLOPS) * 1e3
-    n_bytes = rows * (2.0 * SAVED_FLOATS + 4.0 * (SAVED_FLOATS + 4)) + 4.0 * (R * 27 + N_WEIGHTS + (R // 16) * 4104)
+    n_bytes = (rows * (2.0 * SAVED_FLOATS + 4.0 * (SAVED_FLOATS + 4))
+               + 4.0 * (R * 27 + N_WEIGHTS + (R // ray_tile) * NARROW_FLOATS))
     return _bound(ops, n_bytes / PEAK_BYTES * 1e3)
 
 
@@ -2108,9 +2222,11 @@ def k1s_preset_check(args, S: int) -> dict:
     wrapper chooses: its saved layers against the bf16 rule, its outputs
     equal to K1 bf16's and, in both modes, to those at 16 rays a block; times
     in turns with the 16-ray launch, its bounds and the plain bf16 version;
-    then K2 bf16 from what it saved: its gradients against the bf16 rule
-    (the gradients the preset trains on), B1's time by torch.profiler with
-    B1's bound."""
+    then K2 bf16 from what it saved, at the tile its wrapper chooses and at
+    16 rays a block: its gradients against the bf16 rule at both (the
+    gradients the preset trains on), B2's gradients equal at both (B1's
+    deltas do not depend on the tile), B1's time by torch.profiler in turns
+    with the 16-ray launch, B1's bound, the host time of a K2 call."""
     from aonerf_torch.ops.kernels import fused_render as fr
     from aonerf_torch.ops.kernels import fused_train as ft
 
@@ -2147,29 +2263,50 @@ def k1s_preset_check(args, S: int) -> dict:
         rng.standard_normal((R, 3)), rng.standard_normal(R), 0.1 * rng.standard_normal(R),
         rng.standard_normal((R, S))))
     k2 = lambda: ft.fused_level_bwd_saved(*args, saved, raw, *cot, True, dot_bf16=True)  # noqa: E731
+    k2_16 = lambda: ft.fused_level_bwd_saved(*args, saved, raw, *cot, True, ray_tile=16, dot_bf16=True)  # noqa: E731
+    grads16 = k2_16()
     grads = k2()
-    if not all(torch.isfinite(g).all() for g in grads.values()):
+    k2_tile = ft.bwd_tiles[(R, S, True)]
+    if not all(torch.isfinite(g).all() for g in (*grads.values(), *grads16.values())):
         fail(f"K2 bf16 S={S} at {R} rays: non-finite gradients")
+    moved = [n for n in B2_PRODUCTS.keys() | B2_BIASES.keys() if not torch.equal(grads[n], grads16[n])]
+    if moved:
+        fail(f"K2 bf16 S={S} at {R} rays: B2's gradients {sorted(moved)} differ between ray tiles {k2_tile} and 16")
     orders = {o: bf16_k2_plain(args, cot, True, mm) for o, mm in BF16_ORDERS.items()}
     ref = bf16_k2_plain(args64, tuple(x.double() for x in cot), True)
     lim = bf16_limits(orders, ref, TOL_BF16_GRAD)
-    k2_ratio = _check_rule(f"K2 bf16 S={S} at {R} rays from K1s' saved", bf16_ratios(grads, ref, lim),
-                           bf16_ratios(ft.fused_level_bwd(*args, *cot, True), ref, lim))
-    del orders, ref, lim, args64
+    fp32_ratios = bf16_ratios(ft.fused_level_bwd(*args, *cot, True), ref, lim)
+    k2_ratio = _check_rule(f"K2 bf16 S={S} at {R} rays from K1s' saved, ray tile {k2_tile}",
+                           bf16_ratios(grads, ref, lim), fp32_ratios)
+    k2_ratio_16 = _check_rule(f"K2 bf16 S={S} at {R} rays from K1s' saved, 16 rays a block",
+                              bf16_ratios(grads16, ref, lim), fp32_ratios)
+    del orders, ref, lim, args64, grads16
     parts = _bwd_pass_ms(k2, iters=5, passes=K2_PASSES_BF16)
-    b1_bound, b1_by = _b1_bound_bf16(R, S)
+    b1_ms, b1_ms16 = _in_turns(k2, k2_16, "level_bwd_delta_kernel", iters=20)
+    k2_host = host_ms(k2)
+    k2_host16 = host_ms(k2_16)
+    b1_bound, b1_by = _b1_bound_bf16(R, S, k2_tile)
+    b1_bound16, _ = _b1_bound_bf16(R, S, 16)
     del saved, raw, grads
     print(f"  S={S}: K1s bf16 at the fast preset's batch of {R} rays, ray tile {tile}: {ms[0]:.3f} / {ms[1]:.3f} ms "
           f"of device time (torch.profiler), at 16 rays a block {ms16[0]:.3f} / {ms16[1]:.3f} ms (in turns), "
           f"plain bf16 {plain:.3f} ms, bound {b['bf16'][0]:.3f} ms ({b['bf16'][1]}; saved at 2 bytes a value); "
           f"saved vs fp64 bf16 reference, error / "
-          f"limit at most {max(ratios.values()):.3f}; max abs err against the fp32-summed plain bf16 {err:.3e}; "
-          f"K2 bf16 from its saved by pass (torch.profiler) " + ", ".join(f"{n} {v:.3f}" for n, v in parts.items())
-          + f" ms, B1's bound {b1_bound:.3f} ms ({b1_by})")
+          f"limit at most {max(ratios.values()):.3f}; max abs err against the fp32-summed plain bf16 {err:.3e}")
+    print(f"  S={S}: K2 bf16 from its saved at {R} rays, ray tile {k2_tile}, by pass (torch.profiler) "
+          + ", ".join(f"{n} {v:.3f}" for n, v in parts.items())
+          + f" ms; B1 {b1_ms[0]:.3f} / {b1_ms[1]:.3f} ms of device time, at 16 rays a block {b1_ms16[0]:.3f} / "
+          f"{b1_ms16[1]:.3f} ms (in turns); B1's bound {b1_bound:.3f} ms ({b1_by}; {b1_bound16:.3f} at 16 rays a "
+          f"block); host work a K2 bf16 call {k2_host:.3f} ms (at 16 rays a block {k2_host16:.3f}; median of 5 x 20 "
+          f"calls unsynchronized); bf16 rule at most {k2_ratio:.3f} of its limit, {k2_ratio_16:.3f} at 16 rays a "
+          "block; B2's gradients equal at both tiles")
     return {"S": S, "R": R, "ray_tile": tile, "ms": ms[0], "ms_again": ms[1], "ms_t16": ms16[0],
             "ms_t16_again": ms16[1], "plain_ms": plain, "bound_ms": b["bf16"][0], "bound_by": b["bf16"][1],
             "bound_ms_tf32": b["tf32"][0], "max_abs_err": err, "rule_ratio": max(ratios.values()),
-            "k2_rule_ratio": k2_ratio, "k2_passes_ms": parts, "b1_bound_ms": b1_bound, "b1_bound_by": b1_by}
+            "k2_rule_ratio": k2_ratio, "k2_rule_ratio_t16": k2_ratio_16, "k2_ray_tile": k2_tile,
+            "k2_passes_ms": parts, "b1_ms": b1_ms[0], "b1_ms_again": b1_ms[1], "b1_ms_t16": b1_ms16[0],
+            "b1_ms_t16_again": b1_ms16[1], "b1_bound_ms": b1_bound, "b1_bound_by": b1_by,
+            "b1_bound_ms_t16": b1_bound16, "k2_host_ms": k2_host, "k2_host_ms_t16": k2_host16}
 
 
 def phase_bf16_kernels(nerf, boxes, focal) -> dict:
@@ -2184,7 +2321,7 @@ def phase_bf16_kernels(nerf, boxes, focal) -> dict:
 
     dev = torch.device("cuda")
     names = fr.WEIGHT_NAMES
-    k1_levels, k1s_levels, k2_levels, b2_levels, k1_preset, k1s_preset = [], [], [], [], [], []
+    k1_levels, k1s_levels, k2_levels, b1_levels, b2_levels, k1_preset, k1s_preset = [], [], [], [], [], [], []
     o, d, lvls = _train_levels(nerf, boxes, focal, R=R, seed=SEED + 100, dot_bf16=True)
     for kp, t, venc, xenc in lvls:
         S = t.shape[1]
@@ -2344,7 +2481,7 @@ def phase_bf16_kernels(nerf, boxes, focal) -> dict:
         parts = _bwd_pass_ms(k2, iters=3, passes=K2_PASSES_BF16)
         del saved, raw
         b = _bwd_bounds_bf16(R_TRAIN, S)
-        b1_bound, b1_by = _b1_bound_bf16(R_TRAIN, S)
+        b1_bound, b1_by = _b1_bound_bf16(R_TRAIN, S, ft.bwd_tiles[(R_TRAIN, S, True)])
         print(f"  S={S}: K2 bf16 (the backward from saved) {ms:.3f} / {ms_again:.3f} ms, fp32 {ms32:.3f} / "
               f"{ms32_again:.3f} ms, plain bf16 {plain_ms:.3f} / {plain_again:.3f} ms (in turns: fp32, bf16, plain, "
               f"bf16, plain, fp32); bound {b['bf16'][0]:.3f} ms ({b['bf16'][1]}), {b['tf32'][0]:.3f} ms at the "
@@ -2354,11 +2491,12 @@ def phase_bf16_kernels(nerf, boxes, focal) -> dict:
                           "plain_ms": plain_ms, "plain_ms_again": plain_again, "bound_ms": b["bf16"][0],
                           "bound_by": b["bf16"][1], "bound_ms_tf32": b["tf32"][0], "passes_ms": parts,
                           "b1_bound_ms": b1_bound, "b1_bound_by": b1_by, "max_abs_err": err, "rule_ratio": worst})
+        b1_levels.append(b1_check(args, cot, S))
         b2_levels.append(b2_check(args, cot, S))
         del args64
         torch.cuda.empty_cache()
-    return {"k1": k1_levels, "k1s": k1s_levels, "k2": k2_levels, "b2": b2_levels, "k1_preset": k1_preset,
-            "k1s_preset": k1s_preset}
+    return {"k1": k1_levels, "k1s": k1s_levels, "k2": k2_levels, "b1": b1_levels, "b2": b2_levels,
+            "k1_preset": k1_preset, "k1s_preset": k1s_preset}
 
 
 def _fast_config(root: str, out: str) -> str:
@@ -2439,13 +2577,14 @@ def phase_bf16_training(tmp: str, root: str, fp32_cfg_path: str) -> dict:
     _reset_fused_launches()
     fr.launch_tiles.clear()
     ft.fwd_tiles.clear()
+    ft.bwd_tiles.clear()
     t0 = time.perf_counter()
     with mock.patch.object(step_mod, "vanilla_loss_and_grads", recorded):
         metrics = cli.main(["--config", cfg_path, "--max_steps", str(n_steps)])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     train_counts, fp32_counts = _bf16_counts(), _fused_launches()
-    train_tiles = {"K1": dict(fr.launch_tiles), "K1s": dict(ft.fwd_tiles)}
+    train_tiles = {"K1": dict(fr.launch_tiles), "K1s": dict(ft.fwd_tiles), "K2": dict(ft.bwd_tiles)}
     run_dir = os.path.join(cfg.output_path, cfg.exp_name)
     ckpt = torch.load(os.path.join(run_dir, "ckpts", f"ckpt_{n_steps:08d}.pt"), map_location="cpu")
     dtypes = {v.dtype for part in (ckpt["params"], ckpt["opt_state"]["mu"], ckpt["opt_state"]["nu"])
@@ -2494,7 +2633,7 @@ def phase_bf16_training(tmp: str, root: str, fp32_cfg_path: str) -> dict:
     print(f"  launches (bf16 mode): K1 {train_counts[0]} (expected 2 levels x {n_val_tiles} val tiles = "
           f"{2 * n_val_tiles}), K1s {train_counts[1]} and K2 {train_counts[2]} (expected 2 x {n_steps} = "
           f"{2 * n_steps}); every mode together {fp32_counts}; ray tiles chosen, (rays, samples) -> tile: K1 "
-          f"{shown(train_tiles['K1'])}; K1s {shown(train_tiles['K1s'])}; K2 at {fr.RAY_TILE} rays a block")
+          f"{shown(train_tiles['K1'])}; K1s {shown(train_tiles['K1s'])}; K2 {shown(train_tiles['K2'])}")
     print(f"  checkpoint tensor dtypes {sorted(str(d) for d in dtypes)}; step at batch {cfg.batch_size}: "
           f"{fast_step_ms:.3f} ms = {cfg.batch_size / fast_step_ms * 1e3:.1f} rays/s (one multi-step, host clock); "
           f"the card busy {fast_busy_ms:.3f} ms of it ({100 * fast_busy_ms / fast_step_ms:.1f}%; the profile above)")
@@ -2687,6 +2826,25 @@ def main() -> None:
         "bound_ms": both(b2lv, "bound_ms"), "bound_ms_layout": both(b2lv, "bound_ms_layout"),
         "bound_by": bound_by(b2lv), "library_ms": both(b2lv, "library_ms"),
         "library": b2lv[0]["library"], "fp32_ms": both(b2lv, "fp32_ms"), "levels": b2lv,
+    })
+    b1lv, pre = bk["b1"], bk["k1s_preset"]
+    entries.append({
+        # B1 in bf16 mode (level_bwd_delta_kernel<true>: native bf16 mma.sync
+        # from a TMA ring of the wrapper's bf16 pack of its weights), one
+        # launch in each launch of fused_level_bwd_bf16; ms by torch.profiler,
+        # one coarse and one fine level at 2048 rays; plain_ms: B1's plain
+        # version on the operands it read; "preset": at the fast preset's
+        # batch, at the tile K2 chooses and at 16 rays a block, and the host
+        # work of a K2 bf16 call there
+        "name": "level_bwd_delta_kernel_bf16", "route": "cuda",
+        "source": "aonerf_torch/ops/kernels/csrc/fused_train.cu", "replaces": "aonerf/ops/kernels/fused_train.py:239", "launches": bt["k2"],
+        "max_abs_err": max(x["max_abs_err"] for x in b1lv), "ms": both(b1lv, "ms"), "plain_ms": both(b1lv, "plain_ms"),
+        "bound_ms": both(b1lv, "bound_ms"), "bound_by": bound_by(b1lv), "library_ms": None,
+        "product": "mma.sync m16n8k16 bf16", "fp64_rel_err": max(x["fp64_rel_err"] for x in b1lv), "levels": b1lv,
+        "preset": {"rays": BATCH_FAST, "ray_tile": pre[0]["k2_ray_tile"], "ms": both(pre, "b1_ms"),
+                   "ms_t16": both(pre, "b1_ms_t16"), "bound_ms": both(pre, "b1_bound_ms"),
+                   "bound_ms_t16": both(pre, "b1_bound_ms_t16"), "host_ms": max(x["k2_host_ms"] for x in pre),
+                   "host_ms_t16": max(x["k2_host_ms_t16"] for x in pre)},
     })
     print(f"bf16 step at batch {bt['steps_ms']['batch']}: {min(bt['steps_ms']['bf16']):.3f} ms against fp32 "
           f"{min(bt['steps_ms']['fp32']):.3f} ms; K1s bf16 {entries[4]['ms']:.3f} ms + K2 bf16 {entries[5]['ms']:.3f} "

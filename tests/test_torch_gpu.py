@@ -725,10 +725,11 @@ def test_bf16_bwd_kernel_meets_the_bf16_rule(cuda, S, white_bkgd):
 # 7: a block's 112 rows, a weight stream that ends mid-ring), held to the
 # same rays inside a 256-ray launch, where the other rays' cotangents are 0
 # and so add exactly 0: K1 and K1s give the same bits (a block's rays are
-# computed alike), K2 the same gradients but for B2's other row ranges, an
-# fp32 summation order (at most 1e-5 of a gradient's largest entry). At so
-# few rows the bf16 rule's spread is a handful of rounding flips, so these
-# sizes are held to the launch the rule holds.
+# computed alike), K2 the same gradients but for B2's other row ranges and
+# B1's head sums over other ray tiles (1 and 2 at 48 and 256 rays of 65
+# samples), fp32 summation orders (at most 1e-5 of a gradient's largest
+# entry). At so few rows the bf16 rule's spread is a handful of rounding
+# flips, so these sizes are held to the launch the rule holds.
 _PARTIAL_TOL = 1e-5
 
 
@@ -787,6 +788,103 @@ def test_bf16_b2_is_the_bf16_product_of_what_it_read(cuda, R, S):
     again = ft.fused_level_bwd_saved(*args, saved, raw, *cot, True, dot_bf16=True)
     for name in fr.WEIGHT_NAMES:
         assert torch.equal(again[name], got[name]), name  # no atomics: the same bits
+
+
+# B1 in bf16 mode alone (level_bwd_delta_kernel<true>, native bf16 products
+# from the wrapper's bf16 pack): each delta it wrote against the product of
+# the operands it read (the delta of the layer above from its own scratch,
+# g_raw from the integrator backward's, the rounded weights, the saved
+# activations' masks) rounded to bf16 and summed in fp64, and its head
+# gradients wd, bd, wr, br against their operands' fp64 sums, within
+# chip_smoke.py's B1_TOL (its own fp32 sums). The sizes are the B2 test's:
+# 48 x 65 ends mid-chunk, 16 x 7 mid-ring.
+@pytest.mark.parametrize("R,S", [(256, 65), (48, 65), (16, 7)])
+def test_bf16_b1_is_the_bf16_product_of_what_it_read(cuda, R, S):
+    mlp = NeRFMLP(generator=torch.Generator().manual_seed(S), device=cuda)
+    with torch.no_grad():
+        kp = fr.kernel_params(mlp)
+        kp["bd"] += 0.5  # live densities: g_raw_sigma is not all 0
+    args = (kp, *_level_inputs(R, S, S, cuda))
+    cot = _cotangents(R, S, S + 1, cuda)
+    *_, saved, raw = ft.fused_level_fwd_spill(*args, True, dot_bf16=True)
+    got, delta, grow = rule.backward_operands(args, saved, raw, cot, True, True)
+    torch.cuda.synchronize()
+    assert grow[:, 0].abs().max() > 0 and grow[:, 1:].abs().max() > 0
+    for name, d, want in rule.b1_products(kp, saved, grow, delta, torch.float64):
+        assert torch.isfinite(d).all() and want.abs().max() > 0, name
+        rel = _rel_err(d, want)
+        assert rel <= rule.B1_TOL, f"{name}: {rel}"
+    for name, want in rule.b1_heads(saved, grow).items():
+        rel = _rel_err(got[name].reshape(-1), want.reshape(-1))
+        assert rel <= rule.B1_TOL, f"{name}: {rel}"
+
+
+# K2's ray tile: in bf16 mode chosen per launch from B1's shared memory
+# (2 at the fast preset's 224 rays: 112 blocks of 3 / 7 chunks, where 16
+# rays a block give 14 blocks of 17 / 49); its head sums' order moves with
+# it, so K2 at the chosen tile and at 16 are each held to the bf16 rule, and
+# B2's 21 gradients, from B1's deltas, which no tile moves, keep their bits.
+@pytest.mark.parametrize("S", [65, 193])
+def test_bf16_k2_at_the_chosen_tile_and_at_16_meet_the_rule(cuda, S):
+    mlp = NeRFMLP(generator=torch.Generator().manual_seed(S + 7), device=cuda)
+    with torch.no_grad():
+        kp = fr.kernel_params(mlp)
+        kp["bd"] += 0.5
+    R = 224
+    args = _level_inputs(R, S, S + 7, cuda)
+    cot = _cotangents(R, S, S + 8, cuda)
+    *_, saved, raw = ft.fused_level_fwd_spill(kp, *args, True, dot_bf16=True)
+    chosen = ft.fused_level_bwd_saved(kp, *args, saved, raw, *cot, True, dot_bf16=True)
+    assert ft.bwd_tiles[(R, S, True)] == 2
+    at16 = ft.fused_level_bwd_saved(kp, *args, saved, raw, *cot, True, ray_tile=16, dot_bf16=True)
+    assert ft.bwd_tiles[(R, S, True)] == 16
+    torch.cuda.synchronize()
+    for name in (*rule.B2_PRODUCTS, *rule.B2_BIASES):
+        assert torch.equal(chosen[name], at16[name]), name
+    orders = {}
+    for k, mm in rule.BF16_ORDERS.items():
+        p_saved, p_raw = ft.fused_level_fwd_spill_ref(kp, *args, True, mm=mm, dot_bf16=True)[4:]
+        orders[k] = ft.fused_level_bwd_saved_ref(kp, *args, p_saved, p_raw, *cot, True, mm=mm, dot_bf16=True)
+    del p_saved, p_raw
+    p64 = ft.fused_level_bwd_ref({n: v.double() for n, v in kp.items()}, *(a.double() for a in args),
+                                 *(c.double() for c in cot), True, dot_bf16=True)
+    for got in (chosen, at16):
+        assert all(torch.isfinite(g).all() for g in got.values())
+        ratios = _bf16_ratios(got, orders, p64, rule.TOL_BF16_GRAD)
+        assert all(r <= 1.0 for r in ratios.values()), ratios
+
+
+def test_fp32_k2_keeps_16_rays_a_block(cuda):
+    mlp = NeRFMLP(generator=torch.Generator().manual_seed(3), device=cuda)
+    with torch.no_grad():
+        kp = fr.kernel_params(mlp)
+    R, S = 224, 65  # where bf16 mode takes 2
+    args = _level_inputs(R, S, 3, cuda)
+    cot = _cotangents(R, S, 4, cuda)
+    *_, saved, raw = ft.fused_level_fwd_spill(kp, *args, True)
+    default = ft.fused_level_bwd_saved(kp, *args, saved, raw, *cot, True)
+    assert ft.bwd_tiles[(R, S, False)] == 16
+    at16 = ft.fused_level_bwd_saved(kp, *args, saved, raw, *cot, True, ray_tile=16)
+    whole = ft.fused_level_bwd(kp, *args, *cot, True)
+    assert ft.bwd_tiles[(R, S, False)] == ft.fwd_tiles[(R, S, False)] == 16
+    torch.cuda.synchronize()
+    for name in fr.WEIGHT_NAMES:
+        assert torch.equal(default[name], at16[name]) and torch.equal(whole[name], at16[name]), name
+
+
+def test_b1_pack_on_the_card_is_the_cpu_pack(cuda):
+    rng = np.random.default_rng(11)
+    kp = {n: torch.from_numpy((0.1 * rng.standard_normal(v.shape)).astype(np.float32))
+          for n, v in fr.kernel_params(NeRFMLP(generator=torch.Generator().manual_seed(0))).items()}
+    for v in kp.values():  # every fourth weight exactly halfway between two bf16 values
+        v.view(-1)[::4] = (fr.round_bf16(v).view(torch.int32) + 0x8000).view(torch.float32).view(-1)[::4]
+    on_card = ft.b1_weights_bf16({n: v.to(cuda) for n, v in kp.items()})
+    assert on_card.device.type == "cuda" and on_card.dtype == torch.bfloat16
+    assert torch.equal(on_card.cpu().view(torch.int16), ft.b1_weights_bf16(kp).view(torch.int16))
+    lib = ft._library()  # the library's counts, which the wrapper and tests/test_torch_b1_bf16.py use
+    assert lib.aonerf_fused_level_b1_bf16_bytes() == 2 * ft.B1_PACK_ELEMS
+    assert [lib.aonerf_fused_level_bwd_smem_bytes(S, T) for S, T in ((193, 16), (65, 2), (7, 1))] == [
+        225408, 218240, 217728]
 
 
 def test_bf16_train_cli_goes_through_the_kernels(cuda, tmp_path):

@@ -40,7 +40,9 @@ prints each case's gradients over their limits and counts the cases over.
 builds the kernels with another run length of the bf16 forward's products
 (``AONERF_FWD_BF16_RUN`` in ``csrc/nerf_level.cuh``: k16 steps that one
 fresh accumulator sums) into their own libraries and holds that forward to
-the rule, as ``torch_train_compare.py --fwd-bf16-run`` times it.
+the rule, as ``torch_train_compare.py --fwd-bf16-run`` times it;
+``--b1-bf16-run N`` does the same for B1's products in bf16 mode
+(``AONERF_B1_BF16_RUN``).
 """
 
 import argparse
@@ -201,11 +203,16 @@ def main() -> None:
     parser.add_argument("--fwd-bf16-run", type=int,
                         help="build the kernels with this run length of the bf16 forward's products "
                              "(AONERF_FWD_BF16_RUN, k16 steps a fresh accumulator: 1 or even)")
+    parser.add_argument("--b1-bf16-run", type=int,
+                        help="build the kernels with this run length of B1's products in bf16 mode "
+                             "(AONERF_B1_BF16_RUN, k16 steps a fresh accumulator: 1 or even)")
     args = parser.parse_args()
-    if args.fwd_bf16_run:
+    defines = (*((f"AONERF_FWD_BF16_RUN={args.fwd_bf16_run}",) if args.fwd_bf16_run else ()),
+               *((f"AONERF_B1_BF16_RUN={args.b1_bf16_run}",) if args.b1_bf16_run else ()))
+    if defines:
         from aonerf_torch.ops.kernels import build
 
-        build.DEFINES = (f"AONERF_FWD_BF16_RUN={args.fwd_bf16_run}",)
+        build.DEFINES = defines
     if not torch.cuda.is_available():
         raise SystemExit("torch_bf16_accuracy: needs a CUDA card")
     print(c.smi_line(), flush=True)

@@ -45,12 +45,21 @@ bits.
     PYTHONPATH=build/parent python3 tools/torch_kernel_bits.py --out build/bits_parent.pt
     PYTHONPATH=. python3 tools/torch_kernel_bits.py --out build/bits_change.pt --replay build/bits_parent.pt
     python3 tools/torch_kernel_bits.py --compare build/bits_parent.pt build/bits_change.pt --bf16-fwd-differs
+
+With ``--b1-bf16-differs`` (two trees whose B1 in bf16 mode sums otherwise,
+or at another ray tile) every gradient of the bf16 K2 cases, replayed ones
+too, is expected to differ (B1's deltas feed B2, and the tile orders B1's
+head sums); every other output must keep its bits, B1's fp32 SASS must be
+the same, and it fails if no expected output differs. The record also holds
+the mma instructions of B1's bf16 SASS (``level_bwd_delta_kernel<true>``),
+which ``--compare`` prints.
 """
 
 import argparse
 import hashlib
 import inspect
 import os
+import re
 import subprocess
 import sys
 
@@ -71,11 +80,12 @@ SAVED_CASE = "bf16 K2 from K1s' saved"
 REPLAY_CASE = "bf16 K2 from the replayed saved"
 
 
-def b1_sass(lib_path: str) -> list:
+def b1_sass(lib_path: str, bf16: bool = False) -> list:
     """B1's SASS lines in fp32 (its only instantiation, or the one whose
-    mangled name holds ``ILb0E``), from the ``Function :`` header to the
-    next one, each with its runs of blanks made one (cuobjdump pads its
-    columns to the longest line of the whole library)."""
+    mangled name holds ``ILb0E``) or, with ``bf16``, in bf16 mode
+    (``ILb1E``; empty for a tree without it), from the ``Function :`` header
+    to the next one, each with its runs of blanks made one (cuobjdump pads
+    its columns to the longest line of the whole library)."""
     from aonerf_torch.ops.kernels import build
 
     cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
@@ -83,12 +93,22 @@ def b1_sass(lib_path: str) -> list:
     lines, inside = [], False
     for line in text.splitlines():
         if "Function :" in line:
-            inside = B1 in line and "ILb1E" not in line
+            inside = B1 in line and (("ILb1E" in line) == bf16)
         elif inside:
             lines.append(" ".join(line.split()))
-    if not lines:
+    if not lines and not bf16:
         raise SystemExit(f"torch_kernel_bits: no SASS of {B1} in {lib_path}")
     return lines
+
+
+def mma_ops(lines: list) -> dict:
+    """The tensor-core instructions of SASS lines (HMMA.<shape>.<types>),
+    each with its count."""
+    ops = {}
+    for line in lines:
+        for op in re.findall(r"\bHMMA\.[0-9A-Z.]+", line):
+            ops[op] = ops.get(op, 0) + 1
+    return ops
 
 
 def sass_sha1(lines: list) -> str:
@@ -114,8 +134,10 @@ def record(out: str, replay: str = None) -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda")
-    sass = b1_sass(str(build.build(["fused_train"])["fused_train"]))
-    print(f"B1 SASS: {len(sass)} lines, sha1 {sass_sha1(sass)}", flush=True)
+    lib = str(build.build(["fused_train"])["fused_train"])
+    sass, sass_bf16 = b1_sass(lib), b1_sass(lib, bf16=True)
+    print(f"B1 SASS: {len(sass)} lines, sha1 {sass_sha1(sass)}; in bf16 mode the mma instructions "
+          f"{mma_ops(sass_bf16) or 'none'}", flush=True)
     modes = (False, True) if "dot_bf16" in inspect.signature(fr.fused_render_level).parameters else (False,)
     cases = {}  # case -> {output name: tensor on the CPU, or the sha1 of a large one}
     payloads = {}  # case -> (saved as bf16, raw) that its gradients came from
@@ -161,7 +183,7 @@ def record(out: str, replay: str = None) -> None:
                 del saved, raw
             print(f"recorded bf16 K2 at R={R_PRESET} S={S}" + (f", and from {replay}'s saved" if replay else ""),
                   flush=True)
-    torch.save({"sass": sass, "cases": cases, "payloads": payloads}, out)
+    torch.save({"sass": sass, "b1_bf16_mma": mma_ops(sass_bf16), "cases": cases, "payloads": payloads}, out)
     print(f"saved {sum(len(v) for v in cases.values())} outputs of {len(cases)} cases to {out}")
 
 
@@ -171,15 +193,19 @@ def same(a, b) -> bool:
     return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
 
 
-def expected_difference(case: str, output: str, b2_bf16_differs: bool, bf16_fwd_differs: bool = False) -> bool:
+def expected_difference(case: str, output: str, b2_bf16_differs: bool, bf16_fwd_differs: bool = False,
+                        b1_bf16_differs: bool = False) -> bool:
     if bf16_fwd_differs and case.startswith(("bf16 K1 ", "bf16 K1s ", SAVED_CASE)):
+        return True
+    if b1_bf16_differs and case.startswith("bf16 K2 "):
         return True
     return b2_bf16_differs and case.startswith("bf16 K2 ") and output in B2_GRADS
 
 
-def compare_replays(x: dict, y: dict, a: str, b: str) -> int:
+def compare_replays(x: dict, y: dict, a: str, b: str, expected: bool = False) -> int:
     """Holds each replayed case of one file to the bits of its case from K1s'
-    saved in the other; returns the number of outputs that differ."""
+    saved in the other; returns the number of outputs that differ (with
+    ``expected``, of those it names as expected to differ)."""
     n_diff = 0
     for name, f, g, other in ((b, y, x, a), (a, x, y, b)):
         for case in (c for c in f["cases"] if c.startswith(REPLAY_CASE)):
@@ -191,15 +217,18 @@ def compare_replays(x: dict, y: dict, a: str, b: str) -> int:
             diff = [n for n in want if not same(got[n], want[n])]
             n_diff += len(diff)
             print(f"  {case} in {name} against {other}'s from K1s' saved: {len(want) - len(diff)} of {len(want)} "
-                  "gradients equal bit for bit" + (f"; differ: {' '.join(diff)}" if diff else ""))
+                  "gradients equal bit for bit" + (f"; {'expected to differ' if expected else 'differ'}: "
+                                                  f"{' '.join(diff)}" if diff else ""))
     return n_diff
 
 
-def compare(a: str, b: str, b2_bf16_differs: bool = False, bf16_fwd_differs: bool = False) -> None:
+def compare(a: str, b: str, b2_bf16_differs: bool = False, bf16_fwd_differs: bool = False,
+            b1_bf16_differs: bool = False) -> None:
     x, y = torch.load(a), torch.load(b)
     hx, hy = sass_sha1(x["sass"]), sass_sha1(y["sass"])
     print(f"B1 SASS {'identical' if hx == hy else 'differs'} ({len(x['sass'])} / {len(y['sass'])} lines, sha1 "
-          f"{hx} / {hy}); for information only")
+          f"{hx} / {hy}); " + ("required identical" if b1_bf16_differs else "for information only"))
+    print("B1 bf16 mma instructions: " + " / ".join(str(f.get("b1_bf16_mma") or "not recorded") for f in (x, y)))
     common = [case for case in x["cases"] if case in y["cases"] and not case.startswith(REPLAY_CASE)]
     for name, f, g in ((a, x, y), (b, y, x)):
         only = sorted(case for case in f["cases"] if case not in g["cases"] and not case.startswith(REPLAY_CASE))
@@ -211,7 +240,7 @@ def compare(a: str, b: str, b2_bf16_differs: bool = False, bf16_fwd_differs: boo
     for case in common:
         p, q = x["cases"][case], y["cases"][case]
         diff = [n for n in p if not same(p[n], q[n])]
-        expected = [n for n in p if expected_difference(case, n, b2_bf16_differs, bf16_fwd_differs)]
+        expected = [n for n in p if expected_difference(case, n, b2_bf16_differs, bf16_fwd_differs, b1_bf16_differs)]
         unexpected = [n for n in diff if n not in expected]
         n_diff, n_all = n_diff + len(unexpected), n_all + len(p) - len(expected)
         n_expected, n_expected_diff = n_expected + len(expected), n_expected_diff + len(diff) - len(unexpected)
@@ -229,13 +258,15 @@ def compare(a: str, b: str, b2_bf16_differs: bool = False, bf16_fwd_differs: boo
             line += f"; expected to differ: {len(moved)} of {len(expected)} differ" + (
                 f":{detail(moved)}" if moved else "")
         print(line)
-    n_replay_diff = compare_replays(x, y, a, b)
+    n_replay_diff = compare_replays(x, y, a, b, expected=b1_bf16_differs)
+    any_expected = b2_bf16_differs or bf16_fwd_differs or b1_bf16_differs
     print(f"outputs equal bit for bit: {n_all - n_diff} of {n_all}"
-          + (f"; outputs expected to differ that differ: {n_expected_diff} of {n_expected}"
-             if b2_bf16_differs or bf16_fwd_differs else ""))
-    if n_diff or n_replay_diff:
+          + (f"; outputs expected to differ that differ: {n_expected_diff} of {n_expected}" if any_expected else ""))
+    if n_diff or (n_replay_diff and not b1_bf16_differs):
         sys.exit(1)
-    if (b2_bf16_differs or bf16_fwd_differs) and not n_expected_diff:
+    if b1_bf16_differs and hx != hy:
+        raise SystemExit("torch_kernel_bits: B1's fp32 SASS differs")
+    if any_expected and not n_expected_diff:
         raise SystemExit("torch_kernel_bits: outputs were expected to differ, but none does")
 
 
@@ -247,10 +278,13 @@ def main() -> None:
                         help="expect B2's gradients in the bf16 K2 cases to differ, and nothing else")
     parser.add_argument("--bf16-fwd-differs", action="store_true",
                         help="expect the bf16 K1 and K1s outputs (and K2 from K1s' saved) to differ, and nothing else")
+    parser.add_argument("--b1-bf16-differs", action="store_true",
+                        help="expect the bf16 K2 gradients to differ, B1's fp32 SASS the same, and nothing else")
     parser.add_argument("--replay", help="with --out: also run this tree's bf16 K2 on the saved that this file holds")
     args = parser.parse_args()
     if args.compare:
-        compare(*args.compare, b2_bf16_differs=args.b2_bf16_differs, bf16_fwd_differs=args.bf16_fwd_differs)
+        compare(*args.compare, b2_bf16_differs=args.b2_bf16_differs, bf16_fwd_differs=args.bf16_fwd_differs,
+                b1_bf16_differs=args.b1_bf16_differs)
     elif args.out:
         if not torch.cuda.is_available():
             raise SystemExit("torch_kernel_bits: needs a CUDA card")

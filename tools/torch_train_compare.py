@@ -38,7 +38,19 @@ batch; and the host time of one K1 launch at 256 rays (the wrapper's work:
 the packed weights, the tensor maps, the launch), from the host clock over
 20 calls without a synchronize. ``--fwd-bf16-run N`` builds the kernels
 with another run length of the bf16 forward's products (see
-``torch_bf16_accuracy.py``).
+``torch_bf16_accuracy.py``), ``--b1-bf16-run N`` with another of B1's in
+bf16 mode.
+
+With ``--kernels-only`` it times the fp32 K1 and K1s as above (not the
+view or the steps), K2's backward from saved and its passes at 2048 rays
+in both modes, and K2 in bf16 mode at the fast preset's batch of 224 rays
+from K1s' saved: B1's device time (torch.profiler) at the tile the wrapper
+takes by default and at 16 rays a block, in turns (default, 16, 16,
+default), K2's passes at the default tile, and the host time of one K2 bf16
+call at the default tile and at 16 (5 runs of 40 calls without a
+synchronize each). ``--fast-step-only`` also
+gives the card's busy time a step: the device time of every kernel over one
+profiled multi-step, per step.
 """
 
 import argparse
@@ -216,6 +228,52 @@ def time_backward(device) -> dict:
     return out
 
 
+def time_preset_backward(device) -> dict:
+    """K2 in bf16 mode at the fast preset's batch (see --kernels-only)."""
+    from aonerf_torch.models.mlp import NeRFMLP
+    from aonerf_torch.ops.kernels import fused_render as fr
+    from aonerf_torch.ops.kernels import fused_train as ft
+
+    R = 224
+    out = {}
+    for S in (65, 193):
+        mlp = NeRFMLP(generator=torch.Generator().manual_seed(S), device=device)
+        with torch.no_grad():
+            kp = fr.kernel_params(mlp)
+        args = (kp, *level_inputs(R, S, S, device))
+        rng = np.random.default_rng(S + 1)
+        cot = tuple(torch.from_numpy(a.astype(np.float32)).to(device) for a in (
+            rng.standard_normal((R, 3)), rng.standard_normal(R), 0.1 * rng.standard_normal(R),
+            rng.standard_normal((R, S))))
+        *_, saved, raw = ft.fused_level_fwd_spill(*args, True, dot_bf16=True)
+
+        def k2(**kw):
+            return ft.fused_level_bwd_saved(*args, saved, raw, *cot, True, dot_bf16=True, **kw)  # noqa: B023
+
+        def b1(**kw):
+            return sum(v for k, v in kernel_ms(lambda: k2(**kw), iters=20).items() if "level_bwd_delta_kernel" in k)
+
+        times = [b1(), b1(ray_tile=16), b1(ray_tile=16), b1()]
+        row = {"b1_bf16_224_ms": [times[0], times[3]], "b1_bf16_224_t16_ms": [times[1], times[2]],
+               "ray_tile": getattr(ft, "bwd_tiles", {}).get((R, S, True), 16)}
+        by_name = kernel_ms(k2, iters=5)
+        for kernel, name in K2_PASSES.items():
+            row[f"{name}_bf16_224_ms"] = sum(v for k, v in by_name.items() if kernel in k)
+        for key, kw in (("k2_bf16_224_host_ms", {}), ("k2_bf16_224_t16_host_ms", {"ray_tile": 16})):
+            runs = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(40):
+                    k2(**kw)
+                runs.append((time.perf_counter() - t0) * 1e3 / 40)
+                torch.cuda.synchronize()
+            row[key] = runs
+        del saved, raw
+        out[f"S={S}"] = row
+    return out
+
+
 def time_view(device) -> dict:
     from aonerf_torch.data.camera import get_ray_directions_np, get_rays_np
     from aonerf_torch.data.synthetic import FOVY_DEG, random_pose_on_sphere
@@ -239,9 +297,11 @@ def time_view(device) -> dict:
     return {"seconds_per_view": (time.perf_counter() - t0) / 2}
 
 
-def time_train_step(device, config: str = "vanilla.json", overrides: dict = None, multi_steps: int = 3) -> dict:
+def time_train_step(device, config: str = "vanilla.json", overrides: dict = None, multi_steps: int = 3,
+                    busy: bool = False) -> dict:
     """ms per step of ``config`` (with ``overrides``) over ``multi_steps``
-    multi-steps after an untimed one."""
+    multi-steps after an untimed one; with ``busy``, also the card's busy ms
+    a step over one more multi-step, profiled."""
     from aonerf_torch.data.synthetic import write_single_scene
     from aonerf_torch.train.loop import Trainer
     from aonerf_torch.utils.config import load_config
@@ -269,10 +329,16 @@ def time_train_step(device, config: str = "vanilla.json", overrides: dict = None
             trainer.state, _ = trainer.step_fn(trainer.state, buffers, cfg.seed)
             torch.cuda.synchronize()
             peak = torch.cuda.max_memory_allocated()
+            busy_ms = None
+            if busy:
+                def multi_step():
+                    trainer.state, _ = trainer.step_fn(trainer.state, buffers, cfg.seed)
+
+                busy_ms = sum(kernel_ms(multi_step, iters=1).values()) / trainer._inner_steps
         finally:
             trainer.close()
     return {"step_ms": step_ms, "rays_per_s": cfg.batch_size / step_ms * 1e3, "steps_timed": n_steps,
-            "peak_gb": peak / 1e9, "held_gb": held / 1e9}
+            "peak_gb": peak / 1e9, "held_gb": held / 1e9, "busy_ms": busy_ms}
 
 
 def main() -> None:
@@ -284,16 +350,23 @@ def main() -> None:
                         help="time only the fast preset's step at batch 224 (for many short runs in turns)")
     parser.add_argument("--forward-only", action="store_true",
                         help="time only K1 and K1s, at the serving, training and fast preset's shapes")
+    parser.add_argument("--kernels-only", action="store_true",
+                        help="time only the fp32 K1 and K1s, K2 at 2048 rays and K2 bf16 at the fast preset's batch")
     parser.add_argument("--fwd-bf16-run", type=int,
                         help="build the kernels with this run length of the bf16 forward's products "
                              "(AONERF_FWD_BF16_RUN, k16 steps a fresh accumulator: 1 or even)")
+    parser.add_argument("--b1-bf16-run", type=int,
+                        help="build the kernels with this run length of B1's products in bf16 mode "
+                             "(AONERF_B1_BF16_RUN, k16 steps a fresh accumulator: 1 or even)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_train_compare: needs a CUDA card")
-    if args.fwd_bf16_run:
+    defines = (*((f"AONERF_FWD_BF16_RUN={args.fwd_bf16_run}",) if args.fwd_bf16_run else ()),
+               *((f"AONERF_B1_BF16_RUN={args.b1_bf16_run}",) if args.b1_bf16_run else ()))
+    if defines:
         from aonerf_torch.ops.kernels import build
 
-        build.DEFINES = (f"AONERF_FWD_BF16_RUN={args.fwd_bf16_run}",)
+        build.DEFINES = defines
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     import aonerf_torch
@@ -307,8 +380,13 @@ def main() -> None:
         row["forward"] = time_forward(device)
         print(json.dumps(row), flush=True)
         return
+    if args.kernels_only:
+        row.update(levels=time_levels(device), backward=time_backward(device),
+                   preset_backward=time_preset_backward(device))
+        print(json.dumps(row), flush=True)
+        return
     if args.fast_step_only:
-        row["train_fast"] = time_train_step(device, "vanilla_tpu_fast.json", multi_steps=1)
+        row["train_fast"] = time_train_step(device, "vanilla_tpu_fast.json", multi_steps=1, busy=True)
         print(json.dumps(row), flush=True)
         return
     if args.bf16_step_only:
