@@ -81,15 +81,22 @@
 //     1152 blocks, two per SM), keeps the tile's sums in registers across the
 //     range, and writes it once to that range's partial set; no partial is
 //     ever read back while it accumulates. The range count does not depend on
-//     the card, so neither does the result. Each 64-row step stages H (64 x 64)
-//     and Delta (64 x 128) through a cp.async double buffer (106 KB). Hopper's
-//     wgmma takes TF32 only K-major, and here K is the sample row, which is
-//     the major dimension of both H^T and Delta; so B2 uses mma.sync with
-//     fragments read from padded shared tiles (strides 72 and 136, 8 mod 32:
-//     conflict-free), not wgmma after a transpose. H is read from device
-//     memory once per column tile of dW (twice for N = 256) and Delta once
-//     per row tile (four times for K = 256); the blocks that share those rows
-//     run side by side, so the repeats come mostly from L2.
+//     the card, so neither does the result. Thread 0 loads each 32-row stage
+//     of H (64 columns) and Delta (128) by TMA into a 3-stage ring, one full
+//     barrier a stage; its boxes are 8 columns wider than the tile, so the
+//     rows land at strides 72 and 136 (8 mod 32) and every fragment read is a
+//     conflict-free 16-byte load (the m16 and n8 tiles' rows and columns are
+//     interleaved to make them so). One pass a stage splits H into TF32 pairs
+//     once (the parent split each value in each of the four warps that read
+//     it); Delta is split in registers. Hopper's wgmma takes TF32 only
+//     K-major, and here K is the sample row, which is the major dimension of
+//     both H^T and Delta; so B2 uses mma.sync, not wgmma after a transpose.
+//     H is read from device memory once per column tile of dW (twice for N =
+//     256) and Delta once per row tile (four times for K = 256); the blocks
+//     that share those rows run side by side, so the repeats come mostly from
+//     L2. mma.sync m16n8k8 TF32 itself issues at most one every 6 clocks a
+//     SM sub-partition on the H100 (~300 TFLOP/s, PERF.md), which puts B2's
+//     floor near 1.5 / 4.6 ms at 2048 rays x S = 65 / 193.
 //  B2 in bf16 mode. level_bwd_dw_bf16_kernel, for the weight products of
 //     the Pallas _bwd_kernel with dot_bf16 (its _dot_t, bf16 operands, fp32
 //     sums): the same tiles, ranges and partial sets as the fp32 B2 on
@@ -172,8 +179,9 @@
 // phase on the H100): K1s 220 registers, no spill (174 in bf16 mode); the integrator backward
 // 39; B1 255 registers, 20 bytes of spill stores and 20 of spill loads
 // (24-byte stack frame), in bf16 see PERF.md; B2 128 registers (capped by
-// __launch_bounds__(256, 2)), no spill, and in bf16 124; the reduction 31
-// registers.
+// __launch_bounds__(256, 2)), 24 bytes of spill stores and loads (16-byte
+// stack frame; the two stores sit before its main loop), and in bf16 124,
+// no spill; the reduction 31 registers.
 //
 // Measured there (NVIDIA H100 80GB HBM3, 700 W; tools/torch_train_compare.py,
 // 2048 rays, S = 65 / 193): K1s 3.33-3.40 / 9.51-9.77 ms, B1 3.26-3.31 /
@@ -187,7 +195,15 @@
 // fast preset's 224 rays and tile 2 (the parent, 16 rays a block:
 // 1.87-1.88 / 5.32-5.39). B1 in bf16 on the TF32 walk it replaced: 2.16 /
 // 6.14-6.21 ms at 2048 and 2.03 / 5.84 at 224 (one wave of 14 blocks); on
-// gemm_bf16, PERF.md section 6.
+// gemm_bf16, PERF.md section 6. B2 in fp32: 2.559-2.582 / 8.014-8.224 ms,
+// in turns with the cp.async double buffer it replaced, 3.153-3.188 /
+// 9.138-9.169 (fp32 torch.mm over the same products 3.074 / 8.683 in
+// chip_smoke.py). One block a SM (255 registers, a ring of 3 or 4
+// stages) was slower at both S. With two blocks a SM, a stage of both takes
+// ~2,300 clocks of each sub-partition's tensor pipe (384 mma at 6 clocks)
+// and ~2,300 of the SM's shared memory (~293 KB at 128 bytes a clock: TMA
+// writes, the split pass, the fragment reads); at the ~1.7 GHz that
+// tools/torch_mma_rate.py ran at, the kernel takes ~1.75x either.
 
 #include "nerf_level.cuh"
 
@@ -236,12 +252,26 @@ constexpr int kNarrowWd = 0, kNarrowBd = kNarrowWd + kWidth, kNarrowWr = kNarrow
 
 // Pass B2. dW = H^T . Delta for one layer, split over kRanges fixed ranges of
 // sample rows; a block owns a kDwM x kDwN tile of one dW and one range, and
-// walks the range kDwStep rows at a time.
+// sums the range kDwStep rows at a time (in fp32, each step's products into
+// a fresh accumulator; ranges are whole steps).
 constexpr int kRanges = 16;
 constexpr int kDwM = 64, kDwN = 128, kDwStep = 64;
-constexpr int kDwHs = kDwM + 8, kDwDs = kDwN + 8;  // staged row strides (8 mod 32)
-constexpr int kDwStage = kDwStep * (kDwHs + kDwDs);
-constexpr size_t kDwSmemBytes = sizeof(float) * 2 * kDwStage;
+// B2 in fp32: kDwRows rows a ring stage (kDwStep / kDwRows stages a step), a
+// ring of kDwStages stages, each H's kDwHs and then Delta's kDwDs columns a
+// row (strides 8 mod 32: conflict-free float4 fragment reads), one stage's H
+// split into TF32 pairs in fragment order (kDwSplitWords), and the stages'
+// full barriers, after up to kRingAlign bytes of alignment: 97,304 bytes,
+// two blocks a SM.
+constexpr int kDwRows = 32, kDwStages = 3;
+constexpr int kDwHs = kDwM + 8, kDwDs = kDwN + 8;
+constexpr int kDwStageFloats = kDwRows * (kDwHs + kDwDs);
+constexpr int kDwStageBytes = kDwStageFloats * (int)sizeof(float);
+constexpr int kDwSplitWords = (kDwRows / 8) * 2 * 4 * 32 * 4;  // [k8 step][row half][4][lane][4]
+constexpr size_t kDwSmemBytes = kRingAlign + (size_t)kDwStages * kDwStageBytes + sizeof(uint32_t) * kDwSplitWords +
+                                kDwStages * sizeof(uint64_t);
+static_assert(kDwStep % kDwRows == 0 && kDwRows % 8 == 0, "a step is whole stages of whole k8 steps");
+static_assert((kDwRows / 8) * 2 * 32 == kThreads, "the split pass: one thread a (k8 step, row half, lane)");
+static_assert(kDwStageBytes % 128 == 0 && (kDwRows * kDwHs * 4) % 128 == 0, "TMA destinations 128-byte aligned");
 constexpr int kX = -1;  // h_off of the products whose H is the encoded input
 // B2 in bf16 mode: kDw16Step rows a step, a ring of kDw16Stages fp32 stages
 // (H's kDwM then Delta's kDwN columns a row, unpadded), one bf16 tile of the
@@ -641,8 +671,8 @@ __device__ __forceinline__ DwBlock dw_block(int n_total, int rows_per_range) {
   return b;
 }
 
-// The tile's sums (warp w: rows 32 (w / 4) + [0, 32), columns 32 (w % 4) +
-// [0, 32), as 2 x 4 m16n8 accumulators) to range q's partial set.
+// The bf16 B2's tile sums (warp w: rows 32 (w / 4) + [0, 32), columns 32 (w
+// % 4) + [0, 32), as 2 x 4 m16n8 accumulators) to range q's partial set.
 __device__ __forceinline__ void store_dw_tile(const DwBlock& B, const float (&tot)[2][4][4], float* partials) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int wr0 = (warp >> 2) * 32, wc0 = (warp & 3) * 32;
@@ -661,99 +691,203 @@ __device__ __forceinline__ void store_dw_tile(const DwBlock& B, const float (&to
     }
 }
 
-// B2 in fp32: 3xTF32 mma.sync on fragments split from the staged fp32 rows,
-// the tile's sums in registers across the range.
+// Both B2 kernels' tensor maps over `saved` (h) and `delta` (d): n_total
+// rows of kSpill fp32 columns, rows past n_total (and columns past kSpill)
+// read as zeros.
+struct DwMaps {
+  CUtensorMap h;
+  CUtensorMap d;
+};
+
+// Each thread's cp.async copies issued so far arrive, once they have landed,
+// on the barrier (one of the arrivals its count expects).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// B2 in fp32: 3xTF32 mma.sync, the tile's sums in registers across the
+// range. A block whose H is a saved layer has thread 0 load, by TMA, each
+// stage's kDwRows rows of H (a box kDwHs columns wide from column m0) and of
+// Delta (kDwDs wide from n0) into the next slot of a ring of kDwStages
+// stages, each with a full barrier that takes the stage's bytes. The boxes
+// are 8 columns wider than the tile, so TMA's dense rows land at padded
+// strides; the 8 columns past the tile (the next columns of the row, or
+// zeros past kSpill) are never read. The tiles whose H is xenc (w0, w5i)
+// stage by cp.async (xenc's 63-float rows are no TMA box; the pad column
+// zeroed), each thread's copies arriving on the same full barrier. Rows at
+// or past hi read as zeros: TMA fills rows past n_total, and only the last
+// range ends before its last step does.
+//
+// Once stage s has landed, and after a barrier by which every warp has left
+// stage s - 1 (whose slot thread 0 then refills with stage s + kDwStages -
+// 1, so the ring needs no empty barrier), one pass splits the stage's H
+// into TF32 pairs (split_tf32, the same bits wherever it runs) in the order
+// the warps read A's fragments, each value once where every warp that reads
+// it split it in the parent; a second barrier, then the stage's products.
+// Warp w owns rows 32 (w / 4) + [0, 32) and columns 32 (w % 4) + [0, 32) of
+// the tile, as 2 x 4 m16n8 tiles, with the m16 tiles' rows and the n8
+// tiles' columns interleaved so that every fragment read is 16 bytes: lane
+// (g, t) takes A of m16 tile mi (row g: H column wr0 + 4g + 2mi; row g + 8:
+// column wr0 + 4g + 2mi + 1) as two uint4 of pairs a k8 step, and B of n8
+// tile ni (column g: Delta column wc0 + 4g + ni) as the float4s of Delta
+// columns wc0 + 4g + [0, 4) in rows kk + t and kk + t + 4, split in
+// registers. The 8 lanes of a quarter warp read 16 consecutive bytes each
+// (the pairs) or start 8t + 4g floats apart mod 32 (Delta at stride kDwDs):
+// conflict-free. Each element of dW still sums the products of the same rows
+// at the same positions of the same k8 steps, mma after mma, into a fresh
+// accumulator a kDwStep-row step, as before; only its place in an mma tile
+// moved. Lane (g, t) ends holding dW rows wr0 + 4g + [0, 4) x columns wc0 +
+// 8t + [0, 8).
 __global__ void __launch_bounds__(kThreads, 2)
-level_bwd_dw_kernel(const float* __restrict__ saved, const float* __restrict__ xenc,
+level_bwd_dw_kernel(const __grid_constant__ DwMaps maps, const float* __restrict__ xenc,
                     const float* __restrict__ delta, float* __restrict__ partials, int n_total,
                     int rows_per_range) {
   extern __shared__ __align__(16) float smem[];
+  float* ring = ring_base(smem);  // kDwStages stages
+  uint32_t* hsp = reinterpret_cast<uint32_t*>(ring + kDwStages * kDwStageFloats);
+  uint64_t* full = reinterpret_cast<uint64_t*>(hsp + kDwSplitWords);
   const DwBlock B = dw_block(n_total, rows_per_range);
   const DwProduct& P = B.P;
-  const int q = B.q, m0 = B.m0, n0 = B.n0, lo = B.lo, hi = B.hi;
-  const bool with_bias = B.with_bias;
+  const bool tma = P.h_off != kX;
+  const int lo = B.lo, hi = B.hi;
+  constexpr int kPerStep = kDwStep / kDwRows;
+  const int n_groups = hi > lo ? (hi - lo + kDwStep - 1) / kDwStep : 0;
+  const int n_stages = n_groups * kPerStep;
 
-  // Rows [s0, s0 + kDwStep) of H's columns [m0, m0 + kDwM) and of Delta's
-  // columns [n0, n0 + kDwN) into stage buf; rows at or past hi (and xenc's
-  // pad column) zero-filled.
-  auto stage = [&](int buf, int s0) {
-    float* hs = smem + buf * kDwStage;
-    float* ds = hs + kDwStep * kDwHs;
-    if (P.h_off != kX) {
-      for (int i = threadIdx.x; i < kDwStep * (kDwM / 4); i += kThreads) {
-        const int r = i / (kDwM / 4), c = (i % (kDwM / 4)) * 4;
-        const bool valid = s0 + r < hi;
-        cp_async16(hs + r * kDwHs + c, valid ? saved + (size_t)(s0 + r) * kSpill + P.h_off + m0 + c : saved, valid);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kDwStages; ++i) mbar_init(&full[i], tma ? 1 : kThreads);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // Stage t's rows into ring slot t % kDwStages: by TMA from thread 0, or,
+  // for xenc's tiles, by cp.async from every thread, each thread's copies
+  // arriving on the slot's barrier (nothing past the range).
+  auto stage = [&](int t) {
+    if (t >= n_stages) return;
+    const int slot = t % kDwStages;
+    float* hs = ring + slot * kDwStageFloats;
+    float* ds = hs + kDwRows * kDwHs;
+    const int s0 = lo + t * kDwRows;
+    if (tma) {
+      if (threadIdx.x == 0) {
+        mbar_arrive_expect_tx(&full[slot], kDwStageBytes);
+        tma_load_2d(hs, &maps.h, &full[slot], P.h_off + B.m0, s0);
+        tma_load_2d(ds, &maps.d, &full[slot], P.d_off + B.n0, s0);
       }
-    } else {  // xenc rows are 63 floats: not 16-byte aligned
-      for (int i = threadIdx.x; i < kDwStep * kDwM; i += kThreads) {
-        const int r = i / kDwM, c = i % kDwM;
-        const bool valid = s0 + r < hi && c < kPos;
-        cp_async4(hs + r * kDwHs + c, valid ? xenc + (size_t)(s0 + r) * kPos + c : xenc, valid);
-      }
+      return;
     }
-    for (int i = threadIdx.x; i < kDwStep * (kDwN / 4); i += kThreads) {
+    for (int i = threadIdx.x; i < kDwRows * kDwM; i += kThreads) {
+      const int r = i / kDwM, c = i % kDwM;
+      const bool valid = s0 + r < hi && c < kPos;
+      cp_async4(hs + r * kDwHs + c, valid ? xenc + (size_t)(s0 + r) * kPos + c : xenc, valid);
+    }
+    for (int i = threadIdx.x; i < kDwRows * (kDwN / 4); i += kThreads) {
       const int r = i / (kDwN / 4), c = (i % (kDwN / 4)) * 4;
       const bool valid = s0 + r < hi;
-      cp_async16(ds + r * kDwDs + c, valid ? delta + (size_t)(s0 + r) * kSpill + P.d_off + n0 + c : delta, valid);
+      cp_async16(ds + r * kDwDs + c, valid ? delta + (size_t)(s0 + r) * kSpill + P.d_off + B.n0 + c : delta, valid);
     }
-    cp_async_commit();
+    cp_async_arrive(&full[slot]);
   };
 
-  // Warp w owns rows 32 (w / 4) + [0, 32) and columns 32 (w % 4) + [0, 32) of
-  // the tile, as 2 x 4 m16n8 tiles. A(m, k) = H[k][m], B(k, n) = Delta[k][n],
-  // k the sample row.
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int wr0 = (warp >> 2) * 32, wc0 = (warp & 3) * 32;
-  float tot[2][4][4];
-  zero_acc(tot);
-  float bsum = 0.f;
-  const int n_steps = hi > lo ? (hi - lo + kDwStep - 1) / kDwStep : 0;
-  if (n_steps > 0) stage(0, lo);
-  for (int s = 0; s < n_steps; ++s) {
-    if (s + 1 < n_steps) {
-      stage((s + 1) & 1, lo + (s + 1) * kDwStep);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const float* hs = smem + (s & 1) * kDwStage;
-    const float* ds = hs + kDwStep * kDwHs;
-    float part[2][4][4];
-    zero_acc(part);
-#pragma unroll 2
-    for (int kk = 0; kk < kDwStep; kk += 8) {
+  const int b_off = t * kDwDs + wc0 + 4 * g;
+
+  // Stage s's H split into hsp, [k8 step][row half][big of m16 tile 0, its
+  // small, big of 1, small][lane][4]: thread i the fragments of lane i % 32
+  // of the warps on row half (i / 32) % 2 in k8 step i / 64.
+  auto split_h = [&](int s) {
+    const int ks = threadIdx.x >> 6, half = (threadIdx.x >> 5) & 1;
+    const float* p = ring + (s % kDwStages) * kDwStageFloats + (ks * 8 + t) * kDwHs + half * 32 + 4 * g;
+    const float4 lo4 = *reinterpret_cast<const float4*>(p);
+    const float4 hi4 = *reinterpret_cast<const float4*>(p + 4 * kDwHs);
+    uint32_t big[2][4], small[2][4];
+    split_tf32(lo4.x, big[0][0], small[0][0]);
+    split_tf32(lo4.y, big[0][1], small[0][1]);
+    split_tf32(hi4.x, big[0][2], small[0][2]);
+    split_tf32(hi4.y, big[0][3], small[0][3]);
+    split_tf32(lo4.z, big[1][0], small[1][0]);
+    split_tf32(lo4.w, big[1][1], small[1][1]);
+    split_tf32(hi4.z, big[1][2], small[1][2]);
+    split_tf32(hi4.w, big[1][3], small[1][3]);
+    uint32_t* q = hsp + ((ks * 2 + half) * 4) * 128 + lane * 4;
+    *reinterpret_cast<uint4*>(q) = make_uint4(big[0][0], big[0][1], big[0][2], big[0][3]);
+    *reinterpret_cast<uint4*>(q + 128) = make_uint4(small[0][0], small[0][1], small[0][2], small[0][3]);
+    *reinterpret_cast<uint4*>(q + 256) = make_uint4(big[1][0], big[1][1], big[1][2], big[1][3]);
+    *reinterpret_cast<uint4*>(q + 384) = make_uint4(small[1][0], small[1][1], small[1][2], small[1][3]);
+  };
+
+  // Stage s's products into part, and this thread's bias column into b.
+  auto multiply = [&](int s, float (&part)[2][4][4], float& b) {
+    const float* ds = ring + (s % kDwStages) * kDwStageFloats + kDwRows * kDwHs;
+    const uint32_t* hq = hsp + ((warp >> 2) * 4) * 128 + lane * 4;
+#pragma unroll
+    for (int kk = 0; kk < kDwRows; kk += 8) {
       uint32_t ab[2][4], as[2][4];
+      const uint32_t* q = hq + (kk / 8) * 2 * 4 * 128;
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi) {
-        const float* pa = hs + (kk + t) * kDwHs + wr0 + 16 * mi + g;
-        split_tf32(pa[0], ab[mi][0], as[mi][0]);
-        split_tf32(pa[8], ab[mi][1], as[mi][1]);
-        split_tf32(pa[4 * kDwHs], ab[mi][2], as[mi][2]);
-        split_tf32(pa[4 * kDwHs + 8], ab[mi][3], as[mi][3]);
+        const uint4 vb = *reinterpret_cast<const uint4*>(q + 256 * mi);
+        const uint4 vs = *reinterpret_cast<const uint4*>(q + 256 * mi + 128);
+        ab[mi][0] = vb.x, ab[mi][1] = vb.y, ab[mi][2] = vb.z, ab[mi][3] = vb.w;
+        as[mi][0] = vs.x, as[mi][1] = vs.y, as[mi][2] = vs.z, as[mi][3] = vs.w;
       }
+      const float4 b_lo = *reinterpret_cast<const float4*>(ds + kk * kDwDs + b_off);
+      const float4 b_hi = *reinterpret_cast<const float4*>(ds + (kk + 4) * kDwDs + b_off);
+      const float bl[4] = {b_lo.x, b_lo.y, b_lo.z, b_lo.w}, bh[4] = {b_hi.x, b_hi.y, b_hi.z, b_hi.w};
 #pragma unroll
       for (int ni = 0; ni < 4; ++ni) {
-        const float* pb = ds + (kk + t) * kDwDs + wc0 + 8 * ni + g;
         uint32_t bb[2], bs[2];
-        split_tf32(pb[0], bb[0], bs[0]);
-        split_tf32(pb[4 * kDwDs], bb[1], bs[1]);
+        split_tf32(bl[ni], bb[0], bs[0]);
+        split_tf32(bh[ni], bb[1], bs[1]);
 #pragma unroll
         for (int mi = 0; mi < 2; ++mi) mma_3xtf32(part[mi][ni], ab[mi], as[mi], bb, bs);
       }
     }
-    add_into(tot, part);
-    if (with_bias && threadIdx.x < kDwN) {
-      float b = 0.f;
-      for (int r = 0; r < kDwStep; ++r) b += ds[r * kDwDs + threadIdx.x];
-      bsum += b;
+    if (B.with_bias && threadIdx.x < kDwN) {
+      for (int r = 0; r < kDwRows; ++r) b += ds[r * kDwDs + threadIdx.x];
     }
-    __syncthreads();  // the next stage overwrites this buffer
+  };
+
+  float tot[2][4][4];
+  zero_acc(tot);
+  float bsum = 0.f;
+#pragma unroll
+  for (int s = 0; s < kDwStages - 1; ++s) stage(s);
+  for (int grp = 0; grp < n_groups; ++grp) {
+    float part[2][4][4];
+    zero_acc(part);
+    float b = 0.f;
+#pragma unroll
+    for (int h = 0; h < kPerStep; ++h) {
+      const int s = grp * kPerStep + h;
+      mbar_wait(&full[s % kDwStages], (s / kDwStages) & 1);
+      __syncthreads();  // no warp still reads stage s - 1 or the split buffer
+      stage(s + kDwStages - 1);  // into the slot stage s - 1 left
+      split_h(s);
+      __syncthreads();  // the split is complete
+      multiply(s, part, b);
+    }
+    add_into(tot, part);
+    bsum += b;
   }
 
-  store_dw_tile(B, tot, partials);
-  if (with_bias && threadIdx.x < kDwN) partials[(size_t)q * kPartialFloats + c_layout.off[P.bias] + n0 + threadIdx.x] = bsum;
+  float* gw = partials + (size_t)B.q * kPartialFloats + c_layout.off[P.grad];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = B.m0 + wr0 + 4 * g + 2 * mi + h;
+      if (m >= P.K) continue;
+      float* row = gw + (size_t)m * P.N + B.n0 + wc0 + 8 * t;
+      *reinterpret_cast<float4*>(row) =
+          make_float4(tot[mi][0][2 * h], tot[mi][1][2 * h], tot[mi][2][2 * h], tot[mi][3][2 * h]);
+      *reinterpret_cast<float4*>(row + 4) =
+          make_float4(tot[mi][0][2 * h + 1], tot[mi][1][2 * h + 1], tot[mi][2][2 * h + 1], tot[mi][3][2 * h + 1]);
+    }
+  if (B.with_bias && threadIdx.x < kDwN)
+    partials[(size_t)B.q * kPartialFloats + c_layout.off[P.bias] + B.n0 + threadIdx.x] = bsum;
 }
 
 // B2 in bf16 mode: the same tiles, ranges and partial sets as the fp32 B2,
@@ -777,10 +911,6 @@ level_bwd_dw_kernel(const float* __restrict__ saved, const float* __restrict__ x
 // multiples of 32 rows (rows_per_range is a multiple of 64), so only the
 // last range's last step runs past its rows, into rows TMA reads as zeros
 // (past n_total) or cp.async zero-fills.
-struct Dw16Maps {
-  CUtensorMap h;  // saved: boxes of kDwM columns x kDw16Step rows
-  CUtensorMap d;  // delta: boxes of kDwN columns x kDw16Step rows
-};
 constexpr int kDw16StageBytes = kDw16Stage * (int)sizeof(float);
 
 // Four 8x8 16-bit matrices, transposed: lanes 8j .. 8j + 7 give matrix j's
@@ -795,7 +925,7 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const uint16
 }
 
 __global__ void __launch_bounds__(kThreads, 2)
-level_bwd_dw_bf16_kernel(const __grid_constant__ Dw16Maps maps, const float* __restrict__ xenc,
+level_bwd_dw_bf16_kernel(const __grid_constant__ DwMaps maps, const float* __restrict__ xenc,
                          const float* __restrict__ delta, float* __restrict__ partials, int n_total,
                          int rows_per_range) {
   extern __shared__ __align__(16) float smem[];
@@ -924,17 +1054,18 @@ level_bwd_dw_bf16_kernel(const __grid_constant__ Dw16Maps maps, const float* __r
   }
 }
 
-// The bf16 B2's maps over `saved` and `delta` (n_total rows of kSpill fp32,
-// rows past n_total read as zeros). Returns 0, or kMapError + the driver's
+// B2's maps over `saved` and `delta`, boxes of h_cols (saved) and d_cols
+// (delta) columns x rows rows. Returns 0, or kMapError + the driver's
 // CUresult.
-int encode_dw16_maps(Dw16Maps& maps, const float* saved, const float* delta, int n_total) {
+int encode_dw_maps(DwMaps& maps, const float* saved, const float* delta, int n_total, int h_cols, int d_cols,
+                   int rows) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return kMapError + CUDA_ERROR_NOT_FOUND;
   const cuuint64_t dims[2] = {(cuuint64_t)kSpill, (cuuint64_t)n_total};
   const cuuint64_t strides[1] = {(cuuint64_t)kSpill * sizeof(float)};
   const cuuint32_t unit[2] = {1, 1};
-  const cuuint32_t box_h[2] = {(cuuint32_t)kDwM, (cuuint32_t)kDw16Step};
-  const cuuint32_t box_d[2] = {(cuuint32_t)kDwN, (cuuint32_t)kDw16Step};
+  const cuuint32_t box_h[2] = {(cuuint32_t)h_cols, (cuuint32_t)rows};
+  const cuuint32_t box_d[2] = {(cuuint32_t)d_cols, (cuuint32_t)rows};
   CUresult r = encode(&maps.h, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(saved), dims, strides, box_h,
                       unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -1033,13 +1164,15 @@ int launch_bwd_saved(const float* t, const float* rays_d, const float* venc, con
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   b1<<<n_blocks, kThreads, smem_b1, s>>>(venc, w.wd, w.wr, maps, saved, grow, delta, narrow, S, ray_tile);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  DwMaps dw_maps;
+  if (int map_err = dot_bf16 ? encode_dw_maps(dw_maps, saved, delta, n_total, kDwM, kDwN, kDw16Step)
+                             : encode_dw_maps(dw_maps, saved, delta, n_total, kDwHs, kDwDs, kDwRows))
+    return map_err;
   if (dot_bf16) {
-    Dw16Maps dw16_maps;
-    if (int map_err = encode_dw16_maps(dw16_maps, saved, delta, n_total)) return map_err;
-    level_bwd_dw_bf16_kernel<<<kRanges * kDwTiles, kThreads, smem_b2, s>>>(dw16_maps, xenc, delta, partials, n_total,
+    level_bwd_dw_bf16_kernel<<<kRanges * kDwTiles, kThreads, smem_b2, s>>>(dw_maps, xenc, delta, partials, n_total,
                                                                             rows_per_range);
   } else {
-    level_bwd_dw_kernel<<<kRanges * kDwTiles, kThreads, smem_b2, s>>>(saved, xenc, delta, partials, n_total,
+    level_bwd_dw_kernel<<<kRanges * kDwTiles, kThreads, smem_b2, s>>>(dw_maps, xenc, delta, partials, n_total,
                                                                        rows_per_range);
   }
   if ((err = cudaGetLastError()) != cudaSuccess) return err;

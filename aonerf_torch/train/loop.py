@@ -410,7 +410,7 @@ class Trainer:
         lpips_weights = os.environ.get("AONERF_LPIPS_WEIGHTS", "")
         if lpips_weights and os.path.exists(lpips_weights):
             raise NotImplementedError(
-                f"LPIPS (AONERF_LPIPS_WEIGHTS={lpips_weights}) is not ported yet: ROADMAP Queue 1 item 7"
+                f"LPIPS (AONERF_LPIPS_WEIGHTS={lpips_weights}) is not ported yet: ROADMAP Queue 1 item 4"
             )
         cfg = self.cfg
         w, h = cfg.img_wh

@@ -31,9 +31,10 @@ Phases, each of which fails the run with a non-zero exit:
                composition K1s + the backward from what it saved; the
                backward from saved and its plain version timed in turns, its
                passes (integrator backward, B1, B2, reduce) by the profiler
-               with the bound of each; and one two-level loss backward through
-               the kernels against the same computation through the plain
-               versions.
+               with the bound of each; B2 alone against the fp64 products of
+               the operands it read (B2_FP32_TOL) and an fp32 torch.mm a
+               product; and one two-level loss backward through the kernels
+               against the same computation through the plain versions.
   7. training - the train CLI on a SAPIEN-layout laptop scene (8 train views,
                1 val view, 320x240) at the published width: 50 steps with a
                validation and a checkpoint, then a resume for 10 more; loss,
@@ -124,7 +125,8 @@ Phases, each of which fails the run with a non-zero exit:
                config/vanilla.json's batch 2048 in fp32 and in bf16, in turns.
 The line before the last is a JSON object with one entry per kernel and mode
 (K1, K1s, K2 in fp32, then in bf16; K1 and K1s in bf16 at the fast preset's
-shapes; B2 and B1 in bf16); the last line is {"ok": true, "device": {...}}.
+shapes; B2 and B1 in bf16; B2 in fp32); the last line is {"ok": true,
+"device": {...}}.
 """
 
 import json
@@ -206,6 +208,11 @@ B2_BIASES = {**{f"b{i}": i * 256 for i in range(8)}, "bb": 8 * 256, "bv": 9 * 25
 # tensor-core runs, then the range, then 16 ranges) within B2_TOL of each
 # gradient's largest entry.
 B2_TOL = 1e-5
+# B2 in fp32 (level_bwd_dw_kernel) the same way, on the fp32 operands it
+# read: its 3xTF32 products (each ~2^-22 of itself off the exact product),
+# 64-row tensor-core runs, the range and the 16 ranges within B2_FP32_TOL
+# of each gradient's largest entry.
+B2_FP32_TOL = 1e-5
 # B1 in bf16 the same way: each delta it wrote (fp32) against the product,
 # summed in fp64, of the bf16-rounded operands it multiplied (the delta of
 # the layer above from its own scratch, the rounded weight; g_raw from the
@@ -883,8 +890,12 @@ def phase_backward(nerf, boxes, focal) -> dict:
         ms_again = cuda_ms(k2, warmup=0, iters=5 if S > 100 else 10)
         plain_again = cuda_ms(plain, warmup=0, iters=3)
         parts = _bwd_pass_ms(k2, iters=3)
-        _, delta = backward_with_deltas(args, saved, raw, cot, True, False)
+        got, delta = backward_with_deltas(args, saved, raw, cot, True, False)
         b2_ops = b2_operands(saved, xenc.reshape(-1, xenc.shape[-1]), delta)
+        b2_rel, b2_err = b2_errors(got, b2_ops, delta, False)
+        del got
+        if not b2_rel <= B2_FP32_TOL:
+            fail(f"B2 fp32 S={S}: off the fp64 product of its own operands by {b2_rel:.3e} (limit {B2_FP32_TOL:g})")
         b2_library, b2_library_kind = b2_library_ms(b2_ops, False)
         b2_plain_ms = cuda_ms(lambda: b2_plain(b2_ops, delta, False), warmup=1, iters=3)
         del saved, raw, delta, b2_ops
@@ -901,9 +912,12 @@ def phase_backward(nerf, boxes, focal) -> dict:
               f"{sum(pass_bounds[n][0] for n in ('B1', 'B2', 'reduce')):.3f} ms in 3xTF32, "
               f"{2.0 * R * S * (B1_TC_MACS + B1_FP32_MACS + B2_TC_MACS) / PEAK_FP32_FLOPS * 1e3:.3f} ms in fp32")
         print(f"  S={S}: B2's products as one {b2_library_kind} each (TF32 off), summed, {b2_library:.3f} ms; B2's "
-              f"share of the plain version {b2_plain_ms:.3f} ms")
+              f"share of the plain version {b2_plain_ms:.3f} ms; B2 (level_bwd_dw_kernel) against the fp64 products "
+              f"of its operands {b2_rel:.3e} of the largest entry (limit {B2_FP32_TOL:g}), max abs err against the "
+              f"plain share {b2_err:.3e}")
         levels.append({"S": S, "ms": ms, "ms_again": ms_again, "plain_ms": plain_ms, "plain_ms_again": plain_again,
-                       "b2_library_ms": b2_library, "b2_plain_ms": b2_plain_ms,
+                       "b2_library_ms": b2_library, "b2_plain_ms": b2_plain_ms, "b2_fp64_rel_err": b2_rel,
+                       "b2_max_abs_err": b2_err,
                        "bound_ms": bound, "bound_by": bound_by, "bound_ms_fp32": bound32,
                        "passes": {n: {"ms": parts[n], "bound_ms": pass_bounds[n][0], "bound_by": pass_bounds[n][1]}
                                   for n in parts},
@@ -2015,6 +2029,27 @@ def b2_plain(ops: dict, delta, dot_bf16: bool) -> dict:
     return out
 
 
+def b2_errors(got: dict, ops: dict, delta, dot_bf16: bool) -> tuple:
+    """B2 against what it read: the largest error of its 21 gradients
+    against the products of its operands (rounded to bf16 in bf16 mode)
+    and the sums of its fp32 deltas, in fp64 (max abs err / max |fp64|, held
+    to B2_TOL or B2_FP32_TOL); and its largest abs error against B2's share
+    of the plain version on the same operands."""
+    from aonerf_torch.ops.kernels import fused_render as fr
+
+    rnd = fr.round_bf16 if dot_bf16 else (lambda x: x)
+    worst = 0.0
+    for n, (h, d) in ops.items():
+        want = rnd(h).double().t() @ rnd(d).double()
+        worst = max(worst, _rel(got[n], want))
+        del want
+    for n, c in B2_BIASES.items():
+        worst = max(worst, _rel(got[n].reshape(-1), delta[:, c: c + (128 if n == "bv" else 256)].double().sum(0)))
+    plain = b2_plain(ops, delta, dot_bf16)
+    err = max((got[n].reshape(-1) - plain[n].reshape(-1)).abs().max().item() for n in plain)
+    return worst, err
+
+
 def b2_library_ms(ops: dict, dot_bf16: bool) -> tuple:
     """One torch.mm a product of B2, summed: fp32 operands (TF32 off), or in
     bf16 mode operands converted to bf16 beforehand (not timed) with an fp32
@@ -2061,23 +2096,13 @@ def b2_check(args, cot, S: int) -> dict:
     plain bf16 version; its time by torch.profiler in turns with that plain
     share and with the fp32 B2 (fp32, bf16, plain, bf16, plain, fp32), its
     bound and the library's torch.mm."""
-    from aonerf_torch.ops.kernels import fused_render as fr
     from aonerf_torch.ops.kernels import fused_train as ft
 
     xenc = args[5].reshape(-1, args[5].shape[-1])
     *_, saved, raw = ft.fused_level_fwd_spill(*args, True, dot_bf16=True)
     got, delta = backward_with_deltas(args, saved, raw, cot, True, True)
     ops = b2_operands(saved, xenc, delta)
-    worst = 0.0
-    for n, (h, d) in ops.items():
-        want = fr.round_bf16(h).double().t() @ fr.round_bf16(d).double()
-        worst = max(worst, _rel(got[n], want))
-        del want
-    for n, c in B2_BIASES.items():
-        worst = max(worst, _rel(got[n].reshape(-1), delta[:, c: c + (128 if n == "bv" else 256)].double().sum(0)))
-    plain = b2_plain(ops, delta, True)
-    err = max((got[n].reshape(-1) - plain[n].reshape(-1)).abs().max().item() for n in plain)
-    del plain
+    worst, err = b2_errors(got, ops, delta, True)
     if not worst <= B2_TOL:
         fail(f"B2 bf16 S={S}: off the fp64 product of its own operands by {worst:.3e} (limit {B2_TOL:g})")
     k2 = lambda: ft.fused_level_bwd_saved(*args, saved, raw, *cot, True, dot_bf16=True)  # noqa: E731
@@ -2768,6 +2793,19 @@ def main() -> None:
         "levels": blv,
         "ae_launches": ae_launches[2],
     }
+    b2 = {
+        # B2 in fp32 (3xTF32 mma.sync from a TMA ring of 32-row stages), one
+        # launch in each launch of fused_level_bwd; ms by torch.profiler, one
+        # coarse and one fine level at 2048 rays; plain_ms: B2's share of
+        # the plain version; library_ms: one fp32 torch.mm a product, summed
+        "name": "level_bwd_dw_kernel", "route": "cuda", "source": "aonerf_torch/ops/kernels/csrc/fused_train.cu",
+        "replaces": "aonerf/ops/kernels/fused_train.py:239", "launches": t["k2"],
+        "max_abs_err": max(x["b2_max_abs_err"] for x in blv),
+        "ms": sum(x["passes"]["B2"]["ms"] for x in blv), "plain_ms": both(blv, "b2_plain_ms"),
+        "bound_ms": sum(x["passes"]["B2"]["bound_ms"] for x in blv),
+        "bound_by": bound_by([x["passes"]["B2"] for x in blv]), "library_ms": both(blv, "b2_library_ms"),
+        "library": "fp32 torch.mm", "fp64_rel_err": max(x["b2_fp64_rel_err"] for x in blv),
+    }
     k1s_step, k2_step = k1s["ms"], k2["ms"]
     print(f"train step share: K1s {k1s_step:.3f} ms + K2 {k2_step:.3f} ms + rest "
           f"{t['step_ms'] - k1s_step - k2_step:.3f} ms = {t['step_ms']:.3f} ms")
@@ -2849,6 +2887,7 @@ def main() -> None:
     print(f"bf16 step at batch {bt['steps_ms']['batch']}: {min(bt['steps_ms']['bf16']):.3f} ms against fp32 "
           f"{min(bt['steps_ms']['fp32']):.3f} ms; K1s bf16 {entries[4]['ms']:.3f} ms + K2 bf16 {entries[5]['ms']:.3f} "
           f"ms a step (fp32 {entries[4]['fp32_ms']:.3f} + {entries[5]['fp32_ms']:.3f} ms)")
+    entries.append(b2)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()

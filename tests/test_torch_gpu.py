@@ -755,37 +755,45 @@ def test_bf16_kernels_at_partial_sizes(cuda, R, S):
         assert rel <= _PARTIAL_TOL, f"{name}: {rel}"
 
 
-# B2 in bf16 mode alone (level_bwd_dw_bf16_kernel): its 21 gradients against
-# the products of the very operands it read, K1s' saved activations (xenc
-# for w0, w5i) and B1's fp32 deltas from the call's own scratch, rounded to
-# bf16 and summed in fp64, and each bias against its fp32 deltas summed in
-# fp64, within chip_smoke.py's B2_TOL (B2's own fp32 sums: 32-row
-# tensor-core runs, the range, the 16 ranges). 256 x 65 rows end in a
-# partial last range (15 ranges of 1088 rows, one of 320), 48 x 65 in a
-# range of 48 rows and three empty ones, 16 x 7 in two short ranges, the
-# second of 48 rows.
-@pytest.mark.parametrize("R,S", [(256, 65), (48, 65), (16, 7)])
-def test_bf16_b2_is_the_bf16_product_of_what_it_read(cuda, R, S):
+# B2 alone, in each mode: its 21 gradients against the products of the very
+# operands it read, K1s' saved activations (xenc for w0, w5i) and B1's fp32
+# deltas from the call's own scratch, summed in fp64 (rounded to bf16 first
+# in bf16 mode, level_bwd_dw_bf16_kernel), and each bias against its fp32
+# deltas summed in fp64, within chip_smoke.py's B2_TOL in bf16 (B2's own
+# fp32 sums: 32-row tensor-core runs, the range, the 16 ranges) and
+# B2_FP32_TOL in fp32 (level_bwd_dw_kernel: 3xTF32 products, 64-row
+# tensor-core runs, the range, the 16 ranges). The sizes walk the edges of
+# the fp32 B2's ring of four 32-row stages: 256 x 65 rows end in a partial
+# last range (15 ranges of 1088 rows, one of 320), 48 x 65 in a range of 48
+# rows and three empty ones, 16 x 7 in two short ranges, the second of 48
+# rows, its last stage wholly past the rows; at 16 x 33 every range holds
+# one 64-row step, two stages, fewer than the ring has.
+@pytest.mark.parametrize("dot_bf16", [False, True], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("R,S", [(256, 65), (48, 65), (16, 7), (16, 33)],
+                         ids=["partial-last-range", "short-and-empty-ranges", "past-the-rows", "one-step-ranges"])
+def test_bf16_b2_is_the_bf16_product_of_what_it_read(cuda, R, S, dot_bf16):
     mlp = NeRFMLP(generator=torch.Generator().manual_seed(S), device=cuda)
     with torch.no_grad():
         kp = fr.kernel_params(mlp)
     args = (kp, *_level_inputs(R, S, S, cuda))
     cot = _cotangents(R, S, S + 1, cuda)
-    *_, saved, raw = ft.fused_level_fwd_spill(*args, True, dot_bf16=True)
+    *_, saved, raw = ft.fused_level_fwd_spill(*args, True, dot_bf16=dot_bf16)
     before = ft.launches, ft.bf16_launches
-    got, delta = rule.backward_with_deltas(args, saved, raw, cot, True, True)
+    got, delta = rule.backward_with_deltas(args, saved, raw, cot, True, dot_bf16)
     torch.cuda.synchronize()
-    assert (ft.launches, ft.bf16_launches) == (before[0], before[1] + 1)
+    assert (ft.launches, ft.bf16_launches) == (before[0] + (not dot_bf16), before[1] + dot_bf16)
+    operand = fr.round_bf16 if dot_bf16 else (lambda x: x)
+    tol = rule.B2_TOL if dot_bf16 else rule.B2_FP32_TOL
     for name, (h, d) in rule.b2_operands(saved, args[5].reshape(R * S, -1), delta).items():
-        want = fr.round_bf16(h).double().t() @ fr.round_bf16(d).double()
+        want = operand(h).double().t() @ operand(d).double()
         assert got[name].shape == want.shape and torch.isfinite(got[name]).all(), name
         rel = _rel_err(got[name], want)
-        assert rel <= rule.B2_TOL, f"{name}: {rel}"
+        assert rel <= tol, f"{name}: {rel}"
     for name, col in rule.B2_BIASES.items():
         want = delta[:, col: col + (128 if name == "bv" else 256)].double().sum(0)
         rel = _rel_err(got[name].reshape(-1), want)
-        assert rel <= rule.B2_TOL, f"{name}: {rel}"
-    again = ft.fused_level_bwd_saved(*args, saved, raw, *cot, True, dot_bf16=True)
+        assert rel <= tol, f"{name}: {rel}"
+    again = ft.fused_level_bwd_saved(*args, saved, raw, *cot, True, dot_bf16=dot_bf16)
     for name in fr.WEIGHT_NAMES:
         assert torch.equal(again[name], got[name]), name  # no atomics: the same bits
 

@@ -127,7 +127,7 @@ def test_test_refuses_lpips_weights_it_cannot_use(tmp_path, monkeypatch):
     monkeypatch.setenv("AONERF_LPIPS_WEIGHTS", str(weights))
     trainer = Trainer(config.load_config(None, _settings(root, tmp_path / "out", "lpips")))
     try:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
             trainer.test()
     finally:
         trainer.close()

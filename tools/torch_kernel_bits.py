@@ -16,10 +16,11 @@ saves, from random weights, inputs and cotangents made from fixed seeds:
 each at S = 65 and 193, both backgrounds, in fp32 and, where the tree has
 it, in bf16 mode (``dot_bf16``; cases named "bf16 ..."). It also prints the
 sha1 and line count of B1's fp32 SASS (``level_bwd_delta_kernel``, from
-``cuobjdump -sass``). ``--compare`` prints, for two such files, which
+``cuobjdump -sass``) and of B2's (``level_bwd_dw_kernel``), with the TMA
+loads (``UTMALDG``) in B2's. ``--compare`` prints, for two such files, which
 outputs of the cases both hold have the same bits and exits 1 if any
-differs; it names the cases only one holds, and reports whether B1's SASS
-is the same for information only. With ``--b2-bf16-differs`` (two trees
+differs; it names the cases only one holds, and reports whether B1's and
+B2's SASS are the same for information only. With ``--b2-bf16-differs`` (two trees
 whose B2 in bf16 mode sums in other orders) the 21 gradients B2 computes
 in the bf16 K2 cases (B2_GRADS) are expected to differ: ``--compare``
 names them and their largest differences, fails on any other differing
@@ -69,6 +70,7 @@ import torch
 from torch_train_compare import R_TRAIN, level_inputs
 
 B1 = "level_bwd_delta_kernel"
+B2 = "level_bwd_dw_kernel"  # in fp32; B2 in bf16 mode is level_bwd_dw_bf16_kernel
 # The gradients pass B2 computes (the weight products and their biases); B1
 # computes the heads' (wd, bd, wr, br, wvb).
 B2_GRADS = ("w0", "b0", "w1", "b1", "w2", "b2", "w3", "b3", "w4", "b4", "w5x", "w5i", "b5", "w6", "b6",
@@ -80,9 +82,9 @@ SAVED_CASE = "bf16 K2 from K1s' saved"
 REPLAY_CASE = "bf16 K2 from the replayed saved"
 
 
-def b1_sass(lib_path: str, bf16: bool = False) -> list:
-    """B1's SASS lines in fp32 (its only instantiation, or the one whose
-    mangled name holds ``ILb0E``) or, with ``bf16``, in bf16 mode
+def kernel_sass(lib_path: str, kernel: str = B1, bf16: bool = False) -> list:
+    """A kernel's SASS lines in fp32 (its only instantiation, or the one
+    whose mangled name holds ``ILb0E``) or, with ``bf16``, in bf16 mode
     (``ILb1E``; empty for a tree without it), from the ``Function :`` header
     to the next one, each with its runs of blanks made one (cuobjdump pads
     its columns to the longest line of the whole library)."""
@@ -93,11 +95,11 @@ def b1_sass(lib_path: str, bf16: bool = False) -> list:
     lines, inside = [], False
     for line in text.splitlines():
         if "Function :" in line:
-            inside = B1 in line and (("ILb1E" in line) == bf16)
+            inside = kernel in line and (("ILb1E" in line) == bf16)
         elif inside:
             lines.append(" ".join(line.split()))
     if not lines and not bf16:
-        raise SystemExit(f"torch_kernel_bits: no SASS of {B1} in {lib_path}")
+        raise SystemExit(f"torch_kernel_bits: no SASS of {kernel} in {lib_path}")
     return lines
 
 
@@ -109,6 +111,11 @@ def mma_ops(lines: list) -> dict:
         for op in re.findall(r"\bHMMA\.[0-9A-Z.]+", line):
             ops[op] = ops.get(op, 0) + 1
     return ops
+
+
+def tma_loads(lines: list) -> int:
+    """The TMA load instructions (UTMALDG) among SASS lines."""
+    return sum("UTMALDG" in line for line in lines)
 
 
 def sass_sha1(lines: list) -> str:
@@ -135,9 +142,11 @@ def record(out: str, replay: str = None) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda")
     lib = str(build.build(["fused_train"])["fused_train"])
-    sass, sass_bf16 = b1_sass(lib), b1_sass(lib, bf16=True)
+    sass, sass_bf16, b2_sass = kernel_sass(lib), kernel_sass(lib, bf16=True), kernel_sass(lib, B2)
     print(f"B1 SASS: {len(sass)} lines, sha1 {sass_sha1(sass)}; in bf16 mode the mma instructions "
           f"{mma_ops(sass_bf16) or 'none'}", flush=True)
+    print(f"B2 SASS (fp32): {len(b2_sass)} lines, sha1 {sass_sha1(b2_sass)}, {tma_loads(b2_sass)} TMA loads (UTMALDG)",
+          flush=True)
     modes = (False, True) if "dot_bf16" in inspect.signature(fr.fused_render_level).parameters else (False,)
     cases = {}  # case -> {output name: tensor on the CPU, or the sha1 of a large one}
     payloads = {}  # case -> (saved as bf16, raw) that its gradients came from
@@ -183,7 +192,8 @@ def record(out: str, replay: str = None) -> None:
                 del saved, raw
             print(f"recorded bf16 K2 at R={R_PRESET} S={S}" + (f", and from {replay}'s saved" if replay else ""),
                   flush=True)
-    torch.save({"sass": sass, "b1_bf16_mma": mma_ops(sass_bf16), "cases": cases, "payloads": payloads}, out)
+    torch.save({"sass": sass, "b1_bf16_mma": mma_ops(sass_bf16), "b2_sass": b2_sass, "cases": cases,
+                "payloads": payloads}, out)
     print(f"saved {sum(len(v) for v in cases.values())} outputs of {len(cases)} cases to {out}")
 
 
@@ -229,6 +239,11 @@ def compare(a: str, b: str, b2_bf16_differs: bool = False, bf16_fwd_differs: boo
     print(f"B1 SASS {'identical' if hx == hy else 'differs'} ({len(x['sass'])} / {len(y['sass'])} lines, sha1 "
           f"{hx} / {hy}); " + ("required identical" if b1_bf16_differs else "for information only"))
     print("B1 bf16 mma instructions: " + " / ".join(str(f.get("b1_bf16_mma") or "not recorded") for f in (x, y)))
+    if "b2_sass" in x and "b2_sass" in y:
+        bx, by = sass_sha1(x["b2_sass"]), sass_sha1(y["b2_sass"])
+        print(f"B2 SASS (fp32) {'identical' if bx == by else 'differs'} ({len(x['b2_sass'])} / {len(y['b2_sass'])} "
+              f"lines, sha1 {bx} / {by}, TMA loads {tma_loads(x['b2_sass'])} / {tma_loads(y['b2_sass'])}); for "
+              "information only")
     common = [case for case in x["cases"] if case in y["cases"] and not case.startswith(REPLAY_CASE)]
     for name, f, g in ((a, x, y), (b, y, x)):
         only = sorted(case for case in f["cases"] if case not in g["cases"] and not case.startswith(REPLAY_CASE))

@@ -22,9 +22,10 @@ train step of ``config/vanilla.json`` (batch 2048, 64+128 samples) on an
 ms per step by the host clock around ``torch.cuda.synchronize()``, and the
 peak device memory of a multi-step (``torch.cuda.max_memory_allocated()``);
 and, in bf16, the step of ``config/vanilla_tpu_fast.json`` (batch 224) on
-the same scene. With ``--bf16-step-only`` it times the bf16 step at batch
-2048 alone, and with ``--fast-step-only`` the fast preset's step alone, for
-many short runs of two trees in turns.
+the same scene. With ``--fp32-step-only`` it times the fp32 step at batch
+2048 alone (with the card's busy ms a step), with ``--bf16-step-only`` the
+bf16 step at batch 2048 alone, and with ``--fast-step-only`` the fast
+preset's step alone, for many short runs of two trees in turns.
 
 With ``--forward-only`` it times K1 and K1s alone, in fp32 and (where the
 tree has it) in bf16, at S = 65 and 193: K1 at the serving tile's 4096 rays
@@ -344,6 +345,8 @@ def time_train_step(device, config: str = "vanilla.json", overrides: dict = None
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--label", required=True, help="name of the tree in the output line")
+    parser.add_argument("--fp32-step-only", action="store_true",
+                        help="time only the fp32 train step at batch 2048 (for many short runs in turns)")
     parser.add_argument("--bf16-step-only", action="store_true",
                         help="time only the bf16 train step at batch 2048 (for many short runs in turns)")
     parser.add_argument("--fast-step-only", action="store_true",
@@ -387,6 +390,10 @@ def main() -> None:
         return
     if args.fast_step_only:
         row["train_fast"] = time_train_step(device, "vanilla_tpu_fast.json", multi_steps=1, busy=True)
+        print(json.dumps(row), flush=True)
+        return
+    if args.fp32_step_only:
+        row["train"] = time_train_step(device, busy=True)
         print(json.dumps(row), flush=True)
         return
     if args.bf16_step_only:
