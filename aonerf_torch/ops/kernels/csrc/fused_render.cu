@@ -118,7 +118,7 @@ fused_render_level_kernel(const float* __restrict__ t, const float* __restrict__
   FwdRing<Bf16> ring(m.ring, maps.m, n_rows);
   view_terms<Bf16>(venc, w.wvb, m.cterm, ray0, ray_tile);
   for (int row0 = 0; row0 < n_rows; row0 += kRows)
-    forward_chunk<false, Bf16>(xenc, w, ring, m, row_base, row0, n_rows, S, nullptr);
+    forward_chunk<false, Bf16>(xenc, w, ring, m, row_base, row0, n_rows, S, SpillTo<Bf16>{});
 
   integrate_rays<Bf16>(t, rays_d, m.sig, m.rgb, ray0, ray_tile, S, white_bkgd, comp, acc_out, depth, weights_out);
 }

@@ -38,7 +38,16 @@
 //     sample's raw sigma and rgb go to `raw` (4 floats). Spilling beats
 //     recomputing: a 64-row chunk's eight trunk activations (512 KB) do not
 //     fit in shared memory, and the integrator backward needs a whole ray
-//     before any chunk's MLP backward.
+//     before any chunk's MLP backward. In bf16 mode the spill is bf16 (1.92
+//     GB at S = 193): each warp also writes its epilogue's bf16 pairs by
+//     stmatrix into a bf16 tile with the 128-byte swizzle, in the space of
+//     the last two of the ring's stages (the bf16 walk then runs on 3, so
+//     the block's shared memory stays K1's), and thread 0 stores the tile's
+//     rows by TMA (a 3D map of the scratch by block, so a chunk's rows past
+//     the block's end are not written). Per-thread 16-byte stores of the
+//     same values, each warp instruction touching 32 rows, took K1s 18-20%
+//     longer than the fp32 layout's bulk copies; the tile is 12-14% faster
+//     than those (PERF.md).
 //  I. level_bwd_integrator_kernel (bound by bytes, 16 MB): one warp per ray
 //     runs the integrator forward and backward from `raw`: g_w from the
 //     cotangents, g_alpha = g_w T - suffix(g_w w) / max(1 - alpha + 1e-10,
@@ -69,10 +78,15 @@
 //  B1 in bf16 mode. level_bwd_delta_kernel<true>: the same chain on native
 //     bf16 products (gemm_bf16: mma.sync m16n8k16, half the mma of the TF32
 //     k8 walk it replaced) from a ring of 32-deep slices of the wrapper's
-//     bf16 pack of its weights. What bounds it is bytes: the saved bf16
-//     values at 2 bytes and the fp32 deltas it writes, 1.73 ms at 3.35 TB/s
-//     at S = 193 (its products 0.45 ms at 989 TFLOP/s); as laid out, both
-//     in fp32, 7.7 GB, 2.30 ms. Its ray tile is chosen per launch (below).
+//     bf16 pack of its weights. Both scratches are bf16: it loads each saved
+//     activation into a bf16 tile in the fp32 H tile's space, writes each
+//     delta rounded to bf16 as K1s writes `saved` (stmatrix into a swizzled
+//     bf16 tile in the ring's last two stages, TMA stores; the ring runs on
+//     3), and sums the ten bias gradients (b0..b7, bb, bv) itself from the
+//     fp32 deltas it holds, into its narrow set; its shared memory is the
+//     fp32 B1's. What bounds it is bytes: 3.8 GB at S = 193, 1.15 ms at 3.35 TB/s
+//     (its products 0.45 ms at 989 TFLOP/s). Its ray tile is chosen per
+//     launch (below).
 //  B2. level_bwd_dw_kernel (3xTF32 tensor cores; bound by operations,
 //     2.82 ms at 495/3 TFLOP/s, over its 7.6 GB, 2.27 ms): every dW_l = H^T
 //     Delta_l (H from `saved`, or xenc for w0 and w5i) as a split-K product
@@ -102,28 +116,26 @@
 //     sums): the same tiles, ranges and partial sets as the fp32 B2 on
 //     native bf16 products, mma.sync m16n8k16 (half the mma of a TF32 k8
 //     walk; at 989 TFLOP/s its products take 0.47 ms at S = 193). What
-//     bounds it is bytes: the saved activations are bf16 values (2 bytes
-//     each) and the deltas fp32 (the bias sums need them), 1.73 ms at 3.35
-//     TB/s at S = 193; but both scratches are laid out in fp32, 7.6 GB (2.28
-//     ms), and every block stages those fp32 rows through shared memory and
-//     rounds them there (cp.async and TMA cannot convert). Each block loads
-//     its rows by TMA into a 4-stage ring of 32-row fp32 stages (one wait a
-//     step); one pass a step rounds the stage to a bf16 tile in the layout
-//     ldmatrix.trans reads and sums the bias tile from the fp32 deltas; no
-//     fragment is converted. Both operands are K-major here (K is the sample
-//     row), which ldmatrix.trans turns into mma.sync's fragments. 112,672
-//     bytes of shared memory, two blocks a SM. On the H100
-//     (tools/torch_train_compare.py, in turns): 1.37-1.39 / 4.35-4.38 ms at
-//     2048 rays x S = 65 / 193, 40% of the 2-byte bound at S = 193, against
-//     2.31-2.32 / 6.67-6.71 for the TF32 walk on bf16 values it replaced.
-//     Clusters of the four M tiles of a column tile, each Delta row
-//     multicast to the four, took B2 to 3.91-3.92 ms at S = 193, but the
-//     bf16 train step did not resolve that gain (10 pairs in turns), so the
-//     blocks stay independent. What the rounding pass and the products add
-//     goes through shared memory (~92 KB a block a step). Below the layout's
-//     2.28 ms only a bf16 layout of `saved` and `delta` (K1s, B1) would go.
+//     bounds it is bytes: both scratches bf16, xenc fp32 and the partial
+//     sets, 3.9 GB at S = 193, 1.16 ms at 3.35 TB/s. TMA loads the bf16 rows
+//     with the 128-byte swizzle straight into the layout ldmatrix.trans
+//     reads (kernel note below), so no pass goes over shared memory between
+//     the copy and the products but for xenc's 4 of 72 tiles, and B2 sums
+//     no bias (B1 does). Both operands are K-major here (K is the sample
+//     row), which ldmatrix.trans turns into mma.sync's fragments. Clusters
+//     of the four M tiles of a column tile with Delta multicast (PR 13, on
+//     the fp32 layout) did not resolve a gain of the bf16 step, so the
+//     blocks stay independent. On the H100 (tools/torch_train_compare.py, in
+//     turns with the fp32-layout kernel it replaced, 1.33-1.40 / 4.27-4.43
+//     ms): 0.79-0.81 / 2.25-2.38 ms at 2048 rays x S = 65 / 193, against
+//     the 0.398 / 1.159 ms bound. Each H row is read from L2 by two blocks
+//     and each Delta row by four, 11.1 GB from L2 at S = 193 (4.7 TB/s);
+//     tiles of 128 rows (16 warps, one block a SM), which read 31% less, took
+//     0.91-0.92 / 2.65-2.69 ms in the same call, so the re-reads alone do
+//     not set its time.
 //  R. level_bwd_reduce_kernel: sums the 16 partial sets (38 MB, which L2
-//     holds) and the B1 blocks' narrow sets, each in a fixed order.
+//     holds) and the B1 blocks' narrow sets (in bf16 mode the biases too),
+//     each in a fixed order.
 //
 // 3xTF32 (K1s, B1, B2; the helpers live in nerf_level.cuh): each fp32
 // operand x is split into big = tf32(x) and small = tf32(x - big), and
@@ -140,7 +152,7 @@
 // runs K1's bf16 walk (native bf16 mma.sync m16n8k16 from the bf16 weight
 // ring, nerf_level.cuh's gemm_bf16; the wrapper passes the bf16 pack of the
 // transposed weights and the narrow heads rounded) and spills the rounded
-// activations, which the TPU backward keeps in bf16, in the fp32 layout. B1
+// activations, which the TPU backward keeps in bf16, as bf16. B1
 // runs the same gemm_bf16 on its delta tile D (fp32 layout, bf16 values),
 // from a ring of 32-deep slices of the wrapper's bf16 pack of its nine
 // flax-layout weights (B1Bf16Schedule, 68 slices a chunk where the fp32
@@ -148,13 +160,12 @@
 // reads no other weight but wd and wr, which come rounded. The integrator
 // backward stays fp32 and recomputes the transmittance in fp32 from `raw`,
 // as the TPU backward does.
-// B1 keeps every delta in fp32 in the scratch, which B2's bias sums read, and
-// in its own per-ray sum for wvb; only a product's operand is rounded: the
-// shared tile D that feeds the next product gets the rounded delta, and the
-// narrow head products round g_raw_sigma, g_raw_rgb and the per-ray sum as
-// they read them. B2 in bf16 is a kernel of its own (above): it rounds H and
-// Delta once a step into bf16 tiles, and sums the bias tile from the fp32
-// stage. Every bf16 product is mma.sync m16n8k16 bf16, whose sums group
+// B1 sums every bias gradient and the per-ray sum for wvb from its fp32
+// deltas; only a product's operand is rounded: the shared tile D that feeds
+// the next product and the delta scratch, which B2 multiplies, get the
+// rounded delta, and the narrow head products round g_raw_sigma, g_raw_rgb
+// and the per-ray sum as they read them. B2 in bf16 is a kernel of its own
+// (above) on the two bf16 scratches. Every bf16 product is mma.sync m16n8k16 bf16, whose sums group
 // otherwise than the TF32 walk on bf16 values that each replaced, so the
 // bf16 outputs differ in their bits from that walk's and are held to the
 // bf16 rule; every fp32 output keeps its bits.
@@ -171,17 +182,17 @@
 // Deterministic: no atomics, every sum in a fixed order, so the same inputs
 // give the same bits on every call.
 //
-// Scratch at 2048 x 193: saved and delta 3.85 GB each (saved lives from K1s
-// to K2), raw and grow 6.3 MB each, partials 16 x 2.38 MB, narrow 128 x 16.4
-// KB.
+// Scratch at 2048 x 193: saved and delta 3.85 GB each in fp32, 1.92 GB each
+// in bf16 mode (saved lives from K1s to K2), raw and grow 6.3 MB each,
+// partials 16 x 2.38 MB, narrow 128 x 16.4 KB (26.1 KB in bf16 mode).
 //
 // ptxas (-Xptxas -v, sm_90a, CUDA 12.8, printed by chip_smoke.py's build
-// phase on the H100): K1s 220 registers, no spill (174 in bf16 mode); the integrator backward
-// 39; B1 255 registers, 20 bytes of spill stores and 20 of spill loads
-// (24-byte stack frame), in bf16 see PERF.md; B2 128 registers (capped by
-// __launch_bounds__(256, 2)), 24 bytes of spill stores and loads (16-byte
-// stack frame; the two stores sit before its main loop), and in bf16 124,
-// no spill; the reduction 31 registers.
+// phase on the H100): K1s 220 registers, no spill (181 in bf16 mode); the
+// integrator backward 39; B1 255 registers, 20 bytes of spill stores and 20
+// of spill loads (24-byte stack frame), in bf16 mode 254, no spill; B2 128
+// registers (capped by __launch_bounds__(256, 2)), 24 bytes of spill stores
+// and loads (16-byte stack frame; the two stores sit before its main loop),
+// and in bf16 107, no spill; the reduction 32 registers.
 //
 // Measured there (NVIDIA H100 80GB HBM3, 700 W; tools/torch_train_compare.py,
 // 2048 rays, S = 65 / 193): K1s 3.33-3.40 / 9.51-9.77 ms, B1 3.26-3.31 /
@@ -241,14 +252,25 @@ constexpr Layout kLayout = make_layout();
 constexpr int kPartialFloats = kLayout.off[kNumGrads];
 __constant__ Layout c_layout = make_layout();
 
-// Pass B1. The delta scratch holds kSpill floats a sample, shaped like the
-// saved rows: delta_0..delta_7 at l * kWidth, the bottleneck's gradient at
-// kSpillBtl, delta_v at kSpillView. D and H (kRows x kAct) use the forward's
-// activation stride, the weight ring its stages (nerf_level.cuh).
-// A B1 block's narrow partial set: the head gradients summed over its rays.
+// Pass B1. The delta scratch holds kSpill values a sample (fp32, bf16 in
+// bf16 mode), shaped like the saved rows: delta_0..delta_7 at l * kWidth,
+// the bottleneck's gradient at kSpillBtl, delta_v at kSpillView. D and H
+// (kRows x kAct) use the forward's activation stride, the weight ring its
+// stages (nerf_level.cuh).
+// A B1 block's narrow partial set: the head gradients summed over its rays;
+// in bf16 mode also the bias gradients b0..b7, bb, bv, the fp32 deltas
+// summed over its rows (kNarrowBias + the delta's column).
 constexpr int kNarrowWd = 0, kNarrowBd = kNarrowWd + kWidth, kNarrowWr = kNarrowBd + 4,
               kNarrowBr = kNarrowWr + kCondWidth * 3, kNarrowWvb = kNarrowBr + 4,
               kNarrowFloats = kNarrowWvb + kView * kCondWidth;
+constexpr int kNarrowBias = kNarrowFloats, kNarrowFloats16 = kNarrowBias + kSpill;
+// B1 in bf16 mode keeps a saved activation as a bf16 tile H16 (kRows x kH16:
+// rows 528 bytes apart, 4 mod 32 words, so the masks' pair reads of a warp
+// hit 32 banks), and, for the bias sums, the two row halves' column sums of
+// a chunk (ps, 2 x kSpillView) and the block's running sums (bsum, kSpill),
+// all in the space the fp32 H takes, so its shared memory is the fp32 B1's.
+constexpr int kH16 = kWidth + 8;
+static_assert(kRows * kH16 / 2 + 2 * kSpillView + kSpill <= kRows * kAct, "H16, ps and bsum fit in H's space");
 
 // Pass B2. dW = H^T . Delta for one layer, split over kRanges fixed ranges of
 // sample rows; a block owns a kDwM x kDwN tile of one dW and one range, and
@@ -273,18 +295,23 @@ static_assert(kDwStep % kDwRows == 0 && kDwRows % 8 == 0, "a step is whole stage
 static_assert((kDwRows / 8) * 2 * 32 == kThreads, "the split pass: one thread a (k8 step, row half, lane)");
 static_assert(kDwStageBytes % 128 == 0 && (kDwRows * kDwHs * 4) % 128 == 0, "TMA destinations 128-byte aligned");
 constexpr int kX = -1;  // h_off of the products whose H is the encoded input
-// B2 in bf16 mode: kDw16Step rows a step, a ring of kDw16Stages fp32 stages
-// (H's kDwM then Delta's kDwN columns a row, unpadded), one bf16 tile of the
-// step (row strides 72 and 136 bf16, 144 and 272 bytes: the 8 rows of an
-// ldmatrix fall in 8 different 16-byte bank groups) and the stages' full
-// barriers, after up to kRingAlign bytes of alignment: 112,672 bytes, two
-// blocks a SM.
-constexpr int kDw16Step = 32, kDw16Stages = 4;
-constexpr int kDw16Stage = kDw16Step * (kDwM + kDwN);
-constexpr int kDw16Hs = kDwM + 8, kDw16Ds = kDwN + 8;
-constexpr size_t kDw16SmemBytes = kRingAlign + sizeof(float) * kDw16Stages * kDw16Stage +
-                                 sizeof(uint16_t) * kDw16Step * (kDw16Hs + kDw16Ds) + kDw16Stages * sizeof(uint64_t);
-static_assert(kDw16Stages * kDw16Stage >= (kThreads / 32) * kDwN, "the bias tile's row groups fit in the ring");
+// B2 in bf16 mode: a ring of kDw16Stages stages of kDw16Step rows, each
+// Delta's kDwN columns as two boxes of 64 (128 bytes a row) and then H's
+// kDwM, bf16 as TMA writes them with the 128-byte swizzle (kDw16StageBytes),
+// and a full and an empty barrier a stage, after up to kRingAlign bytes of
+// alignment: 99,456 bytes, two blocks a SM. xenc's tiles take the ring as
+// kDw16Stages / 2 slots of two stages: Delta and H as above, then the step's
+// fp32 xenc rows (kDw16Step x kDwM floats).
+constexpr int kDw16Step = 32, kDw16Stages = 8;
+constexpr int kDw16Box = kDw16Step * 64 * (int)sizeof(uint16_t);  // one 64-column box: 4,096 bytes
+constexpr int kDw16DBytes = (kDwN / 64) * kDw16Box;
+constexpr int kDw16StageBytes = kDw16DBytes + (kDwM / 64) * kDw16Box;
+constexpr size_t kDw16SmemBytes =
+    kRingAlign + (size_t)kDw16Stages * kDw16StageBytes + 2 * kDw16Stages * sizeof(uint64_t);
+static_assert(kDw16Box % 1024 == 0 && kDw16StageBytes % 1024 == 0, "swizzle atoms (8 rows of 128 bytes) aligned");
+static_assert(kDw16StageBytes + kDw16Step * kDwM * (int)sizeof(float) <= 2 * kDw16StageBytes,
+              "an xenc slot holds the step's fp32 rows");
+static_assert(kDw16Step * kDwM == 8 * kThreads && kDw16Step % 16 == 0, "the xenc rounding pass: 8 values a thread");
 
 // One weight product: dW[grad] (K x N) = H^T . Delta over all sample rows,
 // H the saved columns [h_off, h_off + K) (or xenc), Delta the scratch columns
@@ -315,9 +342,11 @@ constexpr int count_tiles() {
 constexpr int kDwTiles = count_tiles();  // 72
 
 // K1s: K1's forward walk over the block's ray_tile rays, saving every valid
-// row's activations to `saved` (kSpill floats a sample), then K1's integrator
-// forward (comp, acc, depth, weights, the same bits as K1's) and each
-// sample's raw sigma and rgb to `raw` (4 floats a sample) for the
+// row's activations to `saved` (kSpill values a sample: fp32, or bf16 in
+// bf16 mode, through `spill_map`, by TMA stores from the bf16 tile in the
+// ring's last two stages, the ring running on kSpillStages), then K1's
+// integrator forward (comp, acc, depth, weights, the same bits as K1's) and
+// each sample's raw sigma and rgb to `raw` (4 floats a sample) for the
 // integrator backward.
 template <bool Bf16>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -325,18 +354,25 @@ level_fwd_spill_kernel(const float* __restrict__ t, const float* __restrict__ ra
                        const float* __restrict__ venc, const float* __restrict__ xenc, Weights w,
                        const __grid_constant__ WeightMaps maps, float* __restrict__ comp,
                        float* __restrict__ acc_out, float* __restrict__ depth, float* __restrict__ weights_out,
-                       float* __restrict__ saved, float* __restrict__ raw,
-                       int S, int ray_tile, int white_bkgd) {
+                       SpillElem<Bf16>* __restrict__ saved, float* __restrict__ raw,
+                       int S, int ray_tile, int white_bkgd, const __grid_constant__ SpillMap<Bf16> spill_map) {
   extern __shared__ __align__(16) float smem[];
   const ForwardSmem m = carve_forward_smem(smem, S, ray_tile);
   const int ray0 = blockIdx.x * ray_tile;
   const int n_rows = ray_tile * S;
   const size_t row_base = (size_t)ray0 * S;
 
-  FwdRing<Bf16> ring(m.ring, maps.m, n_rows);
+  FwdRing<Bf16, Bf16 ? kSpillStages : kStages> ring(m.ring, maps.m, n_rows);
   view_terms<Bf16>(venc, w.wvb, m.cterm, ray0, ray_tile);
-  for (int row0 = 0; row0 < n_rows; row0 += kRows)
-    forward_chunk<true, Bf16>(xenc, w, ring, m, row_base, row0, n_rows, S, saved + (row_base + row0) * kSpill);
+  for (int row0 = 0; row0 < n_rows; row0 += kRows) {
+    if constexpr (Bf16) {
+      const SpillTo<true> spill{&spill_map.map, smem_addr(m.ring + kSpillTileFloats), row0, 0};
+      forward_chunk<true, Bf16>(xenc, w, ring, m, row_base, row0, n_rows, S, spill);
+    } else {
+      forward_chunk<true, Bf16>(xenc, w, ring, m, row_base, row0, n_rows, S,
+                                SpillTo<false>{saved + (row_base + row0) * kSpill});
+    }
+  }
   // forward_chunk ended with a barrier: sig and rgb are complete
   const float *sig = m.sig, *rgb = m.rgb;
   for (int i = threadIdx.x; i < n_rows; i += kThreads)
@@ -432,10 +468,7 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool val
 
 // D[r][c] = (acc + gs[r] wd[c]) * (M[r][c] > 0), the rank-1 term when wd is
 // given and the mask when M is; rows below valid_rows also to the scratch
-// rows dst + r * kSpill + c. With Bf16 the scratch gets the fp32 delta and D,
-// the next product's operand, the delta rounded to bf16, and the rank-1
-// product rounds g_raw_sigma. Ends with a barrier.
-template <bool Bf16>
+// rows dst + r * kSpill + c. Ends with a barrier.
 __device__ __forceinline__ void store_delta(const ChunkAcc<kWidth>& acc, float* D, const float* M, const float* gs,
                                             const float* __restrict__ wd, float* __restrict__ dst,
                                             int valid_rows) {
@@ -456,18 +489,95 @@ __device__ __forceinline__ void store_delta(const ChunkAcc<kWidth>& acc, float* 
         const int r = r0 + 16 * mi + 8 * h;
         float x0 = acc[mi][ni][2 * h], x1 = acc[mi][ni][2 * h + 1];
         if (wd != nullptr) {
-          x0 = fmaf(operand<Bf16>(gs[r]), v0, x0);
-          x1 = fmaf(operand<Bf16>(gs[r]), v1, x1);
+          x0 = fmaf(gs[r], v0, x0);
+          x1 = fmaf(gs[r], v1, x1);
         }
         if (M != nullptr) {
           if (!(M[r * kAct + c] > 0.f)) x0 = 0.f;
           if (!(M[r * kAct + c + 1] > 0.f)) x1 = 0.f;
         }
-        *reinterpret_cast<float2*>(D + r * kAct + c) = make_float2(operand<Bf16>(x0), operand<Bf16>(x1));
+        *reinterpret_cast<float2*>(D + r * kAct + c) = make_float2(x0, x1);
         if (r < valid_rows) *reinterpret_cast<float2*>(dst + (size_t)r * kSpill + c) = make_float2(x0, x1);
       }
   }
   __syncthreads();
+}
+
+// One step of the bias sums' shuffle tree: a lane keeps the half of its N
+// column sums that its lane bit M selects and adds the same half of the
+// lane M apart.
+template <int M, int N>
+__device__ __forceinline__ void keep_half(float (&s)[16]) {
+  const bool upper = threadIdx.x & M;
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    const float mine = upper ? s[i + N / 2] : s[i];
+    s[i] = mine + __shfl_xor_sync(kFull, upper ? s[i] : s[i + N / 2], M);
+  }
+}
+
+// store_delta in bf16 mode: the same delta, rounded to bf16 (to nearest,
+// ties to even) into D, the next product's operand, and into the bf16 tile
+// (stage_bf16), from which thread 0 stores the chunk's rows to the scratch
+// by TMA after the closing barrier (dst; the next delta_product_done<true>
+// waits for the stores to read the tile); the rank-1 product rounds
+// g_raw_sigma; the mask from the bf16 tile M (stride kH16). The unrounded
+// fp32 deltas of the rows below valid_rows are summed for the bias
+// gradients: each thread's four rows in order (32 (w / 4) + g + 0, 8, 16,
+// 24), then a fixed shuffle tree over the warp's eight row groups (lanes
+// 16, 8, 4 apart) that leaves lane (g, t) the sums of its warp's columns
+// 8 g + 2 t + {0, 1} over the warp's 32 rows, which go to sums[half *
+// kSpillView + column], half = w / 4 the warp's row half. Ends with a
+// barrier.
+__device__ __forceinline__ void store_delta_bf16(const ChunkAcc<kWidth>& acc, float* D, const uint16_t* M,
+                                                 const float* gs, const float* __restrict__ wd, SpillTo<true> dst,
+                                                 int valid_rows, float* sums) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = (warp >> 2) * 32 + (lane >> 2), cw = (warp & 3) * 64, c0 = cw + 2 * (lane & 3);
+  float s[16];
+#pragma unroll
+  for (int ni = 0; ni < 8; ++ni) {
+    const int c = c0 + 8 * ni;
+    float v0 = 0.f, v1 = 0.f;
+    if (wd != nullptr) {
+      v0 = __ldg(wd + c);
+      v1 = __ldg(wd + c + 1);
+    }
+    uint32_t pairs[4];
+    s[2 * ni] = s[2 * ni + 1] = 0.f;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + 16 * mi + 8 * h;
+        float x0 = acc[mi][ni][2 * h], x1 = acc[mi][ni][2 * h + 1];
+        if (wd != nullptr) {
+          x0 = fmaf(round_bf16(gs[r]), v0, x0);
+          x1 = fmaf(round_bf16(gs[r]), v1, x1);
+        }
+        if (M != nullptr) {
+          const uint32_t m = *reinterpret_cast<const uint32_t*>(M + r * kH16 + c);
+          if (!(bf16_bits_to_float(m & 0xffffu) > 0.f)) x0 = 0.f;
+          if (!(bf16_bits_to_float(m >> 16) > 0.f)) x1 = 0.f;
+        }
+        const uint32_t p = bf16x2_rn(x0, x1);
+        pairs[2 * mi + h] = p;
+        *reinterpret_cast<float2*>(D + r * kAct + c) =
+            make_float2(bf16_bits_to_float(p & 0xffffu), bf16_bits_to_float(p >> 16));
+        if (r < valid_rows) {
+          s[2 * ni] += x0;
+          s[2 * ni + 1] += x1;
+        }
+      }
+    stage_bf16<kWidth>(dst.tile, ni, pairs);
+  }
+  keep_half<16, 16>(s);
+  keep_half<8, 8>(s);
+  keep_half<4, 4>(s);
+  *reinterpret_cast<float2*>(sums + (warp >> 2) * kSpillView + cw + 2 * lane) = make_float2(s[0], s[1]);
+  fence_proxy_async();
+  __syncthreads();
+  if (threadIdx.x == 0) store_spill_tile<kWidth>(dst.map, dst.tile, dst.col, dst.row0);
 }
 
 // H[r][c] = rows[r * kSpill + c] for c < N and r < valid_rows, else 0, as
@@ -483,19 +593,37 @@ __device__ __forceinline__ void load_rows(float* H, const float* __restrict__ ro
   cp_async_commit();
 }
 
+// The same from the bf16 scratch into the bf16 tile H (stride kH16).
+template <int N>
+__device__ __forceinline__ void load_rows(uint16_t* H, const uint16_t* __restrict__ rows, int valid_rows) {
+  constexpr int kVec = N / 8;
+  for (int i = threadIdx.x; i < kRows * kVec; i += kThreads) {
+    const int r = i / kVec, c = (i % kVec) * 8;
+    const bool valid = r < valid_rows;
+    cp_async16(reinterpret_cast<float*>(H + r * kH16 + c),
+               reinterpret_cast<const float*>(valid ? rows + (size_t)r * kSpill + c : rows), valid);
+  }
+  cp_async_commit();
+}
+
 // After one of B1's products: this thread's cp.async group (the next saved
 // activation H, loaded under the product) has landed, and after the barrier
 // every thread's has, and every warp has finished reading D, which the
-// epilogue overwrites.
+// epilogue overwrites; in bf16 mode also the last delta's TMA stores have
+// read the bf16 tile.
+template <bool Bf16>
 __device__ __forceinline__ void delta_product_done() {
   cp_async_wait<0>();
+  if constexpr (Bf16) {
+    if (threadIdx.x == 0) bulk_wait_read();
+  }
   __syncthreads();
 }
 
 // B1's weight stream: B1Schedule's fp32 flax-layout weights, or in bf16 mode
-// their bf16 pack (B1Bf16Schedule).
+// their bf16 pack (B1Bf16Schedule) on kSpillStages stages of the ring.
 template <bool Bf16>
-using B1Ring = WeightRing<std::conditional_t<Bf16, B1Bf16Schedule, B1Schedule>>;
+using B1Ring = WeightRing<std::conditional_t<Bf16, B1Bf16Schedule, B1Schedule>, Bf16 ? kSpillStages : kStages>;
 
 // acc += D[:, :K] . W^T, W the next product of B1's stream: 3xTF32 through
 // gemm_wt in fp32, native bf16 through gemm_bf16 in bf16 mode (D holds the
@@ -506,15 +634,23 @@ __device__ __forceinline__ void delta_product(ChunkAcc<kWidth>& acc, const float
   else gemm_wt<kWidth, kAct, 4>(acc, D, K, ring);
 }
 
+// B1 in bf16 mode, in the space of the fp32 H tile at H: the bf16 tile H16
+// of a saved activation, then the bias sums' ps and bsum.
+__device__ __forceinline__ uint16_t* b1_h16(float* H) { return reinterpret_cast<uint16_t*>(H); }
+__device__ __forceinline__ float* b1_ps(float* H) { return H + kRows * kH16 / 2; }
+__device__ __forceinline__ float* b1_bsum(float* H) { return b1_ps(H) + 2 * kSpillView; }
+
 // `maps` holds B1Schedule's weights (wva, wb, w7, w6, w5x, w4, w3, w2, w1)
 // in their flax layout, or in bf16 mode B1Bf16Schedule's pack of them (wd
-// and wr come rounded to bf16 then).
+// and wr come rounded to bf16 then), and `delta_map` the bf16 delta scratch
+// for the TMA stores of its trunk's and bottleneck's deltas.
 template <bool Bf16>
 __global__ void __launch_bounds__(kThreads, 1)
 level_bwd_delta_kernel(const float* __restrict__ venc, const float* __restrict__ wd, const float* __restrict__ wr,
-                       const __grid_constant__ WeightMaps maps, const float* __restrict__ saved,
-                       const float* __restrict__ grow, float* __restrict__ delta, float* __restrict__ narrow, int S,
-                       int ray_tile) {
+                       const __grid_constant__ WeightMaps maps, const SpillElem<Bf16>* __restrict__ saved,
+                       const float* __restrict__ grow, SpillElem<Bf16>* __restrict__ delta,
+                       float* __restrict__ narrow, int S, int ray_tile,
+                       const __grid_constant__ SpillMap<Bf16> delta_map) {
   extern __shared__ __align__(16) float smem[];
   float* ring_buf = ring_base(smem);                     // the weight ring and its barriers
   float* D = ring_buf + kRingBytes / sizeof(float);      // kRows x kAct: the current delta
@@ -530,6 +666,9 @@ level_bwd_delta_kernel(const float* __restrict__ venc, const float* __restrict__
   B1Ring<Bf16> ring(ring_buf, maps.m, n_rows);
 
   for (int i = tid; i < ray_tile * kCondWidth; i += kThreads) gc[i] = 0.f;
+  if constexpr (Bf16) {
+    for (int c = tid; c < kSpill; c += kThreads) b1_bsum(H)[c] = 0.f;  // thread c % kThreads owns column c
+  }
   // This thread's head gradients over the block's rows, each chunk's sum
   // added in chunk order: wd[tid]; wr[tid][0..2] (tid < 128); bd (tid 128)
   // or br[tid - 129] (tid 129..131).
@@ -537,15 +676,16 @@ level_bwd_delta_kernel(const float* __restrict__ venc, const float* __restrict__
 
   for (int row0 = 0; row0 < n_rows; row0 += kRows) {
     const int valid_rows = min(kRows, n_rows - row0);
-    const float* sv = saved + (row_base + row0) * kSpill;
-    float* dv = delta + (row_base + row0) * kSpill;
+    const SpillElem<Bf16>* sv = saved + (row_base + row0) * kSpill;
+    SpillElem<Bf16>* dv = delta + (row_base + row0) * kSpill;
     const float* gr = grow + (row_base + row0) * 4;
     for (int i = tid; i < kRows * 4; i += kThreads) {
       const int r = i / 4, c = i % 4;
       const float v = r < valid_rows ? gr[i] : 0.f;
       if (c == 0) gs[r] = v; else grgb[r * 3 + c - 1] = v;
     }
-    load_rows<kCondWidth>(H, sv + kSpillView, valid_rows);  // hv
+    if constexpr (Bf16) load_rows<kCondWidth>(b1_h16(H), sv + kSpillView, valid_rows);  // hv
+    else load_rows<kCondWidth>(H, sv + kSpillView, valid_rows);
     cp_async_wait<0>();
     __syncthreads();
 
@@ -553,7 +693,9 @@ level_bwd_delta_kernel(const float* __restrict__ venc, const float* __restrict__
     if (tid < kCondWidth) {
       float s0 = 0.f, s1 = 0.f, s2 = 0.f;
       for (int r = 0; r < kRows; ++r) {
-        const float h = operand<Bf16>(H[r * kAct + tid]);
+        float h;
+        if constexpr (Bf16) h = bf16_bits_to_float(b1_h16(H)[r * kH16 + tid]);
+        else h = operand<Bf16>(H[r * kAct + tid]);
         s0 = fmaf(h, operand<Bf16>(grgb[r * 3]), s0);
         s1 = fmaf(h, operand<Bf16>(grgb[r * 3 + 1]), s1);
         s2 = fmaf(h, operand<Bf16>(grgb[r * 3 + 2]), s2);
@@ -576,52 +718,95 @@ level_bwd_delta_kernel(const float* __restrict__ venc, const float* __restrict__
       const float g = operand<Bf16>(grgb[r * 3]) * __ldg(wr + c * 3) +
                       operand<Bf16>(grgb[r * 3 + 1]) * __ldg(wr + c * 3 + 1) +
                       operand<Bf16>(grgb[r * 3 + 2]) * __ldg(wr + c * 3 + 2);
-      D[r * kAct + c] = H[r * kAct + c] > 0.f ? g : 0.f;
+      float h;
+      if constexpr (Bf16) h = bf16_bits_to_float(b1_h16(H)[r * kH16 + c]);
+      else h = H[r * kAct + c];
+      D[r * kAct + c] = h > 0.f ? g : 0.f;
     }
     __syncthreads();
     // The per-ray sum of delta_v for wvb (one thread per column, rows in
-    // order), and delta_v to the scratch.
+    // order; in bf16 mode also its bias sum bv, chunk after chunk), and
+    // delta_v to the scratch.
     if (tid < kCondWidth) {
-      for (int r = 0; r < valid_rows; ++r) gc[((row0 + r) / S) * kCondWidth + tid] += D[r * kAct + tid];
+      if constexpr (Bf16) {
+        float bv = 0.f;
+        for (int r = 0; r < valid_rows; ++r) {
+          const float x = D[r * kAct + tid];
+          gc[((row0 + r) / S) * kCondWidth + tid] += x;
+          bv += x;
+        }
+        b1_bsum(H)[kSpillView + tid] += bv;
+      } else {
+        for (int r = 0; r < valid_rows; ++r) gc[((row0 + r) / S) * kCondWidth + tid] += D[r * kAct + tid];
+      }
     }
-    for (int i = tid; i < valid_rows * (kCondWidth / 4); i += kThreads) {
-      const int r = i / (kCondWidth / 4), c = (i % (kCondWidth / 4)) * 4;
-      *reinterpret_cast<float4*>(dv + (size_t)r * kSpill + kSpillView + c) =
-          *reinterpret_cast<const float4*>(D + r * kAct + c);
-    }
-    if constexpr (Bf16) {  // the product's operand: delta_v rounded, once the fp32 reads above are done
+    if constexpr (!Bf16) {
+      for (int i = tid; i < valid_rows * (kCondWidth / 4); i += kThreads) {
+        const int r = i / (kCondWidth / 4), c = (i % (kCondWidth / 4)) * 4;
+        *reinterpret_cast<float4*>(dv + (size_t)r * kSpill + kSpillView + c) =
+            *reinterpret_cast<const float4*>(D + r * kAct + c);
+      }
+    } else {  // once the fp32 reads above are done: delta_v rounded, the product's operand and the scratch's value
       __syncthreads();
-      for (int i = tid; i < kRows * kCondWidth; i += kThreads) {
-        float* x = D + (i / kCondWidth) * kAct + i % kCondWidth;
-        *x = round_bf16(*x);
+      for (int i = tid; i < kRows * (kCondWidth / 8); i += kThreads) {
+        const int r = i / (kCondWidth / 8), c = (i % (kCondWidth / 8)) * 8;
+        float* x = D + r * kAct + c;
+        const float4 a = *reinterpret_cast<const float4*>(x), b = *reinterpret_cast<const float4*>(x + 4);
+        const uint4 p = make_uint4(bf16x2_rn(a.x, a.y), bf16x2_rn(a.z, a.w), bf16x2_rn(b.x, b.y), bf16x2_rn(b.z, b.w));
+        *reinterpret_cast<float4*>(x) = make_float4(bf16_bits_to_float(p.x & 0xffffu), bf16_bits_to_float(p.x >> 16),
+                                                    bf16_bits_to_float(p.y & 0xffffu), bf16_bits_to_float(p.y >> 16));
+        *reinterpret_cast<float4*>(x + 4) = make_float4(bf16_bits_to_float(p.z & 0xffffu), bf16_bits_to_float(p.z >> 16),
+                                                        bf16_bits_to_float(p.w & 0xffffu), bf16_bits_to_float(p.w >> 16));
+        if (r < valid_rows) *reinterpret_cast<uint4*>(dv + (size_t)r * kSpill + kSpillView + c) = p;
       }
       __syncthreads();
     }
-    load_rows<kWidth>(H, sv + 7 * kWidth, valid_rows);  // h7, lands under the product
+    if constexpr (Bf16) load_rows<kWidth>(b1_h16(H), sv + 7 * kWidth, valid_rows);  // h7, lands under the product
+    else load_rows<kWidth>(H, sv + 7 * kWidth, valid_rows);
     ChunkAcc<kWidth> acc;
     zero_acc(acc);  // g_btl = delta_v . wva^T
     delta_product<Bf16>(acc, D, kCondWidth, ring);
-    delta_product_done();
-    store_delta<Bf16>(acc, D, nullptr, nullptr, nullptr, dv + kSpillBtl, valid_rows);
+    delta_product_done<Bf16>();
+    // bf16 mode: the chunk's rows of the delta scratch, stored from the bf16 tile in the ring's last two stages
+    [[maybe_unused]] const auto dt = [&] {
+      if constexpr (Bf16) return SpillTo<true>{&delta_map.map, smem_addr(ring_buf + kSpillTileFloats), row0, 0};
+      else return 0;
+    }();
+    if constexpr (Bf16)
+      store_delta_bf16(acc, D, nullptr, nullptr, nullptr, dt + kSpillBtl, valid_rows, b1_ps(H) + kSpillBtl);
+    else store_delta(acc, D, nullptr, nullptr, nullptr, dv + kSpillBtl, valid_rows);
     {  // density head: wd += h7^T g_raw_sigma
       float s = 0.f;
-      for (int r = 0; r < kRows; ++r) s = fmaf(operand<Bf16>(H[r * kAct + tid]), operand<Bf16>(gs[r]), s);
+      if constexpr (Bf16) {
+        for (int r = 0; r < kRows; ++r) s = fmaf(bf16_bits_to_float(b1_h16(H)[r * kH16 + tid]), round_bf16(gs[r]), s);
+      } else {
+        for (int r = 0; r < kRows; ++r) s = fmaf(operand<Bf16>(H[r * kAct + tid]), operand<Bf16>(gs[r]), s);
+      }
       n_wd += s;
     }
     zero_acc(acc);  // delta_7 = (g_btl . wb^T + g_raw_sigma wd^T) * (h7 > 0)
     delta_product<Bf16>(acc, D, kWidth, ring);
-    delta_product_done();
-    store_delta<Bf16>(acc, D, H, gs, wd, dv + 7 * kWidth, valid_rows);
+    delta_product_done<Bf16>();
+    if constexpr (Bf16)
+      store_delta_bf16(acc, D, b1_h16(H), gs, wd, dt + 7 * kWidth, valid_rows, b1_ps(H) + 7 * kWidth);
+    else store_delta(acc, D, H, gs, wd, dv + 7 * kWidth, valid_rows);
     for (int l = 6; l >= 0; --l) {  // delta_l = (delta_{l+1} . W_{l+1}^T) * (h_l > 0), W_5 = w5x
-      load_rows<kWidth>(H, sv + l * kWidth, valid_rows);
+      if constexpr (Bf16) load_rows<kWidth>(b1_h16(H), sv + l * kWidth, valid_rows);
+      else load_rows<kWidth>(H, sv + l * kWidth, valid_rows);
       zero_acc(acc);
       delta_product<Bf16>(acc, D, kWidth, ring);
-      delta_product_done();
-      store_delta<Bf16>(acc, D, H, nullptr, nullptr, dv + l * kWidth, valid_rows);
+      delta_product_done<Bf16>();
+      if constexpr (Bf16)
+        store_delta_bf16(acc, D, b1_h16(H), nullptr, nullptr, dt + l * kWidth, valid_rows, b1_ps(H) + l * kWidth);
+      else store_delta(acc, D, H, nullptr, nullptr, dv + l * kWidth, valid_rows);
+    }
+    if constexpr (Bf16) {  // the chunk's bias sums, row half 0 then 1, into the running sums (the last barrier ordered ps)
+      const float* ps = b1_ps(H);
+      for (int c = tid; c < kSpillView; c += kThreads) b1_bsum(H)[c] += ps[c] + ps[kSpillView + c];
     }
   }
 
-  float* nw = narrow + (size_t)blockIdx.x * kNarrowFloats;
+  float* nw = narrow + (size_t)blockIdx.x * (Bf16 ? kNarrowFloats16 : kNarrowFloats);
   nw[kNarrowWd + tid] = n_wd;
   if (tid < kCondWidth) {
     nw[kNarrowWr + tid * 3] = n_wr0;
@@ -631,6 +816,10 @@ level_bwd_delta_kernel(const float* __restrict__ venc, const float* __restrict__
     nw[kNarrowBd] = n_b;
   } else if (tid < kCondWidth + 4) {
     nw[kNarrowBr + tid - kCondWidth - 1] = n_b;
+  }
+  if constexpr (Bf16) {
+    for (int c = tid; c < kSpill; c += kThreads) nw[kNarrowBias + c] = b1_bsum(H)[c];
+    if (tid == 0) bulk_wait_all();  // the last delta's stores have landed
   }
   // wvb = venc^T (per-ray sum of delta_v); the last chunk's barriers ordered gc.
   for (int i = tid; i < kView * kCondWidth; i += kThreads) {
@@ -891,33 +1080,38 @@ level_bwd_dw_kernel(const __grid_constant__ DwMaps maps, const float* __restrict
 }
 
 // B2 in bf16 mode: the same tiles, ranges and partial sets as the fp32 B2,
-// on native bf16 products. A step is 32 rows. A block whose H is a saved
-// layer has thread 0 load, by TMA, the step's H rows (32 x 64) and Delta
-// rows (32 x 128) into a ring of kDw16Stages fp32 stages, each with a full
-// barrier that takes the stage's 24,576 bytes. A stage is refilled only
-// after the barrier that ends the pass that read it, so it needs no empty
-// barrier. The tiles whose H is xenc (w0, w5i) stage by cp.async (xenc's
-// 63-float rows are no TMA box), one committed group a step, the pad
-// column zeroed. Once a step has landed, one pass rounds each value to bf16
-// (cvt.rn: to nearest, ties to even) into the step's bf16 tile, in the
-// layout ldmatrix reads, and adds the fp32 deltas of the bias tile into
-// each thread's running column sums; the warps then run the step's two k16
-// slices on mma.sync m16n8k16 bf16, A = H^T and B = Delta each loaded by
-// ldmatrix.trans from their [row][col] tiles. Each step's products go to a
-// fresh accumulator that an fp32 add folds into the tile's sum (the tensor
-// cores truncate as they accumulate). The bias tile: thread i sums columns
-// 4 (i % 32) + [0, 4) over the rows (i / 32) + 8 j of every step in order;
-// the eight row groups' sums are then added in group order. Steps end on
-// multiples of 32 rows (rows_per_range is a multiple of 64), so only the
-// last range's last step runs past its rows, into rows TMA reads as zeros
-// (past n_total) or cp.async zero-fills.
-constexpr int kDw16StageBytes = kDw16Stage * (int)sizeof(float);
+// on native bf16 products from bf16 tiles that TMA writes straight into the
+// layout the tensor cores read. A step is kDw16Step = 32 rows. A block whose
+// H is a saved layer has thread 0 load, by TMA, each step's Delta rows (32 x
+// 128 bf16, as two 64-column boxes) and H rows (32 x 64) into the next stage
+// of a ring of kDw16Stages, with the 128-byte swizzle (the 16-byte chunk j
+// of a 128-byte row r lands at chunk j ^ (r % 8)), kDw16Stages - 2 steps
+// ahead of the one the warps read, each stage with a full barrier that takes
+// its 12,288 bytes and an empty barrier on which every warp arrives once it
+// has read the stage; thread 0 refills a stage once the empty barrier says
+// every warp has left it. The tiles whose H is xenc (w0, w5i; xenc's
+// 63-float rows are no TMA box) take the ring as slots of two stages: Delta
+// by TMA as above, xenc's fp32 rows by cp.async from every thread (the pad
+// column and rows at or past hi zero-filled), all arriving on the slot's
+// full barrier; once a step has landed, one pass rounds its xenc rows to
+// bf16 (cvt.rn: to nearest, ties to even) into the swizzled H box, and a
+// block barrier a step both ends that pass and frees the slot of the step
+// before. Warp w owns rows 32 (w / 4) + [0, 32) and columns 32 (w % 4) +
+// [0, 32) of the tile as 2 x 4 m16n8 tiles, A = H^T and B = Delta each
+// loaded by ldmatrix.x4.trans from the swizzled boxes (the 8 row addresses
+// of each 8x8 matrix hold one logical chunk of 8 consecutive rows, so they
+// fall in 8 different 16-byte bank groups: no conflict), then mma.sync
+// m16n8k16 bf16. Each step's two k16 slices go to a fresh accumulator that
+// an fp32 add folds into the tile's sum (the tensor cores truncate as they
+// accumulate). Steps end on multiples of 32 rows (rows_per_range is a
+// multiple of 64), so only the last range's last step runs past its rows,
+// into rows TMA reads as zeros (past n_total) or cp.async zero-fills. The
+// bias gradients are B1's in bf16 mode (its narrow sets), so B2 sums none.
 
-// Four 8x8 16-bit matrices, transposed: lanes 8j .. 8j + 7 give matrix j's
-// row addresses (16 bytes each), and r[j] gets element (2 (lane % 4) + e,
-// lane / 4) of matrix j in its half e.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const uint16_t* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+// Four 8x8 16-bit matrices, transposed, from the shared address `a`: lanes
+// 8j .. 8j + 7 give matrix j's row addresses (16 bytes each), and r[j] gets
+// element (2 (lane % 4) + e, lane / 4) of matrix j in its half e.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t a) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(a)
@@ -926,110 +1120,43 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const uint16
 
 __global__ void __launch_bounds__(kThreads, 2)
 level_bwd_dw_bf16_kernel(const __grid_constant__ DwMaps maps, const float* __restrict__ xenc,
-                         const float* __restrict__ delta, float* __restrict__ partials, int n_total,
-                         int rows_per_range) {
+                         float* __restrict__ partials, int n_total, int rows_per_range) {
   extern __shared__ __align__(16) float smem[];
-  float* ring = ring_base(smem);                                                // kDw16Stages fp32 stages
-  uint16_t* hb = reinterpret_cast<uint16_t*>(ring + kDw16Stages * kDw16Stage);  // kDw16Step x kDw16Hs bf16
-  uint16_t* db = hb + kDw16Step * kDw16Hs;                                      // kDw16Step x kDw16Ds bf16
-  uint64_t* full = reinterpret_cast<uint64_t*>(db + kDw16Step * kDw16Ds);       // kDw16Stages
+  char* ring = reinterpret_cast<char*>(ring_base(smem));  // kDw16Stages stages
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kDw16Stages * kDw16StageBytes);
+  uint64_t* empty = full + kDw16Stages;
   const DwBlock B = dw_block(n_total, rows_per_range);
   const DwProduct& P = B.P;
-  const bool tma = P.h_off != kX;
-  const int lo = B.lo, hi = B.hi;
-  const int n_steps = hi > lo ? (hi - lo + kDw16Step - 1) / kDw16Step : 0;
+  const int n_steps = B.hi > B.lo ? (B.hi - B.lo + kDw16Step - 1) / kDw16Step : 0;
 
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < kDw16Stages; ++i) mbar_init(&full[i], 1);
-    mbar_init_fence();
-  }
-  __syncthreads();
-
-  // Step t's fp32 rows into ring slot t % kDw16Stages: by TMA from thread 0,
-  // or, for xenc's tiles, by cp.async from every thread, one committed group
-  // a step (empty past the range).
-  auto stage = [&](int t) {
-    const int slot = t % kDw16Stages;
-    float* hs = ring + slot * kDw16Stage;
-    float* ds = hs + kDw16Step * kDwM;
-    const int s0 = lo + t * kDw16Step;
-    if (tma) {
-      if (threadIdx.x == 0 && t < n_steps) {
-        mbar_arrive_expect_tx(&full[slot], kDw16StageBytes);
-        tma_load_2d(hs, &maps.h, &full[slot], P.h_off + B.m0, s0);
-        tma_load_2d(ds, &maps.d, &full[slot], P.d_off + B.n0, s0);
-      }
-      return;
-    }
-    if (t < n_steps) {
-      for (int i = threadIdx.x; i < kDw16Step * kDwM; i += kThreads) {
-        const int r = i / kDwM, c = i % kDwM;
-        const bool valid = s0 + r < hi && c < kPos;
-        cp_async4(hs + r * kDwM + c, valid ? xenc + (size_t)(s0 + r) * kPos + c : xenc, valid);
-      }
-      for (int i = threadIdx.x; i < kDw16Step * (kDwN / 4); i += kThreads) {
-        const int r = i / (kDwN / 4), c = (i % (kDwN / 4)) * 4;
-        const bool valid = s0 + r < hi;
-        cp_async16(ds + r * kDwN + c, valid ? delta + (size_t)(s0 + r) * kSpill + P.d_off + B.n0 + c : delta, valid);
-      }
-    }
-    cp_async_commit();
-  };
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, sw = lane & 7;
   const int wr0 = (warp >> 2) * 32, wc0 = (warp & 3) * 32;
-  // ldmatrix row addresses: A's matrices (k 0-7 | 8-15) x (m 0-7 | 8-15) in
-  // the order a[0..3] takes them, B's (k 0-7 | 8-15) x (n 0-7 | 8-15) as b0,
-  // b1 of two neighbouring n8 tiles.
-  const uint16_t* pa = hb + ((lane & 7) + ((lane >> 4) << 3)) * kDw16Hs + wr0 + (((lane >> 3) & 1) << 3);
-  const uint16_t* pb = db + ((lane & 7) + (((lane >> 3) & 1) << 3)) * kDw16Ds + wc0 + ((lane >> 4) << 3);
+  // Each lane's ldmatrix row address in a stage, the swizzle applied (row %
+  // 8 = lane % 8): A's matrices (k 0-7 | 8-15) x (m 0-7 | 8-15) in the order
+  // a[0..3] takes them, of m16 tile mi; B's (k 0-7 | 8-15) x (n 0-7 | 8-15)
+  // as b0, b1 of n8 tiles 2 nj and 2 nj + 1.
+  const int ka = sw + ((lane >> 4) << 3), kb = sw + (((lane >> 3) & 1) << 3);
+  uint32_t a_off[2], b_off[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    a_off[i] = kDw16DBytes + ka * 128 + ((((wr0 >> 3) + ((lane >> 3) & 1) + 2 * i) ^ sw) << 4);
+    b_off[i] = (wc0 >> 6) * kDw16Box + kb * 128 + (((((wc0 & 63) >> 3) + (lane >> 4) + 2 * i) ^ sw) << 4);
+  }
   float tot[2][4][4];
   zero_acc(tot);
-  float bias[4] = {0.f, 0.f, 0.f, 0.f};
-
-#pragma unroll
-  for (int t = 0; t < kDw16Stages - 1; ++t) stage(t);
-  for (int s = 0; s < n_steps; ++s) {
-    const int slot = s % kDw16Stages;
-    if (tma) {
-      mbar_wait(&full[slot], (s / kDw16Stages) & 1);  // step s has landed
-    } else {
-      cp_async_wait<kDw16Stages - 2>();  // this thread's copies of step s have landed
-    }
-    __syncthreads();  // (everyone's copies have landed,) and no warp still reads the bf16 tile of step s - 1
-    {
-      const float* hs = ring + slot * kDw16Stage;
-      const float* ds = hs + kDw16Step * kDwM;
-#pragma unroll
-      for (int i = 0; i < kDw16Step * kDwM / (4 * kThreads); ++i) {
-        const int r = (threadIdx.x >> 4) + (kThreads / 16) * i, c = (threadIdx.x & 15) * 4;
-        const float4 v = *reinterpret_cast<const float4*>(hs + r * kDwM + c);
-        *reinterpret_cast<uint2*>(hb + r * kDw16Hs + c) = make_uint2(bf16x2_rn(v.x, v.y), bf16x2_rn(v.z, v.w));
-      }
-#pragma unroll
-      for (int i = 0; i < kDw16Step * kDwN / (4 * kThreads); ++i) {
-        const int r = (threadIdx.x >> 5) + (kThreads / 32) * i, c = (threadIdx.x & 31) * 4;
-        const float4 v = *reinterpret_cast<const float4*>(ds + r * kDwN + c);
-        if (B.with_bias) {
-          bias[0] += v.x;
-          bias[1] += v.y;
-          bias[2] += v.z;
-          bias[3] += v.w;
-        }
-        *reinterpret_cast<uint2*>(db + r * kDw16Ds + c) = make_uint2(bf16x2_rn(v.x, v.y), bf16x2_rn(v.z, v.w));
-      }
-    }
-    __syncthreads();  // the bf16 tile of step s is complete, and every thread is done with slot s
-    stage(s + kDw16Stages - 1);  // into the slot step s - 1 left
+  // A step's products from the stage at `stage`, into a fresh accumulator
+  // that is then added into tot.
+  auto multiply = [&](const char* stage) {
+    const uint32_t base = smem_addr(stage);
     float part[2][4][4];
     zero_acc(part);
 #pragma unroll
     for (int kk = 0; kk < kDw16Step; kk += 16) {
       uint32_t a[2][4], b[2][4];
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi) ldmatrix_x4_trans(a[mi], pa + kk * kDw16Hs + 16 * mi);
+      for (int mi = 0; mi < 2; ++mi) ldmatrix_x4_trans(a[mi], base + a_off[mi] + kk * 128);
 #pragma unroll
-      for (int nj = 0; nj < 2; ++nj) ldmatrix_x4_trans(b[nj], pb + kk * kDw16Ds + 16 * nj);
+      for (int nj = 0; nj < 2; ++nj) ldmatrix_x4_trans(b[nj], base + b_off[nj] + kk * 128);
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -1037,59 +1164,148 @@ level_bwd_dw_bf16_kernel(const __grid_constant__ DwMaps maps, const float* __res
           mma_bf16(part[mi][ni], a[mi], b[ni >> 1][2 * (ni & 1)], b[ni >> 1][2 * (ni & 1) + 1]);
     }
     add_into(tot, part);
-  }
-  if (!tma) cp_async_wait<0>();  // the groups left are empty
+  };
+  // Step t's Delta rows into `dst` by TMA, completing on bar.
+  auto load_delta = [&](char* dst, uint64_t* bar, int t) {
+    const int row = B.lo + t * kDw16Step;
+    tma_load_2d(reinterpret_cast<float*>(dst), &maps.d, bar, P.d_off + B.n0, row);
+    tma_load_2d(reinterpret_cast<float*>(dst + kDw16Box), &maps.d, bar, P.d_off + B.n0 + 64, row);
+  };
 
-  store_dw_tile(B, tot, partials);
-  if (B.with_bias) {  // the same for the whole block
-    __syncthreads();  // the ring is free: every copy has landed and been read
-    float* red = ring;  // (kThreads / 32) row groups x kDwN
-    *reinterpret_cast<float4*>(red + warp * kDwN + lane * 4) = make_float4(bias[0], bias[1], bias[2], bias[3]);
+  if (P.h_off != kX) {
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < kDw16Stages; ++i) {
+        mbar_init(&full[i], 1);
+        mbar_init(&empty[i], kWarps);
+      }
+      mbar_init_fence();
+    }
     __syncthreads();
-    if (threadIdx.x < kDwN) {
-      float b = 0.f;
-      for (int grp = 0; grp < kThreads / 32; ++grp) b += red[grp * kDwN + threadIdx.x];
-      partials[(size_t)B.q * kPartialFloats + c_layout.off[P.bias] + B.n0 + threadIdx.x] = b;
+    // Thread 0: step t into stage t % kDw16Stages, once every warp has left
+    // step t - kDw16Stages, which held it.
+    auto issue = [&](int t) {
+      const int st = t % kDw16Stages;
+      if (t >= kDw16Stages) mbar_wait(&empty[st], (t / kDw16Stages - 1) & 1);
+      char* dst = ring + st * kDw16StageBytes;
+      mbar_arrive_expect_tx(&full[st], kDw16StageBytes);
+      load_delta(dst, &full[st], t);
+      tma_load_2d(reinterpret_cast<float*>(dst + kDw16DBytes), &maps.h, &full[st], P.h_off + B.m0,
+                  B.lo + t * kDw16Step);
+    };
+    constexpr int kAhead = kDw16Stages - 2;  // steps in flight beyond the one the warps read
+    if (threadIdx.x == 0) {
+      for (int t = 0; t < kAhead && t < n_steps; ++t) issue(t);
+    }
+    for (int s = 0; s < n_steps; ++s) {
+      if (threadIdx.x == 0 && s + kAhead < n_steps) issue(s + kAhead);
+      const int st = s % kDw16Stages;
+      mbar_wait(&full[st], (s / kDw16Stages) & 1);
+      multiply(ring + st * kDw16StageBytes);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);
+    }
+  } else {
+    constexpr int kSlots = kDw16Stages / 2, kSlotBytes = 2 * kDw16StageBytes;
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < kSlots; ++i) mbar_init(&full[i], kThreads + 1);
+      mbar_init_fence();
+    }
+    __syncthreads();
+    // Every thread: step t into slot t % kSlots (nothing past the range).
+    auto issue = [&](int t) {
+      if (t >= n_steps) return;
+      const int st = t % kSlots;
+      char* dst = ring + st * kSlotBytes;
+      const int row = B.lo + t * kDw16Step;
+      if (threadIdx.x == 0) {
+        mbar_arrive_expect_tx(&full[st], kDw16DBytes);
+        load_delta(dst, &full[st], t);
+      }
+      float* xs = reinterpret_cast<float*>(dst + kDw16StageBytes);
+      for (int i = threadIdx.x; i < kDw16Step * kDwM; i += kThreads) {
+        const int r = i / kDwM, c = i % kDwM;
+        const bool valid = row + r < B.hi && c < kPos;
+        cp_async4(xs + i, valid ? xenc + (size_t)(row + r) * kPos + c : xenc, valid);
+      }
+      cp_async_arrive(&full[st]);
+    };
+    for (int t = 0; t < kSlots - 1; ++t) issue(t);
+    for (int s = 0; s < n_steps; ++s) {
+      const int st = s % kSlots;
+      char* slot = ring + st * kSlotBytes;
+      mbar_wait(&full[st], (s / kSlots) & 1);
+      {  // the step's xenc rows rounded into H's box: thread i row i / 8, its 16-byte chunk i % 8
+        const int r = threadIdx.x >> 3, ch = threadIdx.x & 7;
+        const float* x = reinterpret_cast<const float*>(slot + kDw16StageBytes) + r * kDwM + ch * 8;
+        const float4 lo = *reinterpret_cast<const float4*>(x), hi = *reinterpret_cast<const float4*>(x + 4);
+        *reinterpret_cast<uint4*>(slot + kDw16DBytes + r * 128 + ((ch ^ (r & 7)) << 4)) =
+            make_uint4(bf16x2_rn(lo.x, lo.y), bf16x2_rn(lo.z, lo.w), bf16x2_rn(hi.x, hi.y), bf16x2_rn(hi.z, hi.w));
+      }
+      __syncthreads();  // the step's H is complete, and no warp still reads the slot of step s - 1
+      issue(s + kSlots - 1);  // into that slot
+      multiply(slot);
     }
   }
+  store_dw_tile(B, tot, partials);
 }
 
-// B2's maps over `saved` and `delta`, boxes of h_cols (saved) and d_cols
-// (delta) columns x rows rows. Returns 0, or kMapError + the driver's
-// CUresult.
-int encode_dw_maps(DwMaps& maps, const float* saved, const float* delta, int n_total, int h_cols, int d_cols,
-                   int rows) {
+// B2's maps over `saved` and `delta`: n_total rows of kSpill values of
+// `elem` bytes, `type`, boxes of h_cols (saved) and d_cols (delta) columns x
+// rows rows, `swizzle`. Returns 0, or kMapError + the driver's CUresult.
+int encode_dw_maps(DwMaps& maps, const void* saved, const void* delta, int n_total, int h_cols, int d_cols,
+                   int rows, CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_FLOAT32, int elem = sizeof(float),
+                   CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_NONE) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return kMapError + CUDA_ERROR_NOT_FOUND;
   const cuuint64_t dims[2] = {(cuuint64_t)kSpill, (cuuint64_t)n_total};
-  const cuuint64_t strides[1] = {(cuuint64_t)kSpill * sizeof(float)};
+  const cuuint64_t strides[1] = {(cuuint64_t)kSpill * elem};
   const cuuint32_t unit[2] = {1, 1};
   const cuuint32_t box_h[2] = {(cuuint32_t)h_cols, (cuuint32_t)rows};
   const cuuint32_t box_d[2] = {(cuuint32_t)d_cols, (cuuint32_t)rows};
-  CUresult r = encode(&maps.h, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(saved), dims, strides, box_h,
-                      unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  CUresult r = encode(&maps.h, type, 2, const_cast<void*>(saved), dims, strides, box_h, unit,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) return kMapError + (int)r;
-  r = encode(&maps.d, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(delta), dims, strides, box_d, unit,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  r = encode(&maps.d, type, 2, const_cast<void*>(delta), dims, strides, box_d, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kMapError + (int)r;
+}
+
+// The SpillMap of a bf16 scratch (the rows of n_blocks blocks of block_rows
+// rows each, kSpill values a row, at `base`) for the TMA stores of K1s or B1
+// in bf16 mode. Returns 0, or kMapError + the driver's CUresult.
+int encode_spill_map(SpillMap<true>& m, void* base, int block_rows, int n_blocks) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return kMapError + CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t row_bytes = (cuuint64_t)kSpill * sizeof(uint16_t);
+  const cuuint64_t dims[3] = {(cuuint64_t)kSpill, (cuuint64_t)block_rows, (cuuint64_t)n_blocks};
+  const cuuint64_t strides[2] = {row_bytes, row_bytes * block_rows};
+  const cuuint32_t box[3] = {64, kRows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = encode(&m.map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, base, dims, strides, box, unit,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kMapError + (int)r;
 }
 
 // ------------------------------------------------------------- the reduction
 
 // Where gradient g sits in a B1 block's narrow set, or -1 for the gradients
-// of pass B2.
-__device__ __forceinline__ int narrow_offset(int g) {
+// of pass B2: the heads', and in bf16 mode the biases' of B2's products too.
+__device__ __forceinline__ int narrow_offset(int g, bool bf16) {
+  if (bf16) {
+    for (int p = 0; p < kNumProducts; ++p)
+      if (c_products[p].bias == g) return kNarrowBias + c_products[p].d_off;
+  }
   return g == G_WD ? kNarrowWd : g == G_BD ? kNarrowBd : g == G_WR ? kNarrowWr : g == G_BR ? kNarrowBr
        : g == G_WVB ? kNarrowWvb : -1;
 }
 
 // out[i]: the row ranges' partials (pass B2's gradients) or the B1 blocks'
-// narrow partials (the heads), each summed in a fixed order; 0 in the
-// padding between gradients.
+// narrow partials (the heads, and in bf16 mode the biases), each summed in a
+// fixed order; 0 in the padding between gradients.
 __global__ void level_bwd_reduce_kernel(const float* __restrict__ partials, const float* __restrict__ narrow,
-                                        int n_blocks, float* __restrict__ out) {
+                                        int n_blocks, int bf16, float* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= kPartialFloats) return;
   int g = 0;
@@ -1097,9 +1313,10 @@ __global__ void level_bwd_reduce_kernel(const float* __restrict__ partials, cons
   const int local = i - c_layout.off[g];
   float s = 0.f;
   if (local < c_layout.size[g]) {
-    const int nidx = narrow_offset(g);
+    const int nidx = narrow_offset(g, bf16 != 0);
     if (nidx >= 0) {
-      for (int b = 0; b < n_blocks; ++b) s += narrow[(size_t)b * kNarrowFloats + nidx + local];
+      const int stride = bf16 ? kNarrowFloats16 : kNarrowFloats;
+      for (int b = 0; b < n_blocks; ++b) s += narrow[(size_t)b * stride + nidx + local];
     } else {
       for (int q = 0; q < kRanges; ++q) s += partials[(size_t)q * kPartialFloats + i];
     }
@@ -1122,33 +1339,45 @@ bool bad_shape(int n_rays, int S, int ray_tile) {
   return n_rays <= 0 || S <= 0 || ray_tile <= 0 || n_rays % ray_tile != 0;
 }
 
+// `saved` holds fp32 values, or bf16 ones with dot_bf16.
 int launch_fwd_spill(const float* t, const float* rays_d, const float* venc, const float* xenc, const Weights& w,
-                     const void* wt, float* comp, float* acc, float* depth, float* weights, float* saved, float* raw,
+                     const void* wt, float* comp, float* acc, float* depth, float* weights, void* saved, float* raw,
                      int n_rays, int S, int ray_tile, int white_bkgd, int dot_bf16, cudaStream_t s) {
   const size_t smem = forward_smem_bytes(S, ray_tile);
-  auto* kernel = dot_bf16 ? level_fwd_spill_kernel<true> : level_fwd_spill_kernel<false>;
-  cudaError_t err = set_smem((const void*)kernel, smem);
+  const void* kernel = dot_bf16 ? (const void*)level_fwd_spill_kernel<true> : (const void*)level_fwd_spill_kernel<false>;
+  cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   WeightMaps maps;
   if (int map_err = encode_forward_maps(maps, wt, dot_bf16 != 0)) return map_err;
-  kernel<<<n_rays / ray_tile, kThreads, smem, s>>>(t, rays_d, venc, xenc, w, maps, comp, acc, depth, weights, saved,
-                                                   raw, S, ray_tile, white_bkgd);
+  const int n_blocks = n_rays / ray_tile;
+  if (dot_bf16) {
+    SpillMap<true> spill_map;
+    if (int map_err = encode_spill_map(spill_map, saved, ray_tile * S, n_blocks)) return map_err;
+    level_fwd_spill_kernel<true><<<n_blocks, kThreads, smem, s>>>(t, rays_d, venc, xenc, w, maps, comp, acc, depth,
+                                                                  weights, static_cast<uint16_t*>(saved), raw, S,
+                                                                  ray_tile, white_bkgd, spill_map);
+  } else {
+    level_fwd_spill_kernel<false><<<n_blocks, kThreads, smem, s>>>(t, rays_d, venc, xenc, w, maps, comp, acc, depth,
+                                                                   weights, static_cast<float*>(saved), raw, S,
+                                                                   ray_tile, white_bkgd, SpillMap<false>{});
+  }
   return cudaGetLastError();
 }
 
+// `saved` and `delta` hold fp32 values, or bf16 ones with dot_bf16.
 int launch_bwd_saved(const float* t, const float* rays_d, const float* venc, const float* xenc,
                      const Weights& w, const void* b1_pack, const float* g_comp, const float* g_acc,
-                     const float* g_depth, const float* g_weights, const float* saved, const float* raw, float* grow,
-                     float* delta, float* partials, float* narrow, float* out, int n_rays, int S, int ray_tile,
+                     const float* g_depth, const float* g_weights, const void* saved, const float* raw, float* grow,
+                     void* delta, float* partials, float* narrow, float* out, int n_rays, int S, int ray_tile,
                      int white_bkgd, int dot_bf16, cudaStream_t s) {
   if (dot_bf16 && b1_pack == nullptr) return cudaErrorInvalidValue;
   const size_t smem_i = sizeof(float) * kWarps * 3 * (size_t)S, smem_b1 = delta_smem_bytes(ray_tile);
-  auto* b1 = dot_bf16 ? level_bwd_delta_kernel<true> : level_bwd_delta_kernel<false>;
+  const void* b1 = dot_bf16 ? (const void*)level_bwd_delta_kernel<true> : (const void*)level_bwd_delta_kernel<false>;
   const void* b2 = dot_bf16 ? (const void*)level_bwd_dw_bf16_kernel : (const void*)level_bwd_dw_kernel;
   const size_t smem_b2 = dot_bf16 ? kDw16SmemBytes : kDwSmemBytes;
   cudaError_t err = set_smem((const void*)level_bwd_integrator_kernel, smem_i);
   if (err != cudaSuccess) return err;
-  if ((err = set_smem((const void*)b1, smem_b1)) != cudaSuccess) return err;
+  if ((err = set_smem(b1, smem_b1)) != cudaSuccess) return err;
   if ((err = set_smem(b2, smem_b2)) != cudaSuccess) return err;
   WeightMaps maps;
   const void* b1_weights[B1Schedule::kProducts] = {w.wva, w.wb, w.w7, w.w6, w.w5x, w.w4, w.w3, w.w2, w.w1};
@@ -1162,22 +1391,36 @@ int launch_bwd_saved(const float* t, const float* rays_d, const float* venc, con
   level_bwd_integrator_kernel<<<(n_rays + kWarps - 1) / kWarps, kThreads, smem_i, s>>>(
       t, rays_d, raw, g_comp, g_acc, g_depth, g_weights, grow, n_rays, S, white_bkgd);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  b1<<<n_blocks, kThreads, smem_b1, s>>>(venc, w.wd, w.wr, maps, saved, grow, delta, narrow, S, ray_tile);
+  if (dot_bf16) {
+    SpillMap<true> delta_map;
+    if (int map_err = encode_spill_map(delta_map, delta, ray_tile * S, n_blocks)) return map_err;
+    level_bwd_delta_kernel<true><<<n_blocks, kThreads, smem_b1, s>>>(venc, w.wd, w.wr, maps,
+                                                                     static_cast<const uint16_t*>(saved), grow,
+                                                                     static_cast<uint16_t*>(delta), narrow, S, ray_tile,
+                                                                     delta_map);
+  } else {
+    level_bwd_delta_kernel<false><<<n_blocks, kThreads, smem_b1, s>>>(venc, w.wd, w.wr, maps,
+                                                                      static_cast<const float*>(saved), grow,
+                                                                      static_cast<float*>(delta), narrow, S, ray_tile,
+                                                                      SpillMap<false>{});
+  }
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   DwMaps dw_maps;
-  if (int map_err = dot_bf16 ? encode_dw_maps(dw_maps, saved, delta, n_total, kDwM, kDwN, kDw16Step)
+  if (int map_err = dot_bf16 ? encode_dw_maps(dw_maps, saved, delta, n_total, 64, 64, kDw16Step,
+                                              CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, sizeof(uint16_t),
+                                              CU_TENSOR_MAP_SWIZZLE_128B)
                              : encode_dw_maps(dw_maps, saved, delta, n_total, kDwHs, kDwDs, kDwRows))
     return map_err;
   if (dot_bf16) {
-    level_bwd_dw_bf16_kernel<<<kRanges * kDwTiles, kThreads, smem_b2, s>>>(dw_maps, xenc, delta, partials, n_total,
+    level_bwd_dw_bf16_kernel<<<kRanges * kDwTiles, kThreads, smem_b2, s>>>(dw_maps, xenc, partials, n_total,
                                                                             rows_per_range);
   } else {
-    level_bwd_dw_kernel<<<kRanges * kDwTiles, kThreads, smem_b2, s>>>(dw_maps, xenc, delta, partials, n_total,
-                                                                       rows_per_range);
+    level_bwd_dw_kernel<<<kRanges * kDwTiles, kThreads, smem_b2, s>>>(dw_maps, xenc, static_cast<const float*>(delta),
+                                                                       partials, n_total, rows_per_range);
   }
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   level_bwd_reduce_kernel<<<(kPartialFloats + kThreads - 1) / kThreads, kThreads, 0, s>>>(partials, narrow,
-                                                                                          n_blocks, out);
+                                                                                          n_blocks, dot_bf16, out);
   return cudaGetLastError();
 }
 
@@ -1198,13 +1441,15 @@ extern "C" {
 // gradients in the order of the arguments below, each padded to 4 floats.
 int aonerf_fused_level_bwd_partial_floats() { return kPartialFloats; }
 
-// Floats per sample of the scratches `saved` and `delta`.
+// Values per sample of the scratches `saved` and `delta` (fp32, or bf16 in
+// bf16 mode).
 int aonerf_fused_level_bwd_saved_floats() { return kSpill; }
 
 // Row ranges of pass B2 (partial sets of the scratch `partials`), and floats
-// of one B1 block's narrow set (scratch `narrow`).
+// of one B1 block's narrow set (scratch `narrow`), which in bf16 mode
+// (dot_bf16 != 0) also holds the block's bias sums.
 int aonerf_fused_level_bwd_ranges() { return kRanges; }
-int aonerf_fused_level_bwd_narrow_floats() { return kNarrowFloats; }
+int aonerf_fused_level_bwd_narrow_floats(int dot_bf16) { return dot_bf16 ? kNarrowFloats16 : kNarrowFloats; }
 
 // Floats of the forward's packed transposed product weights `wt` (FwdSchedule),
 // and bytes of their bf16 pack (FwdBf16Schedule), which bf16 mode takes.
@@ -1232,13 +1477,14 @@ int aonerf_fused_level_b1_bf16_bytes() {
 // (FwdSchedule, kWtFloats fp32; in bf16 mode their bf16 pack), as for
 // aonerf_fused_render_level; its outputs comp (R,3), acc (R), depth (R),
 // weights (R,S); and what the backward reads, `saved` (R*S*kSpill, the
-// activations) and `raw` (R*S*4: raw sigma, raw rgb). With dot_bf16 != 0,
-// the bf16 mode, on narrow heads (wd, wr, wvb) already rounded to bf16.
+// activations: fp32, bf16 in bf16 mode) and `raw` (R*S*4: raw sigma, raw
+// rgb). With dot_bf16 != 0, the bf16 mode, on narrow heads (wd, wr, wvb)
+// already rounded to bf16.
 // n_rays % ray_tile == 0. Returns the launch's error (0 on success), or
 // kMapError + the driver's CUresult if a tensor map was refused.
 int aonerf_fused_level_fwd_spill(const float* t, const float* rays_d, const float* venc, const float* xenc,
                                  AONERF_WEIGHT_PARAMS, const void* wt, float* comp, float* acc, float* depth,
-                                 float* weights, float* saved, float* raw, int n_rays, int S, int ray_tile,
+                                 float* weights, void* saved, float* raw, int n_rays, int S, int ray_tile,
                                  int white_bkgd, int dot_bf16, void* stream) {
   if (bad_shape(n_rays, S, ray_tile)) return cudaErrorInvalidValue;
   return launch_fwd_spill(t, rays_d, venc, xenc, AONERF_WEIGHTS, wt, comp, acc, depth, weights, saved, raw, n_rays, S,
@@ -1249,17 +1495,19 @@ int aonerf_fused_level_fwd_spill(const float* t, const float* rays_d, const floa
 // integrator backward, B1, B2 and the reduction. Inputs as for K1s, plus
 // `b1_pack` (B1's bf16 pack in bf16 mode, else unused), the cotangents g_comp
 // (R,3), g_acc (R), g_depth (R), g_weights (R,S) and K1s' `saved` and `raw`;
-// scratch `grow` (R*S*4), `delta` (R*S*kSpill), `partials` (kRanges *
-// kPartialFloats) and `narrow` ((R/ray_tile) * kNarrowFloats); the output
-// `out` (kPartialFloats). With dot_bf16 != 0, the bf16 mode: B1 reads its
-// products' weights from `b1_pack` and wd, wr (already rounded to bf16), and
-// no other weight. Returns the first launch error (0 on success), or
+// scratch `grow` (R*S*4), `delta` (R*S*kSpill, fp32 or in bf16 mode bf16),
+// `partials` (kRanges * kPartialFloats) and `narrow` ((R/ray_tile) *
+// aonerf_fused_level_bwd_narrow_floats(dot_bf16)); the output `out`
+// (kPartialFloats). With dot_bf16 != 0, the bf16 mode: `saved` and `delta`
+// are bf16, B1 reads its products' weights from `b1_pack` and wd, wr
+// (already rounded to bf16), and no other weight, and sums the bias
+// gradients from its fp32 deltas. Returns the first launch error (0 on success), or
 // kMapError + the CUresult of cuTensorMapEncodeTiled if a tensor map was
 // refused.
 int aonerf_fused_level_bwd_saved(const float* t, const float* rays_d, const float* venc, const float* xenc,
                                  AONERF_WEIGHT_PARAMS, const void* b1_pack, const float* g_comp,
                                  const float* g_acc, const float* g_depth, const float* g_weights,
-                                 const float* saved, const float* raw, float* grow, float* delta, float* partials,
+                                 const void* saved, const float* raw, float* grow, void* delta, float* partials,
                                  float* narrow, float* out, int n_rays, int S, int ray_tile, int white_bkgd,
                                  int dot_bf16, void* stream) {
   if (bad_shape(n_rays, S, ray_tile)) return cudaErrorInvalidValue;
@@ -1271,16 +1519,16 @@ int aonerf_fused_level_bwd_saved(const float* t, const float* rays_d, const floa
 // The level's weight gradient from its inputs alone: K1s, then the backward
 // from what it saved. Arguments as for aonerf_fused_level_bwd_saved without
 // `raw`, with K1s' `wt` before `b1_pack` (in bf16 mode wvb comes rounded
-// too); K1s' outputs and `raw` (R*(5 S + 5) floats) live at the front of
-// `delta` until B1 overwrites it.
+// too); K1s' outputs and `raw` (R*(5 S + 5) floats, fewer bytes than `delta`
+// holds in either mode) live at the front of `delta` until B1 overwrites it.
 int aonerf_fused_level_bwd(const float* t, const float* rays_d, const float* venc, const float* xenc,
                            AONERF_WEIGHT_PARAMS, const void* wt, const void* b1_pack, const float* g_comp,
-                           const float* g_acc, const float* g_depth, const float* g_weights, float* saved,
-                           float* grow, float* delta, float* partials, float* narrow, float* out, int n_rays, int S,
+                           const float* g_acc, const float* g_depth, const float* g_weights, void* saved,
+                           float* grow, void* delta, float* partials, float* narrow, float* out, int n_rays, int S,
                            int ray_tile, int white_bkgd, int dot_bf16, void* stream) {
   if (bad_shape(n_rays, S, ray_tile)) return cudaErrorInvalidValue;
   const size_t rows = (size_t)n_rays * S;
-  float* raw = delta;
+  float* raw = static_cast<float*>(delta);
   float* weights = raw + 4 * rows;
   float* comp = weights + rows;
   float* acc = comp + 3 * (size_t)n_rays;

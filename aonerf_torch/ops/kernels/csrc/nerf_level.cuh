@@ -13,7 +13,9 @@
 // ray is then integrated by one warp (a prefix sum of log(max(1 - alpha +
 // 1e-10, 1e-10)) with a carry across 32-sample steps). The training forward
 // also saves each chunk's activations to a per-row scratch (`Spill`, kSpill
-// floats a sample) by bulk copies out of the shared activation tile. A row's
+// values a sample) by bulk copies out of the shared activation tile, in bf16
+// mode as bf16 by TMA stores out of a bf16 tile the epilogue fills beside
+// it (stage_bf16, store_spill_tile). A row's
 // outputs depend on no other row, so they do not depend on the ray tile (the
 // rays a block owns), which the wrappers choose per launch.
 //
@@ -61,8 +63,9 @@
 // packs the forward's product weights as bf16 (its bf16 copy of `wt`) and
 // rounds the narrow heads, the forward's epilogue (store_act) rounds each
 // activation before it reaches the shared tile and the spill, and the
-// encoded inputs are rounded where they are staged. The activation tile and
-// the spill keep the fp32 layout. The forward's products are gemm_bf16:
+// encoded inputs are rounded where they are staged. The activation tile stays
+// fp32 (the next product's A); the spill is bf16, 2 bytes a value, staged
+// by the epilogue (store_act). The forward's products are gemm_bf16:
 // mma.sync m16n8k16 bf16 with fp32 accumulators, B from the bf16 ring, A
 // packed from the fp32 tile (cvt.rn.bf16x2.f32 on values already bf16, so
 // exact): per 32 K-columns a thread reads 16 float2 of A and one 16-byte
@@ -98,6 +101,10 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kSpillBtl = 8 * kWidth;
 constexpr int kSpillView = kSpillBtl + kWidth;
 constexpr int kSpill = kSpillView + kCondWidth;
+// A value of the saved activations (and of K2's deltas): fp32, or in bf16
+// mode the bf16 value's 16 bits.
+template <bool Bf16>
+using SpillElem = std::conditional_t<Bf16, uint16_t, float>;
 // Row strides in shared memory, both 4 mod 32 so that the A fragments' loads
 // (8 rows x 4 columns a warp) hit 32 different banks: a 256-wide activation
 // tile, the encoded-input tile (K padded to 64).
@@ -111,6 +118,17 @@ constexpr int kStages = 5;
 constexpr int kStageFloats = kWidth * kDepth;
 constexpr int kRingAlign = 1024;
 constexpr size_t kRingBytes = sizeof(float) * kStages * kStageFloats + 128;
+// The bf16 K1s and B1 run their weight ring on kSpillStages stages and use
+// the space of the last two, 32 KB at kSpillTileFloats floats into the ring,
+// as the bf16 tile (kRows x 256 values, as four 64-column boxes of 8 KB, each
+// row of a box 128 bytes with the 128-byte swizzle) from which TMA stores a
+// layer's rows to their bf16 scratch; their shared memory stays the fp32
+// kernels'.
+constexpr int kSpillStages = 3;
+constexpr int kSpillTileFloats = kSpillStages * kStageFloats;
+constexpr int kSpillBox = kRows * 128;  // bytes of one 64-column box of the tile
+static_assert((kStages - kSpillStages) * kStageFloats * (int)sizeof(float) == (kWidth / 64) * kSpillBox,
+              "the bf16 tile takes the two stages the ring leaves");
 // k8 steps (3 mma each) that one fresh accumulator sums in the forward's
 // products (B1 keeps 4, 12 mma). The tensor cores truncate as they add into
 // the accumulator, so a longer run loses more, and the forward's error
@@ -494,8 +512,10 @@ using ChunkAcc = float[2][N / 32][4];
 // the ring at `buf` (kStages x kStageFloats floats, kRingAlign-aligned, then
 // the full and the empty barriers), the products' tensor maps, and the
 // stream's length. Every thread keeps its own copy, and all of them read the
-// same slices in the same order.
-template <class Sched>
+// same slices in the same order. It uses the first Stages stages; the bf16
+// K1s and B1 keep 3 and stage their bf16 epilogue in the last two
+// (kSpillTileFloats).
+template <class Sched, int Stages = kStages>
 struct WeightRing {
   float* buf;
   const CUtensorMap* maps;
@@ -508,11 +528,11 @@ struct WeightRing {
   __device__ uint64_t* empty(int stage) const { return full(kStages) + stage; }
 
   // Every thread of the block calls it once, before any other use; it ends
-  // with thread 0's first kStages - 1 slices in flight.
+  // with thread 0's first Stages - 1 slices in flight.
   __device__ WeightRing(float* ring, const CUtensorMap* weight_maps, int n_rows)
       : buf(ring), maps(weight_maps), total(stream_slices<Sched>(n_rows)) {
     if (threadIdx.x == 0) {
-      for (int s = 0; s < kStages; ++s) {
+      for (int s = 0; s < Stages; ++s) {
         mbar_init(full(s), 1);
         mbar_init(empty(s), kWarps);
       }
@@ -520,15 +540,15 @@ struct WeightRing {
     }
     __syncthreads();
     if (threadIdx.x == 0) {
-      for (int n = 0; n < kStages - 1 && n < total; ++n) issue(n);
+      for (int n = 0; n < Stages - 1 && n < total; ++n) issue(n);
     }
   }
 
-  // Thread 0: slice n of the stream into stage n % kStages, once every warp
-  // has left the slice that held it before (n - kStages).
+  // Thread 0: slice n of the stream into stage n % Stages, once every warp
+  // has left the slice that held it before (n - Stages).
   __device__ void issue(int n) const {
-    const int stage = n % kStages;
-    if (n >= kStages) mbar_wait(empty(stage), (n / kStages - 1) & 1);
+    const int stage = n % Stages;
+    if (n >= Stages) mbar_wait(empty(stage), (n / Stages - 1) & 1);
     const int p = n % schedule_slices<Sched>();
     int prod = 0, k0 = 0, rows = 0;
 #pragma unroll
@@ -545,8 +565,8 @@ struct WeightRing {
 
   // The next slice, once it has landed.
   __device__ const typename Sched::Elem* acquire() const {
-    const int stage = j % kStages;
-    mbar_wait(full(stage), (j / kStages) & 1);
+    const int stage = j % Stages;
+    mbar_wait(full(stage), (j / Stages) & 1);
     return reinterpret_cast<const typename Sched::Elem*>(buf + stage * kStageFloats);
   }
 
@@ -554,8 +574,8 @@ struct WeightRing {
   // stage of the slice before it.
   __device__ void release() {
     __syncwarp();
-    if ((threadIdx.x & 31) == 0) mbar_arrive(empty(j % kStages));
-    if (threadIdx.x == 0 && j + kStages - 1 < total) issue(j + kStages - 1);
+    if ((threadIdx.x & 31) == 0) mbar_arrive(empty(j % Stages));
+    if (threadIdx.x == 0 && j + Stages - 1 < total) issue(j + Stages - 1);
     ++j;
   }
 };
@@ -569,8 +589,8 @@ struct WeightRing {
 // sums each Run k8 steps (3 Run mma; one or more whole slices) and is added
 // into acc in fp32, in k order. No block barrier: the caller orders any
 // write to A after every warp's reads.
-template <int N, int Lda, int Run, class Sched>
-__device__ __forceinline__ void gemm_wt(ChunkAcc<N>& acc, const float* A, int K, WeightRing<Sched>& ring) {
+template <int N, int Lda, int Run, class Sched, int Stages>
+__device__ __forceinline__ void gemm_wt(ChunkAcc<N>& acc, const float* A, int K, WeightRing<Sched, Stages>& ring) {
   static_assert(Sched::kDepth == kDepth && sizeof(typename Sched::Elem) == sizeof(float), "an fp32 stream");
   static_assert((8 * Run) % kDepth == 0, "a run is whole slices");
   constexpr int kRunSlices = 8 * Run / kDepth;
@@ -622,6 +642,85 @@ __device__ __forceinline__ uint32_t bf16x2_rn(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// The bf16 value held in the 16 bits u, as fp32 (exact).
+__device__ __forceinline__ float bf16_bits_to_float(uint32_t u) { return __uint_as_float(u << 16); }
+
+// The map of a bf16 scratch (K1s' saved, B1's deltas) for TMA stores of a
+// block's chunk: kSpill columns x the block's rows x the blocks, boxes of 64
+// columns x kRows rows with the 128-byte swizzle, so a chunk's rows past the
+// block's end are not written; none in fp32.
+template <bool Bf16>
+struct SpillMap {};
+template <>
+struct SpillMap<true> {
+  CUtensorMap map;
+};
+
+// Four 8x8 16-bit matrices from registers to shared memory: lanes 8j .. 8j +
+// 7 give matrix j's row addresses (16 bytes each) and r[j] holds element
+// (lane / 4, 2 (lane % 4) + e) of matrix j in its half e: an m16n8
+// accumulator's bf16 pairs as they are held.
+__device__ __forceinline__ void stmatrix_x4(uint32_t addr, const uint32_t (&r)[4]) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(r[0]), "r"(r[1]),
+               "r"(r[2]), "r"(r[3])
+               : "memory");
+}
+
+// The byte offset in the bf16 tile of row r's 16-byte chunk c (its columns
+// 8 c .. 8 c + 7): box c / 8, the chunk XORed with r % 8 in its row.
+__device__ __forceinline__ uint32_t spill_tile_offset(int r, int c) {
+  return (c >> 3) * kSpillBox + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+}
+
+// This warp's n8 tile ni of a chunk's kRows x N layer, the bf16 pairs of
+// its 2 x 2 row blocks as the epilogue holds them (pairs[2 mi + h]: row 32
+// (w / 4) + 16 mi + 8 h + lane / 4, columns (N / 4) (w % 4) + 8 ni + 2 (lane
+// % 4)), into the bf16 tile at shared address `tile`: one stmatrix.x4,
+// conflict-free (its eight rows of a 16-byte chunk land in eight different
+// 16-byte bank groups).
+template <int N>
+__device__ __forceinline__ void stage_bf16(uint32_t tile, int ni, const uint32_t (&pairs)[4]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r = (warp >> 2) * 32 + ((lane >> 4) << 4) + (((lane >> 3) & 1) << 3) + (lane & 7);
+  stmatrix_x4(tile + spill_tile_offset(r, (warp & 3) * (N / 32) + ni), pairs);
+}
+
+// Where the forward's epilogue saves a layer (Spill): in fp32 the chunk's
+// rows of `saved` (row r at rows + r * kSpill), copied out of act by bulk
+// copies; in bf16 mode the columns from `col` of the chunk at block row
+// `row0` of the map's scratch, staged in the bf16 tile at shared address
+// `tile`. + c moves to the layer c columns further.
+template <bool Bf16>
+struct SpillTo {
+  float* rows;
+  __device__ SpillTo operator+(int c) const { return {rows + c}; }
+};
+template <>
+struct SpillTo<true> {
+  const CUtensorMap* map;
+  uint32_t tile;
+  int row0, col;
+  __device__ SpillTo operator+(int c) const { return {map, tile, row0, col + c}; }
+};
+
+// Thread 0: the chunk's rows of a layer (N columns of the bf16 tile) to the
+// scratch by TMA stores, column col of the chunk starting at row row0 of the
+// block's rows, as one committed bulk group under the L2::evict_first
+// policy. The tile's writes must be complete (fence_proxy_async and a
+// barrier); bulk_wait_read returns once the stores have read it.
+template <int N>
+__device__ __forceinline__ void store_spill_tile(const CUtensorMap* map, uint32_t tile, int col, int row0) {
+  const uint64_t policy = evict_first_policy();
+#pragma unroll
+  for (int b = 0; b < N / 64; ++b)
+    asm volatile(
+        "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group.L2::cache_hint [%0, {%2, %3, %4}], [%1], %5;\n" ::"l"(
+            reinterpret_cast<uint64_t>(map)),
+        "r"(tile + b * kSpillBox), "r"(col + 64 * b), "r"(row0), "r"((int)blockIdx.x), "l"(policy)
+        : "memory");
+  bulk_commit();
+}
+
 // d += a . b for one m16n8k16 bf16 tile, fp32 accumulator. A (row, k) at
 // a[0] (g, 2t..2t+1), a[1] (g+8, 2t..), a[2] (g, 2t+8..), a[3] (g+8, 2t+8..);
 // B (k, col) at b0 (2t..2t+1, g), b1 (2t+8.., g); d as for mma_tf32.
@@ -651,8 +750,8 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
 // steps and is added into acc in fp32, in k order (Run == 1: every mma into
 // zeros, then the add). No block barrier: the caller orders any write to A
 // after every warp's reads.
-template <int N, int Lda, int Run, class Sched>
-__device__ __forceinline__ void gemm_bf16(ChunkAcc<N>& acc, const float* A, int K, WeightRing<Sched>& ring) {
+template <int N, int Lda, int Run, class Sched, int Stages>
+__device__ __forceinline__ void gemm_bf16(ChunkAcc<N>& acc, const float* A, int K, WeightRing<Sched, Stages>& ring) {
   static_assert(Sched::kDepth == 32 && sizeof(typename Sched::Elem) == 2, "a bf16 stream of 32-deep slices");
   static_assert(Run == 1 || Run % 2 == 0, "a run is one k16 step or whole slices");
   static_assert(Lda % 32 == 4, "conflict-free A reads");
@@ -718,14 +817,15 @@ __device__ __forceinline__ void gemm_bf16(ChunkAcc<N>& acc, const float* A, int 
 // fragment elements (stride kAct), in place over the product's input, then a
 // barrier so the next layer reads the whole new activation; with Bf16 each
 // value rounded to bf16 (the operand of the next products and the heads, and
-// what the spill saves). With Spill,
-// thread 0 then copies the rows below valid_rows (N floats each) to
-// spill + row * kSpill by bulk copies, one committed group; the next
-// product_done<true> waits for them to finish reading act.
+// what the spill saves). With Spill, the rows below valid_rows (N values
+// each) go to `spill` as one committed bulk group that thread 0 issues
+// after the barrier: in fp32 bulk copies of act's rows; in bf16 mode TMA
+// stores of the bf16 tile, which every warp fills beside act (stage_bf16).
+// The next product_done<true> waits for the group to finish reading.
 template <int N, bool Spill, bool Bf16>
 __device__ __forceinline__ void store_act(const ChunkAcc<N>& acc, const float* __restrict__ bias, bool relu,
                                           float* act, const float* cterm, int row0, int S, int n_rows,
-                                          float* spill, int valid_rows) {
+                                          SpillTo<Bf16> spill, int valid_rows) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r0 = (warp >> 2) * 32 + (lane >> 2), c0 = (warp & 3) * (N / 4) + 2 * (lane & 3);
   const float* ct[2][2] = {};  // the view term of each fragment row's ray
@@ -742,6 +842,7 @@ __device__ __forceinline__ void store_act(const ChunkAcc<N>& acc, const float* _
   for (int ni = 0; ni < N / 32; ++ni) {
     const int c = c0 + 8 * ni;
     const float b0 = __ldg(bias + c), b1 = __ldg(bias + c + 1);
+    [[maybe_unused]] uint32_t pairs[4];
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -757,23 +858,29 @@ __device__ __forceinline__ void store_act(const ChunkAcc<N>& acc, const float* _
         }
         *reinterpret_cast<float2*>(act + (r0 + 16 * mi + 8 * h) * kAct + c) =
             make_float2(operand<Bf16>(x0), operand<Bf16>(x1));
+        if constexpr (Spill && Bf16) pairs[2 * mi + h] = bf16x2_rn(x0, x1);
       }
+    if constexpr (Spill && Bf16) stage_bf16<N>(spill.tile, ni, pairs);
   }
   if constexpr (Spill) fence_proxy_async();
   __syncthreads();
   if constexpr (Spill) {
     if (threadIdx.x == 0) {
-      const uint64_t policy = evict_first_policy();
-      for (int r = 0; r < valid_rows; ++r)
-        bulk_store_row(spill + (size_t)r * kSpill, act + r * kAct, N * 4, policy);
-      bulk_commit();
+      if constexpr (Bf16) {
+        store_spill_tile<N>(spill.map, spill.tile, spill.col, spill.row0);
+      } else {
+        const uint64_t policy = evict_first_policy();
+        for (int r = 0; r < valid_rows; ++r)
+          bulk_store_row(spill.rows + (size_t)r * kSpill, act + r * kAct, N * 4, policy);
+        bulk_commit();
+      }
     }
   }
 }
 
 // After a forward product: every warp has finished reading its A (the
-// activation tile or xs), and, with Spill, thread 0's bulk copies of the
-// previous layer's activation have finished reading the tile, so the
+// activation tile or xs), and, with Spill, thread 0's bulk copies (or TMA
+// stores) of the previous layer have finished reading their tile, so the
 // epilogue may overwrite it.
 template <bool Spill>
 __device__ __forceinline__ void product_done() {
@@ -783,23 +890,24 @@ __device__ __forceinline__ void product_done() {
   __syncthreads();
 }
 
-// The forward's weight stream: fp32 slices of `wt`, or bf16 ones in bf16 mode.
-template <bool Bf16>
-using FwdRing = WeightRing<std::conditional_t<Bf16, FwdBf16Schedule, FwdSchedule>>;
+// The forward's weight stream: fp32 slices of `wt`, or bf16 ones in bf16
+// mode, on Stages stages of the ring.
+template <bool Bf16, int Stages = kStages>
+using FwdRing = WeightRing<std::conditional_t<Bf16, FwdBf16Schedule, FwdSchedule>, Stages>;
 
 // acc += A[:, :K] . W, W the next product of the forward's stream: 3xTF32
 // through gemm_wt in fp32, native bf16 through gemm_bf16 in bf16 mode.
-template <int N, int Lda, bool Bf16>
-__device__ __forceinline__ void fwd_product(ChunkAcc<N>& acc, const float* A, int K, FwdRing<Bf16>& ring) {
+template <int N, int Lda, bool Bf16, class Ring>
+__device__ __forceinline__ void fwd_product(ChunkAcc<N>& acc, const float* A, int K, Ring& ring) {
   if constexpr (Bf16) gemm_bf16<N, Lda, kFwdBf16Run>(acc, A, K, ring);
   else gemm_wt<N, Lda, kFwdRun>(acc, A, K, ring);
 }
 
 // One 256-wide layer with ReLU, act = relu(A[:, :K] . W + bias), in place,
 // W the next product of the stream.
-template <int Lda, bool Spill, bool Bf16>
-__device__ __forceinline__ void dense_relu(const float* A, int K, FwdRing<Bf16>& ring, const float* bias, float* act,
-                                           float* spill, int valid_rows) {
+template <int Lda, bool Spill, bool Bf16, class Ring>
+__device__ __forceinline__ void dense_relu(const float* A, int K, Ring& ring, const float* bias, float* act,
+                                           SpillTo<Bf16> spill, int valid_rows) {
   ChunkAcc<kWidth> acc;
   zero_acc(acc);
   fwd_product<kWidth, Lda, Bf16>(acc, A, K, ring);
@@ -830,10 +938,10 @@ __device__ __forceinline__ void view_terms(const float* __restrict__ venc, const
 // each layer's activation of the valid rows also goes to the saved-activation
 // rows at `spill` (already offset to the chunk's first row). Ends with a
 // barrier.
-template <bool Spill, bool Bf16>
-__device__ __forceinline__ void forward_chunk(const float* __restrict__ xenc, const Weights& w, FwdRing<Bf16>& ring,
+template <bool Spill, bool Bf16, class Ring>
+__device__ __forceinline__ void forward_chunk(const float* __restrict__ xenc, const Weights& w, Ring& ring,
                                               const ForwardSmem& m, size_t row_base, int row0, int n_rows, int S,
-                                              float* spill) {
+                                              SpillTo<Bf16> spill) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int valid_rows = min(kRows, n_rows - row0);
   float* act = m.act;

@@ -16,9 +16,12 @@ backward reads them. K1 (``fused_render``) serves and validates.
 ``dot_bf16`` is the TPU kernels' mode of that name (see ``fused_render``):
 the forward's products and its transmittance sum take bf16-rounded operands,
 and the saved activations are the rounded ones, which the TPU backward keeps
-in bf16; the backward's products round their operands too, but its
-integrator recomputes the transmittance in fp32, and every bias gradient and
-the per-ray sum for ``wvb`` add the unrounded fp32 deltas.
+in bf16 and ``saved`` holds as ``torch.bfloat16`` (:func:`saved_dtype`); the
+backward's products round their operands too, but its integrator recomputes
+the transmittance in fp32, and every bias gradient and the per-ray sum for
+``wvb`` add the unrounded fp32 deltas. On the card B1 keeps its deltas in a
+bf16 scratch, the operands B2 multiplies, and sums the bias gradients itself
+from the fp32 deltas it holds.
 
 The ray tile (rays a CUDA block) of K1s, and of K2 in bf16 mode, is chosen
 per launch (``choose_ray_tile``); K1s' outputs do not depend on it. K2's
@@ -84,6 +87,12 @@ fwd_tiles: Dict[Tuple[int, int, bool], int] = {}
 bwd_tiles: Dict[Tuple[int, int, bool], int] = {}
 
 
+def saved_dtype(dot_bf16: bool) -> torch.dtype:
+    """The dtype of ``saved`` (and of the backward's delta scratch):
+    ``torch.bfloat16`` in bf16 mode, whose values are bf16, else fp32."""
+    return torch.bfloat16 if dot_bf16 else torch.float32
+
+
 def _relu_mask(x: torch.Tensor) -> torch.Tensor:
     return (x > 0.0).to(x.dtype)
 
@@ -107,13 +116,17 @@ def fused_level_fwd_spill_ref(
 ) -> Tuple[torch.Tensor, ...]:
     """Plain PyTorch version of K1s. Same arguments and outputs as
     :func:`fused_level_fwd_spill`, on any device: those of
-    ``fused_render_level_ref``, then ``saved`` (R*S, SAVED_FLOATS) and ``raw``
-    (R*S, 4) in the kernel's layout; ``mm`` as in ``level_activations_ref``."""
+    ``fused_render_level_ref``, then ``saved`` (R*S, SAVED_FLOATS; in bf16
+    mode ``torch.bfloat16``, the rounded activations exactly, whatever the
+    inputs' dtype) and ``raw`` (R*S, 4) in the kernel's layout; ``mm`` as in
+    ``level_activations_ref``."""
     R, S = t_vals.shape
     acts, raw_sigma, raw_rgb = level_activations_ref(
         kernel_params, viewdirs_enc, samples_enc.reshape(R * S, -1), S, mm=mm, dot_bf16=dot_bf16
     )
     saved = torch.cat(acts, -1)
+    if dot_bf16:
+        saved = saved.to(torch.bfloat16)
     del acts
     raw = torch.cat([raw_sigma, raw_rgb], -1)
     return (*integrate_ref(raw_sigma, raw_rgb, t_vals, rays_d, white_bkgd, dot_bf16=dot_bf16), saved, raw)
@@ -145,12 +158,15 @@ def fused_level_bwd_saved_ref(
     tests pass an emulation of the kernel's 3xTF32 arithmetic. The default is
     plain ``@``. With ``dot_bf16`` every product, these and the heads',
     rounds its operands to bf16; the integrator backward, the deltas, the
-    bias gradients and the per-ray sum for ``wvb`` stay fp32."""
+    bias gradients and the per-ray sum for ``wvb`` stay fp32. ``saved`` may
+    be of any dtype (``torch.bfloat16`` as the bf16 forward gives it): it is
+    widened to the inputs' dtype."""
     w = kernel_params
     dot = torch.matmul
     if dot_bf16:
         mm, dot = bf16_products(mm), bf16_products(torch.matmul)
     R, S = t_vals.shape
+    saved = saved.to(t_vals.dtype)
     xe = samples_enc.reshape(R * S, -1)
     hs = [saved[:, i * WIDTH : (i + 1) * WIDTH] for i in range(8)]
     h7 = hs[7]
@@ -292,11 +308,12 @@ def _library():
             fn.restype = i32
         for name in (
             "aonerf_fused_level_bwd_partial_floats", "aonerf_fused_level_bwd_saved_floats",
-            "aonerf_fused_level_bwd_ranges", "aonerf_fused_level_bwd_narrow_floats",
-            "aonerf_fused_level_b1_bf16_bytes",
+            "aonerf_fused_level_bwd_ranges", "aonerf_fused_level_b1_bf16_bytes",
         ):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = i32
+        lib.aonerf_fused_level_bwd_narrow_floats.argtypes = [i32]
+        lib.aonerf_fused_level_bwd_narrow_floats.restype = i32
         lib.aonerf_fused_level_bwd_smem_bytes.argtypes = [i32, i32]
         lib.aonerf_fused_level_bwd_smem_bytes.restype = i32
         if lib.aonerf_fused_level_bwd_saved_floats() != SAVED_FLOATS:
@@ -311,11 +328,11 @@ def _library():
     return _lib
 
 
-def _check(name, x, shape, device):
+def _check(name, x, shape, device, dtype=torch.float32):
     if tuple(x.shape) != shape:
         raise ValueError(f"{name}: shape {tuple(x.shape)}, expected {shape}")
-    if x.dtype != torch.float32 or x.device != device:
-        raise ValueError(f"{name}: {x.dtype} on {x.device}, expected float32 on {device}")
+    if x.dtype != dtype or x.device != device:
+        raise ValueError(f"{name}: {x.dtype} on {x.device}, expected {str(dtype).replace('torch.', '')} on {device}")
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError(f"{name}: must be contiguous and 16-byte aligned")
 
@@ -360,9 +377,10 @@ def _launch(fn_name, dev, fn, *args):
 
 class BackwardScratch(NamedTuple):
     """The backward's device scratch, in the order the C entry points take it:
-    grow (R*S*4), delta (R*S*SAVED_FLOATS, B1's fp32 deltas, which B2 reads),
-    the row ranges' partial sets, the B1 blocks' narrow sets, and out (the
-    26 gradients, padded)."""
+    grow (R*S*4), delta (R*S*SAVED_FLOATS, B1's deltas, which B2 reads: fp32,
+    or in bf16 mode bf16, the rounded deltas B2 multiplies), the row ranges'
+    partial sets, the B1 blocks' narrow sets (in bf16 mode with the bias
+    sums), and out (the 26 gradients, padded)."""
 
     grow: torch.Tensor
     delta: torch.Tensor
@@ -371,7 +389,7 @@ class BackwardScratch(NamedTuple):
     out: torch.Tensor
 
 
-def _backward_scratch(lib, kernel_params, R, S, ray_tile, dev):
+def _backward_scratch(lib, kernel_params, R, S, ray_tile, dev, dot_bf16):
     """A :class:`BackwardScratch` and the 26 gradients as views of its out."""
     shapes = [tuple(kernel_params[n].shape) for n in WEIGHT_NAMES]
     offsets = _padded_offsets(shapes)
@@ -380,9 +398,9 @@ def _backward_scratch(lib, kernel_params, R, S, ray_tile, dev):
         raise RuntimeError(f"fused_train: kernel layout has {n_out} floats, expected {offsets[-1]}")
     f32 = dict(dtype=torch.float32, device=dev)
     grow = torch.empty(R * S * 4, **f32)
-    delta = torch.empty(R * S * SAVED_FLOATS, **f32)
+    delta = torch.empty(R * S * SAVED_FLOATS, dtype=saved_dtype(dot_bf16), device=dev)
     partials = torch.empty(lib.aonerf_fused_level_bwd_ranges() * n_out, **f32)
-    narrow = torch.empty((R // ray_tile) * lib.aonerf_fused_level_bwd_narrow_floats(), **f32)
+    narrow = torch.empty((R // ray_tile) * lib.aonerf_fused_level_bwd_narrow_floats(int(dot_bf16)), **f32)
     out = torch.empty(n_out, **f32)
     grads = {n: out[offsets[i] : offsets[i] + kernel_params[n].numel()].view(shapes[i])
              for i, n in enumerate(WEIGHT_NAMES)}
@@ -404,8 +422,8 @@ def fused_level_fwd_spill(
     outputs (comp (R,3), acc (R,), depth (R,), weights (R,S), the same bits as
     K1's on the card), then what the backward reads: ``saved`` (R*S,
     SAVED_FLOATS), every sample's activations h0..h7, bottleneck and view
-    hidden layer (rounded to bf16 with ``dot_bf16``, still fp32 tensors), and
-    ``raw`` (R*S, 4), its raw sigma and rgb.
+    hidden layer (with ``dot_bf16`` rounded to bf16, as ``torch.bfloat16``),
+    and ``raw`` (R*S, 4), its raw sigma and rgb.
 
     On CUDA tensors this builds :func:`kernel_weights_t` and launches K1s,
     one block per ``ray_tile`` rays (None: the tile ``choose_ray_tile``
@@ -428,7 +446,7 @@ def fused_level_fwd_spill(
     f32 = dict(dtype=torch.float32, device=dev)
     comp, acc, depth = torch.empty((R, 3), **f32), torch.empty((R,), **f32), torch.empty((R,), **f32)
     weights = torch.empty((R, S), **f32)
-    saved = torch.empty((R * S, SAVED_FLOATS), **f32)
+    saved = torch.empty((R * S, SAVED_FLOATS), dtype=saved_dtype(dot_bf16), device=dev)
     raw = torch.empty((R * S, 4), **f32)
     _launch(
         "fused_level_fwd_spill", dev, lib.aonerf_fused_level_fwd_spill,
@@ -466,7 +484,9 @@ def fused_level_bwd_saved(
     """Gradients of the 26 level weights (each shaped like its weight) from
     what :func:`fused_level_fwd_spill` saved (``saved``, ``raw``) and the
     cotangents of its outputs: g_comp (R,3), g_acc (R,), g_depth (R,),
-    g_weights (R,S). R % ray_tile == 0.
+    g_weights (R,S). R % ray_tile == 0. ``saved`` is of
+    :func:`saved_dtype` (``torch.bfloat16`` in bf16 mode) on either device;
+    another dtype raises.
 
     On CUDA tensors this launches the backward (``csrc/fused_train.cu``): the
     integrator backward (one warp per ray), B1 with one block per
@@ -477,14 +497,18 @@ def fused_level_bwd_saved(
     sets the order of B1's per-block head sums, and so the bits; it is
     recorded in ``bwd_tiles``. On CPU tensors it runs the plain version,
     which takes no tile. With ``deltas`` (CUDA tensors only) it returns
-    (gradients, B1's fp32 deltas as (R*S, SAVED_FLOATS), the integrator
-    backward's g_raw as (R*S, 4)), the operands B1 and B2 read beside the
-    saved activations.
+    (gradients, B1's deltas as (R*S, SAVED_FLOATS), the integrator backward's
+    g_raw as (R*S, 4)), the operands B1 and B2 read beside the saved
+    activations; the deltas are fp32, or in bf16 mode the rounded ones, as
+    ``torch.bfloat16``.
     """
     global launches, bf16_launches
     R, S = t_vals.shape
     ray_tile = _bwd_tile(ray_tile, dot_bf16)
-    if _device_of("fused_level_bwd_saved", t_vals, R, ray_tile) == "cpu":
+    on = _device_of("fused_level_bwd_saved", t_vals, R, ray_tile)
+    if saved.dtype != saved_dtype(dot_bf16):  # on either device, so the CPU takes what the card takes
+        raise ValueError(f"saved: {saved.dtype}, expected {str(saved_dtype(dot_bf16)).replace('torch.', '')}")
+    if on == "cpu":
         if deltas:
             raise ValueError("fused_level_bwd_saved: deltas come from the kernel's scratch, on cuda tensors only")
         return fused_level_bwd_saved_ref(
@@ -495,12 +519,12 @@ def fused_level_bwd_saved(
     xenc = samples_enc.reshape(R * S, samples_enc.shape[-1])
     _check_inputs(kernel_params, t_vals, rays_d, viewdirs_enc, xenc, R, S)
     _check_cotangents(g_comp, g_acc, g_depth, g_weights, R, S, dev)
-    _check("saved", saved, (R * S, SAVED_FLOATS), dev)
+    _check("saved", saved, (R * S, SAVED_FLOATS), dev, saved_dtype(dot_bf16))
     _check("raw", raw, (R * S, 4), dev)
     lib = _library()
     ray_tile = launch_ray_tile(R, S, ray_tile, dev, lib.aonerf_fused_level_bwd_smem_bytes)
     kernel_params, b1_pack = bwd_operands(kernel_params, dot_bf16)
-    scratch, grads = _backward_scratch(lib, kernel_params, R, S, ray_tile, dev)
+    scratch, grads = _backward_scratch(lib, kernel_params, R, S, ray_tile, dev, dot_bf16)
     _launch(
         "fused_level_bwd_saved", dev, lib.aonerf_fused_level_bwd_saved,
         t_vals.data_ptr(), rays_d.data_ptr(), viewdirs_enc.data_ptr(), xenc.data_ptr(),
@@ -556,8 +580,8 @@ def fused_level_bwd(
     ray_tile = launch_ray_tile(R, S, ray_tile, dev, _fwd_and_bwd_smem)
     b1_pack = b1_weights_bf16(kernel_params) if dot_bf16 else None
     kernel_params, wt = fwd_operands(kernel_params, dot_bf16)  # rounds wd and wr too, as B1 takes them
-    scratch, grads = _backward_scratch(lib, kernel_params, R, S, ray_tile, dev)
-    saved = torch.empty(R * S * SAVED_FLOATS, dtype=torch.float32, device=dev)
+    scratch, grads = _backward_scratch(lib, kernel_params, R, S, ray_tile, dev, dot_bf16)
+    saved = torch.empty(R * S * SAVED_FLOATS, dtype=saved_dtype(dot_bf16), device=dev)
     _launch(
         "fused_level_bwd", dev, lib.aonerf_fused_level_bwd,
         t_vals.data_ptr(), rays_d.data_ptr(), viewdirs_enc.data_ptr(), xenc.data_ptr(),
@@ -607,7 +631,7 @@ class FusedLevel(torch.autograd.Function):
             g_comp.contiguous(), g_acc.contiguous(), g_depth.contiguous(), g_weights.contiguous(),
             ctx.white_bkgd, ctx.ray_tile, ctx.dot_bf16,
         )
-        ctx.saved_acts = ctx.raw = None  # the fine level's saved is 3.85 GB at batch 2048
+        ctx.saved_acts = ctx.raw = None  # the fine level's saved is 3.85 GB at batch 2048 (1.92 in bf16)
         return (None,) * 8 + tuple(grads[n] for n in WEIGHT_NAMES)
 
 

@@ -106,11 +106,18 @@ Phases, each of which fails the run with a non-zero exit:
                with its bounds and plain version; the host time of a K1
                launch; K2 bf16 from K1s' saved at 224 rays at the tile its
                wrapper chooses (2) and at 16 rays a block, both against the
-               bf16 rule, B2's gradients equal at both, B1 timed in turns by
-               the profiler with its bound, the host time of a K2 call; and
+               bf16 rule, B2's weight products equal at both, B1 timed in
+               turns by the profiler with its bound, B2 beside its bound and
+               bf16 torch.mm on the same slices, the host time of a K2 call;
                at 2048 rays B1 bf16 alone: its deltas and head gradients
-               against the fp64 products of the operands it read (B1_TOL)
-               and its plain version on them, timed in turns with it.
+               against the fp64 products of the operands it read (B1_TOL),
+               its ten bias sums against their fp64 sums (B1_BIAS_TOL), and
+               its plain version on them, timed in turns with it; and B2 bf16
+               alone against the fp64 products of the bf16 scratches it read
+               (B2_TOL), timed in turns with the fp32 B2 and its plain
+               share, beside bf16 torch.mm on the same slices. In bf16 mode
+               K1s' saved and B1's deltas are bf16; phase 14 prints the
+               bf16 step's peak memory beside the fp32 step's.
  14. bf16 training - the train CLI at config/vanilla_tpu_fast.json's settings
                (bf16, batch 224, inner_steps 183, grad_clip 1.0, chunk 256) on
                phase 7's scene, cut as phase 7 cuts config/vanilla.json: 2
@@ -189,6 +196,9 @@ PEAK_TF32_FLOPS = 495e12  # TF32 tensor cores, dense; 3xTF32 does 3 TF32 product
 B1_TC_MACS, B1_FP32_MACS = 557696 - 640, 640 + 640
 B2_TC_MACS = MACS_PER_SAMPLE - 640
 SAVED_FLOATS = 2432  # saved activations (and deltas) per sample
+# The saved columns B1 reads: h0..h7 and the view hidden layer, whose ReLU
+# masks its deltas; not the bottleneck's 256, which has no mask.
+B1_SAVED_FLOATS = SAVED_FLOATS - 256
 K2_PASSES = {  # kernel name in csrc/fused_train.cu -> pass
     "level_bwd_integrator_kernel": "integrator", "level_bwd_delta_kernel": "B1",
     "level_bwd_dw_kernel": "B2", "level_bwd_reduce_kernel": "reduce",
@@ -204,23 +214,37 @@ B2_PRODUCTS = {"w0": (None, 0), **{f"w{i}": ((i - 1) * 256, i * 256) for i in (1
                "wva": (8 * 256, 9 * 256)}
 B2_BIASES = {**{f"b{i}": i * 256 for i in range(8)}, "bb": 8 * 256, "bv": 9 * 256}
 # B2 in bf16 against the products of the operands it read (K1s' saved, B1's
-# fp32 deltas) rounded to bf16 and summed in fp64: its own fp32 sums (32-row
-# tensor-core runs, then the range, then 16 ranges) within B2_TOL of each
-# gradient's largest entry.
+# deltas, both bf16 scratches; xenc rounded to bf16) summed in fp64: its own
+# fp32 sums (32-row tensor-core runs, then the range, then 16 ranges) within
+# B2_TOL of each gradient's largest entry. In bf16 mode B2 computes the 11
+# weight products; the ten biases are B1's (B1_BIAS_TOL).
 B2_TOL = 1e-5
 # B2 in fp32 (level_bwd_dw_kernel) the same way, on the fp32 operands it
 # read: its 3xTF32 products (each ~2^-22 of itself off the exact product),
 # 64-row tensor-core runs, the range and the 16 ranges within B2_FP32_TOL
 # of each gradient's largest entry.
 B2_FP32_TOL = 1e-5
-# B1 in bf16 the same way: each delta it wrote (fp32) against the product,
-# summed in fp64, of the bf16-rounded operands it multiplied (the delta of
-# the layer above from its own scratch, the rounded weight; g_raw from the
-# integrator backward's scratch), masked by the saved activation, and each
-# head gradient it summed (wd, bd, wr, br) against its operands' fp64 sum:
-# its own fp32 sums (tensor-core runs of 32 columns, its per-block and
-# per-chunk head sums) within B1_TOL of each one's largest entry.
+# B1 in bf16 the same way: each delta it wrote against the product, summed
+# in fp64, of the bf16-rounded operands it multiplied (the delta of the layer
+# above from its own scratch, the rounded weight; g_raw from the integrator
+# backward's scratch), masked by the saved activation, and each head
+# gradient it summed (wd, bd, wr, br) against its operands' fp64 sum: its
+# own fp32 sums (tensor-core runs of 32 columns, its per-block and per-chunk
+# head sums) within B1_TOL of each one's largest entry. It writes each delta
+# rounded to bf16 (to nearest), up to half a bf16 ulp (2^-8 of the value)
+# from its fp32 sum, so a delta's error beyond 2^-8 of its fp64 product is
+# what B1_TOL holds (b1_delta_error).
 B1_TOL = 1e-5
+# B1's ten bias sums in bf16 mode (b0..b7, bb, bv: the unrounded fp32 deltas
+# of each chunk's rows, a fixed shuffle tree, the chunks and then the blocks
+# in order) against the fp64 sums of the fp64 products of its operands (the
+# deltas as b1_products forms them): each within B1_BIAS_TOL of its largest
+# entry. Stated before the first run on the card: a plain emulation on the
+# CPU (fp32 products of the same bf16 operands, fp32 sums) is 2.1e-7 / 2.7e-7
+# off at 64 / 256 rays x 65 samples; the card's 392,000-row sums add the
+# tensor cores' truncation, which scales with each delta and so largely
+# with the sum, and a longer fp32 chain (49 chunks, 128 blocks).
+B1_BIAS_TOL = 1e-5
 K2_RANGES = 16  # pass B2's row ranges
 NARROW_FLOATS = 4104  # a B1 block's narrow set: wd, bd, wr, br, wvb, each padded to 4 floats
 R_TRAIN = 2048  # rays per train step (config/vanilla.json)
@@ -630,7 +654,7 @@ def _bwd_pass_bounds(R: int, S: int) -> dict:
         "integrator": _bound(rows * INTEGRATOR_FLOPS_PER_SAMPLE / PEAK_FP32_FLOPS * ms,
                              hbm(rows * 4 + rows + R * 3 + R * 5 + rows + rows * 4)),
         "B1": _bound(tc(rows * B1_TC_MACS) + fp32(rows * B1_FP32_MACS + R * 27 * 128),
-                     hbm(rows * (2 * SAVED_FLOATS + 4) + R * 27 + N_WEIGHTS + (R // 16) * NARROW_FLOATS)),
+                     hbm(rows * (B1_SAVED_FLOATS + SAVED_FLOATS + 4) + R * 27 + N_WEIGHTS + (R // 16) * NARROW_FLOATS)),
         "B2": _bound(tc(rows * B2_TC_MACS),
                      hbm(rows * (SAVED_FLOATS - 128 + 63 + SAVED_FLOATS) + K2_RANGES * N_WEIGHTS)),
         "reduce": _bound(0.0, hbm(K2_RANGES * N_WEIGHTS + (R // 16) * NARROW_FLOATS + N_WEIGHTS)),
@@ -1910,14 +1934,15 @@ def tie_check(kp, t, o, d, venc, xenc) -> float:
 
 
 def backward_with_deltas(args, saved, raw, cot, white: bool, dot_bf16: bool):
-    """The backward from saved, once, and B1's fp32 deltas from its scratch
-    (R*S x SAVED_FLOATS), which B2 read."""
+    """The backward from saved, once, and B1's deltas from its scratch (R*S x
+    SAVED_FLOATS; fp32, bf16 in bf16 mode), which B2 read."""
     return backward_operands(args, saved, raw, cot, white, dot_bf16)[:2]
 
 
 def backward_operands(args, saved, raw, cot, white: bool, dot_bf16: bool):
-    """The backward from saved, once: its gradients, B1's fp32 deltas and the
-    integrator backward's g_raw (R*S x 4: sigma, rgb) from their scratches."""
+    """The backward from saved, once: its gradients, B1's deltas (fp32, bf16
+    in bf16 mode) and the integrator backward's g_raw (R*S x 4: sigma, rgb)
+    from their scratches."""
     from aonerf_torch.ops.kernels import fused_train as ft
 
     return ft.fused_level_bwd_saved(*args, saved, raw, *cot, white, dot_bf16=dot_bf16, deltas=True)
@@ -1925,7 +1950,7 @@ def backward_operands(args, saved, raw, cot, white: bool, dot_bf16: bool):
 
 def b1_products(kp, saved, grow, delta, dtype):
     """B1 in bf16 mode as products of what it read, layer by layer, from the
-    rgb head down: (name, the delta B1 wrote, its columns of the delta
+    rgb head down: (name, the delta B1 wrote (bf16), its columns of the delta
     scratch; the same delta formed in ``dtype`` from the operands B1
     multiplied, each rounded to bf16: the delta of the layer above as B1
     wrote it, or g_raw, and the weight; masked by the saved activation)."""
@@ -1960,30 +1985,46 @@ def b1_heads(saved, grow) -> dict:
             "wr": hv.t() @ fr.round_bf16(grow[:, 1:]).double(), "br": g[:, 1:].sum(0)}
 
 
+# The bias gradient each delta of b1_products sums into.
+B1_BIASES = {"view": "bv", "bottleneck": "bb", **{f"h{i}": f"b{i}" for i in range(8)}}
+
+
+def b1_delta_error(got, ref64) -> float:
+    """A bf16 delta B1 wrote against its fp64 product: the largest excess of
+    |got - ref64| over half a bf16 ulp (2^-8 |ref64|, what rounding its fp32
+    sum to nearest may add), over max |ref64|."""
+    err = (got.double() - ref64).abs() - ref64.abs() * 2.0 ** -8
+    return (err.clamp_min(0).max() / ref64.abs().max().clamp_min(1e-300)).item()
+
+
 def b1_errors(kp, saved, grow, delta, grads) -> tuple:
     """B1 in bf16 against what it read: the largest error, over its deltas
-    and its head gradients, against the fp64 products and sums of its
-    operands (max abs err / max |fp64|, held to B1_TOL); and the largest
-    abs error of its deltas against the same products in fp32 (cuBLAS),
-    B1's plain version on its own operands."""
-    worst = 0.0
-    for _, got, want in b1_products(kp, saved, grow, delta, torch.float64):
-        worst = max(worst, _rel(got, want))
+    (b1_delta_error) and its head gradients, against the fp64 products and
+    sums of its operands (max abs err / max |fp64|, held to B1_TOL); the
+    largest error of its ten bias sums against the fp64 sums of those fp64
+    products (held to B1_BIAS_TOL); and the largest abs error of its deltas
+    against the same products in fp32 (cuBLAS), B1's plain version on its own
+    operands, rounded to bf16 as B1 writes them."""
+    worst = bias = 0.0
+    for name, got, want in b1_products(kp, saved, grow, delta, torch.float64):
+        worst = max(worst, b1_delta_error(got, want))
+        bias = max(bias, _rel(grads[B1_BIASES[name]].reshape(-1), want.sum(0)))
         del want
     for name, want in b1_heads(saved, grow).items():
         worst = max(worst, _rel(grads[name].reshape(-1), want.reshape(-1)))
     err = 0.0
     for _, got, want in b1_products(kp, saved, grow, delta, torch.float32):
-        err = max(err, (got - want).abs().max().item())
+        err = max(err, (got.float() - want.to(torch.bfloat16).float()).abs().max().item())
         del want
-    return worst, err
+    return worst, bias, err
 
 
 def b1_check(args, cot, S: int) -> dict:
     """B1 in bf16 at the train step's shapes, at the tile K2 chooses: its
     deltas and head gradients against the fp64 products of what it read
-    (B1_TOL) and against B1's plain version on the same operands; its time
-    by torch.profiler in turns with that plain version (bf16, plain, bf16,
+    (B1_TOL), its bias sums against their fp64 sums (B1_BIAS_TOL), and its
+    deltas against B1's plain version on the same operands; its time by
+    torch.profiler in turns with that plain version (bf16, plain, bf16,
     plain), its bound."""
     from aonerf_torch.ops.kernels import fused_train as ft
 
@@ -1991,9 +2032,11 @@ def b1_check(args, cot, S: int) -> dict:
     *_, saved, raw = ft.fused_level_fwd_spill(*args, True, dot_bf16=True)
     got, delta, grow = backward_operands(args, saved, raw, cot, True, True)
     tile = ft.bwd_tiles[(R, S, True)]
-    worst, err = b1_errors(args[0], saved, grow, delta, got)
+    worst, bias, err = b1_errors(args[0], saved, grow, delta, got)
     if not worst <= B1_TOL:
         fail(f"B1 bf16 S={S}: off the fp64 products of its own operands by {worst:.3e} (limit {B1_TOL:g})")
+    if not bias <= B1_BIAS_TOL:
+        fail(f"B1 bf16 S={S}: bias sums off the fp64 sums of its deltas by {bias:.3e} (limit {B1_BIAS_TOL:g})")
     k2 = lambda: ft.fused_level_bwd_saved(*args, saved, raw, *cot, True, dot_bf16=True)  # noqa: E731
     plain_fn = lambda: [p for _, _, p in b1_products(args[0], saved, grow, delta, torch.float32)]  # noqa: E731
     ms = _bwd_pass_ms(k2, iters=3, passes=K2_PASSES_BF16)["B1"]
@@ -2004,11 +2047,12 @@ def b1_check(args, cot, S: int) -> dict:
     print(f"  S={S}: B1 bf16 (level_bwd_delta_kernel<true>, torch.profiler) at {R} rays, ray tile {tile}: {ms:.3f} / "
           f"{ms_again:.3f} ms, its plain version on the same operands {plain_ms:.3f} / {plain_again:.3f} ms (in "
           f"turns); bound {bound:.3f} ms ({by}); against the fp64 products of its operands {worst:.3e} of the "
-          f"largest entry (limit {B1_TOL:g}), max abs err against the plain version {err:.3e}")
+          f"largest entry beyond half a bf16 ulp (limit {B1_TOL:g}), its ten bias sums {bias:.3e} (limit "
+          f"{B1_BIAS_TOL:g}); max abs err against the plain version {err:.3e}")
     del saved, raw, delta, grow
     return {"S": S, "R": R, "ray_tile": tile, "ms": ms, "ms_again": ms_again, "plain_ms": plain_ms,
             "plain_ms_again": plain_again, "bound_ms": bound, "bound_by": by, "max_abs_err": err,
-            "fp64_rel_err": worst}
+            "fp64_rel_err": worst, "bias_rel_err": bias}
 
 
 def b2_operands(saved, xenc, delta) -> dict:
@@ -2019,22 +2063,24 @@ def b2_operands(saved, xenc, delta) -> dict:
 
 def b2_plain(ops: dict, delta, dot_bf16: bool) -> dict:
     """B2's share of the plain version: each product as it forms it (fp32
-    cuBLAS, on operands rounded to bf16 in bf16 mode), each bias as the sum
-    of its fp32 deltas."""
+    cuBLAS, on operands rounded to bf16 in bf16 mode) and, in fp32, each
+    bias as the sum of its deltas (in bf16 mode B1 sums the biases)."""
     from aonerf_torch.ops.kernels import fused_render as fr
 
     rnd = fr.round_bf16 if dot_bf16 else (lambda x: x)
-    out = {n: rnd(h).t() @ rnd(d) for n, (h, d) in ops.items()}
-    out.update({n: delta[:, c: c + (128 if n == "bv" else 256)].sum(0) for n, c in B2_BIASES.items()})
+    out = {n: rnd(h).float().t() @ rnd(d).float() for n, (h, d) in ops.items()}
+    if not dot_bf16:
+        out.update({n: delta[:, c: c + (128 if n == "bv" else 256)].sum(0) for n, c in B2_BIASES.items()})
     return out
 
 
 def b2_errors(got: dict, ops: dict, delta, dot_bf16: bool) -> tuple:
-    """B2 against what it read: the largest error of its 21 gradients
-    against the products of its operands (rounded to bf16 in bf16 mode)
-    and the sums of its fp32 deltas, in fp64 (max abs err / max |fp64|, held
-    to B2_TOL or B2_FP32_TOL); and its largest abs error against B2's share
-    of the plain version on the same operands."""
+    """B2 against what it read: the largest error of its gradients (the 21
+    in fp32, the 11 weight products in bf16 mode) against the products of
+    its operands (rounded to bf16 in bf16 mode) and, in fp32, the sums of its
+    deltas, in fp64 (max abs err / max |fp64|, held to B2_TOL or
+    B2_FP32_TOL); and its largest abs error against B2's share of the plain
+    version on the same operands."""
     from aonerf_torch.ops.kernels import fused_render as fr
 
     rnd = fr.round_bf16 if dot_bf16 else (lambda x: x)
@@ -2043,7 +2089,7 @@ def b2_errors(got: dict, ops: dict, delta, dot_bf16: bool) -> tuple:
         want = rnd(h).double().t() @ rnd(d).double()
         worst = max(worst, _rel(got[n], want))
         del want
-    for n, c in B2_BIASES.items():
+    for n, c in ({} if dot_bf16 else B2_BIASES).items():
         worst = max(worst, _rel(got[n].reshape(-1), delta[:, c: c + (128 if n == "bv" else 256)].double().sum(0)))
     plain = b2_plain(ops, delta, dot_bf16)
     err = max((got[n].reshape(-1) - plain[n].reshape(-1)).abs().max().item() for n in plain)
@@ -2052,12 +2098,13 @@ def b2_errors(got: dict, ops: dict, delta, dot_bf16: bool) -> tuple:
 
 def b2_library_ms(ops: dict, dot_bf16: bool) -> tuple:
     """One torch.mm a product of B2, summed: fp32 operands (TF32 off), or in
-    bf16 mode operands converted to bf16 beforehand (not timed) with an fp32
-    result where torch.mm takes out_dtype; and what was timed."""
+    bf16 mode on the very bf16 column slices of saved and delta that B2 reads
+    (xenc, fp32, converted beforehand, not timed) with an fp32 result where
+    torch.mm takes out_dtype; and what was timed."""
     if not dot_bf16:
         pairs, kw, kind = [(h.t(), d) for h, d in ops.values()], {}, "fp32 torch.mm"
     else:
-        pairs = [(h.t().to(torch.bfloat16), d.to(torch.bfloat16)) for h, d in ops.values()]
+        pairs = [(h.t().to(torch.bfloat16), d.to(torch.bfloat16)) for h, d in ops.values()]  # views where bf16
         try:
             torch.mm(*pairs[0], out_dtype=torch.float32)
             kw, kind = {"out_dtype": torch.float32}, "bf16 torch.mm, fp32 out (out_dtype)"
@@ -2068,22 +2115,22 @@ def b2_library_ms(ops: dict, dot_bf16: bool) -> tuple:
     return ms, kind
 
 
-def b2_bound(R: int, S: int, peak_flops: float, macs_factor: int = 1, saved_bytes: int = 4) -> dict:
+def b2_bound(R: int, S: int, peak_flops: float, macs_factor: int = 1, scratch_bytes: int = 4) -> dict:
     """B2 as its own function: its products at peak_flops (macs_factor
     products a product: 3 for 3xTF32), against the bytes it must move, each
-    read or written once: every saved column but the view layer's at
-    saved_bytes a value (2 in bf16 mode, where they hold bf16 values), xenc
-    and the deltas in fp32 (the bias sums need them so), and the partial
-    sets it writes. bound_ms_layout: the same with the saved columns as laid
-    out, 4 bytes a value."""
+    read or written once: every saved column but the view layer's and every
+    delta column at scratch_bytes a value (2 in bf16 mode, whose scratches
+    are bf16), xenc in fp32, and the partial sets it writes.
+    bound_ms_layout: the same with both scratches at 4 bytes a value, the
+    fp32 layout that bf16 mode had before its scratches were bf16."""
     rows = R * S
     ops = macs_factor * 2.0 * rows * B2_TC_MACS / peak_flops * 1e3
 
-    def bytes_ms(saved_b: int) -> float:
-        n = rows * (saved_b * (SAVED_FLOATS - 128) + 4.0 * (63 + SAVED_FLOATS)) + 4.0 * K2_RANGES * N_WEIGHTS
+    def bytes_ms(scratch_b: int) -> float:
+        n = rows * (scratch_b * (2 * SAVED_FLOATS - 128) + 4.0 * 63) + 4.0 * K2_RANGES * N_WEIGHTS
         return n / PEAK_BYTES * 1e3
 
-    t_bytes = bytes_ms(saved_bytes)
+    t_bytes = bytes_ms(scratch_bytes)
     ms, by = _bound(ops, t_bytes)
     layout_ms, _ = _bound(ops, bytes_ms(4))
     return {"bound_ms": ms, "bound_by": by, "bound_ms_ops": ops, "bound_ms_bytes": t_bytes,
@@ -2091,11 +2138,11 @@ def b2_bound(R: int, S: int, peak_flops: float, macs_factor: int = 1, saved_byte
 
 
 def b2_check(args, cot, S: int) -> dict:
-    """B2 in bf16 at the train step's shapes: its 21 gradients against the
+    """B2 in bf16 at the train step's shapes: its 11 gradients against the
     fp64 products of what it read (B2_TOL) and against B2's share of the
     plain bf16 version; its time by torch.profiler in turns with that plain
     share and with the fp32 B2 (fp32, bf16, plain, bf16, plain, fp32), its
-    bound and the library's torch.mm."""
+    bound and the library's torch.mm on the same bf16 slices."""
     from aonerf_torch.ops.kernels import fused_train as ft
 
     xenc = args[5].reshape(-1, args[5].shape[-1])
@@ -2106,7 +2153,8 @@ def b2_check(args, cot, S: int) -> dict:
     if not worst <= B2_TOL:
         fail(f"B2 bf16 S={S}: off the fp64 product of its own operands by {worst:.3e} (limit {B2_TOL:g})")
     k2 = lambda: ft.fused_level_bwd_saved(*args, saved, raw, *cot, True, dot_bf16=True)  # noqa: E731
-    k2_32 = lambda: ft.fused_level_bwd_saved(*args, saved, raw, *cot, True)  # noqa: E731
+    saved32 = saved.float()  # the fp32 mode's layout of the same values
+    k2_32 = lambda: ft.fused_level_bwd_saved(*args, saved32, raw, *cot, True)  # noqa: E731
     plain_fn = lambda: b2_plain(ops, delta, True)  # noqa: E731
     fp32_ms = _bwd_pass_ms(k2_32, iters=3)["B2"]
     ms = _bwd_pass_ms(k2, iters=3, passes=K2_PASSES_BF16)["B2"]
@@ -2115,16 +2163,16 @@ def b2_check(args, cot, S: int) -> dict:
     plain_again = cuda_ms(plain_fn, warmup=0, iters=3)
     fp32_again = _bwd_pass_ms(k2_32, iters=3)["B2"]
     library_ms, library = b2_library_ms(ops, True)
-    b = b2_bound(args[1].shape[0], S, PEAK_BF16_FLOPS, saved_bytes=2)
+    b = b2_bound(args[1].shape[0], S, PEAK_BF16_FLOPS, scratch_bytes=2)
     print(f"  S={S}: B2 bf16 (level_bwd_dw_bf16_kernel, torch.profiler) {ms:.3f} / {ms_again:.3f} ms, fp32 B2 "
           f"{fp32_ms:.3f} / {fp32_again:.3f} ms, B2's share of the plain bf16 version {plain_ms:.3f} / "
           f"{plain_again:.3f} ms (in turns: fp32, bf16, plain, bf16, plain, fp32); bound {b['bound_ms']:.3f} ms "
-          f"({b['bound_by']}: {b['bound_ms_bytes']:.3f} ms for its bytes at 3.35 TB/s, the saved bf16 values at 2 "
-          f"bytes, the deltas fp32; {b['bound_ms_layout']:.3f} ms with the saved values as laid out, 4 bytes; "
+          f"({b['bound_by']}: {b['bound_ms_bytes']:.3f} ms for its bytes at 3.35 TB/s, both bf16 scratches at 2 "
+          f"bytes a value; {b['bound_ms_layout']:.3f} ms were they fp32, 4 bytes; "
           f"{b['bound_ms_ops']:.3f} ms for its products at 989 TFLOP/s); {library} {library_ms:.3f} ms; against "
           f"the fp64 products of its operands {worst:.3e} of the largest entry (limit {B2_TOL:g}), max abs err "
           f"against the plain bf16 share {err:.3e}")
-    del saved, raw, delta, ops
+    del saved, saved32, raw, delta, ops
     return {"S": S, "ms": ms, "ms_again": ms_again, "fp32_ms": fp32_ms, "fp32_ms_again": fp32_again,
             "plain_ms": plain_ms, "plain_ms_again": plain_again, **b, "library_ms": library_ms,
             "library": library, "max_abs_err": err, "fp64_rel_err": worst}
@@ -2232,13 +2280,17 @@ def _b1_bound_bf16(R: int, S: int, ray_tile: int) -> tuple:
     """B1 in bf16 mode as its own function at ray_tile rays a block: its
     products at the bf16 peak, its narrow products and the wvb sum at the
     fp32 peak; against its bytes, each read or written once: the saved
-    activations it masks with (bf16 values, 2 bytes), g_raw (4 floats), the
-    fp32 deltas it writes, venc, the weights and its blocks' narrow sets."""
+    activations it masks with (bf16, 2 bytes), g_raw (4 floats), the bf16
+    deltas it writes, venc, the weights and its blocks' narrow sets (with
+    the bias sums, whose size the library gives)."""
+    from aonerf_torch.ops.kernels import fused_train as ft
+
     rows = R * S
     ops = (2.0 * rows * B1_TC_MACS / PEAK_BF16_FLOPS
            + 2.0 * (rows * B1_FP32_MACS + R * 27 * 128) / PEAK_FP32_FLOPS) * 1e3
-    n_bytes = (rows * (2.0 * SAVED_FLOATS + 4.0 * (SAVED_FLOATS + 4))
-               + 4.0 * (R * 27 + N_WEIGHTS + (R // ray_tile) * NARROW_FLOATS))
+    narrow = ft._library().aonerf_fused_level_bwd_narrow_floats(1)
+    n_bytes = (rows * (2.0 * B1_SAVED_FLOATS + 2.0 * SAVED_FLOATS + 4.0 * 4)
+               + 4.0 * (R * 27 + N_WEIGHTS + (R // ray_tile) * narrow))
     return _bound(ops, n_bytes / PEAK_BYTES * 1e3)
 
 
@@ -2294,7 +2346,7 @@ def k1s_preset_check(args, S: int) -> dict:
     k2_tile = ft.bwd_tiles[(R, S, True)]
     if not all(torch.isfinite(g).all() for g in (*grads.values(), *grads16.values())):
         fail(f"K2 bf16 S={S} at {R} rays: non-finite gradients")
-    moved = [n for n in B2_PRODUCTS.keys() | B2_BIASES.keys() if not torch.equal(grads[n], grads16[n])]
+    moved = [n for n in B2_PRODUCTS if not torch.equal(grads[n], grads16[n])]  # the biases are B1's sums
     if moved:
         fail(f"K2 bf16 S={S} at {R} rays: B2's gradients {sorted(moved)} differ between ray tiles {k2_tile} and 16")
     orders = {o: bf16_k2_plain(args, cot, True, mm) for o, mm in BF16_ORDERS.items()}
@@ -2307,6 +2359,10 @@ def k1s_preset_check(args, S: int) -> dict:
                               bf16_ratios(grads16, ref, lim), fp32_ratios)
     del orders, ref, lim, args64, grads16
     parts = _bwd_pass_ms(k2, iters=5, passes=K2_PASSES_BF16)
+    _, delta = backward_with_deltas(args, saved, raw, cot, True, True)
+    b2_library, _ = b2_library_ms(b2_operands(saved, args[5].reshape(R * S, -1), delta), True)
+    b2_b = b2_bound(R, S, PEAK_BF16_FLOPS, scratch_bytes=2)
+    del delta
     b1_ms, b1_ms16 = _in_turns(k2, k2_16, "level_bwd_delta_kernel", iters=20)
     k2_host = host_ms(k2)
     k2_host16 = host_ms(k2_16)
@@ -2320,7 +2376,8 @@ def k1s_preset_check(args, S: int) -> dict:
           f"limit at most {max(ratios.values()):.3f}; max abs err against the fp32-summed plain bf16 {err:.3e}")
     print(f"  S={S}: K2 bf16 from its saved at {R} rays, ray tile {k2_tile}, by pass (torch.profiler) "
           + ", ".join(f"{n} {v:.3f}" for n, v in parts.items())
-          + f" ms; B1 {b1_ms[0]:.3f} / {b1_ms[1]:.3f} ms of device time, at 16 rays a block {b1_ms16[0]:.3f} / "
+          + f" ms (B2's bound {b2_b['bound_ms']:.3f} ms, {b2_b['bound_by']}; bf16 torch.mm on its slices "
+          f"{b2_library:.3f} ms); B1 {b1_ms[0]:.3f} / {b1_ms[1]:.3f} ms of device time, at 16 rays a block {b1_ms16[0]:.3f} / "
           f"{b1_ms16[1]:.3f} ms (in turns); B1's bound {b1_bound:.3f} ms ({b1_by}; {b1_bound16:.3f} at 16 rays a "
           f"block); host work a K2 bf16 call {k2_host:.3f} ms (at 16 rays a block {k2_host16:.3f}; median of 5 x 20 "
           f"calls unsynchronized); bf16 rule at most {k2_ratio:.3f} of its limit, {k2_ratio_16:.3f} at 16 rays a "
@@ -2331,7 +2388,8 @@ def k1s_preset_check(args, S: int) -> dict:
             "k2_rule_ratio": k2_ratio, "k2_rule_ratio_t16": k2_ratio_16, "k2_ray_tile": k2_tile,
             "k2_passes_ms": parts, "b1_ms": b1_ms[0], "b1_ms_again": b1_ms[1], "b1_ms_t16": b1_ms16[0],
             "b1_ms_t16_again": b1_ms16[1], "b1_bound_ms": b1_bound, "b1_bound_by": b1_by,
-            "b1_bound_ms_t16": b1_bound16, "k2_host_ms": k2_host, "k2_host_ms_t16": k2_host16}
+            "b1_bound_ms_t16": b1_bound16, "k2_host_ms": k2_host, "k2_host_ms_t16": k2_host16,
+            "b2_ms": parts["B2"], "b2_bound_ms": b2_b["bound_ms"], "b2_library_ms": b2_library}
 
 
 def phase_bf16_kernels(nerf, boxes, focal) -> dict:
@@ -2450,8 +2508,8 @@ def phase_bf16_kernels(nerf, boxes, focal) -> dict:
         b = _fwd_bounds(S, R_TRAIN, spill=True, saved_bytes=2)
         print(f"  S={S}: K1s bf16 at {R_TRAIN} rays, ray tile {ft.fwd_tiles[(R_TRAIN, S, True)]}: {ms:.3f} / "
               f"{ms_again:.3f} ms, fp32 {ms32:.3f} / {ms32_again:.3f} ms (in turns), "
-              f"plain bf16 {plain_ms:.3f} ms; bound {b['bf16'][0]:.3f} ms ({b['bf16'][1]}; saved at 2 bytes a "
-              f"value, {_fwd_bounds(S, R_TRAIN, spill=True)['bf16'][0]:.3f} ms in the fp32 layout it writes), "
+              f"plain bf16 {plain_ms:.3f} ms; bound {b['bf16'][0]:.3f} ms ({b['bf16'][1]}; saved bf16, 2 bytes a "
+              f"value; {_fwd_bounds(S, R_TRAIN, spill=True)['bf16'][0]:.3f} ms were it fp32), "
               f"{b['tf32'][0]:.3f} ms at the TF32 peak")
         k1s_levels.append({"S": S, "ms": ms, "ms_again": ms_again, "fp32_ms": ms32, "fp32_ms_again": ms32_again,
                            "plain_ms": plain_ms, "bound_ms": b["bf16"][0], "bound_by": b["bf16"][1],
@@ -2494,7 +2552,8 @@ def phase_bf16_kernels(nerf, boxes, focal) -> dict:
         del again
         *_, saved, raw = ft.fused_level_fwd_spill(*args, True, dot_bf16=True)
         k2 = lambda: ft.fused_level_bwd_saved(*args, saved, raw, *cot, True, dot_bf16=True)  # noqa: E731
-        k2_32 = lambda: ft.fused_level_bwd_saved(*args, saved, raw, *cot, True)  # noqa: E731
+        saved32 = saved.float()  # the fp32 mode's layout of the same values
+        k2_32 = lambda: ft.fused_level_bwd_saved(*args, saved32, raw, *cot, True)  # noqa: E731
         plain = lambda: ft.fused_level_bwd_saved_ref(*args, saved, raw, *cot, True, dot_bf16=True)  # noqa: E731
         iters = 5 if S > 100 else 10
         ms32 = cuda_ms(k2_32, warmup=2, iters=iters)
@@ -2504,7 +2563,7 @@ def phase_bf16_kernels(nerf, boxes, focal) -> dict:
         plain_again = cuda_ms(plain, warmup=0, iters=3)
         ms32_again = cuda_ms(k2_32, warmup=0, iters=iters)
         parts = _bwd_pass_ms(k2, iters=3, passes=K2_PASSES_BF16)
-        del saved, raw
+        del saved, saved32, raw
         b = _bwd_bounds_bf16(R_TRAIN, S)
         b1_bound, b1_by = _b1_bound_bf16(R_TRAIN, S, ft.bwd_tiles[(R_TRAIN, S, True)])
         print(f"  S={S}: K2 bf16 (the backward from saved) {ms:.3f} / {ms_again:.3f} ms, fp32 {ms32:.3f} / "
@@ -2553,21 +2612,25 @@ def step_ms_in_turns(cfg_path: str) -> dict:
     """ms per train step at config/vanilla.json's batch (phase 7's scene and
     cuts), fp32 and bf16 in turns (fp32, bf16, bf16, fp32), each over one
     timed multi-step after an untimed one, from the seed's initial weights;
-    "batch" is the batch."""
+    "batch" is the batch; "peak_gb": each mode's peak device memory over its
+    runs (torch.cuda.max_memory_allocated())."""
     from aonerf_torch.train.loop import Trainer
     from aonerf_torch.utils.config import load_config
 
-    out = {"fp32": [], "bf16": [], "batch": load_config(cfg_path).batch_size}
+    out = {"fp32": [], "bf16": [], "batch": load_config(cfg_path).batch_size, "peak_gb": {"fp32": 0.0, "bf16": 0.0}}
     for dtype in ("f32", "bf16", "bf16", "f32"):
         cfg = load_config(cfg_path, {"compute_dtype": dtype, "exp_name": f"step_{dtype}"})
         trainer = Trainer(cfg)
         buffers = trainer.train_buffers()
+        torch.cuda.reset_peak_memory_stats()
         trainer.state, _ = trainer.step_fn(trainer.state, buffers, cfg.seed)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         trainer.state, _ = trainer.step_fn(trainer.state, buffers, cfg.seed)
         torch.cuda.synchronize()
-        out["fp32" if dtype == "f32" else "bf16"].append((time.perf_counter() - t0) * 1e3 / trainer._inner_steps)
+        mode = "fp32" if dtype == "f32" else "bf16"
+        out[mode].append((time.perf_counter() - t0) * 1e3 / trainer._inner_steps)
+        out["peak_gb"][mode] = max(out["peak_gb"][mode], torch.cuda.max_memory_allocated() / 1e9)
         trainer.close()
         del trainer, buffers
         torch.cuda.empty_cache()
@@ -2670,7 +2733,8 @@ def phase_bf16_training(tmp: str, root: str, fp32_cfg_path: str) -> dict:
               f"{f} field max abs rgb diff {mx:.3e}, mean {mn:.3e} (mean acc {acc:.4f})"
               for f, (mx, mn, acc) in bands.items()))
     print(f"  train step at batch {steps['batch']} (config/vanilla.json, phase 7's scene; in turns fp32, bf16, bf16, fp32): "
-          f"fp32 {', '.join(f'{x:.3f}' for x in steps['fp32'])} ms, bf16 {', '.join(f'{x:.3f}' for x in steps['bf16'])} ms")
+          f"fp32 {', '.join(f'{x:.3f}' for x in steps['fp32'])} ms, bf16 {', '.join(f'{x:.3f}' for x in steps['bf16'])} ms; "
+          f"peak device memory fp32 {steps['peak_gb']['fp32']:.3f} GB, bf16 {steps['peak_gb']['bf16']:.3f} GB")
     if not np.isfinite(loss).all() or len(losses) != n_steps:
         fail(f"bf16 training: {len(losses)} steps, finite {np.isfinite(loss).all()}")
     if not last < first:
@@ -2859,11 +2923,15 @@ def main() -> None:
         "name": "level_bwd_dw_bf16_kernel", "route": "cuda", "source": "aonerf_torch/ops/kernels/csrc/fused_train.cu",
         "replaces": "aonerf/ops/kernels/fused_train.py:239", "launches": bt["k2"],
         "max_abs_err": max(x["max_abs_err"] for x in b2lv), "ms": both(b2lv, "ms"), "plain_ms": both(b2lv, "plain_ms"),
-        # bound_ms: the saved bf16 values at 2 bytes; bound_ms_layout: at 4, as
-        # K1s lays them out
+        # bound_ms: both bf16 scratches at 2 bytes a value; bound_ms_layout: at
+        # 4, the fp32 layout they had before; library_ms: bf16 torch.mm on the
+        # same bf16 slices; "preset": at the fast preset's batch
         "bound_ms": both(b2lv, "bound_ms"), "bound_ms_layout": both(b2lv, "bound_ms_layout"),
         "bound_by": bound_by(b2lv), "library_ms": both(b2lv, "library_ms"),
         "library": b2lv[0]["library"], "fp32_ms": both(b2lv, "fp32_ms"), "levels": b2lv,
+        "preset": {"rays": BATCH_FAST, "ms": both(bk["k1s_preset"], "b2_ms"),
+                   "bound_ms": both(bk["k1s_preset"], "b2_bound_ms"),
+                   "library_ms": both(bk["k1s_preset"], "b2_library_ms")},
     })
     b1lv, pre = bk["b1"], bk["k1s_preset"]
     entries.append({
@@ -2878,14 +2946,16 @@ def main() -> None:
         "source": "aonerf_torch/ops/kernels/csrc/fused_train.cu", "replaces": "aonerf/ops/kernels/fused_train.py:239", "launches": bt["k2"],
         "max_abs_err": max(x["max_abs_err"] for x in b1lv), "ms": both(b1lv, "ms"), "plain_ms": both(b1lv, "plain_ms"),
         "bound_ms": both(b1lv, "bound_ms"), "bound_by": bound_by(b1lv), "library_ms": None,
-        "product": "mma.sync m16n8k16 bf16", "fp64_rel_err": max(x["fp64_rel_err"] for x in b1lv), "levels": b1lv,
+        "product": "mma.sync m16n8k16 bf16", "fp64_rel_err": max(x["fp64_rel_err"] for x in b1lv),
+        "bias_rel_err": max(x["bias_rel_err"] for x in b1lv), "levels": b1lv,
         "preset": {"rays": BATCH_FAST, "ray_tile": pre[0]["k2_ray_tile"], "ms": both(pre, "b1_ms"),
                    "ms_t16": both(pre, "b1_ms_t16"), "bound_ms": both(pre, "b1_bound_ms"),
                    "bound_ms_t16": both(pre, "b1_bound_ms_t16"), "host_ms": max(x["k2_host_ms"] for x in pre),
                    "host_ms_t16": max(x["k2_host_ms_t16"] for x in pre)},
     })
     print(f"bf16 step at batch {bt['steps_ms']['batch']}: {min(bt['steps_ms']['bf16']):.3f} ms against fp32 "
-          f"{min(bt['steps_ms']['fp32']):.3f} ms; K1s bf16 {entries[4]['ms']:.3f} ms + K2 bf16 {entries[5]['ms']:.3f} "
+          f"{min(bt['steps_ms']['fp32']):.3f} ms, peak device memory {bt['steps_ms']['peak_gb']['bf16']:.3f} GB "
+          f"against {bt['steps_ms']['peak_gb']['fp32']:.3f} GB; K1s bf16 {entries[4]['ms']:.3f} ms + K2 bf16 {entries[5]['ms']:.3f} "
           f"ms a step (fp32 {entries[4]['fp32_ms']:.3f} + {entries[5]['fp32_ms']:.3f} ms)")
     entries.append(b2)
     print(json.dumps({"kernels": entries}))

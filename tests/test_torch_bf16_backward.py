@@ -129,13 +129,15 @@ def test_k2_from_kept_matches_pallas_interpret(white_bkgd, monkeypatch):
     want = _jax_bwd(params, inputs, cot, white_bkgd)
     saved, raw = _pallas_kept(params, inputs[3], inputs[4], S)
     args = (_torch_kp(params), *map(torch.from_numpy, inputs), saved, raw, *map(torch.from_numpy, cot), white_bkgd)
-    errs = _rel_errors(ft.fused_level_bwd_saved(*args, ray_tile=TILE, dot_bf16=True), want)
+    # bf16 mode takes saved as bf16 (the kept activations are bf16 values)
+    args16 = (*args[:6], saved.to(torch.bfloat16), *args[7:])
+    errs = _rel_errors(ft.fused_level_bwd_saved(*args16, ray_tile=TILE, dot_bf16=True), want)
     assert all(v <= K2_TOL for v in errs.values()), errs
 
     fp32 = _rel_errors(ft.fused_level_bwd_saved(*args, ray_tile=TILE), want)
     assert sum(v > K2_TOL for v in fp32.values()) > len(fp32) // 2, fp32
     monkeypatch.setattr(ft, "bias_grad", lambda delta: fr.round_bf16(delta).sum(0, keepdim=True))
-    rounded = _rel_errors(ft.fused_level_bwd_saved(*args, ray_tile=TILE, dot_bf16=True), want)
+    rounded = _rel_errors(ft.fused_level_bwd_saved(*args16, ray_tile=TILE, dot_bf16=True), want)
     assert all(rounded[n] > K2_TOL for n in BIASES), rounded
 
 

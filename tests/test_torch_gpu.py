@@ -755,14 +755,17 @@ def test_bf16_kernels_at_partial_sizes(cuda, R, S):
         assert rel <= _PARTIAL_TOL, f"{name}: {rel}"
 
 
-# B2 alone, in each mode: its 21 gradients against the products of the very
-# operands it read, K1s' saved activations (xenc for w0, w5i) and B1's fp32
-# deltas from the call's own scratch, summed in fp64 (rounded to bf16 first
-# in bf16 mode, level_bwd_dw_bf16_kernel), and each bias against its fp32
-# deltas summed in fp64, within chip_smoke.py's B2_TOL in bf16 (B2's own
-# fp32 sums: 32-row tensor-core runs, the range, the 16 ranges) and
-# B2_FP32_TOL in fp32 (level_bwd_dw_kernel: 3xTF32 products, 64-row
-# tensor-core runs, the range, the 16 ranges). The sizes walk the edges of
+# B2 alone, in each mode: its gradients against the products of the very
+# operands it read, K1s' saved activations (xenc for w0, w5i) and B1's deltas
+# from the call's own scratch (in bf16 mode both scratches bf16), summed in
+# fp64 (rounded to bf16 first in bf16 mode, level_bwd_dw_bf16_kernel),
+# within chip_smoke.py's B2_TOL in bf16 (B2's own fp32 sums: 32-row
+# tensor-core runs, the range, the 16 ranges) and B2_FP32_TOL in fp32
+# (level_bwd_dw_kernel: 3xTF32 products, 64-row tensor-core runs, the range,
+# the 16 ranges); each bias in fp32 against its deltas summed in fp64
+# (B2_FP32_TOL), in bf16 mode, where B1 sums the biases from the fp32 deltas
+# it holds, against the fp64 sums of the fp64 products of B1's operands
+# (B1_BIAS_TOL). The sizes walk the edges of
 # the fp32 B2's ring of four 32-row stages: 256 x 65 rows end in a partial
 # last range (15 ranges of 1088 rows, one of 320), 48 x 65 in a range of 48
 # rows and three empty ones, 16 x 7 in two short ranges, the second of 48
@@ -778,10 +781,16 @@ def test_bf16_b2_is_the_bf16_product_of_what_it_read(cuda, R, S, dot_bf16):
     args = (kp, *_level_inputs(R, S, S, cuda))
     cot = _cotangents(R, S, S + 1, cuda)
     *_, saved, raw = ft.fused_level_fwd_spill(*args, True, dot_bf16=dot_bf16)
+    _check_b2(args, saved, raw, cot, dot_bf16)
+
+
+def _check_b2(args, saved, raw, cot, dot_bf16):
+    R, S = args[1].shape
     before = ft.launches, ft.bf16_launches
-    got, delta = rule.backward_with_deltas(args, saved, raw, cot, True, dot_bf16)
+    got, delta, grow = rule.backward_operands(args, saved, raw, cot, True, dot_bf16)
     torch.cuda.synchronize()
     assert (ft.launches, ft.bf16_launches) == (before[0] + (not dot_bf16), before[1] + dot_bf16)
+    assert saved.dtype == delta.dtype == ft.saved_dtype(dot_bf16)
     operand = fr.round_bf16 if dot_bf16 else (lambda x: x)
     tol = rule.B2_TOL if dot_bf16 else rule.B2_FP32_TOL
     for name, (h, d) in rule.b2_operands(saved, args[5].reshape(R * S, -1), delta).items():
@@ -789,22 +798,137 @@ def test_bf16_b2_is_the_bf16_product_of_what_it_read(cuda, R, S, dot_bf16):
         assert got[name].shape == want.shape and torch.isfinite(got[name]).all(), name
         rel = _rel_err(got[name], want)
         assert rel <= tol, f"{name}: {rel}"
-    for name, col in rule.B2_BIASES.items():
-        want = delta[:, col: col + (128 if name == "bv" else 256)].double().sum(0)
-        rel = _rel_err(got[name].reshape(-1), want)
-        assert rel <= tol, f"{name}: {rel}"
+    if dot_bf16:
+        _check_b1_bias_sums(args[0], saved, grow, delta, got)
+    else:
+        for name, col in rule.B2_BIASES.items():
+            want = delta[:, col: col + (128 if name == "bv" else 256)].double().sum(0)
+            rel = _rel_err(got[name].reshape(-1), want)
+            assert rel <= tol, f"{name}: {rel}"
     again = ft.fused_level_bwd_saved(*args, saved, raw, *cot, True, dot_bf16=dot_bf16)
     for name in fr.WEIGHT_NAMES:
         assert torch.equal(again[name], got[name]), name  # no atomics: the same bits
 
 
+def _check_b1_bias_sums(kp, saved, grow, delta, got):
+    """B1's ten bias sums in bf16 mode against the fp64 sums of the fp64
+    products of the operands it read (chip_smoke.py's B1_BIAS_TOL)."""
+    for layer, _, want in rule.b1_products(kp, saved, grow, delta, torch.float64):
+        name = rule.B1_BIASES[layer]
+        assert got[name].shape == (1, want.shape[1]) and torch.isfinite(got[name]).all(), name
+        rel = _rel_err(got[name].reshape(-1), want.sum(0))
+        assert rel <= rule.B1_BIAS_TOL, f"{name}: {rel}"
+
+
+# The bf16 scratches, at sizes of their own. B2 where a range ends inside a
+# 32-row step after the 8-stage ring (4 slots for xenc's tiles) has
+# wrapped: 72 x 65 = 4,680 rows, 14 ranges of 320 rows (10 steps), one of
+# 200 (6 steps and 8 rows) and an empty one.
+def test_bf16_b2_where_a_range_ends_inside_a_step(cuda):
+    R, S = 72, 65
+    mlp = NeRFMLP(generator=torch.Generator().manual_seed(S + 1), device=cuda)
+    with torch.no_grad():
+        kp = fr.kernel_params(mlp)
+        kp["bd"] += 0.5
+    args = (kp, *_level_inputs(R, S, S + 1, cuda))
+    cot = _cotangents(R, S, S + 2, cuda)
+    *_, saved, raw = ft.fused_level_fwd_spill(*args, True, dot_bf16=True)
+    _check_b2(args, saved, raw, cot, True)
+
+
+# B2's swizzled bf16 tiles (TMA's 128-byte swizzle, xenc's tiles rounded into
+# the same layout) at row counts that are no multiple of a 32-row stage:
+# 31 rows (less than one stage), 111 (3 stages and 15 rows), 65 (2 and 1).
+@pytest.mark.parametrize("R,S", [(1, 31), (3, 37), (5, 13)])
+def test_bf16_b2_swizzled_tiles_at_rows_off_a_stage(cuda, R, S):
+    mlp = NeRFMLP(generator=torch.Generator().manual_seed(S + 2), device=cuda)
+    with torch.no_grad():
+        kp = fr.kernel_params(mlp)
+        kp["bd"] += 0.5
+    args = (kp, *_level_inputs(R, S, S + 2, cuda))
+    cot = _cotangents(R, S, S + 3, cuda)
+    *_, saved, raw = ft.fused_level_fwd_spill(*args, True, dot_bf16=True)
+    _check_b2(args, saved, raw, cot, True)
+
+
+# B1's ten bias sums (bf16 mode) at the fast preset's batch, at the tile K2
+# chooses (2) and at 16 rays a block: each within B1_BIAS_TOL of the fp64
+# sums of its deltas' fp64 products; the deltas it writes do not depend on
+# the tile.
+@pytest.mark.parametrize("S", [65, 193])
+def test_bf16_b1_bias_sums_are_the_sums_of_its_fp32_deltas(cuda, S):
+    R = 224
+    mlp = NeRFMLP(generator=torch.Generator().manual_seed(S + 3), device=cuda)
+    with torch.no_grad():
+        kp = fr.kernel_params(mlp)
+        kp["bd"] += 0.5
+    args = (kp, *_level_inputs(R, S, S + 3, cuda))
+    cot = _cotangents(R, S, S + 4, cuda)
+    *_, saved, raw = ft.fused_level_fwd_spill(*args, True, dot_bf16=True)
+    deltas = []
+    for tile in (None, 16):
+        got, delta, grow = ft.fused_level_bwd_saved(*args, saved, raw, *cot, True, ray_tile=tile, dot_bf16=True,
+                                                    deltas=True)
+        torch.cuda.synchronize()
+        assert ft.bwd_tiles[(R, S, True)] == (2 if tile is None else 16)
+        _check_b1_bias_sums(kp, saved, grow, delta, got)
+        deltas.append(delta.clone())
+    assert torch.equal(deltas[0], deltas[1])
+
+
+def _exact_level(R, S, device):
+    """Weights and inputs whose every product sums one or two nonzero terms,
+    multiples of 1/16 below 8 (the product weights are 0/1 selections, w5i's
+    halves, xenc on a grid of 1/8, the biases multiples of 1/8, wvb zero): in
+    bf16 mode every activation is exact in any summation order, and a bf16
+    value."""
+    rng = np.random.default_rng(R + S)
+    kp = {}
+    for n in ("w1", "w2", "w3", "w4", "w5x", "w6", "w7", "wb", "wva"):
+        cols = 128 if n == "wva" else 256
+        w = np.zeros((256, cols), np.float32)
+        w[rng.permutation(256)[:cols], np.arange(cols)] = 1.0
+        kp[n] = w
+    kp["w0"] = np.zeros((63, 256), np.float32)
+    kp["w0"][np.arange(256) % 63, np.arange(256)] = 1.0
+    kp["w5i"] = np.zeros((63, 256), np.float32)
+    kp["w5i"][rng.integers(0, 63, 256), np.arange(256)] = 0.5
+    for n, width in (*((f"b{i}", 256) for i in range(8)), ("bb", 256), ("bv", 128)):
+        kp[n] = (rng.integers(-2, 3, (1, width)) / 8).astype(np.float32)
+    kp["wvb"] = np.zeros((27, 128), np.float32)
+    kp["wd"], kp["wr"] = ((0.1 * rng.standard_normal(shape)).astype(np.float32) for shape in ((256, 1), (128, 3)))
+    kp["bd"], kp["br"] = np.full((1, 1), 0.5, np.float32), np.zeros((1, 3), np.float32)
+    kp = {n: torch.from_numpy(kp[n]).to(device) for n in fr.WEIGHT_NAMES}
+    t, o, d, venc, xenc = _level_inputs(R, S, R + S, device)
+    return kp, (t, o, d, venc, torch.round(8 * xenc) / 8)
+
+
+# K1s bf16 writes its saved activations as torch.bfloat16 (R*S, 2432): each
+# warp stmatrix-es its epilogue's bf16 pairs into a 128-byte-swizzled tile in
+# the weight ring's last two stages, and thread 0 TMA-stores it in 64x64
+# boxes. Where every sum is exact in any order, they equal the plain
+# version's bit for bit, at a partial last chunk (48 x 65) and at the train
+# step's S (256 x 193).
+@pytest.mark.parametrize("R,S", [(48, 65), (256, 193)])
+def test_bf16_k1s_saved_equals_the_plain_version_on_exact_sums(cuda, R, S):
+    kp, args = _exact_level(R, S, cuda)
+    saved = ft.fused_level_fwd_spill(kp, *args, True, dot_bf16=True)[4]
+    plain = ft.fused_level_fwd_spill_ref(kp, *args, True, dot_bf16=True)[4]
+    torch.cuda.synchronize()
+    assert saved.dtype == plain.dtype == torch.bfloat16 and saved.shape == plain.shape == (R * S, ft.SAVED_FLOATS)
+    layers = rule.saved_layers(plain)
+    assert all((v != 0).double().mean().item() > 0.1 for v in layers.values())  # every layer lives
+    assert torch.equal(saved, plain)
+
+
 # B1 in bf16 mode alone (level_bwd_delta_kernel<true>, native bf16 products
-# from the wrapper's bf16 pack): each delta it wrote against the product of
-# the operands it read (the delta of the layer above from its own scratch,
-# g_raw from the integrator backward's, the rounded weights, the saved
-# activations' masks) rounded to bf16 and summed in fp64, and its head
-# gradients wd, bd, wr, br against their operands' fp64 sums, within
-# chip_smoke.py's B1_TOL (its own fp32 sums). The sizes are the B2 test's:
+# from the wrapper's bf16 pack): each delta it wrote (bf16) against the
+# product of the operands it read (the delta of the layer above from its own
+# scratch, g_raw from the integrator backward's, the rounded weights, the
+# saved activations' masks) rounded to bf16 and summed in fp64, beyond half a
+# bf16 ulp (rule.b1_delta_error), and its head gradients wd, bd, wr, br
+# against their operands' fp64 sums, within chip_smoke.py's B1_TOL (its own
+# fp32 sums). The sizes are the B2 test's:
 # 48 x 65 ends mid-chunk, 16 x 7 mid-ring.
 @pytest.mark.parametrize("R,S", [(256, 65), (48, 65), (16, 7)])
 def test_bf16_b1_is_the_bf16_product_of_what_it_read(cuda, R, S):
@@ -818,9 +942,10 @@ def test_bf16_b1_is_the_bf16_product_of_what_it_read(cuda, R, S):
     got, delta, grow = rule.backward_operands(args, saved, raw, cot, True, True)
     torch.cuda.synchronize()
     assert grow[:, 0].abs().max() > 0 and grow[:, 1:].abs().max() > 0
+    assert delta.dtype == torch.bfloat16
     for name, d, want in rule.b1_products(kp, saved, grow, delta, torch.float64):
         assert torch.isfinite(d).all() and want.abs().max() > 0, name
-        rel = _rel_err(d, want)
+        rel = rule.b1_delta_error(d, want)  # beyond half a bf16 ulp: it writes its fp32 deltas rounded
         assert rel <= rule.B1_TOL, f"{name}: {rel}"
     for name, want in rule.b1_heads(saved, grow).items():
         rel = _rel_err(got[name].reshape(-1), want.reshape(-1))
@@ -829,9 +954,10 @@ def test_bf16_b1_is_the_bf16_product_of_what_it_read(cuda, R, S):
 
 # K2's ray tile: in bf16 mode chosen per launch from B1's shared memory
 # (2 at the fast preset's 224 rays: 112 blocks of 3 / 7 chunks, where 16
-# rays a block give 14 blocks of 17 / 49); its head sums' order moves with
-# it, so K2 at the chosen tile and at 16 are each held to the bf16 rule, and
-# B2's 21 gradients, from B1's deltas, which no tile moves, keep their bits.
+# rays a block give 14 blocks of 17 / 49); the order of its head and bias
+# sums (B1's per-block sums) moves with it, so K2 at the chosen tile and at
+# 16 are each held to the bf16 rule, and B2's 11 weight products, from B1's
+# deltas, which no tile moves, keep their bits.
 @pytest.mark.parametrize("S", [65, 193])
 def test_bf16_k2_at_the_chosen_tile_and_at_16_meet_the_rule(cuda, S):
     mlp = NeRFMLP(generator=torch.Generator().manual_seed(S + 7), device=cuda)
@@ -847,7 +973,7 @@ def test_bf16_k2_at_the_chosen_tile_and_at_16_meet_the_rule(cuda, S):
     at16 = ft.fused_level_bwd_saved(kp, *args, saved, raw, *cot, True, ray_tile=16, dot_bf16=True)
     assert ft.bwd_tiles[(R, S, True)] == 16
     torch.cuda.synchronize()
-    for name in (*rule.B2_PRODUCTS, *rule.B2_BIASES):
+    for name in rule.B2_PRODUCTS:
         assert torch.equal(chosen[name], at16[name]), name
     orders = {}
     for k, mm in rule.BF16_ORDERS.items():
