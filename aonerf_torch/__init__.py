@@ -32,19 +32,24 @@ def default_device(device: DeviceLike = None) -> torch.device:
 
 @contextlib.contextmanager
 def full_fp32():
-    """Keep float32 convolutions and matmuls out of TF32 for the duration,
-    whatever the process-wide flags say, and restore the flags after.
+    """Keep float32 convolutions and matmuls out of TF32, and the fp32 sums
+    of bf16 matmuls out of bf16, for the duration, whatever the
+    process-wide flags say, and restore the flags after.
 
     cuDNN runs float32 convolutions in TF32 by default on the card, which
-    keeps ~3 decimal digits. A convolution's backward reads the flag when it
-    runs, so a caller that differentiates holds this around the backward
-    too.
+    keeps ~3 decimal digits; cuBLAS may add a bf16 matmul's split-K partial
+    sums in bf16 by default, which flax's fp32 sums never do. A product's
+    backward reads the flags when it runs, so a caller that differentiates
+    holds this around the backward too.
     """
-    cudnn, matmul = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    cuda_matmul = torch.backends.cuda.matmul
+    saved = (torch.backends.cudnn.allow_tf32, cuda_matmul.allow_tf32,
+             cuda_matmul.allow_bf16_reduced_precision_reduction)
     torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    cuda_matmul.allow_tf32 = False
+    cuda_matmul.allow_bf16_reduced_precision_reduction = False
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = cudnn
-        torch.backends.cuda.matmul.allow_tf32 = matmul
+        (torch.backends.cudnn.allow_tf32, cuda_matmul.allow_tf32,
+         cuda_matmul.allow_bf16_reduced_precision_reduction) = saved

@@ -9,6 +9,8 @@ density soft-capped at ``sigma_cap``, ``tail_to_background``, no rgb
 padding, and with ``embed_deg`` the deformation conditioned on an embedding
 of the rounded joint angle in degrees, nn.Embedding(91, 32): the
 ground-truth angle when training and validating, the predicted one at test.
+``compute_dtype`` reaches the encoder, the field and the state decoder; the
+codes they hand on, the predicted state and the degree embedding stay fp32.
 """
 
 from typing import Dict, List, Optional, Tuple
@@ -51,7 +53,8 @@ class AutoEncoderArticulatedNeRF(nn.Module):
         super().__init__()
         device = default_device(device)
         self.embed_deg = embed_deg
-        self.encoder = MultiHeadImgEncoder(art_size=32, generator=generator, device=device)
+        self.encoder = MultiHeadImgEncoder(art_size=32, generator=generator, device=device,
+                                           compute_dtype=compute_dtype)
         self.field = ArticulatedNeRF(
             num_coarse_samples=num_coarse_samples, num_fine_samples=num_fine_samples,
             min_deg_point=min_deg_point, max_deg_point=max_deg_point, deg_view=deg_view, noise_std=noise_std,
@@ -59,7 +62,8 @@ class AutoEncoderArticulatedNeRF(nn.Module):
             latent_dense=latent_dense, rgb_padding=0.0, embed_deg=embed_deg, compute_dtype=compute_dtype,
             generator=generator, device=device,
         )
-        self.joint_state_decoder = JointStateDecoder(generator=generator, device=device)
+        self.joint_state_decoder = JointStateDecoder(generator=generator, device=device,
+                                                     compute_dtype=compute_dtype)
         if embed_deg:  # 0..90 degrees inclusive
             self.deg_embedding = nn.Embedding(91, 32, device="meta")
             self.deg_embedding.to_empty(device="cpu")

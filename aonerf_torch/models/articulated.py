@@ -10,7 +10,13 @@ Per sample point:
   4. sigma = softplus(raw + density_bias), rgb = sigmoid(raw) stretched by
      rgb_padding
 over the vanilla NeRF's two-level hierarchy. No TPU kernel computes this
-field; its products are ``torch.nn.functional.linear`` in fp32.
+field; its products are ``torch.nn.functional.linear``, in fp32 or, with
+``compute_dtype=torch.bfloat16``, as flax's bf16 ``Dense`` computes them
+(``models.mlp.linear``; ``models.bf16_form`` spells the whole form out): each
+product rounded to bf16 and its bias added with a second rounding, the
+latents' products rounded and added in order, the elementwise operations and
+the position encoding in bf16, the raw outputs cast to fp32. Parameters stay
+fp32.
 
 Each layer is one ``nn.Linear`` whose weight (out, in) holds the flax
 kernel's rows in their order, latent by latent: ``deform_0`` = [pos 3 |
@@ -28,7 +34,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from aonerf_torch import DeviceLike, default_device
+from aonerf_torch import DeviceLike, default_device, full_fp32
+from aonerf_torch.models.mlp import COMPUTE_DTYPES, linear, round_exact
 from aonerf_torch.ops import sampling
 from aonerf_torch.ops.encoding import pos_enc, pos_enc_dim
 from aonerf_torch.ops.render import volumetric_rendering
@@ -48,17 +55,33 @@ def broadcast_latent(latent: torch.Tensor, n_rows: int) -> torch.Tensor:
     return latent.repeat_interleave(n_rows // b, dim=0)
 
 
-def latent_linear(layer: nn.Linear, x_var: torch.Tensor, latents: List[torch.Tensor], n_rows: int) -> torch.Tensor:
+def latent_linear(
+    layer: nn.Linear, x_var: torch.Tensor, latents: List[torch.Tensor], n_rows: int,
+    compute_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
     """``layer`` over [x_var | broadcast(latent) ...] without building the
     broadcasts: x_var @ W[:, :v]^T + b, plus each latent's columns contracted
-    on its own rows and broadcast."""
+    on its own rows and broadcast. In bf16 each product is rounded, the bias
+    added after x_var's, and every add rounded, in that order. A latent's
+    product (its few rows) is summed exactly (fp64) and rounded once: every
+    row of its view takes it, so one of its entries rounded to the other
+    neighbour by a summation order (an fp32 sum within its error of a tie)
+    would move a whole view's rows."""
     w = layer.weight
     off = x_var.shape[-1]
-    y = F.linear(x_var, w[:, :off], layer.bias)
+    if compute_dtype == torch.float32:
+        y = F.linear(x_var, w[:, :off], layer.bias)
+    else:
+        w = w.to(compute_dtype)
+        y = F.linear(x_var, w[:, :off]) + layer.bias.to(compute_dtype)
     for lat in latents:
         lat = torch.atleast_2d(lat)
         d = lat.shape[-1]
-        y = y + broadcast_latent(F.linear(lat, w[:, off : off + d]), n_rows)
+        if compute_dtype == torch.float32:
+            p = F.linear(lat.to(w.dtype), w[:, off : off + d])
+        else:
+            p = round_exact(F.linear(lat.to(compute_dtype).double(), w[:, off : off + d].double()), compute_dtype)
+        y = y + broadcast_latent(p, n_rows)
         off += d
     if off != w.shape[1]:
         raise ValueError(f"inputs of width {off} for a layer of {w.shape[1]}")
@@ -67,8 +90,8 @@ def latent_linear(layer: nn.Linear, x_var: torch.Tensor, latents: List[torch.Ten
 
 def _check_compute(compute_dtype, fused_head: bool = False, noise_std: float = 0.0) -> None:
     todo = []
-    if compute_dtype != torch.float32:
-        todo.append(f"compute_dtype={compute_dtype}")
+    if compute_dtype not in COMPUTE_DTYPES.values():
+        todo.append(f"compute_dtype={compute_dtype} (fp32 and bf16 run)")
     if fused_head:
         todo.append("fused_head (mlp.fused_density_bottleneck)")
     if noise_std > 0:
@@ -124,7 +147,7 @@ class ArticulatedNeRFMLP(nn.Module):
         self.skip_layer = skip_layer
         self.num_rgb_channels, self.num_density_channels = num_rgb_channels, num_density_channels
         self.deformation_mlp, self.enc_after, self.embed_deg = deformation_mlp, enc_after, embed_deg
-        self.latent_dense = latent_dense
+        self.latent_dense, self.compute_dtype = latent_dense, compute_dtype
 
         enc = pos_enc_dim(input_ch, min_deg_point, max_deg_point)
         feat = input_ch if enc_after else enc  # width of the samples passed in
@@ -166,6 +189,12 @@ class ArticulatedNeRFMLP(nn.Module):
     def _layer(self, name: str, idx: int) -> nn.Linear:
         return getattr(self, f"{name}_{idx}")
 
+    def _dense(self, layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+        return linear(layer, x, self.compute_dtype)
+
+    def _latent_dense(self, layer: nn.Linear, x_var: torch.Tensor, latents, n_rows: int) -> torch.Tensor:
+        return latent_linear(layer, x_var, latents, n_rows, self.compute_dtype)
+
     def forward(
         self, pos: torch.Tensor, condition: torch.Tensor, latents: Latents
     ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -176,19 +205,27 @@ class ArticulatedNeRFMLP(nn.Module):
 
         Returns (raw_rgb (B, S, 3), raw_density (B, S, 1)).
         """
+        with full_fp32():  # a caller that differentiates holds it around the backward too
+            return self._forward(pos, condition, latents)
+
+    def _forward(self, pos: torch.Tensor, condition: torch.Tensor, latents: Latents):
         shape_code, appearance_code = latents["density"], latents["color"]
         articulation_code = latents["articulation_deg" if self.embed_deg else "articulation"]
         num_rays, num_samples, feat_dim = pos.shape
         n_rows = num_rays * num_samples
+        dtype = self.compute_dtype
+        bf16 = dtype != torch.float32
+        if bf16:  # the fp32 path keeps its inputs' dtype (fp64 in an oracle)
+            pos, condition = pos.to(dtype), condition.to(dtype)
         pos = pos.reshape(n_rows, feat_dim)
 
         if self.latent_dense:
             trunk_latents = [shape_code]
             if self.deformation_mlp:
-                x = torch.relu(latent_linear(self.deform_0, pos, [shape_code, articulation_code], n_rows))
+                x = torch.relu(self._latent_dense(self.deform_0, pos, [shape_code, articulation_code], n_rows))
                 for idx in range(1, self.netdepth_deformation):
-                    x = torch.relu(self._layer("deform", idx)(x))
-                x = self.deform_out(x) + pos
+                    x = torch.relu(self._dense(self._layer("deform", idx), x))
+                x = self._dense(self.deform_out, x) + pos
                 if self.enc_after:
                     x = pos_enc(x, self.min_deg_point, self.max_deg_point)
                 var_inputs = x  # the row-varying part of the trunk input
@@ -199,43 +236,49 @@ class ArticulatedNeRFMLP(nn.Module):
             for idx in range(self.netdepth):
                 layer = self._layer("pts", idx)
                 if idx == 0:
-                    h = latent_linear(layer, var_inputs, trunk_latents, n_rows)
+                    h = self._latent_dense(layer, var_inputs, trunk_latents, n_rows)
                 elif (idx - 1) % self.skip_layer == 0 and idx - 1 > 0:
                     # the concat path appended its inputs after layer idx-1
-                    h = latent_linear(layer, torch.cat([x, var_inputs], dim=-1), trunk_latents, n_rows)
+                    h = self._latent_dense(layer, torch.cat([x, var_inputs], dim=-1), trunk_latents, n_rows)
                 else:
-                    h = layer(x)
+                    h = self._dense(layer, x)
                 x = torch.relu(h)
         else:
             shape_b = broadcast_latent(shape_code, n_rows)
-            x = torch.cat([pos, shape_b, broadcast_latent(articulation_code, n_rows)], dim=-1)
+            articulation_b = broadcast_latent(articulation_code, n_rows)
+            if bf16:
+                shape_b, articulation_b = shape_b.to(dtype), articulation_b.to(dtype)
+            x = torch.cat([pos, shape_b, articulation_b], dim=-1)
             if self.deformation_mlp:
                 for idx in range(self.netdepth_deformation):
-                    x = torch.relu(self._layer("deform", idx)(x))
-                x = self.deform_out(x) + pos
+                    x = torch.relu(self._dense(self._layer("deform", idx), x))
+                x = self._dense(self.deform_out, x) + pos
                 if self.enc_after:
                     x = pos_enc(x, self.min_deg_point, self.max_deg_point)
                 x = torch.cat([x, shape_b], dim=-1)
             inputs = x
             for idx in range(self.netdepth):
-                x = torch.relu(self._layer("pts", idx)(x))
+                x = torch.relu(self._dense(self._layer("pts", idx), x))
                 if idx % self.skip_layer == 0 and idx > 0:
                     x = torch.cat([x, inputs], dim=-1)
 
-        raw_density = self.density(x).reshape(num_rays, num_samples, self.num_density_channels)
-        bottleneck = self.bottleneck(x)
+        raw_density = self._dense(self.density, x).reshape(num_rays, num_samples, self.num_density_channels)
+        bottleneck = self._dense(self.bottleneck, x)
         if self.latent_dense:
             # the per-ray view condition and the per-view appearance code both
             # broadcast: their columns are contracted on (B, 27) and (V, 128)
-            x = torch.relu(latent_linear(self.views_0, bottleneck, [condition, appearance_code], n_rows))
+            x = torch.relu(self._latent_dense(self.views_0, bottleneck, [condition, appearance_code], n_rows))
             for idx in range(1, self.netdepth_condition):
-                x = torch.relu(self._layer("views", idx)(x))
+                x = torch.relu(self._dense(self._layer("views", idx), x))
         else:
             cond = condition[:, None, :].expand(num_rays, num_samples, condition.shape[-1]).reshape(n_rows, -1)
-            x = torch.cat([bottleneck, cond, broadcast_latent(appearance_code, n_rows)], dim=-1)
+            appearance_b = broadcast_latent(appearance_code, n_rows)
+            x = torch.cat([bottleneck, cond, appearance_b.to(dtype) if bf16 else appearance_b], dim=-1)
             for idx in range(self.netdepth_condition):
-                x = torch.relu(self._layer("views", idx)(x))
-        raw_rgb = self.rgb(x).reshape(num_rays, num_samples, self.num_rgb_channels)
+                x = torch.relu(self._dense(self._layer("views", idx), x))
+        raw_rgb = self._dense(self.rgb, x).reshape(num_rays, num_samples, self.num_rgb_channels)
+        if bf16:
+            raw_rgb, raw_density = raw_rgb.to(torch.float32), raw_density.to(torch.float32)
         return raw_rgb, raw_density
 
 
@@ -281,10 +324,11 @@ class ArticulatedNeRF(nn.Module):
         self.lindisp, self.rgb_padding, self.density_bias = lindisp, rgb_padding, density_bias
         self.sigma_activation, self.sigma_cap = sigma_activation, sigma_cap
         self.tail_to_background, self.enc_after = tail_to_background, enc_after
+        self.compute_dtype = compute_dtype
         mlp_kwargs = dict(
             min_deg_point=min_deg_point, max_deg_point=max_deg_point, deg_view=deg_view, enc_after=enc_after,
             embed_deg=embed_deg, density_bias_init=0.3 if sigma_activation == "relu" else 0.0,
-            latent_dense=latent_dense, generator=generator, device=device,
+            compute_dtype=compute_dtype, latent_dense=latent_dense, generator=generator, device=device,
         )
         self.coarse_mlp = ArticulatedNeRFMLP(**mlp_kwargs)
         self.fine_mlp = ArticulatedNeRFMLP(**mlp_kwargs)

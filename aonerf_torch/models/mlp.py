@@ -22,6 +22,7 @@ flax's ``param_dtype`` keeps them.
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from aonerf_torch import DeviceLike, default_device
@@ -29,6 +30,25 @@ from aonerf_torch.ops.encoding import pos_enc_dim
 
 # the kernels' modes by the name Config.compute_dtype gives them
 COMPUTE_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def round_exact(x: torch.Tensor, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """fp64 ``x`` rounded to the nearest bf16 value (ties to even) in one
+    step, as ``dtype``; its gradient passes through as a cast's does."""
+    m, e = torch.frexp(x.detach())
+    exact = torch.ldexp(torch.round(m * 256.0), (e - 8).to(x.dtype))
+    return (x + (exact - x).detach()).to(dtype)
+
+
+def linear(layer: nn.Linear, x: torch.Tensor, compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``layer`` on ``x`` as flax's ``Dense(dtype=compute_dtype)`` computes
+    it. fp32: the layer itself. bf16: the product of bf16 operands (fp32
+    sums) rounded to bf16, then the bias rounded to bf16 and added, rounded
+    again. The bias never goes to ``F.linear`` / ``addmm``: their epilogue
+    adds it before the one rounding."""
+    if compute_dtype == torch.float32:
+        return layer(x)
+    return F.linear(x.to(compute_dtype), layer.weight.to(compute_dtype)) + layer.bias.to(compute_dtype)
 
 
 class NeRFMLP(nn.Module):

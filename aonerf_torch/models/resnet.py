@@ -14,6 +14,10 @@ downsample``, ``color_layer4``, ``color_fc``); flax's ``_Norm_k`` is
 ``norm{k}`` here (``utils.bridge`` maps the two). Inputs are NCHW images in
 [-1, 1]. The convolutions are ``F.conv2d`` in fp32: ``forward`` keeps them
 out of TF32 whatever the process-wide flag says (``aonerf_torch.full_fp32``).
+With ``compute_dtype=torch.bfloat16`` they run as flax's bf16 ``Conv``: bf16
+input and weights, fp32 sums, the output rounded to bf16; the norms keep
+fp32 statistics and return bf16, ReLU, max-pool and the residual adds run
+in bf16, and the global pool and the heads in fp32.
 """
 
 import math
@@ -62,6 +66,14 @@ def _conv(cin: int, cout: int, k: int, stride: int = 1, padding: int = 0) -> nn.
     return nn.Conv2d(cin, cout, k, stride=stride, padding=padding, bias=False, device="meta")
 
 
+def conv(layer: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """``layer`` on ``x`` in ``x``'s dtype: its weight cast to it (bf16
+    operands, one rounding of the fp32 sums), else the layer itself."""
+    if x.dtype == layer.weight.dtype:
+        return layer(x)
+    return F.conv2d(x, layer.weight.to(x.dtype), None, layer.stride, layer.padding)
+
+
 class BasicBlock(nn.Module):
     def __init__(self, cin: int, features: int, stride: int = 1, norm_type: str = "instance"):
         super().__init__()
@@ -77,9 +89,9 @@ class BasicBlock(nn.Module):
             self.downsample = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.relu(self.norm0(self.conv1(x)))
-        y = self.norm1(self.conv2(y))
-        residual = x if self.downsample is None else self.norm2(self.downsample(x))
+        y = torch.relu(self.norm0(conv(self.conv1, x)))
+        y = self.norm1(conv(self.conv2, y))
+        residual = x if self.downsample is None else self.norm2(conv(self.downsample, x))
         return torch.relu(y + residual)
 
 
@@ -111,10 +123,14 @@ class MultiHeadImgEncoder(nn.Module):
         spatials: tuple = (),
         generator: Optional[torch.Generator] = None,
         device: DeviceLike = None,
+        compute_dtype: torch.dtype = torch.float32,
     ):
         """Kernels lecun-normal and biases zero, as flax initializes them,
         drawn on the CPU from ``generator`` and then moved to ``device``."""
         super().__init__()
+        if compute_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"compute_dtype {compute_dtype}: expected torch.float32 or torch.bfloat16")
+        self.compute_dtype = compute_dtype
         if spatials:
             raise NotImplementedError(
                 "the encoder's pixel-aligned 'spatials' heads are not ported yet: ROADMAP Queue 1 item 1"
@@ -158,8 +174,10 @@ class MultiHeadImgEncoder(nn.Module):
             if self.agg_fct == "mean":
                 return {k: o.reshape(b, v, -1).mean(dim=1) for k, o in out.items()}
             return {k: o.reshape(b, v, -1).amax(dim=1) for k, o in out.items()}
+        # fp32 mode keeps the weights' dtype (fp64 in an oracle)
+        dtype = self.conv1.weight.dtype if self.compute_dtype == torch.float32 else self.compute_dtype
         with full_fp32():
-            x = torch.relu(self.norm0(self.conv1(x.to(self.conv1.weight.dtype))))
+            x = torch.relu(self.norm0(conv(self.conv1, x.to(dtype))))
             x = F.max_pool2d(x, 3, stride=2, padding=1)
             for si in range(self.shared_layers):
                 x = getattr(self, f"layer{si + 1}")(x)
@@ -168,7 +186,8 @@ class MultiHeadImgEncoder(nn.Module):
                 h = x
                 for si in range(self.shared_layers, 4):
                     h = getattr(self, f"{name}_layer{si + 1}")(h)
-                out[name] = getattr(self, f"{name}_fc")(h.mean(dim=(2, 3)))  # global average pool
+                fc = getattr(self, f"{name}_fc")
+                out[name] = fc(h.to(fc.weight.dtype).mean(dim=(2, 3)))  # global average pool
         return out
 
 

@@ -18,15 +18,18 @@ with the JAX Trainer's logging, validation and checkpoint cadences.
                 articulations, and ``optimize_instance_codes`` fits fresh
                 codes for one instance with the field frozen
   auto-encoder: the articulated field conditioned on latents that a
-                ResNet34 encodes from the sampled view, trained jointly with
-                the encoder, the joint-state decoder and the degree
-                embedding on the same buffers (one view and one encode a
-                step); ``validate`` adds the joint-state error and
+                ResNet34 encodes from the sampled view (or each of
+                ``ae_views_per_step`` views), trained jointly with the
+                encoder, the joint-state decoder and the degree embedding on
+                the same buffers; ``validate`` adds the joint-state error and
                 conditions on the ground-truth angle, ``test`` renders the
                 sweep conditioned on the predicted angle
 
 The two articulated types share the multi-scene dataset, its held-out val/
-split, the sweep and the checkpoint layout.
+split, the sweep and the checkpoint layout. ``compute_dtype='bf16'`` runs
+their models as flax's bf16 modules compute them; parameters, gradients,
+Adam's moments and checkpoints stay fp32, so either mode restores the
+other's checkpoint.
 
 With ``run_eval`` the Trainer loads the test split instead of train and val.
 """
@@ -78,8 +81,6 @@ def _check_supported(cfg: Config) -> None:
         todo.append("noise_std")
     if cfg.compute_dtype not in COMPUTE_DTYPES:
         todo.append(f"compute_dtype={cfg.compute_dtype!r}")
-    elif cfg.compute_dtype != "f32" and cfg.exp_type != "vanilla":
-        todo.append(f"compute_dtype={cfg.compute_dtype!r} for {cfg.exp_type} (ROADMAP Queue 1 item 8)")
     if cfg.optimizer != "adam" or cfg.lr_scheduler is not None:
         todo.append("optimizers other than the log-lerp Adam")
     # the articulated field takes any encoding degrees and has fixed widths
@@ -88,9 +89,8 @@ def _check_supported(cfg: Config) -> None:
         NeRFMLP.min_deg_point, NeRFMLP.max_deg_point, NeRFMLP.deg_view, NeRFMLP.netdepth, NeRFMLP.netwidth
     ):
         todo.append("MLP shapes other than 8x256 with 10/4 encoding degrees")
-    for name in ("ae_views_per_step", "ae_encode_reuse"):  # ROADMAP Queue 1 item 1
-        if getattr(cfg, name) > 1:
-            todo.append(f"{name}={getattr(cfg, name)}")
+    if cfg.ae_encode_reuse > 1:  # ROADMAP Queue 1 item 1
+        todo.append(f"ae_encode_reuse={cfg.ae_encode_reuse}")
     todo.extend(f"{name}={value!r}" for name, value in jax_only_settings(cfg).items())
     if todo:
         raise NotImplementedError("not ported yet: " + ", ".join(todo))
@@ -135,6 +135,7 @@ class Trainer:
                 num_coarse_samples=cfg.num_coarse_samples, num_fine_samples=cfg.num_fine_samples,
                 min_deg_point=cfg.min_deg_point, max_deg_point=cfg.max_deg_point, deg_view=cfg.deg_view,
                 lindisp=cfg.lindisp, latent_dense=cfg.latent_dense, generator=generator, device=self.device,
+                compute_dtype=COMPUTE_DTYPES[cfg.compute_dtype],
             )
             if self.autoencoder:
                 self.model = AutoEncoderArticulatedNeRF(
@@ -146,6 +147,7 @@ class Trainer:
                     self.model, self.tx, cfg.white_back, self.near, self.far, img_wh=cfg.img_wh,
                     batch_size=cfg.batch_size, randomized=cfg.randomized, opacity_lambda=cfg.opacity_lambda,
                     inner_steps=self._inner_steps, opacity_loss=cfg.ae_opacity_loss, photometric=cfg.ae_photometric,
+                    views_per_step=cfg.ae_views_per_step,
                 )
             else:
                 self.model = ArticulatedNeRF(**field_kwargs)

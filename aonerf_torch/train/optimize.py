@@ -15,6 +15,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from aonerf_torch import full_fp32
 from aonerf_torch.ops.math import img2mse, mse2psnr
 from aonerf_torch.train.step import Adam, sample_multi_batch
 
@@ -84,7 +85,8 @@ def optimize_codes(
                 loss1 = img2mse(out[1][0], batch["target"])
                 reg = reg_weight * (torch.linalg.norm(codes["density"]) + torch.linalg.norm(codes["color"]))
                 loss = loss0 + loss1 + reg
-                grads = torch.autograd.grad(loss, params)
+                with full_fp32():  # as the field's forward
+                    grads = torch.autograd.grad(loss, params)
                 opt_state = tx.update(params, list(grads), opt_state)
             done += inner_steps
             history["loss"].append(float(loss.detach()))

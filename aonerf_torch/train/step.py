@@ -23,6 +23,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from aonerf_torch import full_fp32
 from aonerf_torch.ops.math import img2mse, mse2psnr
 from aonerf_torch.ops.random import Draws
 from aonerf_torch.train.losses import code_regularization
@@ -233,13 +234,29 @@ def sample_multi_batch(
     return batch
 
 
+def sample_multi_batch_multiview(
+    buffers: Dict[str, torch.Tensor], draws, batch_size: int, n_views: int, src_hw: Tuple[int, int]
+) -> Dict[str, torch.Tensor]:
+    """``n_views`` independent draws of ``sample_multi_batch``, each of
+    ``batch_size // n_views`` rays with its source view, one after the
+    other: the rays grouped by view (V * per_view, ...), so (V, C) latents
+    broadcast onto them; ``src_imgs`` (V, 3, h, w), ``deg``,
+    ``instance_id`` and ``articulation_id`` (V,)."""
+    views = [sample_multi_batch(buffers, draws, batch_size // n_views, src_hw=src_hw) for _ in range(n_views)]
+    batch = {k: torch.cat([v[k] for v in views]) for k in ("rays_o", "rays_d", "target", "instance_mask")}
+    batch["viewdirs"] = batch["rays_d"]
+    batch.update({k: torch.stack([v[k] for v in views]) for k in ("src_imgs", "deg", "instance_id",
+                                                                   "articulation_id")})
+    return batch
+
+
 def autodecoder_loss_and_grads(
     model, code_library, params: Dict[str, torch.Tensor], batch, draws, randomized: bool, white_bkgd: bool,
     near: float, far: float, reg_weight: float,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor, torch.Tensor], List[torch.Tensor]]:
     """loss = MSE(coarse) + MSE(fine) + the code regularization of the
     batch's codes, and its gradients with respect to ``params`` (in their
-    order)."""
+    order). The backward runs under ``full_fp32`` as the forward does."""
     latents = code_library(batch["instance_id"], batch["articulation_id"])
     latents = {k: torch.atleast_2d(v) for k, v in latents.items()}
     out = model(batch, randomized, white_bkgd, near, far, latents, draws=draws)
@@ -247,7 +264,8 @@ def autodecoder_loss_and_grads(
     loss1 = img2mse(out[1][0], batch["target"])
     reg = code_regularization(latents, weight=reg_weight)
     loss = loss1 + loss0 + reg
-    grads = torch.autograd.grad(loss, list(params.values()))
+    with full_fp32():
+        grads = torch.autograd.grad(loss, list(params.values()))
     return loss.detach(), (loss0.detach(), loss1.detach(), reg.detach()), list(grads)
 
 

@@ -11,11 +11,13 @@ renders both levels conditioned on its latents and on the embedding of the
 ground-truth angle, and applies one Adam over the whole parameter set
 (encoder, field, state decoder, degree embedding). Forward and backward run
 under ``full_fp32``, so the encoder's convolutions stay fp32 whatever the
-process-wide TF32 flag says.
+process-wide TF32 flag says (and, in bf16, every product sums in fp32).
 
-Not ported yet (ROADMAP Queue 1 item 1): several views a step
-(``views_per_step``) and one encode for several field-only steps
-(``encode_reuse``); both raise.
+``views_per_step`` V > 1 samples V independent views a step, each with
+``batch_size // V`` of its pixels (``sample_multi_batch_multiview``), encodes
+the V source views in one batch and conditions each view's rays on its own
+latents and angle. Not ported yet (ROADMAP Queue 1 item 1): one encode for
+several field-only steps (``encode_reuse``), which raises.
 """
 
 from typing import Callable, Dict, List, Tuple
@@ -26,7 +28,13 @@ from aonerf_torch import full_fp32
 from aonerf_torch.ops.math import mse2psnr
 from aonerf_torch.ops.random import Draws
 from aonerf_torch.train.losses import masked_mse, opacity_loss_bce, opacity_loss_bce_prob, opacity_loss_mse
-from aonerf_torch.train.step import Adam, TrainState, repeat_steps, sample_multi_batch
+from aonerf_torch.train.step import (
+    Adam,
+    TrainState,
+    repeat_steps,
+    sample_multi_batch,
+    sample_multi_batch_multiview,
+)
 
 # The opacity-loss variants by the config's name. 'bce_prob', the default,
 # has its optimum at acc == mask and no force on saturated rays; 'bce_logits'
@@ -93,10 +101,19 @@ def make_ae_device_train_step(
     each step's draws come from ``Draws.for_step(seed, step)`` on their
     device, and ``draws`` replaces them for a single step. Metrics stay on
     the device."""
-    if views_per_step > 1 or encode_reuse > 1:
+    if views_per_step > 1 and batch_size % views_per_step != 0:
+        raise ValueError(
+            f"batch_size ({batch_size}) must be divisible by views_per_step ({views_per_step}); otherwise "
+            f"{batch_size % views_per_step} rays/step would silently be dropped"
+        )
+    if encode_reuse > 1 and views_per_step > 1:
+        raise ValueError(
+            "encode_reuse and views_per_step are alternative encoder-amortization levers; combine is not supported"
+        )
+    if encode_reuse > 1:
         raise NotImplementedError(
-            f"views_per_step={views_per_step}, encode_reuse={encode_reuse}: one view and one encode a step "
-            "only; the others are not ported yet (ROADMAP Queue 1 item 1)"
+            f"encode_reuse={encode_reuse}: one encode a step only; several field-only steps on one encode are "
+            "not ported yet (ROADMAP Queue 1 item 1)"
         )
     if opacity_loss not in OPACITY_LOSSES:
         raise KeyError(f"opacity_loss {opacity_loss!r}: expected one of {sorted(OPACITY_LOSSES)}")
@@ -105,7 +122,10 @@ def make_ae_device_train_step(
     def one_step(state: TrainState, buffers, seed: int, draws=None):
         if draws is None:
             draws = Draws.for_step(seed, state.step, buffers["rgb"].device)
-        batch = sample_multi_batch(buffers, draws, batch_size, src_hw=(h, w))
+        if views_per_step > 1:
+            batch = sample_multi_batch_multiview(buffers, draws, batch_size, views_per_step, src_hw=(h, w))
+        else:
+            batch = sample_multi_batch(buffers, draws, batch_size, src_hw=(h, w))
         loss, (loss0, loss1, loss_state, loss_op), grads = ae_loss_and_grads(
             model, state.params, batch, draws, randomized, white_bkgd, near, far, opacity_lambda,
             opacity_loss=opacity_loss, photometric=photometric,

@@ -130,6 +130,32 @@ Phases, each of which fails the run with a non-zero exit:
                run's initial, random field in bf16 against fp32, each within
                a band stated in advance (TOL_BF16_VIEW_*); the train step at
                config/vanilla.json's batch 2048 in fp32 and in bf16, in turns.
+ 15. articulated bf16 rule - the articulated bf16 rule (PERF.md section 2;
+               tests/test_torch_bf16_articulated_rule.py) on the card: the
+               seed's latent_dense field with random biases on 256 rays of a
+               phase 9 train view and two codes, in bf16 on the card, against
+               the CPU's forms (the fp64-summed form as reference; the form
+               in fp32, in reversed fp32 and the port's bf16 on the CPU as
+               the legitimate evaluations), end to end (each level's share of
+               rows off the reference's raw outputs, comp_rgb's rms against
+               fp64) and layer by layer (the card's bf16 Dense and latent
+               Dense from the fp64 form's inputs); the card's fp32 field must
+               miss it; then the seed's auto-encoder on a val view's source
+               image (codes, state, comp_rgb).
+ 16. bf16 presets - config/autodecoder_tpu_fast.json on phase 9's scene and
+               config/ae_art_tpu_quality.json and ae_art_tpu_fast.json on
+               phase 11's (the same), as published but for the lr delay
+               (none): two dispatches through the CLI with a validation and a
+               checkpoint, the loss falling, K1/K1s/K2 launched 0 times, the
+               checkpoint fp32; --run_eval on 2 of the 19 sweep poses (the
+               cut keeps the script within its limit; phases 10 and 12 render
+               all 19 in fp32) and, for the auto-decoder, --run_optimize 50
+               steps at batch 1024; the step's host ms, the card's busy ms,
+               idle share, peak memory and the profiler's top ops, over
+               dispatches of 5 steps.
+ 17. articulated turns - the auto-decoder's and the auto-encoder's step at
+               batch 4096 (config/autodecoder.json, config/ae_art.json) in
+               fp32 and bf16 in turns, with each mode's peak memory.
 The line before the last is a JSON object with one entry per kernel and mode
 (K1, K1s, K2 in fp32, then in bf16; K1 and K1s in bf16 at the fast preset's
 shapes; B2 and B1 in bf16; B2 in fp32); the last line is {"ok": true,
@@ -2760,6 +2786,380 @@ def phase_bf16_training(tmp: str, root: str, fp32_cfg_path: str) -> dict:
             "loss_first": float(first), "loss_last": float(last)}
 
 
+# ------------------------------------------------------- articulated bf16
+
+ART_BF16_RAYS = 256  # rays of phase 15's rule on the card
+# The presets' --run_eval renders PRESET_SWEEP_POSES of the 19 sweep poses,
+# so the script stays within its time limit; phases 10 and 12 render all 19
+# of the same sweep in fp32.
+PRESET_SWEEP_POSES = 2
+PRESET_COST_STEPS = 5  # steps a dispatch where phase 16 times and profiles a preset's step
+PRESETS = ("autodecoder_tpu_fast", "ae_art_tpu_quality", "ae_art_tpu_fast")
+TURN_BATCH = 4096  # phase 17: config/autodecoder.json's and config/ae_art.json's batch
+
+
+def _random_biases(module, generator) -> None:
+    """Every Linear's bias from N(0, 0.05^2): the seed's are zero, and a
+    bias rounded or added at the wrong point shows only through them."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, torch.nn.Linear):
+                m.bias.copy_(0.05 * torch.randn(m.bias.shape, generator=generator))
+
+
+def articulated_bf16_rule(f32, rays, latents, near: float, far: float, white: bool, device,
+                          layers: bool = True) -> dict:
+    """The articulated bf16 rule (tests/test_torch_bf16_articulated_rule.py,
+    PERF.md section 2) on the card. ``f32`` is an fp32 ArticulatedNeRF on the
+    CPU; rays and latents are CPU tensors. Reference: the form summed in fp64
+    (Form('fp64', 'flax'), the CPU tests' stand-in for flax) at the fp64
+    evaluation's points; legitimate evaluations: the form summed in fp32 and
+    in reversed fp32, and the port's bf16 field on the CPU (held to flax
+    there). End to end each level's share of rows off the reference's raw
+    outputs and comp_rgb's rms against fp64, for the card's bf16 field and
+    (the control) its fp32 field, each against 2x the farthest legitimate
+    evaluation; with ``layers`` every product of the coarse MLP from the fp64
+    form's inputs on the card (``models.mlp.linear`` / ``latent_linear`` in
+    bf16) by the layer rule, the CPU port's share standing in for flax's.
+    Returns {"e2e": {name: [(share, rms, share limit, rms limit)] a level},
+    "layers": [(name, (ulps, share), share limit)], "ok", "fp32_ok"}."""
+    from aonerf_torch import full_fp32
+    from aonerf_torch.models import bf16_form as bf
+    from aonerf_torch.models.articulated import ArticulatedNeRF, latent_linear
+    from aonerf_torch.models.mlp import linear
+    from aonerf_torch.ops.encoding import pos_enc
+
+    def port(dtype, dev):
+        m = ArticulatedNeRF(num_coarse_samples=f32.num_coarse_samples, num_fine_samples=f32.num_fine_samples,
+                            latent_dense=f32.coarse_mlp.latent_dense, compute_dtype=dtype, device=dev)
+        m.load_state_dict(f32.state_dict())
+        return m
+
+    def port_eval(m, dev, pts):
+        r = {k: v.to(dev) for k, v in rays.items()}
+        lat = {k: v.to(dev) for k, v in latents.items()}
+        comps = [x[0].cpu() for x in m(r, False, white, near, far, lat)]
+        venc = pos_enc(r["viewdirs"], 0, m.deg_view)  # each MLP holds full_fp32 itself
+        raws = [torch.cat(mlp(p.to(dev), venc, lat), -1).cpu() for mlp, p in zip((m.coarse_mlp, m.fine_mlp), pts)]
+        return comps, raws
+
+    with torch.no_grad():
+        levels64, _, pts = bf.Form("fp64", "none").field(f32, rays, white, near, far, latents)
+        comps64, pts = [x[0] for x in levels64], [p.float() for p in pts]
+        ref = [torch.cat(bf.Form("fp64", "flax").mlp(mlp, p, bf.Form("fp64", "flax").pos_enc(
+            rays["viewdirs"], 0, f32.deg_view).float(), latents), -1) for mlp, p in zip((f32.coarse_mlp, f32.fine_mlp), pts)]
+        evals = {}
+        for name, (sums, rounding) in (("form fp32", ("fp32", "flax")), ("form fp32 reversed", ("fp32_reversed", "flax"))):
+            lv, raws, _ = bf.Form(sums, rounding).field(f32, rays, white, near, far, latents, samples=pts)
+            evals[name] = ([x[0] for x in lv], [torch.cat(x, -1) for x in raws])
+        evals["port bf16 cpu"] = port_eval(port(torch.bfloat16, "cpu"), "cpu", pts)
+        card16 = port(torch.bfloat16, device)
+        evals["card bf16"] = port_eval(card16, device, pts)
+        evals["card fp32"] = port_eval(port(torch.float32, device), device, pts)
+    legit = ("form fp32", "form fp32 reversed", "port bf16 cpu")
+    stats = {n: [(bf.row_share(raws[i], ref[i]), bf.rms(comps[i], comps64[i])) for i in range(2)]
+             for n, (comps, raws) in evals.items()}
+    e2e = {}
+    for n, lv in stats.items():
+        e2e[n] = [(s, r) + bf.e2e_limits([stats[m][i][0] for m in legit], [stats[m][i][1] for m in legit],
+                                         ref[i].shape[0] * ref[i].shape[1]) for i, (s, r) in enumerate(lv)]
+
+    def passes(name):
+        return all(s <= ls and r <= lr for s, r, ls, lr in e2e[name])
+
+    out = {"e2e": e2e, "layers": [], "ok": passes("card bf16"), "fp32_ok": passes("card fp32")}
+    if layers:
+        form = bf.Form("fp64", "flax")
+        form.record = []
+        with torch.no_grad():
+            form.mlp(f32.coarse_mlp, pts[0], form.pos_enc(rays["viewdirs"], 0, f32.deg_view).float(), latents)
+        card_mlp = card16.coarse_mlp
+        for name, x, want in form.record:
+            layer, cpu_layer = getattr(card_mlp, name), getattr(f32.coarse_mlp, name)
+            with torch.no_grad(), full_fp32():  # as the MLP holds it around its products
+                if isinstance(x, tuple):
+                    got = latent_linear(layer, x[0].to(device), [v.to(device) for v in x[1]], x[0].shape[0],
+                                        torch.bfloat16)
+                    cpu = latent_linear(cpu_layer, x[0], x[1], x[0].shape[0], torch.bfloat16)
+                else:
+                    got = linear(layer, x.to(device), torch.bfloat16)
+                    cpu = linear(cpu_layer, x, torch.bfloat16)
+            scale = bf.term_scale(cpu_layer, x)
+            cpu_share = bf.layer_errors(cpu, want, scale)[1]
+            errs = bf.layer_errors(got.cpu(), want, scale)
+            limit = bf.layer_limit(cpu_share, want.numel())
+            out["layers"].append((name, errs, limit))
+            out["ok"] = out["ok"] and got.dtype == torch.bfloat16 and bf.layer_passes(errs, cpu_share, want.numel())
+    return out
+
+
+def ae_bf16_rule(ae32, rays, src, deg, near: float, far: float, white: bool, device) -> dict:
+    """The articulated bf16 rule end to end on the auto-encoder's forward on
+    the card (``ae32`` an fp32 AutoEncoderArticulatedNeRF on the CPU): each
+    head's code and the predicted state entry by entry, the share off the
+    fp64-summed form's beyond the threshold and the rms against the fp64
+    evaluation, and each level's comp_rgb by its rms; limits 2x the farthest
+    of the form in fp32, in reversed fp32 and the port's bf16 on the CPU.
+    Returns {"parts": {name: [(share, rms, share limit, rms limit)]}, "ok"}."""
+    from aonerf_torch.models import bf16_form as bf
+    from aonerf_torch.models.ae import AutoEncoderArticulatedNeRF
+
+    def rows(levels, codes, state):
+        return [x[0].cpu() for x in levels], [codes[k].reshape(-1, 1).cpu() for k in sorted(codes)] + [
+            state.reshape(-1, 1).cpu()]
+
+    def port(dtype, dev):
+        f = ae32.field
+        m = AutoEncoderArticulatedNeRF(num_coarse_samples=f.num_coarse_samples, num_fine_samples=f.num_fine_samples,
+                                       latent_dense=f.coarse_mlp.latent_dense, compute_dtype=dtype, device=dev)
+        m.load_state_dict(ae32.state_dict())
+        levels, latents, state = m({k: v.to(dev) for k, v in rays.items()}, src.to(dev), deg.to(dev), False, white,
+                                   near, far)
+        return rows(levels, {k: v for k, v in latents.items() if k != "articulation_deg"}, state)
+
+    with torch.no_grad():
+        comps64, parts64 = rows(*bf.Form("fp64", "none").autoencoder(ae32, rays, src, deg, white, near, far))
+        _, ref = rows(*bf.Form("fp64", "flax").autoencoder(ae32, rays, src, deg, white, near, far))
+        evals = {name: rows(*bf.Form(*form).autoencoder(ae32, rays, src, deg, white, near, far))
+                 for name, form in (("form fp32", ("fp32", "flax")), ("form fp32 reversed", ("fp32_reversed", "flax")))}
+        evals["port bf16 cpu"] = port(torch.bfloat16, "cpu")
+        evals["card bf16"] = port(torch.bfloat16, device)
+    legit = ("form fp32", "form fp32 reversed", "port bf16 cpu")
+    stats = {n: [(bf.row_share(p, q), bf.rms(p, q64)) for p, q, q64 in zip(parts, ref, parts64)]
+             + [(0.0, bf.rms(c, c64)) for c, c64 in zip(comps, comps64)] for n, (comps, parts) in evals.items()}
+    sizes = [q.shape[0] for q in ref] + [1, 1]
+    limits = [bf.e2e_limits([stats[m][i][0] for m in legit], [stats[m][i][1] for m in legit], sizes[i])
+              for i in range(len(sizes))]
+    parts = {n: [s + lim for s, lim in zip(v, limits)] for n, v in stats.items()}
+    return {"parts": parts, "ok": all(s <= ls and r <= lr for s, r, ls, lr in parts["card bf16"])}
+
+
+def phase_articulated_bf16_rule(root: str) -> dict:
+    """The articulated bf16 rule on the card (latent_dense, the presets'
+    schedule): the seed's field with random biases on ART_BF16_RAYS rays of a
+    train view, two codes (the rays grouped by view), end to end and layer by
+    layer; the fp32 field on the card must miss it. Then the seed's random
+    auto-encoder on a val view's source image."""
+    from aonerf_torch.data.sapien_multi import SapienMultiDataset
+    from aonerf_torch.models.ae import AutoEncoderArticulatedNeRF
+    from aonerf_torch.models.articulated import ArticulatedNeRF
+
+    t0 = time.perf_counter()
+    ds = SapienMultiDataset(root, split="train", img_wh=(W, H))
+    g = torch.Generator().manual_seed(SEED + 18)
+    f32 = ArticulatedNeRF(latent_dense=True, generator=g, device="cpu")
+    _random_biases(f32, g)
+    latents = {k: 0.3 * torch.randn((2, c), generator=g) for k, c in (("density", 128), ("color", 128),
+                                                                      ("articulation", 32))}
+    img = ds.get_image(0, 0, 0)
+    pix = np.random.default_rng(SEED + 18).choice(W * H, ART_BF16_RAYS, replace=False)
+    rays = {k: torch.from_numpy(img[k][pix]) for k in ("rays_o", "rays_d", "viewdirs")}
+    flags = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    res = articulated_bf16_rule(f32, rays, latents, ds.near, ds.far, True, torch.device("cuda"))
+    flag_kept = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction == flags
+
+    ae32 = AutoEncoderArticulatedNeRF(generator=torch.Generator().manual_seed(SEED + 19), device="cpu")
+    _random_biases(ae32.field, g)
+    _random_biases(ae32.joint_state_decoder, g)
+    val = SapienMultiDataset(root, split="val", img_wh=(W, H)).get_image(0, 0, 0)
+    ae = ae_bf16_rule(ae32, {k: torch.from_numpy(val[k][pix]) for k in ("rays_o", "rays_d", "viewdirs")},
+                      torch.from_numpy(val["src_imgs"])[None], torch.tensor(val["deg"]), ds.near, ds.far, True,
+                      torch.device("cuda"))
+    seconds = time.perf_counter() - t0
+
+    def shown(levels):
+        return "; ".join(f"L{i} share {s:.4f} (limit {ls:.4f}), rms {r:.3e} (limit {lr:.3e})"
+                         for i, (s, r, ls, lr) in enumerate(levels))
+
+    print(f"articulated bf16 rule: the seed's field (random biases), {ART_BF16_RAYS} rays of a {W}x{H} train view, "
+          f"2 codes, latent_dense, on the card against the CPU ({seconds:.1f} s with the CPU's reference forms):")
+    for name, levels in res["e2e"].items():
+        print(f"  {name}: {shown(levels)}")
+    worst = max(res["layers"], key=lambda x: x[1][1] / x[2])
+    print(f"  layers: {len(res['layers'])} products of the coarse MLP on the card, largest error "
+          f"{max(e[0] for _, e, _ in res['layers']):.3f} bf16 ulp, largest share / limit "
+          f"{worst[1][1]:.2e} / {worst[2]:.2e} ({worst[0]}); allow_bf16_reduced_precision_reduction restored "
+          f"after the forwards: {flag_kept}")
+    names = ["code articulation", "code color", "code density", "state", "L0 comp", "L1 comp"]
+    for name, parts in ae["parts"].items():
+        print(f"  AE {name}: " + ", ".join(f"{p} share {s:.3f} (limit {ls:.3f}) rms {r:.3e} (limit {lr:.3e})"
+                                          for p, (s, r, ls, lr) in zip(names, parts)))
+    if not res["ok"]:
+        fail("the card's bf16 articulated field misses the articulated bf16 rule")
+    if res["fp32_ok"]:
+        fail("the card's fp32 articulated field meets the bf16 rule: the rule does not tell the modes apart")
+    if not ae["ok"]:
+        fail("the card's bf16 auto-encoder misses the articulated bf16 rule")
+    if not flag_kept:
+        fail("the bf16 field left allow_bf16_reduced_precision_reduction changed")
+    return {"layers": len(res["layers"]), "e2e": res["e2e"], "ae": ae["parts"]}
+
+
+def _preset_config(name: str, root: str, out: str) -> str:
+    """config/<name>.json as published on phase 9's scene: 320x240, its lr
+    without the 2500-step delay (which would hold the lr at ~1% through the
+    run), a validation and a checkpoint after its two dispatches."""
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "config", f"{name}.json")) as f:
+        cfg = json.load(f)
+    every = 2 * cfg["inner_steps"]
+    cfg.update({
+        "root_dir": root, "output_path": out, "exp_name": f"smoke_{name}", "img_wh": [W, H], "lr_delay_steps": 0,
+        "val_every_steps": every, "ckpt_every_steps": every, "limit_val_batches": 1, "seed": SEED,
+    })
+    os.makedirs(out, exist_ok=True)
+    path = os.path.join(out, f"{name}.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def phase_bf16_preset(tmp: str, name: str) -> dict:
+    """One articulated bf16 preset as published, through the CLI: two
+    dispatches with a validation and a checkpoint, the loss falling, no fused
+    kernel launched, the checkpoint fp32; --run_eval (PRESET_SWEEP_POSES
+    poses) and, for the auto-decoder, --run_optimize; the step's cost."""
+    from aonerf_torch.cli import train as cli
+    from aonerf_torch.train import step as step_mod
+    from aonerf_torch.train import step_ae
+    from aonerf_torch.train.loop import Trainer
+    from aonerf_torch.utils.config import load_config
+
+    root = os.path.join(tmp, "multi")  # phase 9's scene
+    cfg_path = _preset_config(name, root, os.path.join(tmp, "out"))
+    cfg = load_config(cfg_path)
+    ae = cfg.exp_type == "vanilla_ae_art"
+    mod, fn = (step_ae, "ae_loss_and_grads") if ae else (step_mod, "autodecoder_loss_and_grads")
+    real = getattr(mod, fn)
+    losses = []
+
+    def recorded(*args, **kwargs):  # observes each step's loss, changes nothing
+        out = real(*args, **kwargs)
+        losses.append(out[0])
+        return out
+
+    n_steps = 2 * cfg.inner_steps
+    torch.cuda.synchronize()
+    _reset_fused_launches()
+    t0 = time.perf_counter()
+    with mock.patch.object(mod, fn, recorded):
+        metrics = cli.main(["--config", cfg_path, "--max_steps", str(n_steps)])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    fused = _fused_launches()
+    run_dir = os.path.join(cfg.output_path, cfg.exp_name)
+    ckpt = torch.load(os.path.join(run_dir, "ckpts", f"ckpt_{n_steps:08d}.pt"), map_location="cpu")
+    dtypes = {v.dtype for part in (ckpt["params"], ckpt["opt_state"]["mu"], ckpt["opt_state"]["nu"])
+              for v in part.values()}
+
+    os.environ.pop("AONERF_LPIPS_WEIGHTS", None)  # test() refuses LPIPS weights: LPIPS is not ported
+    _reset_fused_launches()
+    t0 = time.perf_counter()
+    stats = cli.main(["--config", cfg_path, "--run_eval", "--test_sweep_poses", str(PRESET_SWEEP_POSES)])
+    torch.cuda.synchronize()
+    test_s = (time.perf_counter() - t0) / PRESET_SWEEP_POSES
+    fused_test = _fused_launches()
+    history = None
+    if not ae:
+        t0 = time.perf_counter()
+        history = cli.main(["--config", cfg_path, "--run_optimize", "--optimize_steps", str(OPTIMIZE_STEPS),
+                            "--batch_size", str(OPTIMIZE_BATCH)]).get("psnr1", [])
+        opt_s = time.perf_counter() - t0
+
+    # the step's cost: PRESET_COST_STEPS steps a dispatch from the checkpoint
+    trainer = Trainer(load_config(cfg_path, {"inner_steps": PRESET_COST_STEPS}))
+    buffers = trainer.train_buffers()
+    trainer.state, _ = trainer.step_fn(trainer.state, buffers, cfg.seed)  # untimed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        trainer.state, _ = trainer.step_fn(trainer.state, buffers, cfg.seed)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / (2 * PRESET_COST_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()
+    trainer.state, _ = trainer.step_fn(trainer.state, buffers, cfg.seed)
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"bf16 preset {name}: batch {cfg.batch_size}, inner_steps {cfg.inner_steps}, views a step "
+          f"{cfg.ae_views_per_step}, lr {cfg.lr_init} (no delay), latent_dense {cfg.latent_dense}, chunk {cfg.chunk}")
+    busy_ms, prof = profile_train_steps(trainer, buffers, cfg.seed)
+    print_top_ops(prof, PRESET_COST_STEPS, step_ms, busy_ms)
+    trainer.close()
+    del trainer, buffers
+    torch.cuda.empty_cache()
+
+    loss = torch.stack(losses).cpu().numpy()
+    k = max(5, n_steps // 20)
+    first, last = loss[:k].mean(), loss[-k:].mean()
+    print(f"  {len(losses)} steps in {train_s:.1f} s (two dispatches, a validation, a checkpoint); loss, mean of the "
+          f"first {k} {first:.5f}, of the last {k} {last:.5f}; val psnr {metrics.get('val_psnr')}, object psnr "
+          f"{metrics.get('val_psnr_obj')}" + (f", state error {metrics.get('val_state_error_rad')} rad" if ae else ""))
+    print(f"  K1, K1s, K2 launches {fused} training, {fused_test} in --run_eval (expected 0); checkpoint dtypes "
+          f"{sorted(str(d) for d in dtypes)}")
+    print(f"  --run_eval: {PRESET_SWEEP_POSES} of the 19 sweep poses, {test_s:.3f} s a view (test(): render, "
+          f"metrics, writers); psnr {stats['psnr']['test']:.4f}, ssim {stats['ssim']['test']:.5f}, object psnr "
+          f"{stats['psnr_obj']['test']:.4f}" + ("" if ae else f"; --run_optimize {OPTIMIZE_STEPS} steps at batch "
+                                                   f"{OPTIMIZE_BATCH} in {opt_s:.2f} s, psnr1 {history}"))
+    print(f"  step: {step_ms:.3f} ms on the host clock = {cfg.batch_size / step_ms * 1e3:.1f} rays/s (2 dispatches "
+          f"of {PRESET_COST_STEPS} after an untimed one); the card busy {busy_ms:.3f} ms a step, idle "
+          f"{100 * max(0.0, 1 - busy_ms / step_ms):.1f}%; peak device memory {peak_gb:.3f} GB ({base_bytes / 1e9:.3f} "
+          f"GB held before the steps)")
+    if len(losses) != n_steps or not np.isfinite(loss).all():
+        fail(f"{name}: {len(losses)} steps, expected {n_steps}; finite {np.isfinite(loss).all()}")
+    if not last < first:
+        fail(f"{name}: the loss did not fall")
+    if fused != (0, 0, 0) or fused_test != (0, 0, 0):
+        fail(f"{name}: a fused level kernel was launched")
+    if dtypes != {torch.float32}:
+        fail(f"{name}: the checkpoint holds {dtypes}")
+    if not all(np.isfinite(metrics.get(m, np.nan)) for m in ("val_psnr", "val_psnr_obj")):
+        fail(f"{name}: validation metrics {metrics}")
+    if not all(np.isfinite(stats[m]["test"]) for m in ("psnr", "ssim", "psnr_obj")):
+        fail(f"{name}: test metrics {stats}")
+    if not ae and (len(history) != 1 or not np.isfinite(history).all()):
+        fail(f"{name}: code optimization psnr1 {history}")
+    return {"step_ms": step_ms, "busy_ms": busy_ms, "peak_gb": peak_gb, "loss_first": float(first),
+            "loss_last": float(last), "test_seconds_per_view": test_s}
+
+
+def phase_articulated_turns(tmp: str) -> dict:
+    """The auto-decoder's and the auto-encoder's step at TURN_BATCH
+    (config/autodecoder.json, config/ae_art.json, phase 9's scene), fp32 and
+    bf16 in turns (fp32, bf16, bf16, fp32), each one timed dispatch of 2
+    steps after an untimed one, from the seed's weights; and each mode's
+    peak device memory."""
+    from aonerf_torch.train.loop import Trainer
+    from aonerf_torch.utils.config import load_config
+
+    out = {}
+    for name, make in (("autodecoder", _autodecoder_config), ("ae_art", _ae_config)):
+        cfg_path = make(os.path.join(tmp, "multi"), os.path.join(tmp, "turns"))
+        ms, peak = {"fp32": [], "bf16": []}, {"fp32": 0.0, "bf16": 0.0}
+        for dtype in ("f32", "bf16", "bf16", "f32"):
+            cfg = load_config(cfg_path, {"compute_dtype": dtype, "exp_name": f"turn_{name}_{dtype}",
+                                         "batch_size": TURN_BATCH, "inner_steps": 2})
+            trainer = Trainer(cfg)
+            buffers = trainer.train_buffers()
+            torch.cuda.reset_peak_memory_stats()
+            trainer.state, _ = trainer.step_fn(trainer.state, buffers, cfg.seed)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.state, _ = trainer.step_fn(trainer.state, buffers, cfg.seed)
+            torch.cuda.synchronize()
+            mode = "fp32" if dtype == "f32" else "bf16"
+            ms[mode].append((time.perf_counter() - t0) * 1e3 / trainer._inner_steps)
+            peak[mode] = max(peak[mode], torch.cuda.max_memory_allocated() / 1e9)
+            trainer.close()
+            del trainer, buffers
+            torch.cuda.empty_cache()
+        print(f"articulated step at batch {TURN_BATCH}, {name} (config/{name}.json, phase 9's scene), in turns fp32, "
+              f"bf16, bf16, fp32 (2 steps a dispatch, host clock): fp32 {', '.join(f'{x:.3f}' for x in ms['fp32'])} "
+              f"ms, bf16 {', '.join(f'{x:.3f}' for x in ms['bf16'])} ms; peak device memory fp32 {peak['fp32']:.3f} "
+              f"GB, bf16 {peak['bf16']:.3f} GB")
+        out[name] = {"ms": ms, "peak_gb": peak}
+    return out
+
+
 def main() -> None:
     phase_device()
     phase_build()
@@ -2782,6 +3182,9 @@ def main() -> None:
         phase_articulated_test(a["cfg_path"])
         ae = phase_autoencoder(tmp)
         ae_test = phase_ae_test(ae["cfg_path"])
+        phase_articulated_bf16_rule(os.path.join(tmp, "multi"))
+        presets = {name: phase_bf16_preset(tmp, name) for name in PRESETS}
+        turns = phase_articulated_turns(tmp)
     ae_launches = [x + y for x, y in zip(ae["fused"], ae_test["fused"])]  # K1, K1s, K2 on phases 11-12
 
     lv = k["levels"]

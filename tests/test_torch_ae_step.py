@@ -209,8 +209,12 @@ def test_multi_step_equals_single_steps(setup):
 def test_ae_step_refuses_what_is_not_ported():
     model = port_model()
     tx = tstep.make_adam(**SCHEDULE)
-    for kwargs in ({"views_per_step": 2}, {"encode_reuse": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # several views a step run; JAX's two ValueErrors guard them
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tstep_ae.make_ae_device_train_step(model, tx, True, 2.0, 6.0, img_wh=WH, encode_reuse=2)
+    for kwargs, match in (({"views_per_step": 3}, "divisible"),
+                          ({"views_per_step": 2, "encode_reuse": 2}, "alternative")):
+        with pytest.raises(ValueError, match=match):
             tstep_ae.make_ae_device_train_step(model, tx, True, 2.0, 6.0, img_wh=WH, **kwargs)
     with pytest.raises(KeyError):
         tstep_ae.make_ae_device_train_step(model, tx, True, 2.0, 6.0, img_wh=WH, opacity_loss="focal")

@@ -92,7 +92,10 @@ def test_trainer_builds_the_published_ae_config(tmp_path):
 
 
 @pytest.mark.parametrize("overrides", [
-    {"ae_views_per_step": 2}, {"ae_encode_reuse": 4}, {"compute_dtype": "bf16"}, {"noise_std": 1.0},
+    # several views a step and bf16 run: still refused, one encode for several
+    # steps beside them and a dtype the port does not run
+    {"ae_views_per_step": 2, "ae_encode_reuse": 2}, {"ae_encode_reuse": 4}, {"compute_dtype": "fp16"},
+    {"noise_std": 1.0},
     {"optimizer": "ranger"}, {"lr_scheduler": "cosine"}, {"dataset_name": "sapien"},
 ], ids=lambda o: next(iter(o)))
 def test_trainer_refuses_what_the_ae_does_not_run(overrides):

@@ -232,7 +232,7 @@ def test_nerf_bridge_round_trips_params_and_grads():
 
 
 def test_field_refuses_what_is_not_ported():
-    for kwargs in ({"compute_dtype": torch.bfloat16}, {"noise_std": 1.0}):
+    for kwargs in ({"compute_dtype": torch.float16}, {"noise_std": 1.0}):  # bf16 runs
         with pytest.raises(NotImplementedError):
             ArticulatedNeRF(device="cpu", **kwargs)
     with pytest.raises(NotImplementedError, match="fused_head"):

@@ -207,7 +207,7 @@ def test_trainer_builds_the_published_autodecoder_config(tmp_path):
 def test_trainer_refuses_what_the_autodecoder_does_not_run(tmp_path):
     base = {"exp_type": "vanilla_autodecoder", "dataset_name": "sapien_multi", "platform": "cpu"}
     for overrides in ({"exp_type": "vanilla_ae_art", "ae_encode_reuse": 2}, {"dataset_name": "sapien"},
-                      {"compute_dtype": "bf16"},
+                      {"compute_dtype": "fp16"},  # bf16 runs
                       {"noise_std": 1.0}, {"latent_lr": 1e-3}, {"is_optimize": True}):
         with pytest.raises(NotImplementedError):
             Trainer(config.load_config(None, {**base, **overrides}))

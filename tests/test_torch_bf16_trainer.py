@@ -1,8 +1,8 @@
 """The vanilla NeRF's bf16 mode through the port's Trainer on the CPU:
 config/vanilla_tpu_fast.json (bf16, batch 224, grad_clip 1.0, chunk 256) as
 it stands but for a reduced scene, samples and step count, trains, validates
-and checkpoints fp32 tensors; the fp32 Trainer loads that checkpoint; the
-articulated types still refuse bf16."""
+and checkpoints fp32 tensors; the fp32 Trainer loads that checkpoint; what
+the articulated types still refuse in bf16."""
 
 import json
 import os
@@ -56,9 +56,14 @@ def test_fast_preset_trains_validates_and_checkpoints_fp32(tmp_path):
 
 @pytest.mark.parametrize("exp_type", ["vanilla_autodecoder", "vanilla_ae_art"])
 def test_articulated_types_refuse_bf16(exp_type):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        Trainer(config.load_config(None, {"exp_type": exp_type, "dataset_name": "sapien_multi", "platform": "cpu",
-                                          "compute_dtype": "bf16"}))
+    # The articulated types run bf16 (tests/test_torch_bf16_presets.py); in
+    # bf16 they still refuse what neither mode runs, and no dtype but fp32
+    # and bf16 runs.
+    base = {"exp_type": exp_type, "dataset_name": "sapien_multi", "platform": "cpu"}
+    with pytest.raises(NotImplementedError, match="noise_std"):
+        Trainer(config.load_config(None, {**base, "compute_dtype": "bf16", "noise_std": 1.0}))
+    with pytest.raises(NotImplementedError, match="compute_dtype='fp16'"):
+        Trainer(config.load_config(None, {**base, "compute_dtype": "fp16"}))
 
 
 def test_unknown_compute_dtype_is_refused():

@@ -1,5 +1,6 @@
-"""CUDA kernels of aonerf_torch against their plain PyTorch versions, on the
-card. Every test here needs a CUDA card and skips without one.
+"""CUDA kernels of aonerf_torch against their plain PyTorch versions, and the
+articulated models' bf16 mode against the CPU's forms, on the card. Every
+test here needs a CUDA card and skips without one.
 
 This file imports neither JAX nor aonerf, so it runs on a machine that has
 only PyTorch: ``python -m pytest tests/test_torch_gpu.py -m gpu -q --noconftest``.
@@ -1046,3 +1047,105 @@ def test_bf16_train_cli_goes_through_the_kernels(cuda, tmp_path):
     assert all(np.isfinite(stats[k]["test"]) for k in ("psnr", "ssim", "psnr_obj"))
     now = fr.launches, ft.fwd_launches, ft.launches, fr.bf16_launches, ft.bf16_fwd_launches, ft.bf16_launches
     assert [b - a for a, b in zip(counts, now)] == [0, 0, 0, 2 * val_tiles, 0, 0]
+
+
+# ------------------------------------------------ the articulated models in bf16
+
+
+def _articulated_rule_inputs(latent_dense, n_rays=64, seed=18):
+    from aonerf_torch.models.articulated import ArticulatedNeRF
+
+    g = torch.Generator().manual_seed(seed)
+    f32 = ArticulatedNeRF(num_coarse_samples=16, num_fine_samples=32, latent_dense=latent_dense, generator=g,
+                          device="cpu")
+    rule._random_biases(f32, g)
+    latents = {k: 0.3 * torch.randn((2, c), generator=g) for k, c in (("density", 128), ("color", 128),
+                                                                      ("articulation", 32))}
+    rng = np.random.default_rng(seed)
+    d = rng.standard_normal((n_rays, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o = (-4.0 * d + 0.3 * rng.standard_normal((n_rays, 3))).astype(np.float32)
+    rays = {"rays_o": torch.from_numpy(o), "rays_d": torch.from_numpy(d), "viewdirs": torch.from_numpy(d)}
+    return f32, rays, latents
+
+
+@pytest.mark.parametrize("latent_dense", [False, True], ids=["concat", "latent_dense"])
+def test_bf16_articulated_field_meets_the_rule_on_the_card(cuda, latent_dense):
+    # the card's bf16 field against the CPU's forms under the articulated
+    # bf16 rule, end to end and layer by layer; the card's fp32 field misses
+    f32, rays, latents = _articulated_rule_inputs(latent_dense)
+    res = rule.articulated_bf16_rule(f32, rays, latents, 2.0, 6.0, True, cuda)
+    assert res["ok"], (res["e2e"]["card bf16"], max(res["layers"], key=lambda x: x[1][1] / x[2]))
+    assert not res["fp32_ok"]
+    assert len(res["layers"]) == 20
+
+
+def test_bf16_ae_step_on_the_card(cuda, tmp_path):
+    # one bf16 auto-encoder step with two source views on a 64x48 scene:
+    # finite fp32 gradients for every parameter, the parameters moved; and
+    # the bf16 forward under the rule against the CPU's forms
+    from aonerf_torch.data import sapien_multi as sm
+    from aonerf_torch.data.synthetic import generate_multi_scene
+    from aonerf_torch.models.ae import AutoEncoderArticulatedNeRF
+    from aonerf_torch.ops.random import Draws
+    from aonerf_torch.train import step as tstep
+    from aonerf_torch.train import step_ae as tstep_ae
+
+    root = generate_multi_scene(str(tmp_path / "multi"), img_wh=(64, 48), degrees=(0, 10, 20), n_images=2)
+    bufs = {k: torch.from_numpy(v).to(cuda) for k, v in
+            sm.SapienMultiDataset(root, split="train", img_wh=(64, 48)).device_buffers().items()}
+    model = AutoEncoderArticulatedNeRF(num_coarse_samples=16, num_fine_samples=32, compute_dtype=torch.bfloat16,
+                                       generator=torch.Generator().manual_seed(0), device=cuda)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    draws = Draws.for_step(0, 0, cuda)
+    batch = tstep.sample_multi_batch_multiview(bufs, draws, 256, 2, src_hw=(48, 64))
+    named = dict(model.named_parameters())
+    loss, parts, grads = tstep_ae.ae_loss_and_grads(model, named, batch, draws, True, True, 2.0, 6.0, 0.5)
+    assert torch.isfinite(loss) and all(torch.isfinite(p) for p in parts)
+    assert all(g.dtype == torch.float32 and torch.isfinite(g).all() for g in grads)
+    tx = tstep.make_adam(lr_delay_steps=0)
+    step = tstep_ae.make_ae_device_train_step(model, tx, True, 2.0, 6.0, img_wh=(64, 48), batch_size=256,
+                                              views_per_step=2)
+    state, m = step(tstep.create_train_state(model, tx), bufs, 0)
+    assert state.step == 1 and np.isfinite(m["loss"].item())
+    assert all(not torch.equal(p, before[n]) for n, p in model.named_parameters() if n.startswith("field."))
+
+    ae32 = AutoEncoderArticulatedNeRF(num_coarse_samples=16, num_fine_samples=32,
+                                      generator=torch.Generator().manual_seed(1), device="cpu")
+    _, rays, _ = _articulated_rule_inputs(True, n_rays=64)
+    src = torch.from_numpy(np.random.default_rng(2).uniform(-1, 1, (2, 3, 48, 64)).astype(np.float32))
+    res = rule.ae_bf16_rule(ae32, rays, src, torch.tensor([0.3, 1.0]), 2.0, 6.0, True, cuda)
+    assert res["ok"], res["parts"]["card bf16"]
+
+
+@pytest.mark.parametrize("name", ["autodecoder_tpu_fast", "ae_art_tpu_quality", "ae_art_tpu_fast"])
+def test_bf16_preset_fits_and_sweeps_through_the_cli(cuda, tmp_path, name):
+    # each articulated bf16 preset as published but for a small scene, 4 + 8
+    # samples and 2 steps a dispatch: fit with a validation and an fp32
+    # checkpoint, the sweep (2 poses), no fused level kernel
+    import json
+    import os
+
+    from aonerf_torch.cli import train as cli
+    from aonerf_torch.data.synthetic import generate_multi_scene
+
+    wh = (16, 12) if name.startswith("autodecoder") else (64, 48)
+    root = generate_multi_scene(str(tmp_path / "multi"), img_wh=wh, degrees=(0, 10, 20), n_images=2,
+                                val_degrees=(5, 15), n_val_images=1)
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "config", f"{name}.json")
+    overrides = {"root_dir": root, "output_path": str(tmp_path / "out"), "img_wh": list(wh), "num_coarse_samples": 4,
+                 "num_fine_samples": 8, "batch_size": 32, "inner_steps": 2, "lr_delay_steps": 0,
+                 "val_every_steps": 4, "ckpt_every_steps": 4, "limit_val_batches": 1}
+    args = [x for k, v in overrides.items() for x in (f"--{k}", json.dumps(v) if not isinstance(v, str) else v)]
+    counts = fr.launches + fr.bf16_launches, ft.fwd_launches + ft.bf16_fwd_launches, ft.launches + ft.bf16_launches
+    metrics = cli.main(["--config", path, *args, "--max_steps", "4"])
+    assert np.isfinite(metrics["loss"]) and np.isfinite(metrics["val_psnr"])
+    with open(path) as f:
+        exp_name = json.load(f)["exp_name"]
+    saved = torch.load(os.path.join(str(tmp_path / "out"), exp_name, "ckpts", "ckpt_00000004.pt"), map_location="cpu")
+    assert all(v.dtype == torch.float32 for v in saved["params"].values())
+    stats = cli.main(["--config", path, *args, "--run_eval", "--test_sweep_poses", "2"])
+    torch.cuda.synchronize()
+    assert all(np.isfinite(stats[k]["test"]) for k in ("psnr", "ssim", "psnr_obj"))
+    now = fr.launches + fr.bf16_launches, ft.fwd_launches + ft.bf16_fwd_launches, ft.launches + ft.bf16_launches
+    assert now == counts
