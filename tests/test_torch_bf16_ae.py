@@ -22,7 +22,7 @@ from aonerf_torch.utils.bridge import module_flax_tree, module_state_dict_from_f
 from tests import bf16_flax
 from tests import test_torch_bf16_articulated_rule as rule
 from tests.test_torch_ae_step import B, NF, SC, WH, draw_shape, jax_leaves, jax_step_draws, scene_buffers
-from tests.test_torch_bf16_articulated import reverse_hidden
+from tests.test_torch_bf16_articulated_grads import reverse_hidden
 
 torch.set_num_threads(2)
 

@@ -1,10 +1,8 @@
 """Port parity: the articulated field in bf16 (``compute_dtype=torch.bfloat16``,
 both schedules) against flax's bf16 field under the articulated bf16 rule
-(tests/test_torch_bf16_articulated_rule.py), layer by layer and end to end,
-and the auto-decoder's first-step gradients in bf16 against JAX's bf16 step.
+(tests/test_torch_bf16_articulated_rule.py), layer by layer and end to end.
+The first step's gradients: tests/test_torch_bf16_articulated_grads.py.
 """
-
-import functools
 
 import jax
 import jax.numpy as jnp
@@ -13,14 +11,10 @@ import pytest
 import torch
 
 from aonerf.models import ArticulatedNeRF as JaxArticulatedNeRF
-from aonerf.models import CodeLibraryArticulated as JaxCodeLibrary
-from aonerf.train import step as jstep
 from aonerf_torch.models import bf16_form as bf
 from aonerf_torch.models.articulated import ArticulatedNeRF, latent_linear
-from aonerf_torch.models.codes import CodeLibraryArticulated
 from aonerf_torch.models.mlp import linear
 from aonerf_torch.ops.encoding import pos_enc
-from aonerf_torch.train import step as tstep
 from aonerf_torch.utils.bridge import module_flax_tree, module_state_dict_from_flax
 from tests import bf16_flax
 from tests import test_torch_bf16_articulated_rule as rule
@@ -122,6 +116,27 @@ def test_layer_rule(field):
         assert bf.layer_passes(errs, flax_share, ref.numel()), (name, errs, flax_share)
 
 
+def test_bridged_flax_params_drive_both_dtypes(field):
+    # flax's bf16 field keeps fp32 parameters (param_dtype), so the bridge
+    # carries them unchanged into the port in either mode; both modes run
+    # from the same state dict and render finite fp32 outputs
+    f = field["f"]
+    tree = {"params": jax.device_get(JaxArticulatedNeRF(
+        num_coarse_samples=rule.SC, num_fine_samples=rule.NF, latent_dense=field["ld"],
+        compute_dtype=jnp.bfloat16).init(jax.random.PRNGKey(1), {k: jnp.asarray(v) for k, v in field["rays"].items()},
+                                         False, True, 2.0, 6.0, {k: jnp.asarray(v) for k, v in field["lat"].items()})
+        ["params"])}
+    assert all(np.asarray(leaf).dtype == np.float32 for leaf in jax.tree_util.tree_leaves(tree))
+    state = module_state_dict_from_flax(tree)
+    for dtype in (torch.float32, BF16):
+        model = port_field(f, field["ld"], dtype)
+        model.load_state_dict(state)
+        assert all(p.dtype == torch.float32 for p in model.parameters())
+        assert module_flax_tree(model)["params"].keys() == tree["params"].keys()
+        comps, _ = port_eval(model, field["rays"], field["lat"], field["pts"])
+        assert all(c.dtype == torch.float32 and torch.isfinite(c).all() for c in comps)
+
+
 def test_linear_adds_the_bias_after_rounding():
     # ties of the product's rounding that the bias would break: rounding the
     # product first, as flax does, keeps them at the even neighbour
@@ -163,152 +178,3 @@ def test_pos_enc_in_bf16_matches_jax():
     want = np.asarray(encoding.pos_enc(jnp.asarray(xb.float().numpy(), jnp.bfloat16), 0, 10).astype(jnp.float32))
     assert got.dtype == BF16
     np.testing.assert_array_equal(got.float().numpy(), want)
-
-
-# ------------------------------------------------------ first-step gradients
-
-B, SC, NF, WH = 16, 8, 8, (16, 12)
-SCHEDULE = dict(lr_init=1e-3, lr_final=1e-5, max_steps=1000, lr_delay_steps=0)
-
-
-def reverse_hidden(tree):
-    """The same field with every hidden layer's units in reverse order:
-    each hidden layer's kernel columns and bias reversed, and the rows its
-    successor reads from it. Another fp32 summation order of every product
-    over the hidden units, the same function; an involution, so it also maps
-    the gradients of the reversed field back."""
-    out = jax.tree_util.tree_map(np.array, tree)
-    for mlp in out["params"].values():
-        chain = [f"deform_{i}" for i in range(4)] + ["deform_out"]
-        chains = [chain, [f"pts_{i}" for i in range(8)] + ["density"], ["pts_7", "bottleneck", "views_0"],
-                  [f"views_{i}" for i in range(4)] + ["rgb"]]
-        outs = {n for c in chains for n in c[:-1]}
-        for name in outs:
-            mlp[name]["kernel"] = mlp[name]["kernel"][:, ::-1].copy()
-            mlp[name]["bias"] = mlp[name]["bias"][::-1].copy()
-        for c in chains:
-            for prev, name in zip(c[:-1], c[1:]):
-                k = mlp[prev]["kernel"].shape[1]
-                mlp[name]["kernel"][:k] = mlp[name]["kernel"][:k][::-1].copy()
-    return out
-
-
-@pytest.fixture(scope="module")
-def step_setup(tmp_path_factory):
-    from aonerf_torch.data import sapien_multi as sm
-    from aonerf_torch.data import synthetic
-    from tests.test_torch_autodecoder_step import jax_step_draws
-
-    root = synthetic.generate_multi_scene(str(tmp_path_factory.mktemp("multi")), img_wh=WH, n_instances=2,
-                                          degrees=(0, 10, 20), n_images=2)
-    bufs = sm.SapienMultiDataset(root, split="train", img_wh=WH).device_buffers()
-    f = rule.random_biases(ArticulatedNeRF(num_coarse_samples=SC, num_fine_samples=NF, latent_dense=True,
-                                           generator=torch.Generator().manual_seed(1), device="cpu"), 1)
-    lib = CodeLibraryArticulated(generator=torch.Generator().manual_seed(2), device="cpu")
-    params = {"model": module_flax_tree(f), "codes": module_flax_tree(lib)}
-    jmodel = JaxArticulatedNeRF(num_coarse_samples=SC, num_fine_samples=NF, latent_dense=True,
-                                compute_dtype=jnp.bfloat16)
-    loss_fn = jstep._autodecoder_loss_fn(jmodel, JaxCodeLibrary(), True, 2.0, 6.0, True, 1e-4)
-    key = jax.random.PRNGKey(5)
-    sample_key, render_key = jax.random.split(jax.random.fold_in(key, 0))
-    batch = jstep.sample_multi_batch({k: jnp.asarray(v) for k, v in bufs.items()}, sample_key, B)
-    grad = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
-    (loss, _), g = grad(params, batch, render_key)
-    (loss_r, _), g_r = grad({**params, "model": reverse_hidden(params["model"])}, batch, render_key)
-    g, g_r = jax.device_get(g), jax.device_get(g_r)
-    g_r = {**g_r, "model": reverse_hidden(g_r["model"])}
-    shape = bufs["c2w"].shape[:3] + (WH[0] * WH[1],)
-    return {"bufs": bufs, "params": params, "draws": functools.partial(jax_step_draws, key, 0, shape),
-            "jax": (float(loss), g), "jax reversed": (float(loss_r), g_r)}
-
-
-def _leaves(tree, prefix=""):
-    out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            out.update(_leaves(v, f"{prefix}/{k}" if prefix else k))
-        else:
-            out[f"{prefix}/{k}"] = np.asarray(v, np.float64)
-    return out
-
-
-def port_grads(s, dtype):
-    model = ArticulatedNeRF(num_coarse_samples=SC, num_fine_samples=NF, latent_dense=True, compute_dtype=dtype,
-                            device="cpu")
-    model.load_state_dict(module_state_dict_from_flax(s["params"]["model"]))
-    lib = CodeLibraryArticulated(device="cpu")
-    lib.load_state_dict(module_state_dict_from_flax(s["params"]["codes"]))
-    state = tstep.create_train_state(torch.nn.ModuleDict({"model": model, "codes": lib}),
-                                     tstep.make_adam(**SCHEDULE))
-    draws = s["draws"]()
-    batch = tstep.sample_multi_batch({k: torch.from_numpy(v) for k, v in s["bufs"].items()}, draws, B)
-    loss, _, grads = tstep.autodecoder_loss_and_grads(model, lib, state.params, batch, draws, True, True, 2.0,
-                                                      6.0, 1e-4)
-    for p, g in zip(state.params.values(), grads):
-        assert g.dtype == torch.float32
-        p.grad = g
-    return loss.item(), {"model": module_flax_tree(model, grads=True), "codes": module_flax_tree(lib, grads=True)}
-
-
-def _rel_errors(got, want):
-    got, want = _leaves(got), _leaves(want)
-    assert set(got) == set(want)
-    return {n: np.max(np.abs(got[n] - w)) / (np.max(np.abs(w)) + 1e-30) for n, w in want.items()}
-
-
-# A leaf's max abs error / max |JAX| is held to max(floor, 2 x the spread
-# of JAX's bf16 step against itself on the field with its hidden units
-# reversed, that leaf's; measured each run). The floor of a kernel: 2^-7,
-# one bf16 ulp of the leaf's largest entry (a weight gradient is a bf16
-# product). The floor of a bias, a code table or a layer that takes a
-# latent (its latent rows' gradient), each a sum over the batch's rows of a
-# bf16 cotangent: 2^-5. JAX's reduce_sum of a bf16 array
-# accumulates in bf16 on the CPU (test_jax_sums_bf16_cotangents_in_bf16),
-# up to ~log2(rows) / 2 bf16 ulps from the once-rounded fp32 sum that
-# torch's reduction gives, which the reversal does not move.
-GRAD_FLOOR = 2.0**-7
-SUM_FLOOR = 2.0**-5
-
-
-LATENT_LAYERS = ("deform_0", "pts_0", "pts_5", "views_0")  # latent_dense contracts a latent in these
-
-
-def _floor(name):
-    layer = name.split("/")[-2]
-    return SUM_FLOOR if name.endswith(("/bias", "/embedding")) or layer in LATENT_LAYERS else GRAD_FLOOR
-
-
-def test_jax_sums_bf16_cotangents_in_bf16():
-    # the gradient of a bf16 bias add over 416 rows: JAX's differs from the
-    # fp64 sum of the bf16 cotangent rounded once on most entries, the
-    # port's autograd (an fp32 reduction, one rounding) on none
-    g = jnp.asarray(np.random.default_rng(0).standard_normal((416, 128)), jnp.bfloat16)
-
-    def f(b):
-        return jnp.sum(((jnp.zeros((416, 128), jnp.bfloat16) + b.astype(jnp.bfloat16)) * g).astype(jnp.float32))
-
-    want = np.asarray(g.astype(jnp.float32), np.float64).sum(0)
-    once = torch.from_numpy(want).to(torch.float32).to(BF16).float().numpy()  # exact: want fits fp32 here
-    jax_sum = np.asarray(jax.grad(f)(jnp.zeros(128, jnp.float32)))
-    b = torch.zeros(128, requires_grad=True)
-    tg = torch.from_numpy(np.asarray(g.astype(jnp.float32))).to(BF16)
-    ((torch.zeros(416, 128, dtype=BF16) + b.to(BF16)) * tg).float().sum().backward()
-    assert np.array_equal(b.grad.numpy(), once)
-    assert np.mean(jax_sum != once) > 0.5
-    assert np.max(np.abs(jax_sum - once) / np.abs(once).max()) < SUM_FLOOR
-
-
-def test_first_step_grads_match_jax_bf16(step_setup):
-    s = step_setup
-    loss, want = s["jax"]
-    spread = _rel_errors(s["jax reversed"][1], want)
-    port_loss, got = port_grads(s, BF16)
-    np.testing.assert_allclose(port_loss, loss, rtol=2e-3)
-    errs = _rel_errors(got, want)
-    limits = {n: max(_floor(n), 2 * spread[n]) for n in errs}
-    bad = {n: (errs[n], limits[n]) for n in errs if not errs[n] <= limits[n]}
-    assert not bad, bad
-    # the fp32 port misses the same limits on most leaves
-    _, got32 = port_grads(s, torch.float32)
-    errs32 = _rel_errors(got32, want)
-    assert sum(errs32[n] > limits[n] for n in errs32) >= 0.75 * len(errs32), errs32
