@@ -7,9 +7,10 @@ Every (instance, articulation, view) is decoded once with PIL into host
 arrays: the rgb with the seg mask's background set to white (or black), the
 mask, the c2w. ``device_buffers`` stacks them for the train step, which
 samples its batches on the device. Validation reads full views
-(``get_image``); the test sweep renders ``create_spheric_poses(radius=4)``
-with the pose index as the interpolated articulation id (``get_test_image``).
-Both carry the view as the auto-encoder's source image, ``src_imgs``: (3, h,
+(``get_image``); a dataset whose instances differ in articulation or view
+count is sampled on the host (``sample_train``). The test sweep renders
+``create_spheric_poses(radius=4)`` with the pose index as the interpolated
+articulation id (``get_test_image``). All three carry the view as the auto-encoder's source image, ``src_imgs``: (3, h,
 w) in [-1, 1] (``normalized_image``).
 A held-out ``val/`` split of the midpoint degrees is used when every
 instance has one.
@@ -64,12 +65,15 @@ class SapienMultiDataset:
         img_wh: Tuple[int, int] = (320, 240),
         white_back: bool = True,
         eval_inference: Optional[str] = None,
+        ray_batch_size: int = 4096,
     ):
         """``split`` 'val' reads the held-out val/ dirs where every instance
         has them, else the train dirs; any other split reads the train dirs.
         ``eval_inference`` (the render directory's name) sets up the
-        spheric test poses."""
+        spheric test poses; ``ray_batch_size`` is ``sample_train``'s pixel
+        count."""
         self.root_dir = root_dir
+        self.ray_batch_size = ray_batch_size
         self.split = split
         self.img_wh = img_wh
         self.white_back = white_back
@@ -145,6 +149,32 @@ class SapienMultiDataset:
         """(3, h, w) float32 image in [-1, 1] for the image encoder."""
         img = view.rgb.astype(np.float32) / 255.0
         return np.moveaxis((img - 0.5) / 0.5, -1, 0)
+
+    def sample_train(self, rng: np.random.Generator) -> Dict[str, np.ndarray]:
+        """One host batch: ``ray_batch_size`` random pixels of a random
+        (instance, articulation, view), drawn from ``rng`` in JAX's order
+        (instance, articulation, view, pixels), with the view as
+        ``src_imgs``. The instances may differ in articulation and view
+        count."""
+        ii = int(rng.integers(self.n_instances))
+        di = int(rng.integers(self.n_articulations(ii)))
+        vi = int(rng.integers(self.n_images(ii, di)))
+        view = self._views[(ii, di)][vi]
+        w, h = self.img_wh
+        rays_o, viewdirs, rays_d, _ = get_rays_np(self.directions, view.c2w)
+        pix = rng.integers(0, h * w, size=self.ray_batch_size)
+        deg = float(np.deg2rad(int(self._deg_names[ii][di].split("_")[0])))
+        return {
+            "rays_o": rays_o[pix],
+            "rays_d": rays_d[pix],
+            "viewdirs": viewdirs[pix],
+            "target": view.rgb.reshape(-1, 3).astype(np.float32)[pix] / 255.0,
+            "instance_mask": view.mask.reshape(-1)[pix],
+            "src_imgs": self.normalized_image(view),
+            "deg": np.float32(deg),
+            "instance_id": np.int32(ii),
+            "articulation_id": np.int32(di),
+        }
 
     def get_image(self, instance_idx: int, deg_idx: int, image_idx: int) -> Dict[str, np.ndarray]:
         """A full view's rays and targets, for validation."""

@@ -3,8 +3,12 @@
 The stem (7x7/2 conv, norm, ReLU, 3x3/2 max-pool) and layer1..layer3 are
 shared; each head owns a private copy of layer4, then a global average pool
 and a Linear: color (128), density (128), articulation (32) and, when
-``global_size`` > 0, global. A 5-D (B, V, 3, H, W) input runs view by view
-and aggregates each head's output over V by mean or max.
+``global_size`` > 0, global. A head named in ``spatials`` is pixel-aligned
+instead: the stem's map (h/2 x w/2), each shared stage's and the head's
+layer4 map, each resized bilinearly (half-pixel centres) to the stem's
+size, concatenated and put through a 1x1 conv ``{name}_pix``, which returns
+a (B, C, h/2, w/2) map. A 5-D (B, V, 3, H, W) input runs view by view and
+aggregates each head's output over V by mean or max.
 
 Norms are affine-free instance norm (eps 1e-5, biased variance, statistics
 in fp32) or flax's ``GroupNorm(num_groups=1)`` (a scale and a bias per
@@ -17,7 +21,8 @@ out of TF32 whatever the process-wide flag says (``aonerf_torch.full_fp32``).
 With ``compute_dtype=torch.bfloat16`` they run as flax's bf16 ``Conv``: bf16
 input and weights, fp32 sums, the output rounded to bf16; the norms keep
 fp32 statistics and return bf16, ReLU, max-pool and the residual adds run
-in bf16, and the global pool and the heads in fp32.
+in bf16, and the global pool and the heads in fp32 (the pixel-aligned
+heads resize the bf16 maps in fp32; flax's bf16 resize is not matched).
 """
 
 import math
@@ -131,14 +136,10 @@ class MultiHeadImgEncoder(nn.Module):
         if compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute_dtype {compute_dtype}: expected torch.float32 or torch.bfloat16")
         self.compute_dtype = compute_dtype
-        if spatials:
-            raise NotImplementedError(
-                "the encoder's pixel-aligned 'spatials' heads are not ported yet: ROADMAP Queue 1 item 1"
-            )
         if agg_fct not in ("mean", "max"):
             raise ValueError(f"agg_fct {agg_fct!r}: expected 'mean' or 'max'")
         blocks = STAGE_BLOCKS[backbone]
-        self.shared_layers, self.agg_fct = shared_layers, agg_fct
+        self.shared_layers, self.agg_fct, self.spatials = shared_layers, agg_fct, tuple(spatials)
         self.conv1 = _conv(3, 64, 7, 2, 3)
         self.norm0 = Norm(norm_type, 64)
         cin = 64
@@ -147,17 +148,23 @@ class MultiHeadImgEncoder(nn.Module):
             cin = STAGE_WIDTHS[si]
         sizes = dict(zip(HEADS, (global_size, color_size, density_size, art_size)))
         self.heads = tuple(h for h in HEADS if sizes[h] > 0)
+        pyramid = 64 + sum(STAGE_WIDTHS[:shared_layers])  # the stem's and the shared stages' channels
         for name in self.heads:
             c = cin
             for si in range(shared_layers, 4):
                 setattr(self, f"{name}_layer{si + 1}", Stage(c, STAGE_WIDTHS[si], blocks[si], 2, norm_type))
                 c = STAGE_WIDTHS[si]
-            setattr(self, f"{name}_fc", nn.Linear(c, sizes[name], device="meta"))
+            if name in self.spatials:
+                setattr(self, f"{name}_pix", nn.Conv2d(pyramid + c, sizes[name], 1, device="meta"))
+            else:
+                setattr(self, f"{name}_fc", nn.Linear(c, sizes[name], device="meta"))
         self.to_empty(device="cpu")
         with torch.no_grad():
             for m in self.modules():
                 if isinstance(m, nn.Conv2d):
                     lecun_normal_(m.weight, m.weight[0].numel(), generator)
+                    if m.bias is not None:
+                        nn.init.zeros_(m.bias)
                 elif isinstance(m, nn.Linear):
                     lecun_normal_(m.weight, m.in_features, generator)
                     nn.init.zeros_(m.bias)
@@ -167,27 +174,38 @@ class MultiHeadImgEncoder(nn.Module):
         self.to(default_device(device))
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """x: (B, 3, H, W) or (B, V, 3, H, W) in [-1, 1] -> {head: (B, C)}."""
+        """x: (B, 3, H, W) or (B, V, 3, H, W) in [-1, 1] -> {head: (B, C)},
+        a pixel-aligned head's (B, C, H', W') with H' x W' the stem's map."""
         if x.ndim == 5:
             b, v = x.shape[:2]
             out = self(x.reshape(b * v, *x.shape[2:]))
+            out = {k: o.reshape(b, v, *o.shape[1:]) for k, o in out.items()}
             if self.agg_fct == "mean":
-                return {k: o.reshape(b, v, -1).mean(dim=1) for k, o in out.items()}
-            return {k: o.reshape(b, v, -1).amax(dim=1) for k, o in out.items()}
+                return {k: o.mean(dim=1) for k, o in out.items()}
+            return {k: o.amax(dim=1) for k, o in out.items()}
         # fp32 mode keeps the weights' dtype (fp64 in an oracle)
         dtype = self.conv1.weight.dtype if self.compute_dtype == torch.float32 else self.compute_dtype
         with full_fp32():
             x = torch.relu(self.norm0(conv(self.conv1, x.to(dtype))))
+            pyramid = [x]  # h/2: the pixel-aligned heads' scale
             x = F.max_pool2d(x, 3, stride=2, padding=1)
             for si in range(self.shared_layers):
                 x = getattr(self, f"layer{si + 1}")(x)
+                pyramid.append(x)
             out = {}
             for name in self.heads:
                 h = x
                 for si in range(self.shared_layers, 4):
                     h = getattr(self, f"{name}_layer{si + 1}")(h)
-                fc = getattr(self, f"{name}_fc")
-                out[name] = fc(h.to(fc.weight.dtype).mean(dim=(2, 3)))  # global average pool
+                if name in self.spatials:
+                    pix = getattr(self, f"{name}_pix")
+                    size = pyramid[0].shape[-2:]
+                    levels = [F.interpolate(p.to(pix.weight.dtype), size=size, mode="bilinear", align_corners=False)
+                              for p in pyramid + [h]]
+                    out[name] = pix(torch.cat(levels, dim=1))
+                else:
+                    fc = getattr(self, f"{name}_fc")
+                    out[name] = fc(h.to(fc.weight.dtype).mean(dim=(2, 3)))  # global average pool
         return out
 
 

@@ -19,17 +19,27 @@ with the JAX Trainer's logging, validation and checkpoint cadences.
                 codes for one instance with the field frozen
   auto-encoder: the articulated field conditioned on latents that a
                 ResNet34 encodes from the sampled view (or each of
-                ``ae_views_per_step`` views), trained jointly with the
+                ``ae_views_per_step`` views, or one view for
+                ``ae_encode_reuse`` steps), trained jointly with the
                 encoder, the joint-state decoder and the degree embedding on
-                the same buffers; ``validate`` adds the joint-state error and
+                the same buffers; a dataset whose instances differ in
+                articulation or view count trains on batches assembled on
+                the host (``sample_train`` behind a ``Prefetcher``), one
+                step a call; ``validate`` adds the joint-state error and
                 conditions on the ground-truth angle, ``test`` renders the
                 sweep conditioned on the predicted angle
 
 The two articulated types share the multi-scene dataset, its held-out val/
 split, the sweep and the checkpoint layout. ``compute_dtype='bf16'`` runs
 their models as flax's bf16 modules compute them; parameters, gradients,
-Adam's moments and checkpoints stay fp32, so either mode restores the
+the optimizer's slots and checkpoints stay fp32, so either mode restores the
 other's checkpoint.
+
+The optimizer and its schedule come from ``train.optim.build_optimizer_from_config``
+(the log-lerp Adam by default; sgd, AdamW, RAdam or Ranger with steplr,
+cosine or poly and the warmup; the auto-decoder's codes by their own AdamW
+with ``latent_lr``). A checkpoint holds the step, the parameters and the
+optimizer's count and per-parameter slots by parameter name.
 
 With ``run_eval`` the Trainer loads the test split instead of train and val.
 """
@@ -42,6 +52,7 @@ import torch
 from torch import nn
 
 from aonerf_torch import default_device
+from aonerf_torch.data.prefetch import Prefetcher
 from aonerf_torch.data.sapien import SapienDataset
 from aonerf_torch.data.sapien_multi import SapienMultiDataset
 from aonerf_torch.eval import io
@@ -53,15 +64,14 @@ from aonerf_torch.models.codes import CodeLibraryArticulated
 from aonerf_torch.models.mlp import COMPUTE_DTYPES, NeRFMLP
 from aonerf_torch.models.nerf import NeRF
 from aonerf_torch.ops.random import Draws
+from aonerf_torch.train.optim import OptState, build_optimizer_from_config
 from aonerf_torch.train.step import (
-    AdamState,
     TrainState,
     create_train_state,
-    make_adam,
     make_autodecoder_device_train_step,
     make_vanilla_train_multi_step,
 )
-from aonerf_torch.train.step_ae import make_ae_device_train_step
+from aonerf_torch.train.step_ae import make_ae_device_train_step, make_ae_train_step
 from aonerf_torch.utils.ckpt import CheckpointManager
 from aonerf_torch.utils.config import Config, jax_only_settings
 from aonerf_torch.utils.logging import MetricLogger
@@ -81,16 +91,12 @@ def _check_supported(cfg: Config) -> None:
         todo.append("noise_std")
     if cfg.compute_dtype not in COMPUTE_DTYPES:
         todo.append(f"compute_dtype={cfg.compute_dtype!r}")
-    if cfg.optimizer != "adam" or cfg.lr_scheduler is not None:
-        todo.append("optimizers other than the log-lerp Adam")
     # the articulated field takes any encoding degrees and has fixed widths
     shape = (cfg.min_deg_point, cfg.max_deg_point, cfg.deg_view, cfg.netdepth, cfg.netwidth)
     if cfg.exp_type == "vanilla" and shape != (
         NeRFMLP.min_deg_point, NeRFMLP.max_deg_point, NeRFMLP.deg_view, NeRFMLP.netdepth, NeRFMLP.netwidth
     ):
         todo.append("MLP shapes other than 8x256 with 10/4 encoding degrees")
-    if cfg.ae_encode_reuse > 1:  # ROADMAP Queue 1 item 1
-        todo.append(f"ae_encode_reuse={cfg.ae_encode_reuse}")
     todo.extend(f"{name}={value!r}" for name, value in jax_only_settings(cfg).items())
     if todo:
         raise NotImplementedError("not ported yet: " + ", ".join(todo))
@@ -109,18 +115,15 @@ class Trainer:
         self.articulated = cfg.exp_type in ("vanilla_autodecoder", "vanilla_ae_art")
         self.autoencoder = cfg.exp_type == "vanilla_ae_art"
         generator = torch.Generator().manual_seed(cfg.seed)
-        self.tx = make_adam(
-            lr_init=cfg.lr_init, lr_final=cfg.lr_final, max_steps=cfg.run_max_steps,
-            lr_delay_steps=cfg.lr_delay_steps, lr_delay_mult=cfg.lr_delay_mult,
-            grad_clip=cfg.grad_clip or None,
-        )
+        self.rng = np.random.default_rng(cfg.seed)  # the host-batched auto-encoder's batches
+        self._prefetcher = None
         self._inner_steps = max(1, cfg.inner_steps)
         split = "test" if cfg.run_eval else "train"
 
         if self.articulated:
             self.dataset = SapienMultiDataset(
                 cfg.root_dir, split=split, img_wh=cfg.img_wh, white_back=cfg.white_back,
-                eval_inference=cfg.render_name if cfg.run_eval else None,
+                eval_inference=cfg.render_name if cfg.run_eval else None, ray_batch_size=cfg.batch_size,
             )
             # held-out degrees when every instance has a val/ split, else the
             # train views (the reference's own practice)
@@ -143,11 +146,12 @@ class Trainer:
                 )
                 self.code_library = None
                 trained = self.model
+                self.tx, self.lr_fn = build_optimizer_from_config(cfg)
                 self.step_fn = make_ae_device_train_step(
                     self.model, self.tx, cfg.white_back, self.near, self.far, img_wh=cfg.img_wh,
                     batch_size=cfg.batch_size, randomized=cfg.randomized, opacity_lambda=cfg.opacity_lambda,
                     inner_steps=self._inner_steps, opacity_loss=cfg.ae_opacity_loss, photometric=cfg.ae_photometric,
-                    views_per_step=cfg.ae_views_per_step,
+                    views_per_step=cfg.ae_views_per_step, encode_reuse=cfg.ae_encode_reuse,
                 )
             else:
                 self.model = ArticulatedNeRF(**field_kwargs)
@@ -156,8 +160,10 @@ class Trainer:
                     n_max_articulations=cfg.n_max_articulations, art_code_dim=cfg.art_code_dim,
                     generator=generator, device=self.device,
                 )
-                # one Adam over the field and the codes, as in JAX's {'model', 'codes'}
+                # one optimizer over the field and the codes, as in JAX's {'model', 'codes'}
+                # (the codes after the field's parameters: latent_lr splits them off)
                 trained = nn.ModuleDict({"model": self.model, "codes": self.code_library})
+                self.tx, self.lr_fn = build_optimizer_from_config(cfg, n_model=len(list(self.model.parameters())))
                 self.step_fn = make_autodecoder_device_train_step(
                     self.model, self.code_library, self.tx, cfg.white_back, self.near, self.far,
                     batch_size=cfg.batch_size, randomized=cfg.randomized, reg_weight=cfg.code_reg_weight,
@@ -176,6 +182,7 @@ class Trainer:
                 compute_dtype=COMPUTE_DTYPES[cfg.compute_dtype],
             )
             trained = self.model
+            self.tx, self.lr_fn = build_optimizer_from_config(cfg)
             self.step_fn = make_vanilla_train_multi_step(
                 self.model, self.tx, cfg.white_back, self.near, self.far, batch_size=cfg.batch_size,
                 inner_steps=self._inner_steps, randomized=cfg.randomized,
@@ -195,16 +202,15 @@ class Trainer:
     # ------------------------------------------------------------ checkpoint
 
     def _state_dict(self) -> Dict:
+        """step, params by name and opt_state: the count and each slot
+        (mu, nu, trace, slow) by parameter name."""
         s = self.state
         names = list(s.params)
+        slots = {k: {n: t.cpu() for n, t in zip(names, v) if t is not None} for k, v in s.opt_state.slots.items()}
         return {
             "step": s.step,
             "params": {n: p.detach().cpu() for n, p in s.params.items()},
-            "opt_state": {
-                "count": s.opt_state.count,
-                "mu": {n: m.cpu() for n, m in zip(names, s.opt_state.mu)},
-                "nu": {n: v.cpu() for n, v in zip(names, s.opt_state.nu)},
-            },
+            "opt_state": {"count": s.opt_state.count, **slots},
         }
 
     def _load(self, saved: Dict, params_only: bool = False) -> None:
@@ -215,32 +221,24 @@ class Trainer:
             return
         names = list(self.state.params)
         opt = saved["opt_state"]
+        slots = {}
+        for k, fresh in self.state.opt_state.slots.items():
+            if k not in opt:
+                raise KeyError(f"the checkpoint's optimizer state has no slot {k!r}: another optimizer saved it")
+            slots[k] = [None if t is None else opt[k][n].to(self.device) for n, t in zip(names, fresh)]
         self.state = TrainState(
-            step=int(saved["step"]),
-            params=self.state.params,
-            opt_state=AdamState(
-                count=int(opt["count"]),
-                mu=[opt["mu"][n].to(self.device) for n in names],
-                nu=[opt["nu"][n].to(self.device) for n in names],
-            ),
+            step=int(saved["step"]), params=self.state.params, opt_state=OptState(count=int(opt["count"]), slots=slots)
         )
 
     # ----------------------------------------------------------------- train
 
     def train_buffers(self) -> Dict[str, torch.Tensor]:
         """The scene's train buffers on the device: the ray buffers (viewdirs
-        aliases rays_d), or for the articulated types ``device_buffers``."""
+        aliases rays_d), or for the articulated types ``device_buffers``
+        (a ValueError when the instances differ in articulation or view
+        count)."""
         if self.articulated:
-            try:
-                host = self.dataset.device_buffers()
-            except ValueError as e:
-                if not self.autoencoder:
-                    raise
-                raise NotImplementedError(
-                    "the host-batched auto-encoder step for a dataset whose instances differ in articulation or "
-                    "view count is not ported yet: ROADMAP Queue 1 item 1"
-                ) from e
-            return {k: torch.from_numpy(v).to(self.device) for k, v in host.items()}
+            return {k: torch.from_numpy(v).to(self.device) for k, v in self.dataset.device_buffers().items()}
         host = self.dataset.train_buffers()
         buffers = {k: torch.from_numpy(host[k]).to(self.device) for k in ("rays_o", "rays_d", "target")}
         buffers["viewdirs"] = buffers["rays_d"]
@@ -250,13 +248,29 @@ class Trainer:
         cfg = self.cfg
         total = max_steps or (cfg.num_epochs * cfg.steps_per_epoch)
         start = self.state.step
-        buffers = self.train_buffers()
         stride = self._inner_steps
+        try:
+            buffers = self.train_buffers()
+        except ValueError:
+            if not self.autoencoder:
+                raise
+            # the auto-encoder on a ragged dataset: batches assembled on the
+            # host ahead of the step, one step a call
+            buffers, stride = None, 1
+            host_step = make_ae_train_step(
+                self.model, self.tx, cfg.white_back, self.near, self.far, randomized=cfg.randomized,
+                opacity_lambda=cfg.opacity_lambda, opacity_loss=cfg.ae_opacity_loss, photometric=cfg.ae_photometric,
+            )
+            self._prefetcher = Prefetcher(lambda: self.dataset.sample_train(self.rng))
 
         last: Dict[str, float] = {}
         step = start
         while step < total:
-            self.state, metrics = self.step_fn(self.state, buffers, cfg.seed)
+            if buffers is not None:
+                self.state, metrics = self.step_fn(self.state, buffers, cfg.seed)
+            else:
+                batch = self._device_batch(self._prefetcher.get())
+                self.state, metrics = host_step(self.state, batch, cfg.seed)
             prev, step = step, step + stride
 
             def crossed(every):  # cadences fire when a stride crosses their boundary
@@ -271,7 +285,17 @@ class Trainer:
                 last.update({f"val_{k}": v for k, v in val.items()})
             if crossed(cfg.ckpt_every_steps) or step >= total:
                 self.ckpt.save(step, self._state_dict(), last.get("val_psnr"))
+        self._close_prefetcher()
         return last
+
+    def _device_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        """A host batch copied to the device (in the main thread)."""
+        return {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
+
+    def _close_prefetcher(self) -> None:
+        if self._prefetcher is not None:
+            self._prefetcher.close()
+            self._prefetcher = None
 
     # ------------------------------------------------------------------ eval
 
@@ -492,4 +516,5 @@ class Trainer:
         return codes, history
 
     def close(self) -> None:
+        self._close_prefetcher()
         self.logger.close()

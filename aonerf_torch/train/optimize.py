@@ -17,7 +17,8 @@ import torch
 
 from aonerf_torch import full_fp32
 from aonerf_torch.ops.math import img2mse, mse2psnr
-from aonerf_torch.train.step import Adam, sample_multi_batch
+from aonerf_torch.train.optim import Adam
+from aonerf_torch.train.step import sample_multi_batch
 
 # Draws.for_step(seed, CODE_STEP) is the code optimization's one stream: a
 # step index no training step reaches, so its numbers are not a train step's.

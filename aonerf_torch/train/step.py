@@ -1,6 +1,6 @@
 """The train steps (counterpart of ``aonerf.train.step``): batch sampling on
-the device, the hierarchical render, MSE(coarse) + MSE(fine), gradients,
-Adam with the log-lerp schedule.
+the device, the hierarchical render, MSE(coarse) + MSE(fine), gradients, and an
+optimizer of ``train.optim`` (by default Adam with the log-lerp schedule).
 
   vanilla:      a gather of ``batch_size`` rays from the scene's ray buffers;
                 both levels through the fused level kernels
@@ -8,7 +8,8 @@ Adam with the log-lerp schedule.
                 ``batch_size`` of its pixels, rays built from the stored c2w;
                 the articulated field (plain PyTorch) conditioned on the
                 codes of that instance and articulation; plus the code
-                regularization, with one Adam over the field and the codes
+                regularization, with one optimizer over the field and the
+                codes (with ``latent_lr``, the codes by their own AdamW)
 
 A step's random numbers come from ``Draws.for_step(seed, step)``, as JAX's
 from ``fold_in(base_key, step)``, so a resumed run draws what an unbroken run
@@ -17,95 +18,25 @@ them by name beside the step count and the optimizer state.
 """
 
 from dataclasses import dataclass
-from functools import partial
 from typing import Callable, Dict, List, Optional, Tuple
 
-import numpy as np
 import torch
 
 from aonerf_torch import full_fp32
 from aonerf_torch.ops.math import img2mse, mse2psnr
 from aonerf_torch.ops.random import Draws
 from aonerf_torch.train.losses import code_regularization
-from aonerf_torch.train.lr import log_lerp_lr
-
-
-@dataclass
-class AdamState:
-    count: int
-    mu: List[torch.Tensor]
-    nu: List[torch.Tensor]
-
-
-class Adam:
-    """Adam(b1, b2, eps) with a learning-rate schedule and optional
-    global-norm clipping, computed as optax's ``clip_by_global_norm`` then
-    ``adam`` compute them: the schedule is read at the update count before
-    the update, and clipping divides by the global norm itself (no 1e-6, as
-    ``torch.nn.utils.clip_grad_norm_`` adds)."""
-
-    def __init__(
-        self,
-        schedule: Callable[[int], float],
-        b1: float = 0.9,
-        b2: float = 0.999,
-        eps: float = 1e-8,
-        grad_clip: Optional[float] = None,
-    ):
-        self.schedule, self.b1, self.b2, self.eps, self.grad_clip = schedule, b1, b2, eps, grad_clip
-
-    def init(self, params: List[torch.Tensor]) -> AdamState:
-        return AdamState(
-            count=0,
-            mu=[torch.zeros_like(p) for p in params],
-            nu=[torch.zeros_like(p) for p in params],
-        )
-
-    @torch.no_grad()
-    def update(self, params: List[torch.Tensor], grads: List[torch.Tensor], state: AdamState) -> AdamState:
-        """Apply one update to ``params`` in place; returns the new state."""
-        if self.grad_clip:
-            g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-            keep = g_norm < self.grad_clip
-            grads = [torch.where(keep, g, (g / g_norm) * self.grad_clip) for g in grads]
-        b1, b2 = self.b1, self.b2
-        count = state.count + 1
-        f32 = np.float32
-        bc1 = float(f32(1.0) - f32(b1) ** f32(count))
-        bc2 = float(f32(1.0) - f32(b2) ** f32(count))
-        step_size = -float(f32(self.schedule(state.count)))
-        mu = [(1 - b1) * g + b1 * m for g, m in zip(grads, state.mu)]
-        nu = [(1 - b2) * (g * g) + b2 * v for g, v in zip(grads, state.nu)]
-        for p, m, v in zip(params, mu, nu):
-            p.add_((m / bc1) / (torch.sqrt(v / bc2) + self.eps) * step_size)
-        return AdamState(count=count, mu=mu, nu=nu)
-
-
-def make_adam(
-    lr_init: float = 5.0e-4,
-    lr_final: float = 5.0e-6,
-    max_steps: int = 100_000,
-    lr_delay_steps: int = 2500,
-    lr_delay_mult: float = 0.01,
-    grad_clip: Optional[float] = None,
-) -> Adam:
-    """Adam(0.9, 0.999, eps 1e-8) with the log-lerp + sin-delay schedule;
-    ``grad_clip`` (global norm) is off by default, as in the reference."""
-    schedule = partial(
-        log_lerp_lr, lr_init=lr_init, lr_final=lr_final, max_steps=max_steps,
-        lr_delay_steps=lr_delay_steps, lr_delay_mult=lr_delay_mult,
-    )
-    return Adam(schedule, grad_clip=grad_clip)
+from aonerf_torch.train.optim import Optimizer, OptState, make_adam  # noqa: F401 (make_adam: JAX keeps it here)
 
 
 @dataclass
 class TrainState:
     step: int
     params: Dict[str, torch.Tensor]
-    opt_state: AdamState
+    opt_state: OptState
 
 
-def create_train_state(model: torch.nn.Module, tx: Adam) -> TrainState:
+def create_train_state(model: torch.nn.Module, tx: Optimizer) -> TrainState:
     params = dict(model.named_parameters())
     return TrainState(step=0, params=params, opt_state=tx.init(list(params.values())))
 
@@ -134,7 +65,7 @@ def vanilla_loss_and_grads(
 
 def make_vanilla_train_step(
     model,
-    tx: Adam,
+    tx: Optimizer,
     white_bkgd: bool,
     near: float,
     far: float,
@@ -144,7 +75,7 @@ def make_vanilla_train_step(
     """Returns step(state, buffers, seed, draws=None) -> (state, metrics).
 
     Per step: gather a batch, render both levels, MSE(coarse) + MSE(fine),
-    backward, Adam. ``draws`` defaults to ``Draws.for_step(seed,
+    backward, the optimizer. ``draws`` defaults to ``Draws.for_step(seed,
     state.step)`` on the buffers' device. Metrics stay on the device.
     """
 
@@ -183,7 +114,7 @@ def repeat_steps(one_step: Callable, inner_steps: int) -> Callable:
 
 def make_vanilla_train_multi_step(
     model,
-    tx: Adam,
+    tx: Optimizer,
     white_bkgd: bool,
     near: float,
     far: float,
@@ -198,39 +129,66 @@ def make_vanilla_train_multi_step(
     )
 
 
+def sample_view(buffers: Dict[str, torch.Tensor], draws) -> Dict[str, torch.Tensor]:
+    """One random (instance, articulation, view) of the scene buffers, drawn
+    in that order, and that view's whole image data: c2w (3, 4), rgb (hw,
+    3) uint8, mask (hw,), the articulation's angle and the ids (0-d)."""
+    n_i, n_d, n_v = buffers["rgb"].shape[:3]
+    ii = draws.randint(n_i, ())
+    di = draws.randint(n_d, ())
+    vi = draws.randint(n_v, ())
+    return {
+        "c2w": buffers["c2w"][ii, di, vi],
+        "rgb": buffers["rgb"][ii, di, vi],
+        "mask": buffers["mask"][ii, di, vi],
+        "deg": buffers["deg"][di],
+        "instance_id": ii,
+        "articulation_id": di,
+    }
+
+
+def view_src_image(view: Dict[str, torch.Tensor], src_hw: Tuple[int, int]) -> torch.Tensor:
+    """The auto-encoder's source image of a ``sample_view`` view: (3, h, w)
+    in [-1, 1]."""
+    h, w = src_hw
+    src = view["rgb"].to(torch.float32) / 255.0 * 2.0 - 1.0
+    return src.reshape(h, w, 3).permute(2, 0, 1)
+
+
+def sample_view_pixels(
+    view: Dict[str, torch.Tensor], directions: torch.Tensor, draws, batch_size: int
+) -> Dict[str, torch.Tensor]:
+    """``batch_size`` random pixels of a ``sample_view`` view: rays from its
+    c2w (rays_d = viewdirs, unit), targets uint8 / 255, the mask, the angle
+    and the ids."""
+    pix = draws.randint(view["rgb"].shape[0], (batch_size,))
+    c2w = view["c2w"]
+    world_d = directions[pix] @ c2w[:, :3].T
+    viewdirs = world_d / torch.linalg.norm(world_d, dim=-1, keepdim=True)
+    return {
+        "rays_o": c2w[:, 3].expand_as(viewdirs),
+        "rays_d": viewdirs,
+        "viewdirs": viewdirs,
+        "target": view["rgb"][pix].to(torch.float32) / 255.0,
+        "instance_mask": view["mask"][pix],
+        "deg": view["deg"],
+        "instance_id": view["instance_id"],
+        "articulation_id": view["articulation_id"],
+    }
+
+
 def sample_multi_batch(
     buffers: Dict[str, torch.Tensor], draws, batch_size: int, src_hw: Optional[Tuple[int, int]] = None
 ) -> Dict[str, torch.Tensor]:
     """One random (instance, articulation, view) of the scene buffers
     (``SapienMultiDataset.device_buffers`` on the device) and ``batch_size``
-    random pixels of it, drawn in that order: the view's rays from its c2w
-    (rays_d = viewdirs, unit), targets uint8 / 255, the mask, the
-    articulation's angle and the ids (0-d tensors). With ``src_hw`` = (h, w)
-    also the whole view as ``src_imgs``, (3, h, w) in [-1, 1], the
-    auto-encoder's source image."""
-    n_i, n_d, n_v, hw, _ = buffers["rgb"].shape
-    ii = draws.randint(n_i, ())
-    di = draws.randint(n_d, ())
-    vi = draws.randint(n_v, ())
-    pix = draws.randint(hw, (batch_size,))
-    c2w = buffers["c2w"][ii, di, vi]
-    world_d = buffers["directions"][pix] @ c2w[:, :3].T
-    viewdirs = world_d / torch.linalg.norm(world_d, dim=-1, keepdim=True)
-    view_rgb = buffers["rgb"][ii, di, vi]
-    batch = {
-        "rays_o": c2w[:, 3].expand_as(viewdirs),
-        "rays_d": viewdirs,
-        "viewdirs": viewdirs,
-        "target": view_rgb[pix].to(torch.float32) / 255.0,
-        "instance_mask": buffers["mask"][ii, di, vi][pix],
-        "deg": buffers["deg"][di],
-        "instance_id": ii,
-        "articulation_id": di,
-    }
+    random pixels of it, drawn in that order (``sample_view``, then
+    ``sample_view_pixels``). With ``src_hw`` = (h, w) also the whole view
+    as ``src_imgs``, the auto-encoder's source image."""
+    view = sample_view(buffers, draws)
+    batch = sample_view_pixels(view, buffers["directions"], draws, batch_size)
     if src_hw is not None:
-        h, w = src_hw
-        src = view_rgb.to(torch.float32) / 255.0 * 2.0 - 1.0
-        batch["src_imgs"] = src.reshape(h, w, 3).permute(2, 0, 1)
+        batch["src_imgs"] = view_src_image(view, src_hw)
     return batch
 
 
@@ -272,7 +230,7 @@ def autodecoder_loss_and_grads(
 def make_autodecoder_device_train_step(
     model,
     code_library,
-    tx: Adam,
+    tx: Optimizer,
     white_bkgd: bool,
     near: float,
     far: float,
@@ -284,7 +242,7 @@ def make_autodecoder_device_train_step(
     """Returns step(state, buffers, seed, draws=None) -> (state, metrics of
     the last step), ``inner_steps`` auto-decoder steps in a plain loop.
     ``state.params`` holds the field's and the codes' parameters, updated by
-    one Adam (its clip, if any, over both). Each step samples a batch with
+    ``tx`` (one optimizer, its clip over both; or ``LatentSplit``). Each step samples a batch with
     ``sample_multi_batch`` from ``buffers`` and its draws from
     ``Draws.for_step(seed, step)`` on the buffers' device; ``draws``
     replaces them for a single step. Metrics stay on the device."""

@@ -19,13 +19,20 @@ one under 'coarse_mlp' and one under 'fine_mlp'; the auto-decoder's trees are
 auto-encoder's is {'encoder', 'field', 'joint_state_decoder',
 'deg_embedding'}. The names below the generic pair are the ones earlier
 callers use.
+
+``opt_state_from_optax`` carries an optax optimizer state (as numpy, from
+``jax.device_get``) into the port's ``OptState``: the moments (mu, nu),
+SGD's momentum trace, the lookahead's slow weights, each converted like the
+parameters, and the count that every optax count shares.
 """
 
-from typing import Dict, Mapping
+from typing import Callable, Dict, List, Mapping
 
 import numpy as np
 import torch
 from torch import nn
+
+from aonerf_torch.train.optim import OptState
 
 # the vanilla NeRFMLP's layers
 MLP_LAYERS = tuple(f"pts_{i}" for i in range(8)) + ("density", "bottleneck", "views_0", "rgb")
@@ -108,3 +115,46 @@ def mlp_flax_tree(mlp, grads: bool = False) -> Dict[str, Dict[str, np.ndarray]]:
 mlp_state_dict_from_flax = nerf_state_dict_from_flax = articulated_state_dict_from_flax = module_state_dict_from_flax
 codes_state_dict_from_flax = module_state_dict_from_flax
 nerf_flax_tree = articulated_flax_tree = codes_flax_tree = module_flax_tree
+
+
+# optax state fields that hold one entry per parameter: the port's slot names
+_OPTAX_SLOTS = ("mu", "nu", "trace", "slow")
+
+
+def _array_leaves_only(tree):
+    """``tree`` without the leaves that are not arrays (optax's MaskedNode
+    where a multi_transform side does not own a parameter)."""
+    if isinstance(tree, Mapping):
+        out = {k: _array_leaves_only(v) for k, v in tree.items()}
+        return {k: v for k, v in out.items() if v is not None}
+    return tree if hasattr(tree, "shape") else None
+
+
+def opt_state_from_optax(state, names: List[str], to_port: Callable = module_state_dict_from_flax):
+    """The port's ``OptState`` of an optax state: each per-parameter field
+    (mu, nu, trace, slow) through ``to_port`` (flax tree -> {port name:
+    tensor}) into a list in ``names``' order, None for a parameter the field
+    does not cover; the count, which every count of the state must equal."""
+    slots: Dict[str, Dict[str, torch.Tensor]] = {}
+    counts = set()
+
+    def visit(node):
+        if hasattr(node, "_fields"):  # an optax NamedTuple state
+            for field, value in zip(node._fields, node):
+                if field == "count":
+                    counts.add(int(np.asarray(value)))
+                elif field in _OPTAX_SLOTS and isinstance(value, Mapping):
+                    slots.setdefault(field, {}).update(to_port(_array_leaves_only(value)))
+                else:
+                    visit(value)
+        elif isinstance(node, Mapping):
+            for value in node.values():
+                visit(value)
+        elif isinstance(node, (tuple, list)):
+            for value in node:
+                visit(value)
+
+    visit(state)
+    if len(counts) != 1:
+        raise ValueError(f"optax counts {sorted(counts)}: expected one shared count")
+    return OptState(count=counts.pop(), slots={k: [v.get(n) for n in names] for k, v in slots.items()})

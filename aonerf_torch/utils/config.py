@@ -53,8 +53,8 @@ class Config:
     latent_dense: bool = True  # contract latent columns per view (models/articulated.py)
     # auto-encoder (vanilla_ae_art): the opacity loss (train/step_ae.py's
     # OPACITY_LOSSES), the photometric loss over fg pixels ('masked') or all
-    # ('full'), the field's density activation and degree embedding; more
-    # than one view a step or one encode for several steps are not ported
+    # ('full'), the field's density activation and degree embedding, the
+    # views encoded a step and the steps one encode serves (train/step_ae.py)
     ae_opacity_loss: str = "bce_prob"
     ae_photometric: str = "masked"
     opacity_lambda: float = 0.5
@@ -69,8 +69,20 @@ class Config:
     lr_delay_steps: int = 2500
     lr_delay_mult: float = 0.01
     run_max_steps: int = 100_000
+    # "adam" with no lr_scheduler is Adam with the log-lerp schedule above;
+    # otherwise train/optim.py's optimizer (sgd | adam = AdamW | radam |
+    # ranger) with its epoch-granular schedule (steplr | cosine | poly) and
+    # the gradual warmup (not for radam and ranger)
     optimizer: str = "adam"
     lr_scheduler: Optional[str] = None
+    momentum: float = 0.9
+    weight_decay: float = 0.0
+    decay_step: Tuple[int, ...] = (20,)
+    decay_gamma: float = 0.1
+    poly_exp: float = 0.99
+    warmup_multiplier: float = 1.0
+    warmup_epochs: int = 0
+    latent_lr: Optional[float] = None  # the auto-decoder's codes by their own AdamW at this lr
     grad_clip: float = 0.0  # global-norm clip; 0 = off
     num_epochs: int = 100
     steps_per_epoch: int = 1000
@@ -105,14 +117,6 @@ class Config:
 # (aonerf/utils/config.py). tests/test_torch_trainer.py holds the table to
 # that dataclass.
 JAX_ONLY_DEFAULTS: Dict[str, Any] = {
-    "momentum": 0.9,
-    "weight_decay": 0.0,
-    "decay_step": (20,),
-    "decay_gamma": 0.1,
-    "poly_exp": 0.99,
-    "warmup_multiplier": 1.0,
-    "warmup_epochs": 0,
-    "latent_lr": None,
     "is_optimize": False,
     "finetune_lpips": False,
     "n_model_shards": 1,
@@ -139,7 +143,7 @@ ALIASES = {
 
 
 def _coerce(name: str, value: Any) -> Any:
-    if name == "img_wh" and isinstance(value, (list, tuple)):
+    if name in ("img_wh", "decay_step") and isinstance(value, (list, tuple)):
         return tuple(int(v) for v in value)
     if name == "randomized" and not isinstance(value, bool):
         return bool(value)

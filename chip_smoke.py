@@ -156,6 +156,26 @@ Phases, each of which fails the run with a non-zero exit:
  17. articulated turns - the auto-decoder's and the auto-encoder's step at
                batch 4096 (config/autodecoder.json, config/ae_art.json) in
                fp32 and bf16 in turns, with each mode's peak memory.
+ 18. optimizers - config/vanilla.json (fp32, batch 2048) on phase 7's scene,
+               20 steps through Trainer.fit under each of the reference's
+               recipes: sgd + steplr + warmup, adam (AdamW, weight decay 1e-4)
+               + cosine, radam + poly, ranger + poly with a checkpoint at step
+               10 and a resume from it whose slow weights equal the saved
+               ones; then config/autodecoder.json with latent_lr 1e-3 on phase
+               9's scene, 20 steps. Per run: the loss falling, the lr at steps
+               0, 10 and 19, K1s and K2 launched on every vanilla run.
+ 19. encode reuse - config/ae_art.json with ae_encode_reuse 4 and inner_steps
+               8 on phase 9's scene, two dispatches: on every field-only step
+               the encoder, state decoder and degree embedding and their Adam
+               moments bit for bit unchanged on the card, the count advanced,
+               the field-only loss falling; then the step's host ms beside
+               ae_encode_reuse 1 in turns (reuse 4, 1, 1, 4) and each one's
+               busy ms on the card (torch.profiler).
+ 20. ragged dataset - phase 9's scene with one instance's 10-degree views
+               removed, through Trainer.fit on the host-batched step behind
+               the prefetcher: 20 steps, the loss, host ms a step, the card's
+               busy ms and idle share (fit's closing checkpoint left out of
+               both); then --run_eval on 2 sweep poses.
 The line before the last is a JSON object with one entry per kernel and mode
 (K1, K1s, K2 in fp32, then in bf16; K1 and K1s in bf16 at the fast preset's
 shapes; B2 and B1 in bf16; B2 in fp32); the last line is {"ok": true,
@@ -2796,6 +2816,16 @@ PRESET_SWEEP_POSES = 2
 PRESET_COST_STEPS = 5  # steps a dispatch where phase 16 times and profiles a preset's step
 PRESETS = ("autodecoder_tpu_fast", "ae_art_tpu_quality", "ae_art_tpu_fast")
 TURN_BATCH = 4096  # phase 17: config/autodecoder.json's and config/ae_art.json's batch
+OPT_STEPS = 20  # phase 18's steps a run (the ranger run resumes at OPT_STEPS // 2)
+OPT_RUNS = {  # phase 18: the reference's optimizer recipes, 4 epochs of 5 steps
+    "sgd_steplr_warmup": dict(optimizer="sgd", lr_scheduler="steplr", lr_init=0.05, decay_step=[2],
+                              warmup_epochs=1, warmup_multiplier=2.0),
+    "adamw_cosine": dict(optimizer="adam", lr_scheduler="cosine", lr_init=1e-3, weight_decay=1e-4),
+    "radam_poly": dict(optimizer="radam", lr_scheduler="poly", lr_init=1e-3),
+    "ranger_poly": dict(optimizer="ranger", lr_scheduler="poly", lr_init=1e-3),
+}
+REUSE, REUSE_INNER = 4, 8  # phase 19: ae_encode_reuse and inner_steps
+RAGGED_STEPS = 20  # phase 20
 
 
 def _random_biases(module, generator) -> None:
@@ -3160,7 +3190,264 @@ def phase_articulated_turns(tmp: str) -> dict:
     return out
 
 
+def _recording(module, name: str, sink: list, pick=lambda out: out[0]):
+    """mock.patch of module.name that records pick(output) of each call and
+    changes nothing."""
+    real = getattr(module, name)
+
+    def recorded(*args, **kwargs):
+        out = real(*args, **kwargs)
+        sink.append(pick(out))
+        return out
+
+    return mock.patch.object(module, name, recorded)
+
+
+def _fell(losses) -> tuple:
+    loss = torch.stack(list(losses)).float().cpu().numpy()
+    n = max(1, len(loss) // 4)
+    first, last = float(loss[:n].mean()), float(loss[-n:].mean())
+    return first, last, bool(np.isfinite(loss).all() and last < first)
+
+
+def phase_optimizers(tmp: str, root: str) -> dict:
+    """The reference's optimizers and schedules through Trainer.fit on phase
+    7's scene (config/vanilla.json, fp32), each OPT_STEPS steps; the ranger
+    run resumes from its checkpoint at OPT_STEPS // 2; then the
+    auto-decoder with latent_lr on phase 9's scene."""
+    from aonerf_torch.train import step as step_mod
+    from aonerf_torch.train.loop import Trainer
+    from aonerf_torch.utils.ckpt import CheckpointManager
+    from aonerf_torch.utils.config import load_config
+
+    t_phase = time.perf_counter()
+    base = {"root_dir": root, "output_path": os.path.join(tmp, "opt"), "img_wh": [W, H], "seed": SEED,
+            "val_every_steps": 1000, "ckpt_every_steps": OPT_STEPS // 2, "steps_per_epoch": 5, "num_epochs": 4}
+    vanilla = os.path.join(os.path.dirname(os.path.abspath(__file__)), "config", "vanilla.json")
+    out = {}
+    for name, settings in OPT_RUNS.items():
+        cfg = load_config(vanilla, {**base, **settings, "exp_name": name})
+        losses = []
+        _reset_fused_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _recording(step_mod, "vanilla_loss_and_grads", losses):
+            trainer = Trainer(cfg)
+            if name == "ranger_poly":  # a checkpoint half way, and a resume from it
+                trainer.fit(max_steps=OPT_STEPS // 2)
+                trainer.close()
+                saved = CheckpointManager(os.path.join(trainer.run_dir, "ckpts")).restore(OPT_STEPS // 2)
+                trainer = Trainer(cfg)
+                names = list(trainer.state.params)
+                slow = trainer.state.opt_state.slots["slow"]
+                same = trainer.state.step == OPT_STEPS // 2 and all(
+                    torch.equal(t.cpu(), saved["opt_state"]["slow"][n]) for t, n in zip(slow, names))
+                moved = any(not torch.equal(saved["opt_state"]["slow"][n], saved["params"][n]) for n in names)
+                if not (same and moved):
+                    fail(f"{name}: the resumed slow weights differ from the saved ones (equal {same}; "
+                         f"synced off the parameters {moved})")
+                print(f"  {name}: resumed at step {trainer.state.step}, the slow weights of {len(names)} parameters "
+                      f"equal to the checkpoint's (torch.equal)")
+            trainer.fit(max_steps=OPT_STEPS)
+            lrs = [trainer.lr_fn(s) for s in (0, OPT_STEPS // 2, OPT_STEPS - 1)]
+            slots = sorted(trainer.state.opt_state.slots)
+            trainer.close()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        _, k1s, k2 = _fused_launches()
+        first, last, fell = _fell(losses)
+        print(f"optimizer {name}: {len(losses)} steps at batch {cfg.batch_size} ({seconds:.1f} s), loss first "
+              f"{first:.5f} last {last:.5f} (fell {fell}), lr at steps 0/{OPT_STEPS // 2}/{OPT_STEPS - 1} "
+              f"{lrs[0]:.6g}/{lrs[1]:.6g}/{lrs[2]:.6g}, slots {slots}, launches K1s {k1s} K2 {k2}")
+        if len(losses) != OPT_STEPS or not fell:
+            fail(f"{name}: {len(losses)} steps, loss fell {fell}")
+        if k1s != 2 * OPT_STEPS or k2 != 2 * OPT_STEPS:
+            fail(f"{name}: K1s {k1s} and K2 {k2} launches, expected {2 * OPT_STEPS} each")
+        out[name] = {"k1s": k1s, "k2": k2, "loss": [first, last], "lr": lrs, "seconds": seconds}
+
+    cfg_path = _autodecoder_config(os.path.join(tmp, "multi"), os.path.join(tmp, "opt"))
+    cfg = load_config(cfg_path, {"latent_lr": 1e-3, "exp_name": "latent_lr", "val_every_steps": 1000,
+                                 "ckpt_every_steps": 1000})
+    losses = []
+    t0 = time.perf_counter()
+    with _recording(step_mod, "autodecoder_loss_and_grads", losses):
+        trainer = Trainer(cfg)
+        trainer.fit(max_steps=OPT_STEPS)
+        tx = trainer.tx
+        lrs = [trainer.lr_fn(s) for s in (0, OPT_STEPS // 2, OPT_STEPS - 1)]
+        trainer.close()
+    torch.cuda.synchronize()
+    first, last, fell = _fell(losses)
+    print(f"optimizer autodecoder latent_lr: {len(losses)} steps at batch {cfg.batch_size} "
+          f"({time.perf_counter() - t0:.1f} s), loss first {first:.5f} last {last:.5f} (fell {fell}), field lr at "
+          f"steps 0/{OPT_STEPS // 2}/{OPT_STEPS - 1} {lrs[0]:.6g}/{lrs[1]:.6g}/{lrs[2]:.6g}, codes lr "
+          f"{tx.codes_tx.schedule(0):.6g} ({type(tx).__name__}: {tx.n_model} field parameters)")
+    if len(losses) != OPT_STEPS or not fell or tx.codes_tx.schedule(0) != 1e-3:
+        fail(f"auto-decoder with latent_lr: {len(losses)} steps, loss fell {fell}")
+    out["autodecoder_latent_lr"] = {"loss": [first, last], "lr": lrs}
+    print(f"  phase optimizers: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def _busy_ms(fn, n_steps: int) -> tuple:
+    """(wall ms, device busy ms) a step of fn() under torch.profiler, the
+    busy time the sum of its kernels' device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    kernels = (e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA)
+    return wall / n_steps, sum(_dev_us(e) for e in kernels) / 1e3 / n_steps
+
+
+def phase_encode_reuse(tmp: str) -> dict:
+    """config/ae_art.json with ae_encode_reuse REUSE, inner_steps REUSE_INNER
+    on phase 9's scene: two dispatches with the frozen partition checked on
+    the card around every field-only step, then the step's cost beside
+    ae_encode_reuse 1, in turns."""
+    from aonerf_torch.train import step_ae
+    from aonerf_torch.train.loop import Trainer
+    from aonerf_torch.utils.config import load_config
+
+    t_phase = time.perf_counter()
+    cfg_path = _ae_config(os.path.join(tmp, "multi"), os.path.join(tmp, "reuse"))
+    settings = {"inner_steps": REUSE_INNER, "val_every_steps": 1000, "ckpt_every_steps": 1000}
+    cfg = load_config(cfg_path, {**settings, "ae_encode_reuse": REUSE, "exp_name": "reuse"})
+    checked, broken = [], []
+    real = step_ae.masked_field_update
+
+    def checked_update(tx, params, grads, opt_state):
+        # the frozen partition and its moments before and after: bit for bit
+        frozen = [i for i, m in enumerate(step_ae.field_update_mask(params)) if not m]
+        values = list(params.values())
+        before = [(values[i].clone(), *(opt_state.slots[k][i].clone() for k in sorted(opt_state.slots)))
+                  for i in frozen]
+        new = real(tx, params, grads, opt_state)
+        after = [(values[i], *(new.slots[k][i] for k in sorted(new.slots))) for i in frozen]
+        same = all(torch.equal(a, b) for x, y in zip(before, after) for a, b in zip(x, y))
+        checked.append(len(frozen))
+        if not same or new.count != opt_state.count + 1:
+            broken.append(opt_state.count)
+        return new
+
+    field_losses, full_losses = [], []
+    with mock.patch.object(step_ae, "masked_field_update", checked_update), \
+            _recording(step_ae, "ae_field_loss_and_grads", field_losses), \
+            _recording(step_ae, "ae_loss_and_grads", full_losses):
+        trainer = Trainer(cfg)
+        buffers = trainer.train_buffers()
+        for _ in range(2):
+            trainer.state, metrics = trainer.step_fn(trainer.state, buffers, cfg.seed)
+        torch.cuda.synchronize()
+    n_groups = 2 * REUSE_INNER // REUSE
+    first, last, fell = _fell(field_losses)
+    print(f"encode reuse {REUSE}, inner_steps {REUSE_INNER}: {trainer.state.step} steps in 2 dispatches, "
+          f"{len(full_losses)} full steps and {len(field_losses)} field-only steps; frozen partition "
+          f"({checked[0] if checked else 0} parameters and their mu/nu) bit for bit unchanged on "
+          f"{len(checked) - len(broken)} of {len(checked)} field-only steps; field-only loss first {first:.5f} last "
+          f"{last:.5f} (fell {fell}); last group's loss {float(metrics['loss']):.5f}, lr {metrics['lr']:.6g}")
+    if broken or len(checked) != n_groups * (REUSE - 1) or len(full_losses) != n_groups or not fell:
+        fail(f"encode reuse: frozen partition moved on steps {broken}, {len(checked)} field-only steps checked, "
+             f"{len(full_losses)} full steps, field-only loss fell {fell}")
+
+    # the step's cost in turns, on that trainer and one with ae_encode_reuse 1
+    # (after an untimed dispatch): host ms of a synchronized dispatch, then
+    # the card's busy ms a step by torch.profiler over one more
+    trainers = {REUSE: trainer, 1: Trainer(load_config(cfg_path, {**settings, "exp_name": "turn_1"}))}
+    trainers[1].state, _ = trainers[1].step_fn(trainers[1].state, buffers, cfg.seed)
+    ms = {REUSE: [], 1: []}
+    for reuse in (REUSE, 1, 1, REUSE):
+        tr = trainers[reuse]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.state, _ = tr.step_fn(tr.state, buffers, cfg.seed)
+        torch.cuda.synchronize()
+        ms[reuse].append((time.perf_counter() - t0) * 1e3 / REUSE_INNER)
+    busy = {}
+    for reuse, tr in trainers.items():
+
+        def dispatch():
+            tr.state, _ = tr.step_fn(tr.state, buffers, cfg.seed)
+
+        busy[reuse] = _busy_ms(dispatch, REUSE_INNER)[1]
+        tr.close()
+    del trainers, trainer, buffers
+    torch.cuda.empty_cache()
+    fmt = lambda xs: ", ".join(f"{x:.3f}" for x in xs)  # noqa: E731
+    print(f"  in turns (reuse {REUSE}, 1, 1, {REUSE}; {REUSE_INNER} steps a dispatch at batch {cfg.batch_size}): "
+          f"host ms a step reuse {REUSE} {fmt(ms[REUSE])}, reuse 1 {fmt(ms[1])}; card busy ms a step "
+          f"(torch.profiler) reuse {REUSE} {busy[REUSE]:.3f}, reuse 1 {busy[1]:.3f}; idle share reuse {REUSE} "
+          f"{100 * max(0.0, 1 - busy[REUSE] / min(ms[REUSE])):.1f}%, reuse 1 "
+          f"{100 * max(0.0, 1 - busy[1] / min(ms[1])):.1f}%")
+    print(f"  phase encode reuse: {time.perf_counter() - t_phase:.1f} s")
+    return {"host_ms": ms, "busy_ms": busy, "field_steps_checked": len(checked)}
+
+
+def phase_ragged(tmp: str) -> dict:
+    """Phase 9's scene with one instance's 10-degree views removed:
+    Trainer.fit on the host-batched step behind the prefetcher, then
+    --run_eval on 2 sweep poses."""
+    import shutil
+
+    from aonerf_torch.cli import train as cli
+    from aonerf_torch.train import step_ae
+    from aonerf_torch.train.loop import Trainer
+    from aonerf_torch.utils.config import load_config
+
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "ragged")
+    shutil.copytree(os.path.join(tmp, "multi"), root)
+    second = sorted(os.listdir(root))[1]
+    shutil.rmtree(os.path.join(root, second, "train", "10_degree"))
+    cfg_path = _ae_config(root, os.path.join(tmp, "ragged_out"))
+    cfg = load_config(cfg_path, {"val_every_steps": 1000, "ckpt_every_steps": 1000})
+    losses = []
+    with _recording(step_ae, "ae_loss_and_grads", losses):
+        trainer = Trainer(cfg)
+        try:
+            trainer.train_buffers()
+            fail("the ragged scene has uniform device buffers")
+        except ValueError:
+            pass
+        trainer.fit(max_steps=2)  # the first steps, untimed
+        # the timed and profiled fits leave out the checkpoint fit writes at
+        # its end (a copy of ~0.6 GB to the host and a file)
+        with mock.patch.object(trainer.ckpt, "save", lambda *args, **kwargs: None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.fit(max_steps=RAGGED_STEPS)
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1e3 / (RAGGED_STEPS - 2)
+            n_prof = 4
+            wall_ms, busy_ms = _busy_ms(lambda: trainer.fit(max_steps=RAGGED_STEPS + n_prof), n_prof)
+        trainer.ckpt.save(trainer.state.step, trainer._state_dict())  # for --run_eval
+        steps = trainer.state.step
+        trainer.close()
+    first, last, fell = _fell(losses[:RAGGED_STEPS])
+    print(f"ragged dataset (instance {second} without 10_degree): {steps} host-batched steps at batch "
+          f"{cfg.batch_size}, loss first {first:.5f} last {last:.5f} (fell {fell}); host ms a step "
+          f"{host_ms:.3f} (steps 3-{RAGGED_STEPS}, batches assembled by the prefetcher's thread), card busy "
+          f"{busy_ms:.3f} ms a step (torch.profiler over {n_prof} steps, {wall_ms:.3f} ms a step profiled): idle "
+          f"{100 * max(0.0, 1 - busy_ms / host_ms):.1f}%")
+    if steps != RAGGED_STEPS + n_prof or len(losses) != steps or not fell:
+        fail(f"ragged dataset: {steps} steps, {len(losses)} losses, loss fell {fell}")
+    stats = cli.main(["--config", cfg_path, "--run_eval", "--test_sweep_poses", "2"])
+    psnr = stats["psnr"]["test"]
+    files = sorted(os.listdir(os.path.join(cfg.output_path, cfg.exp_name, cfg.render_name)))
+    print(f"  --run_eval on 2 sweep poses: psnr {psnr:.3f}, psnr_obj {stats['psnr_obj']['test']:.3f}, "
+          f"{len(files)} render files")
+    if not np.isfinite(psnr) or not any(f.startswith("image") for f in files):
+        fail("ragged dataset: --run_eval gave no finite psnr or no images")
+    print(f"  phase ragged: {time.perf_counter() - t_phase:.1f} s")
+    return {"host_ms": host_ms, "busy_ms": busy_ms, "loss": [first, last]}
+
+
 def main() -> None:
+    t_run = time.perf_counter()
     phase_device()
     phase_build()
     from aonerf_torch.data.synthetic import FOVY_DEG, laptop_scene
@@ -3185,6 +3472,9 @@ def main() -> None:
         phase_articulated_bf16_rule(os.path.join(tmp, "multi"))
         presets = {name: phase_bf16_preset(tmp, name) for name in PRESETS}
         turns = phase_articulated_turns(tmp)
+        opt = phase_optimizers(tmp, t["root"])
+        phase_encode_reuse(tmp)
+        phase_ragged(tmp)
     ae_launches = [x + y for x, y in zip(ae["fused"], ae_test["fused"])]  # K1, K1s, K2 on phases 11-12
 
     lv = k["levels"]
@@ -3238,6 +3528,7 @@ def main() -> None:
         "k1_ms": both(flv, "k1_ms"),
         "levels": flv,
         "ae_launches": ae_launches[1],
+        "optimizer_launches": {k: v["k1s"] for k, v in opt.items() if "k1s" in v},
     }
     blv = b["levels"]
     k2 = {
@@ -3259,6 +3550,7 @@ def main() -> None:
         "library_ms": None,
         "levels": blv,
         "ae_launches": ae_launches[2],
+        "optimizer_launches": {k: v["k2"] for k, v in opt.items() if "k2" in v},
     }
     b2 = {
         # B2 in fp32 (3xTF32 mma.sync from a TMA ring of 32-row stages), one
@@ -3361,6 +3653,7 @@ def main() -> None:
           f"against {bt['steps_ms']['peak_gb']['fp32']:.3f} GB; K1s bf16 {entries[4]['ms']:.3f} ms + K2 bf16 {entries[5]['ms']:.3f} "
           f"ms a step (fp32 {entries[4]['fp32_ms']:.3f} + {entries[5]['fp32_ms']:.3f} ms)")
     entries.append(b2)
+    print(f"whole run: {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()

@@ -21,7 +21,8 @@ from aonerf_torch.data import synthetic
 from aonerf_torch.models.ae import AutoEncoderArticulatedNeRF
 from aonerf_torch.train import step as tstep
 from aonerf_torch.train import step_ae as tstep_ae
-from aonerf_torch.train.step import AdamState, TrainState
+from aonerf_torch.train.optim import OptState
+from aonerf_torch.train.step import TrainState
 from aonerf_torch.utils.bridge import module_flax_tree, module_state_dict_from_flax
 from tests.test_torch_articulated import QueueDraws, jax_render_draws
 from tests.test_torch_sapien_multi import jax_batch_draws
@@ -122,8 +123,8 @@ def _port_state_from_jax(jstate, state):
             state.params[n].copy_(v)
     mu, nu = (module_state_dict_from_flax(t) for t in (adam.mu, adam.nu))
     return TrainState(step=int(jstate.step), params=state.params,
-                      opt_state=AdamState(count=int(adam.count), mu=[mu[n] for n in state.params],
-                                          nu=[nu[n] for n in state.params]))
+                      opt_state=OptState(count=int(adam.count), slots={"mu": [mu[n] for n in state.params],
+                                                                       "nu": [nu[n] for n in state.params]}))
 
 
 def check_metrics(got, want, what):
@@ -209,10 +210,12 @@ def test_multi_step_equals_single_steps(setup):
 def test_ae_step_refuses_what_is_not_ported():
     model = port_model()
     tx = tstep.make_adam(**SCHEDULE)
-    # several views a step run; JAX's two ValueErrors guard them
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tstep_ae.make_ae_device_train_step(model, tx, True, 2.0, 6.0, img_wh=WH, encode_reuse=2)
-    for kwargs, match in (({"views_per_step": 3}, "divisible"),
+    # several views a step and one encode for several steps run; JAX's three
+    # ValueErrors guard them
+    assert callable(tstep_ae.make_ae_device_train_step(model, tx, True, 2.0, 6.0, img_wh=WH, encode_reuse=2,
+                                                       inner_steps=4))
+    for kwargs, match in (({"views_per_step": 3}, "divisible"), ({"encode_reuse": 2}, "multiple"),
+                          ({"encode_reuse": 4, "inner_steps": 6}, "multiple"),
                           ({"views_per_step": 2, "encode_reuse": 2}, "alternative")):
         with pytest.raises(ValueError, match=match):
             tstep_ae.make_ae_device_train_step(model, tx, True, 2.0, 6.0, img_wh=WH, **kwargs)

@@ -1,6 +1,8 @@
 """The port's auto-encoder Trainer on the CPU: a checkpoint round trip with
 the encoder, the state decoder and the degree embedding, the published
-config's model, and what the Trainer still refuses. Its ``validate`` and
+config's model, what the Trainer still refuses and the settings it now
+trains (one encode for several steps, the reference's optimizers, a dataset
+whose instances differ in articulation count). Its ``validate`` and
 ``test`` are held to the JAX Trainer's in tests/test_torch_ae_validate.py and
 tests/test_torch_ae_test.py."""
 
@@ -8,6 +10,7 @@ import json
 import os
 import shutil
 
+import numpy as np
 import pytest
 import torch
 
@@ -63,7 +66,8 @@ def test_checkpoint_round_trip_resumes_bit_for_bit(tmp_path):
     assert list(resumed.params) == list(unbroken.params)
     for a, b in zip(resumed.params.values(), unbroken.params.values()):
         assert torch.equal(a, b)
-    for a, b in zip(resumed.opt_state.mu + resumed.opt_state.nu, unbroken.opt_state.mu + unbroken.opt_state.nu):
+    for a, b in zip(resumed.opt_state.slots["mu"] + resumed.opt_state.slots["nu"],
+                    unbroken.opt_state.slots["mu"] + unbroken.opt_state.slots["nu"]):
         assert torch.equal(a, b)
 
 
@@ -91,29 +95,55 @@ def test_trainer_builds_the_published_ae_config(tmp_path):
         trainer.close()
 
 
+# what each case does now: refused as not ported (NotImplementedError), refused
+# as JAX refuses it (ValueError), or trained
+EXPECTED = {"ae_views_per_step": ValueError, "ae_encode_reuse": "trains", "compute_dtype": NotImplementedError,
+            "noise_std": NotImplementedError, "optimizer": "trains", "lr_scheduler": "trains",
+            "dataset_name": NotImplementedError}
+
+
 @pytest.mark.parametrize("overrides", [
-    # several views a step and bf16 run: still refused, one encode for several
-    # steps beside them and a dtype the port does not run
+    # several views a step and one encode for several steps are alternatives
+    # (JAX's ValueError); one encode for 4 steps, the reference's optimizers
+    # and schedules train; a dtype the port does not run is refused
     {"ae_views_per_step": 2, "ae_encode_reuse": 2}, {"ae_encode_reuse": 4}, {"compute_dtype": "fp16"},
     {"noise_std": 1.0},
     {"optimizer": "ranger"}, {"lr_scheduler": "cosine"}, {"dataset_name": "sapien"},
 ], ids=lambda o: next(iter(o)))
-def test_trainer_refuses_what_the_ae_does_not_run(overrides):
-    with pytest.raises(NotImplementedError):
-        Trainer(config.load_config(None, {"exp_type": "vanilla_ae_art", "dataset_name": "sapien_multi",
-                                          "platform": "cpu", **overrides}))
+def test_trainer_refuses_what_the_ae_does_not_run(overrides, tmp_path):
+    expected = EXPECTED[next(iter(overrides))]
+    if expected is NotImplementedError:
+        with pytest.raises(NotImplementedError):
+            Trainer(config.load_config(None, {"exp_type": "vanilla_ae_art", "dataset_name": "sapien_multi",
+                                              "platform": "cpu", **overrides}))
+        return
+    cfg = settings(scene(tmp_path / "scene", val=False), tmp_path / "out", "run", inner_steps=4,
+                   val_every_steps=100, **overrides)
+    if expected is ValueError:
+        with pytest.raises(ValueError, match="alternative"):
+            Trainer(config.load_config(None, cfg))
+        return
+    state, last = _fit(cfg, 4)
+    assert state.step == state.opt_state.count == 4 and np.isfinite(last["loss"]), last
+    if "optimizer" in overrides:  # Ranger keeps the slow weights
+        assert set(state.opt_state.slots) == {"mu", "nu", "slow"}
 
 
 def test_non_rectangular_dataset_is_refused(tmp_path):
-    # instance 1 lacks the 20-degree articulation: JAX falls back to its
-    # host-batched step; the port refuses rather than run another step
+    # instance 1 lacks the 20-degree articulation: device_buffers refuses it,
+    # and fit trains on batches assembled on the host (one step a call),
+    # validates, checkpoints and closes its prefetcher
     root = scene(tmp_path / "scene", val=False)
     second = sorted(os.listdir(root))[1]
     shutil.rmtree(os.path.join(root, second, "train", "20_degree"))
     trainer = Trainer(config.load_config(None, settings(root, tmp_path / "out", "ragged")))
     try:
-        with pytest.raises(NotImplementedError, match="host-batched"):
-            trainer.fit(max_steps=2)
+        with pytest.raises(ValueError, match="uniform"):
+            trainer.train_buffers()
+        last = trainer.fit(max_steps=3)
+        assert trainer.state.step == trainer.state.opt_state.count == 3 and trainer._prefetcher is None
+        assert np.isfinite(last["loss"]) and np.isfinite(last["val_psnr"]) and "val_state_error_rad" in last
+        assert CheckpointManager(str(tmp_path / "out" / "ragged" / "ckpts")).steps() == [2, 3]
     finally:
         trainer.close()
 

@@ -21,7 +21,8 @@ from aonerf_torch.data import synthetic
 from aonerf_torch.models.articulated import ArticulatedNeRF
 from aonerf_torch.models.codes import CodeLibraryArticulated
 from aonerf_torch.train import step as tstep
-from aonerf_torch.train.step import AdamState, TrainState
+from aonerf_torch.train.optim import OptState
+from aonerf_torch.train.step import TrainState
 from aonerf_torch.utils.bridge import (
     articulated_flax_tree,
     articulated_state_dict_from_flax,
@@ -116,7 +117,7 @@ def _port_state_from_jax(jstate, state):
             p.copy_(torch.from_numpy(np.array(_flax_leaf(jstate.params, n))))
     moments = [[torch.from_numpy(np.array(_flax_leaf(tree, n))) for n in names] for tree in (adam.mu, adam.nu)]
     return TrainState(step=int(jstate.step), params=state.params,
-                      opt_state=AdamState(count=int(adam.count), mu=moments[0], nu=moments[1]))
+                      opt_state=OptState(count=int(adam.count), slots={"mu": moments[0], "nu": moments[1]}))
 
 
 def _port(params, bufs):

@@ -18,7 +18,7 @@ from aonerf.utils import config as jconfig
 from aonerf_torch.cli import train as cli
 from aonerf_torch.data import synthetic
 from aonerf_torch.data.sapien_multi import DEFAULT_VAL_DEGREES
-from aonerf_torch.train.loop import Trainer
+from aonerf_torch.train.loop import Trainer, _check_supported
 from aonerf_torch.utils import config
 from aonerf_torch.utils.bridge import articulated_state_dict_from_flax, codes_state_dict_from_flax
 from aonerf_torch.utils.ckpt import CheckpointManager
@@ -164,7 +164,8 @@ def test_checkpoint_round_trip_resumes_bit_for_bit(tmp_path):
     assert list(resumed.params) == list(unbroken.params)
     for a, b in zip(resumed.params.values(), unbroken.params.values()):
         assert torch.equal(a, b)
-    for a, b in zip(resumed.opt_state.mu + resumed.opt_state.nu, unbroken.opt_state.mu + unbroken.opt_state.nu):
+    for a, b in zip(resumed.opt_state.slots["mu"] + resumed.opt_state.slots["nu"],
+                    unbroken.opt_state.slots["mu"] + unbroken.opt_state.slots["nu"]):
         assert torch.equal(a, b)
 
 
@@ -206,11 +207,15 @@ def test_trainer_builds_the_published_autodecoder_config(tmp_path):
 
 def test_trainer_refuses_what_the_autodecoder_does_not_run(tmp_path):
     base = {"exp_type": "vanilla_autodecoder", "dataset_name": "sapien_multi", "platform": "cpu"}
-    for overrides in ({"exp_type": "vanilla_ae_art", "ae_encode_reuse": 2}, {"dataset_name": "sapien"},
+    for overrides in ({"dataset_name": "sapien"},
                       {"compute_dtype": "fp16"},  # bf16 runs
-                      {"noise_std": 1.0}, {"latent_lr": 1e-3}, {"is_optimize": True}):
+                      {"noise_std": 1.0}, {"is_optimize": True}):
         with pytest.raises(NotImplementedError):
             Trainer(config.load_config(None, {**base, **overrides}))
+    # the codes' own AdamW (latent_lr) and one encode for several auto-encoder
+    # steps run: tests/test_torch_optim.py, tests/test_torch_ae_reuse.py
+    for overrides in ({"exp_type": "vanilla_ae_art", "ae_encode_reuse": 2}, {"latent_lr": 1e-3}):
+        _check_supported(config.load_config(None, {**base, **overrides}))
     root = synthetic.write_single_scene(str(tmp_path / "single"), img_wh=WH, n_train=1, n_val=1, n_test=0)
     vanilla = Trainer(config.load_config(None, {"root_dir": root, "output_path": str(tmp_path / "out"),
                                                 "img_wh": list(WH), "platform": "cpu"}))

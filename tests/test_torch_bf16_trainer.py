@@ -49,7 +49,7 @@ def test_fast_preset_trains_validates_and_checkpoints_fp32(tmp_path):
             for n, p in trainer.state.params.items():
                 assert p.dtype == torch.float32 and torch.equal(p, saved["params"][n]), n
             assert all(torch.equal(m, saved["opt_state"]["mu"][n])
-                       for m, n in zip(trainer.state.opt_state.mu, trainer.state.params))
+                       for m, n in zip(trainer.state.opt_state.slots["mu"], trainer.state.params))
         finally:
             trainer.close()
 

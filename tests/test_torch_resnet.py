@@ -164,7 +164,8 @@ def test_torchvision_loader_matches_jax(norm_type):
 
 
 def test_encoder_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="spatials"):
-        MultiHeadImgEncoder(spatials=("color",), device="cpu")
+    # the pixel-aligned heads build (held to flax in tests/test_torch_resnet_spatials.py)
+    enc = MultiHeadImgEncoder(spatials=("color",), device="cpu")
+    assert enc.color_pix.weight.shape == (128, 64 + 64 + 128 + 256 + 512, 1, 1) and not hasattr(enc, "color_fc")
     with pytest.raises(ValueError, match="batch"):
         MultiHeadImgEncoder(norm_type="batch", device="cpu")

@@ -95,7 +95,7 @@ def test_trainer_loads_a_checkpoint_from_another_run(tmp_path, source):
         first.state, _ = first.step_fn(first.state, first.train_buffers(), 0)
         first.ckpt.save(first.state.step, first._state_dict())
         saved = {n: p.detach().clone() for n, p in first.state.params.items()}
-        saved_mu = [m.clone() for m in first.state.opt_state.mu]
+        saved_mu = [m.clone() for m in first.state.opt_state.slots["mu"]]
     finally:
         first.close()
     second = Trainer(config.load_config(None, {**base, "exp_name": "second",
@@ -106,20 +106,22 @@ def test_trainer_loads_a_checkpoint_from_another_run(tmp_path, source):
         opt = second.state.opt_state
         if source == "ckpt_path":
             assert second.state.step == opt.count == 2
-            assert all(torch.equal(a, b) for a, b in zip(opt.mu, saved_mu))
+            assert all(torch.equal(a, b) for a, b in zip(opt.slots["mu"], saved_mu))
         else:
             assert second.state.step == opt.count == 0
-            assert all(not m.any() for m in opt.mu)
+            assert all(not m.any() for m in opt.slots["mu"])
     finally:
         second.close()
 
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
     for overrides in ({"exp_type": "vanilla_ae_art"}, {"noise_std": 1.0},
-                      {"compute_dtype": "fp16"}, {"optimizer": "ranger"}, {"netwidth": 128},
+                      {"compute_dtype": "fp16"}, {"netwidth": 128},
                       {"profile_steps": 5}, {"debug_nans": True}, {"is_optimize": True}, {"n_model_shards": 2}):
         with pytest.raises(NotImplementedError):
             Trainer(config.load_config(None, {"platform": "cpu", **overrides}))
+    # the reference's optimizers and schedules run (tests/test_torch_optim.py)
+    _check_supported(config.load_config(None, {"platform": "cpu", "optimizer": "ranger", "lr_scheduler": "poly"}))
     if not torch.cuda.is_available():  # entry points default to the card
         with pytest.raises(RuntimeError, match="CUDA"):
             Trainer(config.load_config(None, {"root_dir": str(tmp_path)}))
@@ -145,9 +147,16 @@ def test_jax_only_fields_at_their_defaults_are_accepted(settings):
 
 
 def test_jax_only_fields_by_alias_are_refused():
-    cfg = config.load_config(None, {"momentum": 0.5, "decay_step": [10, 20]})
-    assert config.jax_only_settings(cfg) == {"momentum": 0.5, "decay_step": [10, 20]}
-    with pytest.raises(NotImplementedError, match="momentum=0.5"):
+    # the optimizer's settings are Config fields now, read as JAX reads them
+    settings = {"momentum": 0.5, "decay_step": [10, 20]}
+    cfg, want = config.load_config(None, settings), jconfig.load_config(None, settings)
+    assert (cfg.momentum, cfg.decay_step) == (want.momentum, want.decay_step) == (0.5, (10, 20))
+    assert config.jax_only_settings(cfg) == {} and cfg.extras == {}
+    _check_supported(cfg)
+    # a field the port still lacks is refused by name
+    cfg = config.load_config(None, {**settings, "profile_steps": 3})
+    assert config.jax_only_settings(cfg) == {"profile_steps": 3}
+    with pytest.raises(NotImplementedError, match="profile_steps=3"):
         _check_supported(cfg)
 
 
