@@ -1,13 +1,13 @@
-"""Image quality metrics: PSNR, object-masked PSNR, SSIM, the reference's
-legacy variants and split summaries (counterpart of
-``aonerf.eval.metrics``; LPIPS is not ported yet).
+"""Image quality metrics: PSNR, object-masked PSNR, SSIM, LPIPS from an
+exported weights file (``eval.lpips``), the reference's legacy variants and
+split summaries (counterpart of ``aonerf.eval.metrics``).
 
 SSIM: Wang et al. with an 11x11 Gaussian window (sigma 1.5), k1=0.01,
 k2=0.03 on [0,1] images.
 """
 
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -72,6 +72,22 @@ def ssim_image(
         (mu_x2 + mu_y2 + c1) * (sigma_x + sigma_y + c2)
     )
     return torch.mean(ssim_map)
+
+
+def lpips_image(
+    pred: torch.Tensor,
+    target: torch.Tensor,
+    weights: Union[str, Dict[str, torch.Tensor], None] = None,
+) -> float:
+    """LPIPS of one (H, W, 3) pair; NaN without weights. ``weights`` is the
+    exported ``.npz`` path (read for this one call, as JAX's) or what
+    ``eval.lpips.load_weights`` returned, which a caller scoring many
+    images loads once."""
+    if weights is None:
+        return float("nan")
+    from aonerf_torch.eval.lpips import lpips_from_npz
+
+    return float(lpips_from_npz(weights, pred, target))
 
 
 def mse_legacy(

@@ -88,14 +88,12 @@ def latent_linear(
     return y
 
 
-def _check_compute(compute_dtype, fused_head: bool = False, noise_std: float = 0.0) -> None:
+def _check_compute(compute_dtype, fused_head: bool = False) -> None:
     todo = []
     if compute_dtype not in COMPUTE_DTYPES.values():
         todo.append(f"compute_dtype={compute_dtype} (fp32 and bf16 run)")
     if fused_head:
         todo.append("fused_head (mlp.fused_density_bottleneck)")
-    if noise_std > 0:
-        todo.append("noise_std")
     if todo:
         raise NotImplementedError("not ported yet: " + ", ".join(todo))
 
@@ -315,13 +313,14 @@ class ArticulatedNeRF(nn.Module):
         ``tail_to_background`` moves the last sample's weight from its color
         to the background's and out of acc."""
         super().__init__()
-        _check_compute(compute_dtype, noise_std=noise_std)
+        _check_compute(compute_dtype)
         if sigma_activation not in ("softplus", "relu"):
             raise ValueError(f"sigma_activation {sigma_activation!r}: expected 'softplus' or 'relu'")
         device = default_device(device)
         self.num_coarse_samples, self.num_fine_samples = num_coarse_samples, num_fine_samples
         self.min_deg_point, self.max_deg_point, self.deg_view = min_deg_point, max_deg_point, deg_view
         self.lindisp, self.rgb_padding, self.density_bias = lindisp, rgb_padding, density_bias
+        self.noise_std = noise_std
         self.sigma_activation, self.sigma_cap = sigma_activation, sigma_cap
         self.tail_to_background, self.enc_after = tail_to_background, enc_after
         self.compute_dtype = compute_dtype
@@ -346,7 +345,9 @@ class ArticulatedNeRF(nn.Module):
         """rays: 'rays_o', 'rays_d', 'viewdirs' (B, 3); latents as
         ``ArticulatedNeRFMLP.forward`` takes them. ``draws``
         (``ops.random.Draws``) gives the coarse jitter and then the fine
-        exponential draws when ``randomized``.
+        exponential draws when ``randomized``, and with ``noise_std`` > 0
+        each level's sigma noise after its samples: ``uniform * noise_std``
+        added to the (fp32) raw sigma before the activation, as JAX's field.
 
         Returns [(comp_rgb, acc, depth)] per level, coarse first.
         """
@@ -371,6 +372,8 @@ class ArticulatedNeRF(nn.Module):
             if not self.enc_after:
                 samples = pos_enc(samples, self.min_deg_point, self.max_deg_point)
             raw_rgb, raw_sigma = mlp(samples, viewdirs_enc, latents)
+            if randomized and self.noise_std > 0:
+                raw_sigma = raw_sigma + draws.noise(raw_sigma.shape) * self.noise_std
 
             rgb = torch.sigmoid(raw_rgb) * (1.0 + 2.0 * self.rgb_padding) - self.rgb_padding
             if self.sigma_activation == "softplus":

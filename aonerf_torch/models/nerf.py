@@ -9,8 +9,10 @@ CUDA kernels on the card, their plain versions on the CPU, in fp32 or, with
 ``compute_dtype=torch.bfloat16``, in the kernels' bf16 mode (``dot_bf16``);
 the parameters stay fp32 either way. Randomized
 rendering (jittered coarse t-values, sorted-uniform fine samples) takes its
-numbers from an explicit ``draws`` object (``ops.random``); ``noise_std`` is
-not ported.
+numbers from an explicit ``draws`` object (``ops.random``). With
+``noise_std`` > 0, randomized rendering adds ``uniform * noise_std`` to each
+sample's raw sigma before the ReLU, as JAX's NeRF does; the training forward
+K1s adds it in the kernel (``fused_train``).
 """
 
 from typing import Dict, List, Optional, Tuple
@@ -35,12 +37,14 @@ class NeRF(nn.Module):
         generator: Optional[torch.Generator] = None,
         device: DeviceLike = None,
         compute_dtype: torch.dtype = torch.float32,
+        noise_std: float = 0.0,
     ):
         super().__init__()
         device = default_device(device)
         self.num_coarse_samples = num_coarse_samples
         self.num_fine_samples = num_fine_samples
         self.lindisp = lindisp
+        self.noise_std = noise_std
         self.compute_dtype = compute_dtype
         self.coarse_mlp = NeRFMLP(generator=generator, device=device, compute_dtype=compute_dtype)
         self.fine_mlp = NeRFMLP(generator=generator, device=device, compute_dtype=compute_dtype)
@@ -61,14 +65,16 @@ class NeRF(nn.Module):
         when ``randomized``.
 
         Returns [(comp_rgb, acc, depth)] per level, coarse first. With grad
-        enabled each level is the differentiable ``fused_level`` (K1 forward,
-        K2 backward); without, ``fused_render_level`` alone.
+        enabled, or with sigma noise (randomized, ``noise_std`` > 0), each
+        level is the differentiable ``fused_level`` (K1s forward, K2
+        backward); otherwise ``fused_render_level`` (K1) alone.
         """
         if randomized and draws is None:
             raise ValueError("randomized rendering needs draws")
-        level = fused_level if torch.is_grad_enabled() else fused_render_level
+        noisy = randomized and self.noise_std > 0
+        level = fused_level if torch.is_grad_enabled() or noisy else fused_render_level
         return fused_nerf_forward(
             self.coarse_mlp, self.fine_mlp, rays, randomized, white_bkgd, near, far,
             self.num_coarse_samples, self.num_fine_samples, self.lindisp, draws, level=level,
-            dot_bf16=self.compute_dtype == torch.bfloat16,
+            dot_bf16=self.compute_dtype == torch.bfloat16, noise_std=self.noise_std,
         )

@@ -347,7 +347,11 @@ constexpr int kDwTiles = count_tiles();  // 72
 // ring's last two stages, the ring running on kSpillStages), then K1's
 // integrator forward (comp, acc, depth, weights, the same bits as K1's) and
 // each sample's raw sigma and rgb to `raw` (4 floats a sample) for the
-// integrator backward.
+// integrator backward. With `noise` (R x S fp32, row-major; null for none),
+// each sample's noise is added to its raw sigma in fp32 before anything reads
+// it (models/nerf.py's noise_std: raw sigma + uniform * noise_std, before the
+// ReLU): `raw` holds the noisy sigma, so the backward needs no change (the
+// noise is additive). Without it nothing is added and no barrier is taken.
 template <bool Bf16>
 __global__ void __launch_bounds__(kThreads, 1)
 level_fwd_spill_kernel(const float* __restrict__ t, const float* __restrict__ rays_d,
@@ -355,7 +359,8 @@ level_fwd_spill_kernel(const float* __restrict__ t, const float* __restrict__ ra
                        const __grid_constant__ WeightMaps maps, float* __restrict__ comp,
                        float* __restrict__ acc_out, float* __restrict__ depth, float* __restrict__ weights_out,
                        SpillElem<Bf16>* __restrict__ saved, float* __restrict__ raw,
-                       int S, int ray_tile, int white_bkgd, const __grid_constant__ SpillMap<Bf16> spill_map) {
+                       const float* __restrict__ noise, int S, int ray_tile, int white_bkgd,
+                       const __grid_constant__ SpillMap<Bf16> spill_map) {
   extern __shared__ __align__(16) float smem[];
   const ForwardSmem m = carve_forward_smem(smem, S, ray_tile);
   const int ray0 = blockIdx.x * ray_tile;
@@ -374,9 +379,17 @@ level_fwd_spill_kernel(const float* __restrict__ t, const float* __restrict__ ra
     }
   }
   // forward_chunk ended with a barrier: sig and rgb are complete
-  const float *sig = m.sig, *rgb = m.rgb;
-  for (int i = threadIdx.x; i < n_rows; i += kThreads)
-    *reinterpret_cast<float4*>(raw + (row_base + i) * 4) = make_float4(sig[i], rgb[3 * i], rgb[3 * i + 1], rgb[3 * i + 2]);
+  float* sig = m.sig;
+  const float* rgb = m.rgb;
+  for (int i = threadIdx.x; i < n_rows; i += kThreads) {
+    float s = sig[i];
+    if (noise != nullptr) {
+      s += noise[row_base + i];
+      sig[i] = s;
+    }
+    *reinterpret_cast<float4*>(raw + (row_base + i) * 4) = make_float4(s, rgb[3 * i], rgb[3 * i + 1], rgb[3 * i + 2]);
+  }
+  if (noise != nullptr) __syncthreads();  // the same for every thread; integrate_rays reads other threads' rows
   integrate_rays<Bf16>(t, rays_d, sig, rgb, ray0, ray_tile, S, white_bkgd, comp, acc_out, depth, weights_out);
   if (threadIdx.x == 0) bulk_wait_all();  // the last chunk's spill has landed
 }
@@ -1342,7 +1355,8 @@ bool bad_shape(int n_rays, int S, int ray_tile) {
 // `saved` holds fp32 values, or bf16 ones with dot_bf16.
 int launch_fwd_spill(const float* t, const float* rays_d, const float* venc, const float* xenc, const Weights& w,
                      const void* wt, float* comp, float* acc, float* depth, float* weights, void* saved, float* raw,
-                     int n_rays, int S, int ray_tile, int white_bkgd, int dot_bf16, cudaStream_t s) {
+                     const float* noise, int n_rays, int S, int ray_tile, int white_bkgd, int dot_bf16,
+                     cudaStream_t s) {
   const size_t smem = forward_smem_bytes(S, ray_tile);
   const void* kernel = dot_bf16 ? (const void*)level_fwd_spill_kernel<true> : (const void*)level_fwd_spill_kernel<false>;
   cudaError_t err = set_smem(kernel, smem);
@@ -1354,12 +1368,12 @@ int launch_fwd_spill(const float* t, const float* rays_d, const float* venc, con
     SpillMap<true> spill_map;
     if (int map_err = encode_spill_map(spill_map, saved, ray_tile * S, n_blocks)) return map_err;
     level_fwd_spill_kernel<true><<<n_blocks, kThreads, smem, s>>>(t, rays_d, venc, xenc, w, maps, comp, acc, depth,
-                                                                  weights, static_cast<uint16_t*>(saved), raw, S,
-                                                                  ray_tile, white_bkgd, spill_map);
+                                                                  weights, static_cast<uint16_t*>(saved), raw, noise,
+                                                                  S, ray_tile, white_bkgd, spill_map);
   } else {
     level_fwd_spill_kernel<false><<<n_blocks, kThreads, smem, s>>>(t, rays_d, venc, xenc, w, maps, comp, acc, depth,
-                                                                   weights, static_cast<float*>(saved), raw, S,
-                                                                   ray_tile, white_bkgd, SpillMap<false>{});
+                                                                   weights, static_cast<float*>(saved), raw, noise,
+                                                                   S, ray_tile, white_bkgd, SpillMap<false>{});
   }
   return cudaGetLastError();
 }
@@ -1478,17 +1492,18 @@ int aonerf_fused_level_b1_bf16_bytes() {
 // aonerf_fused_render_level; its outputs comp (R,3), acc (R), depth (R),
 // weights (R,S); and what the backward reads, `saved` (R*S*kSpill, the
 // activations: fp32, bf16 in bf16 mode) and `raw` (R*S*4: raw sigma, raw
-// rgb). With dot_bf16 != 0, the bf16 mode, on narrow heads (wd, wr, wvb)
-// already rounded to bf16.
+// rgb). `noise` (R*S fp32) is added to raw sigma before the integrator and
+// `raw` read it; null adds none. With dot_bf16 != 0, the bf16 mode, on
+// narrow heads (wd, wr, wvb) already rounded to bf16.
 // n_rays % ray_tile == 0. Returns the launch's error (0 on success), or
 // kMapError + the driver's CUresult if a tensor map was refused.
 int aonerf_fused_level_fwd_spill(const float* t, const float* rays_d, const float* venc, const float* xenc,
                                  AONERF_WEIGHT_PARAMS, const void* wt, float* comp, float* acc, float* depth,
-                                 float* weights, void* saved, float* raw, int n_rays, int S, int ray_tile,
-                                 int white_bkgd, int dot_bf16, void* stream) {
+                                 float* weights, void* saved, float* raw, const float* noise, int n_rays, int S,
+                                 int ray_tile, int white_bkgd, int dot_bf16, void* stream) {
   if (bad_shape(n_rays, S, ray_tile)) return cudaErrorInvalidValue;
-  return launch_fwd_spill(t, rays_d, venc, xenc, AONERF_WEIGHTS, wt, comp, acc, depth, weights, saved, raw, n_rays, S,
-                          ray_tile, white_bkgd, dot_bf16, static_cast<cudaStream_t>(stream));
+  return launch_fwd_spill(t, rays_d, venc, xenc, AONERF_WEIGHTS, wt, comp, acc, depth, weights, saved, raw, noise,
+                          n_rays, S, ray_tile, white_bkgd, dot_bf16, static_cast<cudaStream_t>(stream));
 }
 
 // The level's weight gradient from what K1s saved, on `stream`: the
@@ -1535,8 +1550,8 @@ int aonerf_fused_level_bwd(const float* t, const float* rays_d, const float* ven
   float* depth = acc + n_rays;
   const Weights w = AONERF_WEIGHTS;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (int err = launch_fwd_spill(t, rays_d, venc, xenc, w, wt, comp, acc, depth, weights, saved, raw, n_rays, S,
-                                 ray_tile, white_bkgd, dot_bf16, s))
+  if (int err = launch_fwd_spill(t, rays_d, venc, xenc, w, wt, comp, acc, depth, weights, saved, raw, nullptr,
+                                 n_rays, S, ray_tile, white_bkgd, dot_bf16, s))
     return err;
   return launch_bwd_saved(t, rays_d, venc, xenc, w, b1_pack, g_comp, g_acc, g_depth, g_weights, saved, raw, grow,
                           delta, partials, narrow, out, n_rays, S, ray_tile, white_bkgd, dot_bf16, s);

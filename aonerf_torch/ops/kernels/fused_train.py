@@ -13,6 +13,12 @@ outputs (the same bits) and saves every sample's activations (``saved``,
 SAVED_FLOATS a sample) and raw sigma and rgb (``raw``, 4 a sample); the
 backward reads them. K1 (``fused_render``) serves and validates.
 
+``noise`` (R, S), where given, is added to each sample's raw sigma before the
+ReLU (``models.nerf``'s ``noise_std``: the draws times noise_std); ``raw``
+holds the noisy sigma, so the backward, which takes sigma and its ReLU mask
+from ``raw``, is that of the noisy level unchanged. K1 takes no noise:
+serving and validation render deterministically.
+
 ``dot_bf16`` is the TPU kernels' mode of that name (see ``fused_render``):
 the forward's products and its transmittance sum take bf16-rounded operands,
 and the saved activations are the rounded ones, which the TPU backward keeps
@@ -113,17 +119,20 @@ def fused_level_fwd_spill_ref(
     white_bkgd: bool,
     mm: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] = torch.matmul,
     dot_bf16: bool = False,
+    noise: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """Plain PyTorch version of K1s. Same arguments and outputs as
     :func:`fused_level_fwd_spill`, on any device: those of
     ``fused_render_level_ref``, then ``saved`` (R*S, SAVED_FLOATS; in bf16
     mode ``torch.bfloat16``, the rounded activations exactly, whatever the
     inputs' dtype) and ``raw`` (R*S, 4) in the kernel's layout; ``mm`` as in
-    ``level_activations_ref``."""
+    ``level_activations_ref``; ``noise`` (R, S) added to raw sigma."""
     R, S = t_vals.shape
     acts, raw_sigma, raw_rgb = level_activations_ref(
         kernel_params, viewdirs_enc, samples_enc.reshape(R * S, -1), S, mm=mm, dot_bf16=dot_bf16
     )
+    if noise is not None:
+        raw_sigma = raw_sigma + noise.reshape(R * S, 1)
     saved = torch.cat(acts, -1)
     if dot_bf16:
         saved = saved.to(torch.bfloat16)
@@ -299,7 +308,7 @@ def _library():
         n_w = len(WEIGHT_NAMES)
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         for name, n_ptr in (
-            ("aonerf_fused_level_fwd_spill", 4 + n_w + 1 + 6),
+            ("aonerf_fused_level_fwd_spill", 4 + n_w + 1 + 7),
             ("aonerf_fused_level_bwd_saved", 4 + n_w + 1 + 4 + 2 + 5),
             ("aonerf_fused_level_bwd", 4 + n_w + 2 + 4 + 6),
         ):
@@ -417,13 +426,16 @@ def fused_level_fwd_spill(
     white_bkgd: bool,
     ray_tile: Optional[int] = None,
     dot_bf16: bool = False,
+    noise: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """The level's training forward (K1s): :func:`fused_render_level`'s
     outputs (comp (R,3), acc (R,), depth (R,), weights (R,S), the same bits as
     K1's on the card), then what the backward reads: ``saved`` (R*S,
     SAVED_FLOATS), every sample's activations h0..h7, bottleneck and view
     hidden layer (with ``dot_bf16`` rounded to bf16, as ``torch.bfloat16``),
-    and ``raw`` (R*S, 4), its raw sigma and rgb.
+    and ``raw`` (R*S, 4), its raw sigma and rgb. ``noise`` (R, S) fp32, where
+    given, is added to raw sigma in fp32 before the integrator and ``raw``
+    see it (the outputs are then no longer K1's).
 
     On CUDA tensors this builds :func:`kernel_weights_t` and launches K1s,
     one block per ``ray_tile`` rays (None: the tile ``choose_ray_tile``
@@ -435,11 +447,14 @@ def fused_level_fwd_spill(
     R, S = t_vals.shape
     if _device_of("fused_level_fwd_spill", t_vals, R, ray_tile) == "cpu":
         return fused_level_fwd_spill_ref(
-            kernel_params, t_vals, rays_o, rays_d, viewdirs_enc, samples_enc, white_bkgd, dot_bf16=dot_bf16
+            kernel_params, t_vals, rays_o, rays_d, viewdirs_enc, samples_enc, white_bkgd, dot_bf16=dot_bf16,
+            noise=noise,
         )
     dev = t_vals.device
     xenc = samples_enc.reshape(R * S, samples_enc.shape[-1])
     _check_inputs(kernel_params, t_vals, rays_d, viewdirs_enc, xenc, R, S)
+    if noise is not None:
+        _check("noise", noise, (R, S), dev)
     lib = _library()
     ray_tile = launch_ray_tile(R, S, ray_tile, dev, lib.aonerf_fused_level_fwd_smem_bytes)
     kernel_params, wt = fwd_operands(kernel_params, dot_bf16)
@@ -453,7 +468,7 @@ def fused_level_fwd_spill(
         t_vals.data_ptr(), rays_d.data_ptr(), viewdirs_enc.data_ptr(), xenc.data_ptr(),
         *[kernel_params[n].data_ptr() for n in WEIGHT_NAMES], wt.data_ptr(),
         comp.data_ptr(), acc.data_ptr(), depth.data_ptr(), weights.data_ptr(), saved.data_ptr(), raw.data_ptr(),
-        R, S, ray_tile, int(white_bkgd), int(dot_bf16),
+        None if noise is None else noise.data_ptr(), R, S, ray_tile, int(white_bkgd), int(dot_bf16),
     )
     fwd_tiles[(R, S, dot_bf16)] = ray_tile
     if dot_bf16:
@@ -608,13 +623,15 @@ class FusedLevel(torch.autograd.Function):
     (its outputs do not depend on it); K2 at ``ray_tile``, which sets the
     order of B1's per-block head sums and so its bits: None is 16 rays a
     block in fp32 and, in bf16 mode, the tile chosen per launch
-    (:func:`fused_level_bwd_saved`)."""
+    (:func:`fused_level_bwd_saved`). ``noise`` (or None) goes to K1s; K2
+    reads the noisy raw sigma K1s saved."""
 
     @staticmethod
-    def forward(ctx, t_vals, rays_o, rays_d, viewdirs_enc, samples_enc, white_bkgd, ray_tile, dot_bf16, *weights):
+    def forward(ctx, t_vals, rays_o, rays_d, viewdirs_enc, samples_enc, white_bkgd, ray_tile, dot_bf16, noise,
+                *weights):
         kp = dict(zip(WEIGHT_NAMES, weights))
         *out, saved, raw = fused_level_fwd_spill(
-            kp, t_vals, rays_o, rays_d, viewdirs_enc, samples_enc, white_bkgd, dot_bf16=dot_bf16
+            kp, t_vals, rays_o, rays_d, viewdirs_enc, samples_enc, white_bkgd, dot_bf16=dot_bf16, noise=noise
         )
         ctx.save_for_backward(t_vals, rays_o, rays_d, viewdirs_enc, samples_enc, *weights)
         # neither inputs nor outputs: kept as attributes, dropped by backward
@@ -632,7 +649,7 @@ class FusedLevel(torch.autograd.Function):
             ctx.white_bkgd, ctx.ray_tile, ctx.dot_bf16,
         )
         ctx.saved_acts = ctx.raw = None  # the fine level's saved is 3.85 GB at batch 2048 (1.92 in bf16)
-        return (None,) * 8 + tuple(grads[n] for n in WEIGHT_NAMES)
+        return (None,) * 9 + tuple(grads[n] for n in WEIGHT_NAMES)
 
 
 def fused_level(
@@ -645,13 +662,15 @@ def fused_level(
     white_bkgd: bool,
     ray_tile: Optional[int] = None,
     dot_bf16: bool = False,
+    noise: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """:func:`fused_render_level` with gradients to ``kernel_params``;
     ``ray_tile`` is the backward's (K2's) tile: None is RAY_TILE (16) in fp32,
     so the batch must be a multiple of it, and in bf16 mode the tile chosen
-    per launch, so any batch."""
+    per launch, so any batch. ``noise`` (R, S), where given, is added to raw
+    sigma (:func:`fused_level_fwd_spill`)."""
     return FusedLevel.apply(
-        t_vals, rays_o, rays_d, viewdirs_enc, samples_enc, white_bkgd, ray_tile, dot_bf16,
+        t_vals, rays_o, rays_d, viewdirs_enc, samples_enc, white_bkgd, ray_tile, dot_bf16, noise,
         *[kernel_params[n] for n in WEIGHT_NAMES],
     )
 
@@ -670,6 +689,7 @@ def fused_nerf_forward(
     draws=None,
     level: Callable = fused_level,
     dot_bf16: bool = False,
+    noise_std: float = 0.0,
 ) -> List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
     """The two-level hierarchical forward with each level in ``level``, in
     the kernels' bf16 mode with ``dot_bf16``.
@@ -677,9 +697,12 @@ def fused_nerf_forward(
     rays: 'rays_o', 'rays_d' (unit), 'viewdirs' (B, 3), B a multiple of
     ``RAY_TILE`` where ``level`` runs K2 (the default) in fp32. ``draws`` (see
     ``ops.random``) gives the coarse jitter and then the fine exponential
-    draws when ``randomized``. Returns [(comp_rgb, acc, depth)] per level,
-    coarse first.
+    draws when ``randomized``; with ``noise_std`` > 0 also each level's sigma
+    noise after its samples (``draws.noise``, times noise_std), which
+    ``level`` then takes as ``noise``. Returns [(comp_rgb, acc, depth)] per
+    level, coarse first.
     """
+    noisy = randomized and noise_std > 0
     o, d = rays["rays_o"], rays["rays_d"]
     viewdirs_enc = encoding.pos_enc(rays["viewdirs"], 0, coarse_mlp.deg_view)
     ret = []
@@ -696,8 +719,9 @@ def fused_nerf_forward(
             )
         t_vals = t_vals.contiguous()
         samples_enc = encoding.pos_enc(samples, mlp.min_deg_point, mlp.max_deg_point)
+        extra = {"noise": draws.noise(t_vals.shape) * noise_std} if noisy else {}
         comp_rgb, acc, depth, weights = level(
-            kernel_params(mlp), t_vals, o, d, viewdirs_enc, samples_enc, white_bkgd, dot_bf16=dot_bf16
+            kernel_params(mlp), t_vals, o, d, viewdirs_enc, samples_enc, white_bkgd, dot_bf16=dot_bf16, **extra
         )
         ret.append((comp_rgb, acc, depth))
     return ret

@@ -5,9 +5,11 @@ port derives it from (seed, step) by seeding a ``torch.Generator`` on the
 run's device, so a resumed run draws what an unbroken run would. Every
 randomized function of the port takes its numbers from a ``Draws`` object, in
 the order the step asks for them: the batch indices, the coarse jitter, the
-fine exponential draws (and, for fresh latent codes, normal draws). A test
-can pass any object with the same methods, for example one that returns
-numbers drawn with JAX.
+fine exponential draws (and, for fresh latent codes, normal draws). With
+``noise_std`` > 0 a model also asks for each level's sigma noise
+(``noise``) after that level's samples; without it the sequence is what it
+was. A test can pass any object with the same methods, for example one that
+returns numbers drawn with JAX.
 """
 
 import torch
@@ -39,6 +41,11 @@ class Draws:
     def uniform(self, shape) -> torch.Tensor:
         """float32 in [0, 1)."""
         return torch.rand(tuple(shape), generator=self.generator, device=self.device)
+
+    def noise(self, shape) -> torch.Tensor:
+        """float32 in [0, 1): a level's sigma noise, before the model
+        scales it by noise_std (a uniform draw, as JAX's)."""
+        return self.uniform(shape)
 
     def exponential(self, shape) -> torch.Tensor:
         """float32 Exp(1)."""

@@ -41,6 +41,15 @@ cosine or poly and the warmup; the auto-decoder's codes by their own AdamW
 with ``latent_lr``). A checkpoint holds the step, the parameters and the
 optimizer's count and per-parameter slots by parameter name.
 
+The reference's launcher variants: ``is_optimize`` and ``finetune_lpips``
+checkpoint every ``steps_per_epoch`` steps, and ``is_optimize`` keeps every
+checkpoint. ``noise_std`` reaches every model (randomized renders only).
+``debug_nans`` raises ``FloatingPointError`` at the first step whose level
+outputs, gradients or loss hold a NaN (it syncs the host a step; off, it
+costs nothing). ``profile_steps`` writes a ``torch.profiler`` trace of that
+many steps under ``run_dir/profile`` (``utils.profile.device_op_table``
+reads it).
+
 With ``run_eval`` the Trainer loads the test split instead of train and val.
 """
 
@@ -55,8 +64,8 @@ from aonerf_torch import default_device
 from aonerf_torch.data.prefetch import Prefetcher
 from aonerf_torch.data.sapien import SapienDataset
 from aonerf_torch.data.sapien_multi import SapienMultiDataset
-from aonerf_torch.eval import io
-from aonerf_torch.eval.metrics import masked_psnr, psnr_image, ssim_image, summarize_metric
+from aonerf_torch.eval import io, lpips
+from aonerf_torch.eval.metrics import lpips_image, masked_psnr, psnr_image, ssim_image, summarize_metric
 from aonerf_torch.eval.render import make_image_renderer
 from aonerf_torch.models.ae import AutoEncoderArticulatedNeRF
 from aonerf_torch.models.articulated import ArticulatedNeRF
@@ -81,14 +90,13 @@ DATASETS = {"vanilla": "sapien", "vanilla_autodecoder": "sapien_multi", "vanilla
 
 
 def _check_supported(cfg: Config) -> None:
-    """Raise on a configuration the port does not run yet."""
+    """Raise on a configuration the port does not run yet, naming the
+    ROADMAP item that would port it."""
     todo = []
     if cfg.exp_type not in DATASETS:
         todo.append(f"exp_type={cfg.exp_type!r}")
     elif cfg.dataset_name != DATASETS[cfg.exp_type]:
         todo.append(f"dataset_name={cfg.dataset_name!r} for {cfg.exp_type}")
-    if cfg.noise_std:
-        todo.append("noise_std")
     if cfg.compute_dtype not in COMPUTE_DTYPES:
         todo.append(f"compute_dtype={cfg.compute_dtype!r}")
     # the articulated field takes any encoding degrees and has fixed widths
@@ -96,10 +104,38 @@ def _check_supported(cfg: Config) -> None:
     if cfg.exp_type == "vanilla" and shape != (
         NeRFMLP.min_deg_point, NeRFMLP.max_deg_point, NeRFMLP.deg_view, NeRFMLP.netdepth, NeRFMLP.netwidth
     ):
-        todo.append("MLP shapes other than 8x256 with 10/4 encoding degrees")
-    todo.extend(f"{name}={value!r}" for name, value in jax_only_settings(cfg).items())
+        todo.append("MLP shapes other than 8x256 with 10/4 encoding degrees (ROADMAP Queue 1 item 3)")
+    todo.extend(f"{name}={value!r} (ROADMAP Queue 1 item 7)" for name, value in jax_only_settings(cfg).items())
     if todo:
         raise NotImplementedError("not ported yet: " + ", ".join(todo))
+
+
+class _NanCheckedOptimizer:
+    """``debug_nans``: an optimizer whose update raises FloatingPointError,
+    naming the parameter, when a gradient holds a NaN; everything else is
+    the wrapped optimizer's."""
+
+    def __init__(self, tx, names):
+        self._tx, self._names = tx, list(names)
+
+    def __getattr__(self, name):
+        return getattr(self._tx, name)
+
+    def update(self, params, grads, state, **kwargs):
+        for name, g in zip(self._names, grads):
+            if g is not None and bool(torch.isnan(g).any()):
+                raise FloatingPointError(f"debug_nans: the gradient of {name} holds a NaN (update {state.count})")
+        return self._tx.update(params, grads, state, **kwargs)
+
+
+def _raise_on_nan_levels(module, inputs, levels) -> None:
+    """``debug_nans``: a forward hook of a two-level field that raises
+    FloatingPointError when an output of a level holds a NaN."""
+    for i, outputs in enumerate(levels):
+        for name, x in zip(("comp_rgb", "acc", "depth"), outputs):
+            if bool(torch.isnan(x).any()):
+                level = ("coarse", "fine")[i] if i < 2 else str(i)
+                raise FloatingPointError(f"debug_nans: the {level} level's {name} holds a NaN")
 
 
 class Trainer:
@@ -110,7 +146,11 @@ class Trainer:
         self.run_dir = os.path.join(cfg.output_path, cfg.exp_name)
         os.makedirs(self.run_dir, exist_ok=True)
         self.logger = MetricLogger(self.run_dir)
-        self.ckpt = CheckpointManager(os.path.join(self.run_dir, "ckpts"), keep=cfg.ckpt_keep)
+        # the launcher variants' cadence: every "epoch"; is_optimize keeps all
+        if cfg.is_optimize or cfg.finetune_lpips:
+            cfg.ckpt_every_steps = cfg.steps_per_epoch
+        keep = None if cfg.is_optimize else cfg.ckpt_keep
+        self.ckpt = CheckpointManager(os.path.join(self.run_dir, "ckpts"), keep=keep)
         # the auto-decoder and the auto-encoder: the multi-scene dataset and the sweep
         self.articulated = cfg.exp_type in ("vanilla_autodecoder", "vanilla_ae_art")
         self.autoencoder = cfg.exp_type == "vanilla_ae_art"
@@ -137,8 +177,8 @@ class Trainer:
             field_kwargs = dict(
                 num_coarse_samples=cfg.num_coarse_samples, num_fine_samples=cfg.num_fine_samples,
                 min_deg_point=cfg.min_deg_point, max_deg_point=cfg.max_deg_point, deg_view=cfg.deg_view,
-                lindisp=cfg.lindisp, latent_dense=cfg.latent_dense, generator=generator, device=self.device,
-                compute_dtype=COMPUTE_DTYPES[cfg.compute_dtype],
+                noise_std=cfg.noise_std, lindisp=cfg.lindisp, latent_dense=cfg.latent_dense, generator=generator,
+                device=self.device, compute_dtype=COMPUTE_DTYPES[cfg.compute_dtype],
             )
             if self.autoencoder:
                 self.model = AutoEncoderArticulatedNeRF(
@@ -146,7 +186,7 @@ class Trainer:
                 )
                 self.code_library = None
                 trained = self.model
-                self.tx, self.lr_fn = build_optimizer_from_config(cfg)
+                self.tx, self.lr_fn = self._optimizer(build_optimizer_from_config(cfg), trained)
                 self.step_fn = make_ae_device_train_step(
                     self.model, self.tx, cfg.white_back, self.near, self.far, img_wh=cfg.img_wh,
                     batch_size=cfg.batch_size, randomized=cfg.randomized, opacity_lambda=cfg.opacity_lambda,
@@ -163,7 +203,9 @@ class Trainer:
                 # one optimizer over the field and the codes, as in JAX's {'model', 'codes'}
                 # (the codes after the field's parameters: latent_lr splits them off)
                 trained = nn.ModuleDict({"model": self.model, "codes": self.code_library})
-                self.tx, self.lr_fn = build_optimizer_from_config(cfg, n_model=len(list(self.model.parameters())))
+                self.tx, self.lr_fn = self._optimizer(
+                    build_optimizer_from_config(cfg, n_model=len(list(self.model.parameters()))), trained
+                )
                 self.step_fn = make_autodecoder_device_train_step(
                     self.model, self.code_library, self.tx, cfg.white_back, self.near, self.far,
                     batch_size=cfg.batch_size, randomized=cfg.randomized, reg_weight=cfg.code_reg_weight,
@@ -179,15 +221,17 @@ class Trainer:
             self.model = NeRF(
                 num_coarse_samples=cfg.num_coarse_samples, num_fine_samples=cfg.num_fine_samples,
                 lindisp=cfg.lindisp, generator=generator, device=self.device,
-                compute_dtype=COMPUTE_DTYPES[cfg.compute_dtype],
+                compute_dtype=COMPUTE_DTYPES[cfg.compute_dtype], noise_std=cfg.noise_std,
             )
             trained = self.model
-            self.tx, self.lr_fn = build_optimizer_from_config(cfg)
+            self.tx, self.lr_fn = self._optimizer(build_optimizer_from_config(cfg), trained)
             self.step_fn = make_vanilla_train_multi_step(
                 self.model, self.tx, cfg.white_back, self.near, self.far, batch_size=cfg.batch_size,
                 inner_steps=self._inner_steps, randomized=cfg.randomized,
             )
         self.state = create_train_state(trained, self.tx)
+        if cfg.debug_nans:  # the levels' outputs (the gradients: _optimizer)
+            (self.model.field if self.autoencoder else self.model).register_forward_hook(_raise_on_nan_levels)
         # the auto-encoder renders through its field with the encoded latents
         render = self.model.render if self.autoencoder else self.model
         self._renderer = make_image_renderer(render, cfg.white_back, self.near, self.far, chunk=cfg.chunk)
@@ -198,6 +242,14 @@ class Trainer:
             self._load(CheckpointManager(cfg.weight_path).restore(map_location=self.device), params_only=True)
         elif self.ckpt.latest_step() is not None:
             self._load(self.ckpt.restore(map_location=self.device))
+
+    def _optimizer(self, built, trained: nn.Module):
+        """(tx, lr_fn) as built, the optimizer checked for NaN gradients
+        under ``debug_nans``."""
+        tx, lr_fn = built
+        if self.cfg.debug_nans:
+            tx = _NanCheckedOptimizer(tx, (n for n, _ in trained.named_parameters()))
+        return tx, lr_fn
 
     # ------------------------------------------------------------ checkpoint
 
@@ -263,6 +315,7 @@ class Trainer:
             )
             self._prefetcher = Prefetcher(lambda: self.dataset.sample_train(self.rng))
 
+        profiler = self._start_profiler() if cfg.profile_steps > 0 else None
         last: Dict[str, float] = {}
         step = start
         while step < total:
@@ -272,6 +325,8 @@ class Trainer:
                 batch = self._device_batch(self._prefetcher.get())
                 self.state, metrics = host_step(self.state, batch, cfg.seed)
             prev, step = step, step + stride
+            if cfg.debug_nans and bool(torch.isnan(metrics["loss"]).any()):
+                raise FloatingPointError(f"debug_nans: the loss of step {step - 1} is NaN")
 
             def crossed(every):  # cadences fire when a stride crosses their boundary
                 return (step // every) > (prev // every)
@@ -285,8 +340,37 @@ class Trainer:
                 last.update({f"val_{k}": v for k, v in val.items()})
             if crossed(cfg.ckpt_every_steps) or step >= total:
                 self.ckpt.save(step, self._state_dict(), last.get("val_psnr"))
+            if profiler is not None and step - start >= cfg.profile_steps:
+                self._stop_profiler(profiler, start)
+                profiler = None
+        if profiler is not None:
+            self._stop_profiler(profiler, start)
         self._close_prefetcher()
         return last
+
+    def _start_profiler(self):
+        """A started torch.profiler over the host's operations and, on the
+        card, its kernels (the JAX Trainer's jax.profiler.start_trace)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        profiler = profile(activities=activities)
+        profiler.start()
+        return profiler
+
+    def _stop_profiler(self, profiler, start: int) -> str:
+        """Stop ``profiler`` once the device is done and write its Chrome
+        trace, ``run_dir/profile/trace_<start step>.json``; returns the path."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        profiler.stop()
+        trace_dir = os.path.join(self.run_dir, "profile")
+        os.makedirs(trace_dir, exist_ok=True)
+        path = os.path.join(trace_dir, f"trace_{start:08d}.json")
+        profiler.export_chrome_trace(path)
+        return path
 
     def _device_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """A host batch copied to the device (in the main thread)."""
@@ -427,21 +511,18 @@ class Trainer:
         without an mp4 backend) under ``run_dir/render_name``, and
         ``run_dir/results.json``.
 
-        One process renders every view; sharding the views across processes
-        (the JAX Trainer's ``local_shard_bounds`` / ``gather_images``) is not
-        ported yet. LPIPS is not ported: it is NaN, and a run that names
-        existing LPIPS weights in ``AONERF_LPIPS_WEIGHTS`` is refused rather
-        than scored without them.
+        LPIPS is scored when ``AONERF_LPIPS_WEIGHTS`` names an existing
+        exported weights file (``eval.lpips``, loaded once onto the device),
+        else it is NaN, as in JAX. One process renders every view; sharding
+        the views across processes (the JAX Trainer's ``local_shard_bounds``
+        / ``gather_images``) is not ported yet.
         """
-        lpips_weights = os.environ.get("AONERF_LPIPS_WEIGHTS", "")
-        if lpips_weights and os.path.exists(lpips_weights):
-            raise NotImplementedError(
-                f"LPIPS (AONERF_LPIPS_WEIGHTS={lpips_weights}) is not ported yet: ROADMAP Queue 1 item 4"
-            )
         cfg = self.cfg
+        lpips_path = os.environ.get("AONERF_LPIPS_WEIGHTS", "")
+        lpips_weights = lpips.load_weights(lpips_path, self.device) if os.path.isfile(lpips_path) else None
         w, h = cfg.img_wh
         n_images = cfg.test_sweep_poses if self.articulated else self.dataset.num_images
-        rgbs, depths, accs, psnrs, ssims, obj_psnrs = [], [], [], [], [], []
+        rgbs, depths, accs, psnrs, ssims, obj_psnrs, lpipses = [], [], [], [], [], [], []
         for i in range(n_images):
             (rgb, acc, depth), target, mask = self._test_view(i)
             img = rgb.reshape(h, w, 3)
@@ -450,13 +531,15 @@ class Trainer:
             ssims.append(float(ssim_image(img, target)))
             mask = torch.from_numpy(mask).to(self.device).reshape(h, w)
             obj_psnrs.append(float(masked_psnr(img, target, mask)))
+            if lpips_weights is not None:
+                lpipses.append(lpips_image(img, target, lpips_weights))
             rgbs.append(img.cpu().numpy())
             depths.append(depth.reshape(h, w).cpu().numpy())
             accs.append(acc.reshape(h, w).cpu().numpy())
         stats = {
             "psnr": summarize_metric(psnrs),
             "ssim": summarize_metric(ssims),
-            "lpips": {"test": float("nan")},
+            "lpips": summarize_metric(lpipses) if lpips_weights is not None else {"test": float("nan")},
             "psnr_obj": summarize_metric(obj_psnrs),
         }
 

@@ -97,6 +97,10 @@ class Config:
     limit_val_batches: int = 5
     ckpt_path: Optional[str] = None
     weight_path: Optional[str] = None
+    # the reference's launcher variants (run.py:38-61): both save every
+    # steps_per_epoch steps; is_optimize also keeps every checkpoint
+    is_optimize: bool = False
+    finetune_lpips: bool = False
 
     # articulated test(): the instance the spheric sweep renders and its
     # number of poses (= interpolated articulation ids)
@@ -109,6 +113,11 @@ class Config:
 
     # device: None = cuda; "cpu" runs the plain versions on the host
     platform: Optional[str] = None
+    # >0: a torch.profiler trace of that many steps under run_dir/profile
+    profile_steps: int = 0
+    # raise FloatingPointError at the first step whose loss, outputs or
+    # gradients hold a NaN (the reference's detect_anomaly)
+    debug_nans: bool = False
 
     extras: Dict[str, Any] = field(default_factory=dict)
 
@@ -117,12 +126,8 @@ class Config:
 # (aonerf/utils/config.py). tests/test_torch_trainer.py holds the table to
 # that dataclass.
 JAX_ONLY_DEFAULTS: Dict[str, Any] = {
-    "is_optimize": False,
-    "finetune_lpips": False,
     "n_model_shards": 1,
     "shard_scene_buffers": True,
-    "profile_steps": 0,
-    "debug_nans": False,
 }
 
 # reference flag name -> Config field

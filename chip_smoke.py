@@ -176,6 +176,28 @@ Phases, each of which fails the run with a non-zero exit:
                the prefetcher: 20 steps, the loss, host ms a step, the card's
                busy ms and idle share (fit's closing checkpoint left out of
                both); then --run_eval on 2 sweep poses.
+ 21. noise kernels - K1s with sigma noise (noise_std 1.0 from a seed) at
+               2048 rays, S = 65 and 193, in fp32 and bf16: raw sigma the
+               noiseless raw sigma plus the noise bit for bit, saved and raw
+               rgb the noiseless bits, a zero noise the noiseless bits; the
+               outputs against the plain version with the same noise (fp32
+               within TOL, bf16 by the bf16 rule); K2 from the noisy saved and
+               raw against its plain version (fp32 the per-gradient rule, bf16
+               the bf16 rule); K1s with and without noise in turns.
+ 22. noise training - config/vanilla.json with noise_std 1.0 on phase 7's
+               scene, 20 steps through Trainer.fit: the loss falling, K1s
+               and K2 launched 40 times each, 40 noise draws.
+ 23. settings  - on phase 7's scene at inner_steps 5: is_optimize with
+               profile_steps 5 (checkpoints every steps_per_epoch = 5 steps,
+               all kept; the trace's device_op_table naming K1s and K2's
+               kernels, its top rows printed); debug_nans raising
+               FloatingPointError at the first step on a NaN planted in a
+               weight, and training without it.
+ 24. lpips test - --run_eval on phase 7's checkpoint with
+               AONERF_LPIPS_WEIGHTS naming random weights at VGG16's widths
+               written from a seed: results.json's lpips finite, view 0's
+               LPIPS on the card within 1e-4 relative of the CPU's on the
+               same images, test()'s seconds a view with and without LPIPS.
 The line before the last is a JSON object with one entry per kernel and mode
 (K1, K1s, K2 in fp32, then in bf16; K1 and K1s in bf16 at the fast preset's
 shapes; B2 and B1 in bf16; B2 in fp32); the last line is {"ok": true,
@@ -3446,6 +3468,297 @@ def phase_ragged(tmp: str) -> dict:
     return {"host_ms": host_ms, "busy_ms": busy_ms, "loss": [first, last]}
 
 
+NOISE_STD = 1.0  # phases 21-22: noise_std as in config files that set it
+NOISE_STEPS = 20  # phase 22's steps; phase 23 runs as many with is_optimize
+PROFILE_STEPS = 5  # phase 23's profile_steps (and its steps_per_epoch)
+
+
+def _noise(R: int, S: int, seed: int):
+    """A level's sigma noise, uniform(0, 1) x NOISE_STD from a seed, (R, S) fp32 on the card."""
+    u = np.random.default_rng(seed).uniform(size=(R, S)).astype(np.float32)
+    return torch.from_numpy(u).cuda() * NOISE_STD
+
+
+def _noisy_fwd_plain(args, white: bool, noise, mm=torch.matmul, dot_bf16: bool = False):
+    from aonerf_torch.ops.kernels import fused_train as ft
+
+    return ft.fused_level_fwd_spill_ref(*args, white, mm=mm, dot_bf16=dot_bf16, noise=noise)
+
+
+def phase_noise_kernels(nerf, boxes, focal) -> dict:
+    """K1s with sigma noise (noise_std 1.0 from a seed) at the train step's
+    2048 rays, S = 65 and 193, in fp32 and bf16 mode: raw sigma exactly the
+    noiseless call's plus the noise, everything else of the noiseless
+    call's bits, a zero noise the noiseless bits; the outputs and raw
+    against the plain version with the same noise (fp32: within TOL; bf16:
+    the bf16 rule); K2 from the noisy saved and raw against its plain
+    version from the same saved and raw (fp32: the per-gradient rule; bf16:
+    the bf16 rule); K1s with and without noise timed in turns."""
+    from aonerf_torch.ops.kernels import fused_render as fr
+    from aonerf_torch.ops.kernels import fused_train as ft
+
+    t_phase = time.perf_counter()
+    dev, R, white = torch.device("cuda"), R_TRAIN, True
+    names = fr.WEIGHT_NAMES
+    levels = []
+    for dot_bf16 in (False, True):
+        mode = "bf16" if dot_bf16 else "fp32"
+        o, d, lvls = _train_levels(nerf, boxes, focal, dot_bf16=dot_bf16)
+        for kp, t, venc, xenc in lvls:
+            S = t.shape[1]
+            args = (kp, t, o, d, venc, xenc)
+            args64 = ({n: v.double() for n, v in kp.items()}, *(a.double() for a in (t, o, d, venc, xenc)))
+            noise = _noise(R, S, SEED + 600 + S)
+            quiet = ft.fused_level_fwd_spill(*args, white, dot_bf16=dot_bf16)
+            zero = ft.fused_level_fwd_spill(*args, white, dot_bf16=dot_bf16, noise=torch.zeros_like(noise))
+            got = ft.fused_level_fwd_spill(*args, white, dot_bf16=dot_bf16, noise=noise)
+            again = ft.fused_level_fwd_spill(*args, white, dot_bf16=dot_bf16, noise=noise)
+            torch.cuda.synchronize()
+            what = f"K1s {mode} with noise S={S}"
+            for i, n in enumerate(OUTPUTS + ("saved", "raw")):
+                if not torch.isfinite(got[i]).all():
+                    fail(f"{what}: non-finite {n}")
+                if not torch.equal(got[i], again[i]):
+                    fail(f"{what}: a repeat call gave other bits on {n}")
+                if not torch.equal(zero[i], quiet[i]):
+                    fail(f"{what}: a zero noise changed {n} from the noiseless call's bits")
+            if not torch.equal(got[4], quiet[4]) or not torch.equal(got[5][:, 1:], quiet[5][:, 1:]):
+                fail(f"{what}: the noise changed the saved activations or raw rgb")
+            if not torch.equal(got[5][:, 0], quiet[5][:, 0] + noise.reshape(-1)):
+                fail(f"{what}: raw sigma is not the noiseless raw sigma plus the noise (one fp32 add)")
+            del zero, again
+            plain = _noisy_fwd_plain(args, white, noise, dot_bf16=dot_bf16)
+            errs = {n: (g.float() - p.float()).abs().max().item()
+                    for n, g, p in zip(OUTPUTS + ("raw",), got[:4] + got[5:], plain[:4] + plain[5:])}
+            if dot_bf16:  # comp/acc/depth/weights and raw: the bf16 rule
+                def outputs(run):
+                    return {**dict(zip(OUTPUTS, run[:4])), "raw": run[5]}
+
+                orders = {k: outputs(_noisy_fwd_plain(args, white, noise, mm, True)) for k, mm in BF16_ORDERS.items()}
+                ref = outputs(_noisy_fwd_plain(args64, white, noise.double(), dot_bf16=True))
+                ratios = bf16_ratios(outputs(got), ref, bf16_limits(orders, ref, TOL_BF16_FWD))
+                del orders, ref
+                bad = sorted(n for n, r in ratios.items() if not r <= 1.0)
+                fwd_ratio = max(ratios.values())
+                rule = "bf16 rule, error / limit " + ", ".join(f"{n} {r:.3f}" for n, r in ratios.items())
+            else:
+                bad = sorted(n for n, v in errs.items() if not v <= TOL[n])
+                fwd_ratio = max(v / TOL[n] for n, v in errs.items())
+                rule = "within TOL"
+            print(f"kernel fused_level_fwd_spill {mode} with noise (noise_std {NOISE_STD:g}) S={S} at {R} rays: "
+                  f"raw sigma = the noiseless raw sigma + the noise bit for bit, saved and raw rgb the noiseless "
+                  f"bits, a zero noise the noiseless bits, a repeat call the same bits; max abs err against the "
+                  f"plain version with the same noise " + ", ".join(f"{n} {v:.3e}" for n, v in errs.items())
+                  + f" ({rule})")
+            if bad:
+                fail(f"{what}: off its plain version with the same noise on {bad}")
+
+            rng = np.random.default_rng(SEED + 700 + S)
+            cot = tuple(torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
+                rng.standard_normal((R, 3)), rng.standard_normal(R), 0.1 * rng.standard_normal(R),
+                rng.standard_normal((R, S))))
+            cot64 = tuple(c.double() for c in cot)
+            saved, raw = got[4], got[5]
+            k2 = ft.fused_level_bwd_saved(*args, saved, raw, *cot, white, dot_bf16=dot_bf16)
+            torch.cuda.synchronize()
+            del got, plain
+            if not all(torch.isfinite(k2[n]).all() for n in names):
+                fail(f"K2 {mode} from noisy K1s S={S}: a non-finite gradient")
+
+            def k2_plain(a, c, mm=torch.matmul, dtype=torch.float32):  # from K1s' noisy saved and raw
+                return ft.fused_level_bwd_saved_ref(*a, saved, raw.to(dtype), *c, white, mm=mm, dot_bf16=dot_bf16)
+
+            if dot_bf16:
+                orders = {k: k2_plain(args, cot, mm) for k, mm in BF16_ORDERS.items()}
+                ref = k2_plain(args64, cot64, dtype=torch.float64)
+                ratios = bf16_ratios(k2, ref, bf16_limits(orders, ref, TOL_BF16_GRAD))
+                k2_err = max((k2[n] - orders["cuBLAS"][n]).abs().max().item() for n in names)
+                del orders, ref
+                worst = max(ratios, key=ratios.get)
+                k2_ratio = ratios[worst]
+                print(f"  K2 bf16 from the noisy saved and raw S={S}: bf16 rule, closest to its limit {worst} "
+                      f"{k2_ratio:.3f}; max abs err against the plain bf16 version {k2_err:.3e}")
+                if not k2_ratio <= 1.0:
+                    fail(f"K2 bf16 from noisy K1s S={S}: beyond the bf16 rule on "
+                         f"{sorted(n for n, r in ratios.items() if r > 1.0)}")
+            else:
+                p32, p64 = k2_plain(args, cot), k2_plain(args64, cot64, dtype=torch.float64)
+                k2_err = max((k2[n] - p32[n]).abs().max().item() for n in names)
+                k2_ratio = _check_grads(f"K2 fp32 from the noisy saved and raw S={S}", _grad_errors(k2, p64, names),
+                                        _grad_errors(p32, p64, names))
+                del p32, p64
+            del k2, args64, saved, raw
+            torch.cuda.empty_cache()
+            k1s_quiet = lambda: ft.fused_level_fwd_spill(*args, white, dot_bf16=dot_bf16)  # noqa: E731
+            k1s_noisy = lambda: ft.fused_level_fwd_spill(*args, white, dot_bf16=dot_bf16, noise=noise)  # noqa: E731
+            iters = 10 if S > 100 else 20
+            ms_q = cuda_ms(k1s_quiet, warmup=2, iters=iters)
+            ms_n = cuda_ms(k1s_noisy, warmup=2, iters=iters)
+            ms_n2 = cuda_ms(k1s_noisy, warmup=0, iters=iters)
+            ms_q2 = cuda_ms(k1s_quiet, warmup=0, iters=iters)
+            print(f"  S={S}: K1s {mode} with noise {ms_n:.3f} / {ms_n2:.3f} ms, without {ms_q:.3f} / {ms_q2:.3f} ms "
+                  f"(CUDA events, in turns: without, with, with, without)")
+            levels.append({"mode": mode, "S": S, "ms": ms_n, "ms_again": ms_n2, "ms_without_noise": ms_q,
+                           "ms_without_noise_again": ms_q2, "max_abs_err": max(errs.values()),
+                           "fwd_ratio": fwd_ratio, "k2_ratio": k2_ratio, "k2_max_abs_err": k2_err})
+        del o, d, lvls
+    print(f"  phase noise kernels: {time.perf_counter() - t_phase:.1f} s")
+    return {"levels": levels}
+
+
+def phase_noise_training(root: str, tmp: str) -> dict:
+    """config/vanilla.json with noise_std 1.0 on phase 7's scene: NOISE_STEPS
+    steps through Trainer.fit, the loss falling, K1s and K2 launched once a
+    level a step, a noise draw a level a step."""
+    from aonerf_torch.ops.random import Draws
+    from aonerf_torch.train import step as step_mod
+    from aonerf_torch.train.loop import Trainer
+    from aonerf_torch.utils.config import load_config
+
+    t_phase = time.perf_counter()
+    vanilla = os.path.join(os.path.dirname(os.path.abspath(__file__)), "config", "vanilla.json")
+    cfg = load_config(vanilla, {"root_dir": root, "output_path": os.path.join(tmp, "noise"), "exp_name": "noise",
+                                "img_wh": [W, H], "seed": SEED, "lr_init": 1e-3, "lr_delay_steps": 0,
+                                "noise_std": NOISE_STD, "val_every_steps": 1000, "ckpt_every_steps": 1000})
+    losses, draws = [], []
+    _reset_fused_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _recording(step_mod, "vanilla_loss_and_grads", losses), \
+            _recording(Draws, "noise", draws, pick=lambda out: tuple(out.shape)):
+        trainer = Trainer(cfg)
+        trainer.fit(max_steps=NOISE_STEPS)
+        trainer.close()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    k1, k1s, k2 = _fused_launches()
+    first, last, fell = _fell(losses)
+    print(f"noise training: config/vanilla.json with noise_std {NOISE_STD:g}, {len(losses)} steps at batch "
+          f"{cfg.batch_size} ({seconds:.1f} s), loss first {first:.5f} last {last:.5f} (fell {fell}); launches K1 "
+          f"{k1}, K1s {k1s}, K2 {k2} (expected 0, {2 * NOISE_STEPS}, {2 * NOISE_STEPS}); noise draws {len(draws)} "
+          f"of shapes {sorted(set(draws))}")
+    if len(losses) != NOISE_STEPS or not fell:
+        fail(f"noise training: {len(losses)} steps, loss fell {fell}")
+    if (k1, k1s, k2) != (0, 2 * NOISE_STEPS, 2 * NOISE_STEPS) or len(draws) != 2 * NOISE_STEPS:
+        fail("noise training did not launch K1s and K2, or draw the noise, once a level a step")
+    print(f"  phase noise training: {time.perf_counter() - t_phase:.1f} s")
+    return {"k1s": k1s, "k2": k2, "loss": [first, last], "seconds": seconds}
+
+
+def phase_settings(root: str, tmp: str) -> dict:
+    """On phase 7's scene, config/vanilla.json at inner_steps 5: is_optimize
+    with profile_steps 5 (a checkpoint every steps_per_epoch = 5 steps, all
+    kept; a torch.profiler trace of the first 5 steps and its device-op
+    table), then debug_nans: a NaN planted in a weight raises
+    FloatingPointError, the same run without it trains."""
+    from aonerf_torch.train.loop import Trainer
+    from aonerf_torch.utils.config import load_config
+    from aonerf_torch.utils.profile import device_op_table, latest_trace, timed_ops
+
+    t_phase = time.perf_counter()
+    vanilla = os.path.join(os.path.dirname(os.path.abspath(__file__)), "config", "vanilla.json")
+    base = {"root_dir": root, "output_path": os.path.join(tmp, "settings"), "img_wh": [W, H], "seed": SEED,
+            "lr_init": 1e-3, "lr_delay_steps": 0, "inner_steps": PROFILE_STEPS, "limit_val_batches": 1}
+    cfg = load_config(vanilla, {**base, "exp_name": "optimize", "is_optimize": True, "ckpt_keep": 1,
+                                "steps_per_epoch": PROFILE_STEPS, "val_every_steps": PROFILE_STEPS,
+                                "profile_steps": PROFILE_STEPS})
+    trainer = Trainer(cfg)
+    trainer.fit(max_steps=NOISE_STEPS)
+    steps, kept_all = trainer.ckpt.steps(), trainer.ckpt.keep is None
+    trainer.close()
+    trace_dir = os.path.join(trainer.run_dir, "profile")
+    path = latest_trace(trace_dir)
+    what, times = timed_ops(path) if path else ("", {})
+    table = device_op_table(trace_dir, top_k=8)
+    fwd = sum(c for n, (_, c) in times.items() if "level_fwd_spill_kernel" in n)
+    bwd = {n: c for n, (_, c) in times.items() if "level_bwd_" in n}
+    print(f"settings: is_optimize with profile_steps {PROFILE_STEPS}: checkpoints at steps {steps} (every "
+          f"steps_per_epoch = {cfg.ckpt_every_steps}, all kept: {kept_all}); trace {os.path.basename(path or '')}, "
+          f"level_fwd_spill_kernel x{fwd}, level_bwd_* " + ", ".join(f"{_kernel_name(n)} x{c}" for n, c in bwd.items()))
+    print("  device_op_table:\n" + "\n".join("    " + line for line in table.splitlines()))
+    expected = list(range(PROFILE_STEPS, NOISE_STEPS + 1, PROFILE_STEPS))
+    if steps != expected or not kept_all or cfg.ckpt_every_steps != PROFILE_STEPS:
+        fail(f"is_optimize: checkpoints {steps}, expected {expected} all kept")
+    if what != "device" or fwd != 2 * PROFILE_STEPS or not bwd or "level_fwd_spill_kernel" not in table:
+        fail(f"profile_steps: the trace's device ops lack K1s ({fwd} launches) or K2's kernels ({sorted(bwd)})")
+
+    nan_cfg = load_config(vanilla, {**base, "exp_name": "nans", "debug_nans": True, "val_every_steps": 1000,
+                                    "ckpt_every_steps": 1000})
+    trainer = Trainer(nan_cfg)
+    with torch.no_grad():
+        trainer.state.params["coarse_mlp.pts_3.weight"].view(-1)[7] = float("nan")
+    try:
+        trainer.fit(max_steps=PROFILE_STEPS)
+        raised = None
+    except FloatingPointError as e:
+        raised = str(e)
+    at_step = trainer.state.step
+    trainer.close()
+    clean = Trainer(load_config(vanilla, {**base, "exp_name": "clean", "debug_nans": True, "val_every_steps": 1000,
+                                          "ckpt_every_steps": 1000}))
+    last = clean.fit(max_steps=PROFILE_STEPS)
+    clean_steps = clean.state.step
+    clean.close()
+    print(f"  debug_nans: a NaN planted in coarse_mlp.pts_3.weight raised FloatingPointError ({raised!r}) with "
+          f"the state at step {at_step}; without it {clean_steps} steps, loss {last.get('loss')}")
+    if raised is None or at_step != 0:
+        fail("debug_nans did not raise at the first step on a planted NaN")
+    if clean_steps != PROFILE_STEPS or not np.isfinite(last.get("loss", float("nan"))):
+        fail("debug_nans: the run without a NaN did not train")
+    print(f"  phase settings: {time.perf_counter() - t_phase:.1f} s")
+    return {"ckpt_steps": steps, "fwd_launches_traced": fwd, "table": table.splitlines()[:4]}
+
+
+LPIPS_SEED = SEED + 800
+
+
+def phase_lpips_test(cfg_path: str, tmp: str) -> dict:
+    """--run_eval on phase 7's checkpoint with AONERF_LPIPS_WEIGHTS naming a
+    synthetic weights file at VGG16's widths from a seed: results.json's
+    lpips finite, test view 0's LPIPS on the card within 1e-4 relative of
+    the plain CPU computation of the same images, and test()'s seconds a
+    view with and without LPIPS."""
+    from aonerf_torch.cli import train as cli
+    from aonerf_torch.eval import lpips
+    from aonerf_torch.train.loop import Trainer
+    from aonerf_torch.utils.config import load_config
+
+    t_phase = time.perf_counter()
+    weights = os.path.join(tmp, "lpips_vgg16_random.npz")
+    lpips.write_random_weights(weights, LPIPS_SEED)
+    cfg = load_config(cfg_path, {"run_eval": True, "render_name": "render_lpips"})
+    with mock.patch.dict(os.environ, {"AONERF_LPIPS_WEIGHTS": weights}):
+        stats = cli.main(["--config", cfg_path, "--run_eval", "--save_path", "render_lpips"])
+        trainer = Trainer(cfg)
+        (rgb, _, _), target, _ = trainer._test_view(0)
+        img, tgt = rgb.reshape(H, W, 3), torch.from_numpy(target).cuda().reshape(H, W, 3)
+        on_card = float(lpips.lpips_distance(lpips.load_weights(weights), img, tgt))
+        on_cpu = float(lpips.lpips_distance(lpips.load_weights(weights, "cpu"), img.cpu(), tgt.cpu()))
+        seconds = {}
+        for name, env in (("with", {"AONERF_LPIPS_WEIGHTS": weights}), ("without", {"AONERF_LPIPS_WEIGHTS": ""})):
+            with mock.patch.dict(os.environ, env):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = trainer.test()
+                torch.cuda.synchronize()
+                seconds[name] = (time.perf_counter() - t0) / N_TEST
+                if (name == "with") != np.isfinite(out["lpips"]["test"]):
+                    fail(f"test() {name} LPIPS weights: lpips {out['lpips']}")
+        trainer.close()
+    rel = abs(on_card - on_cpu) / abs(on_cpu)
+    value = stats["lpips"]["test"]
+    print(f"lpips test: --run_eval with random VGG16-width LPIPS weights (seed {LPIPS_SEED}): results.json lpips "
+          f"{value}, psnr {stats['psnr']['test']:.4f}; view 0's LPIPS on the card {on_card:.9f}, on the CPU "
+          f"{on_cpu:.9f} (rel diff {rel:.2e}, tol 1e-4); test() {seconds['with']:.4f} s a view with LPIPS, "
+          f"{seconds['without']:.4f} s without")
+    if list(stats["lpips"]) != ["test"] or not np.isfinite(value):
+        fail(f"lpips test: results.json lpips {stats['lpips']}")
+    if not rel <= 1e-4:
+        fail("lpips test: view 0's LPIPS on the card disagrees with the CPU's")
+    print(f"  phase lpips test: {time.perf_counter() - t_phase:.1f} s")
+    return {"lpips": value, "view0_card": on_card, "view0_cpu": on_cpu, "seconds_per_view": seconds}
+
+
 def main() -> None:
     t_run = time.perf_counter()
     phase_device()
@@ -3475,6 +3788,10 @@ def main() -> None:
         opt = phase_optimizers(tmp, t["root"])
         phase_encode_reuse(tmp)
         phase_ragged(tmp)
+        nk = phase_noise_kernels(nerf, boxes, focal)
+        nt = phase_noise_training(t["root"], tmp)
+        phase_settings(t["root"], tmp)
+        phase_lpips_test(t["cfg_path"], tmp)
     ae_launches = [x + y for x, y in zip(ae["fused"], ae_test["fused"])]  # K1, K1s, K2 on phases 11-12
 
     lv = k["levels"]
@@ -3529,6 +3846,12 @@ def main() -> None:
         "levels": flv,
         "ae_launches": ae_launches[1],
         "optimizer_launches": {k: v["k1s"] for k, v in opt.items() if "k1s" in v},
+        # phase 21: one coarse and one fine launch with sigma noise, each mode,
+        # timed in turns with the same launch without; phase 22: the launches
+        # of the noisy training run
+        "noise": {"launches": nt["k1s"], "ms": both([x for x in nk["levels"] if x["mode"] == "fp32"], "ms"),
+                  "ms_without_noise": both([x for x in nk["levels"] if x["mode"] == "fp32"], "ms_without_noise"),
+                  "max_abs_err": max(x["max_abs_err"] for x in nk["levels"]), "levels": nk["levels"]},
     }
     blv = b["levels"]
     k2 = {
@@ -3551,6 +3874,10 @@ def main() -> None:
         "levels": blv,
         "ae_launches": ae_launches[2],
         "optimizer_launches": {k: v["k2"] for k, v in opt.items() if "k2" in v},
+        # phase 22: the noisy training run's launches; phase 21: K2 from the
+        # noisy saved and raw against its plain version (fp32: the
+        # per-gradient rule's ratio; bf16: the bf16 rule's)
+        "noise_launches": nt["k2"], "noise_err_over_limit": max(x["k2_ratio"] for x in nk["levels"]),
     }
     b2 = {
         # B2 in fp32 (3xTF32 mma.sync from a TMA ring of 32-row stages), one

@@ -29,6 +29,7 @@ from tests.test_torch_ae_step import (
     port_model,
     scene_buffers,
 )
+from tests.torch_release import release_after_module, release_after_test  # noqa: F401 (autouse: frees files, heap)
 
 torch.set_num_threads(2)
 

@@ -36,6 +36,7 @@ from tests.test_torch_ae_step import (
 )
 from tests.test_torch_articulated import QueueDraws, jax_render_draws
 from tests.test_torch_sapien_multi import jax_batch_draws
+from tests.torch_release import release_after_module, release_after_test  # noqa: F401 (autouse: frees files, heap)
 
 torch.set_num_threads(2)
 

@@ -44,6 +44,7 @@ from tests.test_torch_ae_step import (
     scene_buffers,
 )
 from tests.test_torch_articulated import NF, SC, QueueDraws, jax_render_draws
+from tests.torch_release import release_after_module, release_after_test  # noqa: F401 (autouse: frees files, heap)
 
 torch.set_num_threads(2)
 

@@ -26,6 +26,7 @@ from aonerf_torch.train.step import TrainState
 from aonerf_torch.utils.bridge import module_flax_tree, module_state_dict_from_flax
 from tests.test_torch_articulated import QueueDraws, jax_render_draws
 from tests.test_torch_sapien_multi import jax_batch_draws
+from tests.torch_release import release_after_module, release_after_test  # noqa: F401 (autouse: frees files, heap)
 
 torch.set_num_threads(2)
 

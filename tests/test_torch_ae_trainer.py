@@ -19,6 +19,7 @@ from aonerf_torch.data import synthetic
 from aonerf_torch.train.loop import Trainer
 from aonerf_torch.utils import config
 from aonerf_torch.utils.ckpt import CheckpointManager
+from tests.torch_release import release_after_module, release_after_test  # noqa: F401 (autouse: frees files, heap)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 torch.set_num_threads(2)
@@ -98,14 +99,15 @@ def test_trainer_builds_the_published_ae_config(tmp_path):
 # what each case does now: refused as not ported (NotImplementedError), refused
 # as JAX refuses it (ValueError), or trained
 EXPECTED = {"ae_views_per_step": ValueError, "ae_encode_reuse": "trains", "compute_dtype": NotImplementedError,
-            "noise_std": NotImplementedError, "optimizer": "trains", "lr_scheduler": "trains",
+            "noise_std": "trains", "optimizer": "trains", "lr_scheduler": "trains",
             "dataset_name": NotImplementedError}
 
 
 @pytest.mark.parametrize("overrides", [
     # several views a step and one encode for several steps are alternatives
-    # (JAX's ValueError); one encode for 4 steps, the reference's optimizers
-    # and schedules train; a dtype the port does not run is refused
+    # (JAX's ValueError); one encode for 4 steps, sigma noise, the
+    # reference's optimizers and schedules train; a dtype the port does not
+    # run is refused
     {"ae_views_per_step": 2, "ae_encode_reuse": 2}, {"ae_encode_reuse": 4}, {"compute_dtype": "fp16"},
     {"noise_std": 1.0},
     {"optimizer": "ranger"}, {"lr_scheduler": "cosine"}, {"dataset_name": "sapien"},

@@ -14,6 +14,7 @@ from aonerf_torch.train.loop import Trainer
 from aonerf_torch.utils import config
 from aonerf_torch.utils.bridge import module_state_dict_from_flax
 from tests.test_torch_ae_trainer import scene, settings
+from tests.torch_release import release_after_module, release_after_test  # noqa: F401 (autouse: frees files, heap)
 
 torch.set_num_threads(2)
 

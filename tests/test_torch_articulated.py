@@ -232,9 +232,8 @@ def test_nerf_bridge_round_trips_params_and_grads():
 
 
 def test_field_refuses_what_is_not_ported():
-    for kwargs in ({"compute_dtype": torch.float16}, {"noise_std": 1.0}):  # bf16 runs
-        with pytest.raises(NotImplementedError):
-            ArticulatedNeRF(device="cpu", **kwargs)
+    with pytest.raises(NotImplementedError):  # bf16 runs, and noise_std (tests/test_torch_noise.py)
+        ArticulatedNeRF(device="cpu", compute_dtype=torch.float16)
     with pytest.raises(NotImplementedError, match="fused_head"):
         ArticulatedNeRFMLP(fused_head=True, device="cpu")
     with pytest.raises(ValueError, match="latent_dense"):

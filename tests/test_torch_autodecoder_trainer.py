@@ -22,6 +22,7 @@ from aonerf_torch.train.loop import Trainer, _check_supported
 from aonerf_torch.utils import config
 from aonerf_torch.utils.bridge import articulated_state_dict_from_flax, codes_state_dict_from_flax
 from aonerf_torch.utils.ckpt import CheckpointManager
+from tests.torch_release import release_after_module, release_after_test  # noqa: F401 (autouse: frees files, heap)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 torch.set_num_threads(2)
@@ -209,7 +210,7 @@ def test_trainer_refuses_what_the_autodecoder_does_not_run(tmp_path):
     base = {"exp_type": "vanilla_autodecoder", "dataset_name": "sapien_multi", "platform": "cpu"}
     for overrides in ({"dataset_name": "sapien"},
                       {"compute_dtype": "fp16"},  # bf16 runs
-                      {"noise_std": 1.0}, {"is_optimize": True}):
+                      {"n_model_shards": 2}, {"shard_scene_buffers": False}):  # noise_std, is_optimize run
         with pytest.raises(NotImplementedError):
             Trainer(config.load_config(None, {**base, **overrides}))
     # the codes' own AdamW (latent_lr) and one encode for several auto-encoder

@@ -23,6 +23,7 @@ from tests import bf16_flax
 from tests import test_torch_bf16_articulated_rule as rule
 from tests.test_torch_ae_step import B, NF, SC, WH, draw_shape, jax_leaves, jax_step_draws, scene_buffers
 from tests.test_torch_bf16_articulated_grads import reverse_hidden
+from tests.torch_release import release_after_module, release_after_test  # noqa: F401 (autouse: frees files, heap)
 
 torch.set_num_threads(2)
 

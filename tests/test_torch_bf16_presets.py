@@ -19,6 +19,7 @@ from aonerf_torch.data import synthetic
 from aonerf_torch.train.loop import Trainer
 from aonerf_torch.utils import config
 from aonerf_torch.utils.ckpt import CheckpointManager
+from tests.torch_release import release_after_module, release_after_test  # noqa: F401 (autouse: frees files, heap)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 torch.set_num_threads(2)

@@ -60,8 +60,8 @@ def test_articulated_types_refuse_bf16(exp_type):
     # bf16 they still refuse what neither mode runs, and no dtype but fp32
     # and bf16 runs.
     base = {"exp_type": exp_type, "dataset_name": "sapien_multi", "platform": "cpu"}
-    with pytest.raises(NotImplementedError, match="noise_std"):
-        Trainer(config.load_config(None, {**base, "compute_dtype": "bf16", "noise_std": 1.0}))
+    with pytest.raises(NotImplementedError, match="n_model_shards"):
+        Trainer(config.load_config(None, {**base, "compute_dtype": "bf16", "n_model_shards": 2}))
     with pytest.raises(NotImplementedError, match="compute_dtype='fp16'"):
         Trainer(config.load_config(None, {**base, "compute_dtype": "fp16"}))
 

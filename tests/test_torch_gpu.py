@@ -1149,3 +1149,100 @@ def test_bf16_preset_fits_and_sweeps_through_the_cli(cuda, tmp_path, name):
     assert all(np.isfinite(stats[k]["test"]) for k in ("psnr", "ssim", "psnr_obj"))
     now = fr.launches + fr.bf16_launches, ft.fwd_launches + ft.bf16_fwd_launches, ft.launches + ft.bf16_launches
     assert now == counts
+
+
+# K1s with sigma noise (models/nerf.py's noise_std): raw sigma is the
+# noiseless raw sigma plus the noise (one fp32 add), everything else the
+# noiseless bits; the outputs and raw against the plain version with the
+# same noise, in fp32 within _TOLS and _SPILL_TOL, in bf16 by
+# chip_smoke.py's bf16 rule.
+@pytest.mark.parametrize("S", [65, 193])
+@pytest.mark.parametrize("dot_bf16", [False, True], ids=["fp32", "bf16"])
+def test_k1s_with_noise_matches_plain_version(cuda, S, dot_bf16):
+    mlp = NeRFMLP(generator=torch.Generator().manual_seed(S), device=cuda)
+    with torch.no_grad():
+        kp = fr.kernel_params(mlp)
+    args = _level_inputs(256, S, S, cuda)
+    noise = torch.from_numpy(np.random.default_rng(S + 1).uniform(size=(256, S)).astype(np.float32)).to(cuda)
+    before = ft.bf16_fwd_launches if dot_bf16 else ft.fwd_launches
+    got = ft.fused_level_fwd_spill(kp, *args, True, dot_bf16=dot_bf16, noise=noise)
+    torch.cuda.synchronize()
+    assert (ft.bf16_fwd_launches if dot_bf16 else ft.fwd_launches) == before + 1
+    quiet = ft.fused_level_fwd_spill(kp, *args, True, dot_bf16=dot_bf16)
+    assert torch.equal(got[4], quiet[4]) and torch.equal(got[5][:, 1:], quiet[5][:, 1:])
+    assert torch.equal(got[5][:, 0], quiet[5][:, 0] + noise.reshape(-1))
+    want = ft.fused_level_fwd_spill_ref(kp, *args, True, dot_bf16=dot_bf16, noise=noise)
+    if not dot_bf16:
+        assert (got[5] - want[5]).abs().max().item() <= _SPILL_TOL
+        for name, g, w in zip(("comp", "acc", "depth", "weights"), got, want):
+            err = (g - w).abs().max().item()
+            assert err <= _TOLS[name], f"{name}: max abs err {err}"
+        return
+
+    def outputs(run):
+        return {**dict(zip(rule.OUTPUTS, run[:4])), "raw": run[5]}
+
+    args64 = ({n: v.double() for n, v in kp.items()}, *(a.double() for a in args))
+    orders = {k: outputs(ft.fused_level_fwd_spill_ref(kp, *args, True, mm=mm, dot_bf16=True, noise=noise))
+              for k, mm in rule.BF16_ORDERS.items()}
+    ref = outputs(ft.fused_level_fwd_spill_ref(*args64, True, dot_bf16=True, noise=noise.double()))
+    ratios = rule.bf16_ratios(outputs(got), ref, rule.bf16_limits(orders, ref, rule.TOL_BF16_FWD))
+    assert all(r <= 1.0 for r in ratios.values()), ratios
+
+
+@pytest.mark.parametrize("dot_bf16", [False, True], ids=["fp32", "bf16"])
+def test_k1s_without_noise_keeps_its_bits(cuda, dot_bf16):
+    # noise=None is the call without the argument, and a zero noise gives
+    # the same bits as none
+    mlp = NeRFMLP(generator=torch.Generator().manual_seed(3), device=cuda)
+    with torch.no_grad():
+        kp = fr.kernel_params(mlp)
+    args = _level_inputs(256, 65, 3, cuda)
+    plain = ft.fused_level_fwd_spill(kp, *args, False, dot_bf16=dot_bf16)
+    none = ft.fused_level_fwd_spill(kp, *args, False, dot_bf16=dot_bf16, noise=None)
+    zero = ft.fused_level_fwd_spill(kp, *args, False, dot_bf16=dot_bf16, noise=torch.zeros((256, 65), device=cuda))
+    for a, b, c in zip(plain, none, zero):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    with pytest.raises(ValueError, match="noise"):
+        ft.fused_level_fwd_spill(kp, *args, False, dot_bf16=dot_bf16, noise=torch.zeros((256, 64), device=cuda))
+
+
+@pytest.mark.parametrize("S", [65, 193])
+def test_k2_from_noisy_saved_matches_plain_version(cuda, S):
+    # K2 from what K1s saved with noise, against its plain version from the
+    # same saved and raw: each gradient within max(1e-4, 4 x the fp32 plain
+    # version's error) against fp64 (chip_smoke.py's TOL_GRAD rule)
+    mlp = NeRFMLP(generator=torch.Generator().manual_seed(S), device=cuda)
+    with torch.no_grad():
+        kp = fr.kernel_params(mlp)
+    args = _level_inputs(256, S, S, cuda)
+    noise = torch.from_numpy(np.random.default_rng(S + 2).uniform(size=(256, S)).astype(np.float32)).to(cuda)
+    cot = _cotangents(256, S, S, cuda)
+    saved, raw = ft.fused_level_fwd_spill(kp, *args, True, noise=noise)[4:]
+    got = ft.fused_level_bwd_saved(kp, *args, saved, raw, *cot, True)
+
+    p32 = ft.fused_level_bwd_saved_ref(kp, *args, saved, raw, *cot, True)
+    p64 = ft.fused_level_bwd_saved_ref({n: v.double() for n, v in kp.items()}, *(a.double() for a in args),
+                                       saved, raw.double(), *(c.double() for c in cot), True)
+    for n in fr.WEIGHT_NAMES:
+        scale = p64[n].abs().max().clamp_min(1e-300)
+        e_k = ((got[n].double() - p64[n]).abs().max() / scale).item()
+        e_p = ((p32[n].double() - p64[n]).abs().max() / scale).item()
+        assert e_k <= max(rule.TOL_GRAD, rule.TOL_GRAD_FACTOR * e_p), (n, e_k, e_p)
+
+
+def test_lpips_on_the_card_matches_the_cpu(cuda, tmp_path):
+    # random weights at VGG16's widths; the card's convolutions in fp32
+    # (eval.lpips holds TF32 off), the CPU's the reference: within 1e-4
+    from aonerf_torch.eval import lpips
+
+    path = str(tmp_path / "lpips.npz")
+    lpips.write_random_weights(path, seed=5)
+    rng = np.random.default_rng(6)
+    a = torch.from_numpy(rng.uniform(size=(48, 64, 3)).astype(np.float32))
+    b = (a + 0.1 * torch.from_numpy(rng.standard_normal((48, 64, 3)).astype(np.float32))).clamp(0, 1)
+    torch.backends.cudnn.allow_tf32 = True  # lpips turns it off for its own convolutions
+    card = lpips.lpips_distance(lpips.load_weights(path), a.to(cuda), b.to(cuda))
+    cpu = lpips.lpips_distance(lpips.load_weights(path, "cpu"), a, b)
+    assert card.device.type == "cuda" and torch.isfinite(card)
+    assert abs(card.item() - cpu.item()) <= 1e-4 * abs(cpu.item())

@@ -14,6 +14,7 @@ from aonerf.train.loop import Trainer as JaxTrainer
 from aonerf.utils import config as jconfig
 from aonerf_torch.cli import train as cli
 from aonerf_torch.data import synthetic
+from aonerf_torch.eval import lpips
 from aonerf_torch.train.loop import Trainer
 from aonerf_torch.utils import config
 from aonerf_torch.utils.bridge import nerf_state_dict_from_flax
@@ -120,15 +121,36 @@ def test_cli_run_eval_restores_and_writes_under_save_path(tmp_path, monkeypatch,
         trainer.close()
 
 
-def test_test_refuses_lpips_weights_it_cannot_use(tmp_path, monkeypatch):
-    root = synthetic.write_single_scene(str(tmp_path / "scene"), img_wh=(16, 12), n_train=1, n_val=1, n_test=1)
+def test_test_scores_lpips_from_exported_weights(tmp_path, monkeypatch):
+    # AONERF_LPIPS_WEIGHTS naming an exported file: test() scores LPIPS per
+    # view (the weights loaded once) and summarizes it as the JAX Trainer
+    # does, on a 32x24 scene (VGG's fifth tap needs 16 pixels a side) with
+    # bridged weights and random LPIPS weights of narrow widths. The renders
+    # agree within ~1.5e-5 (above); LPIPS within 1e-4 relative.
+    root = synthetic.write_single_scene(str(tmp_path / "scene"), img_wh=(32, 24), n_train=1, n_val=1, n_test=2)
     weights = tmp_path / "lpips.npz"
-    np.savez(weights, w=np.zeros(1))
+    lpips.write_random_weights(str(weights), seed=0, widths=(8, 8, 16, 16, 32, 32, 32, 64, 64, 64, 64, 64, 64))
     monkeypatch.setenv("AONERF_LPIPS_WEIGHTS", str(weights))
-    trainer = Trainer(config.load_config(None, _settings(root, tmp_path / "out", "lpips")))
+    settings = {**_settings(root, tmp_path / "out", "jax"), "img_wh": [32, 24]}
+    jtrainer = JaxTrainer(jconfig.load_config(None, settings))
     try:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-            trainer.test()
+        params = jax.device_get(jtrainer.state.params)
+        want = jtrainer.test()
+    finally:
+        jtrainer.close()
+    loads = []
+    real_load = lpips.load_weights
+    monkeypatch.setattr(lpips, "load_weights", lambda *a, **k: loads.append(a) or real_load(*a, **k))
+    trainer = Trainer(config.load_config(None, {**settings, "exp_name": "port"}))
+    try:
+        trainer.model.load_state_dict(nerf_state_dict_from_flax(params))
+        got = trainer.test()
     finally:
         trainer.close()
-    assert not (tmp_path / "out" / "lpips" / "results.json").exists()
+    assert len(loads) == 1  # once per test(), not once per view
+    with open(tmp_path / "out" / "port" / "results.json") as f:
+        assert json.load(f) == json.loads(json.dumps(got))
+    assert list(got["lpips"]) == list(want["lpips"]) == ["test"]
+    assert np.isfinite(got["lpips"]["test"]) and got["lpips"]["test"] > 0
+    np.testing.assert_allclose(got["lpips"]["test"], want["lpips"]["test"], rtol=1e-4)
+    np.testing.assert_allclose(got["psnr"]["test"], want["psnr"]["test"], atol=1e-3, rtol=0)
