@@ -443,11 +443,30 @@ __device__ __forceinline__ float operand(float x) {
   return x;
 }
 
+// The NaN-keeping forms of the clamps and masks. The Pallas kernels keep a
+// NaN where fmaxf and a select drop it: jnp.maximum(NaN, c) is NaN, and a
+// mask applied by multiplying gives NaN * 0 = NaN. Every other input gives
+// the bits the plain fmaxf or select gives, the sign of a zero included.
+
+// max(x, lo), and x when x is NaN.
+__device__ __forceinline__ float max_keep_nan(float x, float lo) { return isnan(x) ? x : fmaxf(x, lo); }
+
+// g where the mask is open; where it is closed 0, or g when g is NaN. Where
+// the Pallas multiply gives -0 (g < 0, mask closed) this gives +0.
+__device__ __forceinline__ float mask_keep_nan(bool open, float g) { return open || isnan(g) ? g : 0.f; }
+
+// A NaN as the quiet NaN 0x7fc00000, whose TF32 rounding (tf32_rna) is NaN.
+// fp32 arithmetic gives the NaN 0x7fffffff, which tf32_rna carries into the
+// sign bit and rounds to -0, so every NaN a kernel writes to a product's
+// operand (the activation and delta tiles, the scratches) goes through this.
+__device__ __forceinline__ float tf32_safe_nan(float x) { return isnan(x) ? __uint_as_float(0x7fc00000u) : x; }
+
 // ------------------------------------------------------------ 3xTF32 mma.sync
 
 // x rounded to TF32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away from
 // zero: half a TF32 ulp added to the magnitude, the 13 low bits cleared), on
-// the integer pipe. Finite inputs only.
+// the integer pipe. Finite inputs, and NaNs whose mantissa's high bits are
+// not all set (tf32_safe_nan).
 __device__ __forceinline__ uint32_t tf32_rna(float x) { return (__float_as_uint(x) + 0x1000u) & 0xffffe000u; }
 
 // x = big + small with both TF32; x - big is exact in fp32, and what small
@@ -853,11 +872,11 @@ __device__ __forceinline__ void store_act(const ChunkAcc<N>& acc, const float* _
           x1 += ct[mi][h][c + 1];
         }
         if (relu) {
-          x0 = fmaxf(x0, 0.f);
-          x1 = fmaxf(x1, 0.f);
+          x0 = max_keep_nan(x0, 0.f);
+          x1 = max_keep_nan(x1, 0.f);
         }
         *reinterpret_cast<float2*>(act + (r0 + 16 * mi + 8 * h) * kAct + c) =
-            make_float2(operand<Bf16>(x0), operand<Bf16>(x1));
+            make_float2(operand<Bf16>(tf32_safe_nan(x0)), operand<Bf16>(tf32_safe_nan(x1)));
         if constexpr (Spill && Bf16) pairs[2 * mi + h] = bf16x2_rn(x0, x1);
       }
     if constexpr (Spill && Bf16) stage_bf16<N>(spill.tile, ni, pairs);
@@ -1030,10 +1049,10 @@ __device__ __forceinline__ SampleAlpha sample_alpha(const float* __restrict__ tr
   a.ts = __ldg(tr + s);
   const float dist = (s + 1 < S) ? (__ldg(tr + s + 1) - a.ts) : 1e10f;
   a.dist = dist * dnorm;
-  const float sigma = fmaxf(raw_sigma, 0.f);
+  const float sigma = max_keep_nan(raw_sigma, 0.f);
   a.expterm = expf(-sigma * a.dist);
   a.alpha = 1.f - a.expterm;
-  a.logv = logf(fmaxf(1.f - a.alpha + 1e-10f, 1e-10f));
+  a.logv = logf(max_keep_nan(1.f - a.alpha + 1e-10f, 1e-10f));
   return a;
 }
 
