@@ -2,10 +2,13 @@
 (counterpart of ``aonerf.utils.ckpt``).
 
 Each checkpoint is one ``torch.save`` file, ``ckpt_<step>.pt``; the
-directory's ``metrics.json`` keeps each step's val PSNR. Retention follows
-the JAX manager's options: the ``keep`` checkpoints with the best val PSNR
-(``keep=None``: every checkpoint), every checkpoint saved without a PSNR,
-and always the latest; ``best_step`` is the kept step of the highest PSNR.
+directory's ``metrics.json`` keeps each step's val PSNR. Retention is the
+JAX manager's (orbax's ``BestN`` with ``keep_checkpoints_without_metrics``):
+while more than ``keep`` checkpoints exist, the ``keep`` with the best val
+PSNR (of equal ones, the later) and every checkpoint saved without a PSNR
+stay, and the rest go, the latest too; ``keep=None`` keeps every checkpoint.
+``best_step`` is the kept step of the highest PSNR, and a run resumes from
+``latest_step``, the latest step kept.
 
 The surgery helpers work on parameters by state-dict name (the port's
 ``TrainState.params``, a checkpoint's ``params``): ``load_partial`` copies
@@ -50,11 +53,16 @@ class CheckpointManager:
         metrics = self._metrics()
         metrics[int(step)] = None if val_psnr is None else float(val_psnr)
         steps = self.steps()
-        scored = sorted((s for s in steps if metrics.get(s) is not None), key=lambda s: -metrics[s])
-        for s in scored[self.keep :] if self.keep is not None else ():
-            if s != steps[-1]:
-                os.remove(self._path(s))
-                metrics.pop(s, None)
+        if self.keep is not None and len(steps) > self.keep:
+            # ascending by PSNR, ties in step order (a stable sort, as orbax's)
+            scored = sorted((s for s in steps if metrics.get(s) is not None), key=lambda s: metrics[s])
+            kept = set()
+            if self.keep > 0:
+                kept = set(scored[-self.keep:]) | {s for s in steps if metrics.get(s) is None}
+            for s in steps:
+                if s not in kept:
+                    os.remove(self._path(s))
+                    metrics.pop(s, None)
         with open(self._metrics_path, "w") as f:
             json.dump({str(k): v for k, v in sorted(metrics.items())}, f)
 

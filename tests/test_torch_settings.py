@@ -153,13 +153,14 @@ def test_load_params_subtree_grafts_the_codes_as_jax(trees):
         ckpt.load_params_subtree(state, {"params": {}}, "codes")
 
 
-@pytest.mark.parametrize("keep", [2, None])
+@pytest.mark.parametrize("keep", [0, 1, 2, 3, None])
 def test_best_step_and_retention_match_orbax(keep, tmp_path):
-    # psnrs by step, one saved without a PSNR and a tie: the same best step
-    # as the JAX manager's (orbax, best_mode 'max') after every save, and the
-    # same steps kept but one: the port always keeps the latest checkpoint
-    # (the one a run resumes from), where orbax drops a latest whose PSNR
-    # ranks below the kept ones (step 5 here; ROADMAP Queue 3)
+    # PSNRs by step, one saved without a PSNR and a tie: after every save the
+    # port keeps exactly the steps the JAX manager (orbax's BestN, best_mode
+    # 'max', keep_checkpoints_without_metrics) keeps, and names the same best
+    # step. JAX's manager is the reference: a latest checkpoint whose PSNR
+    # ranks below the kept ones is dropped (step 5 at keep 2), whatever its
+    # class's docstring ("always-keep-latest") says.
     history = [(0, 30.0), (1, 10.0), (2, None), (3, 20.0), (4, 30.0), (5, 5.0)]
     jmgr = jckpt.CheckpointManager(str(tmp_path / "jax"), keep=keep)
     mgr = ckpt.CheckpointManager(str(tmp_path / "port"), keep=keep)
@@ -168,15 +169,40 @@ def test_best_step_and_retention_match_orbax(keep, tmp_path):
     for step, psnr in history:
         jmgr.save(step, state, val_psnr=psnr)
         mgr.save(step, {"w": torch.zeros(2)}, val_psnr=psnr)
-        assert [s for s in mgr.steps() if s != step] == [s for s in sorted(jmgr._mgr.all_steps()) if s != step], step
+        assert mgr.steps() == sorted(jmgr._mgr.all_steps()), step
         assert mgr.best_step() == jmgr.best_step(), step
+        assert mgr.latest_step() == jmgr.latest_step(), step
     want = sorted(jmgr._mgr.all_steps())
     jmgr.close()
-    assert mgr.best_step() == 4
     if keep == 2:
-        assert want == [0, 2, 4] and mgr.steps() == [0, 2, 4, 5]
-    else:
+        assert want == mgr.steps() == [0, 2, 4] and mgr.best_step() == 4
+    elif keep is None:
         assert want == mgr.steps() == [0, 1, 2, 3, 4, 5]
+
+
+def test_resume_after_a_dropped_latest_matches_jax(scene, tmp_path, monkeypatch):
+    # ckpt_keep 1, a validation and a checkpoint every step, val PSNRs 30, 10,
+    # 5: both managers keep only step 1, so both Trainers resume from step 1
+    # rather than from the last step trained
+    settings = _settings(scene, tmp_path, "jax", ckpt_keep=1, ckpt_every_steps=1, val_every_steps=1,
+                         limit_val_batches=1)
+    steps = {}
+    for side, make, load in (("jax", JaxTrainer, jconfig.load_config), ("port", Trainer, config.load_config)):
+        cfg = load(None, {**settings, "exp_name": side})
+        trainer = make(cfg)
+        psnrs = iter([30.0, 10.0, 5.0])
+        monkeypatch.setattr(trainer, "validate", lambda n_images=None, it=psnrs: {"psnr": next(it)})
+        try:
+            trainer.fit(max_steps=3)
+            kept = trainer.ckpt.steps() if side == "port" else sorted(trainer.ckpt._mgr.all_steps())
+        finally:
+            trainer.close()
+        resumed = make(cfg)
+        try:
+            steps[side] = (kept, int(jax.device_get(resumed.state.step)) if side == "jax" else resumed.state.step)
+        finally:
+            resumed.close()
+    assert steps["port"] == steps["jax"] == ([1], 1)
 
 
 # ------------------------------------------------------------- debug_nans
