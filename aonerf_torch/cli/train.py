@@ -22,6 +22,30 @@ from aonerf_torch.train.loop import Trainer
 from aonerf_torch.utils.config import ALIASES, Config, load_config
 
 
+def add_config_fields(p: argparse.ArgumentParser, skip=("extras",)) -> None:
+    """One --<name> option (and its reference aliases) for each Config field."""
+    for f in dataclasses.fields(Config):
+        if f.name in skip:
+            continue
+        aliases = [f"--{a}" for a, name in ALIASES.items() if name == f.name]
+        p.add_argument(f"--{f.name}", *aliases, dest=f.name, type=str, default=None)
+
+
+def config_overrides(args: argparse.Namespace) -> Dict:
+    """The Config fields given on the command line, read as JSON where they
+    parse."""
+    names = {f.name for f in dataclasses.fields(Config)}
+    overrides = {}
+    for k, v in vars(args).items():
+        if k not in names or v is None:
+            continue
+        try:
+            overrides[k] = json.loads(v) if isinstance(v, str) else v
+        except json.JSONDecodeError:
+            overrides[k] = v
+    return overrides
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--config", type=str, default=None, help="JSON config file")
@@ -29,25 +53,13 @@ def parse_args(argv=None):
     p.add_argument("--run_optimize", action="store_true", default=None,
                    help="test-time code optimization for one instance (auto-decoder)")
     p.add_argument("--max_steps", type=int, default=None)
-    for f in dataclasses.fields(Config):
-        if f.name in ("run_eval", "extras"):
-            continue
-        aliases = [f"--{a}" for a, name in ALIASES.items() if name == f.name]
-        p.add_argument(f"--{f.name}", *aliases, dest=f.name, type=str, default=None)
+    add_config_fields(p, skip=("run_eval", "extras"))
     return p.parse_args(argv)
 
 
 def main(argv=None) -> Dict:
     args = parse_args(argv)
-    overrides = {}
-    for k, v in vars(args).items():
-        if k in ("config", "max_steps", "run_optimize") or v is None:
-            continue
-        try:
-            overrides[k] = json.loads(v) if isinstance(v, str) else v
-        except json.JSONDecodeError:
-            overrides[k] = v
-    cfg = load_config(args.config, overrides)
+    cfg = load_config(args.config, config_overrides(args))
     trainer = Trainer(cfg)
     try:
         if args.run_optimize:

@@ -332,6 +332,17 @@ class ArticulatedNeRF(nn.Module):
         self.coarse_mlp = ArticulatedNeRFMLP(**mlp_kwargs)
         self.fine_mlp = ArticulatedNeRFMLP(**mlp_kwargs)
 
+    def sigma_from_raw(self, raw_sigma: torch.Tensor) -> torch.Tensor:
+        """The field's density from its MLP's raw density: softplus of raw +
+        ``density_bias`` or ReLU, then soft-capped at ``sigma_cap``."""
+        if self.sigma_activation == "softplus":
+            sigma = F.softplus(raw_sigma + self.density_bias)
+        else:
+            sigma = torch.relu(raw_sigma)
+        if self.sigma_cap is not None:
+            sigma = self.sigma_cap * torch.tanh(sigma / self.sigma_cap)
+        return sigma
+
     def forward(
         self,
         rays: Dict[str, torch.Tensor],
@@ -376,12 +387,7 @@ class ArticulatedNeRF(nn.Module):
                 raw_sigma = raw_sigma + draws.noise(raw_sigma.shape) * self.noise_std
 
             rgb = torch.sigmoid(raw_rgb) * (1.0 + 2.0 * self.rgb_padding) - self.rgb_padding
-            if self.sigma_activation == "softplus":
-                sigma = F.softplus(raw_sigma + self.density_bias)
-            else:
-                sigma = torch.relu(raw_sigma)
-            if self.sigma_cap is not None:
-                sigma = self.sigma_cap * torch.tanh(sigma / self.sigma_cap)
+            sigma = self.sigma_from_raw(raw_sigma)
 
             comp_rgb, acc, weights, depth = volumetric_rendering(rgb, sigma, t_vals, d, white_bkgd=white_bkgd)
             if self.tail_to_background:

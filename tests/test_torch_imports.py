@@ -45,7 +45,8 @@ def test_port_modules_import_no_jax_and_no_aonerf():
         "aonerf_torch.ops.render", "aonerf_torch.models.articulated", "aonerf_torch.models.codes",
         "aonerf_torch.data.sapien_multi", "aonerf_torch.train.losses", "aonerf_torch.train.optimize",
         "aonerf_torch.models.resnet", "aonerf_torch.models.joint_state", "aonerf_torch.models.ae",
-        "aonerf_torch.train.step_ae",
+        "aonerf_torch.train.step_ae", "aonerf_torch.utils.transforms", "aonerf_torch.viz.pointcloud",
+        "aonerf_torch.viz.voxelgrid", "aonerf_torch.viz.mesh", "aonerf_torch.cli.export_voxels",
     }
     assert expected <= set(out["modules"])
     assert not set(FORBIDDEN) & set(out["loaded"]), set(FORBIDDEN) & set(out["loaded"])
