@@ -28,10 +28,15 @@ from typing import Dict
 
 import numpy as np
 
+from aonerf_torch.cli.train import add_config_fields, config_overrides
+from aonerf_torch.train.loop import Trainer
+from aonerf_torch.utils.config import load_config
+from aonerf_torch.viz import voxelgrid as vg
+from aonerf_torch.viz.mesh import marching_tetrahedra, write_mesh_ply
+from aonerf_torch.viz.pointcloud import write_ply
+
 
 def parse_args(argv=None) -> argparse.Namespace:
-    from aonerf_torch.cli.train import add_config_fields
-
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--config", type=str, required=True, help="train config JSON")
     p.add_argument("--out", type=str, required=True, help="output .ply path")
@@ -50,8 +55,6 @@ def density_fn_for(trainer, instance: int = 0, articulation: int = 0):
     """The density adapter of a Trainer's restored model: the vanilla field;
     the auto-decoder at the codes of ``instance`` at ``articulation``; the
     auto-encoder at the codes encoded from that pair's first view."""
-    from aonerf_torch.viz import voxelgrid as vg
-
     exp_type = trainer.cfg.exp_type
     if exp_type == "vanilla":
         return vg.nerf_density_fn(trainer.model)
@@ -62,13 +65,6 @@ def density_fn_for(trainer, instance: int = 0, articulation: int = 0):
 
 
 def main(argv=None) -> Dict:
-    from aonerf_torch.cli.train import config_overrides
-    from aonerf_torch.train.loop import Trainer
-    from aonerf_torch.utils.config import load_config
-    from aonerf_torch.viz import voxelgrid as vg
-    from aonerf_torch.viz.mesh import marching_tetrahedra, write_mesh_ply
-    from aonerf_torch.viz.pointcloud import write_ply
-
     args = parse_args(argv)
     cfg = load_config(args.config, config_overrides(args))
     trainer = Trainer(cfg)

@@ -466,7 +466,7 @@ level_bwd_integrator_kernel(const float* __restrict__ t, const float* __restrict
       const SampleAlpha a = sample_alpha(tr, s, S, dnorm, raw_sigma);
       const float v = max_keep_nan(1.f - a.alpha + 1e-10f, 1e-10f);
       const float g_alpha = st[1] * st[0] - suffix / v;
-      gr[s * 4] = mask_keep_nan(raw_sigma > 0.f, g_alpha * a.expterm * a.dist);
+      gr[s * 4] = raw_sigma > 0.f ? g_alpha * a.expterm * a.dist : 0.f;
     }
   }
 }
@@ -479,7 +479,7 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool val
 
 // ------------------------------------------------------- pass B1: the deltas
 
-// D[r][c] = (acc + gs[r] wd[c]) * (M[r][c] > 0) (a NaN kept: mask_keep_nan), the rank-1 term when wd is
+// D[r][c] = (acc + gs[r] wd[c]) * (M[r][c] > 0), the rank-1 term when wd is
 // given and the mask when M is; rows below valid_rows also to the scratch
 // rows dst + r * kSpill + c. Ends with a barrier.
 __device__ __forceinline__ void store_delta(const ChunkAcc<kWidth>& acc, float* D, const float* M, const float* gs,
@@ -506,8 +506,8 @@ __device__ __forceinline__ void store_delta(const ChunkAcc<kWidth>& acc, float* 
           x1 = fmaf(gs[r], v1, x1);
         }
         if (M != nullptr) {
-          x0 = mask_keep_nan(M[r * kAct + c] > 0.f, x0);
-          x1 = mask_keep_nan(M[r * kAct + c + 1] > 0.f, x1);
+          if (!(M[r * kAct + c] > 0.f)) x0 = 0.f;
+          if (!(M[r * kAct + c + 1] > 0.f)) x1 = 0.f;
         }
         x0 = tf32_safe_nan(x0);
         x1 = tf32_safe_nan(x1);
@@ -572,8 +572,8 @@ __device__ __forceinline__ void store_delta_bf16(const ChunkAcc<kWidth>& acc, fl
         }
         if (M != nullptr) {
           const uint32_t m = *reinterpret_cast<const uint32_t*>(M + r * kH16 + c);
-          x0 = mask_keep_nan(bf16_bits_to_float(m & 0xffffu) > 0.f, x0);
-          x1 = mask_keep_nan(bf16_bits_to_float(m >> 16) > 0.f, x1);
+          if (!(bf16_bits_to_float(m & 0xffffu) > 0.f)) x0 = 0.f;
+          if (!(bf16_bits_to_float(m >> 16) > 0.f)) x1 = 0.f;
         }
         const uint32_t p = bf16x2_rn(x0, x1);
         pairs[2 * mi + h] = p;
@@ -736,7 +736,7 @@ level_bwd_delta_kernel(const float* __restrict__ venc, const float* __restrict__
       float h;
       if constexpr (Bf16) h = bf16_bits_to_float(b1_h16(H)[r * kH16 + c]);
       else h = H[r * kAct + c];
-      D[r * kAct + c] = tf32_safe_nan(mask_keep_nan(h > 0.f, g));
+      D[r * kAct + c] = h > 0.f ? (Bf16 ? g : tf32_safe_nan(g)) : 0.f;
     }
     __syncthreads();
     // The per-ray sum of delta_v for wvb (one thread per column, rows in

@@ -443,23 +443,30 @@ __device__ __forceinline__ float operand(float x) {
   return x;
 }
 
-// The NaN-keeping forms of the clamps and masks. The Pallas kernels keep a
-// NaN where fmaxf and a select drop it: jnp.maximum(NaN, c) is NaN, and a
-// mask applied by multiplying gives NaN * 0 = NaN. Every other input gives
-// the bits the plain fmaxf or select gives, the sign of a zero included.
+// max(x, lo), NaN when x is NaN, as jnp.maximum keeps a NaN where fmaxf
+// drops it: one max.NaN (FMNMX.NAN), fmaxf's max for every other x. Its NaN
+// is 0x7fffffff. (The ReLU's backward stays a select, g where x > 0 else 0:
+// XLA computes the Pallas kernel's g * (x > 0) as that select.)
+__device__ __forceinline__ float max_keep_nan(float x, float lo) {
+  float y;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(y) : "f"(x), "f"(lo));
+  return y;
+}
 
-// max(x, lo), and x when x is NaN.
-__device__ __forceinline__ float max_keep_nan(float x, float lo) { return isnan(x) ? x : fmaxf(x, lo); }
+// The ReLU that keeps a NaN, on the integer pipe: as int32 the bits of a
+// float >= +0 order as the float does and those of a float <= -0 are
+// negative, so max(bits, 0) is fmaxf(x, 0.f) for every non-NaN x (-0 gives
+// +0, as fmaxf does) and keeps a positive NaN, the only NaN fp32 arithmetic
+// gives (0x7fffffff); its input is always such a sum.
+__device__ __forceinline__ float relu_keep_nan(float x) { return __int_as_float(max(__float_as_int(x), 0)); }
 
-// g where the mask is open; where it is closed 0, or g when g is NaN. Where
-// the Pallas multiply gives -0 (g < 0, mask closed) this gives +0.
-__device__ __forceinline__ float mask_keep_nan(bool open, float g) { return open || isnan(g) ? g : 0.f; }
-
-// A NaN as the quiet NaN 0x7fc00000, whose TF32 rounding (tf32_rna) is NaN.
-// fp32 arithmetic gives the NaN 0x7fffffff, which tf32_rna carries into the
-// sign bit and rounds to -0, so every NaN a kernel writes to a product's
-// operand (the activation and delta tiles, the scratches) goes through this.
-__device__ __forceinline__ float tf32_safe_nan(float x) { return isnan(x) ? __uint_as_float(0x7fc00000u) : x; }
+// x with a positive NaN whose mantissa's high bits are all set (0x7fffefff <
+// bits, as fp32 arithmetic's NaN 0x7fffffff) made 0x7fffefff: tf32_rna
+// carries such a NaN into the sign bit and rounds it to -0, and 0x7fffefff
+// to a NaN. One integer min; every other value keeps its bits. Every value
+// a kernel writes to a product's operand (the activation and delta tiles,
+// the scratches) goes through this.
+__device__ __forceinline__ float tf32_safe_nan(float x) { return __int_as_float(min(__float_as_int(x), 0x7fffefff)); }
 
 // ------------------------------------------------------------ 3xTF32 mma.sync
 
@@ -872,11 +879,15 @@ __device__ __forceinline__ void store_act(const ChunkAcc<N>& acc, const float* _
           x1 += ct[mi][h][c + 1];
         }
         if (relu) {
-          x0 = max_keep_nan(x0, 0.f);
-          x1 = max_keep_nan(x1, 0.f);
+          x0 = relu_keep_nan(x0);
+          x1 = relu_keep_nan(x1);
+        }
+        if constexpr (!Bf16) {  // the next product splits these into TF32 pairs
+          x0 = tf32_safe_nan(x0);
+          x1 = tf32_safe_nan(x1);
         }
         *reinterpret_cast<float2*>(act + (r0 + 16 * mi + 8 * h) * kAct + c) =
-            make_float2(operand<Bf16>(tf32_safe_nan(x0)), operand<Bf16>(tf32_safe_nan(x1)));
+            make_float2(operand<Bf16>(x0), operand<Bf16>(x1));
         if constexpr (Spill && Bf16) pairs[2 * mi + h] = bf16x2_rn(x0, x1);
       }
     if constexpr (Spill && Bf16) stage_bf16<N>(spill.tile, ni, pairs);

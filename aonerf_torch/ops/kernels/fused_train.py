@@ -99,8 +99,11 @@ def saved_dtype(dot_bf16: bool) -> torch.dtype:
     return torch.bfloat16 if dot_bf16 else torch.float32
 
 
-def _relu_mask(x: torch.Tensor) -> torch.Tensor:
-    return (x > 0.0).to(x.dtype)
+def _masked(g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """g where x > 0, else 0: the ReLU's backward. A select, as XLA computes
+    the Pallas kernel's ``g * (x > 0)``: a NaN x or a NaN g under a closed
+    mask gives 0."""
+    return torch.where(x > 0.0, g, 0.0)
 
 
 def bias_grad(delta: torch.Tensor) -> torch.Tensor:
@@ -206,14 +209,14 @@ def fused_level_bwd_saved_ref(
     later = torch.flip(torch.cumsum(torch.flip(gww[:, 1:], [-1]), -1), [-1])
     suffix = torch.cat([later, torch.zeros_like(gww[:, :1])], -1)
     g_alpha = g_w * trans - suffix / v
-    g_raw_sigma = (g_alpha * expterm * dists * _relu_mask(raw_sigma.reshape(R, S))).reshape(R * S, 1)
+    g_raw_sigma = _masked(g_alpha * expterm * dists, raw_sigma.reshape(R, S)).reshape(R * S, 1)
     sig = rgb.reshape(R * S, 3)
     g_raw_rgb = (g_comp[:, None, :] * weights[..., None]).reshape(R * S, 3) * sig * (1.0 - sig)
 
     # MLP backward; hv = relu(zv), so hv > 0 is zv's mask
     g = {}
     g["wr"], g["br"] = dot(hv.t(), g_raw_rgb), bias_grad(g_raw_rgb)
-    delta_v = dot(g_raw_rgb, w["wr"].t()) * _relu_mask(hv)
+    delta_v = _masked(dot(g_raw_rgb, w["wr"].t()), hv)
     g["wva"], g["bv"] = mm(btl.t(), delta_v), bias_grad(delta_v)
     g_btl = mm(delta_v, w["wva"].t())
     g["wvb"] = dot(viewdirs_enc.t(), delta_v.reshape(R, S, -1).sum(1))
@@ -221,17 +224,17 @@ def fused_level_bwd_saved_ref(
     g["wd"], g["bd"] = dot(h7.t(), g_raw_sigma), bias_grad(g_raw_sigma)
     g_h = mm(g_btl, w["wb"].t()) + dot(g_raw_sigma, w["wd"].t())
     for i in (7, 6):
-        delta = g_h * _relu_mask(hs[i])
+        delta = _masked(g_h, hs[i])
         g[f"w{i}"], g[f"b{i}"] = mm(hs[i - 1].t(), delta), bias_grad(delta)
         g_h = mm(delta, w[f"w{i}"].t())
-    delta = g_h * _relu_mask(hs[5])
+    delta = _masked(g_h, hs[5])
     g["w5x"], g["w5i"], g["b5"] = mm(hs[4].t(), delta), mm(xe.t(), delta), bias_grad(delta)
     g_h = mm(delta, w["w5x"].t())
     for i in (4, 3, 2, 1):
-        delta = g_h * _relu_mask(hs[i])
+        delta = _masked(g_h, hs[i])
         g[f"w{i}"], g[f"b{i}"] = mm(hs[i - 1].t(), delta), bias_grad(delta)
         g_h = mm(delta, w[f"w{i}"].t())
-    delta = g_h * _relu_mask(hs[0])
+    delta = _masked(g_h, hs[0])
     g["w0"], g["b0"] = mm(xe.t(), delta), bias_grad(delta)
     return {n: g[n] for n in WEIGHT_NAMES}
 

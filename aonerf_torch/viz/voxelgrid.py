@@ -60,6 +60,20 @@ def nerf_density_fn(model) -> DensityFn:
     return fn
 
 
+def nerf_raw_density_fn(model) -> DensityFn:
+    """The vanilla field's fine-MLP raw density, before the ReLU: its level
+    sets show the field's shape where the density itself is 0 (a field
+    trained towards an empty scene)."""
+    mlp = model.fine_mlp
+
+    def fn(points: torch.Tensor) -> torch.Tensor:
+        enc = pos_enc(points, mlp.min_deg_point, mlp.max_deg_point)
+        with full_fp32():
+            return _nerf_raw_sigma(mlp, enc)[..., 0]
+
+    return fn
+
+
 def _fixed_view_cond(points: torch.Tensor, deg_view: int) -> torch.Tensor:
     """The encoded +x view direction for each of the B rows of ``points``
     (density does not depend on the view)."""

@@ -191,13 +191,33 @@ Phases, each of which fails the run with a non-zero exit:
                profile_steps 5 (checkpoints every steps_per_epoch = 5 steps,
                all kept; the trace's device_op_table naming K1s and K2's
                kernels, its top rows printed); debug_nans raising
-               FloatingPointError at the first step on a NaN planted in a
-               weight, and training without it.
+               FloatingPointError at the first step's level outputs on a NaN
+               planted in a weight (the kernels keep it), and training
+               without it.
  24. lpips test - --run_eval on phase 7's checkpoint with
                AONERF_LPIPS_WEIGHTS naming random weights at VGG16's widths
                written from a seed: results.json's lpips finite, view 0's
                LPIPS on the card within 1e-4 relative of the CPU's on the
                same images, test()'s seconds a view with and without LPIPS.
+ 25. nan kernels - K1 at 4096 rays, K1s and K2 at 2048, S = 65 and 193, in
+               fp32 and bf16 mode, with one NaN planted in a trunk weight,
+               then in a view-branch weight, and (K2) in one ray's acc
+               cotangent: every output and gradient NaN exactly where its
+               plain version's is (the reference's masks: a NaN through the
+               forward's ReLU and clamps, none through a closed backward
+               mask), the finite entries within TOL / K2's per-gradient rule
+               (fp32) or the bf16 rule.
+ 26. geometry  - export_voxels --resolution 128 --mesh on the card for the
+               checkpoints of phases 7, 9 and 11; a 32^3 density grid from
+               the same restored parameters on the card and on the CPU
+               within GEO_GRID_TOL (in the default box, widened while the
+               card's grid is constant there; phase 7's vanilla density is 0
+               in every box, so its mesh check takes the raw density); at a
+               level in the widest gap of the
+               card's grid, a non-empty marching-tetrahedra mesh with the
+               CPU grid's mesh's faces and its vertices within the bound the
+               grids' difference allows; the seconds of a 128^3 grid and of
+               its mesh.
 The line before the last is a JSON object with one entry per kernel and mode
 (K1, K1s, K2 in fp32, then in bf16; K1 and K1s in bf16 at the fast preset's
 shapes; B2 and B1 in bf16; B2 in fp32); the last line is {"ok": true,
@@ -3699,10 +3719,12 @@ def phase_settings(root: str, tmp: str) -> dict:
     last = clean.fit(max_steps=PROFILE_STEPS)
     clean_steps = clean.state.step
     clean.close()
-    print(f"  debug_nans: a NaN planted in coarse_mlp.pts_3.weight raised FloatingPointError ({raised!r}) with "
-          f"the state at step {at_step}; without it {clean_steps} steps, loss {last.get('loss')}")
-    if raised is None or at_step != 0:
-        fail("debug_nans did not raise at the first step on a planted NaN")
+    where = "a level's outputs" if raised and "level's" in raised else "not the level outputs"
+    print(f"  debug_nans: a NaN planted in coarse_mlp.pts_3.weight raised FloatingPointError ({raised!r}: at "
+          f"{where}, as JAX and the CPU raise) with the state at step {at_step}; without it {clean_steps} steps, "
+          f"loss {last.get('loss')}")
+    if raised is None or at_step != 0 or "level's" not in raised:
+        fail("debug_nans did not raise at the level outputs of the first step on a planted NaN")
     if clean_steps != PROFILE_STEPS or not np.isfinite(last.get("loss", float("nan"))):
         fail("debug_nans: the run without a NaN did not train")
     print(f"  phase settings: {time.perf_counter() - t_phase:.1f} s")
@@ -3759,6 +3781,253 @@ def phase_lpips_test(cfg_path: str, tmp: str) -> dict:
     return {"lpips": value, "view0_card": on_card, "view0_cpu": on_cpu, "seconds_per_view": seconds}
 
 
+NAN_CASES = ("trunk", "view", "cotangent")
+
+
+def plant_nan(kp: dict, cot: tuple, case: str):
+    """Copies of a level's kernel params and cotangents with one NaN: in the
+    trunk (w3, input 7 to unit 11), in the view branch (wva, bottleneck
+    input 5 to unit 9) or in ray 2's acc cotangent."""
+    kp = {n: v.clone() for n, v in kp.items()}
+    cot = tuple(c.clone() for c in cot)
+    if case == "trunk":
+        kp["w3"][7, 11] = float("nan")
+    elif case == "view":
+        kp["wva"][5, 9] = float("nan")
+    else:
+        cot[1][2] = float("nan")
+    return kp, cot
+
+
+def _finite_part(out: dict, masks: dict) -> dict:
+    """Each tensor with its NaN entries (by the kernel's masks) set to 0,
+    for the rules, which hold the finite entries."""
+    return {n: torch.where(masks[n], torch.zeros_like(v), v) for n, v in out.items()}
+
+
+def _nan_masks(what: str, got: dict, want: dict) -> dict:
+    """The kernel's isnan masks, failed unless equal to the plain version's."""
+    masks = {}
+    for n, g in got.items():
+        masks[n] = torch.isnan(g)
+        if not torch.equal(masks[n], torch.isnan(want[n])):
+            fail(f"{what}: {n} is NaN at {int(masks[n].sum())} entries, its plain version at "
+                 f"{int(torch.isnan(want[n]).sum())}; {int((masks[n] != torch.isnan(want[n])).sum())} differ")
+    return masks
+
+
+def phase_nan_kernels(nerf, boxes, focal) -> dict:
+    """K1 at the serving tile's 4096 rays, K1s and K2 at the train step's
+    2048, S = 65 and 193, fp32 and bf16 mode, with one NaN planted in a
+    trunk weight, then in a view-branch weight, and (K2) in a cotangent:
+    each output and gradient NaN exactly where its plain version's is, its
+    finite entries held to the plain versions under the existing rules
+    (fp32: TOL and K2's per-gradient rule; bf16: the bf16 rule)."""
+    from aonerf_torch.ops.kernels import fused_render as fr
+    from aonerf_torch.ops.kernels import fused_train as ft
+
+    t_phase = time.perf_counter()
+    white, rows = True, []
+    for dot_bf16 in (False, True):
+        mode = "bf16" if dot_bf16 else "fp32"
+        for R_k, kernel in ((R, "K1"), (R_TRAIN, "K1s+K2")):
+            o, d, lvls = _train_levels(nerf, boxes, focal, R=R_k, seed=SEED + 900, dot_bf16=dot_bf16)
+            for kp0, t, venc, xenc in lvls:
+                S = t.shape[1]
+                rng = np.random.default_rng(SEED + 901 + S)
+                cot0 = tuple(torch.from_numpy(a.astype(np.float32)).cuda() for a in (
+                    rng.standard_normal((R_k, 3)), rng.standard_normal(R_k), 0.1 * rng.standard_normal(R_k),
+                    rng.standard_normal((R_k, S))))
+                for case in NAN_CASES if kernel != "K1" else NAN_CASES[:2]:
+                    kp, cot = plant_nan(kp0, cot0, case)
+                    args = (kp, t, o, d, venc, xenc)
+                    args64 = ({n: v.double() for n, v in kp.items()}, *(a.double() for a in (t, o, d, venc, xenc)))
+                    what = f"{kernel} {mode} S={S} NaN in the {case}"
+                    if kernel == "K1":
+                        got = dict(zip(OUTPUTS, fr.fused_render_level(*args, white, dot_bf16=dot_bf16)))
+                        plain = lambda a, mm=torch.matmul: dict(zip(OUTPUTS, fr.fused_render_level_ref(  # noqa: E731
+                            *a, white, mm=mm, dot_bf16=dot_bf16)))
+                    else:
+                        fwd = ft.fused_level_fwd_spill(*args, white, dot_bf16=dot_bf16)
+                        saved, raw = fwd[4], fwd[5]
+                        got = {**dict(zip(OUTPUTS, fwd[:4])),
+                               **ft.fused_level_bwd_saved(*args, saved, raw, *cot, white, dot_bf16=dot_bf16)}
+                        del fwd
+
+                        def plain(a, mm=torch.matmul, c=cot, saved=saved, raw=raw):
+                            f = ft.fused_level_fwd_spill_ref(*a, white, mm=mm, dot_bf16=dot_bf16)
+                            cc = tuple(x.to(a[1].dtype) for x in c)
+                            return {**dict(zip(OUTPUTS, f[:4])), **ft.fused_level_bwd_saved_ref(
+                                *a, saved, raw.to(a[1].dtype), *cc, white, mm=mm, dot_bf16=dot_bf16)}
+                    torch.cuda.synchronize()
+                    p32 = plain(args)
+                    masks = _nan_masks(what, got, p32)
+                    fin = lambda x: _finite_part(x, masks)  # noqa: E731
+                    p64 = fin(plain(args64))
+                    if dot_bf16:
+                        orders = {k: fin(plain(args, mm)) for k, mm in BF16_ORDERS.items()}
+                        lim = {n: max(TOL_BF16_FWD if n in OUTPUTS else TOL_BF16_GRAD, TOL_BF16_SPREAD * max(
+                            _rel(run[n], ref) for run in orders.values())) for n, ref in p64.items()}
+                        ratios = bf16_ratios(fin(got), p64, lim)
+                        del orders
+                    else:
+                        k64, e64 = _grad_errors(fin(got), p64, list(got)), _grad_errors(fin(p32), p64, list(got))
+                        ratios = {n: ((got[n] - p32[n]).abs().nan_to_num(0.0).max().item() / TOL[n]) if n in OUTPUTS
+                                  else k64[n] / max(TOL_GRAD, TOL_GRAD_FACTOR * e64[n]) for n in got}
+                    worst = max(ratios, key=ratios.get)
+                    share = {n: m.double().mean().item() for n, m in masks.items()}
+                    print(f"nan kernels: {what} at {R_k} rays: isnan masks equal to the plain version's on all "
+                          f"{len(got)} outputs (NaN share " + ", ".join(
+                              f"{n} {v:.3f}" for n, v in share.items() if n in OUTPUTS or 0 < v < 1)
+                          + f"); finite entries {'by the bf16 rule' if dot_bf16 else 'within TOL / the K2 rule'}, "
+                          f"closest to its limit {worst} {ratios[worst]:.3f}")
+                    if not ratios[worst] <= 1.0:
+                        fail(f"{what}: finite entries off the plain version beyond the rule on "
+                             f"{sorted(n for n, r in ratios.items() if not r <= 1.0)}")
+                    rows.append({"mode": mode, "kernel": kernel, "S": S, "case": case, "ratio": ratios[worst],
+                                 "nan_share": share})
+                    del got, p32, p64, masks
+                    torch.cuda.empty_cache()
+            del o, d, lvls
+    print(f"  phase nan kernels: {time.perf_counter() - t_phase:.1f} s")
+    return {"cases": rows}
+
+
+# Phase 26: the card's density grid against the CPU's from the same restored
+# parameters (and, for the auto-encoder, the same encoded codes), relative to
+# the CPU grid's largest value. Both are fp32 products summed in other
+# orders; the articulated fields pass the warped points through sin(2^9 x),
+# which magnifies that to ~5e-5 of the largest value (the port against JAX
+# on the CPU: tests/test_torch_geometry.py, TOL_F32 2e-4).
+GEO_RES, GEO_EXPORT_RES, GEO_GRID_TOL = 32, 128, 2e-4
+# Half-widths of the cubic box of phase 26's grids: export_voxels' default
+# first, widened while the card's grid is constant in the box. Phase 7's
+# step-60 vanilla density is 0 in every one of them (its raw density is
+# negative everywhere: 60 steps towards an empty scene), so its mesh check
+# runs on the raw density, in the default box.
+GEO_HALF_WIDTHS = (1.5, 3.0, 6.0, 12.0)
+
+
+def gap_level(grid: np.ndarray, margin: float, q_lo: float = 0.5, q_hi: float = 0.95):
+    """(level, gap): a level in the widest gap between consecutive sorted
+    grid values between the q_lo and q_hi quantiles, or anywhere when that
+    gap is not wider than 2 x margin; None when no gap is."""
+    v = np.unique(grid.ravel().astype(np.float64))
+    for lo, hi in ((q_lo, q_hi), (0.0, 1.0)):
+        i0, i1 = int(lo * (len(v) - 1)), int(hi * (len(v) - 1))
+        if i1 <= i0:
+            continue
+        gaps = np.diff(v[i0:i1 + 1])
+        i = i0 + int(np.argmax(gaps))
+        if v[i + 1] - v[i] > 2.0 * margin:
+            return 0.5 * (v[i] + v[i + 1]), float(v[i + 1] - v[i])
+    return None, 0.0
+
+
+def phase_geometry(runs: dict, tmp: str) -> dict:
+    """For the checkpoints of phases 7, 9 and 11 (vanilla, auto-decoder,
+    auto-encoder): export_voxels --resolution 128 --mesh on the card; a
+    32^3 density grid on the card and on the CPU from the same restored
+    parameters within GEO_GRID_TOL, in the first box of GEO_HALF_WIDTHS
+    where the card's grid is not constant (the vanilla raw density where its
+    density is constant in all of them); a level from the card's grid
+    (in its widest gap near the top, clear of both grids' difference) whose
+    marching-tetrahedra mesh is non-empty and has the CPU grid's mesh's
+    faces, vertices within the bound the grids' difference allows; the
+    seconds of a 128^3 grid and of its mesh in that box."""
+    import copy
+
+    from aonerf_torch.cli import export_voxels
+    from aonerf_torch.train.loop import Trainer
+    from aonerf_torch.utils.config import load_config
+    from aonerf_torch.viz import voxelgrid as vg
+    from aonerf_torch.viz.mesh import marching_tetrahedra
+
+    t_phase = time.perf_counter()
+    smi = smi_line()
+    out = {}
+    for name, cfg_path in runs.items():
+        base = os.path.join(tmp, f"geometry_{name}")
+        t0 = time.perf_counter()
+        summary = export_voxels.main(["--config", cfg_path, "--out", base + "_occ.ply", "--mesh", base + "_mesh.ply",
+                                      "--resolution", str(GEO_EXPORT_RES)])
+        cli_s = time.perf_counter() - t0
+        keys = ["out", "occupied", "resolution", "threshold", "step", "mesh", "mesh_verts", "mesh_faces"]
+        if list(summary) != keys or summary["step"] <= 0 or not all(
+                os.path.exists(summary[k]) for k in ("out", "mesh")):
+            fail(f"geometry {name}: export_voxels printed {summary}")
+
+        trainer = Trainer(load_config(cfg_path, {}))
+        cpu_model = copy.deepcopy(trainer.model).cpu()
+        if name == "vanilla":
+            card_fn, cpu_fn = vg.nerf_density_fn(trainer.model), vg.nerf_density_fn(cpu_model)
+        elif name == "autodecoder":
+            lat = trainer._latents_for(0, 0)
+            card_fn = vg.articulated_density_fn(trainer.model, lat)
+            cpu_fn = vg.articulated_density_fn(cpu_model, {k: v.cpu() for k, v in lat.items()})
+        else:
+            lat, _ = trainer._render_setup(trainer.dataset.get_image(0, 0, 0))
+            card_fn = vg.ae_density_fn(trainer.model, lat)
+            cpu_fn = vg.ae_density_fn(cpu_model, {k: v.cpu() for k, v in lat.items()})
+        for half in GEO_HALF_WIDTHS:
+            box = ((-half,) * 3, (half,) * 3)
+            card = vg.density_grid(card_fn, *box, resolution=GEO_RES, device="cuda")
+            if np.ptp(card) > 0:
+                break
+        what = "density"
+        if np.ptp(card) == 0:
+            cpu = vg.density_grid(cpu_fn, *box, resolution=GEO_RES, device="cpu")
+            print(f"geometry {name}: the density is {card.flat[0]:g} everywhere in the boxes of half-width "
+                  f"{GEO_HALF_WIDTHS} on the card, and the CPU's {'too' if np.array_equal(card, cpu) else 'NOT'}; "
+                  f"the mesh check takes the raw density")
+            if name != "vanilla" or not np.array_equal(card, cpu):
+                fail(f"geometry {name}: a constant density grid")
+            card_fn, cpu_fn = vg.nerf_raw_density_fn(trainer.model), vg.nerf_raw_density_fn(cpu_model)
+            half, what = GEO_HALF_WIDTHS[0], "raw density"
+            box = ((-half,) * 3, (half,) * 3)
+            card = vg.density_grid(card_fn, *box, resolution=GEO_RES, device="cuda")
+        cpu = vg.density_grid(cpu_fn, *box, resolution=GEO_RES, device="cpu")
+        scale = float(np.abs(cpu).max())
+        diff = float(np.abs(card - cpu).max())
+        rel = diff / max(scale, 1e-30)
+        level, gap = gap_level(card, diff)
+        print(f"geometry {name} (step {summary['step']}): export_voxels --resolution {GEO_EXPORT_RES} --mesh on the "
+              f"card in {cli_s:.1f} s: {summary['occupied']} occupied at threshold {summary['threshold']}, mesh "
+              f"{summary['mesh_verts']} verts / {summary['mesh_faces']} faces; {GEO_RES}^3 {what} grid in the box of "
+              f"half-width {half:g}: card vs CPU max abs diff {diff:.3e} = {rel:.2e} of its largest value {scale:.4e} (tol {GEO_GRID_TOL:g}); grid min "
+              f"{card.min():.4e}, median {np.median(card):.4e}, max {card.max():.4e}")
+        if not np.isfinite(card).all() or not (what != "density" or (card >= 0).all()) or not rel <= GEO_GRID_TOL:
+            fail(f"geometry {name}: the card's grid is off the CPU's")
+        if level is None:
+            fail(f"geometry {name}: no gap in the card's grid wider than twice its difference from the CPU's")
+        verts, faces = marching_tetrahedra(card, level, *box)
+        cverts, cfaces = marching_tetrahedra(cpu, level, *box)
+        pitch = 2.0 * half / GEO_RES
+        vtol = np.sqrt(3.0) * pitch * diff / (gap - 2.0 * diff) + 1e-9
+        vdiff = float(np.abs(verts - cverts).max()) if len(verts) == len(cverts) and len(verts) else float("inf")
+        print(f"  level {level:.6e} (widest gap {gap:.3e}): card mesh {len(verts)} verts / {len(faces)} faces, CPU mesh "
+              f"{len(cverts)} / {len(cfaces)}, faces equal {np.array_equal(faces, cfaces)}, vertices max diff "
+              f"{vdiff:.3e} (bound {vtol:.3e})")
+        if not len(faces) or not np.array_equal(faces, cfaces) or not vdiff <= vtol:
+            fail(f"geometry {name}: the card grid's mesh is empty or not the CPU grid's")
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        big = vg.density_grid(card_fn, *box, resolution=GEO_EXPORT_RES, device="cuda")
+        grid_s = time.perf_counter() - t0
+        big_level, _ = gap_level(big, 0.0)
+        t0 = time.perf_counter()
+        bverts, bfaces = marching_tetrahedra(big, big_level, *box)
+        mesh_s = time.perf_counter() - t0
+        trainer.close()
+        print(f"  {GEO_EXPORT_RES}^3 grid {grid_s:.3f} s on the card; its mesh at level {big_level:.4e} "
+              f"{len(bverts)} verts / {len(bfaces)} faces in {mesh_s:.2f} s on the host ({smi})")
+        out[name] = {"summary": summary, "half_width": half, "field": what, "grid_rel_diff": rel, "level": level, "faces": int(len(faces)),
+                     "grid_seconds": grid_s, "mesh_seconds": mesh_s, "cli_seconds": cli_s}
+    print(f"  phase geometry: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> None:
     t_run = time.perf_counter()
     phase_device()
@@ -3792,6 +4061,8 @@ def main() -> None:
         nt = phase_noise_training(t["root"], tmp)
         phase_settings(t["root"], tmp)
         phase_lpips_test(t["cfg_path"], tmp)
+        phase_nan_kernels(nerf, boxes, focal)
+        phase_geometry({"vanilla": t["cfg_path"], "autodecoder": a["cfg_path"], "autoencoder": ae["cfg_path"]}, tmp)
     ae_launches = [x + y for x, y in zip(ae["fused"], ae_test["fused"])]  # K1, K1s, K2 on phases 11-12
 
     lv = k["levels"]

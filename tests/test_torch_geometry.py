@@ -142,6 +142,17 @@ def test_vanilla_bf16_grid_is_computed_in_bf16():
     assert not np.array_equal(_port_grid(fn32), got)
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_vanilla_density_is_the_relu_of_the_raw_density(dtype):
+    # the raw density (which chip_smoke.py meshes where a field's density is
+    # 0 everywhere) through ReLU is the density, bit for bit
+    model = NeRF(num_coarse_samples=4, num_fine_samples=4, compute_dtype=DTYPES[dtype][1],
+                 generator=torch.Generator().manual_seed(7), device="cpu")
+    raw = _port_grid(vg.nerf_raw_density_fn(model))
+    assert np.array_equal(np.maximum(raw, 0.0), _port_grid(vg.nerf_density_fn(model)))
+    assert (raw < 0).any() and (raw > 0).any()
+
+
 def _coords_fn_jax(p):
     return p[..., 0] + 2.0 * p[..., 1] + 4.0 * p[..., 2] * p[..., 2]
 

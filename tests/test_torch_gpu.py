@@ -1246,3 +1246,46 @@ def test_lpips_on_the_card_matches_the_cpu(cuda, tmp_path):
     cpu = lpips.lpips_distance(lpips.load_weights(path, "cpu"), a, b)
     assert card.device.type == "cuda" and torch.isfinite(card)
     assert abs(card.item() - cpu.item()) <= 1e-4 * abs(cpu.item())
+
+
+@pytest.mark.parametrize("dot_bf16", [False, True], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", rule.NAN_CASES)
+@pytest.mark.parametrize("S", [65, 193])
+def test_kernels_keep_a_planted_nan_where_the_plain_versions_do(cuda, S, case, dot_bf16):
+    # one NaN in a trunk weight, a view-branch weight or a cotangent: K1,
+    # K1s and K2 NaN exactly where their plain versions are (a NaN through
+    # the forward's ReLU and clamps, none through a closed backward mask);
+    # the outputs and gradients the NaN cannot reach keep the clean call's
+    # bits
+    mlp = NeRFMLP(generator=torch.Generator().manual_seed(S), device=cuda)
+    with torch.no_grad():
+        kp0 = fr.kernel_params(mlp)
+    args0 = _level_inputs(256, S, S, cuda)
+    cot0 = _cotangents(256, S, S + 1, cuda)
+    kp, cot = rule.plant_nan(kp0, cot0, case)
+    args = (kp, *args0)
+    k1 = fr.fused_render_level(*args, True, dot_bf16=dot_bf16)
+    k1s = ft.fused_level_fwd_spill(*args, True, dot_bf16=dot_bf16)
+    k2 = ft.fused_level_bwd_saved(*args, k1s[4], k1s[5], *cot, True, dot_bf16=dot_bf16)
+    p1 = fr.fused_render_level_ref(*args, True, dot_bf16=dot_bf16)
+    p1s = ft.fused_level_fwd_spill_ref(*args, True, dot_bf16=dot_bf16)
+    p2 = ft.fused_level_bwd_saved_ref(*args, k1s[4], k1s[5], *cot, True, dot_bf16=dot_bf16)
+    for i, n in enumerate(rule.OUTPUTS):
+        assert torch.equal(torch.isnan(k1[i]), torch.isnan(p1[i])), ("K1", n)
+        assert torch.equal(torch.isnan(k1s[i]), torch.isnan(p1s[i])), ("K1s", n)
+        assert torch.equal(k1s[i].isnan(), k1[i].isnan()) and torch.equal(k1s[i].nan_to_num(), k1[i].nan_to_num())
+    for n in fr.WEIGHT_NAMES:
+        assert torch.equal(torch.isnan(k2[n]), torch.isnan(p2[n])), ("K2", n)
+
+    clean1s = ft.fused_level_fwd_spill(kp0, *args0, True, dot_bf16=dot_bf16)
+    clean2 = ft.fused_level_bwd_saved(kp0, *args0, clean1s[4], clean1s[5], *cot0, True, dot_bf16=dot_bf16)
+    if case == "view":  # acc, depth and weights do not see the view branch
+        assert torch.isnan(k1s[0]).all()
+        for i in (1, 2, 3):
+            assert torch.equal(k1s[i], clean1s[i])
+    if case == "cotangent":  # the outputs and the view branch's gradients do not see the acc cotangent
+        for i in range(4):
+            assert torch.equal(k1s[i], clean1s[i])
+        for n in ("wb", "bb", "wva", "wvb", "bv", "wr", "br"):
+            assert torch.equal(k2[n], clean2[n]), n
+        assert torch.isnan(k2["wd"]).all()

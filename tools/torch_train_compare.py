@@ -161,6 +161,9 @@ def time_levels(device) -> dict:
             k1s = lambda: spill(*args)  # noqa: E731
             row["k1s_ms"] = [cuda_ms(k1s, warmup=2, iters=iters), cuda_ms(k1s, warmup=0, iters=iters)]
         row["k1_ms"].append(cuda_ms(k1, warmup=0, iters=iters))
+        if spill is not None and has_bf16():
+            k1s_bf16 = lambda: spill(*args, dot_bf16=True)  # noqa: E731
+            row["k1s_bf16_ms"] = [cuda_ms(k1s_bf16, warmup=2, iters=iters), cuda_ms(k1s_bf16, warmup=0, iters=iters)]
         args4096 = (kp, *level_inputs(4096, S, S, device), True)
         row["k1_4096_ms"] = cuda_ms(lambda: fr.fused_render_level(*args4096), warmup=2, iters=iters // 2)
         out[f"S={S}"] = row
@@ -354,7 +357,8 @@ def main() -> None:
     parser.add_argument("--forward-only", action="store_true",
                         help="time only K1 and K1s, at the serving, training and fast preset's shapes")
     parser.add_argument("--kernels-only", action="store_true",
-                        help="time only the fp32 K1 and K1s, K2 at 2048 rays and K2 bf16 at the fast preset's batch")
+                        help="time only K1 and K1s (fp32; K1s also bf16), K2 at 2048 rays and K2 bf16 at the fast "
+                             "preset's batch")
     parser.add_argument("--fwd-bf16-run", type=int,
                         help="build the kernels with this run length of the bf16 forward's products "
                              "(AONERF_FWD_BF16_RUN, k16 steps a fresh accumulator: 1 or even)")
