@@ -358,6 +358,12 @@ class Trainer:
             activities.append(ProfilerActivity.CUDA)
         profiler = profile(activities=activities)
         profiler.start()
+        if self.device.type == "cuda":
+            # CUPTI can drop a kernel launched while its tracing starts (one
+            # of the first step's K1s launches, once on the H100): a small
+            # kernel and a sync first, before the step's own
+            torch.zeros(1, device=self.device).add_(1)
+            torch.cuda.synchronize(self.device)
         return profiler
 
     def _stop_profiler(self, profiler, start: int) -> str:
