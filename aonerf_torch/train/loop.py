@@ -351,19 +351,20 @@ class Trainer:
     def _start_profiler(self):
         """A started torch.profiler over the host's operations and, on the
         card, its kernels (the JAX Trainer's jax.profiler.start_trace)."""
-        from torch.profiler import ProfilerActivity, profile
+        from torch.profiler import ProfilerActivity, profile, schedule
 
         activities = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
-        profiler = profile(activities=activities)
+        # A warm-up cycle before the recorded one: started cold, the trace
+        # lost the first step's first kernels (one of its K1s launches) on
+        # the H100 after many earlier profiler sessions in the process.
+        profiler = profile(activities=activities, schedule=schedule(wait=0, warmup=1, active=1, repeat=1))
         profiler.start()
         if self.device.type == "cuda":
-            # CUPTI can drop a kernel launched while its tracing starts (one
-            # of the first step's K1s launches, once on the H100): a small
-            # kernel and a sync first, before the step's own
             torch.zeros(1, device=self.device).add_(1)
             torch.cuda.synchronize(self.device)
+        profiler.step()
         return profiler
 
     def _stop_profiler(self, profiler, start: int) -> str:
