@@ -358,7 +358,7 @@ class Trainer:
             activities.append(ProfilerActivity.CUDA)
         # A warm-up cycle before the recorded one: started cold, the trace
         # lost the first step's first kernels (one of its K1s launches) on
-        # the H100 after many earlier profiler sessions in the process.
+        # the H100 after many earlier profiler runs in the process.
         profiler = profile(activities=activities, schedule=schedule(wait=0, warmup=1, active=1, repeat=1))
         profiler.start()
         if self.device.type == "cuda":

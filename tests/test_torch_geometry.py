@@ -32,11 +32,12 @@ BBOX = ((-1.2, -1.1, -1.0), (1.0, 1.3, 1.2))  # not a cube: pins the per-axis ce
 # fp32: the port's grid against JAX's, relative to the grid's largest value.
 # Both evaluate the same fp32 products in other summation orders; the
 # articulated fields pass the warped points through sin(2^9 x), which
-# magnifies that to ~5e-5 of the largest entry (ROADMAP, PR 10).
+# magnifies that to ~5e-5 of the largest entry (tests/test_torch_autodecoder_step.py).
 TOL_F32 = 2e-4
 # bf16: every layer rounds its output to bf16 (8 bits), and the two sides'
 # products round from other fp32 sums, so a rounding may flip by one bf16 ulp
-# (2^-8 relative) at any layer; the articulated bf16 rule (PR 18) allows
+# (2^-8 relative) at any layer; the articulated bf16 rule
+# (tests/test_torch_bf16_articulated_rule.py) allows
 # rows off flax beyond 3e-3. Held: within 2^-4 of the grid's largest value
 # and, on 95% of the voxels, within 2^-7 relative of JAX's value (measured:
 # at most 2.3e-2 of the largest value, 99.9% of the voxels). The same
