@@ -115,11 +115,22 @@ def kernel_params(mlp) -> Dict[str, torch.Tensor]:
     return {n: out[n] for n in WEIGHT_NAMES}
 
 
+def tf32_safe_nan_(flat: torch.Tensor) -> torch.Tensor:
+    """``flat`` with every NaN made torch's NaN (0x7fc00000), in place. The
+    fp32 kernels split each weight into TF32 halves on the integer pipe,
+    which carries a NaN whose mantissa's high bits are all set (0x7fffffff,
+    the NaN the card's arithmetic gives, or its negation) into the sign or
+    out of the word and so rounds it to a zero; 0x7fc00000 stays a NaN.
+    Every other value keeps its bits."""
+    return flat.masked_fill_(flat.isnan(), float("nan"))
+
+
 def kernel_weights_t(kernel_params: Dict[str, torch.Tensor]) -> torch.Tensor:
     """The forward kernels' copy of the product weights in ``WEIGHTS_T``:
     each transposed (out x in), w0 and w5i with a zero column that pads in
     from 63 to 64, packed in order into one flat contiguous fp32 buffer on
-    the weights' device, detached. The kernels take it beside the flax-layout
+    the weights' device, detached, every NaN made TF32-safe
+    (:func:`tf32_safe_nan_`). The kernels take it beside the flax-layout
     ``kernel_params``; it is rebuilt at every launch, since the weights move
     every training step."""
     first = kernel_params["w0"]
@@ -127,7 +138,7 @@ def kernel_weights_t(kernel_params: Dict[str, torch.Tensor]) -> torch.Tensor:
     for name, view in unpack_weights_t(flat).items():
         w = kernel_params[name].detach()
         view[:, : w.shape[0]].copy_(w.t())
-    return flat
+    return tf32_safe_nan_(flat)
 
 
 def kernel_weights_t_bf16(kernel_params: Dict[str, torch.Tensor]) -> torch.Tensor:

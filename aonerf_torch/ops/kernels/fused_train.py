@@ -68,6 +68,7 @@ from aonerf_torch.ops.kernels.fused_render import (
     level_activations_ref,
     round_bf16,
     slice_order,
+    tf32_safe_nan_,
 )
 
 # Saved activations per sample: h0..h7, the bottleneck, the view hidden layer.
@@ -277,13 +278,28 @@ def b1_weights_bf16(kernel_params: Dict[str, torch.Tensor]) -> torch.Tensor:
     return rows.to(torch.bfloat16).index_select(1, slice_order(rows.device)).view(-1)
 
 
+def b1_weights(kernel_params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """fp32 B1's product weights, name -> a copy in its flax (in, out)
+    layout, detached: views of one flat buffer (one concatenation a launch,
+    each view 16-byte aligned) in which every NaN is made TF32-safe
+    (``fused_render.tf32_safe_nan_``); every other value keeps its bits."""
+    flat = tf32_safe_nan_(torch.cat([kernel_params[n].detach().reshape(-1) for n in B1_WEIGHTS]))
+    views, start = {}, 0
+    for n in B1_WEIGHTS:
+        w = kernel_params[n]
+        views[n] = flat[start : start + w.numel()].view(w.shape)
+        start += w.numel()
+    return views
+
+
 def bwd_operands(kernel_params: Dict[str, torch.Tensor], dot_bf16: bool):
     """What the backward kernels take beside the inputs: the 26 weights (in
-    bf16 mode with the narrow heads of B1_HEADS rounded to bf16; B1 reads no
+    fp32 mode with B1's product weights from :func:`b1_weights`; in bf16
+    mode with the narrow heads of B1_HEADS rounded to bf16, B1 reading no
     other) and B1's pack, :func:`b1_weights_bf16` in bf16 mode, else None
-    (fp32 B1 streams the flax-layout weights themselves)."""
+    (fp32 B1 streams the flax-layout weights)."""
     if not dot_bf16:
-        return kernel_params, None
+        return {**kernel_params, **b1_weights(kernel_params)}, None
     heads = {n: round_bf16(kernel_params[n].detach()) for n in B1_HEADS}
     return {**kernel_params, **heads}, b1_weights_bf16(kernel_params)
 
@@ -596,7 +612,10 @@ def fused_level_bwd(
     _check_cotangents(g_comp, g_acc, g_depth, g_weights, R, S, dev)
     lib = _library()
     ray_tile = launch_ray_tile(R, S, ray_tile, dev, _fwd_and_bwd_smem)
-    b1_pack = b1_weights_bf16(kernel_params) if dot_bf16 else None
+    if dot_bf16:
+        b1_pack = b1_weights_bf16(kernel_params)
+    else:
+        b1_pack, kernel_params = None, {**kernel_params, **b1_weights(kernel_params)}
     kernel_params, wt = fwd_operands(kernel_params, dot_bf16)  # rounds wd and wr too, as B1 takes them
     scratch, grads = _backward_scratch(lib, kernel_params, R, S, ray_tile, dev, dot_bf16)
     saved = torch.empty(R * S * SAVED_FLOATS, dtype=saved_dtype(dot_bf16), device=dev)

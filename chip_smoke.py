@@ -3781,24 +3781,25 @@ def phase_lpips_test(cfg_path: str, tmp: str) -> dict:
     return {"lpips": value, "view0_card": on_card, "view0_cpu": on_cpu, "seconds_per_view": seconds}
 
 
-NAN_CASES = ("trunk", "view", "cotangent")
+# Where one NaN is planted and, after the place, its bits where they are not
+# torch's NaN (0x7fc00000): 0x7fffffff is the NaN the card's arithmetic gives
+# (an Adam update gone NaN), 0xffffffff its negation; split into TF32 halves
+# on the integer pipe either would round to a zero.
+NAN_CASES = ("trunk", "view", "cotangent", "trunk 0x7fffffff", "view 0xffffffff", "cotangent 0x7fffffff")
 
 
 def plant_nan(kp: dict, cot: tuple, case: str):
-    """Copies of a level's kernel params and cotangents with one NaN: in the
-    trunk (w3, input 7 to unit 11), in the view branch (wva, bottleneck
-    input 5 to unit 9) or in ray 2's acc cotangent."""
+    """Copies of a level's kernel params and cotangents with one NaN of the
+    case's bits: in the trunk (w3, input 7 to unit 11), in the view branch
+    (wva, bottleneck input 5 to unit 9) or in ray 2's acc cotangent."""
     kp = {n: v.clone() for n, v in kp.items()}
     cot = tuple(c.clone() for c in cot)
-    if case == "trunk":
-        kp["w3"][7, 11] = float("nan")
-    elif case == "view":
-        kp["wva"][5, 9] = float("nan")
-    else:
-        cot[1][2] = float("nan")
+    place, _, bits = case.partition(" ")
+    target = {"trunk": (kp["w3"], (7, 11)), "view": (kp["wva"], (5, 9)), "cotangent": (cot[1], (2,))}[place]
+    target[0].view(torch.int32)[target[1]] = int(np.array(int(bits or "0x7fc00000", 16), np.uint32).view(np.int32))
+    if not torch.isnan(target[0][target[1]]):
+        fail(f"plant_nan: {case} planted no NaN")
     return kp, cot
-
-
 def _finite_part(out: dict, masks: dict) -> dict:
     """Each tensor with its NaN entries (by the kernel's masks) set to 0,
     for the rules, which hold the finite entries."""
@@ -3838,7 +3839,7 @@ def phase_nan_kernels(nerf, boxes, focal) -> dict:
                 cot0 = tuple(torch.from_numpy(a.astype(np.float32)).cuda() for a in (
                     rng.standard_normal((R_k, 3)), rng.standard_normal(R_k), 0.1 * rng.standard_normal(R_k),
                     rng.standard_normal((R_k, S))))
-                for case in NAN_CASES if kernel != "K1" else NAN_CASES[:2]:
+                for case in NAN_CASES if kernel != "K1" else [c for c in NAN_CASES if not c.startswith("cotangent")]:
                     kp, cot = plant_nan(kp0, cot0, case)
                     args = (kp, t, o, d, venc, xenc)
                     args64 = ({n: v.double() for n, v in kp.items()}, *(a.double() for a in (t, o, d, venc, xenc)))
@@ -3937,11 +3938,23 @@ def phase_geometry(runs: dict, tmp: str) -> dict:
     seconds of a 128^3 grid and of its mesh in that box."""
     import copy
 
+    from aonerf_torch import full_fp32
     from aonerf_torch.cli import export_voxels
+    from aonerf_torch.ops.encoding import pos_enc
     from aonerf_torch.train.loop import Trainer
     from aonerf_torch.utils.config import load_config
     from aonerf_torch.viz import voxelgrid as vg
     from aonerf_torch.viz.mesh import marching_tetrahedra
+
+    def raw_density_fn(model):  # the vanilla fine MLP's density before its ReLU
+        mlp = model.fine_mlp
+
+        def fn(p):
+            with full_fp32():
+                enc = pos_enc(p, mlp.min_deg_point, mlp.max_deg_point)
+                return mlp(enc, vg._fixed_view_cond(p, mlp.deg_view))[1][..., 0]
+
+        return fn
 
     t_phase = time.perf_counter()
     smi = smi_line()
@@ -3982,7 +3995,7 @@ def phase_geometry(runs: dict, tmp: str) -> dict:
                   f"the mesh check takes the raw density")
             if name != "vanilla" or not np.array_equal(card, cpu):
                 fail(f"geometry {name}: a constant density grid")
-            card_fn, cpu_fn = vg.nerf_raw_density_fn(trainer.model), vg.nerf_raw_density_fn(cpu_model)
+            card_fn, cpu_fn = raw_density_fn(trainer.model), raw_density_fn(cpu_model)
             half, what = GEO_HALF_WIDTHS[0], "raw density"
             box = ((-half,) * 3, (half,) * 3)
             card = vg.density_grid(card_fn, *box, resolution=GEO_RES, device="cuda")

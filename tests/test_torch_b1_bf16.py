@@ -45,6 +45,10 @@ def test_bwd_operands_round_only_the_heads_b1_reads(dot_bf16):
     for n in fr.WEIGHT_NAMES:
         if dot_bf16 and n in ft.B1_HEADS:
             assert torch.equal(params[n], fr.round_bf16(kp[n])) and not torch.equal(params[n], kp[n]), n
+        elif not dot_bf16 and n in ft.B1_WEIGHTS:  # fp32 B1's TF32-safe copies: the same bits
+            assert params[n] is not kp[n] and params[n].is_contiguous(), n
+            assert torch.equal(params[n].view(torch.int32), kp[n].view(torch.int32)), n
+            assert params[n].data_ptr() % 16 == 0, n  # a TMA map's base
         else:
             assert params[n] is kp[n], n
     if dot_bf16:
