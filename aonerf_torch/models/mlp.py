@@ -14,7 +14,9 @@ layer form.
 ``compute_dtype`` (``torch.float32`` or ``torch.bfloat16``) is the mode the
 fused kernels run this MLP in: with bf16 every product takes bf16-rounded
 operands and sums in fp32 (the TPU kernels' ``dot_bf16``; its plain form is
-``level_activations_ref(..., dot_bf16=True)``). ``forward`` stays fp32.
+``level_activations_ref(..., dot_bf16=True)``). ``forward`` computes in the
+same dtype as flax's ``NeRFMLP(compute_dtype=...)``: each layer through
+``linear``, fp32 products in fp32, bf16 ones rounded with their bias.
 Parameters, their gradients and the optimizer's moments stay fp32, as
 flax's ``param_dtype`` keeps them.
 """
@@ -97,20 +99,22 @@ class NeRFMLP(nn.Module):
     def forward(
         self, x: torch.Tensor, condition: torch.Tensor
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """x (B, S, 63) encoded samples; condition (B, 27) encoded view dirs.
+        """x (B, S, 63) encoded samples; condition (B, 27) encoded view dirs,
+        both cast to ``compute_dtype`` as flax casts them.
 
-        Returns (raw_rgb (B, S, 3), raw_density (B, S, 1)).
+        Returns (raw_rgb (B, S, 3), raw_density (B, S, 1)) in ``compute_dtype``.
         """
+        dtype = self.compute_dtype
         num_samples, feat_dim = x.shape[1:]
-        x = x.reshape(-1, feat_dim)
+        x = x.reshape(-1, feat_dim).to(dtype)
         inputs = x
         for idx in range(self.netdepth):
-            x = torch.relu(getattr(self, f"pts_{idx}")(x))
+            x = torch.relu(linear(getattr(self, f"pts_{idx}"), x, dtype))
             if idx % self.skip_layer == 0 and idx > 0:
                 x = torch.cat([x, inputs], dim=-1)
-        raw_density = self.density(x).reshape(-1, num_samples, 1)
-        bottleneck = self.bottleneck(x)
-        cond = condition[:, None, :].expand(-1, num_samples, -1).reshape(-1, condition.shape[-1])
-        x = torch.relu(self.views_0(torch.cat([bottleneck, cond], dim=-1)))
-        raw_rgb = self.rgb(x).reshape(-1, num_samples, 3)
+        raw_density = linear(self.density, x, dtype).reshape(-1, num_samples, 1)
+        bottleneck = linear(self.bottleneck, x, dtype)
+        cond = condition.to(dtype)[:, None, :].expand(-1, num_samples, -1).reshape(-1, condition.shape[-1])
+        x = torch.relu(linear(self.views_0, torch.cat([bottleneck, cond], dim=-1), dtype))
+        raw_rgb = linear(self.rgb, x, dtype).reshape(-1, num_samples, 3)
         return raw_rgb, raw_density

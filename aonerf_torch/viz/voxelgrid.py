@@ -9,12 +9,11 @@ same grid into a triangle mesh. It works for the vanilla field, the
 articulated field at any codes (an instance at an articulation) and the
 auto-encoder at codes encoded from a source view.
 
-The adapters evaluate the fine MLP as the field computes it for rendering,
-outside the fused level kernels (JAX evaluates these products with flax
-``Dense``, outside its Pallas kernels): the vanilla MLP's trunk and density
-head in its ``compute_dtype`` as flax's ``Dense(dtype=...)`` computes them
-(``models/mlp.py::linear``), ReLU; the articulated MLP's own forward, then
-the field's own activation and cap (``ArticulatedNeRF.sigma_from_raw``).
+The adapters evaluate the fine MLP's own forward, outside the fused level
+kernels (JAX evaluates these products with flax ``Dense``, outside its
+Pallas kernels), in the MLP's ``compute_dtype``: the vanilla MLP's raw
+density through ReLU; the articulated MLP's, then the field's own
+activation and cap (``ArticulatedNeRF.sigma_from_raw``).
 """
 
 from typing import Callable, Dict, Tuple
@@ -23,28 +22,10 @@ import numpy as np
 import torch
 
 from aonerf_torch import DeviceLike, default_device, full_fp32
-from aonerf_torch.models.mlp import linear
 from aonerf_torch.ops.encoding import pos_enc
 from aonerf_torch.viz.pointcloud import write_ply
 
 DensityFn = Callable[[torch.Tensor], torch.Tensor]  # (B, S, 3) points -> (B, S) density
-
-
-def _nerf_raw_sigma(mlp, enc: torch.Tensor) -> torch.Tensor:
-    """(B, S, 63) encoded samples -> (B, S, 1) raw density of a ``NeRFMLP``:
-    its trunk and density head as flax's ``NeRFMLP`` computes them in the
-    MLP's ``compute_dtype`` (fp32: the layers themselves; bf16: each product
-    rounded, then its bf16 bias added). The view branch does not reach the
-    density and is left out."""
-    dtype = mlp.compute_dtype
-    b, s, feat = enc.shape
-    x = enc.reshape(-1, feat).to(dtype)
-    inputs = x
-    for idx in range(mlp.netdepth):
-        x = torch.relu(linear(getattr(mlp, f"pts_{idx}"), x, dtype))
-        if idx % mlp.skip_layer == 0 and idx > 0:
-            x = torch.cat([x, inputs], dim=-1)
-    return linear(mlp.density, x, dtype).reshape(b, s, 1)
 
 
 def nerf_density_fn(model) -> DensityFn:
@@ -55,21 +36,7 @@ def nerf_density_fn(model) -> DensityFn:
     def fn(points: torch.Tensor) -> torch.Tensor:
         enc = pos_enc(points, mlp.min_deg_point, mlp.max_deg_point)
         with full_fp32():
-            return torch.relu(_nerf_raw_sigma(mlp, enc)[..., 0])
-
-    return fn
-
-
-def nerf_raw_density_fn(model) -> DensityFn:
-    """The vanilla field's fine-MLP raw density, before the ReLU: its level
-    sets show the field's shape where the density itself is 0 (a field
-    trained towards an empty scene)."""
-    mlp = model.fine_mlp
-
-    def fn(points: torch.Tensor) -> torch.Tensor:
-        enc = pos_enc(points, mlp.min_deg_point, mlp.max_deg_point)
-        with full_fp32():
-            return _nerf_raw_sigma(mlp, enc)[..., 0]
+            return torch.relu(mlp(enc, _fixed_view_cond(points, mlp.deg_view))[1][..., 0])
 
     return fn
 

@@ -19,6 +19,7 @@ from aonerf.viz import voxelgrid as jvg
 from aonerf_torch.models.ae import AutoEncoderArticulatedNeRF
 from aonerf_torch.models.articulated import ArticulatedNeRF
 from aonerf_torch.models.nerf import NeRF
+from aonerf_torch.ops.encoding import pos_enc
 from aonerf_torch.utils import transforms as tf
 from aonerf_torch.utils.bridge import module_state_dict_from_flax
 from aonerf_torch.viz import mesh, pointcloud
@@ -149,7 +150,12 @@ def test_vanilla_density_is_the_relu_of_the_raw_density(dtype):
     # 0 everywhere) through ReLU is the density, bit for bit
     model = NeRF(num_coarse_samples=4, num_fine_samples=4, compute_dtype=DTYPES[dtype][1],
                  generator=torch.Generator().manual_seed(7), device="cpu")
-    raw = _port_grid(vg.nerf_raw_density_fn(model))
+    mlp = model.fine_mlp
+
+    def raw_fn(p):
+        return mlp(pos_enc(p, 0, 10), vg._fixed_view_cond(p, 4))[1][..., 0]
+
+    raw = _port_grid(raw_fn)
     assert np.array_equal(np.maximum(raw, 0.0), _port_grid(vg.nerf_density_fn(model)))
     assert (raw < 0).any() and (raw > 0).any()
 
