@@ -361,9 +361,6 @@ class Trainer:
         # the H100 after many earlier profiler runs in the process.
         profiler = profile(activities=activities, schedule=schedule(wait=0, warmup=1, active=1, repeat=1))
         profiler.start()
-        if self.device.type == "cuda":
-            torch.zeros(1, device=self.device).add_(1)
-            torch.cuda.synchronize(self.device)
         profiler.step()
         return profiler
 
