@@ -1000,12 +1000,19 @@ level_bwd_dw_kernel(const __grid_constant__ DwMaps maps, const float* __restrict
 
   // Stage s's H split into hsp, [k8 step][row half][big of m16 tile 0, its
   // small, big of 1, small][lane][4]: thread i the fragments of lane i % 32
-  // of the warps on row half (i / 32) % 2 in k8 step i / 64.
+  // of the warps on row half (i / 32) % 2 in k8 step i / 64. xenc's values
+  // reach the split as cp.async copied them, so they are made TF32-safe here
+  // (a NaN of the card's sin, 0x7fffffff, would split to -0); K1s wrote the
+  // saved layers TF32-safe already.
   auto split_h = [&](int s) {
     const int ks = threadIdx.x >> 6, half = (threadIdx.x >> 5) & 1;
     const float* p = ring + (s % kDwStages) * kDwStageFloats + (ks * 8 + t) * kDwHs + half * 32 + 4 * g;
-    const float4 lo4 = *reinterpret_cast<const float4*>(p);
-    const float4 hi4 = *reinterpret_cast<const float4*>(p + 4 * kDwHs);
+    float4 lo4 = *reinterpret_cast<const float4*>(p);
+    float4 hi4 = *reinterpret_cast<const float4*>(p + 4 * kDwHs);
+    if (!tma) {
+      lo4 = make_float4(tf32_safe_nan(lo4.x), tf32_safe_nan(lo4.y), tf32_safe_nan(lo4.z), tf32_safe_nan(lo4.w));
+      hi4 = make_float4(tf32_safe_nan(hi4.x), tf32_safe_nan(hi4.y), tf32_safe_nan(hi4.z), tf32_safe_nan(hi4.w));
+    }
     uint32_t big[2][4], small[2][4];
     split_tf32(lo4.x, big[0][0], small[0][0]);
     split_tf32(lo4.y, big[0][1], small[0][1]);

@@ -465,7 +465,8 @@ __device__ __forceinline__ float relu_keep_nan(float x) { return __int_as_float(
 // carries such a NaN into the sign bit and rounds it to -0, and 0x7fffefff
 // to a NaN. One integer min; every other value keeps its bits. Every value
 // a kernel writes to a product's operand (the activation and delta tiles,
-// the scratches) goes through this.
+// the scratches) goes through this, and every encoded input where it is
+// staged (K1 and K1s's xs tile, B2's split pass).
 __device__ __forceinline__ float tf32_safe_nan(float x) { return __int_as_float(min(__float_as_int(x), 0x7fffefff)); }
 
 // ------------------------------------------------------------ 3xTF32 mma.sync
@@ -975,11 +976,19 @@ __device__ __forceinline__ void forward_chunk(const float* __restrict__ xenc, co
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int valid_rows = min(kRows, n_rows - row0);
   float* act = m.act;
-  // Encoded inputs of this chunk; padded rows and the pad column are 0.
+  // Encoded inputs of this chunk; padded rows and the pad column are 0. In
+  // fp32 each is made TF32-safe (the products split it into TF32 pairs: a
+  // NaN of the card's sin, 0x7fffffff, would read as 0); in bf16 mode it is
+  // rounded, which keeps a NaN.
   const float* xg = xenc + (row_base + row0) * kPos;
   for (int i = threadIdx.x; i < kRows * kPosPad; i += kThreads) {
     const int r = i / kPosPad, c = i % kPosPad;
-    m.xs[r * kXs + c] = (r < valid_rows && c < kPos) ? operand<Bf16>(__ldg(xg + r * kPos + c)) : 0.f;
+    float x = 0.f;
+    if (r < valid_rows && c < kPos) {
+      x = __ldg(xg + r * kPos + c);
+      x = Bf16 ? round_bf16(x) : tf32_safe_nan(x);
+    }
+    m.xs[r * kXs + c] = x;
   }
   __syncthreads();
 

@@ -201,8 +201,9 @@ Phases, each of which fails the run with a non-zero exit:
                same images, test()'s seconds a view with and without LPIPS.
  25. nan kernels - K1 at 4096 rays, K1s and K2 at 2048, S = 65 and 193, in
                fp32 and bf16 mode, with one NaN planted in a trunk weight,
-               then in a view-branch weight, and (K2) in one ray's acc
-               cotangent: every output and gradient NaN exactly where its
+               then in a view-branch weight, in one sample's encoded input
+               (0x7fffffff, as the card's sin gives it for a NaN point), and
+               (K2) in one ray's acc cotangent: every output and gradient NaN exactly where its
                plain version's is (the reference's masks: a NaN through the
                forward's ReLU and clamps, none through a closed backward
                mask), the finite entries within TOL / K2's per-gradient rule
@@ -3784,22 +3785,33 @@ def phase_lpips_test(cfg_path: str, tmp: str) -> dict:
 # Where one NaN is planted and, after the place, its bits where they are not
 # torch's NaN (0x7fc00000): 0x7fffffff is the NaN the card's arithmetic gives
 # (an Adam update gone NaN), 0xffffffff its negation; split into TF32 halves
-# on the integer pipe either would round to a zero.
-NAN_CASES = ("trunk", "view", "cotangent", "trunk 0x7fffffff", "view 0xffffffff", "cotangent 0x7fffffff")
+# on the integer pipe either would round to a zero. "xenc": the encoded
+# input of one sample, as the card's sin gives it for a NaN sample point.
+NAN_CASES = ("trunk", "view", "cotangent", "trunk 0x7fffffff", "view 0xffffffff", "cotangent 0x7fffffff",
+             "xenc 0x7fffffff")
+XENC_NAN_RAY, XENC_NAN_SAMPLE = 3, 5  # the sample whose encoded input the "xenc" case makes NaN
 
 
-def plant_nan(kp: dict, cot: tuple, case: str):
-    """Copies of a level's kernel params and cotangents with one NaN of the
-    case's bits: in the trunk (w3, input 7 to unit 11), in the view branch
-    (wva, bottleneck input 5 to unit 9) or in ray 2's acc cotangent."""
+def plant_nan(kp: dict, cot: tuple, case: str, xenc: torch.Tensor):
+    """Copies of a level's kernel params, cotangents and encoded samples
+    (R*S or (R, S) rows) with one NaN of the case's bits: in the trunk (w3,
+    input 7 to unit 11), in the view branch (wva, bottleneck input 5 to unit
+    9), in ray 2's acc cotangent, or in feature width // 2 of sample
+    XENC_NAN_SAMPLE of ray XENC_NAN_RAY's encoded input."""
     kp = {n: v.clone() for n, v in kp.items()}
     cot = tuple(c.clone() for c in cot)
+    xenc = xenc.clone()
     place, _, bits = case.partition(" ")
-    target = {"trunk": (kp["w3"], (7, 11)), "view": (kp["wva"], (5, 9)), "cotangent": (cot[1], (2,))}[place]
+    S = cot[3].shape[1]
+    rows = xenc.view(-1, xenc.shape[-1])
+    target = {"trunk": (kp["w3"], (7, 11)), "view": (kp["wva"], (5, 9)), "cotangent": (cot[1], (2,)),
+              "xenc": (rows, (XENC_NAN_RAY * S + XENC_NAN_SAMPLE, rows.shape[1] // 2))}[place]
     target[0].view(torch.int32)[target[1]] = int(np.array(int(bits or "0x7fc00000", 16), np.uint32).view(np.int32))
     if not torch.isnan(target[0][target[1]]):
         fail(f"plant_nan: {case} planted no NaN")
-    return kp, cot
+    return kp, cot, xenc
+
+
 def _finite_part(out: dict, masks: dict) -> dict:
     """Each tensor with its NaN entries (by the kernel's masks) set to 0,
     for the rules, which hold the finite entries."""
@@ -3820,7 +3832,8 @@ def _nan_masks(what: str, got: dict, want: dict) -> dict:
 def phase_nan_kernels(nerf, boxes, focal) -> dict:
     """K1 at the serving tile's 4096 rays, K1s and K2 at the train step's
     2048, S = 65 and 193, fp32 and bf16 mode, with one NaN planted in a
-    trunk weight, then in a view-branch weight, and (K2) in a cotangent:
+    trunk weight, then in a view-branch weight, in one sample's encoded
+    input, and (K2) in a cotangent:
     each output and gradient NaN exactly where its plain version's is, its
     finite entries held to the plain versions under the existing rules
     (fp32: TOL and K2's per-gradient rule; bf16: the bf16 rule)."""
@@ -3840,9 +3853,9 @@ def phase_nan_kernels(nerf, boxes, focal) -> dict:
                     rng.standard_normal((R_k, 3)), rng.standard_normal(R_k), 0.1 * rng.standard_normal(R_k),
                     rng.standard_normal((R_k, S))))
                 for case in NAN_CASES if kernel != "K1" else [c for c in NAN_CASES if not c.startswith("cotangent")]:
-                    kp, cot = plant_nan(kp0, cot0, case)
-                    args = (kp, t, o, d, venc, xenc)
-                    args64 = ({n: v.double() for n, v in kp.items()}, *(a.double() for a in (t, o, d, venc, xenc)))
+                    kp, cot, xe = plant_nan(kp0, cot0, case, xenc)
+                    args = (kp, t, o, d, venc, xe)
+                    args64 = ({n: v.double() for n, v in kp.items()}, *(a.double() for a in (t, o, d, venc, xe)))
                     what = f"{kernel} {mode} S={S} NaN in the {case}"
                     if kernel == "K1":
                         got = dict(zip(OUTPUTS, fr.fused_render_level(*args, white, dot_bf16=dot_bf16)))

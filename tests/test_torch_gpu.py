@@ -32,7 +32,7 @@ def cuda():
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = matmul, cudnn
 
 
-def _level_inputs(R, S, seed, device):
+def _level_inputs(R, S, seed, device, min_deg_point=0, max_deg_point=10, deg_view=4):
     rng = np.random.default_rng(seed)
     d = rng.standard_normal((R, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
@@ -40,7 +40,7 @@ def _level_inputs(R, S, seed, device):
     t = np.sort(rng.uniform(2.0, 6.0, (R, S)), axis=-1).astype(np.float32)
     pts = o[:, None] + t[..., None] * d[:, None]
     t, o, d, pts = (torch.from_numpy(a).to(device) for a in (t, o, d, pts))
-    return t, o, d, pos_enc(d, 0, 4), pos_enc(pts, 0, 10)
+    return t, o, d, pos_enc(d, 0, deg_view), pos_enc(pts, min_deg_point, max_deg_point)
 
 
 # Both sides are fp32 and differ only in summation order (and FMA placement).
@@ -1252,19 +1252,22 @@ def test_lpips_on_the_card_matches_the_cpu(cuda, tmp_path):
 @pytest.mark.parametrize("case", rule.NAN_CASES)
 @pytest.mark.parametrize("S", [65, 193])
 def test_kernels_keep_a_planted_nan_where_the_plain_versions_do(cuda, S, case, dot_bf16):
-    # one NaN in a trunk weight, a view-branch weight or a cotangent (torch's
-    # NaN, or the card's arithmetic's 0x7fffffff or its negation): K1,
-    # K1s and K2 NaN exactly where their plain versions are (a NaN through
-    # the forward's ReLU and clamps, none through a closed backward mask);
-    # the outputs and gradients the NaN cannot reach keep the clean call's
-    # bits
-    mlp = NeRFMLP(generator=torch.Generator().manual_seed(S), device=cuda)
+    # one NaN in a trunk weight, a view-branch weight, a cotangent or one
+    # sample's encoded input (torch's NaN, or the card's arithmetic's
+    # 0x7fffffff or its negation): K1, K1s and K2 NaN exactly where their
+    # plain versions are (a NaN through the forward's ReLU and clamps, none
+    # through a closed backward mask); the outputs and gradients the NaN
+    # cannot reach keep the clean call's bits
+    _planted_nan_case(cuda, S, case, dot_bf16, NeRFMLP(generator=torch.Generator().manual_seed(S), device=cuda))
+
+
+def _planted_nan_case(cuda, S, case, dot_bf16, mlp):
     with torch.no_grad():
         kp0 = fr.kernel_params(mlp)
-    args0 = _level_inputs(256, S, S, cuda)
+    args0 = _level_inputs(256, S, S, cuda, mlp.min_deg_point, mlp.max_deg_point, mlp.deg_view)
     cot0 = _cotangents(256, S, S + 1, cuda)
-    kp, cot = rule.plant_nan(kp0, cot0, case)
-    args = (kp, *args0)
+    kp, cot, xenc = rule.plant_nan(kp0, cot0, case, args0[4])
+    args = (kp, *args0[:4], xenc)
     k1 = fr.fused_render_level(*args, True, dot_bf16=dot_bf16)
     k1s = ft.fused_level_fwd_spill(*args, True, dot_bf16=dot_bf16)
     k2 = ft.fused_level_bwd_saved(*args, k1s[4], k1s[5], *cot, True, dot_bf16=dot_bf16)
@@ -1291,3 +1294,10 @@ def test_kernels_keep_a_planted_nan_where_the_plain_versions_do(cuda, S, case, d
         for n in ("wb", "bb", "wva", "wvb", "bv", "wr", "br"):
             assert torch.equal(k2[n], clean2[n]), n
         assert torch.isnan(k2["wd"]).all()
+    if place == "xenc":  # only the planted sample's ray sees it, and the fp32 products must not read it as 0
+        ray = rule.XENC_NAN_RAY
+        assert torch.isnan(k1s[0][ray]).all() and torch.isnan(k1s[3][ray, rule.XENC_NAN_SAMPLE])
+        others = torch.arange(256, device=cuda) != ray
+        for i in range(4):
+            assert torch.equal(k1s[i][others], clean1s[i][others])
+        assert torch.isnan(k2["w0"][k2["w0"].shape[0] // 2]).all() and torch.isnan(k2["w5i"][k2["w5i"].shape[0] // 2]).all()

@@ -67,6 +67,13 @@ B1's and B2's fp32 SASS and K1's in both modes must be the same; it fails
 too if no bias differs.
 
     python3 tools/torch_kernel_bits.py --compare A B --bf16-bias-differs
+
+The record also holds every kernel's SASS in both libraries (the libraries
+of the default encoded widths, 63 / 27); ``--compare`` says for each whether
+it is the same in both, and with ``--same-sass`` (two trees that must
+compile to the same code) fails unless every one is.
+
+    python3 tools/torch_kernel_bits.py --compare A B --same-sass
 """
 
 import argparse
@@ -119,6 +126,23 @@ def kernel_sass(lib_path: str, kernel: str = B1, bf16: bool = False) -> list:
     if not lines and not bf16:
         raise SystemExit(f"torch_kernel_bits: no SASS of {kernel} in {lib_path}")
     return lines
+
+
+def all_sass(lib_path: str) -> dict:
+    """Every kernel's SASS lines in a library, by its mangled name (as
+    :func:`kernel_sass` gives one kernel's)."""
+    from aonerf_torch.ops.kernels import build
+
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True, text=True, check=True).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            out[name] = []
+        elif name is not None:
+            out[name].append(" ".join(line.split()))
+    return out
 
 
 def mma_ops(lines: list) -> dict:
@@ -176,6 +200,8 @@ def record(out: str, replay: str = None) -> None:
     more = {"k1_sass": kernel_sass(k1_lib, K1), "k1_bf16_sass": kernel_sass(k1_lib, K1, bf16=True),
             "k1s_sass": kernel_sass(lib, K1S)}
     b2_bf16_ops = sass_ops(kernel_sass(lib, B2_BF16))
+    every = {f"{os.path.basename(path).split('-')[0]} {k}": v for path in (lib, k1_lib) for k, v in all_sass(path).items()}
+    print(f"every kernel's SASS: {len(every)} functions", flush=True)
     print(f"B1 SASS: {len(sass)} lines, sha1 {sass_sha1(sass)}; in bf16 mode the mma instructions "
           f"{mma_ops(sass_bf16) or 'none'}", flush=True)
     print(f"B2 SASS (fp32): {len(b2_sass)} lines, sha1 {sass_sha1(b2_sass)}, {tma_loads(b2_sass)} TMA loads (UTMALDG); "
@@ -230,7 +256,7 @@ def record(out: str, replay: str = None) -> None:
             print(f"recorded bf16 K2 at R={R_PRESET} S={S}" + (f", and from {replay}'s saved" if replay else ""),
                   flush=True)
     torch.save({"sass": sass, "b1_bf16_mma": mma_ops(sass_bf16), "b2_sass": b2_sass, **more,
-                "b2_bf16_ops": b2_bf16_ops, "cases": cases, "payloads": payloads}, out)
+                "b2_bf16_ops": b2_bf16_ops, "all_sass": every, "cases": cases, "payloads": payloads}, out)
     print(f"saved {sum(len(v) for v in cases.values())} outputs of {len(cases)} cases to {out}")
 
 
@@ -272,9 +298,29 @@ def compare_replays(x: dict, y: dict, a: str, b: str, expected: bool = False, on
     return n_diff
 
 
+def compare_all_sass(x: dict, y: dict) -> list:
+    """Prints, for every kernel of both libraries, whether its SASS is the
+    same in both records; returns the kernels whose SASS differs or that one
+    record lacks (all of them where a record holds none)."""
+    if "all_sass" not in x or "all_sass" not in y:
+        print("every kernel's SASS: not recorded in both files")
+        return ["(not recorded)"]
+    moved = []
+    for name in sorted(set(x["all_sass"]) | set(y["all_sass"])):
+        p, q = x["all_sass"].get(name), y["all_sass"].get(name)
+        state = "only in one" if p is None or q is None else "identical" if p == q else "differs"
+        if state != "identical":
+            moved.append(name)
+        print(f"  SASS {name}: {state}" + (f" ({len(p)} / {len(q)} lines)" if p is not None and q is not None else ""))
+    print(f"every kernel's SASS: {len(set(x['all_sass']) | set(y['all_sass'])) - len(moved)} of "
+          f"{len(set(x['all_sass']) | set(y['all_sass']))} identical")
+    return moved
+
+
 def compare(a: str, b: str, b2_bf16_differs: bool = False, bf16_fwd_differs: bool = False,
-            b1_bf16_differs: bool = False, bf16_bias_differs: bool = False) -> None:
+            b1_bf16_differs: bool = False, bf16_bias_differs: bool = False, same_sass: bool = False) -> None:
     x, y = torch.load(a), torch.load(b)
+    every_moved = compare_all_sass(x, y)
     hx, hy = sass_sha1(x["sass"]), sass_sha1(y["sass"])
     print(f"B1 SASS {'identical' if hx == hy else 'differs'} ({len(x['sass'])} / {len(y['sass'])} lines, sha1 "
           f"{hx} / {hy}); " + ("required identical" if b1_bf16_differs or bf16_bias_differs else "for information only"))
@@ -338,6 +384,8 @@ def compare(a: str, b: str, b2_bf16_differs: bool = False, bf16_fwd_differs: boo
         raise SystemExit(f"torch_kernel_bits: SASS differs where it must not: {', '.join(sass_moved)}")
     if any_expected and not n_expected_diff:
         raise SystemExit("torch_kernel_bits: outputs were expected to differ, but none does")
+    if same_sass and every_moved:
+        raise SystemExit(f"torch_kernel_bits: SASS differs where it must not: {', '.join(every_moved)}")
 
 
 def main() -> None:
@@ -353,11 +401,14 @@ def main() -> None:
     parser.add_argument("--bf16-bias-differs", action="store_true",
                         help="expect the ten bias gradients of the bf16 K2 cases to differ, fp32 B1/B2 and K1 SASS the "
                              "same, and nothing else")
+    parser.add_argument("--same-sass", action="store_true",
+                        help="require every kernel's SASS in both libraries to be identical")
     parser.add_argument("--replay", help="with --out: also run this tree's bf16 K2 on the saved that this file holds")
     args = parser.parse_args()
     if args.compare:
         compare(*args.compare, b2_bf16_differs=args.b2_bf16_differs, bf16_fwd_differs=args.bf16_fwd_differs,
-                b1_bf16_differs=args.b1_bf16_differs, bf16_bias_differs=args.bf16_bias_differs)
+                b1_bf16_differs=args.b1_bf16_differs, bf16_bias_differs=args.bf16_bias_differs,
+                same_sass=args.same_sass)
     elif args.out:
         if not torch.cuda.is_available():
             raise SystemExit("torch_kernel_bits: needs a CUDA card")

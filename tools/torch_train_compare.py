@@ -43,7 +43,7 @@ with another run length of the bf16 forward's products (see
 bf16 mode.
 
 With ``--kernels-only`` it times the fp32 K1 and K1s as above (not the
-view or the steps), K2's backward from saved and its passes at 2048 rays
+view or the steps; K1 at 4096 rays in bf16 mode too), K2's backward from saved and its passes at 2048 rays
 in both modes, and K2 in bf16 mode at the fast preset's batch of 224 rays
 from K1s' saved: B1's device time (torch.profiler) at the tile the wrapper
 takes by default and at 16 rays a block, in turns (default, 16, 16,
@@ -166,6 +166,9 @@ def time_levels(device) -> dict:
             row["k1s_bf16_ms"] = [cuda_ms(k1s_bf16, warmup=2, iters=iters), cuda_ms(k1s_bf16, warmup=0, iters=iters)]
         args4096 = (kp, *level_inputs(4096, S, S, device), True)
         row["k1_4096_ms"] = cuda_ms(lambda: fr.fused_render_level(*args4096), warmup=2, iters=iters // 2)
+        if has_bf16():
+            row["k1_4096_bf16_ms"] = cuda_ms(lambda: fr.fused_render_level(*args4096, dot_bf16=True), warmup=2,
+                                             iters=iters // 2)
         out[f"S={S}"] = row
     return out
 
