@@ -1,10 +1,12 @@
-"""Vanilla NeRF MLP at its default shape (counterpart of
-``aonerf.models.mlp.NeRFMLP``).
+"""Vanilla NeRF MLP (counterpart of ``aonerf.models.mlp.NeRFMLP``), 8x256 at
+any encoding degrees: P = pos_enc_dim(3, min_deg_point, max_deg_point)
+encoded sample features (63 at the default 0 / 10) and V = pos_enc_dim(3, 0,
+deg_view) encoded view-direction features (27 at 4).
 
-  trunk: pts_0 (63 -> 256) + pts_1..7 (256 -> 256), ReLU; the encoded input
-         is concatenated to the activation after pts_4, so pts_5 takes 319
+  trunk: pts_0 (P -> 256) + pts_1..7 (256 -> 256), ReLU; the encoded input
+         is concatenated to the activation after pts_4, so pts_5 takes 256 + P
   heads: density (256 -> 1, bias 0.3), bottleneck (256 -> 256)
-  view:  views_0 (256 + 27 -> 128), ReLU; rgb (128 -> 3)
+  view:  views_0 (256 + V -> 128), ReLU; rgb (128 -> 3)
 
 Layer names match the flax parameter tree, so ``utils.bridge`` can carry the
 weights across. The fused level kernel computes the same function from
@@ -54,7 +56,6 @@ def linear(layer: nn.Linear, x: torch.Tensor, compute_dtype: torch.dtype = torch
 
 
 class NeRFMLP(nn.Module):
-    min_deg_point, max_deg_point, deg_view = 0, 10, 4
     netdepth = 8
     netwidth = 256
     netwidth_condition = 128
@@ -66,14 +67,20 @@ class NeRFMLP(nn.Module):
         generator: Optional[torch.Generator] = None,
         device: DeviceLike = None,
         compute_dtype: torch.dtype = torch.float32,
+        min_deg_point: int = 0,
+        max_deg_point: int = 10,
+        deg_view: int = 4,
     ):
         """Xavier-uniform kernels and zero biases (density bias
         ``density_bias_init``), drawn on the CPU from ``generator`` and then
-        moved to ``device``."""
+        moved to ``device``; the sample points encoded at degrees
+        [min_deg_point, max_deg_point) and the view directions at [0,
+        deg_view), as flax's ``NeRFMLP`` fields of those names."""
         super().__init__()
         if compute_dtype not in COMPUTE_DTYPES.values():
             raise ValueError(f"compute_dtype {compute_dtype}: the kernels run {tuple(COMPUTE_DTYPES.values())}")
         self.compute_dtype = compute_dtype
+        self.min_deg_point, self.max_deg_point, self.deg_view = min_deg_point, max_deg_point, deg_view
         pos = pos_enc_dim(3, self.min_deg_point, self.max_deg_point)
         view = pos_enc_dim(3, 0, self.deg_view)
         w = self.netwidth
@@ -99,7 +106,7 @@ class NeRFMLP(nn.Module):
     def forward(
         self, x: torch.Tensor, condition: torch.Tensor
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """x (B, S, 63) encoded samples; condition (B, 27) encoded view dirs,
+        """x (B, S, P) encoded samples; condition (B, V) encoded view dirs,
         both cast to ``compute_dtype`` as flax casts them.
 
         Returns (raw_rgb (B, S, 3), raw_density (B, S, 1)) in ``compute_dtype``.

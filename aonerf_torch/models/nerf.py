@@ -38,7 +38,13 @@ class NeRF(nn.Module):
         device: DeviceLike = None,
         compute_dtype: torch.dtype = torch.float32,
         noise_std: float = 0.0,
+        min_deg_point: int = 0,
+        max_deg_point: int = 10,
+        deg_view: int = 4,
     ):
+        """Two ``NeRFMLP`` at the encoding degrees given (flax's ``NeRF``
+        passes its fields of those names to both), drawn in turn from
+        ``generator``."""
         super().__init__()
         device = default_device(device)
         self.num_coarse_samples = num_coarse_samples
@@ -46,8 +52,11 @@ class NeRF(nn.Module):
         self.lindisp = lindisp
         self.noise_std = noise_std
         self.compute_dtype = compute_dtype
-        self.coarse_mlp = NeRFMLP(generator=generator, device=device, compute_dtype=compute_dtype)
-        self.fine_mlp = NeRFMLP(generator=generator, device=device, compute_dtype=compute_dtype)
+        self.min_deg_point, self.max_deg_point, self.deg_view = min_deg_point, max_deg_point, deg_view
+        mlp = dict(generator=generator, device=device, compute_dtype=compute_dtype, min_deg_point=min_deg_point,
+                   max_deg_point=max_deg_point, deg_view=deg_view)
+        self.coarse_mlp = NeRFMLP(**mlp)
+        self.fine_mlp = NeRFMLP(**mlp)
 
     def forward(
         self,

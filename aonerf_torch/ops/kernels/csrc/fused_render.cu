@@ -127,6 +127,11 @@ fused_render_level_kernel(const float* __restrict__ t, const float* __restrict__
 
 extern "C" {
 
+// The encoded widths this library was built for: kPos (xenc's features) and
+// kView (venc's).
+int aonerf_fused_render_pos_dim() { return kPos; }
+int aonerf_fused_render_view_dim() { return kView; }
+
 // Floats of the packed transposed product weights `wt` (FwdSchedule), and
 // bytes of their bf16 pack (FwdBf16Schedule), which bf16 mode takes.
 int aonerf_fused_render_wt_floats() { return kWtFloats; }

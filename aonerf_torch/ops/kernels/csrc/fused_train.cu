@@ -295,6 +295,10 @@ static_assert(kDwStep % kDwRows == 0 && kDwRows % 8 == 0, "a step is whole stage
 static_assert((kDwRows / 8) * 2 * 32 == kThreads, "the split pass: one thread a (k8 step, row half, lane)");
 static_assert(kDwStageBytes % 128 == 0 && (kDwRows * kDwHs * 4) % 128 == 0, "TMA destinations 128-byte aligned");
 constexpr int kX = -1;  // h_off of the products whose H is the encoded input
+// The first xenc column of a block whose H is xenc: its M tile's m0, or 0
+// where one tile holds every column (kPos <= kDwM: 63 / 27 compiles as if
+// the offset were not there).
+__device__ __forceinline__ int xenc_col0(int m0) { return kPos > kDwM ? m0 : 0; }
 // B2 in bf16 mode: a ring of kDw16Stages stages of kDw16Step rows, each
 // Delta's kDwN columns as two boxes of 64 (128 bytes a row) and then H's
 // kDwM, bf16 as TMA writes them with the 128-byte swizzle (kDw16StageBytes),
@@ -339,7 +343,7 @@ constexpr int count_tiles() {
   for (int p = 0; p < kNumProducts; ++p) n += product_tiles(kProducts[p]);
   return n;
 }
-constexpr int kDwTiles = count_tiles();  // 72
+constexpr int kDwTiles = count_tiles();  // 72 at kPos <= 64 (w0 and w5i one M tile each); 76 at 65-128
 
 // K1s: K1's forward walk over the block's ray_tile rays, saving every valid
 // row's activations to `saved` (kSpill values a sample: fp32, or bf16 in
@@ -917,7 +921,7 @@ __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
 // are 8 columns wider than the tile, so TMA's dense rows land at padded
 // strides; the 8 columns past the tile (the next columns of the row, or
 // zeros past kSpill) are never read. The tiles whose H is xenc (w0, w5i)
-// stage by cp.async (xenc's 63-float rows are no TMA box; the pad column
+// stage by cp.async (xenc's kPos-float rows are no TMA box; the pad column
 // zeroed), each thread's copies arriving on the same full barrier. Rows at
 // or past hi read as zeros: TMA fills rows past n_total, and only the last
 // range ends before its last step does.
@@ -953,7 +957,7 @@ level_bwd_dw_kernel(const __grid_constant__ DwMaps maps, const float* __restrict
   const DwBlock B = dw_block(n_total, rows_per_range);
   const DwProduct& P = B.P;
   const bool tma = P.h_off != kX;
-  const int lo = B.lo, hi = B.hi;
+  const int lo = B.lo, hi = B.hi, xm0 = xenc_col0(B.m0);
   constexpr int kPerStep = kDwStep / kDwRows;
   const int n_groups = hi > lo ? (hi - lo + kDwStep - 1) / kDwStep : 0;
   const int n_stages = n_groups * kPerStep;
@@ -982,9 +986,9 @@ level_bwd_dw_kernel(const __grid_constant__ DwMaps maps, const float* __restrict
       return;
     }
     for (int i = threadIdx.x; i < kDwRows * kDwM; i += kThreads) {
-      const int r = i / kDwM, c = i % kDwM;
+      const int r = i / kDwM, c = xm0 + i % kDwM;
       const bool valid = s0 + r < hi && c < kPos;
-      cp_async4(hs + r * kDwHs + c, valid ? xenc + (size_t)(s0 + r) * kPos + c : xenc, valid);
+      cp_async4(hs + r * kDwHs + c - xm0, valid ? xenc + (size_t)(s0 + r) * kPos + c : xenc, valid);
     }
     for (int i = threadIdx.x; i < kDwRows * (kDwN / 4); i += kThreads) {
       const int r = i / (kDwN / 4), c = (i % (kDwN / 4)) * 4;
@@ -1112,7 +1116,7 @@ level_bwd_dw_kernel(const __grid_constant__ DwMaps maps, const float* __restrict
 // its 12,288 bytes and an empty barrier on which every warp arrives once it
 // has read the stage; thread 0 refills a stage once the empty barrier says
 // every warp has left it. The tiles whose H is xenc (w0, w5i; xenc's
-// 63-float rows are no TMA box) take the ring as slots of two stages: Delta
+// kPos-float rows are no TMA box) take the ring as slots of two stages: Delta
 // by TMA as above, xenc's fp32 rows by cp.async from every thread (the pad
 // column and rows at or past hi zero-filled), all arriving on the slot's
 // full barrier; once a step has landed, one pass rounds its xenc rows to
@@ -1244,8 +1248,9 @@ level_bwd_dw_bf16_kernel(const __grid_constant__ DwMaps maps, const float* __res
         load_delta(dst, &full[st], t);
       }
       float* xs = reinterpret_cast<float*>(dst + kDw16StageBytes);
+      const int xm0 = xenc_col0(B.m0);
       for (int i = threadIdx.x; i < kDw16Step * kDwM; i += kThreads) {
-        const int r = i / kDwM, c = i % kDwM;
+        const int r = i / kDwM, c = xm0 + i % kDwM;
         const bool valid = row + r < B.hi && c < kPos;
         cp_async4(xs + i, valid ? xenc + (size_t)(row + r) * kPos + c : xenc, valid);
       }
@@ -1460,6 +1465,11 @@ int launch_bwd_saved(const float* t, const float* rays_d, const float* venc, con
 
 extern "C" {
 
+// The encoded widths this library was built for: kPos (xenc's features) and
+// kView (venc's).
+int aonerf_fused_level_pos_dim() { return kPos; }
+int aonerf_fused_level_view_dim() { return kView; }
+
 // Floats of the output (and of one row range's partial set): the 26
 // gradients in the order of the arguments below, each padded to 4 floats.
 int aonerf_fused_level_bwd_partial_floats() { return kPartialFloats; }
@@ -1538,32 +1548,6 @@ int aonerf_fused_level_bwd_saved(const float* t, const float* rays_d, const floa
   return launch_bwd_saved(t, rays_d, venc, xenc, AONERF_WEIGHTS, b1_pack, g_comp, g_acc, g_depth, g_weights, saved,
                           raw, grow, delta, partials, narrow, out, n_rays, S, ray_tile, white_bkgd, dot_bf16,
                           static_cast<cudaStream_t>(stream));
-}
-
-// The level's weight gradient from its inputs alone: K1s, then the backward
-// from what it saved. Arguments as for aonerf_fused_level_bwd_saved without
-// `raw`, with K1s' `wt` before `b1_pack` (in bf16 mode wvb comes rounded
-// too); K1s' outputs and `raw` (R*(5 S + 5) floats, fewer bytes than `delta`
-// holds in either mode) live at the front of `delta` until B1 overwrites it.
-int aonerf_fused_level_bwd(const float* t, const float* rays_d, const float* venc, const float* xenc,
-                           AONERF_WEIGHT_PARAMS, const void* wt, const void* b1_pack, const float* g_comp,
-                           const float* g_acc, const float* g_depth, const float* g_weights, void* saved,
-                           float* grow, void* delta, float* partials, float* narrow, float* out, int n_rays, int S,
-                           int ray_tile, int white_bkgd, int dot_bf16, void* stream) {
-  if (bad_shape(n_rays, S, ray_tile)) return cudaErrorInvalidValue;
-  const size_t rows = (size_t)n_rays * S;
-  float* raw = static_cast<float*>(delta);
-  float* weights = raw + 4 * rows;
-  float* comp = weights + rows;
-  float* acc = comp + 3 * (size_t)n_rays;
-  float* depth = acc + n_rays;
-  const Weights w = AONERF_WEIGHTS;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (int err = launch_fwd_spill(t, rays_d, venc, xenc, w, wt, comp, acc, depth, weights, saved, raw, nullptr,
-                                 n_rays, S, ray_tile, white_bkgd, dot_bf16, s))
-    return err;
-  return launch_bwd_saved(t, rays_d, venc, xenc, w, b1_pack, g_comp, g_acc, g_depth, g_weights, saved, raw, grow,
-                          delta, partials, narrow, out, n_rays, S, ray_tile, white_bkgd, dot_bf16, s);
 }
 
 }  // extern "C"

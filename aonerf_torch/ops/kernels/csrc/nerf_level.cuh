@@ -35,11 +35,11 @@
 // consumer pays one wait per slice (mbarrier.try_wait.parity) and no block
 // barrier; the only barriers left are the epilogues' (the activation tile is
 // overwritten in place). The fp32 stream (FwdSchedule, B1Schedule: 16 fp32
-// columns a slice, 152 slices a forward chunk, 136 a B1 chunk) is staged in
+// columns a slice, 152 slices a forward chunk at kPosPad 64, 136 a B1 chunk) is staged in
 // the SWIZZLE_64B layout: row n's 16-byte chunk c lies at chunk c ^ ((n / 2)
 // % 4) of its 64-byte row, so the TF32 B fragments' 8 rows x 4 columns hit
 // 32 different banks. The bf16 stream (FwdBf16Schedule: 32 bf16 columns a
-// slice, also 64 bytes a row, 76 slices a forward chunk) is unswizzled: each
+// slice, also 64 bytes a row, 76 slices a forward chunk at kPosPad 64) is unswizzled: each
 // thread reads one 16-byte chunk of a row (the wrapper permutes each
 // 32-column block of the pack so that chunk holds that thread's pairs), and
 // a quarter warp's eight reads cover the 128 bytes of two neighbouring rows;
@@ -88,12 +88,25 @@
 
 namespace aonerf {
 
+// The encoded widths are a build's: a library is built for one pair
+// (-DAONERF_POS_DIM=P -DAONERF_VIEW_DIM=V; by default 63 / 27, the 10 / 4
+// encoding degrees), and every layout below follows them.
+#ifndef AONERF_POS_DIM
+#define AONERF_POS_DIM 63
+#endif
+#ifndef AONERF_VIEW_DIM
+#define AONERF_VIEW_DIM 27
+#endif
 constexpr int kWidth = 256;      // trunk width
 constexpr int kCondWidth = 128;  // view-branch width
-constexpr int kPos = 63;         // encoded sample features
-constexpr int kPosPad = 64;
-constexpr int kView = 27;        // encoded view-direction features
+constexpr int kPos = AONERF_POS_DIM;    // encoded sample features
+constexpr int kView = AONERF_VIEW_DIM;  // encoded view-direction features
+// w0's and w5i's K: kPos padded by zero columns of xs (and zero weight
+// columns of their transposed copies) to whole 32-deep slices, the bf16
+// stream's (two of the fp32 stream's 16-deep ones).
+constexpr int kPosPad = (kPos + 31) / 32 * 32;
 constexpr int kRows = 64;        // rows (samples) per chunk
+static_assert(kPos >= 1 && kView >= 1, "at least one encoded feature");
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
@@ -107,13 +120,16 @@ template <bool Bf16>
 using SpillElem = std::conditional_t<Bf16, uint16_t, float>;
 // Row strides in shared memory, both 4 mod 32 so that the A fragments' loads
 // (8 rows x 4 columns a warp) hit 32 different banks: a 256-wide activation
-// tile, the encoded-input tile (K padded to 64).
+// tile, the encoded-input tile (K padded to kPosPad).
 constexpr int kAct = kWidth + 4;
 constexpr int kXs = kPosPad + 4;
+static_assert(kAct % 32 == 4 && kXs % 32 == 4, "row strides 4 mod 32: conflict-free A fragment reads");
 // The weight ring: kStages stages of one K-slice each (up to kWidth rows of
 // 64 bytes: kDepth fp32 or 2 kDepth bf16 columns), aligned as the swizzle
 // needs, then its 2 x kStages barriers.
 constexpr int kDepth = 16;
+static_assert(kPosPad % kDepth == 0 && kPosPad % (2 * kDepth) == 0,
+              "w0's and w5i's K is whole fp32 (16-deep) and bf16 (32-deep) slices");
 constexpr int kStages = 5;
 constexpr int kStageFloats = kWidth * kDepth;
 constexpr int kRingAlign = 1024;
@@ -178,8 +194,8 @@ struct Weights {
 // A schedule also names its slices: kDepth K-columns of Elem (fp32, or
 // bf16 held as its 16 bits), and whether TMA stages them SWIZZLE_64B.
 // The forward reads the transposed copies (out x in) of w0, w1, w2, w3, w4,
-// w5x, w5i, w6, w7, wb, wva, with w0 and w5i's K = 63 padded to 64 by a zero
-// column; they are packed in this order into one buffer of kWtFloats that
+// w5x, w5i, w6, w7, wb, wva, with w0 and w5i's K = kPos padded to kPosPad by
+// zero columns; they are packed in this order into one buffer of kWtFloats that
 // the wrapper rebuilds every launch from the flax weights, in fp32 (`wt`)
 // or, in bf16 mode, rounded to bf16 (FwdBf16Schedule: the same products).
 struct FwdSchedule {
@@ -316,7 +332,8 @@ __host__ __device__ constexpr int stream_slices(int n_rows) {
 // The forward walk's shared memory for ray_tile rays of S samples: the
 // weight ring, the chunk's activation (kRows x kAct) and encoded input (kRows
 // x kXs), per-ray view terms, and per-sample raw sigma and rgb. 224,640
-// bytes at ray_tile 16, S = 193.
+// bytes at ray_tile 16, S = 193 with kPos <= 64; 232,832 with kPos 65-96
+// (more than a block may have: the wrappers' tile rule takes 8 rays there).
 struct ForwardSmem {
   float *ring, *act, *xs, *cterm, *sig, *rgb;
 };

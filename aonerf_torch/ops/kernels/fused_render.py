@@ -11,6 +11,13 @@ condition contracted once per ray, transmittance as exp of an exclusive sum of
 log(max(1 - alpha + 1e-10, 1e-10)), and depth without the NaN/clip step of
 ``ops/render.py``.
 
+The encoded widths are the weights': w0 (P, 256) takes P encoded sample
+features and wvb (V, 128) V encoded view-direction features, P and V of
+any encoding degrees (``pos_enc_dim``), as the TPU kernel takes any. The
+CUDA kernels are built for one pair a library (``build.width_defines``),
+at first use of the pair; the default 63 / 27 (the 10 / 4 degrees) and any
+other pair load side by side.
+
 ``dot_bf16`` is the TPU kernel's argument of that name: every product of the
 level (the trunk, the heads, the view term) takes its two operands rounded to
 bf16 (to nearest, ties to even) and sums in fp32; biases, ReLUs and the
@@ -32,16 +39,40 @@ WEIGHT_NAMES = (
     "w5x", "w5i", "b5", "w6", "b6", "w7", "b7",
     "wd", "bd", "wb", "bb", "wva", "wvb", "bv", "wr", "br",
 )
-WIDTH, COND_WIDTH, POS_DIM, VIEW_DIM = 256, 128, 63, 27
-POS_PAD = 64  # POS_DIM padded to a multiple of the kernel's 32-deep K-slice
-# The forward kernels' tensor-core product weights, in the order of the
-# packed buffer of :func:`kernel_weights_t`: (name, out, in padded).
-WEIGHTS_T = (
-    ("w0", WIDTH, POS_PAD), ("w1", WIDTH, WIDTH), ("w2", WIDTH, WIDTH), ("w3", WIDTH, WIDTH),
-    ("w4", WIDTH, WIDTH), ("w5x", WIDTH, WIDTH), ("w5i", WIDTH, POS_PAD), ("w6", WIDTH, WIDTH),
-    ("w7", WIDTH, WIDTH), ("wb", WIDTH, WIDTH), ("wva", COND_WIDTH, WIDTH),
-)
-WT_FLOATS = sum(rows * cols for _, rows, cols in WEIGHTS_T)
+WIDTH, COND_WIDTH = 256, 128
+POS_DIM, VIEW_DIM = build.DEFAULT_WIDTHS  # the encoded widths at the 10 / 4 degrees
+# Shared memory a block of the forward kernels may have on the H100 (the
+# opt-in limit the card reports), which bounds the encoded widths the
+# kernels' layout holds (:func:`forward_smem_bytes`).
+H100_SMEM_PER_BLOCK = 232448
+
+
+def pos_pad(pos_dim: int) -> int:
+    """The K of w0 and w5i in the forward kernels: pos_dim padded with zero
+    columns to a multiple of the 32-deep K-slice (csrc's kPosPad)."""
+    return -(-pos_dim // 32) * 32
+
+
+def weights_t_layout(pos_dim: int = POS_DIM) -> Tuple[Tuple[str, int, int], ...]:
+    """The forward kernels' tensor-core product weights at encoded width
+    pos_dim, in the order of the packed buffer of :func:`kernel_weights_t`:
+    (name, out, in padded)."""
+    pad = pos_pad(pos_dim)
+    return (
+        ("w0", WIDTH, pad), ("w1", WIDTH, WIDTH), ("w2", WIDTH, WIDTH), ("w3", WIDTH, WIDTH),
+        ("w4", WIDTH, WIDTH), ("w5x", WIDTH, WIDTH), ("w5i", WIDTH, pad), ("w6", WIDTH, WIDTH),
+        ("w7", WIDTH, WIDTH), ("wb", WIDTH, WIDTH), ("wva", COND_WIDTH, WIDTH),
+    )
+
+
+def wt_floats(pos_dim: int = POS_DIM) -> int:
+    """Elements of :func:`kernel_weights_t`'s buffer at encoded width pos_dim."""
+    return sum(rows * cols for _, rows, cols in weights_t_layout(pos_dim))
+
+
+POS_PAD = pos_pad(POS_DIM)
+WEIGHTS_T = weights_t_layout(POS_DIM)
+WT_FLOATS = wt_floats(POS_DIM)
 # The narrow heads the forward kernels read as fp32 (rounded in bf16 mode);
 # every other weight of the forward reaches them in the packed copy.
 FWD_HEADS = ("wd", "wr", "wvb")
@@ -73,6 +104,23 @@ _chosen_tiles: Dict[Tuple[int, int, int, int], Tuple[Callable[[int, int], int], 
 # A launcher's return code at or above this is this plus the CUresult with
 # which the driver refused one of the weight stream's TMA maps (kMapError).
 MAP_ERROR = 1000
+
+
+def widths(kernel_params: Dict[str, torch.Tensor]) -> Tuple[int, int]:
+    """The encoded widths of a level's weights: (xenc's features, w0's
+    rows; venc's features, wvb's rows)."""
+    return kernel_params["w0"].shape[0], kernel_params["wvb"].shape[0]
+
+
+def forward_smem_bytes(S: int, ray_tile: int, pos_dim: int = POS_DIM) -> int:
+    """Shared memory of a forward block (K1, K1s) of ray_tile rays of S
+    samples at encoded width pos_dim (csrc's forward_smem_bytes, which the
+    libraries' smem functions return): the 1 KB-aligned weight ring of 5
+    stages of 16 KB and its barriers, the chunk's 64 x 260 activation and
+    64 x (pos_pad + 4) encoded inputs, 128 view terms a ray and 4 floats a
+    sample."""
+    ring = 1024 + 5 * 256 * 16 * 4 + 128
+    return ring + 4 * (64 * (WIDTH + 4) + 64 * (pos_pad(pos_dim) + 4) + ray_tile * COND_WIDTH + 4 * ray_tile * S)
 
 
 def kernel_params(mlp) -> Dict[str, torch.Tensor]:
@@ -126,15 +174,15 @@ def tf32_safe_nan_(flat: torch.Tensor) -> torch.Tensor:
 
 
 def kernel_weights_t(kernel_params: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """The forward kernels' copy of the product weights in ``WEIGHTS_T``:
-    each transposed (out x in), w0 and w5i with a zero column that pads in
-    from 63 to 64, packed in order into one flat contiguous fp32 buffer on
-    the weights' device, detached, every NaN made TF32-safe
-    (:func:`tf32_safe_nan_`). The kernels take it beside the flax-layout
-    ``kernel_params``; it is rebuilt at every launch, since the weights move
-    every training step."""
+    """The forward kernels' copy of the product weights in
+    :func:`weights_t_layout`: each transposed (out x in), w0 and w5i with
+    zero columns that pad in from the encoded width to :func:`pos_pad`,
+    packed in order into one flat contiguous fp32 buffer on the weights'
+    device, detached, every NaN made TF32-safe (:func:`tf32_safe_nan_`). The
+    kernels take it beside the flax-layout ``kernel_params``; it is rebuilt
+    at every launch, since the weights move every training step."""
     first = kernel_params["w0"]
-    flat = torch.zeros(WT_FLOATS, dtype=first.dtype, device=first.device)
+    flat = torch.zeros(wt_floats(first.shape[0]), dtype=first.dtype, device=first.device)
     for name, view in unpack_weights_t(flat).items():
         w = kernel_params[name].detach()
         view[:, : w.shape[0]].copy_(w.t())
@@ -148,7 +196,7 @@ def kernel_weights_t_bf16(kernel_params: Dict[str, torch.Tensor]) -> torch.Tenso
     of a row put in ``BF16_SLICE_ORDER`` (one gather); detached. Undone, its
     values are ``kernel_weights_t(bf16_params(kernel_params))``'s."""
     first = kernel_params["w0"]
-    flat = torch.zeros(WT_FLOATS, dtype=torch.bfloat16, device=first.device)
+    flat = torch.zeros(wt_floats(first.shape[0]), dtype=torch.bfloat16, device=first.device)
     for name, view in unpack_weights_t(flat).items():
         w = kernel_params[name].detach()
         view[:, : w.shape[0]].copy_(w.t())
@@ -244,9 +292,13 @@ def bf16_products(mm: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]):
 
 
 def unpack_weights_t(flat: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """Views of :func:`kernel_weights_t`'s buffer: name -> (out, in padded)."""
+    """Views of :func:`kernel_weights_t`'s buffer: name -> (out, in padded);
+    the padded encoded width is the one the buffer's size gives."""
     views, n = {}, 0
-    for name, rows, cols in WEIGHTS_T:
+    pad = (flat.numel() - wt_floats(0)) // (2 * WIDTH)
+    if pad % 32 or wt_floats(pad) != flat.numel():
+        raise ValueError(f"{flat.numel()} elements: no packed layout of the forward's weights")
+    for name, rows, cols in weights_t_layout(pad):
         views[name] = flat[n : n + rows * cols].view(rows, cols)
         n += rows * cols
     return views
@@ -260,7 +312,7 @@ def level_activations_ref(
     mm: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] = torch.matmul,
     dot_bf16: bool = False,
 ) -> Tuple[List[torch.Tensor], torch.Tensor, torch.Tensor]:
-    """The level's MLP on the R*S encoded samples ``xe`` (rows, 63): the ten
+    """The level's MLP on the R*S encoded samples ``xe`` (rows, P): the ten
     activations in the order the training forward saves them (h0..h7, the
     bottleneck, the view hidden layer), raw sigma (rows, 1) and raw rgb
     (rows, 3).
@@ -345,16 +397,22 @@ def fused_render_level_ref(
 
 
 def _check_inputs(kernel_params, t_vals, rays_d, viewdirs_enc, xenc, R, S):
+    """Raises unless every input and weight has the shape the weights'
+    encoded widths (:func:`widths`) give, fp32 on t_vals' device,
+    contiguous and 16-byte aligned."""
+    pos_dim, view_dim = widths(kernel_params)
+    if pos_dim < 1 or view_dim < 1:
+        raise ValueError(f"encoded widths {pos_dim} / {view_dim}: the kernels take at least one feature each")
     expect = {
         "t_vals": (t_vals, (R, S)),
         "rays_d": (rays_d, (R, 3)),
-        "viewdirs_enc": (viewdirs_enc, (R, VIEW_DIM)),
-        "samples_enc": (xenc, (R * S, POS_DIM)),
+        "viewdirs_enc": (viewdirs_enc, (R, view_dim)),
+        "samples_enc": (xenc, (R * S, pos_dim)),
     }
     shapes = {
-        "w0": (POS_DIM, WIDTH), "w5x": (WIDTH, WIDTH), "w5i": (POS_DIM, WIDTH),
+        "w0": (pos_dim, WIDTH), "w5x": (WIDTH, WIDTH), "w5i": (pos_dim, WIDTH),
         "wd": (WIDTH, 1), "bd": (1, 1), "wb": (WIDTH, WIDTH), "bb": (1, WIDTH),
-        "wva": (WIDTH, COND_WIDTH), "wvb": (VIEW_DIM, COND_WIDTH), "bv": (1, COND_WIDTH),
+        "wva": (WIDTH, COND_WIDTH), "wvb": (view_dim, COND_WIDTH), "bv": (1, COND_WIDTH),
         "wr": (COND_WIDTH, 3), "br": (1, 3),
     }
     for i in (1, 2, 3, 4, 6, 7):
@@ -383,36 +441,50 @@ def check_launch(fn_name: str, err: int) -> None:
         raise RuntimeError(f"{fn_name}: CUDA launch failed with error {err}")
 
 
-def check_forward_layout(fn, bf16_bytes_fn, smem_fn, lib_name: str) -> None:
-    """Raises unless the library's packed transposed weights (``fn()``
-    floats) are ``kernel_weights_t``'s and their bf16 pack (``bf16_bytes_fn()``
-    bytes) is ``kernel_weights_t_bf16``'s; declares ``smem_fn(S, ray_tile)``,
-    the shared memory of its forward block, for the tile rule."""
-    for f in (fn, bf16_bytes_fn):
+def check_forward_layout(lib, prefix: str, lib_name: str, pos_dim: int, view_dim: int,
+                         smem: str = "smem_bytes") -> None:
+    """Raises unless the library was built for these encoded widths
+    (``<prefix>_pos_dim()``, ``_view_dim()``), its packed transposed
+    weights (``_wt_floats()`` floats) are ``kernel_weights_t``'s and their
+    bf16 pack (``_wt_bf16_bytes()`` bytes) is ``kernel_weights_t_bf16``'s,
+    and its forward block's shared memory (``<prefix>_<smem>(S, ray_tile)``,
+    declared for the tile rule) is :func:`forward_smem_bytes`'s."""
+    fns = {n: getattr(lib, f"{prefix}_{n}") for n in ("pos_dim", "view_dim", "wt_floats", "wt_bf16_bytes")}
+    for f in fns.values():
         f.argtypes, f.restype = [], ctypes.c_int
+    smem_fn = getattr(lib, f"{prefix}_{smem}")
     smem_fn.argtypes, smem_fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
-    if fn() != WT_FLOATS:
-        raise RuntimeError(f"{lib_name}: kernel packs {fn()} transposed weight floats, expected {WT_FLOATS}")
-    if bf16_bytes_fn() != 2 * WT_FLOATS:
-        raise RuntimeError(f"{lib_name}: kernel's bf16 pack is {bf16_bytes_fn()} bytes, expected {2 * WT_FLOATS}")
+    if (fns["pos_dim"](), fns["view_dim"]()) != (pos_dim, view_dim):
+        raise RuntimeError(f"{lib_name}: library built for widths {fns['pos_dim']()} / {fns['view_dim']()}, "
+                           f"expected {pos_dim} / {view_dim}")
+    n = wt_floats(pos_dim)
+    if fns["wt_floats"]() != n:
+        raise RuntimeError(f"{lib_name}: kernel packs {fns['wt_floats']()} transposed weight floats, expected {n}")
+    if fns["wt_bf16_bytes"]() != 2 * n:
+        raise RuntimeError(f"{lib_name}: kernel's bf16 pack is {fns['wt_bf16_bytes']()} bytes, expected {2 * n}")
+    for S, tile in ((193, 16), (65, 2)):
+        if smem_fn(S, tile) != forward_smem_bytes(S, tile, pos_dim):
+            raise RuntimeError(f"{lib_name}: forward block of {tile} rays x {S} samples takes {smem_fn(S, tile)} "
+                               f"bytes of shared memory, expected {forward_smem_bytes(S, tile, pos_dim)}")
 
 
-_lib = None
+# The loaded library of each pair of encoded widths.
+_libs: Dict[Tuple[int, int], ctypes.CDLL] = {}
 
 
-def _library():
-    global _lib
-    if _lib is None:
-        lib = build.load("fused_render")
+def _library(pos_dim: int = POS_DIM, view_dim: int = VIEW_DIM):
+    """K1's library for these encoded widths, built at first use."""
+    lib = _libs.get((pos_dim, view_dim))
+    if lib is None:
+        lib = build.load("fused_render", build.width_defines(pos_dim, view_dim))
         fn = lib.aonerf_fused_render_level
         fn.argtypes = [ctypes.c_void_p] * (4 + len(WEIGHT_NAMES) + 1 + 4) + [ctypes.c_int] * 5 + [
             ctypes.c_void_p
         ]
         fn.restype = ctypes.c_int
-        check_forward_layout(lib.aonerf_fused_render_wt_floats, lib.aonerf_fused_render_wt_bf16_bytes,
-                        lib.aonerf_fused_render_smem_bytes, "fused_render")
-        _lib = lib
-    return _lib
+        check_forward_layout(lib, "aonerf_fused_render", "fused_render", pos_dim, view_dim)
+        lib = _libs[(pos_dim, view_dim)] = lib
+    return lib
 
 
 def fused_render_level(
@@ -428,8 +500,9 @@ def fused_render_level(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Render one hierarchy level for R rays (R % ray_tile == 0).
 
-    t_vals (R, S); rays_o/rays_d (R, 3); viewdirs_enc (R, 27);
-    samples_enc (R, S, 63) or (R*S, 63); weights from :func:`kernel_params`.
+    t_vals (R, S); rays_o/rays_d (R, 3); viewdirs_enc (R, V);
+    samples_enc (R, S, P) or (R*S, P); weights from :func:`kernel_params`,
+    whose w0 (P, 256) and wvb (V, 128) give the encoded widths.
     Returns (comp_rgb (R,3), acc (R,), depth (R,), weights (R,S)).
 
     On CUDA tensors this builds :func:`kernel_weights_t` and launches the
@@ -453,7 +526,7 @@ def fused_render_level(
 
     xenc = samples_enc.reshape(R * S, samples_enc.shape[-1])
     _check_inputs(kernel_params, t_vals, rays_d, viewdirs_enc, xenc, R, S)
-    lib = _library()
+    lib = _library(*widths(kernel_params))
     ray_tile = launch_ray_tile(R, S, ray_tile, t_vals.device, lib.aonerf_fused_render_smem_bytes)
     kernel_params, wt = fwd_operands(kernel_params, dot_bf16)
     comp = torch.empty((R, 3), dtype=torch.float32, device=t_vals.device)

@@ -54,7 +54,9 @@ from aonerf_torch.ops import encoding, sampling
 from aonerf_torch.ops.kernels import build
 from aonerf_torch.ops.kernels.fused_render import (
     COND_WIDTH,
+    POS_DIM,
     RAY_TILE,
+    VIEW_DIM,
     WEIGHT_NAMES,
     WIDTH,
     _check_inputs,
@@ -69,6 +71,7 @@ from aonerf_torch.ops.kernels.fused_render import (
     round_bf16,
     slice_order,
     tf32_safe_nan_,
+    widths,
 )
 
 # Saved activations per sample: h0..h7, the bottleneck, the view hidden layer.
@@ -317,19 +320,20 @@ def _padded_offsets(shapes: List[Tuple[int, ...]]) -> List[int]:
     return offsets + [n]
 
 
-_lib = None
+# The loaded library of each pair of encoded widths.
+_libs: Dict[Tuple[int, int], ctypes.CDLL] = {}
 
 
-def _library():
-    global _lib
-    if _lib is None:
-        lib = build.load("fused_train")
+def _library(pos_dim: int = POS_DIM, view_dim: int = VIEW_DIM):
+    """K1s' and K2's library for these encoded widths, built at first use."""
+    lib = _libs.get((pos_dim, view_dim))
+    if lib is None:
+        lib = build.load("fused_train", build.width_defines(pos_dim, view_dim))
         n_w = len(WEIGHT_NAMES)
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         for name, n_ptr in (
             ("aonerf_fused_level_fwd_spill", 4 + n_w + 1 + 7),
             ("aonerf_fused_level_bwd_saved", 4 + n_w + 1 + 4 + 2 + 5),
-            ("aonerf_fused_level_bwd", 4 + n_w + 2 + 4 + 6),
         ):
             fn = getattr(lib, name)
             fn.argtypes = [ptr] * n_ptr + [i32] * 5 + [ptr]
@@ -350,10 +354,9 @@ def _library():
         if lib.aonerf_fused_level_b1_bf16_bytes() != 2 * B1_PACK_ELEMS:
             raise RuntimeError(f"fused_train: kernel's B1 pack is {lib.aonerf_fused_level_b1_bf16_bytes()} bytes, "
                                f"expected {2 * B1_PACK_ELEMS}")
-        check_forward_layout(lib.aonerf_fused_level_wt_floats, lib.aonerf_fused_level_wt_bf16_bytes,
-                        lib.aonerf_fused_level_fwd_smem_bytes, "fused_train")
-        _lib = lib
-    return _lib
+        check_forward_layout(lib, "aonerf_fused_level", "fused_train", pos_dim, view_dim, smem="fwd_smem_bytes")
+        lib = _libs[(pos_dim, view_dim)] = lib
+    return lib
 
 
 def _check(name, x, shape, device, dtype=torch.float32):
@@ -381,14 +384,6 @@ def _device_of(fn_name, t_vals, R, ray_tile):
     if t_vals.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{fn_name} runs on cuda or cpu, not {t_vals.device}")
     return t_vals.device.type
-
-
-def _fwd_and_bwd_smem(S: int, ray_tile: int) -> int:
-    """The larger of K1s' and B1's shared memory for a block of ray_tile
-    rays of S samples: :func:`fused_level_bwd` runs both at one tile."""
-    lib = _library()
-    return max(lib.aonerf_fused_level_fwd_smem_bytes(S, ray_tile),
-               lib.aonerf_fused_level_bwd_smem_bytes(S, ray_tile))
 
 
 def _bwd_tile(ray_tile: Optional[int], dot_bf16: bool) -> Optional[int]:
@@ -474,7 +469,7 @@ def fused_level_fwd_spill(
     _check_inputs(kernel_params, t_vals, rays_d, viewdirs_enc, xenc, R, S)
     if noise is not None:
         _check("noise", noise, (R, S), dev)
-    lib = _library()
+    lib = _library(*widths(kernel_params))
     ray_tile = launch_ray_tile(R, S, ray_tile, dev, lib.aonerf_fused_level_fwd_smem_bytes)
     kernel_params, wt = fwd_operands(kernel_params, dot_bf16)
     f32 = dict(dtype=torch.float32, device=dev)
@@ -555,7 +550,7 @@ def fused_level_bwd_saved(
     _check_cotangents(g_comp, g_acc, g_depth, g_weights, R, S, dev)
     _check("saved", saved, (R * S, SAVED_FLOATS), dev, saved_dtype(dot_bf16))
     _check("raw", raw, (R * S, 4), dev)
-    lib = _library()
+    lib = _library(*widths(kernel_params))
     ray_tile = launch_ray_tile(R, S, ray_tile, dev, lib.aonerf_fused_level_bwd_smem_bytes)
     kernel_params, b1_pack = bwd_operands(kernel_params, dot_bf16)
     scratch, grads = _backward_scratch(lib, kernel_params, R, S, ray_tile, dev, dot_bf16)
@@ -593,49 +588,21 @@ def fused_level_bwd(
     dot_bf16: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """Gradients of the 26 level weights from the level's inputs and the
-    cotangents of :func:`fused_render_level`'s outputs alone: K1s, then the
-    backward from what it saved (:func:`fused_level_bwd_saved`), in one call
-    of the library, both at ``ray_tile`` (None: K2's default, chosen in bf16
-    mode from the larger of K1s' and B1's shared memory); ``saved`` is its
-    scratch. On CPU tensors it runs the plain version."""
-    global fwd_launches, launches, bf16_fwd_launches, bf16_launches
+    cotangents of :func:`fused_render_level`'s outputs alone: K1s at the
+    tile it chooses, then the backward from what it saved
+    (:func:`fused_level_bwd_saved`) at ``ray_tile`` (None: K2's default). On
+    CPU tensors it runs the plain version."""
     R, S = t_vals.shape
-    ray_tile = _bwd_tile(ray_tile, dot_bf16)
-    if _device_of("fused_level_bwd", t_vals, R, ray_tile) == "cpu":
+    if _device_of("fused_level_bwd", t_vals, R, _bwd_tile(ray_tile, dot_bf16)) == "cpu":
         return fused_level_bwd_ref(
             kernel_params, t_vals, rays_o, rays_d, viewdirs_enc, samples_enc,
             g_comp, g_acc, g_depth, g_weights, white_bkgd, dot_bf16=dot_bf16,
         )
-    dev = t_vals.device
-    xenc = samples_enc.reshape(R * S, samples_enc.shape[-1])
-    _check_inputs(kernel_params, t_vals, rays_d, viewdirs_enc, xenc, R, S)
-    _check_cotangents(g_comp, g_acc, g_depth, g_weights, R, S, dev)
-    lib = _library()
-    ray_tile = launch_ray_tile(R, S, ray_tile, dev, _fwd_and_bwd_smem)
-    if dot_bf16:
-        b1_pack = b1_weights_bf16(kernel_params)
-    else:
-        b1_pack, kernel_params = None, {**kernel_params, **b1_weights(kernel_params)}
-    kernel_params, wt = fwd_operands(kernel_params, dot_bf16)  # rounds wd and wr too, as B1 takes them
-    scratch, grads = _backward_scratch(lib, kernel_params, R, S, ray_tile, dev, dot_bf16)
-    saved = torch.empty(R * S * SAVED_FLOATS, dtype=saved_dtype(dot_bf16), device=dev)
-    _launch(
-        "fused_level_bwd", dev, lib.aonerf_fused_level_bwd,
-        t_vals.data_ptr(), rays_d.data_ptr(), viewdirs_enc.data_ptr(), xenc.data_ptr(),
-        *[kernel_params[n].data_ptr() for n in WEIGHT_NAMES], wt.data_ptr(),
-        b1_pack.data_ptr() if dot_bf16 else None,
-        g_comp.data_ptr(), g_acc.data_ptr(), g_depth.data_ptr(), g_weights.data_ptr(),
-        saved.data_ptr(), *[x.data_ptr() for x in scratch],
-        R, S, ray_tile, int(white_bkgd), int(dot_bf16),
-    )
-    fwd_tiles[(R, S, dot_bf16)] = bwd_tiles[(R, S, dot_bf16)] = ray_tile
-    if dot_bf16:
-        bf16_fwd_launches += 1
-        bf16_launches += 1
-    else:
-        fwd_launches += 1
-        launches += 1
-    return grads
+    _check_cotangents(g_comp, g_acc, g_depth, g_weights, R, S, t_vals.device)
+    inputs = (kernel_params, t_vals, rays_o, rays_d, viewdirs_enc, samples_enc)
+    *_, saved, raw = fused_level_fwd_spill(*inputs, white_bkgd, dot_bf16=dot_bf16)
+    return fused_level_bwd_saved(*inputs, saved, raw, g_comp, g_acc, g_depth, g_weights, white_bkgd,
+                                 ray_tile=ray_tile, dot_bf16=dot_bf16)
 
 
 class FusedLevel(torch.autograd.Function):

@@ -70,8 +70,10 @@ from aonerf_torch.eval.render import make_image_renderer
 from aonerf_torch.models.ae import AutoEncoderArticulatedNeRF
 from aonerf_torch.models.articulated import ArticulatedNeRF
 from aonerf_torch.models.codes import CodeLibraryArticulated
-from aonerf_torch.models.mlp import COMPUTE_DTYPES, NeRFMLP
+from aonerf_torch.models.mlp import COMPUTE_DTYPES
 from aonerf_torch.models.nerf import NeRF
+from aonerf_torch.ops.encoding import pos_enc_dim
+from aonerf_torch.ops.kernels import fused_render
 from aonerf_torch.ops.random import Draws
 from aonerf_torch.train.optim import OptState, build_optimizer_from_config
 from aonerf_torch.train.step import (
@@ -99,15 +101,27 @@ def _check_supported(cfg: Config) -> None:
         todo.append(f"dataset_name={cfg.dataset_name!r} for {cfg.exp_type}")
     if cfg.compute_dtype not in COMPUTE_DTYPES:
         todo.append(f"compute_dtype={cfg.compute_dtype!r}")
-    # the articulated field takes any encoding degrees and has fixed widths
-    shape = (cfg.min_deg_point, cfg.max_deg_point, cfg.deg_view, cfg.netdepth, cfg.netwidth)
-    if cfg.exp_type == "vanilla" and shape != (
-        NeRFMLP.min_deg_point, NeRFMLP.max_deg_point, NeRFMLP.deg_view, NeRFMLP.netdepth, NeRFMLP.netwidth
-    ):
-        todo.append("MLP shapes other than 8x256 with 10/4 encoding degrees (ROADMAP Queue 1 item 3)")
+    if cfg.exp_type == "vanilla":  # the fused kernels' layout bounds the encoded sample width
+        todo.extend(_beyond_the_kernels_layout(cfg))
     todo.extend(f"{name}={value!r} (ROADMAP Queue 1 item 7)" for name, value in jax_only_settings(cfg).items())
     if todo:
         raise NotImplementedError("not ported yet: " + ", ".join(todo))
+
+
+def _beyond_the_kernels_layout(cfg: Config) -> list:
+    """The vanilla degrees whose encoded sample width the fused kernels'
+    layout does not hold: where K1's block of one ray of the fine level's
+    samples needs more shared memory than the H100 gives a block (encoded
+    widths up to 288 at 64 + 128 samples, ``max_deg_point -
+    min_deg_point`` <= 47); every ``deg_view`` fits."""
+    pos = pos_enc_dim(3, cfg.min_deg_point, cfg.max_deg_point)
+    S = cfg.num_coarse_samples + 1 + cfg.num_fine_samples
+    need = fused_render.forward_smem_bytes(S, 1, pos)
+    if need <= fused_render.H100_SMEM_PER_BLOCK:
+        return []
+    return [f"min_deg_point={cfg.min_deg_point}, max_deg_point={cfg.max_deg_point} (encoded width {pos}: the "
+            f"fused kernels' block of one ray of {S} samples needs {need} bytes of shared memory, the H100 gives "
+            f"{fused_render.H100_SMEM_PER_BLOCK}; ROADMAP Queue 2 item 11)"]
 
 
 class _NanCheckedOptimizer:
@@ -222,6 +236,7 @@ class Trainer:
                 num_coarse_samples=cfg.num_coarse_samples, num_fine_samples=cfg.num_fine_samples,
                 lindisp=cfg.lindisp, generator=generator, device=self.device,
                 compute_dtype=COMPUTE_DTYPES[cfg.compute_dtype], noise_std=cfg.noise_std,
+                min_deg_point=cfg.min_deg_point, max_deg_point=cfg.max_deg_point, deg_view=cfg.deg_view,
             )
             trained = self.model
             self.tx, self.lr_fn = self._optimizer(build_optimizer_from_config(cfg), trained)

@@ -36,9 +36,13 @@ class Config:
     # field
     num_coarse_samples: int = 64
     num_fine_samples: int = 128
+    # encoding degrees of every field: sample points over [min_deg_point,
+    # max_deg_point), view directions over [0, deg_view)
     min_deg_point: int = 0
     max_deg_point: int = 10
     deg_view: int = 4
+    # read by no model, as in the JAX Trainer (its mlp_kwargs hold neither):
+    # every field is 8x256 whatever these say
     netdepth: int = 8
     netwidth: int = 256
     noise_std: float = 0.0

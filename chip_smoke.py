@@ -6,7 +6,9 @@
 Phases, each of which fails the run with a non-zero exit:
   1. device  - a CUDA card is required; prints its name and power limit, and
                turns TF32 off so the plain versions run in full fp32.
-  2. build   - compiles every CUDA source of the port with nvcc.
+  2. build   - compiles every CUDA source of the port with nvcc, at the
+               default encoded widths (63 / 27) and at phase 27's (75 / 39,
+               51 / 15), every nvcc at once.
   3. kernels - the fused level kernel against its plain PyTorch version at
                the serving path's shapes (4096 rays, S = 65 and 193, both
                backgrounds) and the ray tile its wrapper chooses (printed);
@@ -219,9 +221,22 @@ Phases, each of which fails the run with a non-zero exit:
                CPU grid's mesh's faces and its vertices within the bound the
                grids' difference allows; the seconds of a 128^3 grid and of
                its mesh.
+ 27. degrees   - the vanilla NeRF at other encoding degrees: K1, K1s and K2 at
+               2048 rays, S = 65 and 193, at encoded widths 75 / 39 and
+               51 / 15, in fp32 and bf16 mode, against their plain versions
+               under the rules of the default widths (TOL, K2's per-gradient
+               rule, the bf16 rule), with their times, plain versions' and
+               bounds; then config/vanilla.json at full width (batch 2048,
+               64+128 samples, 8x256) through the train CLI on phase 7's
+               scene, 20 steps in fp32 at max_deg_point 12, deg_view 6 and
+               20 in bf16 at 8 / 2: the loss falling, K1 (validation), K1s
+               and K2 launched in the run's mode; --run_eval of one test
+               view and a 32^3 grid through export_voxels from the fp32
+               run's checkpoint; the phase's seconds.
 The line before the last is a JSON object with one entry per kernel and mode
 (K1, K1s, K2 in fp32, then in bf16; K1 and K1s in bf16 at the fast preset's
-shapes; B2 and B1 in bf16; B2 in fp32); the last line is {"ok": true,
+shapes; B2 and B1 in bf16; B2 in fp32; K1, K1s and K2 at phase 27's widths,
+fp32 at 75 / 39 and bf16 at 51 / 15); the last line is {"ok": true,
 "device": {...}}.
 """
 
@@ -463,9 +478,12 @@ def phase_build() -> None:
     from aonerf_torch.ops.kernels import build
 
     names = build.all_sources()
+    # the default encoded widths' libraries and phase 27's, every nvcc at once
+    targets = [*names, *((n, build.width_defines(*_run_widths(deg))) for _, deg in DEGREE_RUNS for n in names)]
     t0 = time.perf_counter()
-    paths = build.build(names)
-    print(f"build: {names} in {time.perf_counter() - t0:.1f} s -> {[p.name for p in paths.values()]}")
+    paths = build.build(targets)
+    print(f"build: {[build.label(t) for t in targets]} in {time.perf_counter() - t0:.1f} s -> "
+          f"{[p.name for p in paths.values()]}")
     for name, log in build.ptxas_log.items():
         kernel = ""
         for line in log.splitlines():
@@ -830,7 +848,7 @@ def _train_levels(nerf, boxes, focal, R=R_TRAIN, seed=SEED + 200, dot_bf16=False
     """The train step's level inputs at R rays of one view: (o, d,
     [(kernel params, t, venc, xenc)] for the coarse (S=65) and the fine
     (S=193) level), the fine t-values from the coarse weights (K1 in the mode
-    dot_bf16 says)."""
+    dot_bf16 says), encoded at the NeRF's degrees."""
     from aonerf_torch.ops import encoding, sampling
     from aonerf_torch.ops.kernels import fused_render as fr
 
@@ -838,16 +856,17 @@ def _train_levels(nerf, boxes, focal, R=R_TRAIN, seed=SEED + 200, dot_bf16=False
     rays, _, _ = _view(np.random.default_rng(seed), boxes, focal)
     pick = np.random.default_rng(seed + 1).choice(H * W, R, replace=False)
     o, d = (torch.from_numpy(rays[k][pick]).to(dev) for k in ("rays_o", "rays_d"))
-    venc = encoding.pos_enc(d, 0, 4)
+    mlp = nerf.coarse_mlp
+    venc = encoding.pos_enc(d, 0, mlp.deg_view)
     with torch.no_grad():
         kp_c, kp_f = fr.kernel_params(nerf.coarse_mlp), fr.kernel_params(nerf.fine_mlp)
     t_c, pts = sampling.sample_along_rays(o, d, 64, 2.0, 6.0, False, False)
     t_c = t_c.contiguous()
-    xenc_c = encoding.pos_enc(pts, 0, 10)
+    xenc_c = encoding.pos_enc(pts, mlp.min_deg_point, mlp.max_deg_point)
     _, _, _, w_c = fr.fused_render_level(kp_c, t_c, o, d, venc, xenc_c, True, dot_bf16=dot_bf16)
     t_f, pts_f = sampling.sample_pdf(0.5 * (t_c[:, 1:] + t_c[:, :-1]), w_c[:, 1:-1], o, d, t_c, 128, False)
     t_f = t_f.contiguous()
-    xenc_f = encoding.pos_enc(pts_f, 0, 10)
+    xenc_f = encoding.pos_enc(pts_f, mlp.min_deg_point, mlp.max_deg_point)
     return o, d, [(kp_c, t_c, venc, xenc_c), (kp_f, t_f, venc, xenc_f)]
 
 
@@ -4054,6 +4073,279 @@ def phase_geometry(runs: dict, tmp: str) -> dict:
     return out
 
 
+# Phase 27: config/vanilla.json at other encoding degrees, DEGREE_STEPS
+# steps a run on phase 7's scene: fp32 at max_deg_point 12, deg_view 6
+# (encoded widths 75 / 39) and bf16 at 8 / 2 (51 / 15). Phase 2 builds their
+# libraries beside the default widths'.
+DEGREE_STEPS = 20
+DEGREE_RUNS = (("fp32", {"min_deg_point": 0, "max_deg_point": 12, "deg_view": 6}),
+               ("bf16", {"min_deg_point": 0, "max_deg_point": 8, "deg_view": 2}))
+
+
+def _run_widths(deg: dict) -> tuple:
+    """The encoded sample and view widths of a run's degrees."""
+    return 3 + 6 * (deg["max_deg_point"] - deg["min_deg_point"]), 3 + 6 * deg["deg_view"]
+
+
+def _degree_bounds(R: int, S: int, P: int, V: int, dot_bf16: bool) -> dict:
+    """The bounds of K1, K1s and K2 (the backward from saved) at encoded
+    widths P / V, each (ms, what bounds it): the products on the tensor
+    cores (3xTF32 at the TF32 peak, or bf16 at the bf16 peak), the heads,
+    the view term and the integrator on the fp32 cores, against the bytes of
+    the inputs read once and the outputs written once (saved at 2 bytes a
+    value in bf16 mode). w0's and w5i's products, the view term and the
+    weights grow with P and V; the rest is the default widths' count."""
+    rows = R * S
+    macs = MACS_PER_SAMPLE + 2 * 256 * (P - 63)  # a sample's multiply-adds
+    n_w = N_WEIGHTS + 2 * 256 * (P - 63) + 128 * (V - 27)
+    tc_peak = PEAK_BF16_FLOPS if dot_bf16 else PEAK_TF32_FLOPS / 3
+    saved_bytes = 2 if dot_bf16 else 4
+    fwd_fp32 = 2.0 * (rows * FWD_FP32_MACS + R * V * 128) / PEAK_FP32_FLOPS * 1e3
+    fwd_tc = 2.0 * rows * (macs - FWD_FP32_MACS) / tc_peak * 1e3
+    inputs = 4.0 * (rows + R * 3 + R * V + rows * P + n_w)
+    k1_bytes = inputs + 4.0 * (R * 3 + R + R + rows)
+    k1s_bytes = k1_bytes + rows * (saved_bytes * SAVED_FLOATS + 16)
+    k2_ops = ((2.0 * (rows * B1_FP32_MACS + R * V * 128) + rows * INTEGRATOR_FLOPS_PER_SAMPLE) / PEAK_FP32_FLOPS
+              + 2.0 * rows * (B1_TC_MACS + macs - 640) / tc_peak) * 1e3
+    k2_bytes = inputs + 4.0 * (R * 3 + R + R + rows + rows * 4 + n_w) + saved_bytes * rows * SAVED_FLOATS
+    return {"K1": _bound(fwd_fp32 + fwd_tc, k1_bytes / PEAK_BYTES * 1e3),
+            "K1s": _bound(fwd_fp32 + fwd_tc, k1s_bytes / PEAK_BYTES * 1e3),
+            "K2": _bound(k2_ops, k2_bytes / PEAK_BYTES * 1e3)}
+
+
+def degree_level_checks(nerf, boxes, focal, dot_bf16: bool) -> list:
+    """K1, K1s and K2 (the backward from K1s' saved) at the NeRF's degrees,
+    2048 rays of one view, S = 65 and 193, white background, against their
+    plain versions under the default widths' rules, K1s' outputs K1's bits;
+    each kernel, its plain version and its bound at these widths. fp32: K1
+    and K1s within TOL, K1s' saved layers within SAVED_RMS_FACTOR of the fp32
+    plain version's rms error against fp64 (phase 5), and K2 by its
+    per-gradient rule on its own inputs: against the plain backward in fp64
+    from the same saved and raw, the limit from the fp32 plain backward's
+    error on them. The composition K1s + K2 against the plain composition in
+    fp64 (phase 6's form) is printed beside it: there the forward's mask
+    flips enter, and PR 7's witness showed the accepted kernels miss that
+    form on 7 of 16 seed x level cases (ROADMAP Queue 2 item 1). bf16: the
+    bf16 rule on K1's outputs, K1s' saved layers and K2, which the fp32
+    kernels must miss."""
+    from aonerf_torch.ops.kernels import fused_render as fr
+    from aonerf_torch.ops.kernels import fused_train as ft
+
+    dev = torch.device("cuda")
+    mode = "bf16" if dot_bf16 else "fp32"
+    names = fr.WEIGHT_NAMES
+    o, d, lvls = _train_levels(nerf, boxes, focal, R=R_TRAIN, seed=SEED + 1000, dot_bf16=dot_bf16)
+    rows = []
+    for kp, t, venc, xenc in lvls:
+        S = t.shape[1]
+        P, V = fr.widths(kp)
+        what = f"{P}/{V} {mode} S={S}"
+        args = (kp, t, o, d, venc, xenc)
+        args64 = ({n: v.double() for n, v in kp.items()}, *(a.double() for a in (t, o, d, venc, xenc)))
+        rng = np.random.default_rng(SEED + 1000 + S)
+        cot = tuple(torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
+            rng.standard_normal((R_TRAIN, 3)), rng.standard_normal(R_TRAIN), 0.1 * rng.standard_normal(R_TRAIN),
+            rng.standard_normal((R_TRAIN, S))))
+        cot64 = tuple(c.double() for c in cot)
+        k1 = fr.fused_render_level(*args, True, dot_bf16=dot_bf16)
+        *k1s, saved, raw = ft.fused_level_fwd_spill(*args, True, dot_bf16=dot_bf16)
+        got = ft.fused_level_bwd_saved(*args, saved, raw, *cot, True, dot_bf16=dot_bf16)
+        torch.cuda.synchronize()
+        for n, a, b in zip(OUTPUTS, k1, k1s):
+            if not torch.equal(a, b):
+                fail(f"degrees {what}: K1s' {n} differs from K1's")
+        for n, g in [*zip(OUTPUTS + ("saved", "raw"), (*k1s, saved, raw)), *got.items()]:
+            if not torch.isfinite(g).all():
+                fail(f"degrees {what}: non-finite {n}")
+        if not dot_bf16:
+            plain = ft.fused_level_fwd_spill_ref(*args, True)
+            errs = {n: (g - w).abs().max().item() for n, g, w in zip(OUTPUTS + ("saved", "raw"), (*k1s, saved, raw),
+                                                                         plain)}
+            bad = [n for n, v in errs.items() if not v <= TOL[n]]
+            if bad:
+                fail(f"degrees {what}: K1/K1s off the plain version on {bad}: {errs}")
+            rms_ratio = saved_fp64_check(args, saved, plain[4])
+            del plain
+            s32 = ft.fused_level_bwd_saved_ref(*args, saved, raw, *cot, True)
+            s64 = ft.fused_level_bwd_saved_ref(*args64, saved.double(), raw.double(), *cot64, True)
+            ratio = _check_grads(f"degrees {what} K2 from K1s' saved", _grad_errors(got, s64, names),
+                                 _grad_errors(s32, s64, names))
+            err = max(max(errs.values()), max((got[n] - s32[n]).abs().max().item() for n in names))
+            del s32, s64
+            p32 = ft.fused_level_bwd_ref(*args, *cot, True)
+            p64 = ft.fused_level_bwd_ref(*args64, *cot64, True)
+            e_k, e_p = _grad_errors(got, p64, names), _grad_errors(p32, p64, names)
+            comp = {n: e_k[n] / max(TOL_GRAD, TOL_GRAD_FACTOR * e_p[n]) for n in names}
+            worst = max(comp, key=comp.get)
+            print(f"degrees {what}: K1 and K1s within TOL of the plain version (" + ", ".join(
+                f"{n} {v:.2e}" for n, v in errs.items()) + f"), K1s K1's bits, its saved layers' rms error at most "
+                f"{rms_ratio:.3f} of fp32 plain's; K2 at most {ratio:.3f} of its per-gradient limits; for "
+                f"information, the composition against the plain one in fp64 {comp[worst]:.3f} of its limit ({worst})")
+            del p32, p64
+        else:
+            orders = {k: bf16_k1_plain(args, True, mm) for k, mm in BF16_ORDERS.items()}
+            ref = bf16_k1_plain(args64, True)
+            lim = bf16_limits(orders, ref, TOL_BF16_FWD)
+            f32k = dict(zip(OUTPUTS, fr.fused_render_level(*args, True)))
+            ratio = _check_rule(f"degrees {what} K1", bf16_ratios(dict(zip(OUTPUTS, k1)), ref, lim),
+                                bf16_ratios(f32k, ref, lim))
+            err = max((a - orders["cuBLAS"][n]).abs().max().item() for n, a in zip(OUTPUTS, k1))
+            del orders, ref, f32k
+            orders = {k: saved_layers(ft.fused_level_fwd_spill_ref(*args, True, mm=mm, dot_bf16=True)[4])
+                      for k, mm in BF16_ORDERS.items()}
+            ref = saved_layers(ft.fused_level_fwd_spill_ref(*args64, True, dot_bf16=True)[4])
+            saved_ratios = bf16_ratios(saved_layers(saved), ref, bf16_limits(orders, ref, TOL_BF16_FWD))
+            if not max(saved_ratios.values()) <= 1.0:
+                fail(f"degrees {what}: K1s' saved layers beyond the bf16 rule: {saved_ratios}")
+            del orders, ref
+            orders = {k: bf16_k2_plain(args, cot, True, mm) for k, mm in BF16_ORDERS.items()}
+            ref = bf16_k2_plain(args64, cot64, True)
+            lim = bf16_limits(orders, ref, TOL_BF16_GRAD)
+            f32k = ft.fused_level_bwd(*args, *cot, True)
+            ratio = max(ratio, max(saved_ratios.values()),
+                        _check_rule(f"degrees {what} K2", bf16_ratios(got, ref, lim), bf16_ratios(f32k, ref, lim)))
+            err = max(err, max((got[n] - orders["cuBLAS"][n]).abs().max().item() for n in names))
+            print(f"degrees {what}: K1, K1s' saved layers and K2 within the bf16 rule (at most {ratio:.3f} of a "
+                  "limit), K1s K1's bits")
+            del orders, ref, f32k
+        del args64, got
+        iters = 5 if S > 100 else 10
+        ms = {"K1": cuda_ms(lambda: fr.fused_render_level(*args, True, dot_bf16=dot_bf16), 2, iters),
+              "K1s": cuda_ms(lambda: ft.fused_level_fwd_spill(*args, True, dot_bf16=dot_bf16), 2, iters),
+              "K2": cuda_ms(lambda: ft.fused_level_bwd_saved(*args, saved, raw, *cot, True, dot_bf16=dot_bf16), 2,
+                            iters)}
+        plain_ms = {"K1": cuda_ms(lambda: fr.fused_render_level_ref(*args, True, dot_bf16=dot_bf16), 1, 2),
+                    "K1s": cuda_ms(lambda: ft.fused_level_fwd_spill_ref(*args, True, dot_bf16=dot_bf16), 1, 2),
+                    "K2": cuda_ms(lambda: ft.fused_level_bwd_saved_ref(*args, saved, raw, *cot, True,
+                                                                       dot_bf16=dot_bf16), 1, 2)}
+        bounds = _degree_bounds(R_TRAIN, S, P, V, dot_bf16)
+        tile = fr.launch_tiles[(R_TRAIN, S, dot_bf16)], ft.fwd_tiles[(R_TRAIN, S, dot_bf16)]
+        smem = fr.forward_smem_bytes(S, tile[1], P)
+        print(f"  {what} at {R_TRAIN} rays: " + ", ".join(
+            f"{k} {ms[k]:.3f} ms (plain {plain_ms[k]:.3f}, bound {bounds[k][0]:.3f} by {bounds[k][1]})" for k in ms)
+            + f"; ray tiles K1 {tile[0]}, K1s {tile[1]} ({smem} bytes of shared memory a forward block)")
+        rows.append({"P": P, "V": V, "mode": mode, "S": S, "ms": ms, "plain_ms": plain_ms,
+                     "composition_ratio": None if dot_bf16 else comp[worst],
+                     "bound_ms": {k: v[0] for k, v in bounds.items()}, "bound_by": {k: v[1] for k, v in bounds.items()},
+                     "max_abs_err": err, "rule_ratio": ratio, "ray_tile": tile[1], "smem_bytes": smem})
+        del saved, raw, k1, k1s
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_degrees(boxes, focal, root: str, tmp: str) -> dict:
+    """Phase 27: K1, K1s and K2 at both runs' widths in both modes against
+    their plain versions (degree_level_checks); then config/vanilla.json
+    (batch 2048, 64+128 samples, 8x256) at each run's degrees and mode,
+    DEGREE_STEPS steps through the train CLI on phase 7's scene with one
+    test view, launch counts of K1 (validation), K1s and K2 in the run's mode,
+    the loss falling; --run_eval of the fp32 run's checkpoint (K1 only) and a
+    32^3 grid through export_voxels from it."""
+    from aonerf_torch.cli import export_voxels
+    from aonerf_torch.cli import train as cli
+    from aonerf_torch.models.nerf import NeRF
+    from aonerf_torch.ops.kernels import fused_render as fr
+    from aonerf_torch.ops.kernels import fused_train as ft
+    from aonerf_torch.train import step as step_mod
+    from aonerf_torch.utils.config import load_config
+
+    t_phase = time.perf_counter()
+    levels = []
+    for _, deg in DEGREE_RUNS:
+        nerf = NeRF(generator=torch.Generator().manual_seed(SEED), device="cuda", **deg).eval()
+        for dot_bf16 in (False, True):
+            levels += degree_level_checks(nerf, boxes, focal, dot_bf16)
+        del nerf
+    t_kernels = time.perf_counter() - t_phase
+
+    # phase 7's scene with its first test view only
+    scene = os.path.join(tmp, "degrees_scene")
+    for split in ("train", "val"):
+        os.makedirs(scene, exist_ok=True)
+        os.symlink(os.path.join(root, split), os.path.join(scene, split))
+    os.makedirs(os.path.join(scene, "test", "rgb"))
+    with open(os.path.join(root, "test", "transforms.json")) as f:
+        frames = json.load(f)
+    frames["frames"] = {"r_0": frames["frames"]["r_0"]}
+    with open(os.path.join(scene, "test", "transforms.json"), "w") as f:
+        json.dump(frames, f)
+    os.symlink(os.path.join(root, "test", "rgb", "r_0.png"), os.path.join(scene, "test", "rgb", "r_0.png"))
+
+    real = step_mod.vanilla_loss_and_grads
+    runs = {}
+    out = os.path.join(tmp, "out_degrees")
+    os.makedirs(out, exist_ok=True)
+    for mode, deg in DEGREE_RUNS:
+        with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "config", "vanilla.json")) as f:
+            cfg = json.load(f)
+        cfg.update({"root_dir": scene, "output_path": out, "exp_name": f"smoke_degrees_{mode}",
+                    "img_wh": [W, H], "lr_init": 1e-3, "lr_delay_steps": 0, "val_every_steps": DEGREE_STEPS,
+                    "ckpt_every_steps": DEGREE_STEPS, "limit_val_batches": 1, "seed": SEED,
+                    "compute_dtype": {"fp32": "f32", "bf16": "bf16"}[mode], **deg})
+        cfg_path = os.path.join(out, f"degrees_{mode}.json")
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)
+        losses = []
+
+        def recorded(*args, **kwargs):  # observes each step's loss, changes nothing
+            out = real(*args, **kwargs)
+            losses.append(out[0])
+            return out
+
+        torch.cuda.synchronize()
+        fr.launches = ft.fwd_launches = ft.launches = fr.bf16_launches = ft.bf16_fwd_launches = ft.bf16_launches = 0
+        t0 = time.perf_counter()
+        with mock.patch.object(step_mod, "vanilla_loss_and_grads", recorded):
+            metrics = cli.main(["--config", cfg_path, "--max_steps", str(DEGREE_STEPS)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = {"fp32": (fr.launches, ft.fwd_launches, ft.launches),
+                  "bf16": (fr.bf16_launches, ft.bf16_fwd_launches, ft.bf16_launches)}
+        loss = torch.stack(losses).cpu().numpy()
+        n_val_tiles = -(-W * H // cfg["chunk"])
+        other = "bf16" if mode == "fp32" else "fp32"
+        P, V = _run_widths(deg)
+        print(f"degrees {mode} at {P}/{V} (min_deg_point {deg['min_deg_point']}, max_deg_point "
+              f"{deg['max_deg_point']}, deg_view {deg['deg_view']}): {len(loss)} steps at batch {cfg['batch_size']}, "
+              f"{cfg['num_coarse_samples']}+{cfg['num_fine_samples']} samples in {seconds:.1f} s; loss first 5 "
+              f"{loss[:5].mean():.5f}, last 5 {loss[-5:].mean():.5f}; val psnr {metrics.get('val_psnr')}; launches "
+              f"K1 {counts[mode][0]} (expected {2 * n_val_tiles}), K1s {counts[mode][1]}, K2 {counts[mode][2]} "
+              f"(expected {2 * DEGREE_STEPS} each), {other} mode {counts[other]}")
+        if len(loss) != DEGREE_STEPS or not np.isfinite(loss).all() or not loss[-5:].mean() < loss[:5].mean():
+            fail(f"degrees {mode}: the loss did not fall over {DEGREE_STEPS} steps")
+        if counts[mode] != (2 * n_val_tiles, 2 * DEGREE_STEPS, 2 * DEGREE_STEPS) or any(counts[other]):
+            fail(f"degrees {mode}: K1, K1s and K2 were not launched as expected: {counts}")
+        runs[mode] = {"cfg_path": cfg_path, "launches": counts[mode], "loss_first5": float(loss[:5].mean()),
+                      "loss_last5": float(loss[-5:].mean()), "seconds": seconds, "widths": (P, V)}
+
+    cfg_path = runs["fp32"]["cfg_path"]
+    torch.cuda.synchronize()
+    fr.launches = ft.fwd_launches = ft.launches = 0
+    t0 = time.perf_counter()
+    stats = cli.main(["--config", cfg_path, "--run_eval"])
+    torch.cuda.synchronize()
+    test_s = time.perf_counter() - t0
+    n_tiles = -(-W * H // load_config(cfg_path).chunk)
+    test_counts = (fr.launches, ft.fwd_launches, ft.launches)
+    print(f"  --run_eval of the fp32 run's step {DEGREE_STEPS}: 1 test view in {test_s:.2f} s, psnr "
+          f"{stats['psnr']['test']:.4f} dB, ssim {stats['ssim']['test']:.5f}; K1, K1s, K2 launches {test_counts} "
+          f"(expected ({2 * n_tiles}, 0, 0))")
+    if test_counts != (2 * n_tiles, 0, 0) or not all(np.isfinite(stats[k]["test"]) for k in ("psnr", "ssim")):
+        fail("degrees: the test view did not render through K1 as expected")
+    runs["fp32"]["test_k1"] = test_counts[0]
+    t0 = time.perf_counter()
+    summary = export_voxels.main(["--config", cfg_path, "--out", os.path.join(tmp, "degrees_occ.ply"),
+                                  "--resolution", str(GEO_RES)])
+    grid_s = time.perf_counter() - t0
+    print(f"  export_voxels --resolution {GEO_RES} of the fp32 run's step {summary['step']} in {grid_s:.2f} s: "
+          f"{summary['occupied']} occupied at threshold {summary['threshold']}")
+    if summary["step"] != DEGREE_STEPS or summary["resolution"] != GEO_RES or not os.path.exists(summary["out"]):
+        fail(f"degrees: export_voxels printed {summary}")
+    seconds = time.perf_counter() - t_phase
+    print(f"  phase degrees: {seconds:.1f} s (kernel checks {t_kernels:.1f} s; the libraries built in phase 2)")
+    return {"levels": levels, "runs": runs, "test_seconds": test_s, "seconds": seconds}
+
+
 def main() -> None:
     t_run = time.perf_counter()
     phase_device()
@@ -4089,6 +4381,7 @@ def main() -> None:
         phase_lpips_test(t["cfg_path"], tmp)
         phase_nan_kernels(nerf, boxes, focal)
         phase_geometry({"vanilla": t["cfg_path"], "autodecoder": a["cfg_path"], "autoencoder": ae["cfg_path"]}, tmp)
+        dg = phase_degrees(boxes, focal, t["root"], tmp)
     ae_launches = [x + y for x, y in zip(ae["fused"], ae_test["fused"])]  # K1, K1s, K2 on phases 11-12
 
     lv = k["levels"]
@@ -4277,6 +4570,31 @@ def main() -> None:
           f"against {bt['steps_ms']['peak_gb']['fp32']:.3f} GB; K1s bf16 {entries[4]['ms']:.3f} ms + K2 bf16 {entries[5]['ms']:.3f} "
           f"ms a step (fp32 {entries[4]['fp32_ms']:.3f} + {entries[5]['fp32_ms']:.3f} ms)")
     entries.append(b2)
+
+    def degree_entry(kernel, name, source, replaces, mode, widths, launches):
+        # phase 27: a coarse (S=65) and a fine (S=193) launch at 2048 rays at
+        # the run's encoded widths and mode; launches from its training run
+        lv = [x for x in dg["levels"] if x["mode"] == mode and (x["P"], x["V"]) == widths]
+        return {"name": f"{name} at {widths[0]}/{widths[1]}", "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches, "max_abs_err": max(x["max_abs_err"] for x in lv),
+                "ms": sum(x["ms"][kernel] for x in lv), "plain_ms": sum(x["plain_ms"][kernel] for x in lv),
+                "bound_ms": sum(x["bound_ms"][kernel] for x in lv),
+                "bound_by": bound_by([{"bound_by": x["bound_by"][kernel]} for x in lv]), "library_ms": None,
+                "rule_ratio": max(x["rule_ratio"] for x in lv), "ray_tiles": [x["ray_tile"] for x in lv],
+                "smem_bytes": [x["smem_bytes"] for x in lv]}
+
+    for mode, _ in DEGREE_RUNS:
+        run = dg["runs"][mode]
+        tag = "_bf16" if mode == "bf16" else ""
+        k1_launches = run["launches"][0] + run.get("test_k1", 0)  # validation, and the fp32 run's test view
+        entries += [
+            degree_entry("K1", f"fused_render_level{tag}", "aonerf_torch/ops/kernels/csrc/fused_render.cu",
+                         "aonerf/ops/kernels/fused_render.py:194", mode, run["widths"], k1_launches),
+            degree_entry("K1s", f"fused_level_fwd_spill{tag}", "aonerf_torch/ops/kernels/csrc/fused_train.cu",
+                         "aonerf/ops/kernels/fused_render.py:194", mode, run["widths"], run["launches"][1]),
+            degree_entry("K2", f"fused_level_bwd{tag}", "aonerf_torch/ops/kernels/csrc/fused_train.cu",
+                         "aonerf/ops/kernels/fused_train.py:239", mode, run["widths"], run["launches"][2]),
+        ]
     print(f"whole run: {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -281,14 +281,15 @@ def test_bwd_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         ft.fused_level_bwd(kp, t, o, d, venc, xenc, gc, ga, gd, gw.t().contiguous().t(), True)
     before = ft.fwd_launches, ft.launches
-    with pytest.raises(RuntimeError, match="launch failed"):  # 64 x 65 needs 266 KB
+    with pytest.raises(RuntimeError, match="launch failed"):  # B1's block of 64 rays needs 250 KB
         ft.fused_level_bwd(kp, t, o, d, venc, xenc, gc, ga, gd, gw, True, ray_tile=64)
     with pytest.raises(RuntimeError, match="launch failed"):
         ft.fused_level_fwd_spill(kp, t, o, d, venc, xenc, True, ray_tile=64)
     *_, saved, raw = ft.fused_level_fwd_spill(kp, t, o, d, venc, xenc, True)
     with pytest.raises(ValueError, match="shape"):
         ft.fused_level_bwd_saved(kp, t, o, d, venc, xenc, saved[:-1], raw, gc, ga, gd, gw, True)
-    assert (ft.fwd_launches, ft.launches) == (before[0] + 1, before[1])
+    # the composition's K1s ran before its backward was refused; then one K1s
+    assert (ft.fwd_launches, ft.launches) == (before[0] + 2, before[1])
     ft.fused_level_bwd(kp, t, o, d, venc, xenc, gc, ga, gd, gw, True)  # no stale error left behind
     torch.cuda.synchronize()
 
@@ -1001,7 +1002,9 @@ def test_fp32_k2_keeps_16_rays_a_block(cuda):
     assert ft.bwd_tiles[(R, S, False)] == 16
     at16 = ft.fused_level_bwd_saved(kp, *args, saved, raw, *cot, True, ray_tile=16)
     whole = ft.fused_level_bwd(kp, *args, *cot, True)
-    assert ft.bwd_tiles[(R, S, False)] == ft.fwd_tiles[(R, S, False)] == 16
+    # the composition's K1s takes its own tile (2 at 224 rays; its outputs do
+    # not depend on it), its backward keeps 16
+    assert ft.bwd_tiles[(R, S, False)] == 16 and ft.fwd_tiles[(R, S, False)] == 2
     torch.cuda.synchronize()
     for name in fr.WEIGHT_NAMES:
         assert torch.equal(default[name], at16[name]) and torch.equal(whole[name], at16[name]), name
@@ -1301,3 +1304,104 @@ def _planted_nan_case(cuda, S, case, dot_bf16, mlp):
         for i in range(4):
             assert torch.equal(k1s[i][others], clean1s[i][others])
         assert torch.isnan(k2["w0"][k2["w0"].shape[0] // 2]).all() and torch.isnan(k2["w5i"][k2["w5i"].shape[0] // 2]).all()
+
+
+# Other encoded widths (the libraries built for them at first use): the
+# sample and view widths -> (min_deg_point, max_deg_point, deg_view)
+_DEGREE_WIDTHS = {"51/15": (0, 8, 2), "75/39": (0, 12, 6)}
+
+
+def _degree_level(cuda, widths, R, S):
+    lo, hi, view = _DEGREE_WIDTHS[widths]
+    mlp = NeRFMLP(generator=torch.Generator().manual_seed(S + hi), device=cuda, min_deg_point=lo, max_deg_point=hi,
+                  deg_view=view)
+    with torch.no_grad():
+        kp = fr.kernel_params(mlp)
+        kp["bd"] += 0.5  # live densities
+    args = _level_inputs(R, S, S, cuda, lo, hi, view)
+    assert f"{args[4].shape[-1]}/{args[3].shape[-1]}" == widths == "{}/{}".format(*fr.widths(kp))
+    return kp, args, _cotangents(R, S, S + 1, cuda)
+
+
+@pytest.mark.parametrize("dot_bf16", [False, True], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("S", [65, 193])
+@pytest.mark.parametrize("widths", list(_DEGREE_WIDTHS))
+def test_degrees_kernels_match_their_plain_versions(cuda, widths, S, dot_bf16):
+    # K1, K1s and K2 at other encoded widths against their plain versions
+    # under the rules of the default widths: fp32 K1 within _TOLS, K1s K1's
+    # bits and its saved/raw within _SPILL_TOL, K2 the per-gradient rule
+    # against fp64 on its own inputs; bf16 K1 and K1s the same bits, K1's
+    # outputs, K1s' saved layers and K2's gradients by the bf16 rule
+    kp, args, cot = _degree_level(cuda, widths, 256, S)
+    white = S == 65
+    before = (fr.launches, ft.fwd_launches, ft.launches) if not dot_bf16 else \
+        (fr.bf16_launches, ft.bf16_fwd_launches, ft.bf16_launches)
+    k1 = fr.fused_render_level(kp, *args, white, dot_bf16=dot_bf16)
+    k1s = ft.fused_level_fwd_spill(kp, *args, white, dot_bf16=dot_bf16)
+    got = ft.fused_level_bwd_saved(kp, *args, k1s[4], k1s[5], *cot, white, dot_bf16=dot_bf16)
+    torch.cuda.synchronize()
+    after = (fr.launches, ft.fwd_launches, ft.launches) if not dot_bf16 else \
+        (fr.bf16_launches, ft.bf16_fwd_launches, ft.bf16_launches)
+    assert after == tuple(b + 1 for b in before)
+    for name, a, b in zip(rule.OUTPUTS, k1, k1s):
+        assert torch.equal(a, b), name  # K1s gives K1's bits
+    args64 = ({n: v.double() for n, v in kp.items()}, *(a.double() for a in args))
+    cot64 = tuple(c.double() for c in cot)
+    if not dot_bf16:
+        want = ft.fused_level_fwd_spill_ref(kp, *args, white)
+        for name, g, w in zip(rule.OUTPUTS, k1, want):
+            assert torch.isfinite(g).all() and (g - w).abs().max().item() <= _TOLS[name], name
+        for name, g, w in zip(("saved", "raw"), k1s[4:], want[4:]):
+            assert (g - w).abs().max().item() <= _SPILL_TOL, name
+        # K2 on its own inputs: against the plain backward in fp64 from the
+        # same saved and raw, its limit from the fp32 plain backward's error
+        # on them (K1s is held above; chip_smoke.py phase 27 says why the
+        # composition's form is printed there, not held)
+        saved, raw = k1s[4], k1s[5]
+        p32 = ft.fused_level_bwd_saved_ref(kp, *args, saved, raw, *cot, white)
+        p64 = ft.fused_level_bwd_saved_ref(*args64, saved.double(), raw.double(), *cot64, white)
+        for name in fr.WEIGHT_NAMES:
+            assert got[name].shape == p64[name].shape and torch.isfinite(got[name]).all(), name
+            tol = max(_GRAD_TOL, _GRAD_FACTOR * _rel_err(p32[name], p64[name]))
+            assert _rel_err(got[name], p64[name]) <= tol, name
+        return
+    *p64, p64_saved, _ = ft.fused_level_fwd_spill_ref(*args64, white, dot_bf16=True)
+    orders = {k: dict(zip(rule.OUTPUTS, fr.fused_render_level_ref(kp, *args, white, mm=mm, dot_bf16=True)))
+              for k, mm in rule.BF16_ORDERS.items()}
+    ratios = _bf16_ratios(dict(zip(rule.OUTPUTS, k1)), orders, dict(zip(rule.OUTPUTS, p64)), rule.TOL_BF16_FWD)
+    assert all(r <= 1.0 for r in ratios.values()), ratios
+    orders = {k: rule.saved_layers(ft.fused_level_fwd_spill_ref(kp, *args, white, mm=mm, dot_bf16=True)[4])
+              for k, mm in rule.BF16_ORDERS.items()}
+    ratios = _bf16_ratios(rule.saved_layers(k1s[4]), orders, rule.saved_layers(p64_saved), rule.TOL_BF16_FWD)
+    assert all(r <= 1.0 for r in ratios.values()), ratios
+    orders = {k: rule.bf16_k2_plain((kp, *args), cot, white, mm=mm) for k, mm in rule.BF16_ORDERS.items()}
+    p64 = ft.fused_level_bwd_ref(*args64, *cot64, white, dot_bf16=True)
+    ratios = _bf16_ratios(got, orders, p64, rule.TOL_BF16_GRAD)
+    assert all(r <= 1.0 for r in ratios.values()), ratios
+
+
+@pytest.mark.parametrize("dot_bf16", [False, True], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("widths", list(_DEGREE_WIDTHS))
+def test_degrees_kernels_keep_a_planted_xenc_nan(cuda, widths, dot_bf16):
+    lo, hi, view = _DEGREE_WIDTHS[widths]
+    mlp = NeRFMLP(generator=torch.Generator().manual_seed(65), device=cuda, min_deg_point=lo, max_deg_point=hi,
+                  deg_view=view)
+    _planted_nan_case(cuda, 65, "xenc 0x7fffffff", dot_bf16, mlp)
+
+
+def test_degrees_tile_rule_takes_what_the_block_holds(cuda):
+    # at 75 / 39 the xs tile's K pads to 96: a forward block of 16 rays of
+    # 193 samples needs 232,832 bytes, more than the H100's 232,448, so the
+    # tile rule takes 8 at 2048 rays; 16 still fits at 65 samples and at 51 / 15
+    for widths, S, tile in (("75/39", 193, 8), ("75/39", 65, 16), ("51/15", 193, 16)):
+        kp, args, _ = _degree_level(cuda, widths, 2048, S)
+        assert (fr.forward_smem_bytes(S, 16, fr.widths(kp)[0]) > fr.H100_SMEM_PER_BLOCK) == (tile == 8)
+        k1 = fr.fused_render_level(kp, *args, True)
+        k1s = ft.fused_level_fwd_spill(kp, *args, True)
+        assert fr.launch_tiles[(2048, S, False)] == ft.fwd_tiles[(2048, S, False)] == tile
+        assert all(torch.equal(a, b) for a, b in zip(k1, k1s))
+        if tile == 8:
+            with pytest.raises(RuntimeError, match="launch failed"):
+                fr.fused_render_level(kp, *args, True, ray_tile=16)
+            at4 = fr.fused_render_level(kp, *args, True, ray_tile=4)  # a row's outputs do not depend on the tile
+            assert all(torch.equal(a, b) for a, b in zip(k1, at4))

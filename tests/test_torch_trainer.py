@@ -115,11 +115,13 @@ def test_trainer_loads_a_checkpoint_from_another_run(tmp_path, source):
 
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
-    # noise_std, profile_steps, debug_nans and the launcher variants run
-    # (tests/test_torch_settings.py, tests/test_torch_noise.py); what stays
-    # refused names its ROADMAP item
+    # noise_std, profile_steps, debug_nans, the launcher variants and every
+    # encoding degree the kernels' layout holds run (tests/test_torch_settings.py,
+    # tests/test_torch_noise.py, tests/test_torch_degrees*.py); what stays
+    # refused names its ROADMAP item, a degree beyond the layout with the
+    # shared memory it would need
     for overrides, item in (({"exp_type": "vanilla_ae_art"}, None), ({"compute_dtype": "fp16"}, None),
-                            ({"netwidth": 128}, "item 3"), ({"min_deg_point": 1}, "item 3"),
+                            ({"max_deg_point": 48}, "encoded width 291: .* needs 236176 bytes .* item 11"),
                             ({"n_model_shards": 2}, "item 7"), ({"shard_scene_buffers": False}, "item 7")):
         with pytest.raises(NotImplementedError, match=item):
             Trainer(config.load_config(None, {"platform": "cpu", **overrides}))

@@ -137,8 +137,8 @@ def all_sass(lib_path: str) -> dict:
     text = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True, text=True, check=True).stdout
     out, name = {}, None
     for line in text.splitlines():
-        if "Function :" in line:
-            name = line.split("Function :", 1)[1].strip()
+        if "Function :" in line:  # the anonymous namespace's name holds a hash of the source's path: dropped
+            name = re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "_GLOBAL__N_", line.split("Function :", 1)[1].strip())
             out[name] = []
         elif name is not None:
             out[name].append(" ".join(line.split()))
