@@ -1311,15 +1311,15 @@ def _planted_nan_case(cuda, S, case, dot_bf16, mlp):
 _DEGREE_WIDTHS = {"51/15": (0, 8, 2), "75/39": (0, 12, 6)}
 
 
-def _degree_level(cuda, widths, R, S):
-    lo, hi, view = _DEGREE_WIDTHS[widths]
+def _degree_level(cuda, degrees, R, S):
+    lo, hi, view = degrees
     mlp = NeRFMLP(generator=torch.Generator().manual_seed(S + hi), device=cuda, min_deg_point=lo, max_deg_point=hi,
                   deg_view=view)
     with torch.no_grad():
         kp = fr.kernel_params(mlp)
         kp["bd"] += 0.5  # live densities
     args = _level_inputs(R, S, S, cuda, lo, hi, view)
-    assert f"{args[4].shape[-1]}/{args[3].shape[-1]}" == widths == "{}/{}".format(*fr.widths(kp))
+    assert (args[4].shape[-1], args[3].shape[-1]) == fr.widths(kp) == (3 + 6 * (hi - lo), 3 + 6 * view)
     return kp, args, _cotangents(R, S, S + 1, cuda)
 
 
@@ -1327,12 +1327,41 @@ def _degree_level(cuda, widths, R, S):
 @pytest.mark.parametrize("S", [65, 193])
 @pytest.mark.parametrize("widths", list(_DEGREE_WIDTHS))
 def test_degrees_kernels_match_their_plain_versions(cuda, widths, S, dot_bf16):
+    _check_degree_kernels(cuda, _DEGREE_WIDTHS[widths], S, dot_bf16)
+
+
+# Every sample width the degrees 0-12 give (3 to 75), each with the view
+# width of degrees d mod 9, so every view width from 3 to 51 runs too; their
+# libraries are built in one call, every nvcc at once. fp32 only: the bf16
+# rule, held at 75 / 39 and 51 / 15 above, turns away right kernels at some
+# seeds and widths (at the default widths too), and at sample width 3 its
+# fp32 orders of a 3-term sum do not spread at all (PERF.md section 6, PR 23;
+# tools/torch_bf16_rule_widths.py prints it at every width).
+_SWEEP = tuple((0, d, d % 9) for d in range(13))
+
+
+@pytest.fixture(scope="module")
+def sweep_libraries():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from aonerf_torch.ops.kernels import build
+
+    build.build([(n, build.width_defines(3 + 6 * hi, 3 + 6 * view)) for _, hi, view in _SWEEP
+                 for n in build.all_sources()])
+
+
+@pytest.mark.parametrize("degrees", _SWEEP, ids=lambda d: f"{3 + 6 * d[1]}/{3 + 6 * d[2]}")
+def test_degrees_every_encoded_width(cuda, sweep_libraries, degrees):
+    _check_degree_kernels(cuda, degrees, 65, False)
+
+
+def _check_degree_kernels(cuda, degrees, S, dot_bf16):
     # K1, K1s and K2 at other encoded widths against their plain versions
     # under the rules of the default widths: fp32 K1 within _TOLS, K1s K1's
     # bits and its saved/raw within _SPILL_TOL, K2 the per-gradient rule
     # against fp64 on its own inputs; bf16 K1 and K1s the same bits, K1's
     # outputs, K1s' saved layers and K2's gradients by the bf16 rule
-    kp, args, cot = _degree_level(cuda, widths, 256, S)
+    kp, args, cot = _degree_level(cuda, degrees, 256, S)
     white = S == 65
     before = (fr.launches, ft.fwd_launches, ft.launches) if not dot_bf16 else \
         (fr.bf16_launches, ft.bf16_fwd_launches, ft.bf16_launches)
@@ -1394,7 +1423,7 @@ def test_degrees_tile_rule_takes_what_the_block_holds(cuda):
     # 193 samples needs 232,832 bytes, more than the H100's 232,448, so the
     # tile rule takes 8 at 2048 rays; 16 still fits at 65 samples and at 51 / 15
     for widths, S, tile in (("75/39", 193, 8), ("75/39", 65, 16), ("51/15", 193, 16)):
-        kp, args, _ = _degree_level(cuda, widths, 2048, S)
+        kp, args, _ = _degree_level(cuda, _DEGREE_WIDTHS[widths], 2048, S)
         assert (fr.forward_smem_bytes(S, 16, fr.widths(kp)[0]) > fr.H100_SMEM_PER_BLOCK) == (tile == 8)
         k1 = fr.fused_render_level(kp, *args, True)
         k1s = ft.fused_level_fwd_spill(kp, *args, True)
