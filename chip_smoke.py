@@ -4119,8 +4119,9 @@ def degree_level_checks(nerf, boxes, focal, dot_bf16: bool) -> list:
     from the same saved and raw, the limit from the fp32 plain backward's
     error on them. The composition K1s + K2 against the plain composition in
     fp64 (phase 6's form) is printed beside it: there the forward's mask
-    flips enter, and PR 7's witness showed the accepted kernels miss that
-    form on 7 of 16 seed x level cases (ROADMAP Queue 2 item 1). bf16: the
+    flips enter, and tools/torch_fwd_accuracy.py --witness showed the accepted
+    kernels miss that form on 7 of 16 seed x level cases (ROADMAP Queue 2
+    item 1). bf16: the
     bf16 rule on K1's outputs, K1s' saved layers and K2, which the fp32
     kernels must miss."""
     from aonerf_torch.ops.kernels import fused_render as fr

@@ -1335,7 +1335,7 @@ def test_degrees_kernels_match_their_plain_versions(cuda, widths, S, dot_bf16):
 # libraries are built in one call, every nvcc at once. fp32 only: the bf16
 # rule, held at 75 / 39 and 51 / 15 above, turns away right kernels at some
 # seeds and widths (at the default widths too), and at sample width 3 its
-# fp32 orders of a 3-term sum do not spread at all (PERF.md section 6, PR 23;
+# fp32 orders of a 3-term sum do not spread at all (PERF.md section 6;
 # tools/torch_bf16_rule_widths.py prints it at every width).
 _SWEEP = tuple((0, d, d % 9) for d in range(13))
 
