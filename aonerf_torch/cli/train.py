@@ -11,6 +11,14 @@ same way, fits fresh codes for ``optimize_instance`` with the field frozen
 <value>, or by the reference's flag name (e.g. --save_path for
 --render_name); values are read as JSON where they parse. Runs on the CUDA
 card unless ``--platform cpu``.
+
+Data parallel on N cards of one host, with no flag of its own:
+
+    torchrun --standalone --nproc_per_node N -m aonerf_torch.cli.train --config cfg.json
+
+(rank r on cuda:r under NCCL; ``--platform cpu`` runs the ranks on the CPU
+under gloo, ``--platform cuda:0`` puts them all on that card under gloo).
+Rank 0 prints the result.
 """
 
 import argparse
@@ -18,6 +26,7 @@ import dataclasses
 import json
 from typing import Dict
 
+from aonerf_torch.parallel import distributed
 from aonerf_torch.train.loop import Trainer
 from aonerf_torch.utils.config import ALIASES, Config, load_config
 
@@ -70,9 +79,13 @@ def main(argv=None) -> Dict:
             out = trainer.fit(max_steps=args.max_steps)
     finally:
         trainer.close()
-    print(json.dumps(out))
+    if distributed.is_main_process():
+        print(json.dumps(out))
     return out
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        distributed.shutdown()

@@ -10,6 +10,12 @@ fine exponential draws (and, for fresh latent codes, normal draws). With
 (``noise``) after that level's samples; without it the sequence is what it
 was. A test can pass any object with the same methods, for example one that
 returns numbers drawn with JAX.
+
+Data parallelism: the articulated steps' ranks each draw their own batch
+from ``Draws.for_step(seed, step, fold=rank)`` (JAX folds
+``axis_index('data')`` into the step's key); the vanilla step's ranks draw
+the whole batch's numbers and keep their own rows (``RowDraws``), so the
+ranks together compute the one-device step.
 """
 
 import torch
@@ -18,6 +24,17 @@ import torch
 def step_seed(seed: int, step: int) -> int:
     """The generator seed of step ``step`` of a run seeded with ``seed``."""
     return (int(seed) * 2**32 + int(step)) % 2**64
+
+
+def fold_seed(seed: int, data: int) -> int:
+    """A generator seed for ``data`` (a rank) folded into ``seed``, as JAX's
+    ``fold_in``: splitmix64's finalizer of seed + (data + 1) * its golden
+    gamma, so every (seed, data) pair gets its own stream."""
+    m = 2**64 - 1
+    z = (int(seed) + (int(data) + 1) * 0x9E3779B97F4A7C15) & m
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & m
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & m
+    return z ^ (z >> 31)
 
 
 class Draws:
@@ -29,9 +46,12 @@ class Draws:
         self.device = generator.device
 
     @classmethod
-    def for_step(cls, seed: int, step: int, device) -> "Draws":
+    def for_step(cls, seed: int, step: int, device, fold=None) -> "Draws":
+        """The draws of step ``step``; with ``fold`` (a data-parallel rank)
+        that rank's own stream of the step."""
+        s = step_seed(seed, step)
         g = torch.Generator(device=device)
-        g.manual_seed(step_seed(seed, step))
+        g.manual_seed(s if fold is None else fold_seed(s, fold))
         return cls(g)
 
     def randint(self, high: int, shape) -> torch.Tensor:
@@ -55,3 +75,33 @@ class Draws:
     def normal(self, shape) -> torch.Tensor:
         """float32 N(0, 1)."""
         return torch.randn(tuple(shape), generator=self.generator, device=self.device)
+
+
+class RowDraws:
+    """A draws object for rows [start, stop) of a batch of ``total`` rows:
+    each call draws the whole batch's array from ``draws`` (leading size
+    ``total``) and hands out those rows, so every rank takes its rows of
+    the numbers one device would draw, in the same order."""
+
+    def __init__(self, draws, start: int, stop: int, total: int):
+        self.draws, self.start, self.stop, self.total = draws, start, stop, total
+
+    def _rows(self, draw, shape):
+        shape = tuple(shape)
+        assert shape[0] == self.stop - self.start, (shape, self.start, self.stop)
+        return draw((self.total, *shape[1:]))[self.start : self.stop]
+
+    def randint(self, high: int, shape) -> torch.Tensor:
+        return self._rows(lambda s: self.draws.randint(high, s), shape)
+
+    def uniform(self, shape) -> torch.Tensor:
+        return self._rows(self.draws.uniform, shape)
+
+    def noise(self, shape) -> torch.Tensor:
+        return self._rows(self.draws.noise, shape)
+
+    def exponential(self, shape) -> torch.Tensor:
+        return self._rows(self.draws.exponential, shape)
+
+    def normal(self, shape) -> torch.Tensor:
+        return self._rows(self.draws.normal, shape)

@@ -51,16 +51,27 @@ many steps under ``run_dir/profile`` (``utils.profile.device_op_table``
 reads it).
 
 With ``run_eval`` the Trainer loads the test split instead of train and val.
+
+Data parallelism: under torchrun (``parallel.distributed.initialize`` reads
+its environment; without it nothing changes) every rank builds the same
+Trainer, rank 0's parameters are broadcast at the start and after a
+restore, and the train steps all-reduce the gradients (``train.step``,
+``train.step_ae``). ``shard_scene_buffers`` (the default) gives each rank
+only its cyclic view slice of the articulated scene buffers. Every rank
+validates the same views (the one-rank numbers); ``test`` renders each
+rank's ``local_shard_bounds`` of the views and gathers them
+(``gather_images``). Logs, checkpoints, val grids, renders and
+results.json are written by rank 0 alone; the profiler runs there too.
 """
 
 import os
+import time
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
-from aonerf_torch import default_device
 from aonerf_torch.data.prefetch import Prefetcher
 from aonerf_torch.data.sapien import SapienDataset
 from aonerf_torch.data.sapien_multi import SapienMultiDataset
@@ -73,8 +84,10 @@ from aonerf_torch.models.codes import CodeLibraryArticulated
 from aonerf_torch.models.mlp import COMPUTE_DTYPES
 from aonerf_torch.models.nerf import NeRF
 from aonerf_torch.ops.encoding import pos_enc_dim
-from aonerf_torch.ops.kernels import fused_render
+from aonerf_torch.ops.kernels import fused_render, fused_train
 from aonerf_torch.ops.random import Draws
+from aonerf_torch.parallel import distributed
+from aonerf_torch.parallel.mesh import make_mesh, shard_multi_buffers
 from aonerf_torch.train.optim import OptState, build_optimizer_from_config
 from aonerf_torch.train.step import (
     TrainState,
@@ -89,6 +102,8 @@ from aonerf_torch.utils.logging import MetricLogger
 
 # the dataset each experiment type trains on
 DATASETS = {"vanilla": "sapien", "vanilla_autodecoder": "sapien_multi", "vanilla_ae_art": "sapien_multi"}
+# seconds of idle card at each edge of a profile_steps trace (Trainer._start_profiler)
+_PROFILE_MARGIN_S = 0.1
 
 
 def _check_supported(cfg: Config) -> None:
@@ -103,7 +118,8 @@ def _check_supported(cfg: Config) -> None:
         todo.append(f"compute_dtype={cfg.compute_dtype!r}")
     if cfg.exp_type == "vanilla":  # the fused kernels' layout bounds the encoded sample width
         todo.extend(_beyond_the_kernels_layout(cfg))
-    todo.extend(f"{name}={value!r} (ROADMAP Queue 1 item 7)" for name, value in jax_only_settings(cfg).items())
+    todo.extend(f"{name}={value!r} (ROADMAP Queue 1 item 12, tensor parallelism)"
+                for name, value in jax_only_settings(cfg).items())
     if todo:
         raise NotImplementedError("not ported yet: " + ", ".join(todo))
 
@@ -152,14 +168,27 @@ def _raise_on_nan_levels(module, inputs, levels) -> None:
                 raise FloatingPointError(f"debug_nans: the {level} level's {name} holds a NaN")
 
 
+class _NoLogger:
+    """The metric log of a rank other than 0: nothing is written."""
+
+    def log(self, *args, **kwargs) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
 class Trainer:
     def __init__(self, cfg: Config):
         _check_supported(cfg)
         self.cfg = cfg
-        self.device = default_device(cfg.platform)
+        self.device = distributed.initialize(cfg.platform)
+        # the ranks' grid when data parallel; None on one device
+        self.mesh = make_mesh() if distributed.world_size() > 1 else None
+        self._is_main = distributed.is_main_process()
         self.run_dir = os.path.join(cfg.output_path, cfg.exp_name)
         os.makedirs(self.run_dir, exist_ok=True)
-        self.logger = MetricLogger(self.run_dir)
+        self.logger = MetricLogger(self.run_dir) if self._is_main else _NoLogger()
         # the launcher variants' cadence: every "epoch"; is_optimize keeps all
         if cfg.is_optimize or cfg.finetune_lpips:
             cfg.ckpt_every_steps = cfg.steps_per_epoch
@@ -168,6 +197,8 @@ class Trainer:
         # the auto-decoder and the auto-encoder: the multi-scene dataset and the sweep
         self.articulated = cfg.exp_type in ("vanilla_autodecoder", "vanilla_ae_art")
         self.autoencoder = cfg.exp_type == "vanilla_ae_art"
+        # each rank holds only its view slice of the articulated scene buffers
+        self.sharded_scene_buffers = self.articulated and self.mesh is not None and cfg.shard_scene_buffers
         generator = torch.Generator().manual_seed(cfg.seed)
         self.rng = np.random.default_rng(cfg.seed)  # the host-batched auto-encoder's batches
         self._prefetcher = None
@@ -205,7 +236,8 @@ class Trainer:
                     self.model, self.tx, cfg.white_back, self.near, self.far, img_wh=cfg.img_wh,
                     batch_size=cfg.batch_size, randomized=cfg.randomized, opacity_lambda=cfg.opacity_lambda,
                     inner_steps=self._inner_steps, opacity_loss=cfg.ae_opacity_loss, photometric=cfg.ae_photometric,
-                    views_per_step=cfg.ae_views_per_step, encode_reuse=cfg.ae_encode_reuse,
+                    views_per_step=cfg.ae_views_per_step, encode_reuse=cfg.ae_encode_reuse, mesh=self.mesh,
+                    sharded_views=self.sharded_scene_buffers,
                 )
             else:
                 self.model = ArticulatedNeRF(**field_kwargs)
@@ -223,7 +255,7 @@ class Trainer:
                 self.step_fn = make_autodecoder_device_train_step(
                     self.model, self.code_library, self.tx, cfg.white_back, self.near, self.far,
                     batch_size=cfg.batch_size, randomized=cfg.randomized, reg_weight=cfg.code_reg_weight,
-                    inner_steps=self._inner_steps,
+                    inner_steps=self._inner_steps, mesh=self.mesh, sharded_views=self.sharded_scene_buffers,
                 )
         else:
             self.dataset = SapienDataset(cfg.root_dir, split=split, img_wh=cfg.img_wh, white_back=cfg.white_back)
@@ -242,7 +274,7 @@ class Trainer:
             self.tx, self.lr_fn = self._optimizer(build_optimizer_from_config(cfg), trained)
             self.step_fn = make_vanilla_train_multi_step(
                 self.model, self.tx, cfg.white_back, self.near, self.far, batch_size=cfg.batch_size,
-                inner_steps=self._inner_steps, randomized=cfg.randomized,
+                inner_steps=self._inner_steps, randomized=cfg.randomized, mesh=self.mesh,
             )
         self.state = create_train_state(trained, self.tx)
         if cfg.debug_nans:  # the levels' outputs (the gradients: _optimizer)
@@ -257,6 +289,15 @@ class Trainer:
             self._load(CheckpointManager(cfg.weight_path).restore(map_location=self.device), params_only=True)
         elif self.ckpt.latest_step() is not None:
             self._load(self.ckpt.restore(map_location=self.device))
+        # every rank starts from rank 0's parameters
+        distributed.broadcast_(list(self.state.params.values()))
+        if self.mesh is not None and self.device.type == "cuda" and not self.articulated:
+            # rank 0 builds the level kernels at these widths, the others then load them
+            if self._is_main:
+                widths = (pos_enc_dim(3, cfg.min_deg_point, cfg.max_deg_point), pos_enc_dim(3, 0, cfg.deg_view))
+                fused_render._library(*widths)
+                fused_train._library(*widths)
+            distributed.barrier()
 
     def _optimizer(self, built, trained: nn.Module):
         """(tx, lr_fn) as built, the optimizer checked for NaN gradients
@@ -303,9 +344,13 @@ class Trainer:
         """The scene's train buffers on the device: the ray buffers (viewdirs
         aliases rays_d), or for the articulated types ``device_buffers``
         (a ValueError when the instances differ in articulation or view
-        count)."""
+        count), with ``sharded_scene_buffers`` this rank's view slice of
+        them, cut on the host."""
         if self.articulated:
-            return {k: torch.from_numpy(v).to(self.device) for k, v in self.dataset.device_buffers().items()}
+            host = self.dataset.device_buffers()
+            if self.sharded_scene_buffers:
+                host = shard_multi_buffers(self.mesh, host)
+            return {k: torch.from_numpy(v).to(self.device) for k, v in host.items()}
         host = self.dataset.train_buffers()
         buffers = {k: torch.from_numpy(host[k]).to(self.device) for k in ("rays_o", "rays_d", "target")}
         buffers["viewdirs"] = buffers["rays_d"]
@@ -327,10 +372,11 @@ class Trainer:
             host_step = make_ae_train_step(
                 self.model, self.tx, cfg.white_back, self.near, self.far, randomized=cfg.randomized,
                 opacity_lambda=cfg.opacity_lambda, opacity_loss=cfg.ae_opacity_loss, photometric=cfg.ae_photometric,
+                mesh=self.mesh,
             )
             self._prefetcher = Prefetcher(lambda: self.dataset.sample_train(self.rng))
 
-        profiler = self._start_profiler() if cfg.profile_steps > 0 else None
+        profiler = self._start_profiler() if cfg.profile_steps > 0 and self._is_main else None
         last: Dict[str, float] = {}
         step = start
         while step < total:
@@ -353,7 +399,7 @@ class Trainer:
                 val = self.validate()
                 self.logger.log(step, val, prefix="val")
                 last.update({f"val_{k}": v for k, v in val.items()})
-            if crossed(cfg.ckpt_every_steps) or step >= total:
+            if (crossed(cfg.ckpt_every_steps) or step >= total) and self._is_main:
                 self.ckpt.save(step, self._state_dict(), last.get("val_psnr"))
             if profiler is not None and step - start >= cfg.profile_steps:
                 self._stop_profiler(profiler, start)
@@ -361,6 +407,7 @@ class Trainer:
         if profiler is not None:
             self._stop_profiler(profiler, start)
         self._close_prefetcher()
+        distributed.barrier()  # rank 0's checkpoints are on disk before any rank goes on
         return last
 
     def _start_profiler(self):
@@ -373,17 +420,27 @@ class Trainer:
             activities.append(ProfilerActivity.CUDA)
         # A warm-up cycle before the recorded one: started cold, the trace
         # lost the first step's first kernels (one of its K1s launches) on
-        # the H100 after many earlier profiler runs in the process.
+        # the H100 after many earlier profiler runs in the process. Late in
+        # a long process it still lost the kernels of the recorded cycle's
+        # first few ms (the trace keeps only kernels whose device times fall
+        # inside the cycle), so the steps start _PROFILE_MARGIN_S into it.
         profiler = profile(activities=activities, schedule=schedule(wait=0, warmup=1, active=1, repeat=1))
         profiler.start()
         profiler.step()
+        self._profile_margin()
         return profiler
+
+    def _profile_margin(self) -> None:
+        """The card idle for _PROFILE_MARGIN_S at an edge of the recorded
+        cycle."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+            time.sleep(_PROFILE_MARGIN_S)
 
     def _stop_profiler(self, profiler, start: int) -> str:
         """Stop ``profiler`` once the device is done and write its Chrome
         trace, ``run_dir/profile/trace_<start step>.json``; returns the path."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        self._profile_margin()
         profiler.stop()
         trace_dir = os.path.join(self.run_dir, "profile")
         os.makedirs(trace_dir, exist_ok=True)
@@ -473,7 +530,7 @@ class Trainer:
                 s = self.val_dataset.get_image(i)
                 rgb, acc, depth = self._renderer(self._view_rays(s))
                 psnrs.append(float(psnr_image(rgb, torch.from_numpy(s.target).to(self.device))))
-                if i == 0:
+                if i == 0 and self._is_main:
                     self._save_val_grid(s.target, *(x.cpu().numpy() for x in (rgb, depth, acc)))
             return {"psnr": float(np.mean(psnrs))}
 
@@ -495,7 +552,7 @@ class Trainer:
                 state_sq_errs.append((pred_state - gt) ** 2)
                 state_deg_errs.append(abs(round(np.rad2deg(pred_state)) - round(np.rad2deg(gt))))
             rgb, acc, depth = self._renderer(self._img_rays(img), latents)
-            if k == 0:
+            if k == 0 and self._is_main:
                 self._save_val_grid(img["target"], *(x.cpu().numpy() for x in (rgb, depth, acc)))
             target = torch.from_numpy(img["target"]).to(self.device)
             psnrs.append(float(psnr_image(rgb, target)))
@@ -509,15 +566,42 @@ class Trainer:
     def _view_rays(self, sample) -> Dict[str, torch.Tensor]:
         return {k: torch.from_numpy(getattr(sample, k)).to(self.device) for k in ("rays_o", "rays_d", "viewdirs")}
 
-    def _test_view(self, i: int):
-        """(rgb, acc, depth) rendered for test view ``i``, its target (N, 3)
-        and its instance mask (N,) as host arrays."""
+    def _test_view(self, i: int, render: bool = True):
+        """(rgb, acc, depth) rendered for test view ``i`` (None without
+        ``render``), its target (N, 3) and its instance mask (N,) as host
+        arrays."""
         if self.articulated:  # the spheric sweep of cfg.render_instance
             img = self.dataset.get_test_image(self.cfg.render_instance, i)
-            out = self._renderer(self._img_rays(img), self._render_setup(img, is_test=True)[0])
+            out = self._renderer(self._img_rays(img), self._render_setup(img, is_test=True)[0]) if render else None
             return out, img["target"], img["instance_mask"]
         s = self.dataset.get_image(i)
-        return self._renderer(self._view_rays(s)), s.target, s.instance_mask
+        return (self._renderer(self._view_rays(s)) if render else None), s.target, s.instance_mask
+
+    def render_test_views(self):
+        """Every test view rendered, as host arrays: (rgb (n, h, w, 3), depth
+        (n, h, w), acc (n, h, w), target (n, h, w, 3), mask (n, h, w)). Each
+        rank renders its ``local_shard_bounds`` of the views and the rows are
+        gathered (``gather_images``), so every rank holds them all."""
+        w, h = self.cfg.img_wh
+        n_images = self.cfg.test_sweep_poses if self.articulated else self.dataset.num_images
+        start, stop = distributed.local_shard_bounds(n_images)
+        rgbs, depths, accs, targets, masks = [], [], [], [], []
+        for i in range(n_images):
+            out, target, mask = self._test_view(i, render=start <= i < stop)
+            targets.append(target.reshape(h, w, 3))
+            masks.append(mask.reshape(h, w))
+            if out is not None:
+                rgb, acc, depth = out
+                rgbs.append(rgb.reshape(h, w, 3).cpu().numpy())
+                depths.append(depth.reshape(h, w).cpu().numpy())
+                accs.append(acc.reshape(h, w).cpu().numpy())
+
+        def gather(rows, shape):
+            local = np.stack(rows) if rows else np.zeros((0, *shape), np.float32)
+            return distributed.gather_images(local, n_images)
+
+        return (gather(rgbs, (h, w, 3)), gather(depths, (h, w)), gather(accs, (h, w)), np.stack(targets),
+                np.stack(masks))
 
     def test(self) -> Dict[str, Dict[str, float]]:
         """Render every test view (vanilla: the test split; auto-decoder:
@@ -532,36 +616,31 @@ class Trainer:
 
         LPIPS is scored when ``AONERF_LPIPS_WEIGHTS`` names an existing
         exported weights file (``eval.lpips``, loaded once onto the device),
-        else it is NaN, as in JAX. One process renders every view; sharding
-        the views across processes (the JAX Trainer's ``local_shard_bounds``
-        / ``gather_images``) is not ported yet.
+        else it is NaN, as in JAX. Data parallel, each rank renders its share
+        of the views (``render_test_views``), every rank scores them all and
+        rank 0 writes the files.
         """
         cfg = self.cfg
         lpips_path = os.environ.get("AONERF_LPIPS_WEIGHTS", "")
         lpips_weights = lpips.load_weights(lpips_path, self.device) if os.path.isfile(lpips_path) else None
-        w, h = cfg.img_wh
-        n_images = cfg.test_sweep_poses if self.articulated else self.dataset.num_images
-        rgbs, depths, accs, psnrs, ssims, obj_psnrs, lpipses = [], [], [], [], [], [], []
-        for i in range(n_images):
-            (rgb, acc, depth), target, mask = self._test_view(i)
-            img = rgb.reshape(h, w, 3)
-            target = torch.from_numpy(target).to(self.device).reshape(h, w, 3)
+        rgbs, depths, accs, targets, masks = self.render_test_views()
+        psnrs, ssims, obj_psnrs, lpipses = [], [], [], []
+        for rgb, target, mask in zip(rgbs, targets, masks):
+            img, target = (torch.from_numpy(np.ascontiguousarray(a)).to(self.device) for a in (rgb, target))
             psnrs.append(float(psnr_image(img, target)))
             ssims.append(float(ssim_image(img, target)))
-            mask = torch.from_numpy(mask).to(self.device).reshape(h, w)
-            obj_psnrs.append(float(masked_psnr(img, target, mask)))
+            obj_psnrs.append(float(masked_psnr(img, target, torch.from_numpy(mask).to(self.device))))
             if lpips_weights is not None:
                 lpipses.append(lpips_image(img, target, lpips_weights))
-            rgbs.append(img.cpu().numpy())
-            depths.append(depth.reshape(h, w).cpu().numpy())
-            accs.append(acc.reshape(h, w).cpu().numpy())
         stats = {
             "psnr": summarize_metric(psnrs),
             "ssim": summarize_metric(ssims),
             "lpips": summarize_metric(lpipses) if lpips_weights is not None else {"test": float("nan")},
             "psnr_obj": summarize_metric(obj_psnrs),
         }
-
+        if not self._is_main:
+            return stats
+        rgbs, depths, accs = list(rgbs), list(depths), list(accs)
         image_dir = os.path.join(self.run_dir, cfg.render_name)
         io.store_image(image_dir, rgbs, "image")
         io.store_depth_color(image_dir, depths)
@@ -609,12 +688,13 @@ class Trainer:
             near=self.near,
             far=self.far,
         )
-        np.savez(
-            os.path.join(self.run_dir, "optimized_codes.npz"),
-            density=codes["density"].cpu().numpy(),
-            color=codes["color"].cpu().numpy(),
-            history_psnr1=np.asarray(history["psnr1"]),
-        )
+        if self._is_main:
+            np.savez(
+                os.path.join(self.run_dir, "optimized_codes.npz"),
+                density=codes["density"].cpu().numpy(),
+                color=codes["color"].cpu().numpy(),
+                history_psnr1=np.asarray(history["psnr1"]),
+            )
         return codes, history
 
     def close(self) -> None:

@@ -27,6 +27,16 @@ degree embedding and their optimizer slots bit for bit as they were.
 ``make_ae_train_step`` is the step on a batch assembled on the host
 (``SapienMultiDataset.sample_train``), for a dataset whose instances differ
 in articulation or view count.
+
+Data parallelism (a ``mesh`` with more than one rank on 'data', as in
+``train.step``): the device step's ranks draw from their own streams
+(``fold=`` the rank), each sampling and encoding its own views from the
+buffers it holds (with ``sharded_views`` its view slice), and average the
+gradients and the loss parts, the encode-reuse group's field-only steps
+too; the host-batched step's ranks are given the same batch and keep their
+rows of it, each part weighed by the rank's share of it (the masked
+photometric loss by the batch's whole foreground count), so the sum over
+the ranks is the one-device step.
 """
 
 from typing import Callable, Dict, List, Optional, Tuple
@@ -35,11 +45,15 @@ import torch
 
 from aonerf_torch import full_fp32
 from aonerf_torch.ops.math import mse2psnr
-from aonerf_torch.ops.random import Draws
+from aonerf_torch.ops.random import Draws, RowDraws
 from aonerf_torch.train.losses import masked_mse, opacity_loss_bce, opacity_loss_bce_prob, opacity_loss_mse
 from aonerf_torch.train.optim import Optimizer, OptState
 from aonerf_torch.train.step import (
     TrainState,
+    all_reduce_step,
+    batch_rows,
+    check_sharded_views,
+    data_parallel,
     repeat_steps,
     sample_multi_batch,
     sample_multi_batch_multiview,
@@ -63,35 +77,54 @@ OPACITY_LOSSES = {
 }
 
 
-def _photometric_and_opacity(levels, batch, opacity_fn, opacity_lambda, photometric):
+class RowShare:
+    """A rank's rows of a host batch: ``share`` = its rows / the batch's,
+    and ``fg_den`` the masked photometric loss's denominator over the whole
+    batch (its foreground pixels x channels, at least 1)."""
+
+    def __init__(self, share: float, fg_den: torch.Tensor):
+        self.share, self.fg_den = share, fg_den
+
+
+def _photometric_and_opacity(levels, batch, opacity_fn, opacity_lambda, photometric, rows=None):
     mask = batch["instance_mask"].to(torch.float32)
-    if photometric == "masked":
+    if photometric == "masked" and rows is not None:  # this rank's part of the batch's masked mean
+        loss0, loss1 = (torch.sum(mask[:, None] * (lv[0] - batch["target"]) ** 2) / rows.fg_den for lv in levels[:2])
+    elif photometric == "masked":
         loss0 = masked_mse(levels[0][0], batch["target"], mask)
         loss1 = masked_mse(levels[1][0], batch["target"], mask)
     else:  # 'full': every pixel (the targets are already composited on the background)
         loss0 = torch.mean((levels[0][0] - batch["target"]) ** 2)
         loss1 = torch.mean((levels[1][0] - batch["target"]) ** 2)
+        if rows is not None:
+            loss0, loss1 = loss0 * rows.share, loss1 * rows.share
     loss_op = opacity_fn([levels[0][1], levels[1][1]], mask, opacity_lambda=opacity_lambda)
+    if rows is not None:
+        loss_op = loss_op * rows.share
     return loss0, loss1, loss_op
 
 
 def ae_loss_and_grads(
     model, params: Dict[str, torch.Tensor], batch, draws, randomized: bool, white_bkgd: bool, near: float,
     far: float, opacity_lambda: float, opacity_loss: str = "bce_prob", photometric: str = "masked",
-    return_latents: bool = False,
+    return_latents: bool = False, rows: Optional[RowShare] = None,
 ):
     """The auto-encoder's loss of ``batch`` (which holds ``src_imgs``), its
     parts (loss0, loss1, loss_state, loss_op) and its gradients with respect
     to ``params`` (in their order); with ``return_latents`` also the
-    latents the field was conditioned on, detached."""
+    latents the field was conditioned on, detached. ``rows``: the batch is
+    a rank's rows of a host batch, each part its share of the whole's."""
     opacity_fn = OPACITY_LOSSES[opacity_loss]
     with full_fp32():
         src = batch["src_imgs"]
         if src.ndim == 3:  # one view (3, H, W) -> a batch of one
             src = src[None]
         levels, latents, pred_state = model(batch, src, batch["deg"], randomized, white_bkgd, near, far, draws=draws)
-        loss0, loss1, loss_op = _photometric_and_opacity(levels, batch, opacity_fn, opacity_lambda, photometric)
+        loss0, loss1, loss_op = _photometric_and_opacity(levels, batch, opacity_fn, opacity_lambda, photometric,
+                                                         rows)
         loss_state = torch.mean((pred_state.reshape(-1) - torch.atleast_1d(batch["deg"])) ** 2)
+        if rows is not None:
+            loss_state = loss_state * rows.share
         loss = loss0 + loss1 + loss_state + loss_op
         grads = torch.autograd.grad(loss, list(params.values()))
     parts = tuple(x.detach() for x in (loss0, loss1, loss_state, loss_op))
@@ -152,22 +185,41 @@ def make_ae_train_step(
     opacity_lambda: float = 0.5,
     opacity_loss: str = "bce_prob",
     photometric: str = "masked",
+    mesh=None,
 ) -> Callable:
     """Returns step(state, batch, seed, draws=None) -> (state, metrics): one
     step on a batch assembled on the host and copied to the device (one
     view's rays, targets, mask, angle, ids and ``src_imgs``). The render's
     draws come from ``Draws.for_step(seed, state.step)``, as JAX's from
-    ``fold_in(base_key, step)``; ``draws`` replaces them."""
+    ``fold_in(base_key, step)``; ``draws`` replaces them. With a
+    data-parallel ``mesh`` every rank is given the same batch, keeps its
+    rows of the per-ray arrays (``RowDraws`` over the draws) and encodes the
+    same source view; the parts, weighed by its ``RowShare``, and the
+    gradients are summed over the ranks."""
     if opacity_loss not in OPACITY_LOSSES:
         raise KeyError(f"opacity_loss {opacity_loss!r}: expected one of {sorted(OPACITY_LOSSES)}")
+    ddp = data_parallel(mesh)
 
     def train_step(state: TrainState, batch, seed: int, draws=None):
+        device = batch["rays_o"].device
         if draws is None:
-            draws = Draws.for_step(seed, state.step, batch["rays_o"].device)
+            draws = Draws.for_step(seed, state.step, device)
+        rows = None
+        if ddp:
+            total = batch["rays_o"].shape[0]
+            start, stop = batch_rows(mesh, total)
+            fg = batch["instance_mask"].to(torch.float32)
+            rows = RowShare((stop - start) / total, torch.clamp(torch.sum(fg) * batch["target"].shape[-1], min=1.0))
+            per_ray = ("rays_o", "rays_d", "viewdirs", "target", "instance_mask")
+            batch = {k: v[start:stop] if k in per_ray else v for k, v in batch.items()}
+            draws = RowDraws(draws, start, stop, total)
         loss, (loss0, loss1, loss_state, loss_op), grads = ae_loss_and_grads(
             model, state.params, batch, draws, randomized, white_bkgd, near, far, opacity_lambda,
-            opacity_loss=opacity_loss, photometric=photometric,
+            opacity_loss=opacity_loss, photometric=photometric, rows=rows,
         )
+        if ddp:
+            grads, (loss, loss0, loss1, loss_state, loss_op) = all_reduce_step(
+                grads, (loss, loss0, loss1, loss_state, loss_op), mesh, mean=False)
         opt_state = tx.update(list(state.params.values()), grads, state.opt_state)
         metrics = _metrics(loss, loss0, loss1, loss_state, loss_op, tx.schedule(state.step))
         return TrainState(step=state.step + 1, params=state.params, opt_state=opt_state), metrics
@@ -190,6 +242,8 @@ def make_ae_device_train_step(
     photometric: str = "masked",
     views_per_step: int = 1,
     encode_reuse: int = 1,
+    mesh=None,
+    sharded_views: bool = False,
 ) -> Callable:
     """Returns step(state, buffers, seed, draws=None) -> (state, metrics of
     the last step), ``inner_steps`` auto-encoder steps in a plain loop.
@@ -204,7 +258,19 @@ def make_ae_device_train_step(
     group's first step draws the view, its pixels and the render, each
     field-only step its pixels and the render. A group's metrics: loss =
     the last field-only loss + the first step's state loss, the other
-    parts of the last step, lr at the step after the group (as JAX's)."""
+    parts of the last step, lr at the step after the group (as JAX's).
+
+    With a data-parallel ``mesh`` each step's draws are the rank's own
+    (``fold=`` its data index) and every step's gradients and parts are
+    averaged over the ranks; ``sharded_views`` says the buffers are this
+    rank's view slice."""
+    check_sharded_views(mesh, sharded_views)
+    ddp = data_parallel(mesh)
+    fold = mesh.data_index if ddp else None
+
+    def reduce(grads, parts):
+        return all_reduce_step(grads, parts, mesh, mean=True) if ddp else (grads, parts)
+
     if views_per_step > 1 and batch_size % views_per_step != 0:
         raise ValueError(
             f"batch_size ({batch_size}) must be divisible by views_per_step ({views_per_step}); otherwise "
@@ -226,16 +292,17 @@ def make_ae_device_train_step(
 
     def one_step(state: TrainState, buffers, seed: int, draws=None):
         if draws is None:
-            draws = Draws.for_step(seed, state.step, buffers["rgb"].device)
+            draws = Draws.for_step(seed, state.step, buffers["rgb"].device, fold=fold)
         if views_per_step > 1:
             batch = sample_multi_batch_multiview(buffers, draws, batch_size, views_per_step, src_hw=(h, w))
         else:
             batch = sample_multi_batch(buffers, draws, batch_size, src_hw=(h, w))
-        loss, (loss0, loss1, loss_state, loss_op), grads = ae_loss_and_grads(
+        loss, parts, grads = ae_loss_and_grads(
             model, state.params, batch, draws, randomized, white_bkgd, near, far, **losses
         )
+        grads, (loss, *parts) = reduce(grads, (loss, *parts))
         opt_state = tx.update(list(state.params.values()), grads, state.opt_state)
-        metrics = _metrics(loss, loss0, loss1, loss_state, loss_op, tx.schedule(state.step))
+        metrics = _metrics(loss, *parts, tx.schedule(state.step))
         return TrainState(step=state.step + 1, params=state.params, opt_state=opt_state), metrics
 
     if encode_reuse <= 1:
@@ -246,17 +313,19 @@ def make_ae_device_train_step(
         view = sample_view(buffers, draws)
         batch = sample_view_pixels(view, buffers["directions"], draws, batch_size)
         batch["src_imgs"] = view_src_image(view, (h, w))
-        _, (_, _, loss_state, _), grads, latents = ae_loss_and_grads(
+        loss, parts, grads, latents = ae_loss_and_grads(
             model, state.params, batch, draws, randomized, white_bkgd, near, far, return_latents=True, **losses
         )
+        grads, (_, _, _, loss_state, _) = reduce(grads, (loss, *parts))
         opt_state = tx.update(list(state.params.values()), grads, state.opt_state)
         state = TrainState(step=state.step + 1, params=state.params, opt_state=opt_state)
         for _ in range(encode_reuse - 1):
             draws = draws_for(state.step)
             batch = sample_view_pixels(view, buffers["directions"], draws, batch_size)
-            loss, (loss0, loss1, loss_op), grads = ae_field_loss_and_grads(
+            loss, parts, grads = ae_field_loss_and_grads(
                 model, state.params, batch, latents, draws, randomized, white_bkgd, near, far, **losses
             )
+            grads, (loss, loss0, loss1, loss_op) = reduce(grads, (loss, *parts))
             opt_state = masked_field_update(tx, state.params, grads, state.opt_state)
             state = TrainState(step=state.step + 1, params=state.params, opt_state=opt_state)
         return state, _metrics(loss + loss_state, loss0, loss1, loss_state, loss_op, tx.schedule(state.step))
@@ -264,7 +333,7 @@ def make_ae_device_train_step(
     def reuse_steps(state: TrainState, buffers, seed: int, draws_for: Optional[Callable] = None):
         if draws_for is None:
             device = buffers["rgb"].device
-            draws_for = lambda step: Draws.for_step(seed, step, device)  # noqa: E731
+            draws_for = lambda step: Draws.for_step(seed, step, device, fold=fold)  # noqa: E731
         metrics = {}
         for _ in range(inner_steps // encode_reuse):
             state, metrics = group_step(state, buffers, draws_for)

@@ -115,8 +115,13 @@ class Config:
     optimize_steps: int = 500
     optimize_lr: float = 1.0e-2
 
-    # device: None = cuda; "cpu" runs the plain versions on the host
+    # device: None = cuda (under torchrun cuda:LOCAL_RANK, NCCL); "cpu" runs
+    # the plain versions on the host (gloo); "cuda:0" puts every rank on
+    # that card (gloo)
     platform: Optional[str] = None
+    # data parallel: each rank holds only its cyclic view slice of the
+    # articulated scene buffers (False: every rank holds all of them)
+    shard_scene_buffers: bool = True
     # >0: a torch.profiler trace of that many steps under run_dir/profile
     profile_steps: int = 0
     # raise FloatingPointError at the first step whose loss, outputs or
@@ -131,7 +136,6 @@ class Config:
 # that dataclass.
 JAX_ONLY_DEFAULTS: Dict[str, Any] = {
     "n_model_shards": 1,
-    "shard_scene_buffers": True,
 }
 
 # reference flag name -> Config field

@@ -233,6 +233,26 @@ Phases, each of which fails the run with a non-zero exit:
                and K2 launched in the run's mode; --run_eval of one test
                view and a 32^3 grid through export_voxels from the fp32
                run's checkpoint; the phase's seconds.
+ 28. data parallel - torch.distributed on the one card: one rank under NCCL,
+               config/vanilla.json at full width (batch 2048, 64+128 samples,
+               8x256) on phase 7's scene for 10 steps, its parameters the
+               non-distributed Trainer's bit for bit; then two spawned ranks
+               sharing the card under gloo (NCCL takes one rank a card): the
+               first vanilla step of the seed's weights, each rank's K2
+               launches held by K2's per-gradient fp32 rule against the fp64
+               backward of its own K1s saved, the all-reduced gradient within
+               DP_ULPS fp32 ulps of the fp64 sum of the ranks' row-weighted
+               shares, its largest difference from the one-rank gradient of
+               the same global batch printed; Trainer.fit for 30 steps, the
+               parameters equal on both ranks after every step, the loss
+               falling, each rank's K1 (validation), K1s and K2 launches;
+               test() of its checkpoint on 2 ranks, the gathered images equal
+               bit for bit to one device's test() of it; the auto-decoder
+               (config/autodecoder.json) on phase 9's scene with
+               shard_scene_buffers, each rank holding half the views, 20
+               steps with the loss falling; each run's ms a step beside the
+               card's name and power limit (two ranks on one card measure the
+               mechanism, not a speed-up).
 The line before the last is a JSON object with one entry per kernel and mode
 (K1, K1s, K2 in fp32, then in bf16; K1 and K1s in bf16 at the fast preset's
 shapes; B2 and B1 in bf16; B2 in fp32; K1, K1s and K2 at phase 27's widths,
@@ -4346,6 +4366,314 @@ def phase_degrees(boxes, focal, root: str, tmp: str) -> dict:
     return {"levels": levels, "runs": runs, "test_seconds": test_s, "seconds": seconds}
 
 
+# ---------------------------------------------------------------- phase 28
+
+DP_STEPS = 30  # phase 28's 2-rank vanilla fit, one step a dispatch
+DP_REF_STEPS = 10  # its one-rank NCCL run against the non-distributed Trainer
+DP_AD_STEPS = 20  # its 2-rank auto-decoder fit on view-sharded buffers
+DP_ULPS = 2  # the all-reduced gradient against the fp64 sum of the ranks' shares, in fp32 ulps
+
+
+def _dp_jobs(jobs) -> dict:
+    """One rank of ``run_dp``: each job (name, function of this module,
+    kwargs) in turn, with phase 1's TF32 flags."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return {name: globals()[fn](**kwargs) for name, fn, kwargs in jobs}
+
+
+def run_dp(world: int, platform, jobs, timeout: float = 600.0) -> list:
+    """Run ``jobs`` on ``world`` spawned ranks (each on ``platform``: None is
+    cuda:rank under NCCL, "cuda:0" one shared card under gloo); each rank's
+    {name: result}, in rank order (``aonerf_torch.entry.spawn_ranks``)."""
+    from aonerf_torch.entry import spawn_ranks
+
+    return spawn_ranks(_dp_jobs, world, platform, (jobs,), timeout)
+
+
+def _sync() -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def flat_params(params) -> np.ndarray:
+    return torch.cat([p.detach().reshape(-1) for p in params]).cpu().numpy()
+
+
+class CaptureTx:
+    """An optimizer that keeps the gradients it is given and moves nothing."""
+
+    grads = None
+
+    def schedule(self, step):
+        return 0.0
+
+    def init(self, params):
+        from aonerf_torch.train.optim import OptState
+
+        return OptState(count=0, slots={})
+
+    def update(self, params, grads, state, mask=None):
+        from aonerf_torch.train.optim import OptState
+
+        self.grads = [None if g is None else g.detach().clone() for g in grads]
+        return OptState(count=state.count + 1, slots={})
+
+
+def dp_first_step(cfg: dict) -> dict:
+    """A rank's first vanilla step of a fresh Trainer's weights, its
+    gradients kept and nothing moved: each K2 launch held by K2's
+    per-gradient fp32 rule against the fp64 backward of the rank's own K1s
+    saved (phase 5's form); the all-reduced gradient against the fp64 sum of
+    the ranks' weighted shares, within DP_ULPS fp32 ulps of each entry; on
+    rank 0 the largest difference from the one-rank gradient of the same
+    global batch."""
+    from aonerf_torch.ops.kernels import fused_render as fr
+    from aonerf_torch.ops.kernels import fused_train as ft
+    from aonerf_torch.ops.random import Draws
+    from aonerf_torch.parallel import distributed
+    from aonerf_torch.train import step as step_mod
+    from aonerf_torch.train.loop import Trainer
+    from aonerf_torch.utils.config import load_config
+
+    trainer = Trainer(load_config(None, cfg))
+    buffers = trainer.train_buffers()
+    tx = CaptureTx()
+    step = step_mod.make_vanilla_train_step(trainer.model, tx, trainer.cfg.white_back, trainer.near, trainer.far,
+                                            batch_size=trainer.cfg.batch_size, mesh=trainer.mesh)
+    k2_calls, shares = [], []
+    real_bwd, real_reduce = ft.fused_level_bwd_saved, distributed.all_reduce_sum_
+
+    def recording_bwd(*args, **kwargs):  # observes each K2 launch, changes nothing
+        got = real_bwd(*args, **kwargs)
+        k2_calls.append((args, {n: g.clone() for n, g in got.items()}))  # autograd may add into its own
+        return got
+
+    def recording_reduce(tensors):
+        shares.append(torch.cat([t.reshape(-1) for t in tensors]).cpu().numpy())
+        return real_reduce(tensors)
+
+    with mock.patch.object(ft, "fused_level_bwd_saved", recording_bwd), \
+            mock.patch.object(distributed, "all_reduce_sum_", recording_reduce):
+        state, metrics = step(step_mod.create_train_state(trainer.model, tx), buffers, trainer.cfg.seed)
+    _sync()
+    names = fr.WEIGHT_NAMES
+    rank = distributed.rank()
+    ratios = []
+    for (kp, t, o, d, venc, xenc, saved, raw, *cot), got in k2_calls:
+        white = cot[4]
+        cot = cot[:4]
+        s32 = ft.fused_level_bwd_saved_ref(kp, t, o, d, venc, xenc, saved, raw, *cot, white)
+        kp64 = {n: v.double() for n, v in kp.items()}
+        s64 = ft.fused_level_bwd_saved_ref(kp64, *(a.double() for a in (t, o, d, venc, xenc)), saved.double(),
+                                           raw.double(), *(c.double() for c in cot), white)
+        e_k, e_p = _grad_errors(got, s64, names), _grad_errors(s32, s64, names)
+        tol = {n: max(TOL_GRAD, TOL_GRAD_FACTOR * e_p[n]) for n in names}
+        worst = max(names, key=lambda n: e_k[n] / tol[n])
+        ratios.append({"S": t.shape[1], "R": t.shape[0], "ratio": e_k[worst] / tol[worst], "worst": worst})
+        bad = {n: (e_k[n], tol[n]) for n in names if not e_k[n] <= tol[n]}
+        if bad:
+            raise AssertionError(f"rank {rank}: K2 at {t.shape} off its fp64 backward beyond its limits: {bad}")
+        del s32, s64, kp64
+    del k2_calls
+    n_grads = sum(g.numel() for g in tx.grads)
+    reduced = torch.cat([g.reshape(-1) for g in tx.grads]).cpu().numpy()
+    every = distributed.all_gather_host(shares[0][:n_grads])
+    sum64 = np.sum([s.astype(np.float64) for s in every], axis=0)
+    ulps = np.abs(reduced.astype(np.float64) - sum64) / np.spacing(np.abs(sum64).astype(np.float32)).astype(np.float64)
+    out = {"k2": ratios, "reduce_ulps": float(ulps.max()), "loss": float(metrics["loss"]),
+           "rows": trainer.cfg.batch_size // trainer.mesh.n_data}
+    if ulps.max() > DP_ULPS:
+        raise AssertionError(f"rank {rank}: the all-reduced gradient is {ulps.max():.1f} ulps off the fp64 sum")
+    if rank == 0:  # the same global batch through one rank
+        draws = Draws.for_step(trainer.cfg.seed, 0, trainer.device)
+        batch = step_mod.sample_ray_batch(buffers, draws, trainer.cfg.batch_size)
+        _, _, one = step_mod.vanilla_loss_and_grads(trainer.model, state.params, batch, draws, True,
+                                                     trainer.cfg.white_back, trainer.near, trainer.far)
+        one = torch.cat([g.reshape(-1) for g in one]).cpu().numpy()
+        out["one_rank_max_abs"] = float(np.abs(reduced - one).max())
+        out["one_rank_rel"] = float(np.abs(reduced - one).max() / np.abs(one).max())
+    trainer.close()
+    return out
+
+
+def dp_fit(cfg: dict, max_steps: int, params: bool = False) -> dict:
+    """Trainer.fit to ``max_steps``, one step a dispatch: the parameters held
+    equal on every rank after every step, each step timed by the host clock
+    (synchronized at both ends; the check left out); K1, K1s and K2
+    launches from 0; the losses; with ``params`` the flat parameters."""
+    from aonerf_torch.parallel import distributed
+    from aonerf_torch.train.loop import Trainer
+    from aonerf_torch.utils.config import load_config
+
+    trainer = Trainer(load_config(None, cfg))
+    real = trainer.step_fn
+    times, losses = [], []
+
+    def timed_checked(state, *args):
+        _sync()
+        t0 = time.perf_counter()
+        state, metrics = real(state, *args)
+        _sync()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        flat = flat_params(state.params.values())
+        for r, other in enumerate(distributed.all_gather_host(flat)):
+            if not np.array_equal(other, flat):
+                raise AssertionError(f"rank {r}'s parameters differ from rank {distributed.rank()}'s after step "
+                                     f"{state.step}")
+        return state, metrics
+
+    trainer.step_fn = timed_checked
+    _reset_fused_launches()
+    last = trainer.fit(max_steps=max_steps)
+    _sync()
+    launches = _fused_launches()
+    out = {"launches": launches, "step_ms": 1e3 * float(np.median(times[1:])), "losses": losses,
+           "checked": len(times), "last": last, "step": trainer.state.step}
+    if params:
+        out["params"] = flat_params(trainer.state.params.values())
+    held = {t.data_ptr(): t.numel() * t.element_size() for t in trainer.train_buffers().values()}
+    out["held_bytes"] = sum(held.values())  # the train buffers this rank holds (viewdirs aliases rays_d)
+    if trainer.articulated:
+        whole = trainer.dataset.device_buffers()
+        out["bytes"] = {k: v.numel() * v.element_size() for k, v in trainer.train_buffers().items()}
+        out["whole_bytes"] = {k: int(v.nbytes) for k, v in whole.items()}
+    trainer.close()
+    return out
+
+
+def dp_test(cfg: dict) -> dict:
+    """Trainer.test() of the run's latest checkpoint: the stats and the
+    launches of K1, K1s and K2 from 0; then the gathered images (rank 0)."""
+    from aonerf_torch.parallel import distributed
+    from aonerf_torch.train.loop import Trainer
+    from aonerf_torch.utils.config import load_config
+
+    trainer = Trainer(load_config(None, {**cfg, "run_eval": True}))
+    _reset_fused_launches()
+    stats = trainer.test()
+    _sync()
+    launches = _fused_launches()
+    rgbs, depths, accs, _, _ = trainer.render_test_views()
+    out = {"launches": launches, "stats": stats}
+    if distributed.rank() == 0:
+        out.update(rgb=rgbs, depth=depths, acc=accs)
+    trainer.close()
+    return out
+
+
+def _dp_config(root: str, out: str, name: str, **extra) -> dict:
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "config", "vanilla.json")) as f:
+        cfg = json.load(f)
+    cfg.update({"root_dir": root, "output_path": out, "exp_name": name, "img_wh": [W, H], "lr_init": 1e-3,
+                "lr_delay_steps": 0, "inner_steps": 1, "val_every_steps": DP_STEPS, "ckpt_every_steps": DP_STEPS,
+                "limit_val_batches": 1, "seed": SEED, **extra})
+    return cfg
+
+
+def phase_data_parallel(root: str, multi_cfg_path: str, tmp: str) -> dict:
+    """Phase 28: data parallelism on torch.distributed, ranks spawned on the
+    one card (see the module docstring)."""
+    from aonerf_torch.train.loop import Trainer
+    from aonerf_torch.utils.config import load_config
+
+    t0 = time.perf_counter()
+    out = os.path.join(tmp, "dp")
+    smi = smi_line()
+    # one rank under NCCL against the non-distributed Trainer, bit for bit
+    try:
+        w1 = run_dp(1, None, [("fit", "dp_fit", {"cfg": _dp_config(root, out, "nccl1"), "max_steps": DP_REF_STEPS,
+                                                 "params": True})])[0]["fit"]
+    except RuntimeError as e:
+        fail(f"phase 28, one rank under NCCL: {e}")
+    ref = Trainer(load_config(None, _dp_config(root, out, "plain")))
+    ref.fit(max_steps=DP_REF_STEPS)
+    same = np.array_equal(flat_params(ref.state.params.values()), w1["params"])
+    ref.close()
+    print(f"data parallel: one rank under NCCL, {DP_REF_STEPS} steps at batch 2048: parameters "
+          f"{'equal to' if same else 'DIFFERENT from'} the non-distributed Trainer's, bit for bit; "
+          f"{w1['step_ms']:.3f} ms a step ({smi}); launches (K1, K1s, K2) {w1['launches']}")
+    if not same:
+        fail("phase 28: one rank under NCCL did not give the non-distributed Trainer's parameters")
+    if w1["launches"][1:] != (2 * DP_REF_STEPS, 2 * DP_REF_STEPS):
+        fail(f"phase 28: the one-rank run launched K1, K1s, K2 {w1['launches']}")
+
+    # two ranks sharing the card under gloo: the vanilla first step, fit, test; the auto-decoder
+    with open(multi_cfg_path) as f:
+        ad = json.load(f)
+    ad.update({"output_path": out, "exp_name": "dp_ad", "inner_steps": 1, "val_every_steps": DP_AD_STEPS,
+               "ckpt_every_steps": DP_AD_STEPS, "shard_scene_buffers": True})
+    cfg = _dp_config(root, out, "two")
+    try:
+        two = run_dp(2, "cuda:0", [
+            ("first", "dp_first_step", {"cfg": _dp_config(root, out, "first")}),
+            ("fit", "dp_fit", {"cfg": cfg, "max_steps": DP_STEPS}),
+            ("test", "dp_test", {"cfg": cfg}),
+            ("ad", "dp_fit", {"cfg": ad, "max_steps": DP_AD_STEPS}),
+        ])
+    except RuntimeError as e:
+        fail(f"phase 28, two ranks: {e}")
+    for r, res in enumerate(two):
+        k2 = res["first"]["k2"]
+        print(f"  rank {r}, first step ({res['first']['rows']} of 2048 rays): K2 at most "
+              + ", ".join(f"{x['ratio']:.3f} (S={x['S']}, {x['worst']})" for x in k2)
+              + f" of its per-gradient limits against the fp64 backward of its own K1s saved; the all-reduced "
+              f"gradient within {res['first']['reduce_ulps']:.2f} fp32 ulps of the fp64 sum of the ranks' shares "
+              f"(limit {DP_ULPS})")
+    first = two[0]["first"]
+    print(f"  the all-reduced gradient against the one-rank gradient of the same global batch: max abs diff "
+          f"{first['one_rank_max_abs']:.3e} ({first['one_rank_rel']:.3e} of the largest entry)")
+    fits = [res["fit"] for res in two]
+    test_bits = two[0]["test"]
+    one = Trainer(load_config(None, {**cfg, "run_eval": True}))  # the same checkpoint on one device
+    rgbs, depths, accs, _, _ = one.render_test_views()
+    one.close()
+    test_same = all(np.array_equal(a, b) for a, b in ((rgbs, test_bits["rgb"]), (depths, test_bits["depth"]),
+                                                       (accs, test_bits["acc"])))
+    losses = np.asarray(fits[0]["losses"])
+    for r, res in enumerate(two):
+        print(f"  rank {r} launches (K1, K1s, K2): fit {res['fit']['launches']}, test {res['test']['launches']}, "
+              f"auto-decoder {res['ad']['launches']}; parameters held equal after each of {res['fit']['checked']} "
+              f"vanilla and {res['ad']['checked']} auto-decoder steps")
+    print(f"  every rank holds the whole ray buffers: {fits[0]['held_bytes']} and {fits[1]['held_bytes']} bytes")
+    print(f"  vanilla fit: {DP_STEPS} steps, loss first 5 {losses[:5].mean():.5f}, last 5 {losses[-5:].mean():.5f}; "
+          f"val psnr {fits[0]['last'].get('val_psnr')}; test() of its checkpoint on 2 ranks "
+          f"{'equal to' if test_same else 'DIFFERENT from'} one device's, bit for bit ({len(rgbs)} views); psnr "
+          f"{test_bits['stats']['psnr']}")
+    ad_res = [res["ad"] for res in two]
+    ad_loss = np.asarray(ad_res[0]["losses"])
+    held = {k: ad_res[0]["bytes"][k] for k in ("rgb", "mask", "c2w")}
+    whole = {k: ad_res[0]["whole_bytes"][k] for k in held}
+    print(f"  auto-decoder on view-sharded buffers: each rank holds {held} bytes of rgb/mask/c2w of {whole}; loss "
+          f"first 5 {ad_loss[:5].mean():.5f}, last 5 {ad_loss[-5:].mean():.5f} over {DP_AD_STEPS} steps")
+    print(f"  step ms: 2 ranks sharing the card {fits[0]['step_ms']:.3f} / {fits[1]['step_ms']:.3f} ms (1024 rays "
+          f"each), 1 rank under NCCL {w1['step_ms']:.3f} ms (2048 rays); auto-decoder 2 ranks "
+          f"{ad_res[0]['step_ms']:.3f} ms ({smi}). Two ranks on one card measure the mechanism (the all-reduce, "
+          f"the host gathers), not a speed-up.")
+    print(f"  phase 28: {time.perf_counter() - t0:.1f} s")
+    for r, res in enumerate(two):
+        if res["fit"]["checked"] != DP_STEPS or res["ad"]["checked"] != DP_AD_STEPS:
+            fail(f"phase 28: rank {r} held its parameters equal after {res['fit']['checked']} steps")
+        k1, k1s, k2 = res["fit"]["launches"]
+        if k1s != 2 * DP_STEPS or k2 != 2 * DP_STEPS or k1 == 0:
+            fail(f"phase 28: rank {r}'s fit launched K1, K1s, K2 {res['fit']['launches']}, expected K1 > 0 "
+                 f"(validation) and {2 * DP_STEPS} each of K1s and K2")
+        if res["test"]["launches"][0] == 0 or res["test"]["launches"][1:] != (0, 0):
+            fail(f"phase 28: rank {r}'s test launched {res['test']['launches']}")
+    if not test_same:
+        fail("phase 28: the gathered test images differ from one device's")
+    if not (np.isfinite(losses).all() and losses[-5:].mean() < losses[:5].mean()):
+        fail("phase 28: the 2-rank vanilla loss did not fall")
+    if not (np.isfinite(ad_loss).all() and ad_loss[-5:].mean() < ad_loss[:5].mean()):
+        fail("phase 28: the 2-rank auto-decoder loss did not fall")
+    if any(held[k] * 2 != whole[k] for k in held):
+        fail(f"phase 28: a rank's view-sharded buffers are not half the scene's: {held} of {whole}")
+    return {"launches": [res["fit"]["launches"] for res in two], "one_rank_launches": w1["launches"],
+            "test_launches": [res["test"]["launches"] for res in two],
+            "step_ms": [f["step_ms"] for f in fits], "one_rank_step_ms": w1["step_ms"]}
+
+
 def main() -> None:
     t_run = time.perf_counter()
     phase_device()
@@ -4382,6 +4710,7 @@ def main() -> None:
         phase_nan_kernels(nerf, boxes, focal)
         phase_geometry({"vanilla": t["cfg_path"], "autodecoder": a["cfg_path"], "autoencoder": ae["cfg_path"]}, tmp)
         dg = phase_degrees(boxes, focal, t["root"], tmp)
+        dp = phase_data_parallel(t["root"], a["cfg_path"], tmp)
     ae_launches = [x + y for x, y in zip(ae["fused"], ae_test["fused"])]  # K1, K1s, K2 on phases 11-12
 
     lv = k["levels"]
@@ -4416,6 +4745,9 @@ def main() -> None:
         "train_launches": t["k1"],
         "test_launches": p["k1"],
         "ae_launches": ae_launches[0],
+        # phase 28: each rank's launches in its 2-rank fit (validation) and test()
+        "data_parallel_launches": [x[0] for x in dp["launches"]],
+        "data_parallel_test_launches": [x[0] for x in dp["test_launches"]],
     }
     flv = f["levels"]
     k1s = {
@@ -4436,6 +4768,8 @@ def main() -> None:
         "levels": flv,
         "ae_launches": ae_launches[1],
         "optimizer_launches": {k: v["k1s"] for k, v in opt.items() if "k1s" in v},
+        # phase 28: each rank's 2-rank fit, then the one-rank NCCL run
+        "data_parallel_launches": [x[1] for x in dp["launches"]] + [dp["one_rank_launches"][1]],
         # phase 21: one coarse and one fine launch with sigma noise, each mode,
         # timed in turns with the same launch without; phase 22: the launches
         # of the noisy training run
@@ -4464,6 +4798,8 @@ def main() -> None:
         "levels": blv,
         "ae_launches": ae_launches[2],
         "optimizer_launches": {k: v["k2"] for k, v in opt.items() if "k2" in v},
+        # phase 28: each rank's 2-rank fit, then the one-rank NCCL run
+        "data_parallel_launches": [x[2] for x in dp["launches"]] + [dp["one_rank_launches"][2]],
         # phase 22: the noisy training run's launches; phase 21: K2 from the
         # noisy saved and raw against its plain version (fp32: the
         # per-gradient rule's ratio; bf16: the bf16 rule's)

@@ -210,12 +210,14 @@ def test_trainer_refuses_what_the_autodecoder_does_not_run(tmp_path):
     base = {"exp_type": "vanilla_autodecoder", "dataset_name": "sapien_multi", "platform": "cpu"}
     for overrides in ({"dataset_name": "sapien"},
                       {"compute_dtype": "fp16"},  # bf16 runs
-                      {"n_model_shards": 2}, {"shard_scene_buffers": False}):  # noise_std, is_optimize run
+                      {"n_model_shards": 2}):  # noise_std, is_optimize run
         with pytest.raises(NotImplementedError):
             Trainer(config.load_config(None, {**base, **overrides}))
-    # the codes' own AdamW (latent_lr) and one encode for several auto-encoder
-    # steps run: tests/test_torch_optim.py, tests/test_torch_ae_reuse.py
-    for overrides in ({"exp_type": "vanilla_ae_art", "ae_encode_reuse": 2}, {"latent_lr": 1e-3}):
+    # the codes' own AdamW (latent_lr), one encode for several auto-encoder
+    # steps and replicated scene buffers run: tests/test_torch_optim.py,
+    # tests/test_torch_ae_reuse.py, tests/test_torch_parallel_steps.py
+    for overrides in ({"exp_type": "vanilla_ae_art", "ae_encode_reuse": 2}, {"latent_lr": 1e-3},
+                      {"shard_scene_buffers": False}):
         _check_supported(config.load_config(None, {**base, **overrides}))
     root = synthetic.write_single_scene(str(tmp_path / "single"), img_wh=WH, n_train=1, n_val=1, n_test=0)
     vanilla = Trainer(config.load_config(None, {"root_dir": root, "output_path": str(tmp_path / "out"),

@@ -1434,3 +1434,69 @@ def test_degrees_tile_rule_takes_what_the_block_holds(cuda):
                 fr.fused_render_level(kp, *args, True, ray_tile=16)
             at4 = fr.fused_render_level(kp, *args, True, ray_tile=4)  # a row's outputs do not depend on the tile
             assert all(torch.equal(a, b) for a, b in zip(k1, at4))
+
+
+def _ddp_config(root, out, name):
+    """The vanilla NeRF at full width (8x256, 64 + 128 samples) on a 16x12
+    scene, batch 64: two fp32 ray tiles a rank at 2 ranks."""
+    return {"root_dir": root, "output_path": out, "exp_name": name, "img_wh": [16, 12], "num_coarse_samples": 64,
+            "num_fine_samples": 128, "batch_size": 64, "chunk": 64, "lr_init": 1e-3, "lr_delay_steps": 0,
+            "inner_steps": 1, "val_every_steps": 6, "ckpt_every_steps": 6, "limit_val_batches": 1, "seed": 0}
+
+
+def _ddp_scene(tmp_path):
+    from aonerf_torch.data.synthetic import write_single_scene
+
+    return write_single_scene(str(tmp_path / "scene"), img_wh=(16, 12), n_train=2, n_val=1, n_test=3)
+
+
+def test_ddp_one_rank_under_nccl_is_the_one_device_trainer(cuda, tmp_path):
+    # chip_smoke.py phase 28's first check at a smaller size
+    from aonerf_torch.train.loop import Trainer
+    from aonerf_torch.utils.config import load_config
+
+    root, out = _ddp_scene(tmp_path), str(tmp_path / "out")
+    got = rule.run_dp(1, None, [("fit", "dp_fit", {"cfg": _ddp_config(root, out, "nccl1"), "max_steps": 4,
+                                                   "params": True})])[0]["fit"]
+    ref = Trainer(load_config(None, _ddp_config(root, out, "plain")))
+    try:
+        ref.fit(max_steps=4)
+        np.testing.assert_array_equal(got["params"], rule.flat_params(ref.state.params.values()))
+    finally:
+        ref.close()
+    assert got["launches"][1:] == (2 * 4, 2 * 4)  # K1s and K2, both levels of every step
+
+
+def test_ddp_two_ranks_sharing_the_card_fit_test_and_meet_k2s_rule(cuda, tmp_path):
+    # phase 28's two-rank checks at a smaller size: each rank's K2 by its
+    # per-gradient rule against the fp64 backward of its own K1s saved, the
+    # all-reduced gradient within DP_ULPS of the fp64 sum of the shares
+    # (dp_first_step raises otherwise), the parameters equal on both ranks
+    # after every step, test() gathered equal to one device's bit for bit
+    from aonerf_torch.train.loop import Trainer
+    from aonerf_torch.utils.config import load_config
+
+    root, out = _ddp_scene(tmp_path), str(tmp_path / "out")
+    cfg = _ddp_config(root, out, "two")
+    two = rule.run_dp(2, "cuda:0", [("first", "dp_first_step", {"cfg": _ddp_config(root, out, "first")}),
+                                    ("fit", "dp_fit", {"cfg": cfg, "max_steps": 6}),
+                                    ("test", "dp_test", {"cfg": cfg})])
+    for res in two:
+        assert res["first"]["reduce_ulps"] <= rule.DP_ULPS and all(x["ratio"] <= 1 for x in res["first"]["k2"])
+        assert res["fit"]["checked"] == 6 and res["fit"]["step"] == 6
+        k1, k1s, k2 = res["fit"]["launches"]
+        assert k1 > 0 and k1s == k2 == 2 * 6  # validation through K1, every step through K1s and K2
+        assert res["test"]["launches"][0] > 0 and res["test"]["launches"][1:] == (0, 0)
+    one = Trainer(load_config(None, {**cfg, "run_eval": True}))
+    try:
+        rgbs, depths, accs, _, _ = one.render_test_views()
+    finally:
+        one.close()
+    for k, want in (("rgb", rgbs), ("depth", depths), ("acc", accs)):
+        np.testing.assert_array_equal(two[0]["test"][k], want, err_msg=k)
+
+
+def test_ddp_dryrun_on_one_card(cuda):
+    from aonerf_torch.entry import dryrun_multichip
+
+    assert dryrun_multichip(2, platform="cuda:0").startswith("dryrun_multichip ok: mesh=(2x1) on cuda:0")

@@ -47,6 +47,8 @@ def test_port_modules_import_no_jax_and_no_aonerf():
         "aonerf_torch.models.resnet", "aonerf_torch.models.joint_state", "aonerf_torch.models.ae",
         "aonerf_torch.train.step_ae", "aonerf_torch.utils.transforms", "aonerf_torch.viz.pointcloud",
         "aonerf_torch.viz.voxelgrid", "aonerf_torch.viz.mesh", "aonerf_torch.cli.export_voxels",
+        "aonerf_torch.parallel", "aonerf_torch.parallel.distributed", "aonerf_torch.parallel.mesh",
+        "aonerf_torch.entry",
     }
     assert expected <= set(out["modules"])
     assert not set(FORBIDDEN) & set(out["loaded"]), set(FORBIDDEN) & set(out["loaded"])

@@ -122,11 +122,13 @@ def test_trainer_refuses_what_is_not_ported(tmp_path):
     # shared memory it would need
     for overrides, item in (({"exp_type": "vanilla_ae_art"}, None), ({"compute_dtype": "fp16"}, None),
                             ({"max_deg_point": 48}, "encoded width 291: .* needs 236176 bytes .* item 11"),
-                            ({"n_model_shards": 2}, "item 7"), ({"shard_scene_buffers": False}, "item 7")):
+                            ({"n_model_shards": 2}, "item 12, tensor parallelism")):
         with pytest.raises(NotImplementedError, match=item):
             Trainer(config.load_config(None, {"platform": "cpu", **overrides}))
-    # the reference's optimizers and schedules run (tests/test_torch_optim.py)
+    # the reference's optimizers and schedules run (tests/test_torch_optim.py),
+    # and data parallelism with either scene-buffer layout (tests/test_torch_parallel*.py)
     _check_supported(config.load_config(None, {"platform": "cpu", "optimizer": "ranger", "lr_scheduler": "poly"}))
+    _check_supported(config.load_config(None, {"platform": "cpu", "shard_scene_buffers": False}))
     if not torch.cuda.is_available():  # entry points default to the card
         with pytest.raises(RuntimeError, match="CUDA"):
             Trainer(config.load_config(None, {"root_dir": str(tmp_path)}))
