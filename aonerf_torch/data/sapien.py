@@ -6,7 +6,10 @@
 
 train: every ray of every image in flat (N, 3) host buffers, which the
 trainer uploads once and gathers batches from on the device. val/test:
-per-image rays and targets. Images are decoded with PIL.
+per-image rays and targets. The train buffers are built by the native
+loader (``aonerf_torch.native``: PNG decode and world rays in C++ on a
+thread pool) and through PIL when ``AONERF_NO_NATIVE`` is set or an image
+needs resizing; val/test views are decoded with PIL.
 """
 
 import json
@@ -18,6 +21,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 
 from aonerf_torch.data.camera import focal_from_meta, get_ray_directions_np, get_rays_np
+from aonerf_torch.native import load_scene_native
 
 __all__ = ["NEAR", "FAR", "ImageSample", "SapienDataset", "focal_from_meta"]
 
@@ -89,15 +93,21 @@ class SapienDataset:
         return np.asarray(self.meta["frames"][img_file.split(".")[0]], dtype=np.float32)[:3, :4]
 
     def _build_train_buffers(self) -> None:
-        # Preallocated flat (N_total, 3) buffers written in place by a thread
-        # pool (PIL releases the GIL while decoding). viewdirs aliases rays_d,
-        # as in the reference.
+        # Preallocated flat (N_total, 3) buffers written in place: by the
+        # native loader, else by a thread pool through PIL (which releases
+        # the GIL while decoding). viewdirs aliases rays_d, as in the
+        # reference.
         w, h = self.img_wh
         n_img, n_pix = len(self.img_files), h * w
         self.all_rays_o = np.empty((n_img * n_pix, 3), np.float32)
         self.all_rays_d = np.empty((n_img * n_pix, 3), np.float32)
         self.all_viewdirs = self.all_rays_d
         self.all_rgbs = np.empty((n_img * n_pix, 3), np.float32)
+
+        c2ws = np.stack([self._frame_c2w(f) for f in self.img_files])
+        if load_scene_native([os.path.join(self._base, "rgb", f) for f in self.img_files], c2ws,
+                             self.directions, h, w, True, self.all_rays_o, self.all_rays_d, self.all_rgbs):
+            return
 
         def load(i: int) -> None:
             img_file = self.img_files[i]

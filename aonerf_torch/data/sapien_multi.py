@@ -3,10 +3,10 @@
 
   {root}/{instance}/{split}/{deg}_degree/{rgb,seg}/r_#.png + transforms.json
 
-Every (instance, articulation, view) is decoded once with PIL into host
-arrays: the rgb with the seg mask's background set to white (or black), the
-mask, the c2w. ``device_buffers`` stacks them for the train step, which
-samples its batches on the device. Validation reads full views
+Every (instance, articulation, view) is decoded once (by the native loader,
+else PIL) into host arrays: the rgb with the seg mask's background set to
+white (or black), the mask, the c2w. ``device_buffers`` stacks them for the
+train step, which samples its batches on the device. Validation reads full views
 (``get_image``); a dataset whose instances differ in articulation or view
 count is sampled on the host (``sample_train``). The test sweep renders
 ``create_spheric_poses(radius=4)`` with the pose index as the interpolated
@@ -24,6 +24,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from aonerf_torch.data.camera import focal_from_meta, get_ray_directions_np, get_rays_np
+from aonerf_torch.native import decode_png_u8_native
 from aonerf_torch.ops.rays import create_spheric_poses
 
 NEAR, FAR = 2.0, 6.0
@@ -42,17 +43,25 @@ class _View:
 
 
 def _decode_rgb(path: str, w: int, h: int) -> np.ndarray:
+    """(h, w, 3) uint8: the native decoder's, else PIL's, resized."""
     from PIL import Image  # only the loader needs PIL
 
+    rgba = decode_png_u8_native(path, w, h)
+    if rgba is not None:
+        return rgba[..., :3]
     return np.asarray(Image.open(path).convert("RGB").resize((w, h), Image.LANCZOS))
 
 
 def _decode_seg(path: str, w: int, h: int) -> np.ndarray:
-    """(h, w) bool: any colour channel above 0."""
+    """(h, w) bool: the native decoder's RGBA with a colour channel above 0,
+    else PIL's image, resized, with any channel above 0 (as JAX reads it)."""
     from PIL import Image
 
+    rgba = decode_png_u8_native(path, w, h)
+    if rgba is not None:
+        return (rgba[..., :3] > 0).any(axis=-1)
     seg = np.asarray(Image.open(path).resize((w, h), Image.LANCZOS)) > 0
-    return seg[..., :3].any(axis=-1) if seg.ndim == 3 else seg
+    return seg.any(axis=-1) if seg.ndim == 3 else seg
 
 
 class SapienMultiDataset:

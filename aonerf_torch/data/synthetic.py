@@ -1,10 +1,13 @@
 """Analytic articulated "laptop" scene, ray-traced in numpy (counterpart of
-``aonerf.data.synthetic``'s scene and its single- and multi-scene writers).
+``aonerf.data.synthetic``).
 
 A base slab and a lid slab hinged at its back edge, the lid pitched by the
 articulation angle. It gives real multi-view-consistent views in memory;
-``write_single_scene`` writes them in the SAPIEN layout and
-``generate_multi_scene`` in the articulated sapien_multi layout, with PIL.
+``generate_single_scene`` writes them in the SAPIEN layout (with depth
+PNGs on request), ``replay_scene`` re-renders the poses of a saved
+transforms.json and ``generate_multi_scene`` writes the articulated
+sapien_multi layout, with PIL. The datagen CLI
+(``aonerf_torch.data.datagen.generate``) drives all three.
 """
 
 import json
@@ -127,6 +130,33 @@ def render_scene(
     return rgb.reshape(h, w, 3), alpha.reshape(h, w), seg.reshape(h, w)
 
 
+def render_depth(boxes: List[Box], c2w: np.ndarray, h: int, w: int, focal: float) -> np.ndarray:
+    """Camera-frame z-depth (meters; 0 where no hit), the quantity the
+    reference stores from SAPIEN's depth texture."""
+    dirs = get_ray_directions_np(h, w, focal).reshape(-1, 3)
+    d = dirs @ c2w[:3, :3].T
+    norm = np.linalg.norm(d, axis=-1)
+    d = d / norm[:, None]
+    o = np.broadcast_to(c2w[:3, 3], d.shape)
+
+    best_t = np.full(len(d), np.inf)
+    for box in boxes:
+        hit, t, _ = _ray_box_hits(o, d, box)
+        best_t = np.where(hit & (t < best_t), t, best_t)
+    # ray length -> z-depth: the camera-frame direction has z = -1 before
+    # normalization, so z = t / ||dir_cam||.
+    z = np.where(np.isfinite(best_t), best_t / norm, 0.0)
+    return z.reshape(h, w)
+
+
+def write_depth_png(path: str, depth_m: np.ndarray) -> None:
+    """Depth as a millimeter uint16 PNG, the reference's on-disk format."""
+    from PIL import Image
+
+    mm = np.clip(depth_m * 1000.0, 0, np.iinfo(np.uint16).max).astype(np.uint16)
+    Image.fromarray(mm).save(path)
+
+
 def random_pose_on_sphere(
     rng: np.random.Generator, radius: float = 4.0, jitter: float = 0.5
 ) -> np.ndarray:
@@ -156,7 +186,7 @@ def _write_frame(
         Image.fromarray((seg > 0).astype(np.uint8) * 255, mode="L").save(seg_path)
 
 
-def write_single_scene(
+def generate_single_scene(
     root: str,
     img_wh: Tuple[int, int] = (320, 240),
     n_train: int = 20,
@@ -165,10 +195,13 @@ def write_single_scene(
     articulation_deg: float = 80.0,
     instance_seed: int = 0,
     seed: int = 0,
+    write_depth: bool = False,
 ) -> str:
     """Write a single-scene dataset in the SAPIEN layout
     ({root}/{split}/rgb/r_#.png RGBA + transforms.json with a 'focal' key),
-    the same files ``aonerf.data.synthetic.generate_single_scene`` writes."""
+    the same files ``aonerf.data.synthetic.generate_single_scene`` writes;
+    ``write_depth`` adds {split}/depth/r_#.png (mm uint16) as the reference
+    generator does."""
     w, h = img_wh
     focal = 0.5 * h / np.tan(0.5 * np.deg2rad(FOVY_DEG))
     boxes = laptop_scene(articulation_deg, instance_seed)
@@ -176,14 +209,54 @@ def write_single_scene(
     for split, count in (("train", n_train), ("val", n_val), ("test", n_test)):
         rgb_dir = os.path.join(root, split, "rgb")
         os.makedirs(rgb_dir, exist_ok=True)
+        if write_depth:
+            os.makedirs(os.path.join(root, split, "depth"), exist_ok=True)
         frames: Dict[str, list] = {}
         for i in range(count):
             c2w = random_pose_on_sphere(rng)
             rgb, alpha, seg = render_scene(boxes, c2w, h, w, focal)
-            _write_frame(rgb, alpha, seg, os.path.join(rgb_dir, f"r_{i}.png"), None)
-            frames[f"r_{i}"] = c2w.tolist()
+            name = f"r_{i}"
+            _write_frame(rgb, alpha, seg, os.path.join(rgb_dir, name + ".png"), None)
+            if write_depth:
+                write_depth_png(os.path.join(root, split, "depth", name + ".png"),
+                                render_depth(boxes, c2w, h, w, focal))
+            frames[name] = c2w.tolist()
         with open(os.path.join(root, split, "transforms.json"), "w") as f:
             json.dump({"focal": focal, "frames": frames}, f)
+    return root
+
+
+def replay_scene(
+    root: str,
+    transforms_path: str,
+    split: str = "replay",
+    img_wh: Tuple[int, int] = (320, 240),
+    articulation_deg: float = 80.0,
+    instance_seed: int = 0,
+    write_depth: bool = False,
+) -> str:
+    """Re-render the scene at the saved camera poses of an existing
+    transforms.json (its c2w matrices, and its focal when present) into a
+    new {root}/{split}/ in the same layout: the reference's replay mode."""
+    with open(transforms_path) as f:
+        meta = json.load(f)
+    w, h = img_wh
+    focal = float(meta.get("focal") or 0.5 * h / np.tan(0.5 * np.deg2rad(FOVY_DEG)))
+    boxes = laptop_scene(articulation_deg, instance_seed)
+    rgb_dir = os.path.join(root, split, "rgb")
+    os.makedirs(rgb_dir, exist_ok=True)
+    if write_depth:
+        os.makedirs(os.path.join(root, split, "depth"), exist_ok=True)
+    frames: Dict[str, list] = {}
+    for name, mat in meta["frames"].items():
+        c2w = np.asarray(mat, dtype=np.float64)
+        rgb, alpha, seg = render_scene(boxes, c2w, h, w, focal)
+        _write_frame(rgb, alpha, seg, os.path.join(rgb_dir, name + ".png"), None)
+        if write_depth:
+            write_depth_png(os.path.join(root, split, "depth", name + ".png"), render_depth(boxes, c2w, h, w, focal))
+        frames[name] = c2w.tolist()
+    with open(os.path.join(root, split, "transforms.json"), "w") as f:
+        json.dump({"focal": focal, "frames": frames}, f)
     return root
 
 

@@ -253,6 +253,22 @@ Phases, each of which fails the run with a non-zero exit:
                steps with the loss falling; each run's ms a step beside the
                card's name and power limit (two ranks on one card measure the
                mechanism, not a speed-up).
+ 29. data path - the datagen CLI (python -m aonerf_torch.data.datagen.generate)
+               writes a 320x240 single scene (100 train, 2 val, 2 test views
+               with depth) and a multi scene (2 instances x 10 degrees x 4
+               views) in two processes at once, then a replay of the single
+               scene's test poses, its rgb and depth equal to the test views';
+               the native loader built and loaded; each scene loaded
+               LOAD_REPEATS times natively and as many with
+               AONERF_NO_NATIVE=1, in turns, the median host seconds of each,
+               rays_o equal, rays_d and rgb within TOL_LOAD_*, the multi
+               scene's views equal; config/vanilla.json at full width (batch
+               2048, 64+128 samples, 8x256) through the train CLI on the
+               single scene for 10 steps, its train buffers by the native
+               loader, K1 (validation), K1s and K2 launched, the loss
+               finite; test() of one view (K1 only), results.json finite,
+               its depth PNGs; check_poses on the train poses (radius 4 +-
+               0.5) and conventions.load_sapien's c2ws the dataset's.
 The line before the last is a JSON object with one entry per kernel and mode
 (K1, K1s, K2 in fp32, then in bf16; K1 and K1s in bf16 at the fast preset's
 shapes; B2 and B1 in bf16; B2 in fp32; K1, K1s and K2 at phase 27's widths,
@@ -1217,15 +1233,15 @@ def print_top_ops(prof, n_steps: int, step_ms: float, busy_ms: float) -> None:
 
 def phase_training(tmp: str) -> dict:
     from aonerf_torch.cli import train as cli
-    from aonerf_torch.data.synthetic import write_single_scene
+    from aonerf_torch.data.synthetic import generate_single_scene
     from aonerf_torch.ops.kernels import fused_render as fr
     from aonerf_torch.ops.kernels import fused_train as ft
     from aonerf_torch.train import step as step_mod
     from aonerf_torch.train.loop import Trainer
     from aonerf_torch.utils.config import load_config
 
-    root = write_single_scene(os.path.join(tmp, "scene"), img_wh=(W, H), n_train=8, n_val=1, n_test=N_TEST,
-                              seed=SEED)
+    root = generate_single_scene(os.path.join(tmp, "scene"), img_wh=(W, H), n_train=8, n_val=1, n_test=N_TEST,
+                                 seed=SEED)
     cfg_path = _train_config(root, os.path.join(tmp, "out"))
     cfg = load_config(cfg_path)
     n_val_tiles = -(-W * H // cfg.chunk)
@@ -4253,6 +4269,22 @@ def degree_level_checks(nerf, boxes, focal, dot_bf16: bool) -> list:
     return rows
 
 
+def one_test_view(root: str, scene: str) -> str:
+    """A scene at ``scene`` that is ``root``'s (train and val linked) with
+    its first test view only."""
+    for split in ("train", "val"):
+        os.makedirs(scene, exist_ok=True)
+        os.symlink(os.path.join(root, split), os.path.join(scene, split))
+    os.makedirs(os.path.join(scene, "test", "rgb"))
+    with open(os.path.join(root, "test", "transforms.json")) as f:
+        frames = json.load(f)
+    frames["frames"] = {"r_0": frames["frames"]["r_0"]}
+    with open(os.path.join(scene, "test", "transforms.json"), "w") as f:
+        json.dump(frames, f)
+    os.symlink(os.path.join(root, "test", "rgb", "r_0.png"), os.path.join(scene, "test", "rgb", "r_0.png"))
+    return scene
+
+
 def phase_degrees(boxes, focal, root: str, tmp: str) -> dict:
     """Phase 27: K1, K1s and K2 at both runs' widths in both modes against
     their plain versions (degree_level_checks); then config/vanilla.json
@@ -4278,19 +4310,7 @@ def phase_degrees(boxes, focal, root: str, tmp: str) -> dict:
         del nerf
     t_kernels = time.perf_counter() - t_phase
 
-    # phase 7's scene with its first test view only
-    scene = os.path.join(tmp, "degrees_scene")
-    for split in ("train", "val"):
-        os.makedirs(scene, exist_ok=True)
-        os.symlink(os.path.join(root, split), os.path.join(scene, split))
-    os.makedirs(os.path.join(scene, "test", "rgb"))
-    with open(os.path.join(root, "test", "transforms.json")) as f:
-        frames = json.load(f)
-    frames["frames"] = {"r_0": frames["frames"]["r_0"]}
-    with open(os.path.join(scene, "test", "transforms.json"), "w") as f:
-        json.dump(frames, f)
-    os.symlink(os.path.join(root, "test", "rgb", "r_0.png"), os.path.join(scene, "test", "rgb", "r_0.png"))
-
+    scene = one_test_view(root, os.path.join(tmp, "degrees_scene"))  # phase 7's scene, one test view
     real = step_mod.vanilla_loss_and_grads
     runs = {}
     out = os.path.join(tmp, "out_degrees")
@@ -4674,6 +4694,220 @@ def phase_data_parallel(root: str, multi_cfg_path: str, tmp: str) -> dict:
             "step_ms": [f["step_ms"] for f in fits], "one_rank_step_ms": w1["step_ms"]}
 
 
+# ---------------------------------------------------------------- phase 29
+
+DATA_TRAIN_VIEWS = 100  # phase 29's single scene: the reference's train split
+DATA_STEPS = 10  # its fit at config/vanilla.json's widths
+LOAD_REPEATS = 3  # each scene loaded this many times a path, in turns; the median printed
+# the native loader against the PIL path (tests/test_torch_native.py): rays_o
+# equal, rays_d and the rgb within an ulp of a unit value (3e-7, 2e-7)
+TOL_LOAD_RAYS_D, TOL_LOAD_RGB = 3e-7, 2e-7
+
+
+def _datagen(cfg: dict, path: str) -> subprocess.Popen:
+    """Start the datagen CLI on ``cfg`` (written to ``path``) in a process of
+    its own."""
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    # one BLAS thread a process: two datagens share the host's cores, and
+    # their products are 3-long, so no sum's order depends on it
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (repo, os.environ.get("PYTHONPATH")) if p),
+               OMP_NUM_THREADS="1", OPENBLAS_NUM_THREADS="1")
+    return subprocess.Popen([sys.executable, "-m", "aonerf_torch.data.datagen.generate", "--config", path], cwd=repo,
+                            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _datagen_done(proc: subprocess.Popen, out_dir: str) -> None:
+    try:
+        out, err = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"phase 29: the datagen CLI for {out_dir} ran over 600 s")
+    last = out.strip().splitlines()[-1] if out.strip() else ""
+    if proc.returncode != 0 or json.loads(last or "{}") != {"out_dir": out_dir, "backend": "synthetic"}:
+        fail(f"phase 29: the datagen CLI exited {proc.returncode}, printed {last!r}: {err[-2000:]}")
+
+
+def _png(path: str) -> np.ndarray:
+    from PIL import Image
+
+    return np.asarray(Image.open(path))
+
+
+def _loads_in_turns(load) -> tuple:
+    """``load()`` LOAD_REPEATS times a path, in turns (native, PIL, PIL,
+    native, ...); the median host seconds of each and the last dataset each
+    path built."""
+    seconds, last = {True: [], False: []}, {}
+    for i in range(2 * LOAD_REPEATS):
+        use_native = (i % 4) in (0, 3)
+        if use_native:
+            os.environ.pop("AONERF_NO_NATIVE", None)
+        else:
+            os.environ["AONERF_NO_NATIVE"] = "1"
+        try:
+            t0 = time.perf_counter()
+            last[use_native] = load()
+            seconds[use_native].append(time.perf_counter() - t0)
+        finally:
+            os.environ.pop("AONERF_NO_NATIVE", None)
+    return float(np.median(seconds[True])), float(np.median(seconds[False])), last[True], last[False]
+
+
+def phase_data_path(tmp: str) -> dict:
+    """Phase 29: the dataset path (see the module docstring)."""
+    from aonerf_torch import native
+    from aonerf_torch.cli import train as cli
+    from aonerf_torch.data.sapien import SapienDataset
+    from aonerf_torch.data.sapien_multi import SapienMultiDataset
+    from aonerf_torch.ops.kernels import fused_render as fr
+    from aonerf_torch.ops.kernels import fused_train as ft
+    from aonerf_torch.train import step as step_mod
+    from aonerf_torch.utils.config import load_config
+    from aonerf_torch.viz.check_poses import check_poses
+    from aonerf_torch.viz.conventions import load_sapien
+
+    t0 = time.perf_counter()
+    smi = smi_line()
+    base = os.path.join(tmp, "datagen")
+    os.makedirs(base)
+    single, multi = os.path.join(base, "single"), os.path.join(base, "multi")
+    # the single and the multi scene in two processes at once, then the replay of the single scene's test poses
+    procs = [(_datagen({"mode": "single", "out_dir": single, "img_wh": [W, H], "n_train": DATA_TRAIN_VIEWS,
+                        "n_val": 2, "n_test": 2, "write_depth": True, "seed": SEED}, single + ".json"), single),
+             (_datagen({"mode": "multi", "out_dir": multi, "img_wh": [W, H], "n_instances": 2,
+                        "degrees": list(range(0, 100, 10)), "n_images": 4, "seed": SEED}, multi + ".json"), multi)]
+    for proc, out_dir in procs:
+        _datagen_done(proc, out_dir)
+    _datagen_done(_datagen({"mode": "replay", "out_dir": single, "transforms": os.path.join(single, "test",
+                            "transforms.json"), "split": "replay", "img_wh": [W, H], "write_depth": True},
+                           single + "_replay.json"), single)
+    gen_s = time.perf_counter() - t0
+    n_files = {d: sum(len(f) for _, _, f in os.walk(d)) for d in (single, multi)}
+    replay_same = all(np.array_equal(_png(os.path.join(single, "replay", kind, f"r_{i}.png")),
+                                     _png(os.path.join(single, "test", kind, f"r_{i}.png")))
+                      for i in range(2) for kind in ("rgb", "depth"))
+    depth0 = _png(os.path.join(single, "train", "depth", "r_0.png"))
+    print(f"data path: the datagen CLI wrote a {W}x{H} single scene ({DATA_TRAIN_VIEWS} train, 2 val, 2 test views "
+          f"with depth; {n_files[single]} files with the replay), a multi scene (2 instances x 10 degrees x 4 views; "
+          f"{n_files[multi]} files) and a replay of the test poses in {gen_s:.1f} s; the replay's rgb and depth "
+          f"{'equal' if replay_same else 'NOT equal'} to the test views'; train depth r_0 {depth0.dtype} "
+          f"{depth0.min()}..{depth0.max()} mm")
+    if not replay_same:
+        fail("phase 29: the replay of the test poses differs from the test views")
+    if depth0.dtype != np.uint16 or not 0 < depth0.max() < 8000:
+        fail("phase 29: the depth PNG is not millimeters of the scene")
+
+    lib = native.get_loader()
+    print(f"  native loader: {lib._name if lib is not None else None}")
+    if lib is None or not os.path.exists(lib._name):
+        fail("phase 29: the native loader did not load")
+    loads = native.scene_loads
+    nat_s, pil_s, nat, pil = _loads_in_turns(lambda: SapienDataset(single, "train", img_wh=(W, H)))
+    native_loads = native.scene_loads - loads
+    d_err = float(np.abs(nat.all_rays_d - pil.all_rays_d).max())
+    rgb_err = float(np.abs(nat.all_rgbs - pil.all_rgbs).max())
+    o_same = np.array_equal(nat.all_rays_o, pil.all_rays_o)
+    decodes = native.png_decodes
+    mnat_s, mpil_s, mnat, mpil = _loads_in_turns(lambda: SapienMultiDataset(multi, "train", img_wh=(W, H)))
+    multi_decodes = native.png_decodes - decodes
+    multi_same = all(np.array_equal(a.rgb, b.rgb) and np.array_equal(a.mask, b.mask) and np.array_equal(a.c2w, b.c2w)
+                     for k in mnat._views for a, b in zip(mnat._views[k], mpil._views[k]))
+    print(f"  loads, median of {LOAD_REPEATS} in turns (host seconds on the card's machine, {os.cpu_count()} cores; "
+          f"{smi}): single scene {DATA_TRAIN_VIEWS} x {W}x{H} native {nat_s:.4f} s, PIL {pil_s:.4f} s "
+          f"({pil_s / nat_s:.1f}x); multi scene 80 views (rgb + seg) native {mnat_s:.4f} s, PIL {mpil_s:.4f} s "
+          f"({mpil_s / mnat_s:.1f}x)")
+    print(f"  native against PIL: rays_o {'equal' if o_same else 'DIFFERENT'}, rays_d max diff {d_err:.3e} (tol "
+          f"{TOL_LOAD_RAYS_D:g}), rgb {rgb_err:.3e} (tol {TOL_LOAD_RGB:g}); multi rgb/mask/c2w "
+          f"{'equal' if multi_same else 'DIFFERENT'}; native calls: {native_loads} scene loads, {multi_decodes} PNG "
+          f"decodes")
+    if native_loads != LOAD_REPEATS or multi_decodes != LOAD_REPEATS * 2 * 80:
+        fail(f"phase 29: the native path served {native_loads} scene loads and {multi_decodes} decodes")
+    if not (o_same and d_err <= TOL_LOAD_RAYS_D and rgb_err <= TOL_LOAD_RGB and multi_same):
+        fail("phase 29: the native loader's buffers disagree with the PIL path's")
+    train_c2ws = np.stack([nat._frame_c2w(f) for f in nat.img_files])
+    focal = nat.focal
+    del nat, pil, mnat, mpil
+
+    # config/vanilla.json at full width on the datagen'd scene
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "config", "vanilla.json")) as f:
+        cfg = json.load(f)
+    cfg.update({"root_dir": single, "output_path": os.path.join(tmp, "out_data"), "exp_name": "data_path",
+                "img_wh": [W, H], "lr_init": 1e-3, "lr_delay_steps": 0, "inner_steps": DATA_STEPS,
+                "val_every_steps": DATA_STEPS, "ckpt_every_steps": DATA_STEPS, "limit_val_batches": 1, "seed": SEED})
+    cfg_path = os.path.join(tmp, "data_path.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    n_tiles = -(-W * H // cfg["chunk"])
+    losses = []
+    loads = native.scene_loads
+    torch.cuda.synchronize()
+    fr.launches = ft.fwd_launches = ft.launches = 0
+    t_fit = time.perf_counter()
+    with _recording(step_mod, "vanilla_loss_and_grads", losses):
+        metrics = cli.main(["--config", cfg_path, "--max_steps", str(DATA_STEPS)])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t_fit
+    fit_counts = (fr.launches, ft.fwd_launches, ft.launches)
+    fit_loads = native.scene_loads - loads
+    loss = torch.stack(losses).cpu().numpy()
+    print(f"  fit: config/vanilla.json (batch {cfg['batch_size']}, {cfg['num_coarse_samples']}+"
+          f"{cfg['num_fine_samples']} samples, 8x256) on the datagen'd scene, {len(loss)} steps in {fit_s:.1f} s "
+          f"(loading, steps, validation, checkpoint); loss first {loss[0]:.5f}, last {loss[-1]:.5f}; val psnr "
+          f"{metrics.get('val_psnr')}; launches K1, K1s, K2 {fit_counts} (expected ({2 * n_tiles}, {2 * DATA_STEPS}, "
+          f"{2 * DATA_STEPS})); train buffers by the native loader: {fit_loads} load")
+    if len(loss) != DATA_STEPS or not np.isfinite(loss).all():
+        fail(f"phase 29: the fit took {len(loss)} steps, loss {loss}")
+    if fit_counts != (2 * n_tiles, 2 * DATA_STEPS, 2 * DATA_STEPS):
+        fail(f"phase 29: the fit launched K1, K1s, K2 {fit_counts}")
+    if fit_loads != 1:
+        fail(f"phase 29: the Trainer's train buffers took the native loader {fit_loads} times")
+
+    # test() of one view, from the fit's checkpoint
+    scene = one_test_view(single, os.path.join(tmp, "data_one_view"))
+    torch.cuda.synchronize()
+    fr.launches = ft.fwd_launches = ft.launches = 0
+    t_test = time.perf_counter()
+    stats = cli.main(["--config", cfg_path, "--run_eval", "--root_dir", scene])
+    torch.cuda.synchronize()
+    test_s = time.perf_counter() - t_test
+    test_counts = (fr.launches, ft.fwd_launches, ft.launches)
+    run_dir = os.path.join(cfg["output_path"], cfg["exp_name"])
+    with open(os.path.join(run_dir, "results.json")) as f:
+        results = json.load(f)
+    render_dir = os.path.join(run_dir, load_config(cfg_path).render_name)
+    depth_pngs = sorted(n for n in os.listdir(render_dir) if n.startswith("depth") and n.endswith(".png"))
+    print(f"  test() of 1 view in {test_s:.2f} s: psnr {results['psnr']['test']:.4f} dB, ssim "
+          f"{results['ssim']['test']:.5f}, object psnr {results['psnr_obj']['test']:.4f} dB; launches K1, K1s, K2 "
+          f"{test_counts} (expected ({2 * n_tiles}, 0, 0)); depth PNGs {depth_pngs}")
+    if test_counts != (2 * n_tiles, 0, 0):
+        fail(f"phase 29: test() launched K1, K1s, K2 {test_counts}")
+    if not all(np.isfinite(results[k]["test"]) for k in ("psnr", "ssim", "psnr_obj")) or \
+            results != json.loads(json.dumps(stats)):
+        fail(f"phase 29: results.json {results}")
+    if depth_pngs != ["depth000.png", "depth_raw000.png"]:
+        fail(f"phase 29: test() wrote the depth PNGs {depth_pngs}")
+
+    # the train poses: the datagen's sphere, and the conventions loader against the dataset
+    report = check_poses(train_c2ws, expect_radius=4.0, radius_tol=0.5)
+    cams = load_sapien(single, "train", img_wh=(W, H))
+    same_c2ws = np.array_equal(cams.c2ws[:, :3, :4].astype(np.float32), train_c2ws)
+    print(f"  check_poses on the {report['n_cameras']} train poses: ok {report['ok']}, radius "
+          f"{report['radius']['min']:.4f}..{report['radius']['max']:.4f} ({report['radius']['n_outside_expected']} "
+          f"outside 4 +- 0.5), look-at min cos {report['lookat_origin']['min_cos']:.6f}; conventions.load_sapien's "
+          f"c2ws {'equal to' if same_c2ws else 'DIFFERENT from'} the dataset's, focal {cams.focal} against {focal}")
+    if not report["ok"] or report["radius"]["n_outside_expected"] != 0 or report["n_cameras"] != DATA_TRAIN_VIEWS:
+        fail(f"phase 29: check_poses {report}")
+    if not same_c2ws or cams.focal != focal:
+        fail("phase 29: conventions.load_sapien disagrees with the dataset's poses")
+    seconds = time.perf_counter() - t0
+    print(f"  phase 29: {seconds:.1f} s (datagen {gen_s:.1f} s, fit {fit_s:.1f} s, test {test_s:.1f} s)")
+    return {"launches": fit_counts, "test_launches": test_counts, "load_s": {"native": nat_s, "pil": pil_s},
+            "multi_load_s": {"native": mnat_s, "pil": mpil_s}, "seconds": seconds}
+
+
 def main() -> None:
     t_run = time.perf_counter()
     phase_device()
@@ -4711,6 +4945,7 @@ def main() -> None:
         phase_geometry({"vanilla": t["cfg_path"], "autodecoder": a["cfg_path"], "autoencoder": ae["cfg_path"]}, tmp)
         dg = phase_degrees(boxes, focal, t["root"], tmp)
         dp = phase_data_parallel(t["root"], a["cfg_path"], tmp)
+        dpath = phase_data_path(tmp)
     ae_launches = [x + y for x, y in zip(ae["fused"], ae_test["fused"])]  # K1, K1s, K2 on phases 11-12
 
     lv = k["levels"]
@@ -4748,6 +4983,8 @@ def main() -> None:
         # phase 28: each rank's launches in its 2-rank fit (validation) and test()
         "data_parallel_launches": [x[0] for x in dp["launches"]],
         "data_parallel_test_launches": [x[0] for x in dp["test_launches"]],
+        # phase 29: the fit on the datagen'd scene (validation) and its test() of one view
+        "data_path_launches": dpath["launches"][0], "data_path_test_launches": dpath["test_launches"][0],
     }
     flv = f["levels"]
     k1s = {
@@ -4770,6 +5007,7 @@ def main() -> None:
         "optimizer_launches": {k: v["k1s"] for k, v in opt.items() if "k1s" in v},
         # phase 28: each rank's 2-rank fit, then the one-rank NCCL run
         "data_parallel_launches": [x[1] for x in dp["launches"]] + [dp["one_rank_launches"][1]],
+        "data_path_launches": dpath["launches"][1],  # phase 29's fit
         # phase 21: one coarse and one fine launch with sigma noise, each mode,
         # timed in turns with the same launch without; phase 22: the launches
         # of the noisy training run
@@ -4800,6 +5038,7 @@ def main() -> None:
         "optimizer_launches": {k: v["k2"] for k, v in opt.items() if "k2" in v},
         # phase 28: each rank's 2-rank fit, then the one-rank NCCL run
         "data_parallel_launches": [x[2] for x in dp["launches"]] + [dp["one_rank_launches"][2]],
+        "data_path_launches": dpath["launches"][2],  # phase 29's fit
         # phase 22: the noisy training run's launches; phase 21: K2 from the
         # noisy saved and raw against its plain version (fp32: the
         # per-gradient rule's ratio; bf16: the bf16 rule's)

@@ -219,7 +219,7 @@ def test_trainer_refuses_what_the_autodecoder_does_not_run(tmp_path):
     for overrides in ({"exp_type": "vanilla_ae_art", "ae_encode_reuse": 2}, {"latent_lr": 1e-3},
                       {"shard_scene_buffers": False}):
         _check_supported(config.load_config(None, {**base, **overrides}))
-    root = synthetic.write_single_scene(str(tmp_path / "single"), img_wh=WH, n_train=1, n_val=1, n_test=0)
+    root = synthetic.generate_single_scene(str(tmp_path / "single"), img_wh=WH, n_train=1, n_val=1, n_test=0)
     vanilla = Trainer(config.load_config(None, {"root_dir": root, "output_path": str(tmp_path / "out"),
                                                 "img_wh": list(WH), "platform": "cpu"}))
     try:

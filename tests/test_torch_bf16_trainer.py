@@ -23,7 +23,7 @@ torch.set_num_threads(2)
 
 
 def test_fast_preset_trains_validates_and_checkpoints_fp32(tmp_path):
-    root = synthetic.write_single_scene(str(tmp_path / "scene"), img_wh=(16, 12), n_train=2, n_val=1, n_test=1)
+    root = synthetic.generate_single_scene(str(tmp_path / "scene"), img_wh=(16, 12), n_train=2, n_val=1, n_test=1)
     with open(FAST) as f:
         preset = json.load(f)
     assert (preset["compute_dtype"], preset["batch_size"], preset["grad_clip"], preset["chunk"]) == ("bf16", 224, 1.0, 256)

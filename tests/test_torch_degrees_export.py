@@ -16,7 +16,7 @@ torch.set_num_threads(2)
 
 
 def test_vanilla_export_at_other_degrees_matches_the_jax_tool(tmp_path, capsys):
-    root = synthetic.write_single_scene(str(tmp_path / "scene"), img_wh=WH, n_train=2, n_val=1, n_test=0)
+    root = synthetic.generate_single_scene(str(tmp_path / "scene"), img_wh=WH, n_train=2, n_val=1, n_test=0)
     # lr 1e-3: at the default tests' 5e-3 two steps leave this field's density 0 everywhere, and the tools
     # would agree on an empty grid
     settings = _small(root, tmp_path / "out", min_deg_point=0, max_deg_point=8, deg_view=2, lr_init=1e-3)

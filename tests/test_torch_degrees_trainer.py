@@ -28,8 +28,8 @@ DEG = {"min_deg_point": 0, "max_deg_point": 8, "deg_view": 2}  # encoded widths 
 
 @pytest.fixture(scope="module")
 def scene(tmp_path_factory):
-    return synthetic.write_single_scene(str(tmp_path_factory.mktemp("scene")), img_wh=(16, 12), n_train=2,
-                                        n_val=1, n_test=2)
+    return synthetic.generate_single_scene(str(tmp_path_factory.mktemp("scene")), img_wh=(16, 12), n_train=2,
+                                           n_val=1, n_test=2)
 
 
 def _settings(root, out, name, **extra):

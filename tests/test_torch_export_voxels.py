@@ -25,7 +25,7 @@ def _small(root, out, **extra):
 
 
 def test_vanilla_export_matches_the_jax_tool(tmp_path, capsys):
-    root = synthetic.write_single_scene(str(tmp_path / "scene"), img_wh=WH, n_train=2, n_val=1, n_test=0)
+    root = synthetic.generate_single_scene(str(tmp_path / "scene"), img_wh=WH, n_train=2, n_val=1, n_test=0)
     paths, grid = train_and_bridge(_small(root, tmp_path / "out"), tmp_path)
     got = run_both(paths, tmp_path, capsys, gap_level(grid))
     assert got["occupied"] > 0 and got["mesh_faces"] > 0
@@ -46,7 +46,7 @@ def test_autodecoder_export_matches_the_jax_tool(tmp_path, capsys):
 
 
 def test_export_refuses_without_a_card_or_a_checkpoint(tmp_path):
-    root = synthetic.write_single_scene(str(tmp_path / "scene"), img_wh=WH, n_train=1, n_val=1, n_test=0)
+    root = synthetic.generate_single_scene(str(tmp_path / "scene"), img_wh=WH, n_train=1, n_val=1, n_test=0)
     path = tmp_path / "cfg.json"
     path.write_text(__import__("json").dumps({**_small(root, tmp_path / "out"), "platform": None}))
     argv = ["--config", str(path), "--out", str(tmp_path / "occ.ply")]

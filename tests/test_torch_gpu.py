@@ -298,9 +298,9 @@ def test_train_cli_goes_through_the_kernels(cuda, tmp_path):
     import json
 
     from aonerf_torch.cli import train as cli
-    from aonerf_torch.data.synthetic import write_single_scene
+    from aonerf_torch.data.synthetic import generate_single_scene
 
-    root = write_single_scene(str(tmp_path / "scene"), img_wh=(16, 12), n_train=2, n_val=1, n_test=0)
+    root = generate_single_scene(str(tmp_path / "scene"), img_wh=(16, 12), n_train=2, n_val=1, n_test=0)
     cfg = {
         "root_dir": root, "output_path": str(tmp_path / "out"), "exp_name": "gpu", "img_wh": [16, 12],
         "num_coarse_samples": 64, "num_fine_samples": 128, "batch_size": 64, "chunk": 64,
@@ -325,13 +325,13 @@ def test_test_path_goes_through_the_kernel(cuda, tmp_path, monkeypatch):
     from unittest import mock
 
     from aonerf_torch.cli import train as cli
-    from aonerf_torch.data.synthetic import write_single_scene
+    from aonerf_torch.data.synthetic import generate_single_scene
     from aonerf_torch.models import nerf as nerf_mod
     from aonerf_torch.train.loop import Trainer
     from aonerf_torch.utils.config import load_config
 
     monkeypatch.delenv("AONERF_LPIPS_WEIGHTS", raising=False)
-    root = write_single_scene(str(tmp_path / "scene"), img_wh=(16, 12), n_train=2, n_val=1, n_test=2)
+    root = generate_single_scene(str(tmp_path / "scene"), img_wh=(16, 12), n_train=2, n_val=1, n_test=2)
     cfg = {
         "root_dir": root, "output_path": str(tmp_path / "out"), "exp_name": "gpu", "img_wh": [16, 12],
         "num_coarse_samples": 64, "num_fine_samples": 128, "batch_size": 64, "chunk": 64,
@@ -1030,9 +1030,9 @@ def test_bf16_train_cli_goes_through_the_kernels(cuda, tmp_path):
     import os
 
     from aonerf_torch.cli import train as cli
-    from aonerf_torch.data.synthetic import write_single_scene
+    from aonerf_torch.data.synthetic import generate_single_scene
 
-    root = write_single_scene(str(tmp_path / "scene"), img_wh=(16, 12), n_train=2, n_val=1, n_test=1)
+    root = generate_single_scene(str(tmp_path / "scene"), img_wh=(16, 12), n_train=2, n_val=1, n_test=1)
     fast = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "config", "vanilla_tpu_fast.json")
     overrides = {"root_dir": root, "output_path": str(tmp_path / "out"), "img_wh": [16, 12], "inner_steps": 5,
                  "lr_delay_steps": 0, "val_every_steps": 10, "ckpt_every_steps": 10, "limit_val_batches": 1}
@@ -1445,9 +1445,9 @@ def _ddp_config(root, out, name):
 
 
 def _ddp_scene(tmp_path):
-    from aonerf_torch.data.synthetic import write_single_scene
+    from aonerf_torch.data.synthetic import generate_single_scene
 
-    return write_single_scene(str(tmp_path / "scene"), img_wh=(16, 12), n_train=2, n_val=1, n_test=3)
+    return generate_single_scene(str(tmp_path / "scene"), img_wh=(16, 12), n_train=2, n_val=1, n_test=3)
 
 
 def test_ddp_one_rank_under_nccl_is_the_one_device_trainer(cuda, tmp_path):

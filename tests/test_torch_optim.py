@@ -246,7 +246,7 @@ RESUME = {
 @pytest.fixture(scope="module")
 def scenes(tmp_path_factory):
     base = tmp_path_factory.mktemp("scenes")
-    single = synthetic.write_single_scene(str(base / "single"), img_wh=(16, 12), n_train=2, n_val=1, n_test=0)
+    single = synthetic.generate_single_scene(str(base / "single"), img_wh=(16, 12), n_train=2, n_val=1, n_test=0)
     multi = synthetic.generate_multi_scene(str(base / "multi"), img_wh=(16, 12), n_instances=2, degrees=(0, 10),
                                            n_images=2)
     return {"single": single, "multi": multi}

@@ -53,7 +53,7 @@ def _vanilla(root, out, name):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("ddp_trainer")
-    scene = synthetic.write_single_scene(str(tmp / "scene"), img_wh=WH, n_train=2, n_val=1, n_test=N_TEST)
+    scene = synthetic.generate_single_scene(str(tmp / "scene"), img_wh=WH, n_train=2, n_val=1, n_test=N_TEST)
     multi = synthetic.generate_multi_scene(str(tmp / "multi"), img_wh=WH, n_instances=2, degrees=(0, 10, 20),
                                            n_images=3)
     ragged = synthetic.generate_multi_scene(str(tmp / "ragged"), img_wh=(64, 48), n_instances=2,

@@ -37,8 +37,8 @@ WH = (16, 12)
 
 @pytest.fixture(scope="module")
 def scene(tmp_path_factory):
-    return synthetic.write_single_scene(str(tmp_path_factory.mktemp("scene")), img_wh=WH, n_train=2, n_val=1,
-                                        n_test=0)
+    return synthetic.generate_single_scene(str(tmp_path_factory.mktemp("scene")), img_wh=WH, n_train=2, n_val=1,
+                                           n_test=0)
 
 
 def _settings(root, out, name, **extra):

@@ -41,7 +41,7 @@ def _video(files):
 
 def test_test_matches_the_jax_trainer(tmp_path, monkeypatch):
     monkeypatch.delenv("AONERF_LPIPS_WEIGHTS", raising=False)
-    root = synthetic.write_single_scene(str(tmp_path / "scene"), img_wh=(16, 12), n_train=1, n_val=1, n_test=2)
+    root = synthetic.generate_single_scene(str(tmp_path / "scene"), img_wh=(16, 12), n_train=1, n_val=1, n_test=2)
     settings = _settings(root, tmp_path / "out", "jax")
 
     jtrainer = JaxTrainer(jconfig.load_config(None, settings))
@@ -86,7 +86,7 @@ def test_test_matches_the_jax_trainer(tmp_path, monkeypatch):
 
 def test_cli_run_eval_restores_and_writes_under_save_path(tmp_path, monkeypatch, capsys):
     monkeypatch.delenv("AONERF_LPIPS_WEIGHTS", raising=False)
-    root = synthetic.write_single_scene(str(tmp_path / "scene"), img_wh=(16, 12), n_train=2, n_val=1, n_test=2)
+    root = synthetic.generate_single_scene(str(tmp_path / "scene"), img_wh=(16, 12), n_train=2, n_val=1, n_test=2)
     settings = _settings(root, tmp_path / "out", "cli")
     del settings["run_eval"]
     cfg_path = tmp_path / "cfg.json"
@@ -127,7 +127,7 @@ def test_test_scores_lpips_from_exported_weights(tmp_path, monkeypatch):
     # does, on a 32x24 scene (VGG's fifth tap needs 16 pixels a side) with
     # bridged weights and random LPIPS weights of narrow widths. The renders
     # agree within ~1.5e-5 (above); LPIPS within 1e-4 relative.
-    root = synthetic.write_single_scene(str(tmp_path / "scene"), img_wh=(32, 24), n_train=1, n_val=1, n_test=2)
+    root = synthetic.generate_single_scene(str(tmp_path / "scene"), img_wh=(32, 24), n_train=1, n_val=1, n_test=2)
     weights = tmp_path / "lpips.npz"
     lpips.write_random_weights(str(weights), seed=0, widths=(8, 8, 16, 16, 32, 32, 32, 64, 64, 64, 64, 64, 64))
     monkeypatch.setenv("AONERF_LPIPS_WEIGHTS", str(weights))

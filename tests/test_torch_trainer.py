@@ -87,7 +87,7 @@ def test_cli_trains_checkpoints_and_resumes(tmp_path):
 def test_trainer_loads_a_checkpoint_from_another_run(tmp_path, source):
     # ckpt_path restores the whole state; weight_path the params only, with
     # the step and the optimizer starting fresh (aonerf/train/loop.py:259-269)
-    root = synthetic.write_single_scene(str(tmp_path / "scene"), img_wh=(16, 12), n_train=2, n_val=1, n_test=0)
+    root = synthetic.generate_single_scene(str(tmp_path / "scene"), img_wh=(16, 12), n_train=2, n_val=1, n_test=0)
     base = {"root_dir": root, "output_path": str(tmp_path / "out"), "img_wh": [16, 12], "platform": "cpu",
             "num_coarse_samples": 4, "num_fine_samples": 8, "batch_size": 16, "inner_steps": 2}
     first = Trainer(config.load_config(None, {**base, "exp_name": "first"}))
@@ -176,7 +176,7 @@ def test_code_aliases_land_in_the_config():
 
 
 def test_write_single_scene_matches_jax_generator(tmp_path):
-    a = synthetic.write_single_scene(str(tmp_path / "port"), img_wh=(16, 12), n_train=2, n_val=1, n_test=1)
+    a = synthetic.generate_single_scene(str(tmp_path / "port"), img_wh=(16, 12), n_train=2, n_val=1, n_test=1)
     b = jsyn.generate_single_scene(str(tmp_path / "jax"), img_wh=(16, 12), n_train=2, n_val=1, n_test=1)
     for split in ("train", "val", "test"):
         with open(os.path.join(a, split, "transforms.json")) as f, open(os.path.join(b, split, "transforms.json")) as g:

@@ -17,7 +17,7 @@ sys.path.insert(0, os.getcwd())
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
-from aonerf_torch.data.synthetic import write_single_scene  # noqa: E402
+from aonerf_torch.data.synthetic import generate_single_scene  # noqa: E402
 from aonerf_torch.train.loop import Trainer  # noqa: E402
 from aonerf_torch.utils.config import load_config  # noqa: E402
 from aonerf_torch.utils.profile import latest_trace, timed_ops  # noqa: E402
@@ -35,8 +35,8 @@ def settled(self):
 def main():
     cs.phase_device()
     with tempfile.TemporaryDirectory() as tmp:
-        root = write_single_scene(os.path.join(tmp, "scene"), img_wh=(cs.W, cs.H), n_train=8, n_val=1, n_test=1,
-                                  seed=cs.SEED)
+        root = generate_single_scene(os.path.join(tmp, "scene"), img_wh=(cs.W, cs.H), n_train=8, n_val=1, n_test=1,
+                                     seed=cs.SEED)
         counts = {False: [], True: []}
         for i in range(28):
             settle = i % 2 == 1

@@ -309,13 +309,13 @@ def time_train_step(device, config: str = "vanilla.json", overrides: dict = None
     """ms per step of ``config`` (with ``overrides``) over ``multi_steps``
     multi-steps after an untimed one; with ``busy``, also the card's busy ms
     a step over one more multi-step, profiled."""
-    from aonerf_torch.data.synthetic import write_single_scene
+    from aonerf_torch.data.synthetic import generate_single_scene
     from aonerf_torch.train.loop import Trainer
     from aonerf_torch.utils.config import load_config
 
     with tempfile.TemporaryDirectory() as tmp:
-        root = write_single_scene(os.path.join(tmp, "scene"), img_wh=(320, 240), n_train=8, n_val=1, n_test=0,
-                                  seed=0)
+        root = generate_single_scene(os.path.join(tmp, "scene"), img_wh=(320, 240), n_train=8, n_val=1, n_test=0,
+                                     seed=0)
         cfg = load_config(os.path.join(ROOT, "config", config), {
             "root_dir": root, "output_path": os.path.join(tmp, "out"), "exp_name": "compare",
             "img_wh": [320, 240], "lr_init": 1e-3, "lr_delay_steps": 0, "seed": 0, **(overrides or {}),
